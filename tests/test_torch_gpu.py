@@ -1,0 +1,105 @@
+"""Tests of the port that need a CUDA device (marked `gpu`; they skip elsewhere).
+
+This file imports neither JAX nor the JAX package, so it also runs on a GPU
+machine without them:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+"""
+
+import pytest
+import torch
+
+from madeleine_torch.config import MadeleineConfig
+from madeleine_torch.models.abmil import abmil_embed, encoder_weights
+from madeleine_torch.models.madeleine import MADELEINE, init_madeleine
+from madeleine_torch.ops import encode_fused as ef
+from madeleine_torch.ops import gated_pool as gp
+from madeleine_torch.ops.attn_pool import mask_bias
+
+pytestmark = pytest.mark.gpu
+
+PEAK_WC_SCALE = 16.0   # as chip_smoke.py: attention logits spread by several units
+
+
+@pytest.fixture()
+def cuda_device():
+    """Decided inside the fixture, so every test worker collects the same tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from madeleine_torch.utils.device import resolve_device
+
+    return resolve_device("cuda")
+
+
+def _model(device, precision="bfloat16"):
+    cfg = MadeleineConfig(precision=precision).finalize()   # published widths
+    return init_madeleine(MADELEINE(cfg), torch.Generator().manual_seed(0)).to(device).eval()
+
+
+def _bags(device, lengths, t, dtype):
+    x = torch.randn(len(lengths), t, 512, generator=torch.Generator().manual_seed(1))
+    mask = torch.arange(t)[None, :] < torch.as_tensor(lengths)[:, None]
+    return x.to(device, dtype), mask.to(device)
+
+
+@pytest.mark.parametrize("wc_scale", [1.0, PEAK_WC_SCALE])
+def test_encode_fused_kernel_matches_plain(cuda_device, wc_scale):
+    """bf16, atol 3e-2 on the bf16 output; a partial last tile and an empty bag.
+    At the init's scale the logits spread by well under one unit and the pool
+    is nearly uniform; scaling wc spreads them by several units, so a kernel
+    whose gates or logits were wrong would miss the bar. The control: the
+    uniform pool (wc = 0) must differ from the peaked one by more than atol."""
+    atol = 3e-2
+    model = _model(cuda_device)
+    w = ef.kernel_weights(encoder_weights(model.wsi_embedders), torch.bfloat16)
+    w["wc"] = w["wc"] * wc_scale
+    x, mask = _bags(cuda_device, [1000, 613, 0], 1000, torch.bfloat16)
+    bias = mask_bias(mask, 3, 1000, 4, cuda_device)
+    got = ef.encode_fused_cuda(x, bias, w)
+    want = ef.encode_pool_fused_plain(x, bias, w)
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    assert (got[2] == 0).all()
+    if wc_scale != 1.0:
+        uniform = ef.encode_pool_fused_plain(x, bias, dict(w, wc=torch.zeros_like(w["wc"])))
+        assert (uniform.float() - want.float()).abs().max().item() > atol
+
+
+def test_gated_pool_kernel_matches_plain(cuda_device):
+    """f32, rtol 1e-4 / atol 1e-5."""
+    g = torch.Generator().manual_seed(0)
+    nh, e, f, b, t = 4, 512, 512, 2, 300
+    w = {"wa": torch.randn(nh, f, e, generator=g) / e ** 0.5,
+         "ba": torch.randn(nh, f, generator=g) * 0.1,
+         "wb": torch.randn(nh, f, e, generator=g) / e ** 0.5,
+         "bb": torch.randn(nh, f, generator=g) * 0.1,
+         "wc": torch.randn(nh, f, generator=g) / f ** 0.5,
+         "bc": torch.randn(nh, generator=g)}
+    w = {k: v.to(cuda_device) for k, v in w.items()}
+    y = torch.randn(b, t, nh * e, generator=g).to(cuda_device)
+    mask = (torch.arange(t)[None, :] < torch.tensor([[300], [77]])).to(cuda_device)
+    bias = mask_bias(mask, b, t, nh, cuda_device)
+    torch.testing.assert_close(gp.gated_pool_cuda(y, bias, **w),
+                               gp.gated_attention_pool_plain(y, bias, **w),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,kernel,atol", [(torch.bfloat16, ef, 3e-2),
+                                               (torch.float32, gp, 1e-5)])
+def test_abmil_embed_routes_cuda_tensors_through_the_kernels(cuda_device, dtype, kernel, atol):
+    model = _model(cuda_device)
+    x, mask = _bags(cuda_device, [700, 64], 700, dtype)
+    before = kernel.launches
+    got = abmil_embed(model.wsi_embedders, x, mask=mask)
+    assert kernel.launches == before + 1
+    # the composable f32 path, which CPU tensors take
+    want = abmil_embed(_model("cpu").wsi_embedders, x.float().cpu(), mask=mask.cpu())
+    torch.testing.assert_close(got.float().cpu(), want, rtol=1e-4 if atol < 1e-4 else 0,
+                               atol=atol)
+
+
+def test_kernels_raise_instead_of_falling_back(cuda_device):
+    model = _model(cuda_device)
+    w = ef.kernel_weights(encoder_weights(model.wsi_embedders), torch.bfloat16)
+    x, _ = _bags(cuda_device, [64], 64, torch.float32)
+    with pytest.raises(ValueError, match="bf16"):
+        ef.encode_fused_cuda(x, mask_bias(None, 1, 64, 4, cuda_device), w)

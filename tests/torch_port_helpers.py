@@ -1,0 +1,93 @@
+"""Shared set-up for the tests that hold `madeleine_torch` against `madeleine_tpu`.
+
+The same numpy arrays, made from a seed, go to the JAX function and to its
+PyTorch counterpart; JAX parameter trees cross over through
+`madeleine_torch.models.factory.params_from_jax`.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import jax
+import numpy as np
+import torch
+
+from madeleine_tpu.config import MadeleineConfig as JaxConfig
+from madeleine_tpu.models.madeleine import init_madeleine_params
+from madeleine_torch.config import HE_POSITION, MadeleineConfig
+from madeleine_torch.models.abmil import encoder_weights, pre_attn_mlp
+from madeleine_torch.models.factory import params_from_jax
+from madeleine_torch.models.madeleine import MADELEINE, _append_stain_encoding, _project
+from madeleine_torch.ops.encode_fused import encode_pool_fused
+from madeleine_torch.ops.gated_pool import gated_attention_pool
+
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+
+# small widths: d_in 64, hidden 128, 2 heads, attention width 64
+SMALL = dict(patch_embedding_dim=64, wsi_encoder_hidden_dim=128,
+             attention_hidden_dim=64, n_heads=2, precision="float32",
+             dataset="__test__", MODALITIES=["HE", "HER2", "PGR"])
+
+
+def configs(**overrides):
+    """(JAX config, port config) with equal fields."""
+    fields = dict(SMALL, **overrides)
+    return JaxConfig(**fields).finalize(), MadeleineConfig(**fields).finalize()
+
+
+def jax_params(cfg, seed: int = 0):
+    """JAX init as numpy, with LayerNorm affines perturbed so that the scale
+    and shift paths (and the head-major permutation of ln3) are exercised."""
+    params = jax.tree_util.tree_map(
+        np.asarray, init_madeleine_params(jax.random.PRNGKey(seed), cfg))
+    rng = np.random.default_rng(seed + 100)
+    for ln in ("ln1", "ln2", "ln3"):
+        p = params["wsi_embedders"]["pre_attn"][ln]
+        p["scale"] = (1.0 + 0.1 * rng.standard_normal(p["scale"].shape)).astype(np.float32)
+        p["bias"] = (0.1 * rng.standard_normal(p["bias"].shape)).astype(np.float32)
+    return params
+
+
+def port_model(cfg, params) -> MADELEINE:
+    model = MADELEINE(cfg)
+    model.load_state_dict(params_from_jax(params), strict=True)
+    return model.eval()
+
+
+def ragged_mask(lengths, t: int) -> np.ndarray:
+    return np.arange(t)[None, :] < np.asarray(lengths)[:, None]
+
+
+def flagship_state_dict(**kw):
+    sys.path.insert(0, GOLDEN_DIR)
+    try:
+        from generate import flagship_state_dict as fsd
+    finally:
+        sys.path.remove(GOLDEN_DIR)
+    return fsd(**kw)
+
+
+def to_torch(x: np.ndarray, dtype=torch.float32) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x)).to(dtype)
+
+
+@torch.no_grad()
+def kernel_route_encode(model: MADELEINE, feats: torch.Tensor, *, stain_idx: int = HE_POSITION,
+                        mask=None) -> torch.Tensor:
+    """`encode` by the route a CUDA tensor takes in `abmil_embed`, called on
+    CPU tensors so that each kernel wrapper runs its plain version: bf16 ->
+    encode_pool_fused (K1); f32 -> pre_attn_mlp, then gated_attention_pool (K2)."""
+    if model.cfg.add_stain_encoding:
+        feats = _append_stain_encoding(model, feats, stain_idx)
+    emb = model.wsi_embedders
+    w = encoder_weights(emb)
+    if feats.dtype == torch.bfloat16:
+        pooled = encode_pool_fused(w, feats, mask)
+    else:
+        y = pre_attn_mlp(w, feats)
+        pooled = gated_attention_pool(
+            w, y.reshape(*y.shape[:-1], emb.n_heads, emb.hidden_dim), mask)
+    return _project(model, pooled)
+
