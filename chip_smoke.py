@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                       # every phase (what CI runs)
     python3 chip_smoke.py --phases device,build,kernels
+    python3 chip_smoke.py --phases device,build,train_kernels,train
 
 Phases, one JSON line each; any failure raises and the exit code is non-zero:
   device   card name and the nvidia-smi name/power-limit line
@@ -19,6 +20,22 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
   serve    EmbeddingService at bf16 behind the HTTP front: 16 ragged requests
            (300-9000 tokens), each equal to a direct encode; K1 must launch
   extract  the extraction CLI in-process at f32 over 16 .npz bags; K2 must launch
+  train_kernels
+           K6 (encoder_train_fwd) and K7 (encoder_train_bwd), bf16: each
+           against its plain version at dropout rates 0 and (0.1, 0.25) with
+           identical masks, a random pooled cotangent and dtok, flagship and
+           peaked weights (with the uniform-pool control), at b=8, t=4096
+           ragged and at t=4057 with a bag valid only around its partial last
+           tile (with a dropped-tile control); then at the train step's call
+           shape [65, 2048] at the real rates. Both kernels run twice and must
+           agree bitwise. Timed at b=8, t=4096 and at [65, 2048]
+  train    5 steps of make_train_step at full width (65 cases x 5 stains x
+           2048 tokens, bf16, InfoNCE, dropout on) on one fixed synthetic
+           batch: no step skipped, finite losses, the last below the first;
+           K6/K7 must launch on every step
+  profile  torch.profiler device time by kernel of one K6 and one K7 call at
+           [65, 2048] and of one full-width train step, with the step's
+           device idle share
 Then a {"kernels": [...]} summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs CUDA and the repo checkout around it.
 """
@@ -41,7 +58,8 @@ import urllib.request
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "golden", "serve", "extract")
+PHASES = ("device", "build", "kernels", "train_kernels", "golden", "serve", "extract", "train",
+          "profile")
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -117,16 +135,20 @@ def write_model_dir(root: str, precision: str) -> str:
 
 
 def reset_counts():
-    from madeleine_torch.ops import encode_fused, gated_pool
+    from madeleine_torch.ops import encode_fused, encoder_train, gated_pool
 
     encode_fused.launches = 0
     gated_pool.launches = 0
+    encoder_train.fwd_launches = 0
+    encoder_train.bwd_launches = 0
 
 
 def read_counts() -> dict:
-    from madeleine_torch.ops import encode_fused, gated_pool
+    from madeleine_torch.ops import encode_fused, encoder_train, gated_pool
 
-    return {"encode_fused": encode_fused.launches, "gated_pool": gated_pool.launches}
+    return {"encode_fused": encode_fused.launches, "gated_pool": gated_pool.launches,
+            "encoder_train_fwd": encoder_train.fwd_launches,
+            "encoder_train_bwd": encoder_train.bwd_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -274,7 +296,7 @@ def phase_kernels(state):
     emb = model.wsi_embedders
     operands_ms = cuda_ms(lambda: kernel_weights(encoder_weights(emb), torch.bfloat16))
     embed_ms = cuda_ms(lambda: abmil_embed(emb, xb, mask=mask))
-    state["kernels"] = {
+    state.setdefault("kernels", {}).update({
         "encode_fused": {
             "name": "encode_fused", "route": "cuda",
             "source": "madeleine_torch/csrc/encode_fused.cu",
@@ -291,7 +313,7 @@ def phase_kernels(state):
             "bound_ms": k2_bound,
             "bound_by": "operations" if k2_flops / PEAK_FP32 >= k2_bytes / PEAK_BYTES else "bytes",
             "library_ms": None},
-    }
+    })
     emit({"phase": "kernels", "names": ["encode_fused", "gated_pool"], "b": b, "t": t,
           "lengths": lengths, "valid_tokens": tokens, "partial_tile_t": t2,
           "encode_fused": {"max_abs_err": err1, "max_abs_err_partial": err1p, "atol": 3e-2,
@@ -305,6 +327,217 @@ def phase_kernels(state):
                          "bound_ms": k2_bound, "share_of_bound": k2_bound / k2_ms,
                          "gflop": k2_flops / 1e9, "ms_all_valid": k2_dense,
                          "bound_ms_all_valid": k2_dense_bound}})
+
+
+def _encoder_train_work(b, t, w):
+    """(flops, bytes) of one K6 and one K7 call: every row of [b, t] is
+    computed (masked tokens still get token outputs and residuals)."""
+    nh, f, _ = w["wa"].shape
+    hd, d_in = w["w1"].shape
+    dout, E = w["wt"].shape
+    n = b * t
+    macs = d_in * hd + hd * hd + hd * E + 2 * E * f + E * dout
+    fwd_flops = n * 2.0 * macs
+    bwd_flops = n * 2.0 * (2 * macs - d_in * hd)     # dW for all, dX for all but layer 1
+    saved = 2 * (2 * hd + E + 2 * nh * f) + 12          # u1 u2 u3 a_pre b_pre bf16, rstd f32
+    wbytes = sum(v.numel() * v.element_size() for v in w.values())
+    fwd_bytes = n * (d_in * 2 + dout * 2 + nh * 4 + saved) + wbytes + b * E * 4
+    bwd_bytes = n * (d_in * 2 + nh * 4 + dout * 2 + saved) + wbytes + b * E * 4 + 4 * sum(
+        v.numel() for v in w.values())
+    return fwd_flops, fwd_bytes, bwd_flops, bwd_bytes
+
+
+def _bound(flops, nbytes):
+    ops, mem = flops / PEAK_BF16, nbytes / PEAK_BYTES
+    return max(ops, mem) * 1e3, ("operations" if ops >= mem else "bytes")
+
+
+GRAD_RTOL = 1e-2   # relative Frobenius bar of each K7 gradient (bf16 operands, f32 sums)
+BC_ATOL = 1e-4     # bc's exact gradient is 0 (softmax shift invariance): absolute bar
+POOLED_ATOL = 2e-3  # K6's f32 pooled output (largest error seen: 8.3e-4, peaked weights)
+OUT_ATOL = 3e-2    # K6's bf16 tokens and f32 valid logits, as K1
+TILE = 64          # K6's pool tile (csrc/encoder_train_fwd.cu POOL_TM)
+
+
+def _check_train_kernels(torch, w, x, bias, rates, gen):
+    """K6 against its plain version, then K7 against its plain version on the
+    same residuals, with a random pooled cotangent and a random dtok. K6 and
+    K7 each run twice and must give bitwise-equal results. Returns (report,
+    K6's outputs, K6's arguments, K7's arguments)."""
+    from madeleine_torch.ops import encoder_train as et
+
+    b, t, _ = x.shape
+    nh, _, e = w["wa"].shape
+    fwd_args = (x, bias, w, 1234, 0, *rates)
+    got = et.encoder_train_fwd_cuda(*fwd_args)
+    again = et.encoder_train_fwd_cuda(*fwd_args)
+    with torch.no_grad():
+        want = et.encoder_train_fwd_plain(*fwd_args)
+    torch.cuda.synchronize()
+    rep = {}
+    valid = bias == 0
+    for name, i in (("pooled", 0), ("tok", 3)):
+        if not torch.isfinite(got[i].float()).all():
+            raise AssertionError(f"encoder_train_fwd: non-finite {name}")
+        rep[f"{name}_err"] = (got[i].float() - want[i].float()).abs().max().item()
+    rep["logits_err"] = (got[4] - want[4]).abs()[valid].max().item()
+    for k, bar in (("pooled_err", POOLED_ATOL), ("tok_err", OUT_ATOL), ("logits_err", OUT_ATOL)):
+        if not rep[k] <= bar:
+            raise AssertionError(f"encoder_train_fwd {list(x.shape)} {rates}: {k} {rep[k]} "
+                                 f"> {bar}")
+    if not all(torch.equal(a, c) for a, c in zip(got[:5], again[:5])):
+        raise AssertionError("encoder_train_fwd: two launches differ")
+    del again, want
+    pooled32, m, s, _, l, saved = got
+    g = torch.from_numpy(gen.standard_normal((b, nh * e)).astype(np.float32)).cuda()
+    dtok = torch.from_numpy(gen.standard_normal((b, t, w["wt"].shape[0])).astype(np.float32)
+                            ).cuda().to(torch.bfloat16)
+    inner = (g * pooled32).reshape(b, nh, e).sum(-1)
+    bwd_args = (x, l, m, s, g, inner, dtok, saved, w, 1234, 0, *rates)
+    gk = et.encoder_train_bwd_cuda(*bwd_args)
+    gk2 = et.encoder_train_bwd_cuda(*bwd_args)
+    with torch.no_grad():
+        gp = et.encoder_train_bwd_plain(*bwd_args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(gk[k], gk2[k]) for k in et.W_KEYS):
+        raise AssertionError("encoder_train_bwd: two launches gave different gradients")
+    errs, abs_errs = {}, {}
+    for k in et.W_KEYS:
+        if not torch.isfinite(gk[k]).all():
+            raise AssertionError(f"encoder_train_bwd: non-finite d{k}")
+        diff = (gk[k] - gp[k]).float()
+        abs_errs[k] = diff.abs().max().item()
+        if k == "bc":
+            errs[k] = diff.abs().max().item()
+            ok = errs[k] <= BC_ATOL
+        else:
+            errs[k] = (diff.norm() / gp[k].float().norm().clamp_min(1e-30)).item()
+            ok = errs[k] <= GRAD_RTOL
+        if not ok:
+            raise AssertionError(f"encoder_train_bwd {list(x.shape)} {rates}: d{k} error "
+                                 f"{errs[k]}")
+    rep["grad_rel_fro"] = errs
+    rep["grad_max_rel_fro"] = max(v for k, v in errs.items() if k != "bc")
+    rep["grad_max_abs_err"] = max(abs_errs.values())
+    rep["deterministic"] = True
+    return rep, got, fwd_args, bwd_args
+
+
+def phase_train_kernels(state):
+    import torch
+    from madeleine_torch.models.madeleine import MADELEINE, train_weights
+    from madeleine_torch.config import MadeleineConfig
+    from madeleine_torch.ops import encoder_train as et
+
+    gen = np.random.default_rng(SEED + 3)
+    cfg = MadeleineConfig.from_dict(flagship_config("bfloat16"))
+    model = MADELEINE(cfg)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in flagship_state_dict().items()})
+    model = model.cuda()
+    with torch.no_grad():
+        w = {k: v.detach().contiguous() for k, v in train_weights(model, torch.bfloat16).items()}
+    weights = {"flagship": w, "peaked": dict(w, wc=(w["wc"] * PEAK_WC_SCALE).contiguous())}
+    real = (et.PRE_RATE, et.GATE_RATE)
+
+    def inputs(mask):
+        b, t = mask.shape
+        x = torch.from_numpy(gen.standard_normal((b, t, 512)).astype(np.float32)).cuda()
+        return x.to(torch.bfloat16).contiguous(), et.token_mask_bias(mask.cuda(), b, t, "cuda")
+
+    def prefix_mask(t, lengths):
+        return torch.arange(t)[None, :] < torch.as_tensor(lengths)[:, None]
+
+    b, t = 8, 4096
+    lengths = [4096, 4000, 3001, 2048, 1500, 777, 65, 0]
+    x, bias = inputs(prefix_mask(t, lengths))
+    checks, timed = {}, {}
+    for wname, ws in weights.items():
+        for rates in ((0.0, 0.0), real):
+            rep, fwd, fa, ba = _check_train_kernels(torch, ws, x, bias, rates, gen)
+            checks[f"{wname}_{rates[0]}_{rates[1]}"] = rep
+            if wname == "flagship" and rates == real:
+                timed["smoke"] = (fa, ba)
+        # control: a uniform pool (wc = 0) must miss the pooled bar
+        with torch.no_grad():
+            uni = et.encoder_train_fwd_plain(x, bias, dict(ws, wc=torch.zeros_like(ws["wc"])),
+                                             1234, 0, *rates)[0]
+        checks[f"{wname}_uniform_pool_vs_plain"] = (uni - fwd[0]).abs().max().item()
+        if not checks[f"{wname}_uniform_pool_vs_plain"] > POOLED_ATOL:
+            raise AssertionError(f"train_kernels ({wname}): control failed, a uniform pool is "
+                                 f"within {POOLED_ATOL} of the kernel's output")
+    # partial last tile: t = 4057 = 63 tiles of 64 + 25 rows. Bag 0 is valid on
+    # its last 57 tokens only (the end of tile 62 and all of tile 63), bag 1 on
+    # every token, so a pool that dropped the partial tile, or read past t into
+    # bag 1, would move bag 0's pooled output by far more than the bar
+    t2, tail_from = 4057, 4000
+    mask2 = torch.ones(2, t2, dtype=torch.bool)
+    mask2[0, :tail_from] = False
+    x2, bias2 = inputs(mask2)
+    mask_cut = mask2.clone()
+    mask_cut[:, (t2 // TILE) * TILE:] = False
+    bias_cut = et.token_mask_bias(mask_cut.cuda(), 2, t2, "cuda")
+    for wname, ws in weights.items():
+        for rates in ((0.0, 0.0), real):
+            checks[f"partial_t_{wname}_{rates[0]}_{rates[1]}"], fwd, _, _ = \
+                _check_train_kernels(torch, ws, x2, bias2, rates, gen)
+        # control: the plain pool without the partial tile must miss the pooled bar
+        with torch.no_grad():
+            cut = et.encoder_train_fwd_plain(x2, bias_cut, ws, 1234, 0, *rates)[0]
+        checks[f"partial_t_{wname}_tail_dropped_vs_plain"] = (cut - fwd[0]).abs().max().item()
+        if not checks[f"partial_t_{wname}_tail_dropped_vs_plain"] > POOLED_ATOL:
+            raise AssertionError(f"train_kernels ({wname}): control failed, dropping the "
+                                 f"partial tile stays within {POOLED_ATOL}")
+    del x2, bias2, bias_cut, fwd
+
+    # the train step's call shape [65, 2048], every token valid, real rates:
+    # checked as above, then timed with the smoke shape
+    xs, bs_ = inputs(torch.ones(65, 2048, dtype=torch.bool))
+    checks[f"step_call_{real[0]}_{real[1]}"], _, fa, ba = _check_train_kernels(
+        torch, w, xs, bs_, real, gen)
+    timed["step_call"] = (fa, ba)
+    del xs, bs_, fa, ba
+
+    times = {}
+    for shape_name, (fa, ba) in timed.items():
+        bb, tt = fa[0].shape[:2]
+        k6 = cuda_ms(lambda: et.encoder_train_fwd_cuda(*fa))
+        k7 = cuda_ms(lambda: et.encoder_train_bwd_cuda(*ba))
+        with torch.no_grad():
+            k6p = cuda_ms(lambda: et.encoder_train_fwd_plain(*fa), warmup=1, iters=5)
+            k7p = cuda_ms(lambda: et.encoder_train_bwd_plain(*ba), warmup=1, iters=5)
+        ff, fb, bf, bb_ = _encoder_train_work(bb, tt, w)
+        (k6b, k6by), (k7b, k7by) = _bound(ff, fb), _bound(bf, bb_)
+        times[shape_name] = {"b": bb, "t": tt, "fwd_ms": k6, "fwd_plain_ms": k6p,
+                             "fwd_bound_ms": k6b, "fwd_bound_by": k6by,
+                             "fwd_share_of_bound": k6b / k6, "bwd_ms": k7,
+                             "bwd_plain_ms": k7p, "bwd_bound_ms": k7b, "bwd_bound_by": k7by,
+                             "bwd_share_of_bound": k7b / k7, "fwd_gflop": ff / 1e9,
+                             "bwd_gflop": bf / 1e9, "fwd_gb": fb / 1e9, "bwd_gb": bb_ / 1e9}
+    del timed, fa, ba
+    st = times["step_call"]
+    reps = [r for r in checks.values() if isinstance(r, dict)]
+    err_f = max(max(r["pooled_err"], r["tok_err"], r["logits_err"]) for r in reps)
+    err_b = max(r["grad_max_abs_err"] for r in reps)
+    state.setdefault("kernels", {}).update({
+        "encoder_train_fwd": {
+            "name": "encoder_train_fwd", "route": "cuda",
+            "source": "madeleine_torch/csrc/encoder_train_fwd.cu",
+            "replaces": "madeleine_tpu/ops/encoder_train.py:168",
+            "max_abs_err": err_f, "ms": st["fwd_ms"], "plain_ms": st["fwd_plain_ms"],
+            "bound_ms": st["fwd_bound_ms"], "bound_by": st["fwd_bound_by"],
+            "library_ms": None},
+        "encoder_train_bwd": {
+            "name": "encoder_train_bwd", "route": "cuda",
+            "source": "madeleine_torch/csrc/encoder_train_bwd.cu",
+            "replaces": "madeleine_tpu/ops/encoder_train.py:262",
+            "max_abs_err": err_b, "ms": st["bwd_ms"], "plain_ms": st["bwd_plain_ms"],
+            "bound_ms": st["bwd_bound_ms"], "bound_by": st["bwd_bound_by"],
+            "library_ms": None},
+    })
+    emit({"phase": "train_kernels", "b": b, "t": t, "lengths": lengths, "partial_tile_t": t2,
+          "partial_tile_bag0_valid_from": tail_from, "pooled_atol": POOLED_ATOL,
+          "atol_tok_logits": OUT_ATOL, "grad_rtol_fro": GRAD_RTOL, "bc_atol": BC_ATOL,
+          "checks": checks, "times": times})
 
 
 def phase_golden(state):
@@ -436,6 +669,182 @@ def phase_extract(state):
           "slides_per_s": len(ids) / wall, "launches": counts})
 
 
+TRAIN_STEPS = 5
+TRAIN_SIGNAL = 0.015  # per-case vector shared by a case's bags (alignment is learnable)
+
+
+def train_path_config():
+    """The canonical pretraining run's settings at full width (ref:
+    scripts/launch_pretrain_withoutStainEncodings.sh), InfoNCE only (the CLI's
+    default --local_loss -1), warmup off so the learning rate is not ~1e-9."""
+    from madeleine_torch.config import MadeleineConfig
+
+    return MadeleineConfig.from_dict(dict(
+        flagship_config("bfloat16"), local_loss="-1", global_loss="info-nce",
+        symmetric_cl=True, temperature=0.001, lr=1e-4, end_learning_rate=1e-8,
+        weight_decay=0.01, warmup=False, max_epochs=120, batch_size=65, n_subsamples=2048,
+        modality_scan=True))
+
+
+def synthetic_train_batch(torch, cfg, seed: int, signal: float = TRAIN_SIGNAL):
+    """[bs, n_mod, t, d] bf16 on the card, made from `seed` on the card: noise
+    plus a per-case vector shared by every stain of the case; every stain
+    present."""
+    bs, n_mod, t, d = cfg.batch_size, cfg.n_modalities, cfg.n_subsamples, cfg.input_dim
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    case = torch.randn(bs, 1, 1, d, generator=g, device="cuda")
+    feats = torch.randn(bs, n_mod, t, d, generator=g, device="cuda").add_(signal * case)
+    return {"feats": feats.to(torch.bfloat16),
+            "modality_labels": torch.ones(bs, n_mod, device="cuda"),
+            "sample_mask": torch.ones(bs, dtype=torch.bool, device="cuda")}
+
+
+def _train_setup(torch):
+    """(cfg, model, step, batch): the path's model from SEED, its AdamW and
+    train step, and one synthetic full-width batch."""
+    from madeleine_torch.models.factory import create_model
+    from madeleine_torch.train.optim import make_optimizer
+    from madeleine_torch.train.trainer import make_train_step
+
+    cfg = train_path_config()
+    _, model = create_model(cfg, seed=SEED, device="cuda")
+    opt, sched = make_optimizer(cfg, model.parameters(), steps_per_epoch=TRAIN_STEPS)
+    return cfg, model, make_train_step(cfg, model, opt, sched), synthetic_train_batch(
+        torch, cfg, SEED + 4)
+
+
+def phase_train(state):
+    """TRAIN_STEPS steps of the single-device train step at full width on one
+    fixed batch, through make_train_step (kernels K6/K7 for the encoder)."""
+    import torch
+    from madeleine_torch.ops import encoder_train as et
+    from madeleine_torch.train.trainer import step_seed
+
+    cfg, model, step, batch = _train_setup(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, skipped, step_ms = [], [], []
+    for i in range(TRAIN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, metrics = step(batch, step_seed(SEED, 0, i))
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+        skipped.append(bool(metrics["skipped"]))
+        emit({"phase": "train", "step": i, "loss": losses[-1], "skipped": skipped[-1],
+              "lr": metrics["lr"], "step_ms": step_ms[-1]})
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    state["launches_train"] = counts
+    if any(skipped) or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train: skipped {skipped}, losses {losses}")
+    if counts["encoder_train_fwd"] < TRAIN_STEPS or counts["encoder_train_bwd"] < TRAIN_STEPS:
+        raise AssertionError(f"train: K6/K7 were not launched on every step ({counts})")
+    # K6 and K7 alone at the path's call shape, with the model's operands
+    with torch.no_grad():
+        from madeleine_torch.models.madeleine import train_weights
+
+        w = {k: v.detach().contiguous() for k, v in train_weights(model, torch.bfloat16).items()}
+        x = batch["feats"][:, 0].contiguous()
+        bias = et.token_mask_bias(None, x.shape[0], x.shape[1], "cuda")
+        rates = (et.PRE_RATE, et.GATE_RATE)
+        pooled32, m, s, _, l, saved = et.encoder_train_fwd_cuda(x, bias, w, 1, 0, *rates)
+        g = torch.randn_like(pooled32)
+        inner = (g * pooled32).reshape(x.shape[0], cfg.n_heads, -1).sum(-1)
+        dtok = torch.zeros(*x.shape[:2], w["wt"].shape[0], device="cuda", dtype=torch.bfloat16)
+        args = (x, l, m, s, g, inner, dtok, saved, w, 1, 0, *rates)
+        k6 = cuda_ms(lambda: et.encoder_train_fwd_cuda(x, bias, w, 1, 0, *rates))
+        k7 = cuda_ms(lambda: et.encoder_train_bwd_cuda(*args))
+    n_mod = cfg.n_modalities
+    ff, fb, bf, bb = _encoder_train_work(x.shape[0], x.shape[1], w)
+    enc_bound = n_mod * (_bound(ff, fb)[0] + _bound(bf, bb)[0])
+    steady = statistics.median(step_ms[1:])
+    emit({"phase": "train", "steps": TRAIN_STEPS, "batch": [cfg.batch_size, n_mod,
+          cfg.n_subsamples, cfg.input_dim], "losses": losses, "skipped": skipped,
+          "step_ms": step_ms, "step_ms_median_after_first": steady,
+          "peak_memory_gb": peak / 1e9, "launches": counts,
+          "launches_per_step": {k: v / TRAIN_STEPS for k, v in counts.items()},
+          "k6_ms_call": k6, "k7_ms_call": k7, "encoder_ms_per_step": n_mod * (k6 + k7),
+          "encoder_share_of_step": n_mod * (k6 + k7) / steady,
+          "encoder_bound_ms_per_step": enc_bound})
+
+
+def _profile_rows(prof):
+    """[(kernel name, launches, device ms)] of a torch.profiler run, longest first."""
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if us:
+            rows.append((ev.key[:90], ev.count, us / 1e3))
+    return sorted(rows, key=lambda r: -r[2])
+
+
+def phase_profile(state):
+    """Device time by kernel of one K6 and one K7 call at the train step's
+    call shape [65, 2048] (torch.profiler, CUDA activity), flagship weights."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from madeleine_torch.models.madeleine import MADELEINE, train_weights
+    from madeleine_torch.config import MadeleineConfig
+    from madeleine_torch.ops import encoder_train as et
+
+    cfg = MadeleineConfig.from_dict(flagship_config("bfloat16"))
+    model = MADELEINE(cfg)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in flagship_state_dict().items()})
+    with torch.no_grad():
+        w = {k: v.detach().contiguous().cuda()
+             for k, v in train_weights(model, torch.bfloat16).items()}
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        x = torch.randn(65, 2048, 512, generator=g, device="cuda").to(torch.bfloat16)
+        bias = et.token_mask_bias(None, 65, 2048, "cuda")
+        rates = (et.PRE_RATE, et.GATE_RATE)
+        out = {}
+        for name in ("fwd", "bwd"):
+            def run():
+                fwd = et.encoder_train_fwd_cuda(x, bias, w, 1, 0, *rates)
+                if name == "bwd":
+                    pooled32, m, s, _, l, saved = fwd
+                    gp = torch.randn_like(pooled32)
+                    inner = (gp * pooled32).reshape(65, 4, -1).sum(-1)
+                    dtok = torch.zeros(65, 2048, 128, device="cuda", dtype=torch.bfloat16)
+                    torch.cuda.synchronize()
+                    return lambda: et.encoder_train_bwd_cuda(x, l, m, s, gp, inner, dtok, saved,
+                                                             w, 1, 0, *rates)
+                return lambda: et.encoder_train_fwd_cuda(x, bias, w, 1, 0, *rates)
+            fn = run()
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            rows = _profile_rows(prof)
+            out[name] = {"total_ms": sum(r[2] for r in rows),
+                         "by_kernel_ms": [[k, c, ms] for k, c, ms in rows[:16]]}
+    del x, w
+    # one full-width train step (after two unprofiled ones): device time by
+    # kernel against the step's wall time on the CUDA-event clock
+    _, _, step, batch = _train_setup(torch)
+    for i in range(2):
+        step(batch, i)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        step(batch, 2)
+        end.record()
+        end.synchronize()
+    rows = _profile_rows(prof)
+    busy, wall = sum(r[2] for r in rows), start.elapsed_time(end)
+    emit({"phase": "profile", "shape": [65, 2048, 512], **out,
+          "train_step": {"wall_ms": wall, "device_busy_ms": busy,
+                         "device_idle_share": 1.0 - busy / wall,
+                         "by_kernel_ms": [[k, c, ms] for k, c, ms in rows[:24]]}})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -468,7 +877,7 @@ def main() -> int:
         return 0
 
     launches = {k: state["launches_serve"][k] + state["launches_extract"][k]
-                for k in state["kernels"]}
+                + state["launches_train"][k] for k in state["kernels"]}
     for k, n in launches.items():
         if n < 1:
             raise AssertionError(f"{k} was not launched on the main path")

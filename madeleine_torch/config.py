@@ -75,6 +75,9 @@ class MadeleineConfig:
     pretrained: Optional[str] = None
     bucket_sizes: Optional[List[int]] = None  # inference length buckets
 
+    # ---- train route ----
+    modality_scan: bool = True   # one encoder call per modality; False: one joint call
+
     # Derived (filled by finalize()).
     STAINS: List[str] = dataclasses.field(default_factory=list)
     EXP_CODE: str = ""

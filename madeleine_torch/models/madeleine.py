@@ -6,21 +6,24 @@ PyTorch counterpart of `madeleine_tpu/models/madeleine.py` (ref: Model.py:45-216
   ABMIL embedder (models/abmil.py) --> pooled [bs, nh, e] --> projector --> [bs, hidden]
 
 The module holds its config (``model.cfg``); parameter names are the
-reference's, so ``model.pt`` files load strictly. The training forward waits
-for a later slice.
+reference's, so ``model.pt`` files load strictly. The training forward
+(`forward_train`, n_views=1, softmax, no stain encodings) runs the whole
+encoder through the train op of ops/encoder_train.py.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from madeleine_torch.config import HE_POSITION, MadeleineConfig
-from madeleine_torch.models.abmil import ABMILEmbedder, abmil_embed
+from madeleine_torch.models.abmil import (ABMILEmbedder, _head_major_perm, abmil_embed,
+                                          encoder_weights)
+from madeleine_torch.ops.encoder_train import encoder_train, train_operands
 
 
 class MADELEINE(nn.Module):
@@ -96,6 +99,87 @@ def encode_he(model: MADELEINE, feats: torch.Tensor, *,
               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The reference method name (ref: Model.py:97-107)."""
     return encode(model, feats, stain_idx=HE_POSITION, mask=mask)
+
+
+def train_weights(model: MADELEINE, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """The encoder_train operands (head-major, in the autograd graph of the
+    reference-ordered parameters): `encoder_weights` plus the token
+    projector with its input columns permuted to head-major."""
+    emb = model.wsi_embedders
+    perm = torch.as_tensor(_head_major_perm(emb.hidden_dim, emb.n_heads),
+                           device=model.token_projector.weight.device)
+    w = encoder_weights(emb)
+    w["wt"] = model.token_projector.weight[:, perm]
+    w["bt"] = model.token_projector.bias
+    return train_operands(w, dtype)
+
+
+def _project_train(model: MADELEINE, pooled: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Head-major pooled [n, nh, e] -> projector in the compute dtype -> [n, hidden]
+    (the JAX package's _linear on the head-major projector rows)."""
+    emb = model.wsi_embedders
+    perm = torch.as_tensor(_head_major_perm(emb.hidden_dim, emb.n_heads),
+                           device=pooled.device)
+    w = model.projector.weight[:, perm].to(dtype)
+    return F.linear(pooled.reshape(pooled.shape[0], -1), w, model.projector.bias.to(dtype))
+
+
+def forward_train(model: MADELEINE, feats: torch.Tensor, *,
+                  mask: Optional[torch.Tensor] = None, n_views: int = 1, seed: int = 0,
+                  train: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training forward (ref: Model.py:110-159), through the whole-encoder
+    train op (ops/encoder_train.py: kernels K6/K7 on a CUDA tensor) at its
+    dropout rates.
+
+    feats [bs, n_mod, t, d] in the compute dtype; mask [bs, n_mod, t] bool;
+    seed: the step's dropout seed. cfg.modality_scan runs one op call per
+    modality (the canonical route, [bs, t, d] each, global rows m*bs + i);
+    otherwise one joint call over [bs*n_mod, t, d] (rows i*n_mod + m).
+    Returns slide_embs [bs, n_mod, 1, hidden] and token_embs
+    [bs, n_mod, t, 128], both in feats.dtype."""
+    cfg = model.cfg
+    if not train:
+        raise NotImplementedError("forward_train(train=False) is not ported "
+                                  "(ROADMAP.md D5: K3 with the eval forward)")
+    if n_views != 1:
+        raise NotImplementedError("n_views=3 is not ported (ROADMAP.md D3)")
+    if cfg.add_stain_encoding:
+        raise NotImplementedError("stain encodings in training are not ported (ROADMAP.md D3)")
+    if cfg.activation != "softmax":
+        raise NotImplementedError(f"activation {cfg.activation!r} in training is not ported "
+                                  "(ROADMAP.md D6: the per-op lane)")
+    bs, n_mod, t, d = feats.shape
+    dt = feats.dtype
+    w = train_weights(model, dt)
+    if not cfg.modality_scan:
+        x = feats.reshape(bs * n_mod, t, d)
+        m = None if mask is None else mask.reshape(bs * n_mod, t)
+        pooled, tok = encoder_train(x, m, w, seed)
+        slide = _project_train(model, pooled, dt)
+        return (slide.reshape(bs, n_mod, 1, -1), tok.reshape(bs, n_mod, t, -1))
+    slides, toks = [], []
+    for i in range(n_mod):
+        m = None if mask is None else mask[:, i]
+        pooled, tok = encoder_train(feats[:, i], m, w, seed, row_offset=i * bs)
+        slides.append(_project_train(model, pooled, dt))
+        toks.append(tok)
+    return torch.stack(slides, 1)[:, :, None], torch.stack(toks, 1)
+
+
+def forward_train_dict(model: MADELEINE, feats: torch.Tensor, **kw):
+    """Reference-shaped output: {modality: emb} dicts, HE replicated on a
+    trailing stain axis (ref: Model.py:149-159)."""
+    slide_embs, token_embs = forward_train(model, feats, **kw)
+    mods = model.cfg.MODALITIES
+    wsi, tok = {}, {}
+    for idx, modality in enumerate(mods):
+        s, tk = slide_embs[:, idx], token_embs[:, idx]
+        if modality == "HE":
+            reps = max(len(mods) - 1, 1)
+            s = s[..., None].expand(*s.shape, reps)
+            tk = tk[..., None].expand(*tk.shape, reps)
+        wsi[modality], tok[modality] = s, tk
+    return wsi, tok
 
 
 @torch.no_grad()

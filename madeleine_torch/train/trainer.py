@@ -1,0 +1,145 @@
+"""Single-device train step and epoch loop (InfoNCE).
+
+PyTorch counterpart of `madeleine_tpu/train/trainer.py` (`compute_losses`,
+`make_train_step` without a mesh, `train_loop` without a mesh or hosts;
+ref: madeleine/utils/trainer.py:20-145):
+
+- per-stain masked InfoNCE between the H&E and each stain's slide
+  embeddings, equal to the reference's boolean subsetting (trainer.py:25-33);
+- mixed precision as in the JAX package (:217-222): feats and a copy of the
+  parameters in the compute dtype, f32 master weights in the optimizer;
+- a step where no stain has at least 2 valid cases is a no-op that does not
+  advance the schedule (the reference's `continue`, trainer.py:120-122), and
+  a non-finite loss skips the update (no reference equivalent);
+- the epoch's smooth rank on the H&E embeddings (trainer.py:141-143).
+
+The encoder runs through ops/encoder_train.py: kernels K6/K7 on the card
+(bf16 only), their plain versions on CPU tensors. GOT (`local_loss="got"`),
+the intra-modality loss, n_views=3 and data parallelism are not ported.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, Iterable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from madeleine_torch.config import HE_POSITION, MadeleineConfig, compute_dtype
+from madeleine_torch.models.madeleine import MADELEINE, forward_train
+from madeleine_torch.ops import losses as L
+from madeleine_torch.ops.encoder_train import F32_TODO
+from madeleine_torch.ops.rank import smooth_rank_measure
+
+WHOLE_VIEW_POSITION = 0  # ref: trainer.py:16
+
+
+def compute_losses(cfg: MadeleineConfig, slide_embs: torch.Tensor, token_embs: torch.Tensor,
+                   modality_labels: torch.Tensor, sample_mask: Optional[torch.Tensor]
+                   ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """slide_embs [bs, n_mod, n_views, e] f32, modality_labels [bs, n_mod],
+    sample_mask [bs] bool -> (total loss, any usable stain (bool tensor),
+    per-stain valid-case counts)."""
+    if cfg.local_loss == "got":
+        raise NotImplementedError("local_loss='got' is not ported (ROADMAP.md D1: the GOT "
+                                  "kernels)")
+    if cfg.intra_modality_loss == "info-nce":
+        raise NotImplementedError("the intra-modality loss (n_views=3) is not ported "
+                                  "(ROADMAP.md D3)")
+    n_mod = slide_embs.shape[1]
+    he = slide_embs[:, HE_POSITION, WHOLE_VIEW_POSITION]
+    total = torch.zeros((), dtype=torch.float32, device=slide_embs.device)
+    any_flag = torch.zeros((), dtype=torch.bool, device=slide_embs.device)
+    metrics = {}
+    for stain_idx in range(1, n_mod):
+        labels = modality_labels[:, stain_idx] > 0
+        if sample_mask is not None:
+            labels = labels & sample_mask
+        cnt = labels.sum()
+        flag = cnt > 1                                    # ref trainer.py:26 (>= 2 for CL)
+        if cfg.global_loss == "info-nce":
+            loss = L.info_nce(he, slide_embs[:, stain_idx, WHOLE_VIEW_POSITION],
+                              temperature=cfg.temperature, symmetric=cfg.symmetric_cl,
+                              mask=labels)
+            total = total + torch.where(flag, loss, torch.zeros_like(loss))
+        any_flag = any_flag | flag
+        metrics[f"n_{cfg.MODALITIES[stain_idx]}"] = cnt
+    return total, any_flag, metrics
+
+
+class TrainStep:
+    """One optimizer step on one batch: `step(batch, seed) -> (he_embs,
+    metrics)`. Updates the model's f32 parameters in place; `updates` counts
+    the updates applied (the schedule's step)."""
+
+    def __init__(self, cfg: MadeleineConfig, model: MADELEINE, optimizer: torch.optim.Optimizer,
+                 schedule):
+        if cfg.intra_modality_loss == "info-nce":
+            raise NotImplementedError("n_views=3 is not ported (ROADMAP.md D3)")
+        self.cfg, self.model, self.optimizer, self.schedule = cfg, model, optimizer, schedule
+        self.dtype = compute_dtype(cfg.precision)
+        self.updates = 0
+
+    def __call__(self, batch: Dict[str, object], seed: int):
+        cfg, model = self.cfg, self.model
+        dev = next(model.parameters()).device
+        if dev.type == "cuda" and self.dtype != torch.bfloat16:
+            raise NotImplementedError(f"a {self.dtype} train step on the card ({F32_TODO})")
+        feats = torch.as_tensor(batch["feats"]).to(dev, self.dtype, non_blocking=True)
+        labels = torch.as_tensor(batch["modality_labels"]).to(dev)
+        sample_mask = batch.get("sample_mask")
+        sample_mask = (torch.ones(feats.shape[0], dtype=torch.bool, device=dev)
+                       if sample_mask is None else torch.as_tensor(sample_mask).to(dev))
+        token_mask = batch.get("token_mask")
+        if token_mask is not None:
+            token_mask = torch.as_tensor(token_mask).to(dev)
+        model.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        slide, tok = forward_train(model, feats, mask=token_mask, seed=seed)
+        total, any_flag, metrics = compute_losses(cfg, slide.float(), tok, labels, sample_mask)
+        ok = bool(any_flag & torch.isfinite(total))
+        lr = self.schedule(self.updates)
+        if ok:
+            total.backward()
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+            self.optimizer.step()
+            self.updates += 1
+        he = slide[:, HE_POSITION, WHOLE_VIEW_POSITION].detach().float()
+        return he, dict(metrics, loss=total.detach(), skipped=not ok, lr=lr)
+
+
+def make_train_step(cfg: MadeleineConfig, model: MADELEINE, optimizer: torch.optim.Optimizer,
+                    schedule) -> TrainStep:
+    return TrainStep(cfg, model, optimizer, schedule)
+
+
+def step_seed(seed: int, epoch: int, b_idx: int) -> int:
+    """The dropout seed of one step: a 32-bit draw keyed by (seed, epoch, batch)."""
+    return int(np.random.SeedSequence([seed, epoch, b_idx]).generate_state(1)[0])
+
+
+def train_loop(cfg: MadeleineConfig, train_step: TrainStep, dataloader: Iterable,
+               epoch: int, seed: int, log_every: int = 0
+               ) -> Tuple[float, float, Dict[str, float]]:
+    """One epoch. Returns (epoch loss summed over applied steps, smooth rank
+    of the epoch's H&E embeddings, {epoch_time, n_steps, n_skipped})."""
+    losses, skips, embeds = [], [], []
+    t0 = time.time()
+    for b_idx, batch in enumerate(dataloader):
+        he, metrics = train_step(batch, step_seed(seed, epoch, b_idx))
+        losses.append(float(metrics["loss"]))
+        skips.append(metrics["skipped"])
+        sm = batch.get("sample_mask")
+        keep = (np.ones(he.shape[0], bool) if sm is None else np.asarray(sm, bool))
+        embeds.append(he.cpu().numpy()[keep])
+        if log_every and b_idx % log_every == 0:
+            print(f"Loss for batch: {b_idx} = {losses[-1]:.3f}")
+    skips_a = np.asarray(skips, bool)
+    ep_loss = float(np.asarray(losses, np.float64)[~skips_a].sum()) if losses else 0.0
+    emb = np.concatenate(embeds, axis=0) if embeds else np.zeros((2, 2), np.float32)
+    rank = float(smooth_rank_measure(torch.from_numpy(emb)))
+    agg = {"epoch_time": time.time() - t0, "n_steps": int((~skips_a).sum()),
+           "n_skipped": int(skips_a.sum())}
+    return ep_loss, rank, agg

@@ -103,3 +103,74 @@ def test_kernels_raise_instead_of_falling_back(cuda_device):
     x, _ = _bags(cuda_device, [64], 64, torch.float32)
     with pytest.raises(ValueError, match="bf16"):
         ef.encode_fused_cuda(x, mask_bias(None, 1, 64, 4, cuda_device), w)
+
+
+def _train_operands(model):
+    from madeleine_torch.models.madeleine import train_weights
+
+    with torch.no_grad():
+        return {k: v.detach().contiguous()
+                for k, v in train_weights(model, torch.bfloat16).items()}
+
+
+@pytest.mark.parametrize("rates", [(0.0, 0.0), (0.1, 0.25)])
+def test_encoder_train_kernels_match_plain(cuda_device, rates):
+    """K6 against its plain version (atol 3e-2 on pooled, tok and the valid
+    logits, as K1), K7 against its plain version on the same residuals with a
+    random pooled cotangent and dtok (relative Frobenius 1e-2 per gradient;
+    bc, whose exact value is 0, atol 1e-4); a partial last tile and an empty
+    bag; K7 twice gives bitwise-equal gradients."""
+    from madeleine_torch.ops import encoder_train as et
+
+    w = _train_operands(_model(cuda_device))
+    x, mask = _bags(cuda_device, [300, 77, 0], 300, torch.bfloat16)
+    bias = et.token_mask_bias(mask, 3, 300, cuda_device)
+    got = et.encoder_train_fwd_cuda(x, bias, w, 5, 2, *rates)
+    with torch.no_grad():
+        want = et.encoder_train_fwd_plain(x, bias, w, 5, 2, *rates)
+    for i in (0, 3):
+        assert (got[i].float() - want[i].float()).abs().max().item() <= 3e-2
+    assert (got[4] - want[4]).abs()[bias == 0].max().item() <= 3e-2
+    assert (got[0][2] == 0).all()
+    pooled32, m, s, _, l, saved = got
+    gen = torch.Generator().manual_seed(3)
+    g = torch.randn(3, pooled32.shape[1], generator=gen).to(cuda_device)
+    dtok = torch.randn(3, 300, 128, generator=gen).to(cuda_device, torch.bfloat16)
+    inner = (g * pooled32).reshape(3, 4, -1).sum(-1)
+    args = (x, l, m, s, g, inner, dtok, saved, w, 5, 2, *rates)
+    gk, gk2 = et.encoder_train_bwd_cuda(*args), et.encoder_train_bwd_cuda(*args)
+    with torch.no_grad():
+        gp = et.encoder_train_bwd_plain(*args)
+    for k in et.W_KEYS:
+        assert torch.equal(gk[k], gk2[k]), k
+        if k == "bc":
+            assert (gk[k] - gp[k]).abs().max().item() <= 1e-4
+        else:
+            assert ((gk[k] - gp[k]).norm() / gp[k].norm()).item() <= 1e-2, k
+
+
+def test_train_step_launches_k6_k7_and_refuses_f32(cuda_device):
+    """A bf16 step on the card goes through K6 and K7 (one each per
+    modality); an f32 step on the card raises, naming the ROADMAP item."""
+    import numpy as np
+
+    from madeleine_torch.ops import encoder_train as et
+    from madeleine_torch.train.optim import make_optimizer
+    from madeleine_torch.train.trainer import make_train_step
+
+    rng = np.random.default_rng(0)
+    batch = {"feats": rng.standard_normal((4, 5, 256, 512)).astype(np.float32),
+             "modality_labels": np.ones((4, 5), np.float32)}
+    for precision in ("bfloat16", "float32"):
+        cfg = MadeleineConfig(precision=precision, local_loss="-1").finalize()
+        model = init_madeleine(MADELEINE(cfg), torch.Generator().manual_seed(0)).to(cuda_device)
+        opt, sched = make_optimizer(cfg, model.parameters(), 10)
+        step = make_train_step(cfg, model, opt, sched)
+        if precision == "float32":
+            with pytest.raises(NotImplementedError, match="ROADMAP.md D4"):
+                step(batch, seed=1)
+            continue
+        f0, b0 = et.fwd_launches, et.bwd_launches
+        _, metrics = step(batch, seed=1)
+        assert not metrics["skipped"] and np.isfinite(float(metrics["loss"]))
+        assert (et.fwd_launches - f0, et.bwd_launches - b0) == (5, 5)

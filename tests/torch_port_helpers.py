@@ -91,3 +91,61 @@ def kernel_route_encode(model: MADELEINE, feats: torch.Tensor, *, stain_idx: int
             w, y.reshape(*y.shape[:-1], emb.n_heads, emb.hidden_dim), mask)
     return _project(model, pooled)
 
+
+
+def param_pair(seed: int = 0, **overrides):
+    """(JAX config, port config, JAX params as numpy, port model) from one seed."""
+    jcfg, pcfg = configs(**overrides)
+    params = jax_params(jcfg, seed)
+    return jcfg, pcfg, params, port_model(pcfg, params)
+
+
+def grads_as_state_dict(grads, params):
+    """A JAX gradient pytree (any subset of the parameter tree) -> the port's
+    state-dict layout; missing subtrees count as zero."""
+    full = jax.tree_util.tree_map(np.zeros_like, params)
+    for k, v in grads.items():
+        if k == "wsi_embedders":
+            full[k].update(jax.tree_util.tree_map(np.asarray, v))
+        else:
+            full[k] = jax.tree_util.tree_map(np.asarray, v)
+    return params_from_jax(full)
+
+
+def train_batch(rng, bs: int = 8, n_mod: int = 3, t: int = 24, d: int = 64,
+                he_only: bool = False, signal: float = 0.0):
+    """Synthetic train batch (numpy): feats [bs, n_mod, t, d], modality_labels
+    [bs, n_mod], sample_mask [bs]. signal > 0 adds a per-case vector shared by
+    every stain of the case, so cross-stain alignment is learnable. Missing
+    stains are zeroed, as the dataset's placeholder does."""
+    feats = rng.standard_normal((bs, n_mod, t, d)).astype(np.float32)
+    if signal:
+        feats += signal * rng.standard_normal((bs, 1, 1, d)).astype(np.float32)
+    labels = np.ones((bs, n_mod), np.float32)
+    if he_only:
+        labels[:, 1:] = 0.0
+    else:
+        labels[:, 1] = (rng.random(bs) < 0.8).astype(np.float32)
+        labels[:, 2:] = (rng.random((bs, n_mod - 2)) < 0.6).astype(np.float32)
+    feats = feats * labels[:, :, None, None]
+    return {"feats": feats, "modality_labels": labels, "sample_mask": np.ones(bs, bool)}
+
+
+def golden_model(gold) -> MADELEINE:
+    """The port model with golden.npz's state dict (d_in 24, 2 heads, 3 stains)."""
+    sd = {k[len("sd/"):]: torch.from_numpy(gold[k]) for k in gold.files if k.startswith("sd/")}
+    cfg = MadeleineConfig(patch_embedding_dim=24, wsi_encoder_hidden_dim=512,
+                          attention_hidden_dim=512, n_heads=2, precision="float32",
+                          dataset="__golden__", MODALITIES=["HE", "HER2", "PGR"]).finalize()
+    model = MADELEINE(cfg)
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def flagship_model(**cfg_fields) -> MADELEINE:
+    """The port model at the published widths with the flagship weights."""
+    cfg = MadeleineConfig(**dict(dict(precision="float32", dataset="ACROBAT"), **cfg_fields))
+    model = MADELEINE(cfg.finalize())
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in flagship_state_dict().items()},
+                          strict=True)
+    return model
