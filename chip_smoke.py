@@ -4,6 +4,7 @@
     python3 chip_smoke.py                       # every phase (what CI runs)
     python3 chip_smoke.py --phases device,build,kernels
     python3 chip_smoke.py --phases device,build,train_kernels,train
+    python3 chip_smoke.py --phases device,build,got_kernels,train_got
 
 Phases, one JSON line each; any failure raises and the exit code is non-zero:
   device   card name and the nvidia-smi name/power-limit line
@@ -29,13 +30,28 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            tile (with a dropped-tile control); then at the train step's call
            shape [65, 2048] at the real rates. Both kernels run twice and must
            agree bitwise. Timed at b=8, t=4096 and at [65, 2048]
+  got_kernels
+           K8 (ipot_fwd), K9 (ipot_bwd) and K10 (gw_gamma), f32, on costs
+           built as the GOT path builds them (random d=128 tokens ->
+           cosine cost -> threshold-ReLU), at the train step's [260, 256,
+           256] and at an odd (7, 256, 192): K8 at (beta, iters) (0.5, 30)
+           and (0.1, 20), K9 with the loss's cotangent C, K10 at 5 x 20, each
+           against its plain version (relative Frobenius bars below), with a
+           control that must miss the bar: the plain version one iteration
+           short (K10: the largest outer count below 5 that misses it); two
+           launches of each bitwise equal; timed at [260, 256, 256]
   train    5 steps of make_train_step at full width (65 cases x 5 stains x
            2048 tokens, bf16, InfoNCE, dropout on) on one fixed synthetic
            batch: no step skipped, finite losses, the last below the first;
            K6/K7 must launch on every step
+  train_got
+           the same 5 steps with the published objective, InfoNCE + GOT
+           (local_loss got, weight 1, 256 tokens subsampled per stain pair:
+           260 transport problems of 256 x 256 per step): K6-K10 must launch
+           on every step; step ms, peak memory and the GOT share of the step
   profile  torch.profiler device time by kernel of one K6 and one K7 call at
-           [65, 2048] and of one full-width train step, with the step's
-           device idle share
+           [65, 2048] and of one full-width train step of each objective,
+           with the steps' device idle share
 Then a {"kernels": [...]} summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs CUDA and the repo checkout around it.
 """
@@ -58,8 +74,8 @@ import urllib.request
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "train_kernels", "golden", "serve", "extract", "train",
-          "profile")
+PHASES = ("device", "build", "kernels", "train_kernels", "got_kernels", "golden", "serve",
+          "extract", "train", "train_got", "profile")
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -135,20 +151,25 @@ def write_model_dir(root: str, precision: str) -> str:
 
 
 def reset_counts():
-    from madeleine_torch.ops import encode_fused, encoder_train, gated_pool
+    from madeleine_torch.ops import encode_fused, encoder_train, gated_pool, ipot
 
     encode_fused.launches = 0
     gated_pool.launches = 0
     encoder_train.fwd_launches = 0
     encoder_train.bwd_launches = 0
+    ipot.fwd_launches = 0
+    ipot.bwd_launches = 0
+    ipot.gw_launches = 0
 
 
 def read_counts() -> dict:
-    from madeleine_torch.ops import encode_fused, encoder_train, gated_pool
+    from madeleine_torch.ops import encode_fused, encoder_train, gated_pool, ipot
 
     return {"encode_fused": encode_fused.launches, "gated_pool": gated_pool.launches,
             "encoder_train_fwd": encoder_train.fwd_launches,
-            "encoder_train_bwd": encoder_train.bwd_launches}
+            "encoder_train_bwd": encoder_train.bwd_launches,
+            "ipot_fwd": ipot.fwd_launches, "ipot_bwd": ipot.bwd_launches,
+            "gw_gamma": ipot.gw_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -540,6 +561,155 @@ def phase_train_kernels(state):
           "checks": checks, "times": times})
 
 
+# GOT kernels: relative Frobenius bars against the plain versions on the card
+GOT_PLAN_RTOL = 1e-4   # T (K8) and gamma (K10)
+GOT_GRAD_RTOL = 1e-3   # dC (K9)
+GOT_STEP_SHAPE = (260, 256, 256)   # 4 stain pairs x 65 cases, 256 tokens subsampled
+GOT_ODD_SHAPE = (7, 256, 192)
+# operations per element per IPOT iteration: Q = A T, Q sigma, the row add, Q delta,
+# the column add, (delta Q) sigma' (two products); the adjoint as csrc/ipot_bwd.cu's
+# header writes it needs 18 more (each product and add once); exp(-C/beta) 2
+IPOT_OPS, IPOT_ADJ_OPS, EXP_OPS = 7, 18, 2
+
+
+def _rel_fro(a, b) -> float:
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def _got_costs(torch, b, n, m, gen, d=128):
+    """C, Cs, Ct, Cst built as the GOT path builds them, from random tokens."""
+    from madeleine_torch.ops import losses as L
+
+    v = torch.from_numpy(gen.standard_normal((b, n, d)).astype(np.float32)).cuda()
+    q = torch.from_numpy(gen.standard_normal((b, m, d)).astype(np.float32)).cuda()
+    with torch.no_grad():
+        C = L._threshold_relu(L.cosine_cost(v, q), None)
+        Cs = L._threshold_relu(L.cosine_cost(v, v), None)
+        Ct = L._threshold_relu(L.cosine_cost(q, q), None)
+        return C, Cs, Ct, L._cst(Cs, Ct)
+
+
+def _got_work(b, n, m, iters=30, gw_outer=5, gw_iters=20):
+    """(flops, bytes) of K8, K9 and K10 at their step settings: each input
+    read once, each output written once."""
+    nm = n * m
+    k8 = (b * nm * (iters * IPOT_OPS + EXP_OPS), 2 * b * nm * 4)
+    k9 = (b * nm * (iters * (IPOT_OPS + IPOT_ADJ_OPS) + 2 * EXP_OPS), 3 * b * nm * 4)
+    gemm = 2 * (n * n * m + n * m * m)              # two products per outer step
+    k10 = (b * gw_outer * (gemm + nm * (gw_iters * IPOT_OPS + EXP_OPS + 2)),
+           b * (n * n + m * m + 2 * nm) * 4)
+    return {"ipot_fwd": k8, "ipot_bwd": k9, "gw_gamma": k10}
+
+
+def _check_got(torch, C, Cs, Ct, Cst):
+    """Each of K8/K9/K10 against its plain version, its control and a second
+    launch; returns the report (bars enforced by the caller)."""
+    from madeleine_torch.ops import ipot as I
+
+    rep = {}
+    for beta, iters in ((0.5, 30), (0.1, 20)):
+        T = I.ipot_plan_cuda(C, beta, iters)
+        T2 = I.ipot_plan_cuda(C, beta, iters)
+        want = I.ipot_plan_plain(C, beta, iters)
+        short = I.ipot_plan_plain(C, beta, iters - 1)
+        torch.cuda.synchronize()
+        rep[f"ipot_fwd_{beta}_{iters}"] = {
+            "rel_fro": _rel_fro(T, want), "max_abs_err": (T - want).abs().max().item(),
+            "control": _rel_fro(short, want), "control_is": f"{iters - 1} iterations",
+            "bitwise_equal": torch.equal(T, T2), "finite": bool(torch.isfinite(T).all())}
+        del T, T2, want, short
+    dC = I.ipot_plan_bwd_cuda(C, C, 0.5, 30)
+    dC2 = I.ipot_plan_bwd_cuda(C, C, 0.5, 30)
+    want = I.ipot_plan_bwd_plain(C, C, 0.5, 30)
+    short = I.ipot_plan_bwd_plain(C, C, 0.5, 29)
+    torch.cuda.synchronize()
+    rep["ipot_bwd_0.5_30"] = {
+        "rel_fro": _rel_fro(dC, want), "max_abs_err": (dC - want).abs().max().item(),
+        "control": _rel_fro(short, want), "control_is": "29 iterations",
+        "bitwise_equal": torch.equal(dC, dC2), "finite": bool(torch.isfinite(dC).all())}
+    del dC, dC2, want, short
+    g = I.gw_gamma_cuda(Cs, Ct, Cst, 0.1, 5, 20)
+    g2 = I.gw_gamma_cuda(Cs, Ct, Cst, 0.1, 5, 20)
+    want = I.gw_gamma_plain(Cs, Ct, Cst, 0.1, 5, 20)
+    # the GW loop nears its fixed point within 5 outer steps, so one step
+    # short may lie within the bar: the control is the largest outer count
+    # below 5 whose plan lies beyond it (every count tried is reported)
+    tried = {}
+    for outer in (4, 3, 2, 1):
+        tried[outer] = _rel_fro(I.gw_gamma_plain(Cs, Ct, Cst, 0.1, outer, 20), want)
+        if tried[outer] > GOT_PLAN_RTOL:
+            break
+    # the f32 floor: both against the plain version in float64
+    ref64 = I.gw_gamma_plain(Cs.double(), Ct.double(), Cst.double(), 0.1, 5, 20)
+    torch.cuda.synchronize()
+    rep["gw_gamma_0.1_5x20"] = {
+        "rel_fro": _rel_fro(g, want), "max_abs_err": (g - want).abs().max().item(),
+        "control": tried[outer], "control_is": f"{outer} outer steps",
+        "controls_tried": tried,
+        "kernel_vs_f64": _rel_fro(g.double(), ref64), "plain_vs_f64": _rel_fro(want.double(), ref64),
+        "bitwise_equal": torch.equal(g, g2), "finite": bool(torch.isfinite(g).all())}
+    return rep
+
+
+def _enforce_got(rep, where):
+    for name, r in rep.items():
+        bar = GOT_GRAD_RTOL if name.startswith("ipot_bwd") else GOT_PLAN_RTOL
+        if not (r["finite"] and r["bitwise_equal"] and r["rel_fro"] <= bar):
+            raise AssertionError(f"got_kernels {where} {name}: {r} (bar {bar})")
+        if not r["control"] > bar:
+            raise AssertionError(f"got_kernels {where} {name}: control within the bar: {r}")
+
+
+def phase_got_kernels(state):
+    import torch
+    from madeleine_torch.ops import ipot as I
+
+    gen = np.random.default_rng(SEED + 5)
+    checks = {}
+    for label, shape in (("odd", GOT_ODD_SHAPE), ("step", GOT_STEP_SHAPE)):
+        C, Cs, Ct, Cst = _got_costs(torch, *shape, gen)
+        checks[label] = _check_got(torch, C, Cs, Ct, Cst)
+    # report every number first, then enforce the bars
+    emit({"phase": "got_kernels", "checks": checks, "plan_rtol_fro": GOT_PLAN_RTOL,
+          "grad_rtol_fro": GOT_GRAD_RTOL, "shapes": {"odd": GOT_ODD_SHAPE,
+                                                     "step": GOT_STEP_SHAPE}})
+    for label, rep in checks.items():
+        _enforce_got(rep, label)
+
+    # times at the step's shape (C, Cs, Ct, Cst are the step shape's now)
+    fns = {"ipot_fwd": (lambda: I.ipot_plan_cuda(C, 0.5, 30),
+                        lambda: I.ipot_plan_plain(C, 0.5, 30)),
+           "ipot_bwd": (lambda: I.ipot_plan_bwd_cuda(C, C, 0.5, 30),
+                        lambda: I.ipot_plan_bwd_plain(C, C, 0.5, 30)),
+           "gw_gamma": (lambda: I.gw_gamma_cuda(Cs, Ct, Cst, 0.1, 5, 20),
+                        lambda: I.gw_gamma_plain(Cs, Ct, Cst, 0.1, 5, 20))}
+    work = _got_work(*GOT_STEP_SHAPE)
+    sources = {"ipot_fwd": ("csrc/ipot_fwd.cu", "madeleine_tpu/ops/ipot.py:154"),
+               "ipot_bwd": ("csrc/ipot_bwd.cu", "madeleine_tpu/ops/ipot.py:182"),
+               "gw_gamma": ("csrc/gw_gamma.cu", "madeleine_tpu/ops/ipot.py:254")}
+    err_key = {"ipot_fwd": ("ipot_fwd_0.5_30", "ipot_fwd_0.1_20"),
+               "ipot_bwd": ("ipot_bwd_0.5_30",), "gw_gamma": ("gw_gamma_0.1_5x20",)}
+    times = {}
+    for name, (kernel, plain) in fns.items():
+        ms = cuda_ms(kernel, warmup=2, iters=10)
+        plain_ms = cuda_ms(plain, warmup=1, iters=3)
+        flops, nbytes = work[name]
+        ops, mem = flops / PEAK_FP32, nbytes / PEAK_BYTES
+        bound = max(ops, mem) * 1e3
+        times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": "operations" if ops >= mem else "bytes",
+                       "share_of_bound": bound / ms, "gflop": flops / 1e9, "gb": nbytes / 1e9}
+        state.setdefault("kernels", {})[name] = {
+            "name": name, "route": "cuda", "source": "madeleine_torch/" + sources[name][0],
+            "replaces": sources[name][1],
+            "max_abs_err": max(checks[lbl][k]["max_abs_err"] for lbl in checks
+                               for k in err_key[name]),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": times[name]["bound_by"], "library_ms": None}
+    emit({"phase": "got_kernels", "shape": GOT_STEP_SHAPE, "times": times,
+          "k9_history_gb": 30 * GOT_STEP_SHAPE[0] * 256 * 256 * 4 / 1e9})
+
+
 def phase_golden(state):
     import torch
     from madeleine_torch.models.factory import create_model_from_pretrained
@@ -673,17 +843,17 @@ TRAIN_STEPS = 5
 TRAIN_SIGNAL = 0.015  # per-case vector shared by a case's bags (alignment is learnable)
 
 
-def train_path_config():
+def train_path_config(**overrides):
     """The canonical pretraining run's settings at full width (ref:
     scripts/launch_pretrain_withoutStainEncodings.sh), InfoNCE only (the CLI's
     default --local_loss -1), warmup off so the learning rate is not ~1e-9."""
     from madeleine_torch.config import MadeleineConfig
 
-    return MadeleineConfig.from_dict(dict(
+    return MadeleineConfig.from_dict(dict(dict(
         flagship_config("bfloat16"), local_loss="-1", global_loss="info-nce",
         symmetric_cl=True, temperature=0.001, lr=1e-4, end_learning_rate=1e-8,
         weight_decay=0.01, warmup=False, max_epochs=120, batch_size=65, n_subsamples=2048,
-        modality_scan=True))
+        modality_scan=True), **overrides))
 
 
 def synthetic_train_batch(torch, cfg, seed: int, signal: float = TRAIN_SIGNAL):
@@ -699,51 +869,80 @@ def synthetic_train_batch(torch, cfg, seed: int, signal: float = TRAIN_SIGNAL):
             "sample_mask": torch.ones(bs, dtype=torch.bool, device="cuda")}
 
 
-def _train_setup(torch):
+def got_path_config():
+    """The canonical run's published objective, `--local_loss got`
+    (scripts/launch_pretrain_withoutStainEncodings.sh:19): InfoNCE + GOT at
+    weight 1 with 256 tokens subsampled per stain pair."""
+    return train_path_config(local_loss="got", local_loss_weight=1.0, got_subsample=256)
+
+
+def _train_setup(torch, cfg=None):
     """(cfg, model, step, batch): the path's model from SEED, its AdamW and
     train step, and one synthetic full-width batch."""
     from madeleine_torch.models.factory import create_model
     from madeleine_torch.train.optim import make_optimizer
     from madeleine_torch.train.trainer import make_train_step
 
-    cfg = train_path_config()
+    cfg = train_path_config() if cfg is None else cfg
     _, model = create_model(cfg, seed=SEED, device="cuda")
     opt, sched = make_optimizer(cfg, model.parameters(), steps_per_epoch=TRAIN_STEPS)
     return cfg, model, make_train_step(cfg, model, opt, sched), synthetic_train_batch(
         torch, cfg, SEED + 4)
 
 
-def phase_train(state):
-    """TRAIN_STEPS steps of the single-device train step at full width on one
-    fixed batch, through make_train_step (kernels K6/K7 for the encoder)."""
-    import torch
-    from madeleine_torch.ops import encoder_train as et
+ENCODER_KERNELS = ("encoder_train_fwd", "encoder_train_bwd")
+GOT_KERNELS = ("ipot_fwd", "ipot_bwd", "gw_gamma")
+
+
+def _run_train_steps(torch, state, phase, kernels, cfg=None):
+    """TRAIN_STEPS steps of make_train_step at full width on one fixed batch,
+    the counts set to 0 just before: fails unless no step is skipped, every
+    loss is finite, the last is below the first and each of `kernels`
+    launches on every step. Returns (cfg, model, batch, summary)."""
     from madeleine_torch.train.trainer import step_seed
 
-    cfg, model, step, batch = _train_setup(torch)
+    cfg, model, step, batch = _train_setup(torch, cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    losses, skipped, step_ms = [], [], []
+    losses, skipped, step_ms, per_step = [], [], [], []
     for i in range(TRAIN_STEPS):
+        before = read_counts()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         _, metrics = step(batch, step_seed(SEED, 0, i))
         end.record()
         end.synchronize()
+        after = read_counts()
+        per_step.append({k: after[k] - before[k] for k in kernels})
         step_ms.append(start.elapsed_time(end))
         losses.append(float(metrics["loss"]))
         skipped.append(bool(metrics["skipped"]))
-        emit({"phase": "train", "step": i, "loss": losses[-1], "skipped": skipped[-1],
-              "lr": metrics["lr"], "step_ms": step_ms[-1]})
+        emit({"phase": phase, "step": i, "loss": losses[-1], "skipped": skipped[-1],
+              "lr": metrics["lr"], "step_ms": step_ms[-1], "launches": per_step[-1]})
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    state["launches_train"] = counts
+    state[f"launches_{phase}"] = counts
     if any(skipped) or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"train: skipped {skipped}, losses {losses}")
-    if counts["encoder_train_fwd"] < TRAIN_STEPS or counts["encoder_train_bwd"] < TRAIN_STEPS:
-        raise AssertionError(f"train: K6/K7 were not launched on every step ({counts})")
-    # K6 and K7 alone at the path's call shape, with the model's operands
+        raise AssertionError(f"{phase}: skipped {skipped}, losses {losses}")
+    missing = [(i, k) for i, c in enumerate(per_step) for k in kernels if c[k] < 1]
+    if missing:
+        raise AssertionError(f"{phase}: kernels not launched on every step: {missing}")
+    return cfg, model, batch, {
+        "steps": TRAIN_STEPS, "batch": [cfg.batch_size, cfg.n_modalities, cfg.n_subsamples,
+                                        cfg.input_dim],
+        "losses": losses, "skipped": skipped, "step_ms": step_ms,
+        "step_ms_median_after_first": statistics.median(step_ms[1:]),
+        "peak_memory_gb": peak / 1e9, "launches": counts, "launches_per_step": per_step}
+
+
+def phase_train(state):
+    """The InfoNCE train step (kernels K6/K7 for the encoder), then K6 and K7
+    alone at the path's call shape."""
+    import torch
+    from madeleine_torch.ops import encoder_train as et
+
+    cfg, model, batch, run = _run_train_steps(torch, state, "train", ENCODER_KERNELS)
     with torch.no_grad():
         from madeleine_torch.models.madeleine import train_weights
 
@@ -760,16 +959,44 @@ def phase_train(state):
         k7 = cuda_ms(lambda: et.encoder_train_bwd_cuda(*args))
     n_mod = cfg.n_modalities
     ff, fb, bf, bb = _encoder_train_work(x.shape[0], x.shape[1], w)
-    enc_bound = n_mod * (_bound(ff, fb)[0] + _bound(bf, bb)[0])
-    steady = statistics.median(step_ms[1:])
-    emit({"phase": "train", "steps": TRAIN_STEPS, "batch": [cfg.batch_size, n_mod,
-          cfg.n_subsamples, cfg.input_dim], "losses": losses, "skipped": skipped,
-          "step_ms": step_ms, "step_ms_median_after_first": steady,
-          "peak_memory_gb": peak / 1e9, "launches": counts,
-          "launches_per_step": {k: v / TRAIN_STEPS for k, v in counts.items()},
-          "k6_ms_call": k6, "k7_ms_call": k7, "encoder_ms_per_step": n_mod * (k6 + k7),
+    steady = run["step_ms_median_after_first"]
+    emit({"phase": "train", **run, "k6_ms_call": k6, "k7_ms_call": k7,
+          "encoder_ms_per_step": n_mod * (k6 + k7),
           "encoder_share_of_step": n_mod * (k6 + k7) / steady,
-          "encoder_bound_ms_per_step": enc_bound})
+          "encoder_bound_ms_per_step": n_mod * (_bound(ff, fb)[0] + _bound(bf, bb)[0])})
+
+
+def phase_train_got(state):
+    """The published objective, InfoNCE + GOT: K6/K7 for the encoder and
+    K8/K9/K10 for the 260 transport problems of each step; then the GOT loss
+    alone (forward + backward) on tokens of the step's shape."""
+    import torch
+    from madeleine_torch.ops import losses as L
+
+    cfg, _, _, run = _run_train_steps(torch, state, "train_got",
+                                      ENCODER_KERNELS + GOT_KERNELS, got_path_config())
+    n_pairs = cfg.n_modalities - 1
+    shape = (n_pairs, cfg.batch_size, cfg.got_subsample, cfg.token_proj_dim)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    v = torch.randn(*shape, generator=g, device="cuda").requires_grad_(True)
+    q = torch.randn(*shape, generator=g, device="cuda").requires_grad_(True)
+    smask = torch.ones(n_pairs, cfg.batch_size, dtype=torch.bool, device="cuda")
+    got_ms = cuda_ms(lambda: L.got_loss_multi(v, q, sample_mask=smask).sum().backward(),
+                     warmup=1, iters=5)
+    # the GOT loss's own peak above its inputs (K9's history included)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    L.got_loss_multi(v, q, sample_mask=smask).sum().backward()
+    torch.cuda.synchronize()
+    got_peak = torch.cuda.max_memory_allocated() - base
+    hist = 30 * n_pairs * cfg.batch_size * cfg.got_subsample ** 2 * 4
+    emit({"phase": "train_got", **run, "got_problems_per_step": n_pairs * cfg.batch_size,
+          "got_subsample": cfg.got_subsample, "k9_history_gb": hist / 1e9,
+          "got_loss_own_peak_gb": got_peak / 1e9,
+          "got_loss_own_peak_gb_less_k9_history": (got_peak - hist) / 1e9,
+          "got_loss_fwd_bwd_ms": got_ms,
+          "got_share_of_step": got_ms / run["step_ms_median_after_first"]})
 
 
 def _profile_rows(prof):
@@ -825,24 +1052,28 @@ def phase_profile(state):
             out[name] = {"total_ms": sum(r[2] for r in rows),
                          "by_kernel_ms": [[k, c, ms] for k, c, ms in rows[:16]]}
     del x, w
-    # one full-width train step (after two unprofiled ones): device time by
-    # kernel against the step's wall time on the CUDA-event clock
-    _, _, step, batch = _train_setup(torch)
-    for i in range(2):
-        step(batch, i)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        step(batch, 2)
-        end.record()
-        end.synchronize()
-    rows = _profile_rows(prof)
-    busy, wall = sum(r[2] for r in rows), start.elapsed_time(end)
-    emit({"phase": "profile", "shape": [65, 2048, 512], **out,
-          "train_step": {"wall_ms": wall, "device_busy_ms": busy,
-                         "device_idle_share": 1.0 - busy / wall,
-                         "by_kernel_ms": [[k, c, ms] for k, c, ms in rows[:24]]}})
+    # one full-width train step of each objective (after two unprofiled
+    # ones): device time by kernel against the step's wall time on the
+    # CUDA-event clock
+    steps = {}
+    for name, cfg in (("train_step", None), ("train_step_got", got_path_config())):
+        _, _, step, batch = _train_setup(torch, cfg)
+        for i in range(2):
+            step(batch, i)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            start.record()
+            step(batch, 2)
+            end.record()
+            end.synchronize()
+        rows = _profile_rows(prof)
+        busy, wall = sum(r[2] for r in rows), start.elapsed_time(end)
+        steps[name] = {"wall_ms": wall, "device_busy_ms": busy,
+                       "device_idle_share": 1.0 - busy / wall,
+                       "by_kernel_ms": [[k, c, ms] for k, c, ms in rows[:24]]}
+        del step, batch
+    emit({"phase": "profile", "shape": [65, 2048, 512], **out, **steps})
 
 
 def main() -> int:
@@ -876,8 +1107,9 @@ def main() -> int:
         emit({"partial": phases})
         return 0
 
-    launches = {k: state["launches_serve"][k] + state["launches_extract"][k]
-                + state["launches_train"][k] for k in state["kernels"]}
+    launches = {k: sum(state[f"launches_{p}"][k] for p in ("serve", "extract", "train",
+                                                            "train_got"))
+                for k in state["kernels"]}
     for k, n in launches.items():
         if n < 1:
             raise AssertionError(f"{k} was not launched on the main path")

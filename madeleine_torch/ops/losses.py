@@ -1,15 +1,25 @@
-"""Contrastive loss (InfoNCE) of the train step, in float32.
+"""Losses of the train step, in float32: InfoNCE and GOT.
 
-PyTorch counterpart of `madeleine_tpu/ops/losses.py:49-106` (ref:
-madeleine/utils/loss.py:65-127): temperature-scaled contrastive cross-entropy
-with in-batch negatives, an optional symmetric variant, a validity mask that
-replaces the reference's boolean subsetting, and the explicit-negatives
-modes (which the reference falls through without returning; here they
-return the cross-entropy over [positive | negatives]).
+PyTorch counterpart of `madeleine_tpu/ops/losses.py` (ref:
+madeleine/utils/loss.py):
+
+- `info_nce` (:49-106, ref :65-127): temperature-scaled contrastive
+  cross-entropy with in-batch negatives, an optional symmetric variant, a
+  validity mask that replaces the reference's boolean subsetting, and the
+  explicit-negatives modes (which the reference falls through without
+  returning; here they return the cross-entropy over [positive | negatives]);
+- Graph Optimal Transport (:131-443, ref :160-301): `cosine_cost`, the
+  threshold-ReLU, `ipot_distance` (IPOT Wasserstein, kernels K8/K9 of
+  ops/ipot.py on the card), `gw_distance` (Gromov-Wasserstein, its detached
+  gamma loop in K10), `got_loss` and `got_loss_multi`. The glue around the
+  kernels (threshold-ReLU, the Cst outer sum, the final GW trace) is the
+  plain chain that the JAX package runs with MADELEINE_NO_GOT_GLUE=1; the
+  ragged per-side subsample (`masked_subsample`, a `token_mask`) and data
+  parallelism (`axis_name`) are not ported (ROADMAP.md A6, A7).
 
 Everything runs in f32 with full-precision products (no TF32, see
 `utils.device.full_precision_matmul`): temperature 0.001 multiplies logit
-noise by 1000. GOT (`got_loss`, `got_loss_multi`) is not ported yet.
+noise by 1000, and exp(-C/beta) at beta 0.1 multiplies a cost's error by 10.
 """
 
 from __future__ import annotations
@@ -17,6 +27,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from madeleine_torch.ops.ipot import gw_gamma, ipot_plan
 
 _EPS_NORM = 1e-12
 _NEG_INF = -1e30  # finite mask fill: keeps gradients NaN-free
@@ -66,3 +78,131 @@ def info_nce(query: torch.Tensor, positive_key: torch.Tensor,
     if symmetric:
         loss = 0.5 * loss + 0.5 * _masked_ce_diag(logits.T, mask)
     return loss
+
+
+# ---------------------------------------------------------------------------
+# Graph Optimal Transport
+# ---------------------------------------------------------------------------
+
+def cosine_cost(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """1 - cosine similarity between token sets, x [b, n, d], y [b, m, d] ->
+    [b, n, m]. The reference normalises as x / (||x|| + 1e-12) (ref:
+    loss.py:162-176), not with `_l2_normalize`'s max(||x||, eps)."""
+    xn = x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + _EPS_NORM)
+    yn = y / (torch.linalg.vector_norm(y, dim=-1, keepdim=True) + _EPS_NORM)
+    return 1.0 - torch.matmul(xn, yn.transpose(-1, -2))
+
+
+def _threshold_relu(C: torch.Tensor, sample_mask: Optional[torch.Tensor],
+                    beta: float = 0.1) -> torch.Tensor:
+    """relu(C - (min + beta (max - min))) with min/max over the whole (valid
+    part of the) batch tensor (ref: loss.py:225-233, 288-292). amin/amax
+    split the subgradient evenly among ties, as jnp.min/jnp.max do."""
+    if sample_mask is not None:
+        valid = sample_mask[:, None, None]
+        cmin = torch.where(valid, C, float("inf")).amin()
+        cmax = torch.where(valid, C, float("-inf")).amax()
+    else:
+        cmin, cmax = C.amin(), C.amax()
+    return torch.relu(C - (cmin + beta * (cmax - cmin)))
+
+
+def ipot_distance(C: torch.Tensor, iterations: int = 50) -> torch.Tensor:
+    """Per-sample Wasserstein cost <C, T> (ref: loss.py:202-207 returns the
+    negative; callers negate again), T the IPOT plan at beta 0.5."""
+    return (C * ipot_plan(C, 0.5, iterations)).sum((1, 2))
+
+
+def _cst(Cs: torch.Tensor, Ct: torch.Tensor) -> torch.Tensor:
+    """Cst = (Cs^2 p) 1_m^T + 1_n (q^T (Ct^2)^T), p = 1/n, q = 1/m (ref:
+    loss.py:240-241)."""
+    b, n, _ = Cs.shape
+    m = Ct.shape[1]
+    p = torch.full((b, n, 1), 1.0 / n, dtype=torch.float32, device=Cs.device)
+    q = torch.full((b, m, 1), 1.0 / m, dtype=torch.float32, device=Cs.device)
+    return torch.matmul(Cs ** 2, p) + torch.matmul(Ct ** 2, q).transpose(1, 2)
+
+
+def _gw_trace(Cs: torch.Tensor, Ct: torch.Tensor, Cst: torch.Tensor,
+              gamma: torch.Tensor) -> torch.Tensor:
+    """sum (Cst - 2 Cs gamma Ct^T) o gamma per problem (= trace(C_g^T gamma))."""
+    C_final = Cst - 2.0 * torch.matmul(torch.matmul(Cs, gamma), Ct.transpose(1, 2))
+    return (C_final * gamma).sum((1, 2))
+
+
+def gw_distance(x: torch.Tensor, y: torch.Tensor, *, sample_mask: Optional[torch.Tensor] = None,
+                lamda: float = 0.1, iterations: int = 5, ot_iterations: int = 20) -> torch.Tensor:
+    """Gromov-Wasserstein distance between token graphs, uniform marginals
+    (ref: loss.py:236-275). x [b, n, d], y [b, m, d] -> [b]. gamma is
+    detached (ref: loss.py:248 .detach())."""
+    Cs = _threshold_relu(cosine_cost(x, x), sample_mask)
+    Ct = _threshold_relu(cosine_cost(y, y), sample_mask)
+    Cst = _cst(Cs, Ct)
+    gamma = gw_gamma(Cs, Ct, Cst, lamda, iterations, ot_iterations)
+    return _gw_trace(Cs, Ct, Cst, gamma)
+
+
+def got_loss(v: torch.Tensor, q: torch.Tensor, *, sample_mask: Optional[torch.Tensor] = None,
+             subsample: Optional[int] = None, generator: Optional[torch.Generator] = None,
+             ot_iterations: int = 30, gw_iterations: int = 5,
+             gw_ot_iterations: int = 20) -> torch.Tensor:
+    """Total GOT loss = sum_b WD + sum_b GWD over valid samples (ref:
+    loss.py:278-301). v, q [b, n, d]; sample_mask [b] bool. With `subsample`
+    below n, one shared draw of token indices from `generator` (the
+    reference's intent; its own draw indexes randperm(batch) into the token
+    dim, a documented bug not reproduced)."""
+    v, q = v.float(), q.float()
+    if subsample is not None and subsample < v.shape[1]:
+        if generator is None:
+            raise ValueError("got_loss subsampling requires a generator")
+        idx = torch.randperm(v.shape[1], generator=generator,
+                             device=generator.device)[:subsample].to(v.device)
+        v, q = v[:, idx], q[:, idx]
+    C = _threshold_relu(cosine_cost(v, q), sample_mask)
+    wd = ipot_distance(C, iterations=ot_iterations)
+    gwd = gw_distance(v, q, sample_mask=sample_mask, lamda=0.1, iterations=gw_iterations,
+                      ot_iterations=gw_ot_iterations)
+    if sample_mask is not None:
+        wd = torch.where(sample_mask, wd, 0.0)
+        gwd = torch.where(sample_mask, gwd, 0.0)
+    return wd.sum() + gwd.sum()
+
+
+def got_loss_multi(v: torch.Tensor, q: torch.Tensor, *,
+                   sample_mask: Optional[torch.Tensor] = None, ot_iterations: int = 30,
+                   gw_iterations: int = 5, gw_ot_iterations: int = 20) -> torch.Tensor:
+    """All stain pairs' GOT as one batched transport problem -> per-stain
+    losses [S] (madeleine_tpu/ops/losses.py:340-443, the unfused glue branch,
+    no axis_name). v, q [S, b, n, d] (pre-subsampled); sample_mask [S, b].
+    Equal to S separate `got_loss` calls: the threshold statistics are taken
+    per stain pair (ref: loss.py:288-292), while the S*b problems run through
+    the kernels in one launch each."""
+    S, b, n, d = v.shape
+    v32 = v.float().reshape(S * b, n, d)
+    q32 = q.float().reshape(S * b, n, d)
+
+    def group_threshold(C):
+        """thr_s = min + 0.1 (max - min) over stain group s, repeated to [S*b, 1, 1]."""
+        Cg = C.reshape(S, b, *C.shape[1:])
+        if sample_mask is not None:
+            valid = sample_mask[..., None, None]
+            cmin = torch.where(valid, Cg, float("inf")).amin(dim=(1, 2, 3))
+            cmax = torch.where(valid, Cg, float("-inf")).amax(dim=(1, 2, 3))
+        else:
+            cmin, cmax = Cg.amin(dim=(1, 2, 3)), Cg.amax(dim=(1, 2, 3))
+        thr = cmin + 0.1 * (cmax - cmin)
+        return thr.repeat_interleave(b)[:, None, None]
+
+    C0 = cosine_cost(v32, q32)
+    Cs0 = cosine_cost(v32, v32)
+    Ct0 = cosine_cost(q32, q32)
+    C = torch.relu(C0 - group_threshold(C0))
+    Cs = torch.relu(Cs0 - group_threshold(Cs0))
+    Ct = torch.relu(Ct0 - group_threshold(Ct0))
+    Cst = _cst(Cs, Ct)
+    wd = ipot_distance(C, iterations=ot_iterations)                      # [S*b]
+    gamma = gw_gamma(Cs, Ct, Cst, 0.1, gw_iterations, gw_ot_iterations)
+    total = wd + _gw_trace(Cs, Ct, Cst, gamma)
+    if sample_mask is not None:
+        total = torch.where(sample_mask.reshape(S * b), total, 0.0)
+    return total.reshape(S, b).sum(1)

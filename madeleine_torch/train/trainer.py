@@ -1,4 +1,4 @@
-"""Single-device train step and epoch loop (InfoNCE).
+"""Single-device train step and epoch loop (InfoNCE + GOT).
 
 PyTorch counterpart of `madeleine_tpu/train/trainer.py` (`compute_losses`,
 `make_train_step` without a mesh, `train_loop` without a mesh or hosts;
@@ -6,6 +6,11 @@ ref: madeleine/utils/trainer.py:20-145):
 
 - per-stain masked InfoNCE between the H&E and each stain's slide
   embeddings, equal to the reference's boolean subsetting (trainer.py:25-33);
+- with `local_loss="got"`, GOT between the H&E tokens and each stain's
+  tokens, all stain pairs in one batched `got_loss_multi` (kernels K8-K10 on
+  the card): per stain pair one shared draw of `got_subsample` token indices
+  (the JAX package's reference-style branch, trainer.py:136-147) from a
+  generator keyed by the step's seed on a stream of its own;
 - mixed precision as in the JAX package (:217-222): feats and a copy of the
   parameters in the compute dtype, f32 master weights in the optimizer;
 - a step where no stain has at least 2 valid cases is a no-op that does not
@@ -14,14 +19,15 @@ ref: madeleine/utils/trainer.py:20-145):
 - the epoch's smooth rank on the H&E embeddings (trainer.py:141-143).
 
 The encoder runs through ops/encoder_train.py: kernels K6/K7 on the card
-(bf16 only), their plain versions on CPU tensors. GOT (`local_loss="got"`),
-the intra-modality loss, n_views=3 and data parallelism are not ported.
+(bf16 only), their plain versions on CPU tensors. GOT with ragged token
+masks (per-side subsampling, ROADMAP.md A6), the intra-modality loss,
+n_views=3 and data parallelism are not ported.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,36 +39,77 @@ from madeleine_torch.ops.encoder_train import F32_TODO
 from madeleine_torch.ops.rank import smooth_rank_measure
 
 WHOLE_VIEW_POSITION = 0  # ref: trainer.py:16
+GOT_STREAM = 0x474F54    # keys the GOT subsample draw apart from the dropout masks
+
+
+def got_generator(seed: int, device) -> torch.Generator:
+    """The generator of one step's GOT subsample: keyed by (seed, GOT_STREAM)."""
+    key = int(np.random.SeedSequence([seed, GOT_STREAM]).generate_state(1)[0])
+    return torch.Generator(device=device).manual_seed(key)
 
 
 def compute_losses(cfg: MadeleineConfig, slide_embs: torch.Tensor, token_embs: torch.Tensor,
-                   modality_labels: torch.Tensor, sample_mask: Optional[torch.Tensor]
+                   modality_labels: torch.Tensor, sample_mask: Optional[torch.Tensor],
+                   generator: Optional[torch.Generator] = None,
+                   got_indices: Optional[Sequence[torch.Tensor]] = None,
+                   token_mask: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
-    """slide_embs [bs, n_mod, n_views, e] f32, modality_labels [bs, n_mod],
-    sample_mask [bs] bool -> (total loss, any usable stain (bool tensor),
-    per-stain valid-case counts)."""
-    if cfg.local_loss == "got":
-        raise NotImplementedError("local_loss='got' is not ported (ROADMAP.md D1: the GOT "
-                                  "kernels)")
+    """slide_embs [bs, n_mod, n_views, e] f32, token_embs [bs, n_mod, t, d],
+    modality_labels [bs, n_mod], sample_mask [bs] bool -> (total loss, any
+    usable stain (bool tensor), per-stain valid-case counts).
+
+    GOT subsamples min(cfg.got_subsample, t) tokens per stain pair: the
+    indices are `got_indices[s]` for stain pair s (1..n_mod-1) when given,
+    else `torch.randperm(t, generator=generator)[:sub]`, one draw per pair."""
     if cfg.intra_modality_loss == "info-nce":
         raise NotImplementedError("the intra-modality loss (n_views=3) is not ported "
                                   "(ROADMAP.md D3)")
+    use_got = cfg.local_loss == "got"
+    if use_got and token_mask is not None:
+        raise NotImplementedError("GOT with ragged token masks (per-side masked subsampling) "
+                                  "is not ported (ROADMAP.md A6)")
     n_mod = slide_embs.shape[1]
+    dev = slide_embs.device
     he = slide_embs[:, HE_POSITION, WHOLE_VIEW_POSITION]
-    total = torch.zeros((), dtype=torch.float32, device=slide_embs.device)
-    any_flag = torch.zeros((), dtype=torch.bool, device=slide_embs.device)
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    any_flag = torch.zeros((), dtype=torch.bool, device=dev)
     metrics = {}
+    stain_labels = []
     for stain_idx in range(1, n_mod):
         labels = modality_labels[:, stain_idx] > 0
         if sample_mask is not None:
             labels = labels & sample_mask
+        stain_labels.append(labels)
+
+    got_per_stain = None
+    if use_got:
+        t = token_embs.shape[2]
+        sub = min(cfg.got_subsample, t)
+        if got_indices is None:
+            if generator is None:
+                raise ValueError("GOT needs a generator or got_indices")
+            got_indices = [torch.randperm(t, generator=generator, device=generator.device)[:sub]
+                           for _ in range(1, n_mod)]
+        vs, qs = [], []
+        for s, stain_idx in enumerate(range(1, n_mod)):
+            idx = got_indices[s].to(token_embs.device)
+            vs.append(token_embs[:, HE_POSITION, idx])        # shared index set per pair
+            qs.append(token_embs[:, stain_idx, idx])
+        got_per_stain = L.got_loss_multi(torch.stack(vs), torch.stack(qs),
+                                         sample_mask=torch.stack(stain_labels))
+
+    for s, stain_idx in enumerate(range(1, n_mod)):
+        labels = stain_labels[s]
         cnt = labels.sum()
         flag = cnt > 1                                    # ref trainer.py:26 (>= 2 for CL)
+        stain_total = torch.zeros((), dtype=torch.float32, device=dev)
         if cfg.global_loss == "info-nce":
-            loss = L.info_nce(he, slide_embs[:, stain_idx, WHOLE_VIEW_POSITION],
-                              temperature=cfg.temperature, symmetric=cfg.symmetric_cl,
-                              mask=labels)
-            total = total + torch.where(flag, loss, torch.zeros_like(loss))
+            stain_total = stain_total + L.info_nce(
+                he, slide_embs[:, stain_idx, WHOLE_VIEW_POSITION], temperature=cfg.temperature,
+                symmetric=cfg.symmetric_cl, mask=labels)
+        if use_got:
+            stain_total = stain_total + cfg.local_loss_weight * got_per_stain[s]
+        total = total + torch.where(flag, stain_total, torch.zeros_like(stain_total))
         any_flag = any_flag | flag
         metrics[f"n_{cfg.MODALITIES[stain_idx]}"] = cnt
     return total, any_flag, metrics
@@ -70,8 +117,9 @@ def compute_losses(cfg: MadeleineConfig, slide_embs: torch.Tensor, token_embs: t
 
 class TrainStep:
     """One optimizer step on one batch: `step(batch, seed) -> (he_embs,
-    metrics)`. Updates the model's f32 parameters in place; `updates` counts
-    the updates applied (the schedule's step)."""
+    metrics)`. `seed` keys the step's dropout masks and, on a stream of its
+    own, its GOT subsample. Updates the model's f32 parameters in place;
+    `updates` counts the updates applied (the schedule's step)."""
 
     def __init__(self, cfg: MadeleineConfig, model: MADELEINE, optimizer: torch.optim.Optimizer,
                  schedule):
@@ -97,7 +145,9 @@ class TrainStep:
         model.train()
         self.optimizer.zero_grad(set_to_none=True)
         slide, tok = forward_train(model, feats, mask=token_mask, seed=seed)
-        total, any_flag, metrics = compute_losses(cfg, slide.float(), tok, labels, sample_mask)
+        total, any_flag, metrics = compute_losses(cfg, slide.float(), tok, labels, sample_mask,
+                                                  generator=got_generator(seed, dev),
+                                                  token_mask=token_mask)
         ok = bool(any_flag & torch.isfinite(total))
         lr = self.schedule(self.updates)
         if ok:

@@ -174,3 +174,82 @@ def test_train_step_launches_k6_k7_and_refuses_f32(cuda_device):
         _, metrics = step(batch, seed=1)
         assert not metrics["skipped"] and np.isfinite(float(metrics["loss"]))
         assert (et.fwd_launches - f0, et.bwd_launches - b0) == (5, 5)
+
+
+def _got_costs(device, b, n, m, d=128, seed=0):
+    """C, Cs, Ct, Cst as the GOT path builds them: random tokens ->
+    cosine_cost -> threshold-ReLU, and the Cst outer sum."""
+    from madeleine_torch.ops import losses as L
+
+    g = torch.Generator().manual_seed(seed)
+    v = torch.randn(b, n, d, generator=g).to(device)
+    q = torch.randn(b, m, d, generator=g).to(device)
+    C = L._threshold_relu(L.cosine_cost(v, q), None)
+    Cs = L._threshold_relu(L.cosine_cost(v, v), None)
+    Ct = L._threshold_relu(L.cosine_cost(q, q), None)
+    return C, Cs, Ct, L._cst(Cs, Ct)
+
+
+def _rel(a, b):
+    return ((a - b).norm() / b.norm()).item()
+
+
+@pytest.mark.parametrize("shape", [(7, 256, 192), (260, 256, 256)], ids=["odd", "step"])
+def test_ipot_and_gw_kernels_match_plain(cuda_device, shape):
+    """K8 at (beta, iters) = (0.5, 30) and (0.1, 20), K9 with the loss's
+    cotangent C, K10 at (0.1, 5 x 20), each against its plain version:
+    relative Frobenius 1e-4 for T and gamma, 1e-3 for dC; a second launch of
+    each is bitwise equal."""
+    from madeleine_torch.ops import ipot as I
+
+    C, Cs, Ct, Cst = _got_costs(cuda_device, *shape)
+    for beta, iters in ((0.5, 30), (0.1, 20)):
+        T = I.ipot_plan_cuda(C, beta, iters)
+        assert torch.equal(T, I.ipot_plan_cuda(C, beta, iters))
+        assert _rel(T, I.ipot_plan_plain(C, beta, iters)) <= 1e-4, (beta, iters)
+    dC = I.ipot_plan_bwd_cuda(C, C, 0.5, 30)
+    assert torch.equal(dC, I.ipot_plan_bwd_cuda(C, C, 0.5, 30))
+    assert _rel(dC, I.ipot_plan_bwd_plain(C, C, 0.5, 30)) <= 1e-3
+    gamma = I.gw_gamma_cuda(Cs, Ct, Cst, 0.1, 5, 20)
+    assert torch.equal(gamma, I.gw_gamma_cuda(Cs, Ct, Cst, 0.1, 5, 20))
+    assert _rel(gamma, I.gw_gamma_plain(Cs, Ct, Cst, 0.1, 5, 20)) <= 1e-4
+
+
+def test_ipot_kernels_raise_on_a_wrong_operand(cuda_device):
+    """A kernel given an operand it does not take raises; nothing falls back
+    to the plain version."""
+    from madeleine_torch.ops import ipot as I
+
+    C, Cs, Ct, Cst = _got_costs(cuda_device, 2, 64, 48)
+    before = (I.fwd_launches, I.bwd_launches, I.gw_launches)
+    with pytest.raises(ValueError, match="float32"):
+        I.ipot_plan_cuda(C.double(), 0.5, 30)
+    with pytest.raises(ValueError, match="non-contiguous"):
+        I.ipot_plan_bwd_cuda(C, C.transpose(1, 2).contiguous().transpose(1, 2), 0.5, 30)
+    with pytest.raises(ValueError, match="Ct"):
+        I.gw_gamma_cuda(Cs, Cs, Cst, 0.1, 5, 20)
+    assert (I.fwd_launches, I.bwd_launches, I.gw_launches) == before
+
+
+def test_got_train_step_launches_all_five_train_kernels(cuda_device):
+    """A bf16 InfoNCE + GOT step on the card goes through K6 and K7 (once
+    per modality) and K8, K9 and K10 (once each: all stain pairs batched)."""
+    import numpy as np
+
+    from madeleine_torch.ops import encoder_train as et
+    from madeleine_torch.ops import ipot as I
+    from madeleine_torch.train.optim import make_optimizer
+    from madeleine_torch.train.trainer import make_train_step
+
+    rng = np.random.default_rng(0)
+    batch = {"feats": rng.standard_normal((4, 5, 256, 512)).astype(np.float32),
+             "modality_labels": np.ones((4, 5), np.float32)}
+    cfg = MadeleineConfig(precision="bfloat16", local_loss="got", got_subsample=64).finalize()
+    model = init_madeleine(MADELEINE(cfg), torch.Generator().manual_seed(0)).to(cuda_device)
+    opt, sched = make_optimizer(cfg, model.parameters(), 10)
+    step = make_train_step(cfg, model, opt, sched)
+    before = (et.fwd_launches, et.bwd_launches, I.fwd_launches, I.bwd_launches, I.gw_launches)
+    _, metrics = step(batch, seed=1)
+    assert not metrics["skipped"] and np.isfinite(float(metrics["loss"]))
+    after = (et.fwd_launches, et.bwd_launches, I.fwd_launches, I.bwd_launches, I.gw_launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (5, 5, 1, 1, 1)

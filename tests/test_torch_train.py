@@ -85,8 +85,9 @@ def test_unported_options_raise_and_name_the_roadmap_item():
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
             port.forward_train(model, x, **kw)
     _, cfg, _, _ = param_pair(local_loss="got")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md D1"):
-        compute_losses(cfg, torch.zeros(2, 3, 1, 4), None, torch.ones(2, 3), None)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
+        compute_losses(cfg, torch.zeros(2, 3, 1, 4), torch.zeros(2, 3, 8, 4), torch.ones(2, 3),
+                       None, token_mask=torch.ones(2, 3, 8, dtype=torch.bool))
 
 
 STEP_CFG = dict(local_loss="-1", temperature=0.001, lr=1e-4, warmup=False, max_epochs=3,
@@ -155,6 +156,48 @@ def test_train_steps_match_jax(monkeypatch, rates_zero, scan):
         for k, p in model.state_dict().items():
             diff = float((p - want_params[i][k]).abs().max())
             assert diff <= (2.05 if noise_only(k) else 0.01) * lr * (i + 1), (i, k, diff)
+    assert step.updates == 2
+
+
+def test_got_train_steps_match_jax(monkeypatch, rates_zero):
+    """Two f32 steps of InfoNCE + GOT (local_loss="got", weight 1) at rates
+    0 against JAX's step on its unfused glue route (MADELEINE_NO_GOT_GLUE=1,
+    the route the port takes). got_subsample = t = 16: GOT is invariant to
+    the common permutation of the tokens that each side draws, so the two
+    agree up to f32 rounding without sharing an RNG. Bars as
+    test_train_steps_match_jax (the token projector, which GOT reads, is
+    compared like every other tensor), except the parameters after each
+    step: within 5% of the learning rate. Adam's first steps move each
+    element by about lr times the sign of its gradient, and GOT leaves some
+    attention_a elements with gradients at the f32 rounding floor, which
+    then move by up to 1.7% of lr apart (gradients agree to 1.5e-5)."""
+    monkeypatch.setenv("MADELEINE_FORCE_FUSED", "1")
+    monkeypatch.setenv("MADELEINE_NO_GOT_GLUE", "1")
+    jcfg, pcfg, params, model = param_pair(**dict(STEP_CFG, local_loss="got", got_subsample=16))
+    batch = train_batch(np.random.default_rng(5), bs=6, n_mod=3, t=16, d=64)
+    want_losses, jgrads, want_params = _jax_run(jcfg, params, batch, 2)
+    want_grads = grads_as_state_dict(jgrads, params)
+    model.train()
+    opt, sched = make_optimizer(pcfg, model.parameters(), steps_per_epoch=10)
+    step = make_train_step(pcfg, model, opt, sched)
+    lr = pcfg.lr
+    noise_only = lambda k: k.endswith("attention_c.bias")
+    for i in range(2):
+        _, metrics = step(batch, seed=i)
+        assert not metrics["skipped"]
+        np.testing.assert_allclose(float(metrics["loss"]), want_losses[i], rtol=1e-4)
+        if i == 0:
+            assert model.token_projector.weight.grad.abs().max() > 0
+            for k, p in model.named_parameters():
+                ref = want_grads[k]
+                if noise_only(k):
+                    assert float((p.grad - ref).abs().max()) <= 1e-4, k
+                else:
+                    err = float((p.grad - ref).norm() / ref.norm())
+                    assert err < 1e-4, (k, err)
+        for k, p in model.state_dict().items():
+            diff = float((p - want_params[i][k]).abs().max())
+            assert diff <= (2.05 if noise_only(k) else 0.05) * lr * (i + 1), (i, k, diff)
     assert step.updates == 2
 
 
