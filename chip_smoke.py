@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases device,build,kernels
     python3 chip_smoke.py --phases device,build,train_kernels,train
     python3 chip_smoke.py --phases device,build,got_kernels,train_got
+    python3 chip_smoke.py --phases device,build,glue_kernels,train_got,pretrain
 
 Phases, one JSON line each; any failure raises and the exit code is non-zero:
   device   card name and the nvidia-smi name/power-limit line
@@ -40,6 +41,15 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            control that must miss the bar: the plain version one iteration
            short (K10: the largest outer count below 5 that misses it); two
            launches of each bitwise equal; timed at [260, 256, 256]
+  glue_kernels
+           K11 (threshold_build forward), K12 (its backward), K13 (gw_trace
+           forward) and K14 (its backward), f32, on cosine costs of random
+           d=128 tokens with per-problem thresholds and the GW plan of K10, at
+           [260, 256, 256] and (7, 256, 192), each against its plain version
+           (relative Frobenius per output: 1e-6 for K11/K12, 1e-5 for K12's
+           dthr and K13/K14), with a control that must miss the bar: the plain
+           version fed the neighbouring problem's thresholds (K11/K12) or plan
+           (K13/K14); two launches of each bitwise equal; timed at [260, 256, 256]
   train    5 steps of make_train_step at full width (65 cases x 5 stains x
            2048 tokens, bf16, InfoNCE, dropout on) on one fixed synthetic
            batch: no step skipped, finite losses, the last below the first;
@@ -47,8 +57,21 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
   train_got
            the same 5 steps with the published objective, InfoNCE + GOT
            (local_loss got, weight 1, 256 tokens subsampled per stain pair:
-           260 transport problems of 256 x 256 per step): K6-K10 must launch
-           on every step; step ms, peak memory and the GOT share of the step
+           260 transport problems of 256 x 256 per step): K6-K14 must launch
+           on every step; step ms, peak memory, the GOT share of the step and
+           the GOT loss's device time split into glue kernels, transport
+           kernels and the rest
+  pretrain `python -m madeleine_torch.cli.pretrain` with the flags of
+           scripts/launch_pretrain_withoutStainEncodings.sh (65 cases x 5
+           stains x 2048 tokens, bf16, InfoNCE + GOT) on a synthetic cohort
+           of 70 cases (about 0.9 GB of .npz bags of 512-2560 tokens, 20% of
+           IHC bags missing) in a temp dir: A 2 epochs with
+           --checkpoint_every 1, B A resumed to 3 epochs, C 3 epochs
+           straight, each with a 16-bag --downstream_dir. Every step finite
+           and applied, K6-K14 on every step, K1 in each downstream pass, the
+           artifacts written, B's model.pt equal to C's bit for bit; the
+           loader's host ms per batch, the H2D ms of a batch, the CLI's step
+           ms against train_got's, epoch time and peak memory
   profile  torch.profiler device time by kernel of one K6 and one K7 call at
            [65, 2048] and of one full-width train step of each objective,
            with the steps' device idle share
@@ -63,6 +86,7 @@ import importlib.util
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -74,8 +98,8 @@ import urllib.request
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "train_kernels", "got_kernels", "golden", "serve",
-          "extract", "train", "train_got", "profile")
+PHASES = ("device", "build", "kernels", "train_kernels", "got_kernels", "glue_kernels", "golden",
+          "serve", "extract", "train", "train_got", "pretrain", "profile")
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -151,25 +175,15 @@ def write_model_dir(root: str, precision: str) -> str:
 
 
 def reset_counts():
-    from madeleine_torch.ops import encode_fused, encoder_train, gated_pool, ipot
+    from madeleine_torch.ops import launches
 
-    encode_fused.launches = 0
-    gated_pool.launches = 0
-    encoder_train.fwd_launches = 0
-    encoder_train.bwd_launches = 0
-    ipot.fwd_launches = 0
-    ipot.bwd_launches = 0
-    ipot.gw_launches = 0
+    launches.reset()
 
 
 def read_counts() -> dict:
-    from madeleine_torch.ops import encode_fused, encoder_train, gated_pool, ipot
+    from madeleine_torch.ops import launches
 
-    return {"encode_fused": encode_fused.launches, "gated_pool": gated_pool.launches,
-            "encoder_train_fwd": encoder_train.fwd_launches,
-            "encoder_train_bwd": encoder_train.bwd_launches,
-            "ipot_fwd": ipot.fwd_launches, "ipot_bwd": ipot.bwd_launches,
-            "gw_gamma": ipot.gw_launches}
+    return launches.read()
 
 
 # ---------------------------------------------------------------------------
@@ -579,6 +593,7 @@ def _rel_fro(a, b) -> float:
 def _got_costs(torch, b, n, m, gen, d=128):
     """C, Cs, Ct, Cst built as the GOT path builds them, from random tokens."""
     from madeleine_torch.ops import losses as L
+    from madeleine_torch.ops.got_glue import cst_plain
 
     v = torch.from_numpy(gen.standard_normal((b, n, d)).astype(np.float32)).cuda()
     q = torch.from_numpy(gen.standard_normal((b, m, d)).astype(np.float32)).cuda()
@@ -586,7 +601,7 @@ def _got_costs(torch, b, n, m, gen, d=128):
         C = L._threshold_relu(L.cosine_cost(v, q), None)
         Cs = L._threshold_relu(L.cosine_cost(v, v), None)
         Ct = L._threshold_relu(L.cosine_cost(q, q), None)
-        return C, Cs, Ct, L._cst(Cs, Ct)
+        return C, Cs, Ct, cst_plain(Cs, Ct)
 
 
 def _got_work(b, n, m, iters=30, gw_outer=5, gw_iters=20):
@@ -708,6 +723,164 @@ def phase_got_kernels(state):
             "bound_by": times[name]["bound_by"], "library_ms": None}
     emit({"phase": "got_kernels", "shape": GOT_STEP_SHAPE, "times": times,
           "k9_history_gb": 30 * GOT_STEP_SHAPE[0] * 256 * 256 * 4 / 1e9})
+
+
+# GOT glue kernels: relative Frobenius bars against the plain versions on the card
+GLUE_TB_RTOL = 1e-6     # K11/K12 outputs: elementwise work plus fixed-order row sums
+GLUE_DTHR_RTOL = 1e-5   # K12's dthr: sums over whole problems
+GLUE_GWT_RTOL = 1e-5    # K13/K14: full f32 products
+GLUE_KERNELS = ("threshold_build_fwd", "threshold_build_bwd", "gw_trace_fwd", "gw_trace_bwd")
+
+
+def _glue_work(b, n, m):
+    """(flops, bytes) of K11-K14: each input read once, each output written
+    once; the elementwise operations counted once each, 2 n m k per product."""
+    nm, nn, mm = n * m, n * n, m * m
+    k11 = (b * (nm + nn + mm + 2 * (nn + mm) + nm), 4 * b * (2 * nm + nn + mm + nm + nn + mm + 3))
+    k12 = (b * (nm + 4 * (nn + mm) + 2 * nm),
+           4 * b * ((nm + nn + mm + 3) + (nm + nn + mm + nm) + (nm + nn + mm + 3)))
+    k13 = (2 * b * (n * n * m + n * m * m) + 3 * b * nm, 4 * b * (nn + mm + 2 * nm + 1))
+    k14 = (2 * b * (2 * n * m * m + 2 * n * n * m) + b * (nn + mm + nm),
+           4 * b * (nn + mm + nm + 1) + 4 * b * (nn + mm + nm))
+    return {"threshold_build_fwd": k11, "threshold_build_bwd": k12, "gw_trace_fwd": k13,
+            "gw_trace_bwd": k14}
+
+
+def _glue_inputs(torch, b, n, m, gen, d=128):
+    """C0, Cs0, Ct0 cosine costs of random tokens, per-problem thresholds
+    min + 0.1 (max - min) [b, 3], and the GW plan of the thresholded costs
+    (K10), as the GOT path builds them."""
+    from madeleine_torch.ops import got_glue as G
+    from madeleine_torch.ops import ipot as I
+    from madeleine_torch.ops import losses as L
+
+    v = torch.from_numpy(gen.standard_normal((b, n, d)).astype(np.float32)).cuda()
+    q = torch.from_numpy(gen.standard_normal((b, m, d)).astype(np.float32)).cuda()
+    with torch.no_grad():
+        X0 = (L.cosine_cost(v, q), L.cosine_cost(v, v), L.cosine_cost(q, q))
+        thr = torch.stack([x.amin((1, 2)) + 0.1 * (x.amax((1, 2)) - x.amin((1, 2)))
+                           for x in X0], dim=1).contiguous()
+        _, Cs, Ct, Cst = G.threshold_build_plain(*X0, thr)
+        gamma = I.gw_gamma_cuda(Cs, Ct, Cst, 0.1, 5, 20)
+    return X0, thr, gamma
+
+
+def _check_glue(torch, X0, thr, gamma, gen):
+    """K11-K14 each against its plain version (relative Frobenius per
+    output), a second launch of each, and a control fed a neighbouring
+    problem's threshold (K11/K12) or plan (K13/K14), which must miss."""
+    from madeleine_torch.ops import got_glue as G
+
+    b, n, m = X0[0].shape
+    rep = {}
+
+    def entry(got, again, want, control, names, control_is):
+        errs = {k: _rel_fro(g, w) for k, g, w in zip(names, got, want)}
+        return {"rel_fro": errs, "max_abs_err": max((g - w).abs().max().item()
+                                                    for g, w in zip(got, want)),
+                "control": {k: _rel_fro(c, w) for k, c, w in zip(names, control, want)},
+                "control_is": control_is,
+                "bitwise_equal": all(torch.equal(g, a) for g, a in zip(got, again)),
+                "finite": all(bool(torch.isfinite(g).all()) for g in got)}
+
+    rolled = thr.roll(1, 0).contiguous()
+    outs = G.threshold_build_cuda(*X0, thr)
+    rep["threshold_build_fwd"] = entry(
+        outs, G.threshold_build_cuda(*X0, thr), G.threshold_build_plain(*X0, thr),
+        G.threshold_build_plain(*X0, rolled), ("C", "Cs", "Ct", "Cst"), "thresholds rolled")
+    cots = [torch.from_numpy(gen.standard_normal(tuple(o.shape)).astype(np.float32)).cuda()
+            for o in outs]
+    rep["threshold_build_bwd"] = entry(
+        G.threshold_build_bwd_cuda(*X0, thr, *cots), G.threshold_build_bwd_cuda(*X0, thr, *cots),
+        G.threshold_build_bwd_plain(*X0, thr, *cots),
+        G.threshold_build_bwd_plain(*X0, rolled, *cots), ("dC0", "dCs0", "dCt0", "dthr"),
+        "thresholds rolled")
+    _, Cs, Ct, Cst = outs
+    groll = gamma.roll(1, 0).contiguous()
+    rep["gw_trace_fwd"] = entry(
+        [G.gw_trace_cuda(Cs, Ct, Cst, gamma)], [G.gw_trace_cuda(Cs, Ct, Cst, gamma)],
+        [G.gw_trace_plain(Cs, Ct, Cst, gamma)], [G.gw_trace_plain(Cs, Ct, Cst, groll)],
+        ("out",), "gamma rolled")
+    dout = torch.from_numpy(gen.standard_normal(b).astype(np.float32)).cuda()
+    rep["gw_trace_bwd"] = entry(
+        G.gw_trace_bwd_cuda(Cs, Ct, gamma, dout), G.gw_trace_bwd_cuda(Cs, Ct, gamma, dout),
+        G.gw_trace_bwd_plain(Cs, Ct, Cst, gamma, dout),
+        G.gw_trace_bwd_plain(Cs, Ct, Cst, groll, dout), ("dCs", "dCt", "dCst"), "gamma rolled")
+    torch.cuda.synchronize()
+    return rep
+
+
+def _glue_bar(kernel, output):
+    if kernel.startswith("gw_trace"):
+        return GLUE_GWT_RTOL
+    return GLUE_DTHR_RTOL if output == "dthr" else GLUE_TB_RTOL
+
+
+def _enforce_glue(rep, where):
+    for kernel, r in rep.items():
+        if not (r["finite"] and r["bitwise_equal"]):
+            raise AssertionError(f"glue_kernels {where} {kernel}: {r}")
+        for out, err in r["rel_fro"].items():
+            bar = _glue_bar(kernel, out)
+            if not err <= bar:
+                raise AssertionError(f"glue_kernels {where} {kernel} {out}: {err} > {bar}")
+            if not r["control"][out] > bar:
+                raise AssertionError(f"glue_kernels {where} {kernel} {out}: control within "
+                                     f"the bar: {r}")
+
+
+def phase_glue_kernels(state):
+    import torch
+    from madeleine_torch.ops import got_glue as G
+
+    gen = np.random.default_rng(SEED + 6)
+    checks = {}
+    for label, shape in (("odd", GOT_ODD_SHAPE), ("step", GOT_STEP_SHAPE)):
+        X0, thr, gamma = _glue_inputs(torch, *shape, gen)
+        checks[label] = _check_glue(torch, X0, thr, gamma, gen)
+    emit({"phase": "glue_kernels", "checks": checks, "tb_rtol_fro": GLUE_TB_RTOL,
+          "dthr_rtol_fro": GLUE_DTHR_RTOL, "gw_trace_rtol_fro": GLUE_GWT_RTOL,
+          "shapes": {"odd": GOT_ODD_SHAPE, "step": GOT_STEP_SHAPE}})
+    for label, rep in checks.items():
+        _enforce_glue(rep, label)
+
+    # times at the step's shape (X0, thr and gamma are the step shape's now)
+    outs = G.threshold_build_cuda(*X0, thr)
+    _, Cs, Ct, Cst = outs
+    cots = [torch.randn_like(o) for o in outs]
+    dout = torch.randn(X0[0].shape[0], device="cuda")
+    fns = {"threshold_build_fwd": (lambda: G.threshold_build_cuda(*X0, thr),
+                                   lambda: G.threshold_build_plain(*X0, thr)),
+           "threshold_build_bwd": (lambda: G.threshold_build_bwd_cuda(*X0, thr, *cots),
+                                   lambda: G.threshold_build_bwd_plain(*X0, thr, *cots)),
+           "gw_trace_fwd": (lambda: G.gw_trace_cuda(Cs, Ct, Cst, gamma),
+                            lambda: G.gw_trace_plain(Cs, Ct, Cst, gamma)),
+           "gw_trace_bwd": (lambda: G.gw_trace_bwd_cuda(Cs, Ct, gamma, dout),
+                            lambda: G.gw_trace_bwd_plain(Cs, Ct, Cst, gamma, dout))}
+    replaces = {"threshold_build_fwd": "madeleine_tpu/ops/got_glue.py:133",
+                "threshold_build_bwd": "madeleine_tpu/ops/got_glue.py:166",
+                "gw_trace_fwd": "madeleine_tpu/ops/got_glue.py:265",
+                "gw_trace_bwd": "madeleine_tpu/ops/got_glue.py:292"}
+    work = _glue_work(*GOT_STEP_SHAPE)
+    times = {}
+    for name, (kernel, plain) in fns.items():
+        ms = cuda_ms(kernel, warmup=2, iters=10)
+        plain_ms = cuda_ms(plain, warmup=1, iters=5)
+        flops, nbytes = work[name]
+        ops, mem = flops / PEAK_FP32, nbytes / PEAK_BYTES
+        bound = max(ops, mem) * 1e3
+        times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": "operations" if ops >= mem else "bytes",
+                       "share_of_bound": bound / ms, "gflop": flops / 1e9, "gb": nbytes / 1e9}
+        state.setdefault("kernels", {})[name] = {
+            "name": name, "route": "cuda", "source": "madeleine_torch/csrc/got_glue.cu",
+            "replaces": replaces[name],
+            "max_abs_err": max(checks[lbl][name]["max_abs_err"] for lbl in checks),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": times[name]["bound_by"], "library_ms": None}
+    emit({"phase": "glue_kernels", "shape": GOT_STEP_SHAPE, "times": times,
+          "glue_kernels_ms_per_step": sum(t["ms"] for t in times.values()),
+          "glue_plain_ms_per_step": sum(t["plain_ms"] for t in times.values())})
 
 
 def phase_golden(state):
@@ -974,7 +1147,8 @@ def phase_train_got(state):
     from madeleine_torch.ops import losses as L
 
     cfg, _, _, run = _run_train_steps(torch, state, "train_got",
-                                      ENCODER_KERNELS + GOT_KERNELS, got_path_config())
+                                      ENCODER_KERNELS + GOT_KERNELS + GLUE_KERNELS,
+                                      got_path_config())
     n_pairs = cfg.n_modalities - 1
     shape = (n_pairs, cfg.batch_size, cfg.got_subsample, cfg.token_proj_dim)
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -990,13 +1164,249 @@ def phase_train_got(state):
     L.got_loss_multi(v, q, sample_mask=smask).sum().backward()
     torch.cuda.synchronize()
     got_peak = torch.cuda.max_memory_allocated() - base
+    # device time by kernel of one GOT forward + backward: the glue kernels
+    # (K11-K14), the transport kernels (K8-K10) and the rest (cosine costs,
+    # thresholds' min/max, gathers)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        L.got_loss_multi(v, q, sample_mask=smask).sum().backward()
+        torch.cuda.synchronize()
+    got_split = _split_got_rows(_profile_rows(prof))
     hist = 30 * n_pairs * cfg.batch_size * cfg.got_subsample ** 2 * 4
     emit({"phase": "train_got", **run, "got_problems_per_step": n_pairs * cfg.batch_size,
           "got_subsample": cfg.got_subsample, "k9_history_gb": hist / 1e9,
           "got_loss_own_peak_gb": got_peak / 1e9,
           "got_loss_own_peak_gb_less_k9_history": (got_peak - hist) / 1e9,
           "got_loss_fwd_bwd_ms": got_ms,
-          "got_share_of_step": got_ms / run["step_ms_median_after_first"]})
+          "got_share_of_step": got_ms / run["step_ms_median_after_first"],
+          "got_device_ms_by_part": got_split})
+    state["train_got_step_ms"] = run["step_ms_median_after_first"]
+
+
+PRETRAIN_CASES = 70        # 65 + 5: two steps per epoch, the second padded by 60 masked rows
+PRETRAIN_TOKENS = (512, 2561)   # bag lengths; below 2048 the subsample draws with replacement
+PRETRAIN_IHC_PRESENT = 0.8
+PRETRAIN_DOWNSTREAM = 16
+
+
+def _write_pretrain_cohort(root, gen):
+    """<root>/feats/case{i}_{stain}.npz (512-d f32 bags: noise plus a
+    per-case vector shared by the case's bags), <root>/ACROBAT.csv, and
+    <root>/downstream/patch_embeddings/*.npz. Returns (bags, bytes)."""
+    stains = ["HE", "HER2", "PGR", "KI67", "ER"]
+    feats = os.path.join(root, "feats")
+    os.makedirs(feats)
+    rows, n_bags, n_bytes = [], 0, 0
+    for i in range(PRETRAIN_CASES):
+        case = gen.standard_normal(512, dtype=np.float32)
+        labels = {s: int(s == "HE" or gen.random() < PRETRAIN_IHC_PRESENT) for s in stains}
+        for s, present in labels.items():
+            if present:
+                x = gen.standard_normal((int(gen.integers(*PRETRAIN_TOKENS)), 512),
+                                        dtype=np.float32)
+                x += TRAIN_SIGNAL * case
+                np.savez(os.path.join(feats, f"case{i:02d}_{s}.npz"), features=x)
+                n_bags, n_bytes = n_bags + 1, n_bytes + x.nbytes
+        rows.append(",".join([f"case{i:02d}"] + [str(labels[s]) for s in stains] + ["train"]))
+    with open(os.path.join(root, "ACROBAT.csv"), "w") as f:
+        f.write("slide_id," + ",".join(stains) + ",split\n" + "\n".join(rows) + "\n")
+    down = os.path.join(root, "downstream", "patch_embeddings")
+    os.makedirs(down)
+    for i in range(PRETRAIN_DOWNSTREAM):
+        np.savez(os.path.join(down, f"slide_{i:02d}.npz"),
+                 features=gen.standard_normal((int(gen.integers(300, 4000)), 512),
+                                              dtype=np.float32))
+    return n_bags, n_bytes
+
+
+def _pretrain_argv(root, results, max_epochs, *extra):
+    """The flags of scripts/launch_pretrain_withoutStainEncodings.sh."""
+    return ["--dataset", "ACROBAT", "--csv_fpath", os.path.join(root, "ACROBAT.csv"),
+            "--data_root_dir", os.path.join(root, "feats"), "--results_dir", results,
+            "--wsi_encoder", "abmil", "--n_heads", "4", "--patch_embedding_dim", "512",
+            "--wsi_encoder_hidden_dim", "512", "--activation", "softmax",
+            "--global_loss", "info-nce", "--local_loss", "got", "--temperature", "0.001",
+            "--symmetric_cl", "--lr", "0.0001", "--batch_size", "65", "--n_subsamples", "2048",
+            "--warmup", "--warmup_epochs", "5", "--precision", "bfloat16",
+            "--max_epochs", str(max_epochs), "--downstream_dir", os.path.join(root, "downstream"),
+            *extra]
+
+
+def _run_pretrain_cli(argv, log_path):
+    """`python -m madeleine_torch.cli.pretrain` as a subprocess from the repo
+    root; returns (results dir, metrics records, wall seconds)."""
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.run([sys.executable, "-m", "madeleine_torch.cli.pretrain", *argv],
+                              cwd=HERE, stdout=log, stderr=subprocess.STDOUT, timeout=900,
+                              env=dict(os.environ, PYTHONPATH=HERE))
+    wall = time.perf_counter() - t0
+    out = open(log_path).read()
+    if proc.returncode != 0:
+        raise AssertionError(f"pretrain CLI failed (rc {proc.returncode}):\n{out[-4000:]}")
+    results = [ln.split(": ", 1)[1] for ln in out.splitlines()
+               if ln.startswith("* Results dir: ")][0]
+    with open(os.path.join(results, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    return results, records, wall
+
+
+PRETRAIN_STEP_KERNELS = ENCODER_KERNELS + GOT_KERNELS + GLUE_KERNELS
+
+
+def _check_pretrain_run(name, results, records, epochs):
+    """Every step finite, none skipped, K6-K14 launched on every step, K1 in
+    the downstream pass, the artifacts written. Returns the run's summary."""
+    import torch
+    from madeleine_torch.utils.file_utils import load_pkl
+
+    ep = [r for r in records if "steps" in r]
+    if [r["epoch"] for r in ep] != list(epochs):
+        raise AssertionError(f"pretrain {name}: epochs {[r['epoch'] for r in ep]}")
+    steps = [s for r in ep for s in r["steps"]]
+    bad = [s for s in steps if s["skipped"] or not np.isfinite(s["loss"])
+           or any(s["launches"].get(k, 0) < 1 for k in PRETRAIN_STEP_KERNELS)]
+    if bad or len(steps) != 2 * len(ep):
+        raise AssertionError(f"pretrain {name}: bad steps {bad} of {len(steps)}")
+    down = [r for r in records if "downstream" in r]
+    if len(down) != 1 or down[0]["launches"].get("encode_fused", 0) < 1 \
+            or down[0]["slides"] != PRETRAIN_DOWNSTREAM:
+        raise AssertionError(f"pretrain {name}: downstream pass {down}")
+    names = set(os.listdir(results))
+    want = {"config.json", "model_config.txt", "model.pt", "model_config.json",
+            "downstream.pkl", "train_state", "metrics.jsonl"}
+    if not want <= names:
+        raise AssertionError(f"pretrain {name}: missing {sorted(want - names)}")
+    emb = load_pkl(os.path.join(results, "downstream.pkl"))["embeds"]
+    if emb.shape != (PRETRAIN_DOWNSTREAM, 512) or not np.isfinite(emb).all():
+        raise AssertionError(f"pretrain {name}: downstream embeds {emb.shape}")
+    launched = {}
+    for s in steps:
+        for k, v in s["launches"].items():
+            launched[k] = launched.get(k, 0) + v
+    for k, v in down[0]["launches"].items():
+        launched[k] = launched.get(k, 0) + v
+    sd = torch.load(os.path.join(results, "model.pt"), map_location="cpu")
+    return {"epochs": len(ep), "losses": [s["loss"] for s in steps],
+            "step_ms": [s["step_ms"] for s in steps], "wait_ms": [s["wait_ms"] for s in steps],
+            "loader_ms": [x for r in ep for x in r["loader_ms"]],
+            "epoch_time_s": [r["epoch_time"] for r in ep],
+            "peak_memory_gb": max(r["peak_memory_gb"] for r in ep),
+            "launches": launched}, sd
+
+
+def _loader_breakdown(root):
+    """Host ms of one full-width batch (the first 65 cases), by part: reading
+    the bags, the 2048-token subsamples, `collate`, and the pin."""
+    import torch
+    from madeleine_torch.data.datasets import SlideDataset, collate
+    from madeleine_torch.data.io import load_features
+
+    ds = SlideDataset("ACROBAT", os.path.join(root, "ACROBAT.csv"), os.path.join(root, "feats"),
+                      ["HE", "HER2", "PGR", "KI67", "ER"], embedding_size=512, sample=2048)
+    ms = {"read": 0.0, "subsample": 0.0}
+    items = []
+    for i in range(65):
+        row, feats = ds.rows[i], []
+        for s in ds.modalities:
+            t0 = time.perf_counter()
+            x = (load_features(ds._bag_path(row, s)) if int(row[s]) == 1
+                 else np.zeros((2, 512), np.float32))
+            t1 = time.perf_counter()
+            feats.append(ds.sample_n(x))
+            ms["read"] += (t1 - t0) * 1e3
+            ms["subsample"] += (time.perf_counter() - t1) * 1e3
+        items.append({"feats": feats, "modality_labels": [int(row[s]) for s in ds.modalities],
+                      "slide_id": row["slide_id"]})
+    t0 = time.perf_counter()
+    batch = collate(items)
+    t1 = time.perf_counter()
+    torch.from_numpy(batch["feats"]).pin_memory()
+    ms.update(collate=(t1 - t0) * 1e3, pin=(time.perf_counter() - t1) * 1e3)
+    return ms
+
+
+def phase_pretrain(state):
+    """The pretrain CLI at full width with the launch script's flags, three
+    runs on one synthetic cohort: A 2 epochs with --checkpoint_every 1, B A
+    resumed to 3 epochs, C 3 epochs straight; B's model.pt must equal C's."""
+    import torch
+
+    gen = np.random.default_rng(SEED + 7)
+    root = tempfile.mkdtemp(prefix="pretrain_")
+    try:
+        t0 = time.perf_counter()
+        n_bags, n_bytes = _write_pretrain_cohort(root, gen)
+        cohort_s = time.perf_counter() - t0
+        logs = root   # a failed run's error carries the tail of its log
+        runs, sds, walls = {}, {}, {}
+        res_a, rec_a, walls["A"] = _run_pretrain_cli(
+            _pretrain_argv(root, os.path.join(root, "a"), 2, "--checkpoint_every", "1"),
+            os.path.join(logs, "pretrain_a.log"))
+        runs["A"], sds["A"] = _check_pretrain_run("A", res_a, rec_a, range(2))
+        res_b, rec_b, walls["B"] = _run_pretrain_cli(
+            _pretrain_argv(root, os.path.join(root, "b"), 3, "--checkpoint_every", "1",
+                           "--resume", os.path.join(res_a, "train_state")),
+            os.path.join(logs, "pretrain_b.log"))
+        runs["B"], sds["B"] = _check_pretrain_run("B", res_b, rec_b, range(2, 3))
+        res_c, rec_c, walls["C"] = _run_pretrain_cli(
+            _pretrain_argv(root, os.path.join(root, "c"), 3, "--checkpoint_every", "1"),
+            os.path.join(logs, "pretrain_c.log"))
+        runs["C"], sds["C"] = _check_pretrain_run("C", res_c, rec_c, range(3))
+        loader_parts = _loader_breakdown(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    unequal = [k for k in sds["C"] if not torch.equal(sds["B"][k], sds["C"][k])]
+    max_diff = max((sds["B"][k] - sds["C"][k]).abs().max().item() for k in sds["C"])
+    # resumed epoch 2 against the uninterrupted one: the same batches, losses
+    same_losses = runs["B"]["losses"] == runs["C"]["losses"][-2:]
+    # host -> device copy of one batch's f32 feats from pinned memory
+    x = torch.empty(65, 5, 2048, 512, dtype=torch.float32).pin_memory()
+    h2d_ms = cuda_ms(lambda: x.to("cuda", non_blocking=True), warmup=2, iters=10)
+    del x
+    steps_ms = [ms for r in runs.values() for ms in r["step_ms"]]
+    loader_ms = [ms for r in runs.values() for ms in r["loader_ms"]]
+    epoch_s = [s for r in runs.values() for s in r["epoch_time_s"]]
+    loop_busy = sum(steps_ms) / (1e3 * sum(epoch_s))
+    state["launches_pretrain"] = {k: sum(r["launches"].get(k, 0) for r in runs.values())
+                                  for k in read_counts()}
+    emit({"phase": "pretrain", "cases": PRETRAIN_CASES, "bags": n_bags,
+          "cohort_gb": n_bytes / 1e9, "cohort_write_s": cohort_s, "runs": runs,
+          "cli_wall_s": walls, "resume_bitwise_equal": not unequal,
+          "resume_max_abs_diff": max_diff, "resume_same_losses": same_losses,
+          "loader_host_ms_per_batch_median": statistics.median(loader_ms),
+          "loader_host_ms_one_batch_by_part": loader_parts,
+          "h2d_ms_per_batch": h2d_ms, "h2d_gb_per_batch": 65 * 5 * 2048 * 512 * 4 / 1e9,
+          "cli_step_ms_median": statistics.median(steps_ms),
+          "in_memory_step_ms": state.get("train_got_step_ms"),
+          "epoch_time_s_median": statistics.median(epoch_s),
+          "stream_busy_share_of_epochs": loop_busy,
+          "peak_memory_gb": max(r["peak_memory_gb"] for r in runs.values())})
+    if unequal or not same_losses:
+        raise AssertionError(f"pretrain: resumed run differs from the uninterrupted one: "
+                             f"{len(unequal)} tensors, max |diff| {max_diff}")
+
+
+# kernel-name prefixes of K8-K10 and of K11-K14 in a profiler trace
+TRANSPORT_NAMES = ("ipot_fwd_kernel", "ipot_bwd_kernel", "gw_gamma_kernel")
+GLUE_NAMES = ("tb_fwd_kernel", "tb_bwd_kernel", "gwt_fwd_kernel", "gwt_bwd_kernel")
+
+
+def _kernel_base(name):
+    """'(anonymous namespace)::tb_fwd_kernel(float const*, ...' -> 'tb_fwd_kernel'."""
+    return name.split("(anonymous namespace)::")[-1].split("(")[0].split("::")[-1]
+
+
+def _split_got_rows(rows):
+    """Device ms of the glue kernels, the transport kernels and everything else."""
+    parts = {"glue_kernels_ms": 0.0, "transport_kernels_ms": 0.0, "other_ms": 0.0}
+    for name, _, ms in rows:
+        base = _kernel_base(name)
+        key = ("glue_kernels_ms" if base in GLUE_NAMES else
+               "transport_kernels_ms" if base in TRANSPORT_NAMES else "other_ms")
+        parts[key] += ms
+    return parts
 
 
 def _profile_rows(prof):
@@ -1070,7 +1480,7 @@ def phase_profile(state):
         rows = _profile_rows(prof)
         busy, wall = sum(r[2] for r in rows), start.elapsed_time(end)
         steps[name] = {"wall_ms": wall, "device_busy_ms": busy,
-                       "device_idle_share": 1.0 - busy / wall,
+                       "device_idle_share": 1.0 - busy / wall, **_split_got_rows(rows),
                        "by_kernel_ms": [[k, c, ms] for k, c, ms in rows[:24]]}
         del step, batch
     emit({"phase": "profile", "shape": [65, 2048, 512], **out, **steps})
@@ -1108,7 +1518,7 @@ def main() -> int:
         return 0
 
     launches = {k: sum(state[f"launches_{p}"][k] for p in ("serve", "extract", "train",
-                                                            "train_got"))
+                                                            "train_got", "pretrain"))
                 for k in state["kernels"]}
     for k, n in launches.items():
         if n < 1:

@@ -75,8 +75,12 @@ class MadeleineConfig:
     pretrained: Optional[str] = None
     bucket_sizes: Optional[List[int]] = None  # inference length buckets
 
-    # ---- train route ----
+    # ---- train route and run (the JAX package's extensions) ----
     modality_scan: bool = True   # one encoder call per modality; False: one joint call
+    remat: bool = True           # recorded for the JAX package; K7 reads K6's saved rows
+    mesh_shape: Optional[int] = None   # data-parallel devices: 1 only (ROADMAP.md A7)
+    checkpoint_every: int = 0    # extra train-state checkpoints every N epochs (0: gated only)
+    profile_dir: Optional[str] = None  # torch.profiler chrome trace of the epochs
 
     # Derived (filled by finalize()).
     STAINS: List[str] = dataclasses.field(default_factory=list)

@@ -21,9 +21,10 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 KERNELS = ("encode_fused", "gated_pool", "encoder_train_fwd", "encoder_train_bwd", "ipot_fwd",
-           "ipot_bwd", "gw_gamma")
+           "ipot_bwd", "gw_gamma", "got_glue")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SMEM_LIMIT = 232448   # bytes of shared memory one block may use on Hopper
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -97,6 +98,41 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             _libs[name] = ctypes.CDLL(lib_path(name))
         return _libs[name]
+
+
+def check_problems(kernel: str, operands, shapes, lib_name: str, smem_fn: str, n: int,
+                   m: int) -> torch.device:
+    """For the per-problem f32 kernels of the GOT loss (one block per [n, m]
+    problem): raise unless every (name, tensor) operand is a contiguous f32
+    CUDA tensor of its shape on the first operand's device, and the block's
+    shared memory (``smem_fn(n, m)`` of the library) fits. Returns the device."""
+    dev = operands[0][1].device
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel} kernel needs CUDA tensors, got {dev}")
+    for (name, x), shape in zip(operands, shapes):
+        check_operand(kernel, name, x, shape, torch.float32, dev)
+    if min(n, m) < 1 or max(shapes[0]) >= 2 ** 31:
+        raise ValueError(f"{kernel} kernel: unsupported shape {tuple(shapes[0])}")
+    smem = getattr(load(lib_name), smem_fn)
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_size_t
+    if smem(n, m) > SMEM_LIMIT:
+        raise ValueError(f"{kernel} kernel: n={n}, m={m} need {smem(n, m)} bytes of shared "
+                         f"memory per block, above {SMEM_LIMIT}")
+    return dev
+
+
+def launch(lib_name: str, fn_name: str, argtypes, args, device: torch.device) -> None:
+    """Call ``fn_name`` of csrc/<lib_name>.cu on the device's current stream:
+    tensors pass as their data pointers, the stream last. The C function
+    returns the cudaError_t of its launches; non-zero raises."""
+    fn = getattr(load(lib_name), fn_name)
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args), stream)
+    if err != 0:
+        raise RuntimeError(f"{lib_name} kernel launch failed: cudaError {err}")
 
 
 def launch_split_pool(name: str, inputs: Sequence[torch.Tensor], dims: Sequence[int],

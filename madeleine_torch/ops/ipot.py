@@ -30,8 +30,6 @@ fwd_launches = 0   # K8 launches (one per wrapper call on a CUDA tensor)
 bwd_launches = 0   # K9 launches
 gw_launches = 0    # K10 launches
 
-_SMEM_LIMIT = 232448   # bytes of shared memory one block may use on Hopper
-
 
 # ---------------------------------------------------------------------------
 # plain versions
@@ -84,43 +82,16 @@ _SIGNATURES = {"ipot_forward": [_P] * 3 + [_I] * 3 + [_F, _I, _P],
                "gw_gamma_forward": [_P] * 6 + [_I] * 3 + [_F, _F, _I, _I, _P]}
 
 
-def _check(kernel: str, operands, shapes, lib_name: str, smem_fn: str, n: int, m: int):
-    """Raise unless every operand is a contiguous f32 CUDA tensor of its shape
-    on the first operand's device, and the block's shared memory fits."""
-    dev = operands[0][1].device
-    if dev.type != "cuda":
-        raise ValueError(f"{kernel} kernel needs CUDA tensors, got {dev}")
-    for (name, x), shape in zip(operands, shapes):
-        _build.check_operand(kernel, name, x, shape, torch.float32, dev)
-    if min(n, m) < 1 or max(shapes[0]) >= 2 ** 31:
-        raise ValueError(f"{kernel} kernel: unsupported shape {tuple(shapes[0])}")
-    smem = getattr(_build.load(lib_name), smem_fn)
-    smem.argtypes, smem.restype = [_I, _I], ctypes.c_size_t
-    if smem(n, m) > _SMEM_LIMIT:
-        raise ValueError(f"{kernel} kernel: n={n}, m={m} need {smem(n, m)} bytes of shared "
-                         f"memory per block, above {_SMEM_LIMIT}")
-    return dev
-
-
-def _launch(lib_name: str, fn_name: str, args, device: torch.device) -> None:
-    fn = getattr(_build.load(lib_name), fn_name)
-    if fn.argtypes is None:
-        fn.argtypes, fn.restype = _SIGNATURES[fn_name], ctypes.c_int
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args), stream)
-    if err != 0:
-        raise RuntimeError(f"{lib_name} kernel launch failed: cudaError {err}")
-
-
 @torch.no_grad()
 def ipot_plan_cuda(C: torch.Tensor, beta: float, iterations: int) -> torch.Tensor:
     """Launch K8 on a CUDA tensor C [b, n, m] f32; returns T as `ipot_plan_plain`."""
     global fwd_launches
     b, n, m = C.shape
-    dev = _check("ipot_fwd", [("C", C)], [(b, n, m)], "ipot_fwd", "ipot_fwd_smem_bytes", n, m)
+    dev = _build.check_problems("ipot_fwd", [("C", C)], [(b, n, m)], "ipot_fwd",
+                                "ipot_fwd_smem_bytes", n, m)
     A, T = torch.empty_like(C), torch.empty_like(C)
-    _launch("ipot_fwd", "ipot_forward", [C, A, T, b, n, m, float(beta), int(iterations)], dev)
+    _build.launch("ipot_fwd", "ipot_forward", _SIGNATURES["ipot_forward"],
+                  [C, A, T, b, n, m, float(beta), int(iterations)], dev)
     fwd_launches += 1
     return T
 
@@ -134,15 +105,15 @@ def ipot_plan_bwd_cuda(C: torch.Tensor, g: torch.Tensor, beta: float,
     global bwd_launches
     b, n, m = C.shape
     it = int(iterations)
-    dev = _check("ipot_bwd", [("C", C), ("g", g)], [(b, n, m)] * 2, "ipot_bwd",
-                 "ipot_bwd_smem_bytes", n, m)
+    dev = _build.check_problems("ipot_bwd", [("C", C), ("g", g)], [(b, n, m)] * 2,
+                                "ipot_bwd", "ipot_bwd_smem_bytes", n, m)
     f32 = torch.float32
     A, dT, dC = torch.empty_like(C), torch.empty_like(C), torch.empty_like(C)
     Th = torch.empty(b, it, n, m, dtype=f32, device=dev)
     Dh = torch.empty(b, it, n, dtype=f32, device=dev)
     Sh = torch.empty(b, it + 1, m, dtype=f32, device=dev)
-    _launch("ipot_bwd", "ipot_backward",
-            [C, g, A, Th, Dh, Sh, dT, dC, b, n, m, float(beta), it], dev)
+    _build.launch("ipot_bwd", "ipot_backward", _SIGNATURES["ipot_backward"],
+                  [C, g, A, Th, Dh, Sh, dT, dC, b, n, m, float(beta), it], dev)
     bwd_launches += 1
     return dC
 
@@ -153,12 +124,13 @@ def gw_gamma_cuda(Cs: torch.Tensor, Ct: torch.Tensor, Cst: torch.Tensor, beta: f
     """Launch K10 on CUDA tensors; returns gamma as `gw_gamma_plain`."""
     global gw_launches
     b, n, m = Cst.shape
-    dev = _check("gw_gamma", [("Cst", Cst), ("Cs", Cs), ("Ct", Ct)],
-                 [(b, n, m), (b, n, n), (b, m, m)], "gw_gamma", "gw_gamma_smem_bytes", n, m)
+    dev = _build.check_problems("gw_gamma", [("Cst", Cst), ("Cs", Cs), ("Ct", Ct)],
+                                [(b, n, m), (b, n, n), (b, m, m)], "gw_gamma",
+                                "gw_gamma_smem_bytes", n, m)
     t1, A, gamma = torch.empty_like(Cst), torch.empty_like(Cst), torch.empty_like(Cst)
-    _launch("gw_gamma", "gw_gamma_forward",
-            [Cs, Ct, Cst, t1, A, gamma, b, n, m, float(beta), 1.0 / (n * m), int(outer),
-             int(iters)], dev)
+    _build.launch("gw_gamma", "gw_gamma_forward", _SIGNATURES["gw_gamma_forward"],
+                  [Cs, Ct, Cst, t1, A, gamma, b, n, m, float(beta), 1.0 / (n * m), int(outer),
+                   int(iters)], dev)
     gw_launches += 1
     return gamma
 

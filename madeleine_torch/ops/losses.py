@@ -11,10 +11,12 @@ madeleine/utils/loss.py):
 - Graph Optimal Transport (:131-443, ref :160-301): `cosine_cost`, the
   threshold-ReLU, `ipot_distance` (IPOT Wasserstein, kernels K8/K9 of
   ops/ipot.py on the card), `gw_distance` (Gromov-Wasserstein, its detached
-  gamma loop in K10), `got_loss` and `got_loss_multi`. The glue around the
-  kernels (threshold-ReLU, the Cst outer sum, the final GW trace) is the
-  plain chain that the JAX package runs with MADELEINE_NO_GOT_GLUE=1; the
-  ragged per-side subsample (`masked_subsample`, a `token_mask`) and data
+  gamma loop in K10), `got_loss` and `got_loss_multi`. `got_loss_multi`
+  takes the JAX package's default route: the glue around the transport
+  kernels (threshold-ReLU, the Cst outer sum, the final GW trace) runs
+  through ops/got_glue.py (K11-K14 on the card); `got_loss` and
+  `gw_distance` keep the plain chain, as the JAX package's do. The ragged
+  per-side subsample (`masked_subsample`, a `token_mask`) and data
   parallelism (`axis_name`) are not ported (ROADMAP.md A6, A7).
 
 Everything runs in f32 with full-precision products (no TF32, see
@@ -28,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from madeleine_torch.ops.got_glue import cst_plain, gw_trace, gw_trace_plain, threshold_build
 from madeleine_torch.ops.ipot import gw_gamma, ipot_plan
 
 _EPS_NORM = 1e-12
@@ -113,23 +116,6 @@ def ipot_distance(C: torch.Tensor, iterations: int = 50) -> torch.Tensor:
     return (C * ipot_plan(C, 0.5, iterations)).sum((1, 2))
 
 
-def _cst(Cs: torch.Tensor, Ct: torch.Tensor) -> torch.Tensor:
-    """Cst = (Cs^2 p) 1_m^T + 1_n (q^T (Ct^2)^T), p = 1/n, q = 1/m (ref:
-    loss.py:240-241)."""
-    b, n, _ = Cs.shape
-    m = Ct.shape[1]
-    p = torch.full((b, n, 1), 1.0 / n, dtype=torch.float32, device=Cs.device)
-    q = torch.full((b, m, 1), 1.0 / m, dtype=torch.float32, device=Cs.device)
-    return torch.matmul(Cs ** 2, p) + torch.matmul(Ct ** 2, q).transpose(1, 2)
-
-
-def _gw_trace(Cs: torch.Tensor, Ct: torch.Tensor, Cst: torch.Tensor,
-              gamma: torch.Tensor) -> torch.Tensor:
-    """sum (Cst - 2 Cs gamma Ct^T) o gamma per problem (= trace(C_g^T gamma))."""
-    C_final = Cst - 2.0 * torch.matmul(torch.matmul(Cs, gamma), Ct.transpose(1, 2))
-    return (C_final * gamma).sum((1, 2))
-
-
 def gw_distance(x: torch.Tensor, y: torch.Tensor, *, sample_mask: Optional[torch.Tensor] = None,
                 lamda: float = 0.1, iterations: int = 5, ot_iterations: int = 20) -> torch.Tensor:
     """Gromov-Wasserstein distance between token graphs, uniform marginals
@@ -137,9 +123,9 @@ def gw_distance(x: torch.Tensor, y: torch.Tensor, *, sample_mask: Optional[torch
     detached (ref: loss.py:248 .detach())."""
     Cs = _threshold_relu(cosine_cost(x, x), sample_mask)
     Ct = _threshold_relu(cosine_cost(y, y), sample_mask)
-    Cst = _cst(Cs, Ct)
+    Cst = cst_plain(Cs, Ct)
     gamma = gw_gamma(Cs, Ct, Cst, lamda, iterations, ot_iterations)
-    return _gw_trace(Cs, Ct, Cst, gamma)
+    return gw_trace_plain(Cs, Ct, Cst, gamma)
 
 
 def got_loss(v: torch.Tensor, q: torch.Tensor, *, sample_mask: Optional[torch.Tensor] = None,
@@ -172,17 +158,20 @@ def got_loss_multi(v: torch.Tensor, q: torch.Tensor, *,
                    sample_mask: Optional[torch.Tensor] = None, ot_iterations: int = 30,
                    gw_iterations: int = 5, gw_ot_iterations: int = 20) -> torch.Tensor:
     """All stain pairs' GOT as one batched transport problem -> per-stain
-    losses [S] (madeleine_tpu/ops/losses.py:340-443, the unfused glue branch,
+    losses [S] (madeleine_tpu/ops/losses.py:340-443, the fused glue branch,
     no axis_name). v, q [S, b, n, d] (pre-subsampled); sample_mask [S, b].
     Equal to S separate `got_loss` calls: the threshold statistics are taken
     per stain pair (ref: loss.py:288-292), while the S*b problems run through
-    the kernels in one launch each."""
+    the kernels in one launch each: on the card K11 (threshold_build), K8
+    (IPOT), K10 (GW gamma), K13 (gw_trace) forward and K14, K9, K12 backward.
+    The thresholds' min/max stay here, outside the kernels, so their
+    cotangent reaches amin/amax with its even tie split."""
     S, b, n, d = v.shape
     v32 = v.float().reshape(S * b, n, d)
     q32 = q.float().reshape(S * b, n, d)
 
     def group_threshold(C):
-        """thr_s = min + 0.1 (max - min) over stain group s, repeated to [S*b, 1, 1]."""
+        """thr_s = min + 0.1 (max - min) over stain group s, repeated to [S*b]."""
         Cg = C.reshape(S, b, *C.shape[1:])
         if sample_mask is not None:
             valid = sample_mask[..., None, None]
@@ -191,18 +180,16 @@ def got_loss_multi(v: torch.Tensor, q: torch.Tensor, *,
         else:
             cmin, cmax = Cg.amin(dim=(1, 2, 3)), Cg.amax(dim=(1, 2, 3))
         thr = cmin + 0.1 * (cmax - cmin)
-        return thr.repeat_interleave(b)[:, None, None]
+        return thr.repeat_interleave(b)
 
     C0 = cosine_cost(v32, q32)
     Cs0 = cosine_cost(v32, v32)
     Ct0 = cosine_cost(q32, q32)
-    C = torch.relu(C0 - group_threshold(C0))
-    Cs = torch.relu(Cs0 - group_threshold(Cs0))
-    Ct = torch.relu(Ct0 - group_threshold(Ct0))
-    Cst = _cst(Cs, Ct)
+    thr3 = torch.stack([group_threshold(X) for X in (C0, Cs0, Ct0)], dim=1)   # [S*b, 3]
+    C, Cs, Ct, Cst = threshold_build(C0, Cs0, Ct0, thr3)
     wd = ipot_distance(C, iterations=ot_iterations)                      # [S*b]
     gamma = gw_gamma(Cs, Ct, Cst, 0.1, gw_iterations, gw_ot_iterations)
-    total = wd + _gw_trace(Cs, Ct, Cst, gamma)
+    total = wd + gw_trace(Cs, Ct, Cst, gamma)
     if sample_mask is not None:
         total = torch.where(sample_mask.reshape(S * b), total, 0.0)
     return total.reshape(S, b).sum(1)

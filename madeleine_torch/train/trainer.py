@@ -19,13 +19,17 @@ ref: madeleine/utils/trainer.py:20-145):
 - the epoch's smooth rank on the H&E embeddings (trainer.py:141-143).
 
 The encoder runs through ops/encoder_train.py: kernels K6/K7 on the card
-(bf16 only), their plain versions on CPU tensors. GOT with ragged token
-masks (per-side subsampling, ROADMAP.md A6), the intra-modality loss,
-n_views=3 and data parallelism are not ported.
+(bf16 only), their plain versions on CPU tensors; GOT through ops/ipot.py
+and ops/got_glue.py (K8-K14). A batch's feats arrive as f32 (pinned by the
+caller's loader thread on the card) and are copied to the device
+asynchronously, then cast there. GOT with ragged token masks (per-side
+subsampling, ROADMAP.md A6), the intra-modality loss, n_views=3 and data
+parallelism are not ported.
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Dict, Iterable, Optional, Sequence, Tuple
 
@@ -34,6 +38,7 @@ import torch
 
 from madeleine_torch.config import HE_POSITION, MadeleineConfig, compute_dtype
 from madeleine_torch.models.madeleine import MADELEINE, forward_train
+from madeleine_torch.ops import launches
 from madeleine_torch.ops import losses as L
 from madeleine_torch.ops.encoder_train import F32_TODO
 from madeleine_torch.ops.rank import smooth_rank_measure
@@ -134,7 +139,8 @@ class TrainStep:
         dev = next(model.parameters()).device
         if dev.type == "cuda" and self.dtype != torch.bfloat16:
             raise NotImplementedError(f"a {self.dtype} train step on the card ({F32_TODO})")
-        feats = torch.as_tensor(batch["feats"]).to(dev, self.dtype, non_blocking=True)
+        # copy first (asynchronous from pinned memory), then cast on the device
+        feats = torch.as_tensor(batch["feats"]).to(dev, non_blocking=True).to(self.dtype)
         labels = torch.as_tensor(batch["modality_labels"]).to(dev)
         sample_mask = batch.get("sample_mask")
         sample_mask = (torch.ones(feats.shape[0], dtype=torch.bool, device=dev)
@@ -172,24 +178,50 @@ def step_seed(seed: int, epoch: int, b_idx: int) -> int:
 
 def train_loop(cfg: MadeleineConfig, train_step: TrainStep, dataloader: Iterable,
                epoch: int, seed: int, log_every: int = 0
-               ) -> Tuple[float, float, Dict[str, float]]:
+               ) -> Tuple[float, float, Dict[str, object]]:
     """One epoch. Returns (epoch loss summed over applied steps, smooth rank
-    of the epoch's H&E embeddings, {epoch_time, n_steps, n_skipped})."""
-    losses, skips, embeds = [], [], []
+    of the epoch's H&E embeddings, {epoch_time, n_steps, n_skipped, steps}).
+    ``steps`` holds one record per step: its loss, whether it was skipped,
+    ``wait_ms`` (host time blocked on the loader), ``step_ms`` (the step's
+    time on the device stream, CUDA events, or the host clock on the CPU)
+    and the kernel launches it made."""
+    embeds, steps, events = [], [], []
+    on_cuda = next(train_step.model.parameters()).is_cuda
     t0 = time.time()
-    for b_idx, batch in enumerate(dataloader):
+    batches = iter(dataloader)
+    for b_idx in itertools.count():
+        t_wait = time.perf_counter()
+        batch = next(batches, None)
+        if batch is None:
+            break
+        t_step = time.perf_counter()
+        before = launches.read()
+        if on_cuda:
+            events.append((torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True)))
+            events[-1][0].record()
         he, metrics = train_step(batch, step_seed(seed, epoch, b_idx))
-        losses.append(float(metrics["loss"]))
-        skips.append(metrics["skipped"])
+        if on_cuda:
+            events[-1][1].record()
+        after = launches.read()
+        steps.append({"loss": float(metrics["loss"]), "skipped": metrics["skipped"],
+                      "wait_ms": (t_step - t_wait) * 1e3,
+                      "step_ms": (time.perf_counter() - t_step) * 1e3,
+                      "launches": {k: after[k] - before[k] for k in after if after[k] > before[k]}})
         sm = batch.get("sample_mask")
         keep = (np.ones(he.shape[0], bool) if sm is None else np.asarray(sm, bool))
         embeds.append(he.cpu().numpy()[keep])
         if log_every and b_idx % log_every == 0:
-            print(f"Loss for batch: {b_idx} = {losses[-1]:.3f}")
-    skips_a = np.asarray(skips, bool)
-    ep_loss = float(np.asarray(losses, np.float64)[~skips_a].sum()) if losses else 0.0
+            print(f"Loss for batch: {b_idx} = {steps[-1]['loss']:.3f}")
+    if on_cuda:
+        torch.cuda.synchronize()
+        for rec, (start, end) in zip(steps, events):
+            rec["step_ms"] = start.elapsed_time(end)
+    skips_a = np.asarray([s["skipped"] for s in steps], bool)
+    losses_a = np.asarray([s["loss"] for s in steps], np.float64)
+    ep_loss = float(losses_a[~skips_a].sum()) if steps else 0.0
     emb = np.concatenate(embeds, axis=0) if embeds else np.zeros((2, 2), np.float32)
     rank = float(smooth_rank_measure(torch.from_numpy(emb)))
     agg = {"epoch_time": time.time() - t0, "n_steps": int((~skips_a).sum()),
-           "n_skipped": int(skips_a.sum())}
+           "n_skipped": int(skips_a.sum()), "steps": steps}
     return ep_loss, rank, agg

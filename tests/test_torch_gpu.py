@@ -180,6 +180,7 @@ def _got_costs(device, b, n, m, d=128, seed=0):
     """C, Cs, Ct, Cst as the GOT path builds them: random tokens ->
     cosine_cost -> threshold-ReLU, and the Cst outer sum."""
     from madeleine_torch.ops import losses as L
+    from madeleine_torch.ops.got_glue import cst_plain
 
     g = torch.Generator().manual_seed(seed)
     v = torch.randn(b, n, d, generator=g).to(device)
@@ -187,7 +188,7 @@ def _got_costs(device, b, n, m, d=128, seed=0):
     C = L._threshold_relu(L.cosine_cost(v, q), None)
     Cs = L._threshold_relu(L.cosine_cost(v, v), None)
     Ct = L._threshold_relu(L.cosine_cost(q, q), None)
-    return C, Cs, Ct, L._cst(Cs, Ct)
+    return C, Cs, Ct, cst_plain(Cs, Ct)
 
 
 def _rel(a, b):
@@ -253,3 +254,79 @@ def test_got_train_step_launches_all_five_train_kernels(cuda_device):
     assert not metrics["skipped"] and np.isfinite(float(metrics["loss"]))
     after = (et.fwd_launches, et.bwd_launches, I.fwd_launches, I.bwd_launches, I.gw_launches)
     assert tuple(a - b for a, b in zip(after, before)) == (5, 5, 1, 1, 1)
+
+
+def _glue_inputs(device, b, n, m, d=128, seed=0):
+    """C0, Cs0, Ct0 cosine costs of random tokens, per-problem thresholds
+    [b, 3] and a transport plan of the thresholded costs."""
+    from madeleine_torch.ops import got_glue as G
+    from madeleine_torch.ops import ipot as I
+    from madeleine_torch.ops import losses as L
+
+    g = torch.Generator().manual_seed(seed)
+    v = torch.randn(b, n, d, generator=g).to(device)
+    q = torch.randn(b, m, d, generator=g).to(device)
+    X0 = (L.cosine_cost(v, q), L.cosine_cost(v, v), L.cosine_cost(q, q))
+    thr = torch.stack([x.amin((1, 2)) + 0.1 * (x.amax((1, 2)) - x.amin((1, 2))) for x in X0],
+                      dim=1).contiguous()
+    _, Cs, Ct, Cst = G.threshold_build_plain(*X0, thr)
+    return X0, thr, I.gw_gamma_plain(Cs, Ct, Cst, 0.1, 5, 20)
+
+
+def test_glue_kernels_match_plain(cuda_device):
+    """K11-K14 against their plain versions at (7, 256, 192), relative
+    Frobenius per output: 1e-6 for K11 and K12's dC0/dCs0/dCt0, 1e-5 for
+    K12's dthr and for K13/K14; a second launch of each is bitwise equal."""
+    from madeleine_torch.ops import got_glue as G
+
+    X0, thr, gamma = _glue_inputs(cuda_device, 7, 256, 192)
+    outs = G.threshold_build_cuda(*X0, thr)
+    assert all(torch.equal(a, b) for a, b in zip(outs, G.threshold_build_cuda(*X0, thr)))
+    for got, want in zip(outs, G.threshold_build_plain(*X0, thr)):
+        assert _rel(got, want) <= 1e-6
+    g = torch.Generator().manual_seed(1)
+    cots = [torch.randn(o.shape, generator=g).to(cuda_device) for o in outs]
+    grads = G.threshold_build_bwd_cuda(*X0, thr, *cots)
+    again = G.threshold_build_bwd_cuda(*X0, thr, *cots)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    for name, got, want in zip(("dC0", "dCs0", "dCt0", "dthr"), grads,
+                               G.threshold_build_bwd_plain(*X0, thr, *cots)):
+        assert _rel(got, want) <= (1e-5 if name == "dthr" else 1e-6), name
+    _, Cs, Ct, Cst = outs
+    out = G.gw_trace_cuda(Cs, Ct, Cst, gamma)
+    assert torch.equal(out, G.gw_trace_cuda(Cs, Ct, Cst, gamma))
+    assert _rel(out, G.gw_trace_plain(Cs, Ct, Cst, gamma)) <= 1e-5
+    dout = torch.randn(7, generator=g).to(cuda_device)
+    grads = G.gw_trace_bwd_cuda(Cs, Ct, gamma, dout)
+    again = G.gw_trace_bwd_cuda(Cs, Ct, gamma, dout)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    for got, want in zip(grads, G.gw_trace_bwd_plain(Cs, Ct, Cst, gamma, dout)):
+        assert _rel(got, want) <= 1e-5
+
+
+def test_got_loss_multi_launches_the_glue_kernels_and_raises(cuda_device):
+    """got_loss_multi forward + backward on the card launches K11-K14 once
+    each; a glue kernel given an operand it does not take raises, and nothing
+    falls back to the plain version."""
+    from madeleine_torch.ops import got_glue as G
+    from madeleine_torch.ops import losses as L
+
+    g = torch.Generator().manual_seed(2)
+    v = torch.randn(2, 3, 64, 16, generator=g).to(cuda_device).requires_grad_(True)
+    q = torch.randn(2, 3, 64, 16, generator=g).to(cuda_device).requires_grad_(True)
+
+    def counts():
+        return (G.tb_fwd_launches, G.tb_bwd_launches, G.gwt_fwd_launches, G.gwt_bwd_launches)
+
+    before = counts()
+    loss = L.got_loss_multi(v, q)
+    loss.sum().backward()
+    assert torch.isfinite(loss).all() and torch.isfinite(v.grad).all()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 1, 1)
+    X0, thr, gamma = _glue_inputs(cuda_device, 2, 32, 24)
+    before = counts()
+    with pytest.raises(ValueError, match="thr"):
+        G.threshold_build_cuda(*X0, thr[:, :2].contiguous())
+    with pytest.raises(ValueError, match="non-contiguous"):
+        G.gw_trace_cuda(X0[1], X0[2], X0[0], gamma.transpose(1, 2).contiguous().transpose(1, 2))
+    assert counts() == before

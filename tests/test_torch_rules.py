@@ -77,7 +77,7 @@ def test_entry_points_default_to_cuda():
         assert inspect.signature(fn).parameters["device"].default is None, fn
 
 
-@pytest.mark.parametrize("cli", ["serve", "extract_slide_embeddings"])
+@pytest.mark.parametrize("cli", ["serve", "extract_slide_embeddings", "pretrain"])
 def test_cli_device_flag_defaults_to_cuda(cli):
     proc = subprocess.run([sys.executable, "-m", f"madeleine_torch.cli.{cli}", "--help"],
                           cwd=REPO, capture_output=True, text=True, timeout=300,
