@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases device,build,train_kernels,train
     python3 chip_smoke.py --phases device,build,got_kernels,train_got
     python3 chip_smoke.py --phases device,build,glue_kernels,train_got,pretrain
+    python3 chip_smoke.py --phases device,build,pool_kernels,golden,eval_forward
 
 Phases, one JSON line each; any failure raises and the exit code is non-zero:
   device   card name and the nvidia-smi name/power-limit line
@@ -16,12 +17,31 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            plain PyTorch version on the card, and timed with CUDA events.
            K1 is checked with the flagship weights and again with peaked
            attention (wc scaled), against a uniform-pool control
+  pool_kernels
+           K3 (attn_pool) in bf16 and f32 at the eval forward's call shape
+           [65, 2048, 2048] (4 heads of 512) and at t = 2000 (a partial last
+           tile), 32 bags full, 32 ragged and one empty, logits of the
+           flagship's spread and peaked (x 16), each against its plain
+           version (bf16: rtol 2e-2 plus 1% of each bag's largest output),
+           with a uniform-pool control that must break the bar in every full
+           bag; two launches bitwise equal; timed at [65, 2048, 2048] beside
+           the library's call for the same function (scaled_dot_product_attention
+           with zero q and k and the logits as its mask)
   golden   flagship weights saved as model.pt + model_config.json, loaded by
            create_model_from_pretrained; encode_he against
-           tests/golden/golden_flagship.npz in f32 (through K2) and bf16 (K1)
+           tests/golden/golden_flagship.npz in f32 (through K2) and bf16 (K1);
+           the eval forward forward_train(train=False) in f32 (K3) against
+           fs/train/* and, with stain encodings, se/train/*; encode with stain
+           codes 3 and 1 against se/eval/* through K2 (f32) and K1 at d_in 544
+           (bf16)
   serve    EmbeddingService at bf16 behind the HTTP front: 16 ragged requests
            (300-9000 tokens), each equal to a direct encode; K1 must launch
   extract  the extraction CLI in-process at f32 over 16 .npz bags; K2 must launch
+  eval_forward
+           forward_train(train=False) at [65, 5, 2048, 512] bf16 with the
+           flagship weights: K3 must launch once per modality; its slide and
+           token embeddings of 4 cases against the f32 model's (relative
+           Frobenius 2e-2); timed
   train_kernels
            K6 (encoder_train_fwd) and K7 (encoder_train_bwd), bf16: each
            against its plain version at dropout rates 0 and (0.1, 0.25) with
@@ -29,8 +49,11 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            peaked weights (with the uniform-pool control), at b=8, t=4096
            ragged and at t=4057 with a bag valid only around its partial last
            tile (with a dropped-tile control); then at the train step's call
-           shape [65, 2048] at the real rates. Both kernels run twice and must
-           agree bitwise. Timed at b=8, t=4096 and at [65, 2048]
+           shape [65, 2048] at the real rates, and at the stain-encoded
+           step's [65, 2048, 544] with K7's input gradient dx (need_dx), whose
+           stain columns summed in bf16 (the table's gradient) are held to
+           their f32 sum. Both kernels run twice and must agree bitwise.
+           Timed at b=8, t=4096, at [65, 2048] and at [65, 2048, 544] with dx
   got_kernels
            K8 (ipot_fwd), K9 (ipot_bwd) and K10 (gw_gamma), f32, on costs
            built as the GOT path builds them (random d=128 tokens ->
@@ -61,6 +84,9 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            on every step; step ms, peak memory, the GOT share of the step and
            the GOT loss's device time split into glue kernels, transport
            kernels and the rest
+  train_se the same 5 steps with stain encodings (--add_stain_encoding:
+           d_in 544, K7's dx route): K6-K14 on every step, losses fall, no
+           step skipped, the stain table moves; step ms and peak memory
   pretrain `python -m madeleine_torch.cli.pretrain` with the flags of
            scripts/launch_pretrain_withoutStainEncodings.sh (65 cases x 5
            stains x 2048 tokens, bf16, InfoNCE + GOT) on a synthetic cohort
@@ -71,10 +97,14 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            and applied, K6-K14 on every step, K1 in each downstream pass, the
            artifacts written, B's model.pt equal to C's bit for bit; the
            loader's host ms per batch, the H2D ms of a batch, the CLI's step
-           ms against train_got's, epoch time and peak memory
+           ms against train_got's, epoch time and peak memory; then the flags
+           of scripts/launch_pretrain_withStainEncodings.sh: A' 1 epoch, B'
+           A' resumed to 2, C' 2 straight, B' equal to C' bit for bit
   profile  torch.profiler device time by kernel of one K6 and one K7 call at
-           [65, 2048] and of one full-width train step of each objective,
-           with the steps' device idle share
+           [65, 2048], of one full-width train step of each objective and of
+           one full-width eval forward, with their device idle share; each read from a second
+           profiled window after a warm-up window (a first window can lose
+           its kernels), the K6/K7 single windows reported beside them
 Then a {"kernels": [...]} summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs CUDA and the repo checkout around it.
 """
@@ -98,8 +128,11 @@ import urllib.request
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("device", "build", "kernels", "train_kernels", "got_kernels", "glue_kernels", "golden",
-          "serve", "extract", "train", "train_got", "pretrain", "profile")
+PHASES = ("device", "build", "kernels", "pool_kernels", "train_kernels", "got_kernels",
+          "glue_kernels", "golden", "serve", "extract", "eval_forward", "train", "train_got",
+          "train_se", "pretrain", "profile")
+# the runs of the port's main paths whose kernel launches the summary counts
+MAIN_PATHS = ("serve", "extract", "eval_forward", "train", "train_got", "train_se", "pretrain")
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -140,7 +173,7 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def flagship_state_dict():
+def flagship_state_dict(stain_encoding: bool = False):
     """tests/golden/generate.py::flagship_state_dict, loaded by file path
     (pure numpy); sys.path and sys.modules are restored afterwards."""
     path = os.path.join(HERE, "tests", "golden", "generate.py")
@@ -151,26 +184,37 @@ def flagship_state_dict():
     sys.path[:] = saved_path
     for name in set(sys.modules) - saved_mods:
         del sys.modules[name]
-    return mod.flagship_state_dict()
+    return mod.flagship_state_dict(stain_encoding=stain_encoding)
 
 
-def flagship_config(precision: str) -> dict:
+def flagship_config(precision: str, stain_encoding: bool = False) -> dict:
     return {"wsi_encoder": "abmil", "patch_embedding_dim": 512,
             "wsi_encoder_hidden_dim": 512, "attention_hidden_dim": 512, "n_heads": 4,
             "activation": "softmax", "precision": precision, "dataset": "ACROBAT",
-            "add_stain_encoding": False}
+            "add_stain_encoding": stain_encoding}
 
 
-def write_model_dir(root: str, precision: str) -> str:
+def flagship_model(torch, precision: str, stain_encoding: bool = False):
+    """The port model with the flagship weights, on the card, in eval mode."""
+    from madeleine_torch.config import MadeleineConfig
+    from madeleine_torch.models.madeleine import MADELEINE
+
+    model = MADELEINE(MadeleineConfig.from_dict(flagship_config(precision, stain_encoding)))
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in flagship_state_dict(stain_encoding).items()})
+    return model.cuda().eval()
+
+
+def write_model_dir(root: str, precision: str, stain_encoding: bool = False) -> str:
     """<root>/MADELEINE/{model.pt, model_config.json} with the flagship weights."""
     import torch
 
     d = os.path.join(root, "MADELEINE")
     os.makedirs(d, exist_ok=True)
-    torch.save({k: torch.from_numpy(v) for k, v in flagship_state_dict().items()},
+    torch.save({k: torch.from_numpy(v) for k, v in flagship_state_dict(stain_encoding).items()},
                os.path.join(d, "model.pt"))
     with open(os.path.join(d, "model_config.json"), "w") as f:
-        json.dump(flagship_config(precision), f)
+        json.dump(flagship_config(precision, stain_encoding), f)
     return d
 
 
@@ -364,26 +408,153 @@ def phase_kernels(state):
                          "bound_ms_all_valid": k2_dense_bound}})
 
 
-def _encoder_train_work(b, t, w):
+# K3: the eval forward's call (one modality of the canonical batch), bars against its plain version
+POOL_SHAPE = (65, 2048, 4, 512)      # b, t, heads, head width
+POOL_TAIL_T = 2000                   # 31 tiles of 64 + 16 rows
+# (rtol, atol, atol as a share of the bag's max|plain output|): bf16 is one output rounding
+POOL_TOL = {"bf16": (2e-2, 0.0, 1e-2), "f32": (1e-4, 1e-5, 0.0)}
+POOL_LOGIT_STD = 0.3   # the flagship weights' attention logits spread by well under one unit
+
+
+def _pool_lengths(b, t):
+    """32 full bags, 32 ragged ones from 1 to t - 1 tokens, one empty."""
+    return [t] * 32 + [int(n) for n in np.linspace(1, t - 1, b - 33)] + [0]
+
+
+def _k3_plain(y, l):
+    """K3's plain version on its operands: y [b, t, nh*e], pre-masked f32
+    logits [b, t, nh] -> [b, nh*e] in y's dtype."""
+    from madeleine_torch.ops import attn_pool as ap
+
+    return ap.softmax_pool_plain(l, y.view(*y.shape[:2], l.shape[-1], -1)).to(y.dtype)
+
+
+def _check_k3(torch, y, logits, mask, tol):
+    """K3 against its plain version with the logits as given and peaked
+    (x PEAK_WC_SCALE), each within |got - want| <= atol + rtol |want| with
+    atol scaled to each bag's largest output; two launches bitwise equal;
+    the empty bag 0. The control of each case: a uniform pool (logits 0)
+    must break that bar in every full bag (`uniform_miss_full_bags`, the
+    least over the full bags of the largest |uniform - want| over the
+    allowed error, must exceed 1), or the case could not fail a wrong
+    weight where the pool is nearest uniform."""
+    from madeleine_torch.ops import attn_pool as ap
+
+    rtol, atol0, atol_share = tol
+    l0 = torch.zeros_like(logits).masked_fill(~mask[..., None], ap.NEG_INF)
+    uniform = _k3_plain(y, l0).float()
+    rep = {}
+    for name, scale in (("spread", 1.0), ("peaked", PEAK_WC_SCALE)):
+        l = (logits * scale).masked_fill(~mask[..., None], ap.NEG_INF).contiguous()
+        got, again = ap.attn_pool_cuda(y, l), ap.attn_pool_cuda(y, l)
+        want = _k3_plain(y, l).float()
+        torch.cuda.synchronize()
+        atol = atol0 + atol_share * want.abs().amax(1, keepdim=True)
+        allowed = (atol + rtol * want.abs()).clamp_min(1e-12)   # the empty bag's is 0
+        over = (got.float() - want).abs() / allowed
+        empty, full = ~mask.any(1), mask.all(1)
+        rep[name] = {"max_abs_err": (got.float() - want).abs().max().item(),
+                     "atol_range": [atol.min().item(), atol.max().item()],
+                     "max_err_over_allowed": over.max().item(),
+                     "uniform_miss_full_bags":
+                         ((uniform - want).abs() / allowed)[full].amax(1).min().item(),
+                     "bitwise_equal": torch.equal(got, again),
+                     "finite": bool(torch.isfinite(got.float()).all()),
+                     "empty_bags_zero": bool((got[empty] == 0).all())}
+        if not (rep[name]["bitwise_equal"] and rep[name]["finite"]
+                and rep[name]["empty_bags_zero"]):
+            raise AssertionError(f"attn_pool {list(y.shape)} {y.dtype} ({name}): {rep[name]}")
+        if not rep[name]["max_err_over_allowed"] <= 1.0:
+            raise AssertionError(f"attn_pool {list(y.shape)} {y.dtype} ({name}): outside "
+                                 f"atol + rtol |want|: {rep[name]}")
+        if not rep[name]["uniform_miss_full_bags"] > 1.0:
+            raise AssertionError(f"attn_pool ({name}): control failed, a uniform pool is within "
+                                 f"the bar of the plain output: {rep[name]}")
+    return rep
+
+
+def _sdpa_pool(torch, y, l):
+    """The library's call for K3's function, timed and checked only:
+    scaled_dot_product_attention with zero q and k (so q.k = 0) and the
+    logits as an additive mask gives softmax(l) . y per head. The mask is
+    laid out head-major [b, nh, 1, t] in y's dtype before the call."""
+    import torch.nn.functional as F
+
+    b, t, nh = l.shape
+    e = y.shape[-1] // nh
+    v = y.view(b, t, nh, e).transpose(1, 2)
+    q = torch.zeros(b, nh, 1, e, dtype=y.dtype, device=y.device)
+    k = torch.zeros(b, nh, t, e, dtype=y.dtype, device=y.device)
+    mask = l.permute(0, 2, 1).contiguous().to(y.dtype)[:, :, None, :]
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask).reshape(b, nh * e)
+
+
+def phase_pool_kernels(state):
+    import torch
+    from madeleine_torch.ops import attn_pool as ap
+
+    b, t, nh, e = POOL_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    checks, times = {}, {}
+    for label, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        for tt in (t, POOL_TAIL_T):
+            y = torch.randn(b, tt, nh * e, generator=g, device="cuda").to(dtype)
+            logits = POOL_LOGIT_STD * torch.randn(b, tt, nh, generator=g, device="cuda")
+            mask = (torch.arange(tt, device="cuda")[None, :]
+                    < torch.tensor(_pool_lengths(b, tt), device="cuda")[:, None])
+            checks[f"{label}_t{tt}"] = _check_k3(torch, y, logits, mask, POOL_TOL[label])
+        # the eval forward's call: every token valid, t = 2048 (y is the tail's; remake)
+        y = torch.randn(b, t, nh * e, generator=g, device="cuda").to(dtype)
+        l = POOL_LOGIT_STD * torch.randn(b, t, nh, generator=g, device="cuda")
+        ms = cuda_ms(lambda: ap.attn_pool_cuda(y, l), warmup=3, iters=20)
+        plain_ms = cuda_ms(lambda: _k3_plain(y, l), warmup=1, iters=5)
+        sdpa = _sdpa_pool(torch, y, l)
+        library_ms = cuda_ms(sdpa, warmup=3, iters=20)
+        library_err = (sdpa().float() - _k3_plain(y, l).float()).abs().max().item()
+        nbytes = y.numel() * y.element_size() + l.numel() * 4 + b * nh * e * y.element_size()
+        flops = 2.0 * b * t * nh * e + 3.0 * b * t * nh     # a multiply-add per element; exp
+        bound, by = _bound(flops, nbytes, PEAK_FP32)
+        times[label] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                        "library_max_abs_err": library_err, "bound_ms": bound, "bound_by": by,
+                        "share_of_bound": bound / ms, "gb": nbytes / 1e9,
+                        "achieved_tb_per_s": nbytes / ms / 1e9}
+        del y, l, sdpa
+    err = max(r["max_abs_err"] for c in checks.values() for k, r in c.items()
+              if isinstance(r, dict))
+    st = times["bf16"]
+    state.setdefault("kernels", {})["attn_pool"] = {
+        "name": "attn_pool", "route": "cuda", "source": "madeleine_torch/csrc/attn_pool.cu",
+        "replaces": "madeleine_tpu/ops/attn_pool.py:107", "max_abs_err": err, "ms": st["ms"],
+        "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+        "library_ms": st["library_ms"]}
+    emit({"phase": "pool_kernels", "shape": POOL_SHAPE, "tail_t": POOL_TAIL_T,
+          "lengths": "32 full, 32 from 1 to t-1, 1 empty", "logit_std": POOL_LOGIT_STD,
+          "peak_scale": PEAK_WC_SCALE, "tol": POOL_TOL, "checks": checks, "times": times})
+
+
+def _encoder_train_work(b, t, w, need_dx=False):
     """(flops, bytes) of one K6 and one K7 call: every row of [b, t] is
-    computed (masked tokens still get token outputs and residuals)."""
+    computed (masked tokens still get token outputs and residuals); with
+    need_dx K7 also computes and writes dx [b, t, d_in] bf16."""
     nh, f, _ = w["wa"].shape
     hd, d_in = w["w1"].shape
     dout, E = w["wt"].shape
     n = b * t
     macs = d_in * hd + hd * hd + hd * E + 2 * E * f + E * dout
     fwd_flops = n * 2.0 * macs
-    bwd_flops = n * 2.0 * (2 * macs - d_in * hd)     # dW for all, dX for all but layer 1
+    # dW for all, dX for all but layer 1 (and layer 1 too with need_dx)
+    bwd_flops = n * 2.0 * (2 * macs - (0 if need_dx else d_in * hd))
     saved = 2 * (2 * hd + E + 2 * nh * f) + 12          # u1 u2 u3 a_pre b_pre bf16, rstd f32
     wbytes = sum(v.numel() * v.element_size() for v in w.values())
     fwd_bytes = n * (d_in * 2 + dout * 2 + nh * 4 + saved) + wbytes + b * E * 4
     bwd_bytes = n * (d_in * 2 + nh * 4 + dout * 2 + saved) + wbytes + b * E * 4 + 4 * sum(
-        v.numel() for v in w.values())
+        v.numel() for v in w.values()) + (n * d_in * 2 if need_dx else 0)
     return fwd_flops, fwd_bytes, bwd_flops, bwd_bytes
 
 
-def _bound(flops, nbytes):
-    ops, mem = flops / PEAK_BF16, nbytes / PEAK_BYTES
+def _bound(flops, nbytes, peak_flops=PEAK_BF16):
+    """(least ms, "operations" or "bytes") of work at the card's peaks."""
+    ops, mem = flops / peak_flops, nbytes / PEAK_BYTES
     return max(ops, mem) * 1e3, ("operations" if ops >= mem else "bytes")
 
 
@@ -394,11 +565,13 @@ OUT_ATOL = 3e-2    # K6's bf16 tokens and f32 valid logits, as K1
 TILE = 64          # K6's pool tile (csrc/encoder_train_fwd.cu POOL_TM)
 
 
-def _check_train_kernels(torch, w, x, bias, rates, gen):
+def _check_train_kernels(torch, w, x, bias, rates, gen, need_dx=False):
     """K6 against its plain version, then K7 against its plain version on the
-    same residuals, with a random pooled cotangent and a random dtok. K6 and
-    K7 each run twice and must give bitwise-equal results. Returns (report,
-    K6's outputs, K6's arguments, K7's arguments)."""
+    same residuals, with a random pooled cotangent and a random dtok (and
+    with need_dx its input gradient dx, as the other gradients). K6 and K7
+    each run twice and must give bitwise-equal results. Returns (report,
+    K6's outputs, K6's arguments, K7's arguments; with need_dx also K7's
+    gradients)."""
     from madeleine_torch.ops import encoder_train as et
 
     b, t, _ = x.shape
@@ -429,15 +602,18 @@ def _check_train_kernels(torch, w, x, bias, rates, gen):
                             ).cuda().to(torch.bfloat16)
     inner = (g * pooled32).reshape(b, nh, e).sum(-1)
     bwd_args = (x, l, m, s, g, inner, dtok, saved, w, 1234, 0, *rates)
-    gk = et.encoder_train_bwd_cuda(*bwd_args)
-    gk2 = et.encoder_train_bwd_cuda(*bwd_args)
+    gk = et.encoder_train_bwd_cuda(*bwd_args, need_dx=need_dx)
+    gk2 = et.encoder_train_bwd_cuda(*bwd_args, need_dx=need_dx)
     with torch.no_grad():
-        gp = et.encoder_train_bwd_plain(*bwd_args)
+        gp = et.encoder_train_bwd_plain(*bwd_args, need_dx=need_dx)
     torch.cuda.synchronize()
-    if not all(torch.equal(gk[k], gk2[k]) for k in et.W_KEYS):
-        raise AssertionError("encoder_train_bwd: two launches gave different gradients")
+    keys = et.W_KEYS + (("x",) if need_dx else ())
+    if set(gk) != set(keys) or not all(torch.equal(gk[k], gk2[k]) for k in keys):
+        raise AssertionError("encoder_train_bwd: two launches gave different gradients "
+                             f"or outputs {sorted(gk)}")
+    del gk2
     errs, abs_errs = {}, {}
-    for k in et.W_KEYS:
+    for k in keys:
         if not torch.isfinite(gk[k]).all():
             raise AssertionError(f"encoder_train_bwd: non-finite d{k}")
         diff = (gk[k] - gp[k]).float()
@@ -455,6 +631,8 @@ def _check_train_kernels(torch, w, x, bias, rates, gen):
     rep["grad_max_rel_fro"] = max(v for k, v in errs.items() if k != "bc")
     rep["grad_max_abs_err"] = max(abs_errs.values())
     rep["deterministic"] = True
+    if need_dx:
+        return rep, got, fwd_args, bwd_args, gk
     return rep, got, fwd_args, bwd_args
 
 
@@ -532,17 +710,42 @@ def phase_train_kernels(state):
     timed["step_call"] = (fa, ba)
     del xs, bs_, fa, ba
 
+    # the stain-encoded step's call: d_in 544 (the last 32 columns the stain
+    # code), K7 with dx. The table's gradient is dx's stain columns summed
+    # over the call's rows; autograd sums them in bf16, held here to the f32 sum
+    model_se = flagship_model(torch, "bfloat16", stain_encoding=True)
+    with torch.no_grad():
+        w_se = {k: v.detach().contiguous()
+                for k, v in train_weights(model_se, torch.bfloat16).items()}
+        code = model_se.embedding.weight[1].to(torch.bfloat16)
+    xs, bs_ = inputs(torch.ones(65, 2048, dtype=torch.bool))
+    xs = torch.cat([xs, code.expand(65, 2048, -1)], dim=-1).contiguous()
+    checks[f"step_call_se_{real[0]}_{real[1]}"], _, fa, ba, gk = _check_train_kernels(
+        torch, w_se, xs, bs_, real, gen, need_dx=True)
+    d = cfg.patch_embedding_dim
+    with torch.no_grad():
+        tab_bf16 = gk["x"][..., d:].sum((0, 1)).float()
+        tab_f32 = gk["x"][..., d:].float().sum((0, 1))
+    checks["table_grad_bf16_sum_vs_f32_rel"] = _rel_fro(tab_bf16, tab_f32)
+    if not checks["table_grad_bf16_sum_vs_f32_rel"] <= GRAD_RTOL:
+        raise AssertionError(f"train_kernels: the bf16 sum of dx's stain columns misses the "
+                             f"f32 sum: {checks['table_grad_bf16_sum_vs_f32_rel']}")
+    timed["step_call_se"] = (fa, ba)
+    del xs, bs_, fa, ba, gk
+
     times = {}
     for shape_name, (fa, ba) in timed.items():
-        bb, tt = fa[0].shape[:2]
+        bb, tt, d_in = fa[0].shape
+        dx = shape_name == "step_call_se"
         k6 = cuda_ms(lambda: et.encoder_train_fwd_cuda(*fa))
-        k7 = cuda_ms(lambda: et.encoder_train_bwd_cuda(*ba))
+        k7 = cuda_ms(lambda: et.encoder_train_bwd_cuda(*ba, need_dx=dx))
         with torch.no_grad():
             k6p = cuda_ms(lambda: et.encoder_train_fwd_plain(*fa), warmup=1, iters=5)
-            k7p = cuda_ms(lambda: et.encoder_train_bwd_plain(*ba), warmup=1, iters=5)
-        ff, fb, bf, bb_ = _encoder_train_work(bb, tt, w)
+            k7p = cuda_ms(lambda: et.encoder_train_bwd_plain(*ba, need_dx=dx), warmup=1, iters=5)
+        ff, fb, bf, bb_ = _encoder_train_work(bb, tt, fa[2], need_dx=dx)
         (k6b, k6by), (k7b, k7by) = _bound(ff, fb), _bound(bf, bb_)
-        times[shape_name] = {"b": bb, "t": tt, "fwd_ms": k6, "fwd_plain_ms": k6p,
+        times[shape_name] = {"b": bb, "t": tt, "d_in": d_in, "need_dx": dx,
+                             "fwd_ms": k6, "fwd_plain_ms": k6p,
                              "fwd_bound_ms": k6b, "fwd_bound_by": k6by,
                              "fwd_share_of_bound": k6b / k6, "bwd_ms": k7,
                              "bwd_plain_ms": k7p, "bwd_bound_ms": k7b, "bwd_bound_by": k7by,
@@ -886,7 +1089,7 @@ def phase_glue_kernels(state):
 def phase_golden(state):
     import torch
     from madeleine_torch.models.factory import create_model_from_pretrained
-    from madeleine_torch.models.madeleine import encode_he
+    from madeleine_torch.models.madeleine import encode, encode_he, forward_train
 
     gold = np.load(os.path.join(HERE, "tests", "golden", "golden_flagship.npz"))
     x = torch.from_numpy(gold["fs/encode_he/in"]).cuda()
@@ -909,6 +1112,47 @@ def phase_golden(state):
                                        err_msg=f"golden {precision}")
             out[precision] = {"kernel": kernel, "max_abs_err": float(np.abs(got - want).max()),
                               "rtol": rtol, "atol": atol}
+        # stain codes 3 and 1 (d_in 544) through K2 in f32 and K1 in bf16
+        x_se = torch.from_numpy(gold["se/eval/in"][:, 0]).cuda()
+        for precision, dtype, kernel in (("float32", torch.float32, "gated_pool"),
+                                         ("bfloat16", torch.bfloat16, "encode_fused")):
+            d = write_model_dir(os.path.join(root, "se_" + precision), precision, True)
+            _, model, _ = create_model_from_pretrained(d, download=False, device="cuda")
+            rtol, atol = (1e-4, 1e-5) if dtype == torch.float32 else (0.0, 3e-2)
+            rec = {"kernel": kernel, "rtol": rtol, "atol": atol, "d_in": model.cfg.input_dim}
+            for idx in (3, 1):
+                before = read_counts()[kernel]
+                got = encode(model, x_se.to(dtype), stain_idx=idx).float().cpu().numpy()
+                if read_counts()[kernel] - before < 1:
+                    raise AssertionError(f"golden se/eval/{idx} {precision}: {kernel} was not "
+                                         "launched")
+                want = gold[f"se/eval/{idx}"].squeeze(1)
+                np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
+                                           err_msg=f"golden se/eval/{idx} {precision}")
+                rec[f"max_abs_err_stain_{idx}"] = float(np.abs(got - want).max())
+            out[f"se_eval_{precision}"] = rec
+    # the eval forward in f32 (K3 for every modality's pool) against the
+    # reference model's activations, without and with stain encodings
+    for prefix, se in (("fs", False), ("se", True)):
+        model = flagship_model(torch, "float32", se)
+        feats = torch.from_numpy(gold[f"{prefix}/train/in"]).cuda()
+        before = read_counts()["attn_pool"]
+        slide, tok = forward_train(model, feats, train=False)
+        launched = read_counts()["attn_pool"] - before
+        if launched != model.cfg.n_modalities:
+            raise AssertionError(f"golden {prefix}/train: attn_pool launched {launched} times")
+        errs = []
+        for idx, mod in enumerate(model.cfg.MODALITIES):
+            for got, key in ((slide[:, idx], "wsi"), (tok[:, idx], "tok")):
+                want = gold[f"{prefix}/train/{key}/{mod}"]
+                want = want[..., 0] if mod == "HE" else want
+                got = got.float().cpu().numpy()
+                np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5,
+                                           err_msg=f"golden {prefix}/train/{key}/{mod}")
+                errs.append(float(np.abs(got - want).max()))
+        out[f"{prefix}_train_eval_forward_float32"] = {
+            "kernel": "attn_pool", "launches": launched, "max_abs_err": max(errs),
+            "rtol": 1e-4, "atol": 1e-5}
     emit(out)
 
 
@@ -1012,6 +1256,51 @@ def phase_extract(state):
           "slides_per_s": len(ids) / wall, "launches": counts})
 
 
+EVAL_REL_FRO = 2e-2   # bf16 eval forward against the f32 model's: a few bf16 roundings
+EVAL_CHECK_CASES = 4
+
+
+def phase_eval_forward(state):
+    """forward_train(train=False) at full width in bf16: the MLP and gates
+    as plain PyTorch, each modality's pool in K3."""
+    import torch
+    from madeleine_torch.models.madeleine import forward_train
+
+    cfg = train_path_config()
+    model = flagship_model(torch, "bfloat16")
+    feats = synthetic_train_batch(torch, cfg, SEED + 8)["feats"]
+    forward_train(model, feats, train=False)            # allocator warm-up, not counted
+    torch.cuda.synchronize()
+    reset_counts()
+    slide, tok = forward_train(model, feats, train=False)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    state["launches_eval_forward"] = counts
+    n_mod = cfg.n_modalities
+    if counts["attn_pool"] != n_mod:
+        raise AssertionError(f"eval_forward: attn_pool launched {counts['attn_pool']} times, "
+                             f"not once per modality ({counts})")
+    bs, t = cfg.batch_size, cfg.n_subsamples
+    if tuple(slide.shape) != (bs, n_mod, 1, cfg.embed_dim) \
+            or tuple(tok.shape) != (bs, n_mod, t, cfg.token_proj_dim) \
+            or not (torch.isfinite(slide.float()).all() and torch.isfinite(tok.float()).all()):
+        raise AssertionError(f"eval_forward: outputs {tuple(slide.shape)} {tuple(tok.shape)}")
+    ms = cuda_ms(lambda: forward_train(model, feats, train=False), warmup=1, iters=5)
+    k3_ms = state.get("kernels", {}).get("attn_pool", {}).get("ms")
+    # the first cases against the f32 model's eval forward on the same feats
+    model32 = flagship_model(torch, "float32")
+    x = feats[:EVAL_CHECK_CASES]
+    want_s, want_t = forward_train(model32, x.float(), train=False)
+    errs = {"slide_rel_fro": _rel_fro(slide[:EVAL_CHECK_CASES].float(), want_s),
+            "tokens_rel_fro": _rel_fro(tok[:EVAL_CHECK_CASES].float(), want_t)}
+    emit({"phase": "eval_forward", "batch": list(feats.shape), "launches": counts,
+          "ms": ms, "k3_ms_per_call": k3_ms,
+          "k3_share": None if k3_ms is None else n_mod * k3_ms / ms,
+          "vs_f32_cases": EVAL_CHECK_CASES, "rel_fro_bar": EVAL_REL_FRO, **errs})
+    if not max(errs.values()) <= EVAL_REL_FRO:
+        raise AssertionError(f"eval_forward: bf16 against f32 {errs} > {EVAL_REL_FRO}")
+
+
 TRAIN_STEPS = 5
 TRAIN_SIGNAL = 0.015  # per-case vector shared by a case's bags (alignment is learnable)
 
@@ -1033,7 +1322,7 @@ def synthetic_train_batch(torch, cfg, seed: int, signal: float = TRAIN_SIGNAL):
     """[bs, n_mod, t, d] bf16 on the card, made from `seed` on the card: noise
     plus a per-case vector shared by every stain of the case; every stain
     present."""
-    bs, n_mod, t, d = cfg.batch_size, cfg.n_modalities, cfg.n_subsamples, cfg.input_dim
+    bs, n_mod, t, d = cfg.batch_size, cfg.n_modalities, cfg.n_subsamples, cfg.patch_embedding_dim
     g = torch.Generator(device="cuda").manual_seed(seed)
     case = torch.randn(bs, 1, 1, d, generator=g, device="cuda")
     feats = torch.randn(bs, n_mod, t, d, generator=g, device="cuda").add_(signal * case)
@@ -1042,11 +1331,12 @@ def synthetic_train_batch(torch, cfg, seed: int, signal: float = TRAIN_SIGNAL):
             "sample_mask": torch.ones(bs, dtype=torch.bool, device="cuda")}
 
 
-def got_path_config():
+def got_path_config(**overrides):
     """The canonical run's published objective, `--local_loss got`
     (scripts/launch_pretrain_withoutStainEncodings.sh:19): InfoNCE + GOT at
     weight 1 with 256 tokens subsampled per stain pair."""
-    return train_path_config(local_loss="got", local_loss_weight=1.0, got_subsample=256)
+    return train_path_config(**dict(dict(local_loss="got", local_loss_weight=1.0,
+                                         got_subsample=256), **overrides))
 
 
 def _train_setup(torch, cfg=None):
@@ -1103,7 +1393,7 @@ def _run_train_steps(torch, state, phase, kernels, cfg=None):
         raise AssertionError(f"{phase}: kernels not launched on every step: {missing}")
     return cfg, model, batch, {
         "steps": TRAIN_STEPS, "batch": [cfg.batch_size, cfg.n_modalities, cfg.n_subsamples,
-                                        cfg.input_dim],
+                                        cfg.patch_embedding_dim],
         "losses": losses, "skipped": skipped, "step_ms": step_ms,
         "step_ms_median_after_first": statistics.median(step_ms[1:]),
         "peak_memory_gb": peak / 1e9, "launches": counts, "launches_per_step": per_step}
@@ -1167,12 +1457,8 @@ def phase_train_got(state):
     # device time by kernel of one GOT forward + backward: the glue kernels
     # (K11-K14), the transport kernels (K8-K10) and the rest (cosine costs,
     # thresholds' min/max, gathers)
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        L.got_loss_multi(v, q, sample_mask=smask).sum().backward()
-        torch.cuda.synchronize()
-    got_split = _split_got_rows(_profile_rows(prof))
+    got_split = _split_got_rows(_profiled(
+        torch, lambda: L.got_loss_multi(v, q, sample_mask=smask).sum().backward()))
     hist = 30 * n_pairs * cfg.batch_size * cfg.got_subsample ** 2 * 4
     emit({"phase": "train_got", **run, "got_problems_per_step": n_pairs * cfg.batch_size,
           "got_subsample": cfg.got_subsample, "k9_history_gb": hist / 1e9,
@@ -1182,6 +1468,25 @@ def phase_train_got(state):
           "got_share_of_step": got_ms / run["step_ms_median_after_first"],
           "got_device_ms_by_part": got_split})
     state["train_got_step_ms"] = run["step_ms_median_after_first"]
+    state["train_got_peak_gb"] = run["peak_memory_gb"]
+
+
+def phase_train_se(state):
+    """The second published run's step, InfoNCE + GOT with stain encodings
+    (scripts/launch_pretrain_withStainEncodings.sh): d_in 544, K7 with dx."""
+    import torch
+    from madeleine_torch.models.factory import create_model
+
+    cfg, model, _, run = _run_train_steps(torch, state, "train_se",
+                                          ENCODER_KERNELS + GOT_KERNELS + GLUE_KERNELS,
+                                          got_path_config(add_stain_encoding=True))
+    _, init = create_model(cfg, seed=SEED, device="cuda")
+    moved = (model.embedding.weight - init.embedding.weight).abs().max().item()
+    emit({"phase": "train_se", **run, "d_in": cfg.input_dim, "table_max_abs_move": moved,
+          "train_got_step_ms": state.get("train_got_step_ms"),
+          "train_got_peak_gb": state.get("train_got_peak_gb")})
+    if not moved > 0:
+        raise AssertionError("train_se: the stain table did not move")
 
 
 PRETRAIN_CASES = 70        # 65 + 5: two steps per epoch, the second padded by 60 masked rows
@@ -1221,7 +1526,9 @@ def _write_pretrain_cohort(root, gen):
 
 
 def _pretrain_argv(root, results, max_epochs, *extra):
-    """The flags of scripts/launch_pretrain_withoutStainEncodings.sh."""
+    """The flags of scripts/launch_pretrain_withoutStainEncodings.sh; with
+    --add_stain_encoding in `extra`, those of
+    scripts/launch_pretrain_withStainEncodings.sh."""
     return ["--dataset", "ACROBAT", "--csv_fpath", os.path.join(root, "ACROBAT.csv"),
             "--data_root_dir", os.path.join(root, "feats"), "--results_dir", results,
             "--wsi_encoder", "abmil", "--n_heads", "4", "--patch_embedding_dim", "512",
@@ -1327,10 +1634,43 @@ def _loader_breakdown(root):
     return ms
 
 
+def _pretrain_trio(root, tag, epochs_a, epochs, *extra):
+    """Three CLI runs on the cohort: A epochs_a epochs with --checkpoint_every
+    1, B A resumed to `epochs`, C `epochs` straight. Returns (runs, model.pt
+    state dicts, wall seconds, resume report); B must equal C bit for bit."""
+    import torch
+
+    runs, sds, walls = {}, {}, {}
+    resume_from = None
+    for name, n in (("A", epochs_a), ("B", epochs), ("C", epochs)):
+        more = ("--resume", resume_from) if name == "B" else ()
+        results, records, walls[name] = _run_pretrain_cli(
+            _pretrain_argv(root, os.path.join(root, tag + name.lower()), n,
+                           "--checkpoint_every", "1", *more, *extra),
+            os.path.join(root, f"pretrain_{tag}{name.lower()}.log"))
+        if name == "A":
+            resume_from = os.path.join(results, "train_state")
+        first = epochs_a if name == "B" else 0
+        runs[name], sds[name] = _check_pretrain_run(tag + name, results, records,
+                                                    range(first, n))
+    unequal = [k for k in sds["C"] if not torch.equal(sds["B"][k], sds["C"][k])]
+    max_diff = max((sds["B"][k] - sds["C"][k]).abs().max().item() for k in sds["C"])
+    # the resumed epochs against the uninterrupted ones: the same batches, losses
+    n_b = len(runs["B"]["losses"])
+    same_losses = runs["B"]["losses"] == runs["C"]["losses"][-n_b:]
+    if unequal or not same_losses:
+        raise AssertionError(f"pretrain {tag}: resumed run differs from the uninterrupted one: "
+                             f"{len(unequal)} tensors, max |diff| {max_diff}")
+    return runs, sds, walls, {"resume_bitwise_equal": not unequal,
+                              "resume_max_abs_diff": max_diff, "resume_same_losses": same_losses}
+
+
 def phase_pretrain(state):
-    """The pretrain CLI at full width with the launch script's flags, three
-    runs on one synthetic cohort: A 2 epochs with --checkpoint_every 1, B A
-    resumed to 3 epochs, C 3 epochs straight; B's model.pt must equal C's."""
+    """The pretrain CLI at full width with the launch scripts' flags on one
+    synthetic cohort: without stain encodings A 2 epochs with
+    --checkpoint_every 1, B A resumed to 3 epochs, C 3 epochs straight; with
+    them (--add_stain_encoding) A' 1 epoch, B' A' resumed to 2, C' 2
+    straight. B's model.pt must equal C's, B''s C''s."""
     import torch
 
     gen = np.random.default_rng(SEED + 7)
@@ -1339,28 +1679,16 @@ def phase_pretrain(state):
         t0 = time.perf_counter()
         n_bags, n_bytes = _write_pretrain_cohort(root, gen)
         cohort_s = time.perf_counter() - t0
-        logs = root   # a failed run's error carries the tail of its log
-        runs, sds, walls = {}, {}, {}
-        res_a, rec_a, walls["A"] = _run_pretrain_cli(
-            _pretrain_argv(root, os.path.join(root, "a"), 2, "--checkpoint_every", "1"),
-            os.path.join(logs, "pretrain_a.log"))
-        runs["A"], sds["A"] = _check_pretrain_run("A", res_a, rec_a, range(2))
-        res_b, rec_b, walls["B"] = _run_pretrain_cli(
-            _pretrain_argv(root, os.path.join(root, "b"), 3, "--checkpoint_every", "1",
-                           "--resume", os.path.join(res_a, "train_state")),
-            os.path.join(logs, "pretrain_b.log"))
-        runs["B"], sds["B"] = _check_pretrain_run("B", res_b, rec_b, range(2, 3))
-        res_c, rec_c, walls["C"] = _run_pretrain_cli(
-            _pretrain_argv(root, os.path.join(root, "c"), 3, "--checkpoint_every", "1"),
-            os.path.join(logs, "pretrain_c.log"))
-        runs["C"], sds["C"] = _check_pretrain_run("C", res_c, rec_c, range(3))
+        runs, _, walls, resume = _pretrain_trio(root, "", 2, 3)
+        runs_se, sds_se, walls_se, resume_se = _pretrain_trio(root, "se_", 1, 2,
+                                                              "--add_stain_encoding")
         loader_parts = _loader_breakdown(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    unequal = [k for k in sds["C"] if not torch.equal(sds["B"][k], sds["C"][k])]
-    max_diff = max((sds["B"][k] - sds["C"][k]).abs().max().item() for k in sds["C"])
-    # resumed epoch 2 against the uninterrupted one: the same batches, losses
-    same_losses = runs["B"]["losses"] == runs["C"]["losses"][-2:]
+    table = sds_se["C"]["embedding.weight"]
+    if tuple(table.shape) != (5, 32) or sds_se["C"]["wsi_embedders.pre_attn.0.weight"].shape[1] \
+            != 544:
+        raise AssertionError(f"pretrain se_: model.pt table {tuple(table.shape)}")
     # host -> device copy of one batch's f32 feats from pinned memory
     x = torch.empty(65, 5, 2048, 512, dtype=torch.float32).pin_memory()
     h2d_ms = cuda_ms(lambda: x.to("cuda", non_blocking=True), warmup=2, iters=10)
@@ -1369,12 +1697,12 @@ def phase_pretrain(state):
     loader_ms = [ms for r in runs.values() for ms in r["loader_ms"]]
     epoch_s = [s for r in runs.values() for s in r["epoch_time_s"]]
     loop_busy = sum(steps_ms) / (1e3 * sum(epoch_s))
-    state["launches_pretrain"] = {k: sum(r["launches"].get(k, 0) for r in runs.values())
+    every = list(runs.values()) + list(runs_se.values())
+    state["launches_pretrain"] = {k: sum(r["launches"].get(k, 0) for r in every)
                                   for k in read_counts()}
     emit({"phase": "pretrain", "cases": PRETRAIN_CASES, "bags": n_bags,
           "cohort_gb": n_bytes / 1e9, "cohort_write_s": cohort_s, "runs": runs,
-          "cli_wall_s": walls, "resume_bitwise_equal": not unequal,
-          "resume_max_abs_diff": max_diff, "resume_same_losses": same_losses,
+          "cli_wall_s": walls, **resume,
           "loader_host_ms_per_batch_median": statistics.median(loader_ms),
           "loader_host_ms_one_batch_by_part": loader_parts,
           "h2d_ms_per_batch": h2d_ms, "h2d_gb_per_batch": 65 * 5 * 2048 * 512 * 4 / 1e9,
@@ -1382,10 +1710,13 @@ def phase_pretrain(state):
           "in_memory_step_ms": state.get("train_got_step_ms"),
           "epoch_time_s_median": statistics.median(epoch_s),
           "stream_busy_share_of_epochs": loop_busy,
-          "peak_memory_gb": max(r["peak_memory_gb"] for r in runs.values())})
-    if unequal or not same_losses:
-        raise AssertionError(f"pretrain: resumed run differs from the uninterrupted one: "
-                             f"{len(unequal)} tensors, max |diff| {max_diff}")
+          "peak_memory_gb": max(r["peak_memory_gb"] for r in runs.values()),
+          "stain_encoded": {"runs": runs_se, "cli_wall_s": walls_se, **resume_se,
+                            "table_shape": list(table.shape),
+                            "cli_step_ms_median": statistics.median(
+                                [ms for r in runs_se.values() for ms in r["step_ms"]]),
+                            "peak_memory_gb": max(r["peak_memory_gb"]
+                                                  for r in runs_se.values())}})
 
 
 # kernel-name prefixes of K8-K10 and of K11-K14 in a profiler trace
@@ -1417,6 +1748,22 @@ def _profile_rows(prof):
         if us:
             rows.append((ev.key[:90], ev.count, us / 1e3))
     return sorted(rows, key=lambda r: -r[2])
+
+
+def _profiled(torch, fn):
+    """[(kernel, launches, device ms)] of one call of fn, from the second of
+    two profiled windows: the first window of a profiler can miss
+    the kernels launched at its start (the K6 forward read 0 to 0.015 ms
+    that way), so a warm-up window runs first (torch.profiler.schedule)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return _profile_rows(prof)
 
 
 def phase_profile(state):
@@ -1455,11 +1802,12 @@ def phase_profile(state):
             fn = run()
             fn()
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:   # a single window
                 fn()
                 torch.cuda.synchronize()
-            rows = _profile_rows(prof)
-            out[name] = {"total_ms": sum(r[2] for r in rows),
+            single = sum(r[2] for r in _profile_rows(prof))
+            rows = _profiled(torch, fn)
+            out[name] = {"total_ms": sum(r[2] for r in rows), "single_window_total_ms": single,
                          "by_kernel_ms": [[k, c, ms] for k, c, ms in rows[:16]]}
     del x, w
     # one full-width train step of each objective (after two unprofiled
@@ -1472,17 +1820,39 @@ def phase_profile(state):
             step(batch, i)
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        seeds = iter((2, 3))
+
+        def one_step():   # the CUDA events time the second, profiled window's step
             start.record()
-            step(batch, 2)
+            step(batch, next(seeds))
             end.record()
-            end.synchronize()
-        rows = _profile_rows(prof)
+
+        rows = _profiled(torch, one_step)
         busy, wall = sum(r[2] for r in rows), start.elapsed_time(end)
         steps[name] = {"wall_ms": wall, "device_busy_ms": busy,
                        "device_idle_share": 1.0 - busy / wall, **_split_got_rows(rows),
                        "by_kernel_ms": [[k, c, ms] for k, c, ms in rows[:24]]}
         del step, batch
+    # the eval forward at full width (bf16): device time by kernel, K3's part
+    # (its partial kernel and the shared combine, which only K3 runs here)
+    from madeleine_torch.models.madeleine import forward_train
+
+    model = flagship_model(torch, "bfloat16")
+    feats = synthetic_train_batch(torch, train_path_config(), SEED + 8)["feats"]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def one_eval():
+        start.record()
+        forward_train(model, feats, train=False)
+        end.record()
+
+    rows = _profiled(torch, one_eval)
+    busy, wall = sum(r[2] for r in rows), start.elapsed_time(end)
+    k3 = sum(ms for k, _, ms in rows
+             if _kernel_base(k).startswith(("attn_pool_partial", "pool_combine_kernel")))
+    steps["eval_forward"] = {"wall_ms": wall, "device_busy_ms": busy,
+                             "device_idle_share": 1.0 - busy / wall, "k3_ms": k3,
+                             "by_kernel_ms": [[k, c, ms] for k, c, ms in rows[:24]]}
     emit({"phase": "profile", "shape": [65, 2048, 512], **out, **steps})
 
 
@@ -1517,9 +1887,7 @@ def main() -> int:
         emit({"partial": phases})
         return 0
 
-    launches = {k: sum(state[f"launches_{p}"][k] for p in ("serve", "extract", "train",
-                                                            "train_got", "pretrain"))
-                for k in state["kernels"]}
+    launches = {k: sum(state[f"launches_{p}"][k] for p in MAIN_PATHS) for k in state["kernels"]}
     for k, n in launches.items():
         if n < 1:
             raise AssertionError(f"{k} was not launched on the main path")

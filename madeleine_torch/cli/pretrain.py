@@ -1,6 +1,7 @@
 """MADELEINE multistain pretraining on one device (ref: bin/pretrain.py).
 
-Usage (the flags of scripts/launch_pretrain_withoutStainEncodings.sh, plus --device):
+Usage (the flags of scripts/launch_pretrain_withoutStainEncodings.sh, plus --device;
+add --add_stain_encoding for scripts/launch_pretrain_withStainEncodings.sh):
     python -m madeleine_torch.cli.pretrain --dataset ACROBAT --csv_fpath <ACROBAT.csv> \
         --data_root_dir <bags> --results_dir <dir> --wsi_encoder abmil --n_heads 4 \
         --patch_embedding_dim 512 --wsi_encoder_hidden_dim 512 --activation softmax \

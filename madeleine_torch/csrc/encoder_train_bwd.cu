@@ -1,18 +1,21 @@
 // Whole-encoder training backward in bf16 (kernel K7).
 //
 // Replaces madeleine_tpu/ops/encoder_train.py::_bwd_kernel (save_acts route,
-// need_dx = False). From the forward's residuals (u1, u2, u3, a_pre, b_pre,
+// need_dx off and on). From the forward's residuals (u1, u2, u3, a_pre, b_pre,
 // rstd), the masked logits and the pool statistics (m, s), it forms the
 // summed cotangent of y in the TPU kernel's order (pool term, then token
 // projector term, then gate terms; encoder_train.py:341-407) and runs the
 // adjoints of the gates, the token projector and the three LN / GELU /
 // dropout layers (ops/preattn.py::_layer_bwd). No forward product is
 // recomputed: h1, h2 and y are rebuilt elementwise from the residuals.
-// Outputs: the 20 weight, bias and LN gradients in f32.
+// Outputs: the 20 weight, bias and LN gradients in f32 and, when the caller
+// passes a dx buffer (need_dx: the input carries the learned stain-encoding
+// columns), the input gradient dx = dz1 . W1 [b, t, d_in] in bf16.
 //
 // What bounds it on an H100: 7.6 M multiply-adds per token at the published
 // widths (a weight gradient for every product, an input gradient for every
-// product but layer 1): the dense bf16 rate bounds it, as for K6.
+// product but layer 1; with dx, layer 1's too, 7.9 M at d_in 544): the dense
+// bf16 rate bounds it, as for K6.
 //
 // Design (simple first): the GEMM of gemm_bf16.cuh for the input gradients
 // (accumulating into the f32 cotangent in place) and the weight gradients,
@@ -242,9 +245,11 @@ cudaError_t wgrad(const bf16* A, long long lda, long long strideA, const bf16* B
   return madeleine::launch_wgrad(g, batches, out, work, st);
 }
 
-// Input gradient C [tokens, N] (+)= A [tokens, K] . B [K, N], batched.
+// Input gradient C [tokens, N] (+)= A [tokens, K] . B [K, N], batched; f32
+// C, or bf16 C (no accumulation) for the layer-1 input gradient.
+template <typename OutT = float>
 cudaError_t dgrad(const bf16* A, long long lda, long long strideA, const bf16* B, long long ldb,
-                  long long strideB, float* C, long long ldc, long long strideC, int tokens,
+                  long long strideB, OutT* C, long long ldc, long long strideC, int tokens,
                   int N, int K, int batches, int beta, cudaStream_t st) {
   madeleine::GemmArgs g{};
   g.A = A; g.lda = lda; g.strideA = strideA;
@@ -253,7 +258,7 @@ cudaError_t dgrad(const bf16* A, long long lda, long long strideA, const bf16* B
   g.M = tokens; g.N = N; g.K = K;
   g.splits = 1;
   g.beta = beta;
-  return madeleine::launch_gemm<true, false, float>(g, batches, st);
+  return madeleine::launch_gemm<true, false, OutT>(g, batches, st);
 }
 
 // Row stride of the column-partial buffer (floats per 64-row tile).
@@ -279,8 +284,9 @@ extern "C" void encoder_train_bwd_workspace(const long long* dims, long long* ou
   out[1] = S.ntr * colpart_stride(S);
 }
 
-// dims as encoder_train_forward. p: the pointers listed in
-// ops/encoder_train.py::_BWD_PTRS, in that order. Returns a cudaError_t.
+// dims as encoder_train_forward. p: the pointers of
+// ops/encoder_train.py::encoder_train_bwd_cuda's `tensors`, in that order
+// (the last, dx, null without need_dx). Returns a cudaError_t.
 extern "C" int encoder_train_backward(void** p, const long long* dims, const float* scales,
                                       void* stream_) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream_);
@@ -316,6 +322,7 @@ extern "C" int encoder_train_backward(void** p, const long long* dims, const flo
   float* DH = (float*)p[50];
   bf16* DZ12 = (bf16*)p[51];
   float *work = (float*)p[52], *part = (float*)p[53];
+  bf16* dx = (bf16*)p[54];   // null unless need_dx
   const long long ldp = colpart_stride(S);
   const int ntr = S.ntr;
 
@@ -360,7 +367,7 @@ extern "C" int encoder_train_backward(void** p, const long long* dims, const flo
   CHECK(madeleine::colsum_reduce(part, ldp, 2 * hd, hd, ntr, db2, st));
   CHECK(wgrad(DZ12, hd, 0, H1, hd, 0, hd, hd, M, 1, dw2, work, st));
   CHECK(dgrad(DZ12, hd, 0, w2, hd, 0, DH, hd, 0, M, hd, hd, 1, 0, st));
-  // 6. layer 1 (no input gradient on this path)
+  // 6. layer 1, and its input gradient only when the caller asks for it
   layer_bwd<<<ntr, hd / 4, 0, st>>>(DH, u1, rstd, s1, t1, DZ12, part, ldp, M, hd, t, ro, 0,
                                     dpre);
   CHECK(cudaGetLastError());
@@ -368,5 +375,6 @@ extern "C" int encoder_train_backward(void** p, const long long* dims, const flo
   CHECK(madeleine::colsum_reduce(part, ldp, hd, hd, ntr, dt1, st));
   CHECK(madeleine::colsum_reduce(part, ldp, 2 * hd, hd, ntr, db1, st));
   CHECK(wgrad(DZ12, hd, 0, x, S.d_in, 0, hd, S.d_in, M, 1, dw1, work, st));
+  if (dx) CHECK(dgrad<bf16>(DZ12, hd, 0, w1, S.d_in, 0, dx, S.d_in, 0, M, S.d_in, hd, 1, 0, st));
   return 0;
 }

@@ -25,7 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from madeleine_torch.ops.attn_pool import activate_attention, masked_attention_pool
+from madeleine_torch.ops.attn_pool import (activate_attention, masked_attention_pool,
+                                           softmax_pool)
 from madeleine_torch.ops.encode_fused import encode_pool_fused
 from madeleine_torch.ops.gated_pool import gated_attention_pool
 
@@ -146,7 +147,10 @@ def abmil_embed(
     bags [b, t, d_in], mask [b, t] bool. On a CUDA tensor with softmax and
     nothing but the pooled output asked for, bf16 runs the whole encoder in
     kernel K1 (ops/encode_fused.py) and f32 runs the MLP through torch.matmul,
-    then kernel K2 (ops/gated_pool.py). Everything else runs the plain way.
+    then kernel K2 (ops/gated_pool.py). With the tokens asked for, the MLP and
+    the gates run the plain way and the softmax pool of a CUDA tensor is
+    kernel K3 (ops/attn_pool.py); with the logits asked for, the pool is
+    plain too (the JAX package's use_pallas=False there).
 
     Returns pooled [b, nh, e] (head-major), plus raw logits [b, t, nh] if
     return_attention, plus tokens [b, t, nh, e] if return_tokens.
@@ -164,7 +168,10 @@ def abmil_embed(
         return gated_attention_pool(w, xh, mask)
 
     raw_logits = gated_attention_logits(w, xh)
-    pooled = masked_attention_pool(xh, raw_logits, mask, activation)
+    if bags.is_cuda and activation == "softmax" and not return_attention:
+        pooled = softmax_pool(xh, raw_logits, mask)
+    else:
+        pooled = masked_attention_pool(xh, raw_logits, mask, activation)
     out: Tuple[torch.Tensor, ...] = (pooled,)
     if return_attention:
         out = out + (raw_logits,)

@@ -7,8 +7,10 @@ PyTorch counterpart of `madeleine_tpu/models/madeleine.py` (ref: Model.py:45-216
 
 The module holds its config (``model.cfg``); parameter names are the
 reference's, so ``model.pt`` files load strictly. The training forward
-(`forward_train`, n_views=1, softmax, no stain encodings) runs the whole
-encoder through the train op of ops/encoder_train.py.
+(`forward_train`, n_views=1, softmax, with or without stain encodings) runs
+the whole encoder through the train op of ops/encoder_train.py; its eval
+mode (``train=False``) runs `abmil_embed` per modality, whose softmax pool
+on the card is kernel K3.
 """
 
 from __future__ import annotations
@@ -63,10 +65,12 @@ def init_madeleine(model: MADELEINE, generator: torch.Generator) -> MADELEINE:
     return model
 
 
-def _append_stain_encoding(model: MADELEINE, feats: torch.Tensor, stain_idx: int) -> torch.Tensor:
+def _append_stain_encoding(model: MADELEINE, feats: torch.Tensor, stain_idx) -> torch.Tensor:
     """Concat the learned per-stain code to every patch feature
-    (ref: Model.py:177-189)."""
-    enc = model.embedding.weight[stain_idx].to(feats.dtype)
+    (ref: Model.py:125-132,177-189). feats [..., t, d]; stain_idx an int, or
+    a [n] index tensor for feats [n, t, d]. The code is cast to feats' dtype
+    before the concat, so the table's gradient flows back through the cast."""
+    enc = model.embedding.weight[stain_idx].to(feats.dtype).unsqueeze(-2)
     enc = enc.expand(*feats.shape[:-1], enc.shape[-1])
     return torch.cat([feats, enc], dim=-1)
 
@@ -114,14 +118,37 @@ def train_weights(model: MADELEINE, dtype: torch.dtype) -> Dict[str, torch.Tenso
     return train_operands(w, dtype)
 
 
-def _project_train(model: MADELEINE, pooled: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Head-major pooled [n, nh, e] -> projector in the compute dtype -> [n, hidden]
-    (the JAX package's _linear on the head-major projector rows)."""
+def _linear_head_major(model: MADELEINE, layer: nn.Linear, x: torch.Tensor,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """Head-major x [..., nh, e] -> `layer` (the projector or the token
+    projector, reference head-minor input order) in the compute dtype: the
+    JAX package's _linear on the bridge-permuted rows."""
     emb = model.wsi_embedders
-    perm = torch.as_tensor(_head_major_perm(emb.hidden_dim, emb.n_heads),
-                           device=pooled.device)
-    w = model.projector.weight[:, perm].to(dtype)
-    return F.linear(pooled.reshape(pooled.shape[0], -1), w, model.projector.bias.to(dtype))
+    perm = torch.as_tensor(_head_major_perm(emb.hidden_dim, emb.n_heads), device=x.device)
+    return F.linear(x.flatten(-2), layer.weight[:, perm].to(dtype), layer.bias.to(dtype))
+
+
+@torch.no_grad()
+def _forward_eval(model: MADELEINE, feats: torch.Tensor,
+                  mask: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The eval forward (JAX madeleine.py:309-318): per modality, its stain
+    code when enabled, `abmil_embed` with the tokens returned (on the card:
+    the plain MLP and gates, then K3's softmax pool), the projector and the
+    token projector in the compute dtype."""
+    cfg = model.cfg
+    bs, n_mod, t, _ = feats.shape
+    dt = feats.dtype
+    slides, toks = [], []
+    for i in range(n_mod):
+        x = feats[:, i]
+        if cfg.add_stain_encoding:
+            x = _append_stain_encoding(model, x, i)
+        pooled, tokens = abmil_embed(model.wsi_embedders, x, activation=cfg.activation,
+                                     mask=None if mask is None else mask[:, i],
+                                     return_tokens=True)
+        slides.append(_linear_head_major(model, model.projector, pooled, dt))
+        toks.append(_linear_head_major(model, model.token_projector, tokens, dt))
+    return torch.stack(slides, 1)[:, :, None], torch.stack(toks, 1)
 
 
 def forward_train(model: MADELEINE, feats: torch.Tensor, *,
@@ -129,39 +156,49 @@ def forward_train(model: MADELEINE, feats: torch.Tensor, *,
                   train: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward (ref: Model.py:110-159), through the whole-encoder
     train op (ops/encoder_train.py: kernels K6/K7 on a CUDA tensor) at its
-    dropout rates.
+    dropout rates; with ``train=False`` the eval forward (no dropout, no
+    gradient; `_forward_eval`).
 
     feats [bs, n_mod, t, d] in the compute dtype; mask [bs, n_mod, t] bool;
     seed: the step's dropout seed. cfg.modality_scan runs one op call per
     modality (the canonical route, [bs, t, d] each, global rows m*bs + i);
-    otherwise one joint call over [bs*n_mod, t, d] (rows i*n_mod + m).
+    otherwise one joint call over [bs*n_mod, t, d] (rows i*n_mod + m). With
+    stain encodings each modality's rows carry its own stain code, and the
+    op returns dx so that the table learns. Documented deviation (JAX
+    madeleine.py:213-218): the reference builds train-time stain ids
+    mod-major but flattens feats b-major, misassigning the codes whenever
+    bs != 1; the correct per-stain id is used here, as in the JAX package.
     Returns slide_embs [bs, n_mod, 1, hidden] and token_embs
     [bs, n_mod, t, 128], both in feats.dtype."""
     cfg = model.cfg
-    if not train:
-        raise NotImplementedError("forward_train(train=False) is not ported "
-                                  "(ROADMAP.md D5: K3 with the eval forward)")
     if n_views != 1:
-        raise NotImplementedError("n_views=3 is not ported (ROADMAP.md D3)")
-    if cfg.add_stain_encoding:
-        raise NotImplementedError("stain encodings in training are not ported (ROADMAP.md D3)")
-    if cfg.activation != "softmax":
+        raise NotImplementedError("n_views=3 is not ported (ROADMAP.md D3b)")
+    if cfg.activation != "softmax" and train:
         raise NotImplementedError(f"activation {cfg.activation!r} in training is not ported "
                                   "(ROADMAP.md D6: the per-op lane)")
+    if not train:
+        return _forward_eval(model, feats, mask)
     bs, n_mod, t, d = feats.shape
     dt = feats.dtype
+    se = cfg.add_stain_encoding
     w = train_weights(model, dt)
     if not cfg.modality_scan:
         x = feats.reshape(bs * n_mod, t, d)
+        if se:   # row i*n_mod + m is modality m
+            ids = torch.arange(n_mod, device=feats.device).repeat(bs)
+            x = _append_stain_encoding(model, x, ids)
         m = None if mask is None else mask.reshape(bs * n_mod, t)
-        pooled, tok = encoder_train(x, m, w, seed)
-        slide = _project_train(model, pooled, dt)
+        pooled, tok = encoder_train(x, m, w, seed, need_dx=se)
+        slide = _linear_head_major(model, model.projector, pooled, dt)
         return (slide.reshape(bs, n_mod, 1, -1), tok.reshape(bs, n_mod, t, -1))
     slides, toks = [], []
     for i in range(n_mod):
+        x = feats[:, i]
+        if se:
+            x = _append_stain_encoding(model, x, i)
         m = None if mask is None else mask[:, i]
-        pooled, tok = encoder_train(feats[:, i], m, w, seed, row_offset=i * bs)
-        slides.append(_project_train(model, pooled, dt))
+        pooled, tok = encoder_train(x, m, w, seed, row_offset=i * bs, need_dx=se)
+        slides.append(_linear_head_major(model, model.projector, pooled, dt))
         toks.append(tok)
     return torch.stack(slides, 1)[:, :, None], torch.stack(toks, 1)
 

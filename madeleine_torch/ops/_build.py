@@ -20,8 +20,8 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-KERNELS = ("encode_fused", "gated_pool", "encoder_train_fwd", "encoder_train_bwd", "ipot_fwd",
-           "ipot_bwd", "gw_gamma", "got_glue")
+KERNELS = ("encode_fused", "gated_pool", "attn_pool", "encoder_train_fwd", "encoder_train_bwd",
+           "ipot_fwd", "ipot_bwd", "gw_gamma", "got_glue")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SMEM_LIMIT = 232448   # bytes of shared memory one block may use on Hopper

@@ -1,7 +1,7 @@
 """Whole-encoder training op: kernel K6 (forward) and K7 (backward), bf16.
 
 Replaces `madeleine_tpu/ops/encoder_train.py` (`_fwd_kernel`, `_bwd_kernel`,
-the save_acts route, n_views=1, need_dx=False). Per token row of x:
+the save_acts route, n_views=1, need_dx off and on). Per token row of x:
 
     3 x [Linear -> LayerNorm -> GELU (exact erf) -> dropout(pre_rate)] -> y32
     tok = y Wt^T + bt
@@ -13,9 +13,11 @@ with bf16 operands, f32 accumulation and f32 bias / LN / GELU; each layer's
 output is rounded to bf16 before the next product, the pool sums f32 y32.
 The forward saves u1, u2, u3 (normalised LN inputs), a_pre, b_pre (bf16)
 and the three LN rstd (f32); the backward rebuilds every activation from
-them elementwise and never recomputes a forward product. Dropout masks come
-from `ops/prng.py` (Philox, keyed by site), identical in both directions and
-in the plain and CUDA versions.
+them elementwise and never recomputes a forward product. With need_dx (the
+input carries the learned stain-encoding columns) the backward also emits
+dx = dz1 . W1, the input gradient, in x's dtype. Dropout masks come from
+`ops/prng.py` (Philox, keyed by site), identical in both directions and in
+the plain and CUDA versions.
 
 Operands are head-major (`train_operands`): w1 [h, d_in], w2 [h, h],
 w3 [E, h] ([out, in] layout), biases b*, LN scales s* and shifts t*,
@@ -131,11 +133,13 @@ def encoder_train_fwd_plain(x, bias, w, seed: int, row_offset: int = 0,
 @torch.no_grad()
 def encoder_train_bwd_plain(x, l, m, s, g, inner, dtok, saved, w, seed: int,
                             row_offset: int = 0, pre_rate: float = PRE_RATE,
-                            gate_rate: float = GATE_RATE) -> Dict[str, torch.Tensor]:
+                            gate_rate: float = GATE_RATE,
+                            need_dx: bool = False) -> Dict[str, torch.Tensor]:
     """The explicit adjoint of `encoder_train_fwd_plain` (encoder_train.py:
     341-422, preattn.py::_layer_bwd): g [b, E] f32 the pooled cotangent,
     inner [b, nh] = per-head g . pooled, dtok [b, t, d_out] in x.dtype.
-    Returns {key of W_KEYS: f32 gradient}."""
+    Returns {key of W_KEYS: f32 gradient}, plus "x": dx [b, t, d_in] in
+    x.dtype with need_dx."""
     dt = x.dtype
     b, t, _ = x.shape
     nh, f, e = w["wa"].shape
@@ -198,7 +202,9 @@ def encoder_train_bwd_plain(x, l, m, s, g, inner, dtok, saved, w, seed: int,
 
     dh2 = layer_bwd(dy, h2, 3)
     dh1 = layer_bwd(dh2, h1, 2)
-    layer_bwd(dh1, x, 1, want_dx=False)
+    dx = layer_bwd(dh1, x, 1, want_dx=need_dx)
+    if need_dx:
+        grads["x"] = dx.to(dt)
     return grads
 
 
@@ -245,7 +251,10 @@ def _dims(shape, seed, row_offset, pre_rate, gate_rate):
 
 
 def _call(fn, tensors, dims, scales, device):
-    ptrs = (ctypes.c_void_p * len(tensors))(*(x.data_ptr() for x in tensors))
+    """The C entry point on the device's current stream; a None tensor
+    passes as a null pointer."""
+    ptrs = (ctypes.c_void_p * len(tensors))(*(None if x is None else x.data_ptr()
+                                              for x in tensors))
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4
         fn.restype = ctypes.c_int
@@ -302,7 +311,8 @@ def encoder_train_fwd_cuda(x, bias, w, seed: int, row_offset: int = 0,
 @torch.no_grad()
 def encoder_train_bwd_cuda(x, l, m, s, g, inner, dtok, saved, w, seed: int,
                            row_offset: int = 0, pre_rate: float = PRE_RATE,
-                           gate_rate: float = GATE_RATE) -> Dict[str, torch.Tensor]:
+                           gate_rate: float = GATE_RATE,
+                           need_dx: bool = False) -> Dict[str, torch.Tensor]:
     """Launch K7 on CUDA tensors; returns as `encoder_train_bwd_plain`."""
     global bwd_launches
     b, t, d_in, hd, nh, e, f, dout = _check_shapes(x, w, "encoder_train_bwd")
@@ -345,15 +355,18 @@ def encoder_train_bwd_cuda(x, l, m, s, g, inner, dtok, saved, w, seed: int,
                torch.empty(M, hd, dtype=bf, device=dev),            # DZ12
                torch.empty(ws[0], dtype=f32, device=dev),           # split-K partials
                torch.empty(ws[1], dtype=f32, device=dev)]           # column partials
+    dx = torch.empty(b, t, d_in, dtype=bf, device=dev) if need_dx else None
     tensors = [x, l, m, s, g, inner, dtok, *(saved[k] for k in SAVED),
                w["w1"], w["s1"], w["t1"], w["w2"], w["s2"], w["t2"], w["w3"], w["s3"],
-               w["t3"], wab, w["wc"], w["wt"], *out.values(), *scratch]
+               w["t3"], wab, w["wc"], w["wt"], *out.values(), *scratch, dx]
     err = _call(lib.encoder_train_backward, tensors, dims, scales, dev)
     if err != 0:
         raise RuntimeError(f"encoder_train_bwd kernel launch failed: cudaError {err}")
     bwd_launches += 1
     wab_g, bab_g = out.pop("wab"), out.pop("bab")
     out.update(wa=wab_g[:, :f], wb=wab_g[:, f:], ba=bab_g[:, 0], bb=bab_g[:, 1])
+    if need_dx:
+        out["x"] = dx
     return out
 
 
@@ -362,16 +375,18 @@ def encoder_train_bwd_cuda(x, l, m, s, g, inner, dtok, saved, w, seed: int,
 # ---------------------------------------------------------------------------
 
 class EncoderTrain(torch.autograd.Function):
-    """(x, bias, seed, row_offset, pre_rate, gate_rate, *operands in W_KEYS
-    order) -> (pooled [b, nh, e] in x.dtype, tok [b, t, d_out]). No gradient
-    for x (need_dx=False: the input carries no learned component)."""
+    """(x, bias, seed, row_offset, pre_rate, gate_rate, need_dx, *operands in
+    W_KEYS order) -> (pooled [b, nh, e] in x.dtype, tok [b, t, d_out]). x
+    gets a gradient only with need_dx (the input carries a learned
+    component: the stain-encoding columns)."""
 
     @staticmethod
-    def forward(ctx, x, bias, seed, row_offset, pre_rate, gate_rate, *ws):
+    def forward(ctx, x, bias, seed, row_offset, pre_rate, gate_rate, need_dx, *ws):
         w = dict(zip(W_KEYS, ws))
         fwd = encoder_train_fwd_cuda if x.is_cuda else encoder_train_fwd_plain
         pooled32, m, s, tok, l, saved = fwd(x, bias, w, seed, row_offset, pre_rate, gate_rate)
         ctx.args = (seed, row_offset, pre_rate, gate_rate)
+        ctx.need_dx = need_dx
         ctx.save_for_backward(x, l, m, s, pooled32, *(saved[k] for k in SAVED), *ws)
         nh, _, e = w["wa"].shape
         return pooled32.to(x.dtype).reshape(x.shape[0], nh, e), tok
@@ -390,8 +405,9 @@ class EncoderTrain(torch.autograd.Function):
         dtok = (torch.zeros(b, t, dout, dtype=x.dtype, device=x.device) if dtok is None
                 else dtok.to(x.dtype).contiguous())
         bwd = encoder_train_bwd_cuda if x.is_cuda else encoder_train_bwd_plain
-        grads = bwd(x, l, m, s, g, inner, dtok, saved, w, *ctx.args)
-        return (None,) * 6 + tuple(grads[k].to(w[k].dtype) for k in W_KEYS)
+        grads = bwd(x, l, m, s, g, inner, dtok, saved, w, *ctx.args, need_dx=ctx.need_dx)
+        return (grads.get("x"),) + (None,) * 6 + tuple(grads[k].to(w[k].dtype)
+                                                        for k in W_KEYS)
 
 
 def token_mask_bias(mask, b: int, t: int, device) -> torch.Tensor:
@@ -401,16 +417,19 @@ def token_mask_bias(mask, b: int, t: int, device) -> torch.Tensor:
 
 def encoder_train(x: torch.Tensor, mask, w: Dict[str, torch.Tensor], seed: int,
                   pre_rate: Optional[float] = None, gate_rate: Optional[float] = None,
-                  row_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                  row_offset: int = 0, need_dx: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused training-mode encoder (ref semantics Model.py:110-146 +
     Model.py:350-417 + abmil.py:34-63). x [b, t, d_in] in the compute dtype,
     mask [b, t] bool or None, w: `train_operands` (the gradients flow back
     through them), seed: int. A rate left None is this module's PRE_RATE /
-    GATE_RATE, read at call time. Returns (pooled [b, nh, e], tok
-    [b, t, d_out]), both in x.dtype."""
+    GATE_RATE, read at call time. need_dx: x gets a gradient (JAX's static
+    need_dx, madeleine.py:204). Returns (pooled [b, nh, e], tok [b, t,
+    d_out]), both in x.dtype."""
     b, t, _ = x.shape
     pre_rate = PRE_RATE if pre_rate is None else pre_rate
     gate_rate = GATE_RATE if gate_rate is None else gate_rate
     bias = token_mask_bias(mask, b, t, x.device)
     return EncoderTrain.apply(x.contiguous(), bias, int(seed), int(row_offset),
-                              float(pre_rate), float(gate_rate), *(w[k] for k in W_KEYS))
+                              float(pre_rate), float(gate_rate), bool(need_dx),
+                              *(w[k] for k in W_KEYS))

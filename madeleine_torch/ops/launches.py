@@ -9,12 +9,13 @@ from __future__ import annotations
 
 from typing import Dict
 
-from madeleine_torch.ops import encode_fused, encoder_train, gated_pool, got_glue, ipot
+from madeleine_torch.ops import attn_pool, encode_fused, encoder_train, gated_pool, got_glue, ipot
 
 # kernel name -> (module, counter attribute), in the order of the PERF table
 COUNTERS = {
     "encode_fused": (encode_fused, "launches"),             # K1
     "gated_pool": (gated_pool, "launches"),                 # K2
+    "attn_pool": (attn_pool, "launches"),                   # K3
     "encoder_train_fwd": (encoder_train, "fwd_launches"),   # K6
     "encoder_train_bwd": (encoder_train, "bwd_launches"),   # K7
     "ipot_fwd": (ipot, "fwd_launches"),                     # K8

@@ -19,7 +19,10 @@ ref: madeleine/utils/trainer.py:20-145):
 - the epoch's smooth rank on the H&E embeddings (trainer.py:141-143).
 
 The encoder runs through ops/encoder_train.py: kernels K6/K7 on the card
-(bf16 only), their plain versions on CPU tensors; GOT through ops/ipot.py
+(bf16 only), their plain versions on CPU tensors; with stain encodings the
+op also returns the input gradient, and the code table ([n_mod, 32],
+`embedding.weight`) is one more AdamW parameter with the configured weight
+decay, as optax.adamw treats it in the JAX package. GOT through ops/ipot.py
 and ops/got_glue.py (K8-K14). A batch's feats arrive as f32 (pinned by the
 caller's loader thread on the card) and are copied to the device
 asynchronously, then cast there. GOT with ragged token masks (per-side
@@ -68,7 +71,7 @@ def compute_losses(cfg: MadeleineConfig, slide_embs: torch.Tensor, token_embs: t
     else `torch.randperm(t, generator=generator)[:sub]`, one draw per pair."""
     if cfg.intra_modality_loss == "info-nce":
         raise NotImplementedError("the intra-modality loss (n_views=3) is not ported "
-                                  "(ROADMAP.md D3)")
+                                  "(ROADMAP.md D3b)")
     use_got = cfg.local_loss == "got"
     if use_got and token_mask is not None:
         raise NotImplementedError("GOT with ragged token masks (per-side masked subsampling) "
@@ -129,7 +132,7 @@ class TrainStep:
     def __init__(self, cfg: MadeleineConfig, model: MADELEINE, optimizer: torch.optim.Optimizer,
                  schedule):
         if cfg.intra_modality_loss == "info-nce":
-            raise NotImplementedError("n_views=3 is not ported (ROADMAP.md D3)")
+            raise NotImplementedError("n_views=3 is not ported (ROADMAP.md D3b)")
         self.cfg, self.model, self.optimizer, self.schedule = cfg, model, optimizer, schedule
         self.dtype = compute_dtype(cfg.precision)
         self.updates = 0

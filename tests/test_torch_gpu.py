@@ -330,3 +330,74 @@ def test_got_loss_multi_launches_the_glue_kernels_and_raises(cuda_device):
     with pytest.raises(ValueError, match="non-contiguous"):
         G.gw_trace_cuda(X0[1], X0[2], X0[0], gamma.transpose(1, 2).contiguous().transpose(1, 2))
     assert counts() == before
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 3e-2), (torch.float32, 1e-5)],
+                         ids=["bf16", "f32"])
+def test_attn_pool_kernel_matches_plain(cuda_device, dtype, atol):
+    """K3 against its plain version at t = 1000 (a partial last
+    tile), ragged bags and an empty one (pools to 0), with logits spread by
+    several units; bf16 atol 3e-2 on the bf16 output, f32 rtol 1e-4 / atol
+    1e-5; two launches bitwise equal."""
+    from madeleine_torch.ops import attn_pool as ap
+
+    g = torch.Generator().manual_seed(4)
+    b, t, nh, e = 3, 1000, 4, 512
+    y = torch.randn(b, t, nh * e, generator=g).to(cuda_device, dtype)
+    mask = (torch.arange(t)[None, :] < torch.tensor([[1000], [333], [0]])).to(cuda_device)
+    l = (4.0 * torch.randn(b, t, nh, generator=g)).to(cuda_device)
+    l = l.masked_fill(~mask[..., None], ap.NEG_INF).contiguous()
+    before = ap.launches
+    got = ap.attn_pool_cuda(y, l)
+    assert torch.equal(got, ap.attn_pool_cuda(y, l)) and ap.launches == before + 2
+    want = ap.softmax_pool_plain(l, y.view(b, t, nh, e)).to(dtype)
+    assert got.dtype == dtype and (got[2] == 0).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0 if dtype != torch.float32
+                               else 1e-4, atol=atol)
+
+
+def test_eval_forward_launches_k3_per_modality(cuda_device):
+    """forward_train(train=False) on the card pools each modality through K3
+    and agrees with the same forward of the f32 model on the CPU (bf16 atol
+    5e-2 on the slide embeddings)."""
+    from madeleine_torch.models.madeleine import forward_train
+    from madeleine_torch.ops import attn_pool as ap
+
+    cfg = MadeleineConfig(precision="bfloat16", add_stain_encoding=True).finalize()
+    model = init_madeleine(MADELEINE(cfg), torch.Generator().manual_seed(0)).eval()
+    x = torch.randn(2, 5, 300, 512, generator=torch.Generator().manual_seed(5))
+    want_s, _ = forward_train(model, x, train=False)
+    before = ap.launches
+    got_s, got_t = forward_train(model.to(cuda_device), x.to(cuda_device, torch.bfloat16),
+                                 train=False)
+    assert ap.launches == before + 5
+    assert got_t.shape == (2, 5, 300, 128) and torch.isfinite(got_t.float()).all()
+    torch.testing.assert_close(got_s.float().cpu(), want_s, rtol=0, atol=5e-2)
+
+
+def test_encoder_train_dx_matches_plain(cuda_device):
+    """K7's need_dx route at d_in 544 (512 + the 32 stain columns) against
+    the plain dx (relative Frobenius 1e-2, as the other gradients), with a
+    partial last tile of the 128-wide GEMM (N = 544); without need_dx K7
+    returns no dx."""
+    from madeleine_torch.ops import encoder_train as et
+
+    cfg = MadeleineConfig(precision="bfloat16", add_stain_encoding=True).finalize()
+    model = init_madeleine(MADELEINE(cfg), torch.Generator().manual_seed(0)).to(cuda_device)
+    w = _train_operands(model)
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(3, 300, 544, generator=g).to(cuda_device, torch.bfloat16)
+    bias = et.token_mask_bias(None, 3, 300, cuda_device)
+    pooled32, m, s, _, l, saved = et.encoder_train_fwd_cuda(x, bias, w, 5, 0, 0.1, 0.25)
+    gp = torch.randn(3, pooled32.shape[1], generator=g).to(cuda_device)
+    dtok = torch.randn(3, 300, 128, generator=g).to(cuda_device, torch.bfloat16)
+    inner = (gp * pooled32).reshape(3, 4, -1).sum(-1)
+    args = (x, l, m, s, gp, inner, dtok, saved, w, 5, 0, 0.1, 0.25)
+    gk = et.encoder_train_bwd_cuda(*args, need_dx=True)
+    with torch.no_grad():
+        want = et.encoder_train_bwd_plain(*args, need_dx=True)
+    assert gk["x"].dtype == torch.bfloat16 and gk["x"].shape == x.shape
+    assert torch.equal(gk["x"], et.encoder_train_bwd_cuda(*args, need_dx=True)["x"])
+    assert _rel(gk["x"].float(), want["x"].float()) <= 1e-2
+    assert _rel(gk["w1"], want["w1"]) <= 1e-2
+    assert "x" not in et.encoder_train_bwd_cuda(*args)

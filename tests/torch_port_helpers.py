@@ -142,10 +142,12 @@ def golden_model(gold) -> MADELEINE:
     return model
 
 
-def flagship_model(**cfg_fields) -> MADELEINE:
-    """The port model at the published widths with the flagship weights."""
-    cfg = MadeleineConfig(**dict(dict(precision="float32", dataset="ACROBAT"), **cfg_fields))
+def flagship_model(stain_encoding: bool = False, **cfg_fields) -> MADELEINE:
+    """The port model at the published widths with the flagship weights
+    (golden_flagship.npz's `fs/*` model, or with stain encodings its `se/*`)."""
+    cfg = MadeleineConfig(**dict(dict(precision="float32", dataset="ACROBAT",
+                                      add_stain_encoding=stain_encoding), **cfg_fields))
     model = MADELEINE(cfg.finalize())
-    model.load_state_dict({k: torch.from_numpy(v) for k, v in flagship_state_dict().items()},
-                          strict=True)
+    sd = flagship_state_dict(stain_encoding=stain_encoding)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, strict=True)
     return model
