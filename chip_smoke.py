@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases device,build,got_kernels,train_got
     python3 chip_smoke.py --phases device,build,glue_kernels,train_got,pretrain
     python3 chip_smoke.py --phases device,build,pool_kernels,golden,eval_forward
+    python3 chip_smoke.py --phases device,build,perop_kernels,train_sigmoid
 
 Phases, one JSON line each; any failure raises and the exit code is non-zero:
   device   card name and the nvidia-smi name/power-limit line
@@ -27,6 +28,19 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            bag; two launches bitwise equal; timed at [65, 2048, 2048] beside
            the library's call for the same function (scaled_dot_product_attention
            with zero q and k and the logits as its mask)
+  perop_kernels
+           kernels 15-20 of the per-op lane, bf16: preattn (15/16),
+           gated_logits (17/18) and linear_tok (19/20), each against its plain
+           version at dropout rates 0 and (0.1, 0.25), row offset 3, at the
+           train step's call shape [65, 2048], at b=8, t=4096 and at b=2,
+           t=4057 (partial last tiles), and preattn's dx at [65, 2048, 544]:
+           outputs at atol 3e-2, gradients at 1e-2 relative Frobenius, two
+           launches of each bitwise equal; then at (0.1, 0.25) the chain
+           preattn -> gated_logits -> plain softmax pool -> linear_tok through
+           autograd against K6/K7 on the same x, seed and rows (pooled 2e-3,
+           tokens 3e-2, every weight gradient 1e-2, bc 1e-4 absolute): the
+           masks line up. Timed at [65, 2048] beside their plain versions and,
+           for linear_tok's forward, torch.nn.functional.linear
   golden   flagship weights saved as model.pt + model_config.json, loaded by
            create_model_from_pretrained; encode_he against
            tests/golden/golden_flagship.npz in f32 (through K2) and bf16 (K1);
@@ -87,6 +101,11 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
   train_se the same 5 steps with stain encodings (--add_stain_encoding:
            d_in 544, K7's dx route): K6-K14 on every step, losses fall, no
            step skipped, the stain table moves; step ms and peak memory
+  train_sigmoid
+           the same 5 steps with --activation sigmoid (the per-op lane):
+           kernels 15-20 and K8-K14 must launch on every step, K6/K7 on none;
+           step ms and peak memory against train_got's, the plain sigmoid
+           pool's own peak, and one profiled step (device idle share)
   pretrain `python -m madeleine_torch.cli.pretrain` with the flags of
            scripts/launch_pretrain_withoutStainEncodings.sh (65 cases x 5
            stains x 2048 tokens, bf16, InfoNCE + GOT) on a synthetic cohort
@@ -99,7 +118,9 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            loader's host ms per batch, the H2D ms of a batch, the CLI's step
            ms against train_got's, epoch time and peak memory; then the flags
            of scripts/launch_pretrain_withStainEncodings.sh: A' 1 epoch, B'
-           A' resumed to 2, C' 2 straight, B' equal to C' bit for bit
+           A' resumed to 2, C' 2 straight, B' equal to C' bit for bit; then
+           the first script's flags with --activation sigmoid, 1 epoch
+           (kernels 15-20 and K8-K14 on every step)
   profile  torch.profiler device time by kernel of one K6 and one K7 call at
            [65, 2048], of one full-width train step of each objective and of
            one full-width eval forward, with their device idle share; each read from a second
@@ -129,10 +150,11 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "pool_kernels", "train_kernels", "got_kernels",
-          "glue_kernels", "golden", "serve", "extract", "eval_forward", "train", "train_got",
-          "train_se", "pretrain", "profile")
+          "glue_kernels", "perop_kernels", "golden", "serve", "extract", "eval_forward", "train",
+          "train_got", "train_se", "train_sigmoid", "pretrain", "profile")
 # the runs of the port's main paths whose kernel launches the summary counts
-MAIN_PATHS = ("serve", "extract", "eval_forward", "train", "train_got", "train_se", "pretrain")
+MAIN_PATHS = ("serve", "extract", "eval_forward", "train", "train_got", "train_se",
+              "train_sigmoid", "pretrain")
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -1086,6 +1108,290 @@ def phase_glue_kernels(state):
           "glue_plain_ms_per_step": sum(t["plain_ms"] for t in times.values())})
 
 
+PEROP_STEP_SHAPE = (65, 2048)   # the train step's call shape, one modality
+# the checked shapes: the step's, a long bag, and partial last tiles of the GEMM
+# (128 rows) and of the row kernels (64 rows): 2 x 4057 = 8114 rows
+PEROP_SHAPES = (PEROP_STEP_SHAPE, (8, 4096), (2, 4057))
+PEROP_KERNELS = ("preattn_fwd", "preattn_bwd", "gated_logits_fwd", "gated_logits_bwd",
+                 "linear_tok_fwd", "linear_tok_bwd")
+# kernel -> (source, the TPU kernel it replaces)
+PEROP_SOURCES = {
+    "preattn_fwd": ("madeleine_torch/csrc/preattn.cu", "madeleine_tpu/ops/preattn.py:134"),
+    "preattn_bwd": ("madeleine_torch/csrc/preattn.cu", "madeleine_tpu/ops/preattn.py:200"),
+    "gated_logits_fwd": ("madeleine_torch/csrc/gated_logits.cu",
+                         "madeleine_tpu/ops/gated_logits.py:78"),
+    "gated_logits_bwd": ("madeleine_torch/csrc/gated_logits.cu",
+                         "madeleine_tpu/ops/gated_logits.py:96"),
+    "linear_tok_fwd": ("madeleine_torch/csrc/linear_tok.cu", "madeleine_tpu/ops/linear_tok.py:28"),
+    "linear_tok_bwd": ("madeleine_torch/csrc/linear_tok.cu", "madeleine_tpu/ops/linear_tok.py:35"),
+}
+
+
+def _perop_work(b, t, w, need_dx=False):
+    """{kernel: (flops, bytes)} of kernels 15-20 at [b, t]: the products of
+    each op (a backward kernel also recomputes its op's forward products,
+    the TPU ops' residuals being the inputs and the seed); each input read
+    once, each output written once."""
+    hd, d_in = w["w1"].shape
+    E = w["w3"].shape[0]
+    nh, f, e = w["wa"].shape
+    dout = w["wt"].shape[0]
+    n = b * t
+    pre = ("w1", "b1", "s1", "t1", "w2", "b2", "s2", "t2", "w3", "b3", "s3", "t3")
+    gate = ("wa", "ba", "wb", "bb", "wc", "bc")
+
+    def wbytes(keys):
+        return sum(w[k].numel() * w[k].element_size() for k in keys)
+
+    def gbytes(keys):   # f32 gradients
+        return sum(w[k].numel() * 4 for k in keys)
+
+    pre_macs, gate_macs, tok_macs = d_in * hd + hd * hd + hd * E, 2 * nh * e * f, E * dout
+    return {
+        "preattn_fwd": (2.0 * n * pre_macs, n * (d_in + E) * 2 + wbytes(pre)),
+        "preattn_bwd": (2.0 * n * (3 * pre_macs - (0 if need_dx else d_in * hd)),
+                        n * (d_in + E + (d_in if need_dx else 0)) * 2 + wbytes(pre)
+                        + gbytes(pre)),
+        "gated_logits_fwd": (2.0 * n * gate_macs, n * (E * 2 + nh * 4) + wbytes(gate)),
+        "gated_logits_bwd": (6.0 * n * gate_macs,
+                             n * (2 * E * 2 + nh * 4) + wbytes(gate) + gbytes(gate)),
+        "linear_tok_fwd": (2.0 * n * tok_macs, n * (E + dout) * 2 + wbytes(("wt", "bt"))),
+        "linear_tok_bwd": (4.0 * n * tok_macs, n * (2 * E + dout) * 2 + wbytes(("wt",))
+                           + gbytes(("wt", "bt"))),
+    }
+
+
+def _perop_calls(torch, w, x, rates, gen, seed=1234, row_offset=3, need_dx=False):
+    """{kernel: (CUDA wrapper, plain version, args, kwargs)} of kernels 15-20
+    on x: gated_logits and linear_tok read preattn's kernel output y; the
+    cotangents are random (dy, g in bf16, dl in f32)."""
+    from madeleine_torch.ops import gated_logits as gl
+    from madeleine_torch.ops import linear_tok as lt
+    from madeleine_torch.ops import preattn as pa
+
+    b, t, _ = x.shape
+    pre, gate = rates
+    y = pa.preattn_fwd_cuda(x, w, seed, row_offset, pre)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.from_numpy(gen.standard_normal(shape).astype(np.float32)).cuda().to(dtype)
+
+    dy = randn(b, t, w["w3"].shape[0])
+    dl = randn(b, t, w["wa"].shape[0], dtype=torch.float32)
+    g = randn(b, t, w["wt"].shape[0])
+    return {
+        "preattn_fwd": (pa.preattn_fwd_cuda, pa.preattn_fwd_plain, (x, w, seed, row_offset, pre),
+                        {}),
+        "preattn_bwd": (pa.preattn_bwd_cuda, pa.preattn_bwd_plain,
+                        (x, dy, w, seed, row_offset, pre), {"need_dx": need_dx}),
+        "gated_logits_fwd": (gl.gated_logits_fwd_cuda, gl.gated_logits_fwd_plain,
+                             (y, w, seed, row_offset, gate), {}),
+        "gated_logits_bwd": (gl.gated_logits_bwd_cuda, gl.gated_logits_bwd_plain,
+                             (y, dl, w, seed, row_offset, gate), {}),
+        "linear_tok_fwd": (lt.linear_tok_fwd_cuda, lt.linear_tok_fwd_plain,
+                           (y, w["wt"], w["bt"]), {}),
+        "linear_tok_bwd": (lt.linear_tok_bwd_cuda, lt.linear_tok_bwd_plain, (y, g, w["wt"]), {}),
+    }
+
+
+def _bf16_ulp(torch, v):
+    """One bf16 rounding step at each value of v (f32): 2^(floor(log2|v|) - 7)."""
+    return torch.ldexp(torch.ones_like(v), torch.frexp(v).exponent - 8)
+
+
+def _check_perop(torch, calls, where):
+    """Each kernel of `calls` twice (bitwise equal) against its plain version:
+    a forward's output at OUT_ATOL, or for a bf16 output one bf16 rounding
+    step of the plain value where that is larger (preattn's y reaches |y| of
+    4-8, where a rounding flip from another f32 summation order is 0.031); a
+    backward's outputs (dx / dy and the f32 parameter gradients) at
+    GRAD_RTOL relative Frobenius. Returns {kernel: {"max_abs_err", and for a
+    forward "max_err_over_bar", for a backward "grad_rel_fro"}}."""
+    rep = {}
+    for name, (kern, plain, args, kw) in calls.items():
+        got, again = kern(*args, **kw), kern(*args, **kw)
+        with torch.no_grad():
+            want = plain(*args, **kw)
+        torch.cuda.synchronize()
+        if isinstance(got, torch.Tensor):
+            got, again, want = {"out": got}, {"out": again}, {"out": want}
+        if set(got) != set(want) or not all(torch.equal(got[k], again[k]) for k in got):
+            raise AssertionError(f"{name} {where}: two launches differ, or outputs {sorted(got)}")
+        errs, abs_err = {}, 0.0
+        for k in want:
+            a, b = got[k].float(), want[k].float()
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"{name} {where}: non-finite {k}")
+            abs_err = max(abs_err, (a - b).abs().max().item())
+            errs[k] = _rel_fro(a, b)
+        if name.endswith("_fwd"):
+            a, b = got["out"].float(), want["out"].float()
+            bar = (torch.maximum(_bf16_ulp(torch, b), torch.full_like(b, OUT_ATOL))
+                   if got["out"].dtype == torch.bfloat16 else OUT_ATOL)
+            over = ((a - b).abs() / bar).max().item()
+            ok = over <= 1.0
+            rep[name] = {"max_abs_err": abs_err, "max_err_over_bar": over}
+        else:
+            ok = max(errs.values()) <= GRAD_RTOL
+            rep[name] = {"max_abs_err": abs_err, "grad_rel_fro": errs}
+        rep[name]["ok"] = ok
+        del got, again, want
+    return rep
+
+
+PRE_KEYS = ("w1", "b1", "s1", "t1", "w2", "b2", "s2", "t2", "w3", "b3", "s3", "t3")
+# The per-op chain's pre-attention gradients against K7's: preattn's backward
+# takes y's cotangent in bf16, the bf16 sum of three bf16 cotangents (pool,
+# gates, tokens), where K7 keeps that sum in f32; the bias and LN sums over
+# 133120 tokens carry that rounding (1.0-1.7% seen at rates 0.1/0.25). Held
+# here, with a rate-0 run beside it (the floor without masks) and a control
+# whose masks are another row's, which must miss it.
+PRE_CHAIN_RTOL = 3e-2
+
+
+def _perop_chain_vs_fused(torch, w, x, rates, gen, seed=99, row_offset=65, chain_offset=0):
+    """The per-op chain preattn -> gated_logits -> plain softmax pool ->
+    linear_tok (kernels 15-20 through autograd, rows from row_offset +
+    chain_offset) against K6/K7 (rows from row_offset) on the same x and
+    seed, with a random pooled cotangent and dtok. Returns the errors and
+    the keys that miss their bars: pooled at POOLED_ATOL, tokens at
+    OUT_ATOL, the gate and token-projector gradients at GRAD_RTOL relative
+    Frobenius, the 12 pre-attention ones at PRE_CHAIN_RTOL. bc's exact
+    gradient is 0 (softmax is shift invariant): the chain's is held to it at
+    BC_ATOL; K7's carries the bf16 rounding of its saved u3 (its y32 in the
+    backward is not the forward's) and is reported."""
+    from madeleine_torch.ops import encoder_train as et
+    from madeleine_torch.ops import gated_logits as gl
+    from madeleine_torch.ops import linear_tok as lt
+    from madeleine_torch.ops import preattn as pa
+    from madeleine_torch.ops.attn_pool import softmax_pool_plain
+
+    b, t, _ = x.shape
+    nh, _, e = w["wa"].shape
+    bias = et.token_mask_bias(None, b, t, "cuda")
+    pooled32, m, s, tok, l, saved = et.encoder_train_fwd_cuda(x, bias, w, seed, row_offset,
+                                                              *rates)
+    G = torch.from_numpy(gen.standard_normal((b, nh * e)).astype(np.float32)).cuda()
+    DT = torch.from_numpy(gen.standard_normal((b, t, w["wt"].shape[0])).astype(np.float32)
+                          ).cuda().to(torch.bfloat16)
+    inner = (G * pooled32).reshape(b, nh, e).sum(-1)
+    k7 = et.encoder_train_bwd_cuda(x, l, m, s, G, inner, DT, saved, w, seed, row_offset, *rates)
+    del saved
+    ro = row_offset + chain_offset
+    wl = {k: v.detach().clone().requires_grad_(True) for k, v in w.items()}
+    with torch.enable_grad():
+        y = pa.preattn_train(x, wl, seed, ro, rates[0])
+        logits = gl.gated_logits_train(y, wl, seed, ro, rates[1])
+        pooled = softmax_pool_plain(logits, y.reshape(b, t, nh, e))
+        tok_c = lt.linear_tok_train(y, wl["wt"], wl["bt"])
+        ((pooled * G).sum() + (tok_c.float() * DT.float()).sum()).backward()
+    torch.cuda.synchronize()
+    rep = {"pooled_err": (pooled.detach() - pooled32).abs().max().item(),
+           "tok_err": (tok_c.detach().float() - tok.float()).abs().max().item(),
+           "grad_rel_fro": {k: _rel_fro(wl[k].grad.float(), k7[k].float())
+                            for k in w if k != "bc"},
+           "chain_bc_max_abs": wl["bc"].grad.abs().max().item(),
+           "k7_bc_max_abs": k7["bc"].abs().max().item()}
+    rep["failed"] = ([k for k, v in rep["grad_rel_fro"].items()
+                      if not v <= (PRE_CHAIN_RTOL if k in PRE_KEYS else GRAD_RTOL)]
+                     + [k for k, bar in (("pooled_err", POOLED_ATOL), ("tok_err", OUT_ATOL),
+                                         ("chain_bc_max_abs", BC_ATOL)) if not rep[k] <= bar])
+    return rep
+
+
+def phase_perop_kernels(state):
+    """Kernels 15-20 against their plain versions, the per-op chain against
+    K6/K7, and their times at the train step's call shape."""
+    import torch
+    import torch.nn.functional as F
+    from madeleine_torch.models.madeleine import train_weights
+
+    gen = np.random.default_rng(SEED + 9)
+    real = (0.1, 0.25)
+
+    def operands(stain_encoding=False):
+        model = flagship_model(torch, "bfloat16", stain_encoding)
+        with torch.no_grad():
+            return {k: v.detach().contiguous()
+                    for k, v in train_weights(model, torch.bfloat16).items()}
+
+    def inputs(b, t, d=512):
+        return torch.from_numpy(gen.standard_normal((b, t, d)).astype(np.float32)).cuda().to(
+            torch.bfloat16)
+
+    w = operands()
+    checks, errs = {}, {k: 0.0 for k in PEROP_KERNELS}
+    step_calls = None
+    for shape in PEROP_SHAPES:
+        x = inputs(*shape)
+        for rates in ((0.0, 0.0), real):
+            where = f"{list(shape)} {rates}"
+            calls = _perop_calls(torch, w, x, rates, gen)
+            checks[where] = _check_perop(torch, calls, where)
+            if shape == PEROP_STEP_SHAPE and rates == real:
+                step_calls = calls
+            else:
+                del calls
+        del x
+    # the stain-encoded call: d_in 544 with preattn's dx
+    w_se = operands(stain_encoding=True)
+    x_se = inputs(*PEROP_STEP_SHAPE, 544)
+    se_calls = _perop_calls(torch, w_se, x_se, real, gen, need_dx=True)
+    checks["step_call_544_dx"] = _check_perop(
+        torch, {"preattn_bwd": se_calls["preattn_bwd"]}, "d_in 544")
+    del se_calls, x_se, w_se
+    for rep in checks.values():
+        for k, r in rep.items():
+            errs[k] = max(errs[k], r["max_abs_err"])
+    # the chain against K6/K7 at the real rates, at 0 (no masks: the rounding
+    # floor, reported), and a control whose masks are the next row's, which
+    # must miss the pooled and every pre-attention bar
+    x = inputs(*PEROP_STEP_SHAPE)
+    chain = {"real": _perop_chain_vs_fused(torch, w, x, real, gen),
+             "rates_0": _perop_chain_vs_fused(torch, w, x, (0.0, 0.0), gen),
+             "control_rows_shifted": _perop_chain_vs_fused(torch, w, x, real, gen,
+                                                           chain_offset=1)}
+    del x
+
+    # times at the step's call shape, the real rates
+    work = _perop_work(*PEROP_STEP_SHAPE, w)
+    times = {}
+    for name, (kern, plain, args, kw) in step_calls.items():
+        ms = cuda_ms(lambda: kern(*args, **kw))
+        with torch.no_grad():
+            plain_ms = cuda_ms(lambda: plain(*args, **kw), warmup=1, iters=3)
+        bound, by = _bound(*work[name])
+        times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                       "share_of_bound": bound / ms, "gflop": work[name][0] / 1e9,
+                       "gb": work[name][1] / 1e9}
+    y, wt, bt = step_calls["linear_tok_fwd"][2]
+    bt16 = bt.to(torch.bfloat16)
+    times["linear_tok_fwd"]["library_ms"] = cuda_ms(lambda: F.linear(y, wt, bt16))
+    lib_err = (F.linear(y, wt, bt16).float() - step_calls["linear_tok_fwd"][0](y, wt, bt).float()
+               ).abs().max().item()
+    del step_calls, y, wt, bt, bt16
+    for name in PEROP_KERNELS:
+        src, replaces = PEROP_SOURCES[name]
+        tm = times[name]
+        state.setdefault("kernels", {})[name] = {
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "max_abs_err": errs[name], "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "library_ms": tm.get("library_ms")}
+    emit({"phase": "perop_kernels", "atol_out": OUT_ATOL, "grad_rtol_fro": GRAD_RTOL,
+          "pooled_atol": POOLED_ATOL, "bc_atol": BC_ATOL, "checks": checks,
+          "pre_chain_rtol_fro": PRE_CHAIN_RTOL, "chain_vs_k6_k7": chain,
+          "times_shape": PEROP_STEP_SHAPE, "times": times, "f_linear_vs_kernel_max_abs": lib_err})
+    failed = [(where, k) for where, rep in checks.items() for k, r in rep.items()
+              if not r["ok"]]
+    control_missed = set(chain["control_rows_shifted"]["failed"])
+    if (failed or chain["real"]["failed"]
+            or not {"pooled_err"} | set(PRE_KEYS) <= control_missed):
+        raise AssertionError(f"perop_kernels: missed their bars: {failed}; the chain against "
+                             f"K6/K7: {chain['real']['failed']}; the shifted-mask control "
+                             f"missed only {sorted(control_missed)}")
+
+
 def phase_golden(state):
     import torch
     from madeleine_torch.models.factory import create_model_from_pretrained
@@ -1489,6 +1795,64 @@ def phase_train_se(state):
         raise AssertionError("train_se: the stain table did not move")
 
 
+def _pool_own_peak(torch, cfg, activation):
+    """GB the plain masked pool's forward and backward allocate above their
+    inputs at one modality's call shape [bs, t, nh, e] bf16 (f32 logits)."""
+    from madeleine_torch.ops.attn_pool import masked_attention_pool
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    nh, e = cfg.n_heads, cfg.wsi_encoder_hidden_dim
+    shape = (cfg.batch_size, cfg.n_subsamples)
+    xh = torch.randn(*shape, nh, e, generator=g, device="cuda").to(torch.bfloat16)
+    logits = torch.randn(*shape, nh, generator=g, device="cuda")
+    xh.requires_grad_(True)
+    logits.requires_grad_(True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    masked_attention_pool(xh, logits, None, activation).float().sum().backward()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def phase_train_sigmoid(state):
+    """The published objective with --activation sigmoid, the per-op lane
+    (JAX madeleine.py:157-172): kernels 15-20 for the encoder and K8-K14 for
+    GOT on every step, K6/K7 on none; then one profiled step."""
+    import torch
+
+    cfg = got_path_config(activation="sigmoid")
+    _, model, _, run = _run_train_steps(torch, state, "train_sigmoid",
+                                        PEROP_KERNELS + GOT_KERNELS + GLUE_KERNELS, cfg)
+    fused = {k: run["launches"][k] for k in ENCODER_KERNELS}
+    if any(fused.values()):
+        raise AssertionError(f"train_sigmoid: the whole-encoder kernels launched {fused}")
+    del model
+    pool_peak = _pool_own_peak(torch, cfg, "sigmoid")
+    # one profiled step after two unprofiled ones, as phase_profile does
+    _, _, step, batch = _train_setup(torch, cfg)
+    for i in range(2):
+        step(batch, i)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    seeds = iter((2, 3))
+
+    def one_step():
+        start.record()
+        step(batch, next(seeds))
+        end.record()
+
+    rows = _profiled(torch, one_step)
+    busy, wall = sum(r[2] for r in rows), start.elapsed_time(end)
+    emit({"phase": "train_sigmoid", **run, "activation": cfg.activation,
+          "plain_pool_own_peak_gb": pool_peak,
+          "train_got_step_ms": state.get("train_got_step_ms"),
+          "train_got_peak_gb": state.get("train_got_peak_gb"),
+          "profiled_step": {"wall_ms": wall, "device_busy_ms": busy,
+                            "device_idle_share": 1.0 - busy / wall,
+                            "by_kernel_ms": [[k, c, ms] for k, c, ms in rows[:24]]}})
+
+
 PRETRAIN_CASES = 70        # 65 + 5: two steps per epoch, the second padded by 60 masked rows
 PRETRAIN_TOKENS = (512, 2561)   # bag lengths; below 2048 the subsample draws with replacement
 PRETRAIN_IHC_PRESENT = 0.8
@@ -1562,9 +1926,12 @@ def _run_pretrain_cli(argv, log_path):
 PRETRAIN_STEP_KERNELS = ENCODER_KERNELS + GOT_KERNELS + GLUE_KERNELS
 
 
-def _check_pretrain_run(name, results, records, epochs):
-    """Every step finite, none skipped, K6-K14 launched on every step, K1 in
-    the downstream pass, the artifacts written. Returns the run's summary."""
+def _check_pretrain_run(name, results, records, epochs, kernels=PRETRAIN_STEP_KERNELS,
+                        downstream_kernel="encode_fused"):
+    """Every step finite, none skipped, `kernels` (K6-K14) launched on every
+    step, `downstream_kernel` (K1; None: none, as for a non-softmax model,
+    whose eval forward is plain) in the downstream pass, the artifacts
+    written. Returns the run's summary."""
     import torch
     from madeleine_torch.utils.file_utils import load_pkl
 
@@ -1573,12 +1940,12 @@ def _check_pretrain_run(name, results, records, epochs):
         raise AssertionError(f"pretrain {name}: epochs {[r['epoch'] for r in ep]}")
     steps = [s for r in ep for s in r["steps"]]
     bad = [s for s in steps if s["skipped"] or not np.isfinite(s["loss"])
-           or any(s["launches"].get(k, 0) < 1 for k in PRETRAIN_STEP_KERNELS)]
+           or any(s["launches"].get(k, 0) < 1 for k in kernels)]
     if bad or len(steps) != 2 * len(ep):
         raise AssertionError(f"pretrain {name}: bad steps {bad} of {len(steps)}")
     down = [r for r in records if "downstream" in r]
-    if len(down) != 1 or down[0]["launches"].get("encode_fused", 0) < 1 \
-            or down[0]["slides"] != PRETRAIN_DOWNSTREAM:
+    if len(down) != 1 or down[0]["slides"] != PRETRAIN_DOWNSTREAM or (
+            downstream_kernel and down[0]["launches"].get(downstream_kernel, 0) < 1):
         raise AssertionError(f"pretrain {name}: downstream pass {down}")
     names = set(os.listdir(results))
     want = {"config.json", "model_config.txt", "model.pt", "model_config.json",
@@ -1670,7 +2037,8 @@ def phase_pretrain(state):
     synthetic cohort: without stain encodings A 2 epochs with
     --checkpoint_every 1, B A resumed to 3 epochs, C 3 epochs straight; with
     them (--add_stain_encoding) A' 1 epoch, B' A' resumed to 2, C' 2
-    straight. B's model.pt must equal C's, B''s C''s."""
+    straight. B's model.pt must equal C's, B''s C''s. Then one epoch with
+    --activation sigmoid (the per-op lane, kernels 15-20)."""
     import torch
 
     gen = np.random.default_rng(SEED + 7)
@@ -1682,6 +2050,13 @@ def phase_pretrain(state):
         runs, _, walls, resume = _pretrain_trio(root, "", 2, 3)
         runs_se, sds_se, walls_se, resume_se = _pretrain_trio(root, "se_", 1, 2,
                                                               "--add_stain_encoding")
+        results, records, wall_sig = _run_pretrain_cli(
+            _pretrain_argv(root, os.path.join(root, "sigmoid"), 1, "--activation", "sigmoid",
+                           "--checkpoint_every", "1"),
+            os.path.join(root, "pretrain_sigmoid.log"))
+        run_sig, _ = _check_pretrain_run("sigmoid", results, records, range(1),
+                                         kernels=PEROP_KERNELS + GOT_KERNELS + GLUE_KERNELS,
+                                         downstream_kernel=None)
         loader_parts = _loader_breakdown(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -1697,7 +2072,7 @@ def phase_pretrain(state):
     loader_ms = [ms for r in runs.values() for ms in r["loader_ms"]]
     epoch_s = [s for r in runs.values() for s in r["epoch_time_s"]]
     loop_busy = sum(steps_ms) / (1e3 * sum(epoch_s))
-    every = list(runs.values()) + list(runs_se.values())
+    every = list(runs.values()) + list(runs_se.values()) + [run_sig]
     state["launches_pretrain"] = {k: sum(r["launches"].get(k, 0) for r in every)
                                   for k in read_counts()}
     emit({"phase": "pretrain", "cases": PRETRAIN_CASES, "bags": n_bags,
@@ -1716,7 +2091,9 @@ def phase_pretrain(state):
                             "cli_step_ms_median": statistics.median(
                                 [ms for r in runs_se.values() for ms in r["step_ms"]]),
                             "peak_memory_gb": max(r["peak_memory_gb"]
-                                                  for r in runs_se.values())}})
+                                                  for r in runs_se.values())},
+          "sigmoid": {"run": run_sig, "cli_wall_s": wall_sig,
+                      "cli_step_ms_median": statistics.median(run_sig["step_ms"])}})
 
 
 # kernel-name prefixes of K8-K10 and of K11-K14 in a profiler trace

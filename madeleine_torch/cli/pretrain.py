@@ -12,7 +12,9 @@ add --add_stain_encoding for scripts/launch_pretrain_withStainEncodings.sh):
 
 Reads the cohort CSV (`csv` module) and the per-(case, stain) bags
 (``.h5`` where h5py imports, else ``.npz`` or ``.bag``), takes AdamW steps of
-InfoNCE + GOT on the card (kernels K6-K14), and writes into
+InfoNCE + GOT on the card (kernels K6-K14; with a non-softmax
+``--activation``, the per-op lane's kernels 15-20 in place of K6/K7), and
+writes into
 ``<results_dir>/<config hash>/``: ``config.json``, ``model_config.txt``,
 ``metrics.jsonl`` (one record per epoch, with per-step timings and kernel
 launches, and one for the downstream pass), ``train_state`` (+

@@ -24,19 +24,22 @@
 // adjoints, each thread owning 4 columns, so the bias, LN scale and shift
 // gradients are per-tile column partials summed in tile order. Nothing uses
 // atomics: two launches on the same inputs give bitwise-equal gradients.
+// The gate, token-projector and layer adjoints are train_rows.cuh's, shared
+// with the per-op kernels 16, 18 and 20.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "gemm_bf16.cuh"
-#include "train_common.cuh"
+#include "train_rows.cuh"
 
 namespace {
 
 using madeleine::bf16;
 using madeleine::Dropout;
 using madeleine::ROW_TILE;
+using madeleine::dgrad;
+using madeleine::wgrad;
 
 // One row per block, W/4 threads: H = bf16(gelu(u * s + sh) * mask).
 __global__ void recon_h(const bf16* __restrict__ U, const float* __restrict__ s,
@@ -107,113 +110,6 @@ __global__ void pool_bwd(const bf16* __restrict__ U3, const float* __restrict__ 
   if (threadIdx.x % tpb == 0) part[blockIdx.x * ld_part + h] = dbc;
 }
 
-// Gate adjoint. Block = 64-row tile, nh*f/4 threads. Writes DZG [M, nh*2f]
-// bf16 (per head [dza | dzb]) and per-tile column partials
-// part[tile, 0 : nh*f] = dwc, part[tile, nh*f + h*2f + j] = dba / dbb.
-__global__ void gate_bwd(const bf16* __restrict__ AP, const bf16* __restrict__ BP,
-                         const float* __restrict__ DL, const float* __restrict__ wc,
-                         bf16* __restrict__ DZG, float* __restrict__ part, long long ld_part,
-                         int M, int t, int nh, int f, int row_offset, Dropout d) {
-  const int tpb = f / 4, h = threadIdx.x / tpb, c4 = threadIdx.x % tpb, j0 = c4 * 4;
-  float w[4], dwc[4] = {0.f, 0.f, 0.f, 0.f}, dba[4] = {0.f, 0.f, 0.f, 0.f},
-              dbb[4] = {0.f, 0.f, 0.f, 0.f};
-  madeleine::load4(wc + h * f + j0, w);
-  const long long r0 = (long long)blockIdx.x * ROW_TILE;
-  for (int i = 0; i < ROW_TILE; ++i) {
-    const long long r = r0 + i;
-    if (r >= M) break;
-    const int tok = (int)(r % t), row = (int)(r / t) + row_offset;
-    float ap[4], bp[4], ka[4], kb[4], za[4], zb[4];
-    madeleine::load4(AP + r * nh * f + h * f + j0, ap);
-    madeleine::load4(BP + r * nh * f + h * f + j0, bp);
-    madeleine::keep4(d, c4, tok, row, 3 + 2 * h, ka);
-    madeleine::keep4(d, c4, tok, row, 4 + 2 * h, kb);
-    const float dl = DL[r * nh + h];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float a = ap[j] * ka[j], bv = bp[j] * kb[j];
-      dwc[j] += (a * bv) * dl;
-      const float dg = dl * w[j];
-      za[j] = dg * bv * ka[j] * (1.f - ap[j] * ap[j]);
-      zb[j] = dg * a * kb[j] * bp[j] * (1.f - bp[j]);
-      dba[j] += za[j];
-      dbb[j] += zb[j];
-    }
-    madeleine::store4(DZG + r * nh * 2 * f + h * 2 * f + j0, za);
-    madeleine::store4(DZG + r * nh * 2 * f + h * 2 * f + f + j0, zb);
-  }
-  float* pt = part + blockIdx.x * ld_part;
-  madeleine::store4(pt + h * f + j0, dwc);
-  madeleine::store4(pt + nh * f + h * 2 * f + j0, dba);
-  madeleine::store4(pt + nh * f + h * 2 * f + f + j0, dbb);
-}
-
-// One LN / GELU / dropout layer adjoint. Block = 64-row tile, W/4 threads.
-// din [M, W] f32 is the cotangent at the layer's output; writes DZ [M, W]
-// bf16 (the pre-LN cotangent, operand of both gradient products) and
-// part[tile, 0:W | W:2W | 2W:3W] = ds, dt, db column partials.
-__global__ void layer_bwd(const float* __restrict__ din, const bf16* __restrict__ U,
-                          const float* __restrict__ rstd, const float* __restrict__ s,
-                          const float* __restrict__ sh, bf16* __restrict__ DZ,
-                          float* __restrict__ part, long long ld_part, int M, int W, int t,
-                          int row_offset, int layer, Dropout d) {
-  __shared__ float red[32];
-  const int c = threadIdx.x * 4, nw = blockDim.x >> 5;
-  float sv[4], tv[4], ds[4] = {0.f, 0.f, 0.f, 0.f}, dt[4] = {0.f, 0.f, 0.f, 0.f},
-                      db[4] = {0.f, 0.f, 0.f, 0.f};
-  madeleine::load4(s + c, sv);
-  madeleine::load4(sh + c, tv);
-  const long long r0 = (long long)blockIdx.x * ROW_TILE;
-  for (int i = 0; i < ROW_TILE; ++i) {
-    const long long r = r0 + i;
-    if (r >= M) break;  // uniform over the block
-    float dv[4], u[4], k[4], du[4];
-    madeleine::load4(din + r * W + c, dv);
-    madeleine::load4(U + r * W + c, u);
-    madeleine::keep4(d, threadIdx.x, (int)(r % t), (int)(r / t) + row_offset, layer, k);
-    float sdu = 0.f, sduu = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float v = u[j] * sv[j] + tv[j];
-      dv[j] = dv[j] * k[j] * (madeleine::gauss_cdf(v) + v * madeleine::gauss_pdf(v));
-      ds[j] += dv[j] * u[j];
-      dt[j] += dv[j];
-      du[j] = dv[j] * sv[j];
-      sdu += du[j];
-      sduu += du[j] * u[j];
-    }
-    const float mdu = madeleine::group_sum(sdu, red, 0, nw) / W;
-    const float mduu = madeleine::group_sum(sduu, red, 0, nw) / W;
-    const float rs = rstd[r * 3 + layer];
-    float dz[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      dz[j] = (du[j] - mdu - u[j] * mduu) * rs;
-      db[j] += dz[j];
-    }
-    madeleine::store4(DZ + r * W + c, dz);
-  }
-  float* pt = part + blockIdx.x * ld_part;
-  madeleine::store4(pt + c, ds);
-  madeleine::store4(pt + W + c, dt);
-  madeleine::store4(pt + 2 * W + c, db);
-}
-
-// Column partials of a bf16 [M, N] matrix over 64-row tiles, N/4 threads.
-__global__ void colsum_rows(const bf16* __restrict__ X, float* __restrict__ part,
-                            long long ld_part, int M, int N) {
-  const int c = threadIdx.x * 4;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  const long long r0 = (long long)blockIdx.x * ROW_TILE;
-  for (int i = 0; i < ROW_TILE && r0 + i < M; ++i) {
-    float v[4];
-    madeleine::load4(X + (r0 + i) * N + c, v);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[j] += v[j];
-  }
-  madeleine::store4(part + blockIdx.x * ld_part + c, acc);
-}
-
 #define CHECK(x)                               \
   do {                                         \
     cudaError_t err_ = (x);                    \
@@ -231,34 +127,6 @@ Shapes shapes_of(const long long* dims) {
   S.M = S.b * S.t; S.E = S.nh * S.e;
   S.ntr = (S.M + ROW_TILE - 1) / ROW_TILE;
   return S;
-}
-
-// Weight gradient [Mo, No] = sum over tokens of A(tok, m) B(tok, n), both
-// row-major token-by-column operands (lda, ldb), batched over `batches`.
-cudaError_t wgrad(const bf16* A, long long lda, long long strideA, const bf16* B, long long ldb,
-                  long long strideB, int Mo, int No, int tokens, int batches, float* out,
-                  float* work, cudaStream_t st) {
-  madeleine::GemmArgs g{};
-  g.A = A; g.lda = lda; g.strideA = strideA;
-  g.B = B; g.ldb = ldb; g.strideB = strideB;
-  g.M = Mo; g.N = No; g.K = tokens;
-  return madeleine::launch_wgrad(g, batches, out, work, st);
-}
-
-// Input gradient C [tokens, N] (+)= A [tokens, K] . B [K, N], batched; f32
-// C, or bf16 C (no accumulation) for the layer-1 input gradient.
-template <typename OutT = float>
-cudaError_t dgrad(const bf16* A, long long lda, long long strideA, const bf16* B, long long ldb,
-                  long long strideB, OutT* C, long long ldc, long long strideC, int tokens,
-                  int N, int K, int batches, int beta, cudaStream_t st) {
-  madeleine::GemmArgs g{};
-  g.A = A; g.lda = lda; g.strideA = strideA;
-  g.B = B; g.ldb = ldb; g.strideB = strideB;
-  g.C = C; g.ldc = ldc; g.strideC = strideC;
-  g.M = tokens; g.N = N; g.K = K;
-  g.splits = 1;
-  g.beta = beta;
-  return madeleine::launch_gemm<true, false, OutT>(g, batches, st);
 }
 
 // Row stride of the column-partial buffer (floats per 64-row tile).
@@ -338,43 +206,33 @@ extern "C" int encoder_train_backward(void** p, const long long* dims, const flo
   CHECK(madeleine::colsum_reduce(part, ldp, 0, nh, ntr, dbc, st));
   // 2. token projector term: DY += dtok . Wt; dWt = dtok^T y; dbt
   CHECK(dgrad(dtok, S.dout, 0, wt, E, 0, DY, E, 0, M, E, S.dout, 1, 1, st));
-  CHECK(wgrad(dtok, S.dout, 0, Y, E, 0, S.dout, E, M, 1, dwt, work, st));
-  colsum_rows<<<ntr, S.dout / 4, 0, st>>>(dtok, part, ldp, M, S.dout);
-  CHECK(cudaGetLastError());
-  CHECK(madeleine::colsum_reduce(part, ldp, 0, S.dout, ntr, dbt, st));
+  CHECK(madeleine::tok_wgrad(dtok, Y, dwt, dbt, work, part, ldp, M, E, S.dout, st));
   // 3. gate terms: DZG; DY_h += [dza | dzb]_h . [Wa; Wb]_h; dW[a|b]_h = DZG_h^T y_h
-  gate_bwd<<<ntr, nh * f / 4, 0, st>>>(ap, bp, DL, wc, DZG, part, ldp, M, t, nh, f, ro, dgate);
+  madeleine::gate_bwd<bf16><<<ntr, nh * f / 4, 0, st>>>(ap, bp, (long long)nh * f, f, DL, wc,
+                                                        DZG, part, ldp, M, t, nh, f, ro, dgate);
   CHECK(cudaGetLastError());
   CHECK(madeleine::colsum_reduce(part, ldp, 0, nh * f, ntr, dwc, st));
   CHECK(madeleine::colsum_reduce(part, ldp, nh * f, 2 * nh * f, ntr, dbab, st));
   CHECK(dgrad(DZG, 2LL * nh * f, 2LL * f, wab, e, 2LL * f * e, DY, E, e, M, e, 2 * f, nh, 1,
               st));
   CHECK(wgrad(DZG, 2LL * nh * f, 2LL * f, Y, E, e, 2 * f, e, M, nh, dwab, work, st));
-  // 4. layer 3 on the summed cotangent
-  layer_bwd<<<ntr, E / 4, 0, st>>>(DY, u3, rstd, s3, t3, DZ3, part, ldp, M, E, t, ro, 2, dpre);
-  CHECK(cudaGetLastError());
-  CHECK(madeleine::colsum_reduce(part, ldp, 0, E, ntr, ds3, st));
-  CHECK(madeleine::colsum_reduce(part, ldp, E, E, ntr, dt3, st));
-  CHECK(madeleine::colsum_reduce(part, ldp, 2 * E, E, ntr, db3, st));
-  CHECK(wgrad(DZ3, E, 0, H2, hd, 0, E, hd, M, 1, dw3, work, st));
-  CHECK(dgrad(DZ3, E, 0, w3, hd, 0, DH, hd, 0, M, hd, E, 1, 0, st));
-  // 5. layer 2
-  layer_bwd<<<ntr, hd / 4, 0, st>>>(DH, u2, rstd, s2, t2, DZ12, part, ldp, M, hd, t, ro, 1,
-                                    dpre);
-  CHECK(cudaGetLastError());
-  CHECK(madeleine::colsum_reduce(part, ldp, 0, hd, ntr, ds2, st));
-  CHECK(madeleine::colsum_reduce(part, ldp, hd, hd, ntr, dt2, st));
-  CHECK(madeleine::colsum_reduce(part, ldp, 2 * hd, hd, ntr, db2, st));
-  CHECK(wgrad(DZ12, hd, 0, H1, hd, 0, hd, hd, M, 1, dw2, work, st));
-  CHECK(dgrad(DZ12, hd, 0, w2, hd, 0, DH, hd, 0, M, hd, hd, 1, 0, st));
-  // 6. layer 1, and its input gradient only when the caller asks for it
-  layer_bwd<<<ntr, hd / 4, 0, st>>>(DH, u1, rstd, s1, t1, DZ12, part, ldp, M, hd, t, ro, 0,
-                                    dpre);
-  CHECK(cudaGetLastError());
-  CHECK(madeleine::colsum_reduce(part, ldp, 0, hd, ntr, ds1, st));
-  CHECK(madeleine::colsum_reduce(part, ldp, hd, hd, ntr, dt1, st));
-  CHECK(madeleine::colsum_reduce(part, ldp, 2 * hd, hd, ntr, db1, st));
-  CHECK(wgrad(DZ12, hd, 0, x, S.d_in, 0, hd, S.d_in, M, 1, dw1, work, st));
-  if (dx) CHECK(dgrad<bf16>(DZ12, hd, 0, w1, S.d_in, 0, dx, S.d_in, 0, M, S.d_in, hd, 1, 0, st));
+  // 4-6. the three layers on the summed cotangent; dx only when the caller asks for it
+  madeleine::StackBwd sb{};
+  sb.x = x; sb.h1 = H1; sb.h2 = H2;
+  sb.u[0] = u1; sb.u[1] = u2; sb.u[2] = u3;
+  sb.rstd = rstd;
+  sb.w1 = w1; sb.w2 = w2; sb.w3 = w3;
+  sb.s[0] = s1; sb.s[1] = s2; sb.s[2] = s3;
+  sb.sh[0] = t1; sb.sh[1] = t2; sb.sh[2] = t3;
+  sb.dw[0] = dw1; sb.dw[1] = dw2; sb.dw[2] = dw3;
+  sb.db[0] = db1; sb.db[1] = db2; sb.db[2] = db3;
+  sb.ds[0] = ds1; sb.ds[1] = ds2; sb.ds[2] = ds3;
+  sb.dt[0] = dt1; sb.dt[1] = dt2; sb.dt[2] = dt3;
+  sb.DZ3 = DZ3; sb.DZ12 = DZ12; sb.DH = DH;
+  sb.work = work; sb.part = part; sb.ldp = ldp;
+  sb.dx = dx;
+  sb.M = M; sb.t = t; sb.d_in = S.d_in; sb.hd = hd; sb.E = E; sb.row_offset = ro;
+  sb.d = dpre;
+  CHECK(madeleine::stack_bwd(sb, (const float*)DY, st));
   return 0;
 }

@@ -30,13 +30,14 @@
 // kernel applies gate dropout and reduces to the logits. The pool splits each
 // bag into 64-token tiles whose (m, s, w) partials are merged in tile order,
 // as pool_combine.cuh does (no atomics: launches are bitwise reproducible).
+// The layer stack, the gate products and row kernel and the token projector
+// are train_rows.cuh's, shared with the per-op kernels 15, 17 and 19.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "gemm_bf16.cuh"
-#include "train_common.cuh"
+#include "train_rows.cuh"
 
 namespace {
 
@@ -44,67 +45,6 @@ using madeleine::bf16;
 using madeleine::Dropout;
 
 constexpr int POOL_TM = 64;
-
-// One row per block, W/4 threads, 4 columns each: LayerNorm + GELU + dropout.
-// Z [M, W] f32 pre-LN rows (bias included). Writes U (bf16 u), rstd[r * 3 +
-// layer], H (bf16 output) and, when y32 is set, the f32 output back into Z.
-__global__ void ln_gelu_fwd(float* __restrict__ Z, const float* __restrict__ s,
-                            const float* __restrict__ sh, bf16* __restrict__ U,
-                            float* __restrict__ rstd, bf16* __restrict__ H, int W, int t,
-                            int row_offset, int layer, Dropout d, int y32) {
-  __shared__ float red[32];
-  const long long r = blockIdx.x;
-  const int c = threadIdx.x * 4, nw = blockDim.x >> 5;
-  float z[4];
-  madeleine::load4(Z + r * W + c, z);
-  const float mean = madeleine::group_sum(z[0] + z[1] + z[2] + z[3], red, 0, nw) / W;
-  float dv = 0.f;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) dv += (z[j] - mean) * (z[j] - mean);
-  const float var = madeleine::group_sum(dv, red, 0, nw) / W;
-  const float rs = rsqrtf(var + madeleine::TRAIN_LN_EPS);
-  float k[4];
-  madeleine::keep4(d, threadIdx.x, (int)(r % t), (int)(r / t) + row_offset, layer, k);
-  float u[4], h[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    u[j] = (z[j] - mean) * rs;
-    const float v = u[j] * s[c + j] + sh[c + j];
-    h[j] = v * madeleine::gauss_cdf(v) * k[j];
-  }
-  madeleine::store4(U + r * W + c, u);
-  madeleine::store4(H + r * W + c, h);
-  if (y32) madeleine::store4(Z + r * W + c, h);
-  if (threadIdx.x == 0) rstd[r * 3 + layer] = rs;
-}
-
-// One row per block, nh*f/4 threads (f % 128 == 0): gate dropout and logits.
-// G [M, nh*2f] f32 holds per head [tanh branch | sigmoid branch]; writes
-// l [M, nh] (with the mask bias), ap / bp [M, nh*f] bf16 (pre-dropout).
-__global__ void gate_logits_fwd(const float* __restrict__ G, const float* __restrict__ wc,
-                                const float* __restrict__ bc, const float* __restrict__ bias,
-                                float* __restrict__ l, bf16* __restrict__ ap,
-                                bf16* __restrict__ bp, int nh, int f, int t, int row_offset,
-                                Dropout d) {
-  __shared__ float red[32];
-  const long long r = blockIdx.x;
-  const int tpb = f / 4, h = threadIdx.x / tpb, c4 = threadIdx.x % tpb, j0 = c4 * 4;
-  const int tok = (int)(r % t), row = (int)(r / t) + row_offset;
-  float a[4], g[4], ka[4], kb[4], w[4];
-  madeleine::load4(G + r * nh * 2 * f + h * 2 * f + j0, a);
-  madeleine::load4(G + r * nh * 2 * f + h * 2 * f + f + j0, g);
-  madeleine::load4(wc + h * f + j0, w);
-  madeleine::keep4(d, c4, tok, row, 3 + 2 * h, ka);
-  madeleine::keep4(d, c4, tok, row, 4 + 2 * h, kb);
-  float acc = 0.f;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) acc += (a[j] * ka[j]) * (g[j] * kb[j]) * w[j];
-  madeleine::store4(ap + r * nh * f + h * f + j0, a);
-  madeleine::store4(bp + r * nh * f + h * f + j0, g);
-  const int wph = tpb / 32;
-  const float sum = madeleine::group_sum(acc, red, h * wph, wph);
-  if (c4 == 0) l[r * nh + h] = sum + bc[h] + bias[r];
-}
 
 // Grid (ntiles, b), 256 threads: per (bag, 64-token tile, head) the partial
 // softmax-pool state m, s, w[e] of the tile's unmasked tokens.
@@ -176,12 +116,6 @@ __global__ void pool_merge(const float* __restrict__ part_m, const float* __rest
   }
 }
 
-#define CHECK(x)                             \
-  do {                                       \
-    cudaError_t err_ = (x);                  \
-    if (err_ != cudaSuccess) return (int)err_; \
-  } while (0)
-
 }  // namespace
 
 // dims: b, t, d_in, hidden, nh, e, f, d_out, seed, row_offset, thr_pre, thr_gate.
@@ -216,61 +150,38 @@ extern "C" int encoder_train_forward(void** p, const long long* dims, const floa
   bf16 *H1 = (bf16*)p[32], *H2 = (bf16*)p[33], *Y = (bf16*)p[34];
   float* G = (float*)p[35];
   float *part_m = (float*)p[36], *part_s = (float*)p[37], *part_w = (float*)p[38];
-  using madeleine::GemmArgs;
-  using madeleine::launch_gemm;
-
-  // pre-attention layers: Z = A W^T + bias, then LN / GELU / dropout rows
-  const bf16* Ain[3] = {x, H1, H2};
-  const bf16* Wl[3] = {w1, w2, w3};
-  const float* Bl[3] = {b1, b2, b3};
-  const float* Sl[3] = {s1, s2, s3};
-  const float* Tl[3] = {t1, t2, t3};
-  bf16* Ul[3] = {u1, u2, u3};
-  bf16* Hl[3] = {H1, H2, Y};
-  const int Kl[3] = {d_in, hd, hd}, Nl[3] = {hd, hd, E};
-  for (int i = 0; i < 3; ++i) {
-    GemmArgs g{};
-    g.A = Ain[i]; g.lda = Kl[i];
-    g.B = Wl[i]; g.ldb = Kl[i];
-    g.C = Z; g.ldc = Nl[i];
-    g.bias = Bl[i];
-    g.M = M; g.N = Nl[i]; g.K = Kl[i];
-    g.splits = 1;
-    CHECK((launch_gemm<true, true, float>(g, 1, st)));
-    ln_gelu_fwd<<<M, Nl[i] / 4, 0, st>>>(Z, Sl[i], Tl[i], Ul[i], rstd, Hl[i], Nl[i], t,
-                                          row_offset, i, dpre, i == 2);
-    CHECK(cudaGetLastError());
-  }
+  // pre-attention layers: Z = A W^T + bias, then LN / GELU / dropout rows;
+  // layer 3 leaves y32 in Z for the pool
+  madeleine::StackFwd sf{};
+  sf.x = x;
+  sf.w[0] = w1; sf.w[1] = w2; sf.w[2] = w3;
+  sf.b[0] = b1; sf.b[1] = b2; sf.b[2] = b3;
+  sf.s[0] = s1; sf.s[1] = s2; sf.s[2] = s3;
+  sf.sh[0] = t1; sf.sh[1] = t2; sf.sh[2] = t3;
+  sf.Z = Z;
+  sf.U[0] = u1; sf.U[1] = u2; sf.U[2] = u3;
+  sf.rstd = rstd;
+  sf.H[0] = H1; sf.H[1] = H2; sf.H[2] = Y;
+  sf.M = M; sf.t = t; sf.d_in = d_in; sf.hd = hd; sf.E = E; sf.row_offset = row_offset;
+  sf.y32 = 1;
+  sf.d = dpre;
+  cudaError_t err = madeleine::stack_fwd(sf, st);
+  if (err != cudaSuccess) return (int)err;
   // gate products of every head in one batched launch: G_h = act(y_h Wab_h^T + bab_h)
-  {
-    GemmArgs g{};
-    g.A = Y; g.lda = E; g.strideA = e;
-    g.B = wab; g.ldb = e; g.strideB = 2LL * f * e;
-    g.C = G; g.ldc = 2LL * nh * f; g.strideC = 2LL * f;
-    g.bias = bab; g.strideBias = 2LL * f;
-    g.M = M; g.N = 2 * f; g.K = e;
-    g.splits = 1;
-    g.act = madeleine::ACT_GATES; g.act_split = f;
-    CHECK((launch_gemm<true, true, float>(g, nh, st)));
-  }
-  gate_logits_fwd<<<M, nh * f / 4, 0, st>>>(G, wc, bc, bias, l, ap, bp, nh, f, t, row_offset,
-                                             dgate);
-  CHECK(cudaGetLastError());
+  err = madeleine::gate_products(Y, wab, bab, G, M, nh, e, f, st);
+  if (err != cudaSuccess) return (int)err;
+  madeleine::gate_logits_fwd<<<M, nh * f / 4, 0, st>>>(G, wc, bc, bias, l, ap, bp, nh, f, t,
+                                                        row_offset, dgate);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   // token projector
-  {
-    GemmArgs g{};
-    g.A = Y; g.lda = E;
-    g.B = wt; g.ldb = E;
-    g.C = tok; g.ldc = dout;
-    g.bias = bt;
-    g.M = M; g.N = dout; g.K = E;
-    g.splits = 1;
-    CHECK((launch_gemm<true, true, bf16>(g, 1, st)));
-  }
+  err = madeleine::tok_product(Y, wt, bt, tok, M, E, dout, st);
+  if (err != cudaSuccess) return (int)err;
   // softmax pool of y32 (in Z)
   const int ntiles = (t + POOL_TM - 1) / POOL_TM;
   pool_partial<<<dim3(ntiles, b), 256, 0, st>>>(l, Z, part_m, part_s, part_w, t, nh, e);
-  CHECK(cudaGetLastError());
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   pool_merge<<<dim3((E + 255) / 256, b), 256, 0, st>>>(part_m, part_s, part_w, pooled, m_out,
                                                        s_out, ntiles, nh, e);
   return (int)cudaGetLastError();

@@ -279,7 +279,11 @@ inline cudaError_t launch_gemm(const GemmArgs& g, int batches, cudaStream_t stre
                   (g.splits == 1 || (g.beta == 0 && !g.bias));
   if (!ok) return cudaErrorInvalidValue;
   constexpr int smem = g_smem_bytes<AKC, BKC>();
-  static const cudaError_t attr = cudaFuncSetAttribute(
+  // Set on every call, not once: a function-local static here is one object
+  // (a unique symbol) for every library of the process that includes this
+  // header, so only the first library to launch would raise its own kernel's
+  // limit, and the others' launches would be refused.
+  const cudaError_t attr = cudaFuncSetAttribute(
       gemm_bf16_kernel<AKC, BKC, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   dim3 grid((g.N + G_BN - 1) / G_BN, (g.M + G_BM - 1) / G_BM, batches * g.splits);

@@ -1,4 +1,5 @@
-"""Multi-head gated-attention MIL (ABMIL) embedder, eval forward.
+"""Multi-head gated-attention MIL (ABMIL) embedder: the eval forward, and the
+training forward of the per-op lane.
 
 PyTorch counterpart of `madeleine_tpu/models/abmil.py` (ref: Model.py:314-451,
 abmil.py:8-68). The module tree mirrors the reference's state-dict names, so
@@ -14,6 +15,11 @@ parameters keep that order. The kernels and the functions here work
 head-MAJOR (index = h * hidden + e, per-head slices contiguous); the
 permutation is applied to fc3/ln3 when `encoder_weights` builds the operand
 tensors at the kernel boundary, never stored as a second copy.
+
+Training (`abmil_embed_train`, the route of a non-softmax activation, JAX
+abmil.py:134-214,255-345 with train=True): the pre-attention MLP and the gate
+logits through their train ops (ops/preattn.py, ops/gated_logits.py:
+kernels 15-18 on the card), then the plain masked pool through autograd.
 """
 
 from __future__ import annotations
@@ -28,10 +34,13 @@ from torch import nn
 from madeleine_torch.ops.attn_pool import (activate_attention, masked_attention_pool,
                                            softmax_pool)
 from madeleine_torch.ops.encode_fused import encode_pool_fused
+from madeleine_torch.ops.gated_logits import gated_logits_train
 from madeleine_torch.ops.gated_pool import gated_attention_pool
+from madeleine_torch.ops.preattn import preattn_train
 
-__all__ = ["ABMILEmbedder", "activate_attention", "abmil_embed", "encoder_weights",
-           "gate_weights", "gated_attention_logits", "layer_norm", "pre_attn_mlp"]
+__all__ = ["ABMILEmbedder", "activate_attention", "abmil_embed", "abmil_embed_train",
+           "encoder_weights", "gate_weights", "gated_attention_logits", "layer_norm",
+           "pre_attn_mlp"]
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default
 PRE_ATTN_DROPOUT = 0.1   # ref: Model.py:354,358,362
@@ -113,19 +122,31 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torc
     return y.to(x.dtype)
 
 
-def pre_attn_mlp(w: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+def pre_attn_mlp(w: Dict[str, torch.Tensor], x: torch.Tensor, *, seed: Optional[int] = None,
+                 row_offset: int = 0) -> torch.Tensor:
     """3x [Linear -> LayerNorm -> GELU(exact)], eval mode (ref: Model.py:350-363);
     widths in -> hidden -> hidden -> hidden*n_heads, output head-major.
-    w: `encoder_weights`. Runs in x.dtype (f32: full precision, no TF32)."""
+    w: `encoder_weights`. Runs in x.dtype (f32: full precision, no TF32).
+    With a seed, training: the train op `preattn_train` with its dropout,
+    w then `encoder_train.train_operands`; row_offset is the global batch
+    row of x's first row."""
+    if seed is not None:
+        return preattn_train(x, w, seed, row_offset)
     for i in (1, 2, 3):
         x = F.linear(x, w[f"w{i}"].to(x.dtype), w[f"b{i}"].to(x.dtype))
         x = F.gelu(layer_norm(x, w[f"s{i}"], w[f"t{i}"]))
     return x
 
 
-def gated_attention_logits(attn: Dict[str, torch.Tensor], xh: torch.Tensor) -> torch.Tensor:
+def gated_attention_logits(attn: Dict[str, torch.Tensor], xh: torch.Tensor, *,
+                           seed: Optional[int] = None, row_offset: int = 0) -> torch.Tensor:
     """All-heads gated scores (ref: abmil.py:41-52): xh [..., t, nh, e]
-    head-major -> raw logits [..., t, nh]."""
+    head-major -> raw logits [..., t, nh]. With a seed, training: the train
+    op `gated_logits_train` with its dropout on xh [b, t, nh, e] -> f32
+    logits, attn then `encoder_train.train_operands`."""
+    if seed is not None:
+        b, t, nh, e = xh.shape
+        return gated_logits_train(xh.reshape(b, t, nh * e), attn, seed, row_offset)
     wa, wb = attn["wa"].to(xh.dtype), attn["wb"].to(xh.dtype)
     a = torch.tanh(torch.einsum("...he,hfe->...hf", xh, wa) + attn["ba"].to(xh.dtype))
     b = torch.sigmoid(torch.einsum("...he,hfe->...hf", xh, wb) + attn["bb"].to(xh.dtype))
@@ -178,3 +199,20 @@ def abmil_embed(
     if return_tokens:
         out = out + (xh,)
     return out if len(out) > 1 else out[0]
+
+
+def abmil_embed_train(w: Dict[str, torch.Tensor], bags: torch.Tensor, *, activation: str,
+                      seed: int, mask: Optional[torch.Tensor] = None,
+                      row_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ABMIL training forward on the per-op lane (JAX abmil.py:255-345 with
+    train=True and n_views=1): `pre_attn_mlp` and `gated_attention_logits`
+    through their train ops (dropout keyed by seed and the global rows from
+    row_offset), then the masked pool of `activation`, the plain way through
+    autograd (JAX's _pool_reference). bags [b, t, d_in] in the compute
+    dtype, w: `encoder_train.train_operands`, mask [b, t] bool or None.
+    Returns (pooled [b, nh, e], tokens [b, t, nh, e]), both in bags.dtype."""
+    y = pre_attn_mlp(w, bags, seed=seed, row_offset=row_offset)
+    nh, _, e = w["wa"].shape
+    xh = y.reshape(*y.shape[:-1], nh, e)
+    logits = gated_attention_logits(w, xh, seed=seed, row_offset=row_offset)
+    return masked_attention_pool(xh, logits, mask, activation), xh

@@ -7,10 +7,11 @@ PyTorch counterpart of `madeleine_tpu/models/madeleine.py` (ref: Model.py:45-216
 
 The module holds its config (``model.cfg``); parameter names are the
 reference's, so ``model.pt`` files load strictly. The training forward
-(`forward_train`, n_views=1, softmax, with or without stain encodings) runs
-the whole encoder through the train op of ops/encoder_train.py; its eval
-mode (``train=False``) runs `abmil_embed` per modality, whose softmax pool
-on the card is kernel K3.
+(`forward_train`, n_views=1, with or without stain encodings) runs the whole
+encoder through the train op of ops/encoder_train.py with softmax, and the
+per-op lane with any other activation (`abmil_embed_train`, then the token
+projector's train op, ops/linear_tok.py); its eval mode (``train=False``)
+runs `abmil_embed` per modality, whose softmax pool on the card is kernel K3.
 """
 
 from __future__ import annotations
@@ -24,8 +25,9 @@ from torch import nn
 
 from madeleine_torch.config import HE_POSITION, MadeleineConfig
 from madeleine_torch.models.abmil import (ABMILEmbedder, _head_major_perm, abmil_embed,
-                                          encoder_weights)
+                                          abmil_embed_train, encoder_weights)
 from madeleine_torch.ops.encoder_train import encoder_train, train_operands
+from madeleine_torch.ops.linear_tok import linear_tok_train
 
 
 class MADELEINE(nn.Module):
@@ -154,17 +156,20 @@ def _forward_eval(model: MADELEINE, feats: torch.Tensor,
 def forward_train(model: MADELEINE, feats: torch.Tensor, *,
                   mask: Optional[torch.Tensor] = None, n_views: int = 1, seed: int = 0,
                   train: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Training forward (ref: Model.py:110-159), through the whole-encoder
-    train op (ops/encoder_train.py: kernels K6/K7 on a CUDA tensor) at its
-    dropout rates; with ``train=False`` the eval forward (no dropout, no
-    gradient; `_forward_eval`).
+    """Training forward (ref: Model.py:110-159) at the dropout rates of the
+    train ops; with ``train=False`` the eval forward (no dropout, no
+    gradient; `_forward_eval`). With softmax the whole encoder runs through
+    the train op of ops/encoder_train.py (kernels K6/K7 on a CUDA tensor);
+    with another activation through the per-op lane, as the JAX package
+    routes it (madeleine.py:157-172,226-248): `abmil_embed_train` (kernels
+    15-18, the plain pool) and the token projector's op (kernels 19/20).
 
     feats [bs, n_mod, t, d] in the compute dtype; mask [bs, n_mod, t] bool;
-    seed: the step's dropout seed. cfg.modality_scan runs one op call per
-    modality (the canonical route, [bs, t, d] each, global rows m*bs + i);
-    otherwise one joint call over [bs*n_mod, t, d] (rows i*n_mod + m). With
-    stain encodings each modality's rows carry its own stain code, and the
-    op returns dx so that the table learns. Documented deviation (JAX
+    seed: the step's dropout seed. cfg.modality_scan runs one encoder call
+    per modality (the canonical route, [bs, t, d] each, global rows m*bs +
+    i); otherwise one joint call over [bs*n_mod, t, d] (rows i*n_mod + m).
+    With stain encodings each modality's rows carry its own stain code, and
+    the input gradient reaches the table. Documented deviation (JAX
     madeleine.py:213-218): the reference builds train-time stain ids
     mod-major but flattens feats b-major, misassigning the codes whenever
     bs != 1; the correct per-stain id is used here, as in the JAX package.
@@ -173,22 +178,28 @@ def forward_train(model: MADELEINE, feats: torch.Tensor, *,
     cfg = model.cfg
     if n_views != 1:
         raise NotImplementedError("n_views=3 is not ported (ROADMAP.md D3b)")
-    if cfg.activation != "softmax" and train:
-        raise NotImplementedError(f"activation {cfg.activation!r} in training is not ported "
-                                  "(ROADMAP.md D6: the per-op lane)")
     if not train:
         return _forward_eval(model, feats, mask)
     bs, n_mod, t, d = feats.shape
     dt = feats.dtype
     se = cfg.add_stain_encoding
     w = train_weights(model, dt)
+
+    def encode(x, m, row_offset):
+        """(pooled [n, nh, e], tokens [n, t, 128]) of the rows x [n, t, d]."""
+        if cfg.activation == "softmax":
+            return encoder_train(x, m, w, seed, row_offset=row_offset, need_dx=se)
+        pooled, xh = abmil_embed_train(w, x, activation=cfg.activation, seed=seed, mask=m,
+                                       row_offset=row_offset)
+        return pooled, linear_tok_train(xh.flatten(-2), w["wt"], w["bt"])
+
     if not cfg.modality_scan:
         x = feats.reshape(bs * n_mod, t, d)
         if se:   # row i*n_mod + m is modality m
             ids = torch.arange(n_mod, device=feats.device).repeat(bs)
             x = _append_stain_encoding(model, x, ids)
         m = None if mask is None else mask.reshape(bs * n_mod, t)
-        pooled, tok = encoder_train(x, m, w, seed, need_dx=se)
+        pooled, tok = encode(x, m, 0)
         slide = _linear_head_major(model, model.projector, pooled, dt)
         return (slide.reshape(bs, n_mod, 1, -1), tok.reshape(bs, n_mod, t, -1))
     slides, toks = [], []
@@ -197,7 +208,7 @@ def forward_train(model: MADELEINE, feats: torch.Tensor, *,
         if se:
             x = _append_stain_encoding(model, x, i)
         m = None if mask is None else mask[:, i]
-        pooled, tok = encoder_train(x, m, w, seed, row_offset=i * bs, need_dx=se)
+        pooled, tok = encode(x, m, i * bs)
         slides.append(_linear_head_major(model, model.projector, pooled, dt))
         toks.append(tok)
     return torch.stack(slides, 1)[:, :, None], torch.stack(toks, 1)

@@ -14,14 +14,15 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, Optional, Sequence
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 KERNELS = ("encode_fused", "gated_pool", "attn_pool", "encoder_train_fwd", "encoder_train_bwd",
-           "ipot_fwd", "ipot_bwd", "gw_gamma", "got_glue")
+           "ipot_fwd", "ipot_bwd", "gw_gamma", "got_glue", "preattn", "gated_logits",
+           "linear_tok")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SMEM_LIMIT = 232448   # bytes of shared memory one block may use on Hopper
@@ -133,6 +134,37 @@ def launch(lib_name: str, fn_name: str, argtypes, args, device: torch.device) ->
         err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args), stream)
     if err != 0:
         raise RuntimeError(f"{lib_name} kernel launch failed: cudaError {err}")
+
+
+def call_ptrs(lib_name: str, fn_name: str, tensors: Sequence[Optional[torch.Tensor]],
+              dims: Sequence[int], scales: Sequence[float], device: torch.device) -> None:
+    """Call ``fn_name(void** p, const long long* dims, const float* scales,
+    stream)`` of csrc/<lib_name>.cu on the device's current stream: p holds
+    the tensors' data pointers (None passes a null pointer). The C function
+    returns the cudaError_t of its launches; non-zero raises."""
+    fn = getattr(load(lib_name), fn_name)
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = [ctypes.c_void_p] * 4, ctypes.c_int
+    ptrs = (ctypes.c_void_p * len(tensors))(*(None if x is None else x.data_ptr()
+                                              for x in tensors))
+    cdims = (ctypes.c_longlong * len(dims))(*dims)
+    cscales = (ctypes.c_float * max(1, len(scales)))(*scales)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(ptrs, cdims, cscales, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{lib_name} kernel launch failed: cudaError {err}")
+
+
+def workspace(lib_name: str, fn_name: str, dims: Sequence[int]) -> Tuple[int, int]:
+    """``fn_name(const long long* dims, long long* out)`` of csrc/<lib_name>.cu:
+    the floats of (split-K partials, column partials) a backward needs."""
+    fn = getattr(load(lib_name), fn_name)
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_void_p], None
+    out = (ctypes.c_longlong * 2)()
+    fn((ctypes.c_longlong * len(dims))(*dims), out)
+    return out[0], out[1]
 
 
 def launch_split_pool(name: str, inputs: Sequence[torch.Tensor], dims: Sequence[int],

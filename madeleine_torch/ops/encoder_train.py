@@ -31,30 +31,27 @@ and csrc/encoder_train_bwd.cu, bf16 only, or raises.
 
 from __future__ import annotations
 
-import ctypes
-import math
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from madeleine_torch.ops import _build
+from madeleine_torch.ops import gated_logits as gl
+from madeleine_torch.ops import preattn as pa
 from madeleine_torch.ops import prng
 from madeleine_torch.ops.attn_pool import MASKED_BIAS, mask_bias
+from madeleine_torch.ops.linear_tok import linear_tok_fwd_plain, tok_bwd_plain
 
 fwd_launches = 0   # K6 launches (one per wrapper call on a CUDA tensor)
 bwd_launches = 0   # K7 launches
 
-PRE_RATE = 0.1    # ref: Model.py:354,358,362
-GATE_RATE = 0.25  # ref: abmil.py:34-35
-LN_EPS = 1e-5
-_INV_SQRT2 = 2.0 ** -0.5
-_INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
+PRE_RATE = pa.RATE     # ref: Model.py:354,358,362 (read at call time)
+GATE_RATE = gl.RATE    # ref: abmil.py:34-35
 
 W_KEYS = ("w1", "b1", "s1", "t1", "w2", "b2", "s2", "t2", "w3", "b3", "s3", "t3",
           "wa", "ba", "wb", "bb", "wc", "bc", "wt", "bt")
 MATS = ("w1", "w2", "w3", "wa", "wb", "wt")
 SAVED = ("u1", "u2", "u3", "ap", "bp", "rstd")
-F32_TODO = "ROADMAP.md D4: an f32 variant of K6/K7"
 
 
 def train_operands(w: Dict[str, torch.Tensor], dtype: torch.dtype) -> Dict[str, torch.Tensor]:
@@ -69,20 +66,6 @@ def train_operands(w: Dict[str, torch.Tensor], dtype: torch.dtype) -> Dict[str, 
 # plain versions
 # ---------------------------------------------------------------------------
 
-def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """a [..., K] . w[N, K]^T in f32 (operands exact in their dtype)."""
-    return torch.matmul(a.float(), w.float().T)
-
-
-def _cdf(v: torch.Tensor) -> torch.Tensor:
-    return 0.5 * (1.0 + torch.erf(v * _INV_SQRT2))
-
-
-def _gate_masks(seed, rows, toks, nh, f, branch, rate):
-    return torch.stack([prng.keep_mask(seed, rows, toks, prng.gate_stream(h, branch), f, rate)
-                        for h in range(nh)], dim=2)               # [b, t, nh, f]
-
-
 def encoder_train_fwd_plain(x, bias, w, seed: int, row_offset: int = 0,
                             pre_rate: float = PRE_RATE, gate_rate: float = GATE_RATE):
     """x [b, t, d_in] (compute dtype), bias [b, t] f32 (0 or NEG_INF), w:
@@ -93,40 +76,21 @@ def encoder_train_fwd_plain(x, bias, w, seed: int, row_offset: int = 0,
     nh, f, e = w["wa"].shape
     E = nh * e
     rows, toks = prng.site_rows(b, t, row_offset, x.device)
-    saved, rstds = {}, []
-
-    def layer(hin, i):
-        z = _mm(hin, w[f"w{i}"]) + w[f"b{i}"]
-        mean = z.mean(-1, keepdim=True)
-        var = (z - mean).square().mean(-1, keepdim=True)
-        rstd = torch.rsqrt(var + LN_EPS)
-        u = (z - mean) * rstd
-        v = u * w[f"s{i}"] + w[f"t{i}"]
-        keep = prng.keep_mask(seed, rows, toks, i - 1, z.shape[-1], pre_rate)
-        saved[f"u{i}"] = u.to(dt)
-        rstds.append(rstd)
-        return v * _cdf(v) * keep
-
-    h1 = layer(x, 1)
-    h2 = layer(h1.to(dt), 2)
-    y32 = layer(h2.to(dt), 3)
+    _, _, y32, us, rstd = pa.stack_fwd_plain(x, w, seed, rows, toks, pre_rate)
     y = y32.to(dt)
-    tok = (_mm(y, w["wt"]) + w["bt"]).to(dt)
-    yh = y.float().reshape(b, t, nh, e)
-    a_pre = torch.tanh(torch.einsum("bthe,hfe->bthf", yh, w["wa"].float()) + w["ba"])
-    b_pre = torch.sigmoid(torch.einsum("bthe,hfe->bthf", yh, w["wb"].float()) + w["bb"])
-    ma = _gate_masks(seed, rows, toks, nh, f, 0, gate_rate)
-    mb = _gate_masks(seed, rows, toks, nh, f, 1, gate_rate)
-    l = ((a_pre * ma) * (b_pre * mb) * w["wc"]).sum(-1) + w["bc"] + bias[..., None]
+    tok = linear_tok_fwd_plain(y, w["wt"], w["bt"])
+    a_pre, b_pre = gl.gates_plain(y, w)
+    ma = gl.gate_masks(seed, rows, toks, nh, f, 0, gate_rate)
+    mb = gl.gate_masks(seed, rows, toks, nh, f, 1, gate_rate)
+    l = gl.logits_plain(a_pre, b_pre, ma, mb, w) + bias[..., None]
     valid = l > MASKED_BIAS
     m = l.masked_fill(~valid, float("-inf")).amax(dim=1)           # [b, nh]
     m_live = torch.where(m > MASKED_BIAS, m, 0.0)  # a bag with no valid token: no inf - inf
     p = torch.where(valid, torch.exp(l - m_live[:, None]), 0.0)
     s = p.sum(dim=1).clamp_min(1e-30)
     pooled = torch.einsum("bth,bthe->bhe", p, y32.reshape(b, t, nh, e)) / s[..., None]
-    saved["ap"] = a_pre.reshape(b, t, nh * f).to(dt)
-    saved["bp"] = b_pre.reshape(b, t, nh * f).to(dt)
-    saved["rstd"] = torch.cat(rstds, dim=-1)
+    saved = {"u1": us[0], "u2": us[1], "u3": us[2], "rstd": rstd,
+             "ap": a_pre.reshape(b, t, nh * f).to(dt), "bp": b_pre.reshape(b, t, nh * f).to(dt)}
     return pooled.reshape(b, E), m, s, tok, l, saved
 
 
@@ -145,16 +109,8 @@ def encoder_train_bwd_plain(x, l, m, s, g, inner, dtok, saved, w, seed: int,
     nh, f, e = w["wa"].shape
     E = nh * e
     rows, toks = prng.site_rows(b, t, row_offset, x.device)
-    grads = {}
-    res = {}
-    for i, width in ((1, w["w1"].shape[0]), (2, w["w2"].shape[0]), (3, E)):
-        u = saved[f"u{i}"].float()
-        v = u * w[f"s{i}"] + w[f"t{i}"]
-        keep = prng.keep_mask(seed, rows, toks, i - 1, width, pre_rate)
-        P = _cdf(v)
-        res[i] = (u, v, P, keep, saved["rstd"][..., i - 1:i])
-    h1 = (res[1][1] * res[1][2] * res[1][3]).to(dt)
-    h2 = (res[2][1] * res[2][2] * res[2][3]).to(dt)
+    res = pa.stack_residuals([saved["u1"], saved["u2"], saved["u3"]], saved["rstd"], w, seed,
+                             rows, toks, pre_rate)
     y32 = res[3][1] * res[3][2] * res[3][3]
     y = y32.to(dt)
 
@@ -163,48 +119,19 @@ def encoder_train_bwd_plain(x, l, m, s, g, inner, dtok, saved, w, seed: int,
     g4 = g.reshape(b, 1, nh, e)
     dy = (p[..., None] * g4).reshape(b, t, E)
     dl = p * ((y32.reshape(b, t, nh, e) * g4).sum(-1) - inner[:, None])
-    grads["bc"] = dl.sum((0, 1))
+    grads = {"bc": dl.sum((0, 1))}
     # token projector term
-    dy = dy + torch.matmul(dtok.float(), w["wt"].float())
-    grads["wt"] = dtok.float().reshape(-1, dtok.shape[-1]).T @ y.float().reshape(-1, E)
-    grads["bt"] = dtok.float().sum((0, 1))
+    dy_tok, grads["wt"], grads["bt"] = tok_bwd_plain(y, dtok, w["wt"])
+    dy = dy + dy_tok
     # gate terms
     ap = saved["ap"].float().reshape(b, t, nh, f)
     bp = saved["bp"].float().reshape(b, t, nh, f)
-    ma = _gate_masks(seed, rows, toks, nh, f, 0, gate_rate)
-    mb = _gate_masks(seed, rows, toks, nh, f, 1, gate_rate)
-    a, bv = ap * ma, bp * mb
-    dl4 = dl[..., None]
-    grads["wc"] = ((a * bv) * dl4).sum((0, 1))
-    dg = dl4 * w["wc"]
-    dza = dg * bv * ma * (1.0 - ap * ap)
-    dzb = dg * a * mb * bp * (1.0 - bp)
-    dza_c, dzb_c = dza.to(dt).float(), dzb.to(dt).float()
-    dy = dy + (torch.einsum("bthf,hfe->bthe", dza_c, w["wa"].float())
-               + torch.einsum("bthf,hfe->bthe", dzb_c, w["wb"].float())).reshape(b, t, E)
-    yh = y.float().reshape(b, t, nh, e)
-    grads["wa"] = torch.einsum("bthf,bthe->hfe", dza_c, yh)
-    grads["wb"] = torch.einsum("bthf,bthe->hfe", dzb_c, yh)
-    grads["ba"] = dza.sum((0, 1))
-    grads["bb"] = dzb.sum((0, 1))
-
-    def layer_bwd(dout, hin, i, want_dx=True):
-        u, v, P, keep, rstd = res[i]
-        dv = dout * keep * (P + v * torch.exp(-0.5 * v * v) * _INV_SQRT_2PI)
-        grads[f"s{i}"] = (dv * u).sum((0, 1))
-        grads[f"t{i}"] = dv.sum((0, 1))
-        du = dv * w[f"s{i}"]
-        dz = (du - du.mean(-1, keepdim=True) - u * (du * u).mean(-1, keepdim=True)) * rstd
-        dzc = dz.to(dt).float()
-        grads[f"w{i}"] = dzc.reshape(-1, dz.shape[-1]).T @ hin.float().reshape(-1, hin.shape[-1])
-        grads[f"b{i}"] = dz.sum((0, 1))
-        return torch.matmul(dzc, w[f"w{i}"].float()) if want_dx else None
-
-    dh2 = layer_bwd(dy, h2, 3)
-    dh1 = layer_bwd(dh2, h1, 2)
-    dx = layer_bwd(dh1, x, 1, want_dx=need_dx)
-    if need_dx:
-        grads["x"] = dx.to(dt)
+    ma = gl.gate_masks(seed, rows, toks, nh, f, 0, gate_rate)
+    mb = gl.gate_masks(seed, rows, toks, nh, f, 1, gate_rate)
+    dy_gates, gate_grads = gl.gates_bwd_plain(ap, bp, ma, mb, dl, y, w)
+    dy = dy + dy_gates
+    grads.update(gate_grads)
+    grads.update(pa.stack_bwd_plain(dy, x, res, w, need_dx))
     return grads
 
 
@@ -217,7 +144,7 @@ def _check_shapes(x, w, kernel):
         raise ValueError(f"{kernel} kernel needs CUDA tensors, got {x.device}")
     if x.dtype != torch.bfloat16:
         raise NotImplementedError(f"{kernel} kernel runs in bf16 only, got {x.dtype} "
-                                  f"({F32_TODO})")
+                                  f"({pa.F32_TODO})")
     b, t, d_in = x.shape
     nh, f, e = w["wa"].shape
     hd = w["w1"].shape[0]
@@ -237,31 +164,6 @@ def _check_shapes(x, w, kernel):
                              torch.bfloat16 if k in MATS else torch.float32, x.device)
     _build.check_operand(kernel, "x", x, (b, t, d_in), torch.bfloat16, x.device)
     return b, t, d_in, hd, nh, e, f, dout
-
-
-def _dims(shape, seed, row_offset, pre_rate, gate_rate):
-    thr_pre, scale_pre = prng.threshold(pre_rate)
-    thr_gate, scale_gate = prng.threshold(gate_rate)
-    # the f32 scales the plain masks use
-    scales = [float(torch.tensor(scale_pre, dtype=torch.float32)),
-              float(torch.tensor(scale_gate, dtype=torch.float32))]
-    dims = (ctypes.c_longlong * 12)(*shape, int(seed) & prng.MASK32, int(row_offset),
-                                    thr_pre, thr_gate)
-    return dims, (ctypes.c_float * 2)(*scales)
-
-
-def _call(fn, tensors, dims, scales, device):
-    """The C entry point on the device's current stream; a None tensor
-    passes as a null pointer."""
-    ptrs = (ctypes.c_void_p * len(tensors))(*(None if x is None else x.data_ptr()
-                                              for x in tensors))
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(ptrs, dims, scales, ctypes.c_void_p(stream))
-    return err
 
 
 @torch.no_grad()
@@ -299,11 +201,9 @@ def encoder_train_fwd_cuda(x, bias, w, seed: int, row_offset: int = 0,
     tensors = [x, bias, w["w1"], w["b1"], w["s1"], w["t1"], w["w2"], w["b2"], w["s2"],
                w["t2"], w["w3"], w["b3"], w["s3"], w["t3"], wab, bab, w["wc"], w["bc"],
                w["wt"], w["bt"], pooled, m, s, tok, l, *(saved[k] for k in SAVED), *scratch]
-    dims, scales = _dims((b, t, d_in, hd, nh, e, f, dout), seed, row_offset, pre_rate,
-                         gate_rate)
-    err = _call(lib.encoder_train_forward, tensors, dims, scales, dev)
-    if err != 0:
-        raise RuntimeError(f"encoder_train_fwd kernel launch failed: cudaError {err}")
+    dims, scales = prng.kernel_args((b, t, d_in, hd, nh, e, f, dout), seed, row_offset,
+                                    pre_rate, gate_rate)
+    _build.call_ptrs("encoder_train_fwd", "encoder_train_forward", tensors, dims, scales, dev)
     fwd_launches += 1
     return pooled, m, s, tok, l, saved
 
@@ -330,13 +230,9 @@ def encoder_train_bwd_cuda(x, l, m, s, g, inner, dtok, saved, w, seed: int,
                                     ("bp", saved["bp"], (b, t, nh * f), bf),
                                     ("rstd", saved["rstd"], (b, t, 3), f32)):
         _build.check_operand(kname, name, ten, shape, dtype, dev)
-    lib = _build.load(kname)
-    dims, scales = _dims((b, t, d_in, hd, nh, e, f, dout), seed, row_offset, pre_rate,
-                         gate_rate)
-    ws = (ctypes.c_longlong * 2)()
-    lib.encoder_train_bwd_workspace.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    lib.encoder_train_bwd_workspace.restype = None
-    lib.encoder_train_bwd_workspace(dims, ws)
+    dims, scales = prng.kernel_args((b, t, d_in, hd, nh, e, f, dout), seed, row_offset,
+                                    pre_rate, gate_rate)
+    ws = _build.workspace(kname, "encoder_train_bwd_workspace", dims)
     wab = torch.cat([w["wa"], w["wb"]], dim=1).contiguous()
     out = {"w1": (hd, d_in), "b1": (hd,), "s1": (hd,), "t1": (hd,),
            "w2": (hd, hd), "b2": (hd,), "s2": (hd,), "t2": (hd,),
@@ -359,9 +255,7 @@ def encoder_train_bwd_cuda(x, l, m, s, g, inner, dtok, saved, w, seed: int,
     tensors = [x, l, m, s, g, inner, dtok, *(saved[k] for k in SAVED),
                w["w1"], w["s1"], w["t1"], w["w2"], w["s2"], w["t2"], w["w3"], w["s3"],
                w["t3"], wab, w["wc"], w["wt"], *out.values(), *scratch, dx]
-    err = _call(lib.encoder_train_backward, tensors, dims, scales, dev)
-    if err != 0:
-        raise RuntimeError(f"encoder_train_bwd kernel launch failed: cudaError {err}")
+    _build.call_ptrs(kname, "encoder_train_backward", tensors, dims, scales, dev)
     bwd_launches += 1
     wab_g, bab_g = out.pop("wab"), out.pop("bab")
     out.update(wa=wab_g[:, :f], wb=wab_g[:, f:], ba=bab_g[:, 0], bb=bab_g[:, 1])

@@ -9,7 +9,8 @@ from __future__ import annotations
 
 from typing import Dict
 
-from madeleine_torch.ops import attn_pool, encode_fused, encoder_train, gated_pool, got_glue, ipot
+from madeleine_torch.ops import (attn_pool, encode_fused, encoder_train, gated_logits, gated_pool,
+                                  got_glue, ipot, linear_tok, preattn)
 
 # kernel name -> (module, counter attribute), in the order of the PERF table
 COUNTERS = {
@@ -25,6 +26,12 @@ COUNTERS = {
     "threshold_build_bwd": (got_glue, "tb_bwd_launches"),   # K12
     "gw_trace_fwd": (got_glue, "gwt_fwd_launches"),         # K13
     "gw_trace_bwd": (got_glue, "gwt_bwd_launches"),         # K14
+    "preattn_fwd": (preattn, "fwd_launches"),               # 15
+    "preattn_bwd": (preattn, "bwd_launches"),               # 16
+    "gated_logits_fwd": (gated_logits, "fwd_launches"),     # 17
+    "gated_logits_bwd": (gated_logits, "bwd_launches"),     # 18
+    "linear_tok_fwd": (linear_tok, "fwd_launches"),         # 19
+    "linear_tok_bwd": (linear_tok, "bwd_launches"),         # 20
 }
 
 

@@ -46,6 +46,16 @@ def threshold(rate: float) -> Tuple[int, float]:
     return thr, 1.0 / (1.0 - thr / LEVELS)
 
 
+def kernel_args(shape, seed: int, row_offset: int, *rates: float):
+    """(dims, scales) of a train kernel's C entry point: dims = the shape
+    fields, the seed, the row offset and each rate's integer threshold;
+    scales = each rate's keep scale rounded to f32 (what the plain masks
+    multiply by)."""
+    thrs = [threshold(r) for r in rates]
+    return ([*shape, int(seed) & MASK32, int(row_offset), *(t for t, _ in thrs)],
+            [float(torch.tensor(sc, dtype=torch.float32)) for _, sc in thrs])
+
+
 def _mulhilo(m: int, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(hi, lo) 32-bit words of m * x for a 32-bit constant m and int64
     tensor x of 32-bit values, without leaving the int64 range."""

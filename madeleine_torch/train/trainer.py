@@ -18,9 +18,11 @@ ref: madeleine/utils/trainer.py:20-145):
   a non-finite loss skips the update (no reference equivalent);
 - the epoch's smooth rank on the H&E embeddings (trainer.py:141-143).
 
-The encoder runs through ops/encoder_train.py: kernels K6/K7 on the card
-(bf16 only), their plain versions on CPU tensors; with stain encodings the
-op also returns the input gradient, and the code table ([n_mod, 32],
+The encoder runs through ops/encoder_train.py (kernels K6/K7 on the card,
+bf16 only) or, with a non-softmax activation, through the per-op lane
+(ops/preattn.py, ops/gated_logits.py, ops/linear_tok.py: kernels 15-20);
+their plain versions on CPU tensors. With stain encodings the encoder also
+returns the input gradient, and the code table ([n_mod, 32],
 `embedding.weight`) is one more AdamW parameter with the configured weight
 decay, as optax.adamw treats it in the JAX package. GOT through ops/ipot.py
 and ops/got_glue.py (K8-K14). A batch's feats arrive as f32 (pinned by the
@@ -43,7 +45,7 @@ from madeleine_torch.config import HE_POSITION, MadeleineConfig, compute_dtype
 from madeleine_torch.models.madeleine import MADELEINE, forward_train
 from madeleine_torch.ops import launches
 from madeleine_torch.ops import losses as L
-from madeleine_torch.ops.encoder_train import F32_TODO
+from madeleine_torch.ops.preattn import F32_TODO
 from madeleine_torch.ops.rank import smooth_rank_measure
 
 WHOLE_VIEW_POSITION = 0  # ref: trainer.py:16

@@ -133,6 +133,6 @@ def test_forward_dropout_sites_are_the_backward_masks(setup):
     v3 = u3 * w["s3"] + w["t3"]
     rows, toks = et.prng.site_rows(B, T, 0, "cpu")
     keep = et.prng.keep_mask(SEED, rows, toks, 2, NH * E, et.PRE_RATE)
-    y32 = v3 * et._cdf(v3) * keep
+    y32 = v3 * et.pa.cdf(v3) * keep
     assert torch.equal(y32 == 0, keep == 0)
     assert 0.05 < float((keep == 0).float().mean()) < 0.15

@@ -401,3 +401,75 @@ def test_encoder_train_dx_matches_plain(cuda_device):
     assert _rel(gk["x"].float(), want["x"].float()) <= 1e-2
     assert _rel(gk["w1"], want["w1"]) <= 1e-2
     assert "x" not in et.encoder_train_bwd_cuda(*args)
+
+
+@pytest.mark.parametrize("rates", [(0.0, 0.0), (0.1, 0.25)])
+def test_per_op_kernels_match_plain(cuda_device, rates):
+    """Kernels 15-20 (preattn, gated_logits, linear_tok, forward and
+    backward) against their plain versions at 3 x 300 tokens (partial last
+    tiles), row offset 4, dx included: outputs at atol 3e-2 (a bf16 output:
+    or one bf16 rounding step of its value, where larger), gradients at
+    1e-2 relative Frobenius; each backward twice gives bitwise-equal
+    results."""
+    from madeleine_torch.ops import gated_logits as gl
+    from madeleine_torch.ops import linear_tok as lt
+    from madeleine_torch.ops import preattn as pa
+
+    w = _train_operands(_model(cuda_device))
+    x, _ = _bags(cuda_device, [300, 300, 300], 300, torch.bfloat16)
+    gen = torch.Generator().manual_seed(4)
+    def within(got, want):   # atol 3e-2, or one bf16 rounding step of a bf16 value
+        want = want.float()
+        bar = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8).clamp_min(3e-2)
+        return bool(((got.float() - want).abs() <= bar).all())
+
+    y = pa.preattn_fwd_cuda(x, w, 5, 4, rates[0])
+    with torch.no_grad():
+        assert within(y, pa.preattn_fwd_plain(x, w, 5, 4, rates[0]))
+        logits = gl.gated_logits_fwd_cuda(y, w, 5, 4, rates[1])
+        assert (logits - gl.gated_logits_fwd_plain(y, w, 5, 4, rates[1])).abs().max() <= 3e-2
+        tok = lt.linear_tok_fwd_cuda(y, w["wt"], w["bt"])
+        assert within(tok, lt.linear_tok_fwd_plain(y, w["wt"], w["bt"]))
+    dy = torch.randn(*y.shape, generator=gen).to(cuda_device, torch.bfloat16)
+    dl = torch.randn(*logits.shape, generator=gen).to(cuda_device)
+    g = torch.randn(*tok.shape, generator=gen).to(cuda_device, torch.bfloat16)
+    for kern, plain, args, kw in (
+            (pa.preattn_bwd_cuda, pa.preattn_bwd_plain, (x, dy, w, 5, 4, rates[0]),
+             {"need_dx": True}),
+            (gl.gated_logits_bwd_cuda, gl.gated_logits_bwd_plain, (y, dl, w, 5, 4, rates[1]), {}),
+            (lt.linear_tok_bwd_cuda, lt.linear_tok_bwd_plain, (y, g, w["wt"]), {})):
+        got, again = kern(*args, **kw), kern(*args, **kw)
+        with torch.no_grad():
+            want = plain(*args, **kw)
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k], again[k]), k
+            err = ((got[k].float() - want[k].float()).norm() / want[k].float().norm()).item()
+            assert err <= 1e-2, (kern.__name__, k, err)
+
+
+def test_sigmoid_train_step_launches_the_per_op_kernels(cuda_device):
+    """A bf16 InfoNCE + GOT step with activation sigmoid launches kernels
+    15-20 (one forward and one backward of each per modality; GOT reads the
+    tokens, so the token projector has a backward) and not K6/K7."""
+    from madeleine_torch.ops import launches
+    from madeleine_torch.train.optim import make_optimizer
+    from madeleine_torch.train.trainer import make_train_step
+
+    cfg = MadeleineConfig(precision="bfloat16", activation="sigmoid", local_loss="got",
+                          got_subsample=128, temperature=0.1, warmup=False,
+                          max_epochs=2).finalize()
+    model = init_madeleine(MADELEINE(cfg), torch.Generator().manual_seed(0)).to(cuda_device)
+    opt, sched = make_optimizer(cfg, model.parameters(), steps_per_epoch=2)
+    step = make_train_step(cfg, model, opt, sched)
+    gen = torch.Generator().manual_seed(1)
+    batch = {"feats": torch.randn(4, 5, 256, 512, generator=gen),
+             "modality_labels": torch.ones(4, 5), "sample_mask": torch.ones(4, dtype=torch.bool)}
+    launches.reset()
+    _, metrics = step(batch, seed=3)
+    counts = launches.read()
+    assert not metrics["skipped"] and torch.isfinite(metrics["loss"])
+    for k in ("preattn_fwd", "preattn_bwd", "gated_logits_fwd", "gated_logits_bwd",
+              "linear_tok_fwd", "linear_tok_bwd"):
+        assert counts[k] == 5, (k, counts[k])
+    assert counts["encoder_train_fwd"] == counts["encoder_train_bwd"] == 0

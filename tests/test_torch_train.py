@@ -80,9 +80,6 @@ def test_unported_options_raise_and_name_the_roadmap_item():
     _, _, _, model = param_pair()
     with pytest.raises(NotImplementedError, match="ROADMAP.md D3b"):
         port.forward_train(model, x, n_views=3)
-    _, _, _, model = param_pair(activation="sigmoid")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md D6"):
-        port.forward_train(model, x)
     _, cfg, _, _ = param_pair(local_loss="got")
     with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
         compute_losses(cfg, torch.zeros(2, 3, 1, 4), torch.zeros(2, 3, 8, 4), torch.ones(2, 3),
