@@ -15,6 +15,10 @@
 // unmasked token at all (M = -inf) pools to 0.
 //
 // part_m, part_s: [b, ntiles, nh]; part_w: [b, ntiles, nh*e]; out: [b, nh*e].
+// With stat_m and stat_s (the training pool, attn_pool.cu) the merge also
+// writes each head's (M, max(S, 1e-30)) [b, nh], the stats of exactly the
+// weights the output used; a bag with no unmasked token writes (NEG_FILL,
+// 1e-30), which the backward reads as all weights 0.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -25,6 +29,7 @@ namespace madeleine {
 // A logit bias at or below this marks a masked token (the wrappers pass 0 or
 // NEG_INF = -1e30, attn_pool.py).
 constexpr float MASKED_BIAS = -1e29f;
+constexpr float NEG_FILL = -1e30f;   // the wrappers' NEG_INF
 
 // Empty partial state for a tile without unmasked tokens, head h (w has e entries).
 __device__ __forceinline__ void write_empty_partial(float* part_m, float* part_s, float* w,
@@ -43,12 +48,14 @@ template <typename OutT>
 __global__ void pool_combine_kernel(const float* __restrict__ part_m,
                                     const float* __restrict__ part_s,
                                     const float* __restrict__ part_w,
-                                    OutT* __restrict__ out, int ntiles, int nh, int e) {
+                                    OutT* __restrict__ out, int ntiles, int nh, int e,
+                                    float* __restrict__ stat_m, float* __restrict__ stat_s) {
   const int bi = blockIdx.y;
   const int E = nh * e;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= E) return;
   const int h = c / e;
+  const bool stats = stat_m != nullptr && c == h * e;   // one thread per head
   const float* pm = part_m + (size_t)bi * ntiles * nh + h;
   const float* ps = part_s + (size_t)bi * ntiles * nh + h;
   const float* pw = part_w + (size_t)bi * ntiles * E + c;
@@ -56,6 +63,10 @@ __global__ void pool_combine_kernel(const float* __restrict__ part_m,
   for (int i = 1; i < ntiles; ++i) M = fmaxf(M, pm[(size_t)i * nh]);
   if (M == -INFINITY) {
     store_out(out + (size_t)bi * E + c, 0.f);
+    if (stats) {
+      stat_m[(size_t)bi * nh + h] = NEG_FILL;
+      stat_s[(size_t)bi * nh + h] = 1e-30f;
+    }
     return;
   }
   float S = 0.f, W = 0.f;
@@ -64,17 +75,23 @@ __global__ void pool_combine_kernel(const float* __restrict__ part_m,
     S = fmaf(ps[(size_t)i * nh], a, S);
     W = fmaf(pw[(size_t)i * E], a, W);
   }
-  store_out(out + (size_t)bi * E + c, W / fmaxf(S, 1e-30f));
+  const float Sc = fmaxf(S, 1e-30f);
+  store_out(out + (size_t)bi * E + c, W / Sc);
+  if (stats) {
+    stat_m[(size_t)bi * nh + h] = M;
+    stat_s[(size_t)bi * nh + h] = Sc;
+  }
 }
 
 template <typename OutT>
 inline cudaError_t launch_pool_combine(const float* part_m, const float* part_s,
                                        const float* part_w, OutT* out, int b, int ntiles,
-                                       int nh, int e, cudaStream_t stream) {
+                                       int nh, int e, cudaStream_t stream,
+                                       float* stat_m = nullptr, float* stat_s = nullptr) {
   const int E = nh * e;
   dim3 grid((E + 255) / 256, b);
   pool_combine_kernel<OutT><<<grid, 256, 0, stream>>>(part_m, part_s, part_w, out, ntiles,
-                                                      nh, e);
+                                                      nh, e, stat_m, stat_s);
   return cudaGetLastError();
 }
 

@@ -16,10 +16,12 @@ head-MAJOR (index = h * hidden + e, per-head slices contiguous); the
 permutation is applied to fc3/ln3 when `encoder_weights` builds the operand
 tensors at the kernel boundary, never stored as a second copy.
 
-Training (`abmil_embed_train`, the route of a non-softmax activation, JAX
-abmil.py:134-214,255-345 with train=True): the pre-attention MLP and the gate
-logits through their train ops (ops/preattn.py, ops/gated_logits.py:
-kernels 15-18 on the card), then the plain masked pool through autograd.
+Training (`abmil_embed_train`, the per-op lane, JAX abmil.py:134-214,
+255-345 with train=True): the pre-attention MLP and the gate logits through
+their train ops (ops/preattn.py, ops/gated_logits.py: kernels 15-18 on the
+card), then with softmax the training pool `fused_attention_pool` (rows 4
+and 5 on the card), with another activation the plain masked pool through
+autograd.
 """
 
 from __future__ import annotations
@@ -31,8 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from madeleine_torch.ops.attn_pool import (activate_attention, masked_attention_pool,
-                                           softmax_pool)
+from madeleine_torch.ops.attn_pool import (activate_attention, fused_attention_pool,
+                                           masked_attention_pool, softmax_pool)
 from madeleine_torch.ops.encode_fused import encode_pool_fused
 from madeleine_torch.ops.gated_logits import gated_logits_train
 from madeleine_torch.ops.gated_pool import gated_attention_pool
@@ -207,12 +209,16 @@ def abmil_embed_train(w: Dict[str, torch.Tensor], bags: torch.Tensor, *, activat
     """ABMIL training forward on the per-op lane (JAX abmil.py:255-345 with
     train=True and n_views=1): `pre_attn_mlp` and `gated_attention_logits`
     through their train ops (dropout keyed by seed and the global rows from
-    row_offset), then the masked pool of `activation`, the plain way through
-    autograd (JAX's _pool_reference). bags [b, t, d_in] in the compute
-    dtype, w: `encoder_train.train_operands`, mask [b, t] bool or None.
-    Returns (pooled [b, nh, e], tokens [b, t, nh, e]), both in bags.dtype."""
+    row_offset), then the masked pool of `activation`: with softmax the
+    training pool `fused_attention_pool` (abmil.py:329-334), otherwise the
+    plain way through autograd (JAX's _pool_reference). bags [b, t, d_in]
+    in the compute dtype, w: `encoder_train.train_operands`, mask [b, t]
+    bool or None. Returns (pooled [b, nh, e], tokens [b, t, nh, e]), both in
+    bags.dtype."""
     y = pre_attn_mlp(w, bags, seed=seed, row_offset=row_offset)
     nh, _, e = w["wa"].shape
     xh = y.reshape(*y.shape[:-1], nh, e)
     logits = gated_attention_logits(w, xh, seed=seed, row_offset=row_offset)
+    if activation == "softmax":
+        return fused_attention_pool(xh, logits, mask), xh
     return masked_attention_pool(xh, logits, mask, activation), xh

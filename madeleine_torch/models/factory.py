@@ -6,6 +6,7 @@ The port's parameters already carry the reference's names and layout
 carries a parameter pytree of the JAX package (nested dicts of numpy arrays,
 head-major, [in, out] matrices) across into that layout; it is the port's own
 copy of `madeleine_tpu/models/factory.py::params_to_state_dict`.
+`heads_params_from_jax` does the same for a head's tree (`models/heads.py`).
 """
 
 from __future__ import annotations
@@ -74,6 +75,20 @@ def params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         sd[f"{name}.bias"] = np.asarray(params[name]["b"])
     if "embedding" in params:
         sd["embedding.weight"] = np.asarray(params["embedding"]["table"])
+    return {k: torch.tensor(v, dtype=torch.float32) for k, v in sd.items()}
+
+
+def heads_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A head's JAX tree ({fc*: {w [in, out], b}, ln*: {scale, bias}, out:
+    {w, b}}, `madeleine_tpu/models/heads.py`) -> the state dict of
+    `models/heads.py`'s MLP or ProjHead, f32."""
+    sd: Dict[str, np.ndarray] = {}
+    for name, p in params.items():
+        if "w" in p:
+            sd[f"{name}.weight"], sd[f"{name}.bias"] = np.asarray(p["w"]).T, np.asarray(p["b"])
+        else:
+            sd[f"{name}.weight"], sd[f"{name}.bias"] = (np.asarray(p["scale"]),
+                                                        np.asarray(p["bias"]))
     return {k: torch.tensor(v, dtype=torch.float32) for k, v in sd.items()}
 
 

@@ -9,14 +9,16 @@ The module holds its config (``model.cfg``); parameter names are the
 reference's, so ``model.pt`` files load strictly. The training forward
 (`forward_train`, n_views=1, with or without stain encodings) runs the whole
 encoder through the train op of ops/encoder_train.py with softmax, and the
-per-op lane with any other activation (`abmil_embed_train`, then the token
-projector's train op, ops/linear_tok.py); its eval mode (``train=False``)
-runs `abmil_embed` per modality, whose softmax pool on the card is kernel K3.
+per-op lane with any other activation or with MADELEINE_NO_FUSED_ENCODER set
+(`abmil_embed_train`, then the token projector's train op,
+ops/linear_tok.py); its eval mode (``train=False``) runs `abmil_embed` per
+modality, whose softmax pool on the card is kernel K3.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -49,10 +51,12 @@ class MADELEINE(nn.Module):
             self.embedding = nn.Embedding(cfg.n_modalities, cfg.stain_encoding_dim)
 
 
-def init_madeleine(model: MADELEINE, generator: torch.Generator) -> MADELEINE:
+def init_madeleine(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fresh weights from a seeded generator, in the regime of the JAX
     package's init (abmil.py:55-68): every Linear U(+-1/sqrt(fan_in)) for
-    weight and bias, LayerNorm ones/zeros, stain codes N(0, 1)."""
+    weight and bias, LayerNorm ones/zeros, stain codes N(0, 1). It walks any
+    module, so it also initialises a head of `models/heads.py` (the regime
+    of JAX's `init_mlp_params` / `init_proj_head_params`)."""
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, nn.Linear):
@@ -160,9 +164,12 @@ def forward_train(model: MADELEINE, feats: torch.Tensor, *,
     train ops; with ``train=False`` the eval forward (no dropout, no
     gradient; `_forward_eval`). With softmax the whole encoder runs through
     the train op of ops/encoder_train.py (kernels K6/K7 on a CUDA tensor);
-    with another activation through the per-op lane, as the JAX package
-    routes it (madeleine.py:157-172,226-248): `abmil_embed_train` (kernels
-    15-18, the plain pool) and the token projector's op (kernels 19/20).
+    with another activation, or with the environment variable
+    MADELEINE_NO_FUSED_ENCODER set to any non-empty value (read at each
+    call), through the per-op lane, as the JAX package routes it
+    (madeleine.py:157-174,226-248): `abmil_embed_train` (kernels 15-18, then
+    with softmax the training pool, rows 4/5, else the plain pool) and the
+    token projector's op (kernels 19/20).
 
     feats [bs, n_mod, t, d] in the compute dtype; mask [bs, n_mod, t] bool;
     seed: the step's dropout seed. cfg.modality_scan runs one encoder call
@@ -184,10 +191,11 @@ def forward_train(model: MADELEINE, feats: torch.Tensor, *,
     dt = feats.dtype
     se = cfg.add_stain_encoding
     w = train_weights(model, dt)
+    fused = cfg.activation == "softmax" and not os.environ.get("MADELEINE_NO_FUSED_ENCODER")
 
     def encode(x, m, row_offset):
         """(pooled [n, nh, e], tokens [n, t, 128]) of the rows x [n, t, d]."""
-        if cfg.activation == "softmax":
+        if fused:
             return encoder_train(x, m, w, seed, row_offset=row_offset, need_dx=se)
         pooled, xh = abmil_embed_train(w, x, activation=cfg.activation, seed=seed, mask=m,
                                        row_offset=row_offset)

@@ -22,7 +22,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_DIR = os.path.join(CSRC, "build")
 KERNELS = ("encode_fused", "gated_pool", "attn_pool", "encoder_train_fwd", "encoder_train_bwd",
            "ipot_fwd", "ipot_bwd", "gw_gamma", "got_glue", "preattn", "gated_logits",
-           "linear_tok")
+           "linear_tok", "dropout")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SMEM_LIMIT = 232448   # bytes of shared memory one block may use on Hopper
@@ -168,19 +168,22 @@ def workspace(lib_name: str, fn_name: str, dims: Sequence[int]) -> Tuple[int, in
 
 
 def launch_split_pool(name: str, inputs: Sequence[torch.Tensor], dims: Sequence[int],
-                      b: int, t: int, nh: int, E: int, out_dtype: torch.dtype) -> torch.Tensor:
+                      b: int, t: int, nh: int, E: int, out_dtype: torch.dtype,
+                      stats: Sequence[Optional[torch.Tensor]] = ()) -> torch.Tensor:
     """Launch ``<name>_forward`` of csrc/<name>.cu on the current stream.
 
-    Both kernels split the tokens into tiles of ``<name>_tile_rows()`` rows,
+    The kernels split the tokens into tiles of ``<name>_tile_rows()`` rows,
     write per-tile partials (m [b, ntiles, nh], s [b, ntiles, nh], w
     [b, ntiles, E], f32) and combine them into out [b, E] (pool_combine.cuh).
-    The C entry point takes (*inputs, part_m, part_s, part_w, out, *dims,
-    stream) and returns the cudaError_t of its launches; non-zero raises."""
+    The C entry point takes (*inputs, part_m, part_s, part_w, out, *stats,
+    *dims, stream) and returns the cudaError_t of its launches; non-zero
+    raises. ``stats`` are further outputs of the merge (attn_pool.cu: m and
+    s [b, nh] f32), None passing a null pointer."""
     lib = load(name)
     fwd, tile_rows = getattr(lib, f"{name}_forward"), getattr(lib, f"{name}_tile_rows")
     if fwd.argtypes is None:
-        fwd.argtypes = ([ctypes.c_void_p] * (len(inputs) + 4) + [ctypes.c_int] * len(dims)
-                        + [ctypes.c_void_p])
+        fwd.argtypes = ([ctypes.c_void_p] * (len(inputs) + 4 + len(stats))
+                        + [ctypes.c_int] * len(dims) + [ctypes.c_void_p])
         fwd.restype = ctypes.c_int
         tile_rows.argtypes = []
         tile_rows.restype = ctypes.c_int
@@ -193,7 +196,8 @@ def launch_split_pool(name: str, inputs: Sequence[torch.Tensor], dims: Sequence[
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fwd(*(x.data_ptr() for x in inputs), part_m.data_ptr(), part_s.data_ptr(),
-                  part_w.data_ptr(), out.data_ptr(), *dims, stream)
+                  part_w.data_ptr(), out.data_ptr(),
+                  *(None if x is None else x.data_ptr() for x in stats), *dims, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     return out

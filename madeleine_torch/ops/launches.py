@@ -9,14 +9,16 @@ from __future__ import annotations
 
 from typing import Dict
 
-from madeleine_torch.ops import (attn_pool, encode_fused, encoder_train, gated_logits, gated_pool,
-                                  got_glue, ipot, linear_tok, preattn)
+from madeleine_torch.ops import (attn_pool, dropout, encode_fused, encoder_train, gated_logits,
+                                  gated_pool, got_glue, ipot, linear_tok, preattn)
 
 # kernel name -> (module, counter attribute), in the order of the PERF table
 COUNTERS = {
     "encode_fused": (encode_fused, "launches"),             # K1
     "gated_pool": (gated_pool, "launches"),                 # K2
     "attn_pool": (attn_pool, "launches"),                   # K3
+    "attn_pool_ms": (attn_pool, "pool_ms_launches"),        # 4
+    "attn_pool_bwd": (attn_pool, "pool_bwd_launches"),      # 5
     "encoder_train_fwd": (encoder_train, "fwd_launches"),   # K6
     "encoder_train_bwd": (encoder_train, "bwd_launches"),   # K7
     "ipot_fwd": (ipot, "fwd_launches"),                     # K8
@@ -32,6 +34,7 @@ COUNTERS = {
     "gated_logits_bwd": (gated_logits, "bwd_launches"),     # 18
     "linear_tok_fwd": (linear_tok, "fwd_launches"),         # 19
     "linear_tok_bwd": (linear_tok, "bwd_launches"),         # 20
+    "dropout": (dropout, "launches"),                       # 21
 }
 
 

@@ -16,6 +16,12 @@ for gate branch (0 = tanh, 1 = sigmoid) of head h. A mask therefore does not
 depend on how a kernel tiles the tokens, and the backward regenerates the
 forward's bits. `csrc/philox.cuh` computes the same bits on the card.
 
+Standalone dropout (ops/dropout.py, over [m, n] rows) draws with token 0 and
+stream DROPOUT_STREAM0 + site, site 0, 1, ... one per dropout site of a
+module (a head's layers). The encoder's streams are 0 to 2 + 2*nh with
+nh <= 32 (the kernels' limit), below 2**31, so the two never draw the same
+bits for one seed.
+
 Threshold width: 32 bits. A site is kept when bits >= thr, with
 thr = clamp(round(rate * 2**32), 1, 2**32 - 1), and kept sites are scaled by
 1 / (1 - thr / 2**32): the scale comes from the integer threshold actually
@@ -32,10 +38,17 @@ M0, M1 = 0xD2511F53, 0xCD9E8D57
 W0, W1 = 0x9E3779B9, 0xBB67AE85
 MASK32 = 0xFFFFFFFF
 LEVELS = 1 << 32
+DROPOUT_STREAM0 = 1 << 31
 
 
 def gate_stream(head: int, branch: int) -> int:
     return 3 + 2 * head + branch
+
+
+def dropout_stream(site: int) -> int:
+    if not 0 <= site < DROPOUT_STREAM0:
+        raise ValueError(f"dropout site must be in [0, 2**31), got {site}")
+    return DROPOUT_STREAM0 + site
 
 
 def threshold(rate: float) -> Tuple[int, float]:

@@ -19,9 +19,10 @@ ref: madeleine/utils/trainer.py:20-145):
 - the epoch's smooth rank on the H&E embeddings (trainer.py:141-143).
 
 The encoder runs through ops/encoder_train.py (kernels K6/K7 on the card,
-bf16 only) or, with a non-softmax activation, through the per-op lane
-(ops/preattn.py, ops/gated_logits.py, ops/linear_tok.py: kernels 15-20);
-their plain versions on CPU tensors. With stain encodings the encoder also
+bf16 only) or, with a non-softmax activation or MADELEINE_NO_FUSED_ENCODER
+set, through the per-op lane (ops/preattn.py, ops/gated_logits.py,
+ops/linear_tok.py: kernels 15-20; with softmax the training pool of
+ops/attn_pool.py, rows 4-5); their plain versions on CPU tensors. With stain encodings the encoder also
 returns the input gradient, and the code table ([n_mod, 32],
 `embedding.weight`) is one more AdamW parameter with the configured weight
 decay, as optax.adamw treats it in the JAX package. GOT through ops/ipot.py

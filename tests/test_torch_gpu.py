@@ -473,3 +473,89 @@ def test_sigmoid_train_step_launches_the_per_op_kernels(cuda_device):
               "linear_tok_fwd", "linear_tok_bwd"):
         assert counts[k] == 5, (k, counts[k])
     assert counts["encoder_train_fwd"] == counts["encoder_train_bwd"] == 0
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 3e-2), (torch.float32, 1e-5)],
+                         ids=["bf16", "f32"])
+def test_train_pool_kernels_match_plain(cuda_device, dtype, atol):
+    """Rows 4 and 5 (the training pool and its backward) against their plain
+    versions at t = 1000 (a partial last tile), ragged bags and an empty
+    one: pooled as K3's bar, m exact, s rtol 1e-5, dx and dl at 1e-2
+    relative Frobenius; the weights exp(l - m) / s sum to 1 over each live
+    bag; the empty bag's pooled output, dx and dl are 0; two launches of
+    each bitwise equal."""
+    from madeleine_torch.ops import attn_pool as ap
+
+    g = torch.Generator().manual_seed(7)
+    b, t, nh, e = 3, 1000, 4, 512
+    y = torch.randn(b, t, nh * e, generator=g).to(cuda_device, dtype)
+    mask = (torch.arange(t)[None, :] < torch.tensor([[1000], [333], [0]])).to(cuda_device)
+    l = (4.0 * torch.randn(b, t, nh, generator=g)).to(cuda_device)
+    l = l.masked_fill(~mask[..., None], ap.NEG_INF).contiguous()
+    before = (ap.pool_ms_launches, ap.pool_bwd_launches)
+    pooled, m, s = ap.pool_ms_cuda(y, l)
+    again = ap.pool_ms_cuda(y, l)
+    assert all(torch.equal(u, v) for u, v in zip((pooled, m, s), again))
+    wp, wm, ws = ap.pool_ms_plain(y, l)
+    torch.testing.assert_close(pooled.float(), wp.float(), rtol=0 if dtype != torch.float32
+                               else 1e-4, atol=atol)
+    assert torch.equal(m, wm) and (pooled[2] == 0).all()
+    torch.testing.assert_close(s, ws, rtol=1e-5, atol=0)
+    a = ap.pool_weights(l, m, s).sum(1)
+    torch.testing.assert_close(a[:2], torch.ones_like(a[:2]), rtol=1e-5, atol=0)
+    gp = torch.randn(b, nh * e, generator=g).to(cuda_device)
+    inner = (gp * pooled.float()).reshape(b, nh, e).sum(-1)
+    dx, dl = ap.pool_bwd_cuda(y, l, m, s, gp, inner)
+    dx2, dl2 = ap.pool_bwd_cuda(y, l, m, s, gp, inner)
+    assert torch.equal(dx, dx2) and torch.equal(dl, dl2) and dx.dtype == dtype
+    assert (ap.pool_ms_launches, ap.pool_bwd_launches) == (before[0] + 2, before[1] + 2)
+    wdx, wdl = ap.pool_bwd_plain(y, l, m, s, gp, inner)
+    assert (dx[2] == 0).all() and (dl[2] == 0).all() and torch.isfinite(dl).all()
+    assert _rel(dx.float(), wdx.float()) <= 1e-2 and _rel(dl, wdl) <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_dropout_kernel_matches_plain_bit_for_bit(cuda_device, dtype):
+    """Row 21 against `dropout_plain` bit for bit at [4096, 512] and at an
+    odd [37, 21] (element loads), row offset 5, site 1; the backward's mask
+    equals the forward's."""
+    from madeleine_torch.ops import dropout as dp
+
+    g = torch.Generator().manual_seed(8)
+    for shape in ((4096, 512), (37, 21)):
+        x = torch.randn(*shape, generator=g).to(cuda_device, dtype)
+        before = dp.launches
+        got = dp.dropout_cuda(x, 9, 0.2, 5, 1)
+        assert dp.launches == before + 1
+        assert torch.equal(got, dp.dropout_plain(x, 9, 0.2, 5, 1))
+        xr = x.clone().requires_grad_(True)
+        out = dp.dropout(xr, 0.2, 9, row_offset=5, site=1)
+        out.backward(torch.ones_like(out))
+        assert torch.equal(xr.grad, dp.dropout_plain(torch.ones_like(x), 9, 0.2, 5, 1))
+
+
+def test_nofused_softmax_step_launches_the_training_pool(cuda_device, monkeypatch):
+    """With MADELEINE_NO_FUSED_ENCODER set, a bf16 softmax InfoNCE + GOT step
+    launches rows 4 and 5 and kernels 15-20 once per modality and
+    direction, and not K6/K7."""
+    from madeleine_torch.ops import launches
+    from madeleine_torch.train.optim import make_optimizer
+    from madeleine_torch.train.trainer import make_train_step
+
+    monkeypatch.setenv("MADELEINE_NO_FUSED_ENCODER", "1")
+    cfg = MadeleineConfig(precision="bfloat16", local_loss="got", got_subsample=128,
+                          temperature=0.1, warmup=False, max_epochs=2).finalize()
+    model = init_madeleine(MADELEINE(cfg), torch.Generator().manual_seed(0)).to(cuda_device)
+    opt, sched = make_optimizer(cfg, model.parameters(), steps_per_epoch=2)
+    step = make_train_step(cfg, model, opt, sched)
+    gen = torch.Generator().manual_seed(1)
+    batch = {"feats": torch.randn(4, 5, 256, 512, generator=gen),
+             "modality_labels": torch.ones(4, 5), "sample_mask": torch.ones(4, dtype=torch.bool)}
+    launches.reset()
+    _, metrics = step(batch, seed=3)
+    counts = launches.read()
+    assert not metrics["skipped"] and torch.isfinite(metrics["loss"])
+    for k in ("attn_pool_ms", "attn_pool_bwd", "preattn_fwd", "preattn_bwd", "gated_logits_fwd",
+              "gated_logits_bwd", "linear_tok_fwd", "linear_tok_bwd"):
+        assert counts[k] == 5, (k, counts[k])
+    assert counts["encoder_train_fwd"] == counts["encoder_train_bwd"] == 0
