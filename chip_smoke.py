@@ -49,7 +49,12 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            against its plain version, two launches equal, the backward's
            mask the forward's, the keep share within 0.01 (the large shapes);
            timed at [133120, 2048] bf16 beside torch.nn.functional.dropout,
-           and at a head's [65, 512]
+           and at a head's [65, 512] f32 three ways (the wrapper, the heads'
+           autograd route forward and backward, F.dropout) on cuda_ms's
+           clock and in host microseconds per call over 1000 calls, the
+           wrapper against F.dropout also in 10 alternating pairs; with the
+           host microseconds of one call_ptrs launch of row 19 and one K3
+           call at [1, 64, 2048]
   perop_kernels
            kernels 15-20 of the per-op lane, bf16: preattn (15/16),
            gated_logits (17/18) and linear_tok (19/20), each against its plain
@@ -61,8 +66,12 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            preattn -> gated_logits -> plain softmax pool -> linear_tok through
            autograd against K6/K7 on the same x, seed and rows (pooled 2e-3,
            tokens 3e-2, every weight gradient 1e-2, bc 1e-4 absolute): the
-           masks line up. Timed at [65, 2048] beside their plain versions and,
-           for linear_tok's forward, torch.nn.functional.linear
+           masks line up. Kernel 19 (the TMA + wgmma GEMM) also at a ragged
+           M (b=3, t=1000), d_out 136 and 256, and E 544, two launches
+           bitwise equal, and a misaligned y must raise. Timed at [65, 2048]
+           beside their plain versions and, for linear_tok's forward,
+           torch.nn.functional.linear, with kernel 19's TB/s and TFLOP/s and
+           both calls' device time launched back to back
   golden   flagship weights saved as model.pt + model_config.json, loaded by
            create_model_from_pretrained; encode_he against
            tests/golden/golden_flagship.npz in f32 (through K2) and bf16 (K1);
@@ -229,6 +238,40 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 15) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def cuda_ms_back_to_back(fn, warmup: int = 3, calls: int = 50) -> float:
+    """Device ms per call over `calls` calls launched back to back between
+    two CUDA events: the device's time, without the host's launch gaps
+    that the per-call clock of cuda_ms includes."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds per call over `calls` calls with no synchronize:
+    what a launch costs the host while the device keeps up."""
+    import torch
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def nvidia_smi_line() -> str:
@@ -747,6 +790,8 @@ DROPOUT_SHAPES = ((4096, 512), (133120, 2048), (37, 21), DROPOUT_HEAD_SHAPE)   #
 # verify shape, one modality's y [65 x 2048, 2048], an odd shape (element
 # loads) and a head's (a partial last block of the vector path)
 DROPOUT_KEEP_TOL = 0.01
+DROPOUT_HEAD_PAIRS = 10   # alternating (wrapper, F.dropout) timings at a head's shape
+LAUNCH_SHAPE = (1, 64, 2048)   # b, t, E of the row 19 and K3 launches timed on the host
 
 
 def _dropout_cases(shape):
@@ -761,9 +806,15 @@ def phase_dropout_kernel(state):
     _dropout_cases; the keep share within DROPOUT_KEEP_TOL of 1 - rate (at
     the two large shapes); the backward's mask equal to the forward's; two
     launches equal; timed at [133120, 2048] bf16 beside the plain version
-    and F.dropout, and at a head's [65, 512]."""
+    and F.dropout, and at a head's [65, 512] f32 (the wrapper, the heads'
+    autograd route forward and backward, and F.dropout, on cuda_ms's clock
+    as before and in host microseconds per call; the wrapper against
+    F.dropout in DROPOUT_HEAD_PAIRS alternating pairs), with the host
+    microseconds of a row 19 and a K3 launch at LAUNCH_SHAPE."""
     import torch
     import torch.nn.functional as F
+    from madeleine_torch.ops import _build
+    from madeleine_torch.ops import attn_pool as ap
     from madeleine_torch.ops import dropout as dp
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
@@ -800,13 +851,38 @@ def phase_dropout_kernel(state):
     ms = cuda_ms(lambda: dp.dropout_cuda(x, 17, 0.1), warmup=3, iters=20)
     plain_ms = cuda_ms(lambda: dp.dropout_plain(x, 17, 0.1), warmup=1, iters=3)
     lib_ms = cuda_ms(lambda: F.dropout(x, 0.1, training=True), warmup=3, iters=20)
-    h = torch.randn(*DROPOUT_HEAD_SHAPE, generator=g, device="cuda")
-    head = {"ms": cuda_ms(lambda: dp.dropout_cuda(h, 17, 0.2), warmup=3, iters=20),
-            "library_ms": cuda_ms(lambda: F.dropout(h, 0.2, training=True), warmup=3,
-                                  iters=20),
-            "bound_ms": _bound(0.0, 2 * h.numel() * 4)[0]}
     bound, by = _bound(0.0, 2 * x.numel() * x.element_size())
-    del x, h
+    del x
+    # a head's call, where the host's launch path sets the time
+    h = torch.randn(*DROPOUT_HEAD_SHAPE, generator=g, device="cuda")
+    hr, ones = h.clone().requires_grad_(True), torch.ones_like(h)
+    calls = {"dropout_cuda": lambda: dp.dropout_cuda(h, 17, 0.2),
+             "autograd_fwd_bwd": lambda: dp.dropout(hr, 0.2, 17).backward(ones),
+             "F.dropout": lambda: F.dropout(h, 0.2, training=True)}
+    head = {"ms": cuda_ms(calls["dropout_cuda"], warmup=3, iters=20),
+            "autograd_fwd_bwd_ms": cuda_ms(calls["autograd_fwd_bwd"], warmup=3, iters=20),
+            "library_ms": cuda_ms(calls["F.dropout"], warmup=3, iters=20),
+            "bound_ms": _bound(0.0, 2 * h.numel() * 4)[0]}
+    pairs = []
+    for i in range(DROPOUT_HEAD_PAIRS):
+        order = ("dropout_cuda", "F.dropout")[::1 if i % 2 == 0 else -1]
+        t = {k: cuda_ms(calls[k], warmup=3, iters=20) for k in order}
+        pairs.append([t["dropout_cuda"], t["F.dropout"]])
+    head["pairs_ms"] = pairs
+    head["pairs_won"] = sum(a <= b for a, b in pairs)
+    # the host's cost of a launch: row 21 three ways, one bare call_ptrs
+    # launch of row 19's entry point and one K3 call at LAUNCH_SHAPE
+    b, t, E = LAUNCH_SHAPE
+    y = torch.randn(b, t, E, generator=g, device="cuda").to(torch.bfloat16)
+    wt = (torch.randn(128, E, generator=g, device="cuda") / E ** 0.5).to(torch.bfloat16)
+    bt, tok = torch.zeros(128, device="cuda"), torch.empty(b, t, 128, dtype=y.dtype,
+                                                           device="cuda")
+    logits = torch.randn(b, t, 4, generator=g, device="cuda")
+    calls["linear_tok_call_ptrs"] = lambda: _build.call_ptrs(
+        "linear_tok", "linear_tok_forward", [y, wt, bt, tok], [b * t, E, 128], [], y.device)
+    calls["attn_pool_cuda"] = lambda: ap.attn_pool_cuda(y, logits)
+    head["host_us"] = {k: host_us(fn) for k, fn in calls.items()}
+    del h, hr, ones, y, wt, bt, tok, logits, calls
     state.setdefault("kernels", {})["dropout"] = {
         "name": "dropout", "route": "cuda", "source": "madeleine_torch/csrc/dropout.cu",
         "replaces": "madeleine_tpu/ops/dropout.py:31", "max_abs_err": err, "ms": ms,
@@ -815,7 +891,7 @@ def phase_dropout_kernel(state):
           "checks": checks, "times_shape": DROPOUT_SHAPES[1],
           "times": {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
                     "bound_by": by, "share_of_bound": bound / ms},
-          "head_shape": DROPOUT_HEAD_SHAPE, "head_f32": head})
+          "head_shape": DROPOUT_HEAD_SHAPE, "head_f32": head, "launch_shape": LAUNCH_SHAPE})
 
 
 def _encoder_train_work(b, t, w, need_dx=False):
@@ -1627,6 +1703,47 @@ def _perop_chain_vs_fused(torch, w, x, rates, gen, seed=99, row_offset=65, chain
     return rep
 
 
+# kernel 19's edges beside the step shape: (b, t, E, d_out) with a ragged
+# last 64-row tile, a ragged and a second 128-column tile, a partial k tile
+LINEAR_TOK_EDGES = ((3, 1000, 2048, 128), (3, 1000, 2048, 136), (2, 700, 2048, 256),
+                    (3, 1000, 544, 128))
+
+
+def _check_linear_tok_edges(torch, gen):
+    """Kernel 19 against its plain version at LINEAR_TOK_EDGES (OUT_ATOL, or
+    one bf16 rounding step of the value where larger), two launches bitwise
+    equal; a y 2 bytes past a 16-byte boundary must raise. Returns
+    {shape: {"max_abs_err", "max_err_over_bar", "ok"}}."""
+    from madeleine_torch.ops import linear_tok as lt
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy((gen.standard_normal(shape) * scale).astype(np.float32)).cuda()
+
+    rep = {}
+    for b, t, E, dout in LINEAR_TOK_EDGES:
+        y = randn(b, t, E).to(torch.bfloat16)
+        wt = randn(dout, E, scale=E ** -0.5).to(torch.bfloat16)
+        bt = randn(dout)
+        got, again = lt.linear_tok_fwd_cuda(y, wt, bt), lt.linear_tok_fwd_cuda(y, wt, bt)
+        want = lt.linear_tok_fwd_plain(y, wt, bt).float()
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs()
+        over = (err / torch.maximum(_bf16_ulp(torch, want), torch.full_like(want, OUT_ATOL))
+                ).max().item()
+        rep[f"{b}x{t}x{E}->{dout}"] = {"max_abs_err": err.max().item(), "max_err_over_bar": over,
+                                       "ok": over <= 1.0 and torch.equal(got, again)}
+        del y, wt, bt, got, again, want, err
+    buf = torch.zeros(2 * 64 * 256 + 1, dtype=torch.bfloat16, device="cuda")
+    try:
+        lt.linear_tok_fwd_cuda(buf[1:].view(2, 64, 256),
+                               torch.zeros(128, 256, dtype=torch.bfloat16, device="cuda"),
+                               torch.zeros(128, device="cuda"))
+        rep["misaligned_y_raises"] = {"ok": False}
+    except ValueError:
+        rep["misaligned_y_raises"] = {"ok": True}
+    return rep
+
+
 def phase_perop_kernels(state):
     """Kernels 15-20 against their plain versions, the per-op chain against
     K6/K7, and their times at the train step's call shape."""
@@ -1668,9 +1785,12 @@ def phase_perop_kernels(state):
     checks["step_call_544_dx"] = _check_perop(
         torch, {"preattn_bwd": se_calls["preattn_bwd"]}, "d_in 544")
     del se_calls, x_se, w_se
+    edges = _check_linear_tok_edges(torch, np.random.default_rng(SEED + 19))
     for rep in checks.values():
         for k, r in rep.items():
             errs[k] = max(errs[k], r["max_abs_err"])
+    errs["linear_tok_fwd"] = max([errs["linear_tok_fwd"]]
+                                 + [r["max_abs_err"] for r in edges.values() if "max_abs_err" in r])
     # the chain against K6/K7 at the real rates, at 0 (no masks: the rounding
     # floor, reported), and a control whose masks are the next row's, which
     # must miss the pooled and every pre-attention bar
@@ -1693,8 +1813,13 @@ def phase_perop_kernels(state):
                        "share_of_bound": bound / ms, "gflop": work[name][0] / 1e9,
                        "gb": work[name][1] / 1e9}
     y, wt, bt = step_calls["linear_tok_fwd"][2]
+    lt_fwd = step_calls["linear_tok_fwd"][0]
     bt16 = bt.to(torch.bfloat16)
     times["linear_tok_fwd"]["library_ms"] = cuda_ms(lambda: F.linear(y, wt, bt16))
+    tm = times["linear_tok_fwd"]
+    tm["tb_per_s"], tm["tflop_per_s"] = tm["gb"] / tm["ms"], tm["gflop"] / tm["ms"]
+    tm["device_ms_back_to_back"] = cuda_ms_back_to_back(lambda: lt_fwd(y, wt, bt))
+    tm["library_device_ms_back_to_back"] = cuda_ms_back_to_back(lambda: F.linear(y, wt, bt16))
     lib_err = (F.linear(y, wt, bt16).float() - step_calls["linear_tok_fwd"][0](y, wt, bt).float()
                ).abs().max().item()
     del step_calls, y, wt, bt, bt16
@@ -1709,9 +1834,10 @@ def phase_perop_kernels(state):
     emit({"phase": "perop_kernels", "atol_out": OUT_ATOL, "grad_rtol_fro": GRAD_RTOL,
           "pooled_atol": POOLED_ATOL, "bc_atol": BC_ATOL, "checks": checks,
           "pre_chain_rtol_fro": PRE_CHAIN_RTOL, "chain_vs_k6_k7": chain,
-          "times_shape": PEROP_STEP_SHAPE, "times": times, "f_linear_vs_kernel_max_abs": lib_err})
+          "times_shape": PEROP_STEP_SHAPE, "times": times, "f_linear_vs_kernel_max_abs": lib_err,
+          "linear_tok_fwd_edges": edges})
     failed = [(where, k) for where, rep in checks.items() for k, r in rep.items()
-              if not r["ok"]]
+              if not r["ok"]] + [("linear_tok_fwd", k) for k, r in edges.items() if not r["ok"]]
     control_missed = set(chain["control_rows_shifted"]["failed"])
     if (failed or chain["real"]["failed"]
             or not {"pooled_err"} | set(PRE_KEYS) <= control_missed):

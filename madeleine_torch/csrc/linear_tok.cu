@@ -6,24 +6,41 @@
 //             bias, cast to bf16)
 //   backward: dy [M, E] = g Wt (bf16), dWt = g^T y, dbt = sum of g (f32)
 // with g the cotangent of tok in bf16. The TPU needed the kernels to pin
-// the operands' layout; here they are the token projector's products of
-// K6/K7 behind an entry point of their own.
+// the operands' layout; here they are the token projector's products
+// behind an entry point of their own.
 //
 // What bounds it on an H100: 2 * E * dout = 0.52 MFLOP per token forward at
 // the published widths (2048 -> 128) and twice that backward, against 4.3 KB
 // and 8.4 KB of traffic per token: about 120 operations per byte, below the
-// card's 295, so the bytes of y, dy and g bound both.
+// card's 295, so the bytes of y, dy and g bound both. At the train step's
+// [65, 2048] the forward moves 579 MB: 0.173 ms at 3.35 TB/s, against 0.071
+// ms of math at 989 TFLOP/s.
 //
-// Design (simple first): the mma.sync GEMM of gemm_bf16.cuh with the bias
-// in the epilogue; the weight gradient split over the tokens into pieces
-// summed in order, the bias gradient per-tile column partials summed in
-// tile order (train_rows.cuh): no atomics, launches are bitwise
+// Forward design: the borrowed mma.sync GEMM of gemm_bf16.cuh (128 x 128
+// tiles, k tiles of 32 in a 3-stage cp.async ring, a __syncthreads every 32
+// k, ldmatrix from every warp) reached 0.386 ms (chip_smoke.py on an H100
+// 80GB HBM3 at 700 W), 45% of the byte bound and slower than one F.linear
+// call, as its math ran at 165-250 TFLOP/s: to keep
+// pace with the bytes the math must run above 400 TFLOP/s, which on this
+// card only wgmma does. So the forward is gemm_wgmma.cuh's streaming GEMM:
+// one producer thread keeps TMA loads of [64, 64] y tiles and [128, 64] Wt
+// tiles in flight in a 6-stage ring, two consumer warpgroups take 64 x 128
+// output tiles in turn on wgmma m64n128k16 with f32 accumulators and the
+// bias in the epilogue, so that one warpgroup's epilogue overlaps the
+// other's products, and one persistent block per SM walks the tiles. y and
+// Wt are both K-major, wgmma's native bf16 case: nothing is transposed.
+//
+// Backward design (simple first): the mma.sync GEMM of gemm_bf16.cuh; the
+// weight gradient split over the tokens into pieces summed in order, the
+// bias gradient per-tile column partials summed in tile order
+// (train_rows.cuh). No atomics in either direction: launches are bitwise
 // reproducible.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gemm_wgmma.cuh"
 #include "train_rows.cuh"
 
 using madeleine::bf16;
@@ -32,9 +49,9 @@ using madeleine::bf16;
 // f32, tok [M, dout] bf16. Returns a cudaError_t.
 extern "C" int linear_tok_forward(void** p, const long long* dims, const float*,
                                   void* stream_) {
-  return (int)madeleine::tok_product((const bf16*)p[0], (const bf16*)p[1], (const float*)p[2],
-                                     (bf16*)p[3], (int)dims[0], (int)dims[1], (int)dims[2],
-                                     static_cast<cudaStream_t>(stream_));
+  return (int)madeleine::gemm_tn_wgmma((const bf16*)p[0], (const bf16*)p[1], (const float*)p[2],
+                                       (bf16*)p[3], (int)dims[0], (int)dims[2], (int)dims[1],
+                                       static_cast<cudaStream_t>(stream_));
 }
 
 // Floats of workspace the backward needs: [split-K partials, column partials].

@@ -12,9 +12,10 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
+import struct
 import subprocess
 import threading
-from typing import Dict, Iterable, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 
@@ -85,7 +86,7 @@ def check_operand(kernel: str, name: str, x: torch.Tensor, shape: Sequence[int],
                   dtype: torch.dtype, device: torch.device) -> None:
     """Raise unless x is a contiguous `dtype` tensor of `shape` on `device`:
     the kernels take raw pointers and trust these."""
-    if x.device != device or x.dtype != dtype or tuple(x.shape) != tuple(shape) \
+    if x.dtype != dtype or x.shape != tuple(shape) or x.device != device \
             or not x.is_contiguous():
         raise ValueError(f"{kernel} kernel: {name} must be a contiguous {dtype} tensor "
                          f"{tuple(shape)} on {device}, got {x.dtype} {tuple(x.shape)} on "
@@ -93,12 +94,67 @@ def check_operand(kernel: str, name: str, x: torch.Tensor, shape: Sequence[int],
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built first if needed."""
+    """The loaded library for csrc/<name>.cu, built first if needed. A CDLL
+    releases the interpreter lock around each call, as PyTorch's bindings
+    do around each op: a launch that waits (a kernel's first, lazily loaded
+    launch, or a full launch queue) leaves the data loader's and the
+    server's threads free to run."""
     with _lock:
         if name not in _libs:
             build([name])
             _libs[name] = ctypes.CDLL(lib_path(name))
         return _libs[name]
+
+
+_entries: Dict[Tuple[str, str], Any] = {}
+_structs: Dict[Tuple[str, int], struct.Struct] = {}
+
+
+def entry(lib_name: str, fn_name: str, argtypes, restype=ctypes.c_int):
+    """The C function ``fn_name`` of csrc/<lib_name>.cu, resolved and given
+    its argtypes once; later calls return the same prepared function."""
+    fn = _entries.get((lib_name, fn_name))
+    if fn is None:
+        fn = getattr(load(lib_name), fn_name)
+        fn.argtypes, fn.restype = argtypes, restype
+        _entries[(lib_name, fn_name)] = fn
+    return fn
+
+
+def _packed(code: str, values) -> bytes:
+    """`values` as a C array (``q``: 64-bit ints, ``f``: floats) in a bytes
+    object, which ctypes passes to a ``c_void_p`` parameter as a pointer to
+    its data; the C side only reads it. Three times cheaper on the host than
+    a ctypes array; one struct.Struct per length."""
+    key = (code, len(values))
+    fmt = _structs.get(key)
+    if fmt is None:
+        fmt = _structs[key] = struct.Struct(f"{len(values)}{code}")
+    return fmt.pack(*values)
+
+
+def current_stream(index: int) -> int:
+    """The raw cudaStream_t of device `index`'s current stream."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def current_device() -> int:
+    """The current CUDA device's index (CUDA is initialised: a tensor lies there)."""
+    return torch._C._cuda_getDevice()
+
+
+def _invoke(lib_name: str, fn, args, device: torch.device) -> None:
+    """fn(*args, stream) on the device's current stream, entering the
+    device's context only when it is not the current device (a device
+    without an index is the current one). A non-zero cudaError_t raises."""
+    index, current = device.index, current_device()
+    if index is None or index == current:
+        err = fn(*args, current_stream(current))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, current_stream(index))
+    if err != 0:
+        raise RuntimeError(f"{lib_name} kernel launch failed: cudaError {err}")
 
 
 def check_problems(kernel: str, operands, shapes, lib_name: str, smem_fn: str, n: int,
@@ -114,10 +170,9 @@ def check_problems(kernel: str, operands, shapes, lib_name: str, smem_fn: str, n
         check_operand(kernel, name, x, shape, torch.float32, dev)
     if min(n, m) < 1 or max(shapes[0]) >= 2 ** 31:
         raise ValueError(f"{kernel} kernel: unsupported shape {tuple(shapes[0])}")
-    smem = getattr(load(lib_name), smem_fn)
-    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_size_t
-    if smem(n, m) > SMEM_LIMIT:
-        raise ValueError(f"{kernel} kernel: n={n}, m={m} need {smem(n, m)} bytes of shared "
+    smem = entry(lib_name, smem_fn, [ctypes.c_int, ctypes.c_int], ctypes.c_size_t)(n, m)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{kernel} kernel: n={n}, m={m} need {smem} bytes of shared "
                          f"memory per block, above {SMEM_LIMIT}")
     return dev
 
@@ -126,14 +181,12 @@ def launch(lib_name: str, fn_name: str, argtypes, args, device: torch.device) ->
     """Call ``fn_name`` of csrc/<lib_name>.cu on the device's current stream:
     tensors pass as their data pointers, the stream last. The C function
     returns the cudaError_t of its launches; non-zero raises."""
-    fn = getattr(load(lib_name), fn_name)
-    if fn.argtypes is None:
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args), stream)
-    if err != 0:
-        raise RuntimeError(f"{lib_name} kernel launch failed: cudaError {err}")
+    fn = entry(lib_name, fn_name, argtypes)
+    _invoke(lib_name, fn, [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args],
+            device)
+
+
+_PTRS_ARGTYPES = [ctypes.c_void_p] * 4
 
 
 def call_ptrs(lib_name: str, fn_name: str, tensors: Sequence[Optional[torch.Tensor]],
@@ -142,28 +195,17 @@ def call_ptrs(lib_name: str, fn_name: str, tensors: Sequence[Optional[torch.Tens
     stream)`` of csrc/<lib_name>.cu on the device's current stream: p holds
     the tensors' data pointers (None passes a null pointer). The C function
     returns the cudaError_t of its launches; non-zero raises."""
-    fn = getattr(load(lib_name), fn_name)
-    if fn.argtypes is None:
-        fn.argtypes, fn.restype = [ctypes.c_void_p] * 4, ctypes.c_int
-    ptrs = (ctypes.c_void_p * len(tensors))(*(None if x is None else x.data_ptr()
-                                              for x in tensors))
-    cdims = (ctypes.c_longlong * len(dims))(*dims)
-    cscales = (ctypes.c_float * max(1, len(scales)))(*scales)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(ptrs, cdims, cscales, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"{lib_name} kernel launch failed: cudaError {err}")
+    fn = entry(lib_name, fn_name, _PTRS_ARGTYPES)
+    ptrs = _packed("q", [0 if x is None else x.data_ptr() for x in tensors])
+    _invoke(lib_name, fn, (ptrs, _packed("q", dims), _packed("f", scales or (0.0,))), device)
 
 
 def workspace(lib_name: str, fn_name: str, dims: Sequence[int]) -> Tuple[int, int]:
     """``fn_name(const long long* dims, long long* out)`` of csrc/<lib_name>.cu:
     the floats of (split-K partials, column partials) a backward needs."""
-    fn = getattr(load(lib_name), fn_name)
-    if fn.argtypes is None:
-        fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_void_p], None
+    fn = entry(lib_name, fn_name, [ctypes.c_void_p, ctypes.c_void_p], None)
     out = (ctypes.c_longlong * 2)()
-    fn((ctypes.c_longlong * len(dims))(*dims), out)
+    fn(_packed("q", dims), out)
     return out[0], out[1]
 
 
@@ -179,25 +221,15 @@ def launch_split_pool(name: str, inputs: Sequence[torch.Tensor], dims: Sequence[
     *dims, stream) and returns the cudaError_t of its launches; non-zero
     raises. ``stats`` are further outputs of the merge (attn_pool.cu: m and
     s [b, nh] f32), None passing a null pointer."""
-    lib = load(name)
-    fwd, tile_rows = getattr(lib, f"{name}_forward"), getattr(lib, f"{name}_tile_rows")
-    if fwd.argtypes is None:
-        fwd.argtypes = ([ctypes.c_void_p] * (len(inputs) + 4 + len(stats))
-                        + [ctypes.c_int] * len(dims) + [ctypes.c_void_p])
-        fwd.restype = ctypes.c_int
-        tile_rows.argtypes = []
-        tile_rows.restype = ctypes.c_int
-    ntiles = -(-t // tile_rows())
-    dev, f32 = inputs[0].device, torch.float32
-    part_m = torch.empty(b, ntiles, nh, dtype=f32, device=dev)
-    part_s = torch.empty(b, ntiles, nh, dtype=f32, device=dev)
-    part_w = torch.empty(b, ntiles, E, dtype=f32, device=dev)
-    out = torch.empty(b, E, dtype=out_dtype, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fwd(*(x.data_ptr() for x in inputs), part_m.data_ptr(), part_s.data_ptr(),
-                  part_w.data_ptr(), out.data_ptr(),
-                  *(None if x is None else x.data_ptr() for x in stats), *dims, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    fwd = entry(name, f"{name}_forward", [ctypes.c_void_p] * (len(inputs) + 4 + len(stats))
+                + [ctypes.c_int] * len(dims) + [ctypes.c_void_p])
+    ntiles = -(-t // entry(name, f"{name}_tile_rows", [])())
+    dev = inputs[0].device
+    # the three partials share one f32 buffer, each part on a 256-byte boundary
+    sizes = [-(-n // 64) * 64 for n in (b * ntiles * nh, b * ntiles * nh, b * ntiles * E)]
+    work = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    out, part = torch.empty(b, E, dtype=out_dtype, device=dev), work.data_ptr()
+    _invoke(name, fwd, [*(x.data_ptr() for x in inputs), part, part + 4 * sizes[0],
+                        part + 4 * (sizes[0] + sizes[1]), out.data_ptr(),
+                        *(None if x is None else x.data_ptr() for x in stats), *dims], dev)
     return out

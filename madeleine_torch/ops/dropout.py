@@ -20,7 +20,8 @@ kernel, bf16 or f32, or raises.
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,8 +31,9 @@ launches = 0   # row 21 launches (forward and backward, one per wrapper call on 
 
 
 def _rows(x: torch.Tensor):
-    n = x.shape[-1] if x.ndim else 1
-    return x.numel() // max(n, 1), n
+    shape = x.shape
+    n = shape[-1] if shape else 1
+    return (x.numel() // n if n else 0), n
 
 
 def dropout_plain(x: torch.Tensor, seed: int, rate: float, row_offset: int = 0,
@@ -45,26 +47,39 @@ def dropout_plain(x: torch.Tensor, seed: int, rate: float, row_offset: int = 0,
     return (x.reshape(m, n).float() * keep).to(x.dtype).reshape(x.shape)
 
 
-@torch.no_grad()
+@functools.lru_cache(maxsize=64)
+def _site_args(rate: float, site: int) -> Tuple[int, float, int]:
+    """(integer threshold, keep scale, Philox stream) of a (rate, site)."""
+    thr, scale = prng.threshold(rate)
+    return thr, scale, prng.dropout_stream(site)
+
+
 def dropout_cuda(x: torch.Tensor, seed: int, rate: float, row_offset: int = 0,
                  site: int = 0) -> torch.Tensor:
-    """Launch row 21 on a CUDA tensor (rate > 0); returns as `dropout_plain`."""
+    """Launch row 21 on a CUDA tensor (rate > 0); returns as `dropout_plain`.
+    The heads launch it on tensors of a few hundred KB, where the host path
+    is the cost: the checks are the cheapest that keep the kernel safe, the
+    threshold, keep scale and stream are memoised per (rate, site), and
+    nothing here records autograd (the output is a fresh tensor the kernel
+    writes)."""
     global launches
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"dropout kernel needs CUDA tensors, got {x.device}")
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"dropout kernel: x must be bf16 or f32, got {x.dtype}")
+    dtype = x.dtype
+    if dtype != torch.bfloat16 and dtype != torch.float32:
+        raise ValueError(f"dropout kernel: x must be bf16 or f32, got {dtype}")
     if rate <= 0.0:
         raise ValueError("dropout kernel: rate must be above 0 (rate 0 is the identity)")
     m, n = _rows(x)
     if m < 1 or n < 1 or m + row_offset > 2 ** 32:
         raise ValueError(f"dropout kernel: unsupported shape {tuple(x.shape)}")
-    _build.check_operand("dropout", "x", x, tuple(x.shape), x.dtype, x.device)
-    thr, scale = prng.threshold(rate)   # the scale reaches the kernel rounded to f32
+    if not x.is_contiguous():
+        raise ValueError("dropout kernel: x must be contiguous")
+    thr, scale, stream = _site_args(rate, site)   # the scale reaches the kernel rounded to f32
     out = torch.empty_like(x)
-    _build.call_ptrs("dropout", "dropout_forward", [x, out],
-                     [m, n, int(x.dtype == torch.bfloat16), int(seed) & prng.MASK32, row_offset,
-                      thr, prng.dropout_stream(site)], [scale], x.device)
+    _build.call_ptrs("dropout", "dropout_forward", (x, out),
+                     (m, n, int(dtype == torch.bfloat16), int(seed) & prng.MASK32, row_offset,
+                      thr, stream), (scale,), out.device)
     launches += 1
     return out
 

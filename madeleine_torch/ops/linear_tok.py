@@ -10,7 +10,8 @@ the port keeps it as the token projector's own kernels. Wt [d_out, E] has
 its input columns permuted to head-major (`madeleine.train_weights`'s wt);
 bt is f32. The plain versions also serve K6/K7's. A CPU tensor takes them
 (any float dtype); a CUDA tensor launches csrc/linear_tok.cu, bf16 only, or
-raises.
+raises. The forward is a TMA + wgmma streaming GEMM (csrc/gemm_wgmma.cuh),
+the backward the mma.sync GEMM K6/K7 share (csrc/gemm_bf16.cuh).
 """
 
 from __future__ import annotations
@@ -48,7 +49,9 @@ def linear_tok_bwd_plain(y, g, wt) -> Dict[str, torch.Tensor]:
 
 
 def _check(y, wt, bt, kernel):
-    if y.device.type != "cuda":
+    """(M, E, d_out) after the operand checks, each tensor attribute read
+    once: at a small shape the host's launch is most of the forward's time."""
+    if not y.is_cuda:
         raise ValueError(f"{kernel} kernel needs CUDA tensors, got {y.device}")
     if y.dtype != torch.bfloat16:
         raise NotImplementedError(f"{kernel} kernel runs in bf16 only, got {y.dtype} "
@@ -58,21 +61,27 @@ def _check(y, wt, bt, kernel):
     if E % 8 or dout % 8 or dout > 4096 or b < 1 or t < 1:
         raise ValueError(f"{kernel} kernel: unsupported widths E={E}, d_out={dout} "
                          f"(needs E and d_out multiples of 8, d_out <= 4096)")
-    _build.check_operand(kernel, "y", y, (b, t, E), torch.bfloat16, y.device)
-    _build.check_operand(kernel, "wt", wt, (dout, E), torch.bfloat16, y.device)
+    if not y.is_contiguous():
+        raise ValueError(f"{kernel} kernel: y must be contiguous")
+    dev = y.device
+    _build.check_operand(kernel, "wt", wt, (dout, E), torch.bfloat16, dev)
+    for name, x in (("y", y), ("wt", wt)):
+        if x.data_ptr() % 16:   # TMA and cp.async read 16-byte aligned rows
+            raise ValueError(f"{kernel} kernel: {name} must start on a 16-byte boundary, "
+                             f"got address {x.data_ptr():#x}")
     if bt is not None:
-        _build.check_operand(kernel, "bt", bt, (dout,), torch.float32, y.device)
+        _build.check_operand(kernel, "bt", bt, (dout,), torch.float32, dev)
     return b * t, E, dout
 
 
-@torch.no_grad()
 def linear_tok_fwd_cuda(y, wt, bt) -> torch.Tensor:
-    """Launch kernel 19 on CUDA tensors; returns as `linear_tok_fwd_plain`."""
+    """Launch kernel 19 on CUDA tensors; returns as `linear_tok_fwd_plain`.
+    Records no autograd (the output is a fresh tensor the kernel writes)."""
     global fwd_launches
     M, E, dout = _check(y, wt, bt, "linear_tok_fwd")
-    tok = torch.empty(*y.shape[:2], dout, dtype=torch.bfloat16, device=y.device)
-    _build.call_ptrs("linear_tok", "linear_tok_forward", [y, wt, bt, tok], [M, E, dout], [],
-                     y.device)
+    tok = y.new_empty((y.shape[0], y.shape[1], dout))
+    _build.call_ptrs("linear_tok", "linear_tok_forward", (y, wt, bt, tok), (M, E, dout), (),
+                     tok.device)
     fwd_launches += 1
     return tok
 

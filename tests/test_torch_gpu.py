@@ -559,3 +559,45 @@ def test_nofused_softmax_step_launches_the_training_pool(cuda_device, monkeypatc
               "gated_logits_bwd", "linear_tok_fwd", "linear_tok_bwd"):
         assert counts[k] == 5, (k, counts[k])
     assert counts["encoder_train_fwd"] == counts["encoder_train_bwd"] == 0
+
+
+@pytest.mark.parametrize("b,t,E,dout", [(3, 1000, 2048, 128), (3, 1000, 2048, 136),
+                                         (2, 700, 2048, 256), (3, 1000, 544, 128)],
+                         ids=["ragged_m", "dout136", "dout256", "e544"])
+def test_linear_tok_forward_matches_plain(cuda_device, b, t, E, dout):
+    """Kernel 19, the TMA + wgmma GEMM, against its plain version at a
+    ragged M (3000 rows: a partial last 128-row tile), d_out 136 (a ragged
+    second column tile), 256 (two tiles) and E 544 (a partial last k
+    tile): atol 3e-2, or one bf16 rounding step of the value where larger;
+    two launches bitwise equal; each launch counted once."""
+    from madeleine_torch.ops import linear_tok as lt
+
+    g = torch.Generator().manual_seed(9)
+    y = torch.randn(b, t, E, generator=g).to(cuda_device, torch.bfloat16)
+    wt = (torch.randn(dout, E, generator=g) / E ** 0.5).to(cuda_device, torch.bfloat16)
+    bt = torch.randn(dout, generator=g).to(cuda_device)
+    before = lt.fwd_launches
+    got, again = lt.linear_tok_fwd_cuda(y, wt, bt), lt.linear_tok_fwd_cuda(y, wt, bt)
+    assert lt.fwd_launches == before + 2
+    assert torch.equal(got, again) and got.shape == (b, t, dout)
+    want = lt.linear_tok_fwd_plain(y, wt, bt).float()
+    bar = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8).clamp_min(3e-2)
+    assert bool(((got.float() - want).abs() <= bar).all())
+
+
+def test_linear_tok_forward_refuses_a_misaligned_operand(cuda_device):
+    """A y that starts 2 bytes past a 16-byte boundary (contiguous, so only
+    its address is wrong) raises before any launch; so does a CPU wt."""
+    from madeleine_torch.ops import linear_tok as lt
+
+    E, dout = 256, 128
+    buf = torch.zeros(2 * 64 * E + 1, device=cuda_device, dtype=torch.bfloat16)
+    y = buf[1:].view(2, 64, E)
+    wt = torch.zeros(dout, E, device=cuda_device, dtype=torch.bfloat16)
+    bt = torch.zeros(dout, device=cuda_device)
+    before = lt.fwd_launches
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        lt.linear_tok_fwd_cuda(y, wt, bt)
+    with pytest.raises(ValueError, match="linear_tok_fwd kernel"):
+        lt.linear_tok_fwd_cuda(y.clone(), wt.cpu(), bt)
+    assert lt.fwd_launches == before

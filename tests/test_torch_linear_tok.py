@@ -23,13 +23,16 @@ def _data(bb=2, t=70, E=64, d_out=16, seed=0):
     return y, w, b, g
 
 
-@pytest.mark.parametrize("t", [70, 45], ids=["t70", "ragged_t45"])
-def test_matches_jax_kernels(t):
+@pytest.mark.parametrize("t,d_out", [(70, 16), (45, 16), (45, 136), (70, 256)],
+                         ids=["t70", "ragged_t45", "ragged_dout136", "dout256"])
+def test_matches_jax_kernels(t, d_out):
     """tok at rtol 1e-5 / atol 1e-5 (JAX's forward at t_block 32); dy, dW and
     db at rtol 1e-4 / atol 1e-4 (tests/test_linear_tok.py's bars): sums over
     up to 140 tokens in another order. t = 45 is no multiple of the t_block,
-    so JAX's padded rows must not reach dW or db."""
-    y, w, b, g = _data(t=t, seed=t)
+    so JAX's padded rows must not reach dW or db. d_out 136 and 256 are the
+    card's forward's edge widths: an output tile of 128 columns with a
+    ragged last one, and two full ones."""
+    y, w, b, g = _data(t=t, d_out=d_out, seed=t)
     want = np.asarray(_fwd_call(jnp.asarray(y), jnp.asarray(w), jnp.asarray(b), t_block=32,
                                 interpret=True))
     got = lt.linear_tok_fwd_plain(to_torch(y), to_torch(w.T.copy()), to_torch(b))
