@@ -187,6 +187,7 @@ import io
 import itertools
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -361,7 +362,25 @@ def phase_build(state):
     ptxas = {n: [ln.strip() for ln in r.splitlines()
                  if "registers" in ln or "spill" in ln or "smem" in ln]
              for n, r in reports.items()}
-    emit({"phase": "build", "seconds": secs, "built": sorted(reports), "ptxas": ptxas})
+    emit({"phase": "build", "seconds": secs, "built": sorted(reports), "ptxas": ptxas,
+          "wgmma_kernel_spills": _spills(reports, ("gemm_kernel", "gate_logits_sum"))})
+
+
+def _spills(reports, names):
+    """{library: {kernel: [spill store bytes, spill load bytes]}} of the
+    kernels whose mangled names contain one of `names`, from ptxas -v."""
+    out = {}
+    for lib, rep in reports.items():
+        kernel = None
+        for ln in rep.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", ln)
+            if m:
+                kernel = m.group(1) if any(n in m.group(1) for n in names) else None
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m and kernel:
+                out.setdefault(lib, {})[kernel] = [int(m.group(1)), int(m.group(2))]
+                kernel = None
+    return out
 
 
 def _kernel_inputs(torch, b, t, lengths, gen):
@@ -998,6 +1017,79 @@ def _check_train_kernels(torch, w, x, bias, rates, gen, need_dx=False):
     return rep, got, fwd_args, bwd_args
 
 
+def _product_rates(torch, w, gen, b=65, t=2048):
+    """Device ms (back to back) and TFLOP/s of each product K6 and K7 run at
+    their call shape [b, t], through the GEMM's own entry point
+    (ops/gemm.py) on random operands of the same shapes and layouts: K6's
+    three layers (f32 + bias), batched gates (the logit epilogue, real gate
+    rate) and token projector (bf16); K7's input gradients (MN-major
+    weights, f32 accumulate, dx bf16 when d_in > 512) and weight gradients
+    (both MN-major, split over the tokens)."""
+    from madeleine_torch.ops import encoder_train as et
+    from madeleine_torch.ops import gemm as G
+
+    hd, d_in = w["w1"].shape
+    nh, f, e = w["wa"].shape
+    dout, E = w["wt"].shape
+    M = b * t
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rnd(*shape):
+        return torch.from_numpy(gen.standard_normal(shape).astype(np.float32)).cuda().to(bf)
+
+    x, h, y = rnd(M, d_in), rnd(M, hd), rnd(M, E)
+    dz3, dzg, dtok = rnd(M, E), rnd(M, 2 * nh * f), rnd(M, dout)
+    wab, bab = et.permute_gates(w)
+    wab = wab.reshape(2 * nh * f, e)
+    wab_bwd = torch.cat([w["wa"], w["wb"]], dim=1).reshape(2 * nh * f, e).contiguous()
+    zf = torch.empty(M, max(hd, E), dtype=f32, device="cuda")
+    zb = torch.empty(M, dout, dtype=bf, device="cuda")
+    dy = torch.zeros(M, E, dtype=f32, device="cuda")
+    dxo = torch.empty(M, d_in, dtype=bf, device="cuda")
+    gates = {"ap": torch.empty(M, nh * f, dtype=bf, device="cuda"),
+             "bp": torch.empty(M, nh * f, dtype=bf, device="cuda"),
+             "lpart": torch.empty(M, nh, f // 64, dtype=f32, device="cuda"), "wc": w["wc"],
+             "t": t, "row_offset": 0, "seed": 1, "rate": et.GATE_RATE}
+    kk = dict(a_mn=False, b_mn=False)
+    kmn = dict(a_mn=False, b_mn=True)
+    mnmn = dict(a_mn=True, b_mn=True)
+    calls = {
+        "fwd_layer1": ((x, w["w1"], zf), dict(kk, M=M, N=hd, K=d_in, bias=w["b1"]), 1),
+        "fwd_layer2": ((h, w["w2"], zf), dict(kk, M=M, N=hd, K=hd, bias=w["b2"]), 1),
+        "fwd_layer3": ((h, w["w3"], zf), dict(kk, M=M, N=E, K=hd, bias=w["b3"]), 1),
+        "fwd_gates": ((y, wab, gates["lpart"]),
+                      dict(kk, M=M, N=2 * f, K=e, batches=nh, a_off=(0, e), b_off=(2 * f, 0),
+                           bias=bab, stride_bias=2 * f, gates=gates), nh),
+        "fwd_tok": ((y, w["wt"], zb), dict(kk, M=M, N=dout, K=E, bias=w["bt"]), 1),
+        "bwd_dgrad_tok": ((dtok, w["wt"], dy), dict(kmn, M=M, N=E, K=dout, beta=True), 1),
+        "bwd_dgrad_gates": ((dzg, wab_bwd, dy),
+                            dict(kmn, M=M, N=e, K=2 * f, batches=nh, a_off=(0, 2 * f),
+                                 b_off=(0, 2 * f), ldc=E, stride_c=e, beta=True), nh),
+        "bwd_dgrad_layer3": ((dz3, w["w3"], zf), dict(kmn, M=M, N=hd, K=E), 1),
+        "bwd_dgrad_layer2": ((h, w["w2"], zf), dict(kmn, M=M, N=hd, K=hd), 1),
+        "bwd_wgrad_tok": ((dtok, y, torch.empty(1, dout, E, device="cuda")),
+                          dict(mnmn, M=dout, N=E, K=M, wgrad=True), 1),
+        "bwd_wgrad_gates": ((dzg, y, torch.empty(nh, 2 * f, e, device="cuda")),
+                            dict(mnmn, M=2 * f, N=e, K=M, batches=nh, a_off=(2 * f, 0),
+                                 b_off=(e, 0), wgrad=True), nh),
+        "bwd_wgrad_layer3": ((dz3, h, torch.empty(1, E, hd, device="cuda")),
+                             dict(mnmn, M=E, N=hd, K=M, wgrad=True), 1),
+        "bwd_wgrad_layer2": ((h, h, torch.empty(1, hd, hd, device="cuda")),
+                             dict(mnmn, M=hd, N=hd, K=M, wgrad=True), 1),
+        "bwd_wgrad_layer1": ((h, x, torch.empty(1, hd, d_in, device="cuda")),
+                             dict(mnmn, M=hd, N=d_in, K=M, wgrad=True), 1),
+    }
+    if d_in > hd:   # the stain-encoded call's dx
+        calls["bwd_dgrad_dx"] = ((h, w["w1"], dxo), dict(kmn, M=M, N=d_in, K=hd), 1)
+    out = {}
+    for name, (args, kw, nb) in calls.items():
+        ms = cuda_ms_back_to_back(lambda: G.wgmma_gemm(*args, **kw), calls=20)
+        flops = 2.0 * kw["M"] * kw["N"] * kw["K"] * nb
+        out[name] = {"ms": ms, "tflops": flops / ms / 1e9, "gflop": flops / 1e9,
+                     "mnk_batches": [kw["M"], kw["N"], kw["K"], nb]}
+    return out
+
+
 def phase_train_kernels(state):
     import torch
     from madeleine_torch.models.madeleine import MADELEINE, train_weights
@@ -1101,19 +1193,31 @@ def phase_train_kernels(state):
         dx = shape_name == "step_call_se"
         k6 = cuda_ms(lambda: et.encoder_train_fwd_cuda(*fa))
         k7 = cuda_ms(lambda: et.encoder_train_bwd_cuda(*ba, need_dx=dx))
+        k6_b2b = cuda_ms_back_to_back(lambda: et.encoder_train_fwd_cuda(*fa), calls=20)
+        k7_b2b = cuda_ms_back_to_back(lambda: et.encoder_train_bwd_cuda(*ba, need_dx=dx),
+                                      calls=20)
         with torch.no_grad():
             k6p = cuda_ms(lambda: et.encoder_train_fwd_plain(*fa), warmup=1, iters=5)
             k7p = cuda_ms(lambda: et.encoder_train_bwd_plain(*ba, need_dx=dx), warmup=1, iters=5)
         ff, fb, bf, bb_ = _encoder_train_work(bb, tt, fa[2], need_dx=dx)
         (k6b, k6by), (k7b, k7by) = _bound(ff, fb), _bound(bf, bb_)
         times[shape_name] = {"b": bb, "t": tt, "d_in": d_in, "need_dx": dx,
-                             "fwd_ms": k6, "fwd_plain_ms": k6p,
+                             "fwd_ms": k6, "fwd_ms_back_to_back": k6_b2b,
+                             "bwd_ms_back_to_back": k7_b2b, "fwd_plain_ms": k6p,
                              "fwd_bound_ms": k6b, "fwd_bound_by": k6by,
                              "fwd_share_of_bound": k6b / k6, "bwd_ms": k7,
                              "bwd_plain_ms": k7p, "bwd_bound_ms": k7b, "bwd_bound_by": k7by,
                              "bwd_share_of_bound": k7b / k7, "fwd_gflop": ff / 1e9,
                              "bwd_gflop": bf / 1e9, "fwd_gb": fb / 1e9, "bwd_gb": bb_ / 1e9}
     del timed, fa, ba
+    products = {name: _product_rates(torch, w_, gen)
+                for name, w_ in (("step_call", w), ("step_call_se", w_se))}
+    for name in products:
+        times[name]["products"] = products[name]
+        times[name]["products_fwd_ms"] = sum(v["ms"] for k, v in products[name].items()
+                                             if k.startswith("fwd"))
+        times[name]["products_bwd_ms"] = sum(v["ms"] for k, v in products[name].items()
+                                             if k.startswith("bwd"))
     st = times["step_call"]
     reps = [r for r in checks.values() if isinstance(r, dict)]
     err_f = max(max(r["pooled_err"], r["tok_err"], r["logits_err"]) for r in reps)
@@ -2759,7 +2863,14 @@ def phase_profile(state):
                 torch.cuda.synchronize()
             single = sum(r[2] for r in _profile_rows(prof))
             rows = _profiled(torch, fn)
+            # every product of K6/K7 runs on the TMA + wgmma GEMM
+            left = [[k, c, ms] for k, c, ms in rows if "gemm_bf16_kernel" in k]
+            if left:
+                raise AssertionError(f"profile: K6/K7 ({name}) still launch the mma.sync GEMM: "
+                                     f"{left}")
             out[name] = {"total_ms": sum(r[2] for r in rows), "single_window_total_ms": single,
+                         "wgmma_gemm_ms": sum(ms for k, _, ms in rows if "wg::gemm_kernel" in k),
+                         "mma_sync_gemm_launches": 0,
                          "by_kernel_ms": [[k, c, ms] for k, c, ms in rows[:16]]}
     del x, w
     # one full-width train step of each objective (after two unprofiled
@@ -2785,8 +2896,15 @@ def phase_profile(state):
 
             rows = _profiled(torch, one_step)
         busy, wall = sum(r[2] for r in rows), start.elapsed_time(end)
+        # rows 15-18 and 20 (the no-fused step's per-op kernels) stay on the
+        # mma.sync GEMM; the fused steps launch it nowhere
+        mma = sum(c for k, c, _ in rows if "gemm_bf16_kernel" in k)
+        if (mma > 0) != no_fused:
+            raise AssertionError(f"profile: {name} launched the mma.sync GEMM {mma} times")
         steps[name] = {"wall_ms": wall, "device_busy_ms": busy,
                        "device_idle_share": 1.0 - busy / wall, **_split_got_rows(rows),
+                       "mma_sync_gemm_launches": mma,
+                       "wgmma_gemm_ms": sum(ms for k, _, ms in rows if "wg::gemm_kernel" in k),
                        "by_kernel_ms": [[k, c, ms] for k, c, ms in rows[:24]]}
         del step, batch
     # the eval forward at full width (bf16): device time by kernel, K3's part

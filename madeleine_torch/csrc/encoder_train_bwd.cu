@@ -17,15 +17,19 @@
 // product but layer 1; with dx, layer 1's too, 7.9 M at d_in 544): the dense
 // bf16 rate bounds it, as for K6.
 //
-// Design (simple first): the GEMM of gemm_bf16.cuh for the input gradients
-// (accumulating into the f32 cotangent in place) and the weight gradients,
-// whose reduction runs over all tokens split into pieces that are summed in
-// piece order; row kernels that loop over 64-row tiles for the elementwise
-// adjoints, each thread owning 4 columns, so the bias, LN scale and shift
-// gradients are per-tile column partials summed in tile order. Nothing uses
-// atomics: two launches on the same inputs give bitwise-equal gradients.
-// The gate, token-projector and layer adjoints are train_rows.cuh's, shared
-// with the per-op kernels 16, 18 and 20.
+// Design. Every product runs on the TMA + wgmma GEMM of gemm_wgmma.cuh (PR
+// 3's first version used the mma.sync GEMM of gemm_bf16.cuh, at about 210
+// TFLOP/s): the input gradients with an MN-major B (the weights as stored),
+// accumulating into the f32 cotangent in place, the gates' batched over
+// heads by coordinates, dx in bf16; the weight gradients with both operands
+// MN-major (token-major activations and cotangents), their reduction over
+// all tokens split into pieces of whole k tiles that are summed in piece
+// order. Row kernels loop over 64-row tiles for the elementwise adjoints,
+// each thread owning 4 columns, so the bias, LN scale and shift gradients
+// are per-tile column partials summed in tile order. Nothing uses atomics:
+// two launches on the same inputs give bitwise-equal gradients. The gate,
+// token-projector and layer adjoints are train_rows.cuh's, shared with the
+// per-op kernels 16, 18 and 20 (which stay on the mma.sync GEMM).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,8 +42,7 @@ namespace {
 using madeleine::bf16;
 using madeleine::Dropout;
 using madeleine::ROW_TILE;
-using madeleine::dgrad;
-using madeleine::wgrad;
+using madeleine::Gemm;
 
 // One row per block, W/4 threads: H = bf16(gelu(u * s + sh) * mask).
 __global__ void recon_h(const bf16* __restrict__ U, const float* __restrict__ s,
@@ -142,11 +145,9 @@ long long colpart_stride(const Shapes& S) {
 // Floats of workspace the backward needs: [split-K partials, column partials].
 extern "C" void encoder_train_bwd_workspace(const long long* dims, long long* out) {
   const Shapes S = shapes_of(dims);
-  long long w = madeleine::wgrad_work_floats(S.dout, S.E, S.M, 1);
-  const long long cand[4] = {madeleine::wgrad_work_floats(2 * S.f, S.e, S.M, S.nh),
-                             madeleine::wgrad_work_floats(S.E, S.hd, S.M, 1),
-                             madeleine::wgrad_work_floats(S.hd, S.hd, S.M, 1),
-                             madeleine::wgrad_work_floats(S.hd, S.d_in, S.M, 1)};
+  long long w = madeleine::stack_bwd_work<Gemm::WGMMA>(S.M, S.d_in, S.hd, S.E);
+  const long long cand[2] = {madeleine::wgrad_work<Gemm::WGMMA>(2 * S.f, S.e, S.M, S.nh),
+                             madeleine::wgrad_work<Gemm::WGMMA>(S.dout, S.E, S.M, 1)};
   for (long long c : cand) w = c > w ? c : w;
   out[0] = w;
   out[1] = S.ntr * colpart_stride(S);
@@ -205,17 +206,19 @@ extern "C" int encoder_train_backward(void** p, const long long* dims, const flo
   CHECK(cudaGetLastError());
   CHECK(madeleine::colsum_reduce(part, ldp, 0, nh, ntr, dbc, st));
   // 2. token projector term: DY += dtok . Wt; dWt = dtok^T y; dbt
-  CHECK(dgrad(dtok, S.dout, 0, wt, E, 0, DY, E, 0, M, E, S.dout, 1, 1, st));
-  CHECK(madeleine::tok_wgrad(dtok, Y, dwt, dbt, work, part, ldp, M, E, S.dout, st));
+  CHECK(madeleine::dgrad<Gemm::WGMMA>(dtok, S.dout, 0, wt, E, 0, DY, E, 0, M, E, S.dout, 1, 1,
+                                      st));
+  CHECK(madeleine::tok_wgrad<Gemm::WGMMA>(dtok, Y, dwt, dbt, work, part, ldp, M, E, S.dout, st));
   // 3. gate terms: DZG; DY_h += [dza | dzb]_h . [Wa; Wb]_h; dW[a|b]_h = DZG_h^T y_h
   madeleine::gate_bwd<bf16><<<ntr, nh * f / 4, 0, st>>>(ap, bp, (long long)nh * f, f, DL, wc,
                                                         DZG, part, ldp, M, t, nh, f, ro, dgate);
   CHECK(cudaGetLastError());
   CHECK(madeleine::colsum_reduce(part, ldp, 0, nh * f, ntr, dwc, st));
   CHECK(madeleine::colsum_reduce(part, ldp, nh * f, 2 * nh * f, ntr, dbab, st));
-  CHECK(dgrad(DZG, 2LL * nh * f, 2LL * f, wab, e, 2LL * f * e, DY, E, e, M, e, 2 * f, nh, 1,
-              st));
-  CHECK(wgrad(DZG, 2LL * nh * f, 2LL * f, Y, E, e, 2 * f, e, M, nh, dwab, work, st));
+  CHECK(madeleine::dgrad<Gemm::WGMMA>(DZG, 2LL * nh * f, 2LL * f, wab, e, 2LL * f * e, DY, E,
+                                      e, M, e, 2 * f, nh, 1, st));
+  CHECK(madeleine::wgrad<Gemm::WGMMA>(DZG, 2LL * nh * f, 2LL * f, Y, E, e, 2 * f, e, M, nh, dwab,
+                                      work, st));
   // 4-6. the three layers on the summed cotangent; dx only when the caller asks for it
   madeleine::StackBwd sb{};
   sb.x = x; sb.h1 = H1; sb.h2 = H2;
@@ -233,6 +236,6 @@ extern "C" int encoder_train_backward(void** p, const long long* dims, const flo
   sb.dx = dx;
   sb.M = M; sb.t = t; sb.d_in = S.d_in; sb.hd = hd; sb.E = E; sb.row_offset = ro;
   sb.d = dpre;
-  CHECK(madeleine::stack_bwd(sb, (const float*)DY, st));
+  CHECK(madeleine::stack_bwd<Gemm::WGMMA>(sb, (const float*)DY, st));
   return 0;
 }

@@ -19,19 +19,33 @@
 // widths (7.86 MFLOP) against ~16 KB of traffic per token (x in; residuals,
 // tokens and logits out): the 989 TFLOP/s of dense bf16 bounds it.
 //
-// Design (simple first): a fixed sequence of launches of one tiled mma.sync
-// GEMM (gemm_bf16.cuh) and row kernels. Each pre-LN product lands in an f32
-// scratch row block; a row kernel (one row per block) takes its LayerNorm
-// statistics over the whole row (2048 columns for layer 3, which is why K1
-// runs that layer twice; here the row is in memory anyway), applies GELU and
-// dropout, and writes the residuals and the next product's bf16 operand.
-// Layer 3 writes y32 back into the scratch in place. The gate products of all
-// heads run as one batched GEMM with tanh / sigmoid in the epilogue; a row
-// kernel applies gate dropout and reduces to the logits. The pool splits each
-// bag into 64-token tiles whose (m, s, w) partials are merged in tile order,
-// as pool_combine.cuh does (no atomics: launches are bitwise reproducible).
-// The layer stack, the gate products and row kernel and the token projector
-// are train_rows.cuh's, shared with the per-op kernels 15, 17 and 19.
+// Design. PR 3's first version ran every product on the mma.sync GEMM of
+// gemm_bf16.cuh (128 x 128 tiles, a 3-stage cp.async ring) at about 165
+// TFLOP/s, and sent the gate products through device memory in f32 (G [M,
+// nh 2f], 2.2 GB at the step's call shape) only for a row kernel to form the
+// logits. Now:
+//   - every product runs on the TMA + wgmma GEMM of gemm_wgmma.cuh (one
+//     producer thread, two ping-pong consumer warpgroups, a 4-stage ring,
+//     one persistent block per SM): the three layers with f32 output and
+//     bias into an f32 scratch row block, the token projector as kernel 19's
+//     instantiation (bf16 output);
+//   - a row kernel (one row per block) takes each layer's LayerNorm
+//     statistics over the whole row (2048 columns for layer 3, which is why
+//     K1 runs that layer twice; here the row is in memory anyway), applies
+//     GELU and dropout, and writes the residuals and the next product's bf16
+//     operand; layer 3 writes y32 back into the scratch in place;
+//   - the gate products of all heads run as one batched launch whose
+//     epilogue is the gate itself (gemm_wgmma.cuh::epilogue_gates): the
+//     wrapper permutes [Wa; Wb]'s rows so that each 128-column tile holds 64
+//     tanh and the same 64 sigmoid columns, the epilogue writes a_pre and
+//     b_pre in bf16, applies the gate dropout (the keys of gated_logits'
+//     row kernel) and writes one partial logit per 64 columns; gate_logits_sum
+//     adds the partials in chunk order, bc and the mask bias. G is gone;
+//   - the pool splits each bag into 64-token tiles whose (m, s, w) partials
+//     are merged in tile order, as pool_combine.cuh does.
+// No atomics anywhere: launches are bitwise reproducible. The layer stack is
+// train_rows.cuh's, shared with the per-op kernel 15 (which stays on the
+// mma.sync GEMM).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -116,6 +130,19 @@ __global__ void pool_merge(const float* __restrict__ part_m, const float* __rest
   }
 }
 
+// One thread per (row, head): l = the partials of its f / 64 column chunks
+// summed in chunk order + bc[h] + bias[row].
+__global__ void gate_logits_sum(const float* __restrict__ lpart, const float* __restrict__ bc,
+                                const float* __restrict__ bias, float* __restrict__ l,
+                                long long M, int nh, int chunks) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= M * nh) return;
+  const float* pp = lpart + i * chunks;
+  float s = 0.f;
+  for (int c = 0; c < chunks; ++c) s += pp[c];
+  l[i] = s + bc[i % nh] + (bias ? bias[i / nh] : 0.f);
+}
+
 }  // namespace
 
 // dims: b, t, d_in, hidden, nh, e, f, d_out, seed, row_offset, thr_pre, thr_gate.
@@ -136,7 +163,7 @@ extern "C" int encoder_train_forward(void** p, const long long* dims, const floa
   const float *b1 = (const float*)p[3], *s1 = (const float*)p[4], *t1 = (const float*)p[5];
   const float *b2 = (const float*)p[7], *s2 = (const float*)p[8], *t2 = (const float*)p[9];
   const float *b3 = (const float*)p[11], *s3 = (const float*)p[12], *t3 = (const float*)p[13];
-  const bf16* wab = (const bf16*)p[14];
+  const bf16* wab = (const bf16*)p[14];   // rows permuted per head (ops/encoder_train.py)
   const float *bab = (const float*)p[15], *wc = (const float*)p[16], *bc = (const float*)p[17];
   const bf16* wt = (const bf16*)p[18];
   const float* bt = (const float*)p[19];
@@ -148,7 +175,7 @@ extern "C" int encoder_train_forward(void** p, const long long* dims, const floa
   float* rstd = (float*)p[30];
   float* Z = (float*)p[31];
   bf16 *H1 = (bf16*)p[32], *H2 = (bf16*)p[33], *Y = (bf16*)p[34];
-  float* G = (float*)p[35];
+  float* lpart = (float*)p[35];   // [M, nh, f / 64] partial logits
   float *part_m = (float*)p[36], *part_s = (float*)p[37], *part_w = (float*)p[38];
   // pre-attention layers: Z = A W^T + bias, then LN / GELU / dropout rows;
   // layer 3 leaves y32 in Z for the pool
@@ -165,17 +192,29 @@ extern "C" int encoder_train_forward(void** p, const long long* dims, const floa
   sf.M = M; sf.t = t; sf.d_in = d_in; sf.hd = hd; sf.E = E; sf.row_offset = row_offset;
   sf.y32 = 1;
   sf.d = dpre;
-  cudaError_t err = madeleine::stack_fwd(sf, st);
+  cudaError_t err = madeleine::stack_fwd<madeleine::Gemm::WGMMA>(sf, st);
   if (err != cudaSuccess) return (int)err;
-  // gate products of every head in one batched launch: G_h = act(y_h Wab_h^T + bab_h)
-  err = madeleine::gate_products(Y, wab, bab, G, M, nh, e, f, st);
-  if (err != cudaSuccess) return (int)err;
-  madeleine::gate_logits_fwd<<<M, nh * f / 4, 0, st>>>(G, wc, bc, bias, l, ap, bp, nh, f, t,
-                                                        row_offset, dgate);
+  // gate products of every head in one batched launch, the gates and their
+  // partial logits in its epilogue: batch h reads y at column h e and the
+  // permuted [Wa; Wb]_h at row h 2f
+  {
+    const madeleine::WgOperand a{Y, E, M, E, 0, e};
+    const madeleine::WgOperand bw{wab, e, 2LL * nh * f, e, 2 * f, 0};
+    madeleine::wg::Params gp = madeleine::wg_params(nullptr, 2 * f, bab, M, 2 * f, e);
+    gp.strideBias = 2LL * f;
+    gp.batches = nh;
+    gp.ap = ap; gp.bp = bp; gp.lpart = lpart; gp.wc = wc;
+    gp.f = f; gp.t = t; gp.row_offset = row_offset;
+    gp.d = dgate;
+    err = madeleine::wg_gemm<false, false, madeleine::wg::EPI_GATES>(a, bw, gp, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  gate_logits_sum<<<(unsigned)(((long long)M * nh + 255) / 256), 256, 0, st>>>(
+      lpart, bc, bias, l, M, nh, f / 64);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  // token projector
-  err = madeleine::tok_product(Y, wt, bt, tok, M, E, dout, st);
+  // token projector: kernel 19's product
+  err = madeleine::gemm_tn_wgmma(Y, wt, bt, tok, M, dout, E, st);
   if (err != cudaSuccess) return (int)err;
   // softmax pool of y32 (in Z)
   const int ntiles = (t + POOL_TM - 1) / POOL_TM;

@@ -114,10 +114,12 @@ extern "C" int gated_logits_backward(void** p, const long long* dims, const floa
       cudaSuccess)
     return (int)err;
   // dy_h = [dza | dzb]_h . [Wa; Wb]_h: both branches in one f32 sum, cast once
-  if ((err = madeleine::dgrad<bf16>(DZG, 2LL * nh * f, 2LL * f, wab, e, 2LL * f * e, dy, D.E, e,
-                                    M, e, 2 * f, nh, 0, st)) != cudaSuccess)
+  using madeleine::Gemm;
+  if ((err = madeleine::dgrad<Gemm::MMA_SYNC, bf16>(DZG, 2LL * nh * f, 2LL * f, wab, e,
+                                                    2LL * f * e, dy, D.E, e, M, e, 2 * f, nh, 0,
+                                                    st)) != cudaSuccess)
     return (int)err;
   // dW[a|b]_h = DZG_h^T y_h
-  return (int)madeleine::wgrad(DZG, 2LL * nh * f, 2LL * f, y, D.E, e, 2 * f, e, M, nh, dwab,
-                               work, st);
+  return (int)madeleine::wgrad<Gemm::MMA_SYNC>(DZG, 2LL * nh * f, 2LL * f, y, D.E, e, 2 * f, e,
+                                               M, nh, dwab, work, st);
 }

@@ -1,36 +1,58 @@
-// A streaming bf16 GEMM for Hopper: TMA loads, wgmma math, one persistent
-// block per SM.
+// A persistent bf16 GEMM for Hopper: TMA loads, wgmma math, one block per SM.
 //
-//   C[M, N] (bf16) = A[M, K] . B[N, K]^T + bias[N]   (f32 accumulation and bias)
+//   C[z][m, n] (+)= epi(sum_k A_z(m, k) B_z(n, k) + bias_z[n])   (f32 accumulation)
 //
-// A and B are both K-major (row-major with K contiguous): wgmma's native bf16
-// "TN" case, so nothing is transposed. The token projector (linear_tok.cu)
-// is its first user: y [M, E] times Wt [dout, E].
+// Each operand is K-major (row-major with k contiguous: element (r, k) at
+// P[r * ld + k]) or MN-major (element (r, k) at P[k * ld + r]); the kernel is
+// instantiated per pair of layouts, so one kernel takes the forward products
+// X.W^T (both K-major), the input gradients dZ.W (B MN-major) and the weight
+// gradients dZ^T.H (both MN-major, the reduction over every token).
+//
+// Batches are coordinates, not pointers: batch z's operand tile sits at
+// off_mn * z along the operand's m (or n) axis and off_k * z along its k axis
+// of one tensor map, so the per-head gate products read y at column h e and
+// [Wa; Wb] at row h 2f. Output z is at C + z strideC (and its bias at bias +
+// z strideBias). Split-K cuts the k range into `splits` pieces of whole k
+// tiles, each piece's tile going to C + (batch splits + split) strideC;
+// splitk_reduce_kernel (gemm_bf16.cuh) then sums the pieces in split order.
+// No atomics anywhere: every output element comes from one warpgroup in a
+// fixed k order, so two launches give bitwise-equal results.
 //
 // Design (Hopper's usual shape, hopper-kernels guide section 1):
-//   - output tiles of 64 rows x 128 columns, k tiles of 64 (128 bytes of
-//     bf16: one row of the 128-byte swizzle), a ring of STAGES stages of A
-//     [64, 64] and B [128, 64] tiles in shared memory, each stage with a
-//     "full" and an "empty" mbarrier;
+//   - output tiles of 128 rows x 128 columns (64 rows for the gate epilogue,
+//     see tile_rows), k tiles of 64 (128 bytes of bf16: one row of the
+//     128-byte swizzle), a ring of STAGES stages of A and B tiles in shared
+//     memory, each stage with a "full" and an "empty" mbarrier. A K-major
+//     tile is one TMA box of [rows, 64 k]; an MN-major tile is [64 k, 64 mn]
+//     boxes side by side (128 bytes of m or n per k row, as wide as the
+//     128-byte swizzle allows);
 //   - warpgroup 0 is the producer: one thread starts cp.async.bulk.tensor
 //     (TMA) loads with 128-byte swizzle, tile after tile; the hardware
 //     zero-fills rows and columns outside the tensors, so the ragged M and N
-//     tails and a K that is no multiple of 64 need no code;
+//     tails and a K that is no multiple of 64 need no code (the launcher
+//     checks that a k tile past K can only read zeros);
 //   - warpgroups 1 and 2 are the consumers and take the block's tiles in
-//     turn ("ping-pong"): per k tile four wgmma.mma_async m64n128k16 from
-//     shared-memory descriptors whose swizzle matches the TMA's, f32
-//     accumulators in registers, one group kept in flight while the next
-//     stage is awaited; then the epilogue adds the bias, rounds to bf16 and
-//     stores, masking rows >= M and columns >= N, while the other warpgroup
-//     runs the next tile's products. (With both warpgroups on one tile the
-//     epilogue stalled the products: a fifth to a sixth of the consumers'
-//     time on an H100.) An "order" mbarrier starts a warpgroup's tile only
-//     once the other has taken every stage of the previous one, since a
-//     parity wait can only look one phase ahead;
+//     turn ("ping-pong"): per k16 step one wgmma.mma_async m64n128k16 per
+//     64-row half of the tile, on one B, from shared-memory descriptors
+//     whose swizzle matches the TMA's and whose transpose immediates say
+//     which operands are MN-major, f32 accumulators in registers, one group
+//     kept in flight while the next stage is awaited; then the epilogue,
+//     while the other warpgroup runs the next tile's products. An "order"
+//     mbarrier starts a warpgroup's tile only once the other has taken every
+//     stage of the previous one (its products may still run), since a parity
+//     wait can only look one phase ahead. 128-row tiles read B from L2 half
+//     as often as 64-row ones and hand over between the warpgroups half as
+//     often;
+//   - f32 and gate outputs leave through a per-warp staging area in shared
+//     memory as whole-row stores (see the epilogues);
 //   - gridDim = min(tiles, SMs): each block walks the tiles blockIdx.x,
-//     + gridDim.x, ... with the producer running ahead across tiles.
-// No split-K and no atomics: every output element comes from one warpgroup
-// in a fixed k order, so two launches give bitwise-equal results.
+//     + gridDim.x, ... (batch and split outermost, then m tiles, then n
+//     tiles) with the producer running ahead across tiles.
+//
+// Epilogues: EPI_BF16 (+ bias, rounded to bf16), EPI_F32 (+ bias, then tanh
+// below act_split and sigmoid from there when act_split >= 0, then + C's old
+// value when beta is set) and EPI_GATES, the whole-encoder forward's gate
+// logits (see epilogue_gates).
 //
 // The tensor maps are built on the host by cuTensorMapEncodeTiled, found
 // with dlsym in the libcuda.so.1 the process has loaded (the libraries are
@@ -44,17 +66,58 @@
 #include <dlfcn.h>
 #include <stdint.h>
 
+#include "gemm_bf16.cuh"   // bf16, splitk_reduce_kernel
+#include "philox.cuh"      // the gate epilogue's dropout masks
+
 namespace madeleine {
 namespace wg {
 
-constexpr int BM = 64, BN = 128, BK = 64;
-constexpr int STAGES = 6;
+constexpr int BM = 128, BN = 128, BK = 64;
+constexpr int STAGES = 4;
 constexpr int THREADS = 384;                   // producer warpgroup + 2 consumer warpgroups
-constexpr int A_BYTES = BM * BK * 2;           // A tile [64, 64]: 8 KB
-constexpr int B_BYTES = BN * BK * 2;           // B tile [128, 64]: 16 KB
+constexpr int A_BYTES = BM * BK * 2;           // A tile, 128 x 64: 16 KB
+constexpr int B_BYTES = BN * BK * 2;           // B tile, 128 x 64: 16 KB
+constexpr int MN_BOX_BYTES = 64 * BK * 2;      // one [64 k, 64 mn] box of an MN-major tile
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
-// + full, empty and order barriers, + slack to align the ring to 1024 bytes
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + (2 * STAGES + 1) * 8 + 1024;
+// each consumer warp's staging area for its 16 rows of a 64-row half tile
+// (f32 [16, 128], or the gates' two bf16 [16, 64])
+constexpr int WARP_OUT_BYTES = 16 * BN * 4;
+constexpr int OUT_BYTES = 8 * WARP_OUT_BYTES;
+// ring, output staging, full, empty and order barriers, + slack to align the
+// ring to 1024 bytes
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + OUT_BYTES + (2 * STAGES + 1) * 8 + 1024;
+// Output tiles a launch should offer per split-K plan: two per SM of an H100
+// (132), one per consumer warpgroup.
+constexpr int SPLIT_TARGET_TILES = 264;
+
+enum Epi { EPI_BF16 = 0, EPI_F32 = 1, EPI_GATES = 2 };
+
+// Rows of an output tile: 128 (two m64 halves per warpgroup), but 64 for the
+// gate epilogue, whose transcendental and Philox work is the larger part of
+// its tile's time and needs the registers a second half's accumulators hold.
+template <int EPI>
+__host__ __device__ constexpr int tile_rows() { return EPI == EPI_GATES ? 64 : BM; }
+
+// What the kernel reads besides its two tensor maps.
+struct Params {
+  void* C;                    // element (z, r, c) at C + z * strideC + r * ldc + c
+  long long ldc, strideC;
+  const float* bias;          // [N] of batch b at bias + b * strideBias, or null
+  long long strideBias;
+  int M, N, K;                // per batch
+  int batches, splits, kchunk;   // kchunk: k of every split but the last, a multiple of BK
+  int a_mn, a_k, b_mn, b_k;   // per-batch coordinate offsets of A and B
+  int beta;                   // EPI_F32: C += result
+  int act_split;              // EPI_F32: < 0 none, else tanh below it, sigmoid from it
+  // EPI_GATES: the pre-dropout activations, the logit partials, wc, and
+  // what keys the gate dropout
+  bf16* ap;
+  bf16* bp;
+  float* lpart;
+  const float* wc;
+  int f, t, row_offset;
+  Dropout d;
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -90,8 +153,9 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
-// One 2-D tile (coordinates innermost first) into shared memory; completion
-// is reported to the mbarrier as transaction bytes.
+// One 2-D box (coordinates innermost first) into shared memory; completion
+// is reported to the mbarrier as transaction bytes (the whole box, zeros
+// included where it lies outside the tensor).
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1) {
   asm volatile(
@@ -101,13 +165,33 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// wgmma descriptor of a K-major tile as TMA writes it with 128-byte swizzle:
-// rows of 128 bytes, 8-row groups 1024 bytes apart (stride byte offset),
-// leading byte offset unused (1), layout type 1 (128B swizzle). The tile
-// base is 1024-byte aligned; a k16 step advances the address by 32 bytes.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+// The operand tile of `rows` m (or n) rows from mn, 64 k from k: one K-major
+// box, or rows / 64 MN-major boxes side by side.
+template <bool MN, int ROWS>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int mn, int k) {
+  if (MN) {
+#pragma unroll
+    for (int i = 0; i < ROWS / 64; ++i)
+      tma_load_2d(dst + i * MN_BOX_BYTES, map, bar, mn + 64 * i, k);
+  } else {
+    tma_load_2d(dst, map, bar, k, mn);
+  }
+}
+
+// wgmma descriptors of tiles as TMA writes them with 128-byte swizzle (layout
+// type 1); tile bases are 1024-byte aligned.
+//   K-major: rows of 128 bytes (64 k), 8-row groups 1024 bytes apart (stride
+//   byte offset), leading byte offset unused (1); a k16 step is 32 bytes on.
+//   MN-major: k rows of 128 bytes (64 m or n), 8-k-row groups 1024 bytes
+//   apart (stride byte offset), 64-wide m/n atoms one box (8 KB) apart
+//   (leading byte offset); a k16 step is 16 k rows, 2048 bytes on.
+template <bool MN>
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t tile, int k16) {
+  const uint32_t addr = tile + (MN ? 2048 * k16 : 32 * k16);
+  const uint64_t lead = MN ? (MN_BOX_BYTES >> 4) : 1;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (lead << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -127,8 +211,9 @@ __device__ __forceinline__ void fence_acc(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (+)= A[64 x 16] . B[128 x 16]^T, both from shared memory; scale_d 0
-// overwrites d.
+// d (+)= A[64 x 16] . B[128 x 16]^T, both from shared memory; TA / TB: the
+// operand is MN-major (wgmma's transpose immediates); scale_d 0 overwrites d.
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
                                                  int scale_d) {
   asm volatile(
@@ -144,7 +229,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
+      "%64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -162,22 +247,249 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+// Where a tile index of the walk lies.
+struct Tile {
+  int z, batch, m0, n0, kbeg, nk;
+};
+
+template <int ROWS>
+__device__ __forceinline__ Tile tile_at(const Params& p, int tile, int tiles_n, int tiles_mn) {
+  Tile T;
+  T.z = tile / tiles_mn;
+  const int r = tile - T.z * tiles_mn;
+  T.batch = T.z / p.splits;
+  const int split = T.z - T.batch * p.splits;
+  T.m0 = r / tiles_n * ROWS;
+  T.n0 = r % tiles_n * BN;
+  T.kbeg = split * p.kchunk;
+  const int kend = min(p.K, T.kbeg + p.kchunk);
+  T.nk = (kend - T.kbeg + BK - 1) / BK;
+  return T;
+}
+
+// Fragment i of the m64nN accumulator is row 16 warp + lane / 4 (+ 8 for
+// i % 4 >= 2), column 8 (i / 4) + 2 (lane % 4) + i % 2.
+//
+// The epilogues read what they need (bias, wc) before their first store: a
+// store through C may alias those reads as far as the compiler knows, so
+// reads placed between stores would each wait for the one before.
+//
+// f32 and gate outputs leave through shared memory: each warp writes its 16
+// rows of fragments to its own staging area, then stores whole rows, 512
+// contiguous bytes per instruction (the fragments' own layout writes 32
+// bytes to each of 8 rows per instruction, and those stores took half of an
+// f32-output product's time on an H100). Staging columns are XOR-swizzled by
+// the row (words ^ 4 (row % 8)), so the fragment writes and the row reads
+// are free of bank conflicts.
+__device__ __forceinline__ int swz(int row, int word) { return word ^ ((row & 7) << 2); }
+
+template <int EPI>
+__device__ __forceinline__ void epilogue_plain(const Params& p, float (&d)[64], const Tile& T,
+                                               int m0, int warp, int lane, float* stage) {
+  const int r = m0 + warp * 16 + lane / 4, c0 = T.n0 + (lane % 4) * 2;
+  if (p.bias) {
+    const float* bias = p.bias + (long long)T.batch * p.strideBias;
+#pragma unroll
+    for (int q = 0; q < BN / 8; ++q) {
+      const int c = c0 + q * 8;
+      if (c >= p.N) continue;   // N is even, so c + 1 < N too
+      const float b0 = __ldg(bias + c), b1 = __ldg(bias + c + 1);
+      d[4 * q] += b0; d[4 * q + 1] += b1; d[4 * q + 2] += b0; d[4 * q + 3] += b1;
+    }
+  }
+  if constexpr (EPI == EPI_BF16) {
+    bf16* C = static_cast<bf16*>(p.C) + (long long)T.z * p.strideC + (long long)r * p.ldc + c0;
+#pragma unroll
+    for (int q = 0; q < BN / 8; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (c0 + q * 8 < p.N && r + 8 * h < p.M)
+          *reinterpret_cast<__nv_bfloat162*>(C + 8 * h * p.ldc + q * 8) =
+              __floats2bfloat162_rn(d[4 * q + 2 * h], d[4 * q + 2 * h + 1]);
+  } else {
+    if (p.act_split >= 0) {
+#pragma unroll
+      for (int q = 0; q < BN / 8; ++q)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float v = d[4 * q + i];
+          d[4 * q + i] = c0 + q * 8 + (i & 1) < p.act_split ? tanhf(v) : 1.f / (1.f + expf(-v));
+        }
+    }
+#pragma unroll
+    for (int q = 0; q < BN / 8; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = lane / 4 + 8 * h;
+        *reinterpret_cast<float2*>(stage + row * BN + swz(row, q * 8 + (lane % 4) * 2)) =
+            make_float2(d[4 * q + 2 * h], d[4 * q + 2 * h + 1]);
+      }
+    __syncwarp();
+    // rows of the warp, 4 at a time: C's old values first (beta), then stores
+    const int r0 = m0 + warp * 16, c = T.n0 + lane * 4;
+    float* C = static_cast<float*>(p.C) + (long long)T.z * p.strideC + (long long)r0 * p.ldc + c;
+#pragma unroll
+    for (int g = 0; g < 16; g += 4) {
+      float4 old[4];
+      if (p.beta) {
+#pragma unroll
+        for (int i = g; i < g + 4; ++i)
+          old[i - g] = r0 + i < p.M && c + 4 <= p.N
+                           ? *reinterpret_cast<const float4*>(C + (long long)i * p.ldc)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int i = g; i < g + 4; ++i) {
+        if (r0 + i >= p.M) continue;   // uniform over the warp
+        float4 v = *reinterpret_cast<const float4*>(stage + i * BN + swz(i, lane * 4));
+        float* o = C + (long long)i * p.ldc;
+        if (c + 4 <= p.N) {
+          if (p.beta) {
+            v.x += old[i - g].x; v.y += old[i - g].y; v.z += old[i - g].z; v.w += old[i - g].w;
+          }
+          *reinterpret_cast<float4*>(o) = v;
+        } else if (c < p.N) {   // N % 4 == 2: the last two columns
+          *reinterpret_cast<float2*>(o) = p.beta ? make_float2(o[0] + v.x, o[1] + v.y)
+                                                 : make_float2(v.x, v.y);
+        }
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// Branch-free activations for the gate epilogue (one exp2 and one reciprocal
+// on the special-function unit each, about 1e-7 from the correctly rounded
+// value in absolute terms, far below the bf16 rounding of a_pre and b_pre):
+// sigmoid(v) = 1 / (1 + e^-v), tanh(v) = 1 - 2 / (1 + e^2v); both saturate
+// correctly where the exponential overflows.
+__device__ __forceinline__ float sigmoid_fast(float v) {
+  return __fdividef(1.f, 1.f + __expf(-v));
+}
+__device__ __forceinline__ float tanh_fast(float v) {
+  return 1.f - __fdividef(2.f, 1.f + __expf(2.f * v));
+}
+
+// The gate logits of the whole-encoder forward. Batch = head h, N = 2f, and
+// the wrapper has permuted the rows of [Wa; Wb]_h (and of its bias) so that
+// 128-column tile c holds the tanh rows 64 c .. 64 c + 63 in columns 0-63 and
+// the sigmoid rows of the same j in columns 64-127: fragments q and q + 8 of
+// a thread are then a = tanh(.) and g = sigmoid(.) of one (row, j). Writes
+// a_pre / b_pre [M, nh f] bf16 (pre-dropout) and lpart[(row nh + h) f/64 + c]
+// = sum over the tile's 64 j of drop(a) drop(g) wc[h, j], each thread summing
+// its 16 j in q order, then the quad in a fixed xor order.
+__device__ __forceinline__ void epilogue_gates(const Params& p, float (&d)[64], const Tile& T,
+                                               int m0, int warp, int lane, float* stage) {
+  // staging: a [16 rows, 64 j] bf16, then g, 32 words per row
+  uint32_t* sa = reinterpret_cast<uint32_t*>(stage);
+  uint32_t* sg = sa + 16 * 32;
+  const int h = T.batch, nh = p.batches, chunk = T.n0 / BN, odd = lane & 1;
+  const float* ba = p.bias + (long long)h * p.strideBias + T.n0;   // [64 tanh | 64 sigmoid]
+  const float* wcp = p.wc + (long long)h * p.f + chunk * 64;
+  const long long ld = (long long)nh * p.f;
+  float wc[16];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int jj = q * 8 + (lane % 4) * 2;   // j - 64 chunk of this thread's pair
+    const float a0 = __ldg(ba + jj), a1 = __ldg(ba + jj + 1);
+    const float g0 = __ldg(ba + 64 + jj), g1 = __ldg(ba + 64 + jj + 1);
+    d[4 * q] += a0; d[4 * q + 1] += a1; d[4 * q + 2] += a0; d[4 * q + 3] += a1;
+    d[4 * q + 32] += g0; d[4 * q + 33] += g1; d[4 * q + 34] += g0; d[4 * q + 35] += g1;
+    wc[2 * q] = __ldg(wcp + jj);
+    wc[2 * q + 1] = __ldg(wcp + jj + 1);
+  }
+  // The dropout masks first, every Philox draw of the thread before any
+  // other work, so that the 16 independent draws overlap: keep4's bits are
+  // column group c4 = j / 4, word j % 4. The pair of lanes (lane, lane ^ 1)
+  // shares c4: the even lane draws the tanh branch's four words, the odd
+  // lane the sigmoid branch's; each keeps one bit per word (word >= thr) at
+  // bit 4 q + word of own[hh], and one shuffle per row hands the partner its
+  // bits. Without dropout every bit is set (the scale is then 1).
+  uint32_t own[2] = {0xffffffffu, 0xffffffffu};
+  if (p.d.thr != 0u) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = m0 + warp * 16 + lane / 4 + 8 * hh;   // may be >= M
+      const int tok = row % p.t, bag = row / p.t + p.row_offset;
+      uint32_t bits = 0;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int c4 = chunk * 16 + q * 2 + (lane % 4) / 2;
+        const Philox4 r = philox4x32_10((uint32_t)c4, (uint32_t)tok, (uint32_t)bag,
+                                        (uint32_t)(3 + 2 * h + odd), p.d.seed, 0u);
+        bits |= ((uint32_t)(r.x >= p.d.thr) | (uint32_t)(r.y >= p.d.thr) << 1 |
+                 (uint32_t)(r.z >= p.d.thr) << 2 | (uint32_t)(r.w >= p.d.thr) << 3)
+                << (4 * q);
+      }
+      own[hh] = bits;
+    }
+  }
+  const uint32_t other[2] = {__shfl_xor_sync(0xffffffffu, own[0], 1),
+                             __shfl_xor_sync(0xffffffffu, own[1], 1)};
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int srow = lane / 4 + 8 * hh, row = m0 + warp * 16 + srow;   // may be >= M
+    // this thread's columns: words 0-1 (even lane) or 2-3 (odd) of each nibble
+    const uint32_t abits = (odd ? other[hh] : own[hh]) >> (2 * odd);
+    const uint32_t bbits = (odd ? own[hh] : other[hh]) >> (2 * odd);
+    float part = 0.f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int jj = q * 8 + (lane % 4) * 2;
+      const float a0 = tanh_fast(d[4 * q + 2 * hh]), a1 = tanh_fast(d[4 * q + 2 * hh + 1]);
+      const float g0 = sigmoid_fast(d[4 * (q + 8) + 2 * hh]);
+      const float g1 = sigmoid_fast(d[4 * (q + 8) + 2 * hh + 1]);
+      const float sc = p.d.scale;
+      const float ka0 = (abits >> (4 * q)) & 1u ? sc : 0.f;
+      const float ka1 = (abits >> (4 * q + 1)) & 1u ? sc : 0.f;
+      const float kb0 = (bbits >> (4 * q)) & 1u ? sc : 0.f;
+      const float kb1 = (bbits >> (4 * q + 1)) & 1u ? sc : 0.f;
+      part += (a0 * ka0) * (g0 * kb0) * wc[2 * q];
+      part += (a1 * ka1) * (g1 * kb1) * wc[2 * q + 1];
+      const __nv_bfloat162 av = __floats2bfloat162_rn(a0, a1);
+      const __nv_bfloat162 gv = __floats2bfloat162_rn(g0, g1);
+      sa[srow * 32 + swz(srow, jj / 2)] = *reinterpret_cast<const uint32_t*>(&av);
+      sg[srow * 32 + swz(srow, jj / 2)] = *reinterpret_cast<const uint32_t*>(&gv);
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    part += __shfl_xor_sync(0xffffffffu, part, 2);
+    if (row < p.M && lane % 4 == 0)
+      p.lpart[((long long)row * nh + h) * (p.f / 64) + chunk] = part;
+  }
+  __syncwarp();
+  // the warp's 16 rows of a_pre and b_pre: 4 rows of 128 bytes per store
+  const int seg = lane % 8;
+#pragma unroll
+  for (int i = 0; i < 16; i += 4) {
+    const int srow = i + lane / 8, row = m0 + warp * 16 + srow;
+    if (row >= p.M) continue;
+    const long long off = (long long)row * ld + (long long)h * p.f + chunk * 64 + seg * 8;
+    *reinterpret_cast<uint4*>(p.ap + off) =
+        *reinterpret_cast<const uint4*>(sa + srow * 32 + swz(srow, seg * 4));
+    *reinterpret_cast<uint4*>(p.bp + off) =
+        *reinterpret_cast<const uint4*>(sg + srow * 32 + swz(srow, seg * 4));
+  }
+  __syncwarp();
+}
+
+template <bool A_MN, bool B_MN, int EPI>
 __global__ void __launch_bounds__(THREADS, 1)
-gemm_tn_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
-               const float* __restrict__ bias, __nv_bfloat16* __restrict__ C, int M, int N,
-               int K) {
+gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+            const __grid_constant__ Params p) {
   extern __shared__ unsigned char smem_raw[];
   // 128-byte swizzled tiles must start on 1024-byte boundaries
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   // full[s] at bars + 8 s, empty[s] at + 8 (STAGES + s), order at + 16 STAGES
-  const uint32_t bars = base + STAGES * STAGE_BYTES, order = bars + 16 * STAGES;
+  const uint32_t out = base + STAGES * STAGE_BYTES;
+  const uint32_t bars = out + OUT_BYTES, order = bars + 16 * STAGES;
   const int tid = threadIdx.x, group = tid / 128;
-  const int tiles_n = (N + BN - 1) / BN;
-  const int tiles = (M + BM - 1) / BM * tiles_n;
-  const int nk = (K + BK - 1) / BK;
+  const int tiles_n = (p.N + BN - 1) / BN;
+  constexpr int ROWS = tile_rows<EPI>();
+  const int tiles_mn = (p.M + ROWS - 1) / ROWS * tiles_n;
+  const int tiles = tiles_mn * p.batches * p.splits;
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -196,70 +508,79 @@ gemm_tn_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
     if (tid == 0) {
       int it = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
-        for (int kt = 0; kt < nk; ++kt, ++it) {
+        const Tile T = tile_at<ROWS>(p, tile, tiles_n, tiles_mn);
+        const int am = p.a_mn * T.batch + T.m0, bn = p.b_mn * T.batch + T.n0;
+        const int ak = p.a_k * T.batch + T.kbeg, bk = p.b_k * T.batch + T.kbeg;
+        for (int kt = 0; kt < T.nk; ++kt, ++it) {
           const int s = it % STAGES;
           mbar_wait(bars + 8 * (STAGES + s), ((it / STAGES) & 1) ^ 1);
           const uint32_t full = bars + 8 * s, dst = base + s * STAGE_BYTES;
-          mbar_expect_tx(full, STAGE_BYTES);
-          tma_load_2d(dst, &map_a, full, kt * BK, m0);
-          tma_load_2d(dst + A_BYTES, &map_b, full, kt * BK, n0);
+          mbar_expect_tx(full, ROWS * BK * 2 + B_BYTES);
+          load_tile<A_MN, ROWS>(dst, &map_a, full, am, ak + kt * BK);
+          load_tile<B_MN, BN>(dst + A_BYTES, &map_b, full, bn, bk + kt * BK);
         }
       }
     }
     return;
   }
 
-  // consumers: warpgroup `half` takes the block's tiles j with j % 2 == half
+  // consumers: warpgroup `half` takes the block's tiles j with j % 2 == half;
+  // rows 0-63 of a tile accumulate in d0, rows 64-127 of a 128-row tile in
+  // d1 (two m64 products per k16 step on the same B, A's second half 8 KB on
+  // in either layout)
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   const int half = group - 1, warp = (tid % 128) / 32, lane = tid % 32;
-  float d[64];
+  float* stage = reinterpret_cast<float*>(smem_raw + (out - smem_u32(smem_raw)) +
+                                          (half * 4 + warp) * WARP_OUT_BYTES);
+  float d0[64], d1[64];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) d[i] = 0.f;
-  int j = 0;
+  for (int i = 0; i < 64; ++i) d0[i] = d1[i] = 0.f;
+  int j = 0, it = 0;   // it: the ring position of the tile's first k tile
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++j) {
-    if ((j & 1) != half) continue;   // the other warpgroup's tile
+    const Tile T = tile_at<ROWS>(p, tile, tiles_n, tiles_mn);
+    if ((j & 1) != half) {   // the other warpgroup's tile
+      it += T.nk;
+      continue;
+    }
     // a parity wait sees only one phase ahead: start once the other
     // warpgroup has taken every stage of the previous tile
     if (j > 0) mbar_wait(order, (j - 1) & 1);
-    const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
-    int it = j * nk;
-    for (int kt = 0; kt < nk; ++kt, ++it) {
+    for (int kt = 0; kt < T.nk; ++kt, ++it) {
       const int s = it % STAGES;
       mbar_wait(bars + 8 * s, (it / STAGES) & 1);
       const uint32_t a = base + s * STAGE_BYTES, b = a + A_BYTES;
-      fence_acc(d);
+      fence_acc(d0);
+      if constexpr (ROWS == 128) fence_acc(d1);
       wgmma_fence();
 #pragma unroll
-      for (int k = 0; k < BK / 16; ++k)
-        wgmma_m64n128k16(d, desc_sw128(a + 32 * k), desc_sw128(b + 32 * k),
-                         (kt > 0 || k > 0) ? 1 : 0);
+      for (int k = 0; k < BK / 16; ++k) {
+        const uint64_t db = desc_sw128<B_MN>(b, k);
+        const int acc = (kt > 0 || k > 0) ? 1 : 0;
+        wgmma_m64n128k16<A_MN, B_MN>(d0, desc_sw128<A_MN>(a, k), db, acc);
+        if constexpr (ROWS == 128)
+          wgmma_m64n128k16<A_MN, B_MN>(d1, desc_sw128<A_MN>(a + MN_BOX_BYTES, k), db, acc);
+      }
       wgmma_commit();
-      fence_acc(d);
+      fence_acc(d0);
+      if constexpr (ROWS == 128) fence_acc(d1);
       // the previous k tile's products are done: hand its stage back
       wgmma_wait<1>();
-      fence_acc(d);
+      fence_acc(d0);
+      if constexpr (ROWS == 128) fence_acc(d1);
       if (kt > 0) mbar_arrive(bars + 8 * (STAGES + (it - 1) % STAGES));
     }
-    wgmma_wait<0>();
-    fence_acc(d);
-    mbar_arrive(bars + 8 * (STAGES + (it - 1) % STAGES));
+    // every stage of the tile is taken: the other warpgroup may start its
+    // tile while these products finish
     mbar_arrive(order);
-
-    // epilogue: fragment i of the m64nN accumulator is row 16 warp + lane / 4
-    // (+ 8 for i % 4 >= 2), column 8 (i / 4) + 2 (lane % 4) + i % 2
-    const int r = m0 + warp * 16 + lane / 4;
-#pragma unroll
-    for (int q = 0; q < BN / 8; ++q) {
-      const int c = n0 + q * 8 + (lane % 4) * 2;
-      if (c >= N) continue;   // N is even, so c + 1 < N too
-      const float b0 = bias ? bias[c] : 0.f, b1 = bias ? bias[c + 1] : 0.f;
-      if (r < M)
-        *reinterpret_cast<__nv_bfloat162*>(C + (long long)r * N + c) =
-            __floats2bfloat162_rn(d[4 * q] + b0, d[4 * q + 1] + b1);
-      if (r + 8 < M)
-        *reinterpret_cast<__nv_bfloat162*>(C + (long long)(r + 8) * N + c) =
-            __floats2bfloat162_rn(d[4 * q + 2] + b0, d[4 * q + 3] + b1);
+    wgmma_wait<0>();
+    fence_acc(d0);
+    if constexpr (ROWS == 128) fence_acc(d1);
+    mbar_arrive(bars + 8 * (STAGES + (it - 1) % STAGES));
+    if constexpr (EPI == EPI_GATES) {
+      epilogue_gates(p, d0, T, T.m0, warp, lane, stage);
+    } else {
+      epilogue_plain<EPI>(p, d0, T, T.m0, warp, lane, stage);
+      epilogue_plain<EPI>(p, d1, T, T.m0 + 64, warp, lane, stage);
     }
   }
 }
@@ -280,12 +601,13 @@ inline EncodeTiledFn encode_fn() {
   return encode_tiled;
 }
 
-// Tensor map of a row-major bf16 [rows, K] operand, boxes of [box_rows, 64 k].
-inline bool make_map(EncodeTiledFn enc, CUtensorMap* map, const void* p, int rows, int K,
-                     int box_rows) {
-  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
+// Tensor map of a row-major bf16 [rows, cols] matrix with row stride ld,
+// boxes of [box_rows, 64 columns].
+inline bool make_map(EncodeTiledFn enc, CUtensorMap* map, const void* p, long long rows,
+                     long long cols, long long ld, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {64u, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims, strides, box,
              elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -295,19 +617,68 @@ inline bool make_map(EncodeTiledFn enc, CUtensorMap* map, const void* p, int row
 
 }  // namespace wg
 
-// C [M, N] bf16 = A [M, K] . B [N, K]^T + bias [N] (bias f32, may be null).
-// Needs K % 8 == 0 (TMA's 16-byte row stride), N even, A and B 16-byte
-// aligned and C 4-byte aligned; returns cudaErrorInvalidValue otherwise.
-inline cudaError_t gemm_tn_wgmma(const __nv_bfloat16* A, const __nv_bfloat16* B,
-                                 const float* bias, __nv_bfloat16* C, int M, int N, int K,
-                                 cudaStream_t st) {
-  if (M < 1 || N < 1 || K < 1 || K % 8 || N % 2 || reinterpret_cast<uintptr_t>(A) % 16 ||
-      reinterpret_cast<uintptr_t>(B) % 16 || reinterpret_cast<uintptr_t>(C) % 4)
-    return cudaErrorInvalidValue;
+// One operand of wg_gemm: a row-major bf16 [rows, cols] matrix with row
+// stride ld, the tensor map's extent. K-major: rows are m (or n), columns k;
+// MN-major: rows are k, columns m (or n). Batch z's tile is off_mn z along m
+// (or n) and off_k z along k.
+struct WgOperand {
+  const bf16* p;
+  long long ld, rows, cols;
+  int off_mn, off_k;
+};
+
+// Whether the kernel can take the operand (MN: its rows are k): 16-byte
+// base and rows, extents TMA can address.
+template <bool MN>
+inline bool wg_operand_ok(const WgOperand& o, int K) {
+  const long long kext = MN ? o.rows : o.cols;
+  return o.p && reinterpret_cast<uintptr_t>(o.p) % 16 == 0 && o.ld % 8 == 0 && o.ld >= o.cols &&
+         o.rows >= 1 && o.cols >= 1 && o.rows < (1LL << 31) && o.cols < (1LL << 31) &&
+         o.off_mn >= 0 && o.off_k >= 0 &&
+         // a k tile past K must read zeros: the map ends at K and no batch
+         // starts further along k
+         (K % wg::BK == 0 || (o.off_k == 0 && kext == K));
+}
+
+// C = epi(A . B^T + bias), batched and split as `p` says (see the header).
+// The caller sets p.C, ldc, strideC, bias, strideBias, M, N, K, batches,
+// splits, beta, act_split and, for EPI_GATES, the gate fields; the launcher
+// fills the coordinate offsets and kchunk. Returns cudaErrorInvalidValue for
+// anything the kernel cannot take: misaligned or unsupported operands
+// (16-byte aligned bases, row strides a multiple of 8 elements), an odd N,
+// a misaligned C (f32: a 16-byte base, ldc and strideC multiples of 4),
+// split-K with a bias, beta or an activation.
+template <bool A_MN, bool B_MN, int EPI>
+inline cudaError_t wg_gemm(const WgOperand& A, const WgOperand& B, wg::Params p,
+                           cudaStream_t st) {
+  // f32 rows leave as 16-byte vectors (the staged epilogue)
+  const int align = EPI == wg::EPI_BF16 ? 4 : 16, step = EPI == wg::EPI_BF16 ? 2 : 4;
+  bool ok = p.M >= 1 && p.N >= 1 && p.K >= 1 && p.batches >= 1 && p.splits >= 1 &&
+            p.N % 2 == 0 && p.ldc % step == 0 && p.strideC % step == 0 && p.ldc >= p.N &&
+            wg_operand_ok<A_MN>(A, p.K) && wg_operand_ok<B_MN>(B, p.K) &&
+            (EPI == wg::EPI_GATES || (p.C && reinterpret_cast<uintptr_t>(p.C) % align == 0)) &&
+            (p.splits == 1 || (EPI == wg::EPI_F32 && !p.beta && !p.bias && p.act_split < 0));
+  if (EPI == wg::EPI_GATES)
+    ok = ok && p.splits == 1 && p.f % 64 == 0 && p.N == 2 * p.f && p.t >= 1 && p.bias &&
+         p.wc && p.lpart && p.ap && p.bp && reinterpret_cast<uintptr_t>(p.ap) % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(p.bp) % 4 == 0;
+  if (!ok) return cudaErrorInvalidValue;
+  p.a_mn = A.off_mn; p.a_k = A.off_k;
+  p.b_mn = B.off_mn; p.b_k = B.off_k;
+  // pieces of whole k tiles; every piece gets at least one
+  const int ktiles = (p.K + wg::BK - 1) / wg::BK;
+  const int per = (ktiles + p.splits - 1) / p.splits;
+  p.kchunk = per * wg::BK;
+  p.splits = (ktiles + per - 1) / per;
+  constexpr int rows = wg::tile_rows<EPI>();
+  const long long tiles = (long long)((p.M + rows - 1) / rows) *
+                          ((p.N + wg::BN - 1) / wg::BN) * p.batches * p.splits;
+  if (tiles >= (1LL << 31)) return cudaErrorInvalidValue;
   const wg::EncodeTiledFn enc = wg::encode_fn();
   if (!enc) return cudaErrorInitializationError;
   CUtensorMap map_a, map_b;
-  if (!wg::make_map(enc, &map_a, A, M, K, wg::BM) || !wg::make_map(enc, &map_b, B, N, K, wg::BN))
+  if (!wg::make_map(enc, &map_a, A.p, A.rows, A.cols, A.ld, A_MN ? wg::BK : rows) ||
+      !wg::make_map(enc, &map_b, B.p, B.rows, B.cols, B.ld, B_MN ? wg::BK : wg::BN))
     return cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -315,12 +686,74 @@ inline cudaError_t gemm_tn_wgmma(const __nv_bfloat16* A, const __nv_bfloat16* B,
   if (err != cudaSuccess) return err;
   // set on every launch: a function-local static would be one object for
   // every library of the process that includes this header
-  err = cudaFuncSetAttribute(wg::gemm_tn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             wg::SMEM_BYTES);
+  err = cudaFuncSetAttribute(wg::gemm_kernel<A_MN, B_MN, EPI>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  const long long tiles = (long long)((M + wg::BM - 1) / wg::BM) * ((N + wg::BN - 1) / wg::BN);
   const int grid = (int)(tiles < sms ? tiles : sms);
-  wg::gemm_tn_kernel<<<grid, wg::THREADS, wg::SMEM_BYTES, st>>>(map_a, map_b, bias, C, M, N, K);
+  wg::gemm_kernel<A_MN, B_MN, EPI><<<grid, wg::THREADS, wg::SMEM_BYTES, st>>>(map_a, map_b, p);
+  return cudaGetLastError();
+}
+
+// Output defaults of a plain product: no batches, no split, no activation.
+inline wg::Params wg_params(void* C, long long ldc, const float* bias, int M, int N, int K) {
+  wg::Params p{};
+  p.C = C;
+  p.ldc = ldc;
+  p.strideC = (long long)M * ldc;
+  p.bias = bias;
+  p.M = M; p.N = N; p.K = K;
+  p.batches = 1;
+  p.splits = 1;
+  p.act_split = -1;
+  return p;
+}
+
+// C [M, N] bf16 = A [M, K] . B [N, K]^T + bias [N] (bias f32, may be null).
+// Needs K % 8 == 0 (TMA's 16-byte row stride), N even, A and B 16-byte
+// aligned and C 4-byte aligned; returns cudaErrorInvalidValue otherwise.
+inline cudaError_t gemm_tn_wgmma(const bf16* A, const bf16* B, const float* bias, bf16* C, int M,
+                                 int N, int K, cudaStream_t st) {
+  const WgOperand a{A, K, M, K, 0, 0}, b{B, K, N, K, 0, 0};
+  return wg_gemm<false, false, wg::EPI_BF16>(a, b, wg_params(C, N, bias, M, N, K), st);
+}
+
+// Split count of a weight-gradient product over K tokens: as many pieces as
+// keep the launch within SPLIT_TARGET_TILES output tiles (one wave of two
+// tiles per SM), each piece at least 8 k tiles, at most 64 pieces.
+inline int wg_wgrad_splits(int M, int N, int K, int batches) {
+  const long long tiles =
+      (long long)((M + wg::BM - 1) / wg::BM) * ((N + wg::BN - 1) / wg::BN) * batches;
+  long long s = wg::SPLIT_TARGET_TILES / tiles;
+  const long long kmax = K / (8 * wg::BK);
+  if (s > kmax) s = kmax;
+  if (s > 64) s = 64;
+  if (s < 1) return 1;
+  const int ktiles = (K + wg::BK - 1) / wg::BK, per = (ktiles + (int)s - 1) / (int)s;
+  return (ktiles + per - 1) / per;   // as wg_gemm rounds them
+}
+
+// Floats of split-K workspace wg_wgrad needs (0 when it writes out directly).
+inline long long wg_wgrad_work_floats(int M, int N, int K, int batches) {
+  const int s = wg_wgrad_splits(M, N, K, batches);
+  return s > 1 ? (long long)s * batches * M * N : 0;
+}
+
+// Weight gradient out[batch] [Mo, No] f32 = sum over K tokens of A(m, k)
+// B(n, k), both operands MN-major (token-major rows); split over the tokens
+// into `work` and reduced in split order, or written directly when one piece
+// fills the card.
+inline cudaError_t wg_wgrad(const WgOperand& A, const WgOperand& B, int Mo, int No, int K,
+                            int batches, float* out, float* work, cudaStream_t st) {
+  wg::Params p = wg_params(out, No, nullptr, Mo, No, K);
+  p.batches = batches;
+  p.splits = wg_wgrad_splits(Mo, No, K, batches);
+  if (p.splits == 1) return wg_gemm<true, true, wg::EPI_F32>(A, B, p, st);
+  p.C = work;
+  const cudaError_t err = wg_gemm<true, true, wg::EPI_F32>(A, B, p, st);
+  if (err != cudaSuccess) return err;
+  const long long n = (long long)Mo * No;
+  splitk_reduce_kernel<<<(unsigned)((n * batches + 255) / 256), 256, 0, st>>>(work, out, n,
+                                                                            p.splits, batches);
   return cudaGetLastError();
 }
 

@@ -23,12 +23,14 @@
 // call, as its math ran at 165-250 TFLOP/s: to keep
 // pace with the bytes the math must run above 400 TFLOP/s, which on this
 // card only wgmma does. So the forward is gemm_wgmma.cuh's streaming GEMM:
-// one producer thread keeps TMA loads of [64, 64] y tiles and [128, 64] Wt
-// tiles in flight in a 6-stage ring, two consumer warpgroups take 64 x 128
-// output tiles in turn on wgmma m64n128k16 with f32 accumulators and the
-// bias in the epilogue, so that one warpgroup's epilogue overlaps the
-// other's products, and one persistent block per SM walks the tiles. y and
-// Wt are both K-major, wgmma's native bf16 case: nothing is transposed.
+// one producer thread keeps TMA loads of [128, 64] y and Wt tiles in
+// flight in a 4-stage ring, two consumer warpgroups take 128 x 128 output
+// tiles in turn on wgmma m64n128k16 with f32 accumulators and the bias in
+// the epilogue, so that one warpgroup's epilogue overlaps the other's
+// products, and one persistent block per SM walks the tiles. y and Wt are
+// both K-major, wgmma's native bf16 case: nothing is transposed. (The
+// whole-encoder kernels K6 and K7 run every product on the same GEMM, with
+// the other operand layouts.)
 //
 // Backward design (simple first): the mma.sync GEMM of gemm_bf16.cuh; the
 // weight gradient split over the tokens into pieces summed in order, the
@@ -69,9 +71,12 @@ extern "C" int linear_tok_backward(void** p, const long long* dims, const float*
   const cudaStream_t st = static_cast<cudaStream_t>(stream_);
   const int M = (int)dims[0], E = (int)dims[1], dout = (int)dims[2];
   const bf16 *y = (const bf16*)p[0], *g = (const bf16*)p[1], *wt = (const bf16*)p[2];
-  const cudaError_t err = madeleine::dgrad<bf16>(g, dout, 0, wt, E, 0, (bf16*)p[3], E, 0, M, E,
-                                                 dout, 1, 0, st);
+  using madeleine::Gemm;
+  const cudaError_t err = madeleine::dgrad<Gemm::MMA_SYNC, bf16>(g, dout, 0, wt, E, 0,
+                                                                 (bf16*)p[3], E, 0, M, E, dout, 1,
+                                                                 0, st);
   if (err != cudaSuccess) return (int)err;
-  return (int)madeleine::tok_wgrad(g, y, (float*)p[4], (float*)p[5], (float*)p[6],
-                                   (float*)p[7], dout, M, E, dout, st);
+  return (int)madeleine::tok_wgrad<Gemm::MMA_SYNC>(g, y, (float*)p[4], (float*)p[5],
+                                                   (float*)p[6], (float*)p[7], dout, M, E, dout,
+                                                   st);
 }

@@ -84,7 +84,7 @@ extern "C" int preattn_forward(void** p, const long long* dims, const float* sca
   a.M = D.M; a.t = D.t; a.d_in = D.d_in; a.hd = D.hd; a.E = D.E;
   a.row_offset = D.row_offset;
   a.d = D.d;
-  return (int)madeleine::stack_fwd(a, st);
+  return (int)madeleine::stack_fwd<madeleine::Gemm::MMA_SYNC>(a, st);
 }
 
 // Floats of workspace the backward needs: [split-K partials, column partials].
@@ -123,7 +123,7 @@ extern "C" int preattn_backward(void** p, const long long* dims, const float* sc
   f.M = D.M; f.t = D.t; f.d_in = D.d_in; f.hd = D.hd; f.E = D.E;
   f.row_offset = D.row_offset;
   f.d = D.d;
-  cudaError_t err = madeleine::stack_fwd(f, st);
+  cudaError_t err = madeleine::stack_fwd<madeleine::Gemm::MMA_SYNC>(f, st);
   if (err != cudaSuccess) return (int)err;
   // the three layer adjoints from dy
   madeleine::StackBwd a{};
@@ -149,5 +149,5 @@ extern "C" int preattn_backward(void** p, const long long* dims, const float* sc
   a.M = D.M; a.t = D.t; a.d_in = D.d_in; a.hd = D.hd; a.E = D.E;
   a.row_offset = D.row_offset;
   a.d = D.d;
-  return (int)madeleine::stack_bwd(a, dy, st);
+  return (int)madeleine::stack_bwd<madeleine::Gemm::MMA_SYNC>(a, dy, st);
 }

@@ -15,6 +15,7 @@
 #include <stdint.h>
 
 #include "gemm_bf16.cuh"
+#include "gemm_wgmma.cuh"
 #include "train_common.cuh"
 
 #define TRAIN_CHECK(x)                         \
@@ -202,33 +203,90 @@ __global__ void colsum_rows(const bf16* __restrict__ X, float* __restrict__ part
 
 inline int row_tiles(int M) { return (M + ROW_TILE - 1) / ROW_TILE; }
 
+// The GEMM behind the launch sequences below, chosen at each call site: the
+// whole-encoder kernels (K6, K7) run every product on the TMA + wgmma GEMM
+// of gemm_wgmma.cuh, the per-op kernels 15-18 and 20 on the mma.sync GEMM
+// of gemm_bf16.cuh.
+enum class Gemm { MMA_SYNC, WGMMA };
+
 // Weight gradient [Mo, No] = sum over tokens of A(tok, m) B(tok, n), both
-// row-major token-by-column operands (lda, ldb), batched over `batches`.
+// row-major token-by-column operands (lda, ldb), batched over `batches`
+// (batch z's columns start at z strideA, z strideB).
+template <Gemm G>
 inline cudaError_t wgrad(const bf16* A, long long lda, long long strideA, const bf16* B,
                          long long ldb, long long strideB, int Mo, int No, int tokens,
                          int batches, float* out, float* work, cudaStream_t st) {
-  GemmArgs g{};
-  g.A = A; g.lda = lda; g.strideA = strideA;
-  g.B = B; g.ldb = ldb; g.strideB = strideB;
-  g.M = Mo; g.N = No; g.K = tokens;
-  return launch_wgrad(g, batches, out, work, st);
+  if constexpr (G == Gemm::WGMMA) {
+    const WgOperand a{A, lda, tokens, strideA * (batches - 1) + Mo, (int)strideA, 0};
+    const WgOperand b{B, ldb, tokens, strideB * (batches - 1) + No, (int)strideB, 0};
+    return wg_wgrad(a, b, Mo, No, tokens, batches, out, work, st);
+  } else {
+    GemmArgs g{};
+    g.A = A; g.lda = lda; g.strideA = strideA;
+    g.B = B; g.ldb = ldb; g.strideB = strideB;
+    g.M = Mo; g.N = No; g.K = tokens;
+    return launch_wgrad(g, batches, out, work, st);
+  }
 }
 
-// Input gradient C [tokens, N] (+)= A [tokens, K] . B [K, N], batched; f32
-// C (beta 1 accumulates), or bf16 C (no accumulation).
-template <typename OutT = float>
+// Floats of split-K workspace `wgrad<G>` needs for these shapes.
+template <Gemm G>
+inline long long wgrad_work(int Mo, int No, int tokens, int batches) {
+  if constexpr (G == Gemm::WGMMA)
+    return wg_wgrad_work_floats(Mo, No, tokens, batches);
+  else
+    return wgrad_work_floats(Mo, No, tokens, batches);
+}
+
+// Input gradient C [tokens, N] (+)= A [tokens, K] . B [K, N], batched (batch
+// z's A columns start at z strideA, its B at B + z strideB, a whole number of
+// B's rows, its C columns at z strideC); f32 C (beta 1 accumulates), or bf16
+// C (no accumulation).
+template <Gemm G, typename OutT = float>
 inline cudaError_t dgrad(const bf16* A, long long lda, long long strideA, const bf16* B,
                          long long ldb, long long strideB, OutT* C, long long ldc,
                          long long strideC, int tokens, int N, int K, int batches, int beta,
                          cudaStream_t st) {
-  GemmArgs g{};
-  g.A = A; g.lda = lda; g.strideA = strideA;
-  g.B = B; g.ldb = ldb; g.strideB = strideB;
-  g.C = C; g.ldc = ldc; g.strideC = strideC;
-  g.M = tokens; g.N = N; g.K = K;
-  g.splits = 1;
-  g.beta = beta;
-  return launch_gemm<true, false, OutT>(g, batches, st);
+  if constexpr (G == Gemm::WGMMA) {
+    if (strideB % ldb) return cudaErrorInvalidValue;
+    const int brows = (int)(strideB / ldb);
+    const WgOperand a{A, lda, tokens, strideA * (batches - 1) + K, 0, (int)strideA};
+    const WgOperand b{B, ldb, (long long)brows * (batches - 1) + K, N, 0, brows};
+    wg::Params p = wg_params(C, ldc, nullptr, tokens, N, K);
+    p.strideC = strideC;
+    p.batches = batches;
+    p.beta = beta;
+    constexpr int epi = sizeof(OutT) == 4 ? wg::EPI_F32 : wg::EPI_BF16;
+    return wg_gemm<false, true, epi>(a, b, p, st);
+  } else {
+    GemmArgs g{};
+    g.A = A; g.lda = lda; g.strideA = strideA;
+    g.B = B; g.ldb = ldb; g.strideB = strideB;
+    g.C = C; g.ldc = ldc; g.strideC = strideC;
+    g.M = tokens; g.N = N; g.K = K;
+    g.splits = 1;
+    g.beta = beta;
+    return launch_gemm<true, false, OutT>(g, batches, st);
+  }
+}
+
+// Z [M, N] f32 = X [M, K] W [N, K]^T + bias [N].
+template <Gemm G>
+inline cudaError_t linear_f32(const bf16* X, const bf16* W, const float* bias, float* Z, int M,
+                              int N, int K, cudaStream_t st) {
+  if constexpr (G == Gemm::WGMMA) {
+    const WgOperand a{X, K, M, K, 0, 0}, b{W, K, N, K, 0, 0};
+    return wg_gemm<false, false, wg::EPI_F32>(a, b, wg_params(Z, N, bias, M, N, K), st);
+  } else {
+    GemmArgs g{};
+    g.A = X; g.lda = K;
+    g.B = W; g.ldb = K;
+    g.C = Z; g.ldc = N;
+    g.bias = bias;
+    g.M = M; g.N = N; g.K = K;
+    g.splits = 1;
+    return launch_gemm<true, true, float>(g, 1, st);
+  }
 }
 
 // The three pre-attention layers, Linear -> LayerNorm -> GELU -> dropout
@@ -247,18 +305,12 @@ struct StackFwd {
   Dropout d;
 };
 
+template <Gemm G>
 inline cudaError_t stack_fwd(const StackFwd& a, cudaStream_t st) {
   const bf16* Ain[3] = {a.x, a.H[0], a.H[1]};
   const int Kl[3] = {a.d_in, a.hd, a.hd}, Nl[3] = {a.hd, a.hd, a.E};
   for (int i = 0; i < 3; ++i) {
-    GemmArgs g{};
-    g.A = Ain[i]; g.lda = Kl[i];
-    g.B = a.w[i]; g.ldb = Kl[i];
-    g.C = a.Z; g.ldc = Nl[i];
-    g.bias = a.b[i];
-    g.M = a.M; g.N = Nl[i]; g.K = Kl[i];
-    g.splits = 1;
-    TRAIN_CHECK((launch_gemm<true, true, float>(g, 1, st)));
+    TRAIN_CHECK(linear_f32<G>(Ain[i], a.w[i], a.b[i], a.Z, a.M, Nl[i], Kl[i], st));
     ln_gelu_fwd<<<a.M, Nl[i] / 4, 0, st>>>(a.Z, a.s[i], a.sh[i], a.U[i], a.rstd, a.H[i],
                                             Nl[i], a.t, a.row_offset, i, a.d,
                                             i == 2 && a.y32);
@@ -289,9 +341,18 @@ struct StackBwd {
   Dropout d;
 };
 
+// Floats of split-K workspace stack_bwd<G> needs.
+template <Gemm G>
+inline long long stack_bwd_work(int M, int d_in, int hd, int E) {
+  long long w = wgrad_work<G>(E, hd, M, 1);
+  const long long cand[2] = {wgrad_work<G>(hd, hd, M, 1), wgrad_work<G>(hd, d_in, M, 1)};
+  for (long long c : cand) w = c > w ? c : w;
+  return w;
+}
+
 // One layer: the row adjoint, its three column sums, and the weight
 // gradient against the layer's input hin.
-template <typename DT>
+template <Gemm G, typename DT>
 inline cudaError_t layer_adjoint(const StackBwd& a, int i, const DT* din, int W, bf16* DZ,
                                  const bf16* hin, int K, cudaStream_t st) {
   const int ntr = row_tiles(a.M);
@@ -301,26 +362,28 @@ inline cudaError_t layer_adjoint(const StackBwd& a, int i, const DT* din, int W,
   TRAIN_CHECK(colsum_reduce(a.part, a.ldp, 0, W, ntr, a.ds[i], st));
   TRAIN_CHECK(colsum_reduce(a.part, a.ldp, W, W, ntr, a.dt[i], st));
   TRAIN_CHECK(colsum_reduce(a.part, a.ldp, 2 * W, W, ntr, a.db[i], st));
-  return wgrad(DZ, W, 0, hin, K, 0, W, K, a.M, 1, a.dw[i], a.work, st);
+  return wgrad<G>(DZ, W, 0, hin, K, 0, W, K, a.M, 1, a.dw[i], a.work, st);
 }
 
-template <typename DT>
+template <Gemm G, typename DT>
 inline cudaError_t stack_bwd(const StackBwd& a, const DT* din3, cudaStream_t st) {
   // layer 3
-  TRAIN_CHECK(layer_adjoint(a, 2, din3, a.E, a.DZ3, a.h2, a.hd, st));
-  TRAIN_CHECK(dgrad(a.DZ3, a.E, 0, a.w3, a.hd, 0, a.DH, a.hd, 0, a.M, a.hd, a.E, 1, 0, st));
+  TRAIN_CHECK(layer_adjoint<G>(a, 2, din3, a.E, a.DZ3, a.h2, a.hd, st));
+  TRAIN_CHECK(dgrad<G>(a.DZ3, a.E, 0, a.w3, a.hd, 0, a.DH, a.hd, 0, a.M, a.hd, a.E, 1, 0, st));
   // layer 2
-  TRAIN_CHECK(layer_adjoint(a, 1, (const float*)a.DH, a.hd, a.DZ12, a.h1, a.hd, st));
-  TRAIN_CHECK(dgrad(a.DZ12, a.hd, 0, a.w2, a.hd, 0, a.DH, a.hd, 0, a.M, a.hd, a.hd, 1, 0, st));
+  TRAIN_CHECK(layer_adjoint<G>(a, 1, (const float*)a.DH, a.hd, a.DZ12, a.h1, a.hd, st));
+  TRAIN_CHECK(dgrad<G>(a.DZ12, a.hd, 0, a.w2, a.hd, 0, a.DH, a.hd, 0, a.M, a.hd, a.hd, 1, 0,
+                       st));
   // layer 1, and its input gradient only when the caller asks for it
-  TRAIN_CHECK(layer_adjoint(a, 0, (const float*)a.DH, a.hd, a.DZ12, a.x, a.d_in, st));
+  TRAIN_CHECK(layer_adjoint<G>(a, 0, (const float*)a.DH, a.hd, a.DZ12, a.x, a.d_in, st));
   if (a.dx)
-    TRAIN_CHECK(dgrad<bf16>(a.DZ12, a.hd, 0, a.w1, a.d_in, 0, a.dx, a.d_in, 0, a.M, a.d_in,
-                            a.hd, 1, 0, st));
+    TRAIN_CHECK((dgrad<G, bf16>(a.DZ12, a.hd, 0, a.w1, a.d_in, 0, a.dx, a.d_in, 0, a.M, a.d_in,
+                                a.hd, 1, 0, st)));
   return cudaSuccess;
 }
 
-// Gate products of every head in one batched launch:
+// Gate products of every head in one batched launch (the per-op kernels 17
+// and 18; K6 fuses the logits into its own gate product):
 // G_h = act(y_h Wab_h^T + bab_h), tanh on the first f columns, sigmoid on
 // the next f. Y [M, nh*e] bf16, wab [nh, 2f, e] bf16, bab [nh, 2f] f32,
 // G [M, nh*2f] f32.
@@ -337,25 +400,13 @@ inline cudaError_t gate_products(const bf16* Y, const bf16* wab, const float* ba
   return launch_gemm<true, true, float>(g, nh, st);
 }
 
-// Token projector: tok [M, dout] bf16 = Y [M, E] Wt^T + bt.
-inline cudaError_t tok_product(const bf16* Y, const bf16* wt, const float* bt, bf16* tok, int M,
-                               int E, int dout, cudaStream_t st) {
-  GemmArgs g{};
-  g.A = Y; g.lda = E;
-  g.B = wt; g.ldb = E;
-  g.C = tok; g.ldc = dout;
-  g.bias = bt;
-  g.M = M; g.N = dout; g.K = E;
-  g.splits = 1;
-  return launch_gemm<true, true, bf16>(g, 1, st);
-}
-
 // The token projector's parameter gradients: dWt = dtok^T Y, dbt = column
 // sums of dtok (per-tile partials with row stride ldp >= dout).
+template <Gemm G>
 inline cudaError_t tok_wgrad(const bf16* dtok, const bf16* Y, float* dwt, float* dbt,
                              float* work, float* part, long long ldp, int M, int E, int dout,
                              cudaStream_t st) {
-  TRAIN_CHECK(wgrad(dtok, dout, 0, Y, E, 0, dout, E, M, 1, dwt, work, st));
+  TRAIN_CHECK(wgrad<G>(dtok, dout, 0, Y, E, 0, dout, E, M, 1, dwt, work, st));
   const int ntr = row_tiles(M);
   colsum_rows<<<ntr, dout / 4, 0, st>>>(dtok, part, ldp, M, dout);
   TRAIN_CHECK(cudaGetLastError());

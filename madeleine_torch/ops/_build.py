@@ -23,7 +23,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_DIR = os.path.join(CSRC, "build")
 KERNELS = ("encode_fused", "gated_pool", "attn_pool", "encoder_train_fwd", "encoder_train_bwd",
            "ipot_fwd", "ipot_bwd", "gw_gamma", "got_glue", "preattn", "gated_logits",
-           "linear_tok", "dropout")
+           "linear_tok", "dropout", "gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SMEM_LIMIT = 232448   # bytes of shared memory one block may use on Hopper
@@ -91,6 +91,14 @@ def check_operand(kernel: str, name: str, x: torch.Tensor, shape: Sequence[int],
         raise ValueError(f"{kernel} kernel: {name} must be a contiguous {dtype} tensor "
                          f"{tuple(shape)} on {device}, got {x.dtype} {tuple(x.shape)} on "
                          f"{x.device}{'' if x.is_contiguous() else ' (non-contiguous)'}")
+
+
+def check_aligned(kernel: str, name: str, x: torch.Tensor) -> None:
+    """Raise unless x starts on a 16-byte boundary: TMA and cp.async read
+    16-byte aligned rows."""
+    if x.data_ptr() % 16:
+        raise ValueError(f"{kernel} kernel: {name} must start on a 16-byte boundary, "
+                         f"got address {x.data_ptr():#x}")
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -26,7 +26,10 @@ matrices in the compute dtype, vectors in f32.
 
 A CPU tensor takes the plain PyTorch versions (any float dtype, for the
 parity tests); a CUDA tensor launches K6 / K7 from csrc/encoder_train_fwd.cu
-and csrc/encoder_train_bwd.cu, bf16 only, or raises.
+and csrc/encoder_train_bwd.cu, bf16 only, or raises. Both run every product
+on the TMA + wgmma GEMM of csrc/gemm_wgmma.cuh; K6 forms the gate logits in
+its gate product's epilogue, for which the wrapper hands it [Wa; Wb] and
+[ba; bb] with their rows permuted (`permute_gates`).
 """
 
 from __future__ import annotations
@@ -162,8 +165,38 @@ def _check_shapes(x, w, kernel):
     for k, shape in shapes.items():
         _build.check_operand(kernel, k, w[k], shape,
                              torch.bfloat16 if k in MATS else torch.float32, x.device)
+        _build.check_aligned(kernel, k, w[k])
     _build.check_operand(kernel, "x", x, (b, t, d_in), torch.bfloat16, x.device)
+    _build.check_aligned(kernel, "x", x)
     return b, t, d_in, hd, nh, e, f, dout
+
+
+GATE_CHUNK = 64   # gate columns j per 128-column tile of K6's gate product
+
+
+def gate_perm(f: int) -> torch.Tensor:
+    """The row order of one head's [Wa; Wb] (2f rows) in K6's gate product:
+    tile c (128 rows) holds Wa's rows 64 c .. 64 c + 63, then Wb's same rows,
+    so that the product's epilogue finds a = tanh(.) and g = sigmoid(.) of
+    one column j in one thread (csrc/gemm_wgmma.cuh::epilogue_gates).
+    Permuted row n comes from row gate_perm(f)[n]."""
+    n = torch.arange(2 * f)
+    tile, col = n // (2 * GATE_CHUNK), n % (2 * GATE_CHUNK)
+    return (col >= GATE_CHUNK) * f + tile * GATE_CHUNK + col % GATE_CHUNK
+
+
+def permute_gates(w: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(wab [nh, 2f, e], bab [nh, 2f]) in gate_perm's row order, built at the
+    kernel boundary on each call as the head-major columns are: the model's
+    parameters keep their own layout. wc needs no permutation: the epilogue
+    reads it at the column j each tile's rows stand for, in wc's own order."""
+    nh, f, e = w["wa"].shape
+    c = f // GATE_CHUNK
+    wab = torch.stack([w["wa"].reshape(nh, c, GATE_CHUNK, e),
+                       w["wb"].reshape(nh, c, GATE_CHUNK, e)], dim=2).reshape(nh, 2 * f, e)
+    bab = torch.stack([w["ba"].reshape(nh, c, GATE_CHUNK),
+                       w["bb"].reshape(nh, c, GATE_CHUNK)], dim=2).reshape(nh, 2 * f)
+    return wab, bab
 
 
 @torch.no_grad()
@@ -177,8 +210,7 @@ def encoder_train_fwd_cuda(x, bias, w, seed: int, row_offset: int = 0,
     M, E = b * t, nh * e
     lib = _build.load("encoder_train_fwd")
     ntiles = -(-t // lib.encoder_train_pool_tile())   # ctypes' default restype is int
-    wab = torch.cat([w["wa"], w["wb"]], dim=1).contiguous()        # [nh, 2f, e]
-    bab = torch.cat([w["ba"], w["bb"]], dim=1).contiguous()        # [nh, 2f]
+    wab, bab = permute_gates(w)                                    # [nh, 2f, e], [nh, 2f]
     pooled = torch.empty(b, E, dtype=f32, device=dev)
     m = torch.empty(b, nh, dtype=f32, device=dev)
     s = torch.empty(b, nh, dtype=f32, device=dev)
@@ -194,7 +226,7 @@ def encoder_train_fwd_cuda(x, bias, w, seed: int, row_offset: int = 0,
                torch.empty(M, hd, dtype=bf, device=dev),            # H1
                torch.empty(M, hd, dtype=bf, device=dev),            # H2
                torch.empty(M, E, dtype=bf, device=dev),             # Y
-               torch.empty(M, 2 * nh * f, dtype=f32, device=dev),   # G
+               torch.empty(M, nh, f // GATE_CHUNK, dtype=f32, device=dev),   # partial logits
                torch.empty(b, ntiles, nh, dtype=f32, device=dev),   # part_m
                torch.empty(b, ntiles, nh, dtype=f32, device=dev),   # part_s
                torch.empty(b, ntiles, E, dtype=f32, device=dev)]    # part_w
@@ -230,6 +262,7 @@ def encoder_train_bwd_cuda(x, l, m, s, g, inner, dtok, saved, w, seed: int,
                                     ("bp", saved["bp"], (b, t, nh * f), bf),
                                     ("rstd", saved["rstd"], (b, t, 3), f32)):
         _build.check_operand(kname, name, ten, shape, dtype, dev)
+        _build.check_aligned(kname, name, ten)
     dims, scales = prng.kernel_args((b, t, d_in, hd, nh, e, f, dout), seed, row_offset,
                                     pre_rate, gate_rate)
     ws = _build.workspace(kname, "encoder_train_bwd_workspace", dims)

@@ -11,7 +11,7 @@ its input columns permuted to head-major (`madeleine.train_weights`'s wt);
 bt is f32. The plain versions also serve K6/K7's. A CPU tensor takes them
 (any float dtype); a CUDA tensor launches csrc/linear_tok.cu, bf16 only, or
 raises. The forward is a TMA + wgmma streaming GEMM (csrc/gemm_wgmma.cuh),
-the backward the mma.sync GEMM K6/K7 share (csrc/gemm_bf16.cuh).
+the backward the mma.sync GEMM the per-op kernels share (csrc/gemm_bf16.cuh).
 """
 
 from __future__ import annotations
@@ -65,10 +65,8 @@ def _check(y, wt, bt, kernel):
         raise ValueError(f"{kernel} kernel: y must be contiguous")
     dev = y.device
     _build.check_operand(kernel, "wt", wt, (dout, E), torch.bfloat16, dev)
-    for name, x in (("y", y), ("wt", wt)):
-        if x.data_ptr() % 16:   # TMA and cp.async read 16-byte aligned rows
-            raise ValueError(f"{kernel} kernel: {name} must start on a 16-byte boundary, "
-                             f"got address {x.data_ptr():#x}")
+    _build.check_aligned(kernel, "y", y)
+    _build.check_aligned(kernel, "wt", wt)
     if bt is not None:
         _build.check_operand(kernel, "bt", bt, (dout,), torch.float32, dev)
     return b * t, E, dout

@@ -601,3 +601,181 @@ def test_linear_tok_forward_refuses_a_misaligned_operand(cuda_device):
     with pytest.raises(ValueError, match="linear_tok_fwd kernel"):
         lt.linear_tok_fwd_cuda(y.clone(), wt.cpu(), bt)
     assert lt.fwd_launches == before
+
+
+# ---------------------------------------------------------------------------
+# The TMA + wgmma GEMM (csrc/gemm_wgmma.cuh) at every layout K6/K7 use
+# ---------------------------------------------------------------------------
+
+def _operand_of(x, mn, off, z, rows, k):
+    """Batch z's [rows, k] operand (f32) of a K-major or MN-major tensor."""
+    if mn:
+        return x[off[1] * z:off[1] * z + k, off[0] * z:off[0] * z + rows].float().T
+    return x[off[0] * z:off[0] * z + rows, off[1] * z:off[1] * z + k].float()
+
+
+def _rand(dev, *shape, seed, scale=1.0):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(*shape, generator=g) * scale).to(dev, torch.bfloat16)
+
+
+# (name, a_mn, b_mn, M, N, K, batches, a_shape, a_off, b_shape, b_off, out dtype, beta,
+#  act_split, bias): the shapes of K6/K7's products at a small token count
+WGMMA_CASES = {
+    "kk_ragged_m_f32_bias": (False, False, 3000, 544, 544, 1, (3000, 544), (0, 0), (544, 544),
+                             (0, 0), torch.float32, False, -1, True),
+    "kk_n136_bf16": (False, False, 1000, 136, 512, 1, (1000, 512), (0, 0), (136, 512), (0, 0),
+                     torch.bfloat16, False, -1, True),
+    "kmn_n544_beta": (False, True, 3000, 544, 512, 1, (3000, 512), (0, 0), (512, 544), (0, 0),
+                      torch.float32, True, -1, False),
+    "kmn_dx_n544_bf16": (False, True, 3000, 544, 512, 1, (3000, 512), (0, 0), (512, 544),
+                         (0, 0), torch.bfloat16, False, -1, False),
+    "kk_gate_products_batched": (False, False, 3000, 256, 128, 4, (3000, 512), (0, 128),
+                                 (1024, 128), (256, 0), torch.float32, False, 128, True),
+    "kmn_gate_dgrad_batched": (False, True, 3000, 128, 256, 4, (3000, 1024), (0, 256),
+                               (1024, 128), (0, 256), torch.float32, True, -1, False),
+}
+
+
+@pytest.mark.parametrize("case", list(WGMMA_CASES))
+def test_wgmma_gemm_matches_an_f32_product(cuda_device, case):
+    """Each layout of the generalised GEMM against the f32 product of the
+    same bf16 operands: f32 output within 1e-5 relative Frobenius (f32
+    accumulation in another order), bf16 output within one bf16 rounding
+    step of each value (or 1e-2 absolute); a ragged M (3000 rows), N = 136
+    and 544, K = 544, beta = 1 (C += result), and per-head batches read by
+    coordinates with K6's gate activations. Two launches are bitwise equal."""
+    from madeleine_torch.ops import gemm as G
+
+    (a_mn, b_mn, M, N, K, nb, a_shape, a_off, b_shape, b_off, dt, beta, act,
+     has_bias) = WGMMA_CASES[case]
+    a = _rand(cuda_device, *a_shape, seed=1)
+    b = _rand(cuda_device, *b_shape, seed=2, scale=K ** -0.5)
+    bias = (torch.randn(nb * N, generator=torch.Generator().manual_seed(3)).to(cuda_device)
+            if has_bias else None)
+    width = nb * N   # batch z's output columns start at z N
+    c0 = (torch.randn(M, width, generator=torch.Generator().manual_seed(4)).to(cuda_device, dt)
+          if beta else torch.zeros(M, width, device=cuda_device, dtype=dt))
+    want = c0.float().clone()
+    for z in range(nb):
+        v = _operand_of(a, a_mn, a_off, z, M, K) @ _operand_of(b, b_mn, b_off, z, N, K).T
+        if bias is not None:
+            v = v + bias[z * N:(z + 1) * N]
+        if act >= 0:
+            v = torch.cat([torch.tanh(v[:, :act]), torch.sigmoid(v[:, act:])], dim=1)
+        want[:, z * N:(z + 1) * N] = v + (want[:, z * N:(z + 1) * N] if beta else 0)
+    outs = []
+    for _ in range(2):
+        c = c0.clone()
+        G.wgmma_gemm(a, b, c, a_mn=a_mn, b_mn=b_mn, M=M, N=N, K=K, batches=nb, a_off=a_off,
+                     b_off=b_off, ldc=width, stride_c=N, bias=bias, stride_bias=N, beta=beta,
+                     act_split=act)
+        outs.append(c)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    got = outs[0].float()
+    if dt == torch.float32:
+        assert _rel(got, want) <= 1e-5, _rel(got, want)
+    else:
+        bar = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8).clamp_min(1e-2)
+        assert bool(((got - want).abs() <= bar).all())
+
+
+@pytest.mark.parametrize("nb,M,N,K", [(1, 512, 544, 20000), (4, 256, 128, 5000)],
+                         ids=["dw1_d_in544", "dwab_batched"])
+def test_wgmma_weight_gradient_split_k(cuda_device, nb, M, N, K):
+    """The weight-gradient layout (both operands MN-major, token-major rows),
+    split over the tokens into pieces summed in split order, against the f32
+    product (1e-5 relative Frobenius); two launches bitwise equal."""
+    from madeleine_torch.ops import gemm as G
+
+    a = _rand(cuda_device, K, nb * M, seed=5)
+    b = _rand(cuda_device, K, nb * N, seed=6)
+    want = torch.stack([a[:, z * M:(z + 1) * M].float().T @ b[:, z * N:(z + 1) * N].float()
+                        for z in range(nb)])
+    outs = [G.wgmma_gemm(a, b, torch.empty(nb, M, N, device=cuda_device), a_mn=True, b_mn=True,
+                         M=M, N=N, K=K, batches=nb, a_off=(M, 0), b_off=(N, 0), wgrad=True)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert _rel(outs[0], want) <= 1e-5, _rel(outs[0], want)
+
+
+def test_wgmma_gemm_refuses_what_it_cannot_take(cuda_device):
+    """A misaligned operand raises in the wrapper before any launch; a
+    batched operand whose k tiles would run into the next batch (K not a
+    multiple of 64 with a k offset) is refused by the launcher itself."""
+    from madeleine_torch.ops import gemm as G
+
+    buf = torch.zeros(64 * 256 + 8, device=cuda_device, dtype=torch.bfloat16)
+    a = buf[1:1 + 64 * 256].view(64, 256)
+    b = torch.zeros(128, 256, device=cuda_device, dtype=torch.bfloat16)
+    c = torch.zeros(64, 128, device=cuda_device)
+    before = G.launches
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        G.wgmma_gemm(a, b, c, a_mn=False, b_mn=False, M=64, N=128, K=256)
+    assert G.launches == before
+    a2 = torch.zeros(64, 192, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        G.wgmma_gemm(a2, b[:, :96].contiguous(), torch.zeros(64, 256, device=cuda_device),
+                     a_mn=False, b_mn=False, M=64, N=128, K=96, batches=2, a_off=(0, 96),
+                     b_off=(0, 0), ldc=256, stride_c=128)
+
+
+@pytest.mark.parametrize("d_in,need_dx", [(512, False), (544, True)], ids=["t4057", "d_in544_dx"])
+def test_encoder_train_kernels_match_plain_at_a_partial_tile(cuda_device, d_in, need_dx):
+    """K6 and K7 on the wgmma GEMM at t = 4057 (63 full 64-row tiles and 25
+    rows), rates (0.1, 0.25), against their plain versions at the bars of
+    test_encoder_train_kernels_match_plain; at d_in 544 with dx (the
+    stain-encoded call). Two launches of each bitwise equal."""
+    from madeleine_torch.ops import encoder_train as et
+
+    cfg = MadeleineConfig(precision="bfloat16", add_stain_encoding=d_in == 544).finalize()
+    model = init_madeleine(MADELEINE(cfg), torch.Generator().manual_seed(0)).to(cuda_device)
+    w = _train_operands(model)
+    g = torch.Generator().manual_seed(8)
+    t = 4057
+    x = torch.randn(2, t, d_in, generator=g).to(cuda_device, torch.bfloat16)
+    mask = torch.ones(2, t, dtype=torch.bool)
+    mask[0, :4000] = False
+    bias = et.token_mask_bias(mask.to(cuda_device), 2, t, cuda_device)
+    rates = (0.1, 0.25)
+    got = et.encoder_train_fwd_cuda(x, bias, w, 5, 1, *rates)
+    again = et.encoder_train_fwd_cuda(x, bias, w, 5, 1, *rates)
+    with torch.no_grad():
+        want = et.encoder_train_fwd_plain(x, bias, w, 5, 1, *rates)
+    assert all(torch.equal(u, v) for u, v in zip(got[:5], again[:5]))
+    assert (got[0] - want[0]).abs().max().item() <= 2e-3
+    assert (got[3].float() - want[3].float()).abs().max().item() <= 3e-2
+    assert (got[4] - want[4]).abs()[bias == 0].max().item() <= 3e-2
+    pooled32, m, s, _, l, saved = got
+    gp = torch.randn(2, pooled32.shape[1], generator=g).to(cuda_device)
+    dtok = torch.randn(2, t, 128, generator=g).to(cuda_device, torch.bfloat16)
+    inner = (gp * pooled32).reshape(2, 4, -1).sum(-1)
+    args = (x, l, m, s, gp, inner, dtok, saved, w, 5, 1, *rates)
+    gk = et.encoder_train_bwd_cuda(*args, need_dx=need_dx)
+    gk2 = et.encoder_train_bwd_cuda(*args, need_dx=need_dx)
+    with torch.no_grad():
+        ref = et.encoder_train_bwd_plain(*args, need_dx=need_dx)
+    keys = et.W_KEYS + (("x",) if need_dx else ())
+    for k in keys:
+        assert torch.equal(gk[k], gk2[k]), k
+        if k == "bc":
+            assert (gk[k] - ref[k]).abs().max().item() <= 1e-4
+        else:
+            assert _rel(gk[k].float(), ref[k].float()) <= 1e-2, k
+
+
+def test_encoder_train_refuses_a_misaligned_input(cuda_device):
+    """An x that starts 2 bytes past a 16-byte boundary raises before K6
+    launches."""
+    from madeleine_torch.ops import encoder_train as et
+
+    w = _train_operands(_model(cuda_device))
+    buf = torch.zeros(2 * 64 * 512 + 1, device=cuda_device, dtype=torch.bfloat16)
+    x = buf[1:].view(2, 64, 512)
+    bias = et.token_mask_bias(None, 2, 64, cuda_device)
+    before = et.fwd_launches
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        et.encoder_train_fwd_cuda(x, bias, w, 5, 0)
+    assert et.fwd_launches == before
