@@ -103,12 +103,20 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            K8 (ipot_fwd), K9 (ipot_bwd) and K10 (gw_gamma), f32, on costs
            built as the GOT path builds them (random d=128 tokens ->
            cosine cost -> threshold-ReLU), at the train step's [260, 256,
-           256] and at an odd (7, 256, 192): K8 at (beta, iters) (0.5, 30)
+           256] and at an odd (7, 256, 192), both on K9's and K10's cluster
+           route (its fast path, m <= 256), at (5, 100, 320) on the cluster
+           route's general path (ragged row slices), and at (3, 512, 512),
+           beyond a cluster's shared memory, on their global route (the
+           one-block kernels): K8 at (beta, iters) (0.5, 30)
            and (0.1, 20), K9 with the loss's cotangent C, K10 at 5 x 20, each
            against its plain version (relative Frobenius bars below), with a
            control that must miss the bar: the plain version one iteration
            short (K10: the largest outer count below 5 that misses it); two
-           launches of each bitwise equal; timed at [260, 256, 256]
+           launches of each bitwise equal; the route each shape took, read
+           from the launch counters. Timed at [260, 256, 256], per call and
+           back to back, with both routes of K9 and K10 and K10 at iters=0
+           (its products alone) on each; K9's history floor, each cluster
+           route's cudaOccupancyMaxActiveClusters and shared memory
   glue_kernels
            K11 (threshold_build forward), K12 (its backward), K13 (gw_trace
            forward) and K14 (its backward), f32, on cosine costs of random
@@ -1249,6 +1257,8 @@ GOT_PLAN_RTOL = 1e-4   # T (K8) and gamma (K10)
 GOT_GRAD_RTOL = 1e-3   # dC (K9)
 GOT_STEP_SHAPE = (260, 256, 256)   # 4 stain pairs x 65 cases, 256 tokens subsampled
 GOT_ODD_SHAPE = (7, 256, 192)
+GOT_LARGE_SHAPE = (3, 512, 512)    # beyond a cluster's shared memory: K9/K10's global route
+GOT_WIDE_SHAPE = (5, 100, 320)     # m > 256: the cluster route's general path, ragged rows
 # operations per element per IPOT iteration: Q = A T, Q sigma, the row add, Q delta,
 # the column add, (delta Q) sigma' (two products); the adjoint as csrc/ipot_bwd.cu's
 # header writes it needs 18 more (each product and add once); exp(-C/beta) 2
@@ -1287,10 +1297,12 @@ def _got_work(b, n, m, iters=30, gw_outer=5, gw_iters=20):
 
 def _check_got(torch, C, Cs, Ct, Cst):
     """Each of K8/K9/K10 against its plain version, its control and a second
-    launch; returns the report (bars enforced by the caller)."""
+    launch, with the route K9 and K10 took (from the launch counters);
+    returns the report (bars enforced by the caller)."""
     from madeleine_torch.ops import ipot as I
 
     rep = {}
+    before = read_counts()
     for beta, iters in ((0.5, 30), (0.1, 20)):
         T = I.ipot_plan_cuda(C, beta, iters)
         T2 = I.ipot_plan_cuda(C, beta, iters)
@@ -1332,35 +1344,70 @@ def _check_got(torch, C, Cs, Ct, Cst):
         "controls_tried": tried,
         "kernel_vs_f64": _rel_fro(g.double(), ref64), "plain_vs_f64": _rel_fro(want.double(), ref64),
         "bitwise_equal": torch.equal(g, g2), "finite": bool(torch.isfinite(g).all())}
+    after = read_counts()
+    _, n, m = C.shape
+    for kernel, key in (("ipot_bwd", "ipot_bwd_0.5_30"), ("gw_gamma", "gw_gamma_0.1_5x20")):
+        route = I.transport_route(kernel, n, m)
+        counted = {r: after[k] - before[k] for r, k in (("cluster", kernel),
+                                                        ("global", f"{kernel}_global"))}
+        rep[key]["route"] = list(route)
+        rep[key]["route_launches"] = counted
+        rep[key]["route_ok"] = counted[route[0]] == 2 and sum(counted.values()) == 2
     return rep
 
 
 def _enforce_got(rep, where):
     for name, r in rep.items():
         bar = GOT_GRAD_RTOL if name.startswith("ipot_bwd") else GOT_PLAN_RTOL
-        if not (r["finite"] and r["bitwise_equal"] and r["rel_fro"] <= bar):
+        if not (r["finite"] and r["bitwise_equal"] and r["rel_fro"] <= bar
+                and r.get("route_ok", True)):
             raise AssertionError(f"got_kernels {where} {name}: {r} (bar {bar})")
         if not r["control"] > bar:
             raise AssertionError(f"got_kernels {where} {name}: control within the bar: {r}")
 
 
 def phase_got_kernels(state):
+    import ctypes
+
     import torch
+    from madeleine_torch.ops import _build
     from madeleine_torch.ops import ipot as I
 
     gen = np.random.default_rng(SEED + 5)
     checks = {}
-    for label, shape in (("odd", GOT_ODD_SHAPE), ("step", GOT_STEP_SHAPE)):
+    shapes = {"odd": GOT_ODD_SHAPE, "wide": GOT_WIDE_SHAPE, "large": GOT_LARGE_SHAPE,
+              "step": GOT_STEP_SHAPE}
+    for label, shape in shapes.items():
         C, Cs, Ct, Cst = _got_costs(torch, *shape, gen)
         checks[label] = _check_got(torch, C, Cs, Ct, Cst)
+    # each shape's route: the step's and the odd one's the cluster, the large one's global
+    want_route = {"odd": "cluster", "wide": "cluster", "step": "cluster", "large": "global"}
+    routes = {label: {k: I.transport_route(k, *shapes[label][1:]) for k in ("ipot_bwd", "gw_gamma")}
+              for label in shapes}
+    # the route function's shared memory against the library's own
+    smem = {}
+    for kernel in ("ipot_bwd", "gw_gamma"):
+        for label, (_, n, m) in shapes.items():
+            for c in I.CLUSTER_SIZES[kernel]:
+                lib = _build.entry(kernel, f"{kernel}_cluster_smem_bytes", [ctypes.c_int] * 3,
+                                   ctypes.c_size_t)(n, m, c)
+                smem[f"{kernel}_{label}_c{c}"] = [I.cluster_smem_bytes(kernel, n, m, c), lib]
     # report every number first, then enforce the bars
     emit({"phase": "got_kernels", "checks": checks, "plan_rtol_fro": GOT_PLAN_RTOL,
-          "grad_rtol_fro": GOT_GRAD_RTOL, "shapes": {"odd": GOT_ODD_SHAPE,
-                                                     "step": GOT_STEP_SHAPE}})
+          "grad_rtol_fro": GOT_GRAD_RTOL, "shapes": shapes, "routes": routes,
+          "cluster_smem_bytes_python_vs_lib": smem})
     for label, rep in checks.items():
         _enforce_got(rep, label)
+        for kernel, (route, _) in routes[label].items():
+            if route != want_route[label]:
+                raise AssertionError(f"got_kernels {label}: {kernel} took the {route} route")
+    for key, (py, lib) in smem.items():
+        if py != lib:
+            raise AssertionError(f"got_kernels: cluster shared memory {key}: python {py}, "
+                                 f"library {lib}")
 
     # times at the step's shape (C, Cs, Ct, Cst are the step shape's now)
+    b, n, m = GOT_STEP_SHAPE
     fns = {"ipot_fwd": (lambda: I.ipot_plan_cuda(C, 0.5, 30),
                         lambda: I.ipot_plan_plain(C, 0.5, 30)),
            "ipot_bwd": (lambda: I.ipot_plan_bwd_cuda(C, C, 0.5, 30),
@@ -1380,18 +1427,46 @@ def phase_got_kernels(state):
         flops, nbytes = work[name]
         ops, mem = flops / PEAK_FP32, nbytes / PEAK_BYTES
         bound = max(ops, mem) * 1e3
-        times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+        times[name] = {"ms": ms, "ms_back_to_back": cuda_ms_back_to_back(kernel, 1, 10),
+                       "plain_ms": plain_ms, "bound_ms": bound,
                        "bound_by": "operations" if ops >= mem else "bytes",
                        "share_of_bound": bound / ms, "gflop": flops / 1e9, "gb": nbytes / 1e9}
+        # the main path's kernel is the cluster route's (odd and step shapes)
         state.setdefault("kernels", {})[name] = {
             "name": name, "route": "cuda", "source": "madeleine_torch/" + sources[name][0],
             "replaces": sources[name][1],
-            "max_abs_err": max(checks[lbl][k]["max_abs_err"] for lbl in checks
+            "max_abs_err": max(checks[lbl][k]["max_abs_err"] for lbl in ("odd", "wide", "step")
                                for k in err_key[name]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": times[name]["bound_by"], "library_ms": None}
+    # both routes of K9 and K10 at the step's shape (the global route, the
+    # one-block kernels, forced here), and K10 at iters=0: its products and
+    # the exp epilogue alone, the split of its time
+    c_gw = I.transport_route("gw_gamma", n, m)[1]
+    c_bwd = I.transport_route("ipot_bwd", n, m)[1]
+    routes_ms = {
+        "ipot_bwd_cluster": cuda_ms(lambda: I._ipot_bwd_cluster(C, C, 0.5, 30, c_bwd), 1, 5),
+        "ipot_bwd_global": cuda_ms(lambda: I._ipot_bwd_global(C, C, 0.5, 30), 1, 5),
+        "gw_gamma_cluster": cuda_ms(lambda: I._gw_gamma_cluster(Cs, Ct, Cst, 0.1, 5, 20, c_gw),
+                                    1, 5),
+        "gw_gamma_global": cuda_ms(lambda: I._gw_gamma_global(Cs, Ct, Cst, 0.1, 5, 20), 1, 5),
+        "gw_gamma_cluster_iters0": cuda_ms(
+            lambda: I._gw_gamma_cluster(Cs, Ct, Cst, 0.1, 5, 0, c_gw), 1, 5),
+        "gw_gamma_global_iters0": cuda_ms(
+            lambda: I._gw_gamma_global(Cs, Ct, Cst, 0.1, 5, 0), 1, 5)}
+    # the other cluster size each kernel could take at this shape (K10: 8; K9 fits only 8)
+    routes_ms["gw_gamma_cluster_c8"] = cuda_ms(
+        lambda: I._gw_gamma_cluster(Cs, Ct, Cst, 0.1, 5, 20, 8), 1, 5)
+    occupancy = {f"{k}_c{c}": _build.entry(k, f"{k}_cluster_occupancy", [ctypes.c_int] * 3)(
+        n, m, c) for k, cs in (("ipot_bwd", (8,)), ("gw_gamma", (4, 8))) for c in cs}
+    hist_bytes = 30 * b * n * m * 4
     emit({"phase": "got_kernels", "shape": GOT_STEP_SHAPE, "times": times,
-          "k9_history_gb": 30 * GOT_STEP_SHAPE[0] * 256 * 256 * 4 / 1e9})
+          "routes_ms": routes_ms, "cluster_sizes": {"ipot_bwd": c_bwd, "gw_gamma": c_gw},
+          "max_active_clusters": occupancy,
+          "cluster_smem_bytes": {"ipot_bwd": I.cluster_smem_bytes("ipot_bwd", n, m, c_bwd),
+                                 "gw_gamma": I.cluster_smem_bytes("gw_gamma", n, m, c_gw)},
+          "k9_history_gb": hist_bytes / 1e9,
+          "k9_history_floor_ms": 2 * hist_bytes / PEAK_BYTES * 1e3})
 
 
 # GOT glue kernels: relative Frobenius bars against the plain versions on the card
@@ -2255,6 +2330,9 @@ def _run_train_steps(torch, state, phase, kernels, cfg=None):
     missing = [(i, k) for i, c in enumerate(per_step) for k in kernels if c[k] < 1]
     if missing:
         raise AssertionError(f"{phase}: kernels not launched on every step: {missing}")
+    # the step's 256 x 256 transport problems take K9's and K10's cluster route
+    if "gw_gamma" in kernels and counts["ipot_bwd_global"] + counts["gw_gamma_global"]:
+        raise AssertionError(f"{phase}: the global route of K9/K10 launched: {counts}")
     return cfg, model, batch, {
         "steps": TRAIN_STEPS, "batch": [cfg.batch_size, cfg.n_modalities, cfg.n_subsamples,
                                         cfg.patch_embedding_dim],
@@ -2776,13 +2854,16 @@ def phase_pretrain(state):
 
 
 # kernel-name prefixes of K8-K10 and of K11-K14 in a profiler trace
-TRANSPORT_NAMES = ("ipot_fwd_kernel", "ipot_bwd_kernel", "gw_gamma_kernel")
+TRANSPORT_NAMES = ("ipot_fwd_kernel", "ipot_bwd_kernel", "gw_gamma_kernel",
+                   "ipot_bwd_cluster_kernel", "gw_gamma_cluster_kernel")
 GLUE_NAMES = ("tb_fwd_kernel", "tb_bwd_kernel", "gwt_fwd_kernel", "gwt_bwd_kernel")
 
 
 def _kernel_base(name):
-    """'(anonymous namespace)::tb_fwd_kernel(float const*, ...' -> 'tb_fwd_kernel'."""
-    return name.split("(anonymous namespace)::")[-1].split("(")[0].split("::")[-1]
+    """'(anonymous namespace)::tb_fwd_kernel(float const*, ...' -> 'tb_fwd_kernel';
+    template arguments go too ('gw_gamma_cluster_kernel<true>(...' ->
+    'gw_gamma_cluster_kernel')."""
+    return name.split("(anonymous namespace)::")[-1].split("(")[0].split("<")[0].split("::")[-1]
 
 
 def _split_got_rows(rows):

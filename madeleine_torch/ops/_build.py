@@ -166,11 +166,12 @@ def _invoke(lib_name: str, fn, args, device: torch.device) -> None:
 
 
 def check_problems(kernel: str, operands, shapes, lib_name: str, smem_fn: str, n: int,
-                   m: int) -> torch.device:
-    """For the per-problem f32 kernels of the GOT loss (one block per [n, m]
-    problem): raise unless every (name, tensor) operand is a contiguous f32
-    CUDA tensor of its shape on the first operand's device, and the block's
-    shared memory (``smem_fn(n, m)`` of the library) fits. Returns the device."""
+                   m: int, *smem_extra: int) -> torch.device:
+    """For the per-problem f32 kernels of the GOT loss (one block, or one
+    cluster of blocks, per [n, m] problem): raise unless every (name, tensor)
+    operand is a contiguous f32 CUDA tensor of its shape on the first
+    operand's device, and the block's shared memory (``smem_fn(n, m,
+    *smem_extra)`` of the library) fits. Returns the device."""
     dev = operands[0][1].device
     if dev.type != "cuda":
         raise ValueError(f"{kernel} kernel needs CUDA tensors, got {dev}")
@@ -178,7 +179,8 @@ def check_problems(kernel: str, operands, shapes, lib_name: str, smem_fn: str, n
         check_operand(kernel, name, x, shape, torch.float32, dev)
     if min(n, m) < 1 or max(shapes[0]) >= 2 ** 31:
         raise ValueError(f"{kernel} kernel: unsupported shape {tuple(shapes[0])}")
-    smem = entry(lib_name, smem_fn, [ctypes.c_int, ctypes.c_int], ctypes.c_size_t)(n, m)
+    args = (n, m, *smem_extra)
+    smem = entry(lib_name, smem_fn, [ctypes.c_int] * len(args), ctypes.c_size_t)(*args)
     if smem > SMEM_LIMIT:
         raise ValueError(f"{kernel} kernel: n={n}, m={m} need {smem} bytes of shared "
                          f"memory per block, above {SMEM_LIMIT}")

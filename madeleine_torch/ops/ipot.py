@@ -15,20 +15,28 @@ of the unrolled loop, the derivative that autograd through the loop gives
 
 A CPU tensor takes the plain PyTorch versions; a CUDA tensor launches K8 /
 K9 / K10 from csrc/ipot_fwd.cu, csrc/ipot_bwd.cu and csrc/gw_gamma.cu
-(f32, any n and m within the shared-memory limit), or raises.
+(f32), or raises. K9 and K10 have two routes each, chosen by shape in
+`transport_route`: a thread-block cluster per problem that keeps the
+problem's state in shared memory (`cluster`, the train step's), and the
+first design's one block per problem with the state in device memory (`global`, for
+problems whose state does not fit a cluster). Each route has its own launch
+counter.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import List, Tuple
 
 import torch
 
 from madeleine_torch.ops import _build
 
-fwd_launches = 0   # K8 launches (one per wrapper call on a CUDA tensor)
-bwd_launches = 0   # K9 launches
-gw_launches = 0    # K10 launches
+fwd_launches = 0          # K8 launches (one per wrapper call on a CUDA tensor)
+bwd_launches = 0          # K9 launches, cluster route
+gw_launches = 0           # K10 launches, cluster route
+bwd_launches_global = 0   # K9 launches, global route
+gw_launches_global = 0    # K10 launches, global route
 
 
 # ---------------------------------------------------------------------------
@@ -73,13 +81,60 @@ def gw_gamma_plain(Cs: torch.Tensor, Ct: torch.Tensor, Cst: torch.Tensor, beta: 
 
 
 # ---------------------------------------------------------------------------
+# routes of K9 and K10
+# ---------------------------------------------------------------------------
+
+# cluster sizes tried in order, the first whose state fits wins
+CLUSTER_SIZES = {"ipot_bwd": (8,), "gw_gamma": (4, 8)}
+_GROUPS, _WARPS, _FAST_M = 4, 16, 256        # ipot_cluster.cuh CGROUPS, CWARPS, FAST_M
+_STAGE_FLOATS = 2 * 16 * ((64 + 4) + (128 + 4))   # ipot_cluster.cuh stage_floats()
+
+
+def _round4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
+def cluster_rows(n: int, c: int) -> List[Tuple[int, int]]:
+    """The rows [r0, r1) that each cluster rank owns: r0 = floor(r n / c)."""
+    return [(r * n // c, (r + 1) * n // c) for r in range(c)]
+
+
+def cluster_smem_bytes(kernel: str, n: int, m: int, c: int) -> int:
+    """Shared memory per block of the cluster route of `kernel` ("ipot_bwd"
+    or "gw_gamma"): the formula of the source's cluster_smem_floats."""
+    rows = -(-n // c)
+    slice_ = _round4(rows * m)
+    red = max(_GROUPS * m, _WARPS * _FAST_M)
+    if kernel == "gw_gamma":
+        floats = (2 * slice_ + _STAGE_FLOATS + _round4(rows) + (1 + 2 * c) * _round4(m) + red
+                  + 2 * n)
+    elif kernel == "ipot_bwd":
+        floats = 5 * slice_ + 2 * _round4(rows) + (3 + 4 * c) * _round4(m) + red + 4
+    else:
+        raise ValueError(f"no cluster route for {kernel}")
+    return 4 * floats
+
+
+def transport_route(kernel: str, n: int, m: int) -> Tuple[str, int]:
+    """("cluster", c) when a cluster of c blocks holds one [n, m] problem's
+    state in shared memory, for the first c of CLUSTER_SIZES[kernel] that
+    fits; else ("global", 1), the one-block kernel with the state in device memory."""
+    for c in CLUSTER_SIZES[kernel]:
+        if cluster_smem_bytes(kernel, n, m, c) <= _build.SMEM_LIMIT:
+            return "cluster", c
+    return "global", 1
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"ipot_forward": [_P] * 3 + [_I] * 3 + [_F, _I, _P],
                "ipot_backward": [_P] * 8 + [_I] * 3 + [_F, _I, _P],
-               "gw_gamma_forward": [_P] * 6 + [_I] * 3 + [_F, _F, _I, _I, _P]}
+               "ipot_bwd_cluster": [_P] * 6 + [_I] * 4 + [_F, _I, _P],
+               "gw_gamma_forward": [_P] * 6 + [_I] * 3 + [_F, _F, _I, _I, _P],
+               "gw_gamma_cluster_forward": [_P] * 4 + [_I] * 4 + [_F, _F, _I, _I, _P]}
 
 
 @torch.no_grad()
@@ -99,10 +154,39 @@ def ipot_plan_cuda(C: torch.Tensor, beta: float, iterations: int) -> torch.Tenso
 @torch.no_grad()
 def ipot_plan_bwd_cuda(C: torch.Tensor, g: torch.Tensor, beta: float,
                        iterations: int) -> torch.Tensor:
-    """Launch K9: dC for the plan's cotangent g, as `ipot_plan_bwd_plain`. The
-    replayed history (T_k, delta_k, sigma_k of every iteration) lives in
-    buffers allocated here: iterations * b * n * m * 4 bytes for T."""
+    """Launch K9: dC for the plan's cotangent g, as `ipot_plan_bwd_plain`, on
+    the route `transport_route` gives for the shape. The replayed history
+    (T_k of every iteration: iterations * b * n * m * 4 bytes, and delta_k,
+    sigma_k) lives in buffers allocated here."""
+    _, n, m = C.shape
+    route, c = transport_route("ipot_bwd", n, m)
+    if route == "cluster":
+        return _ipot_bwd_cluster(C, g, beta, iterations, c)
+    return _ipot_bwd_global(C, g, beta, iterations)
+
+
+def _ipot_bwd_cluster(C, g, beta, iterations, c):
+    """K9's cluster route: c blocks per problem, A, dT and dA in shared memory."""
     global bwd_launches
+    b, n, m = C.shape
+    it = int(iterations)
+    dev = _build.check_problems("ipot_bwd", [("C", C), ("g", g)], [(b, n, m)] * 2,
+                                "ipot_bwd", "ipot_bwd_cluster_smem_bytes", n, m, c)
+    f32 = torch.float32
+    dC = torch.empty_like(C)
+    Th = torch.empty(b * it * c * _round4(-(-n // c) * m), dtype=f32, device=dev)
+    Dh = torch.empty(b, it, n, dtype=f32, device=dev)
+    Sh = torch.empty(b, c, it + 1, m, dtype=f32, device=dev)
+    _build.launch("ipot_bwd", "ipot_bwd_cluster", _SIGNATURES["ipot_bwd_cluster"],
+                  [C, g, Th, Dh, Sh, dC, b, n, m, c, float(beta), it], dev)
+    bwd_launches += 1
+    return dC
+
+
+def _ipot_bwd_global(C, g, beta, iterations):
+    """K9's global route (the one-block kernel): one block per problem, its state in
+    device memory."""
+    global bwd_launches_global
     b, n, m = C.shape
     it = int(iterations)
     dev = _build.check_problems("ipot_bwd", [("C", C), ("g", g)], [(b, n, m)] * 2,
@@ -114,24 +198,54 @@ def ipot_plan_bwd_cuda(C: torch.Tensor, g: torch.Tensor, beta: float,
     Sh = torch.empty(b, it + 1, m, dtype=f32, device=dev)
     _build.launch("ipot_bwd", "ipot_backward", _SIGNATURES["ipot_backward"],
                   [C, g, A, Th, Dh, Sh, dT, dC, b, n, m, float(beta), it], dev)
-    bwd_launches += 1
+    bwd_launches_global += 1
     return dC
 
 
 @torch.no_grad()
 def gw_gamma_cuda(Cs: torch.Tensor, Ct: torch.Tensor, Cst: torch.Tensor, beta: float,
                   outer: int, iters: int) -> torch.Tensor:
-    """Launch K10 on CUDA tensors; returns gamma as `gw_gamma_plain`."""
+    """Launch K10 on CUDA tensors, on the route `transport_route` gives for
+    the shape; returns gamma as `gw_gamma_plain`."""
+    _, n, m = Cst.shape
+    route, c = transport_route("gw_gamma", n, m)
+    if route == "cluster":
+        return _gw_gamma_cluster(Cs, Ct, Cst, beta, outer, iters, c)
+    return _gw_gamma_global(Cs, Ct, Cst, beta, outer, iters)
+
+
+def _gw_operands(Cs, Ct, Cst, smem_fn, *smem_args):
+    b, n, m = Cst.shape
+    return _build.check_problems("gw_gamma", [("Cst", Cst), ("Cs", Cs), ("Ct", Ct)],
+                                 [(b, n, m), (b, n, n), (b, m, m)], "gw_gamma", smem_fn,
+                                 *smem_args)
+
+
+def _gw_gamma_cluster(Cs, Ct, Cst, beta, outer, iters, c):
+    """K10's cluster route: c blocks per problem, A and gamma in shared memory."""
     global gw_launches
     b, n, m = Cst.shape
-    dev = _build.check_problems("gw_gamma", [("Cst", Cst), ("Cs", Cs), ("Ct", Ct)],
-                                [(b, n, m), (b, n, n), (b, m, m)], "gw_gamma",
-                                "gw_gamma_smem_bytes", n, m)
+    dev = _gw_operands(Cs, Ct, Cst, "gw_gamma_cluster_smem_bytes", n, m, c)
+    gamma = torch.empty_like(Cst)
+    _build.launch("gw_gamma", "gw_gamma_cluster_forward",
+                  _SIGNATURES["gw_gamma_cluster_forward"],
+                  [Cs, Ct, Cst, gamma, b, n, m, c, float(beta), 1.0 / (n * m), int(outer),
+                   int(iters)], dev)
+    gw_launches += 1
+    return gamma
+
+
+def _gw_gamma_global(Cs, Ct, Cst, beta, outer, iters):
+    """K10's global route (the one-block kernel): one block per problem, t1, A and
+    gamma in device memory."""
+    global gw_launches_global
+    b, n, m = Cst.shape
+    dev = _gw_operands(Cs, Ct, Cst, "gw_gamma_smem_bytes", n, m)
     t1, A, gamma = torch.empty_like(Cst), torch.empty_like(Cst), torch.empty_like(Cst)
     _build.launch("gw_gamma", "gw_gamma_forward", _SIGNATURES["gw_gamma_forward"],
                   [Cs, Ct, Cst, t1, A, gamma, b, n, m, float(beta), 1.0 / (n * m), int(outer),
                    int(iters)], dev)
-    gw_launches += 1
+    gw_launches_global += 1
     return gamma
 
 

@@ -195,15 +195,22 @@ def _rel(a, b):
     return ((a - b).norm() / b.norm()).item()
 
 
-@pytest.mark.parametrize("shape", [(7, 256, 192), (260, 256, 256)], ids=["odd", "step"])
+@pytest.mark.parametrize("shape", [(7, 256, 192), (260, 256, 256), (5, 100, 320), (3, 512, 512)],
+                         ids=["odd", "step", "wide", "large"])
 def test_ipot_and_gw_kernels_match_plain(cuda_device, shape):
     """K8 at (beta, iters) = (0.5, 30) and (0.1, 20), K9 with the loss's
     cotangent C, K10 at (0.1, 5 x 20), each against its plain version:
     relative Frobenius 1e-4 for T and gamma, 1e-3 for dC; a second launch of
-    each is bitwise equal."""
+    each is bitwise equal. K9 and K10 take the route `transport_route` gives
+    for the shape, read from the launch counters: the cluster route at the
+    odd, step and wide (m > 256: its general path) shapes, the global
+    route at the large one."""
     from madeleine_torch.ops import ipot as I
+    from madeleine_torch.ops import launches
 
+    _, n, m = shape
     C, Cs, Ct, Cst = _got_costs(cuda_device, *shape)
+    before = launches.read()
     for beta, iters in ((0.5, 30), (0.1, 20)):
         T = I.ipot_plan_cuda(C, beta, iters)
         assert torch.equal(T, I.ipot_plan_cuda(C, beta, iters))
@@ -214,6 +221,13 @@ def test_ipot_and_gw_kernels_match_plain(cuda_device, shape):
     gamma = I.gw_gamma_cuda(Cs, Ct, Cst, 0.1, 5, 20)
     assert torch.equal(gamma, I.gw_gamma_cuda(Cs, Ct, Cst, 0.1, 5, 20))
     assert _rel(gamma, I.gw_gamma_plain(Cs, Ct, Cst, 0.1, 5, 20)) <= 1e-4
+    after = launches.read()
+    for kernel in ("ipot_bwd", "gw_gamma"):
+        route, _ = I.transport_route(kernel, n, m)
+        assert route == ("global" if n == 512 else "cluster")
+        launched = {"cluster": after[kernel] - before[kernel],
+                    "global": after[f"{kernel}_global"] - before[f"{kernel}_global"]}
+        assert launched == {"cluster": 2 * (route == "cluster"), "global": 2 * (route == "global")}
 
 
 def test_ipot_kernels_raise_on_a_wrong_operand(cuda_device):
