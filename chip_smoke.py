@@ -103,7 +103,7 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            K8 (ipot_fwd), K9 (ipot_bwd) and K10 (gw_gamma), f32, on costs
            built as the GOT path builds them (random d=128 tokens ->
            cosine cost -> threshold-ReLU), at the train step's [260, 256,
-           256] and at an odd (7, 256, 192), both on K9's and K10's cluster
+           256] and at an odd (7, 256, 192), both on each kernel's cluster
            route (its fast path, m <= 256), at (5, 100, 320) on the cluster
            route's general path (ragged row slices), and at (3, 512, 512),
            beyond a cluster's shared memory, on their global route (the
@@ -113,19 +113,25 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            control that must miss the bar: the plain version one iteration
            short (K10: the largest outer count below 5 that misses it); two
            launches of each bitwise equal; the route each shape took, read
-           from the launch counters. Timed at [260, 256, 256], per call and
-           back to back, with both routes of K9 and K10 and K10 at iters=0
-           (its products alone) on each; K9's history floor, each cluster
-           route's cudaOccupancyMaxActiveClusters and shared memory
+           from the launch counters; K8's cluster route (c = 4) bit for bit
+           equal to its global route. Timed at [260, 256, 256], per call and
+           back to back, with both routes of K8, K9 and K10, K8's cluster
+           route at c = 4 and c = 8, and K10 at iters=0 (its products alone)
+           on each; K9's history floor, each cluster route's
+           cudaOccupancyMaxActiveClusters and shared memory (Python's
+           formula against the library's)
   glue_kernels
            K11 (threshold_build forward), K12 (its backward), K13 (gw_trace
            forward) and K14 (its backward), f32, on cosine costs of random
            d=128 tokens with per-problem thresholds and the GW plan of K10, at
-           [260, 256, 256] and (7, 256, 192), each against its plain version
-           (relative Frobenius per output: 1e-6 for K11/K12, 1e-5 for K12's
-           dthr and K13/K14), with a control that must miss the bar: the plain
-           version fed the neighbouring problem's thresholds (K11/K12) or plan
-           (K13/K14); two launches of each bitwise equal; timed at [260, 256, 256]
+           [260, 256, 256], (7, 256, 192) and (5, 100, 320), each against its
+           plain version (relative Frobenius per output: 1e-6 for K11/K12,
+           1e-5 for K12's dthr and K13/K14), with a control that must miss the
+           bar: the plain version fed the neighbouring problem's thresholds
+           (K11/K12) or plan (K13/K14); two launches of each bitwise equal;
+           K14 (the tiled product) bit for bit equal to its first design
+           (gw_trace_backward_rowblock); timed at [260, 256, 256], with K14's
+           TFLOP/s, back-to-back time and its first design's time
   train    5 steps of make_train_step at full width (65 cases x 5 stains x
            2048 tokens, bf16, InfoNCE, dropout on) on one fixed synthetic
            batch: no step skipped, finite losses, the last below the first;
@@ -134,7 +140,8 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            the same 5 steps with the published objective, InfoNCE + GOT
            (local_loss got, weight 1, 256 tokens subsampled per stain pair:
            260 transport problems of 256 x 256 per step): K6-K14 must launch
-           on every step; step ms, peak memory, the GOT share of the step and
+           on every step, and no global route of K8-K10 nor K14's first
+           design on any; step ms, peak memory, the GOT share of the step and
            the GOT loss's device time split into glue kernels, transport
            kernels and the rest
   train_se the same 5 steps with stain encodings (--add_stain_encoding:
@@ -183,7 +190,8 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            one full-width eval forward, with their device idle share; each read from a second
            profiled window after a warm-up window (a first window can lose
            its kernels), the K6/K7 single windows reported beside them
-Then a {"kernels": [...]} summary line, the nvidia-smi line, and last
+Then the main path's launches of each kernel split into the published runs
+and the side lanes, a {"kernels": [...]} summary line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs CUDA and the repo checkout around it.
 """
 
@@ -216,6 +224,9 @@ PHASES = ("device", "build", "kernels", "pool_kernels", "pool_train_kernels", "d
 # the runs of the port's main paths whose kernel launches the summary counts
 MAIN_PATHS = ("serve", "extract", "eval_forward", "train", "train_got", "train_se",
               "train_sigmoid", "train_nofused", "heads", "pretrain")
+# the main-path runs of the side lanes (a non-softmax activation, or softmax
+# under MADELEINE_NO_FUSED_ENCODER); the pretrain phase splits its own
+SIDE_PATHS = ("train_sigmoid", "train_nofused")
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -371,7 +382,9 @@ def phase_build(state):
                  if "registers" in ln or "spill" in ln or "smem" in ln]
              for n, r in reports.items()}
     emit({"phase": "build", "seconds": secs, "built": sorted(reports), "ptxas": ptxas,
-          "wgmma_kernel_spills": _spills(reports, ("gemm_kernel", "gate_logits_sum"))})
+          "wgmma_kernel_spills": _spills(reports, ("gemm_kernel", "gate_logits_sum")),
+          "k8_k14_kernel_spills": _spills(reports, ("ipot_fwd_cluster_kernel",
+                                                    "gwt_bwd_tiles_kernel"))})
 
 
 def _spills(reports, names):
@@ -1297,12 +1310,14 @@ def _got_work(b, n, m, iters=30, gw_outer=5, gw_iters=20):
 
 def _check_got(torch, C, Cs, Ct, Cst):
     """Each of K8/K9/K10 against its plain version, its control and a second
-    launch, with the route K9 and K10 took (from the launch counters);
-    returns the report (bars enforced by the caller)."""
+    launch, with the route each took (from the launch counters); returns the
+    report (bars enforced by the caller)."""
     from madeleine_torch.ops import ipot as I
 
     rep = {}
     before = read_counts()
+    _, n, m = C.shape
+    fwd_keys = []
     for beta, iters in ((0.5, 30), (0.1, 20)):
         T = I.ipot_plan_cuda(C, beta, iters)
         T2 = I.ipot_plan_cuda(C, beta, iters)
@@ -1313,7 +1328,15 @@ def _check_got(torch, C, Cs, Ct, Cst):
             "rel_fro": _rel_fro(T, want), "max_abs_err": (T - want).abs().max().item(),
             "control": _rel_fro(short, want), "control_is": f"{iters - 1} iterations",
             "bitwise_equal": torch.equal(T, T2), "finite": bool(torch.isfinite(T).all())}
+        fwd_keys.append(f"ipot_fwd_{beta}_{iters}")
         del T, T2, want, short
+    _route_check(I, rep, "ipot_fwd", fwd_keys, before, read_counts(), n, m, 4)
+    # at c = 4 the cluster route sums in the global route's order: equal bit for bit
+    if tuple(I.transport_route("ipot_fwd", n, m)) == ("cluster", 4):
+        for key, (beta, iters) in zip(fwd_keys, ((0.5, 30), (0.1, 20))):
+            rep[key]["bitwise_equal_global"] = torch.equal(
+                I.ipot_plan_cuda(C, beta, iters), I._ipot_fwd_global(C, beta, iters))
+    before = read_counts()
     dC = I.ipot_plan_bwd_cuda(C, C, 0.5, 30)
     dC2 = I.ipot_plan_bwd_cuda(C, C, 0.5, 30)
     want = I.ipot_plan_bwd_plain(C, C, 0.5, 30)
@@ -1345,22 +1368,29 @@ def _check_got(torch, C, Cs, Ct, Cst):
         "kernel_vs_f64": _rel_fro(g.double(), ref64), "plain_vs_f64": _rel_fro(want.double(), ref64),
         "bitwise_equal": torch.equal(g, g2), "finite": bool(torch.isfinite(g).all())}
     after = read_counts()
-    _, n, m = C.shape
     for kernel, key in (("ipot_bwd", "ipot_bwd_0.5_30"), ("gw_gamma", "gw_gamma_0.1_5x20")):
-        route = I.transport_route(kernel, n, m)
-        counted = {r: after[k] - before[k] for r, k in (("cluster", kernel),
-                                                        ("global", f"{kernel}_global"))}
+        _route_check(I, rep, kernel, [key], before, after, n, m, 2)
+    return rep
+
+
+def _route_check(I, rep, kernel, keys, before, after, n, m, calls):
+    """Record in rep[key] for each of `keys` the route `transport_route`
+    gives `kernel` at (n, m), the launches each route's counter took between
+    `before` and `after`, and route_ok: all `calls` on that route."""
+    route = I.transport_route(kernel, n, m)
+    counted = {r: after[k] - before[k] for r, k in (("cluster", kernel),
+                                                    ("global", f"{kernel}_global"))}
+    for key in keys:
         rep[key]["route"] = list(route)
         rep[key]["route_launches"] = counted
-        rep[key]["route_ok"] = counted[route[0]] == 2 and sum(counted.values()) == 2
-    return rep
+        rep[key]["route_ok"] = counted[route[0]] == calls and sum(counted.values()) == calls
 
 
 def _enforce_got(rep, where):
     for name, r in rep.items():
         bar = GOT_GRAD_RTOL if name.startswith("ipot_bwd") else GOT_PLAN_RTOL
         if not (r["finite"] and r["bitwise_equal"] and r["rel_fro"] <= bar
-                and r.get("route_ok", True)):
+                and r.get("route_ok", True) and r.get("bitwise_equal_global", True)):
             raise AssertionError(f"got_kernels {where} {name}: {r} (bar {bar})")
         if not r["control"] > bar:
             raise AssertionError(f"got_kernels {where} {name}: control within the bar: {r}")
@@ -1382,11 +1412,11 @@ def phase_got_kernels(state):
         checks[label] = _check_got(torch, C, Cs, Ct, Cst)
     # each shape's route: the step's and the odd one's the cluster, the large one's global
     want_route = {"odd": "cluster", "wide": "cluster", "step": "cluster", "large": "global"}
-    routes = {label: {k: I.transport_route(k, *shapes[label][1:]) for k in ("ipot_bwd", "gw_gamma")}
+    routes = {label: {k: I.transport_route(k, *shapes[label][1:]) for k in I.CLUSTER_SIZES}
               for label in shapes}
     # the route function's shared memory against the library's own
     smem = {}
-    for kernel in ("ipot_bwd", "gw_gamma"):
+    for kernel in I.CLUSTER_SIZES:
         for label, (_, n, m) in shapes.items():
             for c in I.CLUSTER_SIZES[kernel]:
                 lib = _build.entry(kernel, f"{kernel}_cluster_smem_bytes", [ctypes.c_int] * 3,
@@ -1439,12 +1469,18 @@ def phase_got_kernels(state):
                                for k in err_key[name]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": times[name]["bound_by"], "library_ms": None}
-    # both routes of K9 and K10 at the step's shape (the global route, the
-    # one-block kernels, forced here), and K10 at iters=0: its products and
-    # the exp epilogue alone, the split of its time
+    # both routes of K8, K9 and K10 at the step's shape (the global route, the
+    # one-block kernels, forced here), K8 at both cluster sizes, and K10 at
+    # iters=0: its products and the exp epilogue alone, the split of its time
     c_gw = I.transport_route("gw_gamma", n, m)[1]
     c_bwd = I.transport_route("ipot_bwd", n, m)[1]
+    c_fwd = I.transport_route("ipot_fwd", n, m)[1]
     routes_ms = {
+        **{f"ipot_fwd_cluster_c{c}": cuda_ms(lambda c=c: I._ipot_fwd_cluster(C, 0.5, 30, c), 2, 10)
+           for c in (4, 8)},
+        **{f"ipot_fwd_cluster_c{c}_back_to_back": cuda_ms_back_to_back(
+            lambda c=c: I._ipot_fwd_cluster(C, 0.5, 30, c), 1, 10) for c in (4, 8)},
+        "ipot_fwd_global": cuda_ms(lambda: I._ipot_fwd_global(C, 0.5, 30), 1, 5),
         "ipot_bwd_cluster": cuda_ms(lambda: I._ipot_bwd_cluster(C, C, 0.5, 30, c_bwd), 1, 5),
         "ipot_bwd_global": cuda_ms(lambda: I._ipot_bwd_global(C, C, 0.5, 30), 1, 5),
         "gw_gamma_cluster": cuda_ms(lambda: I._gw_gamma_cluster(Cs, Ct, Cst, 0.1, 5, 20, c_gw),
@@ -1458,13 +1494,17 @@ def phase_got_kernels(state):
     routes_ms["gw_gamma_cluster_c8"] = cuda_ms(
         lambda: I._gw_gamma_cluster(Cs, Ct, Cst, 0.1, 5, 20, 8), 1, 5)
     occupancy = {f"{k}_c{c}": _build.entry(k, f"{k}_cluster_occupancy", [ctypes.c_int] * 3)(
-        n, m, c) for k, cs in (("ipot_bwd", (8,)), ("gw_gamma", (4, 8))) for c in cs}
+        n, m, c) for k, cs in (("ipot_fwd", (4, 8)), ("ipot_bwd", (8,)), ("gw_gamma", (4, 8)))
+        for c in cs}
     hist_bytes = 30 * b * n * m * 4
     emit({"phase": "got_kernels", "shape": GOT_STEP_SHAPE, "times": times,
-          "routes_ms": routes_ms, "cluster_sizes": {"ipot_bwd": c_bwd, "gw_gamma": c_gw},
+          "routes_ms": routes_ms,
+          "cluster_sizes": {"ipot_fwd": c_fwd, "ipot_bwd": c_bwd, "gw_gamma": c_gw},
           "max_active_clusters": occupancy,
-          "cluster_smem_bytes": {"ipot_bwd": I.cluster_smem_bytes("ipot_bwd", n, m, c_bwd),
-                                 "gw_gamma": I.cluster_smem_bytes("gw_gamma", n, m, c_gw)},
+          "cluster_smem_bytes": {
+              "ipot_fwd": {c: I.cluster_smem_bytes("ipot_fwd", n, m, c) for c in (4, 8)},
+              "ipot_bwd": I.cluster_smem_bytes("ipot_bwd", n, m, c_bwd),
+              "gw_gamma": I.cluster_smem_bytes("gw_gamma", n, m, c_gw)},
           "k9_history_gb": hist_bytes / 1e9,
           "k9_history_floor_ms": 2 * hist_bytes / PEAK_BYTES * 1e3})
 
@@ -1546,10 +1586,15 @@ def _check_glue(torch, X0, thr, gamma, gen):
         [G.gw_trace_plain(Cs, Ct, Cst, gamma)], [G.gw_trace_plain(Cs, Ct, Cst, groll)],
         ("out",), "gamma rolled")
     dout = torch.from_numpy(gen.standard_normal(b).astype(np.float32)).cuda()
+    k14 = G.gw_trace_bwd_cuda(Cs, Ct, gamma, dout)
     rep["gw_trace_bwd"] = entry(
-        G.gw_trace_bwd_cuda(Cs, Ct, gamma, dout), G.gw_trace_bwd_cuda(Cs, Ct, gamma, dout),
+        k14, G.gw_trace_bwd_cuda(Cs, Ct, gamma, dout),
         G.gw_trace_bwd_plain(Cs, Ct, Cst, gamma, dout),
         G.gw_trace_bwd_plain(Cs, Ct, Cst, groll, dout), ("dCs", "dCt", "dCst"), "gamma rolled")
+    # the tiled K14 against its first design, output by output, bit for bit
+    rowblock = G.gw_trace_bwd_rowblock_cuda(Cs, Ct, gamma, dout)
+    rep["gw_trace_bwd"]["bitwise_equal_rowblock"] = {
+        k: torch.equal(a, r) for k, a, r in zip(("dCs", "dCt", "dCst"), k14, rowblock)}
     torch.cuda.synchronize()
     return rep
 
@@ -1562,7 +1607,8 @@ def _glue_bar(kernel, output):
 
 def _enforce_glue(rep, where):
     for kernel, r in rep.items():
-        if not (r["finite"] and r["bitwise_equal"]):
+        if not (r["finite"] and r["bitwise_equal"]
+                and all(r.get("bitwise_equal_rowblock", {}).values())):
             raise AssertionError(f"glue_kernels {where} {kernel}: {r}")
         for out, err in r["rel_fro"].items():
             bar = _glue_bar(kernel, out)
@@ -1579,12 +1625,13 @@ def phase_glue_kernels(state):
 
     gen = np.random.default_rng(SEED + 6)
     checks = {}
-    for label, shape in (("odd", GOT_ODD_SHAPE), ("step", GOT_STEP_SHAPE)):
+    shapes = {"odd": GOT_ODD_SHAPE, "wide": GOT_WIDE_SHAPE, "step": GOT_STEP_SHAPE}
+    for label, shape in shapes.items():
         X0, thr, gamma = _glue_inputs(torch, *shape, gen)
         checks[label] = _check_glue(torch, X0, thr, gamma, gen)
     emit({"phase": "glue_kernels", "checks": checks, "tb_rtol_fro": GLUE_TB_RTOL,
           "dthr_rtol_fro": GLUE_DTHR_RTOL, "gw_trace_rtol_fro": GLUE_GWT_RTOL,
-          "shapes": {"odd": GOT_ODD_SHAPE, "step": GOT_STEP_SHAPE}})
+          "shapes": shapes})
     for label, rep in checks.items():
         _enforce_glue(rep, label)
 
@@ -1622,6 +1669,11 @@ def phase_glue_kernels(state):
             "max_abs_err": max(checks[lbl][name]["max_abs_err"] for lbl in checks),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": times[name]["bound_by"], "library_ms": None}
+    # K14: its rate, back to back, and its first design's time (the check-only entry point)
+    k14 = times["gw_trace_bwd"]
+    k14["tflops"] = k14["gflop"] / k14["ms"]
+    k14["ms_back_to_back"] = cuda_ms_back_to_back(fns["gw_trace_bwd"][0], 2, 20)
+    k14["rowblock_ms"] = cuda_ms(lambda: G.gw_trace_bwd_rowblock_cuda(Cs, Ct, gamma, dout), 1, 5)
     emit({"phase": "glue_kernels", "shape": GOT_STEP_SHAPE, "times": times,
           "glue_kernels_ms_per_step": sum(t["ms"] for t in times.values()),
           "glue_plain_ms_per_step": sum(t["plain_ms"] for t in times.values())})
@@ -2330,9 +2382,12 @@ def _run_train_steps(torch, state, phase, kernels, cfg=None):
     missing = [(i, k) for i, c in enumerate(per_step) for k in kernels if c[k] < 1]
     if missing:
         raise AssertionError(f"{phase}: kernels not launched on every step: {missing}")
-    # the step's 256 x 256 transport problems take K9's and K10's cluster route
-    if "gw_gamma" in kernels and counts["ipot_bwd_global"] + counts["gw_gamma_global"]:
-        raise AssertionError(f"{phase}: the global route of K9/K10 launched: {counts}")
+    # the step's 256 x 256 transport problems take K8's, K9's and K10's
+    # cluster route; K14's first design is a check, never on a path
+    off_path = ("ipot_fwd_global", "ipot_bwd_global", "gw_gamma_global", "gw_trace_bwd_rowblock")
+    if "gw_gamma" in kernels and sum(counts[k] for k in off_path):
+        raise AssertionError(f"{phase}: a global route of K8-K10 or K14's first design "
+                             f"launched: {counts}")
     return cfg, model, batch, {
         "steps": TRAIN_STEPS, "batch": [cfg.batch_size, cfg.n_modalities, cfg.n_subsamples,
                                         cfg.patch_embedding_dim],
@@ -2830,6 +2885,8 @@ def phase_pretrain(state):
     every = list(runs.values()) + list(runs_se.values()) + [run_sig, run_nf]
     state["launches_pretrain"] = {k: sum(r["launches"].get(k, 0) for r in every)
                                   for k in read_counts()}
+    state["launches_pretrain_side"] = {k: sum(r["launches"].get(k, 0) for r in (run_sig, run_nf))
+                                       for k in read_counts()}
     emit({"phase": "pretrain", "cases": PRETRAIN_CASES, "bags": n_bags,
           "cohort_gb": n_bytes / 1e9, "cohort_write_s": cohort_s, "runs": runs,
           "cli_wall_s": walls, **resume,
@@ -2855,8 +2912,10 @@ def phase_pretrain(state):
 
 # kernel-name prefixes of K8-K10 and of K11-K14 in a profiler trace
 TRANSPORT_NAMES = ("ipot_fwd_kernel", "ipot_bwd_kernel", "gw_gamma_kernel",
-                   "ipot_bwd_cluster_kernel", "gw_gamma_cluster_kernel")
-GLUE_NAMES = ("tb_fwd_kernel", "tb_bwd_kernel", "gwt_fwd_kernel", "gwt_bwd_kernel")
+                   "ipot_fwd_cluster_kernel", "ipot_bwd_cluster_kernel",
+                   "gw_gamma_cluster_kernel")
+GLUE_NAMES = ("tb_fwd_kernel", "tb_bwd_kernel", "gwt_fwd_kernel", "gwt_bwd_kernel",
+              "gwt_bwd_tiles_kernel")
 
 
 def _kernel_base(name):
@@ -3046,6 +3105,12 @@ def main() -> int:
     for k, n in launches.items():
         if n < 1:
             raise AssertionError(f"{k} was not launched on the main path")
+    # the same launches split: the side lanes (a sigmoid activation, the
+    # no-fused softmax lane: their train phases and CLI epochs) and the rest
+    side = {k: sum(state[f"launches_{p}"][k] for p in SIDE_PATHS)
+            + state["launches_pretrain_side"][k] for k in state["kernels"]}
+    emit({"launches_by_lane": {k: {"published": launches[k] - side[k], "side_lanes": side[k]}
+                               for k in launches}})
     emit({"kernels": [dict(v, launches=launches[k]) for k, v in state["kernels"].items()]})
     print(state["smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": state["kind"],

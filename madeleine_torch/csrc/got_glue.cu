@@ -27,25 +27,42 @@
 // peak), K14 4 products (34.9 GFLOP, 0.521 ms): operations. The products
 // stay full f32 FFMA (the loss runs at Precision.HIGHEST; no TF32).
 //
-// Design (first version, simple and exact): one block of 512 threads per
-// problem, as K8-K10. K11 and K12 are row passes (a warp per row: lanes
+// Design of K11-K13 (first version, simple and exact): one block of 512
+// threads per problem, as K8-K10's global routes. K11 and K12 are row passes (a warp per row: lanes
 // stride the row, then a butterfly) and, for K12's column sums of dCst,
 // a column pass (threads across columns in four row groups, summed in order,
 // then the groups in order); the per-row sums live in shared memory and the
-// elementwise outputs follow. K13 and K14 run their products with K10's FFMA
-// block GEMM (ipot_common.cuh: 128 x 64 tiles, 16-deep shared stages, 4 x 4
+// elementwise outputs follow. K13 runs its products with the FFMA block GEMM
+// of ipot_common.cuh (128 x 64 tiles, 16-deep shared stages, 4 x 4
 // accumulators per thread) at one block per SM, so that a thread may hold
-// 128 registers and the GEMM does not spill (K10, at two blocks per SM,
-// spills). K13 keeps its first product Cs gamma in a device scratch and
-// folds the second one's epilogue, (Cst - 2 acc) gamma, into a per-thread
-// sum; K14 keeps P and gamma^T Cs in device scratches. No atomics: every
-// thread sums its elements in a fixed order, then the block sums the threads
-// in a fixed order (a warp butterfly, then the warps in order), so two
-// launches give bitwise-equal results.
+// 128 registers and the GEMM does not spill. It keeps its first product
+// Cs gamma in a device scratch and folds the second one's epilogue,
+// (Cst - 2 acc) gamma, into a per-thread sum. No atomics: every thread sums
+// its elements in a fixed order, then the block sums the threads in a fixed
+// order (a warp butterfly, then the warps in order), so two launches give
+// bitwise-equal results.
+//
+// K14 (gwt_bwd_tiles_kernel): four products of 2 n m max(n, m) flops each,
+// cut into 128 x 128 output tiles spread over the whole card, each tile a
+// task of one 256-thread block on gemm_f32.cuh (cp.async ring, 8 x 8 FFMA
+// outputs per thread, two blocks per SM). Two launches, the second reading
+// what the first wrote: phase 1 P = gamma Ct^T [n, m] (whose tasks also write
+// dCst = dv gamma over their tile) and G = gamma^T Cs [m, n] into device
+// scratches; phase 2 dCs = -2 dv gamma P^T [n, n] and dCt = -2 dv G gamma
+// [m, m]. At [260, 256, 256] that is 2,080 tasks per phase, about 8 waves of
+// 264 blocks. The tile plan (each product's tile grid) comes from the caller
+// (madeleine_torch/ops/got_glue.py::gwt_bwd_plan) and is checked here. Every
+// sum over k runs in order from 0 with fmaf and the scale is applied after
+// it, as in the first design's kernel (gwt_bwd_kernel: one block per
+// problem, the four products in series on block_gemm), so the outputs are
+// bitwise equal to it; that kernel stays as a check-only entry point,
+// gw_trace_backward_rowblock.
 
+#include "gemm_f32.cuh"
 #include "ipot_common.cuh"
 
 using namespace madeleine_ipot;
+namespace gf = madeleine_gemm_f32;
 
 namespace {
 
@@ -246,6 +263,72 @@ gwt_bwd_kernel(const float* __restrict__ dout, const float* __restrict__ Cs,
              [&](int i, int j, float acc) { dCt[(size_t)i * m + j] = scale * acc; });
 }
 
+__device__ __forceinline__ bool aligned16(const float* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// K14's tile tasks of one phase (1: P and G, 2: dCs and dCt). (ai, aj) and
+// (bi, bj) are the tile grids of the phase's first and second products;
+// block x is task x % (ai aj + bi bj) of problem x / (ai aj + bi bj), the
+// first product's tiles first, each product's tiles row by row.
+template <int PHASE>
+__global__ void __launch_bounds__(gf::THREADS, 2)
+gwt_bwd_tiles_kernel(const float* __restrict__ dout, const float* __restrict__ Cs,
+                     const float* __restrict__ Ct, const float* __restrict__ gamma, float* P,
+                     float* G, float* __restrict__ dCs, float* __restrict__ dCt,
+                     float* __restrict__ dCst, int n, int m, int ai, int aj, int bi, int bj) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int ta = ai * aj, per = ta + bi * bj;
+  const size_t p = blockIdx.x / per;
+  int t = blockIdx.x % per;
+  const bool first = t < ta;
+  if (!first) t -= ta;
+  const int cols = first ? aj : bj;
+  const int i0 = (t / cols) * gf::TILE, j0 = (t % cols) * gf::TILE;
+  const size_t nm = (size_t)n * m, nn = (size_t)n * n, mm = (size_t)m * m;
+  const float dv = dout[p], scale = -2.f * dv;
+  const float* g = gamma + p * nm;
+  auto nothing = [] {};
+  if (PHASE == 1 && first) {
+    // P = gamma Ct^T [n, m]: X = gamma (i, k), Y(k, j) = Ct[j, k]; the
+    // tile's dCst = dv gamma while the first stages load
+    float* Pp = P + p * nm;
+    float* D = dCst + p * nm;
+    const bool vec = m % 4 == 0 && aligned16(Pp);
+    gf::tile_product<true, true>(
+        {g, m, 1, n}, {Ct + p * mm, m, 1, m}, m, i0, j0, smem,
+        [&] {
+          for (int e = threadIdx.x; e < gf::TILE * gf::TILE; e += gf::THREADS) {
+            const int i = i0 + e / gf::TILE, j = j0 + e % gf::TILE;
+            if (i < n && j < m) D[(size_t)i * m + j] = dv * g[(size_t)i * m + j];
+          }
+        },
+        [&](int i, int j, const float(&v)[4]) { gf::store4(Pp, m, i, j, m, 1.f, v, vec); });
+  } else if (PHASE == 1) {
+    // G = gamma^T Cs [m, n]: X(i, k) = gamma[k, i], Y(k, j) = Cs[k, j]
+    float* Gp = G + p * nm;
+    const bool vec = n % 4 == 0 && aligned16(Gp);
+    gf::tile_product<false, false>(
+        {g, 1, m, m}, {Cs + p * nn, 1, n, n}, n, i0, j0, smem, nothing,
+        [&](int i, int j, const float(&v)[4]) { gf::store4(Gp, n, i, j, n, 1.f, v, vec); });
+  } else if (first) {
+    // dCs = -2 dv gamma P^T [n, n]: X = gamma (i, k), Y(k, j) = P[j, k]
+    float* O = dCs + p * nn;
+    const bool vec = n % 4 == 0 && aligned16(O);
+    gf::tile_product<true, true>(
+        {g, m, 1, n}, {P + p * nm, m, 1, n}, m, i0, j0, smem, nothing,
+        [&](int i, int j, const float(&v)[4]) { gf::store4(O, n, i, j, n, scale, v, vec); });
+  } else {
+    // dCt = -2 dv G gamma [m, m]: X = G (i, k), Y(k, j) = gamma[k, j]
+    float* O = dCt + p * mm;
+    const bool vec = m % 4 == 0 && aligned16(O);
+    gf::tile_product<true, false>(
+        {G + p * nm, n, 1, m}, {g, 1, m, m}, n, i0, j0, smem, nothing,
+        [&](int i, int j, const float(&v)[4]) { gf::store4(O, m, i, j, m, scale, v, vec); });
+  }
+}
+
 }  // namespace
 
 // Shared memory one block needs, the largest of the four kernels.
@@ -293,10 +376,42 @@ extern "C" int gw_trace_forward(const float* Cs, const float* Ct, const float* C
   return (int)cudaGetLastError();
 }
 
-// P: [b, n, m] and G: [b, m, n] scratch.
+// K14. P: [b, n, m] and G: [b, m, n] scratch. plan: the tile grids
+// (tiles_i, tiles_j) of P, G, dCs and dCt (8 values); a plan other than
+// 128 x 128 tiles covering each output is refused as cudaErrorInvalidValue.
 extern "C" int gw_trace_backward(const float* dout, const float* Cs, const float* Ct,
                                  const float* gamma, float* P, float* G, float* dCs, float* dCt,
-                                 float* dCst, int b, int n, int m, void* stream) {
+                                 float* dCst, int b, int n, int m, const long long* plan,
+                                 void* stream) {
+  const long long want[8] = {gf::tiles(n), gf::tiles(m), gf::tiles(m), gf::tiles(n),
+                             gf::tiles(n), gf::tiles(n), gf::tiles(m), gf::tiles(m)};
+  for (int k = 0; k < 8; ++k)
+    if (plan[k] != want[k]) return (int)cudaErrorInvalidValue;
+  const long long per1 = plan[0] * plan[1] + plan[2] * plan[3];
+  const long long per2 = plan[4] * plan[5] + plan[6] * plan[7];
+  if ((long long)b * (per1 > per2 ? per1 : per2) >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(gwt_bwd_tiles_kernel<1>, gf::SMEM_BYTES);
+  if (err == cudaSuccess) err = allow_smem(gwt_bwd_tiles_kernel<2>, gf::SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  gwt_bwd_tiles_kernel<1><<<(unsigned)(b * per1), gf::THREADS, gf::SMEM_BYTES, st>>>(
+      dout, Cs, Ct, gamma, P, G, dCs, dCt, dCst, n, m, (int)plan[0], (int)plan[1],
+      (int)plan[2], (int)plan[3]);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  gwt_bwd_tiles_kernel<2><<<(unsigned)(b * per2), gf::THREADS, gf::SMEM_BYTES, st>>>(
+      dout, Cs, Ct, gamma, P, G, dCs, dCt, dCst, n, m, (int)plan[4], (int)plan[5],
+      (int)plan[6], (int)plan[7]);
+  return (int)cudaGetLastError();
+}
+
+// The first design of K14 (gwt_bwd_kernel, one block per problem), kept as a
+// check: chip_smoke.py and the GPU tests hold gw_trace_backward's outputs
+// bitwise equal to it. Same arguments as gw_trace_backward, without the plan.
+extern "C" int gw_trace_backward_rowblock(const float* dout, const float* Cs, const float* Ct,
+                                          const float* gamma, float* P, float* G, float* dCs,
+                                          float* dCt, float* dCst, int b, int n, int m,
+                                          void* stream) {
   const size_t smem = sizeof(float) * (size_t)gemm_smem_floats();
   cudaError_t err = allow_smem(gwt_bwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;

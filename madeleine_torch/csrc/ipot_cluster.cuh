@@ -1,6 +1,7 @@
-// Device code shared by the cluster routes of K9 (IPOT backward) and K10 (the
-// GW gamma loop): one thread-block cluster per transport problem, each block
-// holding a contiguous slice of the problem's rows in its own shared memory.
+// Device code shared by the cluster routes of K8 (IPOT forward), K9 (IPOT
+// backward) and K10 (the GW gamma loop): one thread-block cluster per
+// transport problem, each block holding a contiguous slice of the problem's
+// rows in its own shared memory.
 //
 // Rows. The block of cluster rank r owns rows [row0(r), row0(r + 1)) with
 // row0(r) = floor(r n / c): slices of floor(n / c) or ceil(n / c) rows, any n
@@ -37,7 +38,7 @@ namespace cluster {
 namespace cg = cooperative_groups;
 
 constexpr int MAX_CLUSTER = 8;   // the portable cluster size limit
-// threads of a cluster-route block (K8's THREADS is its own)
+// threads of a cluster-route block (the global routes' THREADS is their own)
 constexpr int CTHREADS = 512;
 constexpr int CWARPS = CTHREADS / 32;
 constexpr int CGROUPS = CTHREADS / COLW;   // row groups of a column pass
@@ -470,10 +471,10 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // launch
 // ---------------------------------------------------------------------------
 inline cudaLaunchConfig_t cluster_config(int problems, int c, size_t smem, cudaStream_t stream,
-                                         cudaLaunchAttribute* attr) {
+                                         cudaLaunchAttribute* attr, int threads) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)problems * (unsigned)c, 1, 1);
-  cfg.blockDim = dim3(CTHREADS, 1, 1);
+  cfg.blockDim = dim3((unsigned)threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -485,29 +486,29 @@ inline cudaLaunchConfig_t cluster_config(int problems, int c, size_t smem, cudaS
   return cfg;
 }
 
-// One cluster of c blocks per problem (grid = problems * c). Returns the
-// cudaError_t of the launch; a cluster size outside 1..8 or shared memory
-// above the per-block limit is refused as cudaErrorInvalidValue.
-template <class... Params, class... Args>
+// One cluster of c blocks of THREADS_ threads per problem (grid = problems
+// * c). Returns the cudaError_t of the launch; a cluster size outside 1..8 or
+// shared memory above the per-block limit is refused as cudaErrorInvalidValue.
+template <int THREADS_ = CTHREADS, class... Params, class... Args>
 inline cudaError_t launch_clusters(void (*kernel)(Params...), int problems, int c, size_t smem,
                                    cudaStream_t stream, Args... args) {
   if (c < 1 || c > MAX_CLUSTER || problems < 1 || smem > 232448) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = cluster_config(problems, c, smem, stream, &attr);
+  cudaLaunchConfig_t cfg = cluster_config(problems, c, smem, stream, &attr, THREADS_);
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // cudaOccupancyMaxActiveClusters for this kernel at c and smem (negative: the
 // cudaError_t of the query, negated)
-template <class... Params>
+template <int THREADS_ = CTHREADS, class... Params>
 inline int active_clusters(void (*kernel)(Params...), int c, size_t smem) {
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = cluster_config(1, c, smem, 0, &attr);
+  cudaLaunchConfig_t cfg = cluster_config(1, c, smem, 0, &attr, THREADS_);
   int n = 0;
   err = cudaOccupancyMaxActiveClusters(&n, (const void*)kernel, &cfg);
   return err != cudaSuccess ? -(int)err : n;

@@ -17,7 +17,11 @@ madeleine/utils/loss.py:225-258, 288-292), the route that the JAX package's
 Each is a `torch.autograd.Function`: a CUDA tensor launches the kernels of
 csrc/got_glue.cu (any n, m within the shared-memory limit) or raises; a CPU
 tensor takes the plain versions, the unfused chain, whose backward is
-autograd through them.
+autograd through them. K14 runs its four products as 128 x 128 tile tasks
+over the whole card (csrc/gemm_f32.cuh), in two launches, on the tile plan
+`gwt_bwd_plan`; the first design's one-block-per-problem kernel stays
+reachable as `gw_trace_bwd_rowblock_cuda`, a check that the tiled outputs
+equal it bit for bit (no path of the port calls it).
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ from madeleine_torch.ops import _build
 tb_fwd_launches = 0    # K11 launches (one per wrapper call on a CUDA tensor)
 tb_bwd_launches = 0    # K12 launches
 gwt_fwd_launches = 0   # K13 launches
-gwt_bwd_launches = 0   # K14 launches
+gwt_bwd_launches = 0   # K14 launches (one per wrapper call: its two phases)
+gwt_bwd_rowblock_launches = 0   # K14's first design, the check-only entry point
 
 Glue4 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -91,7 +96,18 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"threshold_build_forward": [_P] * 8 + [_I] * 3 + [_P],
                "threshold_build_backward": [_P] * 12 + [_I] * 3 + [_P],
                "gw_trace_forward": [_P] * 6 + [_I] * 3 + [_P],
-               "gw_trace_backward": [_P] * 9 + [_I] * 3 + [_P]}
+               "gw_trace_backward": [_P] * 9 + [_I] * 3 + [_P, _P],
+               "gw_trace_backward_rowblock": [_P] * 9 + [_I] * 3 + [_P]}
+
+GWT_TILE = 128   # csrc/gemm_f32.cuh TILE: K14's output tiles are GWT_TILE square
+
+
+def gwt_bwd_plan(n: int, m: int) -> Tuple[int, ...]:
+    """K14's tile plan as the wrapper passes it to csrc/got_glue.cu: the tile
+    grids (tiles_i, tiles_j) of phase 1's P = gamma Ct^T [n, m] and G =
+    gamma^T Cs [m, n], then phase 2's dCs [n, n] and dCt [m, m]."""
+    tn, tm = -(-n // GWT_TILE), -(-m // GWT_TILE)
+    return (tn, tm, tm, tn, tn, tn, tm, tm)
 
 
 def _check(kernel: str, named, b: int, n: int, m: int) -> torch.device:
@@ -153,18 +169,39 @@ def gw_trace_cuda(Cs, Ct, Cst, gamma) -> torch.Tensor:
     return out
 
 
-@torch.no_grad()
-def gw_trace_bwd_cuda(Cs, Ct, gamma, dout):
-    """Launch K14; returns (dCs, dCt, dCst) as `gw_trace_bwd_plain`. The
-    products gamma Ct^T and gamma^T Cs go to [b, n, m] scratches allocated here."""
-    global gwt_bwd_launches
+def _gwt_bwd_operands(Cs, Ct, gamma, dout):
     b, n, m = gamma.shape
     dev = _check("gw_trace_bwd", [("gamma", "nm", gamma), ("Cs", "nn", Cs), ("Ct", "mm", Ct),
                                   ("dout", "b", dout)], b, n, m)
     P, G = torch.empty_like(gamma), torch.empty_like(gamma)
     grads = (torch.empty_like(Cs), torch.empty_like(Ct), torch.empty_like(gamma))
-    _launch("gw_trace_backward", [dout, Cs, Ct, gamma, P, G, *grads, b, n, m], dev)
+    return dev, P, G, grads
+
+
+@torch.no_grad()
+def gw_trace_bwd_cuda(Cs, Ct, gamma, dout):
+    """Launch K14; returns (dCs, dCt, dCst) as `gw_trace_bwd_plain`. The
+    products gamma Ct^T and gamma^T Cs go to [b, n, m] scratches allocated
+    here; the tiles follow `gwt_bwd_plan`."""
+    global gwt_bwd_launches
+    b, n, m = gamma.shape
+    dev, P, G, grads = _gwt_bwd_operands(Cs, Ct, gamma, dout)
+    _launch("gw_trace_backward", [dout, Cs, Ct, gamma, P, G, *grads, b, n, m,
+                                  _build._packed("q", gwt_bwd_plan(n, m))], dev)
     gwt_bwd_launches += 1
+    return grads
+
+
+@torch.no_grad()
+def gw_trace_bwd_rowblock_cuda(Cs, Ct, gamma, dout):
+    """K14's first design (one block per problem, its products in series),
+    kept as a check on the card: its outputs equal `gw_trace_bwd_cuda`'s bit
+    for bit. No path of the port calls it."""
+    global gwt_bwd_rowblock_launches
+    b, n, m = gamma.shape
+    dev, P, G, grads = _gwt_bwd_operands(Cs, Ct, gamma, dout)
+    _launch("gw_trace_backward_rowblock", [dout, Cs, Ct, gamma, P, G, *grads, b, n, m], dev)
+    gwt_bwd_rowblock_launches += 1
     return grads
 
 

@@ -15,7 +15,7 @@ of the unrolled loop, the derivative that autograd through the loop gives
 
 A CPU tensor takes the plain PyTorch versions; a CUDA tensor launches K8 /
 K9 / K10 from csrc/ipot_fwd.cu, csrc/ipot_bwd.cu and csrc/gw_gamma.cu
-(f32), or raises. K9 and K10 have two routes each, chosen by shape in
+(f32), or raises. K8, K9 and K10 have two routes each, chosen by shape in
 `transport_route`: a thread-block cluster per problem that keeps the
 problem's state in shared memory (`cluster`, the train step's), and the
 first design's one block per problem with the state in device memory (`global`, for
@@ -32,9 +32,10 @@ import torch
 
 from madeleine_torch.ops import _build
 
-fwd_launches = 0          # K8 launches (one per wrapper call on a CUDA tensor)
+fwd_launches = 0          # K8 launches, cluster route (one per wrapper call on a CUDA tensor)
 bwd_launches = 0          # K9 launches, cluster route
 gw_launches = 0           # K10 launches, cluster route
+fwd_launches_global = 0   # K8 launches, global route
 bwd_launches_global = 0   # K9 launches, global route
 gw_launches_global = 0    # K10 launches, global route
 
@@ -81,11 +82,14 @@ def gw_gamma_plain(Cs: torch.Tensor, Ct: torch.Tensor, Cst: torch.Tensor, beta: 
 
 
 # ---------------------------------------------------------------------------
-# routes of K9 and K10
+# routes of K8, K9 and K10
 # ---------------------------------------------------------------------------
 
-# cluster sizes tried in order, the first whose state fits wins
-CLUSTER_SIZES = {"ipot_bwd": (8,), "gw_gamma": (4, 8)}
+# cluster sizes tried in order, the first whose state fits wins (K8: at
+# c = 4 its ranks are the global route's column-pass row groups, so its plan
+# equals the global route's bit for bit, csrc/ipot_fwd.cu; c = 8 also timed
+# slower on the card, PERF.md)
+CLUSTER_SIZES = {"ipot_fwd": (4, 8), "ipot_bwd": (8,), "gw_gamma": (4, 8)}
 _GROUPS, _WARPS, _FAST_M = 4, 16, 256        # ipot_cluster.cuh CGROUPS, CWARPS, FAST_M
 _STAGE_FLOATS = 2 * 16 * ((64 + 4) + (128 + 4))   # ipot_cluster.cuh stage_floats()
 
@@ -100,12 +104,14 @@ def cluster_rows(n: int, c: int) -> List[Tuple[int, int]]:
 
 
 def cluster_smem_bytes(kernel: str, n: int, m: int, c: int) -> int:
-    """Shared memory per block of the cluster route of `kernel` ("ipot_bwd"
-    or "gw_gamma"): the formula of the source's cluster_smem_floats."""
+    """Shared memory per block of the cluster route of `kernel` ("ipot_fwd",
+    "ipot_bwd" or "gw_gamma"): the formula of the source's cluster_smem_floats."""
     rows = -(-n // c)
     slice_ = _round4(rows * m)
     red = max(_GROUPS * m, _WARPS * _FAST_M)
-    if kernel == "gw_gamma":
+    if kernel == "ipot_fwd":
+        floats = 2 * slice_ + _round4(rows) + (1 + 2 * c) * _round4(m)
+    elif kernel == "gw_gamma":
         floats = (2 * slice_ + _STAGE_FLOATS + _round4(rows) + (1 + 2 * c) * _round4(m) + red
                   + 2 * n)
     elif kernel == "ipot_bwd":
@@ -131,6 +137,7 @@ def transport_route(kernel: str, n: int, m: int) -> Tuple[str, int]:
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"ipot_forward": [_P] * 3 + [_I] * 3 + [_F, _I, _P],
+               "ipot_fwd_cluster": [_P] * 2 + [_I] * 4 + [_F, _I, _P],
                "ipot_backward": [_P] * 8 + [_I] * 3 + [_F, _I, _P],
                "ipot_bwd_cluster": [_P] * 6 + [_I] * 4 + [_F, _I, _P],
                "gw_gamma_forward": [_P] * 6 + [_I] * 3 + [_F, _F, _I, _I, _P],
@@ -139,15 +146,39 @@ _SIGNATURES = {"ipot_forward": [_P] * 3 + [_I] * 3 + [_F, _I, _P],
 
 @torch.no_grad()
 def ipot_plan_cuda(C: torch.Tensor, beta: float, iterations: int) -> torch.Tensor:
-    """Launch K8 on a CUDA tensor C [b, n, m] f32; returns T as `ipot_plan_plain`."""
+    """Launch K8 on a CUDA tensor C [b, n, m] f32, on the route
+    `transport_route` gives for the shape; returns T as `ipot_plan_plain`."""
+    _, n, m = C.shape
+    route, c = transport_route("ipot_fwd", n, m)
+    if route == "cluster":
+        return _ipot_fwd_cluster(C, beta, iterations, c)
+    return _ipot_fwd_global(C, beta, iterations)
+
+
+def _ipot_fwd_cluster(C, beta, iterations, c):
+    """K8's cluster route: c blocks per problem, A and T in shared memory."""
     global fwd_launches
+    b, n, m = C.shape
+    dev = _build.check_problems("ipot_fwd", [("C", C)], [(b, n, m)], "ipot_fwd",
+                                "ipot_fwd_cluster_smem_bytes", n, m, c)
+    T = torch.empty_like(C)
+    _build.launch("ipot_fwd", "ipot_fwd_cluster", _SIGNATURES["ipot_fwd_cluster"],
+                  [C, T, b, n, m, c, float(beta), int(iterations)], dev)
+    fwd_launches += 1
+    return T
+
+
+def _ipot_fwd_global(C, beta, iterations):
+    """K8's global route (the one-block kernel): one block per problem, A in a
+    device scratch and T in the output."""
+    global fwd_launches_global
     b, n, m = C.shape
     dev = _build.check_problems("ipot_fwd", [("C", C)], [(b, n, m)], "ipot_fwd",
                                 "ipot_fwd_smem_bytes", n, m)
     A, T = torch.empty_like(C), torch.empty_like(C)
     _build.launch("ipot_fwd", "ipot_forward", _SIGNATURES["ipot_forward"],
                   [C, A, T, b, n, m, float(beta), int(iterations)], dev)
-    fwd_launches += 1
+    fwd_launches_global += 1
     return T
 
 

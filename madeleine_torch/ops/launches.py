@@ -21,15 +21,17 @@ COUNTERS = {
     "attn_pool_bwd": (attn_pool, "pool_bwd_launches"),      # 5
     "encoder_train_fwd": (encoder_train, "fwd_launches"),   # K6
     "encoder_train_bwd": (encoder_train, "bwd_launches"),   # K7
-    "ipot_fwd": (ipot, "fwd_launches"),                     # K8
+    "ipot_fwd": (ipot, "fwd_launches"),                     # K8, cluster route
     "ipot_bwd": (ipot, "bwd_launches"),                     # K9, cluster route
     "gw_gamma": (ipot, "gw_launches"),                      # K10, cluster route
+    "ipot_fwd_global": (ipot, "fwd_launches_global"),       # K8, global route
     "ipot_bwd_global": (ipot, "bwd_launches_global"),       # K9, global route
     "gw_gamma_global": (ipot, "gw_launches_global"),        # K10, global route
     "threshold_build_fwd": (got_glue, "tb_fwd_launches"),   # K11
     "threshold_build_bwd": (got_glue, "tb_bwd_launches"),   # K12
     "gw_trace_fwd": (got_glue, "gwt_fwd_launches"),         # K13
     "gw_trace_bwd": (got_glue, "gwt_bwd_launches"),         # K14
+    "gw_trace_bwd_rowblock": (got_glue, "gwt_bwd_rowblock_launches"),   # K14's first design
     "preattn_fwd": (preattn, "fwd_launches"),               # 15
     "preattn_bwd": (preattn, "bwd_launches"),               # 16
     "gated_logits_fwd": (gated_logits, "fwd_launches"),     # 17

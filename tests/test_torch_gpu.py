@@ -201,20 +201,23 @@ def test_ipot_and_gw_kernels_match_plain(cuda_device, shape):
     """K8 at (beta, iters) = (0.5, 30) and (0.1, 20), K9 with the loss's
     cotangent C, K10 at (0.1, 5 x 20), each against its plain version:
     relative Frobenius 1e-4 for T and gamma, 1e-3 for dC; a second launch of
-    each is bitwise equal. K9 and K10 take the route `transport_route` gives
-    for the shape, read from the launch counters: the cluster route at the
-    odd, step and wide (m > 256: its general path) shapes, the global
-    route at the large one."""
+    each is bitwise equal. K8, K9 and K10 take the route `transport_route`
+    gives for the shape, read from the launch counters: the cluster route at
+    the odd, step and wide (m > 256: its general path) shapes, the global
+    route at the large one. K8's cluster route equals its global route bit
+    for bit."""
     from madeleine_torch.ops import ipot as I
     from madeleine_torch.ops import launches
 
     _, n, m = shape
     C, Cs, Ct, Cst = _got_costs(cuda_device, *shape)
     before = launches.read()
+    Ts = []
     for beta, iters in ((0.5, 30), (0.1, 20)):
         T = I.ipot_plan_cuda(C, beta, iters)
         assert torch.equal(T, I.ipot_plan_cuda(C, beta, iters))
         assert _rel(T, I.ipot_plan_plain(C, beta, iters)) <= 1e-4, (beta, iters)
+        Ts.append(T)
     dC = I.ipot_plan_bwd_cuda(C, C, 0.5, 30)
     assert torch.equal(dC, I.ipot_plan_bwd_cuda(C, C, 0.5, 30))
     assert _rel(dC, I.ipot_plan_bwd_plain(C, C, 0.5, 30)) <= 1e-3
@@ -222,12 +225,17 @@ def test_ipot_and_gw_kernels_match_plain(cuda_device, shape):
     assert torch.equal(gamma, I.gw_gamma_cuda(Cs, Ct, Cst, 0.1, 5, 20))
     assert _rel(gamma, I.gw_gamma_plain(Cs, Ct, Cst, 0.1, 5, 20)) <= 1e-4
     after = launches.read()
-    for kernel in ("ipot_bwd", "gw_gamma"):
+    for kernel, calls in (("ipot_fwd", 4), ("ipot_bwd", 2), ("gw_gamma", 2)):
         route, _ = I.transport_route(kernel, n, m)
         assert route == ("global" if n == 512 else "cluster")
         launched = {"cluster": after[kernel] - before[kernel],
                     "global": after[f"{kernel}_global"] - before[f"{kernel}_global"]}
-        assert launched == {"cluster": 2 * (route == "cluster"), "global": 2 * (route == "global")}
+        assert launched == {"cluster": calls * (route == "cluster"),
+                            "global": calls * (route == "global")}, kernel
+    # K8's cluster route at c = 4 sums in its global route's order
+    if I.transport_route("ipot_fwd", n, m) == ("cluster", 4):
+        for T, (beta, iters) in zip(Ts, ((0.5, 30), (0.1, 20))):
+            assert torch.equal(T, I._ipot_fwd_global(C, beta, iters))
 
 
 def test_ipot_kernels_raise_on_a_wrong_operand(cuda_device):
@@ -290,7 +298,9 @@ def _glue_inputs(device, b, n, m, d=128, seed=0):
 def test_glue_kernels_match_plain(cuda_device):
     """K11-K14 against their plain versions at (7, 256, 192), relative
     Frobenius per output: 1e-6 for K11 and K12's dC0/dCs0/dCt0, 1e-5 for
-    K12's dthr and for K13/K14; a second launch of each is bitwise equal."""
+    K12's dthr and for K13/K14; a second launch of each is bitwise equal.
+    K14 is also held bit for bit against its first design (the row-block
+    entry point) there and at the ragged (5, 100, 320)."""
     from madeleine_torch.ops import got_glue as G
 
     X0, thr, gamma = _glue_inputs(cuda_device, 7, 256, 192)
@@ -316,6 +326,16 @@ def test_glue_kernels_match_plain(cuda_device):
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
     for got, want in zip(grads, G.gw_trace_bwd_plain(Cs, Ct, Cst, gamma, dout)):
         assert _rel(got, want) <= 1e-5
+    assert all(torch.equal(a, b)
+               for a, b in zip(grads, G.gw_trace_bwd_rowblock_cuda(Cs, Ct, gamma, dout)))
+    X0, thr, gamma = _glue_inputs(cuda_device, 5, 100, 320, seed=3)
+    _, Cs, Ct, Cst = G.threshold_build_cuda(*X0, thr)
+    dout = torch.randn(5, generator=g).to(cuda_device)
+    grads = G.gw_trace_bwd_cuda(Cs, Ct, gamma, dout)
+    for got, want in zip(grads, G.gw_trace_bwd_plain(Cs, Ct, Cst, gamma, dout)):
+        assert _rel(got, want) <= 1e-5
+    assert all(torch.equal(a, b)
+               for a, b in zip(grads, G.gw_trace_bwd_rowblock_cuda(Cs, Ct, gamma, dout)))
 
 
 def test_got_loss_multi_launches_the_glue_kernels_and_raises(cuda_device):

@@ -109,8 +109,8 @@ def test_cpu_tensors_never_count_a_launch_and_kernels_refuse_them():
     """CPU tensors take the plain versions without touching a kernel count;
     a kernel wrapper given a CPU tensor raises (it never runs the plain
     version in a kernel's place)."""
-    counts = lambda: (I.fwd_launches, I.bwd_launches, I.gw_launches, I.bwd_launches_global,
-                      I.gw_launches_global)
+    counts = lambda: (I.fwd_launches, I.bwd_launches, I.gw_launches, I.fwd_launches_global,
+                      I.bwd_launches_global, I.gw_launches_global)
     before = counts()
     C = torch.from_numpy(_cost(2, 16, 16)).requires_grad_(True)
     I.ipot_plan(C, 0.5, 5).sum().backward()
@@ -119,6 +119,7 @@ def test_cpu_tensors_never_count_a_launch_and_kernels_refuse_them():
     x = C.detach()
     for call in (lambda: I.ipot_plan_cuda(x, 0.5, 5), lambda: I.ipot_plan_bwd_cuda(x, x, 0.5, 5),
                  lambda: I.gw_gamma_cuda(x, x, x, 0.1, 5, 20),
+                 lambda: I._ipot_fwd_cluster(x, 0.5, 5, 4), lambda: I._ipot_fwd_global(x, 0.5, 5),
                  lambda: I._ipot_bwd_global(x, x, 0.5, 5),
                  lambda: I._gw_gamma_global(x, x, x, 0.1, 5, 20)):
         with pytest.raises(ValueError, match="needs CUDA tensors"):

@@ -1,4 +1,5 @@
-"""The cluster routes of K9 (IPOT backward) and K10 (the GW gamma loop):
+"""The cluster routes of K8 (IPOT forward), K9 (IPOT backward) and K10 (the
+GW gamma loop):
 madeleine_torch/csrc/ipot_cluster.cuh splits each transport problem's rows
 over the c blocks of a thread-block cluster, and every column sum is the
 blocks' partial sums (over `cluster_rows(n, c)`) added in rank order.
@@ -7,10 +8,13 @@ A plain mirror of that summation order, for c in {1, 4, 8} and a ragged n
 (slices of floor and ceil n / c rows), is held against the port's plain
 versions (`ipot_plan_plain`, `ipot_plan_bwd_plain`, `gw_gamma_plain`) and
 against the JAX package's Pallas kernels in interpret mode (`_fwd_call`,
-`_bwd_call`, `gw_gamma_fused`) at the existing bars. The adjoint mirror is
-written out as the kernels compute it (not autograd). Plus the route
-function at the train step's, an odd, a wide and a large shape, and the
-anchors of the phase-breakdown tool (madeleine_torch/tools/transport_phases.py)."""
+`_bwd_call`, `gw_gamma_fused`) at the existing bars; K8's cluster route
+deals the rows to the ranks in turn instead (`_colsum_strided`), and is
+held the same way. The adjoint mirror is written
+out as the kernels compute it (not autograd). Plus the route function of
+each kernel at the train step's, an odd, a wide and a large shape, K8's
+shared memory per block, and the anchors of the phase-breakdown tool
+(madeleine_torch/tools/transport_phases.py)."""
 
 import functools
 import os
@@ -229,6 +233,70 @@ def test_transport_route_by_shape(label, n, m, bwd, gw):
         else:
             assert all(I.cluster_smem_bytes(kernel, n, m, k) > _build.SMEM_LIMIT
                        for k in I.CLUSTER_SIZES[kernel])
+
+
+@pytest.mark.parametrize("label,n,m,route", [
+    ("step", 256, 256, ("cluster", 4)),
+    ("odd", 256, 192, ("cluster", 4)),
+    ("wide", 100, 320, ("cluster", 4)),
+    ("large", 512, 512, ("global", 1)),
+])
+def test_ipot_fwd_route_by_shape(label, n, m, route):
+    """K8 takes the cluster route while a cluster's shared memory holds the
+    problem's A and Q, and the first design's one-block global route beyond
+    it (512 x 512). Its shared memory per block is within the card's limit
+    exactly when the route is the cluster route, and the route's cluster
+    size is the first of CLUSTER_SIZES["ipot_fwd"] that fits."""
+    assert I.transport_route("ipot_fwd", n, m) == route
+    fits = [c for c in I.CLUSTER_SIZES["ipot_fwd"]
+            if I.cluster_smem_bytes("ipot_fwd", n, m, c) <= _build.SMEM_LIMIT]
+    assert (route[0] == "cluster") == bool(fits)
+    if fits:
+        assert route[1] == fits[0]
+
+
+@pytest.mark.parametrize("c,want", [(4, 140544), (8, 83072)])
+def test_ipot_fwd_cluster_smem_at_the_step_shape(c, want):
+    """At [256, 256]: two [n / c, m] f32 slices (A and Q = A o T), delta,
+    sigma and two parities of c receive slots: 137 KB at c = 4, 81 KB at
+    c = 8."""
+    slice_ = 256 // c * 256
+    floats = 2 * slice_ + 256 // c + (1 + 2 * c) * 256
+    assert I.cluster_smem_bytes("ipot_fwd", 256, 256, c) == 4 * floats == want
+
+
+def _colsum_strided(x, c):
+    """Column sums as K8's cluster kernel takes them: rank r owns rows
+    r, r + c, ..., each column's partial summed over them in row order, the
+    c partials added in rank order (at c = 4: the global route's column pass,
+    whose four row groups are these ranks)."""
+    n, parts = x.shape[1], []
+    for r in range(c):
+        acc = torch.zeros_like(x[:, :1])
+        for i in range(r, n, c):
+            acc = acc + x[:, i:i + 1]
+        parts.append(acc)
+    s = parts[0]
+    for p in parts[1:]:
+        s = s + p
+    return s
+
+
+@pytest.mark.parametrize("label", list(SHAPES))
+@pytest.mark.parametrize("c", CLUSTERS)
+def test_ipot_fwd_mirror_matches_plain_and_jax(label, c):
+    """The forward with K8's column sums (rows dealt to the ranks in turn)
+    against ipot_plan_plain (relative Frobenius 1e-6) and JAX's
+    interpret-mode _fwd_call (rtol 1e-4), with the dropped-rank control."""
+    C, want = _fwd_case(label)
+    Ct = torch.from_numpy(C)
+    got = ipot_mirror(Ct, 0.5, 30, c, colsum=_colsum_strided)
+    assert _rel(got, I.ipot_plan_plain(Ct, 0.5, 30)) <= MIRROR_RTOL
+    np.testing.assert_allclose(got.numpy(), want, **FWD_TOL)
+    if c > 1:
+        drop = lambda x, c: _colsum_strided(x, c) - _colsum_strided(x[:, c - 1::c], 1)
+        bad = ipot_mirror(Ct, 0.5, 30, c, colsum=drop)
+        assert _rel(bad, I.ipot_plan_plain(Ct, 0.5, 30)) > MIRROR_RTOL
 
 
 @pytest.mark.parametrize("source,patches", [("ipot_cluster.cuh", "HEADER_PATCHES"),
