@@ -17,8 +17,14 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            widths, b=8, t=4096, ragged lengths (one bag empty), plus a
            t=4057 call whose last tile is partial: each held against its
            plain PyTorch version on the card, and timed with CUDA events.
-           K1 is checked with the flagship weights and again with peaked
-           attention (wc scaled), against a uniform-pool control
+           K1 (its live-tile route on the wgmma GEMM) is checked with the
+           flagship weights and again with peaked attention (wc scaled),
+           against a uniform-pool control, also at d_in 544 (b=2, t=1000);
+           the empty bag pools to 0; its first design (check-only) at the
+           timing shape at the same bars; the route of each shape from the
+           counters; both designs timed at the timing shape, with every
+           token valid and at a small serving shape (b=1, t=512), the new
+           one also back to back; the operands' build and cached lookup
   pool_kernels
            K3 (attn_pool) in bf16 and f32 at the eval forward's call shape
            [65, 2048, 2048] (4 heads of 512) and at t = 2000 (a partial last
@@ -81,7 +87,8 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            (bf16)
   serve    EmbeddingService at bf16 behind the HTTP front: 16 ragged requests
            (300-9000 tokens), each equal to a direct encode; K1 must launch
-  extract  the extraction CLI in-process at f32 over 16 .npz bags; K2 must launch
+  extract  the extraction CLI in-process over 16 .npz bags, with an f32 model
+           (K2 must launch) and a bf16 one (K1 must launch)
   eval_forward
            forward_train(train=False) at [65, 5, 2048, 512] bf16 with the
            flagship weights: K3 must launch once per modality; its slide and
@@ -130,8 +137,10 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            bar: the plain version fed the neighbouring problem's thresholds
            (K11/K12) or plan (K13/K14); two launches of each bitwise equal;
            K14 (the tiled product) bit for bit equal to its first design
-           (gw_trace_backward_rowblock); timed at [260, 256, 256], with K14's
-           TFLOP/s, back-to-back time and its first design's time
+           (gw_trace_backward_rowblock); K13 (the tiled route, read from the
+           counters) against its first design (gw_trace_forward_rowblock) at
+           1e-5; timed at [260, 256, 256], with K13's and K14's TFLOP/s,
+           back-to-back times and their first designs' times
   train    5 steps of make_train_step at full width (65 cases x 5 stains x
            2048 tokens, bf16, InfoNCE, dropout on) on one fixed synthetic
            batch: no step skipped, finite losses, the last below the first;
@@ -140,10 +149,11 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            the same 5 steps with the published objective, InfoNCE + GOT
            (local_loss got, weight 1, 256 tokens subsampled per stain pair:
            260 transport problems of 256 x 256 per step): K6-K14 must launch
-           on every step, and no global route of K8-K10 nor K14's first
-           design on any; step ms, peak memory, the GOT share of the step and
-           the GOT loss's device time split into glue kernels, transport
-           kernels and the rest
+           on every step, and no global route of K8-K10 nor K13's or K14's
+           first design on any; step ms, peak memory, a sha256 of the
+           parameters after the steps (name order), the GOT share of the
+           step and the GOT loss's device time split into glue kernels,
+           transport kernels and the rest
   train_se the same 5 steps with stain encodings (--add_stain_encoding:
            d_in 544, K7's dx route): K6-K14 on every step, losses fall, no
            step skipped, the stain table moves; step ms and peak memory
@@ -198,6 +208,7 @@ and the side lanes, a {"kernels": [...]} summary line, the nvidia-smi line, and 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import io
 import itertools
@@ -352,6 +363,21 @@ def reset_counts():
     launches.reset()
 
 
+# kernels no path of the port launches: K8-K10's global routes (problems
+# beyond a cluster's shared memory, never on a path's 256 x 256 problems)
+# and the first designs of K1, K13 and K14, kept as checks
+OFF_PATH = ("ipot_fwd_global", "ipot_bwd_global", "gw_gamma_global", "gw_trace_bwd_rowblock",
+            "gw_trace_fwd_rowblock", "encode_fused_rowtile")
+
+
+def _check_off_path(counts, where):
+    """Raise if a path's launch counts include an OFF_PATH kernel (a
+    counter this tree's package lacks counts 0)."""
+    hit = {k: counts.get(k, 0) for k in OFF_PATH if counts.get(k, 0)}
+    if hit:
+        raise AssertionError(f"{where}: launched kernels that no path takes: {hit}")
+
+
 def read_counts() -> dict:
     from madeleine_torch.ops import launches
 
@@ -384,7 +410,10 @@ def phase_build(state):
     emit({"phase": "build", "seconds": secs, "built": sorted(reports), "ptxas": ptxas,
           "wgmma_kernel_spills": _spills(reports, ("gemm_kernel", "gate_logits_sum")),
           "k8_k14_kernel_spills": _spills(reports, ("ipot_fwd_cluster_kernel",
-                                                    "gwt_bwd_tiles_kernel"))})
+                                                    "gwt_bwd_tiles_kernel")),
+          "k1_k13_kernel_spills": _spills(reports, ("gwt_fwd_tiles_kernel", "tile_flags",
+                                                    "live_scan", "gather_tiles", "pool_tiles",
+                                                    "ln_gelu_rows"))})
 
 
 def _spills(reports, names):
@@ -423,8 +452,9 @@ def _kernel_inputs(torch, b, t, lengths, gen):
     return model, mask.cuda(), w, x, bias, y
 
 
-def _check_k1(torch, w, x, bias, y, n_valid, atol=3e-2):
-    """K1 against its plain version twice: with the flagship weights, whose
+def _check_k1(torch, w, x, bias, y, n_valid, atol=3e-2, kernel=None):
+    """K1 (the live-tile route, or `kernel`: the first design) against its
+    plain version twice: with the flagship weights, whose
     attention logits spread by well under one unit (a nearly uniform pool),
     and with wc scaled by PEAK_WC_SCALE, whose logits spread by several units.
     The control: with wc = 0 (a uniform pool) the plain output must differ
@@ -435,13 +465,14 @@ def _check_k1(torch, w, x, bias, y, n_valid, atol=3e-2):
     from madeleine_torch.ops.encode_fused import (encode_fused_cuda,
                                                   encode_pool_fused_plain, kernel_weights)
 
+    kernel = kernel or encode_fused_cuda
     wk = kernel_weights(w, torch.bfloat16)
     xb = x.to(torch.bfloat16).contiguous()
     nh, _, e = w["wa"].shape
     report = {}
     for name, scale in (("flagship", 1.0), ("peaked", PEAK_WC_SCALE)):
         wks = dict(wk, wc=wk["wc"] * scale)
-        got = encode_fused_cuda(xb, bias, wks)
+        got = kernel(xb, bias, wks)
         want = encode_pool_fused_plain(xb, bias, wks)
         uniform = encode_pool_fused_plain(xb, bias, dict(wks, wc=torch.zeros_like(wks["wc"])))
         logits = gated_attention_logits(dict(w, wc=w["wc"] * scale),
@@ -476,11 +507,101 @@ def _check_k2(torch, w, y, bias, rtol=1e-4, atol=1e-5):
     return (got - want).abs().max().item(), gw
 
 
+K1_SMALL_SHAPE = (1, 512)   # serving's smallest bucket, one request
+K1_D544_SHAPE = (2, 1000, 544)   # stain-encoded bags: d_in 544, a partial last tile
+
+
+def _k1_route(torch, fn):
+    """Run fn once; {counter: launches} of K1's two designs during it."""
+    before = read_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = read_counts()
+    return out, {k: after[k] - before[k] for k in ("encode_fused", "encode_fused_rowtile")}
+
+
+def _check_k1_d544(torch, wk, gen, atol=3e-2):
+    """K1's live-tile route at d_in 544 (the stain-encoded input; the TMA
+    operand's k tail is no multiple of 64) against its plain version: a
+    random layer-1 weight, one bag full and one ragged."""
+    from madeleine_torch.ops.attn_pool import mask_bias
+    from madeleine_torch.ops.encode_fused import encode_fused_cuda, encode_pool_fused_plain
+
+    b, t, d_in = K1_D544_SHAPE
+    w1 = gen.standard_normal((wk["w1"].shape[0], d_in)).astype(np.float32) / d_in ** 0.5
+    w = dict(wk, w1=torch.from_numpy(w1).cuda().to(torch.bfloat16))
+    x = torch.from_numpy(gen.standard_normal((b, t, d_in)).astype(np.float32)).cuda()
+    x = x.to(torch.bfloat16)
+    mask = (torch.arange(t)[None, :] < torch.tensor([[t], [613]])).cuda()
+    bias = mask_bias(mask, b, t, w["wa"].shape[0], torch.device("cuda"))
+    got, route = _k1_route(torch, lambda: encode_fused_cuda(x, bias, w))
+    err = (got.float() - encode_pool_fused_plain(x, bias, w).float()).abs().max().item()
+    if not (torch.isfinite(got.float()).all() and err <= atol):
+        raise AssertionError(f"encode_fused d_in {d_in}: max |kernel - plain| {err} > {atol}")
+    return {"shape": [b, t, d_in], "max_abs_err": err, "route": route}
+
+
+# extraction's calls (eval/inference.py, 262,144 tokens per batch): bucket
+# 8192 at its batch of 32 (4096 tile slots, 8 chunks) and bucket 1024 at its
+# batch of 64 (1024 slots, 2 chunks); each with ragged bags of the bucket
+# and the tail batch's empty padding bags
+# (b, t, ragged bags, their least length, whether a chunk holds no live tile)
+K1_EXTRACT_CASES = {"b32_t8192": (32, 8192, 24, 4097, True),
+                    "b64_t1024": (64, 1024, 60, 513, False)}
+
+
+def _check_k1_chunks(torch, wk, gen, atol=3e-2):
+    """K1's live-tile route at extraction's call shapes, which run several
+    chunks (the chunk loop, the list offset, a chunk with no live rows),
+    against its plain version and its first design, flagship and peaked
+    logits; the empty bags pool to 0; the route from the counters."""
+    from madeleine_torch.ops.attn_pool import mask_bias
+    from madeleine_torch.ops.encode_fused import (chunk_plan, encode_fused_cuda,
+                                                  encode_fused_rowtile_cuda,
+                                                  encode_pool_fused_plain, live_tiles_plain)
+
+    nh, d_in = wk["wa"].shape[0], wk["w1"].shape[1]
+    report = {}
+    for name, (b, t, n_bags, lo, empty_chunk) in K1_EXTRACT_CASES.items():
+        lengths = gen.integers(lo, t + 1, n_bags).tolist() + [0] * (b - n_bags)
+        mask = (torch.arange(t)[None, :] < torch.tensor(lengths)[:, None]).cuda()
+        bias = mask_bias(mask, b, t, nh, torch.device("cuda"))
+        g = torch.Generator("cuda").manual_seed(SEED)
+        x = torch.randn(b, t, d_in, generator=g, device="cuda").to(torch.bfloat16)
+        nchunks = chunk_plan(b, t)[2]
+        rows = live_tiles_plain(bias)[2].tolist()
+        if sum(r > 0 for r in rows) < 2 or (empty_chunk and min(rows) > 0):
+            raise AssertionError(f"encode_fused {name}: the shape does not run several "
+                                 f"chunks with an empty one: {rows}")
+        case = {"shape": [b, t], "lengths": lengths, "chunks": nchunks, "chunk_rows": rows}
+        for scale_name, scale in (("flagship", 1.0), ("peaked", PEAK_WC_SCALE)):
+            w = dict(wk, wc=wk["wc"] * scale)
+            got, route = _k1_route(torch, lambda: encode_fused_cuda(x, bias, w))
+            want = encode_pool_fused_plain(x, bias, w)
+            first = encode_fused_rowtile_cuda(x, bias, w)
+            err = (got.float() - want.float()).abs().max().item()
+            err_first = (got.float() - first.float()).abs().max().item()
+            if not (torch.isfinite(got.float()).all() and err <= atol and err_first <= atol):
+                raise AssertionError(f"encode_fused {name} ({scale_name}): max |kernel - "
+                                     f"plain| {err}, |kernel - first design| {err_first} > {atol}")
+            if not (got[n_bags:] == 0).all():
+                raise AssertionError(f"encode_fused {name}: an empty bag does not pool to 0")
+            if route != {"encode_fused": 1, "encode_fused_rowtile": 0}:
+                raise AssertionError(f"encode_fused {name}: left the live-tile route: {route}")
+            case[scale_name] = {"max_abs_err": err, "vs_first_design": err_first}
+        case["ms"] = cuda_ms(lambda: encode_fused_cuda(x, bias, wk), iters=10)
+        case["rowtile_ms"] = cuda_ms(lambda: encode_fused_rowtile_cuda(x, bias, wk), iters=10)
+        report[name] = case
+        del x, bias, want, first
+    return report
+
+
 def phase_kernels(state):
     import torch
-    from madeleine_torch.models.abmil import abmil_embed, encoder_weights
-    from madeleine_torch.ops.encode_fused import (encode_fused_cuda, encode_pool_fused_plain,
-                                                  kernel_weights)
+    from madeleine_torch.models.abmil import abmil_embed, encoder_weights, kernel_operands
+    from madeleine_torch.ops.encode_fused import (chunk_plan, encode_fused_cuda,
+                                                  encode_fused_rowtile_cuda,
+                                                  encode_pool_fused_plain, kernel_weights)
     from madeleine_torch.ops.gated_pool import gated_attention_pool_plain, gated_pool_cuda
 
     gen = np.random.default_rng(SEED)
@@ -488,6 +609,9 @@ def phase_kernels(state):
     lengths = [4096, 4000, 3001, 2048, 1500, 777, 65, 0]   # one empty bag: pools to 0
     model, mask, w, x, bias, y = _kernel_inputs(torch, b, t, lengths, gen)
     k1_report, xb, wk = _check_k1(torch, w, x, bias, y, lengths[0])
+    # the first design (check-only) at the same shape and bars
+    k1_rowtile_report, _, _ = _check_k1(torch, w, x, bias, y, lengths[0],
+                                        kernel=encode_fused_rowtile_cuda)
     err2, gw = _check_k2(torch, w, y, bias)
     # partial last tile: t = 4057 (63 tiles of 64 + 25 rows)
     t2, lengths2 = 4057, [4057, 4033]
@@ -495,43 +619,80 @@ def phase_kernels(state):
     k1p_report, _, _ = _check_k1(torch, w_, x_, bias_, y_, lengths2[0])
     err2p, _ = _check_k2(torch, w_, y_, bias_)
     del w_, x_, bias_, y_
+    k1_d544 = _check_k1_d544(torch, wk, gen)
+    k1_chunks = _check_k1_chunks(torch, wk, gen)
     err1 = max(r["max_abs_err"] for r in k1_report.values())
     err1p = max(r["max_abs_err"] for r in k1p_report.values())
+
+    # the route each shape takes, from the counters; the empty bag pools to 0
+    dense = torch.zeros_like(bias)
+    bs, ts = K1_SMALL_SHAPE
+    xs = xb[:bs, :ts].contiguous()
+    small = torch.zeros(bs, ts, bias.shape[-1], device="cuda")
+    routes = {"d_in_544": k1_d544["route"]}
+    for name, (xx, bb) in {"timing": (xb, bias), "all_valid": (xb, dense),
+                           "small": (xs, small)}.items():
+        got, routes[name] = _k1_route(torch, lambda: encode_fused_cuda(xx, bb, wk))
+        if name == "timing" and not (got[lengths.index(0)] == 0).all():
+            raise AssertionError("encode_fused: the empty bag does not pool to 0")
+    want_route = {"encode_fused": 1, "encode_fused_rowtile": 0}
+    if any(r != want_route for r in routes.values()):
+        raise AssertionError(f"encode_fused: a shape left the live-tile route: {routes}")
 
     tokens = int(sum(lengths))
     nh, f, e = w["wa"].shape
     E, d_in = nh * e, x.shape[-1]
-    k1_flops = tokens * 2.0 * (d_in * e + e * e + e * E + 2 * E * f + E)
-    k1_bytes = (tokens * (d_in * 2 + nh * 4) + b * E * 2
-                + sum(v.numel() * v.element_size() for v in wk.values()))
+    per_token = 2.0 * (d_in * e + e * e + e * E + 2 * E * f + E)
+    wbytes = sum(wk[k].numel() * wk[k].element_size() for k in
+                 ("w1", "b1", "s1", "t1", "w2", "b2", "s2", "t2", "w3", "b3", "s3", "t3",
+                  "wa", "ba", "wb", "bb", "wc", "bc"))
+
+    def k1_bound(bags, n_tok):
+        """(bound ms, whether the operations bound it) for n_tok valid tokens."""
+        ops = n_tok * per_token / PEAK_BF16
+        mem = (n_tok * (d_in * 2 + nh * 4) + bags * E * 2 + wbytes) / PEAK_BYTES
+        return max(ops, mem) * 1e3, ops >= mem
+
     k2_flops = tokens * 2.0 * (2 * E * f + E)
     k2_bytes = (tokens * (E * 4 + nh * 4) + b * E * 4
                 + sum(v.numel() * v.element_size() for v in gw.values()))
     k1_ms = cuda_ms(lambda: encode_fused_cuda(xb, bias, wk))
+    k1_b2b = cuda_ms_back_to_back(lambda: encode_fused_cuda(xb, bias, wk), 3, 20)
+    k1_rowtile_ms = cuda_ms(lambda: encode_fused_rowtile_cuda(xb, bias, wk))
     k1_plain = cuda_ms(lambda: encode_pool_fused_plain(xb, bias, wk), iters=10)
     k2_ms = cuda_ms(lambda: gated_pool_cuda(y, bias, **gw))
     k2_plain = cuda_ms(lambda: gated_attention_pool_plain(y, bias, **gw), iters=10)
-    k1_bound = max(k1_flops / PEAK_BF16, k1_bytes / PEAK_BYTES) * 1e3
+    k1_bound_ms, k1_by_ops = k1_bound(b, tokens)
     k2_bound = max(k2_flops / PEAK_FP32, k2_bytes / PEAK_BYTES) * 1e3
     # the same inputs with every token valid: the kernels' per-token rate
-    dense = torch.zeros_like(bias)
     k1_dense = cuda_ms(lambda: encode_fused_cuda(xb, dense, wk))
+    k1_rowtile_dense = cuda_ms(lambda: encode_fused_rowtile_cuda(xb, dense, wk))
     k2_dense = cuda_ms(lambda: gated_pool_cuda(y, dense, **gw))
-    k1_dense_bound = k1_bound * b * t / tokens
+    k1_dense_bound = k1_bound(b, b * t)[0]
     k2_dense_bound = k2_bound * b * t / tokens
-    # what the model layer adds around K1: operands built per call, mask bias
+    # a small serving call (one bag of the smallest bucket): both designs
+    k1_small = cuda_ms(lambda: encode_fused_cuda(xs, small, wk), iters=30)
+    k1_small_b2b = cuda_ms_back_to_back(lambda: encode_fused_cuda(xs, small, wk), 3, 50)
+    k1_rowtile_small = cuda_ms(lambda: encode_fused_rowtile_cuda(xs, small, wk), iters=30)
+    # K1's device time by kernel at the timing shape (torch.profiler)
+    k1_rows = [[_kernel_base(k), c, ms]
+               for k, c, ms in _profiled(torch, lambda: encode_fused_cuda(xb, bias, wk))]
+    # what the model layer adds around K1: the operands' build (once per
+    # weight state; kernel_operands' lookup is what a call pays), mask bias
     emb = model.wsi_embedders
     operands_ms = cuda_ms(lambda: kernel_weights(encoder_weights(emb), torch.bfloat16))
+    operands_cached_ms = cuda_ms(lambda: kernel_operands(emb, torch.bfloat16))
     embed_ms = cuda_ms(lambda: abmil_embed(emb, xb, mask=mask))
     state.setdefault("kernels", {}).update({
         "encode_fused": {
             "name": "encode_fused", "route": "cuda",
             "source": "madeleine_torch/csrc/encode_fused.cu",
             "replaces": "madeleine_tpu/ops/encode_fused.py:126",
-            "max_abs_err": max(err1, err1p), "ms": k1_ms, "plain_ms": k1_plain,
-            "bound_ms": k1_bound,
-            "bound_by": "operations" if k1_flops / PEAK_BF16 >= k1_bytes / PEAK_BYTES else "bytes",
-            "library_ms": None},
+            "max_abs_err": max(err1, err1p, k1_d544["max_abs_err"],
+                               *(c[k]["max_abs_err"] for c in k1_chunks.values()
+                                 for k in ("flagship", "peaked"))), "ms": k1_ms,
+            "plain_ms": k1_plain, "bound_ms": k1_bound_ms,
+            "bound_by": "operations" if k1_by_ops else "bytes", "library_ms": None},
         "gated_pool": {
             "name": "gated_pool", "route": "cuda",
             "source": "madeleine_torch/csrc/gated_pool.cu",
@@ -541,14 +702,29 @@ def phase_kernels(state):
             "bound_by": "operations" if k2_flops / PEAK_FP32 >= k2_bytes / PEAK_BYTES else "bytes",
             "library_ms": None},
     })
+    slots, cap, nchunks, rows = chunk_plan(b, t)
     emit({"phase": "kernels", "names": ["encode_fused", "gated_pool"], "b": b, "t": t,
           "lengths": lengths, "valid_tokens": tokens, "partial_tile_t": t2,
           "encode_fused": {"max_abs_err": err1, "max_abs_err_partial": err1p, "atol": 3e-2,
                            "checks": k1_report, "checks_partial": k1p_report,
-                           "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
-                           "share_of_bound": k1_bound / k1_ms, "gflop": k1_flops / 1e9,
-                           "ms_all_valid": k1_dense, "bound_ms_all_valid": k1_dense_bound,
-                           "operands_ms": operands_ms, "abmil_embed_ms": embed_ms},
+                           "checks_d_in_544": k1_d544, "checks_extract_chunks": k1_chunks,
+                           "routes": routes,
+                           "rowtile_checks": k1_rowtile_report,
+                           "chunks": {"slots": slots, "cap_tiles": cap, "chunks": nchunks,
+                                      "scratch_rows": rows},
+                           "ms": k1_ms, "ms_back_to_back": k1_b2b, "rowtile_ms": k1_rowtile_ms,
+                           "plain_ms": k1_plain, "bound_ms": k1_bound_ms,
+                           "share_of_bound": k1_bound_ms / k1_ms, "gflop": tokens * per_token / 1e9,
+                           "ms_all_valid": k1_dense, "rowtile_ms_all_valid": k1_rowtile_dense,
+                           "bound_ms_all_valid": k1_dense_bound,
+                           "small_shape": list(K1_SMALL_SHAPE), "ms_small": k1_small,
+                           "ms_small_back_to_back": k1_small_b2b,
+                           "rowtile_ms_small": k1_rowtile_small,
+                           "bound_ms_small": k1_bound(bs, bs * ts)[0],
+                           "device_ms_by_kernel": k1_rows,
+                           "device_ms": sum(r[2] for r in k1_rows),
+                           "operands_ms": operands_ms, "operands_cached_ms": operands_cached_ms,
+                           "abmil_embed_ms": embed_ms},
           "gated_pool": {"max_abs_err": err2, "max_abs_err_partial": err2p, "rtol": 1e-4,
                          "atol": 1e-5, "ms": k2_ms, "plain_ms": k2_plain,
                          "bound_ms": k2_bound, "share_of_bound": k2_bound / k2_ms,
@@ -1581,10 +1757,19 @@ def _check_glue(torch, X0, thr, gamma, gen):
         "thresholds rolled")
     _, Cs, Ct, Cst = outs
     groll = gamma.roll(1, 0).contiguous()
+    before = read_counts()
+    k13 = G.gw_trace_cuda(Cs, Ct, Cst, gamma)
     rep["gw_trace_fwd"] = entry(
-        [G.gw_trace_cuda(Cs, Ct, Cst, gamma)], [G.gw_trace_cuda(Cs, Ct, Cst, gamma)],
+        [k13], [G.gw_trace_cuda(Cs, Ct, Cst, gamma)],
         [G.gw_trace_plain(Cs, Ct, Cst, gamma)], [G.gw_trace_plain(Cs, Ct, Cst, groll)],
         ("out",), "gamma rolled")
+    # the route from the counters (two tiled calls, no first-design launch),
+    # then the tiled K13 against its first design: another sum order, K13's bar
+    after = read_counts()
+    rep["gw_trace_fwd"]["route"] = {k: after[k] - before[k]
+                                    for k in ("gw_trace_fwd", "gw_trace_fwd_rowblock")}
+    rep["gw_trace_fwd"]["rel_fro_rowblock"] = _rel_fro(
+        k13, G.gw_trace_rowblock_cuda(Cs, Ct, Cst, gamma))
     dout = torch.from_numpy(gen.standard_normal(b).astype(np.float32)).cuda()
     k14 = G.gw_trace_bwd_cuda(Cs, Ct, gamma, dout)
     rep["gw_trace_bwd"] = entry(
@@ -1608,7 +1793,10 @@ def _glue_bar(kernel, output):
 def _enforce_glue(rep, where):
     for kernel, r in rep.items():
         if not (r["finite"] and r["bitwise_equal"]
-                and all(r.get("bitwise_equal_rowblock", {}).values())):
+                and all(r.get("bitwise_equal_rowblock", {}).values())
+                and r.get("rel_fro_rowblock", 0.0) <= GLUE_GWT_RTOL
+                and r.get("route", {}).get("gw_trace_fwd_rowblock", 0) == 0
+                and r.get("route", {}).get("gw_trace_fwd", 2) == 2):
             raise AssertionError(f"glue_kernels {where} {kernel}: {r}")
         for out, err in r["rel_fro"].items():
             bar = _glue_bar(kernel, out)
@@ -1669,11 +1857,15 @@ def phase_glue_kernels(state):
             "max_abs_err": max(checks[lbl][name]["max_abs_err"] for lbl in checks),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": times[name]["bound_by"], "library_ms": None}
-    # K14: its rate, back to back, and its first design's time (the check-only entry point)
-    k14 = times["gw_trace_bwd"]
-    k14["tflops"] = k14["gflop"] / k14["ms"]
-    k14["ms_back_to_back"] = cuda_ms_back_to_back(fns["gw_trace_bwd"][0], 2, 20)
-    k14["rowblock_ms"] = cuda_ms(lambda: G.gw_trace_bwd_rowblock_cuda(Cs, Ct, gamma, dout), 1, 5)
+    # K13 and K14: their rate, back to back, and their first designs' times
+    # (the check-only entry points)
+    rowblock = {"gw_trace_fwd": lambda: G.gw_trace_rowblock_cuda(Cs, Ct, Cst, gamma),
+                "gw_trace_bwd": lambda: G.gw_trace_bwd_rowblock_cuda(Cs, Ct, gamma, dout)}
+    for name, first_design in rowblock.items():
+        k = times[name]
+        k["tflops"] = k["gflop"] / k["ms"]
+        k["ms_back_to_back"] = cuda_ms_back_to_back(fns[name][0], 2, 20)
+        k["rowblock_ms"] = cuda_ms(first_design, 1, 5)
     emit({"phase": "glue_kernels", "shape": GOT_STEP_SHAPE, "times": times,
           "glue_kernels_ms_per_step": sum(t["ms"] for t in times.values()),
           "glue_plain_ms_per_step": sum(t["plain_ms"] for t in times.values())})
@@ -2197,6 +2389,7 @@ def phase_serve(state):
         svc.close()
     if counts["encode_fused"] < 1:
         raise AssertionError(f"serve: encode_fused was not launched ({counts})")
+    _check_off_path(counts, "serve")
     state["launches_serve"] = counts
     max_err = 0.0
     for bag, got in zip(bags, results):
@@ -2215,36 +2408,48 @@ def phase_serve(state):
 
 
 def phase_extract(state):
+    """The extraction CLI over one cohort twice: with an f32 model (the
+    parity route, K2) and a bf16 one (K1's live-tile route)."""
     from madeleine_torch.cli import extract_slide_embeddings
     from madeleine_torch.utils.file_utils import load_pkl
 
     gen = np.random.default_rng(SEED + 2)
     lengths = [int(n) for n in gen.integers(300, 9000, size=16)]
+    runs = {}
     with tempfile.TemporaryDirectory() as root:
-        write_model_dir(os.path.join(root, "models"), "float32")
         bag_dir = os.path.join(root, "cohort", "patch_embeddings")
         os.makedirs(bag_dir)
         for i, n in enumerate(lengths):
             np.savez(os.path.join(bag_dir, f"slide_{i:02d}.npz"),
                      features=gen.standard_normal((n, 512)).astype(np.float32))
         reset_counts()
-        t0 = time.perf_counter()
-        pkl = extract_slide_embeddings.main([
-            "--local_dir", os.path.join(root, "cohort"),
-            "--model_dir", os.path.join(root, "models"), "--no_download", "--device", "cuda"])
-        wall = time.perf_counter() - t0
+        for precision, kernel in (("float32", "gated_pool"), ("bfloat16", "encode_fused")):
+            write_model_dir(os.path.join(root, precision), precision)
+            before = read_counts()
+            t0 = time.perf_counter()
+            pkl = extract_slide_embeddings.main([
+                "--local_dir", os.path.join(root, "cohort"),
+                "--model_dir", os.path.join(root, precision), "--no_download",
+                "--device", "cuda"])
+            wall = time.perf_counter() - t0
+            after = read_counts()
+            res = load_pkl(pkl)
+            launched = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+            if launched.get(kernel, 0) < 1:
+                raise AssertionError(f"extract {precision}: {kernel} was not launched "
+                                     f"({launched})")
+            emb, ids = res["embeds"], res["slide_ids"]
+            if set(res) != {"embeds", "slide_ids"} or emb.shape != (16, 512) \
+                    or sorted(ids) != [f"slide_{i:02d}" for i in range(16)] \
+                    or not np.isfinite(emb).all():
+                raise AssertionError(f"extract {precision}: bad pkl {set(res)} {emb.shape} {ids}")
+            runs[precision] = {"wall_s": wall, "slides_per_s": len(ids) / wall,
+                               "launches": launched}
         counts = read_counts()
-        res = load_pkl(pkl)
-    if counts["gated_pool"] < 1:
-        raise AssertionError(f"extract: gated_pool was not launched ({counts})")
+    _check_off_path(counts, "extract")
     state["launches_extract"] = counts
-    emb, ids = res["embeds"], res["slide_ids"]
-    if set(res) != {"embeds", "slide_ids"} or emb.shape != (16, 512) \
-            or sorted(ids) != [f"slide_{i:02d}" for i in range(16)] \
-            or not np.isfinite(emb).all():
-        raise AssertionError(f"extract: bad pkl {set(res)} {emb.shape} {ids}")
-    emit({"phase": "extract", "slides": len(ids), "wall_s": wall,
-          "slides_per_s": len(ids) / wall, "launches": counts})
+    emit({"phase": "extract", "slides": len(lengths), "lengths": lengths, "runs": runs,
+          "launches": counts})
 
 
 EVAL_REL_FRO = 2e-2   # bf16 eval forward against the f32 model's: a few bf16 roundings
@@ -2383,11 +2588,8 @@ def _run_train_steps(torch, state, phase, kernels, cfg=None):
     if missing:
         raise AssertionError(f"{phase}: kernels not launched on every step: {missing}")
     # the step's 256 x 256 transport problems take K8's, K9's and K10's
-    # cluster route; K14's first design is a check, never on a path
-    off_path = ("ipot_fwd_global", "ipot_bwd_global", "gw_gamma_global", "gw_trace_bwd_rowblock")
-    if "gw_gamma" in kernels and sum(counts[k] for k in off_path):
-        raise AssertionError(f"{phase}: a global route of K8-K10 or K14's first design "
-                             f"launched: {counts}")
+    # cluster route; K13's and K14's first designs are checks, never on a path
+    _check_off_path(counts, phase)
     return cfg, model, batch, {
         "steps": TRAIN_STEPS, "batch": [cfg.batch_size, cfg.n_modalities, cfg.n_subsamples,
                                         cfg.patch_embedding_dim],
@@ -2426,6 +2628,15 @@ def phase_train(state):
           "encoder_bound_ms_per_step": n_mod * (_bound(ff, fb)[0] + _bound(bf, bb)[0])})
 
 
+def _param_digest(model) -> str:
+    """sha256 over every parameter's bytes, in name order."""
+    h = hashlib.sha256()
+    for name, p in sorted(model.named_parameters()):
+        h.update(name.encode())
+        h.update(p.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
 def phase_train_got(state):
     """The published objective, InfoNCE + GOT: K6/K7 for the encoder and
     K8/K9/K10 for the 260 transport problems of each step; then the GOT loss
@@ -2433,9 +2644,13 @@ def phase_train_got(state):
     import torch
     from madeleine_torch.ops import losses as L
 
-    cfg, _, _, run = _run_train_steps(torch, state, "train_got",
-                                      ENCODER_KERNELS + GOT_KERNELS + GLUE_KERNELS,
-                                      got_path_config())
+    cfg, model, _, run = _run_train_steps(torch, state, "train_got",
+                                          ENCODER_KERNELS + GOT_KERNELS + GLUE_KERNELS,
+                                          got_path_config())
+    # the trained weights, bit for bit: K13 adds the trace to the loss, so its
+    # sum order must leave every parameter as another package's steps leave it
+    digest = _param_digest(model)
+    del model
     n_pairs = cfg.n_modalities - 1
     shape = (n_pairs, cfg.batch_size, cfg.got_subsample, cfg.token_proj_dim)
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -2457,7 +2672,8 @@ def phase_train_got(state):
     got_split = _split_got_rows(_profiled(
         torch, lambda: L.got_loss_multi(v, q, sample_mask=smask).sum().backward()))
     hist = 30 * n_pairs * cfg.batch_size * cfg.got_subsample ** 2 * 4
-    emit({"phase": "train_got", **run, "got_problems_per_step": n_pairs * cfg.batch_size,
+    emit({"phase": "train_got", **run, "param_sha256": digest,
+          "got_problems_per_step": n_pairs * cfg.batch_size,
           "got_subsample": cfg.got_subsample, "k9_history_gb": hist / 1e9,
           "got_loss_own_peak_gb": got_peak / 1e9,
           "got_loss_own_peak_gb_less_k9_history": (got_peak - hist) / 1e9,
@@ -2650,6 +2866,9 @@ def phase_heads(state):
                 and all(c == 2 * sites for c in per_step)):
             raise AssertionError(f"heads {name}: {runs[name]}")
     state["launches_heads"] = read_counts()
+    if state["launches_heads"]["encode_fused"] < 1:
+        raise AssertionError(f"heads: encode_fused was not launched ({state['launches_heads']})")
+    _check_off_path(state["launches_heads"], "heads")
     emit({"phase": "heads", "embeddings": list(emb.shape), "classes": HEAD_CLASSES,
           "steps": HEAD_STEPS, "runs": runs, "launches": state["launches_heads"]})
 
@@ -2748,6 +2967,9 @@ def _check_pretrain_run(name, results, records, epochs, kernels=PRETRAIN_STEP_KE
     if len(down) != 1 or down[0]["slides"] != PRETRAIN_DOWNSTREAM or (
             downstream_kernel and down[0]["launches"].get(downstream_kernel, 0) < 1):
         raise AssertionError(f"pretrain {name}: downstream pass {down}")
+    for i, s in enumerate(steps):
+        _check_off_path(s["launches"], f"pretrain {name} step {i}")
+    _check_off_path(down[0]["launches"], f"pretrain {name} downstream pass")
     names = set(os.listdir(results))
     want = {"config.json", "model_config.txt", "model.pt", "model_config.json",
             "downstream.pkl", "train_state", "metrics.jsonl"}
@@ -2915,7 +3137,7 @@ TRANSPORT_NAMES = ("ipot_fwd_kernel", "ipot_bwd_kernel", "gw_gamma_kernel",
                    "ipot_fwd_cluster_kernel", "ipot_bwd_cluster_kernel",
                    "gw_gamma_cluster_kernel")
 GLUE_NAMES = ("tb_fwd_kernel", "tb_bwd_kernel", "gwt_fwd_kernel", "gwt_bwd_kernel",
-              "gwt_bwd_tiles_kernel")
+              "gwt_fwd_tiles_kernel", "gwt_fwd_sum_kernel", "gwt_bwd_tiles_kernel")
 
 
 def _kernel_base(name):

@@ -13,7 +13,41 @@
 // input per token: far above the card's ~295 FLOP/byte ridge, so the bound is
 // the 989 TFLOP/s of dense bf16 tensor cores.
 //
-// Design:
+// Design (encode_fused_tiles_forward, the route every path takes): K6's
+// forward machinery at dropout rate 0, over the bag's live 64-token tiles
+// only.
+// - Live tiles. A tile (bag, 64 tokens) is live when any of its tokens is
+//   unmasked in any head (per-head masking stays in the logits). tile_flags
+//   marks every tile slot and writes a dead slot's pool partials empty;
+//   live_scan (one block, a fixed-order scan) lists the live slots in slot
+//   order and writes, per chunk of `cap` list entries, its live row count.
+//   That count stays on the device: every later kernel of the chunk reads it
+//   (the wgmma GEMM's m_live, the row kernels' early return), so serving's
+//   bucket and power-of-two batch padding costs almost no device time and
+//   the host never reads a count back.
+// - Per chunk: gather_tiles copies the live tiles' x rows into a compact
+//   operand (rows past t zero-filled); the three layers run on the TMA +
+//   wgmma GEMM of gemm_wgmma.cuh with f32 output and bias into a scratch
+//   row block Z, each followed by a row kernel (ln_gelu_rows: a warp per
+//   row, LN over the whole row, GELU, the bf16 operand of the next
+//   product; no dropout, no residuals). Layer 3's 2048-column row is one
+//   row of Z, so LN3 runs once, not twice as in the first design; it
+//   leaves y32 in Z and bf16(y32) for the gates. The gate products of all
+//   heads run as one batched EPI_GATES launch on K6's permuted [Wa; Wb]
+//   (ops/encoder_train.py::permute_gates), writing only the per-64-column
+//   logit partials; pool_tiles (a block per live tile and head) adds them
+//   in chunk order with bc and the mask bias and writes the tile's
+//   softmax-pool partial (m, s, w) into its slot, as the first design does.
+// - pool_combine.cuh merges every slot's partials in tile order (no
+//   atomics: two launches give bitwise-equal results). A bag with no
+//   unmasked token pools to 0.
+// - Scratch is bounded: a chunk holds at most `cap` live tiles (the wrapper's
+//   row budget, ops/encode_fused.py::ROW_BUDGET), and one bf16 row block
+//   holds in turn the compact x, h1, h2 and y (each dead before the next
+//   overwrites it).
+//
+// First design (encode_partial; kept as a check-only entry point,
+// encode_fused_forward):
 // - Tensor cores through mma.sync m16n8k16 (bf16 in, f32 accumulate). Each
 //   k16 step reads 4 consecutive k per thread for both operands (a k
 //   permutation inside the step that A and B share), so A comes from shared
@@ -41,14 +75,14 @@
 //   partial state and pool_combine.cuh merges the tiles in index order
 //   (deterministic, no atomics). Rows past t are zero-filled on load and
 //   excluded from the pool. A tile whose tokens are all masked is skipped
-//   outright, so the serving path's bucket and power-of-two batch padding
-//   costs almost no device time; a bag with no unmasked token pools to 0.
+//   outright; a bag with no unmasked token pools to 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "pool_combine.cuh"
+#include "train_rows.cuh"
 
 namespace {
 
@@ -509,4 +543,296 @@ extern "C" int encode_fused_forward(
   if (err != cudaSuccess) return (int)err;
   return (int)madeleine::launch_pool_combine<bf16>(part_m, part_s, part_w, out, b, ntiles, nh,
                                                    HID, s);
+}
+
+// ---------------------------------------------------------------------------
+// The route every path takes: live token tiles on the wgmma GEMM
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int SCAN_THREADS = 1024;
+constexpr int ROW_THREADS = 256;
+
+// Grid: the b * ntiles tile slots, bag-major (the partials' layout). flag[slot]
+// = whether any token of the slot is unmasked in any head; a dead slot's
+// partials are written empty here.
+__global__ void tile_flags(const float* __restrict__ bias, int* __restrict__ flag,
+                           float* __restrict__ part_m, float* __restrict__ part_s,
+                           float* __restrict__ part_w, int t, int nh) {
+  const int slot = blockIdx.x, ntiles = (t + TM - 1) / TM;
+  const int bi = slot / ntiles, tok0 = (slot % ntiles) * TM, rows = min(TM, t - tok0);
+  const float* tb = bias + ((size_t)bi * t + tok0) * nh;
+  int live = 0;
+  for (int i = threadIdx.x; i < rows * nh; i += blockDim.x) live |= tb[i] > madeleine::MASKED_BIAS;
+  live = __syncthreads_or(live);
+  if (threadIdx.x == 0) flag[slot] = live;
+  if (live) return;
+  for (int h = 0; h < nh; ++h)
+    madeleine::write_empty_partial(part_m + (size_t)slot * nh + h, part_s + (size_t)slot * nh + h,
+                                   part_w + ((size_t)slot * nh + h) * HID, HID, threadIdx.x,
+                                   blockDim.x);
+}
+
+// One block: list[k] = the k-th live slot in slot order (thread i scans the
+// slots [i per, (i + 1) per) and writes its live ones at its exclusive
+// prefix, a warp scan then a scan of the warp totals); chunk_rows[c] = TM *
+// the live tiles among list entries [c cap, (c + 1) cap).
+__global__ void __launch_bounds__(SCAN_THREADS)
+live_scan(const int* __restrict__ flag, int* __restrict__ list, int* __restrict__ chunk_rows,
+          int S, int cap, int nchunks) {
+  __shared__ int wsum[SCAN_THREADS / 32];
+  __shared__ int total;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int per = (S + SCAN_THREADS - 1) / SCAN_THREADS;
+  const int s0 = min(S, tid * per), s1 = min(S, s0 + per);
+  int cnt = 0;
+  for (int s = s0; s < s1; ++s) cnt += flag[s] != 0;
+  int inc = cnt;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += v;
+  }
+  if (lane == 31) wsum[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = wsum[lane];
+    int winc = w;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, winc, o);
+      if (lane >= o) winc += v;
+    }
+    wsum[lane] = winc - w;
+    if (lane == 31) total = winc;
+  }
+  __syncthreads();
+  int k = wsum[warp] + inc - cnt;
+  for (int s = s0; s < s1; ++s)
+    if (flag[s]) list[k++] = s;
+  for (int c = tid; c < nchunks; c += SCAN_THREADS)
+    chunk_rows[c] = TM * max(0, min(cap, total - c * cap));
+}
+
+// Grid: a chunk's `cap` list entries; block k copies the x rows of live slot
+// list[k] into rows k TM .. k TM + TM - 1 of the compact operand (rows past t
+// as zeros). Entries past the chunk's live rows (*m_live) return at once.
+__global__ void gather_tiles(const bf16* __restrict__ x, const int* __restrict__ list,
+                             const int* __restrict__ m_live, bf16* __restrict__ Xc, int t,
+                             int d_in) {
+  const int k = blockIdx.x;
+  if (k * TM >= *m_live) return;
+  const int slot = list[k], ntiles = (t + TM - 1) / TM;
+  const int bi = slot / ntiles, tok0 = (slot % ntiles) * TM, rows = min(TM, t - tok0);
+  const bf16* xb = x + ((size_t)bi * t + tok0) * d_in;
+  bf16* xo = Xc + (size_t)k * TM * d_in;
+  const int vpr = d_in / 8;   // 16-byte vectors per row
+  for (int i = threadIdx.x; i < TM * vpr; i += blockDim.x) {
+    const int r = i / vpr, c = (i - r * vpr) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < rows) v = __ldg(reinterpret_cast<const uint4*>(xb + (size_t)r * d_in + c));
+    *reinterpret_cast<uint4*>(xo + (size_t)r * d_in + c) = v;
+  }
+}
+
+// LayerNorm + GELU of W-column rows, a warp per row (8 rows per 256-thread
+// block, no block barrier), rows from *m_live on returning at once: lane l
+// holds the 16-byte chunks l, l + 32, ... of its row, the statistics are two
+// warp sums (mean, then the squared deviations), and the row goes out as
+// bf16 into H (the next product's operand) and, with y32, as f32 back into
+// Z. Rate 0: no dropout, no residuals.
+template <int W>
+__global__ void __launch_bounds__(ROW_THREADS)
+ln_gelu_rows(float* __restrict__ Z, const float* __restrict__ s, const float* __restrict__ sh,
+             bf16* __restrict__ H, int y32, const int* __restrict__ m_live) {
+  constexpr int V = W / 128;   // float4 chunks per lane
+  const long long r = (long long)blockIdx.x * (ROW_THREADS / 32) + (threadIdx.x >> 5);
+  if (r >= *m_live) return;
+  const int lane = threadIdx.x & 31;
+  float* zr = Z + r * W;
+  float z[V][4];
+  float sum = 0.f;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    madeleine::load4(zr + (v * 32 + lane) * 4, z[v]);
+    sum += (z[v][0] + z[v][1]) + (z[v][2] + z[v][3]);
+  }
+  const float mean = madeleine::warp_sum(sum) * (1.f / W);
+  float dev = 0.f;
+#pragma unroll
+  for (int v = 0; v < V; ++v)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dev += (z[v][j] - mean) * (z[v][j] - mean);
+  const float rs = rsqrtf(madeleine::warp_sum(dev) * (1.f / W) + LN_EPS);
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int c = (v * 32 + lane) * 4;
+    float sc[4], shv[4], h[4];
+    madeleine::load4(s + c, sc);
+    madeleine::load4(sh + c, shv);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) h[j] = gelu((z[v][j] - mean) * rs * sc[j] + shv[j]);
+    madeleine::store4(H + r * W + c, h);
+    if (y32) madeleine::store4(zr + c, h);
+  }
+}
+
+template <int W>
+cudaError_t launch_ln_gelu_rows(float* Z, const float* s, const float* sh, bf16* H, int y32,
+                                const int* m_live, int M, cudaStream_t st) {
+  constexpr int rows = ROW_THREADS / 32;
+  ln_gelu_rows<W><<<(M + rows - 1) / rows, ROW_THREADS, 0, st>>>(Z, s, sh, H, y32, m_live);
+  return cudaGetLastError();
+}
+
+// Grid (a chunk's `cap` list entries, nh heads), POOL_THREADS threads;
+// block (k, h) is live slot list[k] (past *m_live: return) in head h. Each
+// token's logit = its `chunks` gate partials added in chunk order + bc + the
+// mask bias; then the tile's softmax-pool partial of y32 (rows k TM .. of
+// Z) as the first design forms it, written at the slot: thread i sums
+// columns 4 i .. 4 i + 3 over the tile's tokens in order.
+constexpr int POOL_THREADS = HID / 4;
+
+__global__ void __launch_bounds__(POOL_THREADS)
+pool_tiles(const float* __restrict__ Z, const float* __restrict__ lpart,
+           const float* __restrict__ bc, const float* __restrict__ bias,
+           const int* __restrict__ list, const int* __restrict__ m_live,
+           float* __restrict__ part_m, float* __restrict__ part_s, float* __restrict__ part_w,
+           int t, int chunks) {
+  __shared__ float logit_s[TM], p_s[TM];
+  const int k = blockIdx.x, h = blockIdx.y, nh = gridDim.y;
+  if (k * TM >= *m_live) return;
+  const int slot = list[k], ntiles = (t + TM - 1) / TM;
+  const int bi = slot / ntiles, tok0 = (slot % ntiles) * TM, rows = min(TM, t - tok0);
+  const int tid = threadIdx.x, lane = tid & 31, E = nh * HID;
+  if (tid < TM) {
+    const float* lp = lpart + ((size_t)(k * TM + tid) * nh + h) * chunks;
+    float l = 0.f;
+    for (int c = 0; c < chunks; ++c) l += lp[c];
+    l += bc[h];
+    if (tid < rows) l += bias[((size_t)bi * t + tok0 + tid) * nh + h];
+    logit_s[tid] = l;
+  }
+  __syncthreads();
+  if (tid < 32) {
+    const float l0 = lane < rows ? logit_s[lane] : -INFINITY;
+    const float l1 = lane + 32 < rows ? logit_s[lane + 32] : -INFINITY;
+    float m = fmaxf(l0, l1);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    const float p0 = lane < rows ? expf(l0 - m) : 0.f;
+    const float p1 = lane + 32 < rows ? expf(l1 - m) : 0.f;
+    p_s[lane] = p0;
+    p_s[lane + 32] = p1;
+    float s = p0 + p1;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) {
+      part_m[(size_t)slot * nh + h] = m;
+      part_s[(size_t)slot * nh + h] = s;
+    }
+  }
+  __syncthreads();
+  const float* y = Z + (size_t)k * TM * E + (size_t)h * HID + 4 * tid;
+  float w[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int r = 0; r < rows; ++r) {
+    float v[4];
+    madeleine::load4(y + (size_t)r * E, v);
+    const float pr = p_s[r];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) w[j] = fmaf(pr, v[j], w[j]);
+  }
+  madeleine::store4(part_w + (size_t)slot * E + (size_t)h * HID + 4 * tid, w);
+}
+
+}  // namespace
+
+// dims: b, t, d_in, nh, e, f, cap (live tiles per chunk), nchunks. p: the
+// pointers of ops/encode_fused.py::encode_fused_cuda, in its order: x, bias,
+// w1, b1, s1, t1, w2, b2, s2, t2, w3, b3, s3, t3, wab, bab (permuted per
+// head), wc, bc, out [b, nh e] bf16; scratch Z [rows, nh e] f32, Hb [rows,
+// max(nh e, 2 e + d_in)] bf16, lpart [rows, nh, f / 64] f32 (rows = TM
+// min(cap, b ntiles)), flag and list [b ntiles] int, chunk_rows [nchunks]
+// int, part_m, part_s [b ntiles nh] f32, part_w [b ntiles nh e] f32.
+// Returns a cudaError_t (cudaErrorInvalidValue for shapes it does not take).
+extern "C" int encode_fused_tiles_forward(void** p, const long long* dims, const float* scales,
+                                          void* stream) {
+  (void)scales;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int b = (int)dims[0], t = (int)dims[1], d_in = (int)dims[2], nh = (int)dims[3];
+  const int e = (int)dims[4], f = (int)dims[5], cap = (int)dims[6], nchunks = (int)dims[7];
+  const int ntiles = (t + TM - 1) / TM, E = nh * HID;
+  const long long S = (long long)b * ntiles;
+  if (e != HID || f != HID || b < 1 || t < 1 || d_in % 8 || nh < 1 || nh > 4 || nh == 3 ||
+      cap < 1 || S >= (1LL << 31) || (long long)TM * cap * E >= (1LL << 31) ||
+      nchunks != (S + cap - 1) / cap)
+    return (int)cudaErrorInvalidValue;
+  const bf16* x = (const bf16*)p[0];
+  const float* bias = (const float*)p[1];
+  const bf16* w[3] = {(const bf16*)p[2], (const bf16*)p[6], (const bf16*)p[10]};
+  const float* bl[3] = {(const float*)p[3], (const float*)p[7], (const float*)p[11]};
+  const float* sl[3] = {(const float*)p[4], (const float*)p[8], (const float*)p[12]};
+  const float* tl[3] = {(const float*)p[5], (const float*)p[9], (const float*)p[13]};
+  const bf16* wab = (const bf16*)p[14];
+  const float *bab = (const float*)p[15], *wc = (const float*)p[16], *bc = (const float*)p[17];
+  bf16* out = (bf16*)p[18];
+  float* Z = (float*)p[19];
+  bf16* Hb = (bf16*)p[20];
+  float* lpart = (float*)p[21];
+  int *flag = (int*)p[22], *list = (int*)p[23], *chunk_rows = (int*)p[24];
+  float *part_m = (float*)p[25], *part_s = (float*)p[26], *part_w = (float*)p[27];
+  const long long rows = (long long)TM * (S < cap ? S : cap);
+  bf16* H1 = Hb;                      // Hb holds in turn: Xc, h1, h2, then y
+  bf16* H2 = Hb + rows * HID;
+  bf16* Xc = Hb + 2 * rows * HID;
+  bf16* Y = Hb;
+  const madeleine::Dropout none{0u, 0u, 1.f};   // the gate epilogue at rate 0
+
+  tile_flags<<<(unsigned)S, ROW_THREADS, 0, st>>>(bias, flag, part_m, part_s, part_w, t, nh);
+  TRAIN_CHECK(cudaGetLastError());
+  live_scan<<<1, SCAN_THREADS, 0, st>>>(flag, list, chunk_rows, (int)S, cap, nchunks);
+  TRAIN_CHECK(cudaGetLastError());
+  for (int c = 0; c < nchunks; ++c) {
+    const long long left = S - (long long)c * cap;
+    const int tiles = (int)(left < cap ? left : cap), M = TM * tiles;
+    const int* live = chunk_rows + c;
+    const int* lst = list + (size_t)c * cap;
+    gather_tiles<<<tiles, ROW_THREADS, 0, st>>>(x, lst, live, Xc, t, d_in);
+    TRAIN_CHECK(cudaGetLastError());
+    const bf16* Ain[3] = {Xc, H1, H2};
+    bf16* Hout[2] = {H1, H2};
+    const int Kl[3] = {d_in, HID, HID}, Nl[3] = {HID, HID, E};
+    for (int i = 0; i < 3; ++i) {
+      const madeleine::WgOperand a{Ain[i], Kl[i], M, Kl[i], 0, 0};
+      const madeleine::WgOperand bw{w[i], Kl[i], Nl[i], Kl[i], 0, 0};
+      madeleine::wg::Params gp = madeleine::wg_params(Z, Nl[i], bl[i], M, Nl[i], Kl[i]);
+      gp.m_live = live;
+      TRAIN_CHECK((madeleine::wg_gemm<false, false, madeleine::wg::EPI_F32>(a, bw, gp, st)));
+      // LN, GELU -> the next product's bf16 operand; layer 3 also leaves y32 in Z
+      TRAIN_CHECK(i < 2       ? launch_ln_gelu_rows<HID>(Z, sl[i], tl[i], Hout[i], 0, live, M, st)
+                  : E == 512  ? launch_ln_gelu_rows<512>(Z, sl[i], tl[i], Y, 1, live, M, st)
+                  : E == 1024 ? launch_ln_gelu_rows<1024>(Z, sl[i], tl[i], Y, 1, live, M, st)
+                              : launch_ln_gelu_rows<2048>(Z, sl[i], tl[i], Y, 1, live, M, st));
+    }
+    // the gate products of every head, the logit partials in the epilogue:
+    // batch h reads y at column h e and the permuted [Wa; Wb]_h at row h 2f
+    {
+      const madeleine::WgOperand a{Y, E, M, E, 0, HID};
+      const madeleine::WgOperand bw{wab, HID, 2LL * nh * f, HID, 2 * f, 0};
+      madeleine::wg::Params gp = madeleine::wg_params(nullptr, 2 * f, bab, M, 2 * f, HID);
+      gp.strideBias = 2LL * f;
+      gp.batches = nh;
+      gp.lpart = lpart; gp.wc = wc;
+      gp.f = f; gp.t = 1;
+      gp.d = none;
+      gp.m_live = live;
+      TRAIN_CHECK((madeleine::wg_gemm<false, false, madeleine::wg::EPI_GATES>(a, bw, gp, st)));
+    }
+    pool_tiles<<<dim3(tiles, nh), POOL_THREADS, 0, st>>>(Z, lpart, bc, bias, lst, live, part_m,
+                                                         part_s, part_w, t, f / 64);
+    TRAIN_CHECK(cudaGetLastError());
+  }
+  return (int)madeleine::launch_pool_combine<bf16>(part_m, part_s, part_w, out, b, ntiles, nh,
+                                                   HID, st);
 }

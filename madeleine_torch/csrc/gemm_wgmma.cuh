@@ -47,7 +47,11 @@
 //     memory as whole-row stores (see the epilogues);
 //   - gridDim = min(tiles, SMs): each block walks the tiles blockIdx.x,
 //     + gridDim.x, ... (batch and split outermost, then m tiles, then n
-//     tiles) with the producer running ahead across tiles.
+//     tiles) with the producer running ahead across tiles;
+//   - with m_live set, the walk covers only the first *m_live rows of M, a
+//     count that an earlier kernel wrote on the device (K1's live token
+//     tiles), so the host never reads it back; rows beyond it are neither
+//     read nor written past their last 64- or 128-row tile.
 //
 // Epilogues: EPI_BF16 (+ bias, rounded to bf16), EPI_F32 (+ bias, then tanh
 // below act_split and sigmoid from there when act_split >= 0, then + C's old
@@ -105,6 +109,7 @@ struct Params {
   const float* bias;          // [N] of batch b at bias + b * strideBias, or null
   long long strideBias;
   int M, N, K;                // per batch
+  const int* m_live;          // or null: the rows of M the walk covers, read on the device
   int batches, splits, kchunk;   // kchunk: k of every split but the last, a multiple of BK
   int a_mn, a_k, b_mn, b_k;   // per-batch coordinate offsets of A and B
   int beta;                   // EPI_F32: C += result
@@ -378,7 +383,8 @@ __device__ __forceinline__ float tanh_fast(float v) {
 // 128-column tile c holds the tanh rows 64 c .. 64 c + 63 in columns 0-63 and
 // the sigmoid rows of the same j in columns 64-127: fragments q and q + 8 of
 // a thread are then a = tanh(.) and g = sigmoid(.) of one (row, j). Writes
-// a_pre / b_pre [M, nh f] bf16 (pre-dropout) and lpart[(row nh + h) f/64 + c]
+// a_pre / b_pre [M, nh f] bf16 (pre-dropout; skipped when ap is null, as in
+// K1's forward, which keeps no residuals) and lpart[(row nh + h) f/64 + c]
 // = sum over the tile's 64 j of drop(a) drop(g) wc[h, j], each thread summing
 // its 16 j in q order, then the quad in a fixed xor order.
 __device__ __forceinline__ void epilogue_gates(const Params& p, float (&d)[64], const Tile& T,
@@ -449,16 +455,19 @@ __device__ __forceinline__ void epilogue_gates(const Params& p, float (&d)[64], 
       const float kb1 = (bbits >> (4 * q + 1)) & 1u ? sc : 0.f;
       part += (a0 * ka0) * (g0 * kb0) * wc[2 * q];
       part += (a1 * ka1) * (g1 * kb1) * wc[2 * q + 1];
-      const __nv_bfloat162 av = __floats2bfloat162_rn(a0, a1);
-      const __nv_bfloat162 gv = __floats2bfloat162_rn(g0, g1);
-      sa[srow * 32 + swz(srow, jj / 2)] = *reinterpret_cast<const uint32_t*>(&av);
-      sg[srow * 32 + swz(srow, jj / 2)] = *reinterpret_cast<const uint32_t*>(&gv);
+      if (p.ap) {
+        const __nv_bfloat162 av = __floats2bfloat162_rn(a0, a1);
+        const __nv_bfloat162 gv = __floats2bfloat162_rn(g0, g1);
+        sa[srow * 32 + swz(srow, jj / 2)] = *reinterpret_cast<const uint32_t*>(&av);
+        sg[srow * 32 + swz(srow, jj / 2)] = *reinterpret_cast<const uint32_t*>(&gv);
+      }
     }
     part += __shfl_xor_sync(0xffffffffu, part, 1);
     part += __shfl_xor_sync(0xffffffffu, part, 2);
     if (row < p.M && lane % 4 == 0)
       p.lpart[((long long)row * nh + h) * (p.f / 64) + chunk] = part;
   }
+  if (!p.ap) return;
   __syncwarp();
   // the warp's 16 rows of a_pre and b_pre: 4 rows of 128 bytes per store
   const int seg = lane % 8;
@@ -488,7 +497,8 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
   const int tid = threadIdx.x, group = tid / 128;
   const int tiles_n = (p.N + BN - 1) / BN;
   constexpr int ROWS = tile_rows<EPI>();
-  const int tiles_mn = (p.M + ROWS - 1) / ROWS * tiles_n;
+  const int M = p.m_live ? min(p.M, max(*p.m_live, 0)) : p.M;
+  const int tiles_mn = (M + ROWS - 1) / ROWS * tiles_n;
   const int tiles = tiles_mn * p.batches * p.splits;
 
   if (tid == 0) {
@@ -642,7 +652,7 @@ inline bool wg_operand_ok(const WgOperand& o, int K) {
 
 // C = epi(A . B^T + bias), batched and split as `p` says (see the header).
 // The caller sets p.C, ldc, strideC, bias, strideBias, M, N, K, batches,
-// splits, beta, act_split and, for EPI_GATES, the gate fields; the launcher
+// splits, beta, act_split, m_live and, for EPI_GATES, the gate fields; the launcher
 // fills the coordinate offsets and kchunk. Returns cudaErrorInvalidValue for
 // anything the kernel cannot take: misaligned or unsupported operands
 // (16-byte aligned bases, row strides a multiple of 8 elements), an odd N,
@@ -660,7 +670,7 @@ inline cudaError_t wg_gemm(const WgOperand& A, const WgOperand& B, wg::Params p,
             (p.splits == 1 || (EPI == wg::EPI_F32 && !p.beta && !p.bias && p.act_split < 0));
   if (EPI == wg::EPI_GATES)
     ok = ok && p.splits == 1 && p.f % 64 == 0 && p.N == 2 * p.f && p.t >= 1 && p.bias &&
-         p.wc && p.lpart && p.ap && p.bp && reinterpret_cast<uintptr_t>(p.ap) % 4 == 0 &&
+         p.wc && p.lpart && !p.ap == !p.bp && reinterpret_cast<uintptr_t>(p.ap) % 4 == 0 &&
          reinterpret_cast<uintptr_t>(p.bp) % 4 == 0;
   if (!ok) return cudaErrorInvalidValue;
   p.a_mn = A.off_mn; p.a_k = A.off_k;

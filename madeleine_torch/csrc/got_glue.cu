@@ -27,20 +27,32 @@
 // peak), K14 4 products (34.9 GFLOP, 0.521 ms): operations. The products
 // stay full f32 FFMA (the loss runs at Precision.HIGHEST; no TF32).
 //
-// Design of K11-K13 (first version, simple and exact): one block of 512
+// Design of K11 and K12 (first version, simple and exact): one block of 512
 // threads per problem, as K8-K10's global routes. K11 and K12 are row passes (a warp per row: lanes
 // stride the row, then a butterfly) and, for K12's column sums of dCst,
 // a column pass (threads across columns in four row groups, summed in order,
 // then the groups in order); the per-row sums live in shared memory and the
-// elementwise outputs follow. K13 runs its products with the FFMA block GEMM
-// of ipot_common.cuh (128 x 64 tiles, 16-deep shared stages, 4 x 4
-// accumulators per thread) at one block per SM, so that a thread may hold
-// 128 registers and the GEMM does not spill. It keeps its first product
-// Cs gamma in a device scratch and folds the second one's epilogue,
-// (Cst - 2 acc) gamma, into a per-thread sum. No atomics: every thread sums
-// its elements in a fixed order, then the block sums the threads in a fixed
-// order (a warp butterfly, then the warps in order), so two launches give
-// bitwise-equal results.
+// elementwise outputs follow.
+//
+// K13 (gwt_fwd_tiles_kernel): two products of 2 n^2 m and 2 n m^2 flops, cut
+// into 128 x 128 output tiles over the whole card, each tile a task of one
+// 256-thread block on gemm_f32.cuh, as K14's. Three launches: phase 1 t1 =
+// Cs gamma [n, m] into a device scratch; phase 2 t1 Ct^T tile by tile (Ct
+// read in place, as K14's P reads it) whose epilogue takes (Cst - 2 acc)
+// gamma and sums it: each thread its 64 outputs in the engine's fixed
+// order, then the block its threads in a fixed order (a warp butterfly,
+// then the warps in order), one partial per tile into part[p, tile]; a
+// third, small launch sums each problem's partials in tile order into
+// out[p]. A ragged edge adds nothing: the engine hands the epilogue no row
+// i >= n, and columns j >= m are skipped before Cst or gamma is read. No
+// atomics, so two launches give bitwise-equal results. At [260, 256, 256]
+// that is 1,040 tasks per phase, about 4 waves of 264 blocks. The first
+// design (gwt_fwd_kernel: one block per problem, both products in series on
+// ipot_common.cuh's block_gemm, 128 x 64 tiles at one block per SM) sums in
+// another order, so the two agree to rounding (1e-5 relative) and not bit
+// for bit; it stays as a check-only entry point, gw_trace_forward_rowblock.
+// The trace is linear in the loss (ops/losses.py adds it), so K14's
+// cotangent, and with it training, does not depend on K13's sum order.
 //
 // K14 (gwt_bwd_tiles_kernel): four products of 2 n m max(n, m) flops each,
 // cut into 128 x 128 output tiles spread over the whole card, each tile a
@@ -329,6 +341,64 @@ gwt_bwd_tiles_kernel(const float* __restrict__ dout, const float* __restrict__ C
   }
 }
 
+// K13's tile tasks of one phase (1: t1 = Cs gamma, 2: the trace partials of
+// t1 Ct^T). (ti, tj) is the tile grid of the [n, m] output; block x is tile
+// x % (ti tj) of problem x / (ti tj), row by row.
+template <int PHASE>
+__global__ void __launch_bounds__(gf::THREADS, 2)
+gwt_fwd_tiles_kernel(const float* __restrict__ Cs, const float* __restrict__ Ct,
+                     const float* __restrict__ Cst, const float* __restrict__ gamma, float* t1,
+                     float* __restrict__ part, int n, int m, int ti, int tj) {
+  extern __shared__ float4 smem4[];
+  __shared__ float red[gf::THREADS / 32];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int per = ti * tj, t = blockIdx.x % per;
+  const size_t p = blockIdx.x / per, nm = (size_t)n * m;
+  const int i0 = (t / tj) * gf::TILE, j0 = (t % tj) * gf::TILE;
+  const float* g = gamma + p * nm;
+  float* T1 = t1 + p * nm;
+  auto nothing = [] {};
+  if (PHASE == 1) {
+    // t1 = Cs gamma [n, m]: X = Cs (i, k), Y(k, j) = gamma[k, j] (N-major)
+    const bool vec = m % 4 == 0 && aligned16(T1);
+    gf::tile_product<true, false>(
+        {Cs + p * n * n, n, 1, n}, {g, 1, m, m}, n, i0, j0, smem, nothing,
+        [&](int i, int j, const float(&v)[4]) { gf::store4(T1, m, i, j, m, 1.f, v, vec); });
+  } else {
+    // the tile's sum of (Cst - 2 t1 Ct^T) o gamma: X = t1 (i, k), Y(k, j) = Ct[j, k]
+    const float* S = Cst + p * nm;
+    float s = 0.f;
+    gf::tile_product<true, true>(
+        {T1, m, 1, n}, {Ct + p * (size_t)m * m, m, 1, m}, m, i0, j0, smem, nothing,
+        [&](int i, int j, const float(&v)[4]) {
+          const size_t e = (size_t)i * m + j;
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (j + c < m) s += (S[e + c] - 2.f * v[c]) * g[e + c];
+        });
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    s = warp_sum(s);
+    if (lane == 0) red[warp] = s;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float tot = 0.f;
+#pragma unroll
+      for (int w = 0; w < gf::THREADS / 32; ++w) tot += red[w];
+      part[blockIdx.x] = tot;
+    }
+  }
+}
+
+// out[p] = sum of problem p's `per` tile partials, in tile order.
+__global__ void gwt_fwd_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                   int per, int b) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= b) return;
+  float s = 0.f;
+  for (int t = 0; t < per; ++t) s += part[(size_t)p * per + t];
+  out[p] = s;
+}
+
 }  // namespace
 
 // Shared memory one block needs, the largest of the four kernels.
@@ -364,10 +434,39 @@ extern "C" int threshold_build_backward(const float* thr, const float* C0, const
   return (int)cudaGetLastError();
 }
 
-// t1: [b, n, m] scratch.
+// K13. t1: [b, n, m] scratch; part: [b, plan[0] plan[1]] scratch, the tile
+// partials. plan: the tile grid (tiles_i, tiles_j) of the [n, m] products;
+// a plan other than 128 x 128 tiles covering them is refused as
+// cudaErrorInvalidValue.
 extern "C" int gw_trace_forward(const float* Cs, const float* Ct, const float* Cst,
-                                const float* gamma, float* t1, float* out, int b, int n, int m,
-                                void* stream) {
+                                const float* gamma, float* t1, float* part, float* out, int b,
+                                int n, int m, const long long* plan, void* stream) {
+  if (plan[0] != gf::tiles(n) || plan[1] != gf::tiles(m)) return (int)cudaErrorInvalidValue;
+  const long long per = plan[0] * plan[1];
+  if ((long long)b * per >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(gwt_fwd_tiles_kernel<1>, gf::SMEM_BYTES);
+  if (err == cudaSuccess) err = allow_smem(gwt_fwd_tiles_kernel<2>, gf::SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = (unsigned)(b * per);
+  gwt_fwd_tiles_kernel<1><<<blocks, gf::THREADS, gf::SMEM_BYTES, st>>>(
+      Cs, Ct, Cst, gamma, t1, part, n, m, (int)plan[0], (int)plan[1]);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  gwt_fwd_tiles_kernel<2><<<blocks, gf::THREADS, gf::SMEM_BYTES, st>>>(
+      Cs, Ct, Cst, gamma, t1, part, n, m, (int)plan[0], (int)plan[1]);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  gwt_fwd_sum_kernel<<<(b + 255) / 256, 256, 0, st>>>(part, out, (int)per, b);
+  return (int)cudaGetLastError();
+}
+
+// The first design of K13 (gwt_fwd_kernel, one block per problem), kept as a
+// check: chip_smoke.py and the GPU tests hold gw_trace_forward's output to
+// it at 1e-5 relative (another sum order). t1: [b, n, m] scratch.
+extern "C" int gw_trace_forward_rowblock(const float* Cs, const float* Ct, const float* Cst,
+                                         const float* gamma, float* t1, float* out, int b,
+                                         int n, int m, void* stream) {
   const size_t smem = sizeof(float) * ((size_t)gemm_smem_floats() + WARPS);
   cudaError_t err = allow_smem(gwt_fwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;

@@ -35,14 +35,14 @@ from torch import nn
 
 from madeleine_torch.ops.attn_pool import (activate_attention, fused_attention_pool,
                                            masked_attention_pool, softmax_pool)
-from madeleine_torch.ops.encode_fused import encode_pool_fused
+from madeleine_torch.ops.encode_fused import encode_pool_fused, kernel_weights
 from madeleine_torch.ops.gated_logits import gated_logits_train
 from madeleine_torch.ops.gated_pool import gated_attention_pool
 from madeleine_torch.ops.preattn import preattn_train
 
 __all__ = ["ABMILEmbedder", "activate_attention", "abmil_embed", "abmil_embed_train",
-           "encoder_weights", "gate_weights", "gated_attention_logits", "layer_norm",
-           "pre_attn_mlp"]
+           "drop_kernel_operands", "encoder_weights", "gate_weights", "gated_attention_logits",
+           "kernel_operands", "layer_norm", "pre_attn_mlp"]
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default
 PRE_ATTN_DROPOUT = 0.1   # ref: Model.py:354,358,362
@@ -115,6 +115,31 @@ def encoder_weights(emb: ABMILEmbedder) -> Dict[str, torch.Tensor]:
     return w
 
 
+def kernel_operands(emb: ABMILEmbedder, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """Kernel K1's operands of `emb` in `dtype` (ops/encode_fused.py::
+    kernel_weights: head-major, cast, the gates permuted), built once per
+    state of the parameters and kept on the module: a served or extracted
+    bag reuses them. An in-place change that bumps a parameter's version
+    (load_state_dict, a multi-tensor optimizer step) rebuilds them; one that
+    bumps none (the fused AdamW step) must be followed by
+    `drop_kernel_operands`, as the trainer does after every update."""
+    key = (dtype, tuple((p.data_ptr(), p._version) for p in emb.parameters()))
+    cached = emb.__dict__.get("_kernel_operands")
+    if cached is None or cached[0] != key:
+        with torch.no_grad():
+            cached = (key, kernel_weights(encoder_weights(emb), dtype))
+        emb.__dict__["_kernel_operands"] = cached
+    return cached[1]
+
+
+def drop_kernel_operands(model: nn.Module) -> None:
+    """Forget the operands `kernel_operands` keeps on every embedder of
+    `model`. The trainer calls it after each update, so an embed after
+    training never rests on the parameters' version counters alone."""
+    for m in model.modules():
+        m.__dict__.pop("_kernel_operands", None)
+
+
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """LayerNorm over the last dim with f32 statistics, cast back to x.dtype."""
     x32 = x.float()
@@ -179,11 +204,12 @@ def abmil_embed(
     return_attention, plus tokens [b, t, nh, e] if return_tokens.
     """
     nh = emb.n_heads
-    w = encoder_weights(emb)
     fused_ok = (bags.is_cuda and activation == "softmax" and not return_attention
                 and not return_tokens)
     if fused_ok and bags.dtype == torch.bfloat16:
-        return encode_pool_fused(w, bags, mask)
+        return encode_pool_fused(kernel_operands(emb, bags.dtype), bags, mask)
+
+    w = encoder_weights(emb)
 
     y = pre_attn_mlp(w, bags)
     xh = y.reshape(*y.shape[:-1], nh, emb.hidden_dim)

@@ -17,11 +17,14 @@ madeleine/utils/loss.py:225-258, 288-292), the route that the JAX package's
 Each is a `torch.autograd.Function`: a CUDA tensor launches the kernels of
 csrc/got_glue.cu (any n, m within the shared-memory limit) or raises; a CPU
 tensor takes the plain versions, the unfused chain, whose backward is
-autograd through them. K14 runs its four products as 128 x 128 tile tasks
-over the whole card (csrc/gemm_f32.cuh), in two launches, on the tile plan
-`gwt_bwd_plan`; the first design's one-block-per-problem kernel stays
-reachable as `gw_trace_bwd_rowblock_cuda`, a check that the tiled outputs
-equal it bit for bit (no path of the port calls it).
+autograd through them. K13 and K14 run their products as 128 x 128 tile
+tasks over the whole card (csrc/gemm_f32.cuh), on the tile plans
+`gwt_fwd_plan` and `gwt_bwd_plan`: K13 in three launches (t1 = Cs gamma,
+then the trace's partial per tile of t1 Ct^T, then each problem's partials
+summed in tile order), K14 in two. The first designs' one-block-per-problem
+kernels stay reachable as `gw_trace_rowblock_cuda` (K13: another sum order,
+equal to 1e-5 relative) and `gw_trace_bwd_rowblock_cuda` (K14: equal bit for
+bit), checks that no path of the port calls.
 """
 
 from __future__ import annotations
@@ -35,8 +38,9 @@ from madeleine_torch.ops import _build
 
 tb_fwd_launches = 0    # K11 launches (one per wrapper call on a CUDA tensor)
 tb_bwd_launches = 0    # K12 launches
-gwt_fwd_launches = 0   # K13 launches
+gwt_fwd_launches = 0   # K13 launches (one per wrapper call: its three launches)
 gwt_bwd_launches = 0   # K14 launches (one per wrapper call: its two phases)
+gwt_fwd_rowblock_launches = 0   # K13's first design, the check-only entry point
 gwt_bwd_rowblock_launches = 0   # K14's first design, the check-only entry point
 
 Glue4 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -95,11 +99,19 @@ def gw_trace_bwd_plain(Cs, Ct, Cst, gamma, dout):
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"threshold_build_forward": [_P] * 8 + [_I] * 3 + [_P],
                "threshold_build_backward": [_P] * 12 + [_I] * 3 + [_P],
-               "gw_trace_forward": [_P] * 6 + [_I] * 3 + [_P],
+               "gw_trace_forward": [_P] * 7 + [_I] * 3 + [_P, _P],
+               "gw_trace_forward_rowblock": [_P] * 6 + [_I] * 3 + [_P],
                "gw_trace_backward": [_P] * 9 + [_I] * 3 + [_P, _P],
                "gw_trace_backward_rowblock": [_P] * 9 + [_I] * 3 + [_P]}
 
-GWT_TILE = 128   # csrc/gemm_f32.cuh TILE: K14's output tiles are GWT_TILE square
+GWT_TILE = 128   # csrc/gemm_f32.cuh TILE: K13's and K14's output tiles are GWT_TILE square
+
+
+def gwt_fwd_plan(n: int, m: int) -> Tuple[int, int]:
+    """K13's tile plan as the wrapper passes it to csrc/got_glue.cu: the tile
+    grid (tiles_i, tiles_j) of both of its [n, m] products, t1 = Cs gamma
+    and t1 Ct^T; one trace partial per tile of the second."""
+    return -(-n // GWT_TILE), -(-m // GWT_TILE)
 
 
 def gwt_bwd_plan(n: int, m: int) -> Tuple[int, ...]:
@@ -154,18 +166,41 @@ def threshold_build_bwd_cuda(C0, Cs0, Ct0, thr, dC, dCs, dCt, dCst) -> Glue4:
     return grads
 
 
-@torch.no_grad()
-def gw_trace_cuda(Cs, Ct, Cst, gamma) -> torch.Tensor:
-    """Launch K13; returns [b] as `gw_trace_plain`. Cs gamma goes to a
-    [b, n, m] scratch allocated here; C_final is never written."""
-    global gwt_fwd_launches
+def _gwt_fwd_operands(Cs, Ct, Cst, gamma):
     b, n, m = Cst.shape
     dev = _check("gw_trace_fwd", [("Cs", "nn", Cs), ("Ct", "mm", Ct), ("Cst", "nm", Cst),
                                   ("gamma", "nm", gamma)], b, n, m)
-    t1 = torch.empty_like(Cst)
-    out = torch.empty(b, dtype=torch.float32, device=dev)
-    _launch("gw_trace_forward", [Cs, Ct, Cst, gamma, t1, out, b, n, m], dev)
+    return dev, torch.empty_like(Cst), torch.empty(b, dtype=torch.float32, device=dev)
+
+
+@torch.no_grad()
+def gw_trace_cuda(Cs, Ct, Cst, gamma) -> torch.Tensor:
+    """Launch K13; returns [b] as `gw_trace_plain`. Cs gamma goes to a
+    [b, n, m] scratch and the trace's tile partials to a [b, tiles] one,
+    both allocated here, the tiles following `gwt_fwd_plan`; C_final is
+    never written."""
+    global gwt_fwd_launches
+    b, n, m = Cst.shape
+    dev, t1, out = _gwt_fwd_operands(Cs, Ct, Cst, gamma)
+    plan = gwt_fwd_plan(n, m)
+    part = torch.empty(b, plan[0] * plan[1], dtype=torch.float32, device=dev)
+    _launch("gw_trace_forward", [Cs, Ct, Cst, gamma, t1, part, out, b, n, m,
+                                 _build._packed("q", plan)], dev)
     gwt_fwd_launches += 1
+    return out
+
+
+@torch.no_grad()
+def gw_trace_rowblock_cuda(Cs, Ct, Cst, gamma) -> torch.Tensor:
+    """K13's first design (one block per problem, its products in series),
+    kept as a check on the card: it sums in another order than
+    `gw_trace_cuda`, which it equals to 1e-5 relative. No path of the port
+    calls it."""
+    global gwt_fwd_rowblock_launches
+    b, n, m = Cst.shape
+    dev, t1, out = _gwt_fwd_operands(Cs, Ct, Cst, gamma)
+    _launch("gw_trace_forward_rowblock", [Cs, Ct, Cst, gamma, t1, out, b, n, m], dev)
+    gwt_fwd_rowblock_launches += 1
     return out
 
 

@@ -14,7 +14,8 @@ from madeleine_torch.ops import (attn_pool, dropout, encode_fused, encoder_train
 
 # kernel name -> (module, counter attribute), in the order of the PERF table
 COUNTERS = {
-    "encode_fused": (encode_fused, "launches"),             # K1
+    "encode_fused": (encode_fused, "launches"),             # K1, the live-tile route
+    "encode_fused_rowtile": (encode_fused, "rowtile_launches"),   # K1's first design
     "gated_pool": (gated_pool, "launches"),                 # K2
     "attn_pool": (attn_pool, "launches"),                   # K3
     "attn_pool_ms": (attn_pool, "pool_ms_launches"),        # 4
@@ -30,6 +31,7 @@ COUNTERS = {
     "threshold_build_fwd": (got_glue, "tb_fwd_launches"),   # K11
     "threshold_build_bwd": (got_glue, "tb_bwd_launches"),   # K12
     "gw_trace_fwd": (got_glue, "gwt_fwd_launches"),         # K13
+    "gw_trace_fwd_rowblock": (got_glue, "gwt_fwd_rowblock_launches"),   # K13's first design
     "gw_trace_bwd": (got_glue, "gwt_bwd_launches"),         # K14
     "gw_trace_bwd_rowblock": (got_glue, "gwt_bwd_rowblock_launches"),   # K14's first design
     "preattn_fwd": (preattn, "fwd_launches"),               # 15

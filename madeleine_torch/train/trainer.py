@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from madeleine_torch.config import HE_POSITION, MadeleineConfig, compute_dtype
+from madeleine_torch.models.abmil import drop_kernel_operands
 from madeleine_torch.models.madeleine import MADELEINE, forward_train
 from madeleine_torch.ops import launches
 from madeleine_torch.ops import losses as L
@@ -167,6 +168,7 @@ class TrainStep:
             for group in self.optimizer.param_groups:
                 group["lr"] = lr
             self.optimizer.step()
+            drop_kernel_operands(model)   # K1's cached operands are stale now
             self.updates += 1
         he = slide[:, HE_POSITION, WHOLE_VIEW_POSITION].detach().float()
         return he, dict(metrics, loss=total.detach(), skipped=not ok, lr=lr)

@@ -6,6 +6,7 @@ machine without them:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -42,23 +43,59 @@ def _bags(device, lengths, t, dtype):
     return x.to(device, dtype), mask.to(device)
 
 
+# K1's shapes: (lengths, t, d_in); "ragged" was the only case before the
+# live-tile route, "t4057" has a partial last tile, "d_in544" the stain-encoded
+# input; the "extract" cases are extraction's calls (262,144 tokens per batch),
+# ragged bags of the bucket and empty padding bags, which run several chunks:
+# bucket 8192 at its batch of 32 (8 chunks, three of them with no live tile)
+# and bucket 1024 at its batch of 64 (2 chunks)
+_EXTRACT = np.random.default_rng(7)
+K1_CASES = {"ragged": ([1000, 613, 0], 1000, 512), "t4057": ([4057, 4033], 4057, 512),
+            "d_in544": ([1000, 613, 0], 1000, 544),
+            "extract_b32": (_EXTRACT.integers(4097, 8193, 24).tolist() + [0] * 8, 8192, 512),
+            "extract_b64": (_EXTRACT.integers(513, 1025, 60).tolist() + [0] * 4, 1024, 512)}
+
+
+@pytest.mark.parametrize("case", list(K1_CASES))
 @pytest.mark.parametrize("wc_scale", [1.0, PEAK_WC_SCALE])
-def test_encode_fused_kernel_matches_plain(cuda_device, wc_scale):
-    """bf16, atol 3e-2 on the bf16 output; a partial last tile and an empty bag.
+def test_encode_fused_kernel_matches_plain(cuda_device, wc_scale, case):
+    """bf16, atol 3e-2 on the bf16 output; a partial last tile, an empty bag
+    and calls that run several chunks, one of them with no live tile.
     At the init's scale the logits spread by well under one unit and the pool
     is nearly uniform; scaling wc spreads them by several units, so a kernel
     whose gates or logits were wrong would miss the bar. The control: the
-    uniform pool (wc = 0) must differ from the peaked one by more than atol."""
+    uniform pool (wc = 0) must differ from the peaked one by more than atol.
+    The call takes the live-tile route (counters), twice bitwise equal; the
+    first design, where its shared memory holds d_in, agrees at the same bar."""
     atol = 3e-2
+    lengths, t, d_in = K1_CASES[case]
+    b = len(lengths)
     model = _model(cuda_device)
     w = ef.kernel_weights(encoder_weights(model.wsi_embedders), torch.bfloat16)
     w["wc"] = w["wc"] * wc_scale
-    x, mask = _bags(cuda_device, [1000, 613, 0], 1000, torch.bfloat16)
-    bias = mask_bias(mask, 3, 1000, 4, cuda_device)
+    if d_in != 512:
+        g = torch.Generator().manual_seed(5)
+        w["w1"] = (torch.randn(512, d_in, generator=g) / d_in ** 0.5).to(cuda_device,
+                                                                           torch.bfloat16)
+    x = torch.randn(b, t, d_in, generator=torch.Generator().manual_seed(1))
+    x = x.to(cuda_device, torch.bfloat16)
+    mask = (torch.arange(t)[None, :] < torch.as_tensor(lengths)[:, None]).to(cuda_device)
+    bias = mask_bias(mask, b, t, 4, cuda_device)
+    if case.startswith("extract"):
+        rows = ef.live_tiles_plain(bias)[2].tolist()
+        assert ef.chunk_plan(b, t)[2] > 1 and sum(r > 0 for r in rows) > 1
+        assert case != "extract_b32" or min(rows) == 0
+    before = (ef.launches, ef.rowtile_launches)
     got = ef.encode_fused_cuda(x, bias, w)
+    assert (ef.launches, ef.rowtile_launches) == (before[0] + 1, before[1])
+    assert torch.equal(got, ef.encode_fused_cuda(x, bias, w))
     want = ef.encode_pool_fused_plain(x, bias, w)
     assert (got.float() - want.float()).abs().max().item() <= atol
-    assert (got[2] == 0).all()
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert (got[i] == 0).all()
+    first = ef.encode_fused_rowtile_cuda(x, bias, w)
+    assert (first.float() - want.float()).abs().max().item() <= atol
     if wc_scale != 1.0:
         uniform = ef.encode_pool_fused_plain(x, bias, dict(w, wc=torch.zeros_like(w["wc"])))
         assert (uniform.float() - want.float()).abs().max().item() > atol
@@ -95,6 +132,37 @@ def test_abmil_embed_routes_cuda_tensors_through_the_kernels(cuda_device, dtype,
     want = abmil_embed(_model("cpu").wsi_embedders, x.float().cpu(), mask=mask.cpu())
     torch.testing.assert_close(got.float().cpu(), want, rtol=1e-4 if atol < 1e-4 else 0,
                                atol=atol)
+
+
+def test_kernel_operands_rebuild_after_an_optimizer_step(cuda_device):
+    """K1's operands are cached per weight state (abmil.kernel_operands). The
+    trainer's AdamW (make_optimizer; the multi-tensor kernels on the card)
+    changes the parameters in place: the cache must then rebuild, and an
+    embed must equal one from operands built fresh, bit for bit."""
+    from madeleine_torch.models.abmil import kernel_operands
+    from madeleine_torch.train.optim import make_optimizer
+
+    model = _model(cuda_device)
+    emb = model.wsi_embedders
+    x, mask = _bags(cuda_device, [700, 64], 700, torch.bfloat16)
+    first = kernel_operands(emb, torch.bfloat16)
+    before = abmil_embed(emb, x, mask=mask)
+    opt, _ = make_optimizer(MadeleineConfig(precision="bfloat16").finalize(),
+                            emb.parameters(), 10)
+    for group in opt.param_groups:
+        group["lr"] = 1e-3
+    g = torch.Generator().manual_seed(3)
+    for p in emb.parameters():
+        p.grad = torch.randn(p.shape, generator=g).to(cuda_device)
+    opt.step()
+    second = kernel_operands(emb, torch.bfloat16)
+    assert second is not first
+    fresh = ef.kernel_weights(encoder_weights(emb), torch.bfloat16)
+    for k, v in fresh.items():
+        assert torch.equal(second[k], v), k
+    got = abmil_embed(emb, x, mask=mask)
+    assert torch.equal(got, ef.encode_pool_fused(fresh, x, mask))
+    assert not torch.equal(got, before)
 
 
 def test_kernels_raise_instead_of_falling_back(cuda_device):
@@ -300,7 +368,9 @@ def test_glue_kernels_match_plain(cuda_device):
     Frobenius per output: 1e-6 for K11 and K12's dC0/dCs0/dCt0, 1e-5 for
     K12's dthr and for K13/K14; a second launch of each is bitwise equal.
     K14 is also held bit for bit against its first design (the row-block
-    entry point) there and at the ragged (5, 100, 320)."""
+    entry point) there and at the ragged (5, 100, 320); K13 (its tiled
+    route, read from the counters) against its first design at 1e-5 at both
+    shapes, and against its plain version at the ragged one."""
     from madeleine_torch.ops import got_glue as G
 
     X0, thr, gamma = _glue_inputs(cuda_device, 7, 256, 192)
@@ -317,9 +387,13 @@ def test_glue_kernels_match_plain(cuda_device):
                                G.threshold_build_bwd_plain(*X0, thr, *cots)):
         assert _rel(got, want) <= (1e-5 if name == "dthr" else 1e-6), name
     _, Cs, Ct, Cst = outs
+    counts = lambda: (G.gwt_fwd_launches, G.gwt_fwd_rowblock_launches)
+    before = counts()
     out = G.gw_trace_cuda(Cs, Ct, Cst, gamma)
     assert torch.equal(out, G.gw_trace_cuda(Cs, Ct, Cst, gamma))
+    assert counts() == (before[0] + 2, before[1])
     assert _rel(out, G.gw_trace_plain(Cs, Ct, Cst, gamma)) <= 1e-5
+    assert _rel(out, G.gw_trace_rowblock_cuda(Cs, Ct, Cst, gamma)) <= 1e-5
     dout = torch.randn(7, generator=g).to(cuda_device)
     grads = G.gw_trace_bwd_cuda(Cs, Ct, gamma, dout)
     again = G.gw_trace_bwd_cuda(Cs, Ct, gamma, dout)
@@ -330,6 +404,10 @@ def test_glue_kernels_match_plain(cuda_device):
                for a, b in zip(grads, G.gw_trace_bwd_rowblock_cuda(Cs, Ct, gamma, dout)))
     X0, thr, gamma = _glue_inputs(cuda_device, 5, 100, 320, seed=3)
     _, Cs, Ct, Cst = G.threshold_build_cuda(*X0, thr)
+    out = G.gw_trace_cuda(Cs, Ct, Cst, gamma)
+    assert torch.equal(out, G.gw_trace_cuda(Cs, Ct, Cst, gamma))
+    assert _rel(out, G.gw_trace_plain(Cs, Ct, Cst, gamma)) <= 1e-5
+    assert _rel(out, G.gw_trace_rowblock_cuda(Cs, Ct, Cst, gamma)) <= 1e-5
     dout = torch.randn(5, generator=g).to(cuda_device)
     grads = G.gw_trace_bwd_cuda(Cs, Ct, gamma, dout)
     for got, want in zip(grads, G.gw_trace_bwd_plain(Cs, Ct, Cst, gamma, dout)):

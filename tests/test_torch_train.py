@@ -220,6 +220,21 @@ def test_skipped_step_changes_nothing(case):
         assert float(metrics["loss"]) == 0.0
 
 
+def test_an_update_drops_the_cached_kernel_operands():
+    """After an applied update the step forgets K1's operands
+    (abmil.kernel_operands), so the next embed builds them from the new
+    weights whatever optimizer made the update."""
+    from madeleine_torch.models.abmil import kernel_operands
+
+    model, step = _port_step()
+    emb = model.wsi_embedders
+    kernel_operands(emb, torch.bfloat16)
+    batch = train_batch(np.random.default_rng(1), bs=4, n_mod=3, t=8, d=64)
+    _, metrics = step(batch, seed=0)
+    assert not metrics["skipped"] and step.updates == 1
+    assert "_kernel_operands" not in emb.__dict__
+
+
 def test_train_loop_loss_falls_on_a_correlated_set():
     """Stain bags share a per-case signal with their H&E bag: a few epochs of
     train_loop (with dropout on) lower the epoch loss; the rank is finite."""

@@ -20,7 +20,7 @@ from madeleine_torch.config import HE_POSITION, MadeleineConfig
 from madeleine_torch.models.abmil import encoder_weights, pre_attn_mlp
 from madeleine_torch.models.factory import params_from_jax
 from madeleine_torch.models.madeleine import MADELEINE, _append_stain_encoding, _project
-from madeleine_torch.ops.encode_fused import encode_pool_fused
+from madeleine_torch.ops.encode_fused import encode_pool_fused, kernel_weights
 from madeleine_torch.ops.gated_pool import gated_attention_pool
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
@@ -84,7 +84,7 @@ def kernel_route_encode(model: MADELEINE, feats: torch.Tensor, *, stain_idx: int
     emb = model.wsi_embedders
     w = encoder_weights(emb)
     if feats.dtype == torch.bfloat16:
-        pooled = encode_pool_fused(w, feats, mask)
+        pooled = encode_pool_fused(kernel_weights(w, feats.dtype), feats, mask)
     else:
         y = pre_attn_mlp(w, feats)
         pooled = gated_attention_pool(
