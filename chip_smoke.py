@@ -67,8 +67,13 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            version at dropout rates 0 and (0.1, 0.25), row offset 3, at the
            train step's call shape [65, 2048], at b=8, t=4096 and at b=2,
            t=4057 (partial last tiles), and preattn's dx at [65, 2048, 544]:
-           outputs at atol 3e-2, gradients at 1e-2 relative Frobenius, two
-           launches of each bitwise equal; then at (0.1, 0.25) the chain
+           outputs at atol 3e-2, gradients at 1e-2 relative Frobenius (16
+           and 18's dx / dy also measured elementwise against atol 3e-2, or
+           one bf16 rounding step where larger), two launches of each
+           bitwise equal; 16 and 18 (on the wgmma GEMM) also against their
+           first designs (preattn_bwd_rowblock_cuda,
+           gated_logits_bwd_rowblock_cuda) at the same bars, each twice
+           bitwise equal; then at (0.1, 0.25) the chain
            preattn -> gated_logits -> plain softmax pool -> linear_tok through
            autograd against K6/K7 on the same x, seed and rows (pooled 2e-3,
            tokens 3e-2, every weight gradient 1e-2, bc 1e-4 absolute): the
@@ -77,7 +82,8 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            bitwise equal, and a misaligned y must raise. Timed at [65, 2048]
            beside their plain versions and, for linear_tok's forward,
            torch.nn.functional.linear, with kernel 19's TB/s and TFLOP/s and
-           both calls' device time launched back to back
+           both calls' device time launched back to back; 16 and 18 beside
+           their first designs, per call and back to back
   golden   flagship weights saved as model.pt + model_config.json, loaded by
            create_model_from_pretrained; encode_he against
            tests/golden/golden_flagship.npz in f32 (through K2) and bf16 (K1);
@@ -195,7 +201,9 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            (kernels 15-20 and K8-K14 on every step), and with
            MADELEINE_NO_FUSED_ENCODER=1, 1 epoch (rows 4-5, 15-20, K8-K14)
   profile  torch.profiler device time by kernel of one K6 and one K7 call at
-           [65, 2048], of one full-width train step of each objective (and
+           [65, 2048] and of kernels 16 and 18 alone at that shape (none of
+           the four may launch the mma.sync GEMM), of one full-width train
+           step of each objective (and
            of the no-fused GOT step) and of
            one full-width eval forward, with their device idle share; each read from a second
            profiled window after a warm-up window (a first window can lose
@@ -365,9 +373,10 @@ def reset_counts():
 
 # kernels no path of the port launches: K8-K10's global routes (problems
 # beyond a cluster's shared memory, never on a path's 256 x 256 problems)
-# and the first designs of K1, K13 and K14, kept as checks
+# and the first designs of K1, K13, K14 and rows 16 and 18, kept as checks
 OFF_PATH = ("ipot_fwd_global", "ipot_bwd_global", "gw_gamma_global", "gw_trace_bwd_rowblock",
-            "gw_trace_fwd_rowblock", "encode_fused_rowtile")
+            "gw_trace_fwd_rowblock", "encode_fused_rowtile", "preattn_bwd_rowblock",
+            "gated_logits_bwd_rowblock")
 
 
 def _check_off_path(counts, where):
@@ -1962,14 +1971,51 @@ def _bf16_ulp(torch, v):
     return torch.ldexp(torch.ones_like(v), torch.frexp(v).exponent - 8)
 
 
+# kernels 16 and 18: their input gradients (dx, dy), bf16, are also measured
+# elementwise against OUT_ATOL, or one bf16 rounding step of the reference
+# value where larger, and reported; their bar stays GRAD_RTOL relative
+# Frobenius, as for every gradient: dx = bf16(bf16(dz1) . W1) carries the
+# rounding of dz1 before its product, and at d_in 544 dx misses the
+# elementwise bar by 4% in both designs (an error of 0.03125 where the bar is
+# 0.03; an H100 at 700 W)
+ELEMENTWISE_GRADS = ("preattn_bwd", "gated_logits_bwd")
+
+
+def _backward_errs(torch, name, where, got, want):
+    """A backward's outputs against a reference's: each at GRAD_RTOL
+    relative Frobenius; for ELEMENTWISE_GRADS dx / dy's largest error over
+    the elementwise bar is reported beside. Returns {"max_abs_err",
+    "grad_rel_fro", ["input_grad_err_over_bar"], "ok"}."""
+    errs, abs_err = {}, 0.0
+    for k in want:
+        a, b = got[k].float(), want[k].float()
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{name} {where}: non-finite {k}")
+        abs_err = max(abs_err, (a - b).abs().max().item())
+        errs[k] = _rel_fro(a, b)
+    rep = {"max_abs_err": abs_err, "grad_rel_fro": errs}
+    ok = max(errs.values()) <= GRAD_RTOL
+    if name in ELEMENTWISE_GRADS:
+        over = 0.0
+        for k in ("x", "y"):
+            if k in want:
+                a, b = got[k].float(), want[k].float()
+                bar = torch.maximum(_bf16_ulp(torch, b), torch.full_like(b, OUT_ATOL))
+                over = max(over, ((a - b).abs() / bar).max().item())
+        rep["input_grad_err_over_bar"] = over
+    rep["ok"] = ok
+    return rep
+
+
 def _check_perop(torch, calls, where):
     """Each kernel of `calls` twice (bitwise equal) against its plain version:
     a forward's output at OUT_ATOL, or for a bf16 output one bf16 rounding
     step of the plain value where that is larger (preattn's y reaches |y| of
     4-8, where a rounding flip from another f32 summation order is 0.031); a
     backward's outputs (dx / dy and the f32 parameter gradients) at
-    GRAD_RTOL relative Frobenius. Returns {kernel: {"max_abs_err", and for a
-    forward "max_err_over_bar", for a backward "grad_rel_fro"}}."""
+    GRAD_RTOL relative Frobenius, kernels 16 and 18's dx / dy also measured
+    elementwise (`_backward_errs`). Returns {kernel: {"max_abs_err", and for
+    a forward "max_err_over_bar", for a backward "grad_rel_fro"}}."""
     rep = {}
     for name, (kern, plain, args, kw) in calls.items():
         got, again = kern(*args, **kw), kern(*args, **kw)
@@ -1980,25 +2026,46 @@ def _check_perop(torch, calls, where):
             got, again, want = {"out": got}, {"out": again}, {"out": want}
         if set(got) != set(want) or not all(torch.equal(got[k], again[k]) for k in got):
             raise AssertionError(f"{name} {where}: two launches differ, or outputs {sorted(got)}")
-        errs, abs_err = {}, 0.0
-        for k in want:
-            a, b = got[k].float(), want[k].float()
-            if not torch.isfinite(a).all():
-                raise AssertionError(f"{name} {where}: non-finite {k}")
-            abs_err = max(abs_err, (a - b).abs().max().item())
-            errs[k] = _rel_fro(a, b)
         if name.endswith("_fwd"):
             a, b = got["out"].float(), want["out"].float()
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"{name} {where}: non-finite out")
             bar = (torch.maximum(_bf16_ulp(torch, b), torch.full_like(b, OUT_ATOL))
                    if got["out"].dtype == torch.bfloat16 else OUT_ATOL)
             over = ((a - b).abs() / bar).max().item()
-            ok = over <= 1.0
-            rep[name] = {"max_abs_err": abs_err, "max_err_over_bar": over}
+            rep[name] = {"max_abs_err": (a - b).abs().max().item(), "max_err_over_bar": over,
+                         "ok": over <= 1.0}
         else:
-            ok = max(errs.values()) <= GRAD_RTOL
-            rep[name] = {"max_abs_err": abs_err, "grad_rel_fro": errs}
-        rep[name]["ok"] = ok
+            rep[name] = _backward_errs(torch, name, where, got, want)
         del got, again, want
+    return rep
+
+
+def _first_designs():
+    """{kernel: its first design}: rows 16 and 18 as first built (the
+    mma.sync GEMM), kept as check-only entry points."""
+    from madeleine_torch.ops import gated_logits as gl
+    from madeleine_torch.ops import preattn as pa
+
+    return {"preattn_bwd": pa.preattn_bwd_rowblock_cuda,
+            "gated_logits_bwd": gl.gated_logits_bwd_rowblock_cuda}
+
+
+def _check_first_designs(torch, calls, where):
+    """Rows 16 and 18 of `calls` against their first designs on the same
+    inputs, at the plain versions' bars (`_backward_errs`); each first design
+    twice, bitwise equal. Returns {kernel: errors, "ok"}."""
+    rep = {}
+    for name, first in _first_designs().items():
+        if name not in calls:
+            continue
+        kern, _, args, kw = calls[name]
+        got, ref, again = kern(*args, **kw), first(*args, **kw), first(*args, **kw)
+        torch.cuda.synchronize()
+        if set(ref) != set(got) or not all(torch.equal(ref[k], again[k]) for k in ref):
+            raise AssertionError(f"{name} first design {where}: two launches differ")
+        rep[name] = _backward_errs(torch, name, f"{where} against its first design", got, ref)
+        del got, ref, again
     return rep
 
 
@@ -2188,7 +2255,7 @@ def phase_perop_kernels(state):
             torch.bfloat16)
 
     w = operands()
-    checks, errs = {}, {k: 0.0 for k in PEROP_KERNELS}
+    checks, firsts, errs = {}, {}, {k: 0.0 for k in PEROP_KERNELS}
     step_calls = None
     for shape in PEROP_SHAPES:
         x = inputs(*shape)
@@ -2196,6 +2263,7 @@ def phase_perop_kernels(state):
             where = f"{list(shape)} {rates}"
             calls = _perop_calls(torch, w, x, rates, gen)
             checks[where] = _check_perop(torch, calls, where)
+            firsts[where] = _check_first_designs(torch, calls, where)
             if shape == PEROP_STEP_SHAPE and rates == real:
                 step_calls = calls
             else:
@@ -2204,9 +2272,10 @@ def phase_perop_kernels(state):
     # the stain-encoded call: d_in 544 with preattn's dx
     w_se = operands(stain_encoding=True)
     x_se = inputs(*PEROP_STEP_SHAPE, 544)
-    se_calls = _perop_calls(torch, w_se, x_se, real, gen, need_dx=True)
-    checks["step_call_544_dx"] = _check_perop(
-        torch, {"preattn_bwd": se_calls["preattn_bwd"]}, "d_in 544")
+    se_calls = {"preattn_bwd": _perop_calls(torch, w_se, x_se, real, gen,
+                                            need_dx=True)["preattn_bwd"]}
+    checks["step_call_544_dx"] = _check_perop(torch, se_calls, "d_in 544")
+    firsts["step_call_544_dx"] = _check_first_designs(torch, se_calls, "d_in 544")
     del se_calls, x_se, w_se
     edges = _check_linear_tok_edges(torch, np.random.default_rng(SEED + 19))
     for rep in checks.values():
@@ -2235,6 +2304,16 @@ def phase_perop_kernels(state):
         times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                        "share_of_bound": bound / ms, "gflop": work[name][0] / 1e9,
                        "gb": work[name][1] / 1e9}
+        first = _first_designs().get(name)
+        if first:   # rows 16 and 18: both designs in this call, per call and back to back
+            tm = times[name]
+            tm["first_design_ms"] = cuda_ms(lambda: first(*args, **kw))
+            tm["first_design_share_of_bound"] = bound / tm["first_design_ms"]
+            tm["device_ms_back_to_back"] = cuda_ms_back_to_back(lambda: kern(*args, **kw),
+                                                                calls=20)
+            tm["first_design_device_ms_back_to_back"] = cuda_ms_back_to_back(
+                lambda: first(*args, **kw), calls=20)
+            tm["tflop_per_s"] = tm["gflop"] / tm["ms"]
     y, wt, bt = step_calls["linear_tok_fwd"][2]
     lt_fwd = step_calls["linear_tok_fwd"][0]
     bt16 = bt.to(torch.bfloat16)
@@ -2256,11 +2335,15 @@ def phase_perop_kernels(state):
             "library_ms": tm.get("library_ms")}
     emit({"phase": "perop_kernels", "atol_out": OUT_ATOL, "grad_rtol_fro": GRAD_RTOL,
           "pooled_atol": POOLED_ATOL, "bc_atol": BC_ATOL, "checks": checks,
+          "checks_against_first_designs": firsts,
           "pre_chain_rtol_fro": PRE_CHAIN_RTOL, "chain_vs_k6_k7": chain,
           "times_shape": PEROP_STEP_SHAPE, "times": times, "f_linear_vs_kernel_max_abs": lib_err,
           "linear_tok_fwd_edges": edges})
-    failed = [(where, k) for where, rep in checks.items() for k, r in rep.items()
-              if not r["ok"]] + [("linear_tok_fwd", k) for k, r in edges.items() if not r["ok"]]
+    failed = ([(where, k) for where, rep in checks.items() for k, r in rep.items()
+               if not r["ok"]]
+              + [(where, f"{k} against its first design") for where, rep in firsts.items()
+                 for k, r in rep.items() if not r["ok"]]
+              + [("linear_tok_fwd", k) for k, r in edges.items() if not r["ok"]])
     control_missed = set(chain["control_rows_shifted"]["failed"])
     if (failed or chain["real"]["failed"]
             or not {"pooled_err"} | set(PRE_KEYS) <= control_missed):
@@ -3234,6 +3317,27 @@ def phase_profile(state):
                          "wgmma_gemm_ms": sum(ms for k, _, ms in rows if "wg::gemm_kernel" in k),
                          "mma_sync_gemm_launches": 0,
                          "by_kernel_ms": [[k, c, ms] for k, c, ms in rows[:16]]}
+        # rows 16 and 18 alone at the same call shape, the real rates: every
+        # product on the TMA + wgmma GEMM, and what sets their pace
+        from madeleine_torch.ops import gated_logits as gl
+        from madeleine_torch.ops import preattn as pa
+
+        y = pa.preattn_fwd_cuda(x, w, 1, 0, rates[0])
+        dy = torch.randn(65, 2048, y.shape[-1], generator=g, device="cuda").to(torch.bfloat16)
+        dl = torch.randn(65, 2048, w["wa"].shape[0], generator=g, device="cuda")
+        for name, fn in (("preattn_bwd", lambda: pa.preattn_bwd_cuda(x, dy, w, 1, 0, rates[0])),
+                         ("gated_logits_bwd",
+                          lambda: gl.gated_logits_bwd_cuda(y, dl, w, 1, 0, rates[1]))):
+            fn()
+            rows = _profiled(torch, fn)
+            left = [[k, c, ms] for k, c, ms in rows if "gemm_bf16_kernel" in k]
+            if left:
+                raise AssertionError(f"profile: {name} still launches the mma.sync GEMM: {left}")
+            out[name] = {"total_ms": sum(r[2] for r in rows),
+                         "wgmma_gemm_ms": sum(ms for k, _, ms in rows if "wg::gemm_kernel" in k),
+                         "mma_sync_gemm_launches": 0,
+                         "by_kernel_ms": [[k, c, ms] for k, c, ms in rows[:16]]}
+        del y, dy, dl
     del x, w
     # one full-width train step of each objective (after two unprofiled
     # ones): device time by kernel against the step's wall time on the
@@ -3258,8 +3362,9 @@ def phase_profile(state):
 
             rows = _profiled(torch, one_step)
         busy, wall = sum(r[2] for r in rows), start.elapsed_time(end)
-        # rows 15-18 and 20 (the no-fused step's per-op kernels) stay on the
-        # mma.sync GEMM; the fused steps launch it nowhere
+        # rows 15, 17 and 20 (the no-fused step's per-op forward kernels and
+        # the token projector's backward) stay on the mma.sync GEMM; the fused
+        # steps launch it nowhere
         mma = sum(c for k, c, _ in rows if "gemm_bf16_kernel" in k)
         if (mma > 0) != no_fused:
             raise AssertionError(f"profile: {name} launched the mma.sync GEMM {mma} times")

@@ -19,12 +19,21 @@
 // input and the weight gradients), against 4-8 KB of traffic per token:
 // the dense bf16 rate bounds both.
 //
-// Design (simple first): K6's batched gate GEMM with tanh / sigmoid in the
-// epilogue and its gate row kernel, K7's gate adjoint (train_rows.cuh) on
-// the recomputed f32 products; the input gradient is one batched GEMM over
-// the concatenated [dza | dzb] against [Wa; Wb] per head. Parameter
-// gradients are split-K partials and per-tile column partials summed in a
-// fixed order: no atomics, launches are bitwise reproducible.
+// Design of the backward (kernel 18, redesigned for Hopper): the recompute
+// and the gate adjoint are one batched launch of the TMA + wgmma GEMM of
+// gemm_wgmma.cuh (64-row tiles, the heads as coordinates) on [Wa; Wb]_h in
+// K6's permuted row order (ops/encoder_train.py::permute_gates), whose
+// epilogue (epilogue_gates_bwd) forms a, g, their dropout and dza, dzb from
+// dl and wc, writes DZG [M, nh*2f] bf16 in the natural [dza | dzb] order
+// and the per-64-row-tile column partials of dwc, dba and dbb: the f32
+// gate products never reach memory. Then dy = DZG . [Wa; Wb] and dW[a|b] =
+// DZG^T y on the same GEMM, as K7's. Parameter gradients are split-K
+// partials and per-tile column partials summed in a fixed order: no
+// atomics, launches are bitwise reproducible. The first design (the f32
+// gate products on the mma.sync GEMM of gemm_bf16.cuh, K7's gate_bwd pass
+// over them, the two products on the same GEMM) stays as the check-only
+// entry point gated_logits_backward_rowblock; the forward (kernel 17) is
+// still that design.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,16 +86,77 @@ extern "C" int gated_logits_forward(void** p, const long long* dims, const float
 extern "C" void gated_logits_bwd_workspace(const long long* dims, long long* out) {
   const float one = 1.f;
   const Dims D = dims_of(dims, &one);
-  out[0] = madeleine::wgrad_work_floats(2 * D.f, D.e, D.M, D.nh);
+  out[0] = madeleine::wgrad_work<madeleine::Gemm::WGMMA>(2 * D.f, D.e, D.M, D.nh);
   out[1] = (long long)madeleine::row_tiles(D.M) * 3 * D.nh * D.f;
 }
 
-// dims as gated_logits_forward. p: y, dl [M, nh] f32, wab, bab, wc, then
-// the outputs dy [M, nh*e] bf16, dwab [nh, 2f, e], dbab [nh, 2f], dwc
-// [nh, f] (f32), then scratch G [M, nh*2f] f32, DZG [M, nh*2f] bf16 and the
-// two workspaces of gated_logits_bwd_workspace. Returns a cudaError_t.
+// dims as gated_logits_forward. p: y, dl [M, nh] f32, wabp [nh, 2f, e] bf16
+// and babp [nh, 2f] f32 (per head [Wa; Wb] and [ba; bb] in K6's permuted
+// row order), wab [nh, 2f, e] bf16 (the natural order), wc, then the
+// outputs dy [M, nh*e] bf16, dwab [nh, 2f, e], dbab [nh, 2f], dwc [nh, f]
+// (f32), then scratch DZG [M, nh*2f] bf16 and the two workspaces of
+// gated_logits_bwd_workspace. Returns a cudaError_t (cudaErrorInvalidValue
+// where the wgmma GEMM refuses an operand).
 extern "C" int gated_logits_backward(void** p, const long long* dims, const float* scales,
                                      void* stream_) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream_);
+  const Dims D = dims_of(dims, scales);
+  const int nh = D.nh, e = D.e, f = D.f, M = D.M;
+  const bf16* y = (const bf16*)p[0];
+  const float* dl = (const float*)p[1];
+  const bf16* wabp = (const bf16*)p[2];
+  const float* babp = (const float*)p[3];
+  const bf16* wab = (const bf16*)p[4];
+  const float* wc = (const float*)p[5];
+  bf16* dy = (bf16*)p[6];
+  float *dwab = (float*)p[7], *dbab = (float*)p[8], *dwc = (float*)p[9];
+  bf16* DZG = (bf16*)p[10];
+  float *work = (float*)p[11], *part = (float*)p[12];
+  const long long ldp = 3LL * nh * f;
+  const int ntr = madeleine::row_tiles(M);
+  using madeleine::Gemm;
+  // the gates recomputed and their adjoint, per head h: batch h reads y at
+  // column h e and the permuted [Wa; Wb]_h at row h 2f
+  const madeleine::WgOperand a{y, D.E, M, D.E, 0, e};
+  const madeleine::WgOperand bw{wabp, e, 2LL * nh * f, e, 2 * f, 0};
+  madeleine::wg::Params gp = madeleine::wg_params(DZG, 2LL * nh * f, babp, M, 2 * f, e);
+  gp.strideBias = 2LL * f;
+  gp.batches = nh;
+  gp.wc = wc; gp.dl = dl;
+  gp.lpart = part; gp.ld_part = ldp;
+  gp.f = f; gp.t = D.t; gp.row_offset = D.row_offset;
+  gp.d = D.d;
+  cudaError_t err = madeleine::wg_gemm<false, false, madeleine::wg::EPI_GATES_BWD>(a, bw, gp, st);
+  if (err != cudaSuccess) return (int)err;
+  if ((err = madeleine::colsum_reduce(part, ldp, 0, nh * f, ntr, dwc, st)) != cudaSuccess)
+    return (int)err;
+  if ((err = madeleine::colsum_reduce(part, ldp, nh * f, 2 * nh * f, ntr, dbab, st)) !=
+      cudaSuccess)
+    return (int)err;
+  // dy_h = [dza | dzb]_h . [Wa; Wb]_h: both branches in one f32 sum, cast once
+  if ((err = madeleine::dgrad<Gemm::WGMMA, bf16>(DZG, 2LL * nh * f, 2LL * f, wab, e,
+                                                 2LL * f * e, dy, D.E, e, M, e, 2 * f, nh, 0,
+                                                 st)) != cudaSuccess)
+    return (int)err;
+  // dW[a|b]_h = DZG_h^T y_h
+  return (int)madeleine::wgrad<Gemm::WGMMA>(DZG, 2LL * nh * f, 2LL * f, y, D.E, e, 2 * f, e, M,
+                                            nh, dwab, work, st);
+}
+
+// The first design of the backward, kept as a check (no path calls it).
+extern "C" void gated_logits_bwd_rowblock_workspace(const long long* dims, long long* out) {
+  const float one = 1.f;
+  const Dims D = dims_of(dims, &one);
+  out[0] = madeleine::wgrad_work<madeleine::Gemm::MMA_SYNC>(2 * D.f, D.e, D.M, D.nh);
+  out[1] = (long long)madeleine::row_tiles(D.M) * 3 * D.nh * D.f;
+}
+
+// dims as gated_logits_forward. p: y, dl [M, nh] f32, wab, bab, wc (the
+// natural order), then the outputs as gated_logits_backward's, then scratch
+// G [M, nh*2f] f32, DZG [M, nh*2f] bf16 and the two workspaces of
+// gated_logits_bwd_rowblock_workspace. Returns a cudaError_t.
+extern "C" int gated_logits_backward_rowblock(void** p, const long long* dims,
+                                              const float* scales, void* stream_) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream_);
   const Dims D = dims_of(dims, scales);
   const int nh = D.nh, e = D.e, f = D.f, M = D.M;
@@ -113,13 +183,11 @@ extern "C" int gated_logits_backward(void** p, const long long* dims, const floa
   if ((err = madeleine::colsum_reduce(part, ldp, nh * f, 2 * nh * f, ntr, dbab, st)) !=
       cudaSuccess)
     return (int)err;
-  // dy_h = [dza | dzb]_h . [Wa; Wb]_h: both branches in one f32 sum, cast once
   using madeleine::Gemm;
   if ((err = madeleine::dgrad<Gemm::MMA_SYNC, bf16>(DZG, 2LL * nh * f, 2LL * f, wab, e,
                                                     2LL * f * e, dy, D.E, e, M, e, 2 * f, nh, 0,
                                                     st)) != cudaSuccess)
     return (int)err;
-  // dW[a|b]_h = DZG_h^T y_h
   return (int)madeleine::wgrad<Gemm::MMA_SYNC>(DZG, 2LL * nh * f, 2LL * f, y, D.E, e, 2 * f, e,
                                                M, nh, dwab, work, st);
 }

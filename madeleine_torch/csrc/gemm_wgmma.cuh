@@ -19,10 +19,10 @@
 // fixed k order, so two launches give bitwise-equal results.
 //
 // Design (Hopper's usual shape, hopper-kernels guide section 1):
-//   - output tiles of 128 rows x 128 columns (64 rows for the gate epilogue,
-//     see tile_rows), k tiles of 64 (128 bytes of bf16: one row of the
-//     128-byte swizzle), a ring of STAGES stages of A and B tiles in shared
-//     memory, each stage with a "full" and an "empty" mbarrier. A K-major
+//   - output tiles of 128 rows x 128 columns (64 rows for the gate
+//     epilogues, see tile_rows), k tiles of 64 (128 bytes of bf16: one row
+//     of the 128-byte swizzle), a ring of STAGES stages of A and B tiles in
+//     shared memory, each stage with a "full" and an "empty" mbarrier. A K-major
 //     tile is one TMA box of [rows, 64 k]; an MN-major tile is [64 k, 64 mn]
 //     boxes side by side (128 bytes of m or n per k row, as wide as the
 //     128-byte swizzle allows);
@@ -55,8 +55,9 @@
 //
 // Epilogues: EPI_BF16 (+ bias, rounded to bf16), EPI_F32 (+ bias, then tanh
 // below act_split and sigmoid from there when act_split >= 0, then + C's old
-// value when beta is set) and EPI_GATES, the whole-encoder forward's gate
-// logits (see epilogue_gates).
+// value when beta is set), EPI_GATES, the whole-encoder forward's gate
+// logits (see epilogue_gates), and EPI_GATES_BWD, the per-op lane's gate
+// adjoint on the recomputed gates (see epilogue_gates_bwd).
 //
 // The tensor maps are built on the host by cuTensorMapEncodeTiled, found
 // with dlsym in the libcuda.so.1 the process has loaded (the libraries are
@@ -94,13 +95,13 @@ constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + OUT_BYTES + (2 * STAGES + 1) *
 // (132), one per consumer warpgroup.
 constexpr int SPLIT_TARGET_TILES = 264;
 
-enum Epi { EPI_BF16 = 0, EPI_F32 = 1, EPI_GATES = 2 };
+enum Epi { EPI_BF16 = 0, EPI_F32 = 1, EPI_GATES = 2, EPI_GATES_BWD = 3 };
 
 // Rows of an output tile: 128 (two m64 halves per warpgroup), but 64 for the
-// gate epilogue, whose transcendental and Philox work is the larger part of
-// its tile's time and needs the registers a second half's accumulators hold.
+// gate epilogues, whose transcendental and Philox work is the larger part of
+// their tile's time and needs the registers a second half's accumulators hold.
 template <int EPI>
-__host__ __device__ constexpr int tile_rows() { return EPI == EPI_GATES ? 64 : BM; }
+__host__ __device__ constexpr int tile_rows() { return EPI >= EPI_GATES ? 64 : BM; }
 
 // What the kernel reads besides its two tensor maps.
 struct Params {
@@ -122,6 +123,10 @@ struct Params {
   const float* wc;
   int f, t, row_offset;
   Dropout d;
+  // EPI_GATES_BWD: the logits' cotangent dl [M, batches] f32 and the row
+  // stride of the column partials in lpart (per 64-row tile)
+  const float* dl;
+  long long ld_part;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -378,47 +383,26 @@ __device__ __forceinline__ float tanh_fast(float v) {
   return 1.f - __fdividef(2.f, 1.f + __expf(2.f * v));
 }
 
-// The gate logits of the whole-encoder forward. Batch = head h, N = 2f, and
-// the wrapper has permuted the rows of [Wa; Wb]_h (and of its bias) so that
-// 128-column tile c holds the tanh rows 64 c .. 64 c + 63 in columns 0-63 and
-// the sigmoid rows of the same j in columns 64-127: fragments q and q + 8 of
-// a thread are then a = tanh(.) and g = sigmoid(.) of one (row, j). Writes
-// a_pre / b_pre [M, nh f] bf16 (pre-dropout; skipped when ap is null, as in
-// K1's forward, which keeps no residuals) and lpart[(row nh + h) f/64 + c]
-// = sum over the tile's 64 j of drop(a) drop(g) wc[h, j], each thread summing
-// its 16 j in q order, then the quad in a fixed xor order.
-__device__ __forceinline__ void epilogue_gates(const Params& p, float (&d)[64], const Tile& T,
-                                               int m0, int warp, int lane, float* stage) {
-  // staging: a [16 rows, 64 j] bf16, then g, 32 words per row
-  uint32_t* sa = reinterpret_cast<uint32_t*>(stage);
-  uint32_t* sg = sa + 16 * 32;
-  const int h = T.batch, nh = p.batches, chunk = T.n0 / BN, odd = lane & 1;
-  const float* ba = p.bias + (long long)h * p.strideBias + T.n0;   // [64 tanh | 64 sigmoid]
-  const float* wcp = p.wc + (long long)h * p.f + chunk * 64;
-  const long long ld = (long long)nh * p.f;
-  float wc[16];
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    const int jj = q * 8 + (lane % 4) * 2;   // j - 64 chunk of this thread's pair
-    const float a0 = __ldg(ba + jj), a1 = __ldg(ba + jj + 1);
-    const float g0 = __ldg(ba + 64 + jj), g1 = __ldg(ba + 64 + jj + 1);
-    d[4 * q] += a0; d[4 * q + 1] += a1; d[4 * q + 2] += a0; d[4 * q + 3] += a1;
-    d[4 * q + 32] += g0; d[4 * q + 33] += g1; d[4 * q + 34] += g0; d[4 * q + 35] += g1;
-    wc[2 * q] = __ldg(wcp + jj);
-    wc[2 * q + 1] = __ldg(wcp + jj + 1);
-  }
-  // The dropout masks first, every Philox draw of the thread before any
-  // other work, so that the 16 independent draws overlap: keep4's bits are
-  // column group c4 = j / 4, word j % 4. The pair of lanes (lane, lane ^ 1)
-  // shares c4: the even lane draws the tanh branch's four words, the odd
-  // lane the sigmoid branch's; each keeps one bit per word (word >= thr) at
-  // bit 4 q + word of own[hh], and one shuffle per row hands the partner its
-  // bits. Without dropout every bit is set (the scale is then 1).
+// The gate epilogues' dropout bits for a thread's two rows row0 and row0 + 8
+// (row0 = m0 + 16 warp + lane / 4) of head h, 128-column tile `chunk`.
+// Every Philox draw of the thread comes before any other work, so that the
+// 16 independent draws overlap: keep4's bits are column group c4 = j / 4,
+// word j % 4. The pair of lanes (lane, lane ^ 1) shares c4: the even lane
+// draws the tanh branch's four words, the odd lane the sigmoid branch's;
+// each keeps one bit per word (word >= thr) at bit 4 q + word, and one
+// shuffle per row hands the partner its bits. Returns, per row hh, the
+// thread's own columns (words 0-1 for an even lane, 2-3 for an odd one) at
+// bits 4 q and 4 q + 1 of abits[hh] (tanh branch) and bbits[hh] (sigmoid).
+// Without dropout every bit is set (the scale is then 1).
+__device__ __forceinline__ void gate_keep_bits(const Params& p, int h, int chunk, int row0,
+                                               int lane, uint32_t (&abits)[2],
+                                               uint32_t (&bbits)[2]) {
+  const int odd = lane & 1;
   uint32_t own[2] = {0xffffffffu, 0xffffffffu};
   if (p.d.thr != 0u) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      const int row = m0 + warp * 16 + lane / 4 + 8 * hh;   // may be >= M
+      const int row = row0 + 8 * hh;   // may be >= M
       const int tok = row % p.t, bag = row / p.t + p.row_offset;
       uint32_t bits = 0;
 #pragma unroll
@@ -437,10 +421,73 @@ __device__ __forceinline__ void epilogue_gates(const Params& p, float (&d)[64], 
                              __shfl_xor_sync(0xffffffffu, own[1], 1)};
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
+    abits[hh] = (odd ? other[hh] : own[hh]) >> (2 * odd);
+    bbits[hh] = (odd ? own[hh] : other[hh]) >> (2 * odd);
+  }
+}
+
+// The gate epilogues' bf16 outputs: the warp's 16 rows of two staged
+// [16 rows, 64 j] blocks (sa, sg: 32 swizzled words a row) to rows row0 ..
+// row0 + 15 (those below M) of pa and pb, row stride ld, from column col: 4
+// rows of 128 bytes per store.
+__device__ __forceinline__ void store_gate_rows(const uint32_t* sa, const uint32_t* sg,
+                                                bf16* pa, bf16* pb, long long ld, long long col,
+                                                int row0, int lane, int M) {
+  __syncwarp();
+  const int seg = lane % 8;
+#pragma unroll
+  for (int i = 0; i < 16; i += 4) {
+    const int srow = i + lane / 8, row = row0 + srow;
+    if (row >= M) continue;
+    const long long off = (long long)row * ld + col + seg * 8;
+    *reinterpret_cast<uint4*>(pa + off) =
+        *reinterpret_cast<const uint4*>(sa + srow * 32 + swz(srow, seg * 4));
+    *reinterpret_cast<uint4*>(pb + off) =
+        *reinterpret_cast<const uint4*>(sg + srow * 32 + swz(srow, seg * 4));
+  }
+  __syncwarp();
+}
+
+// Both gate epilogues: batch = head h, N = 2f, and the wrapper has permuted
+// the rows of [Wa; Wb]_h (and of its bias) so that 128-column tile c holds
+// the tanh rows 64 c .. 64 c + 63 in columns 0-63 and the sigmoid rows of
+// the same j in columns 64-127: fragments q and q + 8 of a thread are then
+// a = tanh(.) and g = sigmoid(.) of one (row, j). This adds the bias to the
+// fragments and reads the thread's 16 wc[h, j].
+__device__ __forceinline__ void gate_bias_wc(const Params& p, float (&d)[64], const Tile& T,
+                                             int lane, float (&wc)[16]) {
+  const float* ba = p.bias + (long long)T.batch * p.strideBias + T.n0;   // [64 tanh | 64 sigmoid]
+  const float* wcp = p.wc + (long long)T.batch * p.f + T.n0 / BN * 64;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int jj = q * 8 + (lane % 4) * 2;   // j - 64 chunk of this thread's pair
+    const float a0 = __ldg(ba + jj), a1 = __ldg(ba + jj + 1);
+    const float g0 = __ldg(ba + 64 + jj), g1 = __ldg(ba + 64 + jj + 1);
+    d[4 * q] += a0; d[4 * q + 1] += a1; d[4 * q + 2] += a0; d[4 * q + 3] += a1;
+    d[4 * q + 32] += g0; d[4 * q + 33] += g1; d[4 * q + 34] += g0; d[4 * q + 35] += g1;
+    wc[2 * q] = __ldg(wcp + jj);
+    wc[2 * q + 1] = __ldg(wcp + jj + 1);
+  }
+}
+
+// The gate logits of the whole-encoder forward (layout: gate_bias_wc).
+// Writes a_pre / b_pre [M, nh f] bf16 (pre-dropout; skipped when ap is null,
+// as in K1's forward, which keeps no residuals) and lpart[(row nh + h) f/64
+// + c] = sum over the tile's 64 j of drop(a) drop(g) wc[h, j], each thread
+// summing its 16 j in q order, then the quad in a fixed xor order.
+__device__ __forceinline__ void epilogue_gates(const Params& p, float (&d)[64], const Tile& T,
+                                               int m0, int warp, int lane, float* stage) {
+  // staging: a [16 rows, 64 j] bf16, then g, 32 words per row
+  uint32_t* sa = reinterpret_cast<uint32_t*>(stage);
+  uint32_t* sg = sa + 16 * 32;
+  const int h = T.batch, nh = p.batches, chunk = T.n0 / BN;
+  float wc[16];
+  gate_bias_wc(p, d, T, lane, wc);
+  uint32_t abits[2], bbits[2];
+  gate_keep_bits(p, h, chunk, m0 + warp * 16 + lane / 4, lane, abits, bbits);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
     const int srow = lane / 4 + 8 * hh, row = m0 + warp * 16 + srow;   // may be >= M
-    // this thread's columns: words 0-1 (even lane) or 2-3 (odd) of each nibble
-    const uint32_t abits = (odd ? other[hh] : own[hh]) >> (2 * odd);
-    const uint32_t bbits = (odd ? own[hh] : other[hh]) >> (2 * odd);
     float part = 0.f;
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
@@ -449,10 +496,10 @@ __device__ __forceinline__ void epilogue_gates(const Params& p, float (&d)[64], 
       const float g0 = sigmoid_fast(d[4 * (q + 8) + 2 * hh]);
       const float g1 = sigmoid_fast(d[4 * (q + 8) + 2 * hh + 1]);
       const float sc = p.d.scale;
-      const float ka0 = (abits >> (4 * q)) & 1u ? sc : 0.f;
-      const float ka1 = (abits >> (4 * q + 1)) & 1u ? sc : 0.f;
-      const float kb0 = (bbits >> (4 * q)) & 1u ? sc : 0.f;
-      const float kb1 = (bbits >> (4 * q + 1)) & 1u ? sc : 0.f;
+      const float ka0 = (abits[hh] >> (4 * q)) & 1u ? sc : 0.f;
+      const float ka1 = (abits[hh] >> (4 * q + 1)) & 1u ? sc : 0.f;
+      const float kb0 = (bbits[hh] >> (4 * q)) & 1u ? sc : 0.f;
+      const float kb1 = (bbits[hh] >> (4 * q + 1)) & 1u ? sc : 0.f;
       part += (a0 * ka0) * (g0 * kb0) * wc[2 * q];
       part += (a1 * ka1) * (g1 * kb1) * wc[2 * q + 1];
       if (p.ap) {
@@ -468,20 +515,97 @@ __device__ __forceinline__ void epilogue_gates(const Params& p, float (&d)[64], 
       p.lpart[((long long)row * nh + h) * (p.f / 64) + chunk] = part;
   }
   if (!p.ap) return;
-  __syncwarp();
-  // the warp's 16 rows of a_pre and b_pre: 4 rows of 128 bytes per store
-  const int seg = lane % 8;
+  store_gate_rows(sa, sg, p.ap, p.bp, (long long)nh * p.f, (long long)h * p.f + chunk * 64,
+                  m0 + warp * 16, lane, p.M);
+}
+
+// The gate adjoint of the per-op lane's backward (kernel 18) on the
+// recomputed gates (layout: gate_bias_wc). With a' = a ka and g' = g kb
+// (train_rows.cuh::gate_bwd's formulas) and dl = dl[row, h] (0 past M):
+//   dza = dl wc g' ka (1 - a^2),   dzb = dl wc a' kb g (1 - g),
+// written to C = DZG [M, nh 2f] bf16 in the natural per-head [dza | dzb]
+// order (p.ldc = nh 2f); and the 64-row tile's column sums of a' g' dl
+// (dwc), dza (dba) and dzb (dbb) to lpart + (m0 / 64) ld_part at columns
+// h f + j, nh f + h 2f + j and nh f + h 2f + f + j (gate_bwd's layout):
+// each thread adds its two rows in order, the warp its 16 rows in a fixed
+// xor order, the warpgroup its four warps in warp order through shared
+// memory behind a named barrier (one per consumer warpgroup, 1 + half).
+__device__ __forceinline__ void epilogue_gates_bwd(const Params& p, float (&d)[64], const Tile& T,
+                                                   int m0, int warp, int lane, float* stage,
+                                                   int half) {
+  uint32_t* sa = reinterpret_cast<uint32_t*>(stage);   // dza [16 rows, 64 j] bf16
+  uint32_t* sg = sa + 16 * 32;                          // dzb
+  float* ps = stage + 2 * 16 * 32;                      // the warp's sums: dwc, dba, dbb
+  const int h = T.batch, nh = p.batches, chunk = T.n0 / BN;
+  float wc[16];
+  gate_bias_wc(p, d, T, lane, wc);
+  const int row0 = m0 + warp * 16 + lane / 4;
+  const float dl[2] = {row0 < p.M ? __ldg(p.dl + (long long)row0 * nh + h) : 0.f,
+                       row0 + 8 < p.M ? __ldg(p.dl + (long long)(row0 + 8) * nh + h) : 0.f};
+  uint32_t abits[2], bbits[2];
+  gate_keep_bits(p, h, chunk, row0, lane, abits, bbits);
+  float sw[16], sza[16], szb[16];
 #pragma unroll
-  for (int i = 0; i < 16; i += 4) {
-    const int srow = i + lane / 8, row = m0 + warp * 16 + srow;
-    if (row >= p.M) continue;
-    const long long off = (long long)row * ld + (long long)h * p.f + chunk * 64 + seg * 8;
-    *reinterpret_cast<uint4*>(p.ap + off) =
-        *reinterpret_cast<const uint4*>(sa + srow * 32 + swz(srow, seg * 4));
-    *reinterpret_cast<uint4*>(p.bp + off) =
-        *reinterpret_cast<const uint4*>(sg + srow * 32 + swz(srow, seg * 4));
+  for (int hh = 0; hh < 2; ++hh) {
+    const int srow = lane / 4 + 8 * hh;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int jj = q * 8 + (lane % 4) * 2;
+      float za[2], zb[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float a = tanh_fast(d[4 * q + 2 * hh + i]);
+        const float g = sigmoid_fast(d[4 * (q + 8) + 2 * hh + i]);
+        const float ka = (abits[hh] >> (4 * q + i)) & 1u ? p.d.scale : 0.f;
+        const float kb = (bbits[hh] >> (4 * q + i)) & 1u ? p.d.scale : 0.f;
+        const float ad = a * ka, gd = g * kb, dg = dl[hh] * wc[2 * q + i];
+        za[i] = dg * gd * ka * (1.f - a * a);
+        zb[i] = dg * ad * kb * g * (1.f - g);
+        const float w = (ad * gd) * dl[hh];
+        sw[2 * q + i] = hh ? sw[2 * q + i] + w : w;
+        sza[2 * q + i] = hh ? sza[2 * q + i] + za[i] : za[i];
+        szb[2 * q + i] = hh ? szb[2 * q + i] + zb[i] : zb[i];
+      }
+      const __nv_bfloat162 av = __floats2bfloat162_rn(za[0], za[1]);
+      const __nv_bfloat162 gv = __floats2bfloat162_rn(zb[0], zb[1]);
+      sa[srow * 32 + swz(srow, jj / 2)] = *reinterpret_cast<const uint32_t*>(&av);
+      sg[srow * 32 + swz(srow, jj / 2)] = *reinterpret_cast<const uint32_t*>(&gv);
+    }
   }
-  __syncwarp();
+  bf16* dz = static_cast<bf16*>(p.C);
+  store_gate_rows(sa, sg, dz, dz + p.f, p.ldc, (long long)h * 2 * p.f + chunk * 64,
+                  m0 + warp * 16, lane, p.M);
+  // the warp's 16 rows: lanes of one lane % 4 hold one column pair
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      sw[i] += __shfl_xor_sync(0xffffffffu, sw[i], o);
+      sza[i] += __shfl_xor_sync(0xffffffffu, sza[i], o);
+      szb[i] += __shfl_xor_sync(0xffffffffu, szb[i], o);
+    }
+  }
+  if (lane < 4) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int jj = q * 8 + lane * 2;
+      *reinterpret_cast<float2*>(ps + jj) = make_float2(sw[2 * q], sw[2 * q + 1]);
+      *reinterpret_cast<float2*>(ps + 64 + jj) = make_float2(sza[2 * q], sza[2 * q + 1]);
+      *reinterpret_cast<float2*>(ps + 128 + jj) = make_float2(szb[2 * q], szb[2 * q + 1]);
+    }
+  }
+  // the four warps' sums in warp order, then the staging is free again
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + half) : "memory");
+  const float* ps0 = ps - warp * (WARP_OUT_BYTES / 4);
+  float* pt = p.lpart + (long long)(m0 / 64) * p.ld_part;
+  for (int c = warp * 32 + lane; c < 192; c += 128) {
+    const float v = ((ps0[c] + ps0[WARP_OUT_BYTES / 4 + c]) + ps0[2 * (WARP_OUT_BYTES / 4) + c]) +
+                    ps0[3 * (WARP_OUT_BYTES / 4) + c];
+    const int kind = c / 64, j = chunk * 64 + c % 64;
+    pt[kind == 0 ? (long long)h * p.f + j
+                 : (long long)nh * p.f + (long long)h * 2 * p.f + (kind - 1) * p.f + j] = v;
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + half) : "memory");
 }
 
 template <bool A_MN, bool B_MN, int EPI>
@@ -588,6 +712,8 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
     mbar_arrive(bars + 8 * (STAGES + (it - 1) % STAGES));
     if constexpr (EPI == EPI_GATES) {
       epilogue_gates(p, d0, T, T.m0, warp, lane, stage);
+    } else if constexpr (EPI == EPI_GATES_BWD) {
+      epilogue_gates_bwd(p, d0, T, T.m0, warp, lane, stage, half);
     } else {
       epilogue_plain<EPI>(p, d0, T, T.m0, warp, lane, stage);
       epilogue_plain<EPI>(p, d1, T, T.m0 + 64, warp, lane, stage);
@@ -652,11 +778,12 @@ inline bool wg_operand_ok(const WgOperand& o, int K) {
 
 // C = epi(A . B^T + bias), batched and split as `p` says (see the header).
 // The caller sets p.C, ldc, strideC, bias, strideBias, M, N, K, batches,
-// splits, beta, act_split, m_live and, for EPI_GATES, the gate fields; the launcher
-// fills the coordinate offsets and kchunk. Returns cudaErrorInvalidValue for
-// anything the kernel cannot take: misaligned or unsupported operands
-// (16-byte aligned bases, row strides a multiple of 8 elements), an odd N,
-// a misaligned C (f32: a 16-byte base, ldc and strideC multiples of 4),
+// splits, beta, act_split, m_live and, for EPI_GATES and EPI_GATES_BWD, the
+// gate fields; the launcher fills the coordinate offsets and kchunk. Returns
+// cudaErrorInvalidValue for anything the kernel cannot take: misaligned or
+// unsupported operands (16-byte aligned bases, row strides a multiple of 8
+// elements), an odd N, a misaligned C (f32 and EPI_GATES_BWD's bf16 rows: a
+// 16-byte base, ldc and strideC multiples of 4, or of 8 for EPI_GATES_BWD),
 // split-K with a bias, beta or an activation.
 template <bool A_MN, bool B_MN, int EPI>
 inline cudaError_t wg_gemm(const WgOperand& A, const WgOperand& B, wg::Params p,
@@ -668,10 +795,15 @@ inline cudaError_t wg_gemm(const WgOperand& A, const WgOperand& B, wg::Params p,
             wg_operand_ok<A_MN>(A, p.K) && wg_operand_ok<B_MN>(B, p.K) &&
             (EPI == wg::EPI_GATES || (p.C && reinterpret_cast<uintptr_t>(p.C) % align == 0)) &&
             (p.splits == 1 || (EPI == wg::EPI_F32 && !p.beta && !p.bias && p.act_split < 0));
-  if (EPI == wg::EPI_GATES)
+  if (EPI >= wg::EPI_GATES)
     ok = ok && p.splits == 1 && p.f % 64 == 0 && p.N == 2 * p.f && p.t >= 1 && p.bias &&
-         p.wc && p.lpart && !p.ap == !p.bp && reinterpret_cast<uintptr_t>(p.ap) % 4 == 0 &&
+         p.wc && p.lpart;
+  if (EPI == wg::EPI_GATES)
+    ok = ok && !p.ap == !p.bp && reinterpret_cast<uintptr_t>(p.ap) % 4 == 0 &&
          reinterpret_cast<uintptr_t>(p.bp) % 4 == 0;
+  if (EPI == wg::EPI_GATES_BWD)
+    ok = ok && p.dl && p.ldc % 8 == 0 && p.ldc >= (long long)p.batches * p.N &&
+         p.ld_part >= 3LL * p.batches * p.f;
   if (!ok) return cudaErrorInvalidValue;
   p.a_mn = A.off_mn; p.a_k = A.off_k;
   p.b_mn = B.off_mn; p.b_k = B.off_k;

@@ -21,13 +21,18 @@
 // gradient for layers 3 and 2, and 1 with dx), against 5 KB of traffic per
 // token: the dense bf16 rate bounds both.
 //
-// Design (simple first): K6's layer stack and K7's layer adjoints
-// (train_rows.cuh): the mma.sync GEMM of gemm_bf16.cuh writes each pre-LN
-// product to an f32 scratch row block; a row kernel takes LayerNorm's
-// statistics over the whole row (2048 columns for layer 3) and applies GELU
-// and dropout. Gradients of parameters are split-K partials and per-tile
-// column partials summed in a fixed order: no atomics, launches are
-// bitwise reproducible.
+// Design of the backward (kernel 16, redesigned for Hopper): every product
+// on the TMA + wgmma GEMM of gemm_wgmma.cuh, as K7's (about 210 TFLOP/s on
+// the mma.sync GEMM, 340-440 on wgmma): the recompute's Z = A W^T + bias in
+// f32, then a warp-per-row LayerNorm / GELU / dropout kernel with 16-byte
+// loads (ln_gelu_rows_train, after K1's ln_gelu_rows in encode_fused.cu)
+// that writes only what the adjoint reads: u1-u3, rstd, h1, h2; then K7's
+// layer adjoints (train_rows.cuh::stack_bwd<Gemm::WGMMA>). Gradients of
+// parameters are split-K partials and per-tile column partials summed in a
+// fixed order: no atomics, launches are bitwise reproducible. The first
+// design (the same sequence on the mma.sync GEMM of gemm_bf16.cuh, with
+// K6's row-per-block ln_gelu_fwd) stays as the check-only entry point
+// preattn_backward_rowblock; the forward (kernel 15) is still that design.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,49 +92,118 @@ extern "C" int preattn_forward(void** p, const long long* dims, const float* sca
   return (int)madeleine::stack_fwd<madeleine::Gemm::MMA_SYNC>(a, st);
 }
 
-// Floats of workspace the backward needs: [split-K partials, column partials].
-extern "C" void preattn_bwd_workspace(const long long* dims, long long* out) {
+namespace {
+
+// Warp-per-row LayerNorm + GELU + dropout of kernel 16's recompute: 8 rows
+// per 256-thread block, lane l holding the 16-byte column groups v 32 + l
+// (v < V) of its row of W = 128 V columns, the statistics by warp shuffles
+// (mean, then the squared deviations from it, as ln_gelu_fwd). Z [M, W]
+// f32 pre-LN rows (bias included); writes U (bf16 u), rstd[r 3 + layer]
+// and, where set, H (the bf16 output).
+template <int V>
+__global__ void __launch_bounds__(256)
+ln_gelu_rows_train(const float* __restrict__ Z, const float* __restrict__ s,
+                   const float* __restrict__ sh, bf16* __restrict__ U, float* __restrict__ rstd,
+                   bf16* __restrict__ H, int M, int t, int row_offset, int layer, Dropout d) {
+  constexpr int W = 128 * V;
+  const long long r = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (r >= M) return;
+  const int lane = threadIdx.x & 31;
+  float z[V][4];
+  float sum = 0.f;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    madeleine::load4(Z + r * W + (v * 32 + lane) * 4, z[v]);
+    sum += (z[v][0] + z[v][1]) + (z[v][2] + z[v][3]);
+  }
+  const float mean = madeleine::warp_sum(sum) / W;
+  float dev = 0.f;
+#pragma unroll
+  for (int v = 0; v < V; ++v)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dev += (z[v][j] - mean) * (z[v][j] - mean);
+  const float rs = rsqrtf(madeleine::warp_sum(dev) / W + madeleine::TRAIN_LN_EPS);
+  const int tok = (int)(r % t), row = (int)(r / t) + row_offset;
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int c4 = v * 32 + lane, c = c4 * 4;
+    float sc[4], shv[4], k[4], u[4], h[4];
+    madeleine::load4(s + c, sc);
+    madeleine::load4(sh + c, shv);
+    madeleine::keep4(d, c4, tok, row, layer, k);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      u[j] = (z[v][j] - mean) * rs;
+      const float x = u[j] * sc[j] + shv[j];
+      h[j] = x * madeleine::gauss_cdf(x) * k[j];
+    }
+    madeleine::store4(U + r * W + c, u);
+    if (H) madeleine::store4(H + r * W + c, h);
+  }
+  if (lane == 0) rstd[r * 3 + layer] = rs;
+}
+
+constexpr int MAX_V = 32;   // widths up to 4096 (ops/preattn.py::_check)
+
+// ln_gelu_rows_train for W = 128 v (1 <= v <= MAX_V).
+template <int V = 1>
+cudaError_t launch_ln_rows(int v, const float* Z, const float* s, const float* sh, bf16* U,
+                           float* rstd, bf16* H, int M, int t, int row_offset, int layer,
+                           Dropout d, cudaStream_t st) {
+  if (v == V) {
+    ln_gelu_rows_train<V><<<(M + 7) / 8, 256, 0, st>>>(Z, s, sh, U, rstd, H, M, t, row_offset,
+                                                        layer, d);
+    return cudaGetLastError();
+  }
+  if constexpr (V < MAX_V)
+    return launch_ln_rows<V + 1>(v, Z, s, sh, U, rstd, H, M, t, row_offset, layer, d, st);
+  else
+    return cudaErrorInvalidValue;
+}
+
+// Kernel 16's recompute of the three layers: each product on the wgmma GEMM
+// into Z, then its row kernel. Writes U[0..2], rstd, H[0], H[1].
+cudaError_t recompute(const madeleine::StackFwd& a, cudaStream_t st) {
+  const bf16* Ain[3] = {a.x, a.H[0], a.H[1]};
+  const int Kl[3] = {a.d_in, a.hd, a.hd}, Nl[3] = {a.hd, a.hd, a.E};
+  for (int i = 0; i < 3; ++i) {
+    cudaError_t err = madeleine::linear_f32<madeleine::Gemm::WGMMA>(Ain[i], a.w[i], a.b[i], a.Z,
+                                                                    a.M, Nl[i], Kl[i], st);
+    if (err == cudaSuccess)
+      err = launch_ln_rows(Nl[i] / 128, a.Z, a.s[i], a.sh[i], a.U[i], a.rstd,
+                           i < 2 ? a.H[i] : nullptr, a.M, a.t, a.row_offset, i, a.d, st);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// Floats of workspace a backward on the GEMM G needs: [split-K partials,
+// column partials].
+template <madeleine::Gemm G>
+void workspace(const long long* dims, long long* out) {
   const float one = 1.f;
   const Dims D = dims_of(dims, &one);
-  long long w = madeleine::wgrad_work_floats(D.E, D.hd, D.M, 1);
-  const long long cand[2] = {madeleine::wgrad_work_floats(D.hd, D.hd, D.M, 1),
-                             madeleine::wgrad_work_floats(D.hd, D.d_in, D.M, 1)};
-  for (long long c : cand) w = c > w ? c : w;
-  out[0] = w;
+  out[0] = madeleine::stack_bwd_work<G>(D.M, D.d_in, D.hd, D.E);
   out[1] = (long long)madeleine::row_tiles(D.M) * 3 * (D.E > D.hd ? D.E : D.hd);
 }
 
-// dims as preattn_forward. p: x, dy [M, E] bf16, w1, b1, s1, t1, w2, ..., t3,
-// the gradients dw1, db1, ds1, dt1, dw2, ..., dt3 (f32), then scratch Z,
-// U1, U2 [M, hidden] bf16, U3 [M, E] bf16, rstd, H1, H2, DZ3 [M, E] bf16,
-// DH [M, hidden] f32, DZ12 [M, hidden] bf16, the two workspaces of
-// preattn_bwd_workspace, and dx [M, d_in] bf16 or null. Returns a cudaError_t.
-extern "C" int preattn_backward(void** p, const long long* dims, const float* scales,
-                                void* stream_) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream_);
-  const Dims D = dims_of(dims, scales);
-  const bf16* dy = (const bf16*)p[1];
-  bf16 *U1 = (bf16*)p[27], *U2 = (bf16*)p[28], *U3 = (bf16*)p[29];
-  float* rstd = (float*)p[30];
-  bf16 *H1 = (bf16*)p[31], *H2 = (bf16*)p[32];
-  // recompute the stack: every layer's u and rstd, the layer inputs h1, h2
-  madeleine::StackFwd f{};
+// The backward's pointers (the layout of preattn_backward's p): the
+// recompute's StackFwd and the adjoint's StackBwd.
+void backward_args(void** p, const Dims& D, madeleine::StackFwd& f, madeleine::StackBwd& a) {
+  f = madeleine::StackFwd{};
   f.x = (const bf16*)p[0];
   stack_weights(f, p, 2);
   f.Z = (float*)p[26];
-  f.U[0] = U1; f.U[1] = U2; f.U[2] = U3;
-  f.rstd = rstd;
-  f.H[0] = H1; f.H[1] = H2; f.H[2] = nullptr;
+  f.U[0] = (bf16*)p[27]; f.U[1] = (bf16*)p[28]; f.U[2] = (bf16*)p[29];
+  f.rstd = (float*)p[30];
+  f.H[0] = (bf16*)p[31]; f.H[1] = (bf16*)p[32]; f.H[2] = nullptr;
   f.M = D.M; f.t = D.t; f.d_in = D.d_in; f.hd = D.hd; f.E = D.E;
   f.row_offset = D.row_offset;
   f.d = D.d;
-  cudaError_t err = madeleine::stack_fwd<madeleine::Gemm::MMA_SYNC>(f, st);
-  if (err != cudaSuccess) return (int)err;
-  // the three layer adjoints from dy
-  madeleine::StackBwd a{};
-  a.x = f.x; a.h1 = H1; a.h2 = H2;
-  a.u[0] = U1; a.u[1] = U2; a.u[2] = U3;
-  a.rstd = rstd;
+  a = madeleine::StackBwd{};
+  a.x = f.x; a.h1 = f.H[0]; a.h2 = f.H[1];
+  a.u[0] = f.U[0]; a.u[1] = f.U[1]; a.u[2] = f.U[2];
+  a.rstd = f.rstd;
   a.w1 = f.w[0]; a.w2 = f.w[1]; a.w3 = f.w[2];
   for (int i = 0; i < 3; ++i) {
     a.s[i] = f.s[i];
@@ -149,5 +223,48 @@ extern "C" int preattn_backward(void** p, const long long* dims, const float* sc
   a.M = D.M; a.t = D.t; a.d_in = D.d_in; a.hd = D.hd; a.E = D.E;
   a.row_offset = D.row_offset;
   a.d = D.d;
-  return (int)madeleine::stack_bwd<madeleine::Gemm::MMA_SYNC>(a, dy, st);
+}
+
+}  // namespace
+
+// Floats of workspace the backward needs: [split-K partials, column partials].
+extern "C" void preattn_bwd_workspace(const long long* dims, long long* out) {
+  workspace<madeleine::Gemm::WGMMA>(dims, out);
+}
+
+// dims as preattn_forward. p: x, dy [M, E] bf16, w1, b1, s1, t1, w2, ..., t3,
+// the gradients dw1, db1, ds1, dt1, dw2, ..., dt3 (f32), then scratch Z,
+// U1, U2 [M, hidden] bf16, U3 [M, E] bf16, rstd, H1, H2, DZ3 [M, E] bf16,
+// DH [M, hidden] f32, DZ12 [M, hidden] bf16, the two workspaces of
+// preattn_bwd_workspace, and dx [M, d_in] bf16 or null. Returns a cudaError_t
+// (cudaErrorInvalidValue where the wgmma GEMM refuses an operand).
+extern "C" int preattn_backward(void** p, const long long* dims, const float* scales,
+                                void* stream_) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream_);
+  const Dims D = dims_of(dims, scales);
+  madeleine::StackFwd f;
+  madeleine::StackBwd a;
+  backward_args(p, D, f, a);
+  cudaError_t err = recompute(f, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)madeleine::stack_bwd<madeleine::Gemm::WGMMA>(a, (const bf16*)p[1], st);
+}
+
+// The first design of the backward, kept as a check (no path calls it):
+// the same sequence on the mma.sync GEMM with K6's row kernel.
+extern "C" void preattn_bwd_rowblock_workspace(const long long* dims, long long* out) {
+  workspace<madeleine::Gemm::MMA_SYNC>(dims, out);
+}
+
+// As preattn_backward, the workspaces of preattn_bwd_rowblock_workspace.
+extern "C" int preattn_backward_rowblock(void** p, const long long* dims, const float* scales,
+                                         void* stream_) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream_);
+  const Dims D = dims_of(dims, scales);
+  madeleine::StackFwd f;
+  madeleine::StackBwd a;
+  backward_args(p, D, f, a);
+  cudaError_t err = madeleine::stack_fwd<madeleine::Gemm::MMA_SYNC>(f, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)madeleine::stack_bwd<madeleine::Gemm::MMA_SYNC>(a, (const bf16*)p[1], st);
 }

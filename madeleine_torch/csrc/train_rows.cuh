@@ -204,9 +204,10 @@ __global__ void colsum_rows(const bf16* __restrict__ X, float* __restrict__ part
 inline int row_tiles(int M) { return (M + ROW_TILE - 1) / ROW_TILE; }
 
 // The GEMM behind the launch sequences below, chosen at each call site: the
-// whole-encoder kernels (K6, K7) run every product on the TMA + wgmma GEMM
-// of gemm_wgmma.cuh, the per-op kernels 15-18 and 20 on the mma.sync GEMM
-// of gemm_bf16.cuh.
+// whole-encoder kernels (K6, K7) and the per-op backward kernels 16 and 18
+// run every product on the TMA + wgmma GEMM of gemm_wgmma.cuh, the per-op
+// kernels 15, 17 and 20 (and the first designs of 16 and 18, kept as
+// checks) on the mma.sync GEMM of gemm_bf16.cuh.
 enum class Gemm { MMA_SYNC, WGMMA };
 
 // Weight gradient [Mo, No] = sum over tokens of A(tok, m) B(tok, n), both
@@ -382,8 +383,9 @@ inline cudaError_t stack_bwd(const StackBwd& a, const DT* din3, cudaStream_t st)
   return cudaSuccess;
 }
 
-// Gate products of every head in one batched launch (the per-op kernels 17
-// and 18; K6 fuses the logits into its own gate product):
+// Gate products of every head in one batched launch (the per-op kernel 17
+// and kernel 18's first design; K6 fuses the logits into its own gate
+// product, kernel 18 the gate adjoint into its recompute):
 // G_h = act(y_h Wab_h^T + bab_h), tanh on the first f columns, sigmoid on
 // the next f. Y [M, nh*e] bf16, wab [nh, 2f, e] bf16, bab [nh, 2f] f32,
 // G [M, nh*2f] f32.

@@ -40,6 +40,8 @@ import torch
 
 from madeleine_torch.ops import _build
 from madeleine_torch.ops import gated_logits as gl
+from madeleine_torch.ops.gated_logits import (GATE_CHUNK, gate_perm,  # noqa: F401
+                                              permute_gates)
 from madeleine_torch.ops import preattn as pa
 from madeleine_torch.ops import prng
 from madeleine_torch.ops.attn_pool import MASKED_BIAS, mask_bias
@@ -169,34 +171,6 @@ def _check_shapes(x, w, kernel):
     _build.check_operand(kernel, "x", x, (b, t, d_in), torch.bfloat16, x.device)
     _build.check_aligned(kernel, "x", x)
     return b, t, d_in, hd, nh, e, f, dout
-
-
-GATE_CHUNK = 64   # gate columns j per 128-column tile of K6's gate product
-
-
-def gate_perm(f: int) -> torch.Tensor:
-    """The row order of one head's [Wa; Wb] (2f rows) in K6's gate product:
-    tile c (128 rows) holds Wa's rows 64 c .. 64 c + 63, then Wb's same rows,
-    so that the product's epilogue finds a = tanh(.) and g = sigmoid(.) of
-    one column j in one thread (csrc/gemm_wgmma.cuh::epilogue_gates).
-    Permuted row n comes from row gate_perm(f)[n]."""
-    n = torch.arange(2 * f)
-    tile, col = n // (2 * GATE_CHUNK), n % (2 * GATE_CHUNK)
-    return (col >= GATE_CHUNK) * f + tile * GATE_CHUNK + col % GATE_CHUNK
-
-
-def permute_gates(w: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(wab [nh, 2f, e], bab [nh, 2f]) in gate_perm's row order, built at the
-    kernel boundary on each call as the head-major columns are: the model's
-    parameters keep their own layout. wc needs no permutation: the epilogue
-    reads it at the column j each tile's rows stand for, in wc's own order."""
-    nh, f, e = w["wa"].shape
-    c = f // GATE_CHUNK
-    wab = torch.stack([w["wa"].reshape(nh, c, GATE_CHUNK, e),
-                       w["wb"].reshape(nh, c, GATE_CHUNK, e)], dim=2).reshape(nh, 2 * f, e)
-    bab = torch.stack([w["ba"].reshape(nh, c, GATE_CHUNK),
-                       w["bb"].reshape(nh, c, GATE_CHUNK)], dim=2).reshape(nh, 2 * f)
-    return wab, bab
 
 
 @torch.no_grad()

@@ -19,12 +19,16 @@ Operands (`encoder_train.train_operands`): wa / wb [nh, f, e] in the
 compute dtype, ba / bb / wc [nh, f] and bc [nh] f32. The gate helpers here
 also serve K6/K7's plain versions. A CPU tensor takes the plain versions
 (any float dtype); a CUDA tensor launches csrc/gated_logits.cu, bf16 only,
-or raises.
+or raises. The backward recomputes the gates and forms their adjoint in
+one TMA + wgmma GEMM launch on K6's permuted [Wa; Wb]
+(`permute_gates`); its first design, the f32 gate products
+on the mma.sync GEMM and a separate adjoint pass, stays reachable as
+`gated_logits_bwd_rowblock_cuda`, a check that no path calls.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -34,6 +38,7 @@ from madeleine_torch.ops.preattn import F32_TODO, wide
 
 fwd_launches = 0   # kernel 17 launches (one per wrapper call on a CUDA tensor)
 bwd_launches = 0   # kernel 18 launches
+bwd_rowblock_launches = 0   # kernel 18's first design, the check-only entry point
 
 RATE = 0.25  # ref: abmil.py:34-35 (read at call time)
 
@@ -120,6 +125,35 @@ def gated_logits_bwd_plain(y, dl, w, seed: int, row_offset: int = 0,
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
+GATE_CHUNK = 64   # gate columns j per 128-column tile of the gate products
+
+
+def gate_perm(f: int) -> torch.Tensor:
+    """The row order of one head's [Wa; Wb] (2f rows) in the gate products
+    of K1, K6 and kernel 18: tile c (128 rows) holds Wa's rows 64 c .. 64 c
+    + 63, then Wb's same rows, so that the product's epilogue finds a =
+    tanh(.) and g = sigmoid(.) of one column j in one thread
+    (csrc/gemm_wgmma.cuh::epilogue_gates, epilogue_gates_bwd). Permuted row
+    n comes from row gate_perm(f)[n]."""
+    n = torch.arange(2 * f)
+    tile, col = n // (2 * GATE_CHUNK), n % (2 * GATE_CHUNK)
+    return (col >= GATE_CHUNK) * f + tile * GATE_CHUNK + col % GATE_CHUNK
+
+
+def permute_gates(w: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(wab [nh, 2f, e], bab [nh, 2f]) in gate_perm's row order, built at the
+    kernel boundary on each call as the head-major columns are: the model's
+    parameters keep their own layout. wc needs no permutation: the epilogue
+    reads it at the column j each tile's rows stand for, in wc's own order."""
+    nh, f, e = w["wa"].shape
+    c = f // GATE_CHUNK
+    wab = torch.stack([w["wa"].reshape(nh, c, GATE_CHUNK, e),
+                       w["wb"].reshape(nh, c, GATE_CHUNK, e)], dim=2).reshape(nh, 2 * f, e)
+    bab = torch.stack([w["ba"].reshape(nh, c, GATE_CHUNK),
+                       w["bb"].reshape(nh, c, GATE_CHUNK)], dim=2).reshape(nh, 2 * f)
+    return wab, bab
+
+
 def _check(y, w, kernel):
     if y.device.type != "cuda":
         raise ValueError(f"{kernel} kernel needs CUDA tensors, got {y.device}")
@@ -157,33 +191,68 @@ def gated_logits_fwd_cuda(y, w, seed: int, row_offset: int = 0,
     return logits
 
 
+def _bwd_outputs(y, dl, w, kernel):
+    """Check kernel 18's operands; returns (b, t, nh, e, f) and the outputs
+    dy [b, t, nh e] bf16, dwab [nh, 2f, e], dbab [nh, 2, f], dwc [nh, f] f32."""
+    b, t, nh, e, f = _check(y, w, kernel)
+    _build.check_operand(kernel, "dl", dl, (b, t, nh), torch.float32, y.device)
+    _build.check_aligned(kernel, "y", y)
+    dev, f32 = y.device, torch.float32
+    return (b, t, nh, e, f), [torch.empty(b, t, nh * e, dtype=torch.bfloat16, device=dev),
+                              torch.empty(nh, 2 * f, e, dtype=f32, device=dev),
+                              torch.empty(nh, 2, f, dtype=f32, device=dev),
+                              torch.empty(nh, f, dtype=f32, device=dev)]
+
+
+def _bwd_grads(outs, dl, f):
+    dy, dwab, dbab, dwc = outs
+    return {"y": dy, "wa": dwab[:, :f], "wb": dwab[:, f:], "ba": dbab[:, 0], "bb": dbab[:, 1],
+            "wc": dwc, "bc": dl.sum((0, 1))}
+
+
 @torch.no_grad()
 def gated_logits_bwd_cuda(y, dl, w, seed: int, row_offset: int = 0,
                           rate: float = RATE) -> Dict[str, torch.Tensor]:
     """Launch kernel 18 on CUDA tensors; returns as `gated_logits_bwd_plain`
-    (dbc the sum of dl, outside the kernel as on the TPU)."""
+    (dbc the sum of dl, outside the kernel as on the TPU). Raises where the
+    wgmma GEMM refuses an operand."""
     global bwd_launches
-    b, t, nh, e, f = _check(y, w, "gated_logits_bwd")
-    _build.check_operand("gated_logits_bwd", "dl", dl, (b, t, nh), torch.float32, y.device)
-    dev, M, f32 = y.device, b * t, torch.float32
+    (b, t, nh, e, f), outs = _bwd_outputs(y, dl, w, "gated_logits_bwd")
+    dev, M = y.device, b * t
     dims, scales = prng.kernel_args((b, t, nh, e, f), seed, row_offset, rate)
     ws = _build.workspace("gated_logits", "gated_logits_bwd_workspace", dims)
+    wabp, babp = permute_gates(w)                                  # K6's row order
+    wab = torch.cat([w["wa"], w["wb"]], dim=1).contiguous()        # [nh, 2f, e]
+    scratch = [torch.empty(M, 2 * nh * f, dtype=torch.bfloat16, device=dev),   # DZG
+               torch.empty(ws[0], dtype=torch.float32, device=dev),          # split-K partials
+               torch.empty(ws[1], dtype=torch.float32, device=dev)]          # column partials
+    _build.call_ptrs("gated_logits", "gated_logits_backward",
+                     [y, dl, wabp, babp, wab, w["wc"], *outs, *scratch], dims, scales, dev)
+    bwd_launches += 1
+    return _bwd_grads(outs, dl, f)
+
+
+@torch.no_grad()
+def gated_logits_bwd_rowblock_cuda(y, dl, w, seed: int, row_offset: int = 0,
+                                   rate: float = RATE) -> Dict[str, torch.Tensor]:
+    """Kernel 18's first design (the f32 gate products on the mma.sync GEMM,
+    then the adjoint pass), kept as a check of the redesign; no path calls
+    it. Returns as `gated_logits_bwd_plain`."""
+    global bwd_rowblock_launches
+    (b, t, nh, e, f), outs = _bwd_outputs(y, dl, w, "gated_logits_bwd_rowblock")
+    dev, M, f32 = y.device, b * t, torch.float32
+    dims, scales = prng.kernel_args((b, t, nh, e, f), seed, row_offset, rate)
+    ws = _build.workspace("gated_logits", "gated_logits_bwd_rowblock_workspace", dims)
     wab = torch.cat([w["wa"], w["wb"]], dim=1).contiguous()
     bab = torch.cat([w["ba"], w["bb"]], dim=1).contiguous()
-    dy = torch.empty(b, t, nh * e, dtype=torch.bfloat16, device=dev)
-    dwab = torch.empty(nh, 2 * f, e, dtype=f32, device=dev)
-    dbab = torch.empty(nh, 2, f, dtype=f32, device=dev)
-    dwc = torch.empty(nh, f, dtype=f32, device=dev)
     scratch = [torch.empty(M, 2 * nh * f, dtype=f32, device=dev),              # G
                torch.empty(M, 2 * nh * f, dtype=torch.bfloat16, device=dev),   # DZG
                torch.empty(ws[0], dtype=f32, device=dev),                      # split-K partials
                torch.empty(ws[1], dtype=f32, device=dev)]                      # column partials
-    _build.call_ptrs("gated_logits", "gated_logits_backward",
-                     [y, dl, wab, bab, w["wc"], dy, dwab, dbab, dwc, *scratch],
-                     dims, scales, dev)
-    bwd_launches += 1
-    return {"y": dy, "wa": dwab[:, :f], "wb": dwab[:, f:], "ba": dbab[:, 0], "bb": dbab[:, 1],
-            "wc": dwc, "bc": dl.sum((0, 1))}
+    _build.call_ptrs("gated_logits", "gated_logits_backward_rowblock",
+                     [y, dl, wab, bab, w["wc"], *outs, *scratch], dims, scales, dev)
+    bwd_rowblock_launches += 1
+    return _bwd_grads(outs, dl, f)
 
 
 # ---------------------------------------------------------------------------

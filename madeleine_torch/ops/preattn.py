@@ -18,7 +18,10 @@ Operands (`encoder_train.train_operands`): w1 [h, d_in], w2 [h, h], w3
 [E, h] ([out, in] layout, compute dtype), biases b*, LN scales s* and
 shifts t* (f32). The plain versions here also serve K6/K7's
 (`encoder_train.py`). A CPU tensor takes them (any float dtype); a CUDA
-tensor launches csrc/preattn.cu, bf16 only, or raises.
+tensor launches csrc/preattn.cu, bf16 only, or raises. The backward's
+products run on the TMA + wgmma GEMM; its first design, on the mma.sync
+GEMM, stays reachable as `preattn_bwd_rowblock_cuda`, a check that no path
+calls.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from madeleine_torch.ops import prng
 
 fwd_launches = 0   # kernel 15 launches (one per wrapper call on a CUDA tensor)
 bwd_launches = 0   # kernel 16 launches
+bwd_rowblock_launches = 0   # kernel 16's first design, the check-only entry point
 
 RATE = 0.1   # ref: Model.py:354,358,362 (read at call time)
 LN_EPS = 1e-5
@@ -188,16 +192,16 @@ def preattn_fwd_cuda(x, w, seed: int, row_offset: int = 0, rate: float = RATE) -
     return y
 
 
-@torch.no_grad()
-def preattn_bwd_cuda(x, dy, w, seed: int, row_offset: int = 0, rate: float = RATE,
-                     need_dx: bool = False) -> Dict[str, torch.Tensor]:
-    """Launch kernel 16 on CUDA tensors; returns as `preattn_bwd_plain`."""
-    global bwd_launches
-    b, t, d_in, hd, E = _check(x, w, "preattn_bwd")
-    _build.check_operand("preattn_bwd", "dy", dy, (b, t, E), torch.bfloat16, x.device)
+def _bwd_launch(x, dy, w, seed, row_offset, rate, need_dx, kernel, fn, ws_fn):
+    """Launch `fn` of csrc/preattn.cu, a backward of kernel 16's interface,
+    with the workspaces `ws_fn` sizes; returns as `preattn_bwd_plain`."""
+    b, t, d_in, hd, E = _check(x, w, kernel)
+    _build.check_operand(kernel, "dy", dy, (b, t, E), torch.bfloat16, x.device)
+    for name, ten in (("x", x), ("dy", dy)):
+        _build.check_aligned(kernel, name, ten)
     dev, M, f32, bf = x.device, b * t, torch.float32, torch.bfloat16
     dims, scales = prng.kernel_args((b, t, d_in, hd, E), seed, row_offset, rate)
-    ws = _build.workspace("preattn", "preattn_bwd_workspace", dims)
+    ws = _build.workspace("preattn", ws_fn, dims)
     grads = {k: torch.empty(w[k].shape, dtype=f32, device=dev) for k in KEYS}
     scratch = [torch.empty(M, max(hd, E), dtype=f32, device=dev),   # Z
                torch.empty(M, hd, dtype=bf, device=dev),            # U1
@@ -212,12 +216,35 @@ def preattn_bwd_cuda(x, dy, w, seed: int, row_offset: int = 0, rate: float = RAT
                torch.empty(ws[0], dtype=f32, device=dev),           # split-K partials
                torch.empty(ws[1], dtype=f32, device=dev)]           # column partials
     dx = torch.empty(b, t, d_in, dtype=bf, device=dev) if need_dx else None
-    _build.call_ptrs("preattn", "preattn_backward",
-                     [x, dy, *(w[k] for k in KEYS), *grads.values(), *scratch, dx],
+    _build.call_ptrs("preattn", fn, [x, dy, *(w[k] for k in KEYS), *grads.values(), *scratch, dx],
                      dims, scales, dev)
-    bwd_launches += 1
     if need_dx:
         grads["x"] = dx
+    return grads
+
+
+@torch.no_grad()
+def preattn_bwd_cuda(x, dy, w, seed: int, row_offset: int = 0, rate: float = RATE,
+                     need_dx: bool = False) -> Dict[str, torch.Tensor]:
+    """Launch kernel 16 on CUDA tensors; returns as `preattn_bwd_plain`.
+    Raises where the wgmma GEMM refuses an operand."""
+    global bwd_launches
+    grads = _bwd_launch(x, dy, w, seed, row_offset, rate, need_dx, "preattn_bwd",
+                        "preattn_backward", "preattn_bwd_workspace")
+    bwd_launches += 1
+    return grads
+
+
+@torch.no_grad()
+def preattn_bwd_rowblock_cuda(x, dy, w, seed: int, row_offset: int = 0, rate: float = RATE,
+                              need_dx: bool = False) -> Dict[str, torch.Tensor]:
+    """Kernel 16's first design (the mma.sync GEMM, a block per LN row),
+    kept as a check of the redesign; no path calls it. Returns as
+    `preattn_bwd_plain`."""
+    global bwd_rowblock_launches
+    grads = _bwd_launch(x, dy, w, seed, row_offset, rate, need_dx, "preattn_bwd_rowblock",
+                        "preattn_backward_rowblock", "preattn_bwd_rowblock_workspace")
+    bwd_rowblock_launches += 1
     return grads
 
 
