@@ -70,8 +70,9 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            outputs at atol 3e-2, gradients at 1e-2 relative Frobenius (16
            and 18's dx / dy also measured elementwise against atol 3e-2, or
            one bf16 rounding step where larger), two launches of each
-           bitwise equal; 16 and 18 (on the wgmma GEMM) also against their
-           first designs (preattn_bwd_rowblock_cuda,
+           bitwise equal; 15-18 (on the wgmma GEMM) also against their
+           first designs (preattn_fwd_rowblock_cuda,
+           preattn_bwd_rowblock_cuda, gated_logits_fwd_rowblock_cuda,
            gated_logits_bwd_rowblock_cuda) at the same bars, each twice
            bitwise equal; then at (0.1, 0.25) the chain
            preattn -> gated_logits -> plain softmax pool -> linear_tok through
@@ -82,8 +83,13 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            bitwise equal, and a misaligned y must raise. Timed at [65, 2048]
            beside their plain versions and, for linear_tok's forward,
            torch.nn.functional.linear, with kernel 19's TB/s and TFLOP/s and
-           both calls' device time launched back to back; 16 and 18 beside
-           their first designs, per call and back to back
+           both calls' device time launched back to back; 15-18 beside
+           their first designs, per call and back to back, with TFLOP/s
+  perop_bwd_digest
+           a sha256 of every output of kernels 16 and 18 at [65, 2048] on
+           seeded inputs and the flagship weights, rates 0 and (0.1, 0.25):
+           run in another checkout (this script copied there), it shows
+           whether two packages' backward kernels agree bit for bit
   golden   flagship weights saved as model.pt + model_config.json, loaded by
            create_model_from_pretrained; encode_he against
            tests/golden/golden_flagship.npz in f32 (through K2) and bf16 (K1);
@@ -201,11 +207,14 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            (kernels 15-20 and K8-K14 on every step), and with
            MADELEINE_NO_FUSED_ENCODER=1, 1 epoch (rows 4-5, 15-20, K8-K14)
   profile  torch.profiler device time by kernel of one K6 and one K7 call at
-           [65, 2048] and of kernels 16 and 18 alone at that shape (none of
-           the four may launch the mma.sync GEMM), of one full-width train
-           step of each objective (and
-           of the no-fused GOT step) and of
-           one full-width eval forward, with their device idle share; each read from a second
+           [65, 2048] and of kernels 15-18 alone at that shape (none of
+           the six may launch the mma.sync GEMM; a call whose profiled
+           window comes back empty takes another, up to ten), of one
+           full-width train step of each objective and of the no-fused
+           GOT step (which must launch the mma.sync GEMM exactly twice per
+           stain, kernel 20's two products, and the fused steps never),
+           and of one full-width eval forward, with their device idle
+           share; each read from a second
            profiled window after a warm-up window (a first window can lose
            its kernels), the K6/K7 single windows reported beside them
 Then the main path's launches of each kernel split into the published runs
@@ -237,9 +246,9 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "pool_kernels", "pool_train_kernels", "dropout_kernel",
-          "train_kernels", "got_kernels", "glue_kernels", "perop_kernels", "golden", "serve",
-          "extract", "eval_forward", "train", "train_got", "train_se", "train_sigmoid",
-          "train_nofused", "heads", "pretrain", "profile")
+          "train_kernels", "got_kernels", "glue_kernels", "perop_kernels", "perop_bwd_digest",
+          "golden", "serve", "extract", "eval_forward", "train", "train_got", "train_se",
+          "train_sigmoid", "train_nofused", "heads", "pretrain", "profile")
 # the runs of the port's main paths whose kernel launches the summary counts
 MAIN_PATHS = ("serve", "extract", "eval_forward", "train", "train_got", "train_se",
               "train_sigmoid", "train_nofused", "heads", "pretrain")
@@ -373,10 +382,10 @@ def reset_counts():
 
 # kernels no path of the port launches: K8-K10's global routes (problems
 # beyond a cluster's shared memory, never on a path's 256 x 256 problems)
-# and the first designs of K1, K13, K14 and rows 16 and 18, kept as checks
+# and the first designs of K1, K13, K14 and rows 15-18, kept as checks
 OFF_PATH = ("ipot_fwd_global", "ipot_bwd_global", "gw_gamma_global", "gw_trace_bwd_rowblock",
-            "gw_trace_fwd_rowblock", "encode_fused_rowtile", "preattn_bwd_rowblock",
-            "gated_logits_bwd_rowblock")
+            "gw_trace_fwd_rowblock", "encode_fused_rowtile", "preattn_fwd_rowblock",
+            "preattn_bwd_rowblock", "gated_logits_fwd_rowblock", "gated_logits_bwd_rowblock")
 
 
 def _check_off_path(counts, where):
@@ -2007,6 +2016,20 @@ def _backward_errs(torch, name, where, got, want):
     return rep
 
 
+def _forward_errs(torch, name, where, got, want):
+    """A forward's output against a reference's at OUT_ATOL, or for a bf16
+    output one bf16 rounding step of the reference value where that is
+    larger. Returns {"max_abs_err", "max_err_over_bar", "ok"}."""
+    a, b = got.float(), want.float()
+    if not torch.isfinite(a).all():
+        raise AssertionError(f"{name} {where}: non-finite out")
+    bar = (torch.maximum(_bf16_ulp(torch, b), torch.full_like(b, OUT_ATOL))
+           if got.dtype == torch.bfloat16 else OUT_ATOL)
+    over = ((a - b).abs() / bar).max().item()
+    return {"max_abs_err": (a - b).abs().max().item(), "max_err_over_bar": over,
+            "ok": over <= 1.0}
+
+
 def _check_perop(torch, calls, where):
     """Each kernel of `calls` twice (bitwise equal) against its plain version:
     a forward's output at OUT_ATOL, or for a bf16 output one bf16 rounding
@@ -2027,14 +2050,7 @@ def _check_perop(torch, calls, where):
         if set(got) != set(want) or not all(torch.equal(got[k], again[k]) for k in got):
             raise AssertionError(f"{name} {where}: two launches differ, or outputs {sorted(got)}")
         if name.endswith("_fwd"):
-            a, b = got["out"].float(), want["out"].float()
-            if not torch.isfinite(a).all():
-                raise AssertionError(f"{name} {where}: non-finite out")
-            bar = (torch.maximum(_bf16_ulp(torch, b), torch.full_like(b, OUT_ATOL))
-                   if got["out"].dtype == torch.bfloat16 else OUT_ATOL)
-            over = ((a - b).abs() / bar).max().item()
-            rep[name] = {"max_abs_err": (a - b).abs().max().item(), "max_err_over_bar": over,
-                         "ok": over <= 1.0}
+            rep[name] = _forward_errs(torch, name, where, got["out"], want["out"])
         else:
             rep[name] = _backward_errs(torch, name, where, got, want)
         del got, again, want
@@ -2042,19 +2058,21 @@ def _check_perop(torch, calls, where):
 
 
 def _first_designs():
-    """{kernel: its first design}: rows 16 and 18 as first built (the
-    mma.sync GEMM), kept as check-only entry points."""
+    """{kernel: its first design}: rows 15-18 as first built (the mma.sync
+    GEMM), kept as check-only entry points."""
     from madeleine_torch.ops import gated_logits as gl
     from madeleine_torch.ops import preattn as pa
 
-    return {"preattn_bwd": pa.preattn_bwd_rowblock_cuda,
+    return {"preattn_fwd": pa.preattn_fwd_rowblock_cuda,
+            "preattn_bwd": pa.preattn_bwd_rowblock_cuda,
+            "gated_logits_fwd": gl.gated_logits_fwd_rowblock_cuda,
             "gated_logits_bwd": gl.gated_logits_bwd_rowblock_cuda}
 
 
 def _check_first_designs(torch, calls, where):
-    """Rows 16 and 18 of `calls` against their first designs on the same
-    inputs, at the plain versions' bars (`_backward_errs`); each first design
-    twice, bitwise equal. Returns {kernel: errors, "ok"}."""
+    """Rows 15-18 of `calls` against their first designs on the same inputs,
+    at the plain versions' bars (`_forward_errs`, `_backward_errs`); each
+    first design twice, bitwise equal. Returns {kernel: errors, "ok"}."""
     rep = {}
     for name, first in _first_designs().items():
         if name not in calls:
@@ -2062,9 +2080,14 @@ def _check_first_designs(torch, calls, where):
         kern, _, args, kw = calls[name]
         got, ref, again = kern(*args, **kw), first(*args, **kw), first(*args, **kw)
         torch.cuda.synchronize()
+        if isinstance(got, torch.Tensor):
+            got, ref, again = {"out": got}, {"out": ref}, {"out": again}
         if set(ref) != set(got) or not all(torch.equal(ref[k], again[k]) for k in ref):
             raise AssertionError(f"{name} first design {where}: two launches differ")
-        rep[name] = _backward_errs(torch, name, f"{where} against its first design", got, ref)
+        against = f"{where} against its first design"
+        rep[name] = (_forward_errs(torch, name, against, got["out"], ref["out"])
+                     if name.endswith("_fwd") else
+                     _backward_errs(torch, name, against, got, ref))
         del got, ref, again
     return rep
 
@@ -2305,7 +2328,7 @@ def phase_perop_kernels(state):
                        "share_of_bound": bound / ms, "gflop": work[name][0] / 1e9,
                        "gb": work[name][1] / 1e9}
         first = _first_designs().get(name)
-        if first:   # rows 16 and 18: both designs in this call, per call and back to back
+        if first:   # rows 15-18: both designs in this call, per call and back to back
             tm = times[name]
             tm["first_design_ms"] = cuda_ms(lambda: first(*args, **kw))
             tm["first_design_share_of_bound"] = bound / tm["first_design_ms"]
@@ -2314,6 +2337,7 @@ def phase_perop_kernels(state):
             tm["first_design_device_ms_back_to_back"] = cuda_ms_back_to_back(
                 lambda: first(*args, **kw), calls=20)
             tm["tflop_per_s"] = tm["gflop"] / tm["ms"]
+            tm["first_design_tflop_per_s"] = tm["gflop"] / tm["first_design_ms"]
     y, wt, bt = step_calls["linear_tok_fwd"][2]
     lt_fwd = step_calls["linear_tok_fwd"][0]
     bt16 = bt.to(torch.bfloat16)
@@ -2350,6 +2374,44 @@ def phase_perop_kernels(state):
         raise AssertionError(f"perop_kernels: missed their bars: {failed}; the chain against "
                              f"K6/K7: {chain['real']['failed']}; the shifted-mask control "
                              f"missed only {sorted(control_missed)}")
+
+
+def phase_perop_bwd_digest(state):
+    """A sha256 of every output of kernels 16 and 18 at the train step's
+    call shape, flagship weights, seeded inputs (y random, not kernel 15's
+    output), rates 0 and (0.1, 0.25). Nothing is checked here: run in two
+    checkouts (this script copied to the other), the digests show whether
+    their backward kernels agree bit for bit."""
+    import torch
+    from madeleine_torch.models.madeleine import train_weights
+    from madeleine_torch.ops import gated_logits as gl
+    from madeleine_torch.ops import preattn as pa
+
+    model = flagship_model(torch, "bfloat16")
+    with torch.no_grad():
+        w = {k: v.detach().contiguous() for k, v in train_weights(model, torch.bfloat16).items()}
+    del model
+    gen = np.random.default_rng(SEED + 21)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.from_numpy(gen.standard_normal(shape).astype(np.float32)).cuda().to(dtype)
+
+    b, t = PEROP_STEP_SHAPE
+    E, nh = w["w3"].shape[0], w["wa"].shape[0]
+    x, dy, y = randn(b, t, w["w1"].shape[1]), randn(b, t, E), randn(b, t, E)
+    dl = randn(b, t, nh, dtype=torch.float32)
+    digests = {}
+    for rates in ((0.0, 0.0), (0.1, 0.25)):
+        for name, out in (("preattn_bwd", pa.preattn_bwd_cuda(x, dy, w, 7, 3, rates[0])),
+                          ("gated_logits_bwd",
+                           gl.gated_logits_bwd_cuda(y, dl, w, 7, 3, rates[1]))):
+            h = hashlib.sha256()
+            for k in sorted(out):
+                h.update(k.encode())
+                h.update(out[k].contiguous().view(torch.uint8).cpu().numpy().tobytes())
+            digests[f"{name} {list(rates)}"] = h.hexdigest()
+    emit({"phase": "perop_bwd_digest", "shape": list(PEROP_STEP_SHAPE), "seed": 7,
+          "row_offset": 3, "sha256": digests})
 
 
 def phase_golden(state):
@@ -3267,6 +3329,9 @@ def _profiled(torch, fn):
     return _profile_rows(prof)
 
 
+PROFILE_WINDOWS = 10   # profiled windows a call of rows 15-18 alone may take
+
+
 def phase_profile(state):
     """Device time by kernel of one K6 and one K7 call at the train step's
     call shape [65, 2048] (torch.profiler, CUDA activity), flagship weights."""
@@ -3317,7 +3382,7 @@ def phase_profile(state):
                          "wgmma_gemm_ms": sum(ms for k, _, ms in rows if "wg::gemm_kernel" in k),
                          "mma_sync_gemm_launches": 0,
                          "by_kernel_ms": [[k, c, ms] for k, c, ms in rows[:16]]}
-        # rows 16 and 18 alone at the same call shape, the real rates: every
+        # rows 15-18 alone at the same call shape, the real rates: every
         # product on the TMA + wgmma GEMM, and what sets their pace
         from madeleine_torch.ops import gated_logits as gl
         from madeleine_torch.ops import preattn as pa
@@ -3325,17 +3390,30 @@ def phase_profile(state):
         y = pa.preattn_fwd_cuda(x, w, 1, 0, rates[0])
         dy = torch.randn(65, 2048, y.shape[-1], generator=g, device="cuda").to(torch.bfloat16)
         dl = torch.randn(65, 2048, w["wa"].shape[0], generator=g, device="cuda")
-        for name, fn in (("preattn_bwd", lambda: pa.preattn_bwd_cuda(x, dy, w, 1, 0, rates[0])),
+        for name, fn in (("preattn_fwd", lambda: pa.preattn_fwd_cuda(x, w, 1, 0, rates[0])),
+                         ("preattn_bwd", lambda: pa.preattn_bwd_cuda(x, dy, w, 1, 0, rates[0])),
+                         ("gated_logits_fwd",
+                          lambda: gl.gated_logits_fwd_cuda(y, w, 1, 0, rates[1])),
                          ("gated_logits_bwd",
                           lambda: gl.gated_logits_bwd_cuda(y, dl, w, 1, 0, rates[1]))):
             fn()
-            rows = _profiled(torch, fn)
+            # late in a full run the profiler can lose a short call's whole
+            # window (rows 15 and 17, about 2 ms each: both read empty in one
+            # full run, one of them in the next): take it again, and fail
+            # rather than pass the check below on an empty window
+            for windows in range(1, PROFILE_WINDOWS + 1):
+                rows = _profiled(torch, fn)
+                if rows:
+                    break
+            if not rows:
+                raise AssertionError(f"profile: {name}: no kernel seen in {PROFILE_WINDOWS} "
+                                     f"windows")
             left = [[k, c, ms] for k, c, ms in rows if "gemm_bf16_kernel" in k]
             if left:
                 raise AssertionError(f"profile: {name} still launches the mma.sync GEMM: {left}")
             out[name] = {"total_ms": sum(r[2] for r in rows),
                          "wgmma_gemm_ms": sum(ms for k, _, ms in rows if "wg::gemm_kernel" in k),
-                         "mma_sync_gemm_launches": 0,
+                         "mma_sync_gemm_launches": 0, "profiled_windows": windows,
                          "by_kernel_ms": [[k, c, ms] for k, c, ms in rows[:16]]}
         del y, dy, dl
     del x, w
@@ -3362,12 +3440,14 @@ def phase_profile(state):
 
             rows = _profiled(torch, one_step)
         busy, wall = sum(r[2] for r in rows), start.elapsed_time(end)
-        # rows 15, 17 and 20 (the no-fused step's per-op forward kernels and
-        # the token projector's backward) stay on the mma.sync GEMM; the fused
-        # steps launch it nowhere
+        # of the no-fused step's kernels only kernel 20 (the token projector's
+        # backward, two products) stays on the mma.sync GEMM, once per stain;
+        # the fused steps launch it nowhere
         mma = sum(c for k, c, _ in rows if "gemm_bf16_kernel" in k)
-        if (mma > 0) != no_fused:
-            raise AssertionError(f"profile: {name} launched the mma.sync GEMM {mma} times")
+        want = 2 * batch["feats"].shape[1] if no_fused else 0
+        if mma != want:
+            raise AssertionError(f"profile: {name} launched the mma.sync GEMM {mma} times, "
+                                 f"not {want}")
         steps[name] = {"wall_ms": wall, "device_busy_ms": busy,
                        "device_idle_share": 1.0 - busy / wall, **_split_got_rows(rows),
                        "mma_sync_gemm_launches": mma,

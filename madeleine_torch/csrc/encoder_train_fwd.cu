@@ -44,8 +44,8 @@
 //   - the pool splits each bag into 64-token tiles whose (m, s, w) partials
 //     are merged in tile order, as pool_combine.cuh does.
 // No atomics anywhere: launches are bitwise reproducible. The layer stack is
-// train_rows.cuh's, shared with the per-op kernel 15 (which stays on the
-// mma.sync GEMM).
+// train_rows.cuh's, shared with the first design of the per-op kernel 15
+// (kept as a check); gate_logits_sum is shared with the per-op kernel 17.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -130,19 +130,6 @@ __global__ void pool_merge(const float* __restrict__ part_m, const float* __rest
   }
 }
 
-// One thread per (row, head): l = the partials of its f / 64 column chunks
-// summed in chunk order + bc[h] + bias[row].
-__global__ void gate_logits_sum(const float* __restrict__ lpart, const float* __restrict__ bc,
-                                const float* __restrict__ bias, float* __restrict__ l,
-                                long long M, int nh, int chunks) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= M * nh) return;
-  const float* pp = lpart + i * chunks;
-  float s = 0.f;
-  for (int c = 0; c < chunks; ++c) s += pp[c];
-  l[i] = s + bc[i % nh] + (bias ? bias[i / nh] : 0.f);
-}
-
 }  // namespace
 
 // dims: b, t, d_in, hidden, nh, e, f, d_out, seed, row_offset, thr_pre, thr_gate.
@@ -209,7 +196,7 @@ extern "C" int encoder_train_forward(void** p, const long long* dims, const floa
     err = madeleine::wg_gemm<false, false, madeleine::wg::EPI_GATES>(a, bw, gp, st);
     if (err != cudaSuccess) return (int)err;
   }
-  gate_logits_sum<<<(unsigned)(((long long)M * nh + 255) / 256), 256, 0, st>>>(
+  madeleine::gate_logits_sum<<<(unsigned)(((long long)M * nh + 255) / 256), 256, 0, st>>>(
       lpart, bc, bias, l, M, nh, f / 64);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

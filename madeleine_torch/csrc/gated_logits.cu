@@ -19,21 +19,32 @@
 // input and the weight gradients), against 4-8 KB of traffic per token:
 // the dense bf16 rate bounds both.
 //
-// Design of the backward (kernel 18, redesigned for Hopper): the recompute
-// and the gate adjoint are one batched launch of the TMA + wgmma GEMM of
+// Design of the forward (kernel 17, redesigned for Hopper): K6's gate
+// product, alone. One batched launch of the TMA + wgmma GEMM of
 // gemm_wgmma.cuh (64-row tiles, the heads as coordinates) on [Wa; Wb]_h in
-// K6's permuted row order (ops/encoder_train.py::permute_gates), whose
-// epilogue (epilogue_gates_bwd) forms a, g, their dropout and dza, dzb from
-// dl and wc, writes DZG [M, nh*2f] bf16 in the natural [dza | dzb] order
-// and the per-64-row-tile column partials of dwc, dba and dbb: the f32
-// gate products never reach memory. Then dy = DZG . [Wa; Wb] and dW[a|b] =
-// DZG^T y on the same GEMM, as K7's. Parameter gradients are split-K
-// partials and per-tile column partials summed in a fixed order: no
-// atomics, launches are bitwise reproducible. The first design (the f32
-// gate products on the mma.sync GEMM of gemm_bf16.cuh, K7's gate_bwd pass
+// K6's permuted row order (ops/gated_logits.py::permute_gates), whose
+// epilogue (epilogue_gates, with no a_pre / b_pre to write, as in K1's call)
+// forms a and g, their dropout and one partial logit per 64 gate columns;
+// then gate_logits_sum (train_rows.cuh, K6's) adds the partials in chunk
+// order and bc. The f32 gate products never reach memory: the scratch is
+// the partials [M, nh, f/64] f32, 17 MB at the step's call shape where the
+// first design's G took 2.18 GB. Per element the logits are K6's for the
+// same y with no mask bias. The first design (the f32 gate products on the
+// mma.sync GEMM of gemm_bf16.cuh, then gate_logits_fwd's row pass over
+// them) stays as the check-only entry point gated_logits_forward_rowblock.
+//
+// Design of the backward (kernel 18, redesigned for Hopper): the recompute
+// and the gate adjoint are one batched launch of the same GEMM on the same
+// permuted [Wa; Wb], whose epilogue (epilogue_gates_bwd) forms a, g, their
+// dropout and dza, dzb from dl and wc, writes DZG [M, nh*2f] bf16 in the
+// natural [dza | dzb] order and the per-64-row-tile column partials of dwc,
+// dba and dbb: the f32 gate products never reach memory. Then dy = DZG .
+// [Wa; Wb] and dW[a|b] = DZG^T y on the same GEMM, as K7's. Parameter
+// gradients are split-K partials and per-tile column partials summed in a
+// fixed order: no atomics, launches are bitwise reproducible. The first
+// design (the f32 gate products on the mma.sync GEMM, K7's gate_bwd pass
 // over them, the two products on the same GEMM) stays as the check-only
-// entry point gated_logits_backward_rowblock; the forward (kernel 17) is
-// still that design.
+// entry point gated_logits_backward_rowblock.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,11 +76,40 @@ Dims dims_of(const long long* dims, const float* scales) {
 }  // namespace
 
 // dims: b, t, nh, e, f, seed, row_offset, thr. scales: the keep scale.
-// p: y [M, nh*e] bf16, wab [nh, 2f, e] bf16 (per head [Wa; Wb]), bab
-// [nh, 2f] f32, wc [nh, f] f32, bc [nh] f32, logits [M, nh] f32, then
-// scratch G [M, nh*2f] f32. Returns a cudaError_t.
+// p: y [M, nh*e] bf16, wabp [nh, 2f, e] bf16 and babp [nh, 2f] f32 (per head
+// [Wa; Wb] and [ba; bb] in K6's permuted row order), wc [nh, f] f32, bc [nh]
+// f32, logits [M, nh] f32, then scratch lpart [M, nh, f/64] f32. Returns a
+// cudaError_t (cudaErrorInvalidValue where the wgmma GEMM refuses an operand).
 extern "C" int gated_logits_forward(void** p, const long long* dims, const float* scales,
                                     void* stream_) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream_);
+  const Dims D = dims_of(dims, scales);
+  const int nh = D.nh, e = D.e, f = D.f, M = D.M;
+  const bf16 *y = (const bf16*)p[0], *wabp = (const bf16*)p[1];
+  const float *babp = (const float*)p[2], *wc = (const float*)p[3], *bc = (const float*)p[4];
+  float *logits = (float*)p[5], *lpart = (float*)p[6];
+  using madeleine::wg::EPI_GATES;
+  // batch h reads y at column h e and the permuted [Wa; Wb]_h at row h 2f
+  const madeleine::WgOperand a{y, D.E, M, D.E, 0, e};
+  const madeleine::WgOperand bw{wabp, e, 2LL * nh * f, e, 2 * f, 0};
+  madeleine::wg::Params gp = madeleine::wg_params(nullptr, 2 * f, babp, M, 2 * f, e);
+  gp.strideBias = 2LL * f;
+  gp.batches = nh;
+  gp.lpart = lpart; gp.wc = wc;
+  gp.f = f; gp.t = D.t; gp.row_offset = D.row_offset;
+  gp.d = D.d;
+  const cudaError_t err = madeleine::wg_gemm<false, false, EPI_GATES>(a, bw, gp, st);
+  if (err != cudaSuccess) return (int)err;
+  madeleine::gate_logits_sum<<<(unsigned)(((long long)M * nh + 255) / 256), 256, 0, st>>>(
+      lpart, bc, nullptr, logits, M, nh, f / 64);
+  return (int)cudaGetLastError();
+}
+
+// The first design of the forward, kept as a check (no path calls it).
+// dims as gated_logits_forward. p: y, wab [nh, 2f, e] bf16 (per head [Wa;
+// Wb]), bab [nh, 2f] f32, wc, bc, logits, then scratch G [M, nh*2f] f32.
+extern "C" int gated_logits_forward_rowblock(void** p, const long long* dims,
+                                             const float* scales, void* stream_) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream_);
   const Dims D = dims_of(dims, scales);
   float* G = (float*)p[6];

@@ -21,18 +21,21 @@
 // gradient for layers 3 and 2, and 1 with dx), against 5 KB of traffic per
 // token: the dense bf16 rate bounds both.
 //
-// Design of the backward (kernel 16, redesigned for Hopper): every product
-// on the TMA + wgmma GEMM of gemm_wgmma.cuh, as K7's (about 210 TFLOP/s on
-// the mma.sync GEMM, 340-440 on wgmma): the recompute's Z = A W^T + bias in
-// f32, then a warp-per-row LayerNorm / GELU / dropout kernel with 16-byte
-// loads (ln_gelu_rows_train, after K1's ln_gelu_rows in encode_fused.cu)
-// that writes only what the adjoint reads: u1-u3, rstd, h1, h2; then K7's
-// layer adjoints (train_rows.cuh::stack_bwd<Gemm::WGMMA>). Gradients of
-// parameters are split-K partials and per-tile column partials summed in a
-// fixed order: no atomics, launches are bitwise reproducible. The first
-// design (the same sequence on the mma.sync GEMM of gemm_bf16.cuh, with
-// K6's row-per-block ln_gelu_fwd) stays as the check-only entry point
-// preattn_backward_rowblock; the forward (kernel 15) is still that design.
+// Design (kernels 15 and 16, redesigned for Hopper): every product on the
+// TMA + wgmma GEMM of gemm_wgmma.cuh, as K7's (about 210 TFLOP/s on the
+// mma.sync GEMM, 340-440 on wgmma). The forward and the backward's recompute
+// are one sequence (recompute): per layer Z = A W^T + bias in f32, then a
+// warp-per-row LayerNorm / GELU / dropout kernel with 16-byte loads
+// (ln_gelu_rows_train, after K1's ln_gelu_rows in encode_fused.cu) that
+// writes only what its caller reads: the forward h1, h2 and layer 3's bf16
+// output y; the backward's recompute u1-u3, rstd, h1, h2. The backward then
+// runs K7's layer adjoints (train_rows.cuh::stack_bwd<Gemm::WGMMA>).
+// Gradients of parameters are split-K partials and per-tile column partials
+// summed in a fixed order: no atomics, launches are bitwise reproducible.
+// The first designs (the same sequences on the mma.sync GEMM of
+// gemm_bf16.cuh, with K6's row-per-block ln_gelu_fwd) stay as the
+// check-only entry points preattn_forward_rowblock and
+// preattn_backward_rowblock.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,17 +73,9 @@ void stack_weights(madeleine::StackFwd& a, void** p, int first) {
   }
 }
 
-}  // namespace
-
-// dims: b, t, d_in, hidden, E, seed, row_offset, thr. scales: the keep
-// scale. p: x, w1, b1, s1, t1, w2, b2, s2, t2, w3, b3, s3, t3, y [M, E] bf16,
-// then scratch Z [M, max(hidden, E)] f32, rstd [M, 3] f32, H1, H2 [M, hidden]
-// bf16. Returns a cudaError_t.
-extern "C" int preattn_forward(void** p, const long long* dims, const float* scales,
-                               void* stream_) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream_);
-  const Dims D = dims_of(dims, scales);
-  madeleine::StackFwd a{};
+// The forward's pointers (the layout of preattn_forward's p).
+void forward_args(void** p, const Dims& D, madeleine::StackFwd& a) {
+  a = madeleine::StackFwd{};
   a.x = (const bf16*)p[0];
   stack_weights(a, p, 1);
   a.Z = (float*)p[14];
@@ -89,17 +84,14 @@ extern "C" int preattn_forward(void** p, const long long* dims, const float* sca
   a.M = D.M; a.t = D.t; a.d_in = D.d_in; a.hd = D.hd; a.E = D.E;
   a.row_offset = D.row_offset;
   a.d = D.d;
-  return (int)madeleine::stack_fwd<madeleine::Gemm::MMA_SYNC>(a, st);
 }
 
-namespace {
-
-// Warp-per-row LayerNorm + GELU + dropout of kernel 16's recompute: 8 rows
-// per 256-thread block, lane l holding the 16-byte column groups v 32 + l
+// Warp-per-row LayerNorm + GELU + dropout of kernels 15 and 16: 8 rows per
+// 256-thread block, lane l holding the 16-byte column groups v 32 + l
 // (v < V) of its row of W = 128 V columns, the statistics by warp shuffles
 // (mean, then the squared deviations from it, as ln_gelu_fwd). Z [M, W]
-// f32 pre-LN rows (bias included); writes U (bf16 u), rstd[r 3 + layer]
-// and, where set, H (the bf16 output).
+// f32 pre-LN rows (bias included); writes, where set, U (bf16 u),
+// rstd[r 3 + layer] and H (the bf16 output).
 template <int V>
 __global__ void __launch_bounds__(256)
 ln_gelu_rows_train(const float* __restrict__ Z, const float* __restrict__ s,
@@ -137,10 +129,10 @@ ln_gelu_rows_train(const float* __restrict__ Z, const float* __restrict__ s,
       const float x = u[j] * sc[j] + shv[j];
       h[j] = x * madeleine::gauss_cdf(x) * k[j];
     }
-    madeleine::store4(U + r * W + c, u);
+    if (U) madeleine::store4(U + r * W + c, u);
     if (H) madeleine::store4(H + r * W + c, h);
   }
-  if (lane == 0) rstd[r * 3 + layer] = rs;
+  if (rstd && lane == 0) rstd[r * 3 + layer] = rs;
 }
 
 constexpr int MAX_V = 32;   // widths up to 4096 (ops/preattn.py::_check)
@@ -161,8 +153,9 @@ cudaError_t launch_ln_rows(int v, const float* Z, const float* s, const float* s
     return cudaErrorInvalidValue;
 }
 
-// Kernel 16's recompute of the three layers: each product on the wgmma GEMM
-// into Z, then its row kernel. Writes U[0..2], rstd, H[0], H[1].
+// The three layers of kernel 15 and of kernel 16's recompute: each product
+// on the wgmma GEMM into Z, then its row kernel. H[0], H[1] must be set;
+// writes them and, where set, U[0..2], rstd and H[2] (layer 3's output).
 cudaError_t recompute(const madeleine::StackFwd& a, cudaStream_t st) {
   const bf16* Ain[3] = {a.x, a.H[0], a.H[1]};
   const int Kl[3] = {a.d_in, a.hd, a.hd}, Nl[3] = {a.hd, a.hd, a.E};
@@ -170,8 +163,8 @@ cudaError_t recompute(const madeleine::StackFwd& a, cudaStream_t st) {
     cudaError_t err = madeleine::linear_f32<madeleine::Gemm::WGMMA>(Ain[i], a.w[i], a.b[i], a.Z,
                                                                     a.M, Nl[i], Kl[i], st);
     if (err == cudaSuccess)
-      err = launch_ln_rows(Nl[i] / 128, a.Z, a.s[i], a.sh[i], a.U[i], a.rstd,
-                           i < 2 ? a.H[i] : nullptr, a.M, a.t, a.row_offset, i, a.d, st);
+      err = launch_ln_rows(Nl[i] / 128, a.Z, a.s[i], a.sh[i], a.U[i], a.rstd, a.H[i], a.M, a.t,
+                           a.row_offset, i, a.d, st);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -226,6 +219,29 @@ void backward_args(void** p, const Dims& D, madeleine::StackFwd& f, madeleine::S
 }
 
 }  // namespace
+
+// dims: b, t, d_in, hidden, E, seed, row_offset, thr. scales: the keep
+// scale. p: x, w1, b1, s1, t1, w2, b2, s2, t2, w3, b3, s3, t3, y [M, E] bf16,
+// then scratch Z [M, max(hidden, E)] f32, rstd [M, 3] f32 or null, H1, H2
+// [M, hidden] bf16. Returns a cudaError_t (cudaErrorInvalidValue where the
+// wgmma GEMM refuses an operand).
+extern "C" int preattn_forward(void** p, const long long* dims, const float* scales,
+                               void* stream_) {
+  madeleine::StackFwd a;
+  forward_args(p, dims_of(dims, scales), a);
+  return (int)recompute(a, static_cast<cudaStream_t>(stream_));
+}
+
+// The first design of the forward, kept as a check (no path calls it): the
+// same layers on the mma.sync GEMM with K6's row kernel. p as
+// preattn_forward's, rstd set.
+extern "C" int preattn_forward_rowblock(void** p, const long long* dims, const float* scales,
+                                        void* stream_) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream_);
+  madeleine::StackFwd a;
+  forward_args(p, dims_of(dims, scales), a);
+  return (int)madeleine::stack_fwd<madeleine::Gemm::MMA_SYNC>(a, st);
+}
 
 // Floats of workspace the backward needs: [split-K partials, column partials].
 extern "C" void preattn_bwd_workspace(const long long* dims, long long* out) {

@@ -89,6 +89,19 @@ __global__ void gate_logits_fwd(const float* __restrict__ G, const float* __rest
   if (c4 == 0) l[r * nh + h] = sum + bc[h] + (bias ? bias[r] : 0.f);
 }
 
+// One thread per (row, head): l = the partials of its f / 64 column chunks
+// summed in chunk order + bc[h] + bias[row].
+__global__ void gate_logits_sum(const float* __restrict__ lpart, const float* __restrict__ bc,
+                                const float* __restrict__ bias, float* __restrict__ l,
+                                long long M, int nh, int chunks) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= M * nh) return;
+  const float* pp = lpart + i * chunks;
+  float s = 0.f;
+  for (int c = 0; c < chunks; ++c) s += pp[c];
+  l[i] = s + bc[i % nh] + (bias ? bias[i / nh] : 0.f);
+}
+
 // Gate adjoint. Block = 64-row tile, nh*f/4 threads. The pre-dropout gate
 // activations of row r, head h are AP / BP + r * ldg + h * hs (bf16 saved
 // residuals, or the f32 recomputed products). Writes DZG [M, nh*2f] bf16
@@ -204,10 +217,10 @@ __global__ void colsum_rows(const bf16* __restrict__ X, float* __restrict__ part
 inline int row_tiles(int M) { return (M + ROW_TILE - 1) / ROW_TILE; }
 
 // The GEMM behind the launch sequences below, chosen at each call site: the
-// whole-encoder kernels (K6, K7) and the per-op backward kernels 16 and 18
-// run every product on the TMA + wgmma GEMM of gemm_wgmma.cuh, the per-op
-// kernels 15, 17 and 20 (and the first designs of 16 and 18, kept as
-// checks) on the mma.sync GEMM of gemm_bf16.cuh.
+// whole-encoder kernels (K6, K7) and the per-op kernels 15-18 run every
+// product on the TMA + wgmma GEMM of gemm_wgmma.cuh, the per-op kernel 20
+// (and the first designs of 15-18, kept as checks) on the mma.sync GEMM of
+// gemm_bf16.cuh.
 enum class Gemm { MMA_SYNC, WGMMA };
 
 // Weight gradient [Mo, No] = sum over tokens of A(tok, m) B(tok, n), both
@@ -383,9 +396,10 @@ inline cudaError_t stack_bwd(const StackBwd& a, const DT* din3, cudaStream_t st)
   return cudaSuccess;
 }
 
-// Gate products of every head in one batched launch (the per-op kernel 17
-// and kernel 18's first design; K6 fuses the logits into its own gate
-// product, kernel 18 the gate adjoint into its recompute):
+// Gate products of every head in one batched launch (the first designs of
+// the per-op kernels 17 and 18, kept as checks; K6 and kernel 17 fuse the
+// logits into their gate product, kernel 18 the gate adjoint into its
+// recompute):
 // G_h = act(y_h Wab_h^T + bab_h), tanh on the first f columns, sigmoid on
 // the next f. Y [M, nh*e] bf16, wab [nh, 2f, e] bf16, bab [nh, 2f] f32,
 // G [M, nh*2f] f32.

@@ -19,11 +19,13 @@ Operands (`encoder_train.train_operands`): wa / wb [nh, f, e] in the
 compute dtype, ba / bb / wc [nh, f] and bc [nh] f32. The gate helpers here
 also serve K6/K7's plain versions. A CPU tensor takes the plain versions
 (any float dtype); a CUDA tensor launches csrc/gated_logits.cu, bf16 only,
-or raises. The backward recomputes the gates and forms their adjoint in
-one TMA + wgmma GEMM launch on K6's permuted [Wa; Wb]
-(`permute_gates`); its first design, the f32 gate products
-on the mma.sync GEMM and a separate adjoint pass, stays reachable as
-`gated_logits_bwd_rowblock_cuda`, a check that no path calls.
+or raises. Both kernels run on K6's permuted [Wa; Wb] (`permute_gates`):
+the forward forms the gates and their partial logits in one TMA + wgmma
+GEMM launch, K6's gate product, and adds the partials in a second; the
+backward recomputes the gates and forms their adjoint in one launch of the
+same GEMM. Their first designs, the f32 gate products on the mma.sync GEMM
+and a separate row pass, stay reachable as `gated_logits_fwd_rowblock_cuda`
+and `gated_logits_bwd_rowblock_cuda`, checks that no path calls.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from madeleine_torch.ops.preattn import F32_TODO, wide
 
 fwd_launches = 0   # kernel 17 launches (one per wrapper call on a CUDA tensor)
 bwd_launches = 0   # kernel 18 launches
+fwd_rowblock_launches = 0   # kernel 17's first design, the check-only entry point
 bwd_rowblock_launches = 0   # kernel 18's first design, the check-only entry point
 
 RATE = 0.25  # ref: abmil.py:34-35 (read at call time)
@@ -176,18 +179,39 @@ def _check(y, w, kernel):
 @torch.no_grad()
 def gated_logits_fwd_cuda(y, w, seed: int, row_offset: int = 0,
                           rate: float = RATE) -> torch.Tensor:
-    """Launch kernel 17 on CUDA tensors; returns as `gated_logits_fwd_plain`."""
+    """Launch kernel 17 on CUDA tensors; returns as `gated_logits_fwd_plain`.
+    Raises where the wgmma GEMM refuses an operand."""
     global fwd_launches
     b, t, nh, e, f = _check(y, w, "gated_logits_fwd")
+    _build.check_aligned("gated_logits_fwd", "y", y)
+    dev, M = y.device, b * t
+    wabp, babp = permute_gates(w)                                  # K6's row order
+    logits = torch.empty(b, t, nh, dtype=torch.float32, device=dev)
+    lpart = torch.empty(M, nh, f // GATE_CHUNK, dtype=torch.float32, device=dev)
+    dims, scales = prng.kernel_args((b, t, nh, e, f), seed, row_offset, rate)
+    _build.call_ptrs("gated_logits", "gated_logits_forward",
+                     [y, wabp, babp, w["wc"], w["bc"], logits, lpart], dims, scales, dev)
+    fwd_launches += 1
+    return logits
+
+
+@torch.no_grad()
+def gated_logits_fwd_rowblock_cuda(y, w, seed: int, row_offset: int = 0,
+                                   rate: float = RATE) -> torch.Tensor:
+    """Kernel 17's first design (the f32 gate products on the mma.sync GEMM,
+    then a row pass for the dropout and the logits), kept as a check of the
+    redesign; no path calls it. Returns as `gated_logits_fwd_plain`."""
+    global fwd_rowblock_launches
+    b, t, nh, e, f = _check(y, w, "gated_logits_fwd_rowblock")
     dev, M = y.device, b * t
     wab = torch.cat([w["wa"], w["wb"]], dim=1).contiguous()        # [nh, 2f, e]
     bab = torch.cat([w["ba"], w["bb"]], dim=1).contiguous()        # [nh, 2f]
     logits = torch.empty(b, t, nh, dtype=torch.float32, device=dev)
     G = torch.empty(M, 2 * nh * f, dtype=torch.float32, device=dev)
     dims, scales = prng.kernel_args((b, t, nh, e, f), seed, row_offset, rate)
-    _build.call_ptrs("gated_logits", "gated_logits_forward",
+    _build.call_ptrs("gated_logits", "gated_logits_forward_rowblock",
                      [y, wab, bab, w["wc"], w["bc"], logits, G], dims, scales, dev)
-    fwd_launches += 1
+    fwd_rowblock_launches += 1
     return logits
 
 

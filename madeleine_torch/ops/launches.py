@@ -35,9 +35,11 @@ COUNTERS = {
     "gw_trace_bwd": (got_glue, "gwt_bwd_launches"),         # K14
     "gw_trace_bwd_rowblock": (got_glue, "gwt_bwd_rowblock_launches"),   # K14's first design
     "preattn_fwd": (preattn, "fwd_launches"),               # 15
+    "preattn_fwd_rowblock": (preattn, "fwd_rowblock_launches"),   # 15's first design
     "preattn_bwd": (preattn, "bwd_launches"),               # 16
     "preattn_bwd_rowblock": (preattn, "bwd_rowblock_launches"),   # 16's first design
     "gated_logits_fwd": (gated_logits, "fwd_launches"),     # 17
+    "gated_logits_fwd_rowblock": (gated_logits, "fwd_rowblock_launches"),   # 17's first design
     "gated_logits_bwd": (gated_logits, "bwd_launches"),     # 18
     "gated_logits_bwd_rowblock": (gated_logits, "bwd_rowblock_launches"),   # 18's first design
     "linear_tok_fwd": (linear_tok, "fwd_launches"),         # 19

@@ -11,7 +11,8 @@ its input columns permuted to head-major (`madeleine.train_weights`'s wt);
 bt is f32. The plain versions also serve K6/K7's. A CPU tensor takes them
 (any float dtype); a CUDA tensor launches csrc/linear_tok.cu, bf16 only, or
 raises. The forward is a TMA + wgmma streaming GEMM (csrc/gemm_wgmma.cuh),
-the backward the mma.sync GEMM the per-op kernels share (csrc/gemm_bf16.cuh).
+the backward the mma.sync GEMM of csrc/gemm_bf16.cuh, the last per-op kernel
+on it (the first designs of kernels 15-18, kept as checks, run on it too).
 """
 
 from __future__ import annotations

@@ -18,10 +18,11 @@ Operands (`encoder_train.train_operands`): w1 [h, d_in], w2 [h, h], w3
 [E, h] ([out, in] layout, compute dtype), biases b*, LN scales s* and
 shifts t* (f32). The plain versions here also serve K6/K7's
 (`encoder_train.py`). A CPU tensor takes them (any float dtype); a CUDA
-tensor launches csrc/preattn.cu, bf16 only, or raises. The backward's
-products run on the TMA + wgmma GEMM; its first design, on the mma.sync
-GEMM, stays reachable as `preattn_bwd_rowblock_cuda`, a check that no path
-calls.
+tensor launches csrc/preattn.cu, bf16 only, or raises. Both kernels run
+their products on the TMA + wgmma GEMM, each followed by a warp-per-row
+LayerNorm kernel; their first designs, on the mma.sync GEMM, stay
+reachable as `preattn_fwd_rowblock_cuda` and `preattn_bwd_rowblock_cuda`,
+checks that no path calls.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from madeleine_torch.ops import prng
 
 fwd_launches = 0   # kernel 15 launches (one per wrapper call on a CUDA tensor)
 bwd_launches = 0   # kernel 16 launches
+fwd_rowblock_launches = 0   # kernel 15's first design, the check-only entry point
 bwd_rowblock_launches = 0   # kernel 16's first design, the check-only entry point
 
 RATE = 0.1   # ref: Model.py:354,358,362 (read at call time)
@@ -174,21 +176,42 @@ def _check(x, w, kernel) -> Tuple[int, int, int, int, int]:
     return b, t, d_in, hd, E
 
 
-@torch.no_grad()
-def preattn_fwd_cuda(x, w, seed: int, row_offset: int = 0, rate: float = RATE) -> torch.Tensor:
-    """Launch kernel 15 on CUDA tensors; returns as `preattn_fwd_plain`."""
-    global fwd_launches
-    b, t, d_in, hd, E = _check(x, w, "preattn_fwd")
+def _fwd_launch(x, w, seed, row_offset, rate, kernel, fn, need_rstd):
+    """Launch `fn` of csrc/preattn.cu, a forward of kernel 15's interface
+    (rstd scratch only where `need_rstd`); returns y as `preattn_fwd_plain`."""
+    b, t, d_in, hd, E = _check(x, w, kernel)
+    _build.check_aligned(kernel, "x", x)
     dev, M = x.device, b * t
     y = torch.empty(b, t, E, dtype=torch.bfloat16, device=dev)
     scratch = [torch.empty(M, max(hd, E), dtype=torch.float32, device=dev),   # Z
-               torch.empty(M, 3, dtype=torch.float32, device=dev),            # rstd
+               torch.empty(M, 3, dtype=torch.float32, device=dev) if need_rstd else None,
                torch.empty(M, hd, dtype=torch.bfloat16, device=dev),          # H1
                torch.empty(M, hd, dtype=torch.bfloat16, device=dev)]          # H2
     dims, scales = prng.kernel_args((b, t, d_in, hd, E), seed, row_offset, rate)
-    _build.call_ptrs("preattn", "preattn_forward", [x, *(w[k] for k in KEYS), y, *scratch],
-                     dims, scales, dev)
+    _build.call_ptrs("preattn", fn, [x, *(w[k] for k in KEYS), y, *scratch], dims, scales, dev)
+    return y
+
+
+@torch.no_grad()
+def preattn_fwd_cuda(x, w, seed: int, row_offset: int = 0, rate: float = RATE) -> torch.Tensor:
+    """Launch kernel 15 on CUDA tensors; returns as `preattn_fwd_plain`.
+    Raises where the wgmma GEMM refuses an operand."""
+    global fwd_launches
+    y = _fwd_launch(x, w, seed, row_offset, rate, "preattn_fwd", "preattn_forward", False)
     fwd_launches += 1
+    return y
+
+
+@torch.no_grad()
+def preattn_fwd_rowblock_cuda(x, w, seed: int, row_offset: int = 0,
+                              rate: float = RATE) -> torch.Tensor:
+    """Kernel 15's first design (the mma.sync GEMM, a block per LN row),
+    kept as a check of the redesign; no path calls it. Returns as
+    `preattn_fwd_plain`."""
+    global fwd_rowblock_launches
+    y = _fwd_launch(x, w, seed, row_offset, rate, "preattn_fwd_rowblock",
+                    "preattn_forward_rowblock", True)
+    fwd_rowblock_launches += 1
     return y
 
 

@@ -162,10 +162,13 @@ def test_mirror_matches_jax_interpret_bwd_call(setup):
 
 
 @pytest.mark.parametrize("name", ["preattn_bwd_cuda", "preattn_bwd_rowblock_cuda",
-                                  "gated_logits_bwd_cuda", "gated_logits_bwd_rowblock_cuda"])
+                                  "gated_logits_bwd_cuda", "gated_logits_bwd_rowblock_cuda",
+                                  "preattn_fwd_cuda", "preattn_fwd_rowblock_cuda",
+                                  "gated_logits_fwd_cuda", "gated_logits_fwd_rowblock_cuda"])
 def test_backward_wrappers_refuse_cpu_tensors_and_count_nothing(setup, name):
-    """Kernels 16 and 18 and their first designs take CUDA tensors only: a
-    CPU call raises before any launch and moves no counter."""
+    """Kernels 16 and 18, the forwards 15 and 17, and the first designs of
+    all four take CUDA tensors only: a CPU call raises before any launch and
+    moves no counter."""
     from madeleine_torch.ops import launches
 
     _, w, y, dl = setup
@@ -176,6 +179,8 @@ def test_backward_wrappers_refuse_cpu_tensors_and_count_nothing(setup, name):
         args = (x, torch.zeros(1, 8, 64, dtype=torch.bfloat16), w, 1)
     else:
         args = (to_torch(y, torch.bfloat16), to_torch(dl), w, 1)
+    if "_fwd" in name:   # a forward takes no cotangent
+        args = args[:1] + args[2:]
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         getattr(mod, name)(*args)
     assert launches.read() == before

@@ -3,8 +3,12 @@ encoder_train.py::permute_gates, csrc/gemm_wgmma.cuh::epilogue_gates),
 mirrored on the CPU: the row permutation of [Wa; Wb] the wrapper applies,
 and the epilogue's reduction order (permuted products, 64-column partial
 logits summed in chunk order) against the plain forward and against the
-JAX package's interpret-mode `_fwd_kernel`. f32 throughout; the kernel
-itself is held against the plain forward on the card."""
+JAX package's interpret-mode `_fwd_kernel`. The per-op kernel 17
+(csrc/gated_logits.cu::gated_logits_forward) is the same launch with no
+residuals and no mask bias: the mirror without a bias against
+`gated_logits_fwd_plain` and JAX's interpret-mode gated-logits
+`_fwd_kernel`. f32 throughout; the kernels themselves are held against
+their plain versions on the card."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -61,7 +65,8 @@ def _fused_mirror(y, bias, w, seed, row_offset, gate_rate):
     """The gate product with the permuted weights, then the epilogue's
     arithmetic: per 128-column tile a = tanh, g = sigmoid of the same 64 j,
     their dropout, a 64-column partial logit per tile, the partials added in
-    chunk order, then bc and the mask bias. Returns (l, a_pre, b_pre)."""
+    chunk order, then bc and, where given, the mask bias [b, t] (kernel 17
+    adds none). Returns (l, a_pre, b_pre)."""
     b, t, _ = y.shape
     nh, f, e = w["wa"].shape
     c = f // et.GATE_CHUNK
@@ -76,7 +81,10 @@ def _fused_mirror(y, bias, w, seed, row_offset, gate_rate):
     l = part[..., 0]
     for i in range(1, c):
         l = l + part[..., i]
-    return l + w["bc"] + bias[..., None], a.reshape(b, t, nh * f), g.reshape(b, t, nh * f)
+    l = l + w["bc"]
+    if bias is not None:
+        l = l + bias[..., None]
+    return l, a.reshape(b, t, nh * f), g.reshape(b, t, nh * f)
 
 
 def _plain_y(x, w, seed, row_offset, pre_rate):
@@ -127,3 +135,49 @@ def test_fused_mirror_matches_jax_interpret_fwd_kernel(setup):
     np.testing.assert_allclose(am.numpy(), sv[..., c0:c0 + NH * F], rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(bm.numpy(), sv[..., c0 + NH * F:c0 + 2 * NH * F], rtol=1e-4,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+def test_kernel17_mirror_matches_the_plain_forward(setup, rate):
+    """Kernel 17's route (K6's gate epilogue, no mask bias) against
+    `gated_logits_fwd_plain` on every token at rtol / atol 1e-5, at gate
+    rates 0 and 0.25 (the per-op lane's (0.1, 0.25) pair: y from the plain
+    stack at 0.1), with the masks' control at 0.25."""
+    _, w, x, _ = setup
+    pre_rate = 0.1 if rate else 0.0
+    y = _plain_y(to_torch(x), w, SEED, ROW_OFFSET, pre_rate)
+    lm, _, _ = _fused_mirror(y, None, w, SEED, ROW_OFFSET, rate)
+    want = gl.gated_logits_fwd_plain(y, w, SEED, ROW_OFFSET, rate)
+    torch.testing.assert_close(lm, want, rtol=1e-5, atol=1e-5)
+    if rate:   # the masks matter: dropping them moves the logits
+        ln, _, _ = _fused_mirror(y, None, w, SEED, ROW_OFFSET, 0.0)
+        assert (ln - want).abs().max() > 1e-3
+
+
+def _gate_setup(f):
+    _, _, params, model = param_pair(seed=6, patch_embedding_dim=D, wsi_encoder_hidden_dim=HID,
+                                     n_heads=NH, attention_hidden_dim=f)
+    y = np.random.default_rng(9).standard_normal((B, T, NH * HID)).astype(np.float32)
+    return params, {k: v.detach() for k, v in train_weights(model, torch.float32).items()}, y
+
+
+@pytest.mark.parametrize("f", [128, 512])
+def test_kernel17_mirror_matches_jax_interpret_fwd_kernel(f):
+    """At rate 0 against the JAX package's gated-logits `_fwd_call` in
+    interpret mode (madeleine_tpu/ops/gated_logits.py `_fwd_kernel`): the
+    logits at rtol 1e-4 / atol 1e-5, with f = 128 (two 64-column chunks
+    per head) and 512 (eight)."""
+    from madeleine_tpu.ops.gated_logits import _fwd_call
+
+    params, w, y = _gate_setup(f)
+    attn = params["wsi_embedders"]["attn"]
+    nh, e, _ = attn["wa"].shape
+    l_j = _fwd_call(
+        jnp.asarray(y), jnp.int32(SEED),
+        jnp.asarray(attn["wa"], jnp.float32), jnp.asarray(attn["ba"], jnp.float32),
+        jnp.asarray(attn["wb"], jnp.float32), jnp.asarray(attn["bb"], jnp.float32),
+        jnp.asarray(attn["wc"], jnp.float32).reshape(nh, f),
+        jnp.asarray(attn["bc"], jnp.float32).reshape(nh, 1),
+        e=e, nh=nh, f=f, rate=0.0, t_block=T_BLOCK, interpret=True)
+    lm, _, _ = _fused_mirror(to_torch(y), None, w, SEED, 0, 0.0)
+    np.testing.assert_allclose(lm.numpy(), np.asarray(l_j), rtol=1e-4, atol=1e-5)

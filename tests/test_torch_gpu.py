@@ -560,6 +560,44 @@ def test_per_op_kernels_match_plain(cuda_device, rates):
             assert err <= 1e-2, (kern.__name__, k, err)
 
 
+@pytest.mark.parametrize("rates", [(0.0, 0.0), (0.1, 0.25)])
+def test_per_op_forwards_match_plain_and_their_first_designs(cuda_device, rates):
+    """Kernels 15 and 17 (the wgmma GEMM: preattn's rows on the warp-per-row
+    kernel, the gate logits in the gate product's epilogue) and their first
+    designs (`preattn_fwd_rowblock_cuda`, `gated_logits_fwd_rowblock_cuda`)
+    against the plain versions at 3 x 300 tokens (partial last tiles), row
+    offset 4, and against each other: atol 3e-2, or one bf16 rounding step
+    of a bf16 value where larger. Each design twice gives bitwise-equal
+    results and moves only its own counter."""
+    from madeleine_torch.ops import gated_logits as gl
+    from madeleine_torch.ops import preattn as pa
+
+    w = _train_operands(_model(cuda_device))
+    x, _ = _bags(cuda_device, [300, 300, 300], 300, torch.bfloat16)
+
+    def within(got, want):   # atol 3e-2, or one bf16 rounding step of a bf16 value
+        want = want.float()
+        bar = (torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8).clamp_min(3e-2)
+               if got.dtype == torch.bfloat16 else 3e-2)
+        return bool(((got.float() - want).abs() <= bar).all())
+
+    y = pa.preattn_fwd_cuda(x, w, 5, 4, rates[0])
+    for mod, new, first, args in (
+            (pa, pa.preattn_fwd_cuda, pa.preattn_fwd_rowblock_cuda, (x, w, 5, 4, rates[0])),
+            (gl, gl.gated_logits_fwd_cuda, gl.gated_logits_fwd_rowblock_cuda,
+             (y, w, 5, 4, rates[1]))):
+        with torch.no_grad():
+            want = (pa.preattn_fwd_plain if mod is pa else gl.gated_logits_fwd_plain)(*args)
+        before = (mod.fwd_launches, mod.fwd_rowblock_launches)
+        got, again = new(*args), new(*args)
+        assert (mod.fwd_launches, mod.fwd_rowblock_launches) == (before[0] + 2, before[1])
+        ref, ref_again = first(*args), first(*args)
+        assert (mod.fwd_launches, mod.fwd_rowblock_launches) == (before[0] + 2, before[1] + 2)
+        assert torch.equal(got, again) and torch.equal(ref, ref_again), new.__name__
+        assert got.dtype == (torch.float32 if mod is gl else torch.bfloat16)
+        assert within(got, want) and within(ref, want) and within(got, ref), new.__name__
+
+
 def test_sigmoid_train_step_launches_the_per_op_kernels(cuda_device):
     """A bf16 InfoNCE + GOT step with activation sigmoid launches kernels
     15-20 (one forward and one backward of each per modality; GOT reads the
