@@ -43,8 +43,8 @@
 //     wait can only look one phase ahead. 128-row tiles read B from L2 half
 //     as often as 64-row ones and hand over between the warpgroups half as
 //     often;
-//   - f32 and gate outputs leave through a per-warp staging area in shared
-//     memory as whole-row stores (see the epilogues);
+//   - every output leaves through a per-warp staging area in shared memory
+//     as whole-row stores (see the epilogues);
 //   - gridDim = min(tiles, SMs): each block walks the tiles blockIdx.x,
 //     + gridDim.x, ... (batch and split outermost, then m tiles, then n
 //     tiles) with the producer running ahead across tiles;
@@ -287,19 +287,19 @@ __device__ __forceinline__ Tile tile_at(const Params& p, int tile, int tiles_n, 
 // store through C may alias those reads as far as the compiler knows, so
 // reads placed between stores would each wait for the one before.
 //
-// f32 and gate outputs leave through shared memory: each warp writes its 16
-// rows of fragments to its own staging area, then stores whole rows, 512
-// contiguous bytes per instruction (the fragments' own layout writes 32
-// bytes to each of 8 rows per instruction, and those stores took half of an
-// f32-output product's time on an H100). Staging columns are XOR-swizzled by
-// the row (words ^ 4 (row % 8)), so the fragment writes and the row reads
-// are free of bank conflicts.
+// Outputs leave through shared memory: each warp writes its 16 rows of
+// fragments to its own staging area, then stores whole rows, 512 contiguous
+// bytes per instruction (the fragments' own layout writes 32 bytes of f32,
+// or 16 of bf16, to each of 8 rows per instruction, and those stores took
+// half of an f32-output product's time on an H100). Staging columns are
+// XOR-swizzled by the row (words ^ 4 (row % 8)), so the fragment writes and
+// the row reads are free of bank conflicts.
 __device__ __forceinline__ int swz(int row, int word) { return word ^ ((row & 7) << 2); }
 
 template <int EPI>
 __device__ __forceinline__ void epilogue_plain(const Params& p, float (&d)[64], const Tile& T,
                                                int m0, int warp, int lane, float* stage) {
-  const int r = m0 + warp * 16 + lane / 4, c0 = T.n0 + (lane % 4) * 2;
+  const int c0 = T.n0 + (lane % 4) * 2;
   if (p.bias) {
     const float* bias = p.bias + (long long)T.batch * p.strideBias;
 #pragma unroll
@@ -311,14 +311,37 @@ __device__ __forceinline__ void epilogue_plain(const Params& p, float (&d)[64], 
     }
   }
   if constexpr (EPI == EPI_BF16) {
-    bf16* C = static_cast<bf16*>(p.C) + (long long)T.z * p.strideC + (long long)r * p.ldc + c0;
+    // staging: [16 rows, 64 words] of bf16 pairs, then two rows of 256
+    // bytes per instruction, 16 bytes a lane (the fragments' own layout
+    // writes 16 bytes to each of 8 rows per instruction: a bf16 output of
+    // 545 MB took 0.61 ms that way on an H100, where an f32 one of twice
+    // the bytes, staged, took 0.43)
+    uint32_t* sw = reinterpret_cast<uint32_t*>(stage);
 #pragma unroll
     for (int q = 0; q < BN / 8; ++q)
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-        if (c0 + q * 8 < p.N && r + 8 * h < p.M)
-          *reinterpret_cast<__nv_bfloat162*>(C + 8 * h * p.ldc + q * 8) =
-              __floats2bfloat162_rn(d[4 * q + 2 * h], d[4 * q + 2 * h + 1]);
+      for (int h = 0; h < 2; ++h) {
+        const int row = lane / 4 + 8 * h;
+        const __nv_bfloat162 v = __floats2bfloat162_rn(d[4 * q + 2 * h], d[4 * q + 2 * h + 1]);
+        sw[row * 64 + swz(row, q * 4 + lane % 4)] = *reinterpret_cast<const uint32_t*>(&v);
+      }
+    __syncwarp();
+    const int r0 = m0 + warp * 16, seg = lane % 16, c = T.n0 + seg * 8;
+    bf16* C = static_cast<bf16*>(p.C) + (long long)T.z * p.strideC + (long long)r0 * p.ldc + c;
+#pragma unroll
+    for (int i0 = 0; i0 < 16; i0 += 2) {
+      const int i = i0 + lane / 16;
+      if (r0 + i >= p.M || c >= p.N) continue;
+      const uint4 v = *reinterpret_cast<const uint4*>(sw + i * 64 + swz(i, seg * 4));
+      bf16* o = C + (long long)i * p.ldc;
+      if (c + 8 <= p.N) {
+        *reinterpret_cast<uint4*>(o) = v;
+      } else {   // N % 8 != 0: the row's last pairs
+        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+        for (int j = 0; j < (p.N - c) / 2; ++j) reinterpret_cast<uint32_t*>(o)[j] = w[j];
+      }
+    }
+    __syncwarp();
   } else {
     if (p.act_split >= 0) {
 #pragma unroll
@@ -782,14 +805,14 @@ inline bool wg_operand_ok(const WgOperand& o, int K) {
 // gate fields; the launcher fills the coordinate offsets and kchunk. Returns
 // cudaErrorInvalidValue for anything the kernel cannot take: misaligned or
 // unsupported operands (16-byte aligned bases, row strides a multiple of 8
-// elements), an odd N, a misaligned C (f32 and EPI_GATES_BWD's bf16 rows: a
-// 16-byte base, ldc and strideC multiples of 4, or of 8 for EPI_GATES_BWD),
-// split-K with a bias, beta or an activation.
+// elements), an odd N, a misaligned C (a 16-byte base; ldc and strideC
+// multiples of 4 for f32, of 8 for bf16 and EPI_GATES_BWD), split-K with a
+// bias, beta or an activation.
 template <bool A_MN, bool B_MN, int EPI>
 inline cudaError_t wg_gemm(const WgOperand& A, const WgOperand& B, wg::Params p,
                            cudaStream_t st) {
-  // f32 rows leave as 16-byte vectors (the staged epilogue)
-  const int align = EPI == wg::EPI_BF16 ? 4 : 16, step = EPI == wg::EPI_BF16 ? 2 : 4;
+  // rows leave as 16-byte vectors (the staged epilogues)
+  const int align = 16, step = EPI == wg::EPI_BF16 ? 8 : 4;
   bool ok = p.M >= 1 && p.N >= 1 && p.K >= 1 && p.batches >= 1 && p.splits >= 1 &&
             p.N % 2 == 0 && p.ldc % step == 0 && p.strideC % step == 0 && p.ldc >= p.N &&
             wg_operand_ok<A_MN>(A, p.K) && wg_operand_ok<B_MN>(B, p.K) &&
@@ -851,8 +874,8 @@ inline wg::Params wg_params(void* C, long long ldc, const float* bias, int M, in
 }
 
 // C [M, N] bf16 = A [M, K] . B [N, K]^T + bias [N] (bias f32, may be null).
-// Needs K % 8 == 0 (TMA's 16-byte row stride), N even, A and B 16-byte
-// aligned and C 4-byte aligned; returns cudaErrorInvalidValue otherwise.
+// Needs K % 8 == 0 (TMA's 16-byte row stride), N % 8 == 0, and A, B and C
+// 16-byte aligned; returns cudaErrorInvalidValue otherwise.
 inline cudaError_t gemm_tn_wgmma(const bf16* A, const bf16* B, const float* bias, bf16* C, int M,
                                  int N, int K, cudaStream_t st) {
   const WgOperand a{A, K, M, K, 0, 0}, b{B, K, N, K, 0, 0};

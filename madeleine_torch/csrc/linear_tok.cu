@@ -32,11 +32,18 @@
 // whole-encoder kernels K6 and K7 run every product on the same GEMM, with
 // the other operand layouts.)
 //
-// Backward design (simple first): the mma.sync GEMM of gemm_bf16.cuh; the
-// weight gradient split over the tokens into pieces summed in order, the
-// bias gradient per-tile column partials summed in tile order
-// (train_rows.cuh). No atomics in either direction: launches are bitwise
-// reproducible.
+// Backward design (redesigned for Hopper): both products on the same TMA +
+// wgmma GEMM, as K7 runs them (encoder_train_bwd.cu): dy = g Wt through
+// dgrad<Gemm::WGMMA, bf16> (g K-major, Wt MN-major, no accumulation, one
+// bf16 rounding), dWt = g^T y through tok_wgrad<Gemm::WGMMA> (both operands
+// token-major, split over the tokens into pieces summed in split order: 16
+// at the train step's call), dbt as per-64-row-tile column partials of g
+// summed in tile order (train_rows.cuh). The split-K workspace is the wgmma
+// GEMM's own count (wgrad_work<Gemm::WGMMA>: 16.8 MB at d_out 128, E 2048,
+// M 133,120).
+// No atomics: launches are bitwise reproducible. The first design (both
+// products on the mma.sync GEMM of gemm_bf16.cuh, 165-250 TFLOP/s) stays as
+// the check-only entry point linear_tok_backward_mmasync.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,24 +66,44 @@ extern "C" int linear_tok_forward(void** p, const long long* dims, const float*,
 // Floats of workspace the backward needs: [split-K partials, column partials].
 extern "C" void linear_tok_bwd_workspace(const long long* dims, long long* out) {
   const int M = (int)dims[0], E = (int)dims[1], dout = (int)dims[2];
-  out[0] = madeleine::wgrad_work_floats(dout, E, M, 1);
+  out[0] = madeleine::wgrad_work<madeleine::Gemm::WGMMA>(dout, E, M, 1);
   out[1] = (long long)madeleine::row_tiles(M) * dout;
 }
 
-// dims as linear_tok_forward. p: y, g [M, dout] bf16, wt, then the outputs
-// dy [M, E] bf16, dwt [dout, E] f32, dbt [dout] f32, then the two
-// workspaces of linear_tok_bwd_workspace. Returns a cudaError_t.
-extern "C" int linear_tok_backward(void** p, const long long* dims, const float*,
-                                   void* stream_) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream_);
+namespace {
+
+template <madeleine::Gemm G>
+int backward(void** p, const long long* dims, cudaStream_t st) {
   const int M = (int)dims[0], E = (int)dims[1], dout = (int)dims[2];
   const bf16 *y = (const bf16*)p[0], *g = (const bf16*)p[1], *wt = (const bf16*)p[2];
-  using madeleine::Gemm;
-  const cudaError_t err = madeleine::dgrad<Gemm::MMA_SYNC, bf16>(g, dout, 0, wt, E, 0,
-                                                                 (bf16*)p[3], E, 0, M, E, dout, 1,
-                                                                 0, st);
+  const cudaError_t err =
+      madeleine::dgrad<G, bf16>(g, dout, 0, wt, E, 0, (bf16*)p[3], E, 0, M, E, dout, 1, 0, st);
   if (err != cudaSuccess) return (int)err;
-  return (int)madeleine::tok_wgrad<Gemm::MMA_SYNC>(g, y, (float*)p[4], (float*)p[5],
-                                                   (float*)p[6], (float*)p[7], dout, M, E, dout,
-                                                   st);
+  return (int)madeleine::tok_wgrad<G>(g, y, (float*)p[4], (float*)p[5], (float*)p[6],
+                                      (float*)p[7], dout, M, E, dout, st);
+}
+
+}  // namespace
+
+// dims as linear_tok_forward. p: y, g [M, dout] bf16, wt, then the outputs
+// dy [M, E] bf16, dwt [dout, E] f32, dbt [dout] f32, then the two
+// workspaces of linear_tok_bwd_workspace. Returns a cudaError_t
+// (cudaErrorInvalidValue where the wgmma GEMM refuses an operand).
+extern "C" int linear_tok_backward(void** p, const long long* dims, const float*,
+                                   void* stream_) {
+  return backward<madeleine::Gemm::WGMMA>(p, dims, static_cast<cudaStream_t>(stream_));
+}
+
+// The first design of the backward, kept as a check (no path calls it).
+extern "C" void linear_tok_bwd_mmasync_workspace(const long long* dims, long long* out) {
+  const int M = (int)dims[0], E = (int)dims[1], dout = (int)dims[2];
+  out[0] = madeleine::wgrad_work<madeleine::Gemm::MMA_SYNC>(dout, E, M, 1);
+  out[1] = (long long)madeleine::row_tiles(M) * dout;
+}
+
+// Arguments as linear_tok_backward's, the workspaces those of
+// linear_tok_bwd_mmasync_workspace.
+extern "C" int linear_tok_backward_mmasync(void** p, const long long* dims, const float*,
+                                           void* stream_) {
+  return backward<madeleine::Gemm::MMA_SYNC>(p, dims, static_cast<cudaStream_t>(stream_));
 }

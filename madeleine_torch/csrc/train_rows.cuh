@@ -216,11 +216,10 @@ __global__ void colsum_rows(const bf16* __restrict__ X, float* __restrict__ part
 
 inline int row_tiles(int M) { return (M + ROW_TILE - 1) / ROW_TILE; }
 
-// The GEMM behind the launch sequences below, chosen at each call site: the
-// whole-encoder kernels (K6, K7) and the per-op kernels 15-18 run every
-// product on the TMA + wgmma GEMM of gemm_wgmma.cuh, the per-op kernel 20
-// (and the first designs of 15-18, kept as checks) on the mma.sync GEMM of
-// gemm_bf16.cuh.
+// The GEMM behind the launch sequences below, chosen at each call site:
+// every kernel on a path (K6, K7 and the per-op kernels 15-20) runs its
+// products on the TMA + wgmma GEMM of gemm_wgmma.cuh; the first designs of
+// 15-18 and 20, kept as checks, on the mma.sync GEMM of gemm_bf16.cuh.
 enum class Gemm { MMA_SYNC, WGMMA };
 
 // Weight gradient [Mo, No] = sum over tokens of A(tok, m) B(tok, n), both

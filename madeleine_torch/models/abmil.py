@@ -37,7 +37,7 @@ from madeleine_torch.ops.attn_pool import (activate_attention, fused_attention_p
                                            masked_attention_pool, softmax_pool)
 from madeleine_torch.ops.encode_fused import encode_pool_fused, kernel_weights
 from madeleine_torch.ops.gated_logits import gated_logits_train
-from madeleine_torch.ops.gated_pool import gated_attention_pool
+from madeleine_torch.ops.gated_pool import gated_attention_pool, split_operands
 from madeleine_torch.ops.preattn import preattn_train
 
 __all__ = ["ABMILEmbedder", "activate_attention", "abmil_embed", "abmil_embed_train",
@@ -116,19 +116,27 @@ def encoder_weights(emb: ABMILEmbedder) -> Dict[str, torch.Tensor]:
 
 
 def kernel_operands(emb: ABMILEmbedder, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-    """Kernel K1's operands of `emb` in `dtype` (ops/encode_fused.py::
-    kernel_weights: head-major, cast, the gates permuted), built once per
-    state of the parameters and kept on the module: a served or extracted
-    bag reuses them. An in-place change that bumps a parameter's version
+    """The eval kernels' operands of `emb`: in bf16 K1's whole encoder
+    (ops/encode_fused.py::kernel_weights: head-major, cast, the gates
+    permuted), in f32 K2's gate operands only (ops/gated_pool.py::
+    split_operands: the TF32 split of the permuted gates; the f32 route
+    reads its MLP weights fresh). Built once per state of the parameters and
+    kept on the module, one set per dtype: a served or extracted bag reuses
+    them. An in-place change that bumps a parameter's version
     (load_state_dict, a multi-tensor optimizer step) rebuilds them; one that
-    bumps none (the fused AdamW step) must be followed by
-    `drop_kernel_operands`, as the trainer does after every update."""
-    key = (dtype, tuple((p.data_ptr(), p._version) for p in emb.parameters()))
-    cached = emb.__dict__.get("_kernel_operands")
+    bumps none (the fused AdamW step) leaves both sets stale until
+    `drop_kernel_operands`, which the trainer calls after every update and
+    any other caller of such a step must call too."""
+    key = tuple((p.data_ptr(), p._version) for p in emb.parameters())
+    cache = emb.__dict__.setdefault("_kernel_operands", {})
+    cached = cache.get(dtype)
     if cached is None or cached[0] != key:
         with torch.no_grad():
-            cached = (key, kernel_weights(encoder_weights(emb), dtype))
-        emb.__dict__["_kernel_operands"] = cached
+            if dtype == torch.float32:
+                ops = split_operands(**gate_weights(emb))
+            else:
+                ops = kernel_weights(encoder_weights(emb), dtype)
+        cached = cache[dtype] = (key, ops)
     return cached[1]
 
 
@@ -195,8 +203,9 @@ def abmil_embed(
     bags [b, t, d_in], mask [b, t] bool. On a CUDA tensor with softmax and
     nothing but the pooled output asked for, bf16 runs the whole encoder in
     kernel K1 (ops/encode_fused.py) and f32 runs the MLP through torch.matmul,
-    then kernel K2 (ops/gated_pool.py). With the tokens asked for, the MLP and
-    the gates run the plain way and the softmax pool of a CUDA tensor is
+    then kernel K2 (ops/gated_pool.py); K1 and K2 read the operands
+    `kernel_operands` keeps for the weight state. With the tokens asked
+    for, the MLP and the gates run the plain way and the softmax pool of a CUDA tensor is
     kernel K3 (ops/attn_pool.py); with the logits asked for, the pool is
     plain too (the JAX package's use_pallas=False there).
 
@@ -210,6 +219,8 @@ def abmil_embed(
         return encode_pool_fused(kernel_operands(emb, bags.dtype), bags, mask)
 
     w = encoder_weights(emb)
+    if fused_ok and bags.dtype == torch.float32:
+        w.update(kernel_operands(emb, torch.float32))
 
     y = pre_attn_mlp(w, bags)
     xh = y.reshape(*y.shape[:-1], nh, emb.hidden_dim)

@@ -221,19 +221,23 @@ def workspace(lib_name: str, fn_name: str, dims: Sequence[int]) -> Tuple[int, in
 
 def launch_split_pool(name: str, inputs: Sequence[torch.Tensor], dims: Sequence[int],
                       b: int, t: int, nh: int, E: int, out_dtype: torch.dtype,
-                      stats: Sequence[Optional[torch.Tensor]] = ()) -> torch.Tensor:
-    """Launch ``<name>_forward`` of csrc/<name>.cu on the current stream.
+                      stats: Sequence[Optional[torch.Tensor]] = (),
+                      prefix: Optional[str] = None) -> torch.Tensor:
+    """Launch ``<prefix>_forward`` of csrc/<name>.cu on the current stream
+    (prefix defaults to name: another prefix reaches a second design kept in
+    the same library).
 
-    The kernels split the tokens into tiles of ``<name>_tile_rows()`` rows,
+    The kernels split the tokens into tiles of ``<prefix>_tile_rows()`` rows,
     write per-tile partials (m [b, ntiles, nh], s [b, ntiles, nh], w
     [b, ntiles, E], f32) and combine them into out [b, E] (pool_combine.cuh).
     The C entry point takes (*inputs, part_m, part_s, part_w, out, *stats,
     *dims, stream) and returns the cudaError_t of its launches; non-zero
     raises. ``stats`` are further outputs of the merge (attn_pool.cu: m and
     s [b, nh] f32), None passing a null pointer."""
-    fwd = entry(name, f"{name}_forward", [ctypes.c_void_p] * (len(inputs) + 4 + len(stats))
+    prefix = prefix or name
+    fwd = entry(name, f"{prefix}_forward", [ctypes.c_void_p] * (len(inputs) + 4 + len(stats))
                 + [ctypes.c_int] * len(dims) + [ctypes.c_void_p])
-    ntiles = -(-t // entry(name, f"{name}_tile_rows", [])())
+    ntiles = -(-t // entry(name, f"{prefix}_tile_rows", [])())
     dev = inputs[0].device
     # the three partials share one f32 buffer, each part on a 256-byte boundary
     sizes = [-(-n // 64) * 64 for n in (b * ntiles * nh, b * ntiles * nh, b * ntiles * E)]

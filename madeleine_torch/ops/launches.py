@@ -16,7 +16,8 @@ from madeleine_torch.ops import (attn_pool, dropout, encode_fused, encoder_train
 COUNTERS = {
     "encode_fused": (encode_fused, "launches"),             # K1, the live-tile route
     "encode_fused_rowtile": (encode_fused, "rowtile_launches"),   # K1's first design
-    "gated_pool": (gated_pool, "launches"),                 # K2
+    "gated_pool": (gated_pool, "launches"),                 # K2, split-TF32 wgmma
+    "gated_pool_ffma": (gated_pool, "ffma_launches"),       # K2's first design
     "attn_pool": (attn_pool, "launches"),                   # K3
     "attn_pool_ms": (attn_pool, "pool_ms_launches"),        # 4
     "attn_pool_bwd": (attn_pool, "pool_bwd_launches"),      # 5
@@ -44,6 +45,7 @@ COUNTERS = {
     "gated_logits_bwd_rowblock": (gated_logits, "bwd_rowblock_launches"),   # 18's first design
     "linear_tok_fwd": (linear_tok, "fwd_launches"),         # 19
     "linear_tok_bwd": (linear_tok, "bwd_launches"),         # 20
+    "linear_tok_bwd_mmasync": (linear_tok, "bwd_mmasync_launches"),   # 20's first design
     "dropout": (dropout, "launches"),                       # 21
 }
 

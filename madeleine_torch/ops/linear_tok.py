@@ -10,9 +10,10 @@ the port keeps it as the token projector's own kernels. Wt [d_out, E] has
 its input columns permuted to head-major (`madeleine.train_weights`'s wt);
 bt is f32. The plain versions also serve K6/K7's. A CPU tensor takes them
 (any float dtype); a CUDA tensor launches csrc/linear_tok.cu, bf16 only, or
-raises. The forward is a TMA + wgmma streaming GEMM (csrc/gemm_wgmma.cuh),
-the backward the mma.sync GEMM of csrc/gemm_bf16.cuh, the last per-op kernel
-on it (the first designs of kernels 15-18, kept as checks, run on it too).
+raises. Both directions run on the TMA + wgmma GEMM (csrc/gemm_wgmma.cuh);
+the backward's first design, on the mma.sync GEMM of csrc/gemm_bf16.cuh,
+stays reachable as `linear_tok_bwd_mmasync_cuda`, a check that no path
+calls.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from madeleine_torch.ops.preattn import F32_TODO, mm, wide
 
 fwd_launches = 0   # kernel 19 launches (one per wrapper call on a CUDA tensor)
 bwd_launches = 0   # kernel 20 launches
+bwd_mmasync_launches = 0   # kernel 20's first design, the check-only entry point
 
 
 def linear_tok_fwd_plain(y, wt, bt) -> torch.Tensor:
@@ -85,21 +87,41 @@ def linear_tok_fwd_cuda(y, wt, bt) -> torch.Tensor:
     return tok
 
 
-@torch.no_grad()
-def linear_tok_bwd_cuda(y, g, wt) -> Dict[str, torch.Tensor]:
-    """Launch kernel 20 on CUDA tensors; returns as `linear_tok_bwd_plain`."""
-    global bwd_launches
-    M, E, dout = _check(y, wt, None, "linear_tok_bwd")
-    _build.check_operand("linear_tok_bwd", "g", g, (*y.shape[:2], dout), torch.bfloat16,
-                         y.device)
+def _launch_bwd(y, g, wt, kernel, fn, ws_fn):
+    M, E, dout = _check(y, wt, None, kernel)
+    _build.check_operand(kernel, "g", g, (*y.shape[:2], dout), torch.bfloat16, y.device)
+    _build.check_aligned(kernel, "g", g)
     dev, f32 = y.device, torch.float32
-    ws = _build.workspace("linear_tok", "linear_tok_bwd_workspace", [M, E, dout])
+    ws = _build.workspace("linear_tok", ws_fn, [M, E, dout])
     out = {"y": torch.empty_like(y), "wt": torch.empty(dout, E, dtype=f32, device=dev),
            "bt": torch.empty(dout, dtype=f32, device=dev)}
     scratch = [torch.empty(ws[0], dtype=f32, device=dev), torch.empty(ws[1], dtype=f32, device=dev)]
-    _build.call_ptrs("linear_tok", "linear_tok_backward", [y, g, wt, *out.values(), *scratch],
-                     [M, E, dout], [], dev)
+    _build.call_ptrs("linear_tok", fn, [y, g, wt, *out.values(), *scratch], [M, E, dout], [],
+                     dev)
+    return out
+
+
+@torch.no_grad()
+def linear_tok_bwd_cuda(y, g, wt) -> Dict[str, torch.Tensor]:
+    """Launch kernel 20 on CUDA tensors; returns as `linear_tok_bwd_plain`.
+    The checks of `_check` (and g's) are every condition the wgmma GEMM
+    puts on these operands: no shape they pass is refused on the card."""
+    global bwd_launches
+    out = _launch_bwd(y, g, wt, "linear_tok_bwd", "linear_tok_backward",
+                      "linear_tok_bwd_workspace")
     bwd_launches += 1
+    return out
+
+
+@torch.no_grad()
+def linear_tok_bwd_mmasync_cuda(y, g, wt) -> Dict[str, torch.Tensor]:
+    """Kernel 20's first design (both products on the mma.sync GEMM), kept
+    as a check on the card beside `linear_tok_bwd_cuda`; no path of the
+    port calls it. Arguments and result as `linear_tok_bwd_cuda`."""
+    global bwd_mmasync_launches
+    out = _launch_bwd(y, g, wt, "linear_tok_bwd_mmasync", "linear_tok_backward_mmasync",
+                      "linear_tok_bwd_mmasync_workspace")
+    bwd_mmasync_launches += 1
     return out
 
 

@@ -168,7 +168,7 @@ class TrainStep:
             for group in self.optimizer.param_groups:
                 group["lr"] = lr
             self.optimizer.step()
-            drop_kernel_operands(model)   # K1's cached operands are stale now
+            drop_kernel_operands(model)   # K1's and K2's cached operands are stale now
             self.updates += 1
         he = slide[:, HE_POSITION, WHOLE_VIEW_POSITION].detach().float()
         return he, dict(metrics, loss=total.detach(), skipped=not ok, lr=lr)

@@ -55,4 +55,5 @@ def test_kernel_entry_rejects_cpu_tensors():
     w = {k: v.detach().contiguous() for k, v in gate_weights(model.wsi_embedders).items()}
     y = to_torch(xh).reshape(2, 50, 256)
     with pytest.raises(ValueError, match="CUDA"):
-        gp.gated_pool_cuda(y, mask_bias(None, 2, 50, 2, torch.device("cpu")), **w)
+        gp.gated_pool_cuda(y, mask_bias(None, 2, 50, 2, torch.device("cpu")),
+                           **gp.split_operands(**w))

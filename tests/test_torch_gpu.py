@@ -115,9 +115,81 @@ def test_gated_pool_kernel_matches_plain(cuda_device):
     y = torch.randn(b, t, nh * e, generator=g).to(cuda_device)
     mask = (torch.arange(t)[None, :] < torch.tensor([[300], [77]])).to(cuda_device)
     bias = mask_bias(mask, b, t, nh, cuda_device)
-    torch.testing.assert_close(gp.gated_pool_cuda(y, bias, **w),
+    torch.testing.assert_close(gp.gated_pool_cuda(y, bias, **gp.split_operands(**w)),
                                gp.gated_attention_pool_plain(y, bias, **w),
                                rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("wc_scale", [1.0, PEAK_WC_SCALE], ids=["init", "peaked"])
+@pytest.mark.parametrize("t", [300, 4057])
+def test_gated_pool_split_kernel_matches_plain_and_first_design(cuda_device, t, wc_scale):
+    """K2's split-TF32 wgmma design against the plain version and the first
+    design (FP32 FMA) at rtol 1e-4 / atol 1e-5: a ragged bag, an empty one
+    (pools to 0), a partial last 128-token tile; peaked: wc scaled so that
+    the logits spread by several units, where a uniform pool (wc = 0) misses
+    the bar, and so does the plain version on TF32-rounded operands (the
+    hi . hi term alone). Two launches are bitwise equal; each counts on its
+    own counter; gated_attention_pool, which splits the stacked weights for
+    its call, gives the same result as the operands split once."""
+    g = torch.Generator().manual_seed(0)
+    nh, e, f, b = 4, 512, 512, 3
+    w = {"wa": torch.randn(nh, f, e, generator=g) / e ** 0.5,
+         "ba": torch.randn(nh, f, generator=g) * 0.1,
+         "wb": torch.randn(nh, f, e, generator=g) / e ** 0.5,
+         "bb": torch.randn(nh, f, generator=g) * 0.1,
+         "wc": torch.randn(nh, f, generator=g) / f ** 0.5 * wc_scale,
+         "bc": torch.randn(nh, generator=g)}
+    w = {k: v.to(cuda_device) for k, v in w.items()}
+    y = torch.randn(b, t, nh * e, generator=g).to(cuda_device)
+    lengths = torch.tensor([[t], [t // 3 + 5], [0]])
+    mask = (torch.arange(t)[None, :] < lengths).to(cuda_device)
+    bias = mask_bias(mask, b, t, nh, cuda_device)
+    split = gp.split_operands(**w)
+    before = (gp.launches, gp.ffma_launches)
+    got = gp.gated_pool_cuda(y, bias, **split)
+    assert (gp.launches, gp.ffma_launches) == (before[0] + 1, before[1])
+    assert torch.equal(got, gp.gated_pool_cuda(y, bias, **split))
+    assert torch.equal(got, gp.gated_attention_pool(w, y.reshape(b, t, nh, e),
+                                                    mask).reshape(b, nh * e))
+    want = gp.gated_attention_pool_plain(y, bias, **w)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert (got[2] == 0).all()
+    first = gp.gated_pool_ffma_cuda(y, bias, **w)
+    assert gp.ffma_launches == before[1] + 1
+    torch.testing.assert_close(first, want, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(got, first, rtol=1e-4, atol=1e-5)
+    if wc_scale != 1.0:
+        uniform = gp.gated_attention_pool_plain(y, bias, **dict(w, wc=torch.zeros_like(w["wc"])))
+        assert ((uniform - want).abs() > 1e-5 + 1e-4 * want.abs()).any()
+        tf32 = {k: gp.round_tf32(v) if k in ("wa", "wb") else v for k, v in w.items()}
+        hi_only = gp.gated_attention_pool_plain(gp.round_tf32(y), bias, **tf32)
+        assert ((hi_only - want).abs() > 1e-5 + 1e-4 * want.abs()).any()
+
+
+def test_gated_pool_split_kernel_refuses_what_it_cannot_take(cuda_device):
+    """e not a multiple of 32 (the TF32 k tile) and a y off a 16-byte
+    boundary raise before any launch; the first design takes e % 16 == 0."""
+    nh, f = 2, 64
+    for e, ok_first in ((48, True), (40, False)):
+        w = {"wa": torch.zeros(nh, f, e), "ba": torch.zeros(nh, f), "wb": torch.zeros(nh, f, e),
+             "bb": torch.zeros(nh, f), "wc": torch.zeros(nh, f), "bc": torch.zeros(nh)}
+        w = {k: v.to(cuda_device) for k, v in w.items()}
+        y = torch.zeros(1, 64, nh * e, device=cuda_device)
+        bias = mask_bias(None, 1, 64, nh, cuda_device)
+        with pytest.raises(ValueError, match="unsupported shape"):
+            gp.gated_pool_cuda(y, bias, **gp.split_operands(**w))
+        if ok_first:
+            assert gp.gated_pool_ffma_cuda(y, bias, **w).shape == (1, nh * e)
+    e = 64
+    w = {"wa": torch.zeros(nh, f, e), "ba": torch.zeros(nh, f), "wb": torch.zeros(nh, f, e),
+         "bb": torch.zeros(nh, f), "wc": torch.zeros(nh, f), "bc": torch.zeros(nh)}
+    w = {k: v.to(cuda_device) for k, v in w.items()}
+    buf = torch.zeros(64 * nh * e + 1, device=cuda_device)
+    before = gp.launches
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        gp.gated_pool_cuda(buf[1:].view(1, 64, nh * e), mask_bias(None, 1, 64, nh, cuda_device),
+                           **gp.split_operands(**w))
+    assert gp.launches == before
 
 
 @pytest.mark.parametrize("dtype,kernel,atol", [(torch.bfloat16, ef, 3e-2),
@@ -751,6 +823,61 @@ def test_linear_tok_forward_refuses_a_misaligned_operand(cuda_device):
     with pytest.raises(ValueError, match="linear_tok_fwd kernel"):
         lt.linear_tok_fwd_cuda(y.clone(), wt.cpu(), bt)
     assert lt.fwd_launches == before
+
+
+@pytest.mark.parametrize("b,t,E,dout", [(3, 1000, 2048, 128), (3, 1000, 2048, 136),
+                                         (2, 700, 2048, 256), (3, 1000, 544, 128)],
+                         ids=["ragged_m", "dout136", "dout256", "e544"])
+def test_linear_tok_backward_matches_plain_and_first_design(cuda_device, b, t, E, dout):
+    """Kernel 20 on the TMA + wgmma GEMM against its plain version and its
+    first design (the mma.sync GEMM) at a ragged M, d_out 136 (the dgrad's
+    k and the weight gradient's rows not whole 64-wide tiles), 256 and E
+    544: dy, dWt and dbt at 1e-2 relative Frobenius, dy also elementwise at
+    atol 3e-2 or one bf16 rounding step where larger; two launches bitwise equal; each design on
+    its own counter."""
+    from madeleine_torch.ops import linear_tok as lt
+
+    g = torch.Generator().manual_seed(11)
+    y = torch.randn(b, t, E, generator=g).to(cuda_device, torch.bfloat16)
+    gt = torch.randn(b, t, dout, generator=g).to(cuda_device, torch.bfloat16)
+    wt = (torch.randn(dout, E, generator=g) / E ** 0.5).to(cuda_device, torch.bfloat16)
+    before = (lt.bwd_launches, lt.bwd_mmasync_launches)
+    got, again = lt.linear_tok_bwd_cuda(y, gt, wt), lt.linear_tok_bwd_cuda(y, gt, wt)
+    first = lt.linear_tok_bwd_mmasync_cuda(y, gt, wt)
+    assert (lt.bwd_launches, lt.bwd_mmasync_launches) == (before[0] + 2, before[1] + 1)
+    want = lt.linear_tok_bwd_plain(y, gt, wt)
+    for k in ("y", "wt", "bt"):
+        assert torch.equal(got[k], again[k]), k
+    for out in (got, first):
+        assert out["y"].shape == y.shape and out["y"].dtype == torch.bfloat16
+        ref = lt.tok_bwd_plain(y, gt, wt)[0]
+        bar = torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 8).clamp_min(3e-2)
+        assert bool(((out["y"].float() - ref).abs() <= bar).all())
+        for k in ("y", "wt", "bt"):
+            rel = ((out[k].float() - want[k].float()).norm() / want[k].float().norm()).item()
+            assert rel <= 1e-2, (k, rel)
+
+
+def test_linear_tok_backward_refuses_a_misaligned_operand(cuda_device):
+    """A g or y that starts 2 bytes past a 16-byte boundary raises before
+    any launch, on both designs; so does an f32 y."""
+    from madeleine_torch.ops import linear_tok as lt
+
+    E, dout = 256, 128
+    y = torch.zeros(2, 64, E, device=cuda_device, dtype=torch.bfloat16)
+    gt = torch.zeros(2, 64, dout, device=cuda_device, dtype=torch.bfloat16)
+    wt = torch.zeros(dout, E, device=cuda_device, dtype=torch.bfloat16)
+    ybuf = torch.zeros(2 * 64 * E + 1, device=cuda_device, dtype=torch.bfloat16)
+    gbuf = torch.zeros(2 * 64 * dout + 1, device=cuda_device, dtype=torch.bfloat16)
+    before = (lt.bwd_launches, lt.bwd_mmasync_launches)
+    for call in (lt.linear_tok_bwd_cuda, lt.linear_tok_bwd_mmasync_cuda):
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            call(ybuf[1:].view(2, 64, E), gt, wt)
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            call(y, gbuf[1:].view(2, 64, dout), wt)
+        with pytest.raises(NotImplementedError, match="bf16"):
+            call(y.float(), gt, wt)
+    assert (lt.bwd_launches, lt.bwd_mmasync_launches) == before
 
 
 # ---------------------------------------------------------------------------
