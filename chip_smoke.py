@@ -12,7 +12,9 @@
 
 Phases, one JSON line each; any failure raises and the exit code is non-zero:
   device   card name and the nvidia-smi name/power-limit line
-  build    nvcc build of every kernel under madeleine_torch/csrc, timed
+  build    nvcc build of every kernel under madeleine_torch/csrc, and beside
+           them the g++ build of the native loader's host library
+           (csrc/bagio.cpp, -march=native), timed
   kernels  K1 (encode_fused, bf16) and K2 (gated_pool, f32) at the published
            widths, b=8, t=4096, ragged lengths (one bag empty), plus a
            t=4057 call whose last tile is partial: each held against its
@@ -202,17 +204,24 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
   pretrain `python -m madeleine_torch.cli.pretrain` with the flags of
            scripts/launch_pretrain_withoutStainEncodings.sh (65 cases x 5
            stains x 2048 tokens, bf16, InfoNCE + GOT) on a synthetic cohort
-           of 70 cases (about 0.9 GB of .npz bags of 512-2560 tokens, 20% of
-           IHC bags missing) in a temp dir: A 2 epochs with
+           of 70 cases (about 0.9 GB of f32 .bag files of 512-2560 tokens,
+           written by the port's writer, 20% of IHC bags missing) in a temp
+           dir. First the native loader's first batch of epoch 0 (pinned
+           ring, bf16, and once in f32) against its plain version bit for
+           bit, its draw and assembly ms, bytes and GB/s, and the H2D ms of
+           the bf16 batch. Then, through --native_loader auto (the native
+           loader, asserted from metrics.jsonl: native-bf16): A 2 epochs with
            --checkpoint_every 1, B A resumed to 3 epochs, C 3 epochs
            straight, each with a 16-bag --downstream_dir. Every step finite
            and applied, K6-K14 on every step, K1 in each downstream pass, the
            artifacts written, B's model.pt equal to C's bit for bit; the
-           loader's host ms per batch, the H2D ms of a batch, the CLI's step
-           ms against train_got's, epoch time and peak memory; then the flags
-           of scripts/launch_pretrain_withStainEncodings.sh: A' 1 epoch, B'
-           A' resumed to 2, C' 2 straight, B' equal to C' bit for bit; then
-           the first script's flags with --activation sigmoid, 1 epoch
+           loader's host ms per batch and parts, the CLI's step ms against
+           train_got's, epoch time, stream busy share and peak memory; then
+           the flags of scripts/launch_pretrain_withStainEncodings.sh: A' 1
+           epoch, B' A' resumed to 2, C' 2 straight, B' equal to C' bit for
+           bit; then the first script's flags with --activation sigmoid and
+           --native_loader off (the Python loader, whose host ms, parts and
+           f32 H2D ms are reported beside the native one's), 1 epoch
            (kernels 15-20 and K8-K14 on every step), and with
            MADELEINE_NO_FUSED_ENCODER=1, 1 epoch (rows 4-5, 15-20, K8-K14)
   profile  torch.profiler device time by kernel of one K6 and one K7 call at
@@ -431,12 +440,30 @@ def phase_build(state):
     from madeleine_torch.ops import _build
 
     t0 = time.perf_counter()
+    host = {}
+
+    def build_host():   # g++ (the native loader's library) beside the nvcc builds
+        try:
+            if os.path.exists(_build.lib_path("bagio")):
+                os.unlink(_build.lib_path("bagio"))
+            _build.build_host("bagio")
+            host["seconds"] = time.perf_counter() - t0
+        except BaseException as e:
+            host["error"] = e
+
+    thread = threading.Thread(target=build_host)
+    thread.start()
     reports = _build.build(force=True)
+    thread.join()
+    if "error" in host:
+        raise host["error"]
     secs = time.perf_counter() - t0
     ptxas = {n: [ln.strip() for ln in r.splitlines()
                  if "registers" in ln or "spill" in ln or "smem" in ln]
              for n, r in reports.items()}
     emit({"phase": "build", "seconds": secs, "built": sorted(reports), "ptxas": ptxas,
+          "host_library": {"bagio": _build.lib_path("bagio"), "seconds": host["seconds"],
+                           "flags": " ".join([_build.HOST_CXX, *_build.HOST_FLAGS])},
           "wgmma_kernel_spills": _spills(reports, ("gemm_kernel", "gate_logits_sum")),
           "k8_k14_kernel_spills": _spills(reports, ("ipot_fwd_cluster_kernel",
                                                     "gwt_bwd_tiles_kernel")),
@@ -3148,11 +3175,18 @@ PRETRAIN_IHC_PRESENT = 0.8
 PRETRAIN_DOWNSTREAM = 16
 
 
+PRETRAIN_STAINS = ["HE", "HER2", "PGR", "KI67", "ER"]
+PRETRAIN_SEED = 42     # the CLI's --seed default
+
+
 def _write_pretrain_cohort(root, gen):
-    """<root>/feats/case{i}_{stain}.npz (512-d f32 bags: noise plus a
-    per-case vector shared by the case's bags), <root>/ACROBAT.csv, and
+    """<root>/feats/case{i}_{stain}.bag (512-d f32 bags, the native
+    loader's format, written by the port's writer: noise plus a per-case
+    vector shared by the case's bags), <root>/ACROBAT.csv, and
     <root>/downstream/patch_embeddings/*.npz. Returns (bags, bytes)."""
-    stains = ["HE", "HER2", "PGR", "KI67", "ER"]
+    from madeleine_torch.native.bagio import write_bag_file
+
+    stains = PRETRAIN_STAINS
     feats = os.path.join(root, "feats")
     os.makedirs(feats)
     rows, n_bags, n_bytes = [], 0, 0
@@ -3164,7 +3198,7 @@ def _write_pretrain_cohort(root, gen):
                 x = gen.standard_normal((int(gen.integers(*PRETRAIN_TOKENS)), 512),
                                         dtype=np.float32)
                 x += TRAIN_SIGNAL * case
-                np.savez(os.path.join(feats, f"case{i:02d}_{s}.npz"), features=x)
+                write_bag_file(os.path.join(feats, f"case{i:02d}_{s}.bag"), x)
                 n_bags, n_bytes = n_bags + 1, n_bytes + x.nbytes
         rows.append(",".join([f"case{i:02d}"] + [str(labels[s]) for s in stains] + ["train"]))
     with open(os.path.join(root, "ACROBAT.csv"), "w") as f:
@@ -3216,17 +3250,21 @@ PRETRAIN_STEP_KERNELS = ENCODER_KERNELS + GOT_KERNELS + GLUE_KERNELS
 
 
 def _check_pretrain_run(name, results, records, epochs, kernels=PRETRAIN_STEP_KERNELS,
-                        downstream_kernel="encode_fused"):
-    """Every step finite, none skipped, `kernels` (K6-K14) launched on every
-    step, `downstream_kernel` (K1; None: none, as for a non-softmax model,
-    whose eval forward is plain) in the downstream pass, the artifacts
-    written. Returns the run's summary."""
+                        downstream_kernel="encode_fused", loader="native-bf16"):
+    """Every epoch fed by `loader` (metrics.jsonl's name), every step finite,
+    none skipped, `kernels` (K6-K14) launched on every step,
+    `downstream_kernel` (K1; None: none, as for a non-softmax model, whose
+    eval forward is plain) in the downstream pass, the artifacts written.
+    Returns the run's summary."""
     import torch
     from madeleine_torch.utils.file_utils import load_pkl
 
     ep = [r for r in records if "steps" in r]
     if [r["epoch"] for r in ep] != list(epochs):
         raise AssertionError(f"pretrain {name}: epochs {[r['epoch'] for r in ep]}")
+    if any(r["loader"] != loader for r in ep):
+        raise AssertionError(f"pretrain {name}: loaders {[r['loader'] for r in ep]}, "
+                             f"not {loader}")
     steps = [s for r in ep for s in r["steps"]]
     bad = [s for s in steps if s["skipped"] or not np.isfinite(s["loss"])
            or any(s["launches"].get(k, 0) < 1 for k in kernels)]
@@ -3257,20 +3295,23 @@ def _check_pretrain_run(name, results, records, epochs, kernels=PRETRAIN_STEP_KE
     return {"epochs": len(ep), "losses": [s["loss"] for s in steps],
             "step_ms": [s["step_ms"] for s in steps], "wait_ms": [s["wait_ms"] for s in steps],
             "loader_ms": [x for r in ep for x in r["loader_ms"]],
+            **{part: [x for r in ep for x in r[part]]
+               for part in ("draw_ms", "assemble_ms", "guard_wait_ms") if part in ep[0]},
             "epoch_time_s": [r["epoch_time"] for r in ep],
             "peak_memory_gb": max(r["peak_memory_gb"] for r in ep),
             "launches": launched}, sd
 
 
 def _loader_breakdown(root):
-    """Host ms of one full-width batch (the first 65 cases), by part: reading
-    the bags, the 2048-token subsamples, `collate`, and the pin."""
+    """The Python loader's host ms of one full-width batch (the first 65
+    cases), by part: reading the bags, the 2048-token subsamples,
+    `collate`, and the pin."""
     import torch
     from madeleine_torch.data.datasets import SlideDataset, collate
     from madeleine_torch.data.io import load_features
 
     ds = SlideDataset("ACROBAT", os.path.join(root, "ACROBAT.csv"), os.path.join(root, "feats"),
-                      ["HE", "HER2", "PGR", "KI67", "ER"], embedding_size=512, sample=2048)
+                      PRETRAIN_STAINS, embedding_size=512, sample=2048)
     ms = {"read": 0.0, "subsample": 0.0}
     items = []
     for i in range(65):
@@ -3291,6 +3332,47 @@ def _loader_breakdown(root):
     torch.from_numpy(batch["feats"]).pin_memory()
     ms.update(collate=(t1 - t0) * 1e3, pin=(time.perf_counter() - t1) * 1e3)
     return ms
+
+
+def _native_first_batch(root, out_dtype, buffer_depth=4):
+    """The first batch of epoch 0 as the CLI's native loader makes it (the
+    launch script's batch of 65, 2048 tokens, seed 42; the host library
+    built here with -march=native; a pinned ring) against the plain route's
+    (pure-Python draw, numpy gather, half-up bf16 rounding) bit for bit.
+    Returns (report, the batch's pinned feats)."""
+    import torch
+    from madeleine_torch.native.dataset import NativeTrainLoader
+
+    def first(plain):
+        loader = NativeTrainLoader(os.path.join(root, "ACROBAT.csv"), os.path.join(root, "feats"),
+                                   PRETRAIN_STAINS, embedding_size=512, sample=2048,
+                                   batch_size=65, seed=PRETRAIN_SEED, out_dtype=out_dtype,
+                                   buffer_depth=2 if plain else buffer_depth,
+                                   device="cpu" if plain else "cuda",
+                                   plain=plain)
+        loader.set_epoch(0)
+        t0 = time.perf_counter()
+        batch = next(iter(loader))
+        return loader, batch, (time.perf_counter() - t0) * 1e3
+
+    loader, batch, ms = first(False)
+    _, want, plain_ms = first(True)
+    bits = torch.int16 if out_dtype == "bfloat16" else torch.int32
+    got_bits, want_bits = batch["feats"].view(bits), want["feats"].view(bits)
+    equal = torch.equal(got_bits, want_bits)
+    if not equal or not batch["feats"].is_pinned():
+        diff = (got_bits != want_bits).sum().item()
+        raise AssertionError(f"pretrain: the native {out_dtype} batch differs from its plain "
+                             f"version in {diff} elements (pinned {batch['feats'].is_pinned()})")
+    n_bags = int(np.count_nonzero(batch["modality_labels"]))
+    out_bytes = batch["feats"].numel() * batch["feats"].element_size()
+    in_bytes = n_bags * 2048 * 512 * 4              # each present bag's f32 rows, read once
+    part = loader.timings[0]
+    return {"dtype": out_dtype, "bitwise_equal_plain": equal, "pinned": True,
+            "host_ms": ms, **part, "plain_ms": plain_ms, "bags": n_bags,
+            "bytes_in": in_bytes, "bytes_out": out_bytes,
+            "assembly_gb_per_s": (in_bytes + out_bytes) / part["assemble_ms"] / 1e6,
+            "n_threads": loader.n_threads, "cpu_count": os.cpu_count()}, batch["feats"]
 
 
 def _pretrain_trio(root, tag, epochs_a, epochs, *extra):
@@ -3326,12 +3408,17 @@ def _pretrain_trio(root, tag, epochs_a, epochs, *extra):
 
 def phase_pretrain(state):
     """The pretrain CLI at full width with the launch scripts' flags on one
-    synthetic cohort: without stain encodings A 2 epochs with
-    --checkpoint_every 1, B A resumed to 3 epochs, C 3 epochs straight; with
-    them (--add_stain_encoding) A' 1 epoch, B' A' resumed to 2, C' 2
-    straight. B's model.pt must equal C's, B''s C''s. Then one epoch with
-    --activation sigmoid (the per-op lane, kernels 15-20), and one with
-    softmax and MADELEINE_NO_FUSED_ENCODER=1 (rows 4-5 and kernels 15-20)."""
+    synthetic cohort of f32 .bag files, which --native_loader auto (the
+    default) feeds through the native loader in bf16: without stain
+    encodings A 2 epochs with --checkpoint_every 1, B A resumed to 3
+    epochs, C 3 epochs straight; with them (--add_stain_encoding) A' 1
+    epoch, B' A' resumed to 2, C' 2 straight. B's model.pt must equal C's,
+    B''s C''s. Then one epoch with --activation sigmoid (the per-op lane,
+    kernels 15-20) through the Python loader (--native_loader off), and one
+    with softmax and MADELEINE_NO_FUSED_ENCODER=1 (rows 4-5 and kernels
+    15-20), native. The first native batch, bf16 and f32, against its
+    plain version bit for bit; both loaders' host ms and parts, H2D ms,
+    step ms, epoch time and stream busy share."""
     import torch
 
     gen = np.random.default_rng(SEED + 7)
@@ -3340,16 +3427,22 @@ def phase_pretrain(state):
         t0 = time.perf_counter()
         n_bags, n_bytes = _write_pretrain_cohort(root, gen)
         cohort_s = time.perf_counter() - t0
+        native_f32, _ = _native_first_batch(root, "float32", buffer_depth=2)
+        native_bf16, ring_batch = _native_first_batch(root, "bfloat16")
+        # host -> device copy of one bf16 batch from its pinned ring slot
+        h2d_bf16_ms = cuda_ms(lambda: ring_batch.to("cuda", non_blocking=True), warmup=2,
+                              iters=10)
+        del ring_batch
         runs, _, walls, resume = _pretrain_trio(root, "", 2, 3)
         runs_se, sds_se, walls_se, resume_se = _pretrain_trio(root, "se_", 1, 2,
                                                               "--add_stain_encoding")
         results, records, wall_sig = _run_pretrain_cli(
             _pretrain_argv(root, os.path.join(root, "sigmoid"), 1, "--activation", "sigmoid",
-                           "--checkpoint_every", "1"),
+                           "--checkpoint_every", "1", "--native_loader", "off"),
             os.path.join(root, "pretrain_sigmoid.log"))
         run_sig, _ = _check_pretrain_run("sigmoid", results, records, range(1),
                                          kernels=PEROP_KERNELS + GOT_KERNELS + GLUE_KERNELS,
-                                         downstream_kernel=None)
+                                         downstream_kernel=None, loader="python")
         with _no_fused_encoder():   # the CLI process inherits the variable
             results, records, wall_nf = _run_pretrain_cli(
                 _pretrain_argv(root, os.path.join(root, "nofused"), 1, "--checkpoint_every", "1"),
@@ -3365,29 +3458,54 @@ def phase_pretrain(state):
     if tuple(table.shape) != (5, 32) or sds_se["C"]["wsi_embedders.pre_attn.0.weight"].shape[1] \
             != 544:
         raise AssertionError(f"pretrain se_: model.pt table {tuple(table.shape)}")
-    # host -> device copy of one batch's f32 feats from pinned memory
+    # host -> device copy of one batch's f32 feats from pinned memory (the Python loader's)
     x = torch.empty(65, 5, 2048, 512, dtype=torch.float32).pin_memory()
     h2d_ms = cuda_ms(lambda: x.to("cuda", non_blocking=True), warmup=2, iters=10)
     del x
-    steps_ms = [ms for r in runs.values() for ms in r["step_ms"]]
-    loader_ms = [ms for r in runs.values() for ms in r["loader_ms"]]
-    epoch_s = [s for r in runs.values() for s in r["epoch_time_s"]]
-    loop_busy = sum(steps_ms) / (1e3 * sum(epoch_s))
+
+    def loader_line(rs):
+        """Host ms per batch, parts, step ms, epoch time and busy share of
+        runs; the last two also over the epochs after each process's first,
+        whose first step loads every kernel (two steps an epoch)."""
+        steps_ms = [ms for r in rs for ms in r["step_ms"]]
+        epoch_s = [s for r in rs for s in r["epoch_time_s"]]
+        warm_s = [s for r in rs for s in r["epoch_time_s"][1:]]
+        warm_steps = [ms for r in rs for ms in r["step_ms"][2:]]
+        line = {"host_ms_per_batch_median": statistics.median(
+                    [ms for r in rs for ms in r["loader_ms"]]),
+                "cli_step_ms_median": statistics.median(steps_ms),
+                "epoch_time_s_median": statistics.median(epoch_s),
+                "stream_busy_share_of_epochs": sum(steps_ms) / (1e3 * sum(epoch_s)),
+                "warm_epochs": len(warm_s),
+                "warm_epoch_time_s_median": statistics.median(warm_s) if warm_s else None,
+                "warm_stream_busy_share": (sum(warm_steps) / (1e3 * sum(warm_s))
+                                           if warm_s else None)}
+        for part in ("draw_ms", "assemble_ms", "guard_wait_ms"):
+            if part in rs[0]:
+                line[part + "_median"] = statistics.median([x for r in rs for x in r[part]])
+        return line
+
     every = list(runs.values()) + list(runs_se.values()) + [run_sig, run_nf]
     state["launches_pretrain"] = {k: sum(r["launches"].get(k, 0) for r in every)
                                   for k in read_counts()}
     state["launches_pretrain_side"] = {k: sum(r["launches"].get(k, 0) for r in (run_sig, run_nf))
                                        for k in read_counts()}
+    native = loader_line(list(runs.values()))
     emit({"phase": "pretrain", "cases": PRETRAIN_CASES, "bags": n_bags,
-          "cohort_gb": n_bytes / 1e9, "cohort_write_s": cohort_s, "runs": runs,
-          "cli_wall_s": walls, **resume,
-          "loader_host_ms_per_batch_median": statistics.median(loader_ms),
-          "loader_host_ms_one_batch_by_part": loader_parts,
-          "h2d_ms_per_batch": h2d_ms, "h2d_gb_per_batch": 65 * 5 * 2048 * 512 * 4 / 1e9,
-          "cli_step_ms_median": statistics.median(steps_ms),
+          "cohort_gb": n_bytes / 1e9, "cohort_format": ".bag f32", "cohort_write_s": cohort_s,
+          "runs": runs, "cli_wall_s": walls, **resume,
+          "loader": "native-bf16",
+          "loader_host_ms_per_batch_median": native["host_ms_per_batch_median"],
+          "native_loader": dict(native, first_batch_bf16=native_bf16, first_batch_f32=native_f32,
+                                h2d_ms_per_batch_bf16=h2d_bf16_ms,
+                                h2d_gb_per_batch_bf16=65 * 5 * 2048 * 512 * 2 / 1e9),
+          "python_loader": dict(loader_line([run_sig]), run="sigmoid",
+                                one_batch_by_part=loader_parts, h2d_ms_per_batch_f32=h2d_ms,
+                                h2d_gb_per_batch_f32=65 * 5 * 2048 * 512 * 4 / 1e9),
+          "cli_step_ms_median": native["cli_step_ms_median"],
           "in_memory_step_ms": state.get("train_got_step_ms"),
-          "epoch_time_s_median": statistics.median(epoch_s),
-          "stream_busy_share_of_epochs": loop_busy,
+          "epoch_time_s_median": native["epoch_time_s_median"],
+          "stream_busy_share_of_epochs": native["stream_busy_share_of_epochs"],
           "peak_memory_gb": max(r["peak_memory_gb"] for r in runs.values()),
           "stain_encoded": {"runs": runs_se, "cli_wall_s": walls_se, **resume_se,
                             "table_shape": list(table.shape),

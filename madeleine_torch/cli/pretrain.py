@@ -10,24 +10,31 @@ add --add_stain_encoding for scripts/launch_pretrain_withStainEncodings.sh):
         --precision bfloat16 [--max_epochs N] [--resume <dir>] [--downstream_dir <dir>] \
         [--checkpoint_every N] [--device cuda]
 
-Reads the cohort CSV (`csv` module) and the per-(case, stain) bags
-(``.h5`` where h5py imports, else ``.npz`` or ``.bag``), takes AdamW steps of
+Reads the cohort CSV (`csv` module) and the per-(case, stain) bags: ``.bag``
+files through the native loader (`native/dataset.py`, C++ threaded assembly
+into a pinned ring, in bf16 under ``--precision bfloat16``) when
+``--native_loader`` is ``on``, or ``auto`` (the default) and the data dir
+holds ``.bag`` files; otherwise through the Python loader (``.h5`` where
+h5py imports, else ``.npz`` or ``.bag``). It takes AdamW steps of
 InfoNCE + GOT on the card (kernels K6-K14; with a non-softmax
 ``--activation``, the per-op lane's kernels 15-20 in place of K6/K7, and
 with softmax and MADELEINE_NO_FUSED_ENCODER set in the environment, kernels
 15-20 and the training pool's rows 4-5), and writes into
 ``<results_dir>/<config hash>/``: ``config.json``, ``model_config.txt``,
-``metrics.jsonl`` (one record per epoch, with per-step timings and kernel
+``metrics.jsonl`` (one record per epoch, with the loader's name and host
+ms per batch, the native loader's parts, per-step timings and kernel
 launches, and one for the downstream pass), ``train_state`` (+
 ``.meta.json``) when a checkpoint is due, ``model.pt`` +
 ``model_config.json``, and with --downstream_dir the slide embeddings of
 that cohort as ``<name>.pkl``. A run resumes exactly from
 ``--resume <train_state dir>`` (or from its own results dir's train state).
-The card's machine has no pandas or h5py: give it ``.npz`` or ``.bag`` bags.
+The card's machine has no pandas or h5py: give it ``.bag`` bags (``python -m
+madeleine_torch.cli.convert_bags``) or ``.npz`` ones.
 """
 
 from __future__ import annotations
 
+import glob
 import os
 import time
 from typing import Dict, Iterator, List
@@ -37,6 +44,7 @@ import torch
 from madeleine_torch.data.datasets import Prefetcher, SlideDataset, TrainLoader
 from madeleine_torch.eval.inference import get_downstream_loader, run_inference
 from madeleine_torch.models.factory import create_model
+from madeleine_torch.native.dataset import NativeTrainLoader
 from madeleine_torch.ops import launches
 from madeleine_torch.train import checkpoint as ckpt
 from madeleine_torch.train.optim import make_optimizer
@@ -52,18 +60,41 @@ MIN_CHECKPOINT_EPOCH = 20  # ref: bin/pretrain.py:69 (no saves for the first 20 
 
 def host_batches(loader, load_ms: List[float], pin: bool) -> Iterator[Dict]:
     """The loader's batches, their feats pinned for an asynchronous copy to
-    the card when `pin`; appends each batch's host ms (read, subsample,
-    collate, pin) to `load_ms`."""
+    the card when `pin` (the native loader's ring is pinned already: it is
+    not copied again); appends each batch's host ms (for the Python loader
+    read, subsample, collate and pin) to `load_ms`."""
     batches = iter(loader)
     while True:
         t0 = time.perf_counter()
         batch = next(batches, None)
         if batch is None:
             return
-        if pin:
-            batch["feats"] = torch.from_numpy(batch["feats"]).pin_memory()
+        feats = batch["feats"]
+        if pin and not (isinstance(feats, torch.Tensor) and feats.is_pinned()):
+            batch["feats"] = torch.as_tensor(feats).pin_memory()
         load_ms.append((time.perf_counter() - t0) * 1e3)
         yield batch
+
+
+def make_loader(cfg, native_loader: str, dev: torch.device):
+    """(loader, its name) as the JAX CLI chooses (bin/pretrain.py:65-99):
+    ``auto`` is ``on`` when the data dir holds ``.bag`` files; ``on`` is the
+    native loader, assembling in bf16 under --precision bfloat16 and in f32
+    otherwise; ``off`` is SlideDataset + TrainLoader."""
+    if native_loader == "auto":
+        bags = glob.glob(os.path.join(cfg.data_root_dir or "", "*.bag"))
+        native_loader = "on" if bags else "off"
+    if native_loader == "on":
+        out_dtype = "bfloat16" if cfg.precision == "bfloat16" else "float32"
+        loader = NativeTrainLoader(cfg.csv_fpath, cfg.data_root_dir, cfg.MODALITIES,
+                                   embedding_size=cfg.patch_embedding_dim,
+                                   sample=cfg.n_subsamples, batch_size=cfg.batch_size,
+                                   seed=cfg.seed, out_dtype=out_dtype, device=dev)
+        return loader, "native-bf16" if out_dtype == "bfloat16" else "native-f32"
+    dataset = SlideDataset(cfg.dataset, cfg.csv_fpath, cfg.data_root_dir, cfg.MODALITIES,
+                           embedding_size=cfg.patch_embedding_dim, sample=cfg.n_subsamples,
+                           seed=cfg.seed)
+    return TrainLoader(dataset, cfg.batch_size, seed=cfg.seed), "python"
 
 
 def main(argv=None) -> str:
@@ -85,12 +116,10 @@ def main(argv=None) -> str:
                            run_name=cfg.EXP_CODE, config=cfg.to_dict(), tags=[cfg.cohort])
 
     # ---- data -----------------------------------------------------------
-    dataset = SlideDataset(cfg.dataset, cfg.csv_fpath, cfg.data_root_dir, cfg.MODALITIES,
-                           embedding_size=cfg.patch_embedding_dim, sample=cfg.n_subsamples,
-                           seed=cfg.seed)
-    loader = TrainLoader(dataset, cfg.batch_size, seed=cfg.seed)
+    loader, loader_name = make_loader(cfg, extras["native_loader"], dev)
     steps_per_epoch = len(loader)
-    print(f"* {len(dataset)} cases, {steps_per_epoch} steps/epoch")
+    n_cases = len(loader.rows) if loader_name != "python" else len(loader.dataset)
+    print(f"* {loader_name} loader: {n_cases} cases, {steps_per_epoch} steps/epoch")
 
     # ---- model / optimizer ----------------------------------------------
     _, model = create_model(cfg, seed=cfg.seed, device=dev)
@@ -136,8 +165,11 @@ def main(argv=None) -> str:
               f"time={time.time() - start:.1f}s ({agg['n_skipped']} skipped)")
         record = {"train_loss": ep_loss, "train_rank": train_rank,
                   "epoch_time": agg["epoch_time"], "n_steps": agg["n_steps"],
-                  "n_skipped": agg["n_skipped"], "epoch": epoch, "loader_ms": load_ms,
-                  "steps": agg["steps"]}
+                  "n_skipped": agg["n_skipped"], "epoch": epoch, "loader": loader_name,
+                  "loader_ms": load_ms, "steps": agg["steps"]}
+        if loader_name != "python":   # the native loader's parts, per batch
+            for part in ("draw_ms", "assemble_ms", "guard_wait_ms"):
+                record[part] = [t[part] for t in loader.timings]
         if dev.type == "cuda":
             record["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         logger.log(record, step=epoch)

@@ -17,8 +17,9 @@ Port of `madeleine_tpu/data/datasets.py` (ref: madeleine/datasets/wsi_dataset.py
   (ref: setup_components.py:162-168).
 - `Prefetcher`: a background thread that runs any batch iterable ahead.
 
-Not ported: the full-bag `RaggedTrainLoader` (ROADMAP.md A6) and the native
-``.bag`` batch assembler (A5).
+The native ``.bag`` loader, which the pretrain CLI takes on a ``.bag``
+cohort, is `madeleine_torch/native/dataset.py` `NativeTrainLoader`. Not
+ported: the full-bag `RaggedTrainLoader` (ROADMAP.md A6).
 """
 
 from __future__ import annotations

@@ -4,15 +4,16 @@ Schema: one file per slide holding ``features`` [n, d] (ref:
 preprocessing/conch_patch_embedder.py:127-131, datasets/wsi_dataset.py:14-19).
 ``.bag`` is the JAX package's native format (native/bagio.cpp header): a
 40-byte little-endian header ``<IIQQIIQ`` = magic, version, rows, cols,
-dtype code, reserved, coords offset, then the row-major payload. The port
-reads it with numpy; it keeps its own copy of the header constants.
+dtype code, reserved, coords offset, then the row-major payload. This
+module reads it with numpy; the native loader (`madeleine_torch/native/`)
+maps it through the host library, and writes it.
 """
 
 from __future__ import annotations
 
 import os
 import struct
-from typing import Iterable, Tuple
+from typing import Iterable, Optional, Tuple
 
 import numpy as np
 
@@ -62,6 +63,23 @@ def load_features(path: str, dtype=np.float32) -> np.ndarray:
     if feats.ndim == 3 and feats.shape[0] == 1:
         feats = feats[0]
     return feats.astype(dtype, copy=False)
+
+
+def load_coords(path: str) -> Optional[np.ndarray]:
+    """The ``coords`` array [n, 2] of one bag, or None where it has none."""
+    if path.endswith(".bag"):
+        with open(path, "rb") as f:
+            _, _, n, _, _, _, offset = BAG_HEADER.unpack(f.read(BAG_HEADER.size))
+            if not offset:
+                return None
+            f.seek(offset)
+            return np.frombuffer(f.read(n * 16), np.int64).reshape(n, 2)
+    if path.endswith(".npz"):
+        with np.load(path) as d:
+            return d["coords"] if "coords" in d.files else None
+    _need_h5py(path)
+    with h5py.File(path, "r") as f:
+        return f["coords"][:] if "coords" in f else None
 
 
 def bag_length(path: str) -> int:

@@ -3,13 +3,16 @@
 Each ``csrc/<name>.cu`` becomes ``csrc/build/lib<name>.so`` with a plain C
 interface: no PyTorch headers, so a build takes seconds. Sources are built
 at first use (or all at once, in parallel, by `build`), and rebuilt when a
-``.cu``/``.cuh`` file is newer than the library. Nothing here runs at import
-time: the CPU tests import every module on machines without nvcc.
+``.cu``/``.cuh`` file is newer than the library. The host library
+``csrc/bagio.cpp`` (the native ``.bag`` loader, no CUDA) is built the same
+way with g++ by `load_host`. Nothing here runs at import time: the CPU
+tests import every module on machines without nvcc.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import shutil
 import struct
@@ -26,6 +29,8 @@ KERNELS = ("encode_fused", "gated_pool", "attn_pool", "encoder_train_fwd", "enco
            "linear_tok", "dropout", "gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_CXX = "g++"     # the host libraries' compiler
+HOST_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17", "-pthread")
 SMEM_LIMIT = 232448   # bytes of shared memory one block may use on Hopper
 
 _lock = threading.Lock()
@@ -112,6 +117,44 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             _libs[name] = ctypes.CDLL(lib_path(name))
         return _libs[name]
+
+
+def build_host(name: str) -> str:
+    """Compile the host library ``csrc/<name>.cpp`` with g++ into
+    csrc/build/lib<name>.so, unless the library is newer than the source;
+    returns its path. The compile writes a temporary file that then
+    replaces the library, under a file lock that every process of the
+    checkout takes (pytest's worker processes may build at the same time).
+    A failed build raises RuntimeError: no path falls back."""
+    src, so = os.path.join(CSRC, f"{name}.cpp"), lib_path(name)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(so + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+            return so
+        tmp = f"{so}.{os.getpid()}.tmp"
+        try:
+            proc = subprocess.run([HOST_CXX, *HOST_FLAGS, src, "-o", tmp],
+                                  capture_output=True, text=True)
+        except OSError as e:
+            raise RuntimeError(f"cannot build {name}.cpp: {HOST_CXX}: {e}") from e
+        if proc.returncode != 0:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            raise RuntimeError(f"{HOST_CXX} failed for {name}.cpp (rc {proc.returncode}):\n"
+                               f"{proc.stderr[-4000:]}")
+        os.replace(tmp, so)
+    return so
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library for csrc/<name>.cpp, built first if needed; a
+    CDLL, so each call runs without the interpreter lock."""
+    key = name + ".cpp"
+    with _lock:
+        if key not in _libs:
+            _libs[key] = ctypes.CDLL(build_host(name))
+        return _libs[key]
 
 
 _entries: Dict[Tuple[str, str], Any] = {}

@@ -147,7 +147,11 @@ class TrainStep:
         if dev.type == "cuda" and self.dtype != torch.bfloat16:
             raise NotImplementedError(f"a {self.dtype} train step on the card ({F32_TODO})")
         # copy first (asynchronous from pinned memory), then cast on the device
-        feats = torch.as_tensor(batch["feats"]).to(dev, non_blocking=True).to(self.dtype)
+        feats = torch.as_tensor(batch["feats"]).to(dev, non_blocking=True)
+        copied = batch.get("copied")
+        if copied is not None:
+            copied.record()   # the native loader refills the ring slot once this completes
+        feats = feats.to(self.dtype)
         labels = torch.as_tensor(batch["modality_labels"]).to(dev)
         sample_mask = batch.get("sample_mask")
         sample_mask = (torch.ones(feats.shape[0], dtype=torch.bool, device=dev)

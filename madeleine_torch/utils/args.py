@@ -75,8 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--downstream_dir", type=str, default=None,
                    help="dir of bag files for post-train slide extraction")
     p.add_argument("--native_loader", type=str, default="auto", choices=["auto", "on", "off"],
-                   help="'on' (the JAX package's native .bag assembler) is not ported "
-                        "(ROADMAP.md A5); auto and off read bags in Python")
+                   help="on: the native .bag loader (C++ threaded assembly into a pinned "
+                        "ring, bf16 under --precision bfloat16); off: the Python loader; "
+                        "auto: on when --data_root_dir holds .bag files")
     return p
 
 
@@ -88,9 +89,6 @@ def config_from_args(args: argparse.Namespace) -> MadeleineConfig:
     if d["mesh_shape"] is not None and d["mesh_shape"] > 1:
         raise NotImplementedError(f"--mesh_shape {d['mesh_shape']}: data parallelism is not "
                                   "ported (ROADMAP.md A7)")
-    if d["native_loader"] == "on":
-        raise NotImplementedError("--native_loader on: the native .bag batch assembler is not "
-                                  "ported (ROADMAP.md A5)")
     if d["n_subsamples"] == -1:
         raise NotImplementedError("--n_subsamples -1: full-bag (ragged) training is not ported "
                                   "(ROADMAP.md A6)")

@@ -1056,3 +1056,84 @@ def test_encoder_train_refuses_a_misaligned_input(cuda_device):
     with pytest.raises(ValueError, match="16-byte boundary"):
         et.encoder_train_fwd_cuda(x, bias, w, 5, 0)
     assert et.fwd_launches == before
+
+
+# ---------------------------------------------------------------------------
+# the native .bag loader's pinned ring
+# ---------------------------------------------------------------------------
+
+def _native_cohort(root, n_cases, d=64):
+    """<root>/bags/case{i}_{stain}.bag (f32; HE always, the rest at random,
+    36-299 rows) and <root>/cohort.csv; returns (csv path, bag dir)."""
+    import csv
+    import os
+
+    from madeleine_torch.config import MODALITY_DICTS
+    from madeleine_torch.native.bagio import write_bag_file
+
+    stains = MODALITY_DICTS["ACROBAT"]
+    rng = np.random.default_rng(11)
+    bags = os.path.join(root, "bags")
+    os.makedirs(bags)
+    rows = []
+    for i in range(n_cases):
+        labels = {s: int(s == "HE" or rng.random() < 0.8) for s in stains}
+        for s, present in labels.items():
+            if present:
+                write_bag_file(os.path.join(bags, f"case{i}_{s}.bag"),
+                               rng.standard_normal((int(rng.integers(36, 300)), d),
+                                                   dtype=np.float32))
+        rows.append({"slide_id": f"case{i}", **labels, "split": "train"})
+    with open(os.path.join(root, "cohort.csv"), "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=list(rows[0]))
+        writer.writeheader()
+        writer.writerows(rows)
+    return os.path.join(root, "cohort.csv"), bags, stains
+
+
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
+def test_native_loader_pinned_ring_matches_plain(cuda_device, tmp_path, out_dtype):
+    """For the card the ring is pinned; its batches (host library, built
+    here with -march=native) equal the plain route's bit for bit, and
+    survive the copy to the card unchanged."""
+    from madeleine_torch.native.dataset import NativeTrainLoader
+
+    csv_path, bags, stains = _native_cohort(str(tmp_path), 13)
+    kw = dict(embedding_size=64, sample=128, batch_size=4, seed=2, out_dtype=out_dtype)
+    ours = NativeTrainLoader(csv_path, bags, stains, device=cuda_device, **kw)
+    plain = NativeTrainLoader(csv_path, bags, stains, device="cpu", plain=True, **kw)
+    as_bits = torch.int16 if out_dtype == "bfloat16" else torch.float32
+    for got, want in zip(ours, plain):
+        assert got["feats"].is_pinned() and not want["feats"].is_pinned()
+        dev = got["feats"].to(cuda_device, non_blocking=True)
+        got["copied"].record()
+        assert torch.equal(got["feats"].view(as_bits), want["feats"].view(as_bits))
+        assert torch.equal(dev.cpu().view(as_bits), want["feats"].view(as_bits))
+
+
+def test_native_loader_waits_for_the_slot_copy(cuda_device, tmp_path):
+    """A ring of 2 slots: batch 0's copy is queued behind 6e8 cycles (about
+    0.3 s) of device sleep and its event recorded after it; batch 2 reuses slot 0, so the
+    loader waits on that event before it assembles (the guard's wait shows
+    it), and the copy that landed on the card is batch 0's."""
+    from madeleine_torch.native.dataset import NativeTrainLoader
+
+    csv_path, bags, stains = _native_cohort(str(tmp_path), 12)
+    loader = NativeTrainLoader(csv_path, bags, stains, embedding_size=64, sample=128,
+                               batch_size=4, seed=3, buffer_depth=2, out_dtype="bfloat16",
+                               device=cuda_device)
+    batches = iter(loader)
+    b0 = next(batches)
+    want = b0["feats"].clone()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(600_000_000)
+    dev = b0["feats"].to(cuda_device, non_blocking=True)
+    b0["copied"].record()
+    next(batches)
+    assert not b0["copied"].query()       # the copy is still queued
+    next(batches)                         # slot 0 again
+    assert b0["copied"].query()
+    assert loader.timings[2]["guard_wait_ms"] > 50, loader.timings
+    assert loader.timings[1]["guard_wait_ms"] < 50, loader.timings
+    torch.cuda.synchronize()
+    assert torch.equal(dev.cpu().view(torch.int16), want.view(torch.int16))

@@ -2,7 +2,8 @@
 against the JAX package's (bit for bit), the crash-safe train-state
 checkpoints, and `python -m madeleine_torch.cli.pretrain` run in-process
 (`main([... "--device", "cpu"])`): its artifacts, its model.pt loading into
-both packages, and an exact resume."""
+both packages, and an exact resume; on a ``.bag`` cohort, the choice of
+loader by --native_loader and an exact resume through the native loader."""
 
 import csv
 import json
@@ -202,8 +203,7 @@ def test_pretrain_cli_resume_equals_an_uninterrupted_run(two_epochs):
 
 
 @pytest.mark.parametrize("flags,item", [(("--n_subsamples", "-1"), "A6"),
-                                        (("--mesh_shape", "2"), "A7"),
-                                        (("--native_loader", "on"), "A5")])
+                                        (("--mesh_shape", "2"), "A7")])
 def test_pretrain_cli_refuses_what_is_not_ported(tmp_path, flags, item):
     argv = _argv(str(tmp_path), str(tmp_path / "results"), 1)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
@@ -219,3 +219,75 @@ def test_log_ml_without_wandb_is_a_clear_error(tmp_path, monkeypatch):
     monkeypatch.setitem(sys.modules, "wandb", None)
     with pytest.raises(RuntimeError, match="wandb"):
         MetricsLogger(str(tmp_path), use_wandb=True)
+
+
+# ---------------------------------------------------------------------------
+# the CLI on a .bag cohort: the native loader
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def bag_cohort(tmp_path_factory):
+    """A cohort of 11 cases whose bags are both .npz and, converted by
+    `python -m madeleine_torch.cli.convert_bags`, f32 .bag files."""
+    from madeleine_torch.cli import convert_bags
+
+    root = str(tmp_path_factory.mktemp("bag_cohort"))
+    _, feats, _ = _write_cohort(root, 11, 16, lengths=(20, 60))
+    convert_bags.main(["--src", feats])
+    return root
+
+
+def _epoch_records(run):
+    records = [json.loads(line) for line in open(os.path.join(run, "metrics.jsonl"))]
+    return [r for r in records if "steps" in r]
+
+
+@pytest.mark.parametrize("mode", ["auto", "on"])
+def test_pretrain_cli_trains_through_the_native_loader(bag_cohort, mode):
+    """auto (the data dir holds .bag files) and on take the native loader,
+    in f32 under --precision float32; each epoch record names it and gives
+    its parts per batch."""
+    run = pretrain.main(_argv(bag_cohort, os.path.join(bag_cohort, f"native_{mode}"), 1,
+                              "--native_loader", mode))
+    (rec,) = _epoch_records(run)
+    assert rec["loader"] == "native-f32" and rec["n_steps"] == 2 and rec["n_skipped"] == 0
+    for part in ("loader_ms", "draw_ms", "assemble_ms", "guard_wait_ms"):
+        assert len(rec[part]) == 2 and all(x >= 0 for x in rec[part]), part
+    assert all(np.isfinite(s["loss"]) for s in rec["steps"])
+
+
+def test_pretrain_cli_off_keeps_the_python_loader(bag_cohort):
+    run = pretrain.main(_argv(bag_cohort, os.path.join(bag_cohort, "python"), 1,
+                              "--native_loader", "off"))
+    (rec,) = _epoch_records(run)
+    assert rec["loader"] == "python" and rec["n_steps"] == 2
+    assert "assemble_ms" not in rec
+
+
+def test_pretrain_cli_native_resume_equals_an_uninterrupted_run(bag_cohort):
+    """Through the native loader: 1 epoch, resumed to 2, gives the same
+    model.pt and losses as 2 epochs straight, bit for bit."""
+    run_a = pretrain.main(_argv(bag_cohort, os.path.join(bag_cohort, "resume_a"), 1))
+    run_b = pretrain.main(_argv(bag_cohort, os.path.join(bag_cohort, "resume_b"), 2,
+                                "--resume", os.path.join(run_a, "train_state")))
+    run_c = pretrain.main(_argv(bag_cohort, os.path.join(bag_cohort, "resume_c"), 2))
+    sb = torch.load(os.path.join(run_b, "model.pt"))
+    sc = torch.load(os.path.join(run_c, "model.pt"))
+    assert sb.keys() == sc.keys() and all(torch.equal(sb[k], sc[k]) for k in sb)
+    (rb,), rc = _epoch_records(run_b), _epoch_records(run_c)
+    assert rb["loader"] == rc[1]["loader"] == "native-f32"
+    assert [s["loss"] for s in rb["steps"]] == [s["loss"] for s in rc[1]["steps"]]
+
+
+def test_pretrain_cli_raises_when_the_host_library_does_not_build(bag_cohort, tmp_path,
+                                                                  monkeypatch):
+    """A compiler that cannot run: the native loader raises, no fallback."""
+    from madeleine_torch.native import bagio
+    from madeleine_torch.ops import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "HOST_CXX", str(tmp_path / "no-such-g++"))
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(bagio, "_lib", None)
+    with pytest.raises(RuntimeError, match="cannot build bagio.cpp"):
+        pretrain.main(_argv(bag_cohort, str(tmp_path / "results"), 1, "--native_loader", "on"))

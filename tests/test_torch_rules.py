@@ -1,5 +1,6 @@
-"""Rules of the port: it imports neither JAX nor the JAX package, and its
-entry points never fall back to the CPU silently."""
+"""Rules of the port: it imports neither JAX nor the JAX package, nor pandas
+or ml_dtypes (the card's machine has neither), and its entry points never
+fall back to the CPU silently."""
 
 import ast
 import os
@@ -12,6 +13,7 @@ from madeleine_torch.utils.device import resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "madeleine_tpu")
+ABSENT_ON_THE_CARD = ("pandas", "ml_dtypes")
 
 
 def _port_sources():
@@ -36,6 +38,24 @@ def test_no_jax_imports_in_port_sources():
     bad = [(os.path.relpath(p, REPO), m) for p in _port_sources()
            for m in _imported_roots(p) if m in FORBIDDEN]
     assert not bad, bad
+
+
+def test_no_pandas_or_ml_dtypes_in_port_sources():
+    """Neither the port's sources and chip_smoke.py import them, nor does
+    importing the whole port load them."""
+    bad = [(os.path.relpath(p, REPO), m) for p in _port_sources()
+           for m in _imported_roots(p) if m in ABSENT_ON_THE_CARD]
+    assert not bad, bad
+    modules = sorted(
+        os.path.relpath(p, REPO)[:-3].replace(os.sep, ".").removesuffix(".__init__")
+        for p in _port_sources() if not p.endswith("chip_smoke.py"))
+    code = ("import importlib, sys\n"
+            f"for m in {modules!r}: importlib.import_module(m)\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {ABSENT_ON_THE_CARD!r}]\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300, env=dict(os.environ, PYTHONPATH=REPO))
+    assert proc.returncode == 0, proc.stderr[-2000:]
 
 
 def test_importing_the_whole_port_loads_no_jax():
