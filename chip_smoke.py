@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases device,build,glue_kernels,train_got,pretrain
     python3 chip_smoke.py --phases device,build,pool_kernels,golden,eval_forward
     python3 chip_smoke.py --phases device,build,perop_kernels,train_sigmoid
+    python3 chip_smoke.py --phases device,build,train_kernels,train_views
     python3 chip_smoke.py --phases device,build,pool_train_kernels,dropout_kernel,train_nofused,heads
 
 Phases, one JSON line each; any failure raises and the exit code is non-zero:
@@ -127,8 +128,12 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            shape [65, 2048] at the real rates, and at the stain-encoded
            step's [65, 2048, 544] with K7's input gradient dx (need_dx), whose
            stain columns summed in bf16 (the table's gradient) are held to
-           their f32 sum. Both kernels run twice and must agree bitwise.
-           Timed at b=8, t=4096, at [65, 2048] and at [65, 2048, 544] with dx
+           their f32 sum. With n_views = 3 (a half-bag split of the step's
+           own draw, three pools over the same logits): at b=8, t=4096
+           ragged, at the odd t=4057 and at [65, 2048], rates 0 and real, at
+           the same bars. Both kernels run twice and must agree bitwise.
+           Timed at b=8, t=4096, at [65, 2048] (one view and three) and at
+           [65, 2048, 544] with dx
   got_kernels
            K8 (ipot_fwd), K9 (ipot_bwd) and K10 (gw_gamma), f32, on costs
            built as the GOT path builds them (random d=128 tokens ->
@@ -167,7 +172,13 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
   train    5 steps of make_train_step at full width (65 cases x 5 stains x
            2048 tokens, bf16, InfoNCE, dropout on) on one fixed synthetic
            batch: no step skipped, finite losses, the last below the first;
-           K6/K7 must launch on every step
+           K6/K7 must launch on every step. Every train phase then takes, on
+           the same model, one step under torch.cuda.set_sync_debug_mode
+           ("error") (no host read of the card inside a step), 10 steps
+           launched back to back between two events (ms per step beside the
+           single-call time), and a skipped step on an H&E-only batch and on
+           a NaN one, each leaving the parameters, AdamW's moments and its
+           count bit for bit
   train_got
            the same 5 steps with the published objective, InfoNCE + GOT
            (local_loss got, weight 1, 256 tokens subsampled per stain pair:
@@ -198,6 +209,13 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            with row 5 given K7's inner and the f32 y at 1e-2 (the causes of
            its looser bar), a rate-0 run beside it,
            and a shifted-mask control that must miss
+  train_views
+           the published objective plus the intra-modality InfoNCE
+           (--intra_modality_loss info-nce, n_views=3) at full width, 5
+           steps on the fused route (K6/K7's view route once per modality a
+           step) and 5 under MADELEINE_NO_FUSED_ENCODER (rows 4-5 three times
+           per modality a step, kernels 15-20 once); the loss falls, no step
+           skipped; step ms, peak memory and launches
   heads    65 bags of 2048 tokens embedded by encode_he (bf16, K1), then 5
            AdamW steps of an MLP head and of a ProjHead (f32, dropout 0.2:
            row 21 in every forward and backward); the loss falls
@@ -222,12 +240,18 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            bit; then the first script's flags with --activation sigmoid and
            --native_loader off (the Python loader, whose host ms, parts and
            f32 H2D ms are reported beside the native one's), 1 epoch
-           (kernels 15-20 and K8-K14 on every step), and with
-           MADELEINE_NO_FUSED_ENCODER=1, 1 epoch (rows 4-5, 15-20, K8-K14)
+           (kernels 15-20 and K8-K14 on every step), with
+           MADELEINE_NO_FUSED_ENCODER=1, 1 epoch (rows 4-5, 15-20, K8-K14),
+           and with --intra_modality_loss info-nce, 1 epoch (K6-K14). Before
+           them, a pinned batch freed while its copy waits behind device
+           work must reach the card intact (the Python loader's batches
+           outlive their copies through PyTorch's caching host allocator)
   profile  torch.profiler device time by kernel of one K6 and one K7 call at
            [65, 2048] and of kernels 15-18 and 20 alone at that shape, of
            one full-width train step of each objective and of the no-fused
-           GOT step: none may launch the mma.sync GEMM, and that counts only
+           GOT step, the sigmoid step and the intra-modality step, each
+           also over 3 steps launched back to back in one window (the device
+           idle share per step): none may launch the mma.sync GEMM, and that counts only
            in a window that shows every wgmma product and row kernel of the
            wrapper calls it ran (WINDOW_KERNELS, the step's calls read from
            the launch counters; a short window is taken again, up to ten,
@@ -266,13 +290,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "pool_kernels", "pool_train_kernels", "dropout_kernel",
           "train_kernels", "got_kernels", "glue_kernels", "perop_kernels", "perop_bwd_digest",
           "golden", "serve", "extract", "eval_forward", "train", "train_got", "train_se",
-          "train_sigmoid", "train_nofused", "heads", "pretrain", "profile")
+          "train_sigmoid", "train_nofused", "train_views", "heads", "pretrain", "profile")
 # the runs of the port's main paths whose kernel launches the summary counts
 MAIN_PATHS = ("serve", "extract", "eval_forward", "train", "train_got", "train_se",
-              "train_sigmoid", "train_nofused", "heads", "pretrain")
+              "train_sigmoid", "train_nofused", "train_views", "train_views_nofused", "heads",
+              "pretrain")
 # the main-path runs of the side lanes (a non-softmax activation, or softmax
 # under MADELEINE_NO_FUSED_ENCODER); the pretrain phase splits its own
-SIDE_PATHS = ("train_sigmoid", "train_nofused")
+SIDE_PATHS = ("train_sigmoid", "train_nofused", "train_views_nofused")
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -1236,22 +1261,25 @@ def phase_dropout_kernel(state):
           "head_shape": DROPOUT_HEAD_SHAPE, "head_f32": head, "launch_shape": LAUNCH_SHAPE})
 
 
-def _encoder_train_work(b, t, w, need_dx=False):
+def _encoder_train_work(b, t, w, need_dx=False, n_views=1):
     """(flops, bytes) of one K6 and one K7 call: every row of [b, t] is
     computed (masked tokens still get token outputs and residuals); with
-    need_dx K7 also computes and writes dx [b, t, d_in] bf16."""
+    need_dx K7 also computes and writes dx [b, t, d_in] bf16. Each view past
+    the first adds a pool (E multiply-adds a token; its adjoint two) and
+    its pooled output (K6) or cotangent (K7), [b, E] f32."""
     nh, f, _ = w["wa"].shape
     hd, d_in = w["w1"].shape
     dout, E = w["wt"].shape
     n = b * t
     macs = d_in * hd + hd * hd + hd * E + 2 * E * f + E * dout
-    fwd_flops = n * 2.0 * macs
+    views = n_views - 1
+    fwd_flops = n * 2.0 * (macs + views * E)
     # dW for all, dX for all but layer 1 (and layer 1 too with need_dx)
-    bwd_flops = n * 2.0 * (2 * macs - (0 if need_dx else d_in * hd))
+    bwd_flops = n * 2.0 * (2 * macs - (0 if need_dx else d_in * hd) + 2 * views * E)
     saved = 2 * (2 * hd + E + 2 * nh * f) + 12          # u1 u2 u3 a_pre b_pre bf16, rstd f32
     wbytes = sum(v.numel() * v.element_size() for v in w.values())
-    fwd_bytes = n * (d_in * 2 + dout * 2 + nh * 4 + saved) + wbytes + b * E * 4
-    bwd_bytes = n * (d_in * 2 + nh * 4 + dout * 2 + saved) + wbytes + b * E * 4 + 4 * sum(
+    fwd_bytes = n * (d_in * 2 + dout * 2 + nh * 4 + saved) + wbytes + n_views * b * E * 4
+    bwd_bytes = n * (d_in * 2 + nh * 4 + dout * 2 + saved) + wbytes + n_views * b * E * 4 + 4 * sum(
         v.numel() for v in w.values()) + (n * d_in * 2 if need_dx else 0)
     return fwd_flops, fwd_bytes, bwd_flops, bwd_bytes
 
@@ -1269,22 +1297,25 @@ OUT_ATOL = 3e-2    # K6's bf16 tokens and f32 valid logits, as K1
 TILE = 64          # K6's pool tile (csrc/encoder_train_fwd.cu POOL_TM)
 
 
-def _check_train_kernels(torch, w, x, bias, rates, gen, need_dx=False):
+def _check_train_kernels(torch, w, x, bias, rates, gen, need_dx=False, vb=None):
     """K6 against its plain version, then K7 against its plain version on the
     same residuals, with a random pooled cotangent and a random dtok (and
-    with need_dx its input gradient dx, as the other gradients). K6 and K7
-    each run twice and must give bitwise-equal results. Returns (report,
-    K6's outputs, K6's arguments, K7's arguments; with need_dx also K7's
-    gradients)."""
+    with need_dx its input gradient dx, as the other gradients); with a view
+    bias vb [t, 2] (n_views=3) the three views' pooled outputs and
+    cotangents. K6 and K7 each run twice and must give bitwise-equal
+    results. Returns (report, K6's outputs, K6's arguments, K7's arguments;
+    with need_dx also K7's gradients); the arguments end with the keywords
+    to pass (need_dx, vb)."""
     from madeleine_torch.ops import encoder_train as et
 
     b, t, _ = x.shape
     nh, _, e = w["wa"].shape
+    views = () if vb is None else (3,)
     fwd_args = (x, bias, w, 1234, 0, *rates)
-    got = et.encoder_train_fwd_cuda(*fwd_args)
-    again = et.encoder_train_fwd_cuda(*fwd_args)
+    got = et.encoder_train_fwd_cuda(*fwd_args, vb=vb)
+    again = et.encoder_train_fwd_cuda(*fwd_args, vb=vb)
     with torch.no_grad():
-        want = et.encoder_train_fwd_plain(*fwd_args)
+        want = et.encoder_train_fwd_plain(*fwd_args, vb=vb)
     torch.cuda.synchronize()
     rep = {}
     valid = bias == 0
@@ -1301,15 +1332,15 @@ def _check_train_kernels(torch, w, x, bias, rates, gen, need_dx=False):
         raise AssertionError("encoder_train_fwd: two launches differ")
     del again, want
     pooled32, m, s, _, l, saved = got
-    g = torch.from_numpy(gen.standard_normal((b, nh * e)).astype(np.float32)).cuda()
+    g = torch.from_numpy(gen.standard_normal((b, *views, nh * e)).astype(np.float32)).cuda()
     dtok = torch.from_numpy(gen.standard_normal((b, t, w["wt"].shape[0])).astype(np.float32)
                             ).cuda().to(torch.bfloat16)
-    inner = (g * pooled32).reshape(b, nh, e).sum(-1)
+    inner = (g * pooled32).reshape(b, *views, nh, e).sum(-1)
     bwd_args = (x, l, m, s, g, inner, dtok, saved, w, 1234, 0, *rates)
-    gk = et.encoder_train_bwd_cuda(*bwd_args, need_dx=need_dx)
-    gk2 = et.encoder_train_bwd_cuda(*bwd_args, need_dx=need_dx)
+    gk = et.encoder_train_bwd_cuda(*bwd_args, need_dx=need_dx, vb=vb)
+    gk2 = et.encoder_train_bwd_cuda(*bwd_args, need_dx=need_dx, vb=vb)
     with torch.no_grad():
-        gp = et.encoder_train_bwd_plain(*bwd_args, need_dx=need_dx)
+        gp = et.encoder_train_bwd_plain(*bwd_args, need_dx=need_dx, vb=vb)
     torch.cuda.synchronize()
     keys = et.W_KEYS + (("x",) if need_dx else ())
     if set(gk) != set(keys) or not all(torch.equal(gk[k], gk2[k]) for k in keys):
@@ -1481,6 +1512,17 @@ def phase_train_kernels(state):
         if not checks[f"partial_t_{wname}_tail_dropped_vs_plain"] > POOLED_ATOL:
             raise AssertionError(f"train_kernels ({wname}): control failed, dropping the "
                                  f"partial tile stays within {POOLED_ATOL}")
+    # n_views = 3 (the intra-modality loss): three pools over one half-bag
+    # split (the step's own draw), at the ragged b=8 t=4096 bags (one of
+    # them empty) and at the odd t = 4057, rates 0 and the real ones
+    from madeleine_torch.models.madeleine import half_split
+
+    for name, (xv, bv) in (("ragged", (x, bias)), ("odd_t", (x2, bias2))):
+        tv = xv.shape[1]
+        vb = et.view_bias(half_split(SEED, tv, "cuda"), tv, "cuda")
+        for rates in ((0.0, 0.0), real):
+            checks[f"views_{name}_{rates[0]}_{rates[1]}"] = _check_train_kernels(
+                torch, w, xv, bv, rates, gen, vb=vb)[0]
     del x2, bias2, bias_cut, fwd
 
     # the train step's call shape [65, 2048], every token valid, real rates:
@@ -1489,6 +1531,12 @@ def phase_train_kernels(state):
     checks[f"step_call_{real[0]}_{real[1]}"], _, fa, ba = _check_train_kernels(
         torch, w, xs, bs_, real, gen)
     timed["step_call"] = (fa, ba)
+    # ... and with the three views of one half-bag split
+    vb_step = et.view_bias(half_split(SEED, 2048, "cuda"), 2048, "cuda")
+    for rates in ((0.0, 0.0), real):
+        checks[f"step_call_views_{rates[0]}_{rates[1]}"], _, fa, ba = _check_train_kernels(
+            torch, w, xs, bs_, rates, gen, vb=vb_step)
+    timed["step_call_views"] = (fa, ba)
     del xs, bs_, fa, ba
 
     # the stain-encoded step's call: d_in 544 (the last 32 columns the stain
@@ -1518,17 +1566,20 @@ def phase_train_kernels(state):
     for shape_name, (fa, ba) in timed.items():
         bb, tt, d_in = fa[0].shape
         dx = shape_name == "step_call_se"
-        k6 = cuda_ms(lambda: et.encoder_train_fwd_cuda(*fa))
-        k7 = cuda_ms(lambda: et.encoder_train_bwd_cuda(*ba, need_dx=dx))
-        k6_b2b = cuda_ms_back_to_back(lambda: et.encoder_train_fwd_cuda(*fa), calls=20)
-        k7_b2b = cuda_ms_back_to_back(lambda: et.encoder_train_bwd_cuda(*ba, need_dx=dx),
+        vb = vb_step if shape_name == "step_call_views" else None
+        nv = 1 if vb is None else 3
+        k6 = cuda_ms(lambda: et.encoder_train_fwd_cuda(*fa, vb=vb))
+        k7 = cuda_ms(lambda: et.encoder_train_bwd_cuda(*ba, need_dx=dx, vb=vb))
+        k6_b2b = cuda_ms_back_to_back(lambda: et.encoder_train_fwd_cuda(*fa, vb=vb), calls=20)
+        k7_b2b = cuda_ms_back_to_back(lambda: et.encoder_train_bwd_cuda(*ba, need_dx=dx, vb=vb),
                                       calls=20)
         with torch.no_grad():
-            k6p = cuda_ms(lambda: et.encoder_train_fwd_plain(*fa), warmup=1, iters=5)
-            k7p = cuda_ms(lambda: et.encoder_train_bwd_plain(*ba, need_dx=dx), warmup=1, iters=5)
-        ff, fb, bf, bb_ = _encoder_train_work(bb, tt, fa[2], need_dx=dx)
+            k6p = cuda_ms(lambda: et.encoder_train_fwd_plain(*fa, vb=vb), warmup=1, iters=5)
+            k7p = cuda_ms(lambda: et.encoder_train_bwd_plain(*ba, need_dx=dx, vb=vb), warmup=1,
+                          iters=5)
+        ff, fb, bf, bb_ = _encoder_train_work(bb, tt, fa[2], need_dx=dx, n_views=nv)
         (k6b, k6by), (k7b, k7by) = _bound(ff, fb), _bound(bf, bb_)
-        times[shape_name] = {"b": bb, "t": tt, "d_in": d_in, "need_dx": dx,
+        times[shape_name] = {"b": bb, "t": tt, "d_in": d_in, "need_dx": dx, "n_views": nv,
                              "fwd_ms": k6, "fwd_ms_back_to_back": k6_b2b,
                              "bwd_ms_back_to_back": k7_b2b, "fwd_plain_ms": k6p,
                              "fwd_bound_ms": k6b, "fwd_bound_by": k6by,
@@ -1536,7 +1587,7 @@ def phase_train_kernels(state):
                              "bwd_plain_ms": k7p, "bwd_bound_ms": k7b, "bwd_bound_by": k7by,
                              "bwd_share_of_bound": k7b / k7, "fwd_gflop": ff / 1e9,
                              "bwd_gflop": bf / 1e9, "fwd_gb": fb / 1e9, "bwd_gb": bb_ / 1e9}
-    del timed, fa, ba
+    del timed, fa, ba, vb_step
     products = {name: _product_rates(torch, w_, gen)
                 for name, w_ in (("step_call", w), ("step_call_se", w_se))}
     for name in products:
@@ -1546,6 +1597,10 @@ def phase_train_kernels(state):
         times[name]["products_bwd_ms"] = sum(v["ms"] for k, v in products[name].items()
                                              if k.startswith("bwd"))
     st = times["step_call"]
+    times["step_call_views"]["fwd_ms_over_one_view"] = (times["step_call_views"]["fwd_ms"]
+                                                        / st["fwd_ms"])
+    times["step_call_views"]["bwd_ms_over_one_view"] = (times["step_call_views"]["bwd_ms"]
+                                                        / st["bwd_ms"])
     reps = [r for r in checks.values() if isinstance(r, dict)]
     err_f = max(max(r["pooled_err"], r["tok_err"], r["logits_err"]) for r in reps)
     err_b = max(r["grad_max_abs_err"] for r in reps)
@@ -2849,11 +2904,51 @@ ENCODER_KERNELS = ("encoder_train_fwd", "encoder_train_bwd")
 GOT_KERNELS = ("ipot_fwd", "ipot_bwd", "gw_gamma")
 
 
+BACK_TO_BACK_STEPS = 10
+
+
+def _optimizer_state(step):
+    """Clones of every parameter, both AdamW moments and the count."""
+    opt = step.optimizer
+    return ([p.detach().clone() for p in step.model.parameters()]
+            + [opt.state[p][k].clone() for p in step.model.parameters()
+               for k in ("exp_avg", "exp_avg_sq")] + [opt.count.clone()])
+
+
+def _skips_on_the_card(torch, step, batch, seed):
+    """A step on an H&E-only copy of the batch and one on a copy with a NaN
+    feature (a non-finite loss): each must report itself skipped and leave
+    the parameters, both moments and the count bit for bit."""
+    out = {}
+    he_only = dict(batch, modality_labels=torch.cat(
+        [batch["modality_labels"][:, :1], torch.zeros_like(batch["modality_labels"][:, 1:])], 1))
+    nan = dict(batch, feats=batch["feats"].clone())
+    nan["feats"][0, 0, 0, 0] = float("nan")
+    for name, b in (("he_only", he_only), ("nan", nan)):
+        before = _optimizer_state(step)
+        _, metrics = step(b, seed)
+        same = all(torch.equal(x, y) for x, y in zip(before, _optimizer_state(step)))
+        out[name] = {"skipped": bool(metrics["skipped"]), "loss": float(metrics["loss"]),
+                     "state_unchanged": same}
+        if not (out[name]["skipped"] and same):
+            raise AssertionError(f"a skipped step on the card ({name}): {out[name]}")
+    del nan, he_only
+    return out
+
+
 def _run_train_steps(torch, state, phase, kernels, cfg=None):
     """TRAIN_STEPS steps of make_train_step at full width on one fixed batch,
     the counts set to 0 just before: fails unless no step is skipped, every
     loss is finite, the last is below the first and each of `kernels`
-    launches on every step. Returns (cfg, model, batch, summary)."""
+    launches on every step; then the parameters' digest. Each step is timed
+    alone (CUDA events, the host waiting for each). Then, on the same
+    model: one step under torch.cuda.set_sync_debug_mode("error") (a step
+    that reads the card from the host raises), BACK_TO_BACK_STEPS steps
+    launched back to back between two events (also the host's ms a step to
+    launch them), and a skipped step on an H&E-only batch and on a NaN one,
+    each leaving the parameters, the moments and the count bit for bit; the
+    model then gets the five steps' weights back. Returns (cfg, model,
+    batch, summary)."""
     from madeleine_torch.train.trainer import step_seed
 
     cfg, model, step, batch = _train_setup(torch, cfg)
@@ -2874,7 +2969,7 @@ def _run_train_steps(torch, state, phase, kernels, cfg=None):
         losses.append(float(metrics["loss"]))
         skipped.append(bool(metrics["skipped"]))
         emit({"phase": phase, "step": i, "loss": losses[-1], "skipped": skipped[-1],
-              "lr": metrics["lr"], "step_ms": step_ms[-1], "launches": per_step[-1]})
+              "lr": float(metrics["lr"]), "step_ms": step_ms[-1], "launches": per_step[-1]})
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     state[f"launches_{phase}"] = counts
@@ -2886,11 +2981,36 @@ def _run_train_steps(torch, state, phase, kernels, cfg=None):
     # the step's 256 x 256 transport problems take K8's, K9's and K10's
     # cluster route; K13's and K14's first designs are checks, never on a path
     _check_off_path(counts, phase)
+    # the trained weights, bit for bit: another package's steps must leave the same
+    digest = _param_digest(model)
+    trained = {k: v.clone() for k, v in model.state_dict().items()}
+    seeds = itertools.count(TRAIN_STEPS)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(batch, step_seed(SEED, 0, next(seeds)))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(BACK_TO_BACK_STEPS):
+        step(batch, step_seed(SEED, 0, next(seeds)))
+    host = (time.perf_counter() - t0) * 1e3 / BACK_TO_BACK_STEPS
+    end.record()
+    end.synchronize()
+    b2b = start.elapsed_time(end) / BACK_TO_BACK_STEPS
+    skips = _skips_on_the_card(torch, step, batch, step_seed(SEED, 0, next(seeds)))
+    model.load_state_dict(trained)   # the later checks read the five steps' weights
     return cfg, model, batch, {
         "steps": TRAIN_STEPS, "batch": [cfg.batch_size, cfg.n_modalities, cfg.n_subsamples,
                                         cfg.patch_embedding_dim],
         "losses": losses, "skipped": skipped, "step_ms": step_ms,
         "step_ms_median_after_first": statistics.median(step_ms[1:]),
+        "step_ms_back_to_back": b2b, "back_to_back_steps": BACK_TO_BACK_STEPS,
+        "host_ms_per_step_back_to_back": host,
+        "sync_debug_error_step": "ran", "skipped_steps_on_card": skips,
+        "param_sha256_after_steps": digest,
         "peak_memory_gb": peak / 1e9, "launches": counts, "launches_per_step": per_step}
 
 
@@ -2933,6 +3053,46 @@ def _param_digest(model) -> str:
     return h.hexdigest()
 
 
+def _adamw_vs_torch(torch, model, cfg, steps=3):
+    """`steps` updates of the port's GatedAdamW against torch.optim.AdamW's
+    multi-tensor (foreach, its default on the card) and single-tensor paths,
+    on copies of `model`'s parameters with seeded gradients and the schedule's
+    float learning rate: the share of parameter elements each leaves
+    different from GatedAdamW's, and the largest difference over lr."""
+    from madeleine_torch.train.optim import make_optimizer
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    base = [p.detach().clone() for p in model.parameters()]
+    grads = [[torch.randn(p.shape, generator=g, device="cuda") for p in base]
+             for _ in range(steps)]
+
+    def run(kind):
+        ps = [torch.nn.Parameter(p.clone()) for p in base]
+        opt, sched = make_optimizer(cfg, ps, steps_per_epoch=TRAIN_STEPS)
+        if kind != "gated":
+            opt = torch.optim.AdamW(ps, lr=sched(0), betas=(0.9, 0.999), eps=1e-8,
+                                    weight_decay=cfg.weight_decay, foreach=kind == "foreach")
+        for i in range(steps):
+            for p, gr in zip(ps, grads[i]):
+                p.grad = gr
+            if kind != "gated":
+                for group in opt.param_groups:
+                    group["lr"] = sched(i)
+            opt.step()
+        return ps
+
+    gated = run("gated")
+    n = sum(p.numel() for p in gated)
+    out = {}
+    for kind in ("foreach", "single_tensor"):
+        other = run(kind)
+        out[kind] = {"elements_differing_share": sum(int((a != b).sum()) for a, b in
+                                                     zip(gated, other)) / n,
+                     "max_abs_diff_over_lr": max(float((a - b).abs().max())
+                                                 for a, b in zip(gated, other)) / cfg.lr}
+    return dict(out, steps=steps, elements=n)
+
+
 def phase_train_got(state):
     """The published objective, InfoNCE + GOT: K6/K7 for the encoder and
     K8/K9/K10 for the 260 transport problems of each step; then the GOT loss
@@ -2945,7 +3105,8 @@ def phase_train_got(state):
                                           got_path_config())
     # the trained weights, bit for bit: K13 adds the trace to the loss, so its
     # sum order must leave every parameter as another package's steps leave it
-    digest = _param_digest(model)
+    digest = run["param_sha256_after_steps"]
+    adamw = _adamw_vs_torch(torch, model, cfg)
     del model
     n_pairs = cfg.n_modalities - 1
     shape = (n_pairs, cfg.batch_size, cfg.got_subsample, cfg.token_proj_dim)
@@ -2968,7 +3129,7 @@ def phase_train_got(state):
     got_split = _split_got_rows(_profiled(
         torch, lambda: L.got_loss_multi(v, q, sample_mask=smask).sum().backward()))
     hist = 30 * n_pairs * cfg.batch_size * cfg.got_subsample ** 2 * 4
-    emit({"phase": "train_got", **run, "param_sha256": digest,
+    emit({"phase": "train_got", **run, "param_sha256": digest, "adamw_vs_torch": adamw,
           "got_problems_per_step": n_pairs * cfg.batch_size,
           "got_subsample": cfg.got_subsample, "k9_history_gb": hist / 1e9,
           "got_loss_own_peak_gb": got_peak / 1e9,
@@ -3117,6 +3278,48 @@ def phase_train_nofused(state):
         raise AssertionError(f"train_nofused: the chain against K6/K7 missed "
                              f"{chain['real']['failed']} (rates 0: {chain['rates_0']['failed']}); "
                              f"the shifted-mask control missed only {sorted(control_missed)}")
+
+
+def views_path_config(**overrides):
+    """The published objective plus the paper's optional intra-modality
+    multi-view InfoNCE (--intra_modality_loss info-nce: n_views=3, two
+    half-bag views of every bag, madeleine_tpu/utils/args.py:55)."""
+    return got_path_config(**dict(dict(intra_modality_loss="info-nce"), **overrides))
+
+
+def phase_train_views(state):
+    """The published objective plus the intra-modality InfoNCE (n_views=3)
+    at full width: on the fused route K6/K7 take their view route once per
+    modality on every step; under MADELEINE_NO_FUSED_ENCODER rows 4-5 run
+    three times per modality (the whole bag and each half), kernels 15-20
+    once; K8-K14 as in train_got. The loss falls over the steps and no step
+    is skipped, on both routes (_run_train_steps)."""
+    import torch
+
+    cfg = views_path_config()
+    steps_kernels = GOT_KERNELS + GLUE_KERNELS
+    _, model, _, fused = _run_train_steps(torch, state, "train_views",
+                                          ENCODER_KERNELS + steps_kernels, cfg)
+    del model
+    with _no_fused_encoder():
+        _, model, _, nofused = _run_train_steps(torch, state, "train_views_nofused",
+                                                NOFUSED_KERNELS + steps_kernels, cfg)
+    del model
+    n_mod = cfg.n_modalities
+    want = {**{k: n_mod for k in PEROP_KERNELS}, "attn_pool_ms": 3 * n_mod,
+            "attn_pool_bwd": 3 * n_mod}
+    wrong = [("nofused", i, k, c[k]) for i, c in enumerate(nofused["launches_per_step"])
+             for k in want if c[k] != want[k]]
+    wrong += [("fused", i, k, c[k]) for i, c in enumerate(fused["launches_per_step"])
+              for k in ENCODER_KERNELS if c[k] != n_mod]
+    wrong += [("nofused", k, nofused["launches"][k]) for k in ENCODER_KERNELS
+              if nofused["launches"][k]]
+    emit({"phase": "train_views", "intra_modality_loss": cfg.intra_modality_loss,
+          "n_views": 3, "fused": fused, "nofused": dict(nofused, variable=f"{NO_FUSED_VAR}=1"),
+          "train_got_step_ms": state.get("train_got_step_ms"),
+          "train_got_peak_gb": state.get("train_got_peak_gb")})
+    if wrong:
+        raise AssertionError(f"train_views: launches per step off: {wrong}")
 
 
 HEAD_CLASSES = 4
@@ -3375,6 +3578,32 @@ def _native_first_batch(root, out_dtype, buffer_depth=4):
             "n_threads": loader.n_threads, "cpu_count": os.cpu_count()}, batch["feats"]
 
 
+def _pinned_batch_outlives_its_copy(torch, n=64 << 20):
+    """The Python loader's batches are pinned with Tensor.pin_memory() (the
+    CLI's host_batches), by PyTorch's caching host allocator. With the host
+    ahead of the card a batch can be freed before its copy has run: the
+    allocator must keep its block until the copy's recorded event completes.
+    A pinned block of n f32 ones is copied behind about 0.1 s of device
+    sleep, freed, and a block of the same size pinned and filled with twos
+    at once; the copy must still read ones."""
+    a = torch.ones(n).pin_memory()
+    dst = torch.empty(n, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    dst.copy_(a, non_blocking=True)
+    freed = a.data_ptr()
+    del a
+    b = torch.empty(n).pin_memory()
+    b.fill_(2.0)
+    reused = b.data_ptr() == freed
+    torch.cuda.synchronize()
+    intact = bool((dst == 1.0).all())
+    if not intact:
+        raise AssertionError("a pinned batch freed before its copy ran was overwritten")
+    return {"copy_intact": intact, "freed_block_reused_before_the_copy": reused,
+            "mb": n * 4 / 2 ** 20}
+
+
 def _pretrain_trio(root, tag, epochs_a, epochs, *extra):
     """Three CLI runs on the cohort: A epochs_a epochs with --checkpoint_every
     1, B A resumed to `epochs`, C `epochs` straight. Returns (runs, model.pt
@@ -3422,6 +3651,7 @@ def phase_pretrain(state):
     import torch
 
     gen = np.random.default_rng(SEED + 7)
+    pinned = _pinned_batch_outlives_its_copy(torch)
     root = tempfile.mkdtemp(prefix="pretrain_")
     try:
         t0 = time.perf_counter()
@@ -3451,6 +3681,12 @@ def phase_pretrain(state):
                                         kernels=NOFUSED_KERNELS + GOT_KERNELS + GLUE_KERNELS)
         if any(run_nf["launches"].get(k, 0) for k in ENCODER_KERNELS):
             raise AssertionError(f"pretrain nofused: K6/K7 launched {run_nf['launches']}")
+        # the intra-modality InfoNCE (n_views=3, K6/K7's view route), one epoch
+        results, records, wall_intra = _run_pretrain_cli(
+            _pretrain_argv(root, os.path.join(root, "intra"), 1, "--checkpoint_every", "1",
+                           "--intra_modality_loss", "info-nce"),
+            os.path.join(root, "pretrain_intra.log"))
+        run_intra, _ = _check_pretrain_run("intra", results, records, range(1))
         loader_parts = _loader_breakdown(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3485,7 +3721,7 @@ def phase_pretrain(state):
                 line[part + "_median"] = statistics.median([x for r in rs for x in r[part]])
         return line
 
-    every = list(runs.values()) + list(runs_se.values()) + [run_sig, run_nf]
+    every = list(runs.values()) + list(runs_se.values()) + [run_sig, run_nf, run_intra]
     state["launches_pretrain"] = {k: sum(r["launches"].get(k, 0) for r in every)
                                   for k in read_counts()}
     state["launches_pretrain_side"] = {k: sum(r["launches"].get(k, 0) for r in (run_sig, run_nf))
@@ -3500,6 +3736,7 @@ def phase_pretrain(state):
                                 h2d_ms_per_batch_bf16=h2d_bf16_ms,
                                 h2d_gb_per_batch_bf16=65 * 5 * 2048 * 512 * 2 / 1e9),
           "python_loader": dict(loader_line([run_sig]), run="sigmoid",
+                                pinned_batch_outlives_its_copy=pinned,
                                 one_batch_by_part=loader_parts, h2d_ms_per_batch_f32=h2d_ms,
                                 h2d_gb_per_batch_f32=65 * 5 * 2048 * 512 * 4 / 1e9),
           "cli_step_ms_median": native["cli_step_ms_median"],
@@ -3516,7 +3753,10 @@ def phase_pretrain(state):
           "sigmoid": {"run": run_sig, "cli_wall_s": wall_sig,
                       "cli_step_ms_median": statistics.median(run_sig["step_ms"])},
           "nofused": {"run": run_nf, "cli_wall_s": wall_nf,
-                      "cli_step_ms_median": statistics.median(run_nf["step_ms"])}})
+                      "cli_step_ms_median": statistics.median(run_nf["step_ms"])},
+          "intra": {"run": run_intra, "cli_wall_s": wall_intra,
+                    "flags": "--intra_modality_loss info-nce",
+                    "cli_step_ms_median": statistics.median(run_intra["step_ms"])}})
 
 
 # kernel-name prefixes of K8-K10 and of K11-K14 in a profiler trace
@@ -3572,6 +3812,7 @@ def _profiled(torch, fn):
 
 
 PROFILE_WINDOWS = 10   # profiled windows a call may take before its window is complete
+PROFILE_B2B_STEPS = 3  # train steps in one profiled window, launched back to back
 # What a profiled window of each wrapper call must show before the absence of
 # the mma.sync GEMM (gemm_bf16_kernel) in it counts: the TMA + wgmma GEMM's
 # launches (wg::gemm_kernel, one per product the call runs) and the row
@@ -3708,11 +3949,15 @@ def phase_profile(state):
     del x, w
     # one full-width train step of each objective (after two unprofiled
     # ones): device time by kernel against the step's wall time on the
-    # CUDA-event clock
+    # CUDA-event clock; then PROFILE_B2B_STEPS steps launched back to back
+    # in one window, the host no longer waiting between them
     steps = {}
     for name, cfg, no_fused in (("train_step", None, False),
                                 ("train_step_got", got_path_config(), False),
-                                ("train_step_nofused", got_path_config(), True)):
+                                ("train_step_nofused", got_path_config(), True),
+                                ("train_step_sigmoid", got_path_config(activation="sigmoid"),
+                                 False),
+                                ("train_step_views", views_path_config(), False)):
         _, _, step, batch = _train_setup(torch, cfg)
         with _no_fused_encoder(no_fused):
             for i in range(2):
@@ -3730,7 +3975,17 @@ def phase_profile(state):
             # a window counts once it shows every product and row kernel of
             # the step's wrapper calls (read from the launch counters)
             rows, windows = _complete_window(torch, one_step, name)
-        busy, wall = sum(r[2] for r in rows), start.elapsed_time(end)
+            busy, wall = sum(r[2] for r in rows), start.elapsed_time(end)
+
+            def steps_back_to_back():
+                start.record()
+                for _ in range(PROFILE_B2B_STEPS):
+                    step(batch, next(seeds))
+                end.record()
+
+            rows_b, windows_b = _complete_window(torch, steps_back_to_back,
+                                                 f"{name} back to back")
+            busy_b, wall_b = sum(r[2] for r in rows_b), start.elapsed_time(end)
         # every product of every step, the no-fused one's kernel 20 included,
         # runs on the TMA + wgmma GEMM: no step launches the mma.sync GEMM
         mma = sum(c for k, c, _ in rows if "gemm_bf16_kernel" in k)
@@ -3738,7 +3993,13 @@ def phase_profile(state):
             raise AssertionError(f"profile: {name} launched the mma.sync GEMM {mma} times, "
                                  f"not 0")
         steps[name] = {"wall_ms": wall, "device_busy_ms": busy,
-                       "device_idle_share": 1.0 - busy / wall, **_split_got_rows(rows),
+                       "device_idle_share": 1.0 - busy / wall,
+                       "back_to_back": {"steps": PROFILE_B2B_STEPS,
+                                        "wall_ms_per_step": wall_b / PROFILE_B2B_STEPS,
+                                        "device_busy_ms_per_step": busy_b / PROFILE_B2B_STEPS,
+                                        "device_idle_share": 1.0 - busy_b / wall_b,
+                                        "profiled_windows": windows_b},
+                       **_split_got_rows(rows),
                        "mma_sync_gemm_launches": mma, "profiled_windows": windows,
                        "wgmma_gemm_ms": sum(ms for k, _, ms in rows if "wg::gemm_kernel" in k),
                        "by_kernel_ms": [[k, c, ms] for k, c, ms in rows[:24]]}

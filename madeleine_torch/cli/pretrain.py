@@ -16,7 +16,9 @@ into a pinned ring, in bf16 under ``--precision bfloat16``) when
 ``--native_loader`` is ``on``, or ``auto`` (the default) and the data dir
 holds ``.bag`` files; otherwise through the Python loader (``.h5`` where
 h5py imports, else ``.npz`` or ``.bag``). It takes AdamW steps of
-InfoNCE + GOT on the card (kernels K6-K14; with a non-softmax
+InfoNCE + GOT on the card (kernels K6-K14; with ``--intra_modality_loss
+info-nce`` also the intra-modality InfoNCE between two half-bag views of
+every bag, K6/K7's view route; with a non-softmax
 ``--activation``, the per-op lane's kernels 15-20 in place of K6/K7, and
 with softmax and MADELEINE_NO_FUSED_ENCODER set in the environment, kernels
 15-20 and the training pool's rows 4-5), and writes into
@@ -30,6 +32,14 @@ that cohort as ``<name>.pkl``. A run resumes exactly from
 ``--resume <train_state dir>`` (or from its own results dir's train state).
 The card's machine has no pandas or h5py: give it ``.bag`` bags (``python -m
 madeleine_torch.cli.convert_bags``) or ``.npz`` ones.
+
+The host runs up to MADELEINE_DISPATCH_WINDOW steps (default 8) ahead of
+the card: the skip is decided on the device and each step's records are
+read that many steps later (`train/trainer.py::train_loop`). A batch of the
+Python loader is pinned by `host_batches` (PyTorch's caching host
+allocator, which keeps a block from reuse until the copy that reads it has
+completed on the stream); a slot of the native loader's ring waits on the
+CUDA event the step records after its copy.
 """
 
 from __future__ import annotations
@@ -182,7 +192,7 @@ def main(argv=None) -> str:
         if improved or (cfg.checkpoint_every and (epoch + 1) % cfg.checkpoint_every == 0):
             ckpt.save_train_state(
                 state_dir, {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-                            "updates": train_step.updates},
+                            "updates": int(train_step.updates)},
                 metadata={"epoch": epoch, "best_rank": best_rank, "train_rank": train_rank,
                           "loss": float(ep_loss)})
 

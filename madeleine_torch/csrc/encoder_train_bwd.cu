@@ -1,7 +1,7 @@
 // Whole-encoder training backward in bf16 (kernel K7).
 //
 // Replaces madeleine_tpu/ops/encoder_train.py::_bwd_kernel (save_acts route,
-// need_dx off and on). From the forward's residuals (u1, u2, u3, a_pre, b_pre,
+// need_dx off and on, n_views 1 and 3). From the forward's residuals (u1, u2, u3, a_pre, b_pre,
 // rstd), the masked logits and the pool statistics (m, s), it forms the
 // summed cotangent of y in the TPU kernel's order (pool term, then token
 // projector term, then gate terms; encoder_train.py:341-407) and runs the
@@ -62,16 +62,20 @@ __global__ void recon_h(const bf16* __restrict__ U, const float* __restrict__ s,
 }
 
 // Pool adjoint. Block = 64-row tile, E/4 threads (e % 128 == 0). Per row:
-// y32 rebuilt from u3, p = softmax weight, dl = p (y32_h . g_h - inner_h),
-// DY = p g (the first term of the summed cotangent), Y = bf16(y32), DL = dl.
+// y32 rebuilt from u3; per view v (NV = 1, or 3 with the view bias vb [t, 2]
+// added to the logits of views 1 and 2): p_v = softmax weight, dl += p_v
+// (y32_h . g_v,h - inner_v,h), DY += p_v g_v (the first term of the summed
+// cotangent, encoder_train.py:341-356); Y = bf16(y32), DL = dl.
 // part[tile, h] = sum of the tile's dl (for dbc).
+template <int NV>
 __global__ void pool_bwd(const bf16* __restrict__ U3, const float* __restrict__ s3,
                          const float* __restrict__ t3, const float* __restrict__ l,
-                         const float* __restrict__ m, const float* __restrict__ s,
-                         const float* __restrict__ g, const float* __restrict__ inner,
-                         bf16* __restrict__ Y, float* __restrict__ DY, float* __restrict__ DL,
-                         float* __restrict__ part, long long ld_part, int M, int t, int nh,
-                         int e, int row_offset, Dropout d) {
+                         const float* __restrict__ vb, const float* __restrict__ m,
+                         const float* __restrict__ s, const float* __restrict__ g,
+                         const float* __restrict__ inner, bf16* __restrict__ Y,
+                         float* __restrict__ DY, float* __restrict__ DL, float* __restrict__ part,
+                         long long ld_part, int M, int t, int nh, int e, int row_offset,
+                         Dropout d) {
   __shared__ float red[32];
   const int tpb = e / 4, h = threadIdx.x / tpb, c = h * e + (threadIdx.x % tpb) * 4;
   const int E = nh * e, wph = tpb / 32;
@@ -83,27 +87,35 @@ __global__ void pool_bwd(const bf16* __restrict__ U3, const float* __restrict__ 
   for (int i = 0; i < ROW_TILE; ++i) {
     const long long r = r0 + i;
     if (r >= M) break;
-    const int bi = (int)(r / t);
-    float u[4], k[4], gv[4], y[4];
+    const int bi = (int)(r / t), tok = (int)(r % t);
+    float u[4], k[4], y[4];
     madeleine::load4(U3 + r * E + c, u);
-    madeleine::load4(g + (long long)bi * E + c, gv);
-    madeleine::keep4(d, c / 4, (int)(r % t), bi + row_offset, 2, k);
-    float dot = 0.f;
+    madeleine::keep4(d, c / 4, tok, bi + row_offset, 2, k);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float v = u[j] * sh3[j] + tt3[j];
       y[j] = v * madeleine::gauss_cdf(v) * k[j];
-      dot += y[j] * gv[j];
     }
     madeleine::store4(Y + r * E + c, y);
-    dot = madeleine::group_sum(dot, red, h * wph, wph);
     const float lh = l[r * nh + h];
-    const float p = lh > madeleine::TRAIN_MASKED
-                        ? expf(lh - m[bi * nh + h]) / s[bi * nh + h] : 0.f;
-    const float dl = p * (dot - inner[bi * nh + h]);
-    float dy[4];
+    float dl = 0.f, dy[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dy[j] = p * gv[j];
+    for (int v = 0; v < NV; ++v) {
+      const long long bv = (long long)bi * NV + v;
+      float gv[4];
+      madeleine::load4(g + bv * E + c, gv);
+      float dot = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dot += y[j] * gv[j];
+      dot = madeleine::group_sum(dot, red, h * wph, wph);
+      const float lv = v == 0 ? lh : lh + vb[(long long)tok * 2 + v - 1];
+      const float p = lv > madeleine::TRAIN_MASKED ? expf(lv - m[bv * nh + h]) / s[bv * nh + h]
+                                                   : 0.f;
+      const float dlv = p * (dot - inner[bv * nh + h]);
+      dl = v == 0 ? dlv : dl + dlv;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dy[j] = v == 0 ? p * gv[j] : dy[j] + p * gv[j];
+    }
     madeleine::store4(DY + r * E + c, dy);
     if (threadIdx.x % tpb == 0) {
       DL[r * nh + h] = dl;
@@ -153,9 +165,10 @@ extern "C" void encoder_train_bwd_workspace(const long long* dims, long long* ou
   out[1] = S.ntr * colpart_stride(S);
 }
 
-// dims as encoder_train_forward. p: the pointers of
+// dims as encoder_train_forward (dims[12] = nv). p: the pointers of
 // ops/encoder_train.py::encoder_train_bwd_cuda's `tensors`, in that order
-// (the last, dx, null without need_dx). Returns a cudaError_t.
+// (dx null without need_dx; the last, the view bias [t, 2], null when nv = 1).
+// g is [b, nv, E]; inner, m and s are [b, nv, nh]. Returns a cudaError_t.
 extern "C" int encoder_train_backward(void** p, const long long* dims, const float* scales,
                                       void* stream_) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream_);
@@ -192,6 +205,9 @@ extern "C" int encoder_train_backward(void** p, const long long* dims, const flo
   bf16* DZ12 = (bf16*)p[51];
   float *work = (float*)p[52], *part = (float*)p[53];
   bf16* dx = (bf16*)p[54];   // null unless need_dx
+  const float* vb = (const float*)p[55];   // null when nv = 1
+  const int nv = (int)dims[12];
+  if (nv != 1 && (nv != 3 || vb == nullptr)) return (int)cudaErrorInvalidValue;
   const long long ldp = colpart_stride(S);
   const int ntr = S.ntr;
 
@@ -201,8 +217,12 @@ extern "C" int encoder_train_backward(void** p, const long long* dims, const flo
   recon_h<<<M, hd / 4, 0, st>>>(u2, s2, t2, H2, hd, t, ro, 1, dpre);
   CHECK(cudaGetLastError());
   // 1. pool term of dy; dl; y
-  pool_bwd<<<ntr, E / 4, 0, st>>>(u3, s3, t3, l, m, s, g, inner, Y, DY, DL, part, ldp, M, t,
-                                  nh, e, ro, dpre);
+  if (nv == 1)
+    pool_bwd<1><<<ntr, E / 4, 0, st>>>(u3, s3, t3, l, vb, m, s, g, inner, Y, DY, DL, part, ldp,
+                                       M, t, nh, e, ro, dpre);
+  else
+    pool_bwd<3><<<ntr, E / 4, 0, st>>>(u3, s3, t3, l, vb, m, s, g, inner, Y, DY, DL, part, ldp,
+                                       M, t, nh, e, ro, dpre);
   CHECK(cudaGetLastError());
   CHECK(madeleine::colsum_reduce(part, ldp, 0, nh, ntr, dbc, st));
   // 2. token projector term: DY += dtok . Wt; dWt = dtok^T y; dbt

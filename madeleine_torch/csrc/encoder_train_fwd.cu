@@ -6,7 +6,9 @@
 //   tok = y Wt^T + bt                                           -> [d_out] bf16
 //   per head h: a = tanh(y_h Wa_h^T + ba_h), g = sigmoid(y_h Wb_h^T + bb_h),
 //     both with dropout; l_h = (a g) . wc_h + bc_h + mask bias  -> [nh] f32
-//   softmax pool of y32 over each bag's tokens -> pooled [b, E] f32, (m, s)
+//   softmax pool of y32 over each bag's tokens -> pooled [b, E] f32, (m, s);
+//   with n_views = 3 (the intra-modality loss) also over two disjoint
+//   half-bags, the same logits plus a view bias      -> pooled [b, 3, E]
 // and the residuals the backward reads instead of recomputing any product:
 // u1, u2, u3 (normalised pre-affine LN inputs), a_pre, b_pre (bf16) and the
 // three LN rstd (f32), the columns of encoder_train.py:218-226.
@@ -42,7 +44,9 @@
 //     row kernel) and writes one partial logit per 64 columns; gate_logits_sum
 //     adds the partials in chunk order, bc and the mask bias. G is gone;
 //   - the pool splits each bag into 64-token tiles whose (m, s, w) partials
-//     are merged in tile order, as pool_combine.cuh does.
+//     are merged in tile order, as pool_combine.cuh does; with three views
+//     (encoder_train.py:228-249) each tile reads y32 once into three
+//     accumulators, and the merge runs once per view.
 // No atomics anywhere: launches are bitwise reproducible. The layer stack is
 // train_rows.cuh's, shared with the first design of the per-op kernel 15
 // (kept as a check); gate_logits_sum is shared with the per-op kernel 17.
@@ -60,81 +64,105 @@ using madeleine::Dropout;
 
 constexpr int POOL_TM = 64;
 
-// Grid (ntiles, b), 256 threads: per (bag, 64-token tile, head) the partial
-// softmax-pool state m, s, w[e] of the tile's unmasked tokens.
-__global__ void pool_partial(const float* __restrict__ l, const float* __restrict__ y32,
-                             float* __restrict__ part_m, float* __restrict__ part_s,
-                             float* __restrict__ part_w, int t, int nh, int e) {
-  __shared__ float p_s[POOL_TM];
+// Grid (ntiles, b), 256 threads: per (bag, 64-token tile, view, head) the
+// partial softmax-pool state m, s, w[e] of the tile's unmasked tokens of the
+// view. View 0 is the whole bag; with NV = 3, views 1 and 2 re-softmax the
+// same logits plus the view bias vb [t, 2] (0 inside the view, -1e30
+// outside, shared by every bag). y32 is read once for all views.
+template <int NV>
+__global__ void pool_partial(const float* __restrict__ l, const float* __restrict__ vb,
+                             const float* __restrict__ y32, float* __restrict__ part_m,
+                             float* __restrict__ part_s, float* __restrict__ part_w, int t,
+                             int nh, int e) {
+  __shared__ float p_s[NV][POOL_TM];
   const int tile = blockIdx.x, bi = blockIdx.y, ntiles = gridDim.x;
   const int tok0 = tile * POOL_TM, rows = min(POOL_TM, t - tok0);
   const int tid = threadIdx.x, lane = tid & 31, E = nh * e;
   const long long r0 = (long long)bi * t + tok0;
+  const long long pbase = ((long long)bi * ntiles + tile) * NV;
   for (int h = 0; h < nh; ++h) {
     if (tid < 32) {
       const float l0 = lane < rows ? l[(r0 + lane) * nh + h] : -INFINITY;
       const float l1 = lane + 32 < rows ? l[(r0 + lane + 32) * nh + h] : -INFINITY;
-      const bool v0 = l0 > madeleine::TRAIN_MASKED, v1 = l1 > madeleine::TRAIN_MASKED;
-      float m = fmaxf(v0 ? l0 : -INFINITY, v1 ? l1 : -INFINITY);
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      const float p0 = v0 ? expf(l0 - m) : 0.f, p1 = v1 ? expf(l1 - m) : 0.f;
-      p_s[lane] = p0;
-      p_s[lane + 32] = p1;
-      const float s = madeleine::warp_sum(p0 + p1);
-      if (lane == 0) {
-        part_m[((long long)bi * ntiles + tile) * nh + h] = m;
-        part_s[((long long)bi * ntiles + tile) * nh + h] = s;
+      for (int v = 0; v < NV; ++v) {
+        float lv0 = l0, lv1 = l1;
+        if (v > 0) {
+          if (lane < rows) lv0 += vb[(long long)(tok0 + lane) * 2 + v - 1];
+          if (lane + 32 < rows) lv1 += vb[(long long)(tok0 + lane + 32) * 2 + v - 1];
+        }
+        const bool v0 = lv0 > madeleine::TRAIN_MASKED, v1 = lv1 > madeleine::TRAIN_MASKED;
+        float m = fmaxf(v0 ? lv0 : -INFINITY, v1 ? lv1 : -INFINITY);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+        const float p0 = v0 ? expf(lv0 - m) : 0.f, p1 = v1 ? expf(lv1 - m) : 0.f;
+        p_s[v][lane] = p0;
+        p_s[v][lane + 32] = p1;
+        const float s = madeleine::warp_sum(p0 + p1);
+        if (lane == 0) {
+          part_m[(pbase + v) * nh + h] = m;
+          part_s[(pbase + v) * nh + h] = s;
+        }
       }
     }
     __syncthreads();
-    float* pw = part_w + ((long long)bi * ntiles + tile) * E + (long long)h * e;
+    float* pw = part_w + pbase * E + (long long)h * e;
     for (int c = tid; c < e; c += blockDim.x) {
-      float w = 0.f;
-      for (int i = 0; i < rows; ++i) w = fmaf(p_s[i], y32[(r0 + i) * E + h * e + c], w);
-      pw[c] = w;
+      float w[NV];
+#pragma unroll
+      for (int v = 0; v < NV; ++v) w[v] = 0.f;
+      for (int i = 0; i < rows; ++i) {
+        const float y = y32[(r0 + i) * E + h * e + c];
+#pragma unroll
+        for (int v = 0; v < NV; ++v) w[v] = fmaf(p_s[v][i], y, w[v]);
+      }
+#pragma unroll
+      for (int v = 0; v < NV; ++v) pw[(long long)v * E + c] = w[v];
     }
     __syncthreads();
   }
 }
 
-// Grid (ceil(E/256), b): merge the tile partials in tile order -> pooled
-// [b, E] f32 and per (bag, head) m and s = max(S, 1e-30). A bag without an
-// unmasked token pools to 0 (m = -inf).
+// Grid (ceil(E/256), b, nv): merge the tile partials of one view in tile
+// order -> pooled [b, nv, E] f32 and per (bag, view, head) m and s = max(S,
+// 1e-30). A view without an unmasked token pools to 0 (m = -inf).
 __global__ void pool_merge(const float* __restrict__ part_m, const float* __restrict__ part_s,
                            const float* __restrict__ part_w, float* __restrict__ pooled,
                            float* __restrict__ m_out, float* __restrict__ s_out, int ntiles,
                            int nh, int e) {
-  const int bi = blockIdx.y, E = nh * e;
+  const int bi = blockIdx.y, v = blockIdx.z, nv = gridDim.z, E = nh * e;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= E) return;
   const int h = c / e;
-  const float* pm = part_m + (long long)bi * ntiles * nh + h;
-  const float* ps = part_s + (long long)bi * ntiles * nh + h;
-  const float* pw = part_w + (long long)bi * ntiles * E + c;
+  const long long bv = (long long)bi * nv + v;
+  const float* pm = part_m + ((long long)bi * ntiles * nv + v) * nh + h;
+  const float* ps = part_s + ((long long)bi * ntiles * nv + v) * nh + h;
+  const float* pw = part_w + ((long long)bi * ntiles * nv + v) * E + c;
+  const long long sm = (long long)nv * nh, sw = (long long)nv * E;
   float M = -INFINITY;
-  for (int i = 0; i < ntiles; ++i) M = fmaxf(M, pm[(long long)i * nh]);
+  for (int i = 0; i < ntiles; ++i) M = fmaxf(M, pm[i * sm]);
   float S = 0.f, Wt = 0.f;
   if (M != -INFINITY) {
     for (int i = 0; i < ntiles; ++i) {
-      const float a = expf(pm[(long long)i * nh] - M);
-      S = fmaf(ps[(long long)i * nh], a, S);
-      Wt = fmaf(pw[(long long)i * E], a, Wt);
+      const float a = expf(pm[i * sm] - M);
+      S = fmaf(ps[i * sm], a, S);
+      Wt = fmaf(pw[i * sw], a, Wt);
     }
   }
   const float Sc = fmaxf(S, 1e-30f);
-  pooled[(long long)bi * E + c] = M == -INFINITY ? 0.f : Wt / Sc;
+  pooled[bv * E + c] = M == -INFINITY ? 0.f : Wt / Sc;
   if (c % e == 0) {
-    m_out[bi * nh + h] = M;
-    s_out[bi * nh + h] = Sc;
+    m_out[bv * nh + h] = M;
+    s_out[bv * nh + h] = Sc;
   }
 }
 
 }  // namespace
 
-// dims: b, t, d_in, hidden, nh, e, f, d_out, seed, row_offset, thr_pre, thr_gate.
-// scales: keep scales of the two rates. p: the pointers listed in
-// ops/encoder_train.py::_FWD_PTRS, in that order. Returns a cudaError_t.
+// dims: b, t, d_in, hidden, nh, e, f, d_out, seed, row_offset, thr_pre, thr_gate,
+// nv (1, or 3 with the view bias). scales: keep scales of the two rates. p: the
+// pointers of ops/encoder_train.py::encoder_train_fwd_cuda's `tensors`, in that
+// order (the last, the view bias [t, 2], null when nv = 1). Returns a cudaError_t.
 extern "C" int encoder_train_forward(void** p, const long long* dims, const float* scales,
                                      void* stream_) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream_);
@@ -142,7 +170,7 @@ extern "C" int encoder_train_forward(void** p, const long long* dims, const floa
   const int nh = (int)dims[4], e = (int)dims[5], f = (int)dims[6], dout = (int)dims[7];
   const Dropout dpre{(uint32_t)dims[8], (uint32_t)dims[10], scales[0]};
   const Dropout dgate{(uint32_t)dims[8], (uint32_t)dims[11], scales[1]};
-  const int row_offset = (int)dims[9];
+  const int row_offset = (int)dims[9], nv = (int)dims[12];
   const int M = b * t, E = nh * e;
   const bf16* x = (const bf16*)p[0];
   const float* bias = (const float*)p[1];
@@ -164,6 +192,8 @@ extern "C" int encoder_train_forward(void** p, const long long* dims, const floa
   bf16 *H1 = (bf16*)p[32], *H2 = (bf16*)p[33], *Y = (bf16*)p[34];
   float* lpart = (float*)p[35];   // [M, nh, f / 64] partial logits
   float *part_m = (float*)p[36], *part_s = (float*)p[37], *part_w = (float*)p[38];
+  const float* vb = (const float*)p[39];   // [t, 2] view bias, null when nv = 1
+  if (nv != 1 && (nv != 3 || vb == nullptr)) return (int)cudaErrorInvalidValue;
   // pre-attention layers: Z = A W^T + bias, then LN / GELU / dropout rows;
   // layer 3 leaves y32 in Z for the pool
   madeleine::StackFwd sf{};
@@ -205,11 +235,14 @@ extern "C" int encoder_train_forward(void** p, const long long* dims, const floa
   if (err != cudaSuccess) return (int)err;
   // softmax pool of y32 (in Z)
   const int ntiles = (t + POOL_TM - 1) / POOL_TM;
-  pool_partial<<<dim3(ntiles, b), 256, 0, st>>>(l, Z, part_m, part_s, part_w, t, nh, e);
+  if (nv == 1)
+    pool_partial<1><<<dim3(ntiles, b), 256, 0, st>>>(l, vb, Z, part_m, part_s, part_w, t, nh, e);
+  else
+    pool_partial<3><<<dim3(ntiles, b), 256, 0, st>>>(l, vb, Z, part_m, part_s, part_w, t, nh, e);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  pool_merge<<<dim3((E + 255) / 256, b), 256, 0, st>>>(part_m, part_s, part_w, pooled, m_out,
-                                                       s_out, ntiles, nh, e);
+  pool_merge<<<dim3((E + 255) / 256, b, nv), 256, 0, st>>>(part_m, part_s, part_w, pooled,
+                                                           m_out, s_out, ntiles, nh, e);
   return (int)cudaGetLastError();
 }
 

@@ -17,18 +17,17 @@ permutation is applied to fc3/ln3 when `encoder_weights` builds the operand
 tensors at the kernel boundary, never stored as a second copy.
 
 Training (`abmil_embed_train`, the per-op lane, JAX abmil.py:134-214,
-255-345 with train=True): the pre-attention MLP and the gate logits through
+255-357 with train=True): the pre-attention MLP and the gate logits through
 their train ops (ops/preattn.py, ops/gated_logits.py: kernels 15-18 on the
 card), then with softmax the training pool `fused_attention_pool` (rows 4
 and 5 on the card), with another activation the plain masked pool through
-autograd.
+autograd; with n_views=3 each half-bag view through the training pool.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -42,7 +41,7 @@ from madeleine_torch.ops.preattn import preattn_train
 
 __all__ = ["ABMILEmbedder", "activate_attention", "abmil_embed", "abmil_embed_train",
            "drop_kernel_operands", "encoder_weights", "gate_weights", "gated_attention_logits",
-           "kernel_operands", "layer_norm", "pre_attn_mlp"]
+           "head_major_index", "kernel_operands", "layer_norm", "pre_attn_mlp"]
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default
 PRE_ATTN_DROPOUT = 0.1   # ref: Model.py:354,358,362
@@ -79,11 +78,12 @@ class ABMILEmbedder(nn.Module):
         self.hidden_dim = hidden_dim
 
 
-def _head_major_perm(hidden: int, n_heads: int) -> np.ndarray:
+def head_major_index(hidden: int, n_heads: int, device) -> torch.Tensor:
     """perm[j] = head-minor source index of head-major position j:
-    j = h * hidden + e  <-  e * n_heads + h (factory.py:47-51)."""
-    j = np.arange(hidden * n_heads)
-    return (j % hidden) * n_heads + (j // hidden)
+    j = h * hidden + e  <-  e * n_heads + h (factory.py:47-51). Made on
+    `device`, with no host copy: the train step never waits for the card."""
+    j = torch.arange(hidden * n_heads, device=device)
+    return (j % hidden) * n_heads + torch.div(j, hidden, rounding_mode="floor")
 
 
 def gate_weights(emb: ABMILEmbedder) -> Dict[str, torch.Tensor]:
@@ -105,8 +105,7 @@ def encoder_weights(emb: ABMILEmbedder) -> Dict[str, torch.Tensor]:
     layout with biases b*, LN scales s* and shifts t*; fc3's rows and ln3 are
     permuted to head-major here; plus `gate_weights`."""
     p = emb.pre_attn
-    perm = torch.as_tensor(_head_major_perm(emb.hidden_dim, emb.n_heads),
-                           device=p[8].weight.device)
+    perm = head_major_index(emb.hidden_dim, emb.n_heads, p[8].weight.device)
     w = {"w1": p[0].weight, "b1": p[0].bias, "s1": p[1].weight, "t1": p[1].bias,
          "w2": p[4].weight, "b2": p[4].bias, "s2": p[5].weight, "t2": p[5].bias,
          "w3": p[8].weight[perm], "b3": p[8].bias[perm],
@@ -241,21 +240,34 @@ def abmil_embed(
 
 
 def abmil_embed_train(w: Dict[str, torch.Tensor], bags: torch.Tensor, *, activation: str,
-                      seed: int, mask: Optional[torch.Tensor] = None,
-                      row_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """ABMIL training forward on the per-op lane (JAX abmil.py:255-345 with
-    train=True and n_views=1): `pre_attn_mlp` and `gated_attention_logits`
-    through their train ops (dropout keyed by seed and the global rows from
-    row_offset), then the masked pool of `activation`: with softmax the
-    training pool `fused_attention_pool` (abmil.py:329-334), otherwise the
-    plain way through autograd (JAX's _pool_reference). bags [b, t, d_in]
-    in the compute dtype, w: `encoder_train.train_operands`, mask [b, t]
-    bool or None. Returns (pooled [b, nh, e], tokens [b, t, nh, e]), both in
-    bags.dtype."""
+                      seed: int, mask: Optional[torch.Tensor] = None, row_offset: int = 0,
+                      half_mask: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ABMIL training forward on the per-op lane (JAX abmil.py:255-357 with
+    train=True): `pre_attn_mlp` and `gated_attention_logits` through their
+    train ops (dropout keyed by seed and the global rows from row_offset),
+    then the masked pool of `activation`: with softmax the training pool
+    `fused_attention_pool` (abmil.py:329-334), otherwise the plain way
+    through autograd (JAX's _pool_reference). With half_mask ([t] bool, the
+    split shared by every row: n_views=3) each half also pools through the
+    training pool over ``mask & half`` and ``mask & ~half``, softmax
+    whatever the activation (abmil.py:349-357). bags [b, t, d_in] in the
+    compute dtype, w: `encoder_train.train_operands`, mask [b, t] bool or
+    None. Returns (pooled [b, nh, e], or [b, 3, nh, e] with half_mask: the
+    whole bag, half 1, half 2; tokens [b, t, nh, e]), both in bags.dtype."""
     y = pre_attn_mlp(w, bags, seed=seed, row_offset=row_offset)
     nh, _, e = w["wa"].shape
     xh = y.reshape(*y.shape[:-1], nh, e)
     logits = gated_attention_logits(w, xh, seed=seed, row_offset=row_offset)
     if activation == "softmax":
-        return fused_attention_pool(xh, logits, mask), xh
-    return masked_attention_pool(xh, logits, mask, activation), xh
+        whole = fused_attention_pool(xh, logits, mask)
+    else:
+        whole = masked_attention_pool(xh, logits, mask, activation)
+    if half_mask is None:
+        return whole, xh
+    b, t = bags.shape[:2]
+    views = [whole]
+    for half in (half_mask, ~half_mask):
+        half = half.reshape(1, t).expand(b, t)
+        views.append(fused_attention_pool(xh, logits, half if mask is None else mask & half))
+    return torch.stack(views, dim=1), xh

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from madeleine_torch.config import MadeleineConfig, compute_dtype
-from madeleine_torch.models.abmil import _head_major_perm
+from madeleine_torch.models.abmil import head_major_index
 from madeleine_torch.models.madeleine import MADELEINE, init_madeleine
 from madeleine_torch.utils.device import resolve_device
 
@@ -49,7 +49,7 @@ def params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     attn = params["wsi_embedders"]["attn"]
     n_heads = np.asarray(attn["wa"]).shape[0]
     hidden = np.asarray(pre["fc3"]["w"]).shape[1] // n_heads
-    perm = _head_major_perm(hidden, n_heads)
+    perm = head_major_index(hidden, n_heads, "cpu").numpy()
     inv = np.empty_like(perm)
     inv[perm] = np.arange(len(perm))
     for ours, idx in _PRE_ATTN_LAYERS.items():

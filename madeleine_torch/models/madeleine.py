@@ -7,7 +7,7 @@ PyTorch counterpart of `madeleine_tpu/models/madeleine.py` (ref: Model.py:45-216
 
 The module holds its config (``model.cfg``); parameter names are the
 reference's, so ``model.pt`` files load strictly. The training forward
-(`forward_train`, n_views=1, with or without stain encodings) runs the whole
+(`forward_train`, n_views 1 or 3, with or without stain encodings) runs the whole
 encoder through the train op of ops/encoder_train.py with softmax, and the
 per-op lane with any other activation or with MADELEINE_NO_FUSED_ENCODER set
 (`abmil_embed_train`, then the token projector's train op,
@@ -21,13 +21,14 @@ import math
 import os
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from madeleine_torch.config import HE_POSITION, MadeleineConfig
-from madeleine_torch.models.abmil import (ABMILEmbedder, _head_major_perm, abmil_embed,
-                                          abmil_embed_train, encoder_weights)
+from madeleine_torch.models.abmil import (ABMILEmbedder, abmil_embed, abmil_embed_train,
+                                          encoder_weights, head_major_index)
 from madeleine_torch.ops.encoder_train import encoder_train, train_operands
 from madeleine_torch.ops.linear_tok import linear_tok_train
 
@@ -116,8 +117,7 @@ def train_weights(model: MADELEINE, dtype: torch.dtype) -> Dict[str, torch.Tenso
     reference-ordered parameters): `encoder_weights` plus the token
     projector with its input columns permuted to head-major."""
     emb = model.wsi_embedders
-    perm = torch.as_tensor(_head_major_perm(emb.hidden_dim, emb.n_heads),
-                           device=model.token_projector.weight.device)
+    perm = head_major_index(emb.hidden_dim, emb.n_heads, model.token_projector.weight.device)
     w = encoder_weights(emb)
     w["wt"] = model.token_projector.weight[:, perm]
     w["bt"] = model.token_projector.bias
@@ -130,7 +130,7 @@ def _linear_head_major(model: MADELEINE, layer: nn.Linear, x: torch.Tensor,
     projector, reference head-minor input order) in the compute dtype: the
     JAX package's _linear on the bridge-permuted rows."""
     emb = model.wsi_embedders
-    perm = torch.as_tensor(_head_major_perm(emb.hidden_dim, emb.n_heads), device=x.device)
+    perm = head_major_index(emb.hidden_dim, emb.n_heads, x.device)
     return F.linear(x.flatten(-2), layer.weight[:, perm].to(dtype), layer.bias.to(dtype))
 
 
@@ -157,9 +157,25 @@ def _forward_eval(model: MADELEINE, feats: torch.Tensor,
     return torch.stack(slides, 1)[:, :, None], torch.stack(toks, 1)
 
 
+VIEW_STREAM = 0x56494557   # keys the half-bag split apart from the dropout and GOT draws
+
+
+def half_split(seed: int, t: int, device) -> torch.Tensor:
+    """The step's half-bag split [t] bool, shared by every row (JAX
+    madeleine.py:185-192, abmil.py:349-352): the ranks of a random
+    permutation of t, ``ranks < t // 2``. The permutation comes from a
+    generator keyed by (seed, VIEW_STREAM), as trainer.got_generator keys
+    the GOT draw, so a resumed run draws the same split."""
+    key = int(np.random.SeedSequence([seed, VIEW_STREAM]).generate_state(1)[0])
+    gen = torch.Generator(device=device).manual_seed(key)
+    perm = torch.randperm(t, generator=gen, device=device)
+    return torch.zeros(t, dtype=torch.bool, device=device).scatter_(0, perm[:t // 2], True)
+
+
 def forward_train(model: MADELEINE, feats: torch.Tensor, *,
                   mask: Optional[torch.Tensor] = None, n_views: int = 1, seed: int = 0,
-                  train: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                  train: bool = True, half_mask: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward (ref: Model.py:110-159) at the dropout rates of the
     train ops; with ``train=False`` the eval forward (no dropout, no
     gradient; `_forward_eval`). With softmax the whole encoder runs through
@@ -172,33 +188,43 @@ def forward_train(model: MADELEINE, feats: torch.Tensor, *,
     token projector's op (kernels 19/20).
 
     feats [bs, n_mod, t, d] in the compute dtype; mask [bs, n_mod, t] bool;
-    seed: the step's dropout seed. cfg.modality_scan runs one encoder call
-    per modality (the canonical route, [bs, t, d] each, global rows m*bs +
-    i); otherwise one joint call over [bs*n_mod, t, d] (rows i*n_mod + m).
+    seed: the step's dropout seed. n_views=3 (the intra-modality loss) adds
+    two half-bag views of every row: one split per step (`half_split`, or
+    the given half_mask [t] bool), shared by every row and modality and
+    handed to both routes (JAX madeleine.py:185-192, abmil.py:338-357).
+    cfg.modality_scan runs one encoder call per modality (the canonical
+    route, [bs, t, d] each, global rows m*bs + i); otherwise one joint call
+    over [bs*n_mod, t, d] (rows i*n_mod + m).
     With stain encodings each modality's rows carry its own stain code, and
     the input gradient reaches the table. Documented deviation (JAX
     madeleine.py:213-218): the reference builds train-time stain ids
     mod-major but flattens feats b-major, misassigning the codes whenever
     bs != 1; the correct per-stain id is used here, as in the JAX package.
-    Returns slide_embs [bs, n_mod, 1, hidden] and token_embs
+    Returns slide_embs [bs, n_mod, n_views, hidden] and token_embs
     [bs, n_mod, t, 128], both in feats.dtype."""
     cfg = model.cfg
-    if n_views != 1:
-        raise NotImplementedError("n_views=3 is not ported (ROADMAP.md D3b)")
+    if n_views not in (1, 3):
+        raise ValueError(f"n_views must be 1 or 3, got {n_views}")
     if not train:
+        if n_views != 1:
+            raise ValueError("the eval forward pools whole bags only (n_views=1)")
         return _forward_eval(model, feats, mask)
     bs, n_mod, t, d = feats.shape
+    if n_views == 3 and half_mask is None:
+        half_mask = half_split(seed, t, feats.device)
+    half = None if n_views == 1 else half_mask.reshape(t).to(feats.device, torch.bool)
     dt = feats.dtype
     se = cfg.add_stain_encoding
     w = train_weights(model, dt)
     fused = cfg.activation == "softmax" and not os.environ.get("MADELEINE_NO_FUSED_ENCODER")
 
     def encode(x, m, row_offset):
-        """(pooled [n, nh, e], tokens [n, t, 128]) of the rows x [n, t, d]."""
+        """(pooled [n, nh, e] or [n, 3, nh, e], tokens [n, t, 128]) of the rows x [n, t, d]."""
         if fused:
-            return encoder_train(x, m, w, seed, row_offset=row_offset, need_dx=se)
+            return encoder_train(x, m, w, seed, row_offset=row_offset, need_dx=se,
+                                 half_mask=half)
         pooled, xh = abmil_embed_train(w, x, activation=cfg.activation, seed=seed, mask=m,
-                                       row_offset=row_offset)
+                                       row_offset=row_offset, half_mask=half)
         return pooled, linear_tok_train(xh.flatten(-2), w["wt"], w["bt"])
 
     if not cfg.modality_scan:
@@ -209,7 +235,7 @@ def forward_train(model: MADELEINE, feats: torch.Tensor, *,
         m = None if mask is None else mask.reshape(bs * n_mod, t)
         pooled, tok = encode(x, m, 0)
         slide = _linear_head_major(model, model.projector, pooled, dt)
-        return (slide.reshape(bs, n_mod, 1, -1), tok.reshape(bs, n_mod, t, -1))
+        return (slide.reshape(bs, n_mod, n_views, -1), tok.reshape(bs, n_mod, t, -1))
     slides, toks = [], []
     for i in range(n_mod):
         x = feats[:, i]
@@ -219,7 +245,7 @@ def forward_train(model: MADELEINE, feats: torch.Tensor, *,
         pooled, tok = encode(x, m, i * bs)
         slides.append(_linear_head_major(model, model.projector, pooled, dt))
         toks.append(tok)
-    return torch.stack(slides, 1)[:, :, None], torch.stack(toks, 1)
+    return torch.stack(slides, 1).reshape(bs, n_mod, n_views, -1), torch.stack(toks, 1)
 
 
 def forward_train_dict(model: MADELEINE, feats: torch.Tensor, **kw):

@@ -1,19 +1,28 @@
 """Whole-encoder training op: kernel K6 (forward) and K7 (backward), bf16.
 
 Replaces `madeleine_tpu/ops/encoder_train.py` (`_fwd_kernel`, `_bwd_kernel`,
-the save_acts route, n_views=1, need_dx off and on). Per token row of x:
+the save_acts route, n_views 1 and 3, need_dx off and on). Per token row of x:
 
     3 x [Linear -> LayerNorm -> GELU (exact erf) -> dropout(pre_rate)] -> y32
     tok = y Wt^T + bt
     per head: a = drop(tanh(y_h Wa_h^T + ba)), g = drop(sigmoid(y_h Wb_h^T + bb)),
               l_h = (a g) . wc_h + bc_h + mask bias
     pooled = per-head softmax pool of y32 over the bag's tokens
+    with a half_mask [t] (n_views=3, the intra-modality loss): also over
+    half 1 (half_mask) and half 2 (~half_mask), re-softmaxing the same
+    logits plus a view bias [t, 2] (0 inside the view, NEG_INF outside,
+    shared by every bag: `_view_bias`, encoder_train.py:611-617)
 
 with bf16 operands, f32 accumulation and f32 bias / LN / GELU; each layer's
 output is rounded to bf16 before the next product, the pool sums f32 y32.
 The forward saves u1, u2, u3 (normalised LN inputs), a_pre, b_pre (bf16)
 and the three LN rstd (f32); the backward rebuilds every activation from
-them elementwise and never recomputes a forward product. With need_dx (the
+them elementwise and never recomputes a forward product. With views it
+gives (pooled, m, s) per view, and the backward sums the views' terms into
+the cotangent of y and of the logits (encoder_train.py:341-356, 651-659). A
+view with no unmasked token (possible only with a token mask, or t = 1)
+pools to 0 (the plain pool's rule; the TPU kernel pools it near-uniformly,
+encoder_train.py:231-236). With need_dx (the
 input carries the learned stain-encoding columns) the backward also emits
 dx = dz1 . W1, the input gradient, in x's dtype. Dropout masks come from
 `ops/prng.py` (Philox, keyed by site), identical in both directions and in
@@ -44,7 +53,7 @@ from madeleine_torch.ops.gated_logits import (GATE_CHUNK, gate_perm,  # noqa: F4
                                               permute_gates)
 from madeleine_torch.ops import preattn as pa
 from madeleine_torch.ops import prng
-from madeleine_torch.ops.attn_pool import MASKED_BIAS, mask_bias
+from madeleine_torch.ops.attn_pool import MASKED_BIAS, NEG_INF, mask_bias
 from madeleine_torch.ops.linear_tok import linear_tok_fwd_plain, tok_bwd_plain
 
 fwd_launches = 0   # K6 launches (one per wrapper call on a CUDA tensor)
@@ -71,10 +80,43 @@ def train_operands(w: Dict[str, torch.Tensor], dtype: torch.dtype) -> Dict[str, 
 # plain versions
 # ---------------------------------------------------------------------------
 
+def view_bias(half_mask: Optional[torch.Tensor], t: int, device) -> Optional[torch.Tensor]:
+    """[t] bool half split -> [t, 2] f32 bias (0 inside the view, NEG_INF
+    outside: half 1, then half 2), `_view_bias` (encoder_train.py:611-617);
+    None without a split."""
+    if half_mask is None:
+        return None
+    hm = half_mask.reshape(t).to(device=device, dtype=torch.bool)
+    return torch.stack([torch.where(hm, 0.0, NEG_INF), torch.where(hm, NEG_INF, 0.0)],
+                       dim=-1).float().contiguous()
+
+
+def _views(l, vb):
+    """The logits of each view: [l] without a view bias, else l plus each column."""
+    if vb is None:
+        return [l]
+    return [l, l + vb[None, :, 0:1], l + vb[None, :, 1:2]]
+
+
+def _pool_plain(l, y32, nh: int, e: int):
+    """Per-head softmax pool of y32 [b, t, E] over l's unmasked tokens ->
+    (pooled [b, E], m [b, nh], s [b, nh])."""
+    b, t, _ = l.shape
+    valid = l > MASKED_BIAS
+    m = l.masked_fill(~valid, float("-inf")).amax(dim=1)           # [b, nh]
+    m_live = torch.where(m > MASKED_BIAS, m, 0.0)  # a bag with no valid token: no inf - inf
+    p = torch.where(valid, torch.exp(l - m_live[:, None]), 0.0)
+    s = p.sum(dim=1).clamp_min(1e-30)
+    pooled = torch.einsum("bth,bthe->bhe", p, y32.reshape(b, t, nh, e)) / s[..., None]
+    return pooled.reshape(b, nh * e), m, s
+
+
 def encoder_train_fwd_plain(x, bias, w, seed: int, row_offset: int = 0,
-                            pre_rate: float = PRE_RATE, gate_rate: float = GATE_RATE):
+                            pre_rate: float = PRE_RATE, gate_rate: float = GATE_RATE,
+                            vb: Optional[torch.Tensor] = None):
     """x [b, t, d_in] (compute dtype), bias [b, t] f32 (0 or NEG_INF), w:
-    `train_operands`. Returns (pooled [b, E] f32, m [b, nh], s [b, nh],
+    `train_operands`, vb: `view_bias` or None. Returns (pooled [b, E] f32,
+    m [b, nh], s [b, nh] (with vb: [b, 3, E], [b, 3, nh], [b, 3, nh]),
     tok [b, t, d_out] in x.dtype, masked logits l [b, t, nh] f32, saved)."""
     dt = x.dtype
     b, t, _ = x.shape
@@ -88,25 +130,22 @@ def encoder_train_fwd_plain(x, bias, w, seed: int, row_offset: int = 0,
     ma = gl.gate_masks(seed, rows, toks, nh, f, 0, gate_rate)
     mb = gl.gate_masks(seed, rows, toks, nh, f, 1, gate_rate)
     l = gl.logits_plain(a_pre, b_pre, ma, mb, w) + bias[..., None]
-    valid = l > MASKED_BIAS
-    m = l.masked_fill(~valid, float("-inf")).amax(dim=1)           # [b, nh]
-    m_live = torch.where(m > MASKED_BIAS, m, 0.0)  # a bag with no valid token: no inf - inf
-    p = torch.where(valid, torch.exp(l - m_live[:, None]), 0.0)
-    s = p.sum(dim=1).clamp_min(1e-30)
-    pooled = torch.einsum("bth,bthe->bhe", p, y32.reshape(b, t, nh, e)) / s[..., None]
+    pools = [_pool_plain(lv, y32, nh, e) for lv in _views(l, vb)]
+    pooled, m, s = pools[0] if vb is None else (torch.stack(z, dim=1) for z in zip(*pools))
     saved = {"u1": us[0], "u2": us[1], "u3": us[2], "rstd": rstd,
              "ap": a_pre.reshape(b, t, nh * f).to(dt), "bp": b_pre.reshape(b, t, nh * f).to(dt)}
-    return pooled.reshape(b, E), m, s, tok, l, saved
+    return pooled, m, s, tok, l, saved
 
 
 @torch.no_grad()
 def encoder_train_bwd_plain(x, l, m, s, g, inner, dtok, saved, w, seed: int,
                             row_offset: int = 0, pre_rate: float = PRE_RATE,
-                            gate_rate: float = GATE_RATE,
-                            need_dx: bool = False) -> Dict[str, torch.Tensor]:
+                            gate_rate: float = GATE_RATE, need_dx: bool = False,
+                            vb: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """The explicit adjoint of `encoder_train_fwd_plain` (encoder_train.py:
     341-422, preattn.py::_layer_bwd): g [b, E] f32 the pooled cotangent,
-    inner [b, nh] = per-head g . pooled, dtok [b, t, d_out] in x.dtype.
+    inner [b, nh] = per-head g . pooled, dtok [b, t, d_out] in x.dtype; with
+    vb, g [b, 3, E] and inner, m, s [b, 3, nh], the views' terms summed.
     Returns {key of W_KEYS: f32 gradient}, plus "x": dx [b, t, d_in] in
     x.dtype with need_dx."""
     dt = x.dtype
@@ -119,11 +158,16 @@ def encoder_train_bwd_plain(x, l, m, s, g, inner, dtok, saved, w, seed: int,
     y32 = res[3][1] * res[3][2] * res[3][3]
     y = y32.to(dt)
 
-    # pool term, dl
-    p = torch.where(l > MASKED_BIAS, torch.exp(l - m[:, None]) / s[:, None], 0.0)
-    g4 = g.reshape(b, 1, nh, e)
-    dy = (p[..., None] * g4).reshape(b, t, E)
-    dl = p * ((y32.reshape(b, t, nh, e) * g4).sum(-1) - inner[:, None])
+    # pool term, dl: per view, summed in view order (encoder_train.py:341-356)
+    views = _views(l, vb)
+    nv = len(views)
+    g4, m, s, inner = (g.reshape(b, nv, 1, nh, e), m.reshape(b, nv, nh), s.reshape(b, nv, nh),
+                       inner.reshape(b, nv, nh))
+    for v, lv in enumerate(views):
+        p = torch.where(lv > MASKED_BIAS, torch.exp(lv - m[:, v, None]) / s[:, v, None], 0.0)
+        dy_v = (p[..., None] * g4[:, v]).reshape(b, t, E)
+        dl_v = p * ((y32.reshape(b, t, nh, e) * g4[:, v]).sum(-1) - inner[:, v, None])
+        dy, dl = (dy_v, dl_v) if v == 0 else (dy + dy_v, dl + dl_v)
     grads = {"bc": dl.sum((0, 1))}
     # token projector term
     dy_tok, grads["wt"], grads["bt"] = tok_bwd_plain(y, dtok, w["wt"])
@@ -143,6 +187,14 @@ def encoder_train_bwd_plain(x, l, m, s, g, inner, dtok, saved, w, seed: int,
 # ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
+
+def _check_views(kernel, vb, t, device) -> int:
+    """The view count of a view bias: 1 without one, else 3 after checking it."""
+    if vb is None:
+        return 1
+    _build.check_operand(kernel, "vb", vb, (t, 2), torch.float32, device)
+    return 3
+
 
 def _check_shapes(x, w, kernel):
     if x.device.type != "cuda":
@@ -175,19 +227,22 @@ def _check_shapes(x, w, kernel):
 
 @torch.no_grad()
 def encoder_train_fwd_cuda(x, bias, w, seed: int, row_offset: int = 0,
-                           pre_rate: float = PRE_RATE, gate_rate: float = GATE_RATE):
+                           pre_rate: float = PRE_RATE, gate_rate: float = GATE_RATE,
+                           vb: Optional[torch.Tensor] = None):
     """Launch K6 on CUDA tensors; returns as `encoder_train_fwd_plain`."""
     global fwd_launches
     b, t, d_in, hd, nh, e, f, dout = _check_shapes(x, w, "encoder_train_fwd")
     _build.check_operand("encoder_train_fwd", "bias", bias, (b, t), torch.float32, x.device)
+    nv = _check_views("encoder_train_fwd", vb, t, x.device)
+    views = () if nv == 1 else (nv,)
     dev, f32, bf = x.device, torch.float32, torch.bfloat16
     M, E = b * t, nh * e
     lib = _build.load("encoder_train_fwd")
     ntiles = -(-t // lib.encoder_train_pool_tile())   # ctypes' default restype is int
     wab, bab = permute_gates(w)                                    # [nh, 2f, e], [nh, 2f]
-    pooled = torch.empty(b, E, dtype=f32, device=dev)
-    m = torch.empty(b, nh, dtype=f32, device=dev)
-    s = torch.empty(b, nh, dtype=f32, device=dev)
+    pooled = torch.empty(b, *views, E, dtype=f32, device=dev)
+    m = torch.empty(b, *views, nh, dtype=f32, device=dev)
+    s = torch.empty(b, *views, nh, dtype=f32, device=dev)
     tok = torch.empty(b, t, dout, dtype=bf, device=dev)
     l = torch.empty(b, t, nh, dtype=f32, device=dev)
     saved = {"u1": torch.empty(b, t, hd, dtype=bf, device=dev),
@@ -201,15 +256,16 @@ def encoder_train_fwd_cuda(x, bias, w, seed: int, row_offset: int = 0,
                torch.empty(M, hd, dtype=bf, device=dev),            # H2
                torch.empty(M, E, dtype=bf, device=dev),             # Y
                torch.empty(M, nh, f // GATE_CHUNK, dtype=f32, device=dev),   # partial logits
-               torch.empty(b, ntiles, nh, dtype=f32, device=dev),   # part_m
-               torch.empty(b, ntiles, nh, dtype=f32, device=dev),   # part_s
-               torch.empty(b, ntiles, E, dtype=f32, device=dev)]    # part_w
+               torch.empty(b, ntiles, nv, nh, dtype=f32, device=dev),   # part_m
+               torch.empty(b, ntiles, nv, nh, dtype=f32, device=dev),   # part_s
+               torch.empty(b, ntiles, nv, E, dtype=f32, device=dev)]    # part_w
     tensors = [x, bias, w["w1"], w["b1"], w["s1"], w["t1"], w["w2"], w["b2"], w["s2"],
                w["t2"], w["w3"], w["b3"], w["s3"], w["t3"], wab, bab, w["wc"], w["bc"],
-               w["wt"], w["bt"], pooled, m, s, tok, l, *(saved[k] for k in SAVED), *scratch]
+               w["wt"], w["bt"], pooled, m, s, tok, l, *(saved[k] for k in SAVED), *scratch, vb]
     dims, scales = prng.kernel_args((b, t, d_in, hd, nh, e, f, dout), seed, row_offset,
                                     pre_rate, gate_rate)
-    _build.call_ptrs("encoder_train_fwd", "encoder_train_forward", tensors, dims, scales, dev)
+    _build.call_ptrs("encoder_train_fwd", "encoder_train_forward", tensors, dims + [nv], scales,
+                     dev)
     fwd_launches += 1
     return pooled, m, s, tok, l, saved
 
@@ -217,17 +273,20 @@ def encoder_train_fwd_cuda(x, bias, w, seed: int, row_offset: int = 0,
 @torch.no_grad()
 def encoder_train_bwd_cuda(x, l, m, s, g, inner, dtok, saved, w, seed: int,
                            row_offset: int = 0, pre_rate: float = PRE_RATE,
-                           gate_rate: float = GATE_RATE,
-                           need_dx: bool = False) -> Dict[str, torch.Tensor]:
+                           gate_rate: float = GATE_RATE, need_dx: bool = False,
+                           vb: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Launch K7 on CUDA tensors; returns as `encoder_train_bwd_plain`."""
     global bwd_launches
     b, t, d_in, hd, nh, e, f, dout = _check_shapes(x, w, "encoder_train_bwd")
     dev, f32, bf = x.device, torch.float32, torch.bfloat16
     M, E = b * t, nh * e
     kname = "encoder_train_bwd"
-    for name, ten, shape, dtype in (("l", l, (b, t, nh), f32), ("m", m, (b, nh), f32),
-                                    ("s", s, (b, nh), f32), ("g", g, (b, E), f32),
-                                    ("inner", inner, (b, nh), f32),
+    nv = _check_views(kname, vb, t, dev)
+    views = () if nv == 1 else (nv,)
+    for name, ten, shape, dtype in (("l", l, (b, t, nh), f32), ("m", m, (b, *views, nh), f32),
+                                    ("s", s, (b, *views, nh), f32),
+                                    ("g", g, (b, *views, E), f32),
+                                    ("inner", inner, (b, *views, nh), f32),
                                     ("dtok", dtok, (b, t, dout), bf),
                                     ("u1", saved["u1"], (b, t, hd), bf),
                                     ("u2", saved["u2"], (b, t, hd), bf),
@@ -261,8 +320,8 @@ def encoder_train_bwd_cuda(x, l, m, s, g, inner, dtok, saved, w, seed: int,
     dx = torch.empty(b, t, d_in, dtype=bf, device=dev) if need_dx else None
     tensors = [x, l, m, s, g, inner, dtok, *(saved[k] for k in SAVED),
                w["w1"], w["s1"], w["t1"], w["w2"], w["s2"], w["t2"], w["w3"], w["s3"],
-               w["t3"], wab, w["wc"], w["wt"], *out.values(), *scratch, dx]
-    _build.call_ptrs(kname, "encoder_train_backward", tensors, dims, scales, dev)
+               w["t3"], wab, w["wc"], w["wt"], *out.values(), *scratch, dx, vb]
+    _build.call_ptrs(kname, "encoder_train_backward", tensors, dims + [nv], scales, dev)
     bwd_launches += 1
     wab_g, bab_g = out.pop("wab"), out.pop("bab")
     out.update(wa=wab_g[:, :f], wb=wab_g[:, f:], ba=bab_g[:, 0], bb=bab_g[:, 1])
@@ -276,38 +335,42 @@ def encoder_train_bwd_cuda(x, l, m, s, g, inner, dtok, saved, w, seed: int,
 # ---------------------------------------------------------------------------
 
 class EncoderTrain(torch.autograd.Function):
-    """(x, bias, seed, row_offset, pre_rate, gate_rate, need_dx, *operands in
-    W_KEYS order) -> (pooled [b, nh, e] in x.dtype, tok [b, t, d_out]). x
-    gets a gradient only with need_dx (the input carries a learned
-    component: the stain-encoding columns)."""
+    """(x, bias, vb, seed, row_offset, pre_rate, gate_rate, need_dx,
+    *operands in W_KEYS order) -> (pooled [b, nh, e] in x.dtype ([b, 3, nh,
+    e] with a view bias vb), tok [b, t, d_out]). x gets a gradient only
+    with need_dx (the input carries a learned component: the stain-encoding
+    columns)."""
 
     @staticmethod
-    def forward(ctx, x, bias, seed, row_offset, pre_rate, gate_rate, need_dx, *ws):
+    def forward(ctx, x, bias, vb, seed, row_offset, pre_rate, gate_rate, need_dx, *ws):
         w = dict(zip(W_KEYS, ws))
         fwd = encoder_train_fwd_cuda if x.is_cuda else encoder_train_fwd_plain
-        pooled32, m, s, tok, l, saved = fwd(x, bias, w, seed, row_offset, pre_rate, gate_rate)
+        pooled32, m, s, tok, l, saved = fwd(x, bias, w, seed, row_offset, pre_rate, gate_rate,
+                                            vb=vb)
         ctx.args = (seed, row_offset, pre_rate, gate_rate)
         ctx.need_dx = need_dx
-        ctx.save_for_backward(x, l, m, s, pooled32, *(saved[k] for k in SAVED), *ws)
+        ctx.save_for_backward(x, l, m, s, pooled32, vb, *(saved[k] for k in SAVED), *ws)
         nh, _, e = w["wa"].shape
-        return pooled32.to(x.dtype).reshape(x.shape[0], nh, e), tok
+        views = () if vb is None else (3,)
+        return pooled32.to(x.dtype).reshape(x.shape[0], *views, nh, e), tok
 
     @staticmethod
     def backward(ctx, dpooled, dtok):
-        x, l, m, s, pooled32, *rest = ctx.saved_tensors
+        x, l, m, s, pooled32, vb, *rest = ctx.saved_tensors
         saved = dict(zip(SAVED, rest[:len(SAVED)]))
         w = dict(zip(W_KEYS, rest[len(SAVED):]))
         b, t, _ = x.shape
         nh, _, e = w["wa"].shape
         dout = w["wt"].shape[0]
-        g = (torch.zeros(b, nh * e, dtype=torch.float32, device=x.device) if dpooled is None
-             else dpooled.float().reshape(b, nh * e).contiguous())
-        inner = (g * pooled32).reshape(b, nh, e).sum(-1)             # encoder_train.py:657-659
+        gshape = pooled32.shape                                        # [b, E] or [b, 3, E]
+        g = (torch.zeros(gshape, dtype=torch.float32, device=x.device) if dpooled is None
+             else dpooled.float().reshape(gshape).contiguous())
+        inner = (g * pooled32).reshape(*gshape[:-1], nh, e).sum(-1)   # encoder_train.py:657-659
         dtok = (torch.zeros(b, t, dout, dtype=x.dtype, device=x.device) if dtok is None
                 else dtok.to(x.dtype).contiguous())
         bwd = encoder_train_bwd_cuda if x.is_cuda else encoder_train_bwd_plain
-        grads = bwd(x, l, m, s, g, inner, dtok, saved, w, *ctx.args, need_dx=ctx.need_dx)
-        return (grads.get("x"),) + (None,) * 6 + tuple(grads[k].to(w[k].dtype)
+        grads = bwd(x, l, m, s, g, inner, dtok, saved, w, *ctx.args, need_dx=ctx.need_dx, vb=vb)
+        return (grads.get("x"),) + (None,) * 7 + tuple(grads[k].to(w[k].dtype)
                                                         for k in W_KEYS)
 
 
@@ -318,19 +381,23 @@ def token_mask_bias(mask, b: int, t: int, device) -> torch.Tensor:
 
 def encoder_train(x: torch.Tensor, mask, w: Dict[str, torch.Tensor], seed: int,
                   pre_rate: Optional[float] = None, gate_rate: Optional[float] = None,
-                  row_offset: int = 0, need_dx: bool = False
+                  row_offset: int = 0, need_dx: bool = False,
+                  half_mask: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused training-mode encoder (ref semantics Model.py:110-146 +
     Model.py:350-417 + abmil.py:34-63). x [b, t, d_in] in the compute dtype,
     mask [b, t] bool or None, w: `train_operands` (the gradients flow back
     through them), seed: int. A rate left None is this module's PRE_RATE /
     GATE_RATE, read at call time. need_dx: x gets a gradient (JAX's static
-    need_dx, madeleine.py:204). Returns (pooled [b, nh, e], tok [b, t,
+    need_dx, madeleine.py:204). half_mask: [t] bool, the half-bag split
+    shared by every row (n_views=3). Returns (pooled [b, nh, e], or [b, 3,
+    nh, e] with half_mask: the whole bag, half 1, half 2; tok [b, t,
     d_out]), both in x.dtype."""
     b, t, _ = x.shape
     pre_rate = PRE_RATE if pre_rate is None else pre_rate
     gate_rate = GATE_RATE if gate_rate is None else gate_rate
     bias = token_mask_bias(mask, b, t, x.device)
-    return EncoderTrain.apply(x.contiguous(), bias, int(seed), int(row_offset),
+    vb = view_bias(half_mask, t, x.device)
+    return EncoderTrain.apply(x.contiguous(), bias, vb, int(seed), int(row_offset),
                               float(pre_rate), float(gate_rate), bool(need_dx),
                               *(w[k] for k in W_KEYS))

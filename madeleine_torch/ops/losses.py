@@ -17,7 +17,10 @@ madeleine/utils/loss.py):
   through ops/got_glue.py (K11-K14 on the card); `got_loss` and
   `gw_distance` keep the plain chain, as the JAX package's do. The ragged
   per-side subsample (`masked_subsample`, a `token_mask`) and data
-  parallelism (`axis_name`) are not ported (ROADMAP.md A6, A7).
+  parallelism (`axis_name`) are not ported (ROADMAP.md A6, A7);
+- the intra-modality loss selector (:450-458, ref :138-156): `mse_loss`
+  for the two `reconstruct_*` modes (the mask ignored), `info_nce` at the
+  configured temperature for every other mode.
 
 Everything runs in f32 with full-precision products (no TF32, see
 `utils.device.full_precision_matmul`): temperature 0.001 multiplies logit
@@ -26,7 +29,8 @@ noise by 1000, and exp(-C/beta) at beta 0.1 multiplies a cost's error by 10.
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Callable, Optional
 
 import torch
 
@@ -193,3 +197,18 @@ def got_loss_multi(v: torch.Tensor, q: torch.Tensor, *,
     if sample_mask is not None:
         total = torch.where(sample_mask.reshape(S * b), total, 0.0)
     return total.reshape(S, b).sum(1)
+
+
+# ---------------------------------------------------------------------------
+# Intra-modality loss selector (ref: loss.py:138-156)
+# ---------------------------------------------------------------------------
+
+def mse_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.square(a.float() - b.float()))
+
+
+def make_intra_loss(mode: str, temperature: float) -> Callable[..., torch.Tensor]:
+    """Returns loss_fn(query, positive_key, mask=None, symmetric=False)."""
+    if mode in ("reconstruct_avg_emb", "reconstruct_masked_emb"):
+        return lambda q, k, mask=None, symmetric=False: mse_loss(q, k)
+    return functools.partial(info_nce, temperature=temperature)

@@ -1,4 +1,4 @@
-"""Single-device train step and epoch loop (InfoNCE + GOT).
+"""Single-device train step and epoch loop (InfoNCE + GOT + the intra-modality loss).
 
 PyTorch counterpart of `madeleine_tpu/train/trainer.py` (`compute_losses`,
 `make_train_step` without a mesh, `train_loop` without a mesh or hosts;
@@ -11,31 +11,46 @@ ref: madeleine/utils/trainer.py:20-145):
   the card): per stain pair one shared draw of `got_subsample` token indices
   (the JAX package's reference-style branch, trainer.py:136-147) from a
   generator keyed by the step's seed on a stream of its own;
+- with `intra_modality_loss="info-nce"` (n_views=3), per stain the intra
+  loss (`losses.make_intra_loss` of `intra_modality_mode_wsi`) between the
+  two half-bag views of the H&E and between those of the stain
+  (trainer.py:156-187, single device);
 - mixed precision as in the JAX package (:217-222): feats and a copy of the
   parameters in the compute dtype, f32 master weights in the optimizer;
-- a step where no stain has at least 2 valid cases is a no-op that does not
-  advance the schedule (the reference's `continue`, trainer.py:120-122), and
-  a non-finite loss skips the update (no reference equivalent);
+- the skip is decided on the device, as JAX's `lax.cond` (:237-248): the
+  backward always runs, and `GatedAdamW` keeps the parameters, its moments
+  and its count (the schedule's step) where no stain has at least 2 valid
+  cases (the reference's `continue`, trainer.py:120-122) or the loss is not
+  finite (no reference equivalent). A skipped step so costs a whole step on
+  the card, as it does in JAX. The step never reads a device value on the
+  host;
+- `train_loop` leaves each step's records (loss, skip flag, H&E embeddings,
+  CUDA events) on the device, copies them to the host asynchronously and
+  reads them MADELEINE_DISPATCH_WINDOW steps later (default 8, JAX's name
+  and default, :341-350; 0 reads them at the epoch's end), so the host runs
+  up to that many steps ahead of the card;
 - the epoch's smooth rank on the H&E embeddings (trainer.py:141-143).
 
 The encoder runs through ops/encoder_train.py (kernels K6/K7 on the card,
 bf16 only) or, with a non-softmax activation or MADELEINE_NO_FUSED_ENCODER
 set, through the per-op lane (ops/preattn.py, ops/gated_logits.py,
 ops/linear_tok.py: kernels 15-20; with softmax the training pool of
-ops/attn_pool.py, rows 4-5); their plain versions on CPU tensors. With stain encodings the encoder also
+ops/attn_pool.py, rows 4-5, which also pools the half-bag views); their
+plain versions on CPU tensors. With stain encodings the encoder also
 returns the input gradient, and the code table ([n_mod, 32],
 `embedding.weight`) is one more AdamW parameter with the configured weight
 decay, as optax.adamw treats it in the JAX package. GOT through ops/ipot.py
-and ops/got_glue.py (K8-K14). A batch's feats arrive as f32 (pinned by the
-caller's loader thread on the card) and are copied to the device
-asynchronously, then cast there. GOT with ragged token masks (per-side
-subsampling, ROADMAP.md A6), the intra-modality loss, n_views=3 and data
-parallelism are not ported.
+and ops/got_glue.py (K8-K14). A batch's feats arrive as f32 or bf16 (pinned
+by the caller's loader on the card) and are copied to the device
+asynchronously, then cast there; its small arrays are pinned here before
+their copy. GOT with ragged token masks (per-side subsampling, ROADMAP.md
+A6) and data parallelism are not ported.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 import time
 from typing import Dict, Iterable, Optional, Sequence, Tuple
 
@@ -49,9 +64,12 @@ from madeleine_torch.ops import launches
 from madeleine_torch.ops import losses as L
 from madeleine_torch.ops.preattn import F32_TODO
 from madeleine_torch.ops.rank import smooth_rank_measure
+from madeleine_torch.train.optim import GatedAdamW
 
 WHOLE_VIEW_POSITION = 0  # ref: trainer.py:16
 GOT_STREAM = 0x474F54    # keys the GOT subsample draw apart from the dropout masks
+WINDOW_VAR = "MADELEINE_DISPATCH_WINDOW"   # JAX madeleine_tpu/train/trainer.py:350
+DEFAULT_WINDOW = 8
 
 
 def got_generator(seed: int, device) -> torch.Generator:
@@ -72,10 +90,11 @@ def compute_losses(cfg: MadeleineConfig, slide_embs: torch.Tensor, token_embs: t
 
     GOT subsamples min(cfg.got_subsample, t) tokens per stain pair: the
     indices are `got_indices[s]` for stain pair s (1..n_mod-1) when given,
-    else `torch.randperm(t, generator=generator)[:sub]`, one draw per pair."""
-    if cfg.intra_modality_loss == "info-nce":
-        raise NotImplementedError("the intra-modality loss (n_views=3) is not ported "
-                                  "(ROADMAP.md D3b)")
+    else `torch.randperm(t, generator=generator)[:sub]`, one draw per pair.
+    The intra loss reads views 1 and 2 (n_views=3)."""
+    use_intra = cfg.intra_modality_loss == "info-nce"
+    intra = (L.make_intra_loss(cfg.intra_modality_mode_wsi, cfg.temperature) if use_intra
+             else None)
     use_got = cfg.local_loss == "got"
     if use_got and token_mask is not None:
         raise NotImplementedError("GOT with ragged token masks (per-side masked subsampling) "
@@ -121,25 +140,53 @@ def compute_losses(cfg: MadeleineConfig, slide_embs: torch.Tensor, token_embs: t
                 symmetric=cfg.symmetric_cl, mask=labels)
         if use_got:
             stain_total = stain_total + cfg.local_loss_weight * got_per_stain[s]
+        if use_intra:   # two half-bag views of the H&E and of the stain (ref: trainer.py:51-66)
+            l_he = intra(slide_embs[:, HE_POSITION, 1], slide_embs[:, HE_POSITION, 2],
+                         mask=labels, symmetric=cfg.symmetric_cl)
+            l_st = intra(slide_embs[:, stain_idx, 1], slide_embs[:, stain_idx, 2],
+                         mask=labels, symmetric=cfg.symmetric_cl)
+            stain_total = stain_total + (l_he + l_st)
         total = total + torch.where(flag, stain_total, torch.zeros_like(stain_total))
         any_flag = any_flag | flag
         metrics[f"n_{cfg.MODALITIES[stain_idx]}"] = cnt
     return total, any_flag, metrics
 
 
+def _to_device(x, dev: torch.device) -> torch.Tensor:
+    """A batch array on `dev`: a host array is pinned first, so that its
+    copy is asynchronous (a copy from pageable memory waits for the stream)."""
+    x = torch.as_tensor(x)
+    if dev.type == "cuda" and x.device.type == "cpu" and not x.is_pinned():
+        x = x.pin_memory()
+    return x.to(dev, non_blocking=True)
+
+
 class TrainStep:
     """One optimizer step on one batch: `step(batch, seed) -> (he_embs,
-    metrics)`. `seed` keys the step's dropout masks and, on a stream of its
-    own, its GOT subsample. Updates the model's f32 parameters in place;
-    `updates` counts the updates applied (the schedule's step)."""
+    metrics)`, every value a device tensor (the host reads none). `seed`
+    keys the step's dropout masks and, on streams of their own, its GOT
+    subsample and its half-bag split. The update of the model's f32
+    parameters is gated on the device (`GatedAdamW`, which evaluates its own
+    schedule: `schedule`, when given, must be that one); `updates` is the
+    optimizer's count of applied updates (the schedule's step), a device
+    integer. A batch may carry its own half-bag split, ``half_mask`` [t]
+    bool (n_views=3; the tests hand it the JAX package's)."""
 
-    def __init__(self, cfg: MadeleineConfig, model: MADELEINE, optimizer: torch.optim.Optimizer,
-                 schedule):
-        if cfg.intra_modality_loss == "info-nce":
-            raise NotImplementedError("n_views=3 is not ported (ROADMAP.md D3b)")
-        self.cfg, self.model, self.optimizer, self.schedule = cfg, model, optimizer, schedule
+    def __init__(self, cfg: MadeleineConfig, model: MADELEINE, optimizer: GatedAdamW,
+                 schedule=None):
+        if schedule is not None and schedule is not optimizer.schedule:
+            raise ValueError("the train step's schedule is its optimizer's (make_optimizer)")
+        self.cfg, self.model, self.optimizer = cfg, model, optimizer
         self.dtype = compute_dtype(cfg.precision)
-        self.updates = 0
+        self.n_views = 3 if cfg.intra_modality_loss == "info-nce" else 1   # JAX :212
+
+    @property
+    def updates(self) -> torch.Tensor:
+        return self.optimizer.count
+
+    @updates.setter
+    def updates(self, n: int) -> None:
+        self.optimizer.count.fill_(int(n))
 
     def __call__(self, batch: Dict[str, object], seed: int):
         cfg, model = self.cfg, self.model
@@ -152,40 +199,51 @@ class TrainStep:
         if copied is not None:
             copied.record()   # the native loader refills the ring slot once this completes
         feats = feats.to(self.dtype)
-        labels = torch.as_tensor(batch["modality_labels"]).to(dev)
+        labels = _to_device(batch["modality_labels"], dev)
         sample_mask = batch.get("sample_mask")
         sample_mask = (torch.ones(feats.shape[0], dtype=torch.bool, device=dev)
-                       if sample_mask is None else torch.as_tensor(sample_mask).to(dev))
+                       if sample_mask is None else _to_device(sample_mask, dev))
         token_mask = batch.get("token_mask")
         if token_mask is not None:
-            token_mask = torch.as_tensor(token_mask).to(dev)
+            token_mask = _to_device(token_mask, dev)
         model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        slide, tok = forward_train(model, feats, mask=token_mask, seed=seed)
+        slide, tok = forward_train(model, feats, mask=token_mask, n_views=self.n_views,
+                                   seed=seed, half_mask=batch.get("half_mask"))
         total, any_flag, metrics = compute_losses(cfg, slide.float(), tok, labels, sample_mask,
                                                   generator=got_generator(seed, dev),
                                                   token_mask=token_mask)
-        ok = bool(any_flag & torch.isfinite(total))
-        lr = self.schedule(self.updates)
-        if ok:
-            total.backward()
-            for group in self.optimizer.param_groups:
-                group["lr"] = lr
-            self.optimizer.step()
-            drop_kernel_operands(model)   # K1's and K2's cached operands are stale now
-            self.updates += 1
+        ok = any_flag & torch.isfinite(total)
+        if total.requires_grad:
+            total.backward()   # always, as JAX's value_and_grad; the update is gated
+        lr = self.optimizer.step(ok=ok)
+        drop_kernel_operands(model)   # K1's and K2's cached operands may be stale now
         he = slide[:, HE_POSITION, WHOLE_VIEW_POSITION].detach().float()
-        return he, dict(metrics, loss=total.detach(), skipped=not ok, lr=lr)
+        return he, dict(metrics, loss=total.detach(), skipped=~ok, lr=lr)
 
 
-def make_train_step(cfg: MadeleineConfig, model: MADELEINE, optimizer: torch.optim.Optimizer,
-                    schedule) -> TrainStep:
+def make_train_step(cfg: MadeleineConfig, model: MADELEINE, optimizer: GatedAdamW,
+                    schedule=None) -> TrainStep:
     return TrainStep(cfg, model, optimizer, schedule)
 
 
 def step_seed(seed: int, epoch: int, b_idx: int) -> int:
     """The dropout seed of one step: a 32-bit draw keyed by (seed, epoch, batch)."""
     return int(np.random.SeedSequence([seed, epoch, b_idx]).generate_state(1)[0])
+
+
+def dispatch_window() -> int:
+    """Steps the host may run ahead of the card (MADELEINE_DISPATCH_WINDOW,
+    default 8; 0: read every record at the epoch's end)."""
+    return int(os.environ.get(WINDOW_VAR, str(DEFAULT_WINDOW)))
+
+
+def _host_async(x):
+    """A device tensor's copy into pinned host memory, enqueued on the
+    current stream (the host does not wait); anything else as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.to("cpu", non_blocking=True) if x.is_cuda else x
+    return np.asarray(x)
 
 
 def train_loop(cfg: MadeleineConfig, train_step: TrainStep, dataloader: Iterable,
@@ -196,10 +254,28 @@ def train_loop(cfg: MadeleineConfig, train_step: TrainStep, dataloader: Iterable
     ``steps`` holds one record per step: its loss, whether it was skipped,
     ``wait_ms`` (host time blocked on the loader), ``step_ms`` (the step's
     time on the device stream, CUDA events, or the host clock on the CPU)
-    and the kernel launches it made."""
-    embeds, steps, events = [], [], []
+    and the kernel launches it made (host counters).
+
+    No step waits for the card. Each step's loss, skip flag, H&E embeddings
+    and sample mask are copied to pinned host memory after it on the stream,
+    and an event marks the copy's end; a record is read `dispatch_window()`
+    steps later (0: at the epoch's end), and with `log_every` on the steps
+    it prints."""
+    window = dispatch_window()
+    recs, pending = [], []
     on_cuda = next(train_step.model.parameters()).is_cuda
     t0 = time.time()
+
+    def fetch(rec):
+        if on_cuda:
+            rec["done"].synchronize()
+            rec["step_ms"] = rec.pop("start").elapsed_time(rec.pop("end"))
+        del rec["done"]
+        rec["loss"] = float(rec["loss"])
+        rec["skipped"] = bool(rec["skipped"])
+        keep = np.asarray(rec.pop("sample_mask"), bool)
+        rec["he"] = np.asarray(rec["he"])[keep]
+
     batches = iter(dataloader)
     for b_idx in itertools.count():
         t_wait = time.perf_counter()
@@ -208,27 +284,37 @@ def train_loop(cfg: MadeleineConfig, train_step: TrainStep, dataloader: Iterable
             break
         t_step = time.perf_counter()
         before = launches.read()
+        rec = {}
         if on_cuda:
-            events.append((torch.cuda.Event(enable_timing=True),
-                           torch.cuda.Event(enable_timing=True)))
-            events[-1][0].record()
+            rec["start"] = torch.cuda.Event(enable_timing=True)
+            rec["end"] = torch.cuda.Event(enable_timing=True)
+            rec["done"] = torch.cuda.Event()
+            rec["start"].record()
         he, metrics = train_step(batch, step_seed(seed, epoch, b_idx))
         if on_cuda:
-            events[-1][1].record()
-        after = launches.read()
-        steps.append({"loss": float(metrics["loss"]), "skipped": metrics["skipped"],
-                      "wait_ms": (t_step - t_wait) * 1e3,
-                      "step_ms": (time.perf_counter() - t_step) * 1e3,
-                      "launches": {k: after[k] - before[k] for k in after if after[k] > before[k]}})
+            rec["end"].record()
         sm = batch.get("sample_mask")
-        keep = (np.ones(he.shape[0], bool) if sm is None else np.asarray(sm, bool))
-        embeds.append(he.cpu().numpy()[keep])
+        rec.update(loss=_host_async(metrics["loss"]), skipped=_host_async(metrics["skipped"]),
+                   he=_host_async(he),
+                   sample_mask=(np.ones(he.shape[0], bool) if sm is None else _host_async(sm)))
+        if on_cuda:
+            rec["done"].record()
+        else:
+            rec["done"] = None
+        after = launches.read()
+        rec.update(wait_ms=(t_step - t_wait) * 1e3, step_ms=(time.perf_counter() - t_step) * 1e3,
+                   launches={k: after[k] - before[k] for k in after if after[k] > before[k]})
+        recs.append(rec)
+        pending.append(rec)
+        if window > 0 and len(pending) > window:
+            fetch(pending.pop(0))
         if log_every and b_idx % log_every == 0:
-            print(f"Loss for batch: {b_idx} = {steps[-1]['loss']:.3f}")
-    if on_cuda:
-        torch.cuda.synchronize()
-        for rec, (start, end) in zip(steps, events):
-            rec["step_ms"] = start.elapsed_time(end)
+            fetch(pending.pop())   # this step's record: a wait for the card on printed steps only
+            print(f"Loss for batch: {b_idx} = {rec['loss']:.3f}")
+    for rec in pending:
+        fetch(rec)
+    embeds = [rec.pop("he") for rec in recs]
+    steps = recs
     skips_a = np.asarray([s["skipped"] for s in steps], bool)
     losses_a = np.asarray([s["loss"] for s in steps], np.float64)
     ep_loss = float(losses_a[~skips_a].sum()) if steps else 0.0

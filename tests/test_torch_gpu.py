@@ -208,8 +208,8 @@ def test_abmil_embed_routes_cuda_tensors_through_the_kernels(cuda_device, dtype,
 
 def test_kernel_operands_rebuild_after_an_optimizer_step(cuda_device):
     """K1's operands are cached per weight state (abmil.kernel_operands). The
-    trainer's AdamW (make_optimizer; the multi-tensor kernels on the card)
-    changes the parameters in place: the cache must then rebuild, and an
+    trainer's AdamW (make_optimizer, at the learning rate its schedule gives
+    count 0) changes the parameters in place: the cache must then rebuild, and an
     embed must equal one from operands built fresh, bit for bit."""
     from madeleine_torch.models.abmil import kernel_operands
     from madeleine_torch.train.optim import make_optimizer
@@ -219,10 +219,8 @@ def test_kernel_operands_rebuild_after_an_optimizer_step(cuda_device):
     x, mask = _bags(cuda_device, [700, 64], 700, torch.bfloat16)
     first = kernel_operands(emb, torch.bfloat16)
     before = abmil_embed(emb, x, mask=mask)
-    opt, _ = make_optimizer(MadeleineConfig(precision="bfloat16").finalize(),
-                            emb.parameters(), 10)
-    for group in opt.param_groups:
-        group["lr"] = 1e-3
+    opt, _ = make_optimizer(MadeleineConfig(precision="bfloat16", lr=1e-3,
+                                            warmup=False).finalize(), emb.parameters(), 10)
     g = torch.Generator().manual_seed(3)
     for p in emb.parameters():
         p.grad = torch.randn(p.shape, generator=g).to(cuda_device)

@@ -184,14 +184,17 @@ def test_stain_encoded_train_steps_match_jax(monkeypatch, rates_zero, scan):
 
 
 def test_skipped_step_leaves_the_stain_table():
-    """An H&E-only batch is skipped: the table and its AdamW state untouched."""
+    """An H&E-only batch is skipped: the table and its AdamW state (zero
+    moments, as optax.adamw's init makes them; the count 0) untouched."""
     _, pcfg, _, model = param_pair(add_stain_encoding=True, **STEP_CFG)
     opt, sched = make_optimizer(pcfg, model.parameters(), steps_per_epoch=10)
     step = make_train_step(pcfg, model, opt, sched)
     batch = train_batch(np.random.default_rng(7), bs=4, n_mod=3, t=8, d=64, he_only=True)
     table0 = model.embedding.weight.detach().clone()
     _, metrics = step(batch, seed=0)
-    assert metrics["skipped"] and not opt.state
+    st = opt.state[model.embedding.weight]
+    assert metrics["skipped"] and step.updates == 0
+    assert not st["exp_avg"].any() and not st["exp_avg_sq"].any()
     assert torch.equal(model.embedding.weight, table0)
 
 

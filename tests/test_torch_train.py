@@ -76,10 +76,13 @@ def _jax_cfg(cfg):
 
 
 def test_unported_options_raise_and_name_the_roadmap_item():
+    """GOT with ragged token masks raises, naming ROADMAP A6; n_views=3 (D3b,
+    ported) runs: the whole bag and two half-bag views per modality."""
     x = torch.zeros(2, 3, 8, 64)
     _, _, _, model = param_pair()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md D3b"):
-        port.forward_train(model, x, n_views=3)
+    slide, tok = port.forward_train(model, x, n_views=3)
+    assert slide.shape == (2, 3, 3, model.cfg.wsi_encoder_hidden_dim) and tok.shape[:3] == (2, 3, 8)
+    assert torch.isfinite(slide).all()
     _, cfg, _, _ = param_pair(local_loss="got")
     with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
         compute_losses(cfg, torch.zeros(2, 3, 1, 4), torch.zeros(2, 3, 8, 4), torch.ones(2, 3),
@@ -206,7 +209,8 @@ def _port_step(**cfg):
 @pytest.mark.parametrize("case", ["he_only", "non_finite"])
 def test_skipped_step_changes_nothing(case):
     """An H&E-only batch, or one whose loss is not finite, leaves the
-    parameters, the optimizer state and the schedule's step as they were."""
+    parameters, the optimizer state (zero moments, as optax.adamw's init
+    makes them) and the schedule's step (the count, 0) as they were."""
     model, step = _port_step()
     batch = train_batch(np.random.default_rng(0), bs=4, n_mod=3, t=8, d=64,
                         he_only=case == "he_only")
@@ -214,7 +218,10 @@ def test_skipped_step_changes_nothing(case):
         batch["feats"][0, 0, 0, 0] = np.nan
     before = {k: v.clone() for k, v in model.state_dict().items()}
     _, metrics = step(batch, seed=0)
-    assert metrics["skipped"] and step.updates == 0 and not step.optimizer.state
+    assert metrics["skipped"] and step.updates == 0
+    for p in model.parameters():
+        st = step.optimizer.state[p]
+        assert not st["exp_avg"].any() and not st["exp_avg_sq"].any()
     assert all(torch.equal(before[k], v) for k, v in model.state_dict().items())
     if case == "he_only":
         assert float(metrics["loss"]) == 0.0
