@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases device,build,pool_kernels,golden,eval_forward
     python3 chip_smoke.py --phases device,build,perop_kernels,train_sigmoid
     python3 chip_smoke.py --phases device,build,train_kernels,train_views
+    python3 chip_smoke.py --phases device,build,train_kernels,train_ragged,pretrain_ragged
     python3 chip_smoke.py --phases device,build,pool_train_kernels,dropout_kernel,train_nofused,heads
 
 Phases, one JSON line each; any failure raises and the exit code is non-zero:
@@ -133,7 +134,21 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            ragged, at the odd t=4057 and at [65, 2048], rates 0 and real, at
            the same bars. Both kernels run twice and must agree bitwise.
            Timed at b=8, t=4096, at [65, 2048] (one view and three) and at
-           [65, 2048, 544] with dx
+           [65, 2048, 544] with dx. The recompute route (B1c, save_acts
+           off): at [65, 2048] with a ragged mask (two bags empty), and at
+           [65, 2048, 544] with dx, K6 without saves equal to the save route
+           bit for bit and K7 rebuilding the residuals (K6's own code)
+           equal to the save route's gradients and dx bit for bit, twice,
+           and to the plain recompute at the bars above; at [65, 16384]
+           (1,064,960 rows: K6's f32 scratch past 2**31 elements) the same
+           equalities, the last bag's K6 outputs and its K7 gradients
+           (cotangents on that bag alone) against the plain versions of
+           that bag; K7's ms on both routes, its recompute's own peak.
+           The save_acts gate's HBM guard, unmocked: ballast that leaves
+           the free plus reserved-but-unallocated bytes under a [8, 2048]
+           call's threshold sends the gate and the call to the recompute
+           route; the ballast freed but still reserved sends them back to
+           the save route, with bit-equal gradients
   got_kernels
            K8 (ipot_fwd), K9 (ipot_bwd) and K10 (gw_gamma), f32, on costs
            built as the GOT path builds them (random d=128 tokens ->
@@ -216,6 +231,22 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            step) and 5 under MADELEINE_NO_FUSED_ENCODER (rows 4-5 three times
            per modality a step, kernels 15-20 once); the loss falls, no step
            skipped; step ms, peak memory and launches
+  train_ragged
+           the published step on full-bag batches (the CLI's default
+           --n_subsamples -1): (a) bag lengths log-uniform in [1024, 16384],
+           bucket 16384, where every K6/K7 call must take the recompute
+           route (15.3 GB of saves a call, past the 10 GiB budget); (b) in
+           [1024, 8192], bucket 8192, the save route; three IHC bags empty
+           in each; 5 steps each (loss falls, none skipped, K6-K14 every
+           step, the route from the counters, one step under sync debug
+           "error", 3 back to back), peak and reserved GB, one profiled
+           step's idle share; then batch (b) padded to 16384, one step from
+           the same weights and seed on the recompute route against the
+           unpadded save-route step (losses 1e-4, gradients 1e-2)
+  train_ragged_nofused
+           the softmax per-op lane (MADELEINE_NO_FUSED_ENCODER) on a ragged
+           [65, 5, 4096] batch, 3 steps: finite, none skipped, rows 4-5 and
+           15-20 every step, K6/K7 never
   heads    65 bags of 2048 tokens embedded by encode_he (bf16, K1), then 5
            AdamW steps of an MLP head and of a ProjHead (f32, dropout 0.2:
            row 21 in every forward and backward); the loss falls
@@ -246,6 +277,13 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            them, a pinned batch freed while its copy waits behind device
            work must reach the card intact (the Python loader's batches
            outlive their copies through PyTorch's caching host allocator)
+  pretrain_ragged
+           the pretrain CLI with its default --n_subsamples (-1, full bags)
+           on 70 cases of bf16 .bag bags of 300-8000 tokens (bucket 8192),
+           some stains absent: native loader A 1 epoch, B A resumed to 2, C
+           2 straight (B's model.pt equal to C's bit for bit), and 1 epoch
+           on the Python RaggedTrainLoader (--native_loader off); the host
+           ms per batch, H2D ms, pinned bytes, CLI step ms, busy share
   profile  torch.profiler device time by kernel of one K6 and one K7 call at
            [65, 2048] and of kernels 15-18 and 20 alone at that shape, of
            one full-width train step of each objective and of the no-fused
@@ -259,8 +297,10 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            their device idle share; each read from a second
            profiled window after a warm-up window (a first window can lose
            its kernels), the K6/K7 single windows reported beside them
-Then the main path's launches of each kernel split into the published runs
-and the side lanes, a {"kernels": [...]} summary line, the nvidia-smi line, and last
+Then the main path's launches of each kernel split into the published runs,
+the side lanes and the ragged runs, a {"kernels": [...]} summary line (K6's
+and K7's rows also with their save-off and recompute routes), the
+nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs CUDA and the repo checkout around it.
 """
 
@@ -290,14 +330,17 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "pool_kernels", "pool_train_kernels", "dropout_kernel",
           "train_kernels", "got_kernels", "glue_kernels", "perop_kernels", "perop_bwd_digest",
           "golden", "serve", "extract", "eval_forward", "train", "train_got", "train_se",
-          "train_sigmoid", "train_nofused", "train_views", "heads", "pretrain", "profile")
+          "train_sigmoid", "train_nofused", "train_views", "train_ragged", "train_ragged_nofused",
+          "heads", "pretrain", "pretrain_ragged", "profile")
 # the runs of the port's main paths whose kernel launches the summary counts
 MAIN_PATHS = ("serve", "extract", "eval_forward", "train", "train_got", "train_se",
-              "train_sigmoid", "train_nofused", "train_views", "train_views_nofused", "heads",
-              "pretrain")
+              "train_sigmoid", "train_nofused", "train_views", "train_views_nofused",
+              "train_ragged", "train_ragged_nofused", "heads", "pretrain", "pretrain_ragged")
 # the main-path runs of the side lanes (a non-softmax activation, or softmax
 # under MADELEINE_NO_FUSED_ENCODER); the pretrain phase splits its own
 SIDE_PATHS = ("train_sigmoid", "train_nofused", "train_views_nofused")
+# the full-bag (ragged) runs, a lane of their own (its no-fused run included)
+RAGGED_PATHS = ("train_ragged", "train_ragged_nofused", "pretrain_ragged")
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -1261,12 +1304,14 @@ def phase_dropout_kernel(state):
           "head_shape": DROPOUT_HEAD_SHAPE, "head_f32": head, "launch_shape": LAUNCH_SHAPE})
 
 
-def _encoder_train_work(b, t, w, need_dx=False, n_views=1):
+def _encoder_train_work(b, t, w, need_dx=False, n_views=1, recompute=False):
     """(flops, bytes) of one K6 and one K7 call: every row of [b, t] is
     computed (masked tokens still get token outputs and residuals); with
     need_dx K7 also computes and writes dx [b, t, d_in] bf16. Each view past
     the first adds a pool (E multiply-adds a token; its adjoint two) and
-    its pooled output (K6) or cotangent (K7), [b, E] f32."""
+    its pooled output (K6) or cotangent (K7), [b, E] f32. On the recompute
+    route K6 writes no residuals and K7 reads none, but re-runs K6's
+    layer and gate products."""
     nh, f, _ = w["wa"].shape
     hd, d_in = w["w1"].shape
     dout, E = w["wt"].shape
@@ -1281,6 +1326,10 @@ def _encoder_train_work(b, t, w, need_dx=False, n_views=1):
     fwd_bytes = n * (d_in * 2 + dout * 2 + nh * 4 + saved) + wbytes + n_views * b * E * 4
     bwd_bytes = n * (d_in * 2 + nh * 4 + dout * 2 + saved) + wbytes + n_views * b * E * 4 + 4 * sum(
         v.numel() for v in w.values()) + (n * d_in * 2 if need_dx else 0)
+    if recompute:
+        fwd_bytes -= n * saved
+        bwd_bytes -= n * saved
+        bwd_flops += n * 2.0 * (d_in * hd + hd * hd + hd * E + 2 * E * f)
     return fwd_flops, fwd_bytes, bwd_flops, bwd_bytes
 
 
@@ -1369,6 +1418,247 @@ def _check_train_kernels(torch, w, x, bias, rates, gen, need_dx=False, vb=None):
     if need_dx:
         return rep, got, fwd_args, bwd_args, gk
     return rep, got, fwd_args, bwd_args
+
+
+def _k7_keys(et, need_dx):
+    return et.W_KEYS + (("x",) if need_dx else ())
+
+
+def _grad_errs(torch, got, want, keys, where):
+    """Relative Frobenius error of each gradient (bc: absolute) against the
+    plain version's; raises past GRAD_RTOL (BC_ATOL) or on a non-finite one."""
+    errs = {}
+    for k in keys:
+        if not torch.isfinite(got[k]).all():
+            raise AssertionError(f"{where}: non-finite d{k}")
+        diff = (got[k] - want[k]).float()
+        errs[k] = (diff.abs().max().item() if k == "bc"
+                   else (diff.norm() / want[k].float().norm().clamp_min(1e-30)).item())
+        if not errs[k] <= (BC_ATOL if k == "bc" else GRAD_RTOL):
+            raise AssertionError(f"{where}: d{k} error {errs[k]}")
+    return errs
+
+
+def _check_recompute(torch, w, x, bias, rates, gen, need_dx=False):
+    """The recompute route (B1c) against the save route on one call: K6 with
+    save off gives the save route's pooled, m, s, tokens and logits bit for
+    bit and no residuals; K7 with saved None (the residuals rebuilt on the
+    card by K6's own code) gives the save route's gradients, and dx, bit
+    for bit, twice; both routes held to the plain versions (save route: the
+    usual checks) at the usual bars, the recompute route also against the
+    plain recompute from x (every gradient but bc, whose exact value is 0,
+    at GRAD_RTOL; bc reported). K7's ms on both routes."""
+    from madeleine_torch.ops import encoder_train as et
+
+    rep, got, fa, ba = _check_train_kernels(torch, w, x, bias, rates, gen, need_dx=need_dx)[:4]
+    nosave = et.encoder_train_fwd_cuda(*fa, save=False)
+    if nosave[5] is not None or not all(torch.equal(a, c) for a, c in zip(got[:5], nosave[:5])):
+        raise AssertionError("encoder_train_fwd: the save-off launch differs from the save route")
+    br = list(ba)
+    br[7] = None
+    keys = _k7_keys(et, need_dx)
+    gs = et.encoder_train_bwd_cuda(*ba, need_dx=need_dx)
+    gr = et.encoder_train_bwd_cuda(*br, need_dx=need_dx)
+    gr2 = et.encoder_train_bwd_cuda(*br, need_dx=need_dx)
+    unequal = [k for k in keys if not (torch.equal(gs[k], gr[k]) and torch.equal(gr[k], gr2[k]))]
+    if unequal:
+        raise AssertionError(f"encoder_train_bwd: the recompute route differs from the save "
+                             f"route (or from itself) in {unequal}")
+    with torch.no_grad():
+        gp = et.encoder_train_bwd_plain(*ba, need_dx=need_dx)   # on K6's residuals
+        gpr = et.encoder_train_bwd_plain(*br, need_dx=need_dx)   # the plain recompute from x
+    errs = _grad_errs(torch, gr, gp, keys, f"encoder_train_bwd recompute {list(x.shape)}")
+    # against the plain recompute: its residuals are the plain forward's, not
+    # K6's, so the exact-zero bc gradient holds other rounding noise there
+    # (reported); every other gradient at GRAD_RTOL
+    errs_pr = _grad_errs(torch, gr, gpr, [k for k in keys if k != "bc"],
+                         f"encoder_train_bwd recompute vs plain recompute {list(x.shape)}")
+    bc_pr = (gr["bc"] - gpr["bc"]).abs().max().item()
+    del gs, gr2, gp, gpr
+    return dict(rep, recompute_bitwise_equal_save=True, nosave_fwd_bitwise_equal=True,
+                recompute_grad_max_rel_fro=max(v for k, v in errs.items() if k != "bc"),
+                recompute_vs_plain_recompute_max_rel_fro=max(errs_pr.values()),
+                recompute_vs_plain_recompute_bc_abs=bc_pr,
+                k7_save_ms=cuda_ms(lambda: et.encoder_train_bwd_cuda(*ba, need_dx=need_dx)),
+                k7_recompute_ms=cuda_ms(lambda: et.encoder_train_bwd_cuda(*br,
+                                                                          need_dx=need_dx)),
+                k6_nosave_ms=cuda_ms(lambda: et.encoder_train_fwd_cuda(*fa, save=False)))
+
+
+def _check_recompute_long(torch, w, lengths, rates, gen):
+    """K6/K7 at the longest bucket's call shape [65, 16384], M = 1,064,960
+    rows (K6's f32 scratch [M, 2048] past 2**31 elements): K6 with and
+    without saves bit for bit equal; K6's outputs for the last bag (whose
+    rows sit past 2**31 elements of that scratch) against the plain
+    version on that bag alone (its global row kept); K7 with cotangents on
+    the last bag only (every other gradient term exactly 0), the recompute
+    route bit for bit equal to the save route and the save route's
+    gradients against the plain backward of that bag alone; K7's ms on both
+    routes and the recompute call's own peak (GB above its inputs)."""
+    from madeleine_torch.ops import encoder_train as et
+
+    b, t = len(lengths), 16384
+    mask = torch.arange(t)[None, :] < torch.as_tensor(lengths)[:, None]
+    tg = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    x = torch.randn(b, t, w["w1"].shape[1], generator=tg, device="cuda", dtype=torch.bfloat16)
+    bias = et.token_mask_bias(mask.cuda(), b, t, "cuda")
+    fa = (x, bias, w, 1234, 0, *rates)
+    got = et.encoder_train_fwd_cuda(*fa)
+    nosave = et.encoder_train_fwd_cuda(*fa, save=False)
+    if not all(torch.equal(a, c) for a, c in zip(got[:5], nosave[:5])):
+        raise AssertionError("encoder_train_fwd [65, 16384]: the save-off launch differs")
+    del nosave
+    last = b - 1
+    with torch.no_grad():
+        want = et.encoder_train_fwd_plain(x[last:], bias[last:], w, 1234, last, *rates,
+                                          save=False)
+    valid = bias[last:] == 0
+    rep = {"pooled_err_last_bag": (got[0][last:] - want[0]).abs().max().item(),
+           "tok_err_last_bag": (got[3][last:].float() - want[3].float()).abs().max().item(),
+           "logits_err_last_bag": (got[4][last:] - want[4]).abs()[valid].max().item()}
+    for k, bar in (("pooled_err_last_bag", POOLED_ATOL), ("tok_err_last_bag", OUT_ATOL),
+                   ("logits_err_last_bag", OUT_ATOL)):
+        if not rep[k] <= bar:
+            raise AssertionError(f"encoder_train_fwd [65, 16384]: {k} {rep[k]} > {bar}")
+    pooled32, m, s, _, l, saved = got
+    nh, _, e = w["wa"].shape
+    g = torch.zeros_like(pooled32)
+    g[last] = torch.from_numpy(gen.standard_normal(nh * e).astype(np.float32)).cuda()
+    dtok = torch.zeros(b, t, w["wt"].shape[0], dtype=torch.bfloat16, device="cuda")
+    dtok[last] = torch.randn(t, w["wt"].shape[0], generator=tg, device="cuda",
+                             dtype=torch.bfloat16)
+    inner = (g * pooled32).reshape(b, nh, e).sum(-1)
+    ba = (x, l, m, s, g, inner, dtok, saved, w, 1234, 0, *rates)
+    br = list(ba)
+    br[7] = None
+    gs = et.encoder_train_bwd_cuda(*ba)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gr = et.encoder_train_bwd_cuda(*br)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    keys = et.W_KEYS
+    unequal = [k for k in keys if not torch.equal(gs[k], gr[k])]
+    if unequal:
+        raise AssertionError(f"encoder_train_bwd [65, 16384]: recompute differs in {unequal}")
+    with torch.no_grad():
+        gp = et.encoder_train_bwd_plain(x[last:], l[last:], m[last:], s[last:], g[last:],
+                                        inner[last:], dtok[last:],
+                                        {k: v[last:] for k, v in saved.items()}, w, 1234, last,
+                                        *rates)
+    errs = _grad_errs(torch, gs, gp, keys, "encoder_train_bwd [65, 16384]")
+    del gr, gp
+    k7_save = cuda_ms(lambda: et.encoder_train_bwd_cuda(*ba), warmup=1, iters=3)
+    k7_rec = cuda_ms(lambda: et.encoder_train_bwd_cuda(*br), warmup=1, iters=3)
+    k6_save = cuda_ms(lambda: et.encoder_train_fwd_cuda(*fa), warmup=1, iters=3)
+    k6_nosave = cuda_ms(lambda: et.encoder_train_fwd_cuda(*fa, save=False), warmup=1, iters=3)
+    ff, fb, bf, bb_ = _encoder_train_work(b, t, w, recompute=True)
+    (k6b, k6by), (k7b, k7by) = _bound(ff, fb), _bound(bf, bb_)
+    return dict(rep, b=b, t=t, rows=b * t, valid_tokens=int(sum(lengths)),
+                recompute_bitwise_equal_save=True,
+                grad_max_rel_fro_last_bag=max(v for k, v in errs.items() if k != "bc"),
+                k7_save_ms=k7_save, k7_recompute_ms=k7_rec, k6_save_ms=k6_save,
+                k6_nosave_ms=k6_nosave, k7_recompute_own_peak_gb=peak,
+                k7_recompute_bound_ms=k7b, k7_recompute_bound_by=k7by,
+                k6_nosave_bound_ms=k6b, k6_nosave_bound_by=k6by)
+
+
+GUARD_SHAPE = (8, 2048)        # the HBM guard's call: saves of 235 MB
+GUARD_BELOW = 256 * 1024 ** 2  # the ballast leaves the guard this far under its threshold
+GUARD_SLACK = 64 * 1024 ** 2   # a limit's drift from the ballast arithmetic (block rounding)
+
+
+def _check_hbm_guard(torch, w, gen):
+    """The save_acts gate's HBM guard on the card, `_device_hbm_limit` as the
+    path calls it: ballast allocated so that the free plus reserved but
+    unallocated bytes fall GUARD_BELOW under a call's saves + 4 x_bytes +
+    2 GiB sends `resolve_save_acts(None, ...)` and an `encoder_train` call
+    (forward and backward through autograd, ragged mask) to the recompute
+    route (K6's save-off and K7's recompute counters); the ballast freed
+    but still reserved by the caching allocator (no empty_cache, so the
+    card's free bytes stay low) is counted again, and the same call takes
+    the save route, its gradients bit for bit the recompute call's. Each
+    limit is held to free + reserved - allocated and to the one before
+    less, then plus, the ballast (GUARD_SLACK)."""
+    from madeleine_torch.ops import encoder_train as et
+
+    if os.environ.get(et.NO_SAVE_VAR):
+        raise AssertionError(f"hbm guard: {et.NO_SAVE_VAR} is set, the gate would not ask it")
+    b, t = GUARD_SHAPE
+    nh, f, e = w["wa"].shape
+    h, d_in = w["w1"].shape
+    x = torch.from_numpy(gen.standard_normal((b, t, d_in)).astype(np.float32)).cuda()
+    x = x.to(torch.bfloat16).contiguous()
+    lengths = torch.as_tensor(np.exp(gen.uniform(0.0, np.log(t), b)).astype(np.int64))
+    mask = (torch.arange(t)[None, :] < lengths[:, None]).cuda()
+    x_bytes = x.numel() * x.element_size()
+    gate = (b, t, h, nh * e, 2 * nh * f, x.element_size(), x_bytes, x.device)
+    need = b * t * ((2 * h + nh * e + 2 * nh * f) * 2 + 12) + 4 * x_bytes + et.GUARD_MARGIN
+
+    def read(where):
+        torch.cuda.synchronize()
+        free, _ = torch.cuda.mem_get_info()
+        lim = et._device_hbm_limit(x.device)
+        want = free + torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+        if abs(lim - want) > GUARD_SLACK:
+            raise AssertionError(f"hbm guard ({where}): limit {lim} != free + reserved - "
+                                 f"allocated {want}")
+        return free, lim
+
+    def call():
+        wg = {k: v.detach().clone().requires_grad_(True) for k, v in w.items()}
+        before = (et.fwd_launches, et.bwd_launches, et.fwd_nosave_launches,
+                  et.bwd_recompute_launches)
+        p, tok = et.encoder_train(x, mask, wg, 1234, row_offset=3)
+        (p.float().square().sum() + tok.float().sum()).backward()
+        after = (et.fwd_launches, et.bwd_launches, et.fwd_nosave_launches,
+                 et.bwd_recompute_launches)
+        grads = {k: v.grad for k, v in wg.items()}
+        del wg, p, tok
+        return [a - c for a, c in zip(after, before)], grads
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free0, lim0 = read("before")
+    ballast_bytes = (lim0 - need + GUARD_BELOW) // (2 << 20) * (2 << 20)
+    ballast = torch.empty(ballast_bytes, dtype=torch.uint8, device="cuda")
+    free1, lim1 = read("ballast held")
+    if abs(lim0 - ballast_bytes - lim1) > GUARD_SLACK or not lim1 < need:
+        raise AssertionError(f"hbm guard: with {ballast_bytes} B of ballast the limit is {lim1}, "
+                             f"from {lim0}; the threshold is {need}")
+    if et.resolve_save_acts(None, *gate):
+        raise AssertionError(f"hbm guard: limit {lim1} under the threshold {need}, and the gate "
+                             f"still answers save")
+    rec_counts, rec_grads = call()
+    if rec_counts != [1, 1, 1, 1]:
+        raise AssertionError(f"hbm guard: under ballast the call's launches (K6, K7, K6 save-off, "
+                             f"K7 recompute) are {rec_counts}, not [1, 1, 1, 1]")
+    del ballast, rec_counts
+    free2, lim2 = read("ballast freed, still reserved")
+    if abs(lim2 - lim0) > GUARD_SLACK + sum(g.numel() * g.element_size()
+                                             for g in rec_grads.values()):
+        raise AssertionError(f"hbm guard: with the ballast freed the limit is {lim2}, not {lim0}")
+    if not free2 < need:
+        raise AssertionError(f"hbm guard: the card's free bytes {free2} reach the threshold "
+                             f"{need}; the check would not show the reserved bytes counted")
+    if not et.resolve_save_acts(None, *gate):
+        raise AssertionError(f"hbm guard: limit {lim2} over the threshold {need}, and the gate "
+                             f"answers recompute")
+    save_counts, save_grads = call()
+    if save_counts != [1, 1, 0, 0]:
+        raise AssertionError(f"hbm guard: with the ballast freed the call's launches are "
+                             f"{save_counts}, not [1, 1, 0, 0]")
+    unequal = [k for k in save_grads if not torch.equal(save_grads[k], rec_grads[k])]
+    if unequal:
+        raise AssertionError(f"hbm guard: the two routes' gradients differ in {unequal}")
+    del rec_grads, save_grads
+    torch.cuda.empty_cache()
+    return {"shape": [b, t], "threshold_bytes": need, "limit_before": lim0,
+            "ballast_bytes": ballast_bytes, "limit_ballast_held": lim1,
+            "free_ballast_held": free1, "route_ballast_held": "recompute",
+            "limit_ballast_freed": lim2, "free_ballast_freed": free2,
+            "route_ballast_freed": "save", "grads_bitwise_equal": True}
 
 
 def _product_rates(torch, w, gen, b=65, t=2048):
@@ -1562,6 +1852,18 @@ def phase_train_kernels(state):
     timed["step_call_se"] = (fa, ba)
     del xs, bs_, fa, ba, gk
 
+    # the recompute route (B1c): at the step's call shape [65, 2048] with a
+    # ragged mask (log-uniform lengths, two bags empty), bit for bit against
+    # the save route, with dx at d_in 544; then at [65, 16384]
+    lengths_r = np.exp(gen.uniform(0.0, np.log(2048), 65)).astype(np.int64)
+    lengths_r[:2] = 0
+    xr, br_ = inputs(prefix_mask(2048, lengths_r))
+    recompute = {"step_call_ragged": _check_recompute(torch, w, xr, br_, real, gen)}
+    xr = torch.cat([xr, code.expand(65, 2048, -1)], dim=-1).contiguous()
+    recompute["step_call_ragged_se"] = _check_recompute(torch, w_se, xr, br_, real, gen,
+                                                        need_dx=True)
+    del xr, br_
+
     times = {}
     for shape_name, (fa, ba) in timed.items():
         bb, tt, d_in = fa[0].shape
@@ -1590,6 +1892,12 @@ def phase_train_kernels(state):
     del timed, fa, ba, vb_step
     products = {name: _product_rates(torch, w_, gen)
                 for name, w_ in (("step_call", w), ("step_call_se", w_se))}
+    torch.cuda.empty_cache()
+    lengths_l = np.exp(gen.uniform(np.log(1024), np.log(16384), 65)).astype(np.int64)
+    lengths_l[-1] = 16384 - 5            # the last bag, past 2**31 elements of K6's scratch
+    recompute["bucket_16384"] = _check_recompute_long(torch, w, lengths_l.tolist(), real, gen)
+    torch.cuda.empty_cache()
+    hbm_guard = _check_hbm_guard(torch, w, gen)
     for name in products:
         times[name]["products"] = products[name]
         times[name]["products_fwd_ms"] = sum(v["ms"] for k, v in products[name].items()
@@ -1602,8 +1910,12 @@ def phase_train_kernels(state):
     times["step_call_views"]["bwd_ms_over_one_view"] = (times["step_call_views"]["bwd_ms"]
                                                         / st["bwd_ms"])
     reps = [r for r in checks.values() if isinstance(r, dict)]
+    reps += [r for k, r in recompute.items() if k != "bucket_16384"]
     err_f = max(max(r["pooled_err"], r["tok_err"], r["logits_err"]) for r in reps)
     err_b = max(r["grad_max_abs_err"] for r in reps)
+    rc, long_ = recompute["step_call_ragged"], recompute["bucket_16384"]
+    ff, fb, bf, bb_ = _encoder_train_work(65, 2048, w, recompute=True)
+    (k6nb, k6nby), (k7rb, k7rby) = _bound(ff, fb), _bound(bf, bb_)
     state.setdefault("kernels", {}).update({
         "encoder_train_fwd": {
             "name": "encoder_train_fwd", "route": "cuda",
@@ -1611,19 +1923,30 @@ def phase_train_kernels(state):
             "replaces": "madeleine_tpu/ops/encoder_train.py:168",
             "max_abs_err": err_f, "ms": st["fwd_ms"], "plain_ms": st["fwd_plain_ms"],
             "bound_ms": st["fwd_bound_ms"], "bound_by": st["fwd_bound_by"],
-            "library_ms": None},
+            "library_ms": None,
+            # the save-off route (the recompute route's forward) at [65, 2048] ragged
+            "nosave_ms": rc["k6_nosave_ms"], "nosave_bound_ms": k6nb, "nosave_bound_by": k6nby,
+            "nosave_ms_16384": long_["k6_nosave_ms"],
+            "nosave_bound_ms_16384": long_["k6_nosave_bound_ms"]},
         "encoder_train_bwd": {
             "name": "encoder_train_bwd", "route": "cuda",
             "source": "madeleine_torch/csrc/encoder_train_bwd.cu",
             "replaces": "madeleine_tpu/ops/encoder_train.py:262",
             "max_abs_err": err_b, "ms": st["bwd_ms"], "plain_ms": st["bwd_plain_ms"],
             "bound_ms": st["bwd_bound_ms"], "bound_by": st["bwd_bound_by"],
-            "library_ms": None},
+            "library_ms": None,
+            # the recompute route (B1c) at [65, 2048] ragged and at [65, 16384]
+            "recompute_ms": rc["k7_recompute_ms"], "recompute_save_route_ms": rc["k7_save_ms"],
+            "recompute_bound_ms": k7rb, "recompute_bound_by": k7rby,
+            "recompute_ms_16384": long_["k7_recompute_ms"],
+            "recompute_bound_ms_16384": long_["k7_recompute_bound_ms"],
+            "recompute_own_peak_gb_16384": long_["k7_recompute_own_peak_gb"]},
     })
     emit({"phase": "train_kernels", "b": b, "t": t, "lengths": lengths, "partial_tile_t": t2,
           "partial_tile_bag0_valid_from": tail_from, "pooled_atol": POOLED_ATOL,
           "atol_tok_logits": OUT_ATOL, "grad_rtol_fro": GRAD_RTOL, "bc_atol": BC_ATOL,
-          "checks": checks, "times": times})
+          "checks": checks, "times": times, "recompute": recompute, "hbm_guard": hbm_guard,
+          "recompute_bound_ms_step_call": k7rb, "nosave_bound_ms_step_call": k6nb})
 
 
 # GOT kernels: relative Frobenius bars against the plain versions on the card
@@ -2886,9 +3209,9 @@ def got_path_config(**overrides):
                                          got_subsample=256), **overrides))
 
 
-def _train_setup(torch, cfg=None):
+def _train_setup(torch, cfg=None, batch=None):
     """(cfg, model, step, batch): the path's model from SEED, its AdamW and
-    train step, and one synthetic full-width batch."""
+    train step, and `batch`, or one synthetic full-width batch."""
     from madeleine_torch.models.factory import create_model
     from madeleine_torch.train.optim import make_optimizer
     from madeleine_torch.train.trainer import make_train_step
@@ -2896,8 +3219,8 @@ def _train_setup(torch, cfg=None):
     cfg = train_path_config() if cfg is None else cfg
     _, model = create_model(cfg, seed=SEED, device="cuda")
     opt, sched = make_optimizer(cfg, model.parameters(), steps_per_epoch=TRAIN_STEPS)
-    return cfg, model, make_train_step(cfg, model, opt, sched), synthetic_train_batch(
-        torch, cfg, SEED + 4)
+    return cfg, model, make_train_step(cfg, model, opt, sched), (
+        synthetic_train_batch(torch, cfg, SEED + 4) if batch is None else batch)
 
 
 ENCODER_KERNELS = ("encoder_train_fwd", "encoder_train_bwd")
@@ -2936,27 +3259,30 @@ def _skips_on_the_card(torch, step, batch, seed):
     return out
 
 
-def _run_train_steps(torch, state, phase, kernels, cfg=None):
-    """TRAIN_STEPS steps of make_train_step at full width on one fixed batch,
-    the counts set to 0 just before: fails unless no step is skipped, every
-    loss is finite, the last is below the first and each of `kernels`
-    launches on every step; then the parameters' digest. Each step is timed
-    alone (CUDA events, the host waiting for each). Then, on the same
-    model: one step under torch.cuda.set_sync_debug_mode("error") (a step
-    that reads the card from the host raises), BACK_TO_BACK_STEPS steps
-    launched back to back between two events (also the host's ms a step to
-    launch them), and a skipped step on an H&E-only batch and on a NaN one,
-    each leaving the parameters, the moments and the count bit for bit; the
-    model then gets the five steps' weights back. Returns (cfg, model,
-    batch, summary)."""
+def _run_train_steps(torch, state, phase, kernels, cfg=None, setup=None, steps=TRAIN_STEPS,
+                     b2b_steps=BACK_TO_BACK_STEPS, skips=True, falls=True):
+    """`steps` steps of make_train_step at full width on one fixed batch
+    (`setup`: the caller's `_train_setup`, else the synthetic batch's), the
+    counts set to 0 just before: fails
+    unless no step is skipped, every loss is finite, the last is below the
+    first (unless not `falls`) and each of `kernels` launches on every
+    step; then the parameters' digest. Each step is timed alone (CUDA
+    events, the host waiting for each). Then, on the same model: one step
+    under torch.cuda.set_sync_debug_mode("error") (a step that reads the
+    card from the host raises), `b2b_steps` steps launched back to back
+    between two events (also the host's ms a step to launch them), and
+    with `skips` a skipped step on an H&E-only batch and on a NaN one, each
+    leaving the parameters, the moments and the count bit for bit; the
+    model then gets the steps' weights back. Returns (cfg, model, batch,
+    summary)."""
     from madeleine_torch.train.trainer import step_seed
 
-    cfg, model, step, batch = _train_setup(torch, cfg)
+    cfg, model, step, batch = _train_setup(torch, cfg) if setup is None else setup
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     losses, skipped, step_ms, per_step = [], [], [], []
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         before = read_counts()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -2972,8 +3298,9 @@ def _run_train_steps(torch, state, phase, kernels, cfg=None):
               "lr": float(metrics["lr"]), "step_ms": step_ms[-1], "launches": per_step[-1]})
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
     state[f"launches_{phase}"] = counts
-    if any(skipped) or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+    if any(skipped) or not all(np.isfinite(losses)) or (falls and not losses[-1] < losses[0]):
         raise AssertionError(f"{phase}: skipped {skipped}, losses {losses}")
     missing = [(i, k) for i, c in enumerate(per_step) for k in kernels if c[k] < 1]
     if missing:
@@ -2984,7 +3311,7 @@ def _run_train_steps(torch, state, phase, kernels, cfg=None):
     # the trained weights, bit for bit: another package's steps must leave the same
     digest = _param_digest(model)
     trained = {k: v.clone() for k, v in model.state_dict().items()}
-    seeds = itertools.count(TRAIN_STEPS)
+    seeds = itertools.count(steps)
     torch.cuda.set_sync_debug_mode("error")
     try:
         step(batch, step_seed(SEED, 0, next(seeds)))
@@ -2994,24 +3321,25 @@ def _run_train_steps(torch, state, phase, kernels, cfg=None):
     torch.cuda.synchronize()
     start.record()
     t0 = time.perf_counter()
-    for _ in range(BACK_TO_BACK_STEPS):
+    for _ in range(b2b_steps):
         step(batch, step_seed(SEED, 0, next(seeds)))
-    host = (time.perf_counter() - t0) * 1e3 / BACK_TO_BACK_STEPS
+    host = (time.perf_counter() - t0) * 1e3 / b2b_steps
     end.record()
     end.synchronize()
-    b2b = start.elapsed_time(end) / BACK_TO_BACK_STEPS
-    skips = _skips_on_the_card(torch, step, batch, step_seed(SEED, 0, next(seeds)))
-    model.load_state_dict(trained)   # the later checks read the five steps' weights
+    b2b = start.elapsed_time(end) / b2b_steps
+    skipped_on_card = (_skips_on_the_card(torch, step, batch, step_seed(SEED, 0, next(seeds)))
+                       if skips else "not run")
+    model.load_state_dict(trained)   # the later checks read the steps' weights
     return cfg, model, batch, {
-        "steps": TRAIN_STEPS, "batch": [cfg.batch_size, cfg.n_modalities, cfg.n_subsamples,
-                                        cfg.patch_embedding_dim],
+        "steps": steps, "batch": list(batch["feats"].shape),
         "losses": losses, "skipped": skipped, "step_ms": step_ms,
         "step_ms_median_after_first": statistics.median(step_ms[1:]),
-        "step_ms_back_to_back": b2b, "back_to_back_steps": BACK_TO_BACK_STEPS,
+        "step_ms_back_to_back": b2b, "back_to_back_steps": b2b_steps,
         "host_ms_per_step_back_to_back": host,
-        "sync_debug_error_step": "ran", "skipped_steps_on_card": skips,
+        "sync_debug_error_step": "ran", "skipped_steps_on_card": skipped_on_card,
         "param_sha256_after_steps": digest,
-        "peak_memory_gb": peak / 1e9, "launches": counts, "launches_per_step": per_step}
+        "peak_memory_gb": peak / 1e9, "peak_reserved_gb": reserved / 1e9, "launches": counts,
+        "launches_per_step": per_step}
 
 
 def phase_train(state):
@@ -3322,6 +3650,194 @@ def phase_train_views(state):
         raise AssertionError(f"train_views: launches per step off: {wrong}")
 
 
+# Full-bag (ragged) training, the JAX package's default --n_subsamples -1:
+# per case the published step on bags of log-uniform lengths padded to the
+# bucket, and the route the save_acts gate must take at that bucket
+RAGGED_CASES = {"a": (1024, 16384, "recompute"), "b": (1024, 8192, "save")}
+RAGGED_EMPTY = 3          # empty (case, stain) bags per batch, label 0
+RAGGED_B2B_STEPS = 3
+RAGGED_PAD_LOSS_RTOL = 1e-4
+RAGGED_NOFUSED_SHAPE = (1024, 4096)   # the side lane's lengths (a smaller depth)
+RAGGED_NOFUSED_STEPS = 3
+
+
+def ragged_lengths(seed, bs, n_mod, lo, hi, n_empty=RAGGED_EMPTY):
+    """[bs, n_mod] bag lengths, log-uniform in [lo, hi] from `seed`, bag
+    (0, 0) at hi (it sets the bucket), n_empty IHC bags empty."""
+    gen = np.random.default_rng(seed)
+    lengths = np.exp(gen.uniform(np.log(lo), np.log(hi), (bs, n_mod))).astype(np.int64)
+    lengths = np.clip(lengths, lo, hi)
+    lengths[0, 0] = hi
+    empty = gen.choice(bs * (n_mod - 1), n_empty, replace=False)
+    lengths[empty // (n_mod - 1), 1 + empty % (n_mod - 1)] = 0
+    return lengths
+
+
+def ragged_batch(torch, lengths, seed, t=None, d=512, signal=TRAIN_SIGNAL):
+    """A ragged batch as the loaders make it: feats [bs, n_mod, t, d] bf16 on
+    the card (noise plus a per-case vector, made there from `seed`, zero
+    past each bag's length), the token mask on the host (numpy, as a
+    loader yields it: the step copies it from pinned memory), labels 0 for
+    the empty bags; t the bucket of the longest bag unless given."""
+    from madeleine_torch.data.datasets import RAGGED_BUCKETS, bucket_of
+
+    bs, n_mod = lengths.shape
+    t = t or bucket_of(int(lengths.max()), RAGGED_BUCKETS)
+    mask = np.arange(t)[None, None, :] < lengths[..., None]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    case = torch.randn(bs, 1, d, generator=g, device="cuda")
+    feats = torch.empty(bs, n_mod, t, d, dtype=torch.bfloat16, device="cuda")
+    valid = torch.from_numpy(mask).cuda()
+    for m in range(n_mod):
+        x = torch.randn(bs, t, d, generator=g, device="cuda").add_(signal * case)
+        feats[:, m] = x.mul_(valid[:, m, :, None]).to(torch.bfloat16)
+        del x
+    return {"feats": feats,
+            "modality_labels": torch.from_numpy((lengths > 0).astype(np.float32)).cuda(),
+            "sample_mask": torch.ones(bs, dtype=torch.bool, device="cuda"), "token_mask": mask}
+
+
+def _profiled_step(torch, step, batch, seeds):
+    """(device busy ms, wall ms, rows) of one profiled train step (`_profiled`,
+    two windows; each window one step, seeds drawn from `seeds`)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def one_step():
+        start.record()
+        step(batch, next(seeds))
+        end.record()
+
+    rows = _profiled(torch, one_step)
+    return sum(r[2] for r in rows), start.elapsed_time(end), rows
+
+
+def _grads_of_step(torch, model, step, batch, seed, params):
+    """(loss, {name: gradient clone}, K7's recompute launches) of one step
+    from the parameters `params` (copied in first)."""
+    with torch.no_grad():
+        for p, v in zip(model.parameters(), params):
+            p.copy_(v)
+    before = read_counts()["encoder_train_bwd_recompute"]
+    _, metrics = step(batch, seed)
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    loss = float(metrics["loss"])
+    if bool(metrics["skipped"]):
+        raise AssertionError("train_ragged padding check: a step was skipped")
+    return loss, grads, read_counts()["encoder_train_bwd_recompute"] - before
+
+
+def phase_train_ragged(state):
+    """The published step (softmax, fused, InfoNCE + GOT, bf16, 65 x 5) on
+    full-bag batches: (a) lengths log-uniform in [1024, 16384], bucket 16384,
+    where the save_acts gate must send every K6/K7 call to the recompute
+    route (the saves of one call, 15.3 GB, pass the 10 GiB budget); (b) in
+    [1024, 8192], bucket 8192, the save route. Three IHC bags empty (label
+    0) in each. Each runs 5 steps (_run_train_steps: the loss falls, none
+    skipped, K6-K14 every step, a step under sync debug mode "error", 3
+    back to back), then one profiled step (idle share). Then the padding
+    check: batch (b) padded to 16384 and one step from the same weights and
+    seed on the recompute route, against the unpadded save-route step:
+    losses at 1e-4 relative, every parameter gradient at 1e-2 relative
+    Frobenius."""
+    import torch
+    from madeleine_torch.train.trainer import step_seed
+
+    cfg = got_path_config()
+    kernels = ENCODER_KERNELS + GOT_KERNELS + GLUE_KERNELS
+    out, launches = {}, {}
+    torch.cuda.empty_cache()
+    # (b) runs on the cache (a) left: its peak reserved against its peak
+    # allocated shows what a change of bucket costs the caching allocator
+    for name, (lo, hi, route) in RAGGED_CASES.items():
+        lengths = ragged_lengths(SEED + 20 + hi, cfg.batch_size, cfg.n_modalities, lo, hi)
+        setup = _train_setup(torch, cfg, ragged_batch(torch, lengths, SEED + 21))
+        _, model, step, batch = setup
+        run = _run_train_steps(torch, state, f"train_ragged_{name}", kernels, setup=setup,
+                               b2b_steps=RAGGED_B2B_STEPS, skips=False)[3]
+        del setup
+        n_calls = TRAIN_STEPS * cfg.n_modalities
+        got = {"k6_nosave": run["launches"]["encoder_train_fwd_nosave"],
+               "k7_recompute": run["launches"]["encoder_train_bwd_recompute"]}
+        want = n_calls if route == "recompute" else 0
+        if got["k6_nosave"] != want or got["k7_recompute"] != want:
+            raise AssertionError(f"train_ragged ({name}): route {got} of {n_calls} calls, "
+                                 f"wanted {route}")
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        busy, wall, rows = _profiled_step(torch, step, batch, iter((90, 91)))
+        hd, nh = cfg.wsi_encoder_hidden_dim, cfg.n_heads
+        saves = cfg.batch_size * batch["feats"].shape[2] * (
+            2 * (2 * hd + nh * hd + 2 * nh * cfg.attention_hidden_dim) + 12)
+        out[name] = dict(run, lengths_range=[lo, hi], bucket=int(batch["feats"].shape[2]),
+                         valid_tokens=int(lengths.sum()), empty_bags=int((lengths == 0).sum()),
+                         route=route, route_launches=got, saves_per_call_gb=saves / 1e9,
+                         profiled_step={"wall_ms": wall, "device_busy_ms": busy,
+                                        "device_idle_share": 1.0 - busy / wall,
+                                        "by_kernel_ms": [[k, c, ms] for k, c, ms in rows[:12]]})
+        emit({"phase": "train_ragged", "case": name, **out[name]})
+        if name == "b":
+            # the padding check, from the trained weights and one seed
+            params = [p.detach().clone() for p in model.parameters()]
+            seed = step_seed(SEED, 1, 0)
+            loss_u, g_u, rc_u = _grads_of_step(torch, model, step, batch, seed, params)
+            t_pad = RAGGED_CASES["a"][1]
+            t = batch["feats"].shape[2]
+            padded = dict(batch, feats=torch.nn.functional.pad(batch["feats"],
+                                                               (0, 0, 0, t_pad - t)),
+                          token_mask=np.pad(batch["token_mask"], ((0, 0), (0, 0),
+                                                                  (0, t_pad - t))))
+            del batch
+            loss_p, g_p, rc_p = _grads_of_step(torch, model, step, padded, seed, params)
+            errs = {k: _rel_fro(g_p[k].float(), g_u[k].float()) for k in g_u
+                    if g_u[k].float().norm() > 0}
+            pad = {"loss_unpadded": loss_u, "loss_padded": loss_p,
+                   "loss_rel_err": abs(loss_p - loss_u) / abs(loss_u),
+                   "grad_max_rel_fro": max(errs.values()), "grad_rel_fro": errs,
+                   "recompute_calls_unpadded": rc_u, "recompute_calls_padded": rc_p}
+            emit({"phase": "train_ragged", "padding_check": pad})
+            if (rc_u != 0 or rc_p != cfg.n_modalities
+                    or not pad["loss_rel_err"] <= RAGGED_PAD_LOSS_RTOL
+                    or not pad["grad_max_rel_fro"] <= GRAD_RTOL):
+                raise AssertionError(f"train_ragged: the padded step misses the unpadded one "
+                                     f"({pad['loss_rel_err']}, {pad['grad_max_rel_fro']}; "
+                                     f"recompute calls {rc_u}, {rc_p})")
+            out["padding_check"] = pad
+            del padded
+        else:
+            del batch
+        del model, step
+    state["launches_train_ragged"] = launches
+    state["train_ragged"] = {k: {"step_ms": v["step_ms_median_after_first"],
+                                 "peak_gb": v["peak_memory_gb"]}
+                             for k, v in out.items() if k in RAGGED_CASES}
+    torch.cuda.empty_cache()   # about 62 GB cached: the later phases' processes need it
+
+
+def phase_train_ragged_nofused(state):
+    """The softmax per-op lane (MADELEINE_NO_FUSED_ENCODER) on a ragged batch
+    of [65, 5, 4096] (lengths log-uniform in [1024, 4096], three bags
+    empty), 3 steps: the losses finite, none skipped, rows 4-5 and kernels
+    15-20 every step, K6/K7 never."""
+    import torch
+
+    cfg = got_path_config()
+    lo, hi = RAGGED_NOFUSED_SHAPE
+    lengths = ragged_lengths(SEED + 30, cfg.batch_size, cfg.n_modalities, lo, hi)
+    torch.cuda.empty_cache()
+    with _no_fused_encoder():
+        _, model, _, run = _run_train_steps(
+            torch, state, "train_ragged_nofused", NOFUSED_KERNELS + GOT_KERNELS + GLUE_KERNELS,
+            setup=_train_setup(torch, cfg, ragged_batch(torch, lengths, SEED + 31)),
+            steps=RAGGED_NOFUSED_STEPS, b2b_steps=2, skips=False, falls=False)
+    del model
+    torch.cuda.empty_cache()
+    fused = {k: run["launches"][k] for k in ENCODER_KERNELS}
+    emit({"phase": "train_ragged_nofused", **run, "variable": f"{NO_FUSED_VAR}=1",
+          "lengths_range": [lo, hi], "valid_tokens": int(lengths.sum())})
+    if any(fused.values()):
+        raise AssertionError(f"train_ragged_nofused: K6/K7 launched {fused}")
+
+
 HEAD_CLASSES = 4
 HEAD_STEPS = 5
 
@@ -3382,11 +3898,12 @@ PRETRAIN_STAINS = ["HE", "HER2", "PGR", "KI67", "ER"]
 PRETRAIN_SEED = 42     # the CLI's --seed default
 
 
-def _write_pretrain_cohort(root, gen):
-    """<root>/feats/case{i}_{stain}.bag (512-d f32 bags, the native
-    loader's format, written by the port's writer: noise plus a per-case
-    vector shared by the case's bags), <root>/ACROBAT.csv, and
-    <root>/downstream/patch_embeddings/*.npz. Returns (bags, bytes)."""
+def _write_pretrain_cohort(root, gen, tokens=PRETRAIN_TOKENS, dtype="float32"):
+    """<root>/feats/case{i}_{stain}.bag (512-d bags of `tokens` lengths in
+    `dtype`, the native loader's format, written by the port's writer: noise
+    plus a per-case vector shared by the case's bags), <root>/ACROBAT.csv,
+    and <root>/downstream/patch_embeddings/*.npz. Returns (bags, bytes
+    written)."""
     from madeleine_torch.native.bagio import write_bag_file
 
     stains = PRETRAIN_STAINS
@@ -3398,11 +3915,11 @@ def _write_pretrain_cohort(root, gen):
         labels = {s: int(s == "HE" or gen.random() < PRETRAIN_IHC_PRESENT) for s in stains}
         for s, present in labels.items():
             if present:
-                x = gen.standard_normal((int(gen.integers(*PRETRAIN_TOKENS)), 512),
-                                        dtype=np.float32)
+                x = gen.standard_normal((int(gen.integers(*tokens)), 512), dtype=np.float32)
                 x += TRAIN_SIGNAL * case
-                write_bag_file(os.path.join(feats, f"case{i:02d}_{s}.bag"), x)
-                n_bags, n_bytes = n_bags + 1, n_bytes + x.nbytes
+                write_bag_file(os.path.join(feats, f"case{i:02d}_{s}.bag"), x, dtype=dtype)
+                n_bags = n_bags + 1
+                n_bytes += x.nbytes // (2 if dtype == "bfloat16" else 1)
         rows.append(",".join([f"case{i:02d}"] + [str(labels[s]) for s in stains] + ["train"]))
     with open(os.path.join(root, "ACROBAT.csv"), "w") as f:
         f.write("slide_id," + ",".join(stains) + ",split\n" + "\n".join(rows) + "\n")
@@ -3415,16 +3932,18 @@ def _write_pretrain_cohort(root, gen):
     return n_bags, n_bytes
 
 
-def _pretrain_argv(root, results, max_epochs, *extra):
+def _pretrain_argv(root, results, max_epochs, *extra, n_subsamples=2048):
     """The flags of scripts/launch_pretrain_withoutStainEncodings.sh; with
     --add_stain_encoding in `extra`, those of
-    scripts/launch_pretrain_withStainEncodings.sh."""
+    scripts/launch_pretrain_withStainEncodings.sh; with n_subsamples None,
+    no --n_subsamples (the CLI's default, -1: full bags)."""
+    sub = () if n_subsamples is None else ("--n_subsamples", str(n_subsamples))
     return ["--dataset", "ACROBAT", "--csv_fpath", os.path.join(root, "ACROBAT.csv"),
             "--data_root_dir", os.path.join(root, "feats"), "--results_dir", results,
             "--wsi_encoder", "abmil", "--n_heads", "4", "--patch_embedding_dim", "512",
             "--wsi_encoder_hidden_dim", "512", "--activation", "softmax",
             "--global_loss", "info-nce", "--local_loss", "got", "--temperature", "0.001",
-            "--symmetric_cl", "--lr", "0.0001", "--batch_size", "65", "--n_subsamples", "2048",
+            "--symmetric_cl", "--lr", "0.0001", "--batch_size", "65", *sub,
             "--warmup", "--warmup_epochs", "5", "--precision", "bfloat16",
             "--max_epochs", str(max_epochs), "--downstream_dir", os.path.join(root, "downstream"),
             *extra]
@@ -3432,7 +3951,12 @@ def _pretrain_argv(root, results, max_epochs, *extra):
 
 def _run_pretrain_cli(argv, log_path):
     """`python -m madeleine_torch.cli.pretrain` as a subprocess from the repo
-    root; returns (results dir, metrics records, wall seconds)."""
+    root, this process's cached device memory released first (the
+    subprocess needs the card's memory); returns (results dir, metrics
+    records, wall seconds)."""
+    import torch
+
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with open(log_path, "w") as log:
         proc = subprocess.run([sys.executable, "-m", "madeleine_torch.cli.pretrain", *argv],
@@ -3450,6 +3974,7 @@ def _run_pretrain_cli(argv, log_path):
 
 
 PRETRAIN_STEP_KERNELS = ENCODER_KERNELS + GOT_KERNELS + GLUE_KERNELS
+LOADER_PARTS = ("draw_ms", "assemble_ms", "guard_wait_ms")   # the native loader's
 
 
 def _check_pretrain_run(name, results, records, epochs, kernels=PRETRAIN_STEP_KERNELS,
@@ -3497,9 +4022,12 @@ def _check_pretrain_run(name, results, records, epochs, kernels=PRETRAIN_STEP_KE
     sd = torch.load(os.path.join(results, "model.pt"), map_location="cpu")
     return {"epochs": len(ep), "losses": [s["loss"] for s in steps],
             "step_ms": [s["step_ms"] for s in steps], "wait_ms": [s["wait_ms"] for s in steps],
+            "buckets": [s.get("bucket") for s in steps],
+            "valid_tokens": [s.get("valid_tokens") for s in steps],
+            "truncation_count": [x for r in ep for x in r.get("truncation_count", [])],
+            "pinned_bytes": max((r.get("pinned_bytes", 0) for r in ep), default=0),
             "loader_ms": [x for r in ep for x in r["loader_ms"]],
-            **{part: [x for r in ep for x in r[part]]
-               for part in ("draw_ms", "assemble_ms", "guard_wait_ms") if part in ep[0]},
+            **{part: [x for r in ep for x in r[part]] for part in LOADER_PARTS if part in ep[0]},
             "epoch_time_s": [r["epoch_time"] for r in ep],
             "peak_memory_gb": max(r["peak_memory_gb"] for r in ep),
             "launches": launched}, sd
@@ -3604,7 +4132,7 @@ def _pinned_batch_outlives_its_copy(torch, n=64 << 20):
             "mb": n * 4 / 2 ** 20}
 
 
-def _pretrain_trio(root, tag, epochs_a, epochs, *extra):
+def _pretrain_trio(root, tag, epochs_a, epochs, *extra, n_subsamples=2048):
     """Three CLI runs on the cohort: A epochs_a epochs with --checkpoint_every
     1, B A resumed to `epochs`, C `epochs` straight. Returns (runs, model.pt
     state dicts, wall seconds, resume report); B must equal C bit for bit."""
@@ -3616,7 +4144,7 @@ def _pretrain_trio(root, tag, epochs_a, epochs, *extra):
         more = ("--resume", resume_from) if name == "B" else ()
         results, records, walls[name] = _run_pretrain_cli(
             _pretrain_argv(root, os.path.join(root, tag + name.lower()), n,
-                           "--checkpoint_every", "1", *more, *extra),
+                           "--checkpoint_every", "1", *more, *extra, n_subsamples=n_subsamples),
             os.path.join(root, f"pretrain_{tag}{name.lower()}.log"))
         if name == "A":
             resume_from = os.path.join(results, "train_state")
@@ -3633,6 +4161,29 @@ def _pretrain_trio(root, tag, epochs_a, epochs, *extra):
                              f"{len(unequal)} tensors, max |diff| {max_diff}")
     return runs, sds, walls, {"resume_bitwise_equal": not unequal,
                               "resume_max_abs_diff": max_diff, "resume_same_losses": same_losses}
+
+
+def _loader_line(rs):
+    """Host ms per batch, parts, step ms, epoch time and busy share of
+    runs; the last two also over the epochs after each process's first,
+    whose first step loads every kernel (two steps an epoch)."""
+    steps_ms = [ms for r in rs for ms in r["step_ms"]]
+    epoch_s = [s for r in rs for s in r["epoch_time_s"]]
+    warm_s = [s for r in rs for s in r["epoch_time_s"][1:]]
+    warm_steps = [ms for r in rs for ms in r["step_ms"][2:]]
+    line = {"host_ms_per_batch_median": statistics.median(
+                [ms for r in rs for ms in r["loader_ms"]]),
+            "cli_step_ms_median": statistics.median(steps_ms),
+            "epoch_time_s_median": statistics.median(epoch_s),
+            "stream_busy_share_of_epochs": sum(steps_ms) / (1e3 * sum(epoch_s)),
+            "warm_epochs": len(warm_s),
+            "warm_epoch_time_s_median": statistics.median(warm_s) if warm_s else None,
+            "warm_stream_busy_share": (sum(warm_steps) / (1e3 * sum(warm_s))
+                                       if warm_s else None)}
+    for part in LOADER_PARTS:
+        if part in rs[0]:
+            line[part + "_median"] = statistics.median([x for r in rs for x in r[part]])
+    return line
 
 
 def phase_pretrain(state):
@@ -3699,34 +4250,12 @@ def phase_pretrain(state):
     h2d_ms = cuda_ms(lambda: x.to("cuda", non_blocking=True), warmup=2, iters=10)
     del x
 
-    def loader_line(rs):
-        """Host ms per batch, parts, step ms, epoch time and busy share of
-        runs; the last two also over the epochs after each process's first,
-        whose first step loads every kernel (two steps an epoch)."""
-        steps_ms = [ms for r in rs for ms in r["step_ms"]]
-        epoch_s = [s for r in rs for s in r["epoch_time_s"]]
-        warm_s = [s for r in rs for s in r["epoch_time_s"][1:]]
-        warm_steps = [ms for r in rs for ms in r["step_ms"][2:]]
-        line = {"host_ms_per_batch_median": statistics.median(
-                    [ms for r in rs for ms in r["loader_ms"]]),
-                "cli_step_ms_median": statistics.median(steps_ms),
-                "epoch_time_s_median": statistics.median(epoch_s),
-                "stream_busy_share_of_epochs": sum(steps_ms) / (1e3 * sum(epoch_s)),
-                "warm_epochs": len(warm_s),
-                "warm_epoch_time_s_median": statistics.median(warm_s) if warm_s else None,
-                "warm_stream_busy_share": (sum(warm_steps) / (1e3 * sum(warm_s))
-                                           if warm_s else None)}
-        for part in ("draw_ms", "assemble_ms", "guard_wait_ms"):
-            if part in rs[0]:
-                line[part + "_median"] = statistics.median([x for r in rs for x in r[part]])
-        return line
-
     every = list(runs.values()) + list(runs_se.values()) + [run_sig, run_nf, run_intra]
     state["launches_pretrain"] = {k: sum(r["launches"].get(k, 0) for r in every)
                                   for k in read_counts()}
     state["launches_pretrain_side"] = {k: sum(r["launches"].get(k, 0) for r in (run_sig, run_nf))
                                        for k in read_counts()}
-    native = loader_line(list(runs.values()))
+    native = _loader_line(list(runs.values()))
     emit({"phase": "pretrain", "cases": PRETRAIN_CASES, "bags": n_bags,
           "cohort_gb": n_bytes / 1e9, "cohort_format": ".bag f32", "cohort_write_s": cohort_s,
           "runs": runs, "cli_wall_s": walls, **resume,
@@ -3735,7 +4264,7 @@ def phase_pretrain(state):
           "native_loader": dict(native, first_batch_bf16=native_bf16, first_batch_f32=native_f32,
                                 h2d_ms_per_batch_bf16=h2d_bf16_ms,
                                 h2d_gb_per_batch_bf16=65 * 5 * 2048 * 512 * 2 / 1e9),
-          "python_loader": dict(loader_line([run_sig]), run="sigmoid",
+          "python_loader": dict(_loader_line([run_sig]), run="sigmoid",
                                 pinned_batch_outlives_its_copy=pinned,
                                 one_batch_by_part=loader_parts, h2d_ms_per_batch_f32=h2d_ms,
                                 h2d_gb_per_batch_f32=65 * 5 * 2048 * 512 * 4 / 1e9),
@@ -3757,6 +4286,66 @@ def phase_pretrain(state):
           "intra": {"run": run_intra, "cli_wall_s": wall_intra,
                     "flags": "--intra_modality_loss info-nce",
                     "cli_step_ms_median": statistics.median(run_intra["step_ms"])}})
+
+
+RAGGED_PRETRAIN_TOKENS = (300, 8001)   # bag lengths of the full-bag cohort: bucket 8192
+
+
+def phase_pretrain_ragged(state):
+    """`python -m madeleine_torch.cli.pretrain` with the launch script's
+    flags but its default --n_subsamples (-1: full bags) on a synthetic
+    cohort of 70 cases of bf16 .bag bags of 300-8000 tokens (bucket 8192),
+    20% of IHC stains absent: through the native loader (NativeRaggedLoader)
+    A 1 epoch with --checkpoint_every 1, B A resumed to 2, C 2 straight (B's
+    model.pt equal to C's bit for bit), and one epoch through the Python
+    loader (--native_loader off: RaggedTrainLoader). Every step finite and
+    applied, K6-K14 every step, bucket 8192, nothing truncated; the host ms
+    per batch, the H2D ms of a pinned bf16 batch of the bucket, the ring's
+    pinned bytes, the CLI step ms and the stream busy share."""
+    import torch
+
+    from madeleine_torch.data.datasets import RAGGED_BUCKETS, bucket_of
+
+    gen = np.random.default_rng(SEED + 9)
+    root = tempfile.mkdtemp(prefix="pretrain_ragged_")
+    try:
+        t0 = time.perf_counter()
+        n_bags, n_bytes = _write_pretrain_cohort(root, gen, tokens=RAGGED_PRETRAIN_TOKENS,
+                                                 dtype="bfloat16")
+        cohort_s = time.perf_counter() - t0
+        runs, _, walls, resume = _pretrain_trio(root, "ragged_", 1, 2, n_subsamples=None)
+        results, records, wall_py = _run_pretrain_cli(
+            _pretrain_argv(root, os.path.join(root, "ragged_python"), 1, "--checkpoint_every",
+                           "1", "--native_loader", "off", n_subsamples=None),
+            os.path.join(root, "pretrain_ragged_python.log"))
+        run_py, _ = _check_pretrain_run("ragged_python", results, records, range(1),
+                                        loader="python")
+        logs = open(os.path.join(root, "pretrain_ragged_a.log")).read()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    bucket = bucket_of(RAGGED_PRETRAIN_TOKENS[1] - 1, RAGGED_BUCKETS)
+    every = list(runs.values()) + [run_py]
+    bad = [(r["buckets"], r["truncation_count"]) for r in every
+           if any(b != bucket for b in r["buckets"]) or any(r["truncation_count"])]
+    if bad or "full-bag (ragged) batches" not in logs:
+        raise AssertionError(f"pretrain_ragged: buckets / truncations {bad}, or the native "
+                             f"loader's ragged line missing from the log")
+    x = torch.empty(65, 5, bucket, 512, dtype=torch.bfloat16).pin_memory()
+    h2d_ms = cuda_ms(lambda: x.to("cuda", non_blocking=True), warmup=2, iters=10)
+    del x
+    state["launches_pretrain_ragged"] = {k: sum(r["launches"].get(k, 0) for r in every)
+                                         for k in read_counts()}
+    native = _loader_line(list(runs.values()))
+    emit({"phase": "pretrain_ragged", "cases": PRETRAIN_CASES, "bags": n_bags,
+          "cohort_gb": n_bytes / 1e9, "cohort_format": ".bag bf16", "cohort_write_s": cohort_s,
+          "bag_tokens": list(RAGGED_PRETRAIN_TOKENS), "bucket": bucket,
+          "flags": "launch script's, without --n_subsamples (default -1)",
+          "runs": runs, "cli_wall_s": walls, **resume,
+          "native_loader": dict(native, pinned_bytes=max(r["pinned_bytes"] for r in runs.values()),
+                                h2d_ms_per_batch_bf16=h2d_ms,
+                                h2d_gb_per_batch_bf16=65 * 5 * bucket * 512 * 2 / 1e9),
+          "python_loader": dict(_loader_line([run_py]), run=run_py, cli_wall_s=wall_py),
+          "peak_memory_gb": max(r["peak_memory_gb"] for r in every)})
 
 
 # kernel-name prefixes of K8-K10 and of K11-K14 in a profiler trace
@@ -4066,8 +4655,16 @@ def main() -> int:
     # no-fused softmax lane: their train phases and CLI epochs) and the rest
     side = {k: sum(state[f"launches_{p}"][k] for p in SIDE_PATHS)
             + state["launches_pretrain_side"][k] for k in state["kernels"]}
-    emit({"launches_by_lane": {k: {"published": launches[k] - side[k], "side_lanes": side[k]}
+    ragged = {k: sum(state[f"launches_{p}"][k] for p in RAGGED_PATHS) for k in state["kernels"]}
+    emit({"launches_by_lane": {k: {"published": launches[k] - side[k] - ragged[k],
+                                   "side_lanes": side[k], "ragged": ragged[k]}
                                for k in launches}})
+    # K6's save-off and K7's recompute launches on the main path (within theirs)
+    routes = {k: sum(state[f"launches_{p}"][k] for p in MAIN_PATHS)
+              for k in ("encoder_train_fwd_nosave", "encoder_train_bwd_recompute")}
+    state["kernels"]["encoder_train_fwd"]["nosave_launches"] = routes["encoder_train_fwd_nosave"]
+    state["kernels"]["encoder_train_bwd"]["recompute_launches"] = routes[
+        "encoder_train_bwd_recompute"]
     emit({"kernels": [dict(v, launches=launches[k]) for k, v in state["kernels"].items()]})
     print(state["smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": state["kind"],

@@ -15,7 +15,11 @@ files through the native loader (`native/dataset.py`, C++ threaded assembly
 into a pinned ring, in bf16 under ``--precision bfloat16``) when
 ``--native_loader`` is ``on``, or ``auto`` (the default) and the data dir
 holds ``.bag`` files; otherwise through the Python loader (``.h5`` where
-h5py imports, else ``.npz`` or ``.bag``). It takes AdamW steps of
+h5py imports, else ``.npz`` or ``.bag``). With ``--n_subsamples -1`` (the
+default) every bag trains whole: the ragged loaders (`NativeRaggedLoader`,
+`RaggedTrainLoader`) pad each batch's bags to its length bucket (1024 ...
+16384, powers of two past the top) under a token mask; with a positive
+count, each bag is subsampled to that many tokens. It takes AdamW steps of
 InfoNCE + GOT on the card (kernels K6-K14; with ``--intra_modality_loss
 info-nce`` also the intra-modality InfoNCE between two half-bag views of
 every bag, K6/K7's view route; with a non-softmax
@@ -24,8 +28,10 @@ with softmax and MADELEINE_NO_FUSED_ENCODER set in the environment, kernels
 15-20 and the training pool's rows 4-5), and writes into
 ``<results_dir>/<config hash>/``: ``config.json``, ``model_config.txt``,
 ``metrics.jsonl`` (one record per epoch, with the loader's name and host
-ms per batch, the native loader's parts, per-step timings and kernel
-launches, and one for the downstream pass), ``train_state`` (+
+ms per batch, the native loader's parts and pinned bytes, per-step
+timings, kernel launches, bucket and valid tokens, the ragged loaders'
+truncation count after each batch, and one record for the downstream
+pass), ``train_state`` (+
 ``.meta.json``) when a checkpoint is due, ``model.pt`` +
 ``model_config.json``, and with --downstream_dir the slide embeddings of
 that cohort as ``<name>.pkl``. A run resumes exactly from
@@ -47,14 +53,15 @@ from __future__ import annotations
 import glob
 import os
 import time
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Optional
 
 import torch
 
-from madeleine_torch.data.datasets import Prefetcher, SlideDataset, TrainLoader
+from madeleine_torch.data.datasets import (Prefetcher, RaggedTrainLoader, SlideDataset,
+                                           TrainLoader)
 from madeleine_torch.eval.inference import get_downstream_loader, run_inference
 from madeleine_torch.models.factory import create_model
-from madeleine_torch.native.dataset import NativeTrainLoader
+from madeleine_torch.native.dataset import NativeRaggedLoader, NativeTrainLoader
 from madeleine_torch.ops import launches
 from madeleine_torch.train import checkpoint as ckpt
 from madeleine_torch.train.optim import make_optimizer
@@ -68,11 +75,13 @@ from madeleine_torch.utils.seed import set_deterministic_mode
 MIN_CHECKPOINT_EPOCH = 20  # ref: bin/pretrain.py:69 (no saves for the first 20 epochs)
 
 
-def host_batches(loader, load_ms: List[float], pin: bool) -> Iterator[Dict]:
+def host_batches(loader, load_ms: List[float], pin: bool,
+                 truncations: Optional[List[int]] = None) -> Iterator[Dict]:
     """The loader's batches, their feats pinned for an asynchronous copy to
     the card when `pin` (the native loader's ring is pinned already: it is
     not copied again); appends each batch's host ms (for the Python loader
-    read, subsample, collate and pin) to `load_ms`."""
+    read, subsample, collate and pin) to `load_ms` and, for a ragged
+    loader, its truncation count after the batch to `truncations`."""
     batches = iter(loader)
     while True:
         t0 = time.perf_counter()
@@ -83,27 +92,40 @@ def host_batches(loader, load_ms: List[float], pin: bool) -> Iterator[Dict]:
         if pin and not (isinstance(feats, torch.Tensor) and feats.is_pinned()):
             batch["feats"] = torch.as_tensor(feats).pin_memory()
         load_ms.append((time.perf_counter() - t0) * 1e3)
+        if truncations is not None and hasattr(loader, "truncation_count"):
+            truncations.append(loader.truncation_count)
         yield batch
 
 
 def make_loader(cfg, native_loader: str, dev: torch.device):
-    """(loader, its name) as the JAX CLI chooses (bin/pretrain.py:65-99):
+    """(loader, its name) as the JAX CLI chooses (bin/pretrain.py:65-116):
     ``auto`` is ``on`` when the data dir holds ``.bag`` files; ``on`` is the
     native loader, assembling in bf16 under --precision bfloat16 and in f32
-    otherwise; ``off`` is SlideDataset + TrainLoader."""
+    otherwise; ``off`` is SlideDataset + TrainLoader. --n_subsamples -1
+    takes the ragged loaders (NativeRaggedLoader, RaggedTrainLoader),
+    printing the JAX CLI's lines."""
+    ragged = cfg.n_subsamples == -1
     if native_loader == "auto":
         bags = glob.glob(os.path.join(cfg.data_root_dir or "", "*.bag"))
         native_loader = "on" if bags else "off"
     if native_loader == "on":
         out_dtype = "bfloat16" if cfg.precision == "bfloat16" else "float32"
-        loader = NativeTrainLoader(cfg.csv_fpath, cfg.data_root_dir, cfg.MODALITIES,
-                                   embedding_size=cfg.patch_embedding_dim,
-                                   sample=cfg.n_subsamples, batch_size=cfg.batch_size,
-                                   seed=cfg.seed, out_dtype=out_dtype, device=dev)
+        kw = dict(embedding_size=cfg.patch_embedding_dim, batch_size=cfg.batch_size,
+                  seed=cfg.seed, out_dtype=out_dtype, device=dev)
+        if ragged:
+            loader = NativeRaggedLoader(cfg.csv_fpath, cfg.data_root_dir, cfg.MODALITIES, **kw)
+            print(f"* Native .bag loader, full-bag (ragged) batches ({out_dtype} assembly)")
+        else:
+            loader = NativeTrainLoader(cfg.csv_fpath, cfg.data_root_dir, cfg.MODALITIES,
+                                       sample=cfg.n_subsamples, **kw)
+            print(f"* Native .bag loader (C++ threaded assembler, {out_dtype} assembly)")
         return loader, "native-bf16" if out_dtype == "bfloat16" else "native-f32"
     dataset = SlideDataset(cfg.dataset, cfg.csv_fpath, cfg.data_root_dir, cfg.MODALITIES,
                            embedding_size=cfg.patch_embedding_dim, sample=cfg.n_subsamples,
                            seed=cfg.seed)
+    if ragged:
+        print("* Full-bag (ragged) training: padded length buckets + token masks")
+        return RaggedTrainLoader(dataset, cfg.batch_size, seed=cfg.seed), "python"
     return TrainLoader(dataset, cfg.batch_size, seed=cfg.seed), "python"
 
 
@@ -168,8 +190,10 @@ def main(argv=None) -> str:
             torch.cuda.reset_peak_memory_stats(dev)
         loader.set_epoch(epoch)   # the shuffle and subsamples keyed by (seed, epoch)
         load_ms: List[float] = []
+        truncations: List[int] = []
         ep_loss, train_rank, agg = train_loop(
-            cfg, train_step, Prefetcher(host_batches(loader, load_ms, dev.type == "cuda")),
+            cfg, train_step,
+            Prefetcher(host_batches(loader, load_ms, dev.type == "cuda", truncations)),
             epoch, cfg.seed)
         print(f"Done with epoch {epoch}: loss={ep_loss:.3f} rank={train_rank:.3f} "
               f"time={time.time() - start:.1f}s ({agg['n_skipped']} skipped)")
@@ -180,6 +204,9 @@ def main(argv=None) -> str:
         if loader_name != "python":   # the native loader's parts, per batch
             for part in ("draw_ms", "assemble_ms", "guard_wait_ms"):
                 record[part] = [t[part] for t in loader.timings]
+            record["pinned_bytes"] = loader.pinned_bytes
+        if truncations:   # a ragged loader's count after each batch
+            record["truncation_count"] = truncations
         if dev.type == "cuda":
             record["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         logger.log(record, step=epoch)

@@ -1,21 +1,30 @@
 // Whole-encoder training backward in bf16 (kernel K7).
 //
-// Replaces madeleine_tpu/ops/encoder_train.py::_bwd_kernel (save_acts route,
-// need_dx off and on, n_views 1 and 3). From the forward's residuals (u1, u2, u3, a_pre, b_pre,
-// rstd), the masked logits and the pool statistics (m, s), it forms the
+// Replaces madeleine_tpu/ops/encoder_train.py::_bwd_kernel (both save_acts
+// routes, need_dx off and on, n_views 1 and 3). From the forward's residuals
+// (u1, u2, u3, a_pre, b_pre, rstd), the masked logits and the pool
+// statistics (m, s), it forms the
 // summed cotangent of y in the TPU kernel's order (pool term, then token
 // projector term, then gate terms; encoder_train.py:341-407) and runs the
 // adjoints of the gates, the token projector and the three LN / GELU /
 // dropout layers (ops/preattn.py::_layer_bwd). No forward product is
 // recomputed: h1, h2 and y are rebuilt elementwise from the residuals.
+// On the recompute route (save_acts off, B1c; JAX's _recompute_stack,
+// encoder_train.py:128-141) the residuals were not kept: the backward first
+// re-runs K6's own device code (encoder_rows.cuh::rows_fwd: the three
+// layers and the gate product with its gate epilogue) from x, the weights
+// and the seed into transient buffers, so the rebuilt rows equal K6's saved
+// ones bit for bit and every gradient equals the save route's bit for bit.
+// The recompute's f32 scratch is DY's memory and its logit partials DZG's,
+// both written only after it.
 // Outputs: the 20 weight, bias and LN gradients in f32 and, when the caller
 // passes a dx buffer (need_dx: the input carries the learned stain-encoding
 // columns), the input gradient dx = dz1 . W1 [b, t, d_in] in bf16.
 //
 // What bounds it on an H100: 7.6 M multiply-adds per token at the published
 // widths (a weight gradient for every product, an input gradient for every
-// product but layer 1; with dx, layer 1's too, 7.9 M at d_in 544): the dense
-// bf16 rate bounds it, as for K6.
+// product but layer 1; with dx, layer 1's too, 7.9 M at d_in 544; the
+// recompute route adds K6's 3.9 M): the dense bf16 rate bounds it, as for K6.
 //
 // Design. Every product runs on the TMA + wgmma GEMM of gemm_wgmma.cuh (PR
 // 3's first version used the mma.sync GEMM of gemm_bf16.cuh, at about 210
@@ -35,7 +44,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "train_rows.cuh"
+#include "encoder_rows.cuh"
 
 namespace {
 
@@ -165,10 +174,14 @@ extern "C" void encoder_train_bwd_workspace(const long long* dims, long long* ou
   out[1] = S.ntr * colpart_stride(S);
 }
 
-// dims as encoder_train_forward (dims[12] = nv). p: the pointers of
+// dims as encoder_train_forward (dims[12] = nv), and dims[13] = 1 on the
+// recompute route. p: the pointers of
 // ops/encoder_train.py::encoder_train_bwd_cuda's `tensors`, in that order
-// (dx null without need_dx; the last, the view bias [t, 2], null when nv = 1).
-// g is [b, nv, E]; inner, m and s are [b, nv, nh]. Returns a cudaError_t.
+// (dx null without need_dx; the view bias [t, 2] null when nv = 1; then, set
+// on the recompute route only, b1, b2, b3 and K6's permuted [Wa; Wb] and
+// [ba; bb], while u1, u2, u3, a_pre, b_pre and rstd are the buffers the
+// recompute fills). g is [b, nv, E]; inner, m and s are [b, nv, nh]. Returns a
+// cudaError_t.
 extern "C" int encoder_train_backward(void** p, const long long* dims, const float* scales,
                                       void* stream_) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream_);
@@ -210,6 +223,32 @@ extern "C" int encoder_train_backward(void** p, const long long* dims, const flo
   if (nv != 1 && (nv != 3 || vb == nullptr)) return (int)cudaErrorInvalidValue;
   const long long ldp = colpart_stride(S);
   const int ntr = S.ntr;
+
+  if (dims[13]) {
+    // the recompute route: K6's rows from (x, seed) into the residual buffers
+    madeleine::RowsFwd rf{};
+    madeleine::StackFwd& sf = rf.sf;
+    sf.x = x;
+    sf.w[0] = w1; sf.w[1] = w2; sf.w[2] = w3;
+    sf.b[0] = (const float*)p[56]; sf.b[1] = (const float*)p[57];
+    sf.b[2] = (const float*)p[58];
+    sf.s[0] = s1; sf.s[1] = s2; sf.s[2] = s3;
+    sf.sh[0] = t1; sf.sh[1] = t2; sf.sh[2] = t3;
+    sf.Z = DY;
+    sf.U[0] = (bf16*)p[7]; sf.U[1] = (bf16*)p[8]; sf.U[2] = (bf16*)p[9];
+    sf.rstd = (float*)p[12];
+    sf.H[0] = H1; sf.H[1] = H2; sf.H[2] = Y;
+    sf.M = M; sf.t = t; sf.d_in = S.d_in; sf.hd = hd; sf.E = E; sf.row_offset = ro;
+    sf.y32 = 0;
+    sf.d = dpre;
+    rf.wab = (const bf16*)p[59]; rf.bab = (const float*)p[60]; rf.wc = wc;
+    rf.ap = (bf16*)p[10]; rf.bp = (bf16*)p[11];
+    rf.lpart = reinterpret_cast<float*>(DZG);   // [M, nh, f / 64] f32 in DZG's bytes
+    rf.nh = nh; rf.e = e; rf.f = f;
+    rf.dgate = dgate;
+    if (!sf.b[0] || !sf.b[1] || !sf.b[2] || !rf.wab || !rf.bab) return (int)cudaErrorInvalidValue;
+    CHECK(madeleine::rows_fwd(rf, st));
+  }
 
   // rebuild h1, h2 (bf16 operands of dW2, dW3)
   recon_h<<<M, hd / 4, 0, st>>>(u1, s1, t1, H1, hd, t, ro, 0, dpre);

@@ -1,6 +1,6 @@
 // Whole-encoder training forward in bf16 (kernel K6).
 //
-// Replaces madeleine_tpu/ops/encoder_train.py::_fwd_kernel (save_acts route).
+// Replaces madeleine_tpu/ops/encoder_train.py::_fwd_kernel (both save_acts routes).
 // Per token row r of x [b*t, d_in]:
 //   3 x [Linear -> LayerNorm -> GELU (exact erf) -> dropout]   -> y32 [E] f32
 //   tok = y Wt^T + bt                                           -> [d_out] bf16
@@ -9,9 +9,12 @@
 //   softmax pool of y32 over each bag's tokens -> pooled [b, E] f32, (m, s);
 //   with n_views = 3 (the intra-modality loss) also over two disjoint
 //   half-bags, the same logits plus a view bias      -> pooled [b, 3, E]
-// and the residuals the backward reads instead of recomputing any product:
-// u1, u2, u3 (normalised pre-affine LN inputs), a_pre, b_pre (bf16) and the
-// three LN rstd (f32), the columns of encoder_train.py:218-226.
+// and, on the save route, the residuals the backward reads instead of
+// recomputing any product: u1, u2, u3 (normalised pre-affine LN inputs),
+// a_pre, b_pre (bf16) and the three LN rstd (f32), the columns of
+// encoder_train.py:218-226. On the recompute route (save_acts off: their
+// pointers null) nothing but the outputs outlives the call, and K7 rebuilds
+// the residuals with this kernel's own device code (encoder_rows.cuh).
 //
 // Numerics as on the TPU: bf16 operands, f32 accumulation, f32 bias, LN and
 // GELU; each layer's output is rounded to bf16 before the next product and
@@ -55,7 +58,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "train_rows.cuh"
+#include "encoder_rows.cuh"
 
 namespace {
 
@@ -162,7 +165,9 @@ __global__ void pool_merge(const float* __restrict__ part_m, const float* __rest
 // dims: b, t, d_in, hidden, nh, e, f, d_out, seed, row_offset, thr_pre, thr_gate,
 // nv (1, or 3 with the view bias). scales: keep scales of the two rates. p: the
 // pointers of ops/encoder_train.py::encoder_train_fwd_cuda's `tensors`, in that
-// order (the last, the view bias [t, 2], null when nv = 1). Returns a cudaError_t.
+// order (the residuals u1, u2, u3, a_pre, b_pre and rstd all null on the
+// recompute route; the last, the view bias [t, 2], null when nv = 1). Returns a
+// cudaError_t.
 extern "C" int encoder_train_forward(void** p, const long long* dims, const float* scales,
                                      void* stream_) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream_);
@@ -194,9 +199,15 @@ extern "C" int encoder_train_forward(void** p, const long long* dims, const floa
   float *part_m = (float*)p[36], *part_s = (float*)p[37], *part_w = (float*)p[38];
   const float* vb = (const float*)p[39];   // [t, 2] view bias, null when nv = 1
   if (nv != 1 && (nv != 3 || vb == nullptr)) return (int)cudaErrorInvalidValue;
+  const bool save = u1 != nullptr;   // every residual set, or none
+  if ((u2 != nullptr) != save || (u3 != nullptr) != save || (ap != nullptr) != save ||
+      (bp != nullptr) != save || (rstd != nullptr) != save)
+    return (int)cudaErrorInvalidValue;
   // pre-attention layers: Z = A W^T + bias, then LN / GELU / dropout rows;
-  // layer 3 leaves y32 in Z for the pool
-  madeleine::StackFwd sf{};
+  // layer 3 leaves y32 in Z for the pool; then the gate products of every
+  // head, the gates and their partial logits in the epilogue
+  madeleine::RowsFwd rf{};
+  madeleine::StackFwd& sf = rf.sf;
   sf.x = x;
   sf.w[0] = w1; sf.w[1] = w2; sf.w[2] = w3;
   sf.b[0] = b1; sf.b[1] = b2; sf.b[2] = b3;
@@ -209,23 +220,12 @@ extern "C" int encoder_train_forward(void** p, const long long* dims, const floa
   sf.M = M; sf.t = t; sf.d_in = d_in; sf.hd = hd; sf.E = E; sf.row_offset = row_offset;
   sf.y32 = 1;
   sf.d = dpre;
-  cudaError_t err = madeleine::stack_fwd<madeleine::Gemm::WGMMA>(sf, st);
+  rf.wab = wab; rf.bab = bab; rf.wc = wc;
+  rf.ap = ap; rf.bp = bp; rf.lpart = lpart;
+  rf.nh = nh; rf.e = e; rf.f = f;
+  rf.dgate = dgate;
+  cudaError_t err = madeleine::rows_fwd(rf, st);
   if (err != cudaSuccess) return (int)err;
-  // gate products of every head in one batched launch, the gates and their
-  // partial logits in its epilogue: batch h reads y at column h e and the
-  // permuted [Wa; Wb]_h at row h 2f
-  {
-    const madeleine::WgOperand a{Y, E, M, E, 0, e};
-    const madeleine::WgOperand bw{wab, e, 2LL * nh * f, e, 2 * f, 0};
-    madeleine::wg::Params gp = madeleine::wg_params(nullptr, 2 * f, bab, M, 2 * f, e);
-    gp.strideBias = 2LL * f;
-    gp.batches = nh;
-    gp.ap = ap; gp.bp = bp; gp.lpart = lpart; gp.wc = wc;
-    gp.f = f; gp.t = t; gp.row_offset = row_offset;
-    gp.d = dgate;
-    err = madeleine::wg_gemm<false, false, madeleine::wg::EPI_GATES>(a, bw, gp, st);
-    if (err != cudaSuccess) return (int)err;
-  }
   madeleine::gate_logits_sum<<<(unsigned)(((long long)M * nh + 255) / 256), 256, 0, st>>>(
       lpart, bc, bias, l, M, nh, f / 64);
   err = cudaGetLastError();

@@ -27,8 +27,8 @@
 namespace madeleine {
 
 // One row per block, W/4 threads, 4 columns each: LayerNorm + GELU + dropout.
-// Z [M, W] f32 pre-LN rows (bias included). Writes rstd[r * 3 + layer] and,
-// where the pointer is set, U (bf16 u) and H (bf16 output); with y32 also
+// Z [M, W] f32 pre-LN rows (bias included). Writes, where the pointer is
+// set, rstd[r * 3 + layer], U (bf16 u) and H (bf16 output); with y32 also
 // the f32 output back into Z.
 __global__ void ln_gelu_fwd(float* __restrict__ Z, const float* __restrict__ s,
                             const float* __restrict__ sh, bf16* __restrict__ U,
@@ -57,7 +57,7 @@ __global__ void ln_gelu_fwd(float* __restrict__ Z, const float* __restrict__ s,
   if (U) store4(U + r * W + c, u);
   if (H) store4(H + r * W + c, h);
   if (y32) store4(Z + r * W + c, h);
-  if (threadIdx.x == 0) rstd[r * 3 + layer] = rs;
+  if (rstd && threadIdx.x == 0) rstd[r * 3 + layer] = rs;
 }
 
 // One row per block, nh*f/4 threads (f % 128 == 0): gate dropout and logits.
@@ -304,8 +304,9 @@ inline cudaError_t linear_f32(const bf16* X, const bf16* W, const float* bias, f
 
 // The three pre-attention layers, Linear -> LayerNorm -> GELU -> dropout
 // (ops/preattn.py::_layer_fwd three times): Z = A W^T + bias, then the row
-// kernel. H[0], H[1] (the bf16 inputs of layers 2 and 3) must be set; U[i]
-// and H[2] may be null. With y32, layer 3 also leaves its f32 output in Z.
+// kernel. H[0], H[1] (the bf16 inputs of layers 2 and 3) must be set; U[i],
+// rstd and H[2] may be null. With y32, layer 3 also leaves its f32 output
+// in Z.
 struct StackFwd {
   const bf16* x;
   const bf16* w[3];

@@ -11,15 +11,21 @@ Port of `madeleine_tpu/data/datasets.py` (ref: madeleine/datasets/wsi_dataset.py
   from (seed, epoch) and pads the last batch with masked rows, with the same
   numpy generator calls as the JAX package, so the batches are equal bit for
   bit. The cohort CSV is read with the `csv` module (no pandas).
+- `RaggedTrainLoader`: full-bag training batches (`--n_subsamples -1`, the
+  JAX package's default): every (case, stain) bag of a batch padded to the
+  batch's length bucket (1024 ... 16384, powers of two past the top) with a
+  [bs, n_mod, t] token mask, the same generator calls as the JAX package's
+  (datasets.py:216-320), so the batches are equal bit for bit. One process
+  (data parallelism is ROADMAP.md A7).
 - `BucketedBagLoader`: bags of any length grouped by length bucket and padded
   into ``[b, T_bucket, d]`` batches with a ``[b, T_bucket]`` mask, so many
   slides run per kernel launch instead of the reference's batch_size=1 loop
   (ref: setup_components.py:162-168).
 - `Prefetcher`: a background thread that runs any batch iterable ahead.
 
-The native ``.bag`` loader, which the pretrain CLI takes on a ``.bag``
-cohort, is `madeleine_torch/native/dataset.py` `NativeTrainLoader`. Not
-ported: the full-bag `RaggedTrainLoader` (ROADMAP.md A6).
+The native ``.bag`` loaders, which the pretrain CLI takes on a ``.bag``
+cohort, are `madeleine_torch/native/dataset.py` `NativeTrainLoader` and
+`NativeRaggedLoader`.
 """
 
 from __future__ import annotations
@@ -151,13 +157,6 @@ class TrainLoader:
             yield out
 
 
-# ---------------------------------------------------------------------------
-# Inference loaders
-# ---------------------------------------------------------------------------
-
-DEFAULT_BUCKETS = (512, 1024, 2048, 4096, 8192, 16384, 32768, 65536)
-
-
 def grow_bucket(n: int, top: int) -> int:
     """Power-of-two bucket above the configured top one: bags run whole,
     never truncated (the reference's eval runs bags uncapped)."""
@@ -165,6 +164,96 @@ def grow_bucket(n: int, top: int) -> int:
     while b < n:
         b *= 2
     return b
+
+
+RAGGED_BUCKETS = (1024, 2048, 4096, 8192, 16384)
+
+
+def bucket_of(n: int, buckets: Sequence[int]) -> int:
+    """The smallest of the (sorted) buckets that holds n tokens, else a grown one."""
+    for b in buckets:
+        if n <= b:
+            return b
+    return grow_bucket(n, buckets[-1])
+
+
+class RaggedTrainLoader:
+    """Full-bag multistain training batches ``{"feats": [bs, n_mod, t, d] f32,
+    "modality_labels", "token_mask": [bs, n_mod, t] bool, "sample_mask",
+    "slide_ids": the valid cases'}``: no token subsampling; each bag padded
+    with zeros to the batch's bucket t, the smallest bucket that holds its
+    longest bag (capped at ``max_tokens`` when set). The reference cannot
+    train on whole bags (it subsamples to 2048, ref: wsi_dataset.py:42-50).
+    ``max_tokens`` None keeps bags whole (buckets grow past the top); a cap
+    truncates and counts every capped bag in ``truncation_count``. A missing
+    stain is the dataset's 2-row zero placeholder, masked by its label. The
+    last short batch is padded by repeating its first case, masked."""
+
+    def __init__(self, dataset: SlideDataset, batch_size: int,
+                 buckets: Sequence[int] = RAGGED_BUCKETS, shuffle: bool = True, seed: int = 0,
+                 max_tokens: Optional[int] = None, process_index: int = 0,
+                 process_count: int = 1):
+        if process_count > 1 or process_index != 0:
+            raise NotImplementedError("multi-process loading: data parallelism is not ported "
+                                      "(ROADMAP.md A7)")
+        if dataset.sample != -1:
+            raise ValueError("RaggedTrainLoader expects sample=-1 datasets")
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.buckets = sorted(buckets)
+        self.shuffle = shuffle
+        self.seed = seed
+        self.rng = np.random.default_rng(seed)
+        self.max_tokens = max_tokens
+        self.truncation_count = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        """(seed, epoch)-derived shuffle, so that a resumed run replays the epoch."""
+        self.rng = np.random.default_rng((self.seed, epoch))
+        self.dataset.epoch = epoch
+
+    def __len__(self) -> int:
+        return -(-len(self.dataset) // self.batch_size)
+
+    def __iter__(self) -> Iterator[Dict]:
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            self.rng.shuffle(order)
+        bs = self.batch_size
+        for start in range(0, len(order), bs):
+            idx = order[start:start + bs]
+            n_valid = len(idx)
+            if n_valid < bs:
+                idx = np.concatenate([idx, np.repeat(idx[:1], bs - n_valid)])
+            sample_mask = np.arange(bs) < n_valid
+            items = [self.dataset[i] for i in idx]
+            longest = max(f.shape[0] for it in items for f in it["feats"])
+            if self.max_tokens is not None:
+                longest = min(longest, self.max_tokens)
+            t = bucket_of(longest, self.buckets)
+            n_mod, d = len(items[0]["feats"]), items[0]["feats"][0].shape[1]
+            feats = np.zeros((bs, n_mod, t, d), np.float32)
+            token_mask = np.zeros((bs, n_mod, t), bool)
+            labels = np.zeros((bs, n_mod), np.float32)
+            for b, item in enumerate(items):
+                for m, f in enumerate(item["feats"]):
+                    n = min(f.shape[0], t)
+                    if f.shape[0] > t:   # only under an explicit cap
+                        self.truncation_count += 1
+                    feats[b, m, :n] = f[:n]
+                    token_mask[b, m, :n] = True
+                labels[b] = np.asarray(item["modality_labels"], np.float32)
+            labels[~sample_mask] = 0.0
+            yield {"feats": feats, "modality_labels": labels, "token_mask": token_mask,
+                   "sample_mask": sample_mask,
+                   "slide_ids": [it["slide_id"] for it, v in zip(items, sample_mask) if v]}
+
+
+# ---------------------------------------------------------------------------
+# Inference loaders
+# ---------------------------------------------------------------------------
+
+DEFAULT_BUCKETS = (512, 1024, 2048, 4096, 8192, 16384, 32768, 65536)
 
 
 class BucketedBagLoader:
@@ -187,10 +276,7 @@ class BucketedBagLoader:
         return len(self.fnames)
 
     def _bucket_of(self, n: int) -> int:
-        for b in self.buckets:
-            if n <= b:
-                return b
-        return grow_bucket(n, self.buckets[-1])
+        return bucket_of(n, self.buckets)
 
     @staticmethod
     def _pow2_floor(x: int) -> int:

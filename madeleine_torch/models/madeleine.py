@@ -200,6 +200,8 @@ def forward_train(model: MADELEINE, feats: torch.Tensor, *,
     madeleine.py:213-218): the reference builds train-time stain ids
     mod-major but flattens feats b-major, misassigning the codes whenever
     bs != 1; the correct per-stain id is used here, as in the JAX package.
+    With a ragged mask the padding of each bag is masked out of every pool
+    and logit; each fused call takes the route that `resolve_save_acts` gives it.
     Returns slide_embs [bs, n_mod, n_views, hidden] and token_embs
     [bs, n_mod, t, 128], both in feats.dtype."""
     cfg = model.cfg

@@ -1,5 +1,6 @@
-"""The native training loader over ``.bag`` files (port of
-`madeleine_tpu/native/dataset.py:21` `NativeTrainLoader`).
+"""The native training loaders over ``.bag`` files (port of
+`madeleine_tpu/native/dataset.py`: `NativeTrainLoader`, :21, and the
+full-bag `NativeRaggedLoader`, :233).
 
 Per batch it draws the subsample index matrix in the host library
 (`bagio.sample_indices`, one generator draw a batch for its seed) and hands
@@ -14,6 +15,14 @@ right after the asynchronous copy that reads the slot (the batch's
 ``"copied"`` entry; `train/trainer.py` records it); the loader waits on
 that event before it refills the slot, so a copy still in flight is never
 overwritten, whether or not the consumer syncs the host each step.
+
+`NativeRaggedLoader` pads every bag of a batch to the batch's length
+bucket: the library's assembler writes zeros for rows past a bag's length,
+so the batch is one gather of rows [0, t), and the token mask comes from
+the lengths in the bags' headers. Its ring's slots are flat, each sized
+once, at construction, for the largest bucket the headers allow, so no
+slot is ever replaced and ``pinned_bytes`` is all the pinned memory the
+ring holds.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from madeleine_torch.data.datasets import RAGGED_BUCKETS, bucket_of
 from madeleine_torch.native import bagio
 from madeleine_torch.utils.device import resolve_device
 
@@ -38,8 +48,10 @@ class NativeTrainLoader:
     is named) decides whether the ring is pinned, and ``plain`` takes the
     library's plain versions (`bagio.sample_indices_plain`,
     `bagio.assemble_batch_plain`) for checks. ``timings`` holds, for each
-    batch of the current epoch, the index draw's, the assembly's and the
-    guard's wait in ms."""
+    batch of the current epoch, the index draw's, the guard's wait and the
+    assembly's ms."""
+
+    _FULL_BAGS = False   # sample -1 (every token of a bag) is a subclass's
 
     def __init__(self, csv_path: str, bag_dir: str, modalities: Sequence[str],
                  embedding_size: int, sample: int, batch_size: int, shuffle: bool = True,
@@ -51,9 +63,8 @@ class NativeTrainLoader:
         if process_count > 1 or process_index != 0:
             raise NotImplementedError("multi-process loading: data parallelism is not ported "
                                       "(ROADMAP.md A7)")
-        if sample < 1:
-            raise NotImplementedError(f"sample {sample}: full-bag (ragged) loading is not "
-                                      "ported (ROADMAP.md A6)")
+        if sample < 1 and not self._FULL_BAGS:
+            raise ValueError(f"sample {sample}: full bags (sample -1) are NativeRaggedLoader's")
         if out_dtype not in bagio.OUT_DTYPES:
             raise ValueError(f"out_dtype {out_dtype!r}: one of {sorted(bagio.OUT_DTYPES)}")
         with open(csv_path, newline="") as f:
@@ -101,13 +112,25 @@ class NativeTrainLoader:
         # the ring: batch k is assembled into slot k % depth, so a consumer
         # (a Prefetcher of depth <= depth - 2) holds earlier batches intact
         depth = max(2, buffer_depth)
-        pin = self.device.type == "cuda"
-        shape = (batch_size * len(self.modalities), sample, self.d)
-        self._ring = [torch.zeros(shape, dtype=bagio.OUT_DTYPES[out_dtype], pin_memory=pin)
-                      for _ in range(depth)]
-        self._events = [torch.cuda.Event() if pin else None for _ in range(depth)]
+        self._pin = self.device.type == "cuda"
+        numel = batch_size * len(self.modalities) * self._slot_tokens() * self.d
+        self._ring = [self._new_slot(numel) for _ in range(depth)]
+        self._events = [torch.cuda.Event() if self._pin else None for _ in range(depth)]
         self._slot = 0
         self.timings: List[Dict[str, float]] = []
+
+    def _slot_tokens(self) -> int:
+        """Tokens per bag that a ring slot holds."""
+        return self.sample
+
+    def _new_slot(self, numel: int) -> torch.Tensor:
+        """A flat ring slot of `numel` elements, pinned when the loader feeds the card."""
+        return torch.zeros(numel, dtype=bagio.OUT_DTYPES[self.out_dtype], pin_memory=self._pin)
+
+    @property
+    def pinned_bytes(self) -> int:
+        """Bytes of pinned host memory the ring holds (0 for a CPU loader)."""
+        return sum(x.numel() * x.element_size() for x in self._ring) if self._pin else 0
 
     def __len__(self) -> int:
         n, bs = len(self.rows), self.batch_size
@@ -141,13 +164,26 @@ class NativeTrainLoader:
         draw = bagio.sample_indices_plain if self.plain else bagio.sample_indices
         return draw(int(self.rng.integers(0, 2 ** 63)), n_rows, self.sample)
 
-    def _fill(self, slot: int, readers, indices: np.ndarray) -> torch.Tensor:
-        """Assemble into ring slot `slot` once its last copy has completed."""
-        buf = self._ring[slot]
+    def _assemble(self, readers, indices: np.ndarray, t0: float):
+        """(the batch [n_tasks, t, d] of `indices`, its slot's event): assembled
+        into the first n_tasks * t * d elements of the ring's next slot once
+        that slot's last copy to the card has completed. Appends the batch's
+        timings, the draw's from t0."""
+        t1 = time.perf_counter()
+        slot, event = self._slot, self._events[self._slot]
+        self._slot = (slot + 1) % len(self._ring)
+        if event is not None:
+            event.synchronize()   # the slot's last copy to the card has completed
+        t2 = time.perf_counter()
+        n_tasks, t = indices.shape
+        buf = self._ring[slot][:n_tasks * t * self.d].view(n_tasks, t, self.d)
         if self.plain:
-            buf.copy_(bagio.assemble_batch_plain(readers, indices, self.d, buf.dtype).view_as(buf))
-            return buf
-        return bagio.assemble_batch(readers, indices, self.d, buf, n_threads=self.n_threads)
+            buf.copy_(bagio.assemble_batch_plain(readers, indices, self.d, buf.dtype))
+        else:
+            bagio.assemble_batch(readers, indices, self.d, buf, n_threads=self.n_threads)
+        self.timings.append({"draw_ms": (t1 - t0) * 1e3, "guard_wait_ms": (t2 - t1) * 1e3,
+                             "assemble_ms": (time.perf_counter() - t2) * 1e3})
+        return buf, event
 
     def __iter__(self) -> Iterator[Dict]:
         order = np.arange(len(self.rows))
@@ -165,17 +201,7 @@ class NativeTrainLoader:
             mask = np.arange(bs) < n_valid
             readers = [self.readers[i][m] for i in sel for m in range(n_mod)]
             t0 = time.perf_counter()
-            indices = self._batch_indices(sel)
-            t1 = time.perf_counter()
-            slot, event = self._slot, self._events[self._slot]
-            self._slot = (slot + 1) % len(self._ring)
-            if event is not None:
-                event.synchronize()   # the slot's last copy to the card has completed
-            t2 = time.perf_counter()
-            feats = self._fill(slot, readers, indices)
-            t3 = time.perf_counter()
-            self.timings.append({"draw_ms": (t1 - t0) * 1e3, "guard_wait_ms": (t2 - t1) * 1e3,
-                                 "assemble_ms": (t3 - t2) * 1e3})
+            feats, event = self._assemble(readers, self._batch_indices(sel), t0)
             labels = self.labels[sel].copy()
             labels[~mask] = 0.0
             yield {"feats": feats.view(bs, n_mod, t, self.d), "modality_labels": labels,
@@ -188,3 +214,75 @@ class NativeTrainLoader:
             for r in case:
                 if r is not None:
                     r.close()
+
+
+class NativeRaggedLoader(NativeTrainLoader):
+    """Full-bag (ragged) batches from ``.bag`` files (`madeleine_tpu/native/
+    dataset.py:233-320`): ``{"feats": [bs, n_mod, t, d] tensor (a view of a
+    ring slot), "modality_labels", "token_mask": [bs, n_mod, t] bool,
+    "sample_mask", "slide_ids": the valid cases', "copied"}``. The bucket t
+    is the smallest of ``buckets`` that holds the batch's longest bag, read
+    from the bags' headers (capped at ``max_tokens`` when set; every capped
+    bag counted in ``truncation_count``; buckets grow past the top
+    otherwise); a missing stain is an all-masked bag. Every ring slot holds
+    a batch of the largest bucket of the cohort. The arguments are
+    `NativeTrainLoader`'s with ``sample`` -1; ``timings``' ``draw_ms`` is the
+    index matrix's build."""
+
+    _FULL_BAGS = True
+
+    def __init__(self, *args, buckets: Sequence[int] = RAGGED_BUCKETS,
+                 max_tokens: Optional[int] = None, **kw):
+        kw.setdefault("sample", -1)
+        self.buckets = sorted(buckets)
+        self.max_tokens = max_tokens
+        self.truncation_count = 0
+        super().__init__(*args, **kw)
+
+    def _slot_tokens(self) -> int:
+        """The largest bucket a batch can take, from the bags' headers."""
+        longest = max((r.n_rows for case in self.readers for r in case if r is not None),
+                      default=1)
+        if self.max_tokens is not None:
+            longest = min(longest, self.max_tokens)
+        return bucket_of(longest, self.buckets)
+
+    def _cap(self, n: int) -> int:
+        if self.max_tokens is not None and n > self.max_tokens:
+            self.truncation_count += 1
+            return self.max_tokens
+        return n
+
+    def __iter__(self) -> Iterator[Dict]:
+        order = np.arange(len(self.rows))
+        if self.shuffle:
+            self.rng.shuffle(order)
+        bs, n_mod = self.batch_size, len(self.modalities)
+        self.timings = []
+        for start in range(0, len(order), bs):
+            sel = order[start:start + bs]
+            n_valid = len(sel)
+            if n_valid < bs:
+                if not self.pad_final:
+                    break
+                sel = np.concatenate([sel, np.repeat(sel[:1], bs - n_valid)])
+            # the bucket from the headers alone (no row is read)
+            lengths = [0 if r is None else self._cap(r.n_rows)
+                       for i in sel for r in self.readers[i]]
+            t = bucket_of(max(lengths) if lengths else 1, self.buckets)
+            mask = np.arange(bs) < n_valid
+            readers = [self.readers[i][m] for i in sel for m in range(n_mod)]
+            cap_t = t if self.max_tokens is None else min(self.max_tokens, t)
+            lengths = np.asarray([0 if r is None else min(r.n_rows, cap_t) for r in readers],
+                                 np.int64)
+            t0 = time.perf_counter()
+            indices = np.ascontiguousarray(np.broadcast_to(np.arange(t, dtype=np.int64),
+                                                           (len(readers), t)))
+            feats, event = self._assemble(readers, indices, t0)
+            labels = self.labels[sel].copy()
+            labels[~mask] = 0.0
+            yield {"feats": feats.view(bs, n_mod, t, self.d), "modality_labels": labels,
+                   "token_mask": (np.arange(t)[None, :] < lengths[:, None]).reshape(bs, n_mod, t),
+                   "sample_mask": mask,
+                   "slide_ids": [str(self.rows[i]["slide_id"]) for i, v in zip(sel, mask) if v],
+                   "copied": event}

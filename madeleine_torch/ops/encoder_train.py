@@ -1,7 +1,7 @@
 """Whole-encoder training op: kernel K6 (forward) and K7 (backward), bf16.
 
 Replaces `madeleine_tpu/ops/encoder_train.py` (`_fwd_kernel`, `_bwd_kernel`,
-the save_acts route, n_views 1 and 3, need_dx off and on). Per token row of x:
+both save_acts routes, n_views 1 and 3, need_dx off and on). Per token row of x:
 
     3 x [Linear -> LayerNorm -> GELU (exact erf) -> dropout(pre_rate)] -> y32
     tok = y Wt^T + bt
@@ -15,9 +15,16 @@ the save_acts route, n_views 1 and 3, need_dx off and on). Per token row of x:
 
 with bf16 operands, f32 accumulation and f32 bias / LN / GELU; each layer's
 output is rounded to bf16 before the next product, the pool sums f32 y32.
-The forward saves u1, u2, u3 (normalised LN inputs), a_pre, b_pre (bf16)
-and the three LN rstd (f32); the backward rebuilds every activation from
-them elementwise and never recomputes a forward product. With views it
+On the save route the forward saves u1, u2, u3 (normalised LN inputs),
+a_pre, b_pre (bf16) and the three LN rstd (f32), and the backward rebuilds
+every activation from them elementwise. On the recompute route (save_acts
+off, JAX's `_recompute_stack`, encoder_train.py:128-141) the forward keeps
+none of them and the backward first recomputes them from (x, seed) with
+the forward's own code (K6's device code inside K7 on the card, one
+function in the plain versions), so both routes give the same gradients
+bit for bit. `resolve_save_acts` picks the route as JAX's
+`_resolve_save_acts` does (:84-115): a budget of ACT_BUDGET_BYTES for the
+call's saves, and on the card a guard that counts the memory left. With views it
 gives (pooled, m, s) per view, and the backward sums the views' terms into
 the cotangent of y and of the logits (encoder_train.py:341-356, 651-659). A
 view with no unmasked token (possible only with a token mask, or t = 1)
@@ -43,6 +50,7 @@ its gate product's epilogue, for which the wrapper hands it [Wa; Wb] and
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -58,6 +66,8 @@ from madeleine_torch.ops.linear_tok import linear_tok_fwd_plain, tok_bwd_plain
 
 fwd_launches = 0   # K6 launches (one per wrapper call on a CUDA tensor)
 bwd_launches = 0   # K7 launches
+fwd_nosave_launches = 0    # of K6's launches, those that kept no residuals
+bwd_recompute_launches = 0   # of K7's launches, those on the recompute route (B1c)
 
 PRE_RATE = pa.RATE     # ref: Model.py:354,358,362 (read at call time)
 GATE_RATE = gl.RATE    # ref: abmil.py:34-35
@@ -66,6 +76,49 @@ W_KEYS = ("w1", "b1", "s1", "t1", "w2", "b2", "s2", "t2", "w3", "b3", "s3", "t3"
           "wa", "ba", "wb", "bb", "wc", "bc", "wt", "bt")
 MATS = ("w1", "w2", "w3", "wa", "wb", "wt")
 SAVED = ("u1", "u2", "u3", "ap", "bp", "rstd")
+
+# The saves of one call (u1 u2 u3 a_pre b_pre, rstd) may take this many
+# bytes on the save route (JAX encoder_train.py:66-67, read at import, as
+# there); past it the call takes the recompute route. 10 GiB by default.
+ACT_BUDGET_BYTES = int(os.environ.get("MADELEINE_ENCODER_ACT_BUDGET", str(10 * 1024 ** 3)))
+NO_SAVE_VAR = "MADELEINE_ENCODER_NO_SAVE_ACTS"   # any non-empty value: always recompute
+GUARD_MARGIN = 2 * 1024 ** 3
+
+
+def _device_hbm_limit(device=None) -> Optional[int]:
+    """The bytes a call's saves may still take on the card: the free bytes
+    (`torch.cuda.mem_get_info`) plus the caching allocator's reserved but
+    unallocated ones; None on the CPU (no limit, as in JAX). JAX's guard
+    reads the card's whole limit because its modality scan keeps one
+    stain's saves alive at a time; the port keeps every earlier stain's
+    until the backward, so the guard counts what is already allocated. Host
+    reads of the allocator's counters, not of the card's data: no sync."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    return int(free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device))
+
+
+def resolve_save_acts(save_acts: Optional[bool], b: int, t: int, h: int, E: int, nhf2: int,
+                      itemsize: int, x_bytes: int = 0, device=None) -> bool:
+    """The route of one call, by JAX's `_resolve_save_acts`
+    (encoder_train.py:84-115): False whenever MADELEINE_ENCODER_NO_SAVE_ACTS
+    is set, else an explicit save_acts; else True when the saves, b t ((2 h
+    + E + nhf2) itemsize + 12) bytes, fit ACT_BUDGET_BYTES and, where the
+    device has a limit (`_device_hbm_limit`), the saves plus 4 x_bytes fit
+    under it less 2 GiB."""
+    if os.environ.get(NO_SAVE_VAR):
+        return False
+    if save_acts is not None:
+        return bool(save_acts)
+    saved = b * t * ((2 * h + E + nhf2) * itemsize + 3 * 4)
+    if saved > ACT_BUDGET_BYTES:
+        return False
+    limit = _device_hbm_limit(device)
+    if limit:
+        return saved + 4 * x_bytes <= limit - GUARD_MARGIN
+    return True
 
 
 def train_operands(w: Dict[str, torch.Tensor], dtype: torch.dtype) -> Dict[str, torch.Tensor]:
@@ -111,30 +164,43 @@ def _pool_plain(l, y32, nh: int, e: int):
     return pooled.reshape(b, nh * e), m, s
 
 
+def _rows_plain(x, w, seed: int, row_offset: int, pre_rate: float):
+    """The forward's rows up to the residuals: (y32 [b, t, E] f32, a_pre,
+    b_pre [b, t, nh, f] f32, saved: u1 u2 u3 a_pre b_pre in x.dtype and
+    rstd [b, t, 3] f32). The forward and the recompute route's backward
+    both call it, so their residuals are equal bit for bit."""
+    dt = x.dtype
+    b, t, _ = x.shape
+    nh, f, _ = w["wa"].shape
+    rows, toks = prng.site_rows(b, t, row_offset, x.device)
+    _, _, y32, us, rstd = pa.stack_fwd_plain(x, w, seed, rows, toks, pre_rate)
+    a_pre, b_pre = gl.gates_plain(y32.to(dt), w)
+    saved = {"u1": us[0], "u2": us[1], "u3": us[2], "rstd": rstd,
+             "ap": a_pre.reshape(b, t, nh * f).to(dt), "bp": b_pre.reshape(b, t, nh * f).to(dt)}
+    return y32, a_pre, b_pre, saved
+
+
 def encoder_train_fwd_plain(x, bias, w, seed: int, row_offset: int = 0,
                             pre_rate: float = PRE_RATE, gate_rate: float = GATE_RATE,
-                            vb: Optional[torch.Tensor] = None):
+                            vb: Optional[torch.Tensor] = None, save: bool = True):
     """x [b, t, d_in] (compute dtype), bias [b, t] f32 (0 or NEG_INF), w:
     `train_operands`, vb: `view_bias` or None. Returns (pooled [b, E] f32,
     m [b, nh], s [b, nh] (with vb: [b, 3, E], [b, 3, nh], [b, 3, nh]),
-    tok [b, t, d_out] in x.dtype, masked logits l [b, t, nh] f32, saved)."""
+    tok [b, t, d_out] in x.dtype, masked logits l [b, t, nh] f32, saved;
+    None on the recompute route, save False)."""
     dt = x.dtype
     b, t, _ = x.shape
     nh, f, e = w["wa"].shape
-    E = nh * e
     rows, toks = prng.site_rows(b, t, row_offset, x.device)
-    _, _, y32, us, rstd = pa.stack_fwd_plain(x, w, seed, rows, toks, pre_rate)
+    y32, a_pre, b_pre, saved = _rows_plain(x, w, seed, row_offset, pre_rate)
     y = y32.to(dt)
     tok = linear_tok_fwd_plain(y, w["wt"], w["bt"])
-    a_pre, b_pre = gl.gates_plain(y, w)
     ma = gl.gate_masks(seed, rows, toks, nh, f, 0, gate_rate)
     mb = gl.gate_masks(seed, rows, toks, nh, f, 1, gate_rate)
     l = gl.logits_plain(a_pre, b_pre, ma, mb, w) + bias[..., None]
     pools = [_pool_plain(lv, y32, nh, e) for lv in _views(l, vb)]
     pooled, m, s = pools[0] if vb is None else (torch.stack(z, dim=1) for z in zip(*pools))
-    saved = {"u1": us[0], "u2": us[1], "u3": us[2], "rstd": rstd,
-             "ap": a_pre.reshape(b, t, nh * f).to(dt), "bp": b_pre.reshape(b, t, nh * f).to(dt)}
-    return pooled, m, s, tok, l, saved
+    return pooled, m, s, tok, l, saved if save else None
 
 
 @torch.no_grad()
@@ -146,12 +212,15 @@ def encoder_train_bwd_plain(x, l, m, s, g, inner, dtok, saved, w, seed: int,
     341-422, preattn.py::_layer_bwd): g [b, E] f32 the pooled cotangent,
     inner [b, nh] = per-head g . pooled, dtok [b, t, d_out] in x.dtype; with
     vb, g [b, 3, E] and inner, m, s [b, 3, nh], the views' terms summed.
-    Returns {key of W_KEYS: f32 gradient}, plus "x": dx [b, t, d_in] in
-    x.dtype with need_dx."""
+    saved: the forward's residuals, or None on the recompute route (rebuilt
+    here by the forward's `_rows_plain`). Returns {key of W_KEYS: f32
+    gradient}, plus "x": dx [b, t, d_in] in x.dtype with need_dx."""
     dt = x.dtype
     b, t, _ = x.shape
     nh, f, e = w["wa"].shape
     E = nh * e
+    if saved is None:
+        saved = _rows_plain(x, w, seed, row_offset, pre_rate)[3]
     rows, toks = prng.site_rows(b, t, row_offset, x.device)
     res = pa.stack_residuals([saved["u1"], saved["u2"], saved["u3"]], saved["rstd"], w, seed,
                              rows, toks, pre_rate)
@@ -228,9 +297,10 @@ def _check_shapes(x, w, kernel):
 @torch.no_grad()
 def encoder_train_fwd_cuda(x, bias, w, seed: int, row_offset: int = 0,
                            pre_rate: float = PRE_RATE, gate_rate: float = GATE_RATE,
-                           vb: Optional[torch.Tensor] = None):
-    """Launch K6 on CUDA tensors; returns as `encoder_train_fwd_plain`."""
-    global fwd_launches
+                           vb: Optional[torch.Tensor] = None, save: bool = True):
+    """Launch K6 on CUDA tensors; returns as `encoder_train_fwd_plain`
+    (with save False K6 writes no residuals)."""
+    global fwd_launches, fwd_nosave_launches
     b, t, d_in, hd, nh, e, f, dout = _check_shapes(x, w, "encoder_train_fwd")
     _build.check_operand("encoder_train_fwd", "bias", bias, (b, t), torch.float32, x.device)
     nv = _check_views("encoder_train_fwd", vb, t, x.device)
@@ -245,12 +315,7 @@ def encoder_train_fwd_cuda(x, bias, w, seed: int, row_offset: int = 0,
     s = torch.empty(b, *views, nh, dtype=f32, device=dev)
     tok = torch.empty(b, t, dout, dtype=bf, device=dev)
     l = torch.empty(b, t, nh, dtype=f32, device=dev)
-    saved = {"u1": torch.empty(b, t, hd, dtype=bf, device=dev),
-             "u2": torch.empty(b, t, hd, dtype=bf, device=dev),
-             "u3": torch.empty(b, t, E, dtype=bf, device=dev),
-             "ap": torch.empty(b, t, nh * f, dtype=bf, device=dev),
-             "bp": torch.empty(b, t, nh * f, dtype=bf, device=dev),
-             "rstd": torch.empty(b, t, 3, dtype=f32, device=dev)}
+    saved = _saved_buffers(b, t, hd, E, nh * f, dev) if save else None
     scratch = [torch.empty(M, max(hd, E), dtype=f32, device=dev),    # Z
                torch.empty(M, hd, dtype=bf, device=dev),            # H1
                torch.empty(M, hd, dtype=bf, device=dev),            # H2
@@ -261,13 +326,26 @@ def encoder_train_fwd_cuda(x, bias, w, seed: int, row_offset: int = 0,
                torch.empty(b, ntiles, nv, E, dtype=f32, device=dev)]    # part_w
     tensors = [x, bias, w["w1"], w["b1"], w["s1"], w["t1"], w["w2"], w["b2"], w["s2"],
                w["t2"], w["w3"], w["b3"], w["s3"], w["t3"], wab, bab, w["wc"], w["bc"],
-               w["wt"], w["bt"], pooled, m, s, tok, l, *(saved[k] for k in SAVED), *scratch, vb]
+               w["wt"], w["bt"], pooled, m, s, tok, l,
+               *(saved[k] if save else None for k in SAVED), *scratch, vb]
     dims, scales = prng.kernel_args((b, t, d_in, hd, nh, e, f, dout), seed, row_offset,
                                     pre_rate, gate_rate)
     _build.call_ptrs("encoder_train_fwd", "encoder_train_forward", tensors, dims + [nv], scales,
                      dev)
     fwd_launches += 1
+    fwd_nosave_launches += not save
     return pooled, m, s, tok, l, saved
+
+
+def _saved_buffers(b: int, t: int, hd: int, E: int, nhf: int, dev) -> Dict[str, torch.Tensor]:
+    """Uninitialised residual tensors of one call, SAVED's shapes."""
+    bf = torch.bfloat16
+    return {"u1": torch.empty(b, t, hd, dtype=bf, device=dev),
+            "u2": torch.empty(b, t, hd, dtype=bf, device=dev),
+            "u3": torch.empty(b, t, E, dtype=bf, device=dev),
+            "ap": torch.empty(b, t, nhf, dtype=bf, device=dev),
+            "bp": torch.empty(b, t, nhf, dtype=bf, device=dev),
+            "rstd": torch.empty(b, t, 3, dtype=torch.float32, device=dev)}
 
 
 @torch.no_grad()
@@ -275,14 +353,21 @@ def encoder_train_bwd_cuda(x, l, m, s, g, inner, dtok, saved, w, seed: int,
                            row_offset: int = 0, pre_rate: float = PRE_RATE,
                            gate_rate: float = GATE_RATE, need_dx: bool = False,
                            vb: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-    """Launch K7 on CUDA tensors; returns as `encoder_train_bwd_plain`."""
-    global bwd_launches
+    """Launch K7 on CUDA tensors; returns as `encoder_train_bwd_plain`.
+    With saved None, K7's recompute route: the residuals are rebuilt on the
+    card into buffers that live for this call only (K6's device code, so the
+    gradients equal the save route's bit for bit); its f32 scratch reuses
+    DY's bytes ([M, E] f32, E = nh e >= hidden = e)."""
+    global bwd_launches, bwd_recompute_launches
     b, t, d_in, hd, nh, e, f, dout = _check_shapes(x, w, "encoder_train_bwd")
     dev, f32, bf = x.device, torch.float32, torch.bfloat16
     M, E = b * t, nh * e
     kname = "encoder_train_bwd"
     nv = _check_views(kname, vb, t, dev)
     views = () if nv == 1 else (nv,)
+    recompute = saved is None
+    if recompute:
+        saved = _saved_buffers(b, t, hd, E, nh * f, dev)
     for name, ten, shape, dtype in (("l", l, (b, t, nh), f32), ("m", m, (b, *views, nh), f32),
                                     ("s", s, (b, *views, nh), f32),
                                     ("g", g, (b, *views, E), f32),
@@ -318,11 +403,16 @@ def encoder_train_bwd_cuda(x, l, m, s, g, inner, dtok, saved, w, seed: int,
                torch.empty(ws[0], dtype=f32, device=dev),           # split-K partials
                torch.empty(ws[1], dtype=f32, device=dev)]           # column partials
     dx = torch.empty(b, t, d_in, dtype=bf, device=dev) if need_dx else None
+    # the recompute route also reads the layer biases and K6's permuted gates
+    fwd_only = ([w["b1"], w["b2"], w["b3"], *permute_gates(w)] if recompute
+                else [None] * 5)
     tensors = [x, l, m, s, g, inner, dtok, *(saved[k] for k in SAVED),
                w["w1"], w["s1"], w["t1"], w["w2"], w["s2"], w["t2"], w["w3"], w["s3"],
-               w["t3"], wab, w["wc"], w["wt"], *out.values(), *scratch, dx, vb]
-    _build.call_ptrs(kname, "encoder_train_backward", tensors, dims + [nv], scales, dev)
+               w["t3"], wab, w["wc"], w["wt"], *out.values(), *scratch, dx, vb, *fwd_only]
+    _build.call_ptrs(kname, "encoder_train_backward", tensors, dims + [nv, int(recompute)],
+                     scales, dev)
     bwd_launches += 1
+    bwd_recompute_launches += recompute
     wab_g, bab_g = out.pop("wab"), out.pop("bab")
     out.update(wa=wab_g[:, :f], wb=wab_g[:, f:], ba=bab_g[:, 0], bb=bab_g[:, 1])
     if need_dx:
@@ -335,21 +425,24 @@ def encoder_train_bwd_cuda(x, l, m, s, g, inner, dtok, saved, w, seed: int,
 # ---------------------------------------------------------------------------
 
 class EncoderTrain(torch.autograd.Function):
-    """(x, bias, vb, seed, row_offset, pre_rate, gate_rate, need_dx,
+    """(x, bias, vb, seed, row_offset, pre_rate, gate_rate, need_dx, save,
     *operands in W_KEYS order) -> (pooled [b, nh, e] in x.dtype ([b, 3, nh,
     e] with a view bias vb), tok [b, t, d_out]). x gets a gradient only
     with need_dx (the input carries a learned component: the stain-encoding
-    columns)."""
+    columns). With save False (the recompute route) the graph keeps only x,
+    the weights and the forward's small outputs (l, m, s, pooled; JAX's
+    `res`, encoder_train.py:641), and the backward rebuilds the residuals."""
 
     @staticmethod
-    def forward(ctx, x, bias, vb, seed, row_offset, pre_rate, gate_rate, need_dx, *ws):
+    def forward(ctx, x, bias, vb, seed, row_offset, pre_rate, gate_rate, need_dx, save, *ws):
         w = dict(zip(W_KEYS, ws))
         fwd = encoder_train_fwd_cuda if x.is_cuda else encoder_train_fwd_plain
         pooled32, m, s, tok, l, saved = fwd(x, bias, w, seed, row_offset, pre_rate, gate_rate,
-                                            vb=vb)
+                                            vb=vb, save=save)
         ctx.args = (seed, row_offset, pre_rate, gate_rate)
-        ctx.need_dx = need_dx
-        ctx.save_for_backward(x, l, m, s, pooled32, vb, *(saved[k] for k in SAVED), *ws)
+        ctx.need_dx, ctx.save = need_dx, save
+        kept = [saved[k] for k in SAVED] if save else []
+        ctx.save_for_backward(x, l, m, s, pooled32, vb, *kept, *ws)
         nh, _, e = w["wa"].shape
         views = () if vb is None else (3,)
         return pooled32.to(x.dtype).reshape(x.shape[0], *views, nh, e), tok
@@ -357,8 +450,9 @@ class EncoderTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dpooled, dtok):
         x, l, m, s, pooled32, vb, *rest = ctx.saved_tensors
-        saved = dict(zip(SAVED, rest[:len(SAVED)]))
-        w = dict(zip(W_KEYS, rest[len(SAVED):]))
+        n_saved = len(SAVED) if ctx.save else 0
+        saved = dict(zip(SAVED, rest[:n_saved])) if ctx.save else None
+        w = dict(zip(W_KEYS, rest[n_saved:]))
         b, t, _ = x.shape
         nh, _, e = w["wa"].shape
         dout = w["wt"].shape[0]
@@ -370,7 +464,7 @@ class EncoderTrain(torch.autograd.Function):
                 else dtok.to(x.dtype).contiguous())
         bwd = encoder_train_bwd_cuda if x.is_cuda else encoder_train_bwd_plain
         grads = bwd(x, l, m, s, g, inner, dtok, saved, w, *ctx.args, need_dx=ctx.need_dx, vb=vb)
-        return (grads.get("x"),) + (None,) * 7 + tuple(grads[k].to(w[k].dtype)
+        return (grads.get("x"),) + (None,) * 8 + tuple(grads[k].to(w[k].dtype)
                                                         for k in W_KEYS)
 
 
@@ -382,7 +476,7 @@ def token_mask_bias(mask, b: int, t: int, device) -> torch.Tensor:
 def encoder_train(x: torch.Tensor, mask, w: Dict[str, torch.Tensor], seed: int,
                   pre_rate: Optional[float] = None, gate_rate: Optional[float] = None,
                   row_offset: int = 0, need_dx: bool = False,
-                  half_mask: Optional[torch.Tensor] = None
+                  half_mask: Optional[torch.Tensor] = None, save_acts: Optional[bool] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused training-mode encoder (ref semantics Model.py:110-146 +
     Model.py:350-417 + abmil.py:34-63). x [b, t, d_in] in the compute dtype,
@@ -390,14 +484,20 @@ def encoder_train(x: torch.Tensor, mask, w: Dict[str, torch.Tensor], seed: int,
     through them), seed: int. A rate left None is this module's PRE_RATE /
     GATE_RATE, read at call time. need_dx: x gets a gradient (JAX's static
     need_dx, madeleine.py:204). half_mask: [t] bool, the half-bag split
-    shared by every row (n_views=3). Returns (pooled [b, nh, e], or [b, 3,
-    nh, e] with half_mask: the whole bag, half 1, half 2; tok [b, t,
-    d_out]), both in x.dtype."""
-    b, t, _ = x.shape
+    shared by every row (n_views=3). save_acts: True the save route, False
+    the recompute route, None `resolve_save_acts` by shape and memory (JAX's
+    static save_acts). Returns (pooled [b, nh, e], or [b, 3, nh, e] with
+    half_mask: the whole bag, half 1, half 2; tok [b, t, d_out]), both in
+    x.dtype."""
+    b, t, d_in = x.shape
     pre_rate = PRE_RATE if pre_rate is None else pre_rate
     gate_rate = GATE_RATE if gate_rate is None else gate_rate
+    nh, f, e = w["wa"].shape
+    save = resolve_save_acts(save_acts, b, t, w["w1"].shape[0], nh * e, 2 * nh * f,
+                             x.element_size(), x_bytes=x.numel() * x.element_size(),
+                             device=x.device)
     bias = token_mask_bias(mask, b, t, x.device)
     vb = view_bias(half_mask, t, x.device)
     return EncoderTrain.apply(x.contiguous(), bias, vb, int(seed), int(row_offset),
-                              float(pre_rate), float(gate_rate), bool(need_dx),
+                              float(pre_rate), float(gate_rate), bool(need_dx), save,
                               *(w[k] for k in W_KEYS))

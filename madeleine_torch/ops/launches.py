@@ -23,6 +23,9 @@ COUNTERS = {
     "attn_pool_bwd": (attn_pool, "pool_bwd_launches"),      # 5
     "encoder_train_fwd": (encoder_train, "fwd_launches"),   # K6
     "encoder_train_bwd": (encoder_train, "bwd_launches"),   # K7
+    # the save-off route of K6 and the recompute route of K7, counted also above
+    "encoder_train_fwd_nosave": (encoder_train, "fwd_nosave_launches"),
+    "encoder_train_bwd_recompute": (encoder_train, "bwd_recompute_launches"),
     "ipot_fwd": (ipot, "fwd_launches"),                     # K8, cluster route
     "ipot_bwd": (ipot, "bwd_launches"),                     # K9, cluster route
     "gw_gamma": (ipot, "gw_launches"),                      # K10, cluster route

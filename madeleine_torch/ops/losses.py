@@ -15,9 +15,12 @@ madeleine/utils/loss.py):
   takes the JAX package's default route: the glue around the transport
   kernels (threshold-ReLU, the Cst outer sum, the final GW trace) runs
   through ops/got_glue.py (K11-K14 on the card); `got_loss` and
-  `gw_distance` keep the plain chain, as the JAX package's do. The ragged
-  per-side subsample (`masked_subsample`, a `token_mask`) and data
-  parallelism (`axis_name`) are not ported (ROADMAP.md A6, A7);
+  `gw_distance` keep the plain chain, as the JAX package's do;
+- `masked_subsample` (:258-289): the ragged batches' per-side GOT token
+  draw, a Gumbel top-k over each bag's valid tokens, its noise from
+  `gumbel_noise` (Philox keyed by the step's seed, a stream and the global
+  row and token, so it does not change when the bucket grows). Data
+  parallelism (`axis_name`) is not ported (ROADMAP.md A7);
 - the intra-modality loss selector (:450-458, ref :138-156): `mse_loss`
   for the two `reconstruct_*` modes (the mask ignored), `info_nce` at the
   configured temperature for every other mode.
@@ -34,6 +37,7 @@ from typing import Callable, Optional
 
 import torch
 
+from madeleine_torch.ops import prng
 from madeleine_torch.ops.got_glue import cst_plain, gw_trace, gw_trace_plain, threshold_build
 from madeleine_torch.ops.ipot import gw_gamma, ipot_plan
 
@@ -197,6 +201,43 @@ def got_loss_multi(v: torch.Tensor, q: torch.Tensor, *,
     if sample_mask is not None:
         total = torch.where(sample_mask.reshape(S * b), total, 0.0)
     return total.reshape(S, b).sum(1)
+
+
+def gumbel_noise(seed: int, key: int, streams: torch.Tensor, rows: torch.Tensor, t: int
+                 ) -> torch.Tensor:
+    """Standard Gumbel noise f32 [*streams.shape, t], -log(-log(u)): u from
+    word 0 of Philox4x32-10 with key (seed, key) and counter (token, global
+    row, stream, 0), its top 24 bits plus one half over 2**24 (in (0, 1)).
+    streams, rows: int tensors of one shape. A token's draw depends on its
+    index, its row and its stream alone, not on t. Made where `streams`
+    lies; nothing is read back to the host."""
+    dev = streams.device
+    shape = (*streams.shape, t)
+    c0 = torch.arange(t, dtype=torch.int64, device=dev).expand(shape)
+    c1 = (rows.to(torch.int64) & prng.MASK32)[..., None].expand(shape)
+    c2 = (streams.to(torch.int64) & prng.MASK32)[..., None].expand(shape)
+    word = prng.philox4x32(c0, c1, c2, torch.zeros_like(c0), int(seed) & prng.MASK32,
+                           int(key) & prng.MASK32)[0]
+    u = ((word >> 8).float() + 0.5) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u))
+
+
+def masked_subsample(x: torch.Tensor, mask: torch.Tensor, subsample: int,
+                     gumbel: torch.Tensor) -> torch.Tensor:
+    """x [b, n, d], mask [b, n] bool, gumbel [b, n] noise -> [b, subsample, d]:
+    per bag the top `subsample` scores of the noise over its valid tokens
+    (padding scores _NEG_INF), then idx[pos % max(n_valid, 1)] (JAX
+    losses.py:258-289). A bag with n_valid >= subsample gives a subset without
+    repeats; a shorter bag tiles a random permutation of its valid tokens;
+    an empty bag gives token 0 (JAX's top_k breaks its ties by index).
+    topk sorts on the device: nothing is read back to the host."""
+    scores = torch.where(mask, gumbel.float(), _NEG_INF)
+    idx = torch.topk(scores, subsample, dim=1, sorted=True).indices          # valid first
+    n_valid = mask.sum(dim=1, keepdim=True)
+    pos = torch.arange(subsample, device=x.device)[None, :]
+    idx = torch.gather(idx, 1, pos % n_valid.clamp_min(1))
+    idx = torch.where(n_valid > 0, idx, torch.zeros_like(idx))
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
 
 # ---------------------------------------------------------------------------

@@ -8,9 +8,12 @@ ref: madeleine/utils/trainer.py:20-145):
   embeddings, equal to the reference's boolean subsetting (trainer.py:25-33);
 - with `local_loss="got"`, GOT between the H&E tokens and each stain's
   tokens, all stain pairs in one batched `got_loss_multi` (kernels K8-K10 on
-  the card): per stain pair one shared draw of `got_subsample` token indices
-  (the JAX package's reference-style branch, trainer.py:136-147) from a
-  generator keyed by the step's seed on a stream of its own;
+  the card): without a token mask, per stain pair one shared draw of
+  `got_subsample` token indices (the JAX package's reference-style branch,
+  trainer.py:136-147) from a generator keyed by the step's seed on a stream
+  of its own; with the ragged batches' token mask, a draw per side and bag
+  over its valid tokens (`losses.masked_subsample`, trainer.py:129-150), the
+  Gumbel noise keyed by the step's seed, the side and the global row;
 - with `intra_modality_loss="info-nce"` (n_views=3), per stain the intra
   loss (`losses.make_intra_loss` of `intra_modality_mode_wsi`) between the
   two half-bag views of the H&E and between those of the stain
@@ -42,9 +45,9 @@ returns the input gradient, and the code table ([n_mod, 32],
 decay, as optax.adamw treats it in the JAX package. GOT through ops/ipot.py
 and ops/got_glue.py (K8-K14). A batch's feats arrive as f32 or bf16 (pinned
 by the caller's loader on the card) and are copied to the device
-asynchronously, then cast there; its small arrays are pinned here before
-their copy. GOT with ragged token masks (per-side subsampling, ROADMAP.md
-A6) and data parallelism are not ported.
+asynchronously, then cast there; its small arrays, the token mask of a
+ragged batch among them, are pinned here before their copy. Data
+parallelism is not ported (ROADMAP.md A7).
 """
 
 from __future__ import annotations
@@ -78,27 +81,42 @@ def got_generator(seed: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(key)
 
 
+def got_gumbel(seed: int, n_mod: int, bs: int, t: int, device) -> torch.Tensor:
+    """The Gumbel noise [n_mod - 1, 2, bs, t] of a ragged step's GOT draws:
+    stain pair s, side 0 (the H&E tokens) or 1 (the stain's), from
+    `losses.gumbel_noise` keyed by (seed, GOT_STREAM) on stream 2 s + side
+    and the batch row (its global row: one process). A token's noise does
+    not depend on t, so padding a batch to a larger bucket draws the same
+    subsample."""
+    streams = torch.arange(2 * (n_mod - 1), device=device).reshape(n_mod - 1, 2, 1)
+    streams, rows = torch.broadcast_tensors(streams, torch.arange(bs, device=device))
+    return L.gumbel_noise(seed, GOT_STREAM, streams, rows, t)
+
+
 def compute_losses(cfg: MadeleineConfig, slide_embs: torch.Tensor, token_embs: torch.Tensor,
                    modality_labels: torch.Tensor, sample_mask: Optional[torch.Tensor],
                    generator: Optional[torch.Generator] = None,
                    got_indices: Optional[Sequence[torch.Tensor]] = None,
-                   token_mask: Optional[torch.Tensor] = None
+                   token_mask: Optional[torch.Tensor] = None, seed: Optional[int] = None,
+                   gumbel: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """slide_embs [bs, n_mod, n_views, e] f32, token_embs [bs, n_mod, t, d],
-    modality_labels [bs, n_mod], sample_mask [bs] bool -> (total loss, any
-    usable stain (bool tensor), per-stain valid-case counts).
+    modality_labels [bs, n_mod], sample_mask [bs] bool, token_mask [bs,
+    n_mod, t] bool or None -> (total loss, any usable stain (bool tensor),
+    per-stain valid-case counts).
 
-    GOT subsamples min(cfg.got_subsample, t) tokens per stain pair: the
-    indices are `got_indices[s]` for stain pair s (1..n_mod-1) when given,
-    else `torch.randperm(t, generator=generator)[:sub]`, one draw per pair.
-    The intra loss reads views 1 and 2 (n_views=3)."""
+    GOT subsamples min(cfg.got_subsample, t) tokens per stain pair. Without
+    a token mask: the indices are `got_indices[s]` for stain pair s
+    (1..n_mod-1) when given, else `torch.randperm(t, generator=generator)[:sub]`,
+    one draw shared by both sides of a pair. With one: each side draws
+    from its own bags' valid tokens (`losses.masked_subsample`), on the
+    noise `gumbel` [n_mod - 1, 2, bs, t] when given (the tests hand it
+    JAX's), else `got_gumbel(seed, ...)`. The intra loss reads views 1 and
+    2 (n_views=3)."""
     use_intra = cfg.intra_modality_loss == "info-nce"
     intra = (L.make_intra_loss(cfg.intra_modality_mode_wsi, cfg.temperature) if use_intra
              else None)
     use_got = cfg.local_loss == "got"
-    if use_got and token_mask is not None:
-        raise NotImplementedError("GOT with ragged token masks (per-side masked subsampling) "
-                                  "is not ported (ROADMAP.md A6)")
     n_mod = slide_embs.shape[1]
     dev = slide_embs.device
     he = slide_embs[:, HE_POSITION, WHOLE_VIEW_POSITION]
@@ -113,7 +131,22 @@ def compute_losses(cfg: MadeleineConfig, slide_embs: torch.Tensor, token_embs: t
         stain_labels.append(labels)
 
     got_per_stain = None
-    if use_got:
+    if use_got and token_mask is not None:
+        bs, _, t, _ = token_embs.shape
+        sub = min(cfg.got_subsample, t)
+        if gumbel is None:
+            if seed is None:
+                raise ValueError("GOT on a ragged batch needs a seed or the Gumbel noise")
+            gumbel = got_gumbel(seed, n_mod, bs, t, token_embs.device)
+        vs, qs = [], []
+        for s, stain_idx in enumerate(range(1, n_mod)):   # per side: its own mask and noise
+            vs.append(L.masked_subsample(token_embs[:, HE_POSITION], token_mask[:, HE_POSITION],
+                                         sub, gumbel[s, 0]))
+            qs.append(L.masked_subsample(token_embs[:, stain_idx], token_mask[:, stain_idx],
+                                         sub, gumbel[s, 1]))
+        got_per_stain = L.got_loss_multi(torch.stack(vs), torch.stack(qs),
+                                         sample_mask=torch.stack(stain_labels))
+    elif use_got:
         t = token_embs.shape[2]
         sub = min(cfg.got_subsample, t)
         if got_indices is None:
@@ -170,7 +203,9 @@ class TrainStep:
     schedule: `schedule`, when given, must be that one); `updates` is the
     optimizer's count of applied updates (the schedule's step), a device
     integer. A batch may carry its own half-bag split, ``half_mask`` [t]
-    bool (n_views=3; the tests hand it the JAX package's)."""
+    bool (n_views=3), and a ragged batch, whose ``token_mask`` [bs, n_mod,
+    t] travels to the card with its feats, its GOT noise ``got_gumbel``
+    (`got_gumbel`'s shape); the tests hand them the JAX package's."""
 
     def __init__(self, cfg: MadeleineConfig, model: MADELEINE, optimizer: GatedAdamW,
                  schedule=None):
@@ -210,9 +245,12 @@ class TrainStep:
         self.optimizer.zero_grad(set_to_none=True)
         slide, tok = forward_train(model, feats, mask=token_mask, n_views=self.n_views,
                                    seed=seed, half_mask=batch.get("half_mask"))
-        total, any_flag, metrics = compute_losses(cfg, slide.float(), tok, labels, sample_mask,
-                                                  generator=got_generator(seed, dev),
-                                                  token_mask=token_mask)
+        gumbel = batch.get("got_gumbel")
+        total, any_flag, metrics = compute_losses(
+            cfg, slide.float(), tok, labels, sample_mask,
+            generator=got_generator(seed, dev) if token_mask is None else None,
+            token_mask=token_mask, seed=seed,
+            gumbel=None if gumbel is None else _to_device(gumbel, dev))
         ok = any_flag & torch.isfinite(total)
         if total.requires_grad:
             total.backward()   # always, as JAX's value_and_grad; the update is gated
@@ -253,8 +291,11 @@ def train_loop(cfg: MadeleineConfig, train_step: TrainStep, dataloader: Iterable
     of the epoch's H&E embeddings, {epoch_time, n_steps, n_skipped, steps}).
     ``steps`` holds one record per step: its loss, whether it was skipped,
     ``wait_ms`` (host time blocked on the loader), ``step_ms`` (the step's
-    time on the device stream, CUDA events, or the host clock on the CPU)
-    and the kernel launches it made (host counters).
+    time on the device stream, CUDA events, or the host clock on the CPU),
+    the kernel launches it made (host counters), the batch's token count
+    ``bucket`` and, for a ragged batch whose token mask is on the host, its
+    count of valid tokens ``valid_tokens`` (None otherwise: a mask on the
+    card is not read back).
 
     No step waits for the card. Each step's loss, skip flag, H&E embeddings
     and sample mask are copied to pinned host memory after it on the stream,
@@ -293,7 +334,10 @@ def train_loop(cfg: MadeleineConfig, train_step: TrainStep, dataloader: Iterable
         he, metrics = train_step(batch, step_seed(seed, epoch, b_idx))
         if on_cuda:
             rec["end"].record()
-        sm = batch.get("sample_mask")
+        sm, tm = batch.get("sample_mask"), batch.get("token_mask")
+        rec["bucket"] = int(batch["feats"].shape[2])
+        rec["valid_tokens"] = (None if tm is None or getattr(tm, "is_cuda", False)
+                               else int(np.count_nonzero(np.asarray(tm))))
         rec.update(loss=_host_async(metrics["loss"]), skipped=_host_async(metrics["skipped"]),
                    he=_host_async(he),
                    sample_mask=(np.ones(he.shape[0], bool) if sm is None else _host_async(sm)))

@@ -89,9 +89,6 @@ def config_from_args(args: argparse.Namespace) -> MadeleineConfig:
     if d["mesh_shape"] is not None and d["mesh_shape"] > 1:
         raise NotImplementedError(f"--mesh_shape {d['mesh_shape']}: data parallelism is not "
                                   "ported (ROADMAP.md A7)")
-    if d["n_subsamples"] == -1:
-        raise NotImplementedError("--n_subsamples -1: full-bag (ragged) training is not ported "
-                                  "(ROADMAP.md A6)")
     cfg = MadeleineConfig.from_dict(d)   # finalized
     cfg._extras = {k: d[k] for k in EXTRAS}
     return cfg

@@ -15,7 +15,7 @@ import torch
 from madeleine_tpu.ops import losses as JL
 from madeleine_tpu.train import trainer as jax_trainer
 from madeleine_torch.ops import losses as L
-from madeleine_torch.train.trainer import compute_losses, got_generator
+from madeleine_torch.train.trainer import compute_losses, got_generator, got_gumbel
 from tests.torch_port_helpers import GOLDEN_DIR, configs, to_torch
 
 VALUE_RTOL = 1e-4
@@ -192,7 +192,10 @@ def test_compute_losses_got_matches_jax_with_injected_indices(unfused_glue, loca
 def test_compute_losses_draws_from_the_generator_and_refuses_token_masks():
     """Without indices, each stain pair draws its own index set from the
     generator: the same seed gives the same loss; GOT needs a generator or
-    indices; a token mask with GOT raises naming its ROADMAP item."""
+    indices. With a token mask (a ragged batch) each side draws from its
+    own valid tokens on Gumbel noise keyed by the step's seed: the same
+    seed gives the same loss, the noise handed over gives the seed's loss,
+    another seed another; it needs a seed or the noise."""
     slide, tok, labels, smask = _loss_inputs()
     _, pcfg = configs(local_loss="got", got_subsample=6, temperature=0.1)
     args = (pcfg, to_torch(slide), to_torch(tok), torch.from_numpy(labels),
@@ -207,5 +210,12 @@ def test_compute_losses_draws_from_the_generator_and_refuses_token_masks():
     assert torch.equal(compute_losses(*args, got_indices=idx)[0], a)
     with pytest.raises(ValueError, match="generator"):
         compute_losses(*args)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
-        compute_losses(*args, generator=g, token_mask=torch.ones(5, 3, 12, dtype=torch.bool))
+    tm = torch.arange(12)[None, None, :] < torch.tensor([[[12], [9], [4]]])
+    tm = tm.expand(5, 3, 12)
+    r = compute_losses(*args, token_mask=tm, seed=3)[0]
+    assert torch.isfinite(r) and torch.equal(r, compute_losses(*args, token_mask=tm, seed=3)[0])
+    assert torch.equal(r, compute_losses(*args, token_mask=tm,
+                                         gumbel=got_gumbel(3, 3, 5, 12, "cpu"))[0])
+    assert not torch.equal(r, compute_losses(*args, token_mask=tm, seed=4)[0])
+    with pytest.raises(ValueError, match="seed"):
+        compute_losses(*args, generator=g, token_mask=tm)

@@ -585,6 +585,116 @@ def test_encoder_train_dx_matches_plain(cuda_device):
     assert "x" not in et.encoder_train_bwd_cuda(*args)
 
 
+@pytest.mark.parametrize("need_dx", [False, True])
+def test_encoder_train_recompute_route_equals_save_route(cuda_device, need_dx):
+    """K7's recompute route (saved None: K6's own layer and gate code re-run
+    inside K7) gives the save route's gradients, and dx, bit for bit, at
+    ragged lengths with an empty bag and a partial last tile, real rates
+    and row offset 2; K6 without saves gives the save route's outputs bit
+    for bit; the autograd op takes each route by save_acts (route counters)."""
+    from madeleine_torch.ops import encoder_train as et
+
+    cfg = MadeleineConfig(precision="bfloat16", add_stain_encoding=need_dx).finalize()
+    model = init_madeleine(MADELEINE(cfg), torch.Generator().manual_seed(0)).to(cuda_device)
+    w = _train_operands(model)
+    d_in = w["w1"].shape[1]
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(3, 300, d_in, generator=g).to(cuda_device, torch.bfloat16)
+    mask = (torch.arange(300)[None, :] < torch.tensor([[300], [77], [0]])).to(cuda_device)
+    bias = et.token_mask_bias(mask, 3, 300, cuda_device)
+    fwd = et.encoder_train_fwd_cuda(x, bias, w, 5, 2, 0.1, 0.25)
+    nosave = et.encoder_train_fwd_cuda(x, bias, w, 5, 2, 0.1, 0.25, save=False)
+    assert nosave[5] is None and all(torch.equal(a, b) for a, b in zip(fwd[:5], nosave[:5]))
+    pooled32, m, s, _, l, saved = fwd
+    gp = torch.randn(3, pooled32.shape[1], generator=g).to(cuda_device)
+    dtok = torch.randn(3, 300, 128, generator=g).to(cuda_device, torch.bfloat16)
+    inner = (gp * pooled32).reshape(3, 4, -1).sum(-1)
+    args = [x, l, m, s, gp, inner, dtok, saved, w, 5, 2, 0.1, 0.25]
+    want = et.encoder_train_bwd_cuda(*args, need_dx=need_dx)
+    args[7] = None
+    before = et.bwd_recompute_launches
+    got = et.encoder_train_bwd_cuda(*args, need_dx=need_dx)
+    assert et.bwd_recompute_launches == before + 1
+    assert set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want)
+    with torch.no_grad():
+        plain = et.encoder_train_bwd_plain(*args, need_dx=need_dx)
+    assert all(_rel(got[k].float(), plain[k].float()) <= 1e-2 for k in want if k != "bc")
+    for save_acts, n in ((True, 0), (False, 1)):
+        before = (et.fwd_nosave_launches, et.bwd_recompute_launches)
+        p, t = et.encoder_train(x, mask, {k: v.requires_grad_(True) for k, v in w.items()}, 5,
+                                need_dx=False, save_acts=save_acts)
+        (p.float().sum() + t.float().sum()).backward()
+        assert (et.fwd_nosave_launches, et.bwd_recompute_launches) == (before[0] + n,
+                                                                         before[1] + n)
+
+
+def test_hbm_guard_sends_a_call_to_recompute_before_the_card_fills(cuda_device):
+    """The save_acts gate with `_device_hbm_limit` unmocked: ballast that
+    leaves the free plus reserved-but-unallocated bytes 256 MiB under a
+    [8, 2048] call's saves + 4 x_bytes + 2 GiB makes the gate answer
+    recompute and the autograd call take K6's save-off and K7's recompute
+    routes; the ballast freed without emptying the cache (the card's free
+    bytes still low) is counted again, and the call takes the save route."""
+    from madeleine_torch.ops import encoder_train as et
+
+    cfg = MadeleineConfig(precision="bfloat16").finalize()
+    model = init_madeleine(MADELEINE(cfg), torch.Generator().manual_seed(0)).to(cuda_device)
+    w = _train_operands(model)
+    b, t = 8, 2048
+    nh, f, e = w["wa"].shape
+    h, d_in = w["w1"].shape
+    x = torch.randn(b, t, d_in, generator=torch.Generator().manual_seed(2))
+    x = x.to(cuda_device, torch.bfloat16)
+    mask = (torch.arange(t)[None, :] < torch.arange(1, b + 1)[:, None] * 250).to(cuda_device)
+    x_bytes = x.numel() * 2
+    gate = (b, t, h, nh * e, 2 * nh * f, 2, x_bytes, x.device)
+    need = b * t * ((2 * h + nh * e + 2 * nh * f) * 2 + 12) + 4 * x_bytes + et.GUARD_MARGIN
+
+    def routes():
+        before = (et.fwd_nosave_launches, et.bwd_recompute_launches)
+        p, tok = et.encoder_train(x, mask, {k: v.detach().requires_grad_(True)
+                                            for k, v in w.items()}, 5)
+        (p.float().sum() + tok.float().sum()).backward()
+        return (et.fwd_nosave_launches - before[0], et.bwd_recompute_launches - before[1])
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    lim0 = et._device_hbm_limit(cuda_device)
+    nbytes = (lim0 - need + (256 << 20)) // (2 << 20) * (2 << 20)
+    ballast = torch.empty(nbytes, dtype=torch.uint8, device=cuda_device)
+    lim1 = et._device_hbm_limit(cuda_device)
+    assert abs(lim0 - nbytes - lim1) <= 64 << 20 and lim1 < need
+    assert not et.resolve_save_acts(None, *gate)
+    assert routes() == (1, 1)
+    del ballast
+    torch.cuda.synchronize()
+    assert torch.cuda.mem_get_info(cuda_device)[0] < need
+    assert et._device_hbm_limit(cuda_device) >= need
+    assert et.resolve_save_acts(None, *gate)
+    assert routes() == (0, 0)
+    torch.cuda.empty_cache()
+
+
+def test_masked_subsample_on_the_card_equals_the_cpu(cuda_device):
+    """The GOT draw of a ragged step: masked_subsample on the card with the
+    same noise equals the CPU call, bags longer and shorter than the draw and
+    an empty one; the noise drawn on the card is the CPU's but for the last
+    bits of log (rtol 1e-6)."""
+    from madeleine_torch.ops import losses as L
+    from madeleine_torch.train.trainer import got_gumbel
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(4, 500, 16, generator=gen)
+    mask = torch.arange(500)[None, :] < torch.tensor([[500], [300], [40], [0]])
+    noise = got_gumbel(11, 3, 4, 500, "cpu")
+    torch.testing.assert_close(got_gumbel(11, 3, 4, 500, cuda_device).cpu(), noise,
+                               rtol=1e-6, atol=1e-6)
+    want = L.masked_subsample(x, mask, 256, noise[0, 0])
+    got = L.masked_subsample(x.to(cuda_device), mask.to(cuda_device), 256,
+                             noise[0, 0].to(cuda_device))
+    assert torch.equal(got.cpu(), want)
+
+
 @pytest.mark.parametrize("rates", [(0.0, 0.0), (0.1, 0.25)])
 def test_per_op_kernels_match_plain(cuda_device, rates):
     """Kernels 15-20 (preattn, gated_logits, linear_tok, forward and
@@ -1107,6 +1217,65 @@ def test_native_loader_pinned_ring_matches_plain(cuda_device, tmp_path, out_dtyp
         got["copied"].record()
         assert torch.equal(got["feats"].view(as_bits), want["feats"].view(as_bits))
         assert torch.equal(dev.cpu().view(as_bits), want["feats"].view(as_bits))
+
+
+def test_native_ragged_ring_refills_a_slot_after_its_copy(cuda_device, tmp_path):
+    """NativeRaggedLoader, a ring of 2 pinned slots, batches of buckets 64,
+    64 and 256: batch 2 refills slot 0 only after batch 0's copy, queued
+    behind about 0.3 s of device sleep, has completed (the guard's wait),
+    the copy that landed is batch 0's, and every batch equals the plain
+    route's bit for bit; both slots are sized at construction for bucket
+    256, the cohort's largest, and never replaced, so the ring's pinned
+    bytes are two such slots."""
+    import csv
+    import os
+
+    from madeleine_torch.config import MODALITY_DICTS
+    from madeleine_torch.native.bagio import write_bag_file
+    from madeleine_torch.native.dataset import NativeRaggedLoader
+
+    stains = MODALITY_DICTS["ACROBAT"]
+    rng = np.random.default_rng(12)
+    bags = os.path.join(str(tmp_path), "bags")
+    os.makedirs(bags)
+    rows = []
+    for i in range(12):
+        for s in stains:
+            write_bag_file(os.path.join(bags, f"case{i}_{s}.bag"),
+                           rng.standard_normal((40 if i < 8 else 250, 64), dtype=np.float32))
+        rows.append({"slide_id": f"case{i}", **{s: 1 for s in stains}, "split": "train"})
+    csv_path = os.path.join(str(tmp_path), "cohort.csv")
+    with open(csv_path, "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=list(rows[0]))
+        writer.writeheader()
+        writer.writerows(rows)
+    kw = dict(embedding_size=64, batch_size=4, seed=3, buffer_depth=2, out_dtype="bfloat16",
+              buckets=(64, 256), shuffle=False)
+    loader = NativeRaggedLoader(csv_path, bags, stains, device=cuda_device, **kw)
+    slots = [x.data_ptr() for x in loader._ring]
+    assert loader.pinned_bytes == 2 * 4 * 5 * 256 * 64 * 2
+    plain = [b["feats"].clone() for b in NativeRaggedLoader(csv_path, bags, stains,
+                                                             device="cpu", plain=True, **kw)]
+    batches = iter(loader)
+    b0 = next(batches)
+    want = b0["feats"].clone()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(600_000_000)
+    dev = b0["feats"].to(cuda_device, non_blocking=True)
+    b0["copied"].record()
+    b1 = next(batches)
+    assert not b0["copied"].query()       # the copy is still queued
+    b2 = next(batches)                    # slot 0 again, at bucket 256
+    assert b0["copied"].query()
+    assert [b["feats"].shape[2] for b in (b0, b1, b2)] == [64, 64, 256]
+    assert loader.timings[2]["guard_wait_ms"] > 50, loader.timings
+    assert b2["feats"].is_pinned() and b2["feats"].data_ptr() == slots[0]
+    assert [x.data_ptr() for x in loader._ring] == slots
+    assert loader.pinned_bytes == 2 * 4 * 5 * 256 * 64 * 2
+    torch.cuda.synchronize()
+    assert torch.equal(dev.cpu().view(torch.int16), want.view(torch.int16))
+    for got, ref in zip((b1, b2), plain[1:]):
+        assert torch.equal(got["feats"].view(torch.int16), ref.view(torch.int16))
 
 
 def test_native_loader_waits_for_the_slot_copy(cuda_device, tmp_path):

@@ -23,7 +23,7 @@ from madeleine_torch.cli import convert_bags
 from madeleine_torch.config import MODALITY_DICTS
 from madeleine_torch.data.datasets import Prefetcher
 from madeleine_torch.native import bagio as B
-from madeleine_torch.native.dataset import NativeTrainLoader
+from madeleine_torch.native.dataset import NativeRaggedLoader, NativeTrainLoader
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STAINS = MODALITY_DICTS["ACROBAT"]
@@ -224,6 +224,55 @@ def test_native_train_loader_equals_jax(tmp_path, case, per_case_seed, capsys):
         loader.close()
 
 
+def _ragged_snapshot(batch):
+    return dict(_snapshot(batch), token_mask=np.array(batch["token_mask"]))
+
+
+@pytest.mark.parametrize("max_tokens", [None, 40], ids=["whole", "capped"])
+@pytest.mark.parametrize("case", list(LOADER_CASES))
+def test_native_ragged_loader_equals_jax(tmp_path, case, max_tokens, capsys):
+    """Full bags of 10-59 rows, missing stains, a CSV-listed bag absent on
+    disk and a present bag of 0 rows (all-masked bags), 11 cases in batches
+    of 4 (the last padded, masked, its ids the valid cases'), buckets (16,
+    32): the longest bags grow the bucket to 64, or are capped at 40 (every
+    capped bag of the batch counted, rows past 40 unmasked); feats, token_mask,
+    modality_labels, sample_mask and slide_ids equal the JAX package's
+    NativeRaggedLoader bit for bit in epochs 0 and 1, and the plain
+    route's, as does the truncation count; every ring slot is sized once
+    for the cohort's largest bucket and never replaced (pinned_bytes is 0 on
+    the CPU)."""
+    out_dtype, disk = LOADER_CASES[case]
+    csv_path, bags = _write_bag_cohort(str(tmp_path), 11, 16, disk=disk, empty_bag=True)
+    kw = dict(embedding_size=16, batch_size=4, seed=5, out_dtype=out_dtype,
+              buckets=(16, 32), max_tokens=max_tokens)
+    ours = NativeRaggedLoader(csv_path, bags, STAINS, device="cpu", **kw)
+    plain = NativeRaggedLoader(csv_path, bags, STAINS, device="cpu", plain=True, **kw)
+    theirs = JN.NativeRaggedLoader(csv_path, bags, STAINS, **kw)
+    assert capsys.readouterr().out.count("1 (case, stain) bags listed in the csv are missing") == 3
+    buckets, slots = set(), [x.data_ptr() for x in ours._ring]
+    for epoch in (0, 1):
+        for loader in (ours, plain, theirs):
+            loader.set_epoch(epoch)
+        got = [_ragged_snapshot(b) for b in ours]
+        assert len(got) == 3 and len(ours.timings) == 3
+        for g, p, w in zip(got, map(_ragged_snapshot, plain), map(_ragged_snapshot, theirs)):
+            for key in ("feats", "token_mask", "modality_labels", "sample_mask"):
+                assert np.array_equal(g[key], w[key]), (epoch, key)
+                assert np.array_equal(g[key], p[key]), (epoch, key, "plain")
+            assert g["slide_ids"] == w["slide_ids"] == p["slide_ids"]
+            assert not g["feats"][~g["token_mask"]].any() or max_tokens is not None
+            buckets.add(g["feats"].shape[2])
+        assert got[-1]["sample_mask"].tolist() == [True, True, True, False]
+        assert len(got[-1]["slide_ids"]) == 3 and not got[-1]["modality_labels"][3].any()
+    assert buckets == {64} and ours.pinned_bytes == 0
+    assert ours.truncation_count == theirs.truncation_count
+    assert (ours.truncation_count > 0) == (max_tokens is not None)
+    assert [x.numel() for x in ours._ring] == [4 * 5 * 64 * 16] * len(slots)
+    assert [x.data_ptr() for x in ours._ring] == slots
+    for loader in (ours, theirs):
+        loader.close()
+
+
 def test_native_loader_ring_survives_a_prefetcher(tmp_path):
     """Nine batches through a Prefetcher of depth 2 over a ring of 4 slots,
     each held until the next arrives: every batch equals the copy taken when
@@ -250,12 +299,19 @@ def test_native_loader_ring_survives_a_prefetcher(tmp_path):
 
 
 def test_native_loader_refuses_what_is_not_ported(tmp_path):
+    """Several processes (A7) raise; full bags (sample -1, A6) are the
+    ragged loader's: the subsampling loader names it, and it runs."""
     csv_path, bags = _write_bag_cohort(str(tmp_path), 3, 8, absent=False)
     kw = dict(embedding_size=8, batch_size=2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
         NativeTrainLoader(csv_path, bags, STAINS, sample=4, process_count=2, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
+        NativeRaggedLoader(csv_path, bags, STAINS, process_count=2, **kw)
+    with pytest.raises(ValueError, match="NativeRaggedLoader"):
         NativeTrainLoader(csv_path, bags, STAINS, sample=-1, **kw)
+    batch = next(iter(NativeRaggedLoader(csv_path, bags, STAINS, buckets=(64,), **kw)))
+    assert batch["feats"].shape == (2, 5, 64, 8) and batch["token_mask"].shape == (2, 5, 64)
+    assert batch["token_mask"].any()
 
 
 # ---------------------------------------------------------------------------

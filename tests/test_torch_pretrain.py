@@ -202,8 +202,7 @@ def test_pretrain_cli_resume_equals_an_uninterrupted_run(two_epochs):
                    for k in sb)
 
 
-@pytest.mark.parametrize("flags,item", [(("--n_subsamples", "-1"), "A6"),
-                                        (("--mesh_shape", "2"), "A7")])
+@pytest.mark.parametrize("flags,item", [(("--mesh_shape", "2"), "A7")])
 def test_pretrain_cli_refuses_what_is_not_ported(tmp_path, flags, item):
     argv = _argv(str(tmp_path), str(tmp_path / "results"), 1)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
@@ -277,6 +276,39 @@ def test_pretrain_cli_native_resume_equals_an_uninterrupted_run(bag_cohort):
     (rb,), rc = _epoch_records(run_b), _epoch_records(run_c)
     assert rb["loader"] == rc[1]["loader"] == "native-f32"
     assert [s["loss"] for s in rb["steps"]] == [s["loss"] for s in rc[1]["steps"]]
+
+
+@pytest.mark.parametrize("native_loader", ["on", "off"])
+def test_pretrain_cli_trains_full_bags_by_default(bag_cohort, native_loader, capsys,
+                                                 monkeypatch):
+    """The CLI's default --n_subsamples (-1: whole bags, A6) on the .bag
+    cohort through NativeRaggedLoader (on) and RaggedTrainLoader (off): the
+    JAX CLI's printed line, every step applied and finite, each step's
+    bucket (1024, the smallest) and valid tokens recorded, the loader's
+    truncation count after each batch (0), the native ring's pinned bytes
+    (0 on the CPU); the run's config keeps n_subsamples -1. InfoNCE alone
+    and dropout rates 0: GOT's draw on ragged batches and the masks are
+    tests/test_torch_ragged.py's, and at bucket 1024 their plain versions
+    would make this test minutes long on a loaded CPU."""
+    from madeleine_torch.ops import encoder_train as et
+
+    monkeypatch.setattr(et, "PRE_RATE", 0.0)
+    monkeypatch.setattr(et, "GATE_RATE", 0.0)
+    argv = _argv(bag_cohort, os.path.join(bag_cohort, f"full_{native_loader}"), 1,
+                 "--native_loader", native_loader, "--local_loss", "-1")
+    i = argv.index("--n_subsamples")
+    del argv[i:i + 2]
+    run = pretrain.main(argv)
+    out = capsys.readouterr().out
+    assert ("Native .bag loader, full-bag (ragged) batches" in out if native_loader == "on"
+            else "Full-bag (ragged) training: padded length buckets + token masks" in out)
+    (rec,) = _epoch_records(run)
+    assert rec["loader"] == ("native-f32" if native_loader == "on" else "python")
+    assert rec["n_steps"] == 2 and rec["n_skipped"] == 0 and rec["truncation_count"] == [0, 0]
+    assert all(s["bucket"] == 1024 and 0 < s["valid_tokens"] <= 6 * 5 * 60 for s in rec["steps"])
+    assert all(np.isfinite(s["loss"]) for s in rec["steps"])
+    assert (rec.get("pinned_bytes") == 0) == (native_loader == "on")
+    assert json.load(open(os.path.join(run, "config.json")))["n_subsamples"] == -1
 
 
 def test_pretrain_cli_raises_when_the_host_library_does_not_build(bag_cohort, tmp_path,
