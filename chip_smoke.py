@@ -331,11 +331,12 @@ PHASES = ("device", "build", "kernels", "pool_kernels", "pool_train_kernels", "d
           "train_kernels", "got_kernels", "glue_kernels", "perop_kernels", "perop_bwd_digest",
           "golden", "serve", "extract", "eval_forward", "train", "train_got", "train_se",
           "train_sigmoid", "train_nofused", "train_views", "train_ragged", "train_ragged_nofused",
-          "heads", "pretrain", "pretrain_ragged", "profile")
+          "heads", "pretrain", "pretrain_ragged", "data_parallel", "profile")
 # the runs of the port's main paths whose kernel launches the summary counts
 MAIN_PATHS = ("serve", "extract", "eval_forward", "train", "train_got", "train_se",
               "train_sigmoid", "train_nofused", "train_views", "train_views_nofused",
-              "train_ragged", "train_ragged_nofused", "heads", "pretrain", "pretrain_ragged")
+              "train_ragged", "train_ragged_nofused", "heads", "pretrain", "pretrain_ragged",
+              "data_parallel")
 # the main-path runs of the side lanes (a non-softmax activation, or softmax
 # under MADELEINE_NO_FUSED_ENCODER); the pretrain phase splits its own
 SIDE_PATHS = ("train_sigmoid", "train_nofused", "train_views_nofused")
@@ -3209,9 +3210,10 @@ def got_path_config(**overrides):
                                          got_subsample=256), **overrides))
 
 
-def _train_setup(torch, cfg=None, batch=None):
+def _train_setup(torch, cfg=None, batch=None, group=None):
     """(cfg, model, step, batch): the path's model from SEED, its AdamW and
-    train step, and `batch`, or one synthetic full-width batch."""
+    train step (on a process `group` when given), and `batch`, or one
+    synthetic full-width batch."""
     from madeleine_torch.models.factory import create_model
     from madeleine_torch.train.optim import make_optimizer
     from madeleine_torch.train.trainer import make_train_step
@@ -3219,7 +3221,7 @@ def _train_setup(torch, cfg=None, batch=None):
     cfg = train_path_config() if cfg is None else cfg
     _, model = create_model(cfg, seed=SEED, device="cuda")
     opt, sched = make_optimizer(cfg, model.parameters(), steps_per_epoch=TRAIN_STEPS)
-    return cfg, model, make_train_step(cfg, model, opt, sched), (
+    return cfg, model, make_train_step(cfg, model, opt, sched, group=group), (
         synthetic_train_batch(torch, cfg, SEED + 4) if batch is None else batch)
 
 
@@ -3949,17 +3951,19 @@ def _pretrain_argv(root, results, max_epochs, *extra, n_subsamples=2048):
             *extra]
 
 
-def _run_pretrain_cli(argv, log_path):
+def _run_pretrain_cli(argv, log_path, launcher=()):
     """`python -m madeleine_torch.cli.pretrain` as a subprocess from the repo
-    root, this process's cached device memory released first (the
-    subprocess needs the card's memory); returns (results dir, metrics
+    root (`launcher`: the module's arguments to `python -m` before the CLI's,
+    e.g. torchrun's), this process's cached device memory released first
+    (the subprocess needs the card's memory); returns (results dir, metrics
     records, wall seconds)."""
     import torch
 
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with open(log_path, "w") as log:
-        proc = subprocess.run([sys.executable, "-m", "madeleine_torch.cli.pretrain", *argv],
+        proc = subprocess.run([sys.executable, "-m", *launcher, *(("-m",) if launcher else ()),
+                               "madeleine_torch.cli.pretrain", *argv],
                               cwd=HERE, stdout=log, stderr=subprocess.STDOUT, timeout=900,
                               env=dict(os.environ, PYTHONPATH=HERE))
     wall = time.perf_counter() - t0
@@ -4346,6 +4350,341 @@ def phase_pretrain_ragged(state):
                                 h2d_gb_per_batch_bf16=65 * 5 * bucket * 512 * 2 / 1e9),
           "python_loader": dict(_loader_line([run_py]), run=run_py, cli_wall_s=wall_py),
           "peak_memory_gb": max(r["peak_memory_gb"] for r in every)})
+
+
+DP_BS = 64                   # (b)'s global batch: 32 rows a rank
+DP_RAGGED = (16, 1024, 4096)  # (b)'s ragged step: rows, shortest and longest bag (the bucket)
+DP_BAG = (8, 4096)           # (c): bags, tokens
+DP_SEED = 17                 # the steps' seed in (b)
+DP_TIMED_STEPS = 3           # (b): dense steps timed after the compared one
+DP_HE_REL = 1e-4             # (b): H&E embeddings, relative Frobenius
+DP_LOSS_REL = 1e-5           # (b): the loss, relative
+# (b): each gradient's error over the norms of what was summed (the world-1
+# gradient and each rank's): one bf16 rounding step (bc: BC_ATOL)
+DP_GRAD_SUMMANDS = 2.0 ** -8
+DP_BAG_ATOL = 3e-2           # (c): against K1's encode, K1's bar
+DP_KERNELS = ENCODER_KERNELS + GOT_KERNELS + GLUE_KERNELS
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _init_group(backend, rank, world, port):
+    """The default process group from a TCPStore on localhost."""
+    import torch.distributed as dist
+
+    store = dist.TCPStore("127.0.0.1", port, world, rank == 0)
+    dist.init_process_group(backend, store=store, rank=rank, world_size=world)
+    return dist.group.WORLD
+
+
+def _dp_step(torch, step, batch, seed):
+    """One step: (H&E embeddings, loss, {name: gradient}) on the host."""
+    he, metrics = step(batch, seed)
+    if bool(metrics["skipped"]):
+        raise AssertionError("data_parallel: a step was skipped")
+    return (he.float().cpu(), float(metrics["loss"]),
+            {n: p.grad.detach().float().cpu() for n, p in step.model.named_parameters()
+             if p.grad is not None})
+
+
+def _dp_inputs(torch, rank=0, world=1):
+    """(b)'s and (c)'s inputs, made on the card from seeds (every process
+    makes the same), and this rank's share: (cfg, model, initial weights,
+    the dense batch's rows, the ragged batch's rows, the bags' token shard)."""
+    from madeleine_torch.parallel.mesh import shard_batch
+
+    cfg, model, _, dense = _train_setup(torch, got_path_config(batch_size=DP_BS))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    rows, lo, hi = DP_RAGGED
+    ragged = ragged_batch(torch, ragged_lengths(SEED + 31, rows, cfg.n_modalities, lo, hi),
+                          SEED + 32, t=hi)
+    b, t = DP_BAG
+    g = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    bags = torch.randn(b, t, cfg.patch_embedding_dim, generator=g, device="cuda").to(
+        torch.bfloat16)
+    lt = t // world
+    return (cfg, model, init, shard_batch(dense, rank, world), shard_batch(ragged, rank, world),
+            bags[:, rank * lt:(rank + 1) * lt].contiguous())
+
+
+def _dp_results(torch, cfg, model, init, dense, ragged, bags, group):
+    """(b)'s two steps from the initial weights and (c)'s bag-parallel
+    encode on `group` (None: one process, no group; (c) then K1's encode)."""
+    from madeleine_torch.models.madeleine import encode
+    from madeleine_torch.parallel import collectives
+    from madeleine_torch.parallel.bag_parallel import encode_bag_parallel
+    from madeleine_torch.train.optim import make_optimizer
+    from madeleine_torch.train.trainer import make_train_step
+
+    out, local = {}, {}
+    sum_gradients = collectives.sum_gradients
+
+    def keep_local(params, grp):   # this rank's gradients, before the sum over ranks
+        params = list(params)
+        local.update({id(p): p.grad.detach().float().cpu() for p in params
+                      if p.grad is not None})
+        sum_gradients(params, grp)
+
+    for name, batch in (("dense", dense), ("ragged", ragged)):
+        model.load_state_dict(init)
+        opt, sched = make_optimizer(cfg, model.parameters(), steps_per_epoch=TRAIN_STEPS)
+        step = make_train_step(cfg, model, opt, sched, group=group)
+        local.clear()
+        collectives.sum_gradients = keep_local
+        try:
+            out[name] = _dp_step(torch, step, batch, DP_SEED)
+        finally:
+            collectives.sum_gradients = sum_gradients
+        out[name + "_local"] = {n: local[id(p)] for n, p in model.named_parameters()
+                                if id(p) in local}
+        if name == "dense":   # then the step's wall ms, the host waiting for each
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(DP_TIMED_STEPS):
+                step(batch, DP_SEED + 1 + i)
+                torch.cuda.synchronize()
+            out["dense_step_ms"] = (time.perf_counter() - t0) * 1e3 / DP_TIMED_STEPS
+    model.load_state_dict(init)
+    model.eval()
+    with torch.no_grad():
+        out["bag"] = (encode(model, bags) if group is None
+                      else encode_bag_parallel(model, bags, group)).float().cpu()
+    return out
+
+
+def dp_worker(rank: int, world: int, port: int, out_path: str) -> None:
+    """One rank of (b): a Gloo group over CUDA tensors on the one card; runs
+    `_dp_results` on its rows and saves them to out_path."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from madeleine_torch.utils.device import resolve_device
+
+    resolve_device("cuda")
+    group = _init_group("gloo", rank, world, port)
+    cfg, model, init, dense, ragged, bags = _dp_inputs(torch, rank, world)
+    out = _dp_results(torch, cfg, model, init, dense, ragged, bags, group)
+    torch.save(out, out_path)
+    torch.distributed.destroy_process_group()
+
+
+def _dp_compare(torch, got, want, partials):
+    """(b)'s comparison of the world-2 step (`got`; `partials`: each rank's
+    gradients before their sum) with the world-1 step on the same rows:
+    the H&E embeddings (relative Frobenius, DP_HE_REL), the loss (relative,
+    DP_LOSS_REL), bc absolutely (BC_ATOL), and every other gradient g2
+    against g1 by the bf16 rounding bound: each rank rounds its gradient of
+    a bf16 operand to bf16 before the sum over ranks (as the JAX package
+    does), so ||g2 - g1|| must stay within DP_GRAD_SUMMANDS, one bf16
+    rounding step (2^-8), of ||g1|| + sum_r ||g_r||. A rank's gradients can
+    cancel (the projector's are nearly opposite), so the plain relative
+    Frobenius error is reported beside it. Returns ({step: errors},
+    [failures])."""
+    errs, bad = {}, []
+    for name in ("dense", "ragged"):
+        (he, loss, grads), (he_w, loss_w, grads_w) = got[name], want[name]
+        e = {"he_rel_fro": _rel_fro(he, he_w), "loss_rel": abs(loss - loss_w) / abs(loss_w),
+             "loss": loss, "loss_world_1": loss_w}
+        fro, summands, bc = {}, {}, {}
+        for k, w in grads_w.items():
+            d = grads[k] - w
+            if k.endswith("attention_c.bias"):
+                bc[k] = float(d.abs().max())
+                continue
+            fro[k] = _rel_fro(grads[k], w)
+            summands[k] = float(d.norm() / (w.norm() + sum(p[name + "_local"][k].norm()
+                                                            for p in partials)))
+        e.update(grad_rel_fro=fro, grad_err_over_summands=summands,
+                 grad_max_rel_fro=max(fro.values()),
+                 grad_max_err_over_summands=max(summands.values()), bc_max_abs=max(bc.values()))
+        errs[name] = e
+        if not (grads.keys() == grads_w.keys() and e["he_rel_fro"] <= DP_HE_REL
+                and e["loss_rel"] <= DP_LOSS_REL and e["bc_max_abs"] <= BC_ATOL
+                and e["grad_max_err_over_summands"] <= DP_GRAD_SUMMANDS):
+            bad.append(f"(b) {name}: he {e['he_rel_fro']}, loss {e['loss_rel']}, bc "
+                       f"{e['bc_max_abs']}, gradients {e['grad_max_err_over_summands']} of "
+                       f"their summands")
+    return errs, bad
+
+
+def phase_data_parallel(state):
+    """Data parallelism (A7) on the card. (a) World size 1 on NCCL (a
+    TCPStore on localhost): 5 published InfoNCE + GOT steps (65 x 5 x 2048,
+    bf16) through the step's group lane, every collective a copy; the
+    weights' sha256 must equal the same steps' without a group bit for
+    bit; the step ms and the host's launch ms a step of both, back to back
+    in the order plain, group, group, plain; each step's collectives
+    (calls, bytes). (b) World size 2 on the one card: two processes on a
+    Gloo group over CUDA tensors (NCCL takes one rank a device), a global
+    batch of 64 x 5 x 2048 at the real rates, and one ragged step of 16 x 5
+    x 4096, against this process's step on the same rows without a group:
+    H&E embeddings within 1e-4 relative Frobenius, the loss 1e-5 relative,
+    each gradient within one bf16 rounding step of the norms it sums
+    (`_dp_compare`; bc within BC_ATOL). (c) Bag
+    parallelism, b 8, t 4096: at world size 1 on NCCL and on each of (b)'s
+    ranks (half the tokens each), against K1's encode at K1's atol 3e-2;
+    row 4 launches. (d) The pretrain CLI under torchrun --nproc_per_node 1
+    and without it, one epoch with the pretrain phase's flags on its
+    cohort: model.pt bit for bit."""
+    import torch
+    import torch.distributed as dist
+
+    from madeleine_torch.parallel import collectives
+    from madeleine_torch.parallel.bag_parallel import encode_bag_parallel
+
+    torch.cuda.empty_cache()
+    out, launches = {}, {}
+    # (a) world size 1 on NCCL
+    t0 = time.perf_counter()
+    group = _init_group("nccl", 0, 1, _free_port())
+    init_s = time.perf_counter() - t0
+    cfg = got_path_config()
+    try:
+        plain = _run_train_steps(torch, state, "data_parallel_plain", DP_KERNELS, cfg,
+                                 setup=_train_setup(torch, cfg), skips=False)
+        reset_counts()
+        collectives.reset()
+        dp = _run_train_steps(torch, state, "data_parallel", DP_KERNELS, cfg,
+                              setup=_train_setup(torch, cfg, group=group))
+        launches = dict(dp[3]["launches"])
+        # each step's collectives: (5 steps + 1 under sync debug + 10 back to back + 2 skips)
+        n_steps = TRAIN_STEPS + 1 + BACK_TO_BACK_STEPS + 2
+        per_step = {k: {"calls": v["calls"] / n_steps, "bytes": v["bytes"] / n_steps,
+                        "max_numel": v["max_numel"]} for k, v in collectives.read().items()}
+        seeds = itertools.count(1000)
+        # A/B: the two steps back to back in the order plain, group, group, plain
+        ab = {"plain": [], "group": []}
+        setups = {"plain": _train_setup(torch, cfg),
+                  "group": _train_setup(torch, cfg, group=group)}
+        for kind in ("plain", "group", "group", "plain"):
+            _, _, step, batch = setups[kind]
+            step(batch, next(seeds))
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            t1 = time.perf_counter()
+            for _ in range(BACK_TO_BACK_STEPS):
+                step(batch, next(seeds))
+            host = (time.perf_counter() - t1) * 1e3 / BACK_TO_BACK_STEPS
+            end.record()
+            end.synchronize()
+            ab[kind].append({"step_ms_back_to_back": start.elapsed_time(end) / BACK_TO_BACK_STEPS,
+                             "host_ms_per_step": host})
+        del setups
+        digest_plain = plain[3]["param_sha256_after_steps"]
+        digest_dp = dp[3]["param_sha256_after_steps"]
+        out["a"] = {"backend": "nccl", "world_size": 1, "init_group_s": init_s,
+                    "param_sha256_plain": digest_plain, "param_sha256_group": digest_dp,
+                    "bitwise_equal": digest_plain == digest_dp,
+                    "losses_plain": plain[3]["losses"], "losses_group": dp[3]["losses"],
+                    "step_ms_plain": plain[3]["step_ms_median_after_first"],
+                    "step_ms_group": dp[3]["step_ms_median_after_first"],
+                    "host_ms_plain": plain[3]["host_ms_per_step_back_to_back"],
+                    "host_ms_group": dp[3]["host_ms_per_step_back_to_back"],
+                    "ab_back_to_back": ab, "collectives_per_step": per_step,
+                    "peak_memory_gb_group": dp[3]["peak_memory_gb"]}
+        del plain, dp
+        emit({"phase": "data_parallel", "smi": state["smi"], "a": out["a"]})
+        if digest_plain != digest_dp:
+            raise AssertionError(f"data_parallel (a): world size 1 on NCCL left other weights "
+                                 f"({digest_dp}) than the step without a group ({digest_plain})")
+        # (c) at world size 1 on NCCL, and the world-1 references of (b) and (c)
+        cfg_b, model, init, dense, ragged, bags = _dp_inputs(torch)
+        reset_counts()
+        model.eval()
+        with torch.no_grad():
+            bag_w1 = encode_bag_parallel(model, bags, group).float()
+        c_counts = read_counts()
+        for k, v in c_counts.items():
+            launches[k] = launches.get(k, 0) + v
+        ref = _dp_results(torch, cfg_b, model, init, dense, ragged, bags, None)
+        bag_err_w1 = float((bag_w1.cpu() - ref["bag"]).abs().max())
+        del model, init, dense, ragged, bags
+    finally:
+        dist.destroy_process_group()
+    if c_counts["attn_pool_ms"] < 1 or not bag_err_w1 <= DP_BAG_ATOL:
+        raise AssertionError(f"data_parallel (c): row 4 launched {c_counts['attn_pool_ms']} "
+                             f"times, max |err| {bag_err_w1} against K1's encode")
+    torch.cuda.empty_cache()
+    # (b) world size 2 on the one card, Gloo over CUDA tensors
+    tmp, procs = tempfile.mkdtemp(prefix="dp_"), []
+    try:
+        port = _free_port()
+        t0 = time.perf_counter()
+        for r in range(2):
+            code = (f"import sys; sys.path.insert(0, {HERE!r}); import chip_smoke; "
+                    f"chip_smoke.dp_worker({r}, 2, {port}, {os.path.join(tmp, f'rank{r}.pt')!r})")
+            log = open(os.path.join(tmp, f"rank{r}.log"), "w")
+            procs.append((subprocess.Popen([sys.executable, "-c", code], cwd=HERE, stdout=log,
+                                           stderr=subprocess.STDOUT), log))
+        rcs = [p.wait(timeout=600) for p, _ in procs]
+        wall_b = time.perf_counter() - t0
+        for _, log in procs:
+            log.close()
+        if any(rcs):
+            logs = "\n".join(open(os.path.join(tmp, f"rank{r}.log")).read()[-3000:]
+                             for r in range(2))
+            raise AssertionError(f"data_parallel (b): a rank failed ({rcs}):\n{logs}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    got = {name: (torch.cat([r[name][0] for r in ranks]), ranks[0][name][1], ranks[0][name][2])
+           for name in ("dense", "ragged")}
+    same = all(ranks[0][n][1] == ranks[1][n][1] and all(
+        torch.equal(ranks[0][n][2][k], ranks[1][n][2][k]) for k in ranks[0][n][2])
+        for n in ("dense", "ragged"))
+    errs, failures = _dp_compare(torch, got, ref, ranks)
+    bag_err_w2 = [float((r["bag"] - ref["bag"]).abs().max()) for r in ranks]
+    if not same or not max(bag_err_w2) <= DP_BAG_ATOL:
+        failures.append(f"(b)/(c): ranks agree {same}, bag-parallel max |err| {bag_err_w2}")
+    out["b"] = {"backend": "gloo (CUDA tensors)", "world_size": 2, "global_batch": DP_BS,
+                "ragged": list(DP_RAGGED), "seed": DP_SEED, "wall_s": wall_b,
+                "step_ms_world_2": [r["dense_step_ms"] for r in ranks],
+                "step_ms_world_1_same_rows": ref["dense_step_ms"],
+                "ranks_agree": same, **errs}
+    out["c"] = {"bags": list(DP_BAG), "max_abs_err_world_1_nccl": bag_err_w1,
+                "max_abs_err_world_2_gloo": bag_err_w2, "bar": DP_BAG_ATOL,
+                "row4_launches_world_1": c_counts["attn_pool_ms"]}
+    emit({"phase": "data_parallel", "smi": state["smi"], "b": out["b"], "c": out["c"]})
+    # (d) the CLI under torchrun --nproc_per_node 1 against the plain CLI
+    root = tempfile.mkdtemp(prefix="dp_cli_")
+    try:
+        _write_pretrain_cohort(root, np.random.default_rng(SEED + 7))   # the pretrain phase's
+        sds, walls, digests = {}, {}, {}
+        for name, launcher in (("plain", ()), ("torchrun", ("torch.distributed.run",
+                                                             "--standalone",
+                                                             "--nproc_per_node", "1"))):
+            log_path = os.path.join(root, f"{name}.log")
+            results, records, walls[name] = _run_pretrain_cli(
+                _pretrain_argv(root, os.path.join(root, name), 1, "--checkpoint_every", "1"),
+                log_path, launcher)
+            run, sds[name] = _check_pretrain_run(f"dp_{name}", results, records, range(1))
+            if name == "torchrun":   # the lane's own launches
+                for k, v in run["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+            digests[name] = [ln.rsplit(" ", 1)[1] for ln in open(log_path).read().splitlines()
+                             if "parameters sha256" in ln]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    equal = all(torch.equal(sds["plain"][k], sds["torchrun"][k]) for k in sds["plain"])
+    out["d"] = {"model_pt_bitwise_equal": equal, "cli_wall_s": walls,
+                "param_sha256": digests}
+    if not equal:
+        failures.append(f"(d): torchrun's model.pt differs from the plain CLI's ({digests})")
+    emit({"phase": "data_parallel", "smi": state["smi"], "d": out["d"]})
+    if failures:
+        raise AssertionError("data_parallel: " + "; ".join(failures))
+    state["launches_data_parallel"] = launches
+    state["data_parallel"] = out
 
 
 # kernel-name prefixes of K8-K10 and of K11-K14 in a profiler trace

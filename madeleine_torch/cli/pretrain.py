@@ -1,4 +1,4 @@
-"""MADELEINE multistain pretraining on one device (ref: bin/pretrain.py).
+"""MADELEINE multistain pretraining, on one device or data-parallel (ref: bin/pretrain.py).
 
 Usage (the flags of scripts/launch_pretrain_withoutStainEncodings.sh, plus --device;
 add --add_stain_encoding for scripts/launch_pretrain_withStainEncodings.sh):
@@ -39,6 +39,17 @@ that cohort as ``<name>.pkl``. A run resumes exactly from
 The card's machine has no pandas or h5py: give it ``.bag`` bags (``python -m
 madeleine_torch.cli.convert_bags``) or ``.npz`` ones.
 
+Data parallelism: ``torchrun --nproc_per_node N -m madeleine_torch.cli.pretrain
+<the same flags>`` runs one process per device (rank r on cuda:LOCAL_RANK,
+NCCL; with ``--device cpu``, Gloo), each loading its rows of every global
+batch of --batch_size (which must divide by N; the subsample is then drawn
+per case, as the JAX CLI's ``per_case_seed``), and the step sums the
+gradients over the ranks, so the weights stay equal on every rank
+(`train/trainer.py`). --mesh_shape, when given, must equal N. Only rank 0
+writes the results dir; every rank restores a resumed run and gates the
+checkpoint on the same, global, smooth rank. Each rank prints its
+parameters' sha256 at the end.
+
 The host runs up to MADELEINE_DISPATCH_WINDOW steps (default 8) ahead of
 the card: the skip is decided on the device and each step's records are
 read that many steps later (`train/trainer.py::train_loop`). A batch of the
@@ -51,11 +62,13 @@ CUDA event the step records after its copy.
 from __future__ import annotations
 
 import glob
+import hashlib
 import os
 import time
 from typing import Dict, Iterator, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from madeleine_torch.data.datasets import (Prefetcher, RaggedTrainLoader, SlideDataset,
                                            TrainLoader)
@@ -63,11 +76,11 @@ from madeleine_torch.eval.inference import get_downstream_loader, run_inference
 from madeleine_torch.models.factory import create_model
 from madeleine_torch.native.dataset import NativeRaggedLoader, NativeTrainLoader
 from madeleine_torch.ops import launches
+from madeleine_torch.parallel import multihost
 from madeleine_torch.train import checkpoint as ckpt
 from madeleine_torch.train.optim import make_optimizer
 from madeleine_torch.train.trainer import make_train_step, train_loop
 from madeleine_torch.utils.args import build_parser, config_from_args
-from madeleine_torch.utils.device import resolve_device
 from madeleine_torch.utils.file_utils import print_network, save_pkl
 from madeleine_torch.utils.logging import MetricsLogger
 from madeleine_torch.utils.seed import set_deterministic_mode
@@ -97,36 +110,49 @@ def host_batches(loader, load_ms: List[float], pin: bool,
         yield batch
 
 
-def make_loader(cfg, native_loader: str, dev: torch.device):
-    """(loader, its name) as the JAX CLI chooses (bin/pretrain.py:65-116):
+def make_loader(cfg, native_loader: str, dev: torch.device, process_index: int = 0,
+                process_count: int = 1):
+    """(loader, its name) as the JAX CLI chooses (bin/pretrain.py:60-116):
     ``auto`` is ``on`` when the data dir holds ``.bag`` files; ``on`` is the
     native loader, assembling in bf16 under --precision bfloat16 and in f32
     otherwise; ``off`` is SlideDataset + TrainLoader. --n_subsamples -1
     takes the ragged loaders (NativeRaggedLoader, RaggedTrainLoader),
-    printing the JAX CLI's lines."""
+    printing the JAX CLI's lines. Under several processes each loader
+    yields rank `process_index`'s rows, the subsample drawn per case."""
     ragged = cfg.n_subsamples == -1
+    procs = dict(process_index=process_index, process_count=process_count)
+    per_case = process_count > 1   # JAX bin/pretrain.py:95,108
     if native_loader == "auto":
         bags = glob.glob(os.path.join(cfg.data_root_dir or "", "*.bag"))
         native_loader = "on" if bags else "off"
     if native_loader == "on":
         out_dtype = "bfloat16" if cfg.precision == "bfloat16" else "float32"
         kw = dict(embedding_size=cfg.patch_embedding_dim, batch_size=cfg.batch_size,
-                  seed=cfg.seed, out_dtype=out_dtype, device=dev)
+                  seed=cfg.seed, out_dtype=out_dtype, device=dev, **procs)
         if ragged:
             loader = NativeRaggedLoader(cfg.csv_fpath, cfg.data_root_dir, cfg.MODALITIES, **kw)
             print(f"* Native .bag loader, full-bag (ragged) batches ({out_dtype} assembly)")
         else:
             loader = NativeTrainLoader(cfg.csv_fpath, cfg.data_root_dir, cfg.MODALITIES,
-                                       sample=cfg.n_subsamples, **kw)
+                                       sample=cfg.n_subsamples, per_case_seed=per_case, **kw)
             print(f"* Native .bag loader (C++ threaded assembler, {out_dtype} assembly)")
         return loader, "native-bf16" if out_dtype == "bfloat16" else "native-f32"
     dataset = SlideDataset(cfg.dataset, cfg.csv_fpath, cfg.data_root_dir, cfg.MODALITIES,
                            embedding_size=cfg.patch_embedding_dim, sample=cfg.n_subsamples,
-                           seed=cfg.seed)
+                           per_case_seed=per_case, seed=cfg.seed)
     if ragged:
         print("* Full-bag (ragged) training: padded length buckets + token masks")
-        return RaggedTrainLoader(dataset, cfg.batch_size, seed=cfg.seed), "python"
-    return TrainLoader(dataset, cfg.batch_size, seed=cfg.seed), "python"
+        return RaggedTrainLoader(dataset, cfg.batch_size, seed=cfg.seed, **procs), "python"
+    return TrainLoader(dataset, cfg.batch_size, seed=cfg.seed, **procs), "python"
+
+
+def param_digest(model: torch.nn.Module) -> str:
+    """sha256 over every parameter's bytes, in name order."""
+    h = hashlib.sha256()
+    for name, p in sorted(model.named_parameters()):
+        h.update(name.encode())
+        h.update(p.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
 
 
 def main(argv=None) -> str:
@@ -134,31 +160,41 @@ def main(argv=None) -> str:
     parser = build_parser()
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
-    cfg = config_from_args(args)
+    own_group = not dist.is_initialized() and multihost.initialize_from_env(args.device)
+    rank, world = multihost.process_info()
+    group = dist.group.WORLD if dist.is_initialized() else None
+    cfg = config_from_args(args, world)
     extras = cfg._extras
-    dev = resolve_device(args.device)
+    dev = multihost.local_device(args.device)
     set_deterministic_mode(cfg.seed)
+    primary = rank == 0
 
     results = cfg.RESULTS_SAVE_PATH
-    os.makedirs(results, exist_ok=True)
-    cfg.save(os.path.join(results, "config.json"))
-    print(f"* Running experiment {cfg.EXP_CODE}")
-    print(f"* Results dir: {results}")
-    logger = MetricsLogger(results, use_wandb=cfg.log_ml, project=extras["wandb_project_name"],
-                           run_name=cfg.EXP_CODE, config=cfg.to_dict(), tags=[cfg.cohort])
+    if primary:   # only rank 0 writes the results dir
+        os.makedirs(results, exist_ok=True)
+        cfg.save(os.path.join(results, "config.json"))
+        print(f"* Running experiment {cfg.EXP_CODE}")
+        print(f"* Results dir: {results}")
+        if world > 1:
+            print(f"* Data parallel over {world} processes ({dist.get_backend()})")
+    logger = (MetricsLogger(results, use_wandb=cfg.log_ml, project=extras["wandb_project_name"],
+                            run_name=cfg.EXP_CODE, config=cfg.to_dict(), tags=[cfg.cohort])
+              if primary else None)
 
     # ---- data -----------------------------------------------------------
-    loader, loader_name = make_loader(cfg, extras["native_loader"], dev)
+    loader, loader_name = make_loader(cfg, extras["native_loader"], dev, rank, world)
     steps_per_epoch = len(loader)
     n_cases = len(loader.rows) if loader_name != "python" else len(loader.dataset)
-    print(f"* {loader_name} loader: {n_cases} cases, {steps_per_epoch} steps/epoch")
+    if primary:
+        print(f"* {loader_name} loader: {n_cases} cases, {steps_per_epoch} steps/epoch")
 
     # ---- model / optimizer ----------------------------------------------
     _, model = create_model(cfg, seed=cfg.seed, device=dev)
-    print(f"* Model parameters: {sum(p.numel() for p in model.parameters()):,}")
-    print_network(model, cfg, results_dir=results)
+    if primary:
+        print(f"* Model parameters: {sum(p.numel() for p in model.parameters()):,}")
+        print_network(model, cfg, results_dir=results)
     optimizer, schedule = make_optimizer(cfg, model.parameters(), steps_per_epoch)
-    train_step = make_train_step(cfg, model, optimizer, schedule)
+    train_step = make_train_step(cfg, model, optimizer, schedule, group=group)
 
     start_epoch, best_rank = 0, 0.0
     state_dir = os.path.join(results, "train_state")
@@ -172,10 +208,11 @@ def main(argv=None) -> str:
         train_step.updates = int(state["updates"])
         start_epoch = int(meta.get("epoch", -1)) + 1
         best_rank = float(meta.get("best_rank", 0.0))
-        print(f"* Resumed from {src} at epoch {start_epoch} (best_rank={best_rank:.2f})")
+        if primary:
+            print(f"* Resumed from {src} at epoch {start_epoch} (best_rank={best_rank:.2f})")
 
     prof = None
-    if cfg.profile_dir:
+    if cfg.profile_dir and primary:
         from torch.profiler import ProfilerActivity, profile
 
         prof = profile(activities=[ProfilerActivity.CPU] + (
@@ -184,7 +221,8 @@ def main(argv=None) -> str:
 
     # ---- epochs -----------------------------------------------------------
     for epoch in range(start_epoch, cfg.max_epochs):
-        print(f"\nTraining for epoch {epoch}...")
+        if primary:
+            print(f"\nTraining for epoch {epoch}...")
         start = time.time()
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
@@ -195,6 +233,14 @@ def main(argv=None) -> str:
             cfg, train_step,
             Prefetcher(host_batches(loader, load_ms, dev.type == "cuda", truncations)),
             epoch, cfg.seed)
+        # the loss, the skips and the smooth rank are the global batch's, the
+        # same on every rank, so every rank takes the same checkpoint gate
+        improved = epoch > MIN_CHECKPOINT_EPOCH and train_rank > best_rank
+        due = improved or (cfg.checkpoint_every and (epoch + 1) % cfg.checkpoint_every == 0)
+        if improved:
+            best_rank_before, best_rank = best_rank, train_rank
+        if not primary:
+            continue
         print(f"Done with epoch {epoch}: loss={ep_loss:.3f} rank={train_rank:.3f} "
               f"time={time.time() - start:.1f}s ({agg['n_skipped']} skipped)")
         record = {"train_loss": ep_loss, "train_rank": train_rank,
@@ -210,13 +256,10 @@ def main(argv=None) -> str:
         if dev.type == "cuda":
             record["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         logger.log(record, step=epoch)
-
-        improved = epoch > MIN_CHECKPOINT_EPOCH and train_rank > best_rank
         if improved:
-            print(f"Better rank: {best_rank} --> {train_rank}. Saving model")
+            print(f"Better rank: {best_rank_before} --> {train_rank}. Saving model")
             ckpt.save_best_torch(results, model, cfg)
-            best_rank = train_rank
-        if improved or (cfg.checkpoint_every and (epoch + 1) % cfg.checkpoint_every == 0):
+        if due:
             ckpt.save_train_state(
                 state_dir, {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
                             "updates": int(train_step.updates)},
@@ -227,28 +270,36 @@ def main(argv=None) -> str:
         prof.stop()
         os.makedirs(cfg.profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(cfg.profile_dir, "trace.json"))
-    print("\nDone with training\n")
-
-    # the final model.pt when the rank gating never fired (short runs)
-    if not os.path.exists(os.path.join(results, "model.pt")):
-        ckpt.save_best_torch(results, model, cfg)
+    if primary:
+        print("\nDone with training\n")
+        # the final model.pt when the rank gating never fired (short runs)
+        if not os.path.exists(os.path.join(results, "model.pt")):
+            ckpt.save_best_torch(results, model, cfg)
 
     # ---- downstream slide extraction ----------------------------------------
     downstream = extras["downstream_dir"]
     if downstream:
         model.eval()
         before = launches.read()
-        res, rank = run_inference(model, get_downstream_loader(downstream), device=dev)
+        res, ds_rank = run_inference(model, get_downstream_loader(downstream), device=dev,
+                                     group=group, verbose=primary)
         after = launches.read()
         name = os.path.basename(os.path.normpath(downstream)) or "downstream"
-        save_pkl(os.path.join(results, f"{name}.pkl"), res)
-        print(f"Rank for {name} = {rank}")
-        logger.log({"downstream": name, "slides": len(res["slide_ids"]),
-                    "launches": {k: after[k] - before[k] for k in after if after[k] > before[k]}})
-        logger.summary(f"{name}_rank", rank)
+        if primary:
+            save_pkl(os.path.join(results, f"{name}.pkl"), res)
+            print(f"Rank for {name} = {ds_rank}")
+            logger.log({"downstream": name, "slides": len(res["slide_ids"]),
+                        "launches": {k: after[k] - before[k] for k in after
+                                     if after[k] > before[k]}})
+            logger.summary(f"{name}_rank", ds_rank)
 
-    logger.close()
-    print("\n" + 100 * "-" + "\nEnd of experiment, bye!\n" + 100 * "-")
+    # every rank's weights, to show that they are equal
+    print(f"* rank {rank}/{world}: parameters sha256 {param_digest(model)}")
+    if primary:
+        logger.close()
+        print("\n" + 100 * "-" + "\nEnd of experiment, bye!\n" + 100 * "-")
+    if own_group:
+        dist.destroy_process_group()
     return results
 
 

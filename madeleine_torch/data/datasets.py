@@ -15,8 +15,15 @@ Port of `madeleine_tpu/data/datasets.py` (ref: madeleine/datasets/wsi_dataset.py
   JAX package's default): every (case, stain) bag of a batch padded to the
   batch's length bucket (1024 ... 16384, powers of two past the top) with a
   [bs, n_mod, t] token mask, the same generator calls as the JAX package's
-  (datasets.py:216-320), so the batches are equal bit for bit. One process
-  (data parallelism is ROADMAP.md A7).
+  (datasets.py:216-320), so the batches are equal bit for bit.
+- Data parallelism: both train loaders take ``process_index`` and
+  ``process_count``; ``batch_size`` is the global batch, every rank draws
+  the same (seed, epoch) shuffle and yields only its contiguous row block
+  (`parallel/multihost.py::local_rows`). Under several processes the
+  subsample needs ``per_case_seed`` (a case's tokens a function of (seed,
+  epoch, case, stain), whichever rank loads it), and the ragged loader
+  agrees on the global batch's bucket from the bags' headers
+  (`SlideDataset.bag_length_of`) without loading another rank's rows.
 - `BucketedBagLoader`: bags of any length grouped by length bucket and padded
   into ``[b, T_bucket, d]`` batches with a ``[b, T_bucket]`` mask, so many
   slides run per kernel launch instead of the reference's batch_size=1 loop
@@ -39,6 +46,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 
 from madeleine_torch.data.io import bag_length, list_bags, load_features
+from madeleine_torch.parallel.multihost import local_rows
 
 
 # ---------------------------------------------------------------------------
@@ -84,6 +92,15 @@ class SlideDataset:
             feats = feats[idx]
         return feats
 
+    def bag_length_of(self, index: int, modality: str) -> int:
+        """Token count of one (case, stain) bag from its header alone (0 when
+        the stain is absent): lets the ranks of a ragged loader agree on the
+        global batch's bucket without loading each other's rows."""
+        row = self.rows[index]
+        if int(float(row[modality])) != 1:
+            return 0
+        return bag_length(self._bag_path(row, modality))
+
     def _bag_path(self, row: Dict[str, str], modality: str) -> str:
         split_type = row.get("split") or "train"
         special_id = "" if split_type == "train" else f"_{split_type}"
@@ -123,9 +140,16 @@ class TrainLoader:
     """Shuffling epoch iterator over a SlideDataset. The last short batch is
     padded to batch_size by repeating its first case with a zeroed modality
     mask and ``sample_mask`` False, so every step has one shape and no case
-    is dropped. One process (data parallelism is ROADMAP.md A7)."""
+    is dropped. With ``process_count`` > 1, batch_size is the global batch
+    and each batch is rank ``process_index``'s rows of it; the dataset must
+    then draw per case (``per_case_seed``)."""
 
-    def __init__(self, dataset: SlideDataset, batch_size: int, seed: int = 0):
+    def __init__(self, dataset: SlideDataset, batch_size: int, seed: int = 0,
+                 process_index: int = 0, process_count: int = 1):
+        self._rows = local_rows(batch_size, process_index, process_count)
+        if process_count > 1 and not dataset.per_case_seed:
+            raise ValueError("multi-process loading needs SlideDataset(per_case_seed=True) "
+                             "so that the subsample does not depend on the process count")
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
@@ -150,7 +174,7 @@ class TrainLoader:
             n_valid = len(idx)
             if n_valid < bs:
                 idx = np.concatenate([idx, idx[np.zeros(bs - n_valid, np.int64)]])
-            sample_mask = np.arange(bs) < n_valid
+            idx, sample_mask = idx[self._rows], (np.arange(bs) < n_valid)[self._rows]
             out = collate([self.dataset[i] for i in idx])
             out["modality_labels"][~sample_mask] = 0.0   # mask the padding rows
             out["sample_mask"] = sample_mask
@@ -187,15 +211,18 @@ class RaggedTrainLoader:
     ``max_tokens`` None keeps bags whole (buckets grow past the top); a cap
     truncates and counts every capped bag in ``truncation_count``. A missing
     stain is the dataset's 2-row zero placeholder, masked by its label. The
-    last short batch is padded by repeating its first case, masked."""
+    last short batch is padded by repeating its first case, masked. With
+    ``process_count`` > 1, batch_size is the global batch and each batch is
+    rank ``process_index``'s rows of it, padded to the global batch's bucket
+    (`_global_bucket`, from the bags' headers), so every rank's batch has
+    one shape."""
 
     def __init__(self, dataset: SlideDataset, batch_size: int,
                  buckets: Sequence[int] = RAGGED_BUCKETS, shuffle: bool = True, seed: int = 0,
                  max_tokens: Optional[int] = None, process_index: int = 0,
                  process_count: int = 1):
-        if process_count > 1 or process_index != 0:
-            raise NotImplementedError("multi-process loading: data parallelism is not ported "
-                                      "(ROADMAP.md A7)")
+        self._rows = local_rows(batch_size, process_index, process_count)
+        self.multi_process = process_count > 1
         if dataset.sample != -1:
             raise ValueError("RaggedTrainLoader expects sample=-1 datasets")
         self.dataset = dataset
@@ -215,6 +242,18 @@ class RaggedTrainLoader:
     def __len__(self) -> int:
         return -(-len(self.dataset) // self.batch_size)
 
+    def _cap(self, n: int) -> int:
+        return n if self.max_tokens is None else min(n, self.max_tokens)
+
+    def _global_bucket(self, idx: np.ndarray) -> int:
+        """The bucket of the global batch `idx` from the bags' headers alone
+        (JAX datasets.py:276-283), so that every rank pads to one shape."""
+        longest = 1
+        for i in idx:
+            for m in self.dataset.modalities:
+                longest = max(longest, self.dataset.bag_length_of(int(i), m))
+        return bucket_of(self._cap(longest), self.buckets)
+
     def __iter__(self) -> Iterator[Dict]:
         order = np.arange(len(self.dataset))
         if self.shuffle:
@@ -225,16 +264,16 @@ class RaggedTrainLoader:
             n_valid = len(idx)
             if n_valid < bs:
                 idx = np.concatenate([idx, np.repeat(idx[:1], bs - n_valid)])
-            sample_mask = np.arange(bs) < n_valid
+            t = self._global_bucket(idx) if self.multi_process else None
+            idx, sample_mask = idx[self._rows], (np.arange(bs) < n_valid)[self._rows]
             items = [self.dataset[i] for i in idx]
-            longest = max(f.shape[0] for it in items for f in it["feats"])
-            if self.max_tokens is not None:
-                longest = min(longest, self.max_tokens)
-            t = bucket_of(longest, self.buckets)
-            n_mod, d = len(items[0]["feats"]), items[0]["feats"][0].shape[1]
-            feats = np.zeros((bs, n_mod, t, d), np.float32)
-            token_mask = np.zeros((bs, n_mod, t), bool)
-            labels = np.zeros((bs, n_mod), np.float32)
+            if t is None:   # one process: the bucket of the rows it loaded
+                t = bucket_of(self._cap(max(f.shape[0] for it in items for f in it["feats"])),
+                              self.buckets)
+            lbs, n_mod, d = len(items), len(items[0]["feats"]), items[0]["feats"][0].shape[1]
+            feats = np.zeros((lbs, n_mod, t, d), np.float32)
+            token_mask = np.zeros((lbs, n_mod, t), bool)
+            labels = np.zeros((lbs, n_mod), np.float32)
             for b, item in enumerate(items):
                 for m, f in enumerate(item["feats"]):
                     n = min(f.shape[0], t)

@@ -3,6 +3,11 @@
 Bags stream through `BucketedBagLoader` as padded, masked batches. On the
 GPU the loader thread pins each batch, the copy to the device is
 asynchronous, and embeddings stay on the device until the stream ends.
+
+With a process ``group`` (JAX's mesh lane, inference.py:37-56,101-103) a
+batch whose size divides by the group's size is split by rank, each rank
+encodes its rows, and the rows are gathered in rank order; any other batch
+runs whole on every rank. Every rank ends with every embedding.
 """
 
 from __future__ import annotations
@@ -13,11 +18,13 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from madeleine_torch.config import compute_dtype
 from madeleine_torch.data.datasets import BucketedBagLoader, Prefetcher
 from madeleine_torch.models.madeleine import MADELEINE, encode
 from madeleine_torch.ops.rank import smooth_rank_measure
+from madeleine_torch.parallel import collectives
 from madeleine_torch.utils.device import resolve_device
 from madeleine_torch.utils.file_utils import save_pkl
 
@@ -30,10 +37,11 @@ def _pinned(batch: Dict) -> Dict:
 
 def run_inference(model: MADELEINE, loader, *, stain_idx: int = 0,
                   dtype: Optional[torch.dtype] = None, device=None,
-                  verbose: bool = True) -> Tuple[Dict, float]:
+                  verbose: bool = True, group=None) -> Tuple[Dict, float]:
     """Encode every bag the loader yields -> ({"embeds", "slide_ids"}, rank)
     (ref: utils.py:27-66). `device` defaults to CUDA; the model moves there.
-    `dtype` defaults to the config's precision."""
+    `dtype` defaults to the config's precision. `group`: the data-parallel
+    lane (see the module docstring); on NCCL, `device` is this rank's card."""
     dev = resolve_device(device)
     model.to(dev)
     dtype = dtype or compute_dtype(model.cfg.precision)
@@ -44,7 +52,14 @@ def run_inference(model: MADELEINE, loader, *, stain_idx: int = 0,
         feats = torch.as_tensor(batch["feats"]).to(dev, non_blocking=True).to(dtype)
         mask = torch.as_tensor(batch["mask"]).to(dev, non_blocking=True)
         n_valid = batch.get("n_valid", len(batch["slide_ids"]))
-        emb = encode(model, feats, stain_idx=stain_idx, mask=mask)
+        world = 1 if group is None else dist.get_world_size(group)
+        if world > 1 and feats.shape[0] % world == 0:   # split by rank, then gathered
+            lb, r = feats.shape[0] // world, dist.get_rank(group)
+            emb = collectives.gather_rows(
+                encode(model, feats[r * lb:(r + 1) * lb], stain_idx=stain_idx,
+                       mask=mask[r * lb:(r + 1) * lb]), group, "inference")
+        else:
+            emb = encode(model, feats, stain_idx=stain_idx, mask=mask)
         pending.append(emb[:n_valid])
         all_ids.extend(batch["slide_ids"])
         n_done += n_valid

@@ -174,7 +174,8 @@ def half_split(seed: int, t: int, device) -> torch.Tensor:
 
 def forward_train(model: MADELEINE, feats: torch.Tensor, *,
                   mask: Optional[torch.Tensor] = None, n_views: int = 1, seed: int = 0,
-                  train: bool = True, half_mask: Optional[torch.Tensor] = None
+                  train: bool = True, half_mask: Optional[torch.Tensor] = None,
+                  row_start: int = 0, global_bs: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward (ref: Model.py:110-159) at the dropout rates of the
     train ops; with ``train=False`` the eval forward (no dropout, no
@@ -193,8 +194,13 @@ def forward_train(model: MADELEINE, feats: torch.Tensor, *,
     the given half_mask [t] bool), shared by every row and modality and
     handed to both routes (JAX madeleine.py:185-192, abmil.py:338-357).
     cfg.modality_scan runs one encoder call per modality (the canonical
-    route, [bs, t, d] each, global rows m*bs + i); otherwise one joint call
-    over [bs*n_mod, t, d] (rows i*n_mod + m).
+    route, [bs, t, d] each, global rows m*BS + i); otherwise one joint call
+    over [bs*n_mod, t, d] (rows i*n_mod + m). Under data parallelism feats
+    holds one rank's rows of a global batch of ``global_bs`` (None: bs) rows,
+    its first row being global row ``row_start``: the dropout masks are
+    keyed by the single-process step's global rows (JAX madeleine.py:151-155),
+    m*BS + row_start + i on the scan route and (row_start + i)*n_mod + m on
+    the joint one, so that N ranks draw the masks one process draws.
     With stain encodings each modality's rows carry its own stain code, and
     the input gradient reaches the table. Documented deviation (JAX
     madeleine.py:213-218): the reference builds train-time stain ids
@@ -212,6 +218,7 @@ def forward_train(model: MADELEINE, feats: torch.Tensor, *,
             raise ValueError("the eval forward pools whole bags only (n_views=1)")
         return _forward_eval(model, feats, mask)
     bs, n_mod, t, d = feats.shape
+    global_bs = bs if global_bs is None else global_bs
     if n_views == 3 and half_mask is None:
         half_mask = half_split(seed, t, feats.device)
     half = None if n_views == 1 else half_mask.reshape(t).to(feats.device, torch.bool)
@@ -235,7 +242,7 @@ def forward_train(model: MADELEINE, feats: torch.Tensor, *,
             ids = torch.arange(n_mod, device=feats.device).repeat(bs)
             x = _append_stain_encoding(model, x, ids)
         m = None if mask is None else mask.reshape(bs * n_mod, t)
-        pooled, tok = encode(x, m, 0)
+        pooled, tok = encode(x, m, row_start * n_mod)
         slide = _linear_head_major(model, model.projector, pooled, dt)
         return (slide.reshape(bs, n_mod, n_views, -1), tok.reshape(bs, n_mod, t, -1))
     slides, toks = [], []
@@ -244,7 +251,7 @@ def forward_train(model: MADELEINE, feats: torch.Tensor, *,
         if se:
             x = _append_stain_encoding(model, x, i)
         m = None if mask is None else mask[:, i]
-        pooled, tok = encode(x, m, i * bs)
+        pooled, tok = encode(x, m, i * global_bs + row_start)
         slides.append(_linear_head_major(model, model.projector, pooled, dt))
         toks.append(tok)
     return torch.stack(slides, 1).reshape(bs, n_mod, n_views, -1), torch.stack(toks, 1)

@@ -23,6 +23,14 @@ the lengths in the bags' headers. Its ring's slots are flat, each sized
 once, at construction, for the largest bucket the headers allow, so no
 slot is ever replaced and ``pinned_bytes`` is all the pinned memory the
 ring holds.
+
+Data parallelism (JAX :59-67,112,192): with ``process_count`` > 1,
+``batch_size`` is the global batch; every rank draws the same (seed, epoch)
+shuffle and assembles only its contiguous row block into its ring, whose
+slots hold ``batch_size // process_count`` rows. A subsampled loader then
+needs ``per_case_seed`` (a bag's draw a function of (seed, epoch, case,
+stain), whichever rank loads it); the ragged loader takes its bucket from
+the headers of the global batch's bags, so every rank pads to one shape.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import torch
 
 from madeleine_torch.data.datasets import RAGGED_BUCKETS, bucket_of
 from madeleine_torch.native import bagio
+from madeleine_torch.parallel.multihost import local_rows
 from madeleine_torch.utils.device import resolve_device
 
 
@@ -49,7 +58,9 @@ class NativeTrainLoader:
     library's plain versions (`bagio.sample_indices_plain`,
     `bagio.assemble_batch_plain`) for checks. ``timings`` holds, for each
     batch of the current epoch, the index draw's, the guard's wait and the
-    assembly's ms."""
+    assembly's ms. With ``process_count`` > 1 a batch is rank
+    ``process_index``'s ``batch_size // process_count`` rows of the global
+    batch."""
 
     _FULL_BAGS = False   # sample -1 (every token of a bag) is a subclass's
 
@@ -60,9 +71,9 @@ class NativeTrainLoader:
                  per_case_seed: bool = False, process_index: int = 0, process_count: int = 1,
                  out_dtype: str = "float32",
                  device: Optional[Union[str, torch.device]] = None, plain: bool = False):
-        if process_count > 1 or process_index != 0:
-            raise NotImplementedError("multi-process loading: data parallelism is not ported "
-                                      "(ROADMAP.md A7)")
+        self._rows = local_rows(batch_size, process_index, process_count)
+        if process_count > 1 and not per_case_seed and not self._FULL_BAGS:
+            raise ValueError("multi-process subsampled loading requires per_case_seed=True")
         if sample < 1 and not self._FULL_BAGS:
             raise ValueError(f"sample {sample}: full bags (sample -1) are NativeRaggedLoader's")
         if out_dtype not in bagio.OUT_DTYPES:
@@ -81,6 +92,7 @@ class NativeTrainLoader:
         self.seed = seed
         self.epoch = 0
         self.per_case_seed = per_case_seed
+        self.local_batch = batch_size // process_count
         self.out_dtype = out_dtype
         self.plain = plain
         self.device = resolve_device(device)
@@ -113,7 +125,7 @@ class NativeTrainLoader:
         # (a Prefetcher of depth <= depth - 2) holds earlier batches intact
         depth = max(2, buffer_depth)
         self._pin = self.device.type == "cuda"
-        numel = batch_size * len(self.modalities) * self._slot_tokens() * self.d
+        numel = self.local_batch * len(self.modalities) * self._slot_tokens() * self.d
         self._ring = [self._new_slot(numel) for _ in range(depth)]
         self._events = [torch.cuda.Event() if self._pin else None for _ in range(depth)]
         self._slot = 0
@@ -190,6 +202,7 @@ class NativeTrainLoader:
         if self.shuffle:
             self.rng.shuffle(order)
         bs, n_mod, t = self.batch_size, len(self.modalities), self.sample
+        lbs = self.local_batch
         self.timings = []
         for start in range(0, len(order), bs):
             sel = order[start:start + bs]
@@ -198,13 +211,13 @@ class NativeTrainLoader:
                 if not self.pad_final:
                     break
                 sel = np.concatenate([sel, np.repeat(sel[:1], bs - n_valid)])
-            mask = np.arange(bs) < n_valid
+            sel, mask = sel[self._rows], (np.arange(bs) < n_valid)[self._rows]
             readers = [self.readers[i][m] for i in sel for m in range(n_mod)]
             t0 = time.perf_counter()
             feats, event = self._assemble(readers, self._batch_indices(sel), t0)
             labels = self.labels[sel].copy()
             labels[~mask] = 0.0
-            yield {"feats": feats.view(bs, n_mod, t, self.d), "modality_labels": labels,
+            yield {"feats": feats.view(lbs, n_mod, t, self.d), "modality_labels": labels,
                    "sample_mask": mask,
                    "slide_ids": [str(self.rows[i]["slide_id"]) for i in sel],
                    "copied": event}
@@ -257,7 +270,7 @@ class NativeRaggedLoader(NativeTrainLoader):
         order = np.arange(len(self.rows))
         if self.shuffle:
             self.rng.shuffle(order)
-        bs, n_mod = self.batch_size, len(self.modalities)
+        bs, n_mod, lbs = self.batch_size, len(self.modalities), self.local_batch
         self.timings = []
         for start in range(0, len(order), bs):
             sel = order[start:start + bs]
@@ -266,11 +279,11 @@ class NativeRaggedLoader(NativeTrainLoader):
                 if not self.pad_final:
                     break
                 sel = np.concatenate([sel, np.repeat(sel[:1], bs - n_valid)])
-            # the bucket from the headers alone (no row is read)
+            # the global batch's bucket from the headers alone (no row is read)
             lengths = [0 if r is None else self._cap(r.n_rows)
                        for i in sel for r in self.readers[i]]
             t = bucket_of(max(lengths) if lengths else 1, self.buckets)
-            mask = np.arange(bs) < n_valid
+            sel, mask = sel[self._rows], (np.arange(bs) < n_valid)[self._rows]
             readers = [self.readers[i][m] for i in sel for m in range(n_mod)]
             cap_t = t if self.max_tokens is None else min(self.max_tokens, t)
             lengths = np.asarray([0 if r is None else min(r.n_rows, cap_t) for r in readers],
@@ -281,8 +294,8 @@ class NativeRaggedLoader(NativeTrainLoader):
             feats, event = self._assemble(readers, indices, t0)
             labels = self.labels[sel].copy()
             labels[~mask] = 0.0
-            yield {"feats": feats.view(bs, n_mod, t, self.d), "modality_labels": labels,
-                   "token_mask": (np.arange(t)[None, :] < lengths[:, None]).reshape(bs, n_mod, t),
+            yield {"feats": feats.view(lbs, n_mod, t, self.d), "modality_labels": labels,
+                   "token_mask": (np.arange(t)[None, :] < lengths[:, None]).reshape(lbs, n_mod, t),
                    "sample_mask": mask,
                    "slide_ids": [str(self.rows[i]["slide_id"]) for i, v in zip(sel, mask) if v],
                    "copied": event}

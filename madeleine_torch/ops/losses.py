@@ -19,8 +19,12 @@ madeleine/utils/loss.py):
 - `masked_subsample` (:258-289): the ragged batches' per-side GOT token
   draw, a Gumbel top-k over each bag's valid tokens, its noise from
   `gumbel_noise` (Philox keyed by the step's seed, a stream and the global
-  row and token, so it does not change when the bucket grows). Data
-  parallelism (`axis_name`) is not ported (ROADMAP.md A7);
+  row and token, so it does not change when the bucket grows);
+- data parallelism (JAX's ``axis_name``, here a process ``group``):
+  `info_nce_global` (:109-128) all-gathers the embeddings, and
+  `got_loss_multi(..., group=)` gathers its threshold statistics (:383-390)
+  and sums its per-stain losses over ranks (:441-442), with the backward
+  rules of `parallel/collectives.py`;
 - the intra-modality loss selector (:450-458, ref :138-156): `mse_loss`
   for the two `reconstruct_*` modes (the mask ignored), `info_nce` at the
   configured temperature for every other mode.
@@ -40,6 +44,7 @@ import torch
 from madeleine_torch.ops import prng
 from madeleine_torch.ops.got_glue import cst_plain, gw_trace, gw_trace_plain, threshold_build
 from madeleine_torch.ops.ipot import gw_gamma, ipot_plan
+from madeleine_torch.parallel import collectives
 
 _EPS_NORM = 1e-12
 _NEG_INF = -1e30  # finite mask fill: keeps gradients NaN-free
@@ -89,6 +94,19 @@ def info_nce(query: torch.Tensor, positive_key: torch.Tensor,
     if symmetric:
         loss = 0.5 * loss + 0.5 * _masked_ce_diag(logits.T, mask)
     return loss
+
+
+def info_nce_global(query: torch.Tensor, positive_key: torch.Tensor, *, group,
+                    temperature: float = 0.1, symmetric: bool = False,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """InfoNCE over the global batch (JAX losses.py:109-128): each rank's
+    rows of query, positive_key and mask are gathered in rank order, so the
+    in-batch negatives span every rank; the value is the same on every rank
+    and the backward returns this rank's rows (`collectives.gather_rows`)."""
+    q = collectives.gather_rows(query, group, "embeddings")
+    k = collectives.gather_rows(positive_key, group, "embeddings")
+    m = None if mask is None else collectives.gather_rows(mask, group, "labels")
+    return info_nce(q, k, temperature=temperature, symmetric=symmetric, mask=m)
 
 
 # ---------------------------------------------------------------------------
@@ -164,43 +182,57 @@ def got_loss(v: torch.Tensor, q: torch.Tensor, *, sample_mask: Optional[torch.Te
 
 def got_loss_multi(v: torch.Tensor, q: torch.Tensor, *,
                    sample_mask: Optional[torch.Tensor] = None, ot_iterations: int = 30,
-                   gw_iterations: int = 5, gw_ot_iterations: int = 20) -> torch.Tensor:
+                   gw_iterations: int = 5, gw_ot_iterations: int = 20,
+                   group=None) -> torch.Tensor:
     """All stain pairs' GOT as one batched transport problem -> per-stain
-    losses [S] (madeleine_tpu/ops/losses.py:340-443, the fused glue branch,
-    no axis_name). v, q [S, b, n, d] (pre-subsampled); sample_mask [S, b].
+    losses [S] (madeleine_tpu/ops/losses.py:340-443, the fused glue branch).
+    v, q [S, b, n, d] (pre-subsampled); sample_mask [S, b].
     Equal to S separate `got_loss` calls: the threshold statistics are taken
     per stain pair (ref: loss.py:288-292), while the S*b problems run through
     the kernels in one launch each: on the card K11 (threshold_build), K8
     (IPOT), K10 (GW gamma), K13 (gw_trace) forward and K14, K9, K12 backward.
     The thresholds' min/max stay here, outside the kernels, so their
-    cotangent reaches amin/amax with its even tie split."""
+    cotangent reaches amin/amax with its even tie split.
+
+    With a process ``group`` (JAX's axis_name) b is this rank's rows: the
+    kernels run on the local problems only, the min/max statistics of every
+    rank are gathered ([n_dev, 6, S], one collective) so that the thresholds
+    are the global batch's, and the per-stain sums are summed over ranks;
+    the result equals the single-process global batch's."""
     S, b, n, d = v.shape
     v32 = v.float().reshape(S * b, n, d)
     q32 = q.float().reshape(S * b, n, d)
 
-    def group_threshold(C):
-        """thr_s = min + 0.1 (max - min) over stain group s, repeated to [S*b]."""
+    def group_stats(C):
+        """(min, max), each [S], over each stain group s."""
         Cg = C.reshape(S, b, *C.shape[1:])
         if sample_mask is not None:
             valid = sample_mask[..., None, None]
-            cmin = torch.where(valid, Cg, float("inf")).amin(dim=(1, 2, 3))
-            cmax = torch.where(valid, Cg, float("-inf")).amax(dim=(1, 2, 3))
-        else:
-            cmin, cmax = Cg.amin(dim=(1, 2, 3)), Cg.amax(dim=(1, 2, 3))
-        thr = cmin + 0.1 * (cmax - cmin)
-        return thr.repeat_interleave(b)
+            return (torch.where(valid, Cg, float("inf")).amin(dim=(1, 2, 3)),
+                    torch.where(valid, Cg, float("-inf")).amax(dim=(1, 2, 3)))
+        return Cg.amin(dim=(1, 2, 3)), Cg.amax(dim=(1, 2, 3))
 
     C0 = cosine_cost(v32, q32)
     Cs0 = cosine_cost(v32, v32)
     Ct0 = cosine_cost(q32, q32)
-    thr3 = torch.stack([group_threshold(X) for X in (C0, Cs0, Ct0)], dim=1)   # [S*b, 3]
+    stats = [group_stats(X) for X in (C0, Cs0, Ct0)]
+    if group is not None:
+        # the global batch's statistics ([n_dev, 6, S], one collective); the
+        # subgradient reaches each min's and max's owner with every rank's share
+        g = collectives.gather_stats(torch.stack([x for pair in stats for x in pair]), group,
+                                     "got_stats")
+        stats = [(g[:, 2 * i].amin(0), g[:, 2 * i + 1].amax(0)) for i in range(3)]
+    # thr_s = min + 0.1 (max - min) over stain group s, repeated to [S*b]
+    thr3 = torch.stack([(cmin + 0.1 * (cmax - cmin)).repeat_interleave(b)
+                        for cmin, cmax in stats], dim=1)                 # [S*b, 3]
     C, Cs, Ct, Cst = threshold_build(C0, Cs0, Ct0, thr3)
     wd = ipot_distance(C, iterations=ot_iterations)                      # [S*b]
     gamma = gw_gamma(Cs, Ct, Cst, 0.1, gw_iterations, gw_ot_iterations)
     total = wd + gw_trace(Cs, Ct, Cst, gamma)
     if sample_mask is not None:
         total = torch.where(sample_mask.reshape(S * b), total, 0.0)
-    return total.reshape(S, b).sum(1)
+    out = total.reshape(S, b).sum(1)
+    return out if group is None else collectives.sum_across(out, group, "got_sums")
 
 
 def gumbel_noise(seed: int, key: int, streams: torch.Tensor, rows: torch.Tensor, t: int

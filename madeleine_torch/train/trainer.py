@@ -1,8 +1,8 @@
-"""Single-device train step and epoch loop (InfoNCE + GOT + the intra-modality loss).
+"""Train step and epoch loop (InfoNCE + GOT + the intra-modality loss), on
+one device or data-parallel over a process group.
 
 PyTorch counterpart of `madeleine_tpu/train/trainer.py` (`compute_losses`,
-`make_train_step` without a mesh, `train_loop` without a mesh or hosts;
-ref: madeleine/utils/trainer.py:20-145):
+`make_train_step`, `train_loop`; ref: madeleine/utils/trainer.py:20-145):
 
 - per-stain masked InfoNCE between the H&E and each stain's slide
   embeddings, equal to the reference's boolean subsetting (trainer.py:25-33);
@@ -32,7 +32,23 @@ ref: madeleine/utils/trainer.py:20-145):
   reads them MADELEINE_DISPATCH_WINDOW steps later (default 8, JAX's name
   and default, :341-350; 0 reads them at the epoch's end), so the host runs
   up to that many steps ahead of the card;
-- the epoch's smooth rank on the H&E embeddings (trainer.py:141-143).
+- the epoch's smooth rank on the H&E embeddings (trainer.py:141-143);
+- data parallelism (JAX's mesh lane, :249-290, one process per device
+  here): with a process ``group`` each rank runs the step on its rows of
+  the global batch. The dropout masks and the ragged GOT noise are keyed by
+  global rows, the dense GOT draw and the half split by the step's seed
+  alone, so N ranks draw what one process draws. `compute_losses` gathers
+  the slide embeddings, labels and sample mask (InfoNCE and the intra loss
+  then read the global batch, the counts are global), GOT runs on the local
+  tokens with the global thresholds and per-stain sums
+  (`losses.got_loss_multi(..., group=)`); every rank back-propagates the
+  same replicated loss, and the gradients are summed over ranks in one
+  all-reduce (`parallel/collectives.py`) before `GatedAdamW`, unchanged, so
+  the skip flag, the loss and the weights are the same on every rank.
+  `train_loop` gathers the epoch's H&E embeddings and sample masks in rank
+  order (JAX's `allgather_rows`), so the smooth rank, and the checkpoint
+  gate, agree on every rank. On NCCL no collective waits on the host (each
+  is enqueued on the stream like a kernel); Gloo copies each through it.
 
 The encoder runs through ops/encoder_train.py (kernels K6/K7 on the card,
 bf16 only) or, with a non-softmax activation or MADELEINE_NO_FUSED_ENCODER
@@ -46,8 +62,7 @@ decay, as optax.adamw treats it in the JAX package. GOT through ops/ipot.py
 and ops/got_glue.py (K8-K14). A batch's feats arrive as f32 or bf16 (pinned
 by the caller's loader on the card) and are copied to the device
 asynchronously, then cast there; its small arrays, the token mask of a
-ragged batch among them, are pinned here before their copy. Data
-parallelism is not ported (ROADMAP.md A7).
+ragged batch among them, are pinned here before their copy.
 """
 
 from __future__ import annotations
@@ -59,6 +74,7 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from madeleine_torch.config import HE_POSITION, MadeleineConfig, compute_dtype
 from madeleine_torch.models.abmil import drop_kernel_operands
@@ -67,6 +83,8 @@ from madeleine_torch.ops import launches
 from madeleine_torch.ops import losses as L
 from madeleine_torch.ops.preattn import F32_TODO
 from madeleine_torch.ops.rank import smooth_rank_measure
+from madeleine_torch.parallel import collectives
+from madeleine_torch.parallel.multihost import allgather_rows
 from madeleine_torch.train.optim import GatedAdamW
 
 WHOLE_VIEW_POSITION = 0  # ref: trainer.py:16
@@ -81,15 +99,17 @@ def got_generator(seed: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(key)
 
 
-def got_gumbel(seed: int, n_mod: int, bs: int, t: int, device) -> torch.Tensor:
+def got_gumbel(seed: int, n_mod: int, bs: int, t: int, device, row_start: int = 0
+               ) -> torch.Tensor:
     """The Gumbel noise [n_mod - 1, 2, bs, t] of a ragged step's GOT draws:
     stain pair s, side 0 (the H&E tokens) or 1 (the stain's), from
     `losses.gumbel_noise` keyed by (seed, GOT_STREAM) on stream 2 s + side
-    and the batch row (its global row: one process). A token's noise does
-    not depend on t, so padding a batch to a larger bucket draws the same
-    subsample."""
+    and the batch row's global row, row_start + i (a rank's first row under
+    data parallelism). A token's noise does not depend on t, so padding a
+    batch to a larger bucket draws the same subsample."""
     streams = torch.arange(2 * (n_mod - 1), device=device).reshape(n_mod - 1, 2, 1)
-    streams, rows = torch.broadcast_tensors(streams, torch.arange(bs, device=device))
+    streams, rows = torch.broadcast_tensors(
+        streams, row_start + torch.arange(bs, device=device))
     return L.gumbel_noise(seed, GOT_STREAM, streams, rows, t)
 
 
@@ -98,7 +118,7 @@ def compute_losses(cfg: MadeleineConfig, slide_embs: torch.Tensor, token_embs: t
                    generator: Optional[torch.Generator] = None,
                    got_indices: Optional[Sequence[torch.Tensor]] = None,
                    token_mask: Optional[torch.Tensor] = None, seed: Optional[int] = None,
-                   gumbel: Optional[torch.Tensor] = None
+                   gumbel: Optional[torch.Tensor] = None, group=None, row_start: int = 0
                    ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """slide_embs [bs, n_mod, n_views, e] f32, token_embs [bs, n_mod, t, d],
     modality_labels [bs, n_mod], sample_mask [bs] bool, token_mask [bs,
@@ -112,23 +132,45 @@ def compute_losses(cfg: MadeleineConfig, slide_embs: torch.Tensor, token_embs: t
     from its own bags' valid tokens (`losses.masked_subsample`), on the
     noise `gumbel` [n_mod - 1, 2, bs, t] when given (the tests hand it
     JAX's), else `got_gumbel(seed, ...)`. The intra loss reads views 1 and
-    2 (n_views=3)."""
+    2 (n_views=3).
+
+    With a process ``group`` (JAX's axis_name, :100-110,158-165) the inputs
+    are this rank's rows, the first of them global row ``row_start``, and
+    every returned value is the global batch's, the same on every rank: the
+    slide embeddings, labels and sample mask are gathered in rank order, so
+    InfoNCE, the intra loss (InfoNCE, or the MSE modes' mean over the global
+    batch) and the counts read the global batch; GOT runs on this rank's
+    tokens (`got_loss_multi(..., group=)`)."""
     use_intra = cfg.intra_modality_loss == "info-nce"
     intra = (L.make_intra_loss(cfg.intra_modality_mode_wsi, cfg.temperature) if use_intra
              else None)
     use_got = cfg.local_loss == "got"
     n_mod = slide_embs.shape[1]
     dev = slide_embs.device
-    he = slide_embs[:, HE_POSITION, WHOLE_VIEW_POSITION]
+
+    def stain_masks(labels_all, smask):
+        out = []
+        for stain_idx in range(1, n_mod):
+            labels = labels_all[:, stain_idx] > 0
+            if smask is not None:
+                labels = labels & smask
+            out.append(labels)
+        return out
+
+    stain_labels = stain_masks(modality_labels, sample_mask)      # this rank's rows
+    if group is None:
+        slide_g, global_labels = slide_embs, stain_labels
+    else:   # the global batch's embeddings, labels and sample mask, in rank order
+        slide_g = collectives.gather_rows(slide_embs, group, "embeddings")
+        smask = (torch.ones(slide_embs.shape[0], dtype=torch.bool, device=dev)
+                 if sample_mask is None else sample_mask)
+        packed = collectives.gather_rows(
+            torch.cat([modality_labels.float(), smask.float()[:, None]], 1), group, "labels")
+        global_labels = stain_masks(packed[:, :n_mod], packed[:, n_mod] > 0)
+    he = slide_g[:, HE_POSITION, WHOLE_VIEW_POSITION]
     total = torch.zeros((), dtype=torch.float32, device=dev)
     any_flag = torch.zeros((), dtype=torch.bool, device=dev)
     metrics = {}
-    stain_labels = []
-    for stain_idx in range(1, n_mod):
-        labels = modality_labels[:, stain_idx] > 0
-        if sample_mask is not None:
-            labels = labels & sample_mask
-        stain_labels.append(labels)
 
     got_per_stain = None
     if use_got and token_mask is not None:
@@ -137,7 +179,7 @@ def compute_losses(cfg: MadeleineConfig, slide_embs: torch.Tensor, token_embs: t
         if gumbel is None:
             if seed is None:
                 raise ValueError("GOT on a ragged batch needs a seed or the Gumbel noise")
-            gumbel = got_gumbel(seed, n_mod, bs, t, token_embs.device)
+            gumbel = got_gumbel(seed, n_mod, bs, t, token_embs.device, row_start)
         vs, qs = [], []
         for s, stain_idx in enumerate(range(1, n_mod)):   # per side: its own mask and noise
             vs.append(L.masked_subsample(token_embs[:, HE_POSITION], token_mask[:, HE_POSITION],
@@ -145,7 +187,7 @@ def compute_losses(cfg: MadeleineConfig, slide_embs: torch.Tensor, token_embs: t
             qs.append(L.masked_subsample(token_embs[:, stain_idx], token_mask[:, stain_idx],
                                          sub, gumbel[s, 1]))
         got_per_stain = L.got_loss_multi(torch.stack(vs), torch.stack(qs),
-                                         sample_mask=torch.stack(stain_labels))
+                                         sample_mask=torch.stack(stain_labels), group=group)
     elif use_got:
         t = token_embs.shape[2]
         sub = min(cfg.got_subsample, t)
@@ -160,23 +202,23 @@ def compute_losses(cfg: MadeleineConfig, slide_embs: torch.Tensor, token_embs: t
             vs.append(token_embs[:, HE_POSITION, idx])        # shared index set per pair
             qs.append(token_embs[:, stain_idx, idx])
         got_per_stain = L.got_loss_multi(torch.stack(vs), torch.stack(qs),
-                                         sample_mask=torch.stack(stain_labels))
+                                         sample_mask=torch.stack(stain_labels), group=group)
 
     for s, stain_idx in enumerate(range(1, n_mod)):
-        labels = stain_labels[s]
+        labels = global_labels[s]
         cnt = labels.sum()
         flag = cnt > 1                                    # ref trainer.py:26 (>= 2 for CL)
         stain_total = torch.zeros((), dtype=torch.float32, device=dev)
         if cfg.global_loss == "info-nce":
             stain_total = stain_total + L.info_nce(
-                he, slide_embs[:, stain_idx, WHOLE_VIEW_POSITION], temperature=cfg.temperature,
+                he, slide_g[:, stain_idx, WHOLE_VIEW_POSITION], temperature=cfg.temperature,
                 symmetric=cfg.symmetric_cl, mask=labels)
         if use_got:
             stain_total = stain_total + cfg.local_loss_weight * got_per_stain[s]
         if use_intra:   # two half-bag views of the H&E and of the stain (ref: trainer.py:51-66)
-            l_he = intra(slide_embs[:, HE_POSITION, 1], slide_embs[:, HE_POSITION, 2],
+            l_he = intra(slide_g[:, HE_POSITION, 1], slide_g[:, HE_POSITION, 2],
                          mask=labels, symmetric=cfg.symmetric_cl)
-            l_st = intra(slide_embs[:, stain_idx, 1], slide_embs[:, stain_idx, 2],
+            l_st = intra(slide_g[:, stain_idx, 1], slide_g[:, stain_idx, 2],
                          mask=labels, symmetric=cfg.symmetric_cl)
             stain_total = stain_total + (l_he + l_st)
         total = total + torch.where(flag, stain_total, torch.zeros_like(stain_total))
@@ -205,13 +247,23 @@ class TrainStep:
     integer. A batch may carry its own half-bag split, ``half_mask`` [t]
     bool (n_views=3), and a ragged batch, whose ``token_mask`` [bs, n_mod,
     t] travels to the card with its feats, its GOT noise ``got_gumbel``
-    (`got_gumbel`'s shape); the tests hand them the JAX package's."""
+    (`got_gumbel`'s shape), and a dense batch its GOT indices
+    ``got_indices`` (one [sub] index tensor per stain pair); the tests hand
+    them the JAX package's.
+
+    With a process ``group`` (data parallelism) a batch is this rank's rows
+    of the global batch, each rank's the same number (the loaders'
+    ``process_index``/``process_count``, or `parallel.mesh.shard_batch`);
+    the step keys its masks and draws by global rows, computes the global
+    batch's loss (`compute_losses`) and sums the gradients over the group
+    before the update. The records it returns are the same on every rank
+    but the H&E embeddings, which are this rank's rows."""
 
     def __init__(self, cfg: MadeleineConfig, model: MADELEINE, optimizer: GatedAdamW,
-                 schedule=None):
+                 schedule=None, group=None):
         if schedule is not None and schedule is not optimizer.schedule:
             raise ValueError("the train step's schedule is its optimizer's (make_optimizer)")
-        self.cfg, self.model, self.optimizer = cfg, model, optimizer
+        self.cfg, self.model, self.optimizer, self.group = cfg, model, optimizer, group
         self.dtype = compute_dtype(cfg.precision)
         self.n_views = 3 if cfg.intra_modality_loss == "info-nce" else 1   # JAX :212
 
@@ -243,17 +295,25 @@ class TrainStep:
             token_mask = _to_device(token_mask, dev)
         model.train()
         self.optimizer.zero_grad(set_to_none=True)
+        lbs = feats.shape[0]
+        rank, world = (0, 1) if self.group is None else (dist.get_rank(self.group),
+                                                          dist.get_world_size(self.group))
         slide, tok = forward_train(model, feats, mask=token_mask, n_views=self.n_views,
-                                   seed=seed, half_mask=batch.get("half_mask"))
-        gumbel = batch.get("got_gumbel")
+                                   seed=seed, half_mask=batch.get("half_mask"),
+                                   row_start=rank * lbs, global_bs=world * lbs)
+        gumbel, got_indices = batch.get("got_gumbel"), batch.get("got_indices")
         total, any_flag, metrics = compute_losses(
             cfg, slide.float(), tok, labels, sample_mask,
-            generator=got_generator(seed, dev) if token_mask is None else None,
-            token_mask=token_mask, seed=seed,
-            gumbel=None if gumbel is None else _to_device(gumbel, dev))
+            generator=(got_generator(seed, dev) if token_mask is None and got_indices is None
+                       else None),
+            got_indices=got_indices, token_mask=token_mask, seed=seed,
+            gumbel=None if gumbel is None else _to_device(gumbel, dev),
+            group=self.group, row_start=rank * lbs)
         ok = any_flag & torch.isfinite(total)
         if total.requires_grad:
             total.backward()   # always, as JAX's value_and_grad; the update is gated
+        if self.group is not None:
+            collectives.sum_gradients(model.parameters(), self.group)
         lr = self.optimizer.step(ok=ok)
         drop_kernel_operands(model)   # K1's and K2's cached operands may be stale now
         he = slide[:, HE_POSITION, WHOLE_VIEW_POSITION].detach().float()
@@ -261,8 +321,8 @@ class TrainStep:
 
 
 def make_train_step(cfg: MadeleineConfig, model: MADELEINE, optimizer: GatedAdamW,
-                    schedule=None) -> TrainStep:
-    return TrainStep(cfg, model, optimizer, schedule)
+                    schedule=None, group=None) -> TrainStep:
+    return TrainStep(cfg, model, optimizer, schedule, group)
 
 
 def step_seed(seed: int, epoch: int, b_idx: int) -> int:
@@ -301,7 +361,9 @@ def train_loop(cfg: MadeleineConfig, train_step: TrainStep, dataloader: Iterable
     and sample mask are copied to pinned host memory after it on the stream,
     and an event marks the copy's end; a record is read `dispatch_window()`
     steps later (0: at the epoch's end), and with `log_every` on the steps
-    it prints."""
+    it prints. Under data parallelism (the step's ``group``) the epoch's H&E
+    embeddings and sample masks are gathered in rank order at its end, so
+    the smooth rank is the global batch's on every rank."""
     window = dispatch_window()
     recs, pending = [], []
     on_cuda = next(train_step.model.parameters()).is_cuda
@@ -314,8 +376,8 @@ def train_loop(cfg: MadeleineConfig, train_step: TrainStep, dataloader: Iterable
         del rec["done"]
         rec["loss"] = float(rec["loss"])
         rec["skipped"] = bool(rec["skipped"])
-        keep = np.asarray(rec.pop("sample_mask"), bool)
-        rec["he"] = np.asarray(rec["he"])[keep]
+        rec["sample_mask"] = np.asarray(rec["sample_mask"], bool)
+        rec["he"] = np.asarray(rec["he"])
 
     batches = iter(dataloader)
     for b_idx in itertools.count():
@@ -358,11 +420,19 @@ def train_loop(cfg: MadeleineConfig, train_step: TrainStep, dataloader: Iterable
     for rec in pending:
         fetch(rec)
     embeds = [rec.pop("he") for rec in recs]
+    keep = [rec.pop("sample_mask") for rec in recs]
     steps = recs
     skips_a = np.asarray([s["skipped"] for s in steps], bool)
     losses_a = np.asarray([s["loss"] for s in steps], np.float64)
     ep_loss = float(losses_a[~skips_a].sum()) if steps else 0.0
-    emb = np.concatenate(embeds, axis=0) if embeds else np.zeros((2, 2), np.float32)
+    if embeds:
+        emb, keep = np.concatenate(embeds, axis=0), np.concatenate(keep, axis=0)
+        if train_step.group is not None:   # the global batch's rows, in rank order
+            emb, keep = (allgather_rows(emb, train_step.group),
+                         allgather_rows(keep, train_step.group))
+        emb = emb[keep]
+    else:
+        emb = np.zeros((2, 2), np.float32)
     rank = float(smooth_rank_measure(torch.from_numpy(emb)))
     agg = {"epoch_time": time.time() - t0, "n_steps": int((~skips_a).sum()),
            "n_skipped": int(skips_a.sum()), "steps": steps}

@@ -4,7 +4,9 @@ The port's own copy of `madeleine_tpu/utils/args.py`: the same flag names and
 defaults, so the launch scripts run unchanged, mapped onto MadeleineConfig.
 Flags that the reference parses and never uses (--early_stopping,
 --scheduler, --opt, --num_workers) are accepted; --seed and --weight_decay
-are honoured. The CLI adds --device.
+are honoured. The CLI adds --device. --mesh_shape N, the data-parallel
+device count, must equal the process group's size (torchrun's
+``--nproc_per_node``; 1 without torchrun).
 """
 
 from __future__ import annotations
@@ -63,7 +65,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pretrained", type=str, default=None)
     # ----> the JAX package's extensions
     p.add_argument("--mesh_shape", type=int, default=None,
-                   help="data-parallel device count; only 1 is ported (ROADMAP.md A7)")
+                   help="data-parallel device count: the world size of the process group "
+                        "(torchrun --nproc_per_node N); default: the world size")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler chrome trace of the epochs here")
     p.add_argument("--no_remat", dest="remat", action="store_false",
@@ -81,14 +84,15 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def config_from_args(args: argparse.Namespace) -> MadeleineConfig:
+def config_from_args(args: argparse.Namespace, world_size: int = 1) -> MadeleineConfig:
     """The parsed flags as a finalized config; the flags that are not config
-    fields ride along in ``cfg._extras``. Raises NotImplementedError, naming
-    the ROADMAP item, for what the port does not run."""
+    fields ride along in ``cfg._extras``. --mesh_shape must equal
+    `world_size`, the data-parallel process group's size (ValueError)."""
     d = vars(args).copy()
-    if d["mesh_shape"] is not None and d["mesh_shape"] > 1:
-        raise NotImplementedError(f"--mesh_shape {d['mesh_shape']}: data parallelism is not "
-                                  "ported (ROADMAP.md A7)")
+    if d["mesh_shape"] is not None and d["mesh_shape"] != world_size:
+        raise ValueError(f"--mesh_shape {d['mesh_shape']} does not match the world size "
+                         f"{world_size}: start one process per device, e.g. torchrun "
+                         f"--nproc_per_node {d['mesh_shape']}")
     cfg = MadeleineConfig.from_dict(d)   # finalized
     cfg._extras = {k: d[k] for k in EXTRAS}
     return cfg

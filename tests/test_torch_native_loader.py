@@ -299,17 +299,51 @@ def test_native_loader_ring_survives_a_prefetcher(tmp_path):
 
 
 def test_native_loader_refuses_what_is_not_ported(tmp_path):
-    """Several processes (A7) raise; full bags (sample -1, A6) are the
-    ragged loader's: the subsampling loader names it, and it runs."""
-    csv_path, bags = _write_bag_cohort(str(tmp_path), 3, 8, absent=False)
-    kw = dict(embedding_size=8, batch_size=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-        NativeTrainLoader(csv_path, bags, STAINS, sample=4, process_count=2, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-        NativeRaggedLoader(csv_path, bags, STAINS, process_count=2, **kw)
+    """Several processes (A7, data parallelism) run: at process_count 2 each
+    rank's batches of the subsampling loader (per_case_seed) and of the
+    ragged one are the JAX package's local rows bit for bit, 2 of each
+    global batch of 4 (rank 1's last row padding), and the ring's slots
+    hold 2 rows; the ragged bucket is the global batch's, the same on both
+    ranks. A subsampling loader without per_case_seed under several
+    processes, an odd split and sample -1 raise (full bags are the ragged
+    loader's)."""
+    csv_path, bags = _write_bag_cohort(str(tmp_path), 7, 8, absent=False)
+    buckets = {0: [], 1: []}
+    for rank in (0, 1):
+        kw = dict(embedding_size=8, batch_size=4, seed=2, process_index=rank, process_count=2)
+        pairs = [(NativeTrainLoader(csv_path, bags, STAINS, sample=6, per_case_seed=True,
+                                    device="cpu", **kw),
+                  JN.NativeTrainLoader(csv_path, bags, STAINS, sample=6, per_case_seed=True,
+                                       **kw), _snapshot, 6),
+                 (NativeRaggedLoader(csv_path, bags, STAINS, buckets=(16, 32), device="cpu",
+                                     **kw),
+                  JN.NativeRaggedLoader(csv_path, bags, STAINS, buckets=(16, 32), **kw),
+                  _ragged_snapshot, 64)]
+        for ours, theirs, snap, slot_t in pairs:
+            assert all(x.numel() == 2 * 5 * slot_t * 8 for x in ours._ring)
+            for epoch in (0, 1):
+                ours.set_epoch(epoch)
+                theirs.set_epoch(epoch)
+                got, want = [snap(b) for b in ours], [snap(b) for b in theirs]
+                assert len(got) == len(want) == 2
+                for g, w in zip(got, want):
+                    assert g["feats"].shape[0] == 2 and g["slide_ids"] == w["slide_ids"]
+                    for key in set(g) - {"slide_ids"}:
+                        assert np.array_equal(g[key], w[key]), (rank, epoch, key)
+                assert got[-1]["sample_mask"].tolist() == [True, rank == 0]
+                if snap is _ragged_snapshot:
+                    buckets[rank] += [g["feats"].shape[2] for g in got]
+            ours.close()
+            theirs.close()
+    assert buckets[0] == buckets[1]
+    args = dict(embedding_size=8, batch_size=2, device="cpu")
+    with pytest.raises(ValueError, match="per_case_seed"):
+        NativeTrainLoader(csv_path, bags, STAINS, sample=4, process_count=2, **args)
+    with pytest.raises(ValueError, match="not divisible"):
+        NativeRaggedLoader(csv_path, bags, STAINS, process_count=3, **args)
     with pytest.raises(ValueError, match="NativeRaggedLoader"):
-        NativeTrainLoader(csv_path, bags, STAINS, sample=-1, **kw)
-    batch = next(iter(NativeRaggedLoader(csv_path, bags, STAINS, buckets=(64,), **kw)))
+        NativeTrainLoader(csv_path, bags, STAINS, sample=-1, **args)
+    batch = next(iter(NativeRaggedLoader(csv_path, bags, STAINS, buckets=(64,), **args)))
     assert batch["feats"].shape == (2, 5, 64, 8) and batch["token_mask"].shape == (2, 5, 64)
     assert batch["token_mask"].any()
 

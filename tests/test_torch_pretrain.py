@@ -204,8 +204,11 @@ def test_pretrain_cli_resume_equals_an_uninterrupted_run(two_epochs):
 
 @pytest.mark.parametrize("flags,item", [(("--mesh_shape", "2"), "A7")])
 def test_pretrain_cli_refuses_what_is_not_ported(tmp_path, flags, item):
+    """A7 (data parallelism) is ported: --mesh_shape must equal the world
+    size, here 1 (no torchrun), and a ValueError names both before anything
+    is written."""
     argv = _argv(str(tmp_path), str(tmp_path / "results"), 1)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+    with pytest.raises(ValueError, match="--mesh_shape 2 does not match the world size 1"):
         pretrain.main(argv + list(flags))
     assert not (tmp_path / "results").exists()
 

@@ -113,10 +113,31 @@ def test_ragged_train_loader_equals_jax(tmp_path, max_tokens):
 
 
 def test_ragged_train_loader_refuses_what_is_not_ported(tmp_path):
+    """Several processes (A7) run: at process_count 2 the two ranks' batches
+    agree on the bucket, the global batch's from the bags' headers (the bag
+    of 70 grows it to 128 on both ranks, whichever holds it), and are the
+    JAX package's local batches bit for bit; an odd split and a subsampling
+    dataset raise."""
     csv_path, feats = _write_cohort(str(tmp_path), _ragged_lengths(4))
     ds = PD.SlideDataset("ACROBAT", csv_path, feats, STAINS, embedding_size=8, sample=-1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-        PD.RaggedTrainLoader(ds, 4, process_count=2)
+    kw = dict(buckets=(16, 32), seed=3)
+    per_rank = []
+    for rank in (0, 1):
+        ours = PD.RaggedTrainLoader(ds, 4, process_index=rank, process_count=2, **kw)
+        theirs = JD.RaggedTrainLoader(JD.SlideDataset("ACROBAT", csv_path, feats, STAINS,
+                                                      embedding_size=8, sample=-1), 4,
+                                      process_index=rank, process_count=2, **kw)
+        got, want = list(ours), list(theirs)
+        assert len(got) == len(want) == 1
+        for key in ("feats", "token_mask", "modality_labels", "sample_mask"):
+            assert np.array_equal(got[0][key], want[0][key]), (rank, key)
+        assert got[0]["slide_ids"] == list(want[0]["slide_ids"])
+        per_rank.append(got[0])
+    assert [b["feats"].shape for b in per_rank] == [(2, 5, 128, 8)] * 2
+    assert (per_rank[0]["token_mask"].sum(-1).max() == 70) != \
+        (per_rank[1]["token_mask"].sum(-1).max() == 70)
+    with pytest.raises(ValueError, match="not divisible"):
+        PD.RaggedTrainLoader(ds, 4, process_count=3)
     with pytest.raises(ValueError, match="sample=-1"):
         PD.RaggedTrainLoader(PD.SlideDataset("ACROBAT", csv_path, feats, STAINS,
                                            embedding_size=8, sample=16), 4)
