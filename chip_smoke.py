@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases device,build,perop_kernels,train_sigmoid
     python3 chip_smoke.py --phases device,build,train_kernels,train_views
     python3 chip_smoke.py --phases device,build,train_kernels,train_ragged,pretrain_ragged
+    python3 chip_smoke.py --phases device,build,train_kernels_f32,train_f32,pretrain_f32
     python3 chip_smoke.py --phases device,build,pool_train_kernels,dropout_kernel,train_nofused,heads
 
 Phases, one JSON line each; any failure raises and the exit code is non-zero:
@@ -149,6 +150,19 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            call's threshold sends the gate and the call to the recompute
            route; the ballast freed but still reserved sends them back to
            the save route, with bit-equal gradients
+  train_kernels_f32
+           K6 and K7 with f32 operands (--precision float32, the JAX
+           package's parity route; every product on csrc/gemm_ffma.cuh's
+           FFMA tiles) against their plain versions at the step's call shape
+           [65, 2048] with the flagship weights in f32 at the real rates:
+           every token valid, n_views = 3, a ragged mask (two bags empty),
+           and the stain-encoded [65, 2048, 544] with dx; each on the save
+           route (outputs rtol 1e-4 / atol 1e-5, every gradient and dx 1e-4
+           relative Frobenius, bc 1e-4 absolutely, two launches bitwise
+           equal) and the recompute route (bit for bit the save route, and
+           against the plain recompute). Timed (K6, K7 on both routes, the
+           plain versions) beside the FP32 FMA bound; the weight gradients'
+           piece lengths, the library's against the Python mirror's
   got_kernels
            K8 (ipot_fwd), K9 (ipot_bwd) and K10 (gw_gamma), f32, on costs
            built as the GOT path builds them (random d=128 tokens ->
@@ -231,6 +245,15 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            step) and 5 under MADELEINE_NO_FUSED_ENCODER (rows 4-5 three times
            per modality a step, kernels 15-20 once); the loss falls, no step
            skipped; step ms, peak memory and launches
+  train_f32
+           the published step at --precision float32: 5 InfoNCE + GOT steps
+           at 65 x 5 x 2048 f32 (the loss falls, none skipped, K6/K7 with f32
+           operands and K8-K14 on every step, no bf16 K6/K7; one step under
+           sync debug "error", 3 back to back); then one step from the
+           trained weights against the same step with K6/K7's plain versions
+           on the card: the loss within 1e-5 relative, every gradient within
+           1e-4 relative Frobenius (bc 1e-4 absolutely); step ms, host ms a
+           step, peak, the weights' digest, the plain step's ms
   train_ragged
            the published step on full-bag batches (the CLI's default
            --n_subsamples -1): (a) bag lengths log-uniform in [1024, 16384],
@@ -284,6 +307,19 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            2 straight (B's model.pt equal to C's bit for bit), and 1 epoch
            on the Python RaggedTrainLoader (--native_loader off); the host
            ms per batch, H2D ms, pinned bytes, CLI step ms, busy share
+  pretrain_f32
+           the pretrain CLI at --precision float32 with its default full bags
+           on pretrain_ragged's cohort (bucket 8192: every K6/K7 call on the
+           recompute route, the native loader assembling f32): A 1 epoch, B A
+           resumed to 2, C 2 straight, B's model.pt equal to C's bit for bit,
+           K6/K7 f32 and K8-K14 on every step, K2 downstream; step ms, peak
+  data_parallel
+           (a) world size 1 on NCCL: the published steps' weights bit for
+           bit the steps' without a group; (b) two Gloo ranks on the card
+           against one process on the same rows, in bf16 (gradients within
+           one bf16 step of the norms summed) and in f32 (every gradient
+           within 1e-4 relative Frobenius); (c) bag parallelism against K1;
+           (d) the CLI under torchrun, model.pt bit for bit the plain CLI's
   profile  torch.profiler device time by kernel of one K6 and one K7 call at
            [65, 2048] and of kernels 15-18 and 20 alone at that shape, of
            one full-width train step of each objective and of the no-fused
@@ -298,9 +334,9 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            profiled window after a warm-up window (a first window can lose
            its kernels), the K6/K7 single windows reported beside them
 Then the main path's launches of each kernel split into the published runs,
-the side lanes and the ragged runs, a {"kernels": [...]} summary line (K6's
-and K7's rows also with their save-off and recompute routes), the
-nvidia-smi line, and last
+the side lanes, the ragged runs and the f32 runs (train_f32, pretrain_f32), a
+{"kernels": [...]} summary line (K6's and K7's rows, bf16 and f32, also with
+their save-off and recompute routes), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs CUDA and the repo checkout around it.
 """
 
@@ -328,20 +364,24 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "pool_kernels", "pool_train_kernels", "dropout_kernel",
-          "train_kernels", "got_kernels", "glue_kernels", "perop_kernels", "perop_bwd_digest",
-          "golden", "serve", "extract", "eval_forward", "train", "train_got", "train_se",
-          "train_sigmoid", "train_nofused", "train_views", "train_ragged", "train_ragged_nofused",
-          "heads", "pretrain", "pretrain_ragged", "data_parallel", "profile")
+          "train_kernels", "train_kernels_f32", "got_kernels", "glue_kernels", "perop_kernels",
+          "perop_bwd_digest", "golden", "serve", "extract", "eval_forward", "train", "train_got",
+          "train_se", "train_sigmoid", "train_nofused", "train_views", "train_f32",
+          "train_ragged", "train_ragged_nofused", "heads", "pretrain", "pretrain_ragged",
+          "pretrain_f32", "data_parallel", "profile")
 # the runs of the port's main paths whose kernel launches the summary counts
 MAIN_PATHS = ("serve", "extract", "eval_forward", "train", "train_got", "train_se",
               "train_sigmoid", "train_nofused", "train_views", "train_views_nofused",
-              "train_ragged", "train_ragged_nofused", "heads", "pretrain", "pretrain_ragged",
-              "data_parallel")
+              "train_f32", "train_ragged", "train_ragged_nofused", "heads", "pretrain",
+              "pretrain_ragged", "pretrain_f32", "data_parallel")
 # the main-path runs of the side lanes (a non-softmax activation, or softmax
 # under MADELEINE_NO_FUSED_ENCODER); the pretrain phase splits its own
 SIDE_PATHS = ("train_sigmoid", "train_nofused", "train_views_nofused")
 # the full-bag (ragged) runs, a lane of their own (its no-fused run included)
 RAGGED_PATHS = ("train_ragged", "train_ragged_nofused", "pretrain_ragged")
+# the f32 runs (--precision float32: K6/K7 with f32 operands), a lane of their
+# own (the CLI's on full bags included)
+F32_PATHS = ("train_f32", "pretrain_f32")
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -1308,7 +1348,8 @@ def phase_dropout_kernel(state):
 def _encoder_train_work(b, t, w, need_dx=False, n_views=1, recompute=False):
     """(flops, bytes) of one K6 and one K7 call: every row of [b, t] is
     computed (masked tokens still get token outputs and residuals); with
-    need_dx K7 also computes and writes dx [b, t, d_in] bf16. Each view past
+    need_dx K7 also computes and writes dx [b, t, d_in] in x's type (bf16
+    or f32, the type of w's matrices, as x, tokens and residuals). Each view past
     the first adds a pool (E multiply-adds a token; its adjoint two) and
     its pooled output (K6) or cotangent (K7), [b, E] f32. On the recompute
     route K6 writes no residuals and K7 reads none, but re-runs K6's
@@ -1322,11 +1363,12 @@ def _encoder_train_work(b, t, w, need_dx=False, n_views=1, recompute=False):
     fwd_flops = n * 2.0 * (macs + views * E)
     # dW for all, dX for all but layer 1 (and layer 1 too with need_dx)
     bwd_flops = n * 2.0 * (2 * macs - (0 if need_dx else d_in * hd) + 2 * views * E)
-    saved = 2 * (2 * hd + E + 2 * nh * f) + 12          # u1 u2 u3 a_pre b_pre bf16, rstd f32
+    q = w["w1"].element_size()                           # 2 (bf16) or 4 (f32)
+    saved = q * (2 * hd + E + 2 * nh * f) + 12          # u1 u2 u3 a_pre b_pre, rstd f32
     wbytes = sum(v.numel() * v.element_size() for v in w.values())
-    fwd_bytes = n * (d_in * 2 + dout * 2 + nh * 4 + saved) + wbytes + n_views * b * E * 4
-    bwd_bytes = n * (d_in * 2 + nh * 4 + dout * 2 + saved) + wbytes + n_views * b * E * 4 + 4 * sum(
-        v.numel() for v in w.values()) + (n * d_in * 2 if need_dx else 0)
+    fwd_bytes = n * (d_in * q + dout * q + nh * 4 + saved) + wbytes + n_views * b * E * 4
+    bwd_bytes = n * (d_in * q + nh * 4 + dout * q + saved) + wbytes + n_views * b * E * 4 + 4 * sum(
+        v.numel() for v in w.values()) + (n * d_in * q if need_dx else 0)
     if recompute:
         fwd_bytes -= n * saved
         bwd_bytes -= n * saved
@@ -1341,10 +1383,20 @@ def _bound(flops, nbytes, peak_flops=PEAK_BF16):
 
 
 GRAD_RTOL = 1e-2   # relative Frobenius bar of each K7 gradient (bf16 operands, f32 sums)
-BC_ATOL = 1e-4     # bc's exact gradient is 0 (softmax shift invariance): absolute bar
+# bc's exact gradient is 0 (softmax shift invariance): absolute bar. What the
+# kernel and the plain version give is the f32 rounding of a sum of
+# cancelling terms over every token, on either operand type
+BC_ATOL = 1e-4
+F32_RTOL, F32_ATOL = 1e-4, 1e-5   # K6's outputs with f32 operands, elementwise
+F32_GRAD_RTOL = 1e-4              # each K7 gradient and dx with f32 operands
 POOLED_ATOL = 2e-3  # K6's f32 pooled output (largest error seen: 8.3e-4, peaked weights)
 OUT_ATOL = 3e-2    # K6's bf16 tokens and f32 valid logits, as K1
 TILE = 64          # K6's pool tile (csrc/encoder_train_fwd.cu POOL_TM)
+
+
+def _f32_excess(torch, got, want):
+    """max(|got - want| - (F32_ATOL + F32_RTOL |want|)): <= 0 within the bar."""
+    return ((got - want).abs() - (F32_ATOL + F32_RTOL * want.abs())).max().item()
 
 
 def _check_train_kernels(torch, w, x, bias, rates, gen, need_dx=False, vb=None):
@@ -1353,14 +1405,18 @@ def _check_train_kernels(torch, w, x, bias, rates, gen, need_dx=False, vb=None):
     with need_dx its input gradient dx, as the other gradients); with a view
     bias vb [t, 2] (n_views=3) the three views' pooled outputs and
     cotangents. K6 and K7 each run twice and must give bitwise-equal
-    results. Returns (report, K6's outputs, K6's arguments, K7's arguments;
-    with need_dx also K7's gradients); the arguments end with the keywords
-    to pass (need_dx, vb)."""
+    results. bf16 operands: pooled within POOLED_ATOL, tokens and valid
+    logits OUT_ATOL, gradients GRAD_RTOL; f32 operands (x in f32): every
+    output within rtol F32_RTOL / atol F32_ATOL, gradients F32_GRAD_RTOL;
+    bc within BC_ATOL on both. Returns (report, K6's outputs, K6's
+    arguments, K7's arguments; with need_dx also K7's gradients); the
+    arguments end with the keywords to pass (need_dx, vb)."""
     from madeleine_torch.ops import encoder_train as et
 
     b, t, _ = x.shape
     nh, _, e = w["wa"].shape
     views = () if vb is None else (3,)
+    f32 = x.dtype == torch.float32
     fwd_args = (x, bias, w, 1234, 0, *rates)
     got = et.encoder_train_fwd_cuda(*fwd_args, vb=vb)
     again = et.encoder_train_fwd_cuda(*fwd_args, vb=vb)
@@ -1374,7 +1430,17 @@ def _check_train_kernels(torch, w, x, bias, rates, gen, need_dx=False, vb=None):
             raise AssertionError(f"encoder_train_fwd: non-finite {name}")
         rep[f"{name}_err"] = (got[i].float() - want[i].float()).abs().max().item()
     rep["logits_err"] = (got[4] - want[4]).abs()[valid].max().item()
-    for k, bar in (("pooled_err", POOLED_ATOL), ("tok_err", OUT_ATOL), ("logits_err", OUT_ATOL)):
+    if f32:
+        rep["excess_over_f32_bar"] = {
+            "pooled": _f32_excess(torch, got[0], want[0]),
+            "tok": _f32_excess(torch, got[3], want[3]),
+            "logits": _f32_excess(torch, got[4][valid], want[4][valid])}
+        bad = {k: v for k, v in rep["excess_over_f32_bar"].items() if not v <= 0}
+        if bad:
+            raise AssertionError(f"encoder_train_fwd f32 {list(x.shape)} {rates}: past rtol "
+                                 f"{F32_RTOL} / atol {F32_ATOL} by {bad}")
+    for k, bar in (() if f32 else (("pooled_err", POOLED_ATOL), ("tok_err", OUT_ATOL),
+                                    ("logits_err", OUT_ATOL))):
         if not rep[k] <= bar:
             raise AssertionError(f"encoder_train_fwd {list(x.shape)} {rates}: {k} {rep[k]} "
                                  f"> {bar}")
@@ -1384,9 +1450,10 @@ def _check_train_kernels(torch, w, x, bias, rates, gen, need_dx=False, vb=None):
     pooled32, m, s, _, l, saved = got
     g = torch.from_numpy(gen.standard_normal((b, *views, nh * e)).astype(np.float32)).cuda()
     dtok = torch.from_numpy(gen.standard_normal((b, t, w["wt"].shape[0])).astype(np.float32)
-                            ).cuda().to(torch.bfloat16)
+                            ).cuda().to(x.dtype)
     inner = (g * pooled32).reshape(b, *views, nh, e).sum(-1)
     bwd_args = (x, l, m, s, g, inner, dtok, saved, w, 1234, 0, *rates)
+    grad_rtol = F32_GRAD_RTOL if f32 else GRAD_RTOL
     gk = et.encoder_train_bwd_cuda(*bwd_args, need_dx=need_dx, vb=vb)
     gk2 = et.encoder_train_bwd_cuda(*bwd_args, need_dx=need_dx, vb=vb)
     with torch.no_grad():
@@ -1408,7 +1475,7 @@ def _check_train_kernels(torch, w, x, bias, rates, gen, need_dx=False, vb=None):
             ok = errs[k] <= BC_ATOL
         else:
             errs[k] = (diff.norm() / gp[k].float().norm().clamp_min(1e-30)).item()
-            ok = errs[k] <= GRAD_RTOL
+            ok = errs[k] <= grad_rtol
         if not ok:
             raise AssertionError(f"encoder_train_bwd {list(x.shape)} {rates}: d{k} error "
                                  f"{errs[k]}")
@@ -1425,9 +1492,9 @@ def _k7_keys(et, need_dx):
     return et.W_KEYS + (("x",) if need_dx else ())
 
 
-def _grad_errs(torch, got, want, keys, where):
+def _grad_errs(torch, got, want, keys, where, rtol=GRAD_RTOL):
     """Relative Frobenius error of each gradient (bc: absolute) against the
-    plain version's; raises past GRAD_RTOL (BC_ATOL) or on a non-finite one."""
+    plain version's; raises past rtol (BC_ATOL) or on a non-finite one."""
     errs = {}
     for k in keys:
         if not torch.isfinite(got[k]).all():
@@ -1435,12 +1502,12 @@ def _grad_errs(torch, got, want, keys, where):
         diff = (got[k] - want[k]).float()
         errs[k] = (diff.abs().max().item() if k == "bc"
                    else (diff.norm() / want[k].float().norm().clamp_min(1e-30)).item())
-        if not errs[k] <= (BC_ATOL if k == "bc" else GRAD_RTOL):
+        if not errs[k] <= (BC_ATOL if k == "bc" else rtol):
             raise AssertionError(f"{where}: d{k} error {errs[k]}")
     return errs
 
 
-def _check_recompute(torch, w, x, bias, rates, gen, need_dx=False):
+def _check_recompute(torch, w, x, bias, rates, gen, need_dx=False, vb=None, timed=True):
     """The recompute route (B1c) against the save route on one call: K6 with
     save off gives the save route's pooled, m, s, tokens and logits bit for
     bit and no residuals; K7 with saved None (the residuals rebuilt on the
@@ -1448,42 +1515,46 @@ def _check_recompute(torch, w, x, bias, rates, gen, need_dx=False):
     for bit, twice; both routes held to the plain versions (save route: the
     usual checks) at the usual bars, the recompute route also against the
     plain recompute from x (every gradient but bc, whose exact value is 0,
-    at GRAD_RTOL; bc reported). K7's ms on both routes."""
+    at GRAD_RTOL, F32_GRAD_RTOL with f32 operands; bc reported). K7's ms on
+    both routes and K6's without saves (unless not `timed`)."""
     from madeleine_torch.ops import encoder_train as et
 
-    rep, got, fa, ba = _check_train_kernels(torch, w, x, bias, rates, gen, need_dx=need_dx)[:4]
-    nosave = et.encoder_train_fwd_cuda(*fa, save=False)
+    rtol = F32_GRAD_RTOL if x.dtype == torch.float32 else GRAD_RTOL
+    rep, got, fa, ba = _check_train_kernels(torch, w, x, bias, rates, gen, need_dx=need_dx,
+                                            vb=vb)[:4]
+    nosave = et.encoder_train_fwd_cuda(*fa, save=False, vb=vb)
     if nosave[5] is not None or not all(torch.equal(a, c) for a, c in zip(got[:5], nosave[:5])):
         raise AssertionError("encoder_train_fwd: the save-off launch differs from the save route")
     br = list(ba)
     br[7] = None
     keys = _k7_keys(et, need_dx)
-    gs = et.encoder_train_bwd_cuda(*ba, need_dx=need_dx)
-    gr = et.encoder_train_bwd_cuda(*br, need_dx=need_dx)
-    gr2 = et.encoder_train_bwd_cuda(*br, need_dx=need_dx)
+    gs = et.encoder_train_bwd_cuda(*ba, need_dx=need_dx, vb=vb)
+    gr = et.encoder_train_bwd_cuda(*br, need_dx=need_dx, vb=vb)
+    gr2 = et.encoder_train_bwd_cuda(*br, need_dx=need_dx, vb=vb)
     unequal = [k for k in keys if not (torch.equal(gs[k], gr[k]) and torch.equal(gr[k], gr2[k]))]
     if unequal:
         raise AssertionError(f"encoder_train_bwd: the recompute route differs from the save "
                              f"route (or from itself) in {unequal}")
     with torch.no_grad():
-        gp = et.encoder_train_bwd_plain(*ba, need_dx=need_dx)   # on K6's residuals
-        gpr = et.encoder_train_bwd_plain(*br, need_dx=need_dx)   # the plain recompute from x
-    errs = _grad_errs(torch, gr, gp, keys, f"encoder_train_bwd recompute {list(x.shape)}")
+        gp = et.encoder_train_bwd_plain(*ba, need_dx=need_dx, vb=vb)   # on K6's residuals
+        gpr = et.encoder_train_bwd_plain(*br, need_dx=need_dx, vb=vb)   # plain recompute from x
+    errs = _grad_errs(torch, gr, gp, keys, f"encoder_train_bwd recompute {list(x.shape)}", rtol)
     # against the plain recompute: its residuals are the plain forward's, not
     # K6's, so the exact-zero bc gradient holds other rounding noise there
     # (reported); every other gradient at GRAD_RTOL
     errs_pr = _grad_errs(torch, gr, gpr, [k for k in keys if k != "bc"],
-                         f"encoder_train_bwd recompute vs plain recompute {list(x.shape)}")
+                         f"encoder_train_bwd recompute vs plain recompute {list(x.shape)}", rtol)
     bc_pr = (gr["bc"] - gpr["bc"]).abs().max().item()
     del gs, gr2, gp, gpr
-    return dict(rep, recompute_bitwise_equal_save=True, nosave_fwd_bitwise_equal=True,
+    times = {} if not timed else dict(
+        k7_save_ms=cuda_ms(lambda: et.encoder_train_bwd_cuda(*ba, need_dx=need_dx, vb=vb)),
+        k7_recompute_ms=cuda_ms(lambda: et.encoder_train_bwd_cuda(*br, need_dx=need_dx,
+                                                                  vb=vb)),
+        k6_nosave_ms=cuda_ms(lambda: et.encoder_train_fwd_cuda(*fa, save=False, vb=vb)))
+    return dict(rep, **times, recompute_bitwise_equal_save=True, nosave_fwd_bitwise_equal=True,
                 recompute_grad_max_rel_fro=max(v for k, v in errs.items() if k != "bc"),
                 recompute_vs_plain_recompute_max_rel_fro=max(errs_pr.values()),
-                recompute_vs_plain_recompute_bc_abs=bc_pr,
-                k7_save_ms=cuda_ms(lambda: et.encoder_train_bwd_cuda(*ba, need_dx=need_dx)),
-                k7_recompute_ms=cuda_ms(lambda: et.encoder_train_bwd_cuda(*br,
-                                                                          need_dx=need_dx)),
-                k6_nosave_ms=cuda_ms(lambda: et.encoder_train_fwd_cuda(*fa, save=False)))
+                recompute_vs_plain_recompute_bc_abs=bc_pr)
 
 
 def _check_recompute_long(torch, w, lengths, rates, gen):
@@ -1948,6 +2019,135 @@ def phase_train_kernels(state):
           "atol_tok_logits": OUT_ATOL, "grad_rtol_fro": GRAD_RTOL, "bc_atol": BC_ATOL,
           "checks": checks, "times": times, "recompute": recompute, "hbm_guard": hbm_guard,
           "recompute_bound_ms_step_call": k7rb, "nosave_bound_ms_step_call": k6nb})
+
+
+F32_STEP_SHAPE = (65, 2048)   # the f32 step's call shape: one modality of 65 cases
+
+
+def _ffma_chunks(et, M, dims):
+    """The f32 route's weight-gradient piece lengths for each product at M
+    tokens: the library's (csrc/gemm_ffma.cuh::wgrad_chunk) against
+    ops/encoder_train.py::ffma_wgrad_chunk, which the CPU tests' mirror uses."""
+    import ctypes
+
+    from madeleine_torch.ops import _build
+
+    fn = _build.load("encoder_train_fwd").encoder_train_ffma_wgrad_chunk
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+    d_in, hd, E, nh, f, e, dout = dims
+    out = {}
+    for name, (mo, no, nb) in {"w1": (hd, d_in, 1), "w2": (hd, hd, 1), "w3": (E, hd, 1),
+                               "wab": (2 * f, e, nh), "wt": (dout, E, 1)}.items():
+        lib_c, py_c = fn(mo, no, M, nb), et.ffma_wgrad_chunk(mo, no, M, nb)
+        if lib_c != py_c:
+            raise AssertionError(f"train_kernels_f32: piece length of d{name} at M={M}: "
+                                 f"library {lib_c}, Python {py_c}")
+        out[name] = {"chunk": lib_c, "pieces": -(-M // lib_c)}
+    return out
+
+
+def phase_train_kernels_f32(state):
+    """K6 and K7 with f32 operands (the JAX package's parity route,
+    --precision float32) against their plain versions at the step's call
+    shape [65, 2048] with the flagship weights in f32 at the real rates:
+    every token valid; a ragged mask (log-uniform lengths, two bags empty);
+    the stain-encoded call [65, 2048, 544] with dx (need_dx); and n_views =
+    3 (one half-bag split). Each on the save route (K6's outputs within
+    rtol 1e-4 / atol 1e-5, every K7 gradient and dx within 1e-4 relative
+    Frobenius, bc within BC_ATOL, two launches bitwise equal) and the
+    recompute route (K6 without saves and K7 rebuilding the residuals, bit
+    for bit the save route, and against the plain recompute at the same
+    bars). Timed at [65, 2048] (K6, K7 on both routes, each plain version),
+    beside the bound at the FP32 FMA peak (67 TFLOP/s) or the bytes; the
+    weight gradients' piece lengths, the library's against the Python
+    mirror's, at 133,120 and 532,480 rows (buckets 2048 and 8192)."""
+    import torch
+    from madeleine_torch.models.madeleine import half_split, train_weights
+    from madeleine_torch.ops import encoder_train as et
+
+    gen = np.random.default_rng(SEED + 13)
+    real = (et.PRE_RATE, et.GATE_RATE)
+    b, t = F32_STEP_SHAPE
+    model = flagship_model(torch, "float32")
+    with torch.no_grad():
+        w = {k: v.detach().contiguous() for k, v in train_weights(model, torch.float32).items()}
+
+    def inputs(lengths, d=512):
+        x = torch.from_numpy(gen.standard_normal((b, t, d)).astype(np.float32)).cuda()
+        mask = torch.arange(t)[None, :] < torch.as_tensor(lengths)[:, None]
+        return x.contiguous(), et.token_mask_bias(mask.cuda(), b, t, "cuda")
+
+    full = [t] * b
+    lengths_r = np.exp(gen.uniform(0.0, np.log(t), b)).astype(np.int64)
+    lengths_r[:2] = 0
+    checks = {}
+    x, bias = inputs(full)
+    checks["step_call"] = _check_recompute(torch, w, x, bias, real, gen)
+    # K6's save route and both plain versions, timed on the dense call
+    rep, _, fa, ba = _check_train_kernels(torch, w, x, bias, real, gen)
+    k6 = cuda_ms(lambda: et.encoder_train_fwd_cuda(*fa))
+    with torch.no_grad():
+        k6p = cuda_ms(lambda: et.encoder_train_fwd_plain(*fa), warmup=1, iters=3)
+        k7p = cuda_ms(lambda: et.encoder_train_bwd_plain(*ba), warmup=1, iters=3)
+    del fa, ba
+    vb = et.view_bias(half_split(SEED, t, "cuda"), t, "cuda")
+    checks["step_call_views"] = _check_recompute(torch, w, x, bias, real, gen, vb=vb,
+                                                 timed=False)
+    del x, bias
+    x, bias = inputs(lengths_r)
+    checks["step_call_ragged"] = _check_recompute(torch, w, x, bias, real, gen, timed=False)
+    del x
+    model_se = flagship_model(torch, "float32", stain_encoding=True)
+    with torch.no_grad():
+        w_se = {k: v.detach().contiguous()
+                for k, v in train_weights(model_se, torch.float32).items()}
+        code = model_se.embedding.weight[1].float()
+    x, _ = inputs(full)
+    x = torch.cat([x, code.expand(b, t, -1)], dim=-1).contiguous()
+    checks["step_call_ragged_se"] = _check_recompute(torch, w_se, x, bias, real, gen,
+                                                     need_dx=True, timed=False)
+    del x, bias
+    torch.cuda.empty_cache()
+    st = checks["step_call"]
+    ff, fb, bf, bb_ = _encoder_train_work(b, t, w)
+    (k6b, k6by), (k7b, k7by) = _bound(ff, fb, PEAK_FP32), _bound(bf, bb_, PEAK_FP32)
+    ff_r, fb_r, bf_r, bb_r = _encoder_train_work(b, t, w, recompute=True)
+    (k6nb, _), (k7rb, k7rby) = _bound(ff_r, fb_r, PEAK_FP32), _bound(bf_r, bb_r, PEAK_FP32)
+    nh, f, e = w["wa"].shape
+    dims = (512, 512, nh * e, nh, f, e, w["wt"].shape[0])
+    chunks = {M: _ffma_chunks(et, M, dims) for M in (b * t, b * 8192)}
+    times = {"fwd_ms": k6, "fwd_plain_ms": k6p, "fwd_bound_ms": k6b, "fwd_bound_by": k6by,
+             "fwd_share_of_bound": k6b / k6, "fwd_nosave_ms": st["k6_nosave_ms"],
+             "fwd_nosave_bound_ms": k6nb, "bwd_ms": st["k7_save_ms"], "bwd_plain_ms": k7p,
+             "bwd_bound_ms": k7b, "bwd_bound_by": k7by,
+             "bwd_share_of_bound": k7b / st["k7_save_ms"],
+             "bwd_recompute_ms": st["k7_recompute_ms"], "bwd_recompute_bound_ms": k7rb,
+             "bwd_recompute_share_of_bound": k7rb / st["k7_recompute_ms"],
+             "fwd_tflops": ff / k6 / 1e9, "bwd_tflops": bf / st["k7_save_ms"] / 1e9,
+             "fwd_gflop": ff / 1e9, "bwd_gflop": bf / 1e9}
+    reps = list(checks.values())
+    err_f = max(max(r["pooled_err"], r["tok_err"], r["logits_err"]) for r in reps)
+    err_b = max(r["grad_max_abs_err"] for r in reps)
+    common = {"route": "cuda", "library_ms": None, "operand_dtype": "float32",
+              "shape": list(F32_STEP_SHAPE)}
+    state.setdefault("kernels", {}).update({
+        "encoder_train_fwd_f32": dict(
+            common, name="encoder_train_fwd_f32",
+            source="madeleine_torch/csrc/encoder_train_fwd.cu",
+            replaces="madeleine_tpu/ops/encoder_train.py:168", max_abs_err=err_f, ms=k6,
+            plain_ms=k6p, bound_ms=k6b, bound_by=k6by, nosave_ms=st["k6_nosave_ms"],
+            nosave_bound_ms=k6nb),
+        "encoder_train_bwd_f32": dict(
+            common, name="encoder_train_bwd_f32",
+            source="madeleine_torch/csrc/encoder_train_bwd.cu",
+            replaces="madeleine_tpu/ops/encoder_train.py:262", max_abs_err=err_b,
+            ms=st["k7_save_ms"], plain_ms=k7p, bound_ms=k7b, bound_by=k7by,
+            recompute_ms=st["k7_recompute_ms"], recompute_bound_ms=k7rb,
+            recompute_bound_by=k7rby)})
+    emit({"phase": "train_kernels_f32", "smi": state["smi"], "shape": list(F32_STEP_SHAPE),
+          "rtol": F32_RTOL, "atol": F32_ATOL, "grad_rtol_fro": F32_GRAD_RTOL, "bc_atol": BC_ATOL,
+          "ragged_lengths": lengths_r.tolist(), "checks": checks, "times": times,
+          "wgrad_pieces": chunks, "peak_tflops_fp32": PEAK_FP32 / 1e12})
 
 
 # GOT kernels: relative Frobenius bars against the plain versions on the card
@@ -3655,6 +3855,75 @@ def phase_train_views(state):
 # Full-bag (ragged) training, the JAX package's default --n_subsamples -1:
 # per case the published step on bags of log-uniform lengths padded to the
 # bucket, and the route the save_acts gate must take at that bucket
+F32_KERNELS = ("encoder_train_fwd_f32", "encoder_train_bwd_f32")   # K6 / K7, f32 operands
+F32_LOSS_RTOL = 1e-5    # train_f32: the loss against the plain K6/K7's step, relative
+F32_B2B_STEPS = 3       # train_f32: steps launched back to back
+
+
+def phase_train_f32(state):
+    """The published step at --precision float32 (the JAX package's parity
+    route): InfoNCE + GOT with the launch script's flags, 65 x 5 x 2048 f32,
+    5 steps (_run_train_steps: the loss falls, none skipped, K6/K7 with f32
+    operands and K8-K14 on every step, no bf16 K6/K7 launch; a step under
+    sync debug mode "error", 3 back to back). Then from the trained weights
+    one step's loss and every parameter gradient against the same step with
+    K6 and K7 replaced by their plain versions on the card: the loss within
+    1e-5 relative, each gradient within 1e-4 relative Frobenius (bc, the
+    attention's output bias, within BC_ATOL). The step ms, the host's ms a
+    step, the peak and the weights' digest; the plain step's ms."""
+    import torch
+    from madeleine_torch.ops import encoder_train as et
+    from madeleine_torch.train.trainer import step_seed
+    from madeleine_torch.utils.device import full_precision_matmul
+
+    full_precision_matmul()   # the plain versions' products in full f32, as JAX's HIGHEST
+    torch.cuda.empty_cache()
+    cfg = got_path_config(precision="float32")
+    setup = _train_setup(torch, cfg)
+    _, model, step, batch = setup
+    run = _run_train_steps(torch, state, "train_f32", F32_KERNELS + GOT_KERNELS + GLUE_KERNELS,
+                           cfg, setup=setup, b2b_steps=F32_B2B_STEPS, skips=False)[3]
+    del setup
+    if any(run["launches"][k] for k in ENCODER_KERNELS):
+        raise AssertionError(f"train_f32: bf16 K6/K7 launched {run['launches']}")
+    params = [p.detach().clone() for p in model.parameters()]
+    seed = step_seed(SEED, 2, 0)
+    loss_k, g_k, _ = _grads_of_step(torch, model, step, batch, seed, params)
+    before = read_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with mock.patch.object(et, "encoder_train_fwd_cuda", et.encoder_train_fwd_plain), \
+            mock.patch.object(et, "encoder_train_bwd_cuda", et.encoder_train_bwd_plain):
+        start.record()
+        loss_p, g_p, _ = _grads_of_step(torch, model, step, batch, seed, params)
+        end.record()
+        end.synchronize()
+    after = read_counts()
+    if any(after[k] - before[k] for k in F32_KERNELS):
+        raise AssertionError("train_f32: the plain step launched K6/K7")
+    errs, bc = {}, {}
+    for k in g_p:
+        if k.endswith("attention_c.bias"):
+            bc[k] = float((g_k[k] - g_p[k]).abs().max())
+        elif g_p[k].norm() > 0:
+            errs[k] = _rel_fro(g_k[k], g_p[k])
+    vs_plain = {"seed": seed, "loss": loss_k, "loss_plain": loss_p,
+                "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
+                "grad_max_rel_fro": max(errs.values()), "grad_rel_fro": errs,
+                "bc_max_abs": max(bc.values()), "plain_step_ms": start.elapsed_time(end)}
+    del params, g_k, g_p, model, step, batch
+    torch.cuda.empty_cache()
+    emit({"phase": "train_f32", "smi": state["smi"], **run, "vs_plain": vs_plain})
+    if not (vs_plain["loss_rel_err"] <= F32_LOSS_RTOL
+            and vs_plain["grad_max_rel_fro"] <= F32_GRAD_RTOL
+            and vs_plain["bc_max_abs"] <= BC_ATOL):
+        raise AssertionError(f"train_f32: the kernels' step misses the plain step: loss "
+                             f"{vs_plain['loss_rel_err']}, gradients "
+                             f"{vs_plain['grad_max_rel_fro']}, bc {vs_plain['bc_max_abs']}")
+    state["train_f32"] = {"step_ms": run["step_ms_median_after_first"],
+                          "host_ms": run["host_ms_per_step_back_to_back"],
+                          "peak_gb": run["peak_memory_gb"]}
+
+
 RAGGED_CASES = {"a": (1024, 16384, "recompute"), "b": (1024, 8192, "save")}
 RAGGED_EMPTY = 3          # empty (case, stain) bags per batch, label 0
 RAGGED_B2B_STEPS = 3
@@ -4136,9 +4405,10 @@ def _pinned_batch_outlives_its_copy(torch, n=64 << 20):
             "mb": n * 4 / 2 ** 20}
 
 
-def _pretrain_trio(root, tag, epochs_a, epochs, *extra, n_subsamples=2048):
+def _pretrain_trio(root, tag, epochs_a, epochs, *extra, n_subsamples=2048, **check):
     """Three CLI runs on the cohort: A epochs_a epochs with --checkpoint_every
-    1, B A resumed to `epochs`, C `epochs` straight. Returns (runs, model.pt
+    1, B A resumed to `epochs`, C `epochs` straight, each checked by
+    `_check_pretrain_run` (`check`: its keywords). Returns (runs, model.pt
     state dicts, wall seconds, resume report); B must equal C bit for bit."""
     import torch
 
@@ -4154,7 +4424,7 @@ def _pretrain_trio(root, tag, epochs_a, epochs, *extra, n_subsamples=2048):
             resume_from = os.path.join(results, "train_state")
         first = epochs_a if name == "B" else 0
         runs[name], sds[name] = _check_pretrain_run(tag + name, results, records,
-                                                    range(first, n))
+                                                    range(first, n), **check)
     unequal = [k for k in sds["C"] if not torch.equal(sds["B"][k], sds["C"][k])]
     max_diff = max((sds["B"][k] - sds["C"][k]).abs().max().item() for k in sds["C"])
     # the resumed epochs against the uninterrupted ones: the same batches, losses
@@ -4352,6 +4622,48 @@ def phase_pretrain_ragged(state):
           "peak_memory_gb": max(r["peak_memory_gb"] for r in every)})
 
 
+def phase_pretrain_f32(state):
+    """`python -m madeleine_torch.cli.pretrain` at --precision float32 with
+    the launch script's other flags and its default full bags
+    (--n_subsamples -1) on pretrain_ragged's synthetic cohort (70 cases of
+    bf16 .bag bags of 300-8000 tokens, bucket 8192; the native loader
+    assembles f32): A 1 epoch with --checkpoint_every 1, B A resumed to 2, C
+    2 straight, B's model.pt equal to C's bit for bit. Every step finite and
+    applied, K6/K7 with f32 operands (on the recompute route: a call's saves,
+    15.3 GB in f32, pass the 10 GiB budget) and K8-K14 on every step, no
+    bf16 K6/K7, K2 in the downstream pass; the CLI step ms and the peak."""
+    import torch
+
+    gen = np.random.default_rng(SEED + 9)   # pretrain_ragged's cohort
+    root = tempfile.mkdtemp(prefix="pretrain_f32_")
+    try:
+        _write_pretrain_cohort(root, gen, tokens=RAGGED_PRETRAIN_TOKENS, dtype="bfloat16")
+        runs, _, walls, resume = _pretrain_trio(
+            root, "f32_", 1, 2, "--precision", "float32", n_subsamples=None,
+            kernels=F32_KERNELS + GOT_KERNELS + GLUE_KERNELS, downstream_kernel="gated_pool",
+            loader="native-f32")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    every = list(runs.values())
+    launches = {k: sum(r["launches"].get(k, 0) for r in every) for k in read_counts()}
+    steps = sum(len(r["losses"]) for r in every)
+    n_calls = steps * len(PRETRAIN_STAINS)
+    routes = {"k6_nosave": launches["encoder_train_fwd_f32_nosave"],
+              "k7_recompute": launches["encoder_train_bwd_f32_recompute"]}
+    if any(launches[k] for k in ENCODER_KERNELS) or routes != {"k6_nosave": n_calls,
+                                                               "k7_recompute": n_calls}:
+        raise AssertionError(f"pretrain_f32: routes {routes} of {n_calls} calls, bf16 K6/K7 "
+                             f"{[launches[k] for k in ENCODER_KERNELS]}")
+    state["launches_pretrain_f32"] = launches
+    warm = [ms for r in every for ms in r["step_ms"][1:]]
+    emit({"phase": "pretrain_f32", "smi": state["smi"], "cases": PRETRAIN_CASES,
+          "bag_tokens": list(RAGGED_PRETRAIN_TOKENS),
+          "flags": "launch script's with --precision float32, without --n_subsamples",
+          "runs": runs, "cli_wall_s": walls, **resume, "route_launches": routes,
+          "step_ms_median_warm": statistics.median(warm),
+          "peak_memory_gb": max(r["peak_memory_gb"] for r in every)})
+
+
 DP_BS = 64                   # (b)'s global batch: 32 rows a rank
 DP_RAGGED = (16, 1024, 4096)  # (b)'s ragged step: rows, shortest and longest bag (the bucket)
 DP_BAG = (8, 4096)           # (c): bags, tokens
@@ -4393,13 +4705,15 @@ def _dp_step(torch, step, batch, seed):
              if p.grad is not None})
 
 
-def _dp_inputs(torch, rank=0, world=1):
+def _dp_inputs(torch, rank=0, world=1, precision="bfloat16"):
     """(b)'s and (c)'s inputs, made on the card from seeds (every process
     makes the same), and this rank's share: (cfg, model, initial weights,
-    the dense batch's rows, the ragged batch's rows, the bags' token shard)."""
+    the dense batch's rows, the ragged batch's rows, the bags' token shard);
+    the step at `precision`."""
     from madeleine_torch.parallel.mesh import shard_batch
 
-    cfg, model, _, dense = _train_setup(torch, got_path_config(batch_size=DP_BS))
+    cfg, model, _, dense = _train_setup(torch, got_path_config(batch_size=DP_BS,
+                                                               precision=precision))
     init = {k: v.clone() for k, v in model.state_dict().items()}
     rows, lo, hi = DP_RAGGED
     ragged = ragged_batch(torch, ragged_lengths(SEED + 31, rows, cfg.n_modalities, lo, hi),
@@ -4415,7 +4729,8 @@ def _dp_inputs(torch, rank=0, world=1):
 
 def _dp_results(torch, cfg, model, init, dense, ragged, bags, group):
     """(b)'s two steps from the initial weights and (c)'s bag-parallel
-    encode on `group` (None: one process, no group; (c) then K1's encode)."""
+    encode on `group` (None: one process, no group; (c) then K1's encode;
+    with an f32 step, no (c))."""
     from madeleine_torch.models.madeleine import encode
     from madeleine_torch.parallel import collectives
     from madeleine_torch.parallel.bag_parallel import encode_bag_parallel
@@ -4450,6 +4765,8 @@ def _dp_results(torch, cfg, model, init, dense, ragged, bags, group):
                 step(batch, DP_SEED + 1 + i)
                 torch.cuda.synchronize()
             out["dense_step_ms"] = (time.perf_counter() - t0) * 1e3 / DP_TIMED_STEPS
+    if cfg.precision != "bfloat16":
+        return out
     model.load_state_dict(init)
     model.eval()
     with torch.no_grad():
@@ -4458,9 +4775,11 @@ def _dp_results(torch, cfg, model, init, dense, ragged, bags, group):
     return out
 
 
-def dp_worker(rank: int, world: int, port: int, out_path: str) -> None:
+def dp_worker(rank: int, world: int, port: int, out_path: str,
+              precision: str = "bfloat16") -> None:
     """One rank of (b): a Gloo group over CUDA tensors on the one card; runs
-    `_dp_results` on its rows and saves them to out_path."""
+    `_dp_results` on its rows, the step at `precision`, and saves them to
+    out_path."""
     import torch
 
     sys.path.insert(0, HERE)
@@ -4468,13 +4787,56 @@ def dp_worker(rank: int, world: int, port: int, out_path: str) -> None:
 
     resolve_device("cuda")
     group = _init_group("gloo", rank, world, port)
-    cfg, model, init, dense, ragged, bags = _dp_inputs(torch, rank, world)
+    cfg, model, init, dense, ragged, bags = _dp_inputs(torch, rank, world, precision)
     out = _dp_results(torch, cfg, model, init, dense, ragged, bags, group)
     torch.save(out, out_path)
     torch.distributed.destroy_process_group()
 
 
-def _dp_compare(torch, got, want, partials):
+def _dp_world_2(torch, precision):
+    """(b)'s two ranks, each a process on the one card: their saved results
+    and the wall seconds."""
+    tmp, procs = tempfile.mkdtemp(prefix="dp_"), []
+    try:
+        port = _free_port()
+        t0 = time.perf_counter()
+        for r in range(2):
+            code = (f"import sys; sys.path.insert(0, {HERE!r}); import chip_smoke; "
+                    f"chip_smoke.dp_worker({r}, 2, {port}, {os.path.join(tmp, f'rank{r}.pt')!r}, "
+                    f"{precision!r})")
+            log = open(os.path.join(tmp, f"rank{r}.log"), "w")
+            procs.append((subprocess.Popen([sys.executable, "-c", code], cwd=HERE, stdout=log,
+                                           stderr=subprocess.STDOUT), log))
+        rcs = [p.wait(timeout=600) for p, _ in procs]
+        wall = time.perf_counter() - t0
+        for _, log in procs:
+            log.close()
+        if any(rcs):
+            logs = "\n".join(open(os.path.join(tmp, f"rank{r}.log")).read()[-3000:]
+                             for r in range(2))
+            raise AssertionError(f"data_parallel (b, {precision}): a rank failed ({rcs}):\n"
+                                 f"{logs}")
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)], wall
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _dp_gather(torch, ranks):
+    """The world-2 step's results (the ranks' H&E rows in rank order, the
+    loss, the summed gradients) and whether both ranks hold the same loss
+    and gradients."""
+    got = {name: (torch.cat([r[name][0] for r in ranks]), ranks[0][name][1], ranks[0][name][2])
+           for name in ("dense", "ragged")}
+    same = all(ranks[0][n][1] == ranks[1][n][1] and all(
+        torch.equal(ranks[0][n][2][k], ranks[1][n][2][k]) for k in ranks[0][n][2])
+        for n in ("dense", "ragged"))
+    return got, same
+
+
+def _dp_compare(torch, got, want, partials, f32=False):
     """(b)'s comparison of the world-2 step (`got`; `partials`: each rank's
     gradients before their sum) with the world-1 step on the same rows:
     the H&E embeddings (relative Frobenius, DP_HE_REL), the loss (relative,
@@ -4484,8 +4846,9 @@ def _dp_compare(torch, got, want, partials):
     does), so ||g2 - g1|| must stay within DP_GRAD_SUMMANDS, one bf16
     rounding step (2^-8), of ||g1|| + sum_r ||g_r||. A rank's gradients can
     cancel (the projector's are nearly opposite), so the plain relative
-    Frobenius error is reported beside it. Returns ({step: errors},
-    [failures])."""
+    Frobenius error is reported beside it. With the f32 step (`f32`) every
+    gradient but bc is held to F32_GRAD_RTOL relative Frobenius instead.
+    Returns ({step: errors}, [failures])."""
     errs, bad = {}, []
     for name in ("dense", "ragged"):
         (he, loss, grads), (he_w, loss_w, grads_w) = got[name], want[name]
@@ -4504,12 +4867,14 @@ def _dp_compare(torch, got, want, partials):
                  grad_max_rel_fro=max(fro.values()),
                  grad_max_err_over_summands=max(summands.values()), bc_max_abs=max(bc.values()))
         errs[name] = e
+        grads_ok = (e["grad_max_rel_fro"] <= F32_GRAD_RTOL if f32
+                    else e["grad_max_err_over_summands"] <= DP_GRAD_SUMMANDS)
         if not (grads.keys() == grads_w.keys() and e["he_rel_fro"] <= DP_HE_REL
-                and e["loss_rel"] <= DP_LOSS_REL and e["bc_max_abs"] <= BC_ATOL
-                and e["grad_max_err_over_summands"] <= DP_GRAD_SUMMANDS):
-            bad.append(f"(b) {name}: he {e['he_rel_fro']}, loss {e['loss_rel']}, bc "
-                       f"{e['bc_max_abs']}, gradients {e['grad_max_err_over_summands']} of "
-                       f"their summands")
+                and e["loss_rel"] <= DP_LOSS_REL and e["bc_max_abs"] <= BC_ATOL and grads_ok):
+            bad.append(f"(b) {name}{' f32' if f32 else ''}: he {e['he_rel_fro']}, loss "
+                       f"{e['loss_rel']}, bc {e['bc_max_abs']}, gradients "
+                       f"{e['grad_max_rel_fro']} relative, {e['grad_max_err_over_summands']} "
+                       f"of their summands")
     return errs, bad
 
 
@@ -4613,35 +4978,8 @@ def phase_data_parallel(state):
                              f"times, max |err| {bag_err_w1} against K1's encode")
     torch.cuda.empty_cache()
     # (b) world size 2 on the one card, Gloo over CUDA tensors
-    tmp, procs = tempfile.mkdtemp(prefix="dp_"), []
-    try:
-        port = _free_port()
-        t0 = time.perf_counter()
-        for r in range(2):
-            code = (f"import sys; sys.path.insert(0, {HERE!r}); import chip_smoke; "
-                    f"chip_smoke.dp_worker({r}, 2, {port}, {os.path.join(tmp, f'rank{r}.pt')!r})")
-            log = open(os.path.join(tmp, f"rank{r}.log"), "w")
-            procs.append((subprocess.Popen([sys.executable, "-c", code], cwd=HERE, stdout=log,
-                                           stderr=subprocess.STDOUT), log))
-        rcs = [p.wait(timeout=600) for p, _ in procs]
-        wall_b = time.perf_counter() - t0
-        for _, log in procs:
-            log.close()
-        if any(rcs):
-            logs = "\n".join(open(os.path.join(tmp, f"rank{r}.log")).read()[-3000:]
-                             for r in range(2))
-            raise AssertionError(f"data_parallel (b): a rank failed ({rcs}):\n{logs}")
-        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
-    finally:
-        for p, _ in procs:
-            if p.poll() is None:
-                p.kill()
-        shutil.rmtree(tmp, ignore_errors=True)
-    got = {name: (torch.cat([r[name][0] for r in ranks]), ranks[0][name][1], ranks[0][name][2])
-           for name in ("dense", "ragged")}
-    same = all(ranks[0][n][1] == ranks[1][n][1] and all(
-        torch.equal(ranks[0][n][2][k], ranks[1][n][2][k]) for k in ranks[0][n][2])
-        for n in ("dense", "ragged"))
+    ranks, wall_b = _dp_world_2(torch, "bfloat16")
+    got, same = _dp_gather(torch, ranks)
     errs, failures = _dp_compare(torch, got, ref, ranks)
     bag_err_w2 = [float((r["bag"] - ref["bag"]).abs().max()) for r in ranks]
     if not same or not max(bag_err_w2) <= DP_BAG_ATOL:
@@ -4655,6 +4993,24 @@ def phase_data_parallel(state):
                 "max_abs_err_world_2_gloo": bag_err_w2, "bar": DP_BAG_ATOL,
                 "row4_launches_world_1": c_counts["attn_pool_ms"]}
     emit({"phase": "data_parallel", "smi": state["smi"], "b": out["b"], "c": out["c"]})
+    # (b) again with the f32 step (K6/K7 with f32 operands): nothing is rounded
+    # to bf16 before the sum over ranks, so every gradient meets 1e-4
+    # relative Frobenius against one process on the same rows
+    cfg_f, model, init, dense, ragged, bags = _dp_inputs(torch, precision="float32")
+    ref_f = _dp_results(torch, cfg_f, model, init, dense, ragged, bags, None)
+    del model, init, dense, ragged, bags
+    torch.cuda.empty_cache()
+    ranks, wall_f = _dp_world_2(torch, "float32")
+    got, same = _dp_gather(torch, ranks)
+    errs_f, bad_f = _dp_compare(torch, got, ref_f, ranks, f32=True)
+    if not same:
+        bad_f.append("(b) f32: the ranks disagree")
+    failures += bad_f
+    out["b_f32"] = {"backend": "gloo (CUDA tensors)", "world_size": 2, "wall_s": wall_f,
+                    "step_ms_world_2": [r["dense_step_ms"] for r in ranks],
+                    "step_ms_world_1_same_rows": ref_f["dense_step_ms"], "ranks_agree": same,
+                    "grad_rtol_fro": F32_GRAD_RTOL, **errs_f}
+    emit({"phase": "data_parallel", "smi": state["smi"], "b_f32": out["b_f32"]})
     # (d) the CLI under torchrun --nproc_per_node 1 against the plain CLI
     root = tempfile.mkdtemp(prefix="dp_cli_")
     try:
@@ -4978,10 +5334,13 @@ def main() -> int:
     from madeleine_torch.utils.device import resolve_device
 
     resolve_device("cuda")
-    state = {}
+    state, seconds, t_start = {}, {}, time.perf_counter()
     for p in PHASES:
         if p in phases:
+            t0 = time.perf_counter()
             globals()[f"phase_{p}"](state)
+            seconds[p] = time.perf_counter() - t0
+    emit({"phase_seconds": seconds, "total_s": time.perf_counter() - t_start})
     if phases != list(PHASES):
         emit({"partial": phases})
         return 0
@@ -4995,15 +5354,18 @@ def main() -> int:
     side = {k: sum(state[f"launches_{p}"][k] for p in SIDE_PATHS)
             + state["launches_pretrain_side"][k] for k in state["kernels"]}
     ragged = {k: sum(state[f"launches_{p}"][k] for p in RAGGED_PATHS) for k in state["kernels"]}
-    emit({"launches_by_lane": {k: {"published": launches[k] - side[k] - ragged[k],
-                                   "side_lanes": side[k], "ragged": ragged[k]}
+    f32 = {k: sum(state[f"launches_{p}"][k] for p in F32_PATHS) for k in state["kernels"]}
+    emit({"launches_by_lane": {k: {"published": launches[k] - side[k] - ragged[k] - f32[k],
+                                   "side_lanes": side[k], "ragged": ragged[k], "f32": f32[k]}
                                for k in launches}})
     # K6's save-off and K7's recompute launches on the main path (within theirs)
-    routes = {k: sum(state[f"launches_{p}"][k] for p in MAIN_PATHS)
-              for k in ("encoder_train_fwd_nosave", "encoder_train_bwd_recompute")}
-    state["kernels"]["encoder_train_fwd"]["nosave_launches"] = routes["encoder_train_fwd_nosave"]
-    state["kernels"]["encoder_train_bwd"]["recompute_launches"] = routes[
-        "encoder_train_bwd_recompute"]
+    for kernel, route, counter in (("encoder_train_fwd", "nosave_launches", "_nosave"),
+                                   ("encoder_train_bwd", "recompute_launches", "_recompute"),
+                                   ("encoder_train_fwd_f32", "nosave_launches", "_nosave"),
+                                   ("encoder_train_bwd_f32", "recompute_launches",
+                                    "_recompute")):
+        state["kernels"][kernel][route] = sum(state[f"launches_{p}"][kernel + counter]
+                                              for p in MAIN_PATHS)
     emit({"kernels": [dict(v, launches=launches[k]) for k, v in state["kernels"].items()]})
     print(state["smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": state["kind"],

@@ -1,4 +1,4 @@
-// Whole-encoder training backward in bf16 (kernel K7).
+// Whole-encoder training backward (kernel K7), bf16 or f32 operands.
 //
 // Replaces madeleine_tpu/ops/encoder_train.py::_bwd_kernel (both save_acts
 // routes, need_dx off and on, n_views 1 and 3). From the forward's residuals
@@ -20,6 +20,12 @@
 // Outputs: the 20 weight, bias and LN gradients in f32 and, when the caller
 // passes a dx buffer (need_dx: the input carries the learned stain-encoding
 // columns), the input gradient dx = dz1 . W1 [b, t, d_in] in bf16.
+// With f32 operands (encoder_train_backward_f32, the JAX package's parity
+// route, encoder_train.py:308,323): the same launches with the residuals,
+// the rebuilt activations, the cotangents DZG, DZ3, DZ12, dtok and dx in
+// f32 (nothing rounded to bf16) and every product on gemm_ffma.cuh's FFMA
+// tiles; the weight gradients' token sums split into pieces summed in piece
+// order (ff::wgrad).
 //
 // What bounds it on an H100: 7.6 M multiply-adds per token at the published
 // widths (a weight gradient for every product, an input gradient for every
@@ -53,9 +59,10 @@ using madeleine::Dropout;
 using madeleine::ROW_TILE;
 using madeleine::Gemm;
 
-// One row per block, W/4 threads: H = bf16(gelu(u * s + sh) * mask).
-__global__ void recon_h(const bf16* __restrict__ U, const float* __restrict__ s,
-                        const float* __restrict__ sh, bf16* __restrict__ H, int W, int t,
+// One row per block, W/4 threads: H = gelu(u * s + sh) * mask, in T.
+template <typename T>
+__global__ void recon_h(const T* __restrict__ U, const float* __restrict__ s,
+                        const float* __restrict__ sh, T* __restrict__ H, int W, int t,
                         int row_offset, int layer, Dropout d) {
   const long long r = blockIdx.x;
   const int c = threadIdx.x * 4;
@@ -74,14 +81,14 @@ __global__ void recon_h(const bf16* __restrict__ U, const float* __restrict__ s,
 // y32 rebuilt from u3; per view v (NV = 1, or 3 with the view bias vb [t, 2]
 // added to the logits of views 1 and 2): p_v = softmax weight, dl += p_v
 // (y32_h . g_v,h - inner_v,h), DY += p_v g_v (the first term of the summed
-// cotangent, encoder_train.py:341-356); Y = bf16(y32), DL = dl.
+// cotangent, encoder_train.py:341-356); Y = y32 in T, DL = dl.
 // part[tile, h] = sum of the tile's dl (for dbc).
-template <int NV>
-__global__ void pool_bwd(const bf16* __restrict__ U3, const float* __restrict__ s3,
+template <int NV, typename T>
+__global__ void pool_bwd(const T* __restrict__ U3, const float* __restrict__ s3,
                          const float* __restrict__ t3, const float* __restrict__ l,
                          const float* __restrict__ vb, const float* __restrict__ m,
                          const float* __restrict__ s, const float* __restrict__ g,
-                         const float* __restrict__ inner, bf16* __restrict__ Y,
+                         const float* __restrict__ inner, T* __restrict__ Y,
                          float* __restrict__ DY, float* __restrict__ DL, float* __restrict__ part,
                          long long ld_part, int M, int t, int nh, int e, int row_offset,
                          Dropout d) {
@@ -161,14 +168,14 @@ long long colpart_stride(const Shapes& S) {
   return cols;
 }
 
-}  // namespace
-
-// Floats of workspace the backward needs: [split-K partials, column partials].
-extern "C" void encoder_train_bwd_workspace(const long long* dims, long long* out) {
+// Floats of workspace the backward needs on engine G: [split-K partials,
+// column partials].
+template <Gemm G>
+void workspace(const long long* dims, long long* out) {
   const Shapes S = shapes_of(dims);
-  long long w = madeleine::stack_bwd_work<Gemm::WGMMA>(S.M, S.d_in, S.hd, S.E);
-  const long long cand[2] = {madeleine::wgrad_work<Gemm::WGMMA>(2 * S.f, S.e, S.M, S.nh),
-                             madeleine::wgrad_work<Gemm::WGMMA>(S.dout, S.E, S.M, 1)};
+  long long w = madeleine::stack_bwd_work<G>(S.M, S.d_in, S.hd, S.E);
+  const long long cand[2] = {madeleine::wgrad_work<G>(2 * S.f, S.e, S.M, S.nh),
+                             madeleine::wgrad_work<G>(S.dout, S.E, S.M, 1)};
   for (long long c : cand) w = c > w ? c : w;
   out[0] = w;
   out[1] = S.ntr * colpart_stride(S);
@@ -180,44 +187,46 @@ extern "C" void encoder_train_bwd_workspace(const long long* dims, long long* ou
 // (dx null without need_dx; the view bias [t, 2] null when nv = 1; then, set
 // on the recompute route only, b1, b2, b3 and K6's permuted [Wa; Wb] and
 // [ba; bb], while u1, u2, u3, a_pre, b_pre and rstd are the buffers the
-// recompute fills). g is [b, nv, E]; inner, m and s are [b, nv, nh]. Returns a
+// recompute fills). g is [b, nv, E]; inner, m and s are [b, nv, nh]. T: the
+// operands' type, bf16 on the wgmma GEMM, float on the FFMA tiles. Returns a
 // cudaError_t.
-extern "C" int encoder_train_backward(void** p, const long long* dims, const float* scales,
-                                      void* stream_) {
+template <typename T>
+int backward(void** p, const long long* dims, const float* scales, void* stream_) {
+  constexpr Gemm G = sizeof(T) == 4 ? Gemm::FFMA : Gemm::WGMMA;
   const cudaStream_t st = static_cast<cudaStream_t>(stream_);
   const Shapes S = shapes_of(dims);
   const Dropout dpre{(uint32_t)dims[8], (uint32_t)dims[10], scales[0]};
   const Dropout dgate{(uint32_t)dims[8], (uint32_t)dims[11], scales[1]};
   const int ro = (int)dims[9];
   const int M = S.M, E = S.E, hd = S.hd, nh = S.nh, e = S.e, f = S.f, t = S.t;
-  const bf16* x = (const bf16*)p[0];
+  const T* x = (const T*)p[0];
   const float *l = (const float*)p[1], *m = (const float*)p[2], *s = (const float*)p[3];
   const float *g = (const float*)p[4], *inner = (const float*)p[5];
-  const bf16* dtok = (const bf16*)p[6];
-  const bf16 *u1 = (const bf16*)p[7], *u2 = (const bf16*)p[8], *u3 = (const bf16*)p[9];
-  const bf16 *ap = (const bf16*)p[10], *bp = (const bf16*)p[11];
+  const T* dtok = (const T*)p[6];
+  const T *u1 = (const T*)p[7], *u2 = (const T*)p[8], *u3 = (const T*)p[9];
+  const T *ap = (const T*)p[10], *bp = (const T*)p[11];
   const float* rstd = (const float*)p[12];
-  const bf16* w1 = (const bf16*)p[13];
+  const T* w1 = (const T*)p[13];
   const float *s1 = (const float*)p[14], *t1 = (const float*)p[15];
-  const bf16* w2 = (const bf16*)p[16];
+  const T* w2 = (const T*)p[16];
   const float *s2 = (const float*)p[17], *t2 = (const float*)p[18];
-  const bf16* w3 = (const bf16*)p[19];
+  const T* w3 = (const T*)p[19];
   const float *s3 = (const float*)p[20], *t3 = (const float*)p[21];
-  const bf16* wab = (const bf16*)p[22];
+  const T* wab = (const T*)p[22];
   const float* wc = (const float*)p[23];
-  const bf16* wt = (const bf16*)p[24];
+  const T* wt = (const T*)p[24];
   float *dw1 = (float*)p[25], *db1 = (float*)p[26], *ds1 = (float*)p[27], *dt1 = (float*)p[28];
   float *dw2 = (float*)p[29], *db2 = (float*)p[30], *ds2 = (float*)p[31], *dt2 = (float*)p[32];
   float *dw3 = (float*)p[33], *db3 = (float*)p[34], *ds3 = (float*)p[35], *dt3 = (float*)p[36];
   float *dwab = (float*)p[37], *dbab = (float*)p[38], *dwc = (float*)p[39], *dbc = (float*)p[40];
   float *dwt = (float*)p[41], *dbt = (float*)p[42];
-  bf16 *H1 = (bf16*)p[43], *H2 = (bf16*)p[44], *Y = (bf16*)p[45];
+  T *H1 = (T*)p[43], *H2 = (T*)p[44], *Y = (T*)p[45];
   float *DY = (float*)p[46], *DL = (float*)p[47];
-  bf16 *DZG = (bf16*)p[48], *DZ3 = (bf16*)p[49];
+  T *DZG = (T*)p[48], *DZ3 = (T*)p[49];
   float* DH = (float*)p[50];
-  bf16* DZ12 = (bf16*)p[51];
+  T* DZ12 = (T*)p[51];
   float *work = (float*)p[52], *part = (float*)p[53];
-  bf16* dx = (bf16*)p[54];   // null unless need_dx
+  T* dx = (T*)p[54];   // null unless need_dx
   const float* vb = (const float*)p[55];   // null when nv = 1
   const int nv = (int)dims[12];
   if (nv != 1 && (nv != 3 || vb == nullptr)) return (int)cudaErrorInvalidValue;
@@ -226,8 +235,8 @@ extern "C" int encoder_train_backward(void** p, const long long* dims, const flo
 
   if (dims[13]) {
     // the recompute route: K6's rows from (x, seed) into the residual buffers
-    madeleine::RowsFwd rf{};
-    madeleine::StackFwd& sf = rf.sf;
+    madeleine::RowsFwdT<T> rf{};
+    madeleine::StackFwdT<T>& sf = rf.sf;
     sf.x = x;
     sf.w[0] = w1; sf.w[1] = w2; sf.w[2] = w3;
     sf.b[0] = (const float*)p[56]; sf.b[1] = (const float*)p[57];
@@ -235,14 +244,14 @@ extern "C" int encoder_train_backward(void** p, const long long* dims, const flo
     sf.s[0] = s1; sf.s[1] = s2; sf.s[2] = s3;
     sf.sh[0] = t1; sf.sh[1] = t2; sf.sh[2] = t3;
     sf.Z = DY;
-    sf.U[0] = (bf16*)p[7]; sf.U[1] = (bf16*)p[8]; sf.U[2] = (bf16*)p[9];
+    sf.U[0] = (T*)p[7]; sf.U[1] = (T*)p[8]; sf.U[2] = (T*)p[9];
     sf.rstd = (float*)p[12];
     sf.H[0] = H1; sf.H[1] = H2; sf.H[2] = Y;
     sf.M = M; sf.t = t; sf.d_in = S.d_in; sf.hd = hd; sf.E = E; sf.row_offset = ro;
     sf.y32 = 0;
     sf.d = dpre;
-    rf.wab = (const bf16*)p[59]; rf.bab = (const float*)p[60]; rf.wc = wc;
-    rf.ap = (bf16*)p[10]; rf.bp = (bf16*)p[11];
+    rf.wab = (const T*)p[59]; rf.bab = (const float*)p[60]; rf.wc = wc;
+    rf.ap = (T*)p[10]; rf.bp = (T*)p[11];
     rf.lpart = reinterpret_cast<float*>(DZG);   // [M, nh, f / 64] f32 in DZG's bytes
     rf.nh = nh; rf.e = e; rf.f = f;
     rf.dgate = dgate;
@@ -250,36 +259,35 @@ extern "C" int encoder_train_backward(void** p, const long long* dims, const flo
     CHECK(madeleine::rows_fwd(rf, st));
   }
 
-  // rebuild h1, h2 (bf16 operands of dW2, dW3)
-  recon_h<<<M, hd / 4, 0, st>>>(u1, s1, t1, H1, hd, t, ro, 0, dpre);
+  // rebuild h1, h2 (the operands of dW2, dW3, in T)
+  recon_h<T><<<M, hd / 4, 0, st>>>(u1, s1, t1, H1, hd, t, ro, 0, dpre);
   CHECK(cudaGetLastError());
-  recon_h<<<M, hd / 4, 0, st>>>(u2, s2, t2, H2, hd, t, ro, 1, dpre);
+  recon_h<T><<<M, hd / 4, 0, st>>>(u2, s2, t2, H2, hd, t, ro, 1, dpre);
   CHECK(cudaGetLastError());
   // 1. pool term of dy; dl; y
   if (nv == 1)
-    pool_bwd<1><<<ntr, E / 4, 0, st>>>(u3, s3, t3, l, vb, m, s, g, inner, Y, DY, DL, part, ldp,
-                                       M, t, nh, e, ro, dpre);
+    pool_bwd<1, T><<<ntr, E / 4, 0, st>>>(u3, s3, t3, l, vb, m, s, g, inner, Y, DY, DL, part,
+                                          ldp, M, t, nh, e, ro, dpre);
   else
-    pool_bwd<3><<<ntr, E / 4, 0, st>>>(u3, s3, t3, l, vb, m, s, g, inner, Y, DY, DL, part, ldp,
-                                       M, t, nh, e, ro, dpre);
+    pool_bwd<3, T><<<ntr, E / 4, 0, st>>>(u3, s3, t3, l, vb, m, s, g, inner, Y, DY, DL, part,
+                                          ldp, M, t, nh, e, ro, dpre);
   CHECK(cudaGetLastError());
   CHECK(madeleine::colsum_reduce(part, ldp, 0, nh, ntr, dbc, st));
   // 2. token projector term: DY += dtok . Wt; dWt = dtok^T y; dbt
-  CHECK(madeleine::dgrad<Gemm::WGMMA>(dtok, S.dout, 0, wt, E, 0, DY, E, 0, M, E, S.dout, 1, 1,
-                                      st));
-  CHECK(madeleine::tok_wgrad<Gemm::WGMMA>(dtok, Y, dwt, dbt, work, part, ldp, M, E, S.dout, st));
+  CHECK(madeleine::dgrad<G>(dtok, S.dout, 0, wt, E, 0, DY, E, 0, M, E, S.dout, 1, 1, st));
+  CHECK(madeleine::tok_wgrad<G>(dtok, Y, dwt, dbt, work, part, ldp, M, E, S.dout, st));
   // 3. gate terms: DZG; DY_h += [dza | dzb]_h . [Wa; Wb]_h; dW[a|b]_h = DZG_h^T y_h
-  madeleine::gate_bwd<bf16><<<ntr, nh * f / 4, 0, st>>>(ap, bp, (long long)nh * f, f, DL, wc,
-                                                        DZG, part, ldp, M, t, nh, f, ro, dgate);
+  madeleine::gate_bwd<T, T><<<ntr, nh * f / 4, 0, st>>>(ap, bp, (long long)nh * f, f, DL, wc,
+                                                         DZG, part, ldp, M, t, nh, f, ro, dgate);
   CHECK(cudaGetLastError());
   CHECK(madeleine::colsum_reduce(part, ldp, 0, nh * f, ntr, dwc, st));
   CHECK(madeleine::colsum_reduce(part, ldp, nh * f, 2 * nh * f, ntr, dbab, st));
-  CHECK(madeleine::dgrad<Gemm::WGMMA>(DZG, 2LL * nh * f, 2LL * f, wab, e, 2LL * f * e, DY, E,
-                                      e, M, e, 2 * f, nh, 1, st));
-  CHECK(madeleine::wgrad<Gemm::WGMMA>(DZG, 2LL * nh * f, 2LL * f, Y, E, e, 2 * f, e, M, nh, dwab,
-                                      work, st));
+  CHECK(madeleine::dgrad<G>(DZG, 2LL * nh * f, 2LL * f, wab, e, 2LL * f * e, DY, E, e, M, e,
+                            2 * f, nh, 1, st));
+  CHECK(madeleine::wgrad<G>(DZG, 2LL * nh * f, 2LL * f, Y, E, e, 2 * f, e, M, nh, dwab, work,
+                            st));
   // 4-6. the three layers on the summed cotangent; dx only when the caller asks for it
-  madeleine::StackBwd sb{};
+  madeleine::StackBwdT<T> sb{};
   sb.x = x; sb.h1 = H1; sb.h2 = H2;
   sb.u[0] = u1; sb.u[1] = u2; sb.u[2] = u3;
   sb.rstd = rstd;
@@ -295,6 +303,27 @@ extern "C" int encoder_train_backward(void** p, const long long* dims, const flo
   sb.dx = dx;
   sb.M = M; sb.t = t; sb.d_in = S.d_in; sb.hd = hd; sb.E = E; sb.row_offset = ro;
   sb.d = dpre;
-  CHECK(madeleine::stack_bwd<Gemm::WGMMA>(sb, (const float*)DY, st));
+  CHECK(madeleine::stack_bwd<G>(sb, (const float*)DY, st));
   return 0;
+}
+
+}  // namespace
+
+extern "C" void encoder_train_bwd_workspace(const long long* dims, long long* out) {
+  workspace<Gemm::WGMMA>(dims, out);
+}
+
+extern "C" void encoder_train_bwd_workspace_f32(const long long* dims, long long* out) {
+  workspace<Gemm::FFMA>(dims, out);
+}
+
+extern "C" int encoder_train_backward(void** p, const long long* dims, const float* scales,
+                                      void* stream) {
+  return backward<bf16>(p, dims, scales, stream);
+}
+
+// The same with f32 operands, residuals, cotangents and dx.
+extern "C" int encoder_train_backward_f32(void** p, const long long* dims, const float* scales,
+                                          void* stream) {
+  return backward<float>(p, dims, scales, stream);
 }

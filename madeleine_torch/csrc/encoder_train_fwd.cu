@@ -1,4 +1,4 @@
-// Whole-encoder training forward in bf16 (kernel K6).
+// Whole-encoder training forward (kernel K6), bf16 or f32 operands.
 //
 // Replaces madeleine_tpu/ops/encoder_train.py::_fwd_kernel (both save_acts routes).
 // Per token row r of x [b*t, d_in]:
@@ -19,6 +19,13 @@
 // Numerics as on the TPU: bf16 operands, f32 accumulation, f32 bias, LN and
 // GELU; each layer's output is rounded to bf16 before the next product and
 // the pool sums f32 y32. Dropout: Philox masks (philox.cuh), keyed by site.
+// With f32 operands (encoder_train_forward_f32, the JAX package's parity
+// route, encoder_train.py:133,323): the same sequence of launches with every
+// operand, residual and token output in f32, nothing rounded between layers,
+// exact tanh and sigmoid in the gates, and every product on gemm_ffma.cuh's
+// FFMA tiles (in-order f32 sums per output; the gate epilogue's logit
+// partials summed over 16 threads in a fixed xor order). y is y32 there: the
+// gates and the token projector read it from the f32 scratch Z.
 //
 // What bounds it on an H100: 3.93 M multiply-adds per token at the published
 // widths (7.86 MFLOP) against ~16 KB of traffic per token (x in; residuals,
@@ -162,14 +169,17 @@ __global__ void pool_merge(const float* __restrict__ part_m, const float* __rest
 
 }  // namespace
 
+namespace {
+
 // dims: b, t, d_in, hidden, nh, e, f, d_out, seed, row_offset, thr_pre, thr_gate,
 // nv (1, or 3 with the view bias). scales: keep scales of the two rates. p: the
 // pointers of ops/encoder_train.py::encoder_train_fwd_cuda's `tensors`, in that
 // order (the residuals u1, u2, u3, a_pre, b_pre and rstd all null on the
-// recompute route; the last, the view bias [t, 2], null when nv = 1). Returns a
-// cudaError_t.
-extern "C" int encoder_train_forward(void** p, const long long* dims, const float* scales,
-                                     void* stream_) {
+// recompute route; the last, the view bias [t, 2], null when nv = 1; Y null
+// in f32). T: the operands' type. Returns a cudaError_t.
+template <typename T>
+int forward(void** p, const long long* dims, const float* scales, void* stream_) {
+  constexpr bool F32 = sizeof(T) == 4;
   const cudaStream_t st = static_cast<cudaStream_t>(stream_);
   const int b = (int)dims[0], t = (int)dims[1], d_in = (int)dims[2], hd = (int)dims[3];
   const int nh = (int)dims[4], e = (int)dims[5], f = (int)dims[6], dout = (int)dims[7];
@@ -177,28 +187,29 @@ extern "C" int encoder_train_forward(void** p, const long long* dims, const floa
   const Dropout dgate{(uint32_t)dims[8], (uint32_t)dims[11], scales[1]};
   const int row_offset = (int)dims[9], nv = (int)dims[12];
   const int M = b * t, E = nh * e;
-  const bf16* x = (const bf16*)p[0];
+  const T* x = (const T*)p[0];
   const float* bias = (const float*)p[1];
-  const bf16 *w1 = (const bf16*)p[2], *w2 = (const bf16*)p[6], *w3 = (const bf16*)p[10];
+  const T *w1 = (const T*)p[2], *w2 = (const T*)p[6], *w3 = (const T*)p[10];
   const float *b1 = (const float*)p[3], *s1 = (const float*)p[4], *t1 = (const float*)p[5];
   const float *b2 = (const float*)p[7], *s2 = (const float*)p[8], *t2 = (const float*)p[9];
   const float *b3 = (const float*)p[11], *s3 = (const float*)p[12], *t3 = (const float*)p[13];
-  const bf16* wab = (const bf16*)p[14];   // rows permuted per head (ops/encoder_train.py)
+  const T* wab = (const T*)p[14];   // rows permuted per head (ops/encoder_train.py)
   const float *bab = (const float*)p[15], *wc = (const float*)p[16], *bc = (const float*)p[17];
-  const bf16* wt = (const bf16*)p[18];
+  const T* wt = (const T*)p[18];
   const float* bt = (const float*)p[19];
   float *pooled = (float*)p[20], *m_out = (float*)p[21], *s_out = (float*)p[22];
-  bf16* tok = (bf16*)p[23];
+  T* tok = (T*)p[23];
   float* l = (float*)p[24];
-  bf16 *u1 = (bf16*)p[25], *u2 = (bf16*)p[26], *u3 = (bf16*)p[27];
-  bf16 *ap = (bf16*)p[28], *bp = (bf16*)p[29];
+  T *u1 = (T*)p[25], *u2 = (T*)p[26], *u3 = (T*)p[27];
+  T *ap = (T*)p[28], *bp = (T*)p[29];
   float* rstd = (float*)p[30];
   float* Z = (float*)p[31];
-  bf16 *H1 = (bf16*)p[32], *H2 = (bf16*)p[33], *Y = (bf16*)p[34];
+  T *H1 = (T*)p[32], *H2 = (T*)p[33], *Y = (T*)p[34];   // Y null in f32: y = y32, in Z
   float* lpart = (float*)p[35];   // [M, nh, f / 64] partial logits
   float *part_m = (float*)p[36], *part_s = (float*)p[37], *part_w = (float*)p[38];
   const float* vb = (const float*)p[39];   // [t, 2] view bias, null when nv = 1
   if (nv != 1 && (nv != 3 || vb == nullptr)) return (int)cudaErrorInvalidValue;
+  if ((Y == nullptr) != F32) return (int)cudaErrorInvalidValue;
   const bool save = u1 != nullptr;   // every residual set, or none
   if ((u2 != nullptr) != save || (u3 != nullptr) != save || (ap != nullptr) != save ||
       (bp != nullptr) != save || (rstd != nullptr) != save)
@@ -206,8 +217,8 @@ extern "C" int encoder_train_forward(void** p, const long long* dims, const floa
   // pre-attention layers: Z = A W^T + bias, then LN / GELU / dropout rows;
   // layer 3 leaves y32 in Z for the pool; then the gate products of every
   // head, the gates and their partial logits in the epilogue
-  madeleine::RowsFwd rf{};
-  madeleine::StackFwd& sf = rf.sf;
+  madeleine::RowsFwdT<T> rf{};
+  madeleine::StackFwdT<T>& sf = rf.sf;
   sf.x = x;
   sf.w[0] = w1; sf.w[1] = w2; sf.w[2] = w3;
   sf.b[0] = b1; sf.b[1] = b2; sf.b[2] = b3;
@@ -230,8 +241,11 @@ extern "C" int encoder_train_forward(void** p, const long long* dims, const floa
       lpart, bc, bias, l, M, nh, f / 64);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  // token projector: kernel 19's product
-  err = madeleine::gemm_tn_wgmma(Y, wt, bt, tok, M, dout, E, st);
+  // token projector: kernel 19's product (f32: on the FFMA tiles, from y32)
+  if constexpr (F32)
+    err = madeleine::ff::linear(Z, wt, bt, tok, M, dout, E, st);
+  else
+    err = madeleine::gemm_tn_wgmma(Y, wt, bt, tok, M, dout, E, st);
   if (err != cudaSuccess) return (int)err;
   // softmax pool of y32 (in Z)
   const int ntiles = (t + POOL_TM - 1) / POOL_TM;
@@ -244,6 +258,26 @@ extern "C" int encoder_train_forward(void** p, const long long* dims, const floa
   pool_merge<<<dim3((E + 255) / 256, b, nv), 256, 0, st>>>(part_m, part_s, part_w, pooled,
                                                            m_out, s_out, ntiles, nh, e);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int encoder_train_forward(void** p, const long long* dims, const float* scales,
+                                     void* stream) {
+  return forward<bf16>(p, dims, scales, stream);
+}
+
+// The same with f32 operands, residuals and tokens (x, the weight matrices,
+// u1-u3, a_pre, b_pre, tok; Y null).
+extern "C" int encoder_train_forward_f32(void** p, const long long* dims, const float* scales,
+                                         void* stream) {
+  return forward<float>(p, dims, scales, stream);
+}
+
+// The piece length and count of a weight gradient [Mo, No] over `tokens` x
+// `batches` on the f32 route (ops/encoder_train.py mirrors them).
+extern "C" int encoder_train_ffma_wgrad_chunk(int Mo, int No, int tokens, int batches) {
+  return madeleine::ff::wgrad_chunk(Mo, No, tokens, batches);
 }
 
 extern "C" int encoder_train_pool_tile() { return POOL_TM; }

@@ -116,15 +116,17 @@ __device__ __forceinline__ bool rows_aligned(const Operand& o) {
   return o.sk % 4 == 0 && (reinterpret_cast<uintptr_t>(o.p) & 15) == 0;
 }
 
-// The tile of out at (i0, j0): X K-major when XK, Y K-major when YK. pre()
-// runs once the first stages are in flight (work that overlaps their
-// loads); epi(i, j, v) gets the four outputs (i, j .. j + 3) for every row
-// i < X.rows and every j < Y.rows that is a multiple of 4 (v[c] for j + c
-// beyond Y.rows is to be dropped). smem: SMEM_BYTES, 16-byte aligned.
-// Starts and ends with every thread past a block barrier.
-template <bool XK, bool YK, class Pre, class Epi>
-__device__ __forceinline__ void tile_product(const Operand& X, const Operand& Y, int K, int i0,
-                                             int j0, float* smem, Pre pre, Epi epi) {
+// The sums of the tile of out at (i0, j0) into acc: X K-major when XK, Y
+// K-major when YK. acc[r][c] is out(i, j) at row i = i0 + 64 (r / 4) + 4 ty
+// + r % 4 and column j = j0 + 64 (c / 4) + 4 tx + c % 4 of thread (ty, tx) =
+// (tid / 16, tid % 16), whatever lies beyond the operands included (zeros).
+// pre() runs once the first stages are in flight (work that overlaps their
+// loads). smem: SMEM_BYTES, 16-byte aligned. Starts and ends with every
+// thread past a block barrier.
+template <bool XK, bool YK, class Pre>
+__device__ __forceinline__ void tile_accumulate(const Operand& X, const Operand& Y, int K, int i0,
+                                                int j0, float* smem, Pre pre,
+                                                float (&acc)[8][8]) {
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const bool xvec = !XK && rows_aligned(X), yvec = !YK && rows_aligned(Y);
   const int KT = (K + BK - 1) / BK;
@@ -139,7 +141,6 @@ __device__ __forceinline__ void tile_product(const Operand& X, const Operand& Y,
     cp_commit();
   }
   pre();
-  float acc[8][8];
 #pragma unroll
   for (int r = 0; r < 8; ++r)
 #pragma unroll
@@ -167,6 +168,18 @@ __device__ __forceinline__ void tile_product(const Operand& X, const Operand& Y,
   }
   cp_wait<0>();
   __syncthreads();   // the ring may be reused after return
+}
+
+// The tile of out at (i0, j0) (tile_accumulate's layout and pre); epi(i, j,
+// v) gets the four outputs (i, j .. j + 3) for every row i < X.rows and every
+// j < Y.rows that is a multiple of 4 (v[c] for j + c beyond Y.rows is to be
+// dropped).
+template <bool XK, bool YK, class Pre, class Epi>
+__device__ __forceinline__ void tile_product(const Operand& X, const Operand& Y, int K, int i0,
+                                             int j0, float* smem, Pre pre, Epi epi) {
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  float acc[8][8];
+  tile_accumulate<XK, YK>(X, Y, K, i0, j0, smem, pre, acc);
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     const int i = i0 + 64 * (r >> 2) + 4 * ty + (r & 3);

@@ -7,7 +7,11 @@
 // Row kernels put one 4-column group of a row on each thread; the backward
 // ones loop over 64-row tiles (ROW_TILE) and write per-tile column partials
 // that colsum_reduce sums in tile order. Nothing uses atomics: two launches
-// on the same inputs give bitwise-equal results.
+// on the same inputs give bitwise-equal results. The activations, residuals
+// and cotangents of K6 / K7 are of the call's type T: bf16 on the bf16 route
+// (every product on the wgmma GEMM), f32 on the f32 route (every product on
+// gemm_ffma.cuh's FFMA tiles, Gemm::FFMA), where nothing is rounded between
+// layers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -15,6 +19,7 @@
 #include <stdint.h>
 
 #include "gemm_bf16.cuh"
+#include "gemm_ffma.cuh"
 #include "gemm_wgmma.cuh"
 #include "train_common.cuh"
 
@@ -28,11 +33,12 @@ namespace madeleine {
 
 // One row per block, W/4 threads, 4 columns each: LayerNorm + GELU + dropout.
 // Z [M, W] f32 pre-LN rows (bias included). Writes, where the pointer is
-// set, rstd[r * 3 + layer], U (bf16 u) and H (bf16 output); with y32 also
-// the f32 output back into Z.
+// set, rstd[r * 3 + layer], U (u in T) and H (the output in T); with y32
+// also the f32 output back into Z.
+template <typename T>
 __global__ void ln_gelu_fwd(float* __restrict__ Z, const float* __restrict__ s,
-                            const float* __restrict__ sh, bf16* __restrict__ U,
-                            float* __restrict__ rstd, bf16* __restrict__ H, int W, int t,
+                            const float* __restrict__ sh, T* __restrict__ U,
+                            float* __restrict__ rstd, T* __restrict__ H, int W, int t,
                             int row_offset, int layer, Dropout d, int y32) {
   __shared__ float red[32];
   const long long r = blockIdx.x;
@@ -103,14 +109,14 @@ __global__ void gate_logits_sum(const float* __restrict__ lpart, const float* __
 }
 
 // Gate adjoint. Block = 64-row tile, nh*f/4 threads. The pre-dropout gate
-// activations of row r, head h are AP / BP + r * ldg + h * hs (bf16 saved
-// residuals, or the f32 recomputed products). Writes DZG [M, nh*2f] bf16
+// activations of row r, head h are AP / BP + r * ldg + h * hs (saved
+// residuals, or the f32 recomputed products). Writes DZG [M, nh*2f] in DT
 // (per head [dza | dzb]) and per-tile column partials
 // part[tile, 0 : nh*f] = dwc, part[tile, nh*f + h*2f + j] = dba / dbb.
-template <typename GT>
+template <typename GT, typename DT = bf16>
 __global__ void gate_bwd(const GT* __restrict__ AP, const GT* __restrict__ BP, long long ldg,
                          int hs, const float* __restrict__ DL, const float* __restrict__ wc,
-                         bf16* __restrict__ DZG, float* __restrict__ part, long long ld_part,
+                         DT* __restrict__ DZG, float* __restrict__ part, long long ld_part,
                          int M, int t, int nh, int f, int row_offset, Dropout d) {
   const int tpb = f / 4, h = threadIdx.x / tpb, c4 = threadIdx.x % tpb, j0 = c4 * 4;
   float w[4], dwc[4] = {0.f, 0.f, 0.f, 0.f}, dba[4] = {0.f, 0.f, 0.f, 0.f},
@@ -148,13 +154,13 @@ __global__ void gate_bwd(const GT* __restrict__ AP, const GT* __restrict__ BP, l
 
 // One LN / GELU / dropout layer adjoint. Block = 64-row tile, W/4 threads.
 // din [M, W] (f32, or bf16 for a cotangent that arrives in the compute
-// dtype) is the cotangent at the layer's output; writes DZ [M, W] bf16 (the
-// pre-LN cotangent, operand of both gradient products) and
+// dtype) is the cotangent at the layer's output; U is u in T; writes DZ
+// [M, W] in T (the pre-LN cotangent, operand of both gradient products) and
 // part[tile, 0:W | W:2W | 2W:3W] = ds, dt, db column partials.
-template <typename DT>
-__global__ void layer_bwd(const DT* __restrict__ din, const bf16* __restrict__ U,
+template <typename DT, typename T = bf16>
+__global__ void layer_bwd(const DT* __restrict__ din, const T* __restrict__ U,
                           const float* __restrict__ rstd, const float* __restrict__ s,
-                          const float* __restrict__ sh, bf16* __restrict__ DZ,
+                          const float* __restrict__ sh, T* __restrict__ DZ,
                           float* __restrict__ part, long long ld_part, int M, int W, int t,
                           int row_offset, int layer, Dropout d) {
   __shared__ float red[32];
@@ -199,8 +205,9 @@ __global__ void layer_bwd(const DT* __restrict__ din, const bf16* __restrict__ U
   store4(pt + 2 * W + c, db);
 }
 
-// Column partials of a bf16 [M, N] matrix over 64-row tiles, N/4 threads.
-__global__ void colsum_rows(const bf16* __restrict__ X, float* __restrict__ part,
+// Column partials of a [M, N] matrix over 64-row tiles, N/4 threads.
+template <typename T>
+__global__ void colsum_rows(const T* __restrict__ X, float* __restrict__ part,
                             long long ld_part, int M, int N) {
   const int c = threadIdx.x * 4;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
@@ -217,19 +224,23 @@ __global__ void colsum_rows(const bf16* __restrict__ X, float* __restrict__ part
 inline int row_tiles(int M) { return (M + ROW_TILE - 1) / ROW_TILE; }
 
 // The GEMM behind the launch sequences below, chosen at each call site:
-// every kernel on a path (K6, K7 and the per-op kernels 15-20) runs its
+// every bf16 kernel on a path (K6, K7 and the per-op kernels 15-20) runs its
 // products on the TMA + wgmma GEMM of gemm_wgmma.cuh; the first designs of
-// 15-18 and 20, kept as checks, on the mma.sync GEMM of gemm_bf16.cuh.
-enum class Gemm { MMA_SYNC, WGMMA };
+// 15-18 and 20, kept as checks, on the mma.sync GEMM of gemm_bf16.cuh; K6
+// and K7 with f32 operands on the FFMA tiles of gemm_ffma.cuh (operands of
+// type T: bf16 for the first two, float for FFMA).
+enum class Gemm { MMA_SYNC, WGMMA, FFMA };
 
 // Weight gradient [Mo, No] = sum over tokens of A(tok, m) B(tok, n), both
 // row-major token-by-column operands (lda, ldb), batched over `batches`
 // (batch z's columns start at z strideA, z strideB).
-template <Gemm G>
-inline cudaError_t wgrad(const bf16* A, long long lda, long long strideA, const bf16* B,
+template <Gemm G, typename T>
+inline cudaError_t wgrad(const T* A, long long lda, long long strideA, const T* B,
                          long long ldb, long long strideB, int Mo, int No, int tokens,
                          int batches, float* out, float* work, cudaStream_t st) {
-  if constexpr (G == Gemm::WGMMA) {
+  if constexpr (G == Gemm::FFMA) {
+    return ff::wgrad(A, lda, strideA, B, ldb, strideB, Mo, No, tokens, batches, out, work, st);
+  } else if constexpr (G == Gemm::WGMMA) {
     const WgOperand a{A, lda, tokens, strideA * (batches - 1) + Mo, (int)strideA, 0};
     const WgOperand b{B, ldb, tokens, strideB * (batches - 1) + No, (int)strideB, 0};
     return wg_wgrad(a, b, Mo, No, tokens, batches, out, work, st);
@@ -245,7 +256,9 @@ inline cudaError_t wgrad(const bf16* A, long long lda, long long strideA, const 
 // Floats of split-K workspace `wgrad<G>` needs for these shapes.
 template <Gemm G>
 inline long long wgrad_work(int Mo, int No, int tokens, int batches) {
-  if constexpr (G == Gemm::WGMMA)
+  if constexpr (G == Gemm::FFMA)
+    return ff::wgrad_work_floats(Mo, No, tokens, batches);
+  else if constexpr (G == Gemm::WGMMA)
     return wg_wgrad_work_floats(Mo, No, tokens, batches);
   else
     return wgrad_work_floats(Mo, No, tokens, batches);
@@ -254,13 +267,16 @@ inline long long wgrad_work(int Mo, int No, int tokens, int batches) {
 // Input gradient C [tokens, N] (+)= A [tokens, K] . B [K, N], batched (batch
 // z's A columns start at z strideA, its B at B + z strideB, a whole number of
 // B's rows, its C columns at z strideC); f32 C (beta 1 accumulates), or bf16
-// C (no accumulation).
-template <Gemm G, typename OutT = float>
-inline cudaError_t dgrad(const bf16* A, long long lda, long long strideA, const bf16* B,
+// C (no accumulation; FFMA: f32 C only).
+template <Gemm G, typename OutT = float, typename T>
+inline cudaError_t dgrad(const T* A, long long lda, long long strideA, const T* B,
                          long long ldb, long long strideB, OutT* C, long long ldc,
                          long long strideC, int tokens, int N, int K, int batches, int beta,
                          cudaStream_t st) {
-  if constexpr (G == Gemm::WGMMA) {
+  if constexpr (G == Gemm::FFMA) {
+    return ff::dgrad(A, lda, strideA, B, ldb, strideB, C, ldc, strideC, tokens, N, K, batches,
+                     beta, st);
+  } else if constexpr (G == Gemm::WGMMA) {
     if (strideB % ldb) return cudaErrorInvalidValue;
     const int brows = (int)(strideB / ldb);
     const WgOperand a{A, lda, tokens, strideA * (batches - 1) + K, 0, (int)strideA};
@@ -284,10 +300,12 @@ inline cudaError_t dgrad(const bf16* A, long long lda, long long strideA, const 
 }
 
 // Z [M, N] f32 = X [M, K] W [N, K]^T + bias [N].
-template <Gemm G>
-inline cudaError_t linear_f32(const bf16* X, const bf16* W, const float* bias, float* Z, int M,
+template <Gemm G, typename T>
+inline cudaError_t linear_f32(const T* X, const T* W, const float* bias, float* Z, int M,
                               int N, int K, cudaStream_t st) {
-  if constexpr (G == Gemm::WGMMA) {
+  if constexpr (G == Gemm::FFMA) {
+    return ff::linear(X, W, bias, Z, M, N, K, st);
+  } else if constexpr (G == Gemm::WGMMA) {
     const WgOperand a{X, K, M, K, 0, 0}, b{W, K, N, K, 0, 0};
     return wg_gemm<false, false, wg::EPI_F32>(a, b, wg_params(Z, N, bias, M, N, K), st);
   } else {
@@ -304,30 +322,32 @@ inline cudaError_t linear_f32(const bf16* X, const bf16* W, const float* bias, f
 
 // The three pre-attention layers, Linear -> LayerNorm -> GELU -> dropout
 // (ops/preattn.py::_layer_fwd three times): Z = A W^T + bias, then the row
-// kernel. H[0], H[1] (the bf16 inputs of layers 2 and 3) must be set; U[i],
-// rstd and H[2] may be null. With y32, layer 3 also leaves its f32 output
-// in Z.
-struct StackFwd {
-  const bf16* x;
-  const bf16* w[3];
+// kernel. H[0], H[1] (the inputs of layers 2 and 3, in T) must be set;
+// U[i], rstd and H[2] may be null. With y32, layer 3 also leaves its f32
+// output in Z.
+template <typename T>
+struct StackFwdT {
+  const T* x;
+  const T* w[3];
   const float *b[3], *s[3], *sh[3];
   float* Z;       // [M, max(hd, E)] f32 scratch
-  bf16* U[3];
+  T* U[3];
   float* rstd;    // [M, 3]
-  bf16* H[3];
+  T* H[3];
   int M, t, d_in, hd, E, row_offset, y32;
   Dropout d;
 };
+using StackFwd = StackFwdT<bf16>;
 
-template <Gemm G>
-inline cudaError_t stack_fwd(const StackFwd& a, cudaStream_t st) {
-  const bf16* Ain[3] = {a.x, a.H[0], a.H[1]};
+template <Gemm G, typename T>
+inline cudaError_t stack_fwd(const StackFwdT<T>& a, cudaStream_t st) {
+  const T* Ain[3] = {a.x, a.H[0], a.H[1]};
   const int Kl[3] = {a.d_in, a.hd, a.hd}, Nl[3] = {a.hd, a.hd, a.E};
   for (int i = 0; i < 3; ++i) {
     TRAIN_CHECK(linear_f32<G>(Ain[i], a.w[i], a.b[i], a.Z, a.M, Nl[i], Kl[i], st));
-    ln_gelu_fwd<<<a.M, Nl[i] / 4, 0, st>>>(a.Z, a.s[i], a.sh[i], a.U[i], a.rstd, a.H[i],
-                                            Nl[i], a.t, a.row_offset, i, a.d,
-                                            i == 2 && a.y32);
+    ln_gelu_fwd<T><<<a.M, Nl[i] / 4, 0, st>>>(a.Z, a.s[i], a.sh[i], a.U[i], a.rstd, a.H[i],
+                                               Nl[i], a.t, a.row_offset, i, a.d,
+                                               i == 2 && a.y32);
     TRAIN_CHECK(cudaGetLastError());
   }
   return cudaSuccess;
@@ -336,24 +356,26 @@ inline cudaError_t stack_fwd(const StackFwd& a, cudaStream_t st) {
 // The adjoint of the three layers (ops/preattn.py::_layer_bwd three times)
 // from the cotangent din3 [M, E] at layer 3's output: the weight, bias and
 // LN gradients in f32 and, where dx is set, the input gradient dx [M, d_in]
-// bf16. Reads the layer inputs x, h1, h2 and each layer's u and rstd.
-struct StackBwd {
-  const bf16 *x, *h1, *h2;
-  const bf16 *u[3];
+// in T. Reads the layer inputs x, h1, h2 and each layer's u and rstd.
+template <typename T>
+struct StackBwdT {
+  const T *x, *h1, *h2;
+  const T *u[3];
   const float* rstd;
-  const bf16 *w1, *w2, *w3;
+  const T *w1, *w2, *w3;
   const float *s[3], *sh[3];
   float *dw[3], *db[3], *ds[3], *dt[3];
-  bf16* DZ3;      // [M, E] scratch
-  bf16* DZ12;     // [M, hd] scratch
+  T* DZ3;         // [M, E] scratch
+  T* DZ12;        // [M, hd] scratch
   float* DH;      // [M, hd] scratch
   float* work;    // split-K partials
   float* part;    // column partials, row stride ldp >= 3 * max(hd, E)
   long long ldp;
-  bf16* dx;       // null: no input gradient
+  T* dx;          // null: no input gradient
   int M, t, d_in, hd, E, row_offset;
   Dropout d;
 };
+using StackBwd = StackBwdT<bf16>;
 
 // Floats of split-K workspace stack_bwd<G> needs.
 template <Gemm G>
@@ -366,12 +388,12 @@ inline long long stack_bwd_work(int M, int d_in, int hd, int E) {
 
 // One layer: the row adjoint, its three column sums, and the weight
 // gradient against the layer's input hin.
-template <Gemm G, typename DT>
-inline cudaError_t layer_adjoint(const StackBwd& a, int i, const DT* din, int W, bf16* DZ,
-                                 const bf16* hin, int K, cudaStream_t st) {
+template <Gemm G, typename DT, typename T>
+inline cudaError_t layer_adjoint(const StackBwdT<T>& a, int i, const DT* din, int W, T* DZ,
+                                 const T* hin, int K, cudaStream_t st) {
   const int ntr = row_tiles(a.M);
-  layer_bwd<DT><<<ntr, W / 4, 0, st>>>(din, a.u[i], a.rstd, a.s[i], a.sh[i], DZ, a.part, a.ldp,
-                                       a.M, W, a.t, a.row_offset, i, a.d);
+  layer_bwd<DT, T><<<ntr, W / 4, 0, st>>>(din, a.u[i], a.rstd, a.s[i], a.sh[i], DZ, a.part,
+                                          a.ldp, a.M, W, a.t, a.row_offset, i, a.d);
   TRAIN_CHECK(cudaGetLastError());
   TRAIN_CHECK(colsum_reduce(a.part, a.ldp, 0, W, ntr, a.ds[i], st));
   TRAIN_CHECK(colsum_reduce(a.part, a.ldp, W, W, ntr, a.dt[i], st));
@@ -379,8 +401,8 @@ inline cudaError_t layer_adjoint(const StackBwd& a, int i, const DT* din, int W,
   return wgrad<G>(DZ, W, 0, hin, K, 0, W, K, a.M, 1, a.dw[i], a.work, st);
 }
 
-template <Gemm G, typename DT>
-inline cudaError_t stack_bwd(const StackBwd& a, const DT* din3, cudaStream_t st) {
+template <Gemm G, typename DT, typename T>
+inline cudaError_t stack_bwd(const StackBwdT<T>& a, const DT* din3, cudaStream_t st) {
   // layer 3
   TRAIN_CHECK(layer_adjoint<G>(a, 2, din3, a.E, a.DZ3, a.h2, a.hd, st));
   TRAIN_CHECK(dgrad<G>(a.DZ3, a.E, 0, a.w3, a.hd, 0, a.DH, a.hd, 0, a.M, a.hd, a.E, 1, 0, st));
@@ -391,8 +413,8 @@ inline cudaError_t stack_bwd(const StackBwd& a, const DT* din3, cudaStream_t st)
   // layer 1, and its input gradient only when the caller asks for it
   TRAIN_CHECK(layer_adjoint<G>(a, 0, (const float*)a.DH, a.hd, a.DZ12, a.x, a.d_in, st));
   if (a.dx)
-    TRAIN_CHECK((dgrad<G, bf16>(a.DZ12, a.hd, 0, a.w1, a.d_in, 0, a.dx, a.d_in, 0, a.M, a.d_in,
-                                a.hd, 1, 0, st)));
+    TRAIN_CHECK((dgrad<G, T>(a.DZ12, a.hd, 0, a.w1, a.d_in, 0, a.dx, a.d_in, 0, a.M, a.d_in,
+                             a.hd, 1, 0, st)));
   return cudaSuccess;
 }
 
@@ -418,13 +440,13 @@ inline cudaError_t gate_products(const bf16* Y, const bf16* wab, const float* ba
 
 // The token projector's parameter gradients: dWt = dtok^T Y, dbt = column
 // sums of dtok (per-tile partials with row stride ldp >= dout).
-template <Gemm G>
-inline cudaError_t tok_wgrad(const bf16* dtok, const bf16* Y, float* dwt, float* dbt,
+template <Gemm G, typename T>
+inline cudaError_t tok_wgrad(const T* dtok, const T* Y, float* dwt, float* dbt,
                              float* work, float* part, long long ldp, int M, int E, int dout,
                              cudaStream_t st) {
   TRAIN_CHECK(wgrad<G>(dtok, dout, 0, Y, E, 0, dout, E, M, 1, dwt, work, st));
   const int ntr = row_tiles(M);
-  colsum_rows<<<ntr, dout / 4, 0, st>>>(dtok, part, ldp, M, dout);
+  colsum_rows<T><<<ntr, dout / 4, 0, st>>>(dtok, part, ldp, M, dout);
   TRAIN_CHECK(cudaGetLastError());
   return colsum_reduce(part, ldp, 0, dout, ntr, dbt, st);
 }

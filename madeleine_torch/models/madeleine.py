@@ -172,6 +172,13 @@ def half_split(seed: int, t: int, device) -> torch.Tensor:
     return torch.zeros(t, dtype=torch.bool, device=device).scatter_(0, perm[:t // 2], True)
 
 
+def fused_route(cfg) -> bool:
+    """Whether a training forward takes the fused train op (K6/K7): softmax
+    attention with MADELEINE_NO_FUSED_ENCODER unset or empty (read at each
+    call); otherwise the per-op lane (JAX madeleine.py:157-174)."""
+    return cfg.activation == "softmax" and not os.environ.get("MADELEINE_NO_FUSED_ENCODER")
+
+
 def forward_train(model: MADELEINE, feats: torch.Tensor, *,
                   mask: Optional[torch.Tensor] = None, n_views: int = 1, seed: int = 0,
                   train: bool = True, half_mask: Optional[torch.Tensor] = None,
@@ -225,7 +232,7 @@ def forward_train(model: MADELEINE, feats: torch.Tensor, *,
     dt = feats.dtype
     se = cfg.add_stain_encoding
     w = train_weights(model, dt)
-    fused = cfg.activation == "softmax" and not os.environ.get("MADELEINE_NO_FUSED_ENCODER")
+    fused = fused_route(cfg)
 
     def encode(x, m, row_offset):
         """(pooled [n, nh, e] or [n, 3, nh, e], tokens [n, t, 128]) of the rows x [n, t, d]."""

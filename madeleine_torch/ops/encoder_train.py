@@ -1,4 +1,4 @@
-"""Whole-encoder training op: kernel K6 (forward) and K7 (backward), bf16.
+"""Whole-encoder training op: kernel K6 (forward) and K7 (backward), bf16 or f32.
 
 Replaces `madeleine_tpu/ops/encoder_train.py` (`_fwd_kernel`, `_bwd_kernel`,
 both save_acts routes, n_views 1 and 3, need_dx off and on). Per token row of x:
@@ -42,10 +42,16 @@ matrices in the compute dtype, vectors in f32.
 
 A CPU tensor takes the plain PyTorch versions (any float dtype, for the
 parity tests); a CUDA tensor launches K6 / K7 from csrc/encoder_train_fwd.cu
-and csrc/encoder_train_bwd.cu, bf16 only, or raises. Both run every product
-on the TMA + wgmma GEMM of csrc/gemm_wgmma.cuh; K6 forms the gate logits in
-its gate product's epilogue, for which the wrapper hands it [Wa; Wb] and
-[ba; bb] with their rows permuted (`permute_gates`).
+and csrc/encoder_train_bwd.cu, or raises. In bf16 both run every product on
+the TMA + wgmma GEMM of csrc/gemm_wgmma.cuh; K6 forms the gate logits in its
+gate product's epilogue, for which the wrapper hands it [Wa; Wb] and [ba;
+bb] with their rows permuted (`permute_gates`). With f32 operands (the JAX
+package's parity route, `--precision float32`) the same launch sequences
+take every operand, residual, token and cotangent in f32, nothing rounded
+between layers, exact tanh and sigmoid, every product on the FFMA tiles of
+csrc/gemm_ffma.cuh: the weight gradients' token sums in pieces summed in
+piece order (`ffma_wgrad_chunk`), the gate logits' 64-column partials each a
+fixed tree of 16 four-column sums.
 """
 
 from __future__ import annotations
@@ -64,10 +70,14 @@ from madeleine_torch.ops import prng
 from madeleine_torch.ops.attn_pool import MASKED_BIAS, NEG_INF, mask_bias
 from madeleine_torch.ops.linear_tok import linear_tok_fwd_plain, tok_bwd_plain
 
-fwd_launches = 0   # K6 launches (one per wrapper call on a CUDA tensor)
-bwd_launches = 0   # K7 launches
-fwd_nosave_launches = 0    # of K6's launches, those that kept no residuals
-bwd_recompute_launches = 0   # of K7's launches, those on the recompute route (B1c)
+fwd_launches = 0   # K6 launches in bf16 (one per wrapper call on a CUDA tensor)
+bwd_launches = 0   # K7 launches in bf16
+fwd_nosave_launches = 0    # of K6's bf16 launches, those that kept no residuals
+bwd_recompute_launches = 0   # of K7's bf16 launches, those on the recompute route (B1c)
+fwd_f32_launches = 0   # K6 launches with f32 operands
+bwd_f32_launches = 0   # K7 launches with f32 operands
+fwd_f32_nosave_launches = 0    # of K6's f32 launches, those that kept no residuals
+bwd_f32_recompute_launches = 0   # of K7's f32 launches, those on the recompute route
 
 PRE_RATE = pa.RATE     # ref: Model.py:354,358,362 (read at call time)
 GATE_RATE = gl.RATE    # ref: abmil.py:34-35
@@ -83,6 +93,16 @@ SAVED = ("u1", "u2", "u3", "ap", "bp", "rstd")
 ACT_BUDGET_BYTES = int(os.environ.get("MADELEINE_ENCODER_ACT_BUDGET", str(10 * 1024 ** 3)))
 NO_SAVE_VAR = "MADELEINE_ENCODER_NO_SAVE_ACTS"   # any non-empty value: always recompute
 GUARD_MARGIN = 2 * 1024 ** 3
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)   # K6 / K7's operand types on the card
+
+# The f32 route's weight gradients (csrc/gemm_ffma.cuh::wgrad_chunk): the
+# token sum of an [Mo, No] gradient x batches split into pieces so that the
+# launch offers about FFMA_SPLIT_BLOCKS 128 x 128 tiles, each piece at least
+# FFMA_SPLIT_MIN tokens, a whole number of FFMA_STAGE-token stages.
+FFMA_SPLIT_BLOCKS = 264
+FFMA_SPLIT_MIN = 1024
+FFMA_STAGE = 16
+FFMA_TILE = 128
 
 
 def _device_hbm_limit(device=None) -> Optional[int]:
@@ -119,6 +139,17 @@ def resolve_save_acts(save_acts: Optional[bool], b: int, t: int, h: int, E: int,
     if limit:
         return saved + 4 * x_bytes <= limit - GUARD_MARGIN
     return True
+
+
+def ffma_wgrad_chunk(Mo: int, No: int, tokens: int, batches: int) -> int:
+    """The piece length (tokens) of an f32 weight gradient's split token sum;
+    the pieces' partials are summed in piece order."""
+    def cdiv(a, b):
+        return -(-a // b)
+
+    tiles = cdiv(Mo, FFMA_TILE) * cdiv(No, FFMA_TILE) * batches
+    s = max(1, min(cdiv(FFMA_SPLIT_BLOCKS, tiles), cdiv(tokens, FFMA_SPLIT_MIN)))
+    return cdiv(cdiv(tokens, s), FFMA_STAGE) * FFMA_STAGE
 
 
 def train_operands(w: Dict[str, torch.Tensor], dtype: torch.dtype) -> Dict[str, torch.Tensor]:
@@ -265,12 +296,25 @@ def _check_views(kernel, vb, t, device) -> int:
     return 3
 
 
+def check_dtypes(x, w, kernel) -> torch.dtype:
+    """The call's compute dtype, x's: bf16 or f32, with every matrix of MATS
+    in it (the vectors are f32 on both routes). A mixed set raises a
+    ValueError that names the first operand out of line."""
+    dt = x.dtype
+    if dt not in KERNEL_DTYPES:
+        raise ValueError(f"{kernel} kernel: x must be bf16 or f32, got {dt}")
+    for k in W_KEYS:
+        want = dt if k in MATS else torch.float32
+        if w[k].dtype != want:
+            raise ValueError(f"{kernel} kernel: {k} must be {want} with {dt} x "
+                             f"(a mixed operand set), got {w[k].dtype}")
+    return dt
+
+
 def _check_shapes(x, w, kernel):
+    dt = check_dtypes(x, w, kernel)
     if x.device.type != "cuda":
         raise ValueError(f"{kernel} kernel needs CUDA tensors, got {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise NotImplementedError(f"{kernel} kernel runs in bf16 only, got {x.dtype} "
-                                  f"({pa.F32_TODO})")
     b, t, d_in = x.shape
     nh, f, e = w["wa"].shape
     hd = w["w1"].shape[0]
@@ -286,10 +330,10 @@ def _check_shapes(x, w, kernel):
               "wa": (nh, f, e), "ba": (nh, f), "wb": (nh, f, e), "bb": (nh, f),
               "wc": (nh, f), "bc": (nh,), "wt": (dout, nh * e), "bt": (dout,)}
     for k, shape in shapes.items():
-        _build.check_operand(kernel, k, w[k], shape,
-                             torch.bfloat16 if k in MATS else torch.float32, x.device)
+        _build.check_operand(kernel, k, w[k], shape, dt if k in MATS else torch.float32,
+                             x.device)
         _build.check_aligned(kernel, k, w[k])
-    _build.check_operand(kernel, "x", x, (b, t, d_in), torch.bfloat16, x.device)
+    _build.check_operand(kernel, "x", x, (b, t, d_in), dt, x.device)
     _build.check_aligned(kernel, "x", x)
     return b, t, d_in, hd, nh, e, f, dout
 
@@ -298,14 +342,15 @@ def _check_shapes(x, w, kernel):
 def encoder_train_fwd_cuda(x, bias, w, seed: int, row_offset: int = 0,
                            pre_rate: float = PRE_RATE, gate_rate: float = GATE_RATE,
                            vb: Optional[torch.Tensor] = None, save: bool = True):
-    """Launch K6 on CUDA tensors; returns as `encoder_train_fwd_plain`
-    (with save False K6 writes no residuals)."""
-    global fwd_launches, fwd_nosave_launches
+    """Launch K6 on CUDA tensors, bf16 or f32 (x's dtype); returns as
+    `encoder_train_fwd_plain` (with save False K6 writes no residuals)."""
+    global fwd_launches, fwd_nosave_launches, fwd_f32_launches, fwd_f32_nosave_launches
     b, t, d_in, hd, nh, e, f, dout = _check_shapes(x, w, "encoder_train_fwd")
     _build.check_operand("encoder_train_fwd", "bias", bias, (b, t), torch.float32, x.device)
     nv = _check_views("encoder_train_fwd", vb, t, x.device)
     views = () if nv == 1 else (nv,)
-    dev, f32, bf = x.device, torch.float32, torch.bfloat16
+    dev, f32, bf = x.device, torch.float32, x.dtype
+    wide = bf == f32
     M, E = b * t, nh * e
     lib = _build.load("encoder_train_fwd")
     ntiles = -(-t // lib.encoder_train_pool_tile())   # ctypes' default restype is int
@@ -315,11 +360,11 @@ def encoder_train_fwd_cuda(x, bias, w, seed: int, row_offset: int = 0,
     s = torch.empty(b, *views, nh, dtype=f32, device=dev)
     tok = torch.empty(b, t, dout, dtype=bf, device=dev)
     l = torch.empty(b, t, nh, dtype=f32, device=dev)
-    saved = _saved_buffers(b, t, hd, E, nh * f, dev) if save else None
+    saved = _saved_buffers(b, t, hd, E, nh * f, dev, bf) if save else None
     scratch = [torch.empty(M, max(hd, E), dtype=f32, device=dev),    # Z
                torch.empty(M, hd, dtype=bf, device=dev),            # H1
                torch.empty(M, hd, dtype=bf, device=dev),            # H2
-               torch.empty(M, E, dtype=bf, device=dev),             # Y
+               None if wide else torch.empty(M, E, dtype=bf, device=dev),   # Y (f32: y32 in Z)
                torch.empty(M, nh, f // GATE_CHUNK, dtype=f32, device=dev),   # partial logits
                torch.empty(b, ntiles, nv, nh, dtype=f32, device=dev),   # part_m
                torch.empty(b, ntiles, nv, nh, dtype=f32, device=dev),   # part_s
@@ -330,21 +375,28 @@ def encoder_train_fwd_cuda(x, bias, w, seed: int, row_offset: int = 0,
                *(saved[k] if save else None for k in SAVED), *scratch, vb]
     dims, scales = prng.kernel_args((b, t, d_in, hd, nh, e, f, dout), seed, row_offset,
                                     pre_rate, gate_rate)
-    _build.call_ptrs("encoder_train_fwd", "encoder_train_forward", tensors, dims + [nv], scales,
-                     dev)
-    fwd_launches += 1
-    fwd_nosave_launches += not save
+    _build.call_ptrs("encoder_train_fwd",
+                     "encoder_train_forward_f32" if wide else "encoder_train_forward", tensors,
+                     dims + [nv], scales, dev)
+    if wide:
+        fwd_f32_launches += 1
+        fwd_f32_nosave_launches += not save
+    else:
+        fwd_launches += 1
+        fwd_nosave_launches += not save
     return pooled, m, s, tok, l, saved
 
 
-def _saved_buffers(b: int, t: int, hd: int, E: int, nhf: int, dev) -> Dict[str, torch.Tensor]:
-    """Uninitialised residual tensors of one call, SAVED's shapes."""
-    bf = torch.bfloat16
-    return {"u1": torch.empty(b, t, hd, dtype=bf, device=dev),
-            "u2": torch.empty(b, t, hd, dtype=bf, device=dev),
-            "u3": torch.empty(b, t, E, dtype=bf, device=dev),
-            "ap": torch.empty(b, t, nhf, dtype=bf, device=dev),
-            "bp": torch.empty(b, t, nhf, dtype=bf, device=dev),
+def _saved_buffers(b: int, t: int, hd: int, E: int, nhf: int, dev,
+                   dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """Uninitialised residual tensors of one call, SAVED's shapes: u1 u2 u3
+    a_pre b_pre in the call's dtype, rstd f32 (the bytes `resolve_save_acts`
+    reckons at its itemsize)."""
+    return {"u1": torch.empty(b, t, hd, dtype=dtype, device=dev),
+            "u2": torch.empty(b, t, hd, dtype=dtype, device=dev),
+            "u3": torch.empty(b, t, E, dtype=dtype, device=dev),
+            "ap": torch.empty(b, t, nhf, dtype=dtype, device=dev),
+            "bp": torch.empty(b, t, nhf, dtype=dtype, device=dev),
             "rstd": torch.empty(b, t, 3, dtype=torch.float32, device=dev)}
 
 
@@ -357,17 +409,19 @@ def encoder_train_bwd_cuda(x, l, m, s, g, inner, dtok, saved, w, seed: int,
     With saved None, K7's recompute route: the residuals are rebuilt on the
     card into buffers that live for this call only (K6's device code, so the
     gradients equal the save route's bit for bit); its f32 scratch reuses
-    DY's bytes ([M, E] f32, E = nh e >= hidden = e)."""
-    global bwd_launches, bwd_recompute_launches
+    DY's bytes ([M, E] f32, E = nh e >= hidden = e). bf16 or f32, x's
+    dtype: the residuals, dtok and dx in it."""
+    global bwd_launches, bwd_recompute_launches, bwd_f32_launches, bwd_f32_recompute_launches
     b, t, d_in, hd, nh, e, f, dout = _check_shapes(x, w, "encoder_train_bwd")
-    dev, f32, bf = x.device, torch.float32, torch.bfloat16
+    dev, f32, bf = x.device, torch.float32, x.dtype
+    wide = bf == f32
     M, E = b * t, nh * e
     kname = "encoder_train_bwd"
     nv = _check_views(kname, vb, t, dev)
     views = () if nv == 1 else (nv,)
     recompute = saved is None
     if recompute:
-        saved = _saved_buffers(b, t, hd, E, nh * f, dev)
+        saved = _saved_buffers(b, t, hd, E, nh * f, dev, bf)
     for name, ten, shape, dtype in (("l", l, (b, t, nh), f32), ("m", m, (b, *views, nh), f32),
                                     ("s", s, (b, *views, nh), f32),
                                     ("g", g, (b, *views, E), f32),
@@ -383,7 +437,8 @@ def encoder_train_bwd_cuda(x, l, m, s, g, inner, dtok, saved, w, seed: int,
         _build.check_aligned(kname, name, ten)
     dims, scales = prng.kernel_args((b, t, d_in, hd, nh, e, f, dout), seed, row_offset,
                                     pre_rate, gate_rate)
-    ws = _build.workspace(kname, "encoder_train_bwd_workspace", dims)
+    ws = _build.workspace(kname, "encoder_train_bwd_workspace_f32" if wide
+                          else "encoder_train_bwd_workspace", dims)
     wab = torch.cat([w["wa"], w["wb"]], dim=1).contiguous()
     out = {"w1": (hd, d_in), "b1": (hd,), "s1": (hd,), "t1": (hd,),
            "w2": (hd, hd), "b2": (hd,), "s2": (hd,), "t2": (hd,),
@@ -409,10 +464,14 @@ def encoder_train_bwd_cuda(x, l, m, s, g, inner, dtok, saved, w, seed: int,
     tensors = [x, l, m, s, g, inner, dtok, *(saved[k] for k in SAVED),
                w["w1"], w["s1"], w["t1"], w["w2"], w["s2"], w["t2"], w["w3"], w["s3"],
                w["t3"], wab, w["wc"], w["wt"], *out.values(), *scratch, dx, vb, *fwd_only]
-    _build.call_ptrs(kname, "encoder_train_backward", tensors, dims + [nv, int(recompute)],
-                     scales, dev)
-    bwd_launches += 1
-    bwd_recompute_launches += recompute
+    _build.call_ptrs(kname, "encoder_train_backward_f32" if wide else "encoder_train_backward",
+                     tensors, dims + [nv, int(recompute)], scales, dev)
+    if wide:
+        bwd_f32_launches += 1
+        bwd_f32_recompute_launches += recompute
+    else:
+        bwd_launches += 1
+        bwd_recompute_launches += recompute
     wab_g, bab_g = out.pop("wab"), out.pop("bab")
     out.update(wa=wab_g[:, :f], wb=wab_g[:, f:], ba=bab_g[:, 0], bb=bab_g[:, 1])
     if need_dx:

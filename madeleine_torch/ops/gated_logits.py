@@ -36,6 +36,7 @@ import torch
 
 from madeleine_torch.ops import _build
 from madeleine_torch.ops import prng
+from madeleine_torch.ops import preattn as pa
 from madeleine_torch.ops.preattn import F32_TODO, wide
 
 fwd_launches = 0   # kernel 17 launches (one per wrapper call on a CUDA tensor)
@@ -91,8 +92,8 @@ def gates_bwd_plain(ap, bp, ma, mb, dl, y, w):
     dy = (torch.einsum("bthf,hfe->bthe", dza_c, wide(w["wa"]))
           + torch.einsum("bthf,hfe->bthe", dzb_c, wide(w["wb"]))).reshape(b, t, nh * e)
     yh = wide(y).reshape(b, t, nh, e)
-    grads["wa"] = torch.einsum("bthf,bthe->hfe", dza_c, yh)
-    grads["wb"] = torch.einsum("bthf,bthe->hfe", dzb_c, yh)
+    grads["wa"] = torch.stack([pa.token_sum(dza_c[:, :, h], yh[:, :, h]) for h in range(nh)])
+    grads["wb"] = torch.stack([pa.token_sum(dzb_c[:, :, h], yh[:, :, h]) for h in range(nh)])
     grads["ba"] = dza.sum((0, 1))
     grads["bb"] = dzb.sum((0, 1))
     return dy, grads

@@ -26,6 +26,11 @@ COUNTERS = {
     # the save-off route of K6 and the recompute route of K7, counted also above
     "encoder_train_fwd_nosave": (encoder_train, "fwd_nosave_launches"),
     "encoder_train_bwd_recompute": (encoder_train, "bwd_recompute_launches"),
+    # K6 and K7 with f32 operands (--precision float32), and their routes
+    "encoder_train_fwd_f32": (encoder_train, "fwd_f32_launches"),
+    "encoder_train_bwd_f32": (encoder_train, "bwd_f32_launches"),
+    "encoder_train_fwd_f32_nosave": (encoder_train, "fwd_f32_nosave_launches"),
+    "encoder_train_bwd_f32_recompute": (encoder_train, "bwd_f32_recompute_launches"),
     "ipot_fwd": (ipot, "fwd_launches"),                     # K8, cluster route
     "ipot_bwd": (ipot, "bwd_launches"),                     # K9, cluster route
     "gw_gamma": (ipot, "gw_launches"),                      # K10, cluster route

@@ -23,6 +23,7 @@ from typing import Dict, Tuple
 import torch
 
 from madeleine_torch.ops import _build
+from madeleine_torch.ops import preattn as pa
 from madeleine_torch.ops.preattn import F32_TODO, mm, wide
 
 fwd_launches = 0   # kernel 19 launches (one per wrapper call on a CUDA tensor)
@@ -37,10 +38,8 @@ def linear_tok_fwd_plain(y, wt, bt) -> torch.Tensor:
 
 def tok_bwd_plain(y, g, wt) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dy f32, dWt f32, dbt f32) for the cotangent g [b, t, d_out]."""
-    dout, E = wt.shape
     dy = torch.matmul(wide(g), wide(wt))
-    dwt = wide(g).reshape(-1, dout).T @ wide(y).reshape(-1, E)
-    return dy, dwt, wide(g).sum((0, 1))
+    return dy, pa.token_sum(g, y), wide(g).sum((0, 1))
 
 
 @torch.no_grad()

@@ -46,7 +46,8 @@ _INV_SQRT2 = 2.0 ** -0.5
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
 KEYS = ("w1", "b1", "s1", "t1", "w2", "b2", "s2", "t2", "w3", "b3", "s3", "t3")
-F32_TODO = "ROADMAP.md D4: f32 operands for the train kernels"
+F32_TODO = ("ROADMAP.md B1e (D4): f32 operands for the per-op lane's train kernels, "
+            "rows 15-18")
 
 
 # ---------------------------------------------------------------------------
@@ -62,6 +63,12 @@ def wide(x: torch.Tensor) -> torch.Tensor:
 def mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """a [..., K] . w[N, K]^T in f32 (operands exact in their dtype)."""
     return torch.matmul(wide(a), wide(w).T)
+
+
+def token_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a^T b summed over every token: a [..., M], b [..., N] with the same
+    leading (token) axes -> [M, N] f32 (the weight gradients' products)."""
+    return wide(a).reshape(-1, a.shape[-1]).T @ wide(b).reshape(-1, b.shape[-1])
 
 
 def cdf(v: torch.Tensor) -> torch.Tensor:
@@ -120,7 +127,7 @@ def stack_bwd_plain(dy, x, res, w, need_dx: bool) -> Dict[str, torch.Tensor]:
         du = dv * w[f"s{i}"]
         dz = (du - du.mean(-1, keepdim=True) - u * (du * u).mean(-1, keepdim=True)) * rstd
         dzc = wide(dz.to(dt))
-        grads[f"w{i}"] = dzc.reshape(-1, dz.shape[-1]).T @ wide(hin).reshape(-1, hin.shape[-1])
+        grads[f"w{i}"] = token_sum(dzc, hin)
         grads[f"b{i}"] = dz.sum((0, 1))
         return torch.matmul(dzc, wide(w[f"w{i}"])) if want_dx else None
 

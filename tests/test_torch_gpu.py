@@ -287,31 +287,38 @@ def test_encoder_train_kernels_match_plain(cuda_device, rates):
             assert ((gk[k] - gp[k]).norm() / gp[k].norm()).item() <= 1e-2, k
 
 
-def test_train_step_launches_k6_k7_and_refuses_f32(cuda_device):
+def test_train_step_launches_k6_k7_and_refuses_f32(cuda_device, monkeypatch):
     """A bf16 step on the card goes through K6 and K7 (one each per
-    modality); an f32 step on the card raises, naming the ROADMAP item."""
+    modality), an f32 softmax step through K6 and K7 with f32 operands (one
+    each per modality, no bf16 launch); an f32 step on the per-op lane
+    (a sigmoid activation) still raises, naming the ROADMAP item (D4)."""
     import numpy as np
 
     from madeleine_torch.ops import encoder_train as et
     from madeleine_torch.train.optim import make_optimizer
     from madeleine_torch.train.trainer import make_train_step
 
+    monkeypatch.delenv("MADELEINE_NO_FUSED_ENCODER", raising=False)
     rng = np.random.default_rng(0)
     batch = {"feats": rng.standard_normal((4, 5, 256, 512)).astype(np.float32),
              "modality_labels": np.ones((4, 5), np.float32)}
-    for precision in ("bfloat16", "float32"):
-        cfg = MadeleineConfig(precision=precision, local_loss="-1").finalize()
+    for precision, activation in (("bfloat16", "softmax"), ("float32", "softmax"),
+                                  ("float32", "sigmoid")):
+        cfg = MadeleineConfig(precision=precision, local_loss="-1",
+                              activation=activation).finalize()
         model = init_madeleine(MADELEINE(cfg), torch.Generator().manual_seed(0)).to(cuda_device)
         opt, sched = make_optimizer(cfg, model.parameters(), 10)
         step = make_train_step(cfg, model, opt, sched)
-        if precision == "float32":
-            with pytest.raises(NotImplementedError, match="ROADMAP.md D4"):
+        if activation == "sigmoid":
+            with pytest.raises(NotImplementedError, match="ROADMAP.md B1e \\(D4\\)"):
                 step(batch, seed=1)
             continue
-        f0, b0 = et.fwd_launches, et.bwd_launches
+        before = (et.fwd_launches, et.bwd_launches, et.fwd_f32_launches, et.bwd_f32_launches)
         _, metrics = step(batch, seed=1)
         assert not metrics["skipped"] and np.isfinite(float(metrics["loss"]))
-        assert (et.fwd_launches - f0, et.bwd_launches - b0) == (5, 5)
+        after = (et.fwd_launches, et.bwd_launches, et.fwd_f32_launches, et.bwd_f32_launches)
+        want = (5, 5, 0, 0) if precision == "bfloat16" else (0, 0, 5, 5)
+        assert tuple(a - b for a, b in zip(after, before)) == want
 
 
 def _got_costs(device, b, n, m, d=128, seed=0):
@@ -626,6 +633,95 @@ def test_encoder_train_recompute_route_equals_save_route(cuda_device, need_dx):
         (p.float().sum() + t.float().sum()).backward()
         assert (et.fwd_nosave_launches, et.bwd_recompute_launches) == (before[0] + n,
                                                                          before[1] + n)
+
+
+F32_ROUTES = ("save", "recompute", "dx", "views", "rate0")
+
+
+def _excess(got, want, rtol=1e-4, atol=1e-5):
+    return ((got - want).abs() - (atol + rtol * want.abs())).max().item()
+
+
+@pytest.mark.parametrize("route", F32_ROUTES)
+def test_encoder_train_f32_kernels_match_plain(cuda_device, route):
+    """K6 and K7 with f32 operands against their plain versions at ragged
+    lengths with an empty bag and a partial last tile (t = 300), row offset
+    2, the real rates (rate0: 0): K6's pooled, tokens and valid logits
+    within rtol 1e-4 / atol 1e-5, every K7 gradient (and dx at d_in 544)
+    within 1e-4 relative Frobenius, bc within 1e-4 absolutely; two launches
+    bitwise equal; the recompute route (K6 without saves, K7 rebuilding the
+    residuals) bit for bit the save route; n_views = 3; the f32 route
+    counters move, the bf16 ones do not."""
+    from madeleine_torch.models.madeleine import half_split, train_weights
+    from madeleine_torch.ops import encoder_train as et
+
+    need_dx = route == "dx"
+    rates = (0.0, 0.0) if route == "rate0" else (0.1, 0.25)
+    cfg = MadeleineConfig(precision="float32", add_stain_encoding=need_dx).finalize()
+    model = init_madeleine(MADELEINE(cfg), torch.Generator().manual_seed(0)).to(cuda_device)
+    with torch.no_grad():
+        w = {k: v.detach().contiguous() for k, v in train_weights(model, torch.float32).items()}
+    d_in = w["w1"].shape[1]
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(3, 300, d_in, generator=g).to(cuda_device)
+    mask = (torch.arange(300)[None, :] < torch.tensor([[300], [77], [0]])).to(cuda_device)
+    bias = et.token_mask_bias(mask, 3, 300, cuda_device)
+    vb = et.view_bias(half_split(4, 300, cuda_device), 300, cuda_device) if route == "views" \
+        else None
+    counts = (et.fwd_launches, et.bwd_launches, et.fwd_f32_launches, et.bwd_f32_launches)
+    fa = (x, bias, w, 5, 2, *rates)
+    got = et.encoder_train_fwd_cuda(*fa, vb=vb)
+    assert all(torch.equal(a, b) for a, b in zip(got[:5], et.encoder_train_fwd_cuda(*fa, vb=vb)))
+    with torch.no_grad():
+        want = et.encoder_train_fwd_plain(*fa, vb=vb)
+    assert got[3].dtype == torch.float32 and got[5]["u1"].dtype == torch.float32
+    for i in (0, 3):
+        assert _excess(got[i], want[i]) <= 0
+    assert _excess(got[4][bias == 0], want[4][bias == 0]) <= 0
+    assert (got[0][2] == 0).all()
+    pooled32, m, s, _, l, saved = got
+    gp = torch.randn(pooled32.shape, generator=g).to(cuda_device)
+    dtok = torch.randn(3, 300, 128, generator=g).to(cuda_device)
+    inner = (gp * pooled32).reshape(*pooled32.shape[:-1], 4, -1).sum(-1)
+    args = [x, l, m, s, gp, inner, dtok, saved, w, 5, 2, *rates]
+    gk = et.encoder_train_bwd_cuda(*args, need_dx=need_dx, vb=vb)
+    assert all(torch.equal(gk[k], v) for k, v in
+               et.encoder_train_bwd_cuda(*args, need_dx=need_dx, vb=vb).items())
+    with torch.no_grad():
+        plain = et.encoder_train_bwd_plain(*args, need_dx=need_dx, vb=vb)
+    assert set(gk) == set(plain) and ("x" in gk) == need_dx
+    for k in gk:
+        if k == "bc":
+            assert (gk[k] - plain[k]).abs().max().item() <= 1e-4
+        else:
+            assert _rel(gk[k], plain[k]) <= 1e-4, k
+    if route == "recompute":
+        nosave = et.encoder_train_fwd_cuda(*fa, save=False)
+        assert nosave[5] is None and all(torch.equal(a, b) for a, b in zip(got[:5], nosave[:5]))
+        args[7] = None
+        before = et.bwd_f32_recompute_launches
+        gr = et.encoder_train_bwd_cuda(*args)
+        assert et.bwd_f32_recompute_launches == before + 1
+        assert all(torch.equal(gr[k], gk[k]) for k in gk)
+    after = (et.fwd_launches, et.bwd_launches, et.fwd_f32_launches, et.bwd_f32_launches)
+    assert after[:2] == counts[:2] and after[2] > counts[2] and after[3] > counts[3]
+
+
+def test_encoder_train_refuses_a_mixed_operand_set(cuda_device):
+    """bf16 x with f32 weights, or f32 x with one bf16 matrix, raises a
+    ValueError naming the operand on the card too."""
+    from madeleine_torch.models.madeleine import train_weights
+    from madeleine_torch.ops import encoder_train as et
+
+    model = _model(cuda_device)
+    with torch.no_grad():
+        w = {k: v.detach().contiguous() for k, v in train_weights(model, torch.float32).items()}
+    x = torch.randn(2, 64, 512, device=cuda_device)
+    bias = et.token_mask_bias(None, 2, 64, cuda_device)
+    with pytest.raises(ValueError, match="w1"):
+        et.encoder_train_fwd_cuda(x.to(torch.bfloat16), bias, w, 1)
+    with pytest.raises(ValueError, match="wt"):
+        et.encoder_train_fwd_cuda(x, bias, dict(w, wt=w["wt"].to(torch.bfloat16)), 1)
 
 
 def test_hbm_guard_sends_a_call_to_recompute_before_the_card_fills(cuda_device):
