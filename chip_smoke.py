@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases device,build,train_kernels,train_views
     python3 chip_smoke.py --phases device,build,train_kernels,train_ragged,pretrain_ragged
     python3 chip_smoke.py --phases device,build,train_kernels_f32,train_f32,pretrain_f32
+    python3 chip_smoke.py --phases device,build,perop_kernels_f32,train_perop_f32
     python3 chip_smoke.py --phases device,build,pool_train_kernels,dropout_kernel,train_nofused,heads
 
 Phases, one JSON line each; any failure raises and the exit code is non-zero:
@@ -99,6 +100,19 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            torch.nn.functional.linear, with kernel 19's TB/s and TFLOP/s and
            both calls' device time launched back to back; 15-18 and 20
            beside their first designs, per call and back to back, with TFLOP/s
+  perop_kernels_f32
+           rows 15-18 with f32 operands (the per-op lane at --precision
+           float32; csrc/preattn.cu and csrc/gated_logits.cu on the FFMA
+           tiles of csrc/gemm_ffma.cuh) against their plain versions at
+           [65, 2048] and at a ragged M (2 x 4057), rates 0 and (0.1,
+           0.25), row 16 also with dx at d_in 544: outputs within rtol 1e-4
+           / atol 1e-5, every gradient, dx and dy within 1e-4 relative
+           Frobenius, bc within 1e-4, two launches bitwise equal; the f32
+           per-op chain (15 -> 17 -> softmax pool; 18 -> 16) against K6/K7
+           f32 on the same operands and seed at the same bars, beside a
+           shifted-mask control that must miss them; each row timed at [65,
+           2048] beside its FFMA bound (67 TFLOP/s), its plain version and
+           back to back
   perop_bwd_digest
            a sha256 of every output of kernels 16 and 18 at [65, 2048] on
            seeded inputs and the flagship weights, rates 0 and (0.1, 0.25):
@@ -254,6 +268,15 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            on the card: the loss within 1e-5 relative, every gradient within
            1e-4 relative Frobenius (bc 1e-4 absolutely); step ms, host ms a
            step, peak, the weights' digest, the plain step's ms
+  train_perop_f32
+           the per-op lane at --precision float32: 5 published f32 steps
+           (InfoNCE + GOT, 65 x 5 x 2048) with --activation sigmoid, then 3
+           with softmax under MADELEINE_NO_FUSED_ENCODER: the loss falls,
+           none skipped, rows 15-18 f32 once per modality on every step, no
+           bf16 row 15-18, no K6/K7; then one sigmoid step against the same
+           step with rows 15-18's plain versions on the card: the loss within
+           1e-5 relative, every gradient within 1e-4 relative Frobenius (each
+           head's bc within 1e-4 absolutely, as in train_f32)
   train_ragged
            the published step on full-bag batches (the CLI's default
            --n_subsamples -1): (a) bag lengths log-uniform in [1024, 16384],
@@ -312,7 +335,9 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            on pretrain_ragged's cohort (bucket 8192: every K6/K7 call on the
            recompute route, the native loader assembling f32): A 1 epoch, B A
            resumed to 2, C 2 straight, B's model.pt equal to C's bit for bit,
-           K6/K7 f32 and K8-K14 on every step, K2 downstream; step ms, peak
+           K6/K7 f32 and K8-K14 on every step, K2 downstream; step ms, peak;
+           then one epoch with --activation sigmoid (rows 15-18 f32 on every
+           step, no bf16 row 15-18, no K6/K7)
   data_parallel
            (a) world size 1 on NCCL: the published steps' weights bit for
            bit the steps' without a group; (b) two Gloo ranks on the card
@@ -343,6 +368,8 @@ their save-off and recompute routes), the nvidia-smi line, and last
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import hashlib
 import importlib.util
 import io
@@ -357,6 +384,7 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 import urllib.request
 from unittest import mock
 
@@ -365,23 +393,25 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "pool_kernels", "pool_train_kernels", "dropout_kernel",
           "train_kernels", "train_kernels_f32", "got_kernels", "glue_kernels", "perop_kernels",
-          "perop_bwd_digest", "golden", "serve", "extract", "eval_forward", "train", "train_got",
-          "train_se", "train_sigmoid", "train_nofused", "train_views", "train_f32",
-          "train_ragged", "train_ragged_nofused", "heads", "pretrain", "pretrain_ragged",
-          "pretrain_f32", "data_parallel", "profile")
+          "perop_kernels_f32", "perop_bwd_digest", "golden", "serve", "extract", "eval_forward",
+          "train", "train_got", "train_se", "train_sigmoid", "train_nofused", "train_views",
+          "train_f32",
+          "train_perop_f32", "train_ragged", "train_ragged_nofused", "heads", "pretrain",
+          "pretrain_ragged", "pretrain_f32", "data_parallel", "profile")
 # the runs of the port's main paths whose kernel launches the summary counts
 MAIN_PATHS = ("serve", "extract", "eval_forward", "train", "train_got", "train_se",
               "train_sigmoid", "train_nofused", "train_views", "train_views_nofused",
-              "train_f32", "train_ragged", "train_ragged_nofused", "heads", "pretrain",
-              "pretrain_ragged", "pretrain_f32", "data_parallel")
+              "train_f32", "train_perop_f32", "train_perop_f32_nofused", "train_ragged",
+              "train_ragged_nofused", "heads", "pretrain", "pretrain_ragged", "pretrain_f32",
+              "data_parallel")
 # the main-path runs of the side lanes (a non-softmax activation, or softmax
 # under MADELEINE_NO_FUSED_ENCODER); the pretrain phase splits its own
 SIDE_PATHS = ("train_sigmoid", "train_nofused", "train_views_nofused")
 # the full-bag (ragged) runs, a lane of their own (its no-fused run included)
 RAGGED_PATHS = ("train_ragged", "train_ragged_nofused", "pretrain_ragged")
-# the f32 runs (--precision float32: K6/K7 with f32 operands), a lane of their
-# own (the CLI's on full bags included)
-F32_PATHS = ("train_f32", "pretrain_f32")
+# the f32 runs (--precision float32: K6/K7, or on the per-op lane rows 15-18,
+# with f32 operands), a lane of their own (the CLI's on full bags included)
+F32_PATHS = ("train_f32", "train_perop_f32", "train_perop_f32_nofused", "pretrain_f32")
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -2603,7 +2633,8 @@ def _perop_work(b, t, w, need_dx=False):
     """{kernel: (flops, bytes)} of kernels 15-20 at [b, t]: the products of
     each op (a backward kernel also recomputes its op's forward products,
     the TPU ops' residuals being the inputs and the seed); each input read
-    once, each output written once."""
+    once, each output written once; activations in the operands' dtype."""
+    a = w["w1"].element_size()   # bytes of an activation: bf16 2, f32 4
     hd, d_in = w["w1"].shape
     E = w["w3"].shape[0]
     nh, f, e = w["wa"].shape
@@ -2620,13 +2651,13 @@ def _perop_work(b, t, w, need_dx=False):
 
     pre_macs, gate_macs, tok_macs = d_in * hd + hd * hd + hd * E, 2 * nh * e * f, E * dout
     return {
-        "preattn_fwd": (2.0 * n * pre_macs, n * (d_in + E) * 2 + wbytes(pre)),
+        "preattn_fwd": (2.0 * n * pre_macs, n * (d_in + E) * a + wbytes(pre)),
         "preattn_bwd": (2.0 * n * (3 * pre_macs - (0 if need_dx else d_in * hd)),
-                        n * (d_in + E + (d_in if need_dx else 0)) * 2 + wbytes(pre)
+                        n * (d_in + E + (d_in if need_dx else 0)) * a + wbytes(pre)
                         + gbytes(pre)),
-        "gated_logits_fwd": (2.0 * n * gate_macs, n * (E * 2 + nh * 4) + wbytes(gate)),
+        "gated_logits_fwd": (2.0 * n * gate_macs, n * (E * a + nh * 4) + wbytes(gate)),
         "gated_logits_bwd": (6.0 * n * gate_macs,
-                             n * (2 * E * 2 + nh * 4) + wbytes(gate) + gbytes(gate)),
+                             n * (2 * E * a + nh * 4) + wbytes(gate) + gbytes(gate)),
         "linear_tok_fwd": (2.0 * n * tok_macs, n * (E + dout) * 2 + wbytes(("wt", "bt"))),
         "linear_tok_bwd": (4.0 * n * tok_macs, n * (2 * E + dout) * 2 + wbytes(("wt",))
                            + gbytes(("wt", "bt"))),
@@ -3101,6 +3132,215 @@ def phase_perop_kernels(state):
         raise AssertionError(f"perop_kernels: missed their bars: {failed}; the chain against "
                              f"K6/K7: {chain['real']['failed']}; the shifted-mask control "
                              f"missed only {sorted(control_missed)}")
+
+
+# rows 15-18 with f32 operands (--precision float32 on the per-op lane)
+PEROP_F32_KERNELS = ("preattn_fwd_f32", "preattn_bwd_f32", "gated_logits_fwd_f32",
+                     "gated_logits_bwd_f32")
+# the f32 rows' checked shapes: the step's call and a partial last tile of
+# the FFMA GEMM (128 rows) and of the row kernels (64 rows)
+PEROP_F32_SHAPES = (PEROP_STEP_SHAPE, (2, 4057))
+
+
+def _perop_f32_calls(torch, w, x, rates, gen, seed=1234, row_offset=3, need_dx=False):
+    """{f32 kernel: (CUDA wrapper, plain version, args, kwargs)} of rows
+    15-18 on the f32 x: gated_logits reads preattn's kernel output y; the
+    cotangents dy and dl random f32."""
+    from madeleine_torch.ops import gated_logits as gl
+    from madeleine_torch.ops import preattn as pa
+
+    b, t, _ = x.shape
+    pre, gate = rates
+    y = pa.preattn_fwd_cuda(x, w, seed, row_offset, pre)
+
+    def randn(*shape):
+        return torch.from_numpy(gen.standard_normal(shape).astype(np.float32)).cuda()
+
+    dy, dl = randn(b, t, w["w3"].shape[0]), randn(b, t, w["wa"].shape[0])
+    return {
+        "preattn_fwd_f32": (pa.preattn_fwd_cuda, pa.preattn_fwd_plain,
+                            (x, w, seed, row_offset, pre), {}),
+        "preattn_bwd_f32": (pa.preattn_bwd_cuda, pa.preattn_bwd_plain,
+                            (x, dy, w, seed, row_offset, pre), {"need_dx": need_dx}),
+        "gated_logits_fwd_f32": (gl.gated_logits_fwd_cuda, gl.gated_logits_fwd_plain,
+                                 (y, w, seed, row_offset, gate), {}),
+        "gated_logits_bwd_f32": (gl.gated_logits_bwd_cuda, gl.gated_logits_bwd_plain,
+                                 (y, dl, w, seed, row_offset, gate), {}),
+    }
+
+
+def _check_perop_f32(torch, calls, where):
+    """Each f32 kernel of `calls` twice (bitwise equal) against its plain
+    version: a forward's output within F32_RTOL / F32_ATOL elementwise; a
+    backward's dx / dy and every parameter gradient within F32_GRAD_RTOL
+    relative Frobenius, bc within BC_ATOL. Returns {kernel: {"max_abs_err",
+    "excess" (forward: the largest |err| past its bar) or "grad_rel_fro",
+    "ok"}}."""
+    rep = {}
+    for name, (kern, plain, args, kw) in calls.items():
+        got, again = kern(*args, **kw), kern(*args, **kw)
+        with torch.no_grad():
+            want = plain(*args, **kw)
+        torch.cuda.synchronize()
+        if isinstance(got, torch.Tensor):
+            got, again, want = {"out": got}, {"out": again}, {"out": want}
+        if set(got) != set(want) or not all(torch.equal(got[k], again[k]) for k in got) \
+                or any(v.dtype != torch.float32 for v in got.values()):
+            raise AssertionError(f"{name} {where}: two launches differ, or outputs "
+                                 f"{ {k: v.dtype for k, v in got.items()} }")
+        if not all(torch.isfinite(v).all() for v in got.values()):
+            raise AssertionError(f"{name} {where}: non-finite output")
+        r = {"max_abs_err": max((got[k] - want[k]).abs().max().item() for k in got)}
+        if name.startswith(("preattn_fwd", "gated_logits_fwd")):
+            r["excess"] = _f32_excess(torch, got["out"], want["out"])
+            r["ok"] = r["excess"] <= 0
+        else:
+            r["grad_rel_fro"] = {k: _rel_fro(got[k], want[k]) for k in got if k != "bc"}
+            r["ok"] = max(r["grad_rel_fro"].values()) <= F32_GRAD_RTOL
+            if "bc" in got:
+                r["bc_max_abs_err"] = (got["bc"] - want["bc"]).abs().max().item()
+                r["ok"] = r["ok"] and r["bc_max_abs_err"] <= BC_ATOL
+        rep[name] = r
+        del got, again, want
+    return rep
+
+
+def _perop_f32_chain_vs_fused(torch, w, x, rates, gen, seed=99, row_offset=65,
+                              chain_offset=0):
+    """The f32 per-op chain (rows 15 -> 17 -> the plain softmax pool, the
+    token projector's plain f32 product; backward rows 18 -> 16 through
+    autograd; rows from row_offset + chain_offset) against K6/K7 with f32
+    operands (rows from row_offset) on the same x, weights and seed, with a
+    random pooled cotangent and dtok: pooled and tokens within F32_RTOL /
+    F32_ATOL, every gradient within F32_GRAD_RTOL relative Frobenius, bc
+    (exactly 0: softmax is shift invariant) within BC_ATOL on both sides.
+    Returns the errors and the keys that miss their bars."""
+    import torch.nn.functional as F
+    from madeleine_torch.ops import encoder_train as et
+    from madeleine_torch.ops import gated_logits as gl
+    from madeleine_torch.ops import preattn as pa
+    from madeleine_torch.ops.attn_pool import softmax_pool_plain
+
+    b, t, _ = x.shape
+    nh, _, e = w["wa"].shape
+    bias = et.token_mask_bias(None, b, t, "cuda")
+    pooled32, m, s, tok, l, saved = et.encoder_train_fwd_cuda(x, bias, w, seed, row_offset,
+                                                              *rates)
+    G = torch.from_numpy(gen.standard_normal((b, nh * e)).astype(np.float32)).cuda()
+    DT = torch.from_numpy(gen.standard_normal((b, t, w["wt"].shape[0])).astype(np.float32)
+                          ).cuda()
+    inner = (G * pooled32).reshape(b, nh, e).sum(-1)
+    k7 = et.encoder_train_bwd_cuda(x, l, m, s, G, inner, DT, saved, w, seed, row_offset, *rates)
+    del saved
+    ro = row_offset + chain_offset
+    wl = {k: v.detach().clone().requires_grad_(True) for k, v in w.items()}
+    with torch.enable_grad():
+        y = pa.preattn_train(x, wl, seed, ro, rates[0])
+        logits = gl.gated_logits_train(y, wl, seed, ro, rates[1])
+        pooled = softmax_pool_plain(logits, y.reshape(b, t, nh, e)).reshape(b, -1)
+        tok_c = F.linear(y, wl["wt"], wl["bt"])
+        ((pooled * G).sum() + (tok_c * DT).sum()).backward()
+    torch.cuda.synchronize()
+    rep = {"pooled_excess": _f32_excess(torch, pooled.detach(), pooled32),
+           "pooled_err": (pooled.detach() - pooled32).abs().max().item(),
+           "tok_excess": _f32_excess(torch, tok_c.detach(), tok),
+           "grad_rel_fro": {k: _rel_fro(wl[k].grad, k7[k]) for k in w if k != "bc"},
+           "chain_bc_max_abs": wl["bc"].grad.abs().max().item(),
+           "k7_bc_max_abs": k7["bc"].abs().max().item()}
+    rep["failed"] = ([k for k, v in rep["grad_rel_fro"].items() if not v <= F32_GRAD_RTOL]
+                     + [k for k in ("pooled_excess", "tok_excess") if not rep[k] <= 0]
+                     + [k for k in ("chain_bc_max_abs", "k7_bc_max_abs")
+                        if not rep[k] <= BC_ATOL])
+    return rep
+
+
+def phase_perop_kernels_f32(state):
+    """Rows 15-18 with f32 operands (the per-op lane at --precision float32)
+    against their plain versions on the card, with the flagship weights in
+    f32: at the train step's call shape [65, 2048] and at a ragged M (2 x
+    4057: partial last tiles), rates 0 and the real (0.1, 0.25), and row 16
+    with dx at d_in 544 (the stain-encoded call); outputs within rtol 1e-4
+    / atol 1e-5, every gradient, dx and dy within 1e-4 relative Frobenius,
+    bc within BC_ATOL, two launches bitwise equal. The f32 per-op chain
+    (15 -> 17 -> softmax pool; 18 -> 16) against K6/K7 f32 on the same
+    operands and seed at the same bars, with a shifted-mask control that
+    must miss them. Each kernel timed at [65, 2048] beside its bound at the
+    FP32 FMA peak, its plain version's time and back to back."""
+    import torch
+    from madeleine_torch.models.madeleine import train_weights
+
+    gen = np.random.default_rng(SEED + 23)
+    real = (0.1, 0.25)
+
+    def operands(stain_encoding=False):
+        model = flagship_model(torch, "float32", stain_encoding)
+        with torch.no_grad():
+            return {k: v.detach().contiguous()
+                    for k, v in train_weights(model, torch.float32).items()}
+
+    def inputs(b, t, d=512):
+        return torch.from_numpy(gen.standard_normal((b, t, d)).astype(np.float32)).cuda()
+
+    w = operands()
+    checks, step_calls = {}, None
+    for shape in PEROP_F32_SHAPES:
+        x = inputs(*shape)
+        for rates in ((0.0, 0.0), real):
+            where = f"{list(shape)} {rates}"
+            calls = _perop_f32_calls(torch, w, x, rates, gen)
+            checks[where] = _check_perop_f32(torch, calls, where)
+            if shape == PEROP_STEP_SHAPE and rates == real:
+                step_calls = calls
+            del calls
+        del x
+    w_se = operands(stain_encoding=True)
+    x_se = inputs(*PEROP_STEP_SHAPE, 544)
+    se_calls = {"preattn_bwd_f32": _perop_f32_calls(torch, w_se, x_se, real, gen,
+                                                    need_dx=True)["preattn_bwd_f32"]}
+    checks["step_call_544_dx"] = _check_perop_f32(torch, se_calls, "d_in 544")
+    del se_calls, x_se, w_se
+    x = inputs(*PEROP_STEP_SHAPE)
+    chain = {"real": _perop_f32_chain_vs_fused(torch, w, x, real, gen),
+             "rates_0": _perop_f32_chain_vs_fused(torch, w, x, (0.0, 0.0), gen),
+             "control_rows_shifted": _perop_f32_chain_vs_fused(torch, w, x, real, gen,
+                                                               chain_offset=1)}
+    del x
+    work = {f"{k}_f32": v for k, v in _perop_work(*PEROP_STEP_SHAPE, w).items()}
+    times = {}
+    for name, (kern, plain, args, kw) in step_calls.items():
+        ms = cuda_ms(lambda: kern(*args, **kw), iters=5)
+        with torch.no_grad():
+            plain_ms = cuda_ms(lambda: plain(*args, **kw), warmup=1, iters=1)
+        bound, by = _bound(*work[name], PEAK_FP32)
+        times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                       "share_of_bound": bound / ms, "tflop_per_s": work[name][0] / ms / 1e9,
+                       "device_ms_back_to_back": cuda_ms_back_to_back(
+                           lambda: kern(*args, **kw), warmup=1, calls=5)}
+    del step_calls
+    torch.cuda.empty_cache()
+    errs = {k: max(rep[k]["max_abs_err"] for rep in checks.values() if k in rep)
+            for k in PEROP_F32_KERNELS}
+    src = dict(PEROP_SOURCES)
+    for name in PEROP_F32_KERNELS:
+        source, replaces = src[name[:-4]]
+        tm = times[name]
+        state.setdefault("kernels", {})[name] = {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "max_abs_err": errs[name], "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"], "library_ms": None,
+            "operand_dtype": "float32", "shape": list(PEROP_STEP_SHAPE)}
+    emit({"phase": "perop_kernels_f32", "smi": state["smi"], "rtol": F32_RTOL, "atol": F32_ATOL,
+          "grad_rtol_fro": F32_GRAD_RTOL, "bc_atol": BC_ATOL, "checks": checks,
+          "chain_vs_k6_k7_f32": chain, "times_shape": PEROP_STEP_SHAPE, "times": times,
+          "peak_tflops_fp32": PEAK_FP32 / 1e12})
+    failed = [(where, k) for where, rep in checks.items() for k, r in rep.items() if not r["ok"]]
+    control_missed = set(chain["control_rows_shifted"]["failed"])
+    if (failed or chain["real"]["failed"] or chain["rates_0"]["failed"]
+            or not {"pooled_excess"} | set(PRE_KEYS) <= control_missed):
+        raise AssertionError(f"perop_kernels_f32: missed their bars: {failed}; the chain "
+                             f"against K6/K7 f32: {chain['real']['failed']} (rates 0: "
+                             f"{chain['rates_0']['failed']}); the shifted-mask control missed "
+                             f"only {sorted(control_missed)}")
 
 
 def phase_perop_bwd_digest(state):
@@ -3924,6 +4164,107 @@ def phase_train_f32(state):
                           "peak_gb": run["peak_memory_gb"]}
 
 
+PEROP_F32_NOFUSED_STEPS = 3   # train_perop_f32: the no-fused softmax steps
+PEROP_BF16_ROWS = PEROP_KERNELS[:4]   # rows 15-18 with bf16 operands
+
+
+def _perop_f32_launches(phase, run, n_mod):
+    """Raise unless each of rows 15-18 f32 launched once per modality on
+    every step of `run` and neither their bf16 routes nor K6/K7 (bf16 or
+    f32) launched."""
+    wrong = [(i, k, c[k]) for i, c in enumerate(run["launches_per_step"])
+             for k in PEROP_F32_KERNELS if c[k] != n_mod]
+    other = {k: run["launches"][k] for k in PEROP_BF16_ROWS + ENCODER_KERNELS + F32_KERNELS
+             if run["launches"][k]}
+    if wrong or other:
+        raise AssertionError(f"{phase}: rows 15-18 f32 per step off {wrong}, or other "
+                             f"encoder kernels launched {other}")
+
+
+def phase_train_perop_f32(state):
+    """The per-op lane at --precision float32: 5 published f32 steps
+    (InfoNCE + GOT, 65 x 5 x 2048) with --activation sigmoid, then 3 with
+    softmax under MADELEINE_NO_FUSED_ENCODER (_run_train_steps: the loss
+    falls, none skipped; rows 15-18 with f32 operands once per modality on
+    every step, no bf16 row 15-18 and no K6/K7 launch; a step under sync
+    debug mode "error", steps back to back). Then from the trained sigmoid
+    weights one step's loss and every parameter gradient against the same
+    step with rows 15-18 replaced by their plain versions on the card: the
+    loss within 1e-5 relative, each gradient within 1e-4 relative
+    Frobenius, each head's attention output bias bc within BC_ATOL, as
+    train_f32 holds it (its gradient is one sum over every token of a
+    stain, 133,120, of terms of either sign, whose relative error measures
+    their cancellation, not the kernels; its relative error is reported).
+    The step ms, the host's ms a step, the peak; the plain step's ms."""
+    import torch
+    from madeleine_torch.ops import gated_logits as gl
+    from madeleine_torch.ops import preattn as pa
+    from madeleine_torch.train.trainer import step_seed
+    from madeleine_torch.utils.device import full_precision_matmul
+
+    full_precision_matmul()   # the plain versions' products in full f32, as JAX's HIGHEST
+    torch.cuda.empty_cache()
+    kernels = PEROP_F32_KERNELS + GOT_KERNELS + GLUE_KERNELS
+    cfg = got_path_config(precision="float32", activation="sigmoid")
+    setup = _train_setup(torch, cfg)
+    _, model, step, batch = setup
+    run = _run_train_steps(torch, state, "train_perop_f32", kernels, cfg, setup=setup,
+                           b2b_steps=F32_B2B_STEPS, skips=False)[3]
+    del setup
+    _perop_f32_launches("train_perop_f32", run, cfg.n_modalities)
+    params = [p.detach().clone() for p in model.parameters()]
+    seed = step_seed(SEED, 2, 0)
+    loss_k, g_k, _ = _grads_of_step(torch, model, step, batch, seed, params)
+    before = read_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with mock.patch.object(pa, "preattn_fwd_cuda", pa.preattn_fwd_plain), \
+            mock.patch.object(pa, "preattn_bwd_cuda", pa.preattn_bwd_plain), \
+            mock.patch.object(gl, "gated_logits_fwd_cuda", gl.gated_logits_fwd_plain), \
+            mock.patch.object(gl, "gated_logits_bwd_cuda", gl.gated_logits_bwd_plain):
+        start.record()
+        loss_p, g_p, _ = _grads_of_step(torch, model, step, batch, seed, params)
+        end.record()
+        end.synchronize()
+    after = read_counts()
+    if any(after[k] - before[k] for k in PEROP_F32_KERNELS):
+        raise AssertionError("train_perop_f32: the plain step launched rows 15-18")
+    errs, bc = {}, {}
+    for k in g_p:
+        if k.endswith("attention_c.bias"):   # a sum of cancelling terms over every token
+            bc[k] = {"abs_err": float((g_k[k] - g_p[k]).abs().max()),
+                     "rel_err": _rel_fro(g_k[k], g_p[k]), "value": float(g_p[k].abs().max())}
+        elif g_p[k].norm() > 0:
+            errs[k] = _rel_fro(g_k[k], g_p[k])
+    vs_plain = {"seed": seed, "loss": loss_k, "loss_plain": loss_p,
+                "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
+                "grad_max_rel_fro": max(errs.values()), "grad_rel_fro": errs,
+                "bc_max_abs": max(v["abs_err"] for v in bc.values()), "bc": bc,
+                "plain_step_ms": start.elapsed_time(end)}
+    del params, g_k, g_p, model, step, batch
+    torch.cuda.empty_cache()
+    with _no_fused_encoder():
+        cfg_nf = got_path_config(precision="float32")
+        nofused = _run_train_steps(torch, state, "train_perop_f32_nofused",
+                                   ("attn_pool_ms", "attn_pool_bwd") + kernels, cfg_nf,
+                                   steps=PEROP_F32_NOFUSED_STEPS, b2b_steps=1, skips=False)[3]
+    _perop_f32_launches("train_perop_f32_nofused", nofused, cfg_nf.n_modalities)
+    torch.cuda.empty_cache()
+    emit({"phase": "train_perop_f32", "smi": state["smi"], "activation": cfg.activation, **run,
+          "vs_plain": vs_plain,
+          "nofused": dict(nofused, activation="softmax", variable=f"{NO_FUSED_VAR}=1"),
+          "train_f32": state.get("train_f32")})
+    if not (vs_plain["loss_rel_err"] <= F32_LOSS_RTOL
+            and vs_plain["grad_max_rel_fro"] <= F32_GRAD_RTOL
+            and vs_plain["bc_max_abs"] <= BC_ATOL):
+        raise AssertionError(f"train_perop_f32: the kernels' step misses the plain step: loss "
+                             f"{vs_plain['loss_rel_err']}, gradients "
+                             f"{vs_plain['grad_max_rel_fro']}, bc {bc}: {errs}")
+    state["train_perop_f32"] = {"step_ms": run["step_ms_median_after_first"],
+                                "host_ms": run["host_ms_per_step_back_to_back"],
+                                "peak_gb": run["peak_memory_gb"],
+                                "nofused_step_ms": nofused["step_ms_median_after_first"]}
+
+
 RAGGED_CASES = {"a": (1024, 16384, "recompute"), "b": (1024, 8192, "save")}
 RAGGED_EMPTY = 3          # empty (case, stain) bags per batch, label 0
 RAGGED_B2B_STEPS = 3
@@ -4220,30 +4561,113 @@ def _pretrain_argv(root, results, max_epochs, *extra, n_subsamples=2048):
             *extra]
 
 
-def _run_pretrain_cli(argv, log_path, launcher=()):
-    """`python -m madeleine_torch.cli.pretrain` as a subprocess from the repo
-    root (`launcher`: the module's arguments to `python -m` before the CLI's,
-    e.g. torchrun's), this process's cached device memory released first
-    (the subprocess needs the card's memory); returns (results dir, metrics
-    records, wall seconds)."""
+# every CLI process of the run: its log's name and its wall seconds by part
+CLI_RUNS = []
+# the parts of a CLI process, each ending at the mark of its name: the CLI's
+# timeline (cli/pretrain.py main), then the process's exit seen from here
+CLI_PARTS = ("main", "setup", "loader", "model", "epochs", "saved", "downstream", "end", "exit")
+
+
+def _cli_parts(launched, exited, timeline):
+    """{part: seconds} of one CLI process from the wall clock at its launch
+    and exit here and its printed timeline: main = interpreter start and
+    imports up to the entry into main, setup = arguments, group, device and
+    results dir, loader = the loader (the native loader's pinned ring),
+    model = model, optimizer, train step and resume, epochs = the epochs
+    (the first step loads the kernels' libraries), saved = the final
+    model.pt, downstream = the downstream pass, end = the parameters'
+    digest and the logger's close, exit = interpreter and CUDA teardown."""
+    marks = [launched] + [timeline[k] for k in CLI_PARTS[:-1]] + [exited]
+    return {k: marks[i + 1] - marks[i] for i, k in enumerate(CLI_PARTS)}
+
+
+def _run_pretrain_cli(argv, log_path, launcher=(), fresh=True):
+    """The pretrain CLI from the repo root on `argv`, this process's cached
+    device memory released first; returns (results dir, metrics records,
+    wall seconds). With `fresh`, `python -m madeleine_torch.cli.pretrain` as
+    a subprocess (`launcher`: the module's arguments to `python -m` before
+    the CLI's, e.g. torchrun's); else the CLI's entry point
+    `madeleine_torch.cli.pretrain.main(argv)` in this process, its output
+    to the log, which spares the fixed cost of a process (the interpreter,
+    torch's import, torch._dynamo's import by the first optimizer, and the
+    exit: about 16 s of a 20 s run, PERF §7). The run's seconds by part
+    (`_cli_parts`) go to CLI_RUNS."""
     import torch
 
+    gc.collect()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
+    t0, launched = time.perf_counter(), time.time()
     with open(log_path, "w") as log:
-        proc = subprocess.run([sys.executable, "-m", *launcher, *(("-m",) if launcher else ()),
-                               "madeleine_torch.cli.pretrain", *argv],
-                              cwd=HERE, stdout=log, stderr=subprocess.STDOUT, timeout=900,
-                              env=dict(os.environ, PYTHONPATH=HERE))
-    wall = time.perf_counter() - t0
+        if fresh:
+            proc = subprocess.run([sys.executable, "-m", *launcher,
+                                   *(("-m",) if launcher else ()),
+                                   "madeleine_torch.cli.pretrain", *argv],
+                                  cwd=HERE, stdout=log, stderr=subprocess.STDOUT, timeout=900,
+                                  env=dict(os.environ, PYTHONPATH=HERE))
+            rc = proc.returncode
+        else:
+            from madeleine_torch.cli import pretrain
+
+            if launcher:
+                raise ValueError("a launcher needs a fresh process")
+            with contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
+                try:
+                    pretrain.main(list(argv))
+                    rc = 0
+                except Exception:
+                    traceback.print_exc()
+                    rc = 1
+            gc.collect()
+            torch.cuda.empty_cache()
+    wall, exited = time.perf_counter() - t0, time.time()
     out = open(log_path).read()
-    if proc.returncode != 0:
-        raise AssertionError(f"pretrain CLI failed (rc {proc.returncode}):\n{out[-4000:]}")
-    results = [ln.split(": ", 1)[1] for ln in out.splitlines()
-               if ln.startswith("* Results dir: ")][0]
+    if rc != 0:
+        raise AssertionError(f"pretrain CLI failed (rc {rc}, fresh process {fresh}):\n"
+                             f"{out[-4000:]}")
+    lines = out.splitlines()
+    results = [ln.split(": ", 1)[1] for ln in lines if ln.startswith("* Results dir: ")][0]
+    timeline = json.loads([ln.split(": ", 1)[1] for ln in lines
+                           if ln.startswith("* Timeline: ")][-1])
+    CLI_RUNS.append({"log": os.path.basename(log_path), "fresh_process": fresh, "wall_s": wall,
+                     "parts_s": _cli_parts(launched, exited, timeline)})
     with open(os.path.join(results, "metrics.jsonl")) as f:
         records = [json.loads(line) for line in f]
     return results, records, wall
+
+
+def _release_host_cache(torch):
+    """Hand the caching host allocator's free pinned blocks back to the
+    system: the in-process CLI runs of a phase leave their rings' blocks
+    cached there, for the next run of the same size. Returns the call
+    used, None where this PyTorch has none."""
+    for name in ("_host_emptyCache", "_accelerator_emptyHostCache"):
+        fn = getattr(torch._C, name, None)
+        if fn is not None:
+            fn()
+            return name
+    return None
+
+
+def _process_probe():
+    """Seconds a fresh Python process spends on what every CLI process
+    repeats, by part, on the wall clock: interpreter start, `import torch`,
+    the CUDA context (a first allocation on the card), the CLI module's
+    imports, torch._dynamo's import (the first torch.optim optimizer's
+    add_param_group imports it, through torch._disable_dynamo), and the
+    exit."""
+    code = ("import json, time; t = [time.time()]; import torch; t.append(time.time()); "
+            "torch.zeros(1, device='cuda'); torch.cuda.synchronize(); t.append(time.time()); "
+            "import madeleine_torch.cli.pretrain; t.append(time.time()); "
+            "import torch._dynamo; t.append(time.time()); print(json.dumps(t))")
+    launched = time.time()
+    out = subprocess.run([sys.executable, "-c", code], cwd=HERE, capture_output=True, text=True,
+                         check=True, timeout=300, env=dict(os.environ, PYTHONPATH=HERE))
+    exited = time.time()
+    t = json.loads(out.stdout.strip().splitlines()[-1])
+    marks = [launched] + t + [exited]
+    names = ("interpreter", "import_torch", "cuda_context", "import_cli", "import_dynamo",
+             "exit")
+    return {k: marks[i + 1] - marks[i] for i, k in enumerate(names)}
 
 
 PRETRAIN_STEP_KERNELS = ENCODER_KERNELS + GOT_KERNELS + GLUE_KERNELS
@@ -4405,11 +4829,13 @@ def _pinned_batch_outlives_its_copy(torch, n=64 << 20):
             "mb": n * 4 / 2 ** 20}
 
 
-def _pretrain_trio(root, tag, epochs_a, epochs, *extra, n_subsamples=2048, **check):
+def _pretrain_trio(root, tag, epochs_a, epochs, *extra, n_subsamples=2048, fresh=True,
+                   **check):
     """Three CLI runs on the cohort: A epochs_a epochs with --checkpoint_every
-    1, B A resumed to `epochs`, C `epochs` straight, each checked by
-    `_check_pretrain_run` (`check`: its keywords). Returns (runs, model.pt
-    state dicts, wall seconds, resume report); B must equal C bit for bit."""
+    1 (in a fresh process when `fresh`), B A resumed to `epochs`, C `epochs`
+    straight (both in this process), each checked by `_check_pretrain_run`
+    (`check`: its keywords). Returns (runs, model.pt state dicts, wall
+    seconds, resume report); B must equal C bit for bit."""
     import torch
 
     runs, sds, walls = {}, {}, {}
@@ -4419,7 +4845,8 @@ def _pretrain_trio(root, tag, epochs_a, epochs, *extra, n_subsamples=2048, **che
         results, records, walls[name] = _run_pretrain_cli(
             _pretrain_argv(root, os.path.join(root, tag + name.lower()), n,
                            "--checkpoint_every", "1", *more, *extra, n_subsamples=n_subsamples),
-            os.path.join(root, f"pretrain_{tag}{name.lower()}.log"))
+            os.path.join(root, f"pretrain_{tag}{name.lower()}.log"),
+            fresh=fresh and name == "A")
         if name == "A":
             resume_from = os.path.join(results, "train_state")
         first = epochs_a if name == "B" else 0
@@ -4472,10 +4899,13 @@ def phase_pretrain(state):
     with softmax and MADELEINE_NO_FUSED_ENCODER=1 (rows 4-5 and kernels
     15-20), native. The first native batch, bf16 and f32, against its
     plain version bit for bit; both loaders' host ms and parts, H2D ms,
-    step ms, epoch time and stream busy share."""
+    step ms, epoch time and stream busy share. A runs as `python -m` in a
+    fresh process, every other run through the CLI's entry point in this
+    process (`_run_pretrain_cli`)."""
     import torch
 
     gen = np.random.default_rng(SEED + 7)
+    probe = _process_probe()
     pinned = _pinned_batch_outlives_its_copy(torch)
     root = tempfile.mkdtemp(prefix="pretrain_")
     try:
@@ -4489,19 +4919,19 @@ def phase_pretrain(state):
                               iters=10)
         del ring_batch
         runs, _, walls, resume = _pretrain_trio(root, "", 2, 3)
-        runs_se, sds_se, walls_se, resume_se = _pretrain_trio(root, "se_", 1, 2,
-                                                              "--add_stain_encoding")
+        runs_se, sds_se, walls_se, resume_se = _pretrain_trio(
+            root, "se_", 1, 2, "--add_stain_encoding", fresh=False)
         results, records, wall_sig = _run_pretrain_cli(
             _pretrain_argv(root, os.path.join(root, "sigmoid"), 1, "--activation", "sigmoid",
                            "--checkpoint_every", "1", "--native_loader", "off"),
-            os.path.join(root, "pretrain_sigmoid.log"))
+            os.path.join(root, "pretrain_sigmoid.log"), fresh=False)
         run_sig, _ = _check_pretrain_run("sigmoid", results, records, range(1),
                                          kernels=PEROP_KERNELS + GOT_KERNELS + GLUE_KERNELS,
                                          downstream_kernel=None, loader="python")
-        with _no_fused_encoder():   # the CLI process inherits the variable
+        with _no_fused_encoder():   # forward_train reads the variable at each call
             results, records, wall_nf = _run_pretrain_cli(
                 _pretrain_argv(root, os.path.join(root, "nofused"), 1, "--checkpoint_every", "1"),
-                os.path.join(root, "pretrain_nofused.log"))
+                os.path.join(root, "pretrain_nofused.log"), fresh=False)
         run_nf, _ = _check_pretrain_run("nofused", results, records, range(1),
                                         kernels=NOFUSED_KERNELS + GOT_KERNELS + GLUE_KERNELS)
         if any(run_nf["launches"].get(k, 0) for k in ENCODER_KERNELS):
@@ -4510,11 +4940,12 @@ def phase_pretrain(state):
         results, records, wall_intra = _run_pretrain_cli(
             _pretrain_argv(root, os.path.join(root, "intra"), 1, "--checkpoint_every", "1",
                            "--intra_modality_loss", "info-nce"),
-            os.path.join(root, "pretrain_intra.log"))
+            os.path.join(root, "pretrain_intra.log"), fresh=False)
         run_intra, _ = _check_pretrain_run("intra", results, records, range(1))
         loader_parts = _loader_breakdown(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+        _release_host_cache(torch)
     table = sds_se["C"]["embedding.weight"]
     if tuple(table.shape) != (5, 32) or sds_se["C"]["wsi_embedders.pre_attn.0.weight"].shape[1] \
             != 544:
@@ -4530,7 +4961,7 @@ def phase_pretrain(state):
     state["launches_pretrain_side"] = {k: sum(r["launches"].get(k, 0) for r in (run_sig, run_nf))
                                        for k in read_counts()}
     native = _loader_line(list(runs.values()))
-    emit({"phase": "pretrain", "cases": PRETRAIN_CASES, "bags": n_bags,
+    emit({"phase": "pretrain", "process_probe_s": probe, "cases": PRETRAIN_CASES, "bags": n_bags,
           "cohort_gb": n_bytes / 1e9, "cohort_format": ".bag f32", "cohort_write_s": cohort_s,
           "runs": runs, "cli_wall_s": walls, **resume,
           "loader": "native-bf16",
@@ -4565,6 +4996,28 @@ def phase_pretrain(state):
 RAGGED_PRETRAIN_TOKENS = (300, 8001)   # bag lengths of the full-bag cohort: bucket 8192
 
 
+def _ragged_cohort(state):
+    """(root, bags, bytes, write seconds) of the full-bag cohort that
+    pretrain_ragged and pretrain_f32 share: 70 cases of bf16 .bag bags of
+    RAGGED_PRETRAIN_TOKENS lengths from SEED + 9, written once a run; the
+    last of the two phases in the run removes it (`_drop_ragged_cohort`)."""
+    if "ragged_cohort" not in state:
+        root = tempfile.mkdtemp(prefix="pretrain_ragged_")
+        t0 = time.perf_counter()
+        n_bags, n_bytes = _write_pretrain_cohort(root, np.random.default_rng(SEED + 9),
+                                                 tokens=RAGGED_PRETRAIN_TOKENS,
+                                                 dtype="bfloat16")
+        state["ragged_cohort"] = (root, n_bags, n_bytes, time.perf_counter() - t0)
+    return state["ragged_cohort"]
+
+
+def _drop_ragged_cohort(state, keep=False):
+    """Remove the shared full-bag cohort, unless `keep` (a later phase of
+    the run reads it)."""
+    if not keep and "ragged_cohort" in state:
+        shutil.rmtree(state.pop("ragged_cohort")[0], ignore_errors=True)
+
+
 def phase_pretrain_ragged(state):
     """`python -m madeleine_torch.cli.pretrain` with the launch script's
     flags but its default --n_subsamples (-1: full bags) on a synthetic
@@ -4580,23 +5033,21 @@ def phase_pretrain_ragged(state):
 
     from madeleine_torch.data.datasets import RAGGED_BUCKETS, bucket_of
 
-    gen = np.random.default_rng(SEED + 9)
-    root = tempfile.mkdtemp(prefix="pretrain_ragged_")
+    root, n_bags, n_bytes, cohort_s = _ragged_cohort(state)
+    done = False
     try:
-        t0 = time.perf_counter()
-        n_bags, n_bytes = _write_pretrain_cohort(root, gen, tokens=RAGGED_PRETRAIN_TOKENS,
-                                                 dtype="bfloat16")
-        cohort_s = time.perf_counter() - t0
         runs, _, walls, resume = _pretrain_trio(root, "ragged_", 1, 2, n_subsamples=None)
         results, records, wall_py = _run_pretrain_cli(
             _pretrain_argv(root, os.path.join(root, "ragged_python"), 1, "--checkpoint_every",
                            "1", "--native_loader", "off", n_subsamples=None),
-            os.path.join(root, "pretrain_ragged_python.log"))
+            os.path.join(root, "pretrain_ragged_python.log"), fresh=False)
         run_py, _ = _check_pretrain_run("ragged_python", results, records, range(1),
                                         loader="python")
         logs = open(os.path.join(root, "pretrain_ragged_a.log")).read()
+        done = True
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        _drop_ragged_cohort(state, keep=done and "pretrain_f32" in state["phases"])
+        _release_host_cache(torch)
     bucket = bucket_of(RAGGED_PRETRAIN_TOKENS[1] - 1, RAGGED_BUCKETS)
     every = list(runs.values()) + [run_py]
     bad = [(r["buckets"], r["truncation_count"]) for r in every
@@ -4631,21 +5082,37 @@ def phase_pretrain_f32(state):
     2 straight, B's model.pt equal to C's bit for bit. Every step finite and
     applied, K6/K7 with f32 operands (on the recompute route: a call's saves,
     15.3 GB in f32, pass the 10 GiB budget) and K8-K14 on every step, no
-    bf16 K6/K7, K2 in the downstream pass; the CLI step ms and the peak."""
+    bf16 K6/K7, K2 in the downstream pass; the CLI step ms and the peak.
+    Then one epoch with --activation sigmoid on the same cohort (the per-op
+    lane at f32): every step finite and applied, rows 15-18 with f32
+    operands on every step, no bf16 row 15-18 and no K6/K7."""
     import torch
 
-    gen = np.random.default_rng(SEED + 9)   # pretrain_ragged's cohort
-    root = tempfile.mkdtemp(prefix="pretrain_f32_")
+    root = _ragged_cohort(state)[0]   # pretrain_ragged's cohort
     try:
-        _write_pretrain_cohort(root, gen, tokens=RAGGED_PRETRAIN_TOKENS, dtype="bfloat16")
         runs, _, walls, resume = _pretrain_trio(
             root, "f32_", 1, 2, "--precision", "float32", n_subsamples=None,
             kernels=F32_KERNELS + GOT_KERNELS + GLUE_KERNELS, downstream_kernel="gated_pool",
             loader="native-f32")
+        # the per-op lane at f32: one epoch with --activation sigmoid (rows 15-18
+        # with f32 operands; a non-softmax model's eval forward is plain)
+        results, records, wall_sig = _run_pretrain_cli(
+            _pretrain_argv(root, os.path.join(root, "f32_sigmoid"), 1, "--checkpoint_every", "1",
+                           "--precision", "float32", "--activation", "sigmoid",
+                           n_subsamples=None),
+            os.path.join(root, "pretrain_f32_sigmoid.log"), fresh=False)
+        run_sig, _ = _check_pretrain_run("f32_sigmoid", results, records, range(1),
+                                         kernels=PEROP_F32_KERNELS + GOT_KERNELS + GLUE_KERNELS,
+                                         downstream_kernel=None, loader="native-f32")
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        _drop_ragged_cohort(state)
+        _release_host_cache(torch)
+    other = {k: run_sig["launches"].get(k, 0) for k in PEROP_BF16_ROWS + ENCODER_KERNELS
+             + F32_KERNELS if run_sig["launches"].get(k, 0)}
+    if other:
+        raise AssertionError(f"pretrain_f32 sigmoid: other encoder kernels launched {other}")
+    launches = {k: sum(r["launches"].get(k, 0) for r in runs.values()) for k in read_counts()}
     every = list(runs.values())
-    launches = {k: sum(r["launches"].get(k, 0) for r in every) for k in read_counts()}
     steps = sum(len(r["losses"]) for r in every)
     n_calls = steps * len(PRETRAIN_STAINS)
     routes = {"k6_nosave": launches["encoder_train_fwd_f32_nosave"],
@@ -4654,14 +5121,19 @@ def phase_pretrain_f32(state):
                                                                "k7_recompute": n_calls}:
         raise AssertionError(f"pretrain_f32: routes {routes} of {n_calls} calls, bf16 K6/K7 "
                              f"{[launches[k] for k in ENCODER_KERNELS]}")
-    state["launches_pretrain_f32"] = launches
+    state["launches_pretrain_f32"] = {k: v + run_sig["launches"].get(k, 0)
+                                      for k, v in launches.items()}
     warm = [ms for r in every for ms in r["step_ms"][1:]]
     emit({"phase": "pretrain_f32", "smi": state["smi"], "cases": PRETRAIN_CASES,
           "bag_tokens": list(RAGGED_PRETRAIN_TOKENS),
           "flags": "launch script's with --precision float32, without --n_subsamples",
           "runs": runs, "cli_wall_s": walls, **resume, "route_launches": routes,
           "step_ms_median_warm": statistics.median(warm),
-          "peak_memory_gb": max(r["peak_memory_gb"] for r in every)})
+          "peak_memory_gb": max(r["peak_memory_gb"] for r in every),
+          "sigmoid": {"run": run_sig, "cli_wall_s": wall_sig,
+                      "flags": "and --activation sigmoid (rows 15-18 f32)",
+                      "step_ms": run_sig["step_ms"],
+                      "peak_memory_gb": run_sig["peak_memory_gb"]}})
 
 
 DP_BS = 64                   # (b)'s global batch: 32 rows a rank
@@ -5022,7 +5494,7 @@ def phase_data_parallel(state):
             log_path = os.path.join(root, f"{name}.log")
             results, records, walls[name] = _run_pretrain_cli(
                 _pretrain_argv(root, os.path.join(root, name), 1, "--checkpoint_every", "1"),
-                log_path, launcher)
+                log_path, launcher, fresh=bool(launcher))
             run, sds[name] = _check_pretrain_run(f"dp_{name}", results, records, range(1))
             if name == "torchrun":   # the lane's own launches
                 for k, v in run["launches"].items():
@@ -5334,13 +5806,19 @@ def main() -> int:
     from madeleine_torch.utils.device import resolve_device
 
     resolve_device("cuda")
-    state, seconds, t_start = {}, {}, time.perf_counter()
+    state, seconds, t_start = {"phases": phases}, {}, time.perf_counter()
     for p in PHASES:
         if p in phases:
             t0 = time.perf_counter()
             globals()[f"phase_{p}"](state)
             seconds[p] = time.perf_counter() - t0
     emit({"phase_seconds": seconds, "total_s": time.perf_counter() - t_start})
+    if CLI_RUNS:   # the pretrain CLI's runs: seconds by part, fresh processes and in this one
+        emit({"cli_runs": CLI_RUNS,
+              "cli_parts_total_s": {f"{'fresh' if f else 'in_process'}": {
+                  k: sum(r["parts_s"][k] for r in CLI_RUNS if r["fresh_process"] == f)
+                  for k in CLI_PARTS} for f in (True, False)},
+              "cli_wall_total_s": sum(r["wall_s"] for r in CLI_RUNS)})
     if phases != list(PHASES):
         emit({"partial": phases})
         return 0

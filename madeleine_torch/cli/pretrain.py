@@ -63,6 +63,7 @@ from __future__ import annotations
 
 import glob
 import hashlib
+import json
 import os
 import time
 from typing import Dict, Iterator, List, Optional
@@ -156,7 +157,10 @@ def param_digest(model: torch.nn.Module) -> str:
 
 
 def main(argv=None) -> str:
-    """Run pretraining; returns the results dir."""
+    """Run pretraining; returns the results dir. Rank 0 prints the run's
+    timeline last: the wall clock (time.time()) at each part's end, from the
+    entry into main to the end of the downstream pass."""
+    timeline = {"main": time.time()}
     parser = build_parser()
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
@@ -180,6 +184,7 @@ def main(argv=None) -> str:
     logger = (MetricsLogger(results, use_wandb=cfg.log_ml, project=extras["wandb_project_name"],
                             run_name=cfg.EXP_CODE, config=cfg.to_dict(), tags=[cfg.cohort])
               if primary else None)
+    timeline["setup"] = time.time()
 
     # ---- data -----------------------------------------------------------
     loader, loader_name = make_loader(cfg, extras["native_loader"], dev, rank, world)
@@ -187,6 +192,7 @@ def main(argv=None) -> str:
     n_cases = len(loader.rows) if loader_name != "python" else len(loader.dataset)
     if primary:
         print(f"* {loader_name} loader: {n_cases} cases, {steps_per_epoch} steps/epoch")
+    timeline["loader"] = time.time()
 
     # ---- model / optimizer ----------------------------------------------
     _, model = create_model(cfg, seed=cfg.seed, device=dev)
@@ -211,6 +217,7 @@ def main(argv=None) -> str:
         if primary:
             print(f"* Resumed from {src} at epoch {start_epoch} (best_rank={best_rank:.2f})")
 
+    timeline["model"] = time.time()
     prof = None
     if cfg.profile_dir and primary:
         from torch.profiler import ProfilerActivity, profile
@@ -266,6 +273,7 @@ def main(argv=None) -> str:
                 metadata={"epoch": epoch, "best_rank": best_rank, "train_rank": train_rank,
                           "loss": float(ep_loss)})
 
+    timeline["epochs"] = time.time()
     if prof is not None:
         prof.stop()
         os.makedirs(cfg.profile_dir, exist_ok=True)
@@ -276,6 +284,7 @@ def main(argv=None) -> str:
         if not os.path.exists(os.path.join(results, "model.pt")):
             ckpt.save_best_torch(results, model, cfg)
 
+    timeline["saved"] = time.time()
     # ---- downstream slide extraction ----------------------------------------
     downstream = extras["downstream_dir"]
     if downstream:
@@ -293,11 +302,14 @@ def main(argv=None) -> str:
                                      if after[k] > before[k]}})
             logger.summary(f"{name}_rank", ds_rank)
 
+    timeline["downstream"] = time.time()
     # every rank's weights, to show that they are equal
     print(f"* rank {rank}/{world}: parameters sha256 {param_digest(model)}")
     if primary:
         logger.close()
         print("\n" + 100 * "-" + "\nEnd of experiment, bye!\n" + 100 * "-")
+        timeline["end"] = time.time()
+        print(f"* Timeline: {json.dumps(timeline)}", flush=True)
     if own_group:
         dist.destroy_process_group()
     return results

@@ -36,15 +36,9 @@ inline cudaError_t rows_fwd(const RowsFwdT<T>& a, cudaStream_t st) {
   if constexpr (sizeof(T) == 4) {
     if (!a.sf.H[2] && !a.sf.y32) return cudaErrorInvalidValue;
     TRAIN_CHECK(stack_fwd<Gemm::FFMA>(a.sf, st));
-    ff::Args g{};
-    g.X = a.sf.H[2] ? a.sf.H[2] : a.sf.Z; g.xsx = E; g.xsk = 1; g.xb = e; g.xrows = M;
-    g.Y = a.wab; g.ysx = e; g.ysk = 1; g.yb = 2LL * f * e; g.yrows = 2 * f;
-    g.K = e; g.kchunk = e; g.splits = 1;
-    g.bias = a.bab; g.bb = 2LL * f;
-    g.ap = a.ap; g.bp = a.bp; g.lpart = a.lpart; g.wc = a.wc;
-    g.nh = nh; g.f = f; g.t = a.sf.t; g.row_offset = a.sf.row_offset;
-    g.d = a.dgate;
-    return ff::launch<true, true, ff::EPI_GATES>(g, nh, st);
+    return ff::gates(a.sf.H[2] ? a.sf.H[2] : a.sf.Z, a.wab, a.bab, a.wc, a.ap, a.bp,
+                     (long long)nh * f, f, a.lpart, M, nh, e, f, a.sf.t, a.sf.row_offset, a.dgate,
+                     st);
   } else {
     TRAIN_CHECK(stack_fwd<Gemm::WGMMA>(a.sf, st));
     const WgOperand y{a.sf.H[2], E, M, E, 0, e};

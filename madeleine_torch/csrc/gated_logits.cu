@@ -1,5 +1,6 @@
-// Gated attention logits for training in bf16: forward (kernel 17) and
-// backward (kernel 18) of the per-op lane.
+// Gated attention logits for training, bf16 or f32 operands: forward
+// (kernel 17) and backward (kernel 18) of the per-op lane (the f32 entry
+// points at the end of this file).
 //
 // Replaces madeleine_tpu/ops/gated_logits.py::_fwd_kernel and ::_bwd_kernel.
 // Per token row of y [b*t, nh*e] (head-major) and head h:
@@ -230,4 +231,89 @@ extern "C" int gated_logits_backward_rowblock(void** p, const long long* dims,
     return (int)err;
   return (int)madeleine::wgrad<Gemm::MMA_SYNC>(DZG, 2LL * nh * f, 2LL * f, y, D.E, e, 2 * f, e,
                                                M, nh, dwab, work, st);
+}
+
+// ---------------------------------------------------------------------------
+// f32 operands (--precision float32 on the per-op lane): the JAX package runs
+// both TPU kernels at f32 with Precision.HIGHEST. Every product on
+// gemm_ffma.cuh's FFMA tiles (each output's k in order with fmaf), the gates
+// exact (tanhf, 1 / (1 + expf(-v))), nothing rounded: K6 f32's gate product
+// and K7 f32's gate adjoint, one each. What bounds them on an H100: the same
+// multiply-adds as the bf16 route against the 67 TFLOP/s of f32 FMA.
+// ---------------------------------------------------------------------------
+
+// Kernel 17, f32. dims as gated_logits_forward. p as gated_logits_forward's
+// with y and wabp in f32: K6 f32's gate product (ff::gates, the partial
+// logit of every 64 gate columns a fixed xor tree of 16 four-column sums),
+// then gate_logits_sum adds the partials in chunk order and bc.
+extern "C" int gated_logits_forward_f32(void** p, const long long* dims, const float* scales,
+                                        void* stream_) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream_);
+  const Dims D = dims_of(dims, scales);
+  float *logits = (float*)p[5], *lpart = (float*)p[6];
+  const cudaError_t err = madeleine::ff::gates(
+      (const float*)p[0], (const float*)p[1], (const float*)p[2], (const float*)p[3], nullptr,
+      nullptr, 0, 0, lpart, D.M, D.nh, D.e, D.f, D.t, D.row_offset, D.d, st);
+  if (err != cudaSuccess) return (int)err;
+  madeleine::gate_logits_sum<<<(unsigned)(((long long)D.M * D.nh + 255) / 256), 256, 0, st>>>(
+      lpart, (const float*)p[4], nullptr, logits, D.M, D.nh, D.f / 64);
+  return (int)cudaGetLastError();
+}
+
+// Floats of workspace the f32 backward needs: [split pieces, column partials].
+extern "C" void gated_logits_bwd_workspace_f32(const long long* dims, long long* out) {
+  const float one = 1.f;
+  const Dims D = dims_of(dims, &one);
+  out[0] = madeleine::wgrad_work<madeleine::Gemm::FFMA>(2 * D.f, D.e, D.M, D.nh);
+  out[1] = (long long)madeleine::row_tiles(D.M) * 3 * D.nh * D.f;
+}
+
+// Kernel 18, f32: the first design's sequence on the FFMA tiles, in one
+// scratch buffer G [M, nh*2f] f32: the recompute writes per head [a_pre |
+// b_pre] there, and the adjoint overwrites them in place with DZG, per head
+// [dza | dzb] (each thread reads its four columns of a and g of a row
+// before it writes their dza and dzb, and nothing reads them again): 8.7 GB
+// less at bucket 8192 than separate buffers. dims as gated_logits_forward.
+// p: y [M, nh*e] f32, dl [M, nh] f32, wabp, babp (K6's permuted order), wab
+// (the natural order), wc, then the outputs dy [M, nh*e], dwab [nh, 2f, e],
+// dbab [nh, 2f], dwc [nh, f] (f32), then scratch G and the two workspaces of
+// gated_logits_bwd_workspace_f32. Returns a cudaError_t.
+extern "C" int gated_logits_backward_f32(void** p, const long long* dims, const float* scales,
+                                         void* stream_) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream_);
+  const Dims D = dims_of(dims, scales);
+  const int nh = D.nh, e = D.e, f = D.f, M = D.M;
+  const float *y = (const float*)p[0], *dl = (const float*)p[1];
+  const float *wabp = (const float*)p[2], *babp = (const float*)p[3];
+  const float *wab = (const float*)p[4], *wc = (const float*)p[5];
+  float* dy = (float*)p[6];
+  float *dwab = (float*)p[7], *dbab = (float*)p[8], *dwc = (float*)p[9];
+  float* G = (float*)p[10];
+  float *work = (float*)p[11], *part = (float*)p[12];
+  const long long ldp = 3LL * nh * f;
+  const int ntr = madeleine::row_tiles(M);
+  using madeleine::Gemm;
+  // the gates recomputed (K6 f32's product and epilogue, no logit partials),
+  // then their adjoint (K7 f32's gate_bwd) in place: DZG and the column
+  // partials
+  const long long ldg = 2LL * nh * f;
+  cudaError_t err = madeleine::ff::gates(y, wabp, babp, wc, G, G + f, ldg, 2LL * f, nullptr, M,
+                                         nh, e, f, D.t, D.row_offset, D.d, st);
+  if (err != cudaSuccess) return (int)err;
+  float* DZG = G;
+  madeleine::gate_bwd<float, float><<<ntr, nh * f / 4, 0, st>>>(
+      G, G + f, ldg, 2 * f, dl, wc, DZG, part, ldp, M, D.t, nh, f, D.row_offset, D.d);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = madeleine::colsum_reduce(part, ldp, 0, nh * f, ntr, dwc, st)) != cudaSuccess)
+    return (int)err;
+  if ((err = madeleine::colsum_reduce(part, ldp, nh * f, 2 * nh * f, ntr, dbab, st)) !=
+      cudaSuccess)
+    return (int)err;
+  // dy_h = [dza | dzb]_h . [Wa; Wb]_h: both branches in one in-order sum
+  if ((err = madeleine::dgrad<Gemm::FFMA>(DZG, 2LL * nh * f, 2LL * f, wab, e, 2LL * f * e, dy,
+                                          D.E, e, M, e, 2 * f, nh, 0, st)) != cudaSuccess)
+    return (int)err;
+  // dW[a|b]_h = DZG_h^T y_h, the tokens in pieces added in piece order
+  return (int)madeleine::wgrad<Gemm::FFMA>(DZG, 2LL * nh * f, 2LL * f, y, D.E, e, 2 * f, e, M,
+                                           nh, dwab, work, st);
 }

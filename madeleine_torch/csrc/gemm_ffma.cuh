@@ -55,9 +55,11 @@ struct Args {
   long long bb;
   int beta;                 // EPI_STORE: C += out
   // EPI_GATES: batch h is head h; the pre-dropout activations a_pre, b_pre
-  // [xrows, nh f] (skipped when null), the logit partials lpart [xrows, nh,
-  // f / 64], wc [nh, f], and what keys the gate dropout
+  // (skipped when null; head h's columns of row i at i ldg + h hs), the
+  // logit partials lpart [xrows, nh, f / 64] (skipped when null), wc [nh,
+  // f], and what keys the gate dropout
   float *ap, *bp, *lpart;
+  long long ldg, hs;
   const float* wc;
   int nh, f, t, row_offset;
   Dropout d;
@@ -85,7 +87,6 @@ __device__ __forceinline__ void epilogue_gates(const Args& a, const float (&acc)
     bg[c] = bab[64 + 4 * tx + c];
     wc[c] = a.wc[(long long)h * a.f + jg + c];
   }
-  const long long ldg = (long long)a.nh * a.f;
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     const int i = i0 + 64 * (r >> 2) + 4 * ty + (r & 3);   // may be >= xrows
@@ -103,12 +104,12 @@ __device__ __forceinline__ void epilogue_gates(const Args& a, const float (&acc)
     for (int o = 1; o < 16; o <<= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
     if (i >= a.xrows) continue;
     if (a.ap) {
-      *reinterpret_cast<float4*>(a.ap + (long long)i * ldg + (long long)h * a.f + jg) =
+      *reinterpret_cast<float4*>(a.ap + (long long)i * a.ldg + h * a.hs + jg) =
           make_float4(av[0], av[1], av[2], av[3]);
-      *reinterpret_cast<float4*>(a.bp + (long long)i * ldg + (long long)h * a.f + jg) =
+      *reinterpret_cast<float4*>(a.bp + (long long)i * a.ldg + h * a.hs + jg) =
           make_float4(gv[0], gv[1], gv[2], gv[3]);
     }
-    if (tx == 0) a.lpart[((long long)i * a.nh + h) * (a.f / 64) + chunk] = part;
+    if (tx == 0 && a.lpart) a.lpart[((long long)i * a.nh + h) * (a.f / 64) + chunk] = part;
   }
 }
 
@@ -196,6 +197,29 @@ inline int wgrad_splits(int Mo, int No, int tokens, int batches) {
 inline long long wgrad_work_floats(int Mo, int No, int tokens, int batches) {
   const int s = wgrad_splits(Mo, No, tokens, batches);
   return s > 1 ? (long long)s * batches * Mo * No : 0;
+}
+
+// K6's gate product with the gate in its epilogue, every head in one
+// launch: batch h reads y [M, nh e] at column h e and the permuted [Wa;
+// Wb]_h (wab [nh, 2f, e], bab [nh, 2f]) at row h 2f; writes, where set,
+// a_pre and b_pre (pre-dropout; head h's f columns of row i at i ldg + h
+// hs) and the logit partials lpart [M, nh, f / 64]. K6 and the per-op
+// kernel 17 with f32 operands write the partials (K6 also a_pre, b_pre [M,
+// nh f]), kernel 18's recompute the activations alone, per head [a_pre |
+// b_pre] in one [M, nh 2f] buffer.
+inline cudaError_t gates(const float* y, const float* wab, const float* bab, const float* wc,
+                         float* ap, float* bp, long long ldg, long long hs, float* lpart, int M,
+                         int nh, int e, int f, int t, int row_offset, Dropout d,
+                         cudaStream_t st) {
+  Args g{};
+  g.X = y; g.xsx = (long long)nh * e; g.xsk = 1; g.xb = e; g.xrows = M;
+  g.Y = wab; g.ysx = e; g.ysk = 1; g.yb = 2LL * f * e; g.yrows = 2 * f;
+  g.K = e; g.kchunk = e; g.splits = 1;
+  g.bias = bab; g.bb = 2LL * f;
+  g.ap = ap; g.bp = bp; g.ldg = ldg; g.hs = hs; g.lpart = lpart; g.wc = wc;
+  g.nh = nh; g.f = f; g.t = t; g.row_offset = row_offset;
+  g.d = d;
+  return launch<true, true, EPI_GATES>(g, nh, st);
 }
 
 // Z [M, N] = X [M, K] W [N, K]^T + bias [N].

@@ -1,5 +1,6 @@
-// Pre-attention MLP for training in bf16: forward (kernel 15) and backward
-// (kernel 16) of the per-op lane.
+// Pre-attention MLP for training, bf16 or f32 operands: forward (kernel 15)
+// and backward (kernel 16) of the per-op lane (the f32 entry points at the
+// end of this file).
 //
 // Replaces madeleine_tpu/ops/preattn.py::_fwd_kernel and ::_bwd_kernel. Per
 // token row of x [b*t, d_in]:
@@ -64,23 +65,26 @@ Dims dims_of(const long long* dims, const float* scales) {
 }
 
 // The stack's operands from p[first]: w1, b1, s1, t1, w2, ..., t3.
-void stack_weights(madeleine::StackFwd& a, void** p, int first) {
+template <typename T>
+void stack_weights(madeleine::StackFwdT<T>& a, void** p, int first) {
   for (int i = 0; i < 3; ++i) {
-    a.w[i] = (const bf16*)p[first + 4 * i];
+    a.w[i] = (const T*)p[first + 4 * i];
     a.b[i] = (const float*)p[first + 4 * i + 1];
     a.s[i] = (const float*)p[first + 4 * i + 2];
     a.sh[i] = (const float*)p[first + 4 * i + 3];
   }
 }
 
-// The forward's pointers (the layout of preattn_forward's p).
-void forward_args(void** p, const Dims& D, madeleine::StackFwd& a) {
-  a = madeleine::StackFwd{};
-  a.x = (const bf16*)p[0];
+// The forward's pointers (the layout of preattn_forward's p), T the
+// operands' type.
+template <typename T>
+void forward_args(void** p, const Dims& D, madeleine::StackFwdT<T>& a) {
+  a = madeleine::StackFwdT<T>{};
+  a.x = (const T*)p[0];
   stack_weights(a, p, 1);
   a.Z = (float*)p[14];
   a.rstd = (float*)p[15];
-  a.H[0] = (bf16*)p[16]; a.H[1] = (bf16*)p[17]; a.H[2] = (bf16*)p[13];
+  a.H[0] = (T*)p[16]; a.H[1] = (T*)p[17]; a.H[2] = (T*)p[13];
   a.M = D.M; a.t = D.t; a.d_in = D.d_in; a.hd = D.hd; a.E = D.E;
   a.row_offset = D.row_offset;
   a.d = D.d;
@@ -181,19 +185,21 @@ void workspace(const long long* dims, long long* out) {
 }
 
 // The backward's pointers (the layout of preattn_backward's p): the
-// recompute's StackFwd and the adjoint's StackBwd.
-void backward_args(void** p, const Dims& D, madeleine::StackFwd& f, madeleine::StackBwd& a) {
-  f = madeleine::StackFwd{};
-  f.x = (const bf16*)p[0];
+// recompute's StackFwdT and the adjoint's StackBwdT, T the operands' type.
+template <typename T>
+void backward_args(void** p, const Dims& D, madeleine::StackFwdT<T>& f,
+                   madeleine::StackBwdT<T>& a) {
+  f = madeleine::StackFwdT<T>{};
+  f.x = (const T*)p[0];
   stack_weights(f, p, 2);
   f.Z = (float*)p[26];
-  f.U[0] = (bf16*)p[27]; f.U[1] = (bf16*)p[28]; f.U[2] = (bf16*)p[29];
+  f.U[0] = (T*)p[27]; f.U[1] = (T*)p[28]; f.U[2] = (T*)p[29];
   f.rstd = (float*)p[30];
-  f.H[0] = (bf16*)p[31]; f.H[1] = (bf16*)p[32]; f.H[2] = nullptr;
+  f.H[0] = (T*)p[31]; f.H[1] = (T*)p[32]; f.H[2] = nullptr;
   f.M = D.M; f.t = D.t; f.d_in = D.d_in; f.hd = D.hd; f.E = D.E;
   f.row_offset = D.row_offset;
   f.d = D.d;
-  a = madeleine::StackBwd{};
+  a = madeleine::StackBwdT<T>{};
   a.x = f.x; a.h1 = f.H[0]; a.h2 = f.H[1];
   a.u[0] = f.U[0]; a.u[1] = f.U[1]; a.u[2] = f.U[2];
   a.rstd = f.rstd;
@@ -206,13 +212,13 @@ void backward_args(void** p, const Dims& D, madeleine::StackFwd& f, madeleine::S
     a.ds[i] = (float*)p[16 + 4 * i];
     a.dt[i] = (float*)p[17 + 4 * i];
   }
-  a.DZ3 = (bf16*)p[33];
+  a.DZ3 = (T*)p[33];
   a.DH = (float*)p[34];
-  a.DZ12 = (bf16*)p[35];
+  a.DZ12 = (T*)p[35];
   a.work = (float*)p[36];
   a.part = (float*)p[37];
   a.ldp = 3LL * (D.E > D.hd ? D.E : D.hd);
-  a.dx = (bf16*)p[38];
+  a.dx = (T*)p[38];
   a.M = D.M; a.t = D.t; a.d_in = D.d_in; a.hd = D.hd; a.E = D.E;
   a.row_offset = D.row_offset;
   a.d = D.d;
@@ -283,4 +289,43 @@ extern "C" int preattn_backward_rowblock(void** p, const long long* dims, const 
   cudaError_t err = madeleine::stack_fwd<madeleine::Gemm::MMA_SYNC>(f, st);
   if (err != cudaSuccess) return (int)err;
   return (int)madeleine::stack_bwd<madeleine::Gemm::MMA_SYNC>(a, (const bf16*)p[1], st);
+}
+
+// ---------------------------------------------------------------------------
+// f32 operands (--precision float32 on the per-op lane): the JAX package runs
+// both TPU kernels at f32 with Precision.HIGHEST. The same sequences with
+// every operand, activation, residual, cotangent and output in f32, nothing
+// rounded between layers, every product on gemm_ffma.cuh's FFMA tiles
+// (Gemm::FFMA: each output's k in order with fmaf, the weight gradients'
+// token sums in pieces of at least 1024 tokens added in piece order) and
+// the rows on K6 f32's row kernel (train_rows.cuh::ln_gelu_fwd<float>, one
+// row per block, the statistics by group_sum), so the per-op chain repeats
+// K6/K7 f32's arithmetic. What bounds it on an H100: the same multiply-adds
+// as the bf16 route against the 67 TFLOP/s of f32 FMA.
+// ---------------------------------------------------------------------------
+
+// p as preattn_forward's with x, w1, w2, w3, y, H1 and H2 in f32 (rstd null).
+extern "C" int preattn_forward_f32(void** p, const long long* dims, const float* scales,
+                                   void* stream_) {
+  madeleine::StackFwdT<float> a;
+  forward_args(p, dims_of(dims, scales), a);
+  return (int)madeleine::stack_fwd<madeleine::Gemm::FFMA>(a, static_cast<cudaStream_t>(stream_));
+}
+
+extern "C" void preattn_bwd_workspace_f32(const long long* dims, long long* out) {
+  workspace<madeleine::Gemm::FFMA>(dims, out);
+}
+
+// p as preattn_backward's with x, dy, the weight matrices, U1-U3, H1, H2, DZ3,
+// DZ12 and dx in f32; the workspaces of preattn_bwd_workspace_f32. DZ3 may
+// be Z's memory: the recompute is done with Z before the adjoint writes DZ3.
+extern "C" int preattn_backward_f32(void** p, const long long* dims, const float* scales,
+                                    void* stream_) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream_);
+  madeleine::StackFwdT<float> f;
+  madeleine::StackBwdT<float> a;
+  backward_args(p, dims_of(dims, scales), f, a);
+  cudaError_t err = madeleine::stack_fwd<madeleine::Gemm::FFMA>(f, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)madeleine::stack_bwd<madeleine::Gemm::FFMA>(a, (const float*)p[1], st);
 }

@@ -172,6 +172,18 @@ def half_split(seed: int, t: int, device) -> torch.Tensor:
     return torch.zeros(t, dtype=torch.bool, device=device).scatter_(0, perm[:t // 2], True)
 
 
+def project_tokens(y: torch.Tensor, wt: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+    """The per-op lane's token projector in training, routed as the JAX
+    package routes it (madeleine.py:93-103): bf16 through the train op of
+    ops/linear_tok.py (kernels 19/20 on the card), f32 through a plain
+    product, full f32 (no TF32: `utils.device.full_precision_matmul`, as on
+    the loss path), as JAX's HIGHEST-precision `_linear`. y [b, t, E]
+    head-major, wt [d_out, E] in y's dtype, bt [d_out] f32."""
+    if y.dtype == torch.bfloat16:
+        return linear_tok_train(y, wt, bt)
+    return F.linear(y, wt, bt.to(y.dtype))
+
+
 def fused_route(cfg) -> bool:
     """Whether a training forward takes the fused train op (K6/K7): softmax
     attention with MADELEINE_NO_FUSED_ENCODER unset or empty (read at each
@@ -193,7 +205,7 @@ def forward_train(model: MADELEINE, feats: torch.Tensor, *,
     call), through the per-op lane, as the JAX package routes it
     (madeleine.py:157-174,226-248): `abmil_embed_train` (kernels 15-18, then
     with softmax the training pool, rows 4/5, else the plain pool) and the
-    token projector's op (kernels 19/20).
+    token projector (`project_tokens`: kernels 19/20 in bf16).
 
     feats [bs, n_mod, t, d] in the compute dtype; mask [bs, n_mod, t] bool;
     seed: the step's dropout seed. n_views=3 (the intra-modality loss) adds
@@ -241,7 +253,7 @@ def forward_train(model: MADELEINE, feats: torch.Tensor, *,
                                  half_mask=half)
         pooled, xh = abmil_embed_train(w, x, activation=cfg.activation, seed=seed, mask=m,
                                        row_offset=row_offset, half_mask=half)
-        return pooled, linear_tok_train(xh.flatten(-2), w["wt"], w["bt"])
+        return pooled, project_tokens(xh.flatten(-2), w["wt"], w["bt"])
 
     if not cfg.modality_scan:
         x = feats.reshape(bs * n_mod, t, d)

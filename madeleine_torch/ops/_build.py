@@ -98,6 +98,27 @@ def check_operand(kernel: str, name: str, x: torch.Tensor, shape: Sequence[int],
                          f"{x.device}{'' if x.is_contiguous() else ' (non-contiguous)'}")
 
 
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)   # the train kernels' operand types
+
+
+def check_dtypes(kernel: str, name: str, x: torch.Tensor, w: Dict[str, torch.Tensor],
+                 keys: Iterable[str], mats: Iterable[str]) -> torch.dtype:
+    """The call's compute dtype, that of its input `name` (x): bf16 or f32,
+    with every operand of `keys` that is in `mats` (the matrices) in it and
+    every other one (the vectors) f32 on both routes. A mixed set raises a
+    ValueError that names the first operand out of line."""
+    dt = x.dtype
+    if dt not in KERNEL_DTYPES:
+        raise ValueError(f"{kernel} kernel: {name} must be bf16 or f32, got {dt}")
+    mats = set(mats)
+    for k in keys:
+        want = dt if k in mats else torch.float32
+        if w[k].dtype != want:
+            raise ValueError(f"{kernel} kernel: {k} must be {want} with {dt} {name} "
+                             f"(a mixed operand set), got {w[k].dtype}")
+    return dt
+
+
 def check_aligned(kernel: str, name: str, x: torch.Tensor) -> None:
     """Raise unless x starts on a 16-byte boundary: TMA and cp.async read
     16-byte aligned rows."""

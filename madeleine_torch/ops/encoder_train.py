@@ -93,7 +93,6 @@ SAVED = ("u1", "u2", "u3", "ap", "bp", "rstd")
 ACT_BUDGET_BYTES = int(os.environ.get("MADELEINE_ENCODER_ACT_BUDGET", str(10 * 1024 ** 3)))
 NO_SAVE_VAR = "MADELEINE_ENCODER_NO_SAVE_ACTS"   # any non-empty value: always recompute
 GUARD_MARGIN = 2 * 1024 ** 3
-KERNEL_DTYPES = (torch.bfloat16, torch.float32)   # K6 / K7's operand types on the card
 
 # The f32 route's weight gradients (csrc/gemm_ffma.cuh::wgrad_chunk): the
 # token sum of an [Mo, No] gradient x batches split into pieces so that the
@@ -300,15 +299,7 @@ def check_dtypes(x, w, kernel) -> torch.dtype:
     """The call's compute dtype, x's: bf16 or f32, with every matrix of MATS
     in it (the vectors are f32 on both routes). A mixed set raises a
     ValueError that names the first operand out of line."""
-    dt = x.dtype
-    if dt not in KERNEL_DTYPES:
-        raise ValueError(f"{kernel} kernel: x must be bf16 or f32, got {dt}")
-    for k in W_KEYS:
-        want = dt if k in MATS else torch.float32
-        if w[k].dtype != want:
-            raise ValueError(f"{kernel} kernel: {k} must be {want} with {dt} x "
-                             f"(a mixed operand set), got {w[k].dtype}")
-    return dt
+    return _build.check_dtypes(kernel, "x", x, w, W_KEYS, MATS)
 
 
 def _check_shapes(x, w, kernel):

@@ -1,4 +1,4 @@
-"""Gated attention logits for training: kernel 17 (forward) and 18 (backward), bf16.
+"""Gated attention logits for training: kernel 17 (forward) and 18 (backward), bf16 or f32.
 
 Replaces `madeleine_tpu/ops/gated_logits.py` (`_fwd_kernel`, `_bwd_kernel`,
 `gated_logits_train`), the per-op lane's second op (ref: abmil.py:41-52 with
@@ -8,7 +8,8 @@ row of y [b, t, E] (head-major, E = nh * e) and head h:
     a = drop(tanh(y_h Wa_h^T + ba_h)), g = drop(sigmoid(y_h Wb_h^T + bb_h))
     logits[:, h] = (a g) . wc_h + bc_h                       -> [b, t, nh] f32
 
-with bf16 operands and f32 accumulation, activations and logits. Dropout
+with bf16 or f32 operands (f32: the JAX package's Precision.HIGHEST route,
+`--precision float32`) and f32 accumulation, activations and logits. Dropout
 masks come from `ops/prng.py` (Philox, stream 3 + 2h + branch), the masks of
 K6/K7 for the same (seed, row_offset). The backward recomputes the gates
 from (y, seed) in f32, as the TPU op does: autograd keeps y and nothing
@@ -18,14 +19,21 @@ else. dbc, the sum of the logits' cotangent, is taken outside the kernel
 Operands (`encoder_train.train_operands`): wa / wb [nh, f, e] in the
 compute dtype, ba / bb / wc [nh, f] and bc [nh] f32. The gate helpers here
 also serve K6/K7's plain versions. A CPU tensor takes the plain versions
-(any float dtype); a CUDA tensor launches csrc/gated_logits.cu, bf16 only,
-or raises. Both kernels run on K6's permuted [Wa; Wb] (`permute_gates`):
+(any float dtype); a CUDA tensor launches csrc/gated_logits.cu or raises; a
+mixed bf16 / f32 operand set raises a ValueError naming the operand. With
+f32 operands (`gated_logits_forward_f32`, `gated_logits_backward_f32`) the
+forward is K6 f32's gate product on the FFMA tiles of csrc/gemm_ffma.cuh
+and the backward recomputes the gates there into f32 scratch, runs K7
+f32's gate adjoint over it in place, then both products on the same
+tiles. In bf16 both kernels run on K6's permuted [Wa; Wb]
+(`permute_gates`):
 the forward forms the gates and their partial logits in one TMA + wgmma
 GEMM launch, K6's gate product, and adds the partials in a second; the
 backward recomputes the gates and forms their adjoint in one launch of the
 same GEMM. Their first designs, the f32 gate products on the mma.sync GEMM
 and a separate row pass, stay reachable as `gated_logits_fwd_rowblock_cuda`
-and `gated_logits_bwd_rowblock_cuda`, checks that no path calls.
+and `gated_logits_bwd_rowblock_cuda`, bf16 only, checks that no path
+calls.
 """
 
 from __future__ import annotations
@@ -37,10 +45,12 @@ import torch
 from madeleine_torch.ops import _build
 from madeleine_torch.ops import prng
 from madeleine_torch.ops import preattn as pa
-from madeleine_torch.ops.preattn import F32_TODO, wide
+from madeleine_torch.ops.preattn import wide
 
-fwd_launches = 0   # kernel 17 launches (one per wrapper call on a CUDA tensor)
+fwd_launches = 0   # kernel 17 launches (one per wrapper call on a bf16 CUDA tensor)
 bwd_launches = 0   # kernel 18 launches
+fwd_f32_launches = 0   # kernel 17 launches with f32 operands
+bwd_f32_launches = 0   # kernel 18 launches with f32 operands
 fwd_rowblock_launches = 0   # kernel 17's first design, the check-only entry point
 bwd_rowblock_launches = 0   # kernel 18's first design, the check-only entry point
 
@@ -158,12 +168,21 @@ def permute_gates(w: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tenso
     return wab, bab
 
 
+MATS = ("wa", "wb")
+
+
+def check_dtypes(y, w, kernel) -> torch.dtype:
+    """The call's compute dtype, y's: bf16 or f32, with wa, wb in it and the
+    vectors f32. A mixed set raises a ValueError naming the operand."""
+    return _build.check_dtypes(kernel, "y", y, w, KEYS, MATS)
+
+
 def _check(y, w, kernel):
+    """(b, t, nh, e, f, compute dtype) after the operand checks: CUDA
+    tensors, `check_dtypes`, the widths the kernels take."""
     if y.device.type != "cuda":
         raise ValueError(f"{kernel} kernel needs CUDA tensors, got {y.device}")
-    if y.dtype != torch.bfloat16:
-        raise NotImplementedError(f"{kernel} kernel runs in bf16 only, got {y.dtype} "
-                                  f"({F32_TODO})")
+    dt = check_dtypes(y, w, kernel)
     b, t, E = y.shape
     nh, f, e = w["wa"].shape
     if E != nh * e or e % 8 or f % 128 or nh * f > 4096 or b < 1 or t < 1:
@@ -171,28 +190,33 @@ def _check(y, w, kernel):
                          f"(needs E = nh*e, e % 8 == 0, f a multiple of 128, nh*f <= 4096)")
     for k, shape in (("wa", (nh, f, e)), ("ba", (nh, f)), ("wb", (nh, f, e)), ("bb", (nh, f)),
                      ("wc", (nh, f)), ("bc", (nh,))):
-        _build.check_operand(kernel, k, w[k], shape,
-                             torch.bfloat16 if k in ("wa", "wb") else torch.float32, y.device)
-    _build.check_operand(kernel, "y", y, (b, t, E), torch.bfloat16, y.device)
-    return b, t, nh, e, f
+        _build.check_operand(kernel, k, w[k], shape, dt if k in MATS else torch.float32,
+                             y.device)
+    _build.check_operand(kernel, "y", y, (b, t, E), dt, y.device)
+    return b, t, nh, e, f, dt
 
 
 @torch.no_grad()
 def gated_logits_fwd_cuda(y, w, seed: int, row_offset: int = 0,
                           rate: float = RATE) -> torch.Tensor:
-    """Launch kernel 17 on CUDA tensors; returns as `gated_logits_fwd_plain`.
-    Raises where the wgmma GEMM refuses an operand."""
-    global fwd_launches
-    b, t, nh, e, f = _check(y, w, "gated_logits_fwd")
+    """Launch kernel 17 on CUDA tensors, bf16 or f32 (y's dtype); returns as
+    `gated_logits_fwd_plain`. Raises where the GEMM refuses an operand."""
+    global fwd_launches, fwd_f32_launches
+    b, t, nh, e, f, dt = _check(y, w, "gated_logits_fwd")
     _build.check_aligned("gated_logits_fwd", "y", y)
     dev, M = y.device, b * t
     wabp, babp = permute_gates(w)                                  # K6's row order
     logits = torch.empty(b, t, nh, dtype=torch.float32, device=dev)
     lpart = torch.empty(M, nh, f // GATE_CHUNK, dtype=torch.float32, device=dev)
     dims, scales = prng.kernel_args((b, t, nh, e, f), seed, row_offset, rate)
-    _build.call_ptrs("gated_logits", "gated_logits_forward",
-                     [y, wabp, babp, w["wc"], w["bc"], logits, lpart], dims, scales, dev)
-    fwd_launches += 1
+    wide_ = dt == torch.float32
+    _build.call_ptrs("gated_logits", "gated_logits_forward_f32" if wide_ else
+                     "gated_logits_forward", [y, wabp, babp, w["wc"], w["bc"], logits, lpart],
+                     dims, scales, dev)
+    if wide_:
+        fwd_f32_launches += 1
+    else:
+        fwd_launches += 1
     return logits
 
 
@@ -201,32 +225,36 @@ def gated_logits_fwd_rowblock_cuda(y, w, seed: int, row_offset: int = 0,
                                    rate: float = RATE) -> torch.Tensor:
     """Kernel 17's first design (the f32 gate products on the mma.sync GEMM,
     then a row pass for the dropout and the logits), kept as a check of the
-    redesign; no path calls it. Returns as `gated_logits_fwd_plain`."""
+    redesign; no path calls it. bf16 only. Returns as
+    `gated_logits_fwd_plain`."""
     global fwd_rowblock_launches
-    b, t, nh, e, f = _check(y, w, "gated_logits_fwd_rowblock")
+    b, t, nh, e, f, dt = _check(y, w, "gated_logits_fwd_rowblock")
+    fn = pa.entry_of({torch.bfloat16: "gated_logits_forward_rowblock"}, dt,
+                     "gated_logits_fwd_rowblock")
     dev, M = y.device, b * t
     wab = torch.cat([w["wa"], w["wb"]], dim=1).contiguous()        # [nh, 2f, e]
     bab = torch.cat([w["ba"], w["bb"]], dim=1).contiguous()        # [nh, 2f]
     logits = torch.empty(b, t, nh, dtype=torch.float32, device=dev)
     G = torch.empty(M, 2 * nh * f, dtype=torch.float32, device=dev)
     dims, scales = prng.kernel_args((b, t, nh, e, f), seed, row_offset, rate)
-    _build.call_ptrs("gated_logits", "gated_logits_forward_rowblock",
-                     [y, wab, bab, w["wc"], w["bc"], logits, G], dims, scales, dev)
+    _build.call_ptrs("gated_logits", fn, [y, wab, bab, w["wc"], w["bc"], logits, G], dims,
+                     scales, dev)
     fwd_rowblock_launches += 1
     return logits
 
 
 def _bwd_outputs(y, dl, w, kernel):
-    """Check kernel 18's operands; returns (b, t, nh, e, f) and the outputs
-    dy [b, t, nh e] bf16, dwab [nh, 2f, e], dbab [nh, 2, f], dwc [nh, f] f32."""
-    b, t, nh, e, f = _check(y, w, kernel)
+    """Check kernel 18's operands; returns (b, t, nh, e, f, dtype) and the
+    outputs dy [b, t, nh e] in y's dtype, dwab [nh, 2f, e], dbab [nh, 2, f],
+    dwc [nh, f] f32."""
+    b, t, nh, e, f, dt = _check(y, w, kernel)
     _build.check_operand(kernel, "dl", dl, (b, t, nh), torch.float32, y.device)
     _build.check_aligned(kernel, "y", y)
     dev, f32 = y.device, torch.float32
-    return (b, t, nh, e, f), [torch.empty(b, t, nh * e, dtype=torch.bfloat16, device=dev),
-                              torch.empty(nh, 2 * f, e, dtype=f32, device=dev),
-                              torch.empty(nh, 2, f, dtype=f32, device=dev),
-                              torch.empty(nh, f, dtype=f32, device=dev)]
+    return (b, t, nh, e, f, dt), [torch.empty(b, t, nh * e, dtype=dt, device=dev),
+                                  torch.empty(nh, 2 * f, e, dtype=f32, device=dev),
+                                  torch.empty(nh, 2, f, dtype=f32, device=dev),
+                                  torch.empty(nh, f, dtype=f32, device=dev)]
 
 
 def _bwd_grads(outs, dl, f):
@@ -238,22 +266,29 @@ def _bwd_grads(outs, dl, f):
 @torch.no_grad()
 def gated_logits_bwd_cuda(y, dl, w, seed: int, row_offset: int = 0,
                           rate: float = RATE) -> Dict[str, torch.Tensor]:
-    """Launch kernel 18 on CUDA tensors; returns as `gated_logits_bwd_plain`
-    (dbc the sum of dl, outside the kernel as on the TPU). Raises where the
-    wgmma GEMM refuses an operand."""
-    global bwd_launches
-    (b, t, nh, e, f), outs = _bwd_outputs(y, dl, w, "gated_logits_bwd")
-    dev, M = y.device, b * t
+    """Launch kernel 18 on CUDA tensors, bf16 or f32 (y's dtype, dy's too);
+    returns as `gated_logits_bwd_plain` (dbc the sum of dl, outside the
+    kernel as on the TPU). Raises where the GEMM refuses an operand."""
+    global bwd_launches, bwd_f32_launches
+    (b, t, nh, e, f, dt), outs = _bwd_outputs(y, dl, w, "gated_logits_bwd")
+    dev, M, f32 = y.device, b * t, torch.float32
+    wide_ = dt == f32
     dims, scales = prng.kernel_args((b, t, nh, e, f), seed, row_offset, rate)
-    ws = _build.workspace("gated_logits", "gated_logits_bwd_workspace", dims)
+    ws = _build.workspace("gated_logits", "gated_logits_bwd_workspace_f32" if wide_ else
+                          "gated_logits_bwd_workspace", dims)
     wabp, babp = permute_gates(w)                                  # K6's row order
     wab = torch.cat([w["wa"], w["wb"]], dim=1).contiguous()        # [nh, 2f, e]
-    scratch = [torch.empty(M, 2 * nh * f, dtype=torch.bfloat16, device=dev),   # DZG
-               torch.empty(ws[0], dtype=torch.float32, device=dev),          # split-K partials
-               torch.empty(ws[1], dtype=torch.float32, device=dev)]          # column partials
-    _build.call_ptrs("gated_logits", "gated_logits_backward",
-                     [y, dl, wabp, babp, wab, w["wc"], *outs, *scratch], dims, scales, dev)
-    bwd_launches += 1
+    # DZG (f32: first the recomputed gates, then DZG in place)
+    scratch = [torch.empty(M, 2 * nh * f, dtype=dt, device=dev),
+               torch.empty(ws[0], dtype=f32, device=dev),                     # split-K partials
+               torch.empty(ws[1], dtype=f32, device=dev)]                     # column partials
+    _build.call_ptrs("gated_logits", "gated_logits_backward_f32" if wide_ else
+                     "gated_logits_backward", [y, dl, wabp, babp, wab, w["wc"], *outs, *scratch],
+                     dims, scales, dev)
+    if wide_:
+        bwd_f32_launches += 1
+    else:
+        bwd_launches += 1
     return _bwd_grads(outs, dl, f)
 
 
@@ -262,9 +297,11 @@ def gated_logits_bwd_rowblock_cuda(y, dl, w, seed: int, row_offset: int = 0,
                                    rate: float = RATE) -> Dict[str, torch.Tensor]:
     """Kernel 18's first design (the f32 gate products on the mma.sync GEMM,
     then the adjoint pass), kept as a check of the redesign; no path calls
-    it. Returns as `gated_logits_bwd_plain`."""
+    it. bf16 only. Returns as `gated_logits_bwd_plain`."""
     global bwd_rowblock_launches
-    (b, t, nh, e, f), outs = _bwd_outputs(y, dl, w, "gated_logits_bwd_rowblock")
+    (b, t, nh, e, f, dt), outs = _bwd_outputs(y, dl, w, "gated_logits_bwd_rowblock")
+    fn = pa.entry_of({torch.bfloat16: "gated_logits_backward_rowblock"}, dt,
+                     "gated_logits_bwd_rowblock")
     dev, M, f32 = y.device, b * t, torch.float32
     dims, scales = prng.kernel_args((b, t, nh, e, f), seed, row_offset, rate)
     ws = _build.workspace("gated_logits", "gated_logits_bwd_rowblock_workspace", dims)
@@ -274,8 +311,8 @@ def gated_logits_bwd_rowblock_cuda(y, dl, w, seed: int, row_offset: int = 0,
                torch.empty(M, 2 * nh * f, dtype=torch.bfloat16, device=dev),   # DZG
                torch.empty(ws[0], dtype=f32, device=dev),                      # split-K partials
                torch.empty(ws[1], dtype=f32, device=dev)]                      # column partials
-    _build.call_ptrs("gated_logits", "gated_logits_backward_rowblock",
-                     [y, dl, wab, bab, w["wc"], *outs, *scratch], dims, scales, dev)
+    _build.call_ptrs("gated_logits", fn, [y, dl, wab, bab, w["wc"], *outs, *scratch],
+                     dims, scales, dev)
     bwd_rowblock_launches += 1
     return _bwd_grads(outs, dl, f)
 

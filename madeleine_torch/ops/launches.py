@@ -51,6 +51,11 @@ COUNTERS = {
     "gated_logits_fwd_rowblock": (gated_logits, "fwd_rowblock_launches"),   # 17's first design
     "gated_logits_bwd": (gated_logits, "bwd_launches"),     # 18
     "gated_logits_bwd_rowblock": (gated_logits, "bwd_rowblock_launches"),   # 18's first design
+    # rows 15-18 with f32 operands (--precision float32 on the per-op lane)
+    "preattn_fwd_f32": (preattn, "fwd_f32_launches"),       # 15, f32
+    "preattn_bwd_f32": (preattn, "bwd_f32_launches"),       # 16, f32
+    "gated_logits_fwd_f32": (gated_logits, "fwd_f32_launches"),   # 17, f32
+    "gated_logits_bwd_f32": (gated_logits, "bwd_f32_launches"),   # 18, f32
     "linear_tok_fwd": (linear_tok, "fwd_launches"),         # 19
     "linear_tok_bwd": (linear_tok, "bwd_launches"),         # 20
     "linear_tok_bwd_mmasync": (linear_tok, "bwd_mmasync_launches"),   # 20's first design

@@ -5,7 +5,10 @@ Replaces `madeleine_tpu/ops/linear_tok.py` (`_fwd_kernel`, `_bwd_kernel`,
 138-140): tok = y Wt^T + bt over y [b, t, E] (head-major), f32 accumulation
 and bias, cast to y's dtype; the backward takes the cotangent in y's dtype
 (linear_tok.py:125) and gives dy = g Wt in y's dtype, dWt = g^T y and
-dbt = sum of g in f32. The TPU needed the op to pin its operands' layout;
+dbt = sum of g in f32. The JAX package reaches it for bf16 only
+(madeleine_tpu/models/madeleine.py:93-103): an f32 step's projector is a
+plain product (`models/madeleine.py::project_tokens`). The TPU needed the
+op to pin its operands' layout;
 the port keeps it as the token projector's own kernels. Wt [d_out, E] has
 its input columns permuted to head-major (`madeleine.train_weights`'s wt);
 bt is f32. The plain versions also serve K6/K7's. A CPU tensor takes them
@@ -24,7 +27,7 @@ import torch
 
 from madeleine_torch.ops import _build
 from madeleine_torch.ops import preattn as pa
-from madeleine_torch.ops.preattn import F32_TODO, mm, wide
+from madeleine_torch.ops.preattn import mm, wide
 
 fwd_launches = 0   # kernel 19 launches (one per wrapper call on a CUDA tensor)
 bwd_launches = 0   # kernel 20 launches
@@ -56,8 +59,10 @@ def _check(y, wt, bt, kernel):
     if not y.is_cuda:
         raise ValueError(f"{kernel} kernel needs CUDA tensors, got {y.device}")
     if y.dtype != torch.bfloat16:
-        raise NotImplementedError(f"{kernel} kernel runs in bf16 only, got {y.dtype} "
-                                  f"({F32_TODO})")
+        raise NotImplementedError(f"{kernel} kernel runs in bf16 only, got {y.dtype}: an f32 "
+                                  f"step projects its tokens with a plain F.linear "
+                                  f"(models/madeleine.py::project_tokens), as the JAX package "
+                                  f"keeps f32 outside this kernel")
     b, t, E = y.shape
     dout = wt.shape[0]
     if E % 8 or dout % 8 or dout > 4096 or b < 1 or t < 1:

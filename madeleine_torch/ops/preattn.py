@@ -1,4 +1,4 @@
-"""Pre-attention MLP for training: kernel 15 (forward) and 16 (backward), bf16.
+"""Pre-attention MLP for training: kernel 15 (forward) and 16 (backward), bf16 or f32.
 
 Replaces `madeleine_tpu/ops/preattn.py` (`_fwd_kernel`, `_bwd_kernel`,
 `preattn_train`), the per-op lane's first op (ref: Model.py:350-363). Per
@@ -7,8 +7,10 @@ token row of x [b, t, d_in]:
     3 x [Linear -> LayerNorm (f32 statistics) -> GELU (exact erf) -> dropout(rate)]
 
 widths d_in -> hidden -> hidden -> E = hidden * n_heads, output y [b, t, E]
-head-major in x.dtype; bf16 operands, f32 accumulation, bias, LN and GELU,
-each layer's output rounded to the compute dtype before the next product.
+head-major in x.dtype; bf16 or f32 operands (f32: the JAX package's
+Precision.HIGHEST route, `--precision float32`), f32 accumulation, bias, LN
+and GELU, each layer's output rounded to the compute dtype before the next
+product.
 Dropout masks come from `ops/prng.py` (Philox, streams 0-2 keyed by global
 row and token), the masks of the whole-encoder op K6/K7 for the same (seed,
 row_offset). The backward recomputes the stack from (x, seed), as the TPU
@@ -18,11 +20,14 @@ Operands (`encoder_train.train_operands`): w1 [h, d_in], w2 [h, h], w3
 [E, h] ([out, in] layout, compute dtype), biases b*, LN scales s* and
 shifts t* (f32). The plain versions here also serve K6/K7's
 (`encoder_train.py`). A CPU tensor takes them (any float dtype); a CUDA
-tensor launches csrc/preattn.cu, bf16 only, or raises. Both kernels run
-their products on the TMA + wgmma GEMM, each followed by a warp-per-row
-LayerNorm kernel; their first designs, on the mma.sync GEMM, stay
-reachable as `preattn_fwd_rowblock_cuda` and `preattn_bwd_rowblock_cuda`,
-checks that no path calls.
+tensor launches csrc/preattn.cu or raises. In bf16 both kernels run their
+products on the TMA + wgmma GEMM, each followed by a warp-per-row LayerNorm
+kernel; in f32 (`preattn_forward_f32`, `preattn_backward_f32`) on the FFMA
+tiles of csrc/gemm_ffma.cuh with K6 f32's row kernel, the launch sequences
+of K6/K7 with f32 operands. A mixed bf16 / f32 operand set raises a
+ValueError naming the operand. The first designs, on the mma.sync GEMM,
+bf16 only, stay reachable as `preattn_fwd_rowblock_cuda` and
+`preattn_bwd_rowblock_cuda`, checks that no path calls.
 """
 
 from __future__ import annotations
@@ -35,8 +40,10 @@ import torch
 from madeleine_torch.ops import _build
 from madeleine_torch.ops import prng
 
-fwd_launches = 0   # kernel 15 launches (one per wrapper call on a CUDA tensor)
+fwd_launches = 0   # kernel 15 launches (one per wrapper call on a bf16 CUDA tensor)
 bwd_launches = 0   # kernel 16 launches
+fwd_f32_launches = 0   # kernel 15 launches with f32 operands
+bwd_f32_launches = 0   # kernel 16 launches with f32 operands
 fwd_rowblock_launches = 0   # kernel 15's first design, the check-only entry point
 bwd_rowblock_launches = 0   # kernel 16's first design, the check-only entry point
 
@@ -46,8 +53,6 @@ _INV_SQRT2 = 2.0 ** -0.5
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
 KEYS = ("w1", "b1", "s1", "t1", "w2", "b2", "s2", "t2", "w3", "b3", "s3", "t3")
-F32_TODO = ("ROADMAP.md B1e (D4): f32 operands for the per-op lane's train kernels, "
-            "rows 15-18")
 
 
 # ---------------------------------------------------------------------------
@@ -161,12 +166,21 @@ def preattn_bwd_plain(x, dy, w, seed: int, row_offset: int = 0, rate: float = RA
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
-def _check(x, w, kernel) -> Tuple[int, int, int, int, int]:
+MATS = ("w1", "w2", "w3")
+
+
+def check_dtypes(x, w, kernel) -> torch.dtype:
+    """The call's compute dtype, x's: bf16 or f32, with w1, w2, w3 in it and
+    the vectors f32. A mixed set raises a ValueError naming the operand."""
+    return _build.check_dtypes(kernel, "x", x, w, KEYS, MATS)
+
+
+def _check(x, w, kernel) -> Tuple[int, int, int, int, int, torch.dtype]:
+    """(b, t, d_in, hidden, E, compute dtype) after the operand checks: CUDA
+    tensors, `check_dtypes`, the widths the kernels take."""
     if x.device.type != "cuda":
         raise ValueError(f"{kernel} kernel needs CUDA tensors, got {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise NotImplementedError(f"{kernel} kernel runs in bf16 only, got {x.dtype} "
-                                  f"({F32_TODO})")
+    dt = check_dtypes(x, w, kernel)
     b, t, d_in = x.shape
     hd, E = w["w1"].shape[0], w["w3"].shape[0]
     if hd % 128 or E % 128 or E > 4096 or d_in % 8 or b < 1 or t < 1:
@@ -177,35 +191,50 @@ def _check(x, w, kernel) -> Tuple[int, int, int, int, int]:
     for k in KEYS:
         mat = k in shapes
         shape = shapes[k] if mat else ((E,) if k.endswith("3") else (hd,))
-        _build.check_operand(kernel, k, w[k], shape,
-                             torch.bfloat16 if mat else torch.float32, x.device)
-    _build.check_operand(kernel, "x", x, (b, t, d_in), torch.bfloat16, x.device)
-    return b, t, d_in, hd, E
+        _build.check_operand(kernel, k, w[k], shape, dt if mat else torch.float32, x.device)
+    _build.check_operand(kernel, "x", x, (b, t, d_in), dt, x.device)
+    return b, t, d_in, hd, E, dt
 
 
-def _fwd_launch(x, w, seed, row_offset, rate, kernel, fn, need_rstd):
-    """Launch `fn` of csrc/preattn.cu, a forward of kernel 15's interface
-    (rstd scratch only where `need_rstd`); returns y as `preattn_fwd_plain`."""
-    b, t, d_in, hd, E = _check(x, w, kernel)
+def entry_of(fns: Dict[torch.dtype, str], dt: torch.dtype, kernel: str) -> str:
+    """The C entry point of `fns` for the compute dtype dt; a first design,
+    kept as a check, has a bf16 one only."""
+    if dt not in fns:
+        raise ValueError(f"{kernel} kernel runs in bf16 only (a first design, kept as a "
+                         f"check), got {dt}")
+    return fns[dt]
+
+
+def _fwd_launch(x, w, seed, row_offset, rate, kernel, fns, need_rstd):
+    """Launch the entry point of `fns` for x's dtype in csrc/preattn.cu, a
+    forward of kernel 15's interface (rstd scratch only where `need_rstd`);
+    returns (y as `preattn_fwd_plain`, the compute dtype)."""
+    b, t, d_in, hd, E, dt = _check(x, w, kernel)
+    fn = entry_of(fns, dt, kernel)
     _build.check_aligned(kernel, "x", x)
     dev, M = x.device, b * t
-    y = torch.empty(b, t, E, dtype=torch.bfloat16, device=dev)
+    y = torch.empty(b, t, E, dtype=dt, device=dev)
     scratch = [torch.empty(M, max(hd, E), dtype=torch.float32, device=dev),   # Z
                torch.empty(M, 3, dtype=torch.float32, device=dev) if need_rstd else None,
-               torch.empty(M, hd, dtype=torch.bfloat16, device=dev),          # H1
-               torch.empty(M, hd, dtype=torch.bfloat16, device=dev)]          # H2
+               torch.empty(M, hd, dtype=dt, device=dev),                      # H1
+               torch.empty(M, hd, dtype=dt, device=dev)]                      # H2
     dims, scales = prng.kernel_args((b, t, d_in, hd, E), seed, row_offset, rate)
     _build.call_ptrs("preattn", fn, [x, *(w[k] for k in KEYS), y, *scratch], dims, scales, dev)
-    return y
+    return y, dt
 
 
 @torch.no_grad()
 def preattn_fwd_cuda(x, w, seed: int, row_offset: int = 0, rate: float = RATE) -> torch.Tensor:
-    """Launch kernel 15 on CUDA tensors; returns as `preattn_fwd_plain`.
-    Raises where the wgmma GEMM refuses an operand."""
-    global fwd_launches
-    y = _fwd_launch(x, w, seed, row_offset, rate, "preattn_fwd", "preattn_forward", False)
-    fwd_launches += 1
+    """Launch kernel 15 on CUDA tensors, bf16 or f32 (x's dtype); returns as
+    `preattn_fwd_plain`. Raises where the GEMM refuses an operand."""
+    global fwd_launches, fwd_f32_launches
+    y, dt = _fwd_launch(x, w, seed, row_offset, rate, "preattn_fwd",
+                        {torch.bfloat16: "preattn_forward",
+                         torch.float32: "preattn_forward_f32"}, False)
+    if dt == torch.float32:
+        fwd_f32_launches += 1
+    else:
+        fwd_launches += 1
     return y
 
 
@@ -213,55 +242,64 @@ def preattn_fwd_cuda(x, w, seed: int, row_offset: int = 0, rate: float = RATE) -
 def preattn_fwd_rowblock_cuda(x, w, seed: int, row_offset: int = 0,
                               rate: float = RATE) -> torch.Tensor:
     """Kernel 15's first design (the mma.sync GEMM, a block per LN row),
-    kept as a check of the redesign; no path calls it. Returns as
-    `preattn_fwd_plain`."""
+    kept as a check of the redesign; no path calls it. bf16 only. Returns
+    as `preattn_fwd_plain`."""
     global fwd_rowblock_launches
-    y = _fwd_launch(x, w, seed, row_offset, rate, "preattn_fwd_rowblock",
-                    "preattn_forward_rowblock", True)
+    y, _ = _fwd_launch(x, w, seed, row_offset, rate, "preattn_fwd_rowblock",
+                       {torch.bfloat16: "preattn_forward_rowblock"}, True)
     fwd_rowblock_launches += 1
     return y
 
 
-def _bwd_launch(x, dy, w, seed, row_offset, rate, need_dx, kernel, fn, ws_fn):
-    """Launch `fn` of csrc/preattn.cu, a backward of kernel 16's interface,
-    with the workspaces `ws_fn` sizes; returns as `preattn_bwd_plain`."""
-    b, t, d_in, hd, E = _check(x, w, kernel)
-    _build.check_operand(kernel, "dy", dy, (b, t, E), torch.bfloat16, x.device)
+def _bwd_launch(x, dy, w, seed, row_offset, rate, need_dx, kernel, fns):
+    """Launch the entry point of `fns` for x's dtype in csrc/preattn.cu, a
+    (backward, workspace sizes) pair of kernel 16's interface; returns
+    (grads as `preattn_bwd_plain`, the compute dtype)."""
+    b, t, d_in, hd, E, dt = _check(x, w, kernel)
+    fn, ws_fn = entry_of(fns, dt, kernel)
+    _build.check_operand(kernel, "dy", dy, (b, t, E), dt, x.device)
     for name, ten in (("x", x), ("dy", dy)):
         _build.check_aligned(kernel, name, ten)
-    dev, M, f32, bf = x.device, b * t, torch.float32, torch.bfloat16
+    dev, M, f32 = x.device, b * t, torch.float32
     dims, scales = prng.kernel_args((b, t, d_in, hd, E), seed, row_offset, rate)
     ws = _build.workspace("preattn", ws_fn, dims)
     grads = {k: torch.empty(w[k].shape, dtype=f32, device=dev) for k in KEYS}
-    scratch = [torch.empty(M, max(hd, E), dtype=f32, device=dev),   # Z
-               torch.empty(M, hd, dtype=bf, device=dev),            # U1
-               torch.empty(M, hd, dtype=bf, device=dev),            # U2
-               torch.empty(M, E, dtype=bf, device=dev),             # U3
-               torch.empty(M, 3, dtype=f32, device=dev),            # rstd
-               torch.empty(M, hd, dtype=bf, device=dev),            # H1
-               torch.empty(M, hd, dtype=bf, device=dev),            # H2
-               torch.empty(M, E, dtype=bf, device=dev),             # DZ3
-               torch.empty(M, hd, dtype=f32, device=dev),           # DH
-               torch.empty(M, hd, dtype=bf, device=dev),            # DZ12
-               torch.empty(ws[0], dtype=f32, device=dev),           # split-K partials
-               torch.empty(ws[1], dtype=f32, device=dev)]           # column partials
-    dx = torch.empty(b, t, d_in, dtype=bf, device=dev) if need_dx else None
+    Z = torch.empty(M, max(hd, E), dtype=f32, device=dev)
+    scratch = [Z,
+               torch.empty(M, hd, dtype=dt, device=dev),             # U1
+               torch.empty(M, hd, dtype=dt, device=dev),             # U2
+               torch.empty(M, E, dtype=dt, device=dev),              # U3
+               torch.empty(M, 3, dtype=f32, device=dev),             # rstd
+               torch.empty(M, hd, dtype=dt, device=dev),             # H1
+               torch.empty(M, hd, dtype=dt, device=dev),             # H2
+               Z if dt == f32 else torch.empty(M, E, dtype=dt, device=dev),   # DZ3 (f32: Z)
+               torch.empty(M, hd, dtype=f32, device=dev),            # DH
+               torch.empty(M, hd, dtype=dt, device=dev),             # DZ12
+               torch.empty(ws[0], dtype=f32, device=dev),            # split-K partials
+               torch.empty(ws[1], dtype=f32, device=dev)]            # column partials
+    dx = torch.empty(b, t, d_in, dtype=dt, device=dev) if need_dx else None
     _build.call_ptrs("preattn", fn, [x, dy, *(w[k] for k in KEYS), *grads.values(), *scratch, dx],
                      dims, scales, dev)
     if need_dx:
         grads["x"] = dx
-    return grads
+    return grads, dt
 
 
 @torch.no_grad()
 def preattn_bwd_cuda(x, dy, w, seed: int, row_offset: int = 0, rate: float = RATE,
                      need_dx: bool = False) -> Dict[str, torch.Tensor]:
-    """Launch kernel 16 on CUDA tensors; returns as `preattn_bwd_plain`.
-    Raises where the wgmma GEMM refuses an operand."""
-    global bwd_launches
-    grads = _bwd_launch(x, dy, w, seed, row_offset, rate, need_dx, "preattn_bwd",
-                        "preattn_backward", "preattn_bwd_workspace")
-    bwd_launches += 1
+    """Launch kernel 16 on CUDA tensors, bf16 or f32 (x's dtype, dy's and
+    dx's too); returns as `preattn_bwd_plain`. Raises where the GEMM
+    refuses an operand."""
+    global bwd_launches, bwd_f32_launches
+    grads, dt = _bwd_launch(x, dy, w, seed, row_offset, rate, need_dx, "preattn_bwd",
+                            {torch.bfloat16: ("preattn_backward", "preattn_bwd_workspace"),
+                             torch.float32: ("preattn_backward_f32",
+                                             "preattn_bwd_workspace_f32")})
+    if dt == torch.float32:
+        bwd_f32_launches += 1
+    else:
+        bwd_launches += 1
     return grads
 
 
@@ -269,11 +307,12 @@ def preattn_bwd_cuda(x, dy, w, seed: int, row_offset: int = 0, rate: float = RAT
 def preattn_bwd_rowblock_cuda(x, dy, w, seed: int, row_offset: int = 0, rate: float = RATE,
                               need_dx: bool = False) -> Dict[str, torch.Tensor]:
     """Kernel 16's first design (the mma.sync GEMM, a block per LN row),
-    kept as a check of the redesign; no path calls it. Returns as
+    kept as a check of the redesign; no path calls it. bf16 only. Returns as
     `preattn_bwd_plain`."""
     global bwd_rowblock_launches
-    grads = _bwd_launch(x, dy, w, seed, row_offset, rate, need_dx, "preattn_bwd_rowblock",
-                        "preattn_backward_rowblock", "preattn_bwd_rowblock_workspace")
+    grads, _ = _bwd_launch(x, dy, w, seed, row_offset, rate, need_dx, "preattn_bwd_rowblock",
+                           {torch.bfloat16: ("preattn_backward_rowblock",
+                                             "preattn_bwd_rowblock_workspace")})
     bwd_rowblock_launches += 1
     return grads
 

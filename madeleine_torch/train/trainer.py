@@ -53,8 +53,9 @@ PyTorch counterpart of `madeleine_tpu/train/trainer.py` (`compute_losses`,
 The encoder runs through ops/encoder_train.py (kernels K6/K7 on the card,
 bf16 or f32: `--precision float32` is the JAX package's parity route) or,
 with a non-softmax activation or MADELEINE_NO_FUSED_ENCODER set, through the
-per-op lane (ops/preattn.py, ops/gated_logits.py, ops/linear_tok.py: kernels
-15-20, bf16 only on the card, `check_card_route`; with softmax the training pool of
+per-op lane (ops/preattn.py, ops/gated_logits.py: kernels 15-18, bf16 or
+f32 on the card; ops/linear_tok.py: kernels 19-20 in bf16, a plain F.linear
+in f32 as in the JAX package; with softmax the training pool of
 ops/attn_pool.py, rows 4-5, which also pools the half-bag views); their
 plain versions on CPU tensors. With stain encodings the encoder also
 returns the input gradient, and the code table ([n_mod, 32],
@@ -79,10 +80,9 @@ import torch.distributed as dist
 
 from madeleine_torch.config import HE_POSITION, MadeleineConfig, compute_dtype
 from madeleine_torch.models.abmil import drop_kernel_operands
-from madeleine_torch.models.madeleine import MADELEINE, forward_train, fused_route
+from madeleine_torch.models.madeleine import MADELEINE, forward_train
 from madeleine_torch.ops import launches
 from madeleine_torch.ops import losses as L
-from madeleine_torch.ops.preattn import F32_TODO
 from madeleine_torch.ops.rank import smooth_rank_measure
 from madeleine_torch.parallel import collectives
 from madeleine_torch.parallel.multihost import allgather_rows
@@ -279,8 +279,6 @@ class TrainStep:
     def __call__(self, batch: Dict[str, object], seed: int):
         cfg, model = self.cfg, self.model
         dev = next(model.parameters()).device
-        if dev.type == "cuda":
-            check_card_route(cfg, self.dtype)
         # copy first (asynchronous from pinned memory), then cast on the device
         feats = torch.as_tensor(batch["feats"]).to(dev, non_blocking=True)
         copied = batch.get("copied")
@@ -319,16 +317,6 @@ class TrainStep:
         drop_kernel_operands(model)   # K1's and K2's cached operands may be stale now
         he = slide[:, HE_POSITION, WHOLE_VIEW_POSITION].detach().float()
         return he, dict(metrics, loss=total.detach(), skipped=~ok, lr=lr)
-
-
-def check_card_route(cfg: MadeleineConfig, dtype: torch.dtype) -> None:
-    """Raise NotImplementedError for a train step the card cannot take yet:
-    f32 operands on the per-op lane (a non-softmax activation, or softmax
-    under MADELEINE_NO_FUSED_ENCODER), whose kernels 15-18 run in bf16 only.
-    The fused route (K6/K7) takes bf16 and f32."""
-    if dtype != torch.bfloat16 and not fused_route(cfg):
-        raise NotImplementedError(f"a {dtype} train step on the per-op lane on the card "
-                                  f"({F32_TODO})")
 
 
 def make_train_step(cfg: MadeleineConfig, model: MADELEINE, optimizer: GatedAdamW,

@@ -1,7 +1,7 @@
 """K6 / K7 with f32 operands (the JAX package's parity route, `--precision
 float32`), checked on the CPU: the residual buffers' bytes against the
 save/recompute gate's reckoning, the operand checks' refusal of mixed bf16 /
-f32 sets, the train step's route choice for an f32 step on the card, and a
+f32 sets, the train step's route for an f32 step on the card, and a
 plain mirror of the f32 kernels' sum orders (the gate logits' 64-column
 partials each a fixed tree of 16 four-column sums, csrc/gemm_ffma.cuh::
 epilogue_gates; the weight gradients' token sums in pieces added in piece
@@ -16,11 +16,10 @@ import pytest
 import torch
 
 from madeleine_torch.config import MadeleineConfig
-from madeleine_torch.models.madeleine import train_weights
+from madeleine_torch.models.madeleine import fused_route, train_weights
 from madeleine_torch.ops import encoder_train as et
 from madeleine_torch.ops import gated_logits as gl
 from madeleine_torch.ops import preattn as pa
-from madeleine_torch.train.trainer import check_card_route
 from tests.torch_port_helpers import grads_as_state_dict, param_pair, to_torch
 
 B, T, D, NH, E = 2, 96, 128, 2, 128   # f = E = 128: two 64-column logit chunks per head
@@ -89,26 +88,35 @@ def test_operand_checks_refuse_a_mixed_set(setup, x_dtype, mixed, name):
         et.encoder_train_fwd_cuda(to_torch(x), bias, _operands(model, torch.float32), SEED)
 
 
-@pytest.mark.parametrize("precision,activation,no_fused,raises", [
+@pytest.mark.parametrize("precision,activation,no_fused,per_op", [
     ("float32", "softmax", "", False),     # the fused route: K6/K7 in f32
     ("bfloat16", "softmax", "", False),
-    ("float32", "sigmoid", "", True),      # the per-op lane: rows 15-18 in bf16 only
+    ("float32", "sigmoid", "", True),      # the per-op lane: rows 15-18 in f32
     ("float32", "softmax", "1", True),     # softmax under MADELEINE_NO_FUSED_ENCODER
-    ("bfloat16", "sigmoid", "", False),
+    ("bfloat16", "sigmoid", "", True),
 ])
-def test_card_route_of_an_f32_step(precision, activation, no_fused, raises, monkeypatch):
-    """The check `TrainStep` makes before a step on the card: an f32 step
-    takes the fused route (K6/K7 with f32 operands); on the per-op lane it
-    raises NotImplementedError naming ROADMAP D4 (B1e), the part still to
-    come."""
+def test_card_route_of_an_f32_step(setup, precision, activation, no_fused, per_op,
+                                   monkeypatch):
+    """The route a train step takes on the card, for both precisions: the
+    fused route (K6/K7, bf16 or f32 operands) for softmax, else the per-op
+    lane, whose rows 15-18 now take the step's dtype too: the wrappers'
+    dtype check accepts an all-f32 and an all-bf16 operand set alike (and
+    the call is then refused only for lying on the CPU), so no step is
+    refused for its precision."""
+    _, model, x, _ = setup
     monkeypatch.setenv("MADELEINE_NO_FUSED_ENCODER", no_fused)
     cfg = MadeleineConfig(precision=precision, activation=activation).finalize()
     dtype = torch.float32 if precision == "float32" else torch.bfloat16
-    if raises:
-        with pytest.raises(NotImplementedError, match="D4"):
-            check_card_route(cfg, dtype)
-    else:
-        check_card_route(cfg, dtype)
+    assert fused_route(cfg) is not per_op
+    w = _operands(model, dtype)
+    xt = to_torch(x).to(dtype)
+    assert pa.check_dtypes(xt, w, "preattn_fwd") == dtype
+    y = torch.zeros(B, T, w["wa"].shape[0] * w["wa"].shape[2], dtype=dtype)
+    assert gl.check_dtypes(y, w, "gated_logits_fwd") == dtype
+    for call, args in ((pa.preattn_fwd_cuda, (xt, w, SEED)),
+                       (gl.gated_logits_fwd_cuda, (y, w, SEED))):
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            call(*args)
 
 
 # ---------------------------------------------------------------------------

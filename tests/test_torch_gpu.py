@@ -290,35 +290,140 @@ def test_encoder_train_kernels_match_plain(cuda_device, rates):
 def test_train_step_launches_k6_k7_and_refuses_f32(cuda_device, monkeypatch):
     """A bf16 step on the card goes through K6 and K7 (one each per
     modality), an f32 softmax step through K6 and K7 with f32 operands (one
-    each per modality, no bf16 launch); an f32 step on the per-op lane
-    (a sigmoid activation) still raises, naming the ROADMAP item (D4)."""
+    each per modality, no bf16 launch); an f32 step on the per-op lane (a
+    sigmoid activation, or softmax under MADELEINE_NO_FUSED_ENCODER) is no
+    longer refused: it launches rows 15-18 with f32 operands, one each per
+    modality, and no bf16 kernel of rows 15-18 and no K6/K7."""
     import numpy as np
 
-    from madeleine_torch.ops import encoder_train as et
+    from madeleine_torch.ops import launches
     from madeleine_torch.train.optim import make_optimizer
     from madeleine_torch.train.trainer import make_train_step
 
-    monkeypatch.delenv("MADELEINE_NO_FUSED_ENCODER", raising=False)
     rng = np.random.default_rng(0)
     batch = {"feats": rng.standard_normal((4, 5, 256, 512)).astype(np.float32),
              "modality_labels": np.ones((4, 5), np.float32)}
-    for precision, activation in (("bfloat16", "softmax"), ("float32", "softmax"),
-                                  ("float32", "sigmoid")):
+    k67 = ("encoder_train_fwd", "encoder_train_bwd", "encoder_train_fwd_f32",
+           "encoder_train_bwd_f32")
+    rows = ("preattn_fwd", "preattn_bwd", "gated_logits_fwd", "gated_logits_bwd")
+    rows_f32 = tuple(k + "_f32" for k in rows)
+    for precision, activation, no_fused in (("bfloat16", "softmax", ""),
+                                            ("float32", "softmax", ""),
+                                            ("float32", "sigmoid", ""),
+                                            ("float32", "softmax", "1")):
+        monkeypatch.setenv("MADELEINE_NO_FUSED_ENCODER", no_fused)
         cfg = MadeleineConfig(precision=precision, local_loss="-1",
                               activation=activation).finalize()
         model = init_madeleine(MADELEINE(cfg), torch.Generator().manual_seed(0)).to(cuda_device)
         opt, sched = make_optimizer(cfg, model.parameters(), 10)
         step = make_train_step(cfg, model, opt, sched)
-        if activation == "sigmoid":
-            with pytest.raises(NotImplementedError, match="ROADMAP.md B1e \\(D4\\)"):
-                step(batch, seed=1)
-            continue
-        before = (et.fwd_launches, et.bwd_launches, et.fwd_f32_launches, et.bwd_f32_launches)
+        launches.reset()
         _, metrics = step(batch, seed=1)
+        counts = launches.read()
         assert not metrics["skipped"] and np.isfinite(float(metrics["loss"]))
-        after = (et.fwd_launches, et.bwd_launches, et.fwd_f32_launches, et.bwd_f32_launches)
-        want = (5, 5, 0, 0) if precision == "bfloat16" else (0, 0, 5, 5)
-        assert tuple(a - b for a, b in zip(after, before)) == want
+        if activation == "softmax" and not no_fused:
+            want = (5, 5, 0, 0) if precision == "bfloat16" else (0, 0, 5, 5)
+            assert tuple(counts[k] for k in k67) == want
+        else:
+            assert all(counts[k] == 5 for k in rows_f32), counts
+            assert not any(counts[k] for k in k67 + rows), counts
+
+
+PEROP_F32_ROUTES = ("fwd", "bwd", "dx", "gates", "rate0")
+
+
+@pytest.mark.parametrize("route", PEROP_F32_ROUTES)
+def test_perop_f32_kernels_match_plain(cuda_device, route):
+    """Rows 15-18 with f32 operands against their plain versions at ragged
+    lengths' shape t = 300 (partial last tiles), row offset 2: fwd, rows 15
+    and 17 at the real rates (0.1, 0.25); bwd, rows 16 and 18 there; dx,
+    row 16 with the input gradient at d_in 544; gates, rows 17 and 18 with
+    the attention logits peaked (wc x 16); rate0, all four at rate 0.
+    Outputs within rtol 1e-4 / atol 1e-5, every gradient (dx, dy included)
+    within 1e-4 relative Frobenius, bc within 1e-4 absolutely; two launches
+    bitwise equal; the f32 counters move, the bf16 ones do not."""
+    from madeleine_torch.models.madeleine import train_weights
+    from madeleine_torch.ops import gated_logits as gl
+    from madeleine_torch.ops import launches
+    from madeleine_torch.ops import preattn as pa
+
+    need_dx = route == "dx"
+    rates = (0.0, 0.0) if route == "rate0" else (0.1, 0.25)
+    cfg = MadeleineConfig(precision="float32", add_stain_encoding=need_dx).finalize()
+    model = init_madeleine(MADELEINE(cfg), torch.Generator().manual_seed(0)).to(cuda_device)
+    with torch.no_grad():
+        w = {k: v.detach().contiguous() for k, v in train_weights(model, torch.float32).items()}
+        if route == "gates":
+            w["wc"] = w["wc"] * PEAK_WC_SCALE
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(3, 300, w["w1"].shape[1], generator=g).to(cuda_device)
+    y = torch.randn(3, 300, w["w3"].shape[0], generator=g).to(cuda_device)
+    dy = torch.randn(3, 300, w["w3"].shape[0], generator=g).to(cuda_device)
+    dl = torch.randn(3, 300, w["wa"].shape[0], generator=g).to(cuda_device)
+    runs = {"fwd": ("pa_fwd", "gl_fwd"), "bwd": ("pa_bwd", "gl_bwd"), "dx": ("pa_bwd",),
+            "gates": ("gl_fwd", "gl_bwd"), "rate0": ("pa_fwd", "pa_bwd", "gl_fwd", "gl_bwd")}
+    calls = {"pa_fwd": (pa.preattn_fwd_cuda, pa.preattn_fwd_plain, (x, w, 5, 2, rates[0]), {}),
+             "pa_bwd": (pa.preattn_bwd_cuda, pa.preattn_bwd_plain, (x, dy, w, 5, 2, rates[0]),
+                        {"need_dx": need_dx}),
+             "gl_fwd": (gl.gated_logits_fwd_cuda, gl.gated_logits_fwd_plain,
+                        (y, w, 5, 2, rates[1]), {}),
+             "gl_bwd": (gl.gated_logits_bwd_cuda, gl.gated_logits_bwd_plain,
+                        (y, dl, w, 5, 2, rates[1]), {})}
+    launches.reset()
+    for name in runs[route]:
+        kern, plain, args, kw = calls[name]
+        got, again = kern(*args, **kw), kern(*args, **kw)
+        with torch.no_grad():
+            want = plain(*args, **kw)
+        if name.endswith("fwd"):
+            assert got.dtype == torch.float32 and torch.equal(got, again), name
+            assert _excess(got, want) <= 0, name
+            continue
+        assert set(got) == set(want) and ("x" in got) == (name == "pa_bwd" and need_dx)
+        for k in want:
+            assert got[k].dtype == torch.float32 and torch.equal(got[k], again[k]), (name, k)
+            if k == "bc":
+                assert (got[k] - want[k]).abs().max().item() <= 1e-4
+            else:
+                assert _rel(got[k], want[k]) <= 1e-4, (name, k)
+    counts = launches.read()
+    moved = {k: v for k, v in counts.items() if v}
+    want_moved = {{"pa_fwd": "preattn_fwd_f32", "pa_bwd": "preattn_bwd_f32",
+                   "gl_fwd": "gated_logits_fwd_f32", "gl_bwd": "gated_logits_bwd_f32"}[n]: 2
+                  for n in runs[route]}
+    assert moved == want_moved
+
+
+def test_perop_kernels_refuse_a_mixed_operand_set(cuda_device):
+    """On the card rows 15-18 refuse bf16 input with f32 weights, or f32
+    input with one bf16 matrix, with a ValueError naming the operand, and
+    their first designs refuse f32 operands: nothing launches."""
+    from madeleine_torch.models.madeleine import train_weights
+    from madeleine_torch.ops import gated_logits as gl
+    from madeleine_torch.ops import launches
+    from madeleine_torch.ops import preattn as pa
+
+    model = _model(cuda_device, "float32")
+    with torch.no_grad():
+        w = {k: v.detach().contiguous() for k, v in train_weights(model, torch.float32).items()}
+    x = torch.randn(2, 64, 512, device=cuda_device)
+    y = torch.randn(2, 64, 2048, device=cuda_device)
+    dl = torch.randn(2, 64, 4, device=cuda_device)
+    launches.reset()
+    with pytest.raises(ValueError, match="w1"):
+        pa.preattn_fwd_cuda(x.bfloat16(), w, 1)
+    with pytest.raises(ValueError, match="w3"):
+        pa.preattn_bwd_cuda(x, y, dict(w, w3=w["w3"].bfloat16()), 1)
+    with pytest.raises(ValueError, match="wa"):
+        gl.gated_logits_fwd_cuda(y.bfloat16(), w, 1)
+    with pytest.raises(ValueError, match="wb"):
+        gl.gated_logits_bwd_cuda(y, dl, dict(w, wb=w["wb"].bfloat16()), 1)
+    for first, args in ((pa.preattn_fwd_rowblock_cuda, (x, w, 1)),
+                        (gl.gated_logits_fwd_rowblock_cuda, (y, w, 1)),
+                        (gl.gated_logits_bwd_rowblock_cuda, (y, dl, w, 1))):
+        with pytest.raises(ValueError, match="bf16 only"):
+            first(*args)
+    assert not any(launches.read().values())
 
 
 def _got_costs(device, b, n, m, d=128, seed=0):
