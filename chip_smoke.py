@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases device,build,train_kernels_f32,train_f32,pretrain_f32
     python3 chip_smoke.py --phases device,build,perop_kernels_f32,train_perop_f32
     python3 chip_smoke.py --phases device,build,pool_train_kernels,dropout_kernel,train_nofused,heads
+    python3 chip_smoke.py --phases device,build,downstream,probe,vit
 
 Phases, one JSON line each; any failure raises and the exit code is non-zero:
   device   card name and the nvidia-smi name/power-limit line
@@ -129,11 +130,36 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            (300-9000 tokens), each equal to a direct encode; K1 must launch
   extract  the extraction CLI in-process over 16 .npz bags, with an f32 model
            (K2 must launch) and a bf16 one (K1 must launch)
+  downstream
+           the downstream CLIs in-process over the extract phase's cohort
+           (its bags carry coords on a 256-px grid): the extraction CLI with
+           the bf16 model (K1 must launch), extract_mean_embs (each slide's
+           f32 mean on the card against numpy's at 1e-6), and
+           extract_attention_maps with the bf16 and the f32 model (each
+           PNG's header read back, its size the coords' grid of 8-px cells;
+           the bf16 logits against the f32 model's at 2e-2 relative
+           Frobenius); seconds per slide
+  probe    first which of sklearn, PIL, cv2, h5py and openslide import (a
+           line of its own), then the linear-probing CLI's main at BCNB's
+           scale: the 1058 slides and er/pr/her2 labels of
+           dataset_csv/BCNB/BCNB.csv, synthetic 512-d embeddings from SEED
+           shifted along one direction per positive label, the full
+           protocol (3 k x 3 tasks x 10 folds = 90 fits) on the card, then
+           the same code on the CPU: the splits equal, probabilities and
+           metric stores within 1e-9; wall seconds, ms per fit by k
   eval_forward
            forward_train(train=False) at [65, 5, 2048, 512] bf16 with the
            flagship weights: K3 must launch once per modality; its slide and
            token embeddings of 4 cases against the f32 model's (relative
            Frobenius 2e-2); timed
+  vit      the ViT-B/16 tile tower (the JAX package's default ViTConfig:
+           224 px, patch 16, width 768, 12 layers, 12 heads, out 512) with
+           random weights from SEED through TorchViTEncoder: 256 uint8 tiles
+           of 256 x 256 a batch, end to end from the host (H2D, resize,
+           normalise, tower) in f32 (no TF32) and bf16: ms per batch, tiles/s,
+           the tower's ms and share, peak GB; f32 on the card against f32
+           on the CPU on 4 tiles at 1e-4 relative Frobenius, bf16 against
+           f32 at 2e-2
   train_kernels
            K6 (encoder_train_fwd) and K7 (encoder_train_bwd), bf16: each
            against its plain version at dropout rates 0 and (0.1, 0.25) with
@@ -369,6 +395,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import csv
+import dataclasses
 import gc
 import hashlib
 import importlib.util
@@ -376,6 +404,7 @@ import io
 import itertools
 import json
 import os
+import pickle
 import re
 import shutil
 import statistics
@@ -393,13 +422,14 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "pool_kernels", "pool_train_kernels", "dropout_kernel",
           "train_kernels", "train_kernels_f32", "got_kernels", "glue_kernels", "perop_kernels",
-          "perop_kernels_f32", "perop_bwd_digest", "golden", "serve", "extract", "eval_forward",
+          "perop_kernels_f32", "perop_bwd_digest", "golden", "serve", "extract", "downstream",
+          "probe", "eval_forward", "vit",
           "train", "train_got", "train_se", "train_sigmoid", "train_nofused", "train_views",
           "train_f32",
           "train_perop_f32", "train_ragged", "train_ragged_nofused", "heads", "pretrain",
           "pretrain_ragged", "pretrain_f32", "data_parallel", "profile")
 # the runs of the port's main paths whose kernel launches the summary counts
-MAIN_PATHS = ("serve", "extract", "eval_forward", "train", "train_got", "train_se",
+MAIN_PATHS = ("serve", "extract", "downstream", "eval_forward", "train", "train_got", "train_se",
               "train_sigmoid", "train_nofused", "train_views", "train_views_nofused",
               "train_f32", "train_perop_f32", "train_perop_f32_nofused", "train_ragged",
               "train_ragged_nofused", "heads", "pretrain", "pretrain_ragged", "pretrain_f32",
@@ -3522,21 +3552,38 @@ def phase_serve(state):
           "healthz": health["status"]})
 
 
+EXTRACT_SLIDES = 16
+COHORT_PATCH = 256   # the extract cohort's patch pitch in level-0 px (its coords)
+
+
+def write_extract_cohort(cohort: str):
+    """The extract phase's cohort: 16 .npz bags of 300-9000 N(0, 1) 512-d
+    tokens under <cohort>/patch_embeddings, each with coords, distinct
+    cells of a square grid at a 256-px pitch (from their own generator,
+    so that the features are those the phase always had). Returns the
+    lengths."""
+    gen, cgen = np.random.default_rng(SEED + 2), np.random.default_rng(SEED + 12)
+    lengths = [int(n) for n in gen.integers(300, 9000, size=EXTRACT_SLIDES)]
+    bag_dir = os.path.join(cohort, "patch_embeddings")
+    os.makedirs(bag_dir)
+    for i, n in enumerate(lengths):
+        side = int(np.ceil(np.sqrt(1.3 * n)))
+        cells = cgen.choice(side * side, n, replace=False)
+        np.savez(os.path.join(bag_dir, f"slide_{i:02d}.npz"),
+                 features=gen.standard_normal((n, 512)).astype(np.float32),
+                 coords=np.stack([cells % side, cells // side], 1).astype(np.int64) * COHORT_PATCH)
+    return lengths
+
+
 def phase_extract(state):
     """The extraction CLI over one cohort twice: with an f32 model (the
     parity route, K2) and a bf16 one (K1's live-tile route)."""
     from madeleine_torch.cli import extract_slide_embeddings
     from madeleine_torch.utils.file_utils import load_pkl
 
-    gen = np.random.default_rng(SEED + 2)
-    lengths = [int(n) for n in gen.integers(300, 9000, size=16)]
     runs = {}
     with tempfile.TemporaryDirectory() as root:
-        bag_dir = os.path.join(root, "cohort", "patch_embeddings")
-        os.makedirs(bag_dir)
-        for i, n in enumerate(lengths):
-            np.savez(os.path.join(bag_dir, f"slide_{i:02d}.npz"),
-                     features=gen.standard_normal((n, 512)).astype(np.float32))
+        lengths = write_extract_cohort(os.path.join(root, "cohort"))
         reset_counts()
         for precision, kernel in (("float32", "gated_pool"), ("bfloat16", "encode_fused")):
             write_model_dir(os.path.join(root, precision), precision)
@@ -3565,6 +3612,191 @@ def phase_extract(state):
     state["launches_extract"] = counts
     emit({"phase": "extract", "slides": len(lengths), "lengths": lengths, "runs": runs,
           "launches": counts})
+
+
+MEAN_ATOL = 1e-6     # extract_mean_embs' f32 means on the card against numpy's
+
+
+def _quiet(fn, *args, **kw):
+    """fn's result, its standard output (the CLIs' progress lines) kept from
+    the script's."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kw)
+
+
+def phase_downstream(state):
+    """The downstream CLIs over the extract phase's cohort (with coords):
+    the extraction CLI with the bf16 model (K1), extract_mean_embs, and
+    extract_attention_maps with the bf16 and the f32 model."""
+    import torch
+    from madeleine_torch.cli import (extract_attention_maps, extract_mean_embs,
+                                     extract_slide_embeddings)
+    from madeleine_torch.data.io import load_coords, load_features
+    from madeleine_torch.eval.heatmap import png_size
+    from madeleine_torch.utils.file_utils import load_pkl
+
+    with tempfile.TemporaryDirectory() as root:
+        cohort = os.path.join(root, "cohort")
+        lengths = write_extract_cohort(cohort)
+        bag_dir = os.path.join(cohort, "patch_embeddings")
+        ids = [f"slide_{i:02d}" for i in range(EXTRACT_SLIDES)]
+        for precision in ("bfloat16", "float32"):
+            write_model_dir(os.path.join(root, precision), precision)
+        reset_counts()
+        t0 = time.perf_counter()
+        emb = load_pkl(_quiet(extract_slide_embeddings.main, [
+            "--local_dir", cohort, "--model_dir", os.path.join(root, "bfloat16"),
+            "--no_download", "--device", "cuda"]))
+        extract_s = time.perf_counter() - t0
+        if sorted(emb["slide_ids"]) != ids or not np.isfinite(emb["embeds"]).all():
+            raise AssertionError(f"downstream: extraction wrote {emb['slide_ids']}")
+
+        t0 = time.perf_counter()
+        means = load_pkl(_quiet(extract_mean_embs.main, ["--local_dir", cohort,
+                                                         "--device", "cuda"]))
+        mean_s = time.perf_counter() - t0
+        want = np.stack([load_features(os.path.join(bag_dir, f"{sid}.npz")).mean(axis=0)
+                         for sid in ids])
+        mean_err = float(np.abs(means["embeds"] - want).max())
+        if set(means) != {"embeds", "slide_ids"} or means["slide_ids"] != ids \
+                or means["embeds"].dtype != np.float32 or not mean_err <= MEAN_ATOL:
+            raise AssertionError(f"downstream: mean embeddings {means['slide_ids']} "
+                                 f"{means['embeds'].dtype}, error {mean_err} > {MEAN_ATOL}")
+
+        maps, map_s = {}, {}
+        for precision in ("bfloat16", "float32"):
+            t0 = time.perf_counter()
+            maps[precision] = _quiet(extract_attention_maps.main, [
+                "--local_dir", cohort, "--model_dir", os.path.join(root, precision),
+                "--no_download", "--device", "cuda",
+                "--out_dir", os.path.join(root, f"maps_{precision}")])
+            map_s[precision] = time.perf_counter() - t0
+        counts = read_counts()
+        sizes, rel = {}, {}
+        for sid, n in zip(ids, lengths):
+            coords = load_coords(os.path.join(bag_dir, f"{sid}.npz")) // COHORT_PATCH
+            cells = coords.max(axis=0) - coords.min(axis=0) + 1          # cols, rows
+            for precision, out in maps.items():
+                raw = out["logits"][sid]
+                if raw.shape != (n, 4) or not np.isfinite(raw).all():
+                    raise AssertionError(f"downstream: {precision} logits of {sid} {raw.shape}")
+                got = png_size(out["maps"][sid])
+                if got != (int(cells[0]) * 8, int(cells[1]) * 8):
+                    raise AssertionError(f"downstream: {out['maps'][sid]} is {got}, the grid "
+                                         f"{cells.tolist()} of 8-px cells")
+            sizes[sid] = os.path.getsize(maps["bfloat16"]["maps"][sid])
+            rel[sid] = _rel_fro(torch.from_numpy(maps["bfloat16"]["logits"][sid]),
+                                torch.from_numpy(maps["float32"]["logits"][sid]))
+    if counts["encode_fused"] < 1:
+        raise AssertionError(f"downstream: encode_fused was not launched ({counts})")
+    _check_off_path(counts, "downstream")
+    state["launches_downstream"] = counts
+    worst = max(rel.values())
+    emit({"phase": "downstream", "slides": EXTRACT_SLIDES, "tokens": sum(lengths),
+          "extract_s": extract_s, "mean_embs_s": mean_s,
+          "mean_embs_s_per_slide": mean_s / EXTRACT_SLIDES, "mean_max_abs_err": mean_err,
+          "mean_atol": MEAN_ATOL, "attention_maps_s": map_s,
+          "attention_maps_s_per_slide": {k: v / EXTRACT_SLIDES for k, v in map_s.items()},
+          "png_bytes": sizes, "logits_bf16_vs_f32_rel_fro_max": worst,
+          "rel_fro_bar": EVAL_REL_FRO, "launches": counts})
+    if not worst <= EVAL_REL_FRO:
+        raise AssertionError(f"downstream: bf16 attention logits against f32's {rel}")
+
+
+PROBE_CSV = os.path.join("dataset_csv", "BCNB", "BCNB.csv")
+PROBE_TASKS = ("er", "pr", "her2")
+PROBE_SHIFT = 2.0     # a label's shift of the embedding along its task's unit direction
+PROBE_TOL = 1e-9      # the card's fits against the CPU's: float64 probabilities, metrics
+PROBE_MODULES = ("sklearn", "PIL", "cv2", "h5py", "openslide")
+
+
+def _importable(names):
+    """{name: whether `import name` succeeds}, in a fresh interpreter."""
+    code = ("import importlib, json\nout = {}\n"
+            f"for n in {list(names)!r}:\n"
+            "    try:\n        importlib.import_module(n)\n        out[n] = True\n"
+            "    except Exception:\n        out[n] = False\n"
+            "print(json.dumps(out))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, check=True)
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def write_probe_embeddings(path: str):
+    """512-d embeddings for every slide of BCNB.csv: N(0, 1) from SEED, plus
+    PROBE_SHIFT along a unit direction per task whose label is 1."""
+    with open(os.path.join(HERE, PROBE_CSV), newline="") as f:
+        rows = list(csv.DictReader(f))
+    gen = np.random.default_rng(SEED + 11)
+    emb = gen.standard_normal((len(rows), 512))
+    dirs = gen.standard_normal((len(PROBE_TASKS), 512))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    for j, task in enumerate(PROBE_TASKS):
+        emb += PROBE_SHIFT * np.array([r[task] == "1" for r in rows])[:, None] * dirs[j]
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump({"embeds": emb.astype(np.float32),
+                     "slide_ids": [r["slide_id"] for r in rows]}, f)
+    return len(rows)
+
+
+def phase_probe(state):
+    """The linear probe at BCNB's scale through the CLI's main: 3 k x 3
+    tasks x 10 folds on the card, then the same code on the CPU."""
+    import torch
+    from madeleine_torch.cli import run_linear_probing
+
+    emit({"phase": "probe_imports", "importable": _importable(PROBE_MODULES)})
+    runs = {}
+    with tempfile.TemporaryDirectory() as root:
+        for device in ("cuda", "cpu"):
+            pkl = os.path.join(root, device, "madeleine_slide_embeddings.pkl")
+            n_slides = write_probe_embeddings(pkl)
+            record = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = _quiet(run_linear_probing.main, [
+                "--slide_embedding_pkl", pkl, "--label_path", os.path.join(HERE, PROBE_CSV),
+                "--device", device], record=record)
+            wall = time.perf_counter() - t0
+            written = sorted(os.listdir(os.path.join(root, device, "res_linear_probing",
+                                                     "madeleine_slide_embeddings")))
+            runs[device] = {"metrics": metrics, "record": record, "wall_s": wall,
+                            "pickles": written}
+    card, cpu = runs["cuda"], runs["cpu"]
+    fits = len(card["record"])
+    if fits != 90 or len(cpu["record"]) != fits or len(card["pickles"]) != 9:
+        raise AssertionError(f"probe: {fits} fits on the card, {len(cpu['record'])} on the "
+                             f"CPU, pickles {card['pickles']}")
+    proba_err = 0.0
+    for a, b in zip(card["record"], cpu["record"]):
+        if (a["k"], a["task"], a["fold"]) != (b["k"], b["task"], b["fold"]) \
+                or a["train_ids"] != b["train_ids"] or a["test_ids"] != b["test_ids"]:
+            raise AssertionError(f"probe: the split of {a['k'], a['task'], a['fold']} differs")
+        proba_err = max(proba_err, float(np.abs(a["proba"] - b["proba"]).max()))
+    store_err = 0.0
+    for key, store in card["metrics"].items():
+        for m, v in store.items():
+            w = cpu["metrics"][key][m]
+            if len(v) != len(w):
+                raise AssertionError(f"probe: {key} {m} has {len(v)} folds, the CPU's {len(w)}")
+            if v:
+                store_err = max(store_err, float(np.nanmax(np.abs(np.subtract(v, w)))))
+    by_k = {k: [r["seconds"] * 1e3 for r in card["record"] if r["k"] == k]
+            for k in (1, 10, 25)}
+    emit({"phase": "probe", "csv": PROBE_CSV, "slides": n_slides, "fits": fits,
+          "wall_s": card["wall_s"], "wall_s_cpu": cpu["wall_s"],
+          "ms_per_fit_by_k": {k: statistics.median(v) for k, v in by_k.items()},
+          "ms_per_fit_by_k_cpu": {k: statistics.median(
+              r["seconds"] * 1e3 for r in cpu["record"] if r["k"] == k) for k in by_k},
+          "newton_steps_max": max(r["newton_steps"] for r in card["record"]),
+          "auc_mean": {f"k={k} {t}": float(np.mean(card["metrics"][(k, t)]["auc"]))
+                       for k in (1, 10, 25) for t in PROBE_TASKS},
+          "proba_max_abs_diff_vs_cpu": proba_err, "store_max_abs_diff_vs_cpu": store_err,
+          "tol": PROBE_TOL})
+    if not (proba_err <= PROBE_TOL and store_err <= PROBE_TOL):
+        raise AssertionError(f"probe: card against CPU: probabilities {proba_err}, "
+                             f"metric stores {store_err} > {PROBE_TOL}")
 
 
 EVAL_REL_FRO = 2e-2   # bf16 eval forward against the f32 model's: a few bf16 roundings
@@ -3610,6 +3842,88 @@ def phase_eval_forward(state):
           "vs_f32_cases": EVAL_CHECK_CASES, "rel_fro_bar": EVAL_REL_FRO, **errs})
     if not max(errs.values()) <= EVAL_REL_FRO:
         raise AssertionError(f"eval_forward: bf16 against f32 {errs} > {EVAL_REL_FRO}")
+
+
+VIT_TILES = 256       # tiles per batch
+VIT_TILE_PX = 256     # the tiles' side: resized on the card to the tower's 224
+VIT_CHECK_TILES = 4   # the f32 card run against the f32 CPU run on these
+VIT_F32_REL = 1e-4    # relative Frobenius, card against CPU (f32)
+VIT_BF16_REL = 2e-2   # relative Frobenius, bf16 against f32 on the card
+VIT_RUNS = 5
+
+
+def _vit_work(cfg, n, elem):
+    """(FLOPs, bytes) of the tower on n images of `elem`-byte values: its
+    products (2 per multiply-add); the images and each weight read once,
+    the features written once."""
+    s, w, mlp = cfg.seq_len, cfg.width, int(cfg.width * cfg.mlp_ratio)
+    per_layer = 2 * s * (3 * w * w + w * w + 2 * w * mlp) + 2 * 2 * s * s * w
+    flops = n * (cfg.layers * per_layer + 2 * (s - 1) * cfg.patch_size ** 2 * 3 * w
+                 + 2 * w * (cfg.out_dim or 0))
+    params = cfg.layers * (4 * w * w + 2 * w * mlp) + cfg.patch_size ** 2 * 3 * w
+    nbytes = elem * (params + n * cfg.image_size ** 2 * 3) + 4 * n * (cfg.out_dim or w)
+    return flops, nbytes
+
+
+def phase_vit(state):
+    """The ViT-B/16 tile tower (the JAX package's default ViTConfig) with
+    random weights from SEED through TorchViTEncoder: 256 uint8 tiles of
+    256 x 256 a batch, end to end from the host (H2D, resize, normalise,
+    tower) in f32 and bf16."""
+    import copy
+
+    import torch
+    from madeleine_torch.preprocessing.vit import (TorchViTEncoder, ViTConfig,
+                                                   VisionTransformer, init_vit)
+
+    cfg = ViTConfig()
+    model = init_vit(VisionTransformer(cfg), torch.Generator().manual_seed(SEED))
+    tiles = np.random.default_rng(SEED + 13).integers(
+        0, 256, (VIT_TILES, VIT_TILE_PX, VIT_TILE_PX, 3), dtype=np.uint8)
+    out, runs = {}, {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        enc = TorchViTEncoder(cfg, copy.deepcopy(model), dtype=dtype, device="cuda")
+        enc(tiles)   # first call: allocator and library warm-up, not timed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(VIT_RUNS):
+            t0 = time.perf_counter()
+            out[name] = enc(tiles)
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        host = torch.from_numpy(tiles)
+        dev = host.cuda()
+        x = enc.preprocess(dev)
+        with torch.no_grad():
+            tower = cuda_ms(lambda: enc.model(x), warmup=1, iters=VIT_RUNS)
+        pre = cuda_ms(lambda: enc.preprocess(dev), warmup=1, iters=VIT_RUNS)
+        h2d = cuda_ms(lambda: host.cuda(), warmup=1, iters=VIT_RUNS)
+        ms = statistics.median(times)
+        peak_flops = PEAK_FP32 if dtype == torch.float32 else PEAK_BF16
+        flops, nbytes = _vit_work(cfg, VIT_TILES, 4 if dtype == torch.float32 else 2)
+        bound, bound_by = _bound(flops, nbytes, peak_flops)
+        runs[name] = {"ms_per_batch": ms, "ms_runs": times, "tiles_per_s": VIT_TILES / ms * 1e3,
+                      "tower_ms": tower, "tower_share": tower / ms, "preprocess_ms": pre,
+                      "h2d_ms": h2d, "peak_gb": peak, "tower_tflops": flops / tower / 1e9,
+                      "tower_bound_ms": bound, "tower_bound_by": bound_by,
+                      "tower_bound_share": bound / tower}
+        del enc, x, dev
+        torch.cuda.empty_cache()
+    cpu = TorchViTEncoder(cfg, copy.deepcopy(model), device="cpu")(tiles[:VIT_CHECK_TILES])
+    if out["f32"].shape != (VIT_TILES, cfg.out_dim) or not np.isfinite(out["f32"]).all() \
+            or not np.isfinite(out["bf16"]).all():
+        raise AssertionError(f"vit: outputs {out['f32'].shape}")
+    errs = {"f32_card_vs_cpu_rel_fro": _rel_fro(torch.from_numpy(out["f32"][:VIT_CHECK_TILES]),
+                                                torch.from_numpy(cpu)),
+            "bf16_vs_f32_rel_fro": _rel_fro(torch.from_numpy(out["bf16"]),
+                                            torch.from_numpy(out["f32"]))}
+    emit({"phase": "vit", "config": dataclasses.asdict(cfg), "tiles": VIT_TILES,
+          "tile_px": VIT_TILE_PX, "tower_gflop": flops / 1e9, **runs, **errs,
+          "bars": {"f32_card_vs_cpu": VIT_F32_REL, "bf16_vs_f32": VIT_BF16_REL}})
+    if not (errs["f32_card_vs_cpu_rel_fro"] <= VIT_F32_REL
+            and errs["bf16_vs_f32_rel_fro"] <= VIT_BF16_REL):
+        raise AssertionError(f"vit: {errs}")
 
 
 TRAIN_STEPS = 5

@@ -1,6 +1,6 @@
-"""Rules of the port: it imports neither JAX nor the JAX package, nor pandas
-or ml_dtypes (the card's machine has neither), and its entry points never
-fall back to the CPU silently."""
+"""Rules of the port: it imports neither JAX nor the JAX package, nor pandas,
+ml_dtypes, sklearn, PIL or cv2 (the card's machine has none of them), and
+its entry points never fall back to the CPU silently."""
 
 import ast
 import os
@@ -13,7 +13,12 @@ from madeleine_torch.utils.device import resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "madeleine_tpu")
-ABSENT_ON_THE_CARD = ("pandas", "ml_dtypes")
+ABSENT_ON_THE_CARD = ("pandas", "ml_dtypes", "sklearn", "PIL", "cv2")
+# The one import of such a package that a port source may hold: the heatmap's
+# optional thumbnail overlay needs PIL's resize, imports it inside that
+# branch only and raises ImportError naming PIL without it
+# (tests/test_torch_heatmap.py::test_thumbnail_overlay_and_pil_absent).
+OPTIONAL_IMPORTS = {("madeleine_torch/eval/heatmap.py", "PIL")}
 
 
 def _port_sources():
@@ -45,7 +50,7 @@ def test_no_pandas_or_ml_dtypes_in_port_sources():
     importing the whole port load them."""
     bad = [(os.path.relpath(p, REPO), m) for p in _port_sources()
            for m in _imported_roots(p) if m in ABSENT_ON_THE_CARD]
-    assert not bad, bad
+    assert not set(bad) - OPTIONAL_IMPORTS, bad
     modules = sorted(
         os.path.relpath(p, REPO)[:-3].replace(os.sep, ".").removesuffix(".__init__")
         for p in _port_sources() if not p.endswith("chip_smoke.py"))
@@ -89,15 +94,20 @@ def test_entry_points_default_to_cuda():
     import inspect
 
     from madeleine_torch.eval.inference import run_inference
+    from madeleine_torch.eval.linear_probe import L2LogisticRegression, eval_single_task
     from madeleine_torch.models.factory import create_model, create_model_from_pretrained
+    from madeleine_torch.preprocessing.vit import TorchViTEncoder
     from madeleine_torch.serve.server import EmbeddingService
 
     for fn in (run_inference, create_model, create_model_from_pretrained,
-               EmbeddingService.__init__):
+               EmbeddingService.__init__, eval_single_task, L2LogisticRegression.__init__,
+               TorchViTEncoder.__init__):
         assert inspect.signature(fn).parameters["device"].default is None, fn
 
 
-@pytest.mark.parametrize("cli", ["serve", "extract_slide_embeddings", "pretrain"])
+@pytest.mark.parametrize("cli", ["serve", "extract_slide_embeddings", "pretrain",
+                                 "run_linear_probing", "extract_mean_embs",
+                                 "extract_attention_maps"])
 def test_cli_device_flag_defaults_to_cuda(cli):
     proc = subprocess.run([sys.executable, "-m", f"madeleine_torch.cli.{cli}", "--help"],
                           cwd=REPO, capture_output=True, text=True, timeout=300,
