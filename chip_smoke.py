@@ -14,6 +14,7 @@
     python3 chip_smoke.py --phases device,build,perop_kernels_f32,train_perop_f32
     python3 chip_smoke.py --phases device,build,pool_train_kernels,dropout_kernel,train_nofused,heads
     python3 chip_smoke.py --phases device,build,downstream,probe,vit
+    python3 chip_smoke.py --phases device,build,pool_kernels,eval_forward,slide
 
 Phases, one JSON line each; any failure raises and the exit code is non-zero:
   device   card name and the nvidia-smi name/power-limit line
@@ -151,7 +152,10 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            forward_train(train=False) at [65, 5, 2048, 512] bf16 with the
            flagship weights: K3 must launch once per modality; its slide and
            token embeddings of 4 cases against the f32 model's (relative
-           Frobenius 2e-2); timed
+           Frobenius 2e-2); timed; then with n_views=3 (the half-bag views
+           of half_split(0, 2048)): K3 must launch three times per modality,
+           the whole-bag view equal to n_views=1's bit for bit, the views
+           of 4 cases against the f32 model's at 2e-2; timed beside n_views=1
   vit      the ViT-B/16 tile tower (the JAX package's default ViTConfig:
            224 px, patch 16, width 768, 12 layers, 12 heads, out 512) with
            random weights from SEED through TorchViTEncoder: 256 uint8 tiles
@@ -160,6 +164,24 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            the tower's ms and share, peak GB; f32 on the card against f32
            on the CPU on 4 tiles at 1e-4 relative Frobenius, bf16 against
            f32 at 2e-2
+  slide    a synthetic slide of 32768 x 24576 px at 0.5 um/px (2.4 GB of
+           RGB, made on the card from SEED in row bands: stained blobs over
+           about half of it) through TissueSegmenter (Otsu) and TileEmbedder
+           at 10x, 256-px tiles from 512-px regions: with the handcrafted
+           encoder (.bag), and the ViT-B/16 tower from SEED in bf16 (.npz)
+           and f32 (.bag); seconds by part (thumbnail, Otsu and contours,
+           plan, region reads, H2D, resize, encoder, write), tiles kept and
+           tiles/s, peak device and host GB. Checks: the first batch's
+           handcrafted pool and features on the card against the same code
+           on the CPU (pooled uint8 equal, features rtol 1e-5 / atol 1e-6),
+           its tiles resized on the card within one level of cv2's
+           INTER_LINEAR on the host, each bag read back equal to what its
+           encoder returned, the coords the plan's. Then an 8192 x 6144 PNG
+           (eval/heatmap.py's write_png) through the patch-extraction CLI's
+           main with --encoder vit --bag_format bag and with the default
+           handcrafted encoder --bag_format npz, and the slide-embedding
+           CLI over the handcrafted bags with the bf16 model (K1 must
+           launch); seconds a slide
   train_kernels
            K6 (encoder_train_fwd) and K7 (encoder_train_bwd), bf16: each
            against its plain version at dropout rates 0 and (0.1, 0.25) with
@@ -423,13 +445,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("device", "build", "kernels", "pool_kernels", "pool_train_kernels", "dropout_kernel",
           "train_kernels", "train_kernels_f32", "got_kernels", "glue_kernels", "perop_kernels",
           "perop_kernels_f32", "perop_bwd_digest", "golden", "serve", "extract", "downstream",
-          "probe", "eval_forward", "vit",
+          "probe", "eval_forward", "vit", "slide",
           "train", "train_got", "train_se", "train_sigmoid", "train_nofused", "train_views",
           "train_f32",
           "train_perop_f32", "train_ragged", "train_ragged_nofused", "heads", "pretrain",
           "pretrain_ragged", "pretrain_f32", "data_parallel", "profile")
 # the runs of the port's main paths whose kernel launches the summary counts
-MAIN_PATHS = ("serve", "extract", "downstream", "eval_forward", "train", "train_got", "train_se",
+MAIN_PATHS = ("serve", "extract", "downstream", "eval_forward", "slide", "train", "train_got",
+              "train_se",
               "train_sigmoid", "train_nofused", "train_views", "train_views_nofused",
               "train_f32", "train_perop_f32", "train_perop_f32_nofused", "train_ragged",
               "train_ragged_nofused", "heads", "pretrain", "pretrain_ragged", "pretrain_f32",
@@ -3805,7 +3828,8 @@ EVAL_CHECK_CASES = 4
 
 def phase_eval_forward(state):
     """forward_train(train=False) at full width in bf16: the MLP and gates
-    as plain PyTorch, each modality's pool in K3."""
+    as plain PyTorch, each modality's pool in K3; then with n_views=3, the
+    half-bag views' pools in K3 too."""
     import torch
     from madeleine_torch.models.madeleine import forward_train
 
@@ -3836,12 +3860,33 @@ def phase_eval_forward(state):
     want_s, want_t = forward_train(model32, x.float(), train=False)
     errs = {"slide_rel_fro": _rel_fro(slide[:EVAL_CHECK_CASES].float(), want_s),
             "tokens_rel_fro": _rel_fro(tok[:EVAL_CHECK_CASES].float(), want_t)}
+    # n_views=3: the whole bag and the two half-bag views of half_split(0, t),
+    # every pool in K3 (its own run: the counts set to 0 just before it)
+    reset_counts()
+    views, _ = forward_train(model, feats, train=False, n_views=3)
+    torch.cuda.synchronize()
+    counts3 = read_counts()
+    state["launches_eval_forward"] = {k: counts[k] + counts3[k] for k in counts}
+    if counts3["attn_pool"] != 3 * n_mod:
+        raise AssertionError(f"eval_forward n_views=3: attn_pool launched "
+                             f"{counts3['attn_pool']} times, not 3 per modality ({counts3})")
+    if tuple(views.shape) != (bs, n_mod, 3, cfg.embed_dim) \
+            or not torch.isfinite(views.float()).all():
+        raise AssertionError(f"eval_forward n_views=3: outputs {tuple(views.shape)}")
+    whole_equal = bool(torch.equal(views[:, :, :1], slide))
+    ms3 = cuda_ms(lambda: forward_train(model, feats, train=False, n_views=3), warmup=1, iters=5)
+    want_v, _ = forward_train(model32, x.float(), train=False, n_views=3)
+    errs["views_rel_fro"] = _rel_fro(views[:EVAL_CHECK_CASES].float(), want_v)
     emit({"phase": "eval_forward", "batch": list(feats.shape), "launches": counts,
           "ms": ms, "k3_ms_per_call": k3_ms,
           "k3_share": None if k3_ms is None else n_mod * k3_ms / ms,
+          "n_views_3": {"ms": ms3, "launches": {k: v for k, v in counts3.items() if v},
+                        "whole_view_equals_n_views_1": whole_equal},
           "vs_f32_cases": EVAL_CHECK_CASES, "rel_fro_bar": EVAL_REL_FRO, **errs})
     if not max(errs.values()) <= EVAL_REL_FRO:
         raise AssertionError(f"eval_forward: bf16 against f32 {errs} > {EVAL_REL_FRO}")
+    if not whole_equal:
+        raise AssertionError("eval_forward: the n_views=3 whole-bag view differs from n_views=1")
 
 
 VIT_TILES = 256       # tiles per batch
@@ -3924,6 +3969,226 @@ def phase_vit(state):
     if not (errs["f32_card_vs_cpu_rel_fro"] <= VIT_F32_REL
             and errs["bf16_vs_f32_rel_fro"] <= VIT_BF16_REL):
         raise AssertionError(f"vit: {errs}")
+
+
+SLIDE_SIZE = (32768, 24576)   # w, h in px: 16.4 x 12.3 mm at 0.5 um/px
+SLIDE_MPP = 0.5
+SLIDE_MAG, SLIDE_PATCH = 10, 256   # 10x tiles of 256 px from 512-px regions: a 64 x 48 grid
+SLIDE_BAND = 2048                  # rows of the synthetic slide made on the card at a time
+SLIDE_CLI_SIZE = (8192, 6144)
+SLIDE_CHECK_TILES = 32             # the first batch's tiles checked against the CPU and cv2
+SLIDE_FEAT_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def synthetic_slide(torch, w, h, seed, band=SLIDE_BAND):
+    """(RGB uint8 [h, w, 3] on the host, tissue share): a 245 background and
+    six stained ellipses from `seed` (each pixel's colour uniform in
+    [120, 200) x [40, 110) x [120, 200), as tests/test_preprocessing.py's
+    slide), made on the card a band of rows at a time and copied into one
+    host array."""
+    rng = np.random.default_rng(seed)
+    blobs = [((i + 0.5) / 3 * w + rng.uniform(-0.04, 0.04) * w,
+              (j + 0.5) / 2 * h + rng.uniform(-0.04, 0.04) * h,
+              rng.uniform(0.13, 0.15) * w, rng.uniform(0.19, 0.22) * h)
+             for i in range(3) for j in range(2)]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lo = torch.tensor([120, 40, 120], device="cuda", dtype=torch.int32)
+    span = torch.tensor([80, 70, 80], device="cuda", dtype=torch.int32)
+    xs = torch.arange(w, device="cuda", dtype=torch.float32)[None, :]
+    slide = np.empty((h, w, 3), np.uint8)
+    tissue = 0
+    for r0 in range(0, h, band):
+        r1 = min(h, r0 + band)
+        ys = torch.arange(r0, r1, device="cuda", dtype=torch.float32)[:, None]
+        inside = torch.zeros(r1 - r0, w, dtype=torch.bool, device="cuda")
+        for cx, cy, rx, ry in blobs:
+            inside |= ((xs - cx) / rx) ** 2 + ((ys - cy) / ry) ** 2 < 1.0
+        draw = torch.randint(0, 256, (r1 - r0, w, 3), generator=gen, device="cuda",
+                             dtype=torch.uint8)
+        colour = lo + ((draw.to(torch.int32) * span) >> 8)
+        img = torch.where(inside[..., None], colour, 245).to(torch.uint8)
+        torch.from_numpy(slide[r0:r1]).copy_(img)
+        tissue += int(inside.sum())
+    return slide, tissue / (w * h)
+
+
+class _Recorded:
+    """A tile encoder that keeps what it returns (on the device)."""
+
+    def __init__(self, encoder):
+        self.encoder, self.dim, self.outs = encoder, encoder.dim, []
+
+    def __call__(self, tiles):
+        out = self.encoder(tiles)
+        self.outs.append(out)
+        return out
+
+
+def _slide_checks(torch, wsi, mask):
+    """The first batch's tiles: resized on the card against cv2.INTER_LINEAR
+    on the host; the handcrafted pool and features on the card against the
+    same code on the CPU."""
+    import cv2
+
+    from madeleine_torch.preprocessing.patching import WSIPatcher, mag_to_px_size
+    from madeleine_torch.preprocessing.tile_embedder import HandcraftedEncoder, area_pool_uint8
+
+    patcher = WSIPatcher(wsi, SLIDE_PATCH, SLIDE_MPP, dst_pixel_size=mag_to_px_size(SLIDE_MAG),
+                         mask=mask)
+    regions = patcher.read_regions(range(SLIDE_CHECK_TILES), pin=True)
+    tiles = patcher.resize(regions.to("cuda", non_blocking=True))
+    host = tiles.cpu()
+    ref = np.stack([cv2.resize(r, (SLIDE_PATCH, SLIDE_PATCH), interpolation=cv2.INTER_LINEAR)
+                    for r in regions.numpy()])
+    diff = np.abs(host.numpy().astype(np.int16) - ref.astype(np.int16))
+    pooled_equal = bool(torch.equal(area_pool_uint8(tiles, 8).cpu(), area_pool_uint8(host, 8)))
+    card = HandcraftedEncoder(device="cuda")(tiles).cpu().numpy()
+    cpu = HandcraftedEncoder(device="cpu")(host).numpy()
+    feat_ok = bool(np.allclose(card, cpu, **SLIDE_FEAT_TOL))
+    out = {"tiles": SLIDE_CHECK_TILES, "region_px": patcher.level_patch_size,
+           "resize_max_level_diff_vs_cv2": int(diff.max()),
+           "resize_share_differing_vs_cv2": float((diff > 0).mean()),
+           "handcrafted_pooled_equal_cpu": pooled_equal,
+           "handcrafted_max_abs_vs_cpu": float(np.abs(card - cpu).max()),
+           "handcrafted_within_tol": feat_ok, "tol": SLIDE_FEAT_TOL}
+    if diff.max() > 1 or not pooled_equal or not feat_ok:
+        raise AssertionError(f"slide: the card's tiles or features against the host's: {out}")
+    return out, patcher.coords
+
+
+def _slide_cli(torch, root, tower):
+    """The patch-extraction CLI (in this process) on one 8192 x 6144 PNG with
+    the ViT tower into .bag and the handcrafted encoder into .npz, then the
+    slide-embedding CLI over the handcrafted bags with the bf16 model (K1)."""
+    from madeleine_torch.cli import extract_patch_embeddings, extract_slide_embeddings
+    from madeleine_torch.data.io import load_coords, load_features
+    from madeleine_torch.eval.heatmap import write_png
+    from madeleine_torch.utils.file_utils import load_pkl
+
+    w, h = SLIDE_CLI_SIZE
+    img, share = synthetic_slide(torch, w, h, SEED + 21)
+    slide_dir = os.path.join(root, "cli_slides")
+    os.makedirs(slide_dir)
+    t0 = time.perf_counter()
+    write_png(os.path.join(slide_dir, "s1.png"), img)
+    png_s = time.perf_counter() - t0
+    del img
+    ckpt = os.path.join(root, "vit.pt")
+    torch.save({f"visual.{k}": v for k, v in tower.state_dict().items()}, ckpt)
+    runs = {}
+    for name, fmt, extra in (("vit", "bag", ["--encoder", "vit", "--vit_checkpoint", ckpt]),
+                             ("handcrafted", "npz", [])):
+        t0 = time.perf_counter()
+        out = _quiet(extract_patch_embeddings.main, [
+            "--slide_dir", slide_dir, "--local_dir", os.path.join(root, f"cli_{name}"),
+            "--patch_mag", str(SLIDE_MAG), "--patch_size", str(SLIDE_PATCH),
+            "--pixel_size", str(SLIDE_MPP), "--bag_format", fmt, "--device", "cuda", *extra])
+        secs = time.perf_counter() - t0
+        bag = os.path.join(out, "patch_embeddings", f"s1.{fmt}")
+        feats, coords = load_features(bag), load_coords(bag)
+        if feats.ndim != 2 or feats.shape[1] != 512 or len(feats) < 1 \
+                or coords.shape != (len(feats), 2) or not np.isfinite(feats).all():
+            raise AssertionError(f"slide: the CLI's {name} bag {feats.shape} {coords.shape}")
+        runs[name] = {"seconds_per_slide": secs, "tiles": len(feats), "bag": fmt,
+                      "out_dir": os.path.basename(out)}
+    model_root = os.path.join(root, "model")
+    write_model_dir(model_root, "bfloat16")
+    before = read_counts()
+    t0 = time.perf_counter()
+    pkl = _quiet(extract_slide_embeddings.main, [
+        "--local_dir", os.path.join(root, "cli_handcrafted", runs["handcrafted"]["out_dir"]),
+        "--model_dir", model_root, "--no_download", "--device", "cuda"])
+    secs = time.perf_counter() - t0
+    after = read_counts()
+    res = load_pkl(pkl)
+    if after["encode_fused"] - before["encode_fused"] < 1 or res["embeds"].shape != (1, 512) \
+            or not np.isfinite(res["embeds"]).all():
+        raise AssertionError(f"slide: the slide embedding of the CLI's bag: "
+                             f"{res['embeds'].shape}, K1 launches "
+                             f"{after['encode_fused'] - before['encode_fused']}")
+    runs["slide_embedding"] = {"seconds": secs, "encode_fused_launches":
+                               after["encode_fused"] - before["encode_fused"]}
+    return {"slide_px": list(SLIDE_CLI_SIZE), "tissue_share": share, "png_write_s": png_s,
+            **runs}
+
+
+def phase_slide(state):
+    """From a slide to patch embeddings on the card: a synthetic 32768 x
+    24576 slide through TissueSegmenter (Otsu) and TileEmbedder, with the
+    handcrafted encoder and the ViT-B/16 tower in bf16 and f32; then the
+    patch-extraction CLI on a PNG slide, and the slide-embedding CLI on its
+    bags (K1)."""
+    import copy
+    import resource
+
+    import torch
+    from madeleine_torch.data.io import load_coords, load_features
+    from madeleine_torch.preprocessing.segmentation import TissueSegmenter
+    from madeleine_torch.preprocessing.tile_embedder import HandcraftedEncoder, TileEmbedder
+    from madeleine_torch.preprocessing.vit import (TorchViTEncoder, ViTConfig,
+                                                   VisionTransformer, init_vit)
+    from madeleine_torch.preprocessing.wsi import NumpyWSI
+
+    reset_counts()
+    t0 = time.perf_counter()
+    w, h = SLIDE_SIZE
+    img, share = synthetic_slide(torch, w, h, SEED)
+    make_s = time.perf_counter() - t0
+    wsi = NumpyWSI(img, pixel_size=SLIDE_MPP)
+    vcfg = ViTConfig()
+    tower = init_vit(VisionTransformer(vcfg), torch.Generator().manual_seed(SEED))
+    runs, checks, coords = {}, None, None
+    with tempfile.TemporaryDirectory() as root:
+        for name, dtype, batch, fmt in (("handcrafted", None, 64, "bag"),
+                                        ("vit_bf16", torch.bfloat16, 256, "npz"),
+                                        ("vit_f32", torch.float32, 256, "bag")):
+            enc = HandcraftedEncoder(device="cuda") if dtype is None else TorchViTEncoder(
+                vcfg, copy.deepcopy(tower), dtype=dtype, device="cuda")
+            rec = _Recorded(enc)
+            emb = TileEmbedder(rec, SLIDE_PATCH, SLIDE_MAG, batch, os.path.join(root, name),
+                               device="cuda", bag_format=fmt)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            seg = TissueSegmenter()
+            t0 = time.perf_counter()
+            mask, contours, _ = seg.segment_tissue(wsi, SLIDE_MPP)
+            seg_s = time.perf_counter() - t0
+            if checks is None:
+                checks, coords = _slide_checks(torch, wsi, mask)
+            path = emb.embed_tiles(wsi, mask, "slide", pixel_size=SLIDE_MPP)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            got = torch.cat(rec.outs).cpu().numpy()
+            read_equal = bool(np.array_equal(load_features(path), got)
+                              and np.array_equal(load_coords(path), coords))
+            t = emb.timings
+            wall = seg_s + t["wall"]
+            runs[name] = {"batch": batch, "bag": fmt, "tiles": t["tiles"],
+                          "tiles_per_s": t["tiles"] / wall, "seconds": wall,
+                          "seconds_by_part": {"thumbnail": seg.timings["thumbnail"],
+                                              "otsu_contours": seg.timings["otsu_contours"],
+                                              **{k: t[k] for k in ("plan", "read", "h2d", "resize",
+                                                                   "encode", "write")}},
+                          "embed_wall_s": t["wall"], "peak_device_gb": peak,
+                          "contours": len(contours), "mask_share": float(mask.mean()),
+                          "bag_read_back_equal": read_equal}
+            if not read_equal or got.shape != (len(coords), enc.dim) \
+                    or not np.isfinite(got).all():
+                raise AssertionError(f"slide {name}: bag {path} against the encoder's "
+                                     f"{got.shape}, read back equal {read_equal}")
+            del enc, rec, emb, got
+            torch.cuda.empty_cache()
+        del wsi, img
+        gc.collect()
+        cli = _slide_cli(torch, root, tower)
+    counts = read_counts()
+    _check_off_path(counts, "slide")
+    state["launches_slide"] = counts
+    emit({"phase": "slide", "slide_px": list(SLIDE_SIZE), "mpp": SLIDE_MPP,
+          "slide_gb": w * h * 3 / 1e9, "tissue_share": share, "make_s": make_s,
+          "mag": SLIDE_MAG, "patch_px": SLIDE_PATCH, "grid_cells": (w // 512) * (h // 512),
+          "runs": runs, "checks": checks, "cli": cli,
+          "host_peak_rss_gb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6,
+          "launches": {k: v for k, v in counts.items() if v}})
 
 
 TRAIN_STEPS = 5

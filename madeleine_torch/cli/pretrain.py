@@ -71,19 +71,19 @@ from typing import Dict, Iterator, List, Optional
 import torch
 import torch.distributed as dist
 
-from madeleine_torch.data.datasets import (Prefetcher, RaggedTrainLoader, SlideDataset,
-                                           TrainLoader)
+from madeleine_torch.data.datasets import Prefetcher
 from madeleine_torch.eval.inference import get_downstream_loader, run_inference
-from madeleine_torch.models.factory import create_model
 from madeleine_torch.native.dataset import NativeRaggedLoader, NativeTrainLoader
 from madeleine_torch.ops import launches
 from madeleine_torch.parallel import multihost
+from madeleine_torch.setup import (setup_dataloader, setup_dataset, setup_model, setup_optim,
+                                   setup_results_dir)
 from madeleine_torch.train import checkpoint as ckpt
-from madeleine_torch.train.optim import make_optimizer
 from madeleine_torch.train.trainer import make_train_step, train_loop
 from madeleine_torch.utils.args import build_parser, config_from_args
 from madeleine_torch.utils.file_utils import print_network, save_pkl
 from madeleine_torch.utils.logging import MetricsLogger
+from madeleine_torch.utils.profiling import trace
 from madeleine_torch.utils.seed import set_deterministic_mode
 
 MIN_CHECKPOINT_EPOCH = 20  # ref: bin/pretrain.py:69 (no saves for the first 20 epochs)
@@ -116,7 +116,8 @@ def make_loader(cfg, native_loader: str, dev: torch.device, process_index: int =
     """(loader, its name) as the JAX CLI chooses (bin/pretrain.py:60-116):
     ``auto`` is ``on`` when the data dir holds ``.bag`` files; ``on`` is the
     native loader, assembling in bf16 under --precision bfloat16 and in f32
-    otherwise; ``off`` is SlideDataset + TrainLoader. --n_subsamples -1
+    otherwise; ``off`` is the setup family's SlideDataset + TrainLoader
+    (`setup.setup_dataset`, `setup.setup_dataloader`). --n_subsamples -1
     takes the ragged loaders (NativeRaggedLoader, RaggedTrainLoader),
     printing the JAX CLI's lines. Under several processes each loader
     yields rank `process_index`'s rows, the subsample drawn per case."""
@@ -138,13 +139,10 @@ def make_loader(cfg, native_loader: str, dev: torch.device, process_index: int =
                                        sample=cfg.n_subsamples, per_case_seed=per_case, **kw)
             print(f"* Native .bag loader (C++ threaded assembler, {out_dtype} assembly)")
         return loader, "native-bf16" if out_dtype == "bfloat16" else "native-f32"
-    dataset = SlideDataset(cfg.dataset, cfg.csv_fpath, cfg.data_root_dir, cfg.MODALITIES,
-                           embedding_size=cfg.patch_embedding_dim, sample=cfg.n_subsamples,
-                           per_case_seed=per_case, seed=cfg.seed)
     if ragged:
         print("* Full-bag (ragged) training: padded length buckets + token masks")
-        return RaggedTrainLoader(dataset, cfg.batch_size, seed=cfg.seed, **procs), "python"
-    return TrainLoader(dataset, cfg.batch_size, seed=cfg.seed, **procs), "python"
+    dataset = setup_dataset(cfg, process_count)
+    return setup_dataloader(cfg, dataset, process_index, process_count), "python"
 
 
 def param_digest(model: torch.nn.Module) -> str:
@@ -175,8 +173,7 @@ def main(argv=None) -> str:
 
     results = cfg.RESULTS_SAVE_PATH
     if primary:   # only rank 0 writes the results dir
-        os.makedirs(results, exist_ok=True)
-        cfg.save(os.path.join(results, "config.json"))
+        setup_results_dir(cfg)
         print(f"* Running experiment {cfg.EXP_CODE}")
         print(f"* Results dir: {results}")
         if world > 1:
@@ -195,11 +192,11 @@ def main(argv=None) -> str:
     timeline["loader"] = time.time()
 
     # ---- model / optimizer ----------------------------------------------
-    _, model = create_model(cfg, seed=cfg.seed, device=dev)
+    model = setup_model(cfg, device=dev)
     if primary:
         print(f"* Model parameters: {sum(p.numel() for p in model.parameters()):,}")
         print_network(model, cfg, results_dir=results)
-    optimizer, schedule = make_optimizer(cfg, model.parameters(), steps_per_epoch)
+    optimizer, schedule = setup_optim(cfg, model, steps_per_epoch)
     train_step = make_train_step(cfg, model, optimizer, schedule, group=group)
 
     start_epoch, best_rank = 0, 0.0
@@ -218,66 +215,56 @@ def main(argv=None) -> str:
             print(f"* Resumed from {src} at epoch {start_epoch} (best_rank={best_rank:.2f})")
 
     timeline["model"] = time.time()
-    prof = None
-    if cfg.profile_dir and primary:
-        from torch.profiler import ProfilerActivity, profile
 
-        prof = profile(activities=[ProfilerActivity.CPU] + (
-            [ProfilerActivity.CUDA] if dev.type == "cuda" else []))
-        prof.start()
-
-    # ---- epochs -----------------------------------------------------------
-    for epoch in range(start_epoch, cfg.max_epochs):
-        if primary:
-            print(f"\nTraining for epoch {epoch}...")
-        start = time.time()
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(dev)
-        loader.set_epoch(epoch)   # the shuffle and subsamples keyed by (seed, epoch)
-        load_ms: List[float] = []
-        truncations: List[int] = []
-        ep_loss, train_rank, agg = train_loop(
-            cfg, train_step,
-            Prefetcher(host_batches(loader, load_ms, dev.type == "cuda", truncations)),
-            epoch, cfg.seed)
-        # the loss, the skips and the smooth rank are the global batch's, the
-        # same on every rank, so every rank takes the same checkpoint gate
-        improved = epoch > MIN_CHECKPOINT_EPOCH and train_rank > best_rank
-        due = improved or (cfg.checkpoint_every and (epoch + 1) % cfg.checkpoint_every == 0)
-        if improved:
-            best_rank_before, best_rank = best_rank, train_rank
-        if not primary:
-            continue
-        print(f"Done with epoch {epoch}: loss={ep_loss:.3f} rank={train_rank:.3f} "
-              f"time={time.time() - start:.1f}s ({agg['n_skipped']} skipped)")
-        record = {"train_loss": ep_loss, "train_rank": train_rank,
-                  "epoch_time": agg["epoch_time"], "n_steps": agg["n_steps"],
-                  "n_skipped": agg["n_skipped"], "epoch": epoch, "loader": loader_name,
-                  "loader_ms": load_ms, "steps": agg["steps"]}
-        if loader_name != "python":   # the native loader's parts, per batch
-            for part in ("draw_ms", "assemble_ms", "guard_wait_ms"):
-                record[part] = [t[part] for t in loader.timings]
-            record["pinned_bytes"] = loader.pinned_bytes
-        if truncations:   # a ragged loader's count after each batch
-            record["truncation_count"] = truncations
-        if dev.type == "cuda":
-            record["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-        logger.log(record, step=epoch)
-        if improved:
-            print(f"Better rank: {best_rank_before} --> {train_rank}. Saving model")
-            ckpt.save_best_torch(results, model, cfg)
-        if due:
-            ckpt.save_train_state(
-                state_dir, {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-                            "updates": int(train_step.updates)},
-                metadata={"epoch": epoch, "best_rank": best_rank, "train_rank": train_rank,
-                          "loss": float(ep_loss)})
+    # ---- epochs (under --profile_dir, rank 0 writes <profile_dir>/trace.json) ----
+    with trace(cfg.profile_dir if primary else None):
+        for epoch in range(start_epoch, cfg.max_epochs):
+            if primary:
+                print(f"\nTraining for epoch {epoch}...")
+            start = time.time()
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            loader.set_epoch(epoch)   # the shuffle and subsamples keyed by (seed, epoch)
+            load_ms: List[float] = []
+            truncations: List[int] = []
+            ep_loss, train_rank, agg = train_loop(
+                cfg, train_step,
+                Prefetcher(host_batches(loader, load_ms, dev.type == "cuda", truncations)),
+                epoch, cfg.seed)
+            # the loss, the skips and the smooth rank are the global batch's, the
+            # same on every rank, so every rank takes the same checkpoint gate
+            improved = epoch > MIN_CHECKPOINT_EPOCH and train_rank > best_rank
+            due = improved or (cfg.checkpoint_every and (epoch + 1) % cfg.checkpoint_every == 0)
+            if improved:
+                best_rank_before, best_rank = best_rank, train_rank
+            if not primary:
+                continue
+            print(f"Done with epoch {epoch}: loss={ep_loss:.3f} rank={train_rank:.3f} "
+                  f"time={time.time() - start:.1f}s ({agg['n_skipped']} skipped)")
+            record = {"train_loss": ep_loss, "train_rank": train_rank,
+                      "epoch_time": agg["epoch_time"], "n_steps": agg["n_steps"],
+                      "n_skipped": agg["n_skipped"], "epoch": epoch, "loader": loader_name,
+                      "loader_ms": load_ms, "steps": agg["steps"]}
+            if loader_name != "python":   # the native loader's parts, per batch
+                for part in ("draw_ms", "assemble_ms", "guard_wait_ms"):
+                    record[part] = [t[part] for t in loader.timings]
+                record["pinned_bytes"] = loader.pinned_bytes
+            if truncations:   # a ragged loader's count after each batch
+                record["truncation_count"] = truncations
+            if dev.type == "cuda":
+                record["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            logger.log(record, step=epoch)
+            if improved:
+                print(f"Better rank: {best_rank_before} --> {train_rank}. Saving model")
+                ckpt.save_best_torch(results, model, cfg)
+            if due:
+                ckpt.save_train_state(
+                    state_dir, {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+                                "updates": int(train_step.updates)},
+                    metadata={"epoch": epoch, "best_rank": best_rank, "train_rank": train_rank,
+                              "loss": float(ep_loss)})
 
     timeline["epochs"] = time.time()
-    if prof is not None:
-        prof.stop()
-        os.makedirs(cfg.profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(cfg.profile_dir, "trace.json"))
     if primary:
         print("\nDone with training\n")
         # the final model.pt when the rank gating never fired (short runs)

@@ -1,4 +1,4 @@
-"""Bag file reading: ``.npz``, ``.bag`` and (when h5py imports) ``.h5``.
+"""Bag files: ``.npz``, ``.bag`` and (when h5py imports) ``.h5``, read and written.
 
 Schema: one file per slide holding ``features`` [n, d] (ref:
 preprocessing/conch_patch_embedder.py:127-131, datasets/wsi_dataset.py:14-19).
@@ -6,7 +6,9 @@ preprocessing/conch_patch_embedder.py:127-131, datasets/wsi_dataset.py:14-19).
 40-byte little-endian header ``<IIQQIIQ`` = magic, version, rows, cols,
 dtype code, reserved, coords offset, then the row-major payload. This
 module reads it with numpy; the native loader (`madeleine_torch/native/`)
-maps it through the host library, and writes it.
+maps it through the host library and `native/bagio.py::write_bag_file`
+writes it. The writers (`write_bag`, `append_bag`) take the format from the
+path's extension and never switch it: a ``.h5`` path without h5py raises.
 """
 
 from __future__ import annotations
@@ -42,9 +44,13 @@ def _read_bag_features(path: str) -> np.ndarray:
         return np.frombuffer(f.read(n * d * 4), np.float32).reshape(n, d)
 
 
-def _need_h5py(path: str) -> None:
+BAG_FORMATS = (".h5", ".npz", ".bag")
+
+
+def need_h5py(path: str) -> None:
     if h5py is None:
-        raise RuntimeError(f"{path}: h5py is not installed; convert bags to .npz or .bag")
+        raise RuntimeError(f"{path}: h5py is not installed; use .npz or .bag bags "
+                           "(python -m madeleine_torch.cli.convert_bags converts them)")
 
 
 def load_features(path: str, dtype=np.float32) -> np.ndarray:
@@ -56,7 +62,7 @@ def load_features(path: str, dtype=np.float32) -> np.ndarray:
         with np.load(path) as d:
             feats = d["features"]
     else:
-        _need_h5py(path)
+        need_h5py(path)
         with h5py.File(path, "r") as f:
             feats = f["features"][:]
     feats = np.asarray(feats)
@@ -77,7 +83,7 @@ def load_coords(path: str) -> Optional[np.ndarray]:
     if path.endswith(".npz"):
         with np.load(path) as d:
             return d["coords"] if "coords" in d.files else None
-    _need_h5py(path)
+    need_h5py(path)
     with h5py.File(path, "r") as f:
         return f["coords"][:] if "coords" in f else None
 
@@ -90,7 +96,7 @@ def bag_length(path: str) -> int:
     if path.endswith(".npz"):
         with np.load(path) as d:
             return int(d["features"].shape[0])
-    _need_h5py(path)
+    need_h5py(path)
     with h5py.File(path, "r") as f:
         shape = f["features"].shape
     return int(shape[0] if len(shape) != 3 else shape[1])
@@ -109,3 +115,63 @@ def list_bags(directory: str,
                 os.path.splitext(best[stem])[1], 9):
             best[stem] = fn
     return sorted(best.values())
+
+
+def _bag_format(path: str) -> str:
+    ext = os.path.splitext(path)[1]
+    if ext not in BAG_FORMATS:
+        raise ValueError(f"{path}: a bag file is one of {BAG_FORMATS}")
+    return ext
+
+
+def write_bag(path: str, features: np.ndarray, coords: Optional[np.ndarray] = None,
+              attrs: Optional[dict] = None) -> None:
+    """Write one bag in the reference schema (JAX data/io.py:79-96):
+    ``.npz`` by numpy, ``.bag`` as f32 with coords (`write_bag_file`),
+    ``.h5`` by h5py (plain datasets, `attrs` as file attributes)."""
+    ext = _bag_format(path)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    if ext == ".npz":
+        data = {"features": features}
+        if coords is not None:
+            data["coords"] = coords
+        np.savez(path, **data)
+    elif ext == ".bag":
+        from madeleine_torch.native.bagio import write_bag_file
+
+        write_bag_file(path, features, coords)
+    else:
+        need_h5py(path)
+        with h5py.File(path, "w") as f:
+            f.create_dataset("features", data=features)
+            if coords is not None:
+                f.create_dataset("coords", data=coords)
+            for k, v in (attrs or {}).items():
+                f.attrs[k] = v
+
+
+def append_bag(path: str, features: np.ndarray, coords: Optional[np.ndarray] = None) -> None:
+    """Append rows to a ``.h5`` bag, creating it if absent: resizable
+    datasets chunked by the first append's rows (at most 1024), the
+    streaming pattern of the tile embedder (JAX data/io.py:99-118; ref:
+    conch_patch_embedder.py:16-66). ``.npz`` and ``.bag`` have fixed
+    headers: write them whole with `write_bag`."""
+    if _bag_format(path) != ".h5":
+        raise ValueError(f"{path}: only .h5 bags take appends; write .npz and .bag whole")
+    need_h5py(path)
+    first = not os.path.exists(path)
+    with h5py.File(path, "a") as f:
+        items = {"features": features}
+        if coords is not None:
+            items["coords"] = coords
+        for name, arr in items.items():
+            arr = np.asarray(arr)
+            if first or name not in f:
+                maxshape = (None,) + arr.shape[1:]
+                f.create_dataset(name, data=arr, maxshape=maxshape,
+                                 chunks=(max(1, min(len(arr), 1024)),) + arr.shape[1:])
+            else:
+                ds = f[name]
+                n0 = ds.shape[0]
+                ds.resize(n0 + arr.shape[0], axis=0)
+                ds[n0:] = arr

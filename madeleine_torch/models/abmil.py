@@ -196,6 +196,7 @@ def abmil_embed(
     mask: Optional[torch.Tensor] = None,
     return_attention: bool = False,
     return_tokens: bool = False,
+    half_mask: Optional[torch.Tensor] = None,
 ):
     """ABMIL eval forward (ref: Model.py:375-451), as abmil.py:255-364 routes it.
 
@@ -208,12 +209,19 @@ def abmil_embed(
     kernel K3 (ops/attn_pool.py); with the logits asked for, the pool is
     plain too (the JAX package's use_pallas=False there).
 
-    Returns pooled [b, nh, e] (head-major), plus raw logits [b, t, nh] if
-    return_attention, plus tokens [b, t, nh, e] if return_tokens.
+    With half_mask ([t] bool) the two half-bag views pool beside the whole
+    bag (n_views=3, abmil.py:338-357): each view's softmax re-normalises the
+    raw logits over its half ANDed with `mask`, through K3's op
+    (`softmax_pool`: the kernel on a CUDA tensor, its plain version on a
+    CPU one; an empty view pools to 0), and the whole bag pools as above.
+
+    Returns pooled [b, nh, e] (head-major; [b, 3, nh, e] with half_mask),
+    plus raw logits [b, t, nh] if return_attention, plus tokens [b, t, nh,
+    e] if return_tokens.
     """
     nh = emb.n_heads
     fused_ok = (bags.is_cuda and activation == "softmax" and not return_attention
-                and not return_tokens)
+                and not return_tokens and half_mask is None)
     if fused_ok and bags.dtype == torch.bfloat16:
         return encode_pool_fused(kernel_operands(emb, bags.dtype), bags, mask)
 
@@ -231,6 +239,13 @@ def abmil_embed(
         pooled = softmax_pool(xh, raw_logits, mask)
     else:
         pooled = masked_attention_pool(xh, raw_logits, mask, activation)
+    if half_mask is not None:
+        b, t = bags.shape[:2]
+        half = half_mask.reshape(1, t).to(bags.device, torch.bool)
+        valid = torch.ones(b, t, dtype=torch.bool, device=bags.device) if mask is None \
+            else mask.to(bags.device, torch.bool).reshape(b, t)
+        views = [softmax_pool(xh, raw_logits, valid & h) for h in (half, ~half)]
+        pooled = torch.stack([pooled] + views, 1)
     out: Tuple[torch.Tensor, ...] = (pooled,)
     if return_attention:
         out = out + (raw_logits,)

@@ -128,7 +128,11 @@ def create_model(model_cfg, checkpoint_path: Optional[str] = None, seed: int = 0
         else:
             raise NotImplementedError(
                 f"checkpoint {checkpoint_path}: only torch .pt/.pth/.bin and .npz "
-                "state dicts load in the port (orbax restore is not ported)")
+                "state dicts load in the port. For a JAX (orbax) checkpoint, write "
+                "its model.pt with the JAX package "
+                "(madeleine_tpu.models.factory.export_torch_checkpoint on "
+                "madeleine_tpu.train.checkpoint.restore_params(dir), or "
+                "train.checkpoint.save_best_torch) and load that")
         model.load_state_dict(sd, strict=True)
     else:
         init_madeleine(model, torch.Generator().manual_seed(seed))

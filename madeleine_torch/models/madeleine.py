@@ -12,7 +12,8 @@ encoder through the train op of ops/encoder_train.py with softmax, and the
 per-op lane with any other activation or with MADELEINE_NO_FUSED_ENCODER set
 (`abmil_embed_train`, then the token projector's train op,
 ops/linear_tok.py); its eval mode (``train=False``) runs `abmil_embed` per
-modality, whose softmax pool on the card is kernel K3.
+modality, whose softmax pool on the card is kernel K3 (also the
+half-bag views' pools at n_views=3).
 """
 
 from __future__ import annotations
@@ -135,12 +136,13 @@ def _linear_head_major(model: MADELEINE, layer: nn.Linear, x: torch.Tensor,
 
 
 @torch.no_grad()
-def _forward_eval(model: MADELEINE, feats: torch.Tensor,
-                  mask: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+def _forward_eval(model: MADELEINE, feats: torch.Tensor, mask: Optional[torch.Tensor],
+                  half: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The eval forward (JAX madeleine.py:309-318): per modality, its stain
     code when enabled, `abmil_embed` with the tokens returned (on the card:
-    the plain MLP and gates, then K3's softmax pool), the projector and the
-    token projector in the compute dtype."""
+    the plain MLP and gates, then K3's softmax pool; with a half split
+    [t], K3 also pools each half-bag view), the projector and the token
+    projector in the compute dtype. Slides [bs, n_mod, 1 or 3, hidden]."""
     cfg = model.cfg
     bs, n_mod, t, _ = feats.shape
     dt = feats.dtype
@@ -151,10 +153,11 @@ def _forward_eval(model: MADELEINE, feats: torch.Tensor,
             x = _append_stain_encoding(model, x, i)
         pooled, tokens = abmil_embed(model.wsi_embedders, x, activation=cfg.activation,
                                      mask=None if mask is None else mask[:, i],
-                                     return_tokens=True)
+                                     return_tokens=True, half_mask=half)
         slides.append(_linear_head_major(model, model.projector, pooled, dt))
         toks.append(_linear_head_major(model, model.token_projector, tokens, dt))
-    return torch.stack(slides, 1)[:, :, None], torch.stack(toks, 1)
+    slides = torch.stack(slides, 1)
+    return (slides if half is not None else slides[:, :, None]), torch.stack(toks, 1)
 
 
 VIEW_STREAM = 0x56494557   # keys the half-bag split apart from the dropout and GOT draws
@@ -211,7 +214,9 @@ def forward_train(model: MADELEINE, feats: torch.Tensor, *,
     seed: the step's dropout seed. n_views=3 (the intra-modality loss) adds
     two half-bag views of every row: one split per step (`half_split`, or
     the given half_mask [t] bool), shared by every row and modality and
-    handed to both routes (JAX madeleine.py:185-192, abmil.py:338-357).
+    handed to both routes (JAX madeleine.py:185-192, abmil.py:338-357). The
+    eval forward takes the same split (seed 0 by default, as JAX's eval
+    draws from PRNGKey(0), madeleine.py:149) and pools the views in K3.
     cfg.modality_scan runs one encoder call per modality (the canonical
     route, [bs, t, d] each, global rows m*BS + i); otherwise one joint call
     over [bs*n_mod, t, d] (rows i*n_mod + m). Under data parallelism feats
@@ -232,15 +237,13 @@ def forward_train(model: MADELEINE, feats: torch.Tensor, *,
     cfg = model.cfg
     if n_views not in (1, 3):
         raise ValueError(f"n_views must be 1 or 3, got {n_views}")
-    if not train:
-        if n_views != 1:
-            raise ValueError("the eval forward pools whole bags only (n_views=1)")
-        return _forward_eval(model, feats, mask)
     bs, n_mod, t, d = feats.shape
-    global_bs = bs if global_bs is None else global_bs
     if n_views == 3 and half_mask is None:
         half_mask = half_split(seed, t, feats.device)
     half = None if n_views == 1 else half_mask.reshape(t).to(feats.device, torch.bool)
+    if not train:
+        return _forward_eval(model, feats, mask, half)
+    global_bs = bs if global_bs is None else global_bs
     dt = feats.dtype
     se = cfg.add_stain_encoding
     w = train_weights(model, dt)

@@ -250,7 +250,8 @@ def resize_uint8(tiles: torch.Tensor, size: int) -> torch.Tensor:
 
 class TorchViTEncoder:
     """Tile-encoder protocol (JAX: JaxViTEncoder): uint8 tiles [n, s, s, 3]
-    -> features [n, dim] float32. The tiles go to `device` (default CUDA),
+    (numpy, or a tensor) -> features [n, dim] float32 (numpy, or a tensor
+    on the device). The tiles go to `device` (default CUDA),
     are resized there to the tower's image size, CLIP-normalised and
     encoded in `dtype` (default float32)."""
 
@@ -273,7 +274,13 @@ class TorchViTEncoder:
         return x.to(self.dtype)
 
     @torch.no_grad()
-    def __call__(self, tiles: np.ndarray) -> np.ndarray:
-        x = torch.from_numpy(np.ascontiguousarray(tiles, np.uint8)).to(self.device)
-        out = self.model(self.preprocess(x), project=self.project)
-        return out.float().cpu().numpy()
+    def encode(self, tiles: torch.Tensor) -> torch.Tensor:
+        """uint8 tiles [n, s, s, 3] -> float32 features [n, dim] on the device."""
+        return self.model(self.preprocess(tiles.to(self.device)), project=self.project).float()
+
+    def __call__(self, tiles):
+        """numpy tiles -> numpy features; a tensor (the tile embedder's, on
+        the device already) -> a float32 tensor on the device."""
+        if isinstance(tiles, torch.Tensor):
+            return self.encode(tiles)
+        return self.encode(torch.from_numpy(np.ascontiguousarray(tiles, np.uint8))).cpu().numpy()

@@ -86,6 +86,7 @@ from madeleine_torch.ops import losses as L
 from madeleine_torch.ops.rank import smooth_rank_measure
 from madeleine_torch.parallel import collectives
 from madeleine_torch.parallel.multihost import allgather_rows
+from madeleine_torch.setup import setup_losses
 from madeleine_torch.train.optim import GatedAdamW
 
 WHOLE_VIEW_POSITION = 0  # ref: trainer.py:16
@@ -142,10 +143,8 @@ def compute_losses(cfg: MadeleineConfig, slide_embs: torch.Tensor, token_embs: t
     InfoNCE, the intra loss (InfoNCE, or the MSE modes' mean over the global
     batch) and the counts read the global batch; GOT runs on this rank's
     tokens (`got_loss_multi(..., group=)`)."""
-    use_intra = cfg.intra_modality_loss == "info-nce"
-    intra = (L.make_intra_loss(cfg.intra_modality_mode_wsi, cfg.temperature) if use_intra
-             else None)
-    use_got = cfg.local_loss == "got"
+    info_nce, got_multi, intra = setup_losses(cfg)
+    use_intra, use_got = intra is not None, got_multi is not None
     n_mod = slide_embs.shape[1]
     dev = slide_embs.device
 
@@ -187,8 +186,8 @@ def compute_losses(cfg: MadeleineConfig, slide_embs: torch.Tensor, token_embs: t
                                          sub, gumbel[s, 0]))
             qs.append(L.masked_subsample(token_embs[:, stain_idx], token_mask[:, stain_idx],
                                          sub, gumbel[s, 1]))
-        got_per_stain = L.got_loss_multi(torch.stack(vs), torch.stack(qs),
-                                         sample_mask=torch.stack(stain_labels), group=group)
+        got_per_stain = got_multi(torch.stack(vs), torch.stack(qs),
+                                  sample_mask=torch.stack(stain_labels), group=group)
     elif use_got:
         t = token_embs.shape[2]
         sub = min(cfg.got_subsample, t)
@@ -202,18 +201,17 @@ def compute_losses(cfg: MadeleineConfig, slide_embs: torch.Tensor, token_embs: t
             idx = got_indices[s].to(token_embs.device)
             vs.append(token_embs[:, HE_POSITION, idx])        # shared index set per pair
             qs.append(token_embs[:, stain_idx, idx])
-        got_per_stain = L.got_loss_multi(torch.stack(vs), torch.stack(qs),
-                                         sample_mask=torch.stack(stain_labels), group=group)
+        got_per_stain = got_multi(torch.stack(vs), torch.stack(qs),
+                                  sample_mask=torch.stack(stain_labels), group=group)
 
     for s, stain_idx in enumerate(range(1, n_mod)):
         labels = global_labels[s]
         cnt = labels.sum()
         flag = cnt > 1                                    # ref trainer.py:26 (>= 2 for CL)
         stain_total = torch.zeros((), dtype=torch.float32, device=dev)
-        if cfg.global_loss == "info-nce":
-            stain_total = stain_total + L.info_nce(
-                he, slide_g[:, stain_idx, WHOLE_VIEW_POSITION], temperature=cfg.temperature,
-                symmetric=cfg.symmetric_cl, mask=labels)
+        if info_nce is not None:
+            stain_total = stain_total + info_nce(
+                he, slide_g[:, stain_idx, WHOLE_VIEW_POSITION], mask=labels)
         if use_got:
             stain_total = stain_total + cfg.local_loss_weight * got_per_stain[s]
         if use_intra:   # two half-bag views of the H&E and of the stain (ref: trainer.py:51-66)

@@ -1505,3 +1505,35 @@ def test_native_loader_waits_for_the_slot_copy(cuda_device, tmp_path):
     assert loader.timings[1]["guard_wait_ms"] < 50, loader.timings
     torch.cuda.synchronize()
     assert torch.equal(dev.cpu().view(torch.int16), want.view(torch.int16))
+
+
+def test_eval_views_launch_k3_for_each_view(cuda_device):
+    """forward_train(train=False, n_views=3): K3 pools the whole bag and both
+    half-bag views of every modality; the whole-bag view is n_views=1's."""
+    from madeleine_torch.models.madeleine import forward_train
+    from madeleine_torch.ops import attn_pool
+
+    model = _model(cuda_device)
+    feats = torch.randn(2, 5, 300, 512, generator=torch.Generator().manual_seed(2))
+    feats = feats.to(cuda_device, torch.bfloat16)
+    before = attn_pool.launches
+    views, _ = forward_train(model, feats, train=False, n_views=3)
+    assert attn_pool.launches - before == 15
+    one, _ = forward_train(model, feats, train=False)
+    assert torch.equal(views[:, :, :1], one)
+
+
+def test_trace_records_gpu_ranges(cuda_device, tmp_path):
+    """utils/profiling.py on the card: trace() takes CUDA activity, and
+    module_device_ms reads an annotate() range's GPU span from its export."""
+    from madeleine_torch.utils import profiling as P
+
+    x = torch.randn(2048, 2048, device=cuda_device)
+    with P.trace(str(tmp_path)):
+        for _ in range(3):
+            with P.annotate("port_matmul"):
+                x @ x
+        torch.cuda.synchronize()
+    ms = P.module_device_ms(str(tmp_path), "port_matmul")
+    assert ms is not None and ms > 0
+    assert P.module_device_ms(str(tmp_path), "no_such_range") is None
