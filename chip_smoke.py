@@ -207,7 +207,17 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            equalities, the last bag's K6 outputs and its K7 gradients
            (cotangents on that bag alone) against the plain versions of
            that bag; K7's ms on both routes, its recompute's own peak.
-           The save_acts gate's HBM guard, unmocked: ballast that leaves
+           Blocks of whole bags (A10): at [65, 16384] the call in forced
+           blocks of 22, 22 and 21 bags against the unblocked one (pooled,
+           m, s, tokens, logits and dx bit for bit; every weight gradient
+           at least as close as the unblocked call's to the per-bag float64
+           sum of the same kernel's gradients, and within 1e-2 relative
+           Frobenius of the unblocked call's, 1e-4 with f32 operands; bc
+           1e-4), then [65, 32768] (a
+           bag past 16384 tokens) in the blocks encoder_blocks gives it: the
+           last bag's K6 outputs and K7 gradients against the plain
+           versions of that bag alone; K6's and K7's ms in blocks, K7's own
+           peak. The save_acts gate's HBM guard, unmocked: ballast that leaves
            the free plus reserved-but-unallocated bytes under a [8, 2048]
            call's threshold sends the gate and the call to the recompute
            route; the ballast freed but still reserved sends them back to
@@ -224,7 +234,9 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            equal) and the recompute route (bit for bit the save route, and
            against the plain recompute). Timed (K6, K7 on both routes, the
            plain versions) beside the FP32 FMA bound; the weight gradients'
-           piece lengths, the library's against the Python mirror's
+           piece lengths, the library's against the Python mirror's; the
+           two block checks of train_kernels at [65, 8192] (forced blocks)
+           and [65, 16384] (the rule's blocks) at f32's bars
   got_kernels
            K8 (ipot_fwd), K9 (ipot_bwd) and K10 (gw_gamma), f32, on costs
            built as the GOT path builds them (random d=128 tokens ->
@@ -315,7 +327,13 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            trained weights against the same step with K6/K7's plain versions
            on the card: the loss within 1e-5 relative, every gradient within
            1e-4 relative Frobenius (bc 1e-4 absolutely); step ms, host ms a
-           step, peak, the weights' digest, the plain step's ms
+           step, peak, the weights' digest, the plain step's ms. Then full
+           bags in f32: a ragged batch at bucket 16384 (lengths in [1024,
+           16384]), 2 steps with every K6/K7 call in blocks of whole bags
+           (none skipped, one back to back), and a batch of lengths up to
+           8192 padded to 16384 (in blocks) against its own step (one
+           block): the loss within 1e-5 relative, every gradient 1e-4
+           relative Frobenius, bc 1e-4
   train_perop_f32
            the per-op lane at --precision float32: 5 published f32 steps
            (InfoNCE + GOT, 65 x 5 x 2048) with --activation sigmoid, then 3
@@ -330,13 +348,17 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            --n_subsamples -1): (a) bag lengths log-uniform in [1024, 16384],
            bucket 16384, where every K6/K7 call must take the recompute
            route (15.3 GB of saves a call, past the 10 GiB budget); (b) in
-           [1024, 8192], bucket 8192, the save route; three IHC bags empty
-           in each; 5 steps each (loss falls, none skipped, K6-K14 every
-           step, the route from the counters, one step under sync debug
-           "error", 3 back to back), peak and reserved GB, one profiled
-           step's idle share; then batch (b) padded to 16384, one step from
-           the same weights and seed on the recompute route against the
-           unpadded save-route step (losses 1e-4, gradients 1e-2)
+           [1024, 8192], bucket 8192, the save route; (c) in [1024, 32768],
+           bucket 32768, every K6/K7 call on the recompute route in blocks
+           of whole bags; three IHC bags empty in each; 5 steps each for (a)
+           and (b), 2 for (c) (loss falls in (a) and (b), none skipped,
+           K6-K14 every step, the route and the blocks from the counters,
+           one step under sync debug "error", 3 back to back), peak and
+           reserved GB, one profiled step's idle share for (a) and (b);
+           then batch (a) padded to 32768 (in blocks) and batch (b) padded
+           to 16384 (the recompute route), one step each from the same
+           weights and seed against the unpadded step (losses 1e-4,
+           gradients 1e-2)
   train_ragged_nofused
            the softmax per-op lane (MADELEINE_NO_FUSED_ENCODER) on a ragged
            [65, 5, 4096] batch, 3 steps: finite, none skipped, rows 4-5 and
@@ -377,7 +399,12 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            some stains absent: native loader A 1 epoch, B A resumed to 2, C
            2 straight (B's model.pt equal to C's bit for bit), and 1 epoch
            on the Python RaggedTrainLoader (--native_loader off); the host
-           ms per batch, H2D ms, pinned bytes, CLI step ms, busy share
+           ms per batch, H2D ms, pinned bytes, CLI step ms, busy share; then
+           the CLI's main with --batch_size 8 on 16 cases where one bag has
+           20000 tokens (bucket 32768), 2 steps and the downstream pass
+           with a 20000-token slide (K1 at the inference loader's bucket
+           32768): nothing truncated, the ring's pinned bytes and the
+           host's memory
   pretrain_f32
            the pretrain CLI at --precision float32 with its default full bags
            on pretrain_ragged's cohort (bucket 8192: every K6/K7 call on the
@@ -406,8 +433,9 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            their device idle share; each read from a second
            profiled window after a warm-up window (a first window can lose
            its kernels), the K6/K7 single windows reported beside them
-Then the main path's launches of each kernel split into the published runs,
-the side lanes, the ragged runs and the f32 runs (train_f32, pretrain_f32), a
+Then the main path's launches of each kernel, and K6/K7's calls in blocks of
+whole bags and their blocks, split into the published runs, the side lanes,
+the ragged runs and the f32 runs (train_f32, pretrain_f32), a
 {"kernels": [...]} summary line (K6's and K7's rows, bf16 and f32, also with
 their save-off and recompute routes), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs CUDA and the repo checkout around it.
@@ -454,7 +482,8 @@ PHASES = ("device", "build", "kernels", "pool_kernels", "pool_train_kernels", "d
 MAIN_PATHS = ("serve", "extract", "downstream", "eval_forward", "slide", "train", "train_got",
               "train_se",
               "train_sigmoid", "train_nofused", "train_views", "train_views_nofused",
-              "train_f32", "train_perop_f32", "train_perop_f32_nofused", "train_ragged",
+              "train_f32", "train_f32_ragged", "train_perop_f32", "train_perop_f32_nofused",
+              "train_ragged",
               "train_ragged_nofused", "heads", "pretrain", "pretrain_ragged", "pretrain_f32",
               "data_parallel")
 # the main-path runs of the side lanes (a non-softmax activation, or softmax
@@ -464,7 +493,8 @@ SIDE_PATHS = ("train_sigmoid", "train_nofused", "train_views_nofused")
 RAGGED_PATHS = ("train_ragged", "train_ragged_nofused", "pretrain_ragged")
 # the f32 runs (--precision float32: K6/K7, or on the per-op lane rows 15-18,
 # with f32 operands), a lane of their own (the CLI's on full bags included)
-F32_PATHS = ("train_f32", "train_perop_f32", "train_perop_f32_nofused", "pretrain_f32")
+F32_PATHS = ("train_f32", "train_f32_ragged", "train_perop_f32", "train_perop_f32_nofused",
+             "pretrain_f32")
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -1719,6 +1749,156 @@ def _check_recompute_long(torch, w, lengths, rates, gen):
                 k6_nosave_bound_ms=k6b, k6_nosave_bound_by=k6by)
 
 
+BLOCKED_BAGS = 22   # _check_blocked's forced blocks: 22, 22 and 21 bags of 65
+WIDTHS = (512, 512, 4, 512, 512, 128)   # published: d_in, hidden, heads, e, f, d_out
+
+
+def _long_inputs(torch, w, t, lengths, seed, dtype):
+    """x [b, t, 512] in `dtype` on the card from `seed` and the logit bias of
+    prefix `lengths`."""
+    from madeleine_torch.ops import encoder_train as et
+
+    b = len(lengths)
+    mask = torch.arange(t)[None, :] < torch.as_tensor(lengths)[:, None]
+    tg = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(b, t, w["w1"].shape[1], generator=tg, device="cuda", dtype=dtype)
+    return x, et.token_mask_bias(mask.cuda(), b, t, "cuda"), tg
+
+
+def _check_blocked(torch, w, t, lengths, rates, gen):
+    """K6/K7 in forced blocks of whole bags (BLOCKED_BAGS: 22, 22 and 21)
+    against the unblocked call at [65, t] on the recompute route (the route
+    the save_acts gate gives both shapes checked: [65, 16384] bf16 and
+    [65, 8192] f32), at the real rates, with dx: pooled, m, s, tokens,
+    logits and dx bit for bit (each block's rows keep their global row, so
+    their dropout masks). The weight gradients (blocks add their f32 sums in
+    block order): each at least as close as the unblocked call's to the
+    same kernel's gradients summed per bag in float64 (65 one-bag calls,
+    short token sums), and within F32_GRAD_RTOL (1e-4) relative Frobenius
+    of the unblocked call's with f32 operands, GRAD_RTOL with bf16 ones,
+    whose tensor-core sums over a whole call's tokens lie about 3e-4 from
+    the per-bag float64 sum (PERF §2); bc within BC_ATOL (its exact gradient
+    is 0)."""
+    from madeleine_torch.ops import encoder_train as et
+
+    b = len(lengths)
+    f32 = w["w1"].dtype == torch.float32
+    x, bias, tg = _long_inputs(torch, w, t, lengths, SEED + 31, w["w1"].dtype)
+    one, blocks = [(0, b)], [(b0, min(b0 + BLOCKED_BAGS, b)) for b0 in range(0, b, BLOCKED_BAGS)]
+    fa = (x, bias, w, 1234, 0, *rates, None, False)
+    got1 = et.encoder_train_fwd_blocks(*fa, one)
+    gotb = et.encoder_train_fwd_blocks(*fa, blocks)
+    unequal = [n for n, p, q in zip(("pooled", "m", "s", "tok", "l"), got1, gotb)
+               if not torch.equal(p, q)]
+    if unequal:
+        raise AssertionError(f"encoder_train_fwd blocked [{b}, {t}]: differs in {unequal}")
+    del gotb
+    pooled32, m, s, _, l, _ = got1
+    nh, _, e = w["wa"].shape
+    g = torch.from_numpy(gen.standard_normal((b, nh * e)).astype(np.float32)).cuda()
+    dtok = torch.randn(b, t, w["wt"].shape[0], generator=tg, device="cuda", dtype=x.dtype)
+    inner = (g * pooled32).reshape(b, nh, e).sum(-1)
+    ba = (x, l, m, s, g, inner, dtok, None, w, 1234, 0, *rates, True, None)
+    g1 = et.encoder_train_bwd_blocks(*ba, one)
+    gb = et.encoder_train_bwd_blocks(*ba, blocks)
+    if not torch.equal(g1.pop("x"), gb.pop("x")):
+        raise AssertionError(f"encoder_train_bwd blocked [{b}, {t}]: dx differs")
+    # the same kernel's gradients summed per bag (one-bag calls, short token
+    # sums) in float64: how far each order lies from a near-exact sum
+    ref = {}
+    for i in range(b):
+        gi = et.encoder_train_bwd_cuda(*(v[i:i + 1] for v in ba[:7]), None, w, 1234, i,
+                                       *rates)
+        for k in et.W_KEYS:
+            ref[k] = gi[k].double() + ref[k] if k in ref else gi[k].double()
+        del gi
+    vs_ref = {k: {"unblocked": _rel_fro(g1[k].double(), ref[k]),
+                  "blocked": _rel_fro(gb[k].double(), ref[k])} for k in et.W_KEYS if k != "bc"}
+    worse = {k: v for k, v in vs_ref.items() if not v["blocked"] <= v["unblocked"]}
+    if worse:
+        raise AssertionError(f"encoder_train_bwd blocked [{b}, {t}]: farther than the unblocked "
+                             f"call from the per-bag float64 sum in {worse}")
+    errs = _grad_errs(torch, gb, g1, et.W_KEYS, f"encoder_train_bwd blocked [{b}, {t}]",
+                      F32_GRAD_RTOL if f32 else GRAD_RTOL)
+    return {"b": b, "t": t, "dtype": "float32" if f32 else "bfloat16", "blocks": blocks,
+            "fwd_and_dx_bitwise_equal": True,
+            "grad_max_rel_fro": max(v for k, v in errs.items() if k != "bc"),
+            "bc_abs": errs["bc"], "grad_rel_fro": errs, "vs_per_bag_f64": vs_ref}
+
+
+def _check_grown(torch, w, t, lengths, rates, gen, peak_flops):
+    """One call at [65, t] past what one block holds ([65, 32768] bf16,
+    [65, 16384] f32) in the blocks `encoder_blocks` gives it on the
+    recompute route, with the card's memory left: K6's outputs for the last
+    bag (the longest, at the highest rows) against the plain version on that
+    bag alone at its global row; K7 with cotangents on the last bag only
+    (every other term exactly 0) against the plain backward of that bag
+    alone (bf16: pooled POOLED_ATOL, tokens and valid logits OUT_ATOL,
+    gradients GRAD_RTOL; f32: outputs rtol F32_RTOL / atol F32_ATOL,
+    gradients F32_GRAD_RTOL; bc BC_ATOL). K6's and K7's ms in blocks, the
+    backward's own peak (GB above its inputs) and the bounds of the call."""
+    from madeleine_torch.ops import encoder_train as et
+
+    b = len(lengths)
+    dt = w["w1"].dtype
+    f32 = dt == torch.float32
+    x, bias, tg = _long_inputs(torch, w, t, lengths, SEED + 32, dt)
+    torch.cuda.synchronize()
+    blocks = et.encoder_blocks(b, t, WIDTHS, dt, True, et._device_hbm_limit())
+    if len(blocks) < 2:
+        raise AssertionError(f"encoder_blocks [{b}, {t}] {dt}: one block {blocks}")
+    fa = (x, bias, w, 1234, 0, *rates, None, False, blocks)
+    got = et.encoder_train_fwd_blocks(*fa)
+    last = b - 1
+    with torch.no_grad():
+        want = et.encoder_train_fwd_plain(x[last:], bias[last:], w, 1234, last, *rates,
+                                          save=False)
+    valid = bias[last:] == 0
+    pairs = {"pooled": (got[0][last:], want[0]), "tok": (got[3][last:].float(), want[3].float()),
+             "logits": (got[4][last:][valid], want[4][valid])}
+    rep = {f"{k}_err_last_bag": (p - q).abs().max().item() for k, (p, q) in pairs.items()}
+    if f32:
+        bad = {k: v for k, v in ((k, _f32_excess(torch, p, q)) for k, (p, q) in pairs.items())
+               if not v <= 0}
+    else:
+        bad = {k: rep[f"{k}_err_last_bag"] for k, bar in (("pooled", POOLED_ATOL),
+                                                          ("tok", OUT_ATOL),
+                                                          ("logits", OUT_ATOL))
+               if not rep[f"{k}_err_last_bag"] <= bar}
+    if bad:
+        raise AssertionError(f"encoder_train_fwd blocked [{b}, {t}] {dt}: last bag {bad}")
+    del want
+    pooled32, m, s, _, l, _ = got
+    nh, _, e = w["wa"].shape
+    g = torch.zeros_like(pooled32)
+    g[last] = torch.from_numpy(gen.standard_normal(nh * e).astype(np.float32)).cuda()
+    dtok = torch.zeros(b, t, w["wt"].shape[0], dtype=dt, device="cuda")
+    dtok[last] = torch.randn(t, w["wt"].shape[0], generator=tg, device="cuda", dtype=dt)
+    inner = (g * pooled32).reshape(b, nh, e).sum(-1)
+    ba = (x, l, m, s, g, inner, dtok, None, w, 1234, 0, *rates, False, None, blocks)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gk = et.encoder_train_bwd_blocks(*ba)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    with torch.no_grad():
+        gp = et.encoder_train_bwd_plain(x[last:], l[last:], m[last:], s[last:], g[last:],
+                                        inner[last:], dtok[last:], None, w, 1234, last, *rates)
+    errs = _grad_errs(torch, gk, gp, et.W_KEYS, f"encoder_train_bwd blocked [{b}, {t}] {dt}",
+                      F32_GRAD_RTOL if f32 else GRAD_RTOL)
+    del gk, gp
+    k6 = cuda_ms(lambda: et.encoder_train_fwd_blocks(*fa), warmup=1, iters=3)
+    k7 = cuda_ms(lambda: et.encoder_train_bwd_blocks(*ba), warmup=1, iters=3)
+    ff, fb, bf, bb_ = _encoder_train_work(b, t, w, recompute=True)
+    (k6b, k6by), (k7b, k7by) = _bound(ff, fb, peak_flops), _bound(bf, bb_, peak_flops)
+    return dict(rep, b=b, t=t, dtype="float32" if f32 else "bfloat16", rows=b * t,
+                valid_tokens=int(sum(lengths)), blocks=blocks, n_blocks=len(blocks),
+                grad_max_rel_fro_last_bag=max(v for k, v in errs.items() if k != "bc"),
+                bc_abs_last_bag=errs["bc"], k6_ms=k6, k7_ms=k7, k7_own_peak_gb=peak,
+                k6_bound_ms=k6b, k6_bound_by=k6by, k7_bound_ms=k7b, k7_bound_by=k7by)
+
+
 GUARD_SHAPE = (8, 2048)        # the HBM guard's call: saves of 235 MB
 GUARD_BELOW = 256 * 1024 ** 2  # the ballast leaves the guard this far under its threshold
 GUARD_SLACK = 64 * 1024 ** 2   # a limit's drift from the ballast arithmetic (block rounding)
@@ -2030,10 +2210,10 @@ def phase_train_kernels(state):
         k6_b2b = cuda_ms_back_to_back(lambda: et.encoder_train_fwd_cuda(*fa, vb=vb), calls=20)
         k7_b2b = cuda_ms_back_to_back(lambda: et.encoder_train_bwd_cuda(*ba, need_dx=dx, vb=vb),
                                       calls=20)
-        with torch.no_grad():
-            k6p = cuda_ms(lambda: et.encoder_train_fwd_plain(*fa, vb=vb), warmup=1, iters=5)
+        with torch.no_grad():   # the plain versions (about 0.5 s a call): two timed calls
+            k6p = cuda_ms(lambda: et.encoder_train_fwd_plain(*fa, vb=vb), warmup=1, iters=2)
             k7p = cuda_ms(lambda: et.encoder_train_bwd_plain(*ba, need_dx=dx, vb=vb), warmup=1,
-                          iters=5)
+                          iters=2)
         ff, fb, bf, bb_ = _encoder_train_work(bb, tt, fa[2], need_dx=dx, n_views=nv)
         (k6b, k6by), (k7b, k7by) = _bound(ff, fb), _bound(bf, bb_)
         times[shape_name] = {"b": bb, "t": tt, "d_in": d_in, "need_dx": dx, "n_views": nv,
@@ -2051,6 +2231,16 @@ def phase_train_kernels(state):
     lengths_l = np.exp(gen.uniform(np.log(1024), np.log(16384), 65)).astype(np.int64)
     lengths_l[-1] = 16384 - 5            # the last bag, past 2**31 elements of K6's scratch
     recompute["bucket_16384"] = _check_recompute_long(torch, w, lengths_l.tolist(), real, gen)
+    torch.cuda.empty_cache()
+    # blocks of whole bags (A10): forced blocks against the unblocked call at
+    # [65, 16384], then [65, 32768] in the rule's blocks, its last bag alone
+    blocked = {"bucket_16384": _check_blocked(torch, w, 16384, lengths_l.tolist(), real, gen)}
+    torch.cuda.empty_cache()
+    lengths_g = np.exp(gen.uniform(np.log(1024), np.log(32768), 65)).astype(np.int64)
+    lengths_g[-1] = 32768 - 5            # the last bag, the longest, at the highest rows
+    blocked["bucket_32768"] = _check_grown(torch, w, 32768, lengths_g.tolist(), real, gen,
+                                           PEAK_BF16)
+    emit({"phase": "train_kernels", "blocked": blocked})
     torch.cuda.empty_cache()
     hbm_guard = _check_hbm_guard(torch, w, gen)
     for name in products:
@@ -2097,10 +2287,19 @@ def phase_train_kernels(state):
             "recompute_bound_ms_16384": long_["k7_recompute_bound_ms"],
             "recompute_own_peak_gb_16384": long_["k7_recompute_own_peak_gb"]},
     })
+    grown = blocked["bucket_32768"]
+    for kernel, k in (("encoder_train_fwd", "k6"), ("encoder_train_bwd", "k7")):
+        # the recompute route in the rule's blocks at [65, 32768]
+        state["kernels"][kernel].update({"blocked_ms_32768": grown[f"{k}_ms"],
+                                         "blocked_bound_ms_32768": grown[f"{k}_bound_ms"],
+                                         "blocks_32768": grown["n_blocks"]})
+    state["kernels"]["encoder_train_bwd"]["blocked_own_peak_gb_32768"] = grown["k7_own_peak_gb"]
     emit({"phase": "train_kernels", "b": b, "t": t, "lengths": lengths, "partial_tile_t": t2,
           "partial_tile_bag0_valid_from": tail_from, "pooled_atol": POOLED_ATOL,
           "atol_tok_logits": OUT_ATOL, "grad_rtol_fro": GRAD_RTOL, "bc_atol": BC_ATOL,
-          "checks": checks, "times": times, "recompute": recompute, "hbm_guard": hbm_guard,
+          "blocked_grad_rtol_fro": F32_GRAD_RTOL,
+          "checks": checks, "times": times, "recompute": recompute, "blocked": blocked,
+          "hbm_guard": hbm_guard,
           "recompute_bound_ms_step_call": k7rb, "nosave_bound_ms_step_call": k6nb})
 
 
@@ -2191,6 +2390,18 @@ def phase_train_kernels_f32(state):
                                                      need_dx=True, timed=False)
     del x, bias
     torch.cuda.empty_cache()
+    # blocks of whole bags (A10): forced blocks against the unblocked call at
+    # [65, 8192], then [65, 16384] in the rule's blocks, its last bag alone
+    blocked = {}
+    for tb, name in ((8192, "bucket_8192"), (16384, "bucket_16384")):
+        lengths_b = np.exp(gen.uniform(np.log(1024), np.log(tb), b)).astype(np.int64)
+        lengths_b[-1] = tb - 5            # the last bag, the longest, at the highest rows
+        blocked[name] = (_check_blocked(torch, w, tb, lengths_b.tolist(), real, gen)
+                         if tb == 8192 else
+                         _check_grown(torch, w, tb, lengths_b.tolist(), real, gen, PEAK_FP32))
+        torch.cuda.empty_cache()
+    emit({"phase": "train_kernels_f32", "blocked": blocked})
+    grown = blocked["bucket_16384"]
     st = checks["step_call"]
     ff, fb, bf, bb_ = _encoder_train_work(b, t, w)
     (k6b, k6by), (k7b, k7by) = _bound(ff, fb, PEAK_FP32), _bound(bf, bb_, PEAK_FP32)
@@ -2227,9 +2438,17 @@ def phase_train_kernels_f32(state):
             ms=st["k7_save_ms"], plain_ms=k7p, bound_ms=k7b, bound_by=k7by,
             recompute_ms=st["k7_recompute_ms"], recompute_bound_ms=k7rb,
             recompute_bound_by=k7rby)})
+    for kernel, k in (("encoder_train_fwd_f32", "k6"), ("encoder_train_bwd_f32", "k7")):
+        # the recompute route in the rule's blocks at [65, 16384]
+        state["kernels"][kernel].update({"blocked_ms_16384": grown[f"{k}_ms"],
+                                         "blocked_bound_ms_16384": grown[f"{k}_bound_ms"],
+                                         "blocks_16384": grown["n_blocks"]})
+    state["kernels"]["encoder_train_bwd_f32"]["blocked_own_peak_gb_16384"] = \
+        grown["k7_own_peak_gb"]
     emit({"phase": "train_kernels_f32", "smi": state["smi"], "shape": list(F32_STEP_SHAPE),
           "rtol": F32_RTOL, "atol": F32_ATOL, "grad_rtol_fro": F32_GRAD_RTOL, "bc_atol": BC_ATOL,
-          "ragged_lengths": lengths_r.tolist(), "checks": checks, "times": times,
+          "ragged_lengths": lengths_r.tolist(), "checks": checks, "blocked": blocked,
+          "times": times,
           "wgrad_pieces": chunks, "peak_tflops_fp32": PEAK_FP32 / 1e12})
 
 
@@ -4738,9 +4957,71 @@ def phase_train_f32(state):
         raise AssertionError(f"train_f32: the kernels' step misses the plain step: loss "
                              f"{vs_plain['loss_rel_err']}, gradients "
                              f"{vs_plain['grad_max_rel_fro']}, bc {vs_plain['bc_max_abs']}")
+    ragged = _train_f32_ragged(torch, state, cfg)
     state["train_f32"] = {"step_ms": run["step_ms_median_after_first"],
                           "host_ms": run["host_ms_per_step_back_to_back"],
-                          "peak_gb": run["peak_memory_gb"]}
+                          "peak_gb": run["peak_memory_gb"], "ragged": ragged}
+
+
+F32_RAGGED = (1024, 16384)   # train_f32's full bags: lengths, the longest the bucket
+F32_RAGGED_STEPS = 2         # timed steps (about 6 s each), then one back to back
+F32_PAD_LENGTHS = (1024, 8192)   # the padding check's lengths, padded to 16384
+
+
+def _train_f32_ragged(torch, state, cfg):
+    """Full bags at --precision float32: a ragged f32 batch of lengths
+    log-uniform in F32_RAGGED (bucket 16384, three IHC bags empty),
+    F32_RAGGED_STEPS steps (_run_train_steps: none skipped, K6/K7 f32 and
+    K8-K14 every step; the sync-debug step, one back to back), every K6/K7
+    call on the recompute route in blocks of whole bags, the peak under 80
+    GB; then a batch of lengths in F32_PAD_LENGTHS (bucket 8192, one block)
+    padded to 16384 (in blocks), one step from the same weights and seed
+    each: the loss within 1e-5 relative, every gradient within 1e-4
+    relative Frobenius, bc within BC_ATOL."""
+    from madeleine_torch.train.trainer import step_seed
+
+    lo, hi = F32_RAGGED
+    lengths = ragged_lengths(SEED + 40, cfg.batch_size, cfg.n_modalities, lo, hi)
+    setup = _train_setup(torch, cfg, ragged_batch(torch, lengths, SEED + 41,
+                                                  dtype=torch.float32))
+    run = _run_train_steps(torch, state, "train_f32_ragged",
+                           F32_KERNELS + GOT_KERNELS + GLUE_KERNELS, setup=setup,
+                           steps=F32_RAGGED_STEPS, b2b_steps=1, skips=False, falls=False)[3]
+    del setup
+    torch.cuda.empty_cache()
+    n_calls = F32_RAGGED_STEPS * cfg.n_modalities
+    blocked = {k: run["launches"][k] for k in BLOCK_COUNTERS}
+    routes = {"k6_nosave": run["launches"]["encoder_train_fwd_f32_nosave"],
+              "k7_recompute": run["launches"]["encoder_train_bwd_f32_recompute"]}
+    blocks = blocked["encoder_train_fwd_blocks"]   # a launch a block, every one recompute
+    if (routes != {"k6_nosave": blocks, "k7_recompute": blocks}
+            or blocked["encoder_train_fwd_blocked_calls"] != n_calls
+            or blocked["encoder_train_bwd_blocked_calls"] != n_calls
+            or run["peak_memory_gb"] >= 80.0):
+        raise AssertionError(f"train_f32 ragged: routes {routes}, blocked calls {blocked} of "
+                             f"{n_calls}, peak {run['peak_memory_gb']} GB")
+    lengths_p = ragged_lengths(SEED + 42, cfg.batch_size, cfg.n_modalities, *F32_PAD_LENGTHS)
+    _, model, step, batch = _train_setup(torch, cfg, ragged_batch(
+        torch, lengths_p, SEED + 43, dtype=torch.float32))
+    box = [batch]
+    del batch
+    pad, ok = _padding_check(torch, model, step, box, hi, step_seed(SEED, 3, 0),
+                             "encoder_train_bwd_f32_recompute", f32=True)
+    del model, step
+    torch.cuda.empty_cache()
+    out = dict(run, lengths_range=list(F32_RAGGED), valid_tokens=int(lengths.sum()),
+               empty_bags=int((lengths == 0).sum()), route_launches=routes,
+               blocked_launches=blocked,
+               blocks_per_call=blocked["encoder_train_fwd_blocks"] / n_calls,
+               padding_check=pad)
+    emit({"phase": "train_f32", "ragged": out})
+    if (not ok or pad["encoder_train_bwd_blocked_calls_unpadded"] != 0
+            or pad["encoder_train_bwd_blocked_calls_padded"] != cfg.n_modalities):
+        raise AssertionError(f"train_f32 ragged: the padded step misses the unpadded one: "
+                             f"{pad}")
+    return {"step_ms": run["step_ms_median_after_first"],
+            "host_ms": run["host_ms_per_step_back_to_back"],
+            "peak_gb": run["peak_memory_gb"], "blocks_per_call": out["blocks_per_call"]}
 
 
 PEROP_F32_NOFUSED_STEPS = 3   # train_perop_f32: the no-fused softmax steps
@@ -4844,7 +5125,11 @@ def phase_train_perop_f32(state):
                                 "nofused_step_ms": nofused["step_ms_median_after_first"]}
 
 
-RAGGED_CASES = {"a": (1024, 16384, "recompute"), "b": (1024, 8192, "save")}
+RAGGED_CASES = {"a": (1024, 16384, "recompute"), "b": (1024, 8192, "save"),
+                "c": (1024, 32768, "recompute")}
+RAGGED_BUCKETS_TOP = 16384   # past it (case c) every K6/K7 call runs in blocks of whole bags
+RAGGED_GROWN_STEPS = 2       # case c's timed steps (about 2 s each)
+RAGGED_PAD_TO = {"a": "c", "b": "a"}   # each padding check's batch, padded to that case's bucket
 RAGGED_EMPTY = 3          # empty (case, stain) bags per batch, label 0
 RAGGED_B2B_STEPS = 3
 RAGGED_PAD_LOSS_RTOL = 1e-4
@@ -4864,12 +5149,13 @@ def ragged_lengths(seed, bs, n_mod, lo, hi, n_empty=RAGGED_EMPTY):
     return lengths
 
 
-def ragged_batch(torch, lengths, seed, t=None, d=512, signal=TRAIN_SIGNAL):
-    """A ragged batch as the loaders make it: feats [bs, n_mod, t, d] bf16 on
-    the card (noise plus a per-case vector, made there from `seed`, zero
-    past each bag's length), the token mask on the host (numpy, as a
-    loader yields it: the step copies it from pinned memory), labels 0 for
-    the empty bags; t the bucket of the longest bag unless given."""
+def ragged_batch(torch, lengths, seed, t=None, d=512, signal=TRAIN_SIGNAL, dtype=None):
+    """A ragged batch as the loaders make it: feats [bs, n_mod, t, d] in
+    `dtype` (bf16 by default) on the card (noise plus a per-case vector,
+    made there from `seed`, zero past each bag's length), the token mask on
+    the host (numpy, as a loader yields it: the step copies it from pinned
+    memory), labels 0 for the empty bags; t the bucket of the longest bag
+    unless given."""
     from madeleine_torch.data.datasets import RAGGED_BUCKETS, bucket_of
 
     bs, n_mod = lengths.shape
@@ -4877,11 +5163,12 @@ def ragged_batch(torch, lengths, seed, t=None, d=512, signal=TRAIN_SIGNAL):
     mask = np.arange(t)[None, None, :] < lengths[..., None]
     g = torch.Generator(device="cuda").manual_seed(seed)
     case = torch.randn(bs, 1, d, generator=g, device="cuda")
-    feats = torch.empty(bs, n_mod, t, d, dtype=torch.bfloat16, device="cuda")
+    dtype = dtype or torch.bfloat16
+    feats = torch.empty(bs, n_mod, t, d, dtype=dtype, device="cuda")
     valid = torch.from_numpy(mask).cuda()
     for m in range(n_mod):
         x = torch.randn(bs, t, d, generator=g, device="cuda").add_(signal * case)
-        feats[:, m] = x.mul_(valid[:, m, :, None]).to(torch.bfloat16)
+        feats[:, m] = x.mul_(valid[:, m, :, None]).to(dtype)
         del x
     return {"feats": feats,
             "modality_labels": torch.from_numpy((lengths > 0).astype(np.float32)).cuda(),
@@ -4903,18 +5190,61 @@ def _profiled_step(torch, step, batch, seeds):
 
 
 def _grads_of_step(torch, model, step, batch, seed, params):
-    """(loss, {name: gradient clone}, K7's recompute launches) of one step
-    from the parameters `params` (copied in first)."""
+    """(loss, {name: gradient clone}, {counter: launches}) of one step from
+    the parameters `params` (copied in first)."""
     with torch.no_grad():
         for p, v in zip(model.parameters(), params):
             p.copy_(v)
-    before = read_counts()["encoder_train_bwd_recompute"]
+    before = read_counts()
     _, metrics = step(batch, seed)
     grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
     loss = float(metrics["loss"])
     if bool(metrics["skipped"]):
-        raise AssertionError("train_ragged padding check: a step was skipped")
-    return loss, grads, read_counts()["encoder_train_bwd_recompute"] - before
+        raise AssertionError("padding check: a step was skipped")
+    after = read_counts()
+    return loss, grads, {k: after[k] - before[k] for k in after}
+
+
+BLOCK_COUNTERS = ("encoder_train_fwd_blocked_calls", "encoder_train_fwd_blocks",
+                  "encoder_train_bwd_blocked_calls", "encoder_train_bwd_blocks")
+
+
+def _padding_check(torch, model, step, box, t_pad, seed, recompute_key, f32=False):
+    """One step from the model's weights on the ragged batch `box.pop()`
+    (the caller keeps no other reference: it is freed before the padded
+    step) and on the same batch padded to t_pad tokens, from the same
+    weights and seed: the losses within RAGGED_PAD_LOSS_RTOL relative
+    (F32_LOSS_RTOL with f32), every gradient within GRAD_RTOL relative
+    Frobenius (f32: F32_GRAD_RTOL, bc within BC_ATOL). Returns the errors
+    and each step's recompute (`recompute_key`) and blocked K6/K7 calls."""
+    batch = box.pop()
+    params = [p.detach().clone() for p in model.parameters()]
+    loss_u, g_u, l_u = _grads_of_step(torch, model, step, batch, seed, params)
+    t = batch["feats"].shape[2]
+    padded = dict(batch, feats=torch.nn.functional.pad(batch["feats"], (0, 0, 0, t_pad - t)),
+                  token_mask=np.pad(batch["token_mask"], ((0, 0), (0, 0), (0, t_pad - t))))
+    del batch
+    loss_p, g_p, l_p = _grads_of_step(torch, model, step, padded, seed, params)
+    del padded
+    errs, bc = {}, {}
+    for k in g_u:
+        if f32 and k.endswith("attention_c.bias"):
+            bc[k] = float((g_p[k] - g_u[k]).abs().max())
+        elif g_u[k].float().norm() > 0:
+            errs[k] = _rel_fro(g_p[k].float(), g_u[k].float())
+    pad = {"bucket_unpadded": int(t), "bucket_padded": t_pad, "loss_unpadded": loss_u,
+           "loss_padded": loss_p, "loss_rel_err": abs(loss_p - loss_u) / abs(loss_u),
+           "grad_max_rel_fro": max(errs.values()), "grad_rel_fro": errs,
+           "recompute_calls_unpadded": l_u[recompute_key],
+           "recompute_calls_padded": l_p[recompute_key],
+           **{f"{k}_unpadded": l_u[k] for k in BLOCK_COUNTERS},
+           **{f"{k}_padded": l_p[k] for k in BLOCK_COUNTERS}}
+    if f32:
+        pad["bc_max_abs"] = max(bc.values())
+    ok = (pad["loss_rel_err"] <= (F32_LOSS_RTOL if f32 else RAGGED_PAD_LOSS_RTOL)
+          and pad["grad_max_rel_fro"] <= (F32_GRAD_RTOL if f32 else GRAD_RTOL)
+          and (not f32 or pad["bc_max_abs"] <= BC_ATOL))
+    return pad, ok
 
 
 def phase_train_ragged(state):
@@ -4922,14 +5252,18 @@ def phase_train_ragged(state):
     full-bag batches: (a) lengths log-uniform in [1024, 16384], bucket 16384,
     where the save_acts gate must send every K6/K7 call to the recompute
     route (the saves of one call, 15.3 GB, pass the 10 GiB budget); (b) in
-    [1024, 8192], bucket 8192, the save route. Three IHC bags empty (label
-    0) in each. Each runs 5 steps (_run_train_steps: the loss falls, none
-    skipped, K6-K14 every step, a step under sync debug mode "error", 3
-    back to back), then one profiled step (idle share). Then the padding
-    check: batch (b) padded to 16384 and one step from the same weights and
-    seed on the recompute route, against the unpadded save-route step:
-    losses at 1e-4 relative, every parameter gradient at 1e-2 relative
-    Frobenius."""
+    [1024, 8192], bucket 8192, the save route; (c) in [1024, 32768], bucket
+    32768 (a bag past 16384 tokens grows it), the recompute route with every
+    K6/K7 call in blocks of whole bags (`encoder_blocks`). Three IHC bags
+    empty (label 0) in each; no call of (a) or (b) in blocks. (a) and (b)
+    run 5 steps (_run_train_steps: the loss falls, none skipped, K6-K14
+    every step, a step under sync debug mode "error", 3 back to back), then
+    one profiled step (idle share); (c) 2 steps (the loss need not fall),
+    the sync-debug step and 3 back to back. Then the padding checks, each
+    one step from the same weights and seed against the unpadded step:
+    batch (a) padded to 32768 (every call in blocks) and batch (b) padded
+    to 16384 (the recompute route): losses at 1e-4 relative, every
+    parameter gradient at 1e-2 relative Frobenius."""
     import torch
     from madeleine_torch.train.trainer import step_seed
 
@@ -4940,68 +5274,80 @@ def phase_train_ragged(state):
     # (b) runs on the cache (a) left: its peak reserved against its peak
     # allocated shows what a change of bucket costs the caching allocator
     for name, (lo, hi, route) in RAGGED_CASES.items():
+        grown = hi > RAGGED_BUCKETS_TOP
+        steps = RAGGED_GROWN_STEPS if grown else TRAIN_STEPS
         lengths = ragged_lengths(SEED + 20 + hi, cfg.batch_size, cfg.n_modalities, lo, hi)
+        if grown:
+            torch.cuda.empty_cache()
         setup = _train_setup(torch, cfg, ragged_batch(torch, lengths, SEED + 21))
         _, model, step, batch = setup
         run = _run_train_steps(torch, state, f"train_ragged_{name}", kernels, setup=setup,
-                               b2b_steps=RAGGED_B2B_STEPS, skips=False)[3]
+                               steps=steps, b2b_steps=RAGGED_B2B_STEPS, skips=False,
+                               falls=not grown)[3]
         del setup
-        n_calls = TRAIN_STEPS * cfg.n_modalities
+        n_calls = steps * cfg.n_modalities
         got = {"k6_nosave": run["launches"]["encoder_train_fwd_nosave"],
                "k7_recompute": run["launches"]["encoder_train_bwd_recompute"]}
-        want = n_calls if route == "recompute" else 0
+        blocked = {k: run["launches"][k] for k in BLOCK_COUNTERS}
+        calls = n_calls if grown else 0
+        if (blocked["encoder_train_fwd_blocked_calls"] != calls
+                or blocked["encoder_train_bwd_blocked_calls"] != calls
+                or run["peak_memory_gb"] >= 80.0):
+            raise AssertionError(f"train_ragged ({name}): blocked calls {blocked} of "
+                                 f"{n_calls}, wanted {calls}; peak {run['peak_memory_gb']} GB")
+        # a launch a block: a blocked call's route launches are its blocks
+        want = 0 if route != "recompute" else (
+            blocked["encoder_train_fwd_blocks"] if grown else n_calls)
         if got["k6_nosave"] != want or got["k7_recompute"] != want:
             raise AssertionError(f"train_ragged ({name}): route {got} of {n_calls} calls, "
                                  f"wanted {route}")
         for k, v in run["launches"].items():
             launches[k] = launches.get(k, 0) + v
-        busy, wall, rows = _profiled_step(torch, step, batch, iter((90, 91)))
         hd, nh = cfg.wsi_encoder_hidden_dim, cfg.n_heads
         saves = cfg.batch_size * batch["feats"].shape[2] * (
             2 * (2 * hd + nh * hd + 2 * nh * cfg.attention_hidden_dim) + 12)
         out[name] = dict(run, lengths_range=[lo, hi], bucket=int(batch["feats"].shape[2]),
                          valid_tokens=int(lengths.sum()), empty_bags=int((lengths == 0).sum()),
                          route=route, route_launches=got, saves_per_call_gb=saves / 1e9,
-                         profiled_step={"wall_ms": wall, "device_busy_ms": busy,
-                                        "device_idle_share": 1.0 - busy / wall,
-                                        "by_kernel_ms": [[k, c, ms] for k, c, ms in rows[:12]]})
+                         blocked_launches=blocked,
+                         blocks_per_call=(blocked["encoder_train_fwd_blocks"] / calls
+                                          if calls else 1))
+        if not grown:
+            busy, wall, rows = _profiled_step(torch, step, batch, iter((90, 91)))
+            out[name]["profiled_step"] = {"wall_ms": wall, "device_busy_ms": busy,
+                                          "device_idle_share": 1.0 - busy / wall,
+                                          "by_kernel_ms": [[k, c, ms] for k, c, ms in rows[:12]]}
         emit({"phase": "train_ragged", "case": name, **out[name]})
-        if name == "b":
+        if name in RAGGED_PAD_TO:
             # the padding check, from the trained weights and one seed
-            params = [p.detach().clone() for p in model.parameters()]
-            seed = step_seed(SEED, 1, 0)
-            loss_u, g_u, rc_u = _grads_of_step(torch, model, step, batch, seed, params)
-            t_pad = RAGGED_CASES["a"][1]
-            t = batch["feats"].shape[2]
-            padded = dict(batch, feats=torch.nn.functional.pad(batch["feats"],
-                                                               (0, 0, 0, t_pad - t)),
-                          token_mask=np.pad(batch["token_mask"], ((0, 0), (0, 0),
-                                                                  (0, t_pad - t))))
+            t_pad = RAGGED_CASES[RAGGED_PAD_TO[name]][1]
+            box = [batch]
             del batch
-            loss_p, g_p, rc_p = _grads_of_step(torch, model, step, padded, seed, params)
-            errs = {k: _rel_fro(g_p[k].float(), g_u[k].float()) for k in g_u
-                    if g_u[k].float().norm() > 0}
-            pad = {"loss_unpadded": loss_u, "loss_padded": loss_p,
-                   "loss_rel_err": abs(loss_p - loss_u) / abs(loss_u),
-                   "grad_max_rel_fro": max(errs.values()), "grad_rel_fro": errs,
-                   "recompute_calls_unpadded": rc_u, "recompute_calls_padded": rc_p}
-            emit({"phase": "train_ragged", "padding_check": pad})
-            if (rc_u != 0 or rc_p != cfg.n_modalities
-                    or not pad["loss_rel_err"] <= RAGGED_PAD_LOSS_RTOL
-                    or not pad["grad_max_rel_fro"] <= GRAD_RTOL):
-                raise AssertionError(f"train_ragged: the padded step misses the unpadded one "
-                                     f"({pad['loss_rel_err']}, {pad['grad_max_rel_fro']}; "
-                                     f"recompute calls {rc_u}, {rc_p})")
-            out["padding_check"] = pad
-            del padded
+            pad, ok = _padding_check(torch, model, step, box, t_pad, step_seed(SEED, 1, 0),
+                                     "encoder_train_bwd_recompute")
+            emit({"phase": "train_ragged", "case": name, "padding_check": pad})
+            grown_pad = t_pad > RAGGED_BUCKETS_TOP
+            if (not ok or pad["recompute_calls_unpadded"]
+                    != (cfg.n_modalities if route == "recompute" else 0)
+                    or pad["recompute_calls_padded"]
+                    != (pad["encoder_train_bwd_blocks_padded"] if grown_pad
+                        else cfg.n_modalities)
+                    or pad["encoder_train_bwd_blocked_calls_unpadded"] != 0
+                    or pad["encoder_train_bwd_blocked_calls_padded"]
+                    != (cfg.n_modalities if grown_pad else 0)):
+                raise AssertionError(f"train_ragged: the padded step ({name} to {t_pad}) "
+                                     f"misses the unpadded one: {pad}")
+            out[f"padding_check_{name}"] = pad
         else:
             del batch
         del model, step
+        torch.cuda.empty_cache()
     state["launches_train_ragged"] = launches
     state["train_ragged"] = {k: {"step_ms": v["step_ms_median_after_first"],
-                                 "peak_gb": v["peak_memory_gb"]}
+                                 "host_ms": v["host_ms_per_step_back_to_back"],
+                                 "peak_gb": v["peak_memory_gb"],
+                                 "blocks_per_call": v["blocks_per_call"]}
                              for k, v in out.items() if k in RAGGED_CASES}
-    torch.cuda.empty_cache()   # about 62 GB cached: the later phases' processes need it
 
 
 def phase_train_ragged_nofused(state):
@@ -5089,24 +5435,28 @@ PRETRAIN_STAINS = ["HE", "HER2", "PGR", "KI67", "ER"]
 PRETRAIN_SEED = 42     # the CLI's --seed default
 
 
-def _write_pretrain_cohort(root, gen, tokens=PRETRAIN_TOKENS, dtype="float32"):
+def _write_pretrain_cohort(root, gen, tokens=PRETRAIN_TOKENS, dtype="float32",
+                           cases=PRETRAIN_CASES, long_bag=None):
     """<root>/feats/case{i}_{stain}.bag (512-d bags of `tokens` lengths in
     `dtype`, the native loader's format, written by the port's writer: noise
     plus a per-case vector shared by the case's bags), <root>/ACROBAT.csv,
-    and <root>/downstream/patch_embeddings/*.npz. Returns (bags, bytes
-    written)."""
+    and <root>/downstream/patch_embeddings/*.npz, for `cases` cases; with
+    `long_bag`, case 0's H&E bag and the first downstream slide have that
+    many tokens. Returns (bags, bytes written)."""
     from madeleine_torch.native.bagio import write_bag_file
 
     stains = PRETRAIN_STAINS
     feats = os.path.join(root, "feats")
     os.makedirs(feats)
     rows, n_bags, n_bytes = [], 0, 0
-    for i in range(PRETRAIN_CASES):
+    for i in range(cases):
         case = gen.standard_normal(512, dtype=np.float32)
         labels = {s: int(s == "HE" or gen.random() < PRETRAIN_IHC_PRESENT) for s in stains}
         for s, present in labels.items():
             if present:
-                x = gen.standard_normal((int(gen.integers(*tokens)), 512), dtype=np.float32)
+                n = int(gen.integers(*tokens))
+                n = long_bag if long_bag and i == 0 and s == "HE" else n
+                x = gen.standard_normal((n, 512), dtype=np.float32)
                 x += TRAIN_SIGNAL * case
                 write_bag_file(os.path.join(feats, f"case{i:02d}_{s}.bag"), x, dtype=dtype)
                 n_bags = n_bags + 1
@@ -5117,9 +5467,10 @@ def _write_pretrain_cohort(root, gen, tokens=PRETRAIN_TOKENS, dtype="float32"):
     down = os.path.join(root, "downstream", "patch_embeddings")
     os.makedirs(down)
     for i in range(PRETRAIN_DOWNSTREAM):
+        n = int(gen.integers(300, 4000))
+        n = long_bag if long_bag and i == 0 else n
         np.savez(os.path.join(down, f"slide_{i:02d}.npz"),
-                 features=gen.standard_normal((int(gen.integers(300, 4000)), 512),
-                                              dtype=np.float32))
+                 features=gen.standard_normal((n, 512), dtype=np.float32))
     return n_bags, n_bytes
 
 
@@ -5637,7 +5988,9 @@ def phase_pretrain_ragged(state):
     x = torch.empty(65, 5, bucket, 512, dtype=torch.bfloat16).pin_memory()
     h2d_ms = cuda_ms(lambda: x.to("cuda", non_blocking=True), warmup=2, iters=10)
     del x
-    state["launches_pretrain_ragged"] = {k: sum(r["launches"].get(k, 0) for r in every)
+    grown = _pretrain_grown(torch)
+    state["launches_pretrain_ragged"] = {k: sum(r["launches"].get(k, 0)
+                                                for r in every + [grown["run"]])
                                          for k in read_counts()}
     native = _loader_line(list(runs.values()))
     emit({"phase": "pretrain_ragged", "cases": PRETRAIN_CASES, "bags": n_bags,
@@ -5649,7 +6002,59 @@ def phase_pretrain_ragged(state):
                                 h2d_ms_per_batch_bf16=h2d_ms,
                                 h2d_gb_per_batch_bf16=65 * 5 * bucket * 512 * 2 / 1e9),
           "python_loader": dict(_loader_line([run_py]), run=run_py, cli_wall_s=wall_py),
+          "grown_bucket": grown,
           "peak_memory_gb": max(r["peak_memory_gb"] for r in every)})
+
+
+GROWN_PRETRAIN = (16, 8, 20000)   # cases, --batch_size, the long bag's tokens (bucket 32768)
+
+
+def _host_memory_gb():
+    """MemTotal and MemAvailable of the host, GB (/proc/meminfo)."""
+    with open("/proc/meminfo") as f:
+        kb = {ln.split(":")[0]: int(ln.split()[1]) for ln in f if ln.split()}
+    return {k: kb[k] * 1024 / 1e9 for k in ("MemTotal", "MemAvailable") if k in kb}
+
+
+def _pretrain_grown(torch):
+    """The pretrain CLI's main in this process (full bags, the launch
+    script's flags but --batch_size 8) on a cohort of 16 cases of bf16 .bag
+    bags of RAGGED_PRETRAIN_TOKENS lengths where case 0's H&E bag has 20000
+    tokens (the loaders grow its batch's bucket to 32768), one epoch of two
+    steps, then the downstream pass over 16 slides, the first of 20000
+    tokens (K1 at the inference loader's bucket 32768): every step finite
+    and applied, K6-K14 every step, K1 downstream, nothing truncated, the
+    buckets include 32768; the native ring's pinned bytes (4 slots of 8 x 5
+    x 32768 tokens), what the same ring would pin at 65 cases a batch, and
+    the host's memory."""
+    from madeleine_torch.data.datasets import RAGGED_BUCKETS, bucket_of
+
+    cases, bs, n_long = GROWN_PRETRAIN
+    root = tempfile.mkdtemp(prefix="pretrain_grown_")
+    try:
+        t0 = time.perf_counter()
+        n_bags, n_bytes = _write_pretrain_cohort(root, np.random.default_rng(SEED + 10),
+                                                 tokens=RAGGED_PRETRAIN_TOKENS,
+                                                 dtype="bfloat16", cases=cases, long_bag=n_long)
+        write_s = time.perf_counter() - t0
+        results, records, wall = _run_pretrain_cli(
+            _pretrain_argv(root, os.path.join(root, "grown"), 1, "--batch_size", str(bs),
+                           "--checkpoint_every", "1", n_subsamples=None),
+            os.path.join(root, "pretrain_grown.log"), fresh=False)
+        run, _ = _check_pretrain_run("grown", results, records, range(1))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        _release_host_cache(torch)
+    bucket = bucket_of(n_long, RAGGED_BUCKETS)
+    if bucket not in run["buckets"] or any(run["truncation_count"]):
+        raise AssertionError(f"pretrain_ragged grown bucket: buckets {run['buckets']}, "
+                             f"truncations {run['truncation_count']}")
+    slot = len(PRETRAIN_STAINS) * bucket * 512 * 2
+    return {"cases": cases, "batch_size": bs, "bags": n_bags, "cohort_gb": n_bytes / 1e9,
+            "cohort_write_s": write_s, "long_bag_tokens": n_long, "bucket": bucket,
+            "run": run, "cli_wall_s": wall, "pinned_bytes": run["pinned_bytes"],
+            "pinned_bytes_reckoned": 4 * bs * slot,
+            "pinned_bytes_reckoned_65_cases": 4 * 65 * slot, "host_memory_gb": _host_memory_gb()}
 
 
 def phase_pretrain_f32(state):
@@ -6402,16 +6807,22 @@ def main() -> int:
         emit({"partial": phases})
         return 0
 
-    launches = {k: sum(state[f"launches_{p}"][k] for p in MAIN_PATHS) for k in state["kernels"]}
-    for k, n in launches.items():
-        if n < 1:
+    # the kernels' launches, and beside them K6/K7's calls in blocks of whole
+    # bags and their blocks (a counter a phase lacks counts 0)
+    counted = list(state["kernels"]) + list(BLOCK_COUNTERS)
+
+    def lane(paths, k):
+        return sum(state[f"launches_{p}"].get(k, 0) for p in paths)
+
+    launches = {k: lane(MAIN_PATHS, k) for k in counted}
+    for k in state["kernels"]:
+        if launches[k] < 1:
             raise AssertionError(f"{k} was not launched on the main path")
     # the same launches split: the side lanes (a sigmoid activation, the
     # no-fused softmax lane: their train phases and CLI epochs) and the rest
-    side = {k: sum(state[f"launches_{p}"][k] for p in SIDE_PATHS)
-            + state["launches_pretrain_side"][k] for k in state["kernels"]}
-    ragged = {k: sum(state[f"launches_{p}"][k] for p in RAGGED_PATHS) for k in state["kernels"]}
-    f32 = {k: sum(state[f"launches_{p}"][k] for p in F32_PATHS) for k in state["kernels"]}
+    side = {k: lane(SIDE_PATHS, k) + state["launches_pretrain_side"].get(k, 0) for k in counted}
+    ragged = {k: lane(RAGGED_PATHS, k) for k in counted}
+    f32 = {k: lane(F32_PATHS, k) for k in counted}
     emit({"launches_by_lane": {k: {"published": launches[k] - side[k] - ragged[k] - f32[k],
                                    "side_lanes": side[k], "ragged": ragged[k], "f32": f32[k]}
                                for k in launches}})
@@ -6423,6 +6834,11 @@ def main() -> int:
                                     "_recompute")):
         state["kernels"][kernel][route] = sum(state[f"launches_{p}"][kernel + counter]
                                               for p in MAIN_PATHS)
+    # K6's and K7's calls in blocks on the main path: the f32 rows' from the f32 lane
+    for kernel, counter in (("encoder_train_fwd", "encoder_train_fwd_blocked_calls"),
+                            ("encoder_train_bwd", "encoder_train_bwd_blocked_calls")):
+        state["kernels"][kernel]["blocked_calls"] = launches[counter] - f32[counter]
+        state["kernels"][kernel + "_f32"]["blocked_calls"] = f32[counter]
     emit({"kernels": [dict(v, launches=launches[k]) for k, v in state["kernels"].items()]})
     print(state["smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": state["kind"],

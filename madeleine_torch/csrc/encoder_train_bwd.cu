@@ -48,6 +48,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "encoder_rows.cuh"
@@ -194,6 +195,10 @@ template <typename T>
 int backward(void** p, const long long* dims, const float* scales, void* stream_) {
   constexpr Gemm G = sizeof(T) == 4 ? Gemm::FFMA : Gemm::WGMMA;
   const cudaStream_t st = static_cast<cudaStream_t>(stream_);
+  // rows and global bag indices are 32-bit below (every offset is 64-bit):
+  // a larger call runs in blocks of whole bags (ops/encoder_train.py)
+  if (dims[0] < 1 || dims[1] < 1 || dims[0] * dims[1] > INT_MAX || dims[9] + dims[0] > INT_MAX)
+    return (int)cudaErrorInvalidValue;
   const Shapes S = shapes_of(dims);
   const Dropout dpre{(uint32_t)dims[8], (uint32_t)dims[10], scales[0]};
   const Dropout dgate{(uint32_t)dims[8], (uint32_t)dims[11], scales[1]};

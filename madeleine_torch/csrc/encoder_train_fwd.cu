@@ -63,6 +63,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "encoder_rows.cuh"
@@ -181,6 +182,10 @@ template <typename T>
 int forward(void** p, const long long* dims, const float* scales, void* stream_) {
   constexpr bool F32 = sizeof(T) == 4;
   const cudaStream_t st = static_cast<cudaStream_t>(stream_);
+  // rows and global bag indices are 32-bit below (every offset is 64-bit):
+  // a larger call runs in blocks of whole bags (ops/encoder_train.py)
+  if (dims[0] < 1 || dims[1] < 1 || dims[0] * dims[1] > INT_MAX || dims[9] + dims[0] > INT_MAX)
+    return (int)cudaErrorInvalidValue;
   const int b = (int)dims[0], t = (int)dims[1], d_in = (int)dims[2], hd = (int)dims[3];
   const int nh = (int)dims[4], e = (int)dims[5], f = (int)dims[6], dout = (int)dims[7];
   const Dropout dpre{(uint32_t)dims[8], (uint32_t)dims[10], scales[0]};

@@ -52,12 +52,19 @@ between layers, exact tanh and sigmoid, every product on the FFMA tiles of
 csrc/gemm_ffma.cuh: the weight gradients' token sums in pieces summed in
 piece order (`ffma_wgrad_chunk`), the gate logits' 64-column partials each a
 fixed tree of 16 four-column sums.
+
+A call whose transient buffers would not fit runs in blocks of whole bags
+(`encoder_blocks`, chosen on the host before any launch): each block is one
+K6 / K7 call on x[b0:b1] at row offset row_offset + b0, so it draws the
+unblocked call's dropout masks; the forward's outputs and dx are the
+unblocked call's bit for bit, and the backward sums each block's f32 weight
+gradients in block order.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -78,6 +85,12 @@ fwd_f32_launches = 0   # K6 launches with f32 operands
 bwd_f32_launches = 0   # K7 launches with f32 operands
 fwd_f32_nosave_launches = 0    # of K6's f32 launches, those that kept no residuals
 bwd_f32_recompute_launches = 0   # of K7's f32 launches, those on the recompute route
+# calls of the op run in more than one block of whole bags (either dtype, any
+# device), and the blocks those calls had: the forward's and the backward's
+fwd_blocked_calls = 0
+fwd_blocks = 0
+bwd_blocked_calls = 0
+bwd_blocks = 0
 
 PRE_RATE = pa.RATE     # ref: Model.py:354,358,362 (read at call time)
 GATE_RATE = gl.RATE    # ref: abmil.py:34-35
@@ -93,6 +106,24 @@ SAVED = ("u1", "u2", "u3", "ap", "bp", "rstd")
 ACT_BUDGET_BYTES = int(os.environ.get("MADELEINE_ENCODER_ACT_BUDGET", str(10 * 1024 ** 3)))
 NO_SAVE_VAR = "MADELEINE_ENCODER_NO_SAVE_ACTS"   # any non-empty value: always recompute
 GUARD_MARGIN = 2 * 1024 ** 3
+# The transient bytes one K6 or K7 call (one block of whole bags) may take:
+# 48 GiB keeps every call of the published steps one block, the recompute
+# route's [65, 16384] in bf16 (47.3 GB reckoned by `_block_row_bytes`) and
+# [65, 8192] in f32 (41.7 GB) included; [65, 32768] in bf16 (94.7 GB) and
+# [65, 16384] in f32 (83.3 GB) run in two blocks.
+BLOCK_BUDGET_BYTES = 48 * 1024 ** 3
+# On the card a block's buffers must also fit the memory left less this
+# margin. The save gate keeps 2 GiB (GUARD_MARGIN) for what outlives its
+# call; a block's buffers die with it, so its margin covers the allocator's
+# rounding and the call's small buffers beside the reckoned ones.
+BLOCK_MARGIN = 1024 ** 3
+# The most rows (b t) one call of the kernels takes: K6 / K7 count rows in a
+# 32-bit int (csrc/encoder_train_fwd.cu, encoder_train_bwd.cu) and the TMA
+# maps of the bf16 products need extents below 2**31; the f32 products' tile
+# grid (csrc/gemm_ffma.cuh::launch) has at most 65535 row tiles of 128. Every
+# offset into a buffer of the call is 64-bit, so within these any block
+# the rule allows is addressed correctly.
+MAX_BLOCK_ROWS = {torch.bfloat16: 2 ** 31 - 1, torch.float32: 65535 * 128}
 
 # The f32 route's weight gradients (csrc/gemm_ffma.cuh::wgrad_chunk): the
 # token sum of an [Mo, No] gradient x batches split into pieces so that the
@@ -149,6 +180,51 @@ def ffma_wgrad_chunk(Mo: int, No: int, tokens: int, batches: int) -> int:
     tiles = cdiv(Mo, FFMA_TILE) * cdiv(No, FFMA_TILE) * batches
     s = max(1, min(cdiv(FFMA_SPLIT_BLOCKS, tiles), cdiv(tokens, FFMA_SPLIT_MIN)))
     return cdiv(cdiv(tokens, s), FFMA_STAGE) * FFMA_STAGE
+
+
+def _block_row_bytes(widths: Sequence[int], itemsize: int, recompute: bool,
+                     need_dx: bool = False, n_views: int = 1) -> int:
+    """Transient bytes per row (token) of the larger of one K6 and one K7
+    call, from the buffers their wrappers allocate; widths = (d_in, hidden,
+    nh, e, f, d_out), itemsize that of the compute dtype. K6: the f32
+    scratch Z, H1, H2, Y (bf16 only), the logit and pool partials, and the
+    block's outputs (tokens, logits; the saves on the save route) until
+    they are copied into the call's. K7: H1, H2, Y, DY, DL, DZG, DZ3, DH,
+    DZ12, the column partials, dx with need_dx, and the rebuilt saves on
+    the recompute route. The split-K partials do not grow with the rows."""
+    d_in, hd, nh, e, f, dout = widths
+    q, E, nhf = itemsize, nh * e, nh * f
+    saves = (2 * hd + E + 2 * nhf) * q + 3 * 4
+    k6 = (4 * max(hd, E) + 2 * hd * q + (E * q if q < 4 else 0) + nhf // 64 * 4
+          + n_views * (E + 2 * nh) * 4 // 64 + dout * q + nh * 4 + (0 if recompute else saves))
+    colpart = max(3 * nhf, 3 * E, 3 * hd, dout, nh) * 4 // 64
+    k7 = (2 * hd * q + E * q + 4 * E + 4 * nh + 2 * nhf * q + E * q + 4 * hd + hd * q
+          + colpart + (d_in * q if need_dx else 0) + (saves if recompute else 0))
+    return max(k6, k7)
+
+
+def encoder_blocks(b: int, t: int, widths: Sequence[int], dtype: torch.dtype, recompute: bool,
+                   limit: Optional[int] = None, need_dx: bool = False,
+                   n_views: int = 1) -> List[Tuple[int, int]]:
+    """The blocks of whole bags [(b0, b1), ...] that one call of the op runs
+    in: contiguous, covering [0, b), as few as keep each block's transient
+    bytes (`_block_row_bytes` times its rows) under BLOCK_BUDGET_BYTES and,
+    where the device has a limit (`_device_hbm_limit`), under that limit
+    less BLOCK_MARGIN, and its rows under MAX_BLOCK_ROWS; then of equal
+    size, the last one shorter when they do not divide b. Host arithmetic
+    on shapes and the allocator's counters: no sync. Raises MemoryError
+    when one bag alone does not fit."""
+    per_bag = t * _block_row_bytes(widths, torch.empty((), dtype=dtype).element_size(),
+                                   recompute, need_dx, n_views)
+    cap = BLOCK_BUDGET_BYTES if limit is None else min(BLOCK_BUDGET_BYTES, limit - BLOCK_MARGIN)
+    rows = MAX_BLOCK_ROWS.get(dtype, 2 ** 31 - 1)
+    bags = min(cap // per_bag, rows // t)
+    if bags < 1:
+        raise MemoryError(f"encoder_train: one bag of {t} tokens needs {per_bag} transient "
+                          f"bytes, past the {cap} a block may take (or past {rows} rows)")
+    n = -(-b // bags)
+    size = -(-b // n)
+    return [(b0, min(b0 + size, b)) for b0 in range(0, b, size)]
 
 
 def train_operands(w: Dict[str, torch.Tensor], dtype: torch.dtype) -> Dict[str, torch.Tensor]:
@@ -471,26 +547,105 @@ def encoder_train_bwd_cuda(x, l, m, s, g, inner, dtok, saved, w, seed: int,
 
 
 # ---------------------------------------------------------------------------
+# blocks of whole bags
+# ---------------------------------------------------------------------------
+
+def _piece(v: Optional[torch.Tensor], b0: int, b1: int) -> Optional[torch.Tensor]:
+    """Bags [b0, b1) of a per-bag tensor: a view, or a copy where the view
+    would not start on the 16 bytes the kernels read from."""
+    if v is None:
+        return None
+    p = v[b0:b1]
+    return p if p.data_ptr() % 16 == 0 else p.clone()
+
+
+def encoder_train_fwd_blocks(x, bias, w, seed: int, row_offset: int, pre_rate: float,
+                             gate_rate: float, vb: Optional[torch.Tensor], save: bool,
+                             blocks: Sequence[Tuple[int, int]]):
+    """The forward (K6 on a CUDA tensor, else its plain version) of one
+    call in `blocks` (contiguous, covering [0, b)): each block's outputs, at
+    row offset row_offset + b0, copied into the call's; returns as
+    `encoder_train_fwd_plain`. One block is one call of the wrapper."""
+    global fwd_blocked_calls, fwd_blocks
+    fwd = encoder_train_fwd_cuda if x.is_cuda else encoder_train_fwd_plain
+    if len(blocks) == 1:
+        return fwd(x, bias, w, seed, row_offset, pre_rate, gate_rate, vb=vb, save=save)
+    b = x.shape[0]
+    out = None
+    for b0, b1 in blocks:
+        part = fwd(_piece(x, b0, b1), _piece(bias, b0, b1), w, seed, row_offset + b0, pre_rate,
+                   gate_rate, vb=vb, save=save)
+        part = (*part[:5], part[5] or {})
+        if out is None:
+            out = [*(torch.empty((b, *v.shape[1:]), dtype=v.dtype, device=v.device)
+                     for v in part[:5]),
+                   {k: torch.empty((b, *v.shape[1:]), dtype=v.dtype, device=v.device)
+                    for k, v in part[5].items()}]
+        for whole, v in zip(out[:5], part[:5]):
+            whole[b0:b1].copy_(v)
+        for k, v in part[5].items():
+            out[5][k][b0:b1].copy_(v)
+        del part
+    fwd_blocked_calls += 1
+    fwd_blocks += len(blocks)
+    return (*out[:5], out[5] if save else None)
+
+
+@torch.no_grad()
+def encoder_train_bwd_blocks(x, l, m, s, g, inner, dtok, saved, w, seed: int, row_offset: int,
+                             pre_rate: float, gate_rate: float, need_dx: bool,
+                             vb: Optional[torch.Tensor], blocks: Sequence[Tuple[int, int]]
+                             ) -> Dict[str, torch.Tensor]:
+    """The backward (K7 on a CUDA tensor, else its plain version) of one
+    call in `blocks`: each block's gradients at row offset row_offset + b0,
+    the f32 weight gradients summed in block order (no atomics, no order
+    that depends on timing), dx copied into the call's; returns as
+    `encoder_train_bwd_plain`."""
+    global bwd_blocked_calls, bwd_blocks
+    bwd = encoder_train_bwd_cuda if x.is_cuda else encoder_train_bwd_plain
+    if len(blocks) == 1:
+        return bwd(x, l, m, s, g, inner, dtok, saved, w, seed, row_offset, pre_rate, gate_rate,
+                   need_dx=need_dx, vb=vb)
+    grads, dx = None, None
+    for b0, b1 in blocks:
+        part = bwd(*(_piece(v, b0, b1) for v in (x, l, m, s, g, inner, dtok)),
+                   None if saved is None else {k: _piece(v, b0, b1) for k, v in saved.items()},
+                   w, seed, row_offset + b0, pre_rate, gate_rate, need_dx=need_dx, vb=vb)
+        if need_dx:
+            if dx is None:
+                dx = torch.empty_like(x)
+            dx[b0:b1].copy_(part.pop("x"))
+        grads = part if grads is None else {k: grads[k] + part[k] for k in W_KEYS}
+        del part
+    bwd_blocked_calls += 1
+    bwd_blocks += len(blocks)
+    if need_dx:
+        grads["x"] = dx
+    return grads
+
+
+# ---------------------------------------------------------------------------
 # autograd
 # ---------------------------------------------------------------------------
 
 class EncoderTrain(torch.autograd.Function):
     """(x, bias, vb, seed, row_offset, pre_rate, gate_rate, need_dx, save,
-    *operands in W_KEYS order) -> (pooled [b, nh, e] in x.dtype ([b, 3, nh,
-    e] with a view bias vb), tok [b, t, d_out]). x gets a gradient only
-    with need_dx (the input carries a learned component: the stain-encoding
-    columns). With save False (the recompute route) the graph keeps only x,
-    the weights and the forward's small outputs (l, m, s, pooled; JAX's
-    `res`, encoder_train.py:641), and the backward rebuilds the residuals."""
+    blocks, *operands in W_KEYS order) -> (pooled [b, nh, e] in x.dtype ([b,
+    3, nh, e] with a view bias vb), tok [b, t, d_out]). x gets a gradient
+    only with need_dx (the input carries a learned component: the
+    stain-encoding columns). With save False (the recompute route) the
+    graph keeps only x, the weights and the forward's small outputs (l, m,
+    s, pooled; JAX's `res`, encoder_train.py:641), and the backward rebuilds
+    the residuals. Both directions run in `blocks` of whole bags."""
 
     @staticmethod
-    def forward(ctx, x, bias, vb, seed, row_offset, pre_rate, gate_rate, need_dx, save, *ws):
+    def forward(ctx, x, bias, vb, seed, row_offset, pre_rate, gate_rate, need_dx, save, blocks,
+                *ws):
         w = dict(zip(W_KEYS, ws))
-        fwd = encoder_train_fwd_cuda if x.is_cuda else encoder_train_fwd_plain
-        pooled32, m, s, tok, l, saved = fwd(x, bias, w, seed, row_offset, pre_rate, gate_rate,
-                                            vb=vb, save=save)
+        pooled32, m, s, tok, l, saved = encoder_train_fwd_blocks(
+            x, bias, w, seed, row_offset, pre_rate, gate_rate, vb, save, blocks)
         ctx.args = (seed, row_offset, pre_rate, gate_rate)
-        ctx.need_dx, ctx.save = need_dx, save
+        ctx.need_dx, ctx.save, ctx.blocks = need_dx, save, blocks
         kept = [saved[k] for k in SAVED] if save else []
         ctx.save_for_backward(x, l, m, s, pooled32, vb, *kept, *ws)
         nh, _, e = w["wa"].shape
@@ -512,9 +667,9 @@ class EncoderTrain(torch.autograd.Function):
         inner = (g * pooled32).reshape(*gshape[:-1], nh, e).sum(-1)   # encoder_train.py:657-659
         dtok = (torch.zeros(b, t, dout, dtype=x.dtype, device=x.device) if dtok is None
                 else dtok.to(x.dtype).contiguous())
-        bwd = encoder_train_bwd_cuda if x.is_cuda else encoder_train_bwd_plain
-        grads = bwd(x, l, m, s, g, inner, dtok, saved, w, *ctx.args, need_dx=ctx.need_dx, vb=vb)
-        return (grads.get("x"),) + (None,) * 8 + tuple(grads[k].to(w[k].dtype)
+        grads = encoder_train_bwd_blocks(x, l, m, s, g, inner, dtok, saved, w, *ctx.args,
+                                         ctx.need_dx, vb, ctx.blocks)
+        return (grads.get("x"),) + (None,) * 9 + tuple(grads[k].to(w[k].dtype)
                                                         for k in W_KEYS)
 
 
@@ -526,8 +681,8 @@ def token_mask_bias(mask, b: int, t: int, device) -> torch.Tensor:
 def encoder_train(x: torch.Tensor, mask, w: Dict[str, torch.Tensor], seed: int,
                   pre_rate: Optional[float] = None, gate_rate: Optional[float] = None,
                   row_offset: int = 0, need_dx: bool = False,
-                  half_mask: Optional[torch.Tensor] = None, save_acts: Optional[bool] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  half_mask: Optional[torch.Tensor] = None, save_acts: Optional[bool] = None,
+                  block_bags: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused training-mode encoder (ref semantics Model.py:110-146 +
     Model.py:350-417 + abmil.py:34-63). x [b, t, d_in] in the compute dtype,
     mask [b, t] bool or None, w: `train_operands` (the gradients flow back
@@ -536,18 +691,26 @@ def encoder_train(x: torch.Tensor, mask, w: Dict[str, torch.Tensor], seed: int,
     need_dx, madeleine.py:204). half_mask: [t] bool, the half-bag split
     shared by every row (n_views=3). save_acts: True the save route, False
     the recompute route, None `resolve_save_acts` by shape and memory (JAX's
-    static save_acts). Returns (pooled [b, nh, e], or [b, 3, nh, e] with
-    half_mask: the whole bag, half 1, half 2; tok [b, t, d_out]), both in
-    x.dtype."""
+    static save_acts). block_bags: the bags of each block the call runs
+    in; None takes `encoder_blocks` by shape and memory. Returns (pooled
+    [b, nh, e], or [b, 3, nh, e] with half_mask: the whole bag, half 1,
+    half 2; tok [b, t, d_out]), both in x.dtype."""
     b, t, d_in = x.shape
     pre_rate = PRE_RATE if pre_rate is None else pre_rate
     gate_rate = GATE_RATE if gate_rate is None else gate_rate
     nh, f, e = w["wa"].shape
-    save = resolve_save_acts(save_acts, b, t, w["w1"].shape[0], nh * e, 2 * nh * f,
+    hd = w["w1"].shape[0]
+    save = resolve_save_acts(save_acts, b, t, hd, nh * e, 2 * nh * f,
                              x.element_size(), x_bytes=x.numel() * x.element_size(),
                              device=x.device)
+    if block_bags is None:
+        blocks = encoder_blocks(b, t, (d_in, hd, nh, e, f, w["wt"].shape[0]), x.dtype,
+                                not save, _device_hbm_limit(x.device), need_dx,
+                                1 if half_mask is None else 3)
+    else:
+        blocks = [(b0, min(b0 + block_bags, b)) for b0 in range(0, b, block_bags)]
     bias = token_mask_bias(mask, b, t, x.device)
     vb = view_bias(half_mask, t, x.device)
     return EncoderTrain.apply(x.contiguous(), bias, vb, int(seed), int(row_offset),
                               float(pre_rate), float(gate_rate), bool(need_dx), save,
-                              *(w[k] for k in W_KEYS))
+                              tuple(blocks), *(w[k] for k in W_KEYS))

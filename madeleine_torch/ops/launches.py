@@ -2,7 +2,8 @@
 
 Each kernel wrapper adds one to its module's counter where it launches its
 kernel, and nowhere else; a run shows that its path went through the kernels
-by reading the counts before and after it.
+by reading the counts before and after it. Beside them, the whole-encoder
+op's calls that ran in blocks of whole bags, and their blocks.
 """
 
 from __future__ import annotations
@@ -31,6 +32,12 @@ COUNTERS = {
     "encoder_train_bwd_f32": (encoder_train, "bwd_f32_launches"),
     "encoder_train_fwd_f32_nosave": (encoder_train, "fwd_f32_nosave_launches"),
     "encoder_train_bwd_f32_recompute": (encoder_train, "bwd_f32_recompute_launches"),
+    # calls of K6 / K7 run in more than one block of whole bags, and their
+    # blocks (each block one launch above): counted on any device
+    "encoder_train_fwd_blocked_calls": (encoder_train, "fwd_blocked_calls"),
+    "encoder_train_fwd_blocks": (encoder_train, "fwd_blocks"),
+    "encoder_train_bwd_blocked_calls": (encoder_train, "bwd_blocked_calls"),
+    "encoder_train_bwd_blocks": (encoder_train, "bwd_blocks"),
     "ipot_fwd": (ipot, "fwd_launches"),                     # K8, cluster route
     "ipot_bwd": (ipot, "bwd_launches"),                     # K9, cluster route
     "gw_gamma": (ipot, "gw_launches"),                      # K10, cluster route
