@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases device,build,train_kernels,train_ragged,pretrain_ragged
     python3 chip_smoke.py --phases device,build,train_kernels_f32,train_f32,pretrain_f32
     python3 chip_smoke.py --phases device,build,perop_kernels_f32,train_perop_f32
+    python3 chip_smoke.py --phases device,build,perop_kernels,train_sigmoid,train_ragged_nofused
     python3 chip_smoke.py --phases device,build,pool_train_kernels,dropout_kernel,train_nofused,heads
     python3 chip_smoke.py --phases device,build,downstream,probe,vit
     python3 chip_smoke.py --phases device,build,pool_kernels,eval_forward,slide
@@ -101,7 +102,11 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            beside their plain versions and, for linear_tok's forward,
            torch.nn.functional.linear, with kernel 19's TB/s and TFLOP/s and
            both calls' device time launched back to back; 15-18 and 20
-           beside their first designs, per call and back to back, with TFLOP/s
+           beside their first designs, per call and back to back, with TFLOP/s.
+           Rows 4-5 and 15-20 (bf16 and f32 entry points) given the dims of
+           a call past their 32-bit limits (b t past MAX_TRAIN_ROWS, a
+           global bag past 2**31 - 1, rows 4-5 past 65535 bags) and null
+           buffers must return cudaErrorInvalidValue, the launch path raising
   perop_kernels_f32
            rows 15-18 with f32 operands (the per-op lane at --precision
            float32; csrc/preattn.cu and csrc/gated_logits.cu on the FFMA
@@ -221,7 +226,11 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            the free plus reserved-but-unallocated bytes under a [8, 2048]
            call's threshold sends the gate and the call to the recompute
            route; the ballast freed but still reserved sends them back to
-           the save route, with bit-equal gradients
+           the save route, with bit-equal gradients. ROADMAP C1: one call at
+           [65, 8192] (recompute route) as it runs and with mem_get_info
+           patched so that the free-memory guard (`_device_hbm_limit`)
+           sees 15 GB left, where a rule reading it gives two blocks: one
+           block both times, the weight gradients bit for bit
   train_kernels_f32
            K6 and K7 with f32 operands (--precision float32, the JAX
            package's parity route; every product on csrc/gemm_ffma.cuh's
@@ -297,12 +306,17 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
   train_sigmoid
            the same 5 steps with --activation sigmoid (the per-op lane):
            kernels 15-20 and K8-K14 must launch on every step, K6/K7 on none;
-           step ms and peak memory against train_got's, the plain sigmoid
-           pool's own peak, and one profiled step (device idle share)
+           step ms and peak memory against train_got's; one step under
+           cfg.remat (the default: each stain's body recomputed in its
+           backward, the forward kernels twice a step) against one under
+           --no_remat, the loss and every gradient bit for bit, each peak;
+           the plain sigmoid pool's own peak, and one profiled step (device
+           idle share)
   train_nofused
            the same 5 steps with softmax and MADELEINE_NO_FUSED_ENCODER=1
            (the softmax per-op lane): rows 4-5 and kernels 15-20 five times
-           each per step, K6/K7 never, K8-K14 as in train_got; step ms and
+           each per step (the forward ones ten: cfg.remat), K6/K7 never,
+           K8-K14 as in train_got; step ms and
            peak memory; then the chain preattn -> gated_logits -> training
            pool -> linear_tok against K6/K7 on one modality at (0.1, 0.25)
            (pooled 2e-3 or one bf16 step, tokens 3e-2, gate and projector
@@ -338,11 +352,17 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            the per-op lane at --precision float32: 5 published f32 steps
            (InfoNCE + GOT, 65 x 5 x 2048) with --activation sigmoid, then 3
            with softmax under MADELEINE_NO_FUSED_ENCODER: the loss falls,
-           none skipped, rows 15-18 f32 once per modality on every step, no
-           bf16 row 15-18, no K6/K7; then one sigmoid step against the same
+           none skipped, rows 15-18 f32 once per modality on every step
+           (15 and 17 twice: cfg.remat's recompute), no bf16 row 15-18, no
+           K6/K7; then one sigmoid step against the same
            step with rows 15-18's plain versions on the card: the loss within
            1e-5 relative, every gradient within 1e-4 relative Frobenius (each
-           head's bc within 1e-4 absolutely, as in train_f32)
+           head's bc within 1e-4 absolutely, as in train_f32); then full bags:
+           a ragged sigmoid f32 batch at bucket 16384, one step with every
+           per-op call in two blocks of whole bags (rows 15-18 f32 once a
+           block, 15 and 17 twice), step ms and peak, and a batch of bucket
+           8192 against it padded to 16384 (loss 1e-5, gradients 1e-4, bc
+           1e-4)
   train_ragged
            the published step on full-bag batches (the CLI's default
            --n_subsamples -1): (a) bag lengths log-uniform in [1024, 16384],
@@ -360,13 +380,20 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            weights and seed against the unpadded step (losses 1e-4,
            gradients 1e-2)
   train_ragged_nofused
-           the softmax per-op lane (MADELEINE_NO_FUSED_ENCODER) on a ragged
-           [65, 5, 4096] batch, 3 steps: finite, none skipped, rows 4-5 and
-           15-20 every step, K6/K7 never
+           the per-op chain's own peaks at [16, 16384] (bf16 softmax and
+           sigmoid, f32 sigmoid) beside their reckoning; the softmax per-op
+           lane (MADELEINE_NO_FUSED_ENCODER, bf16, cfg.remat) on a ragged
+           [65, 5] batch at bucket 32768, 2 steps with every per-op call in
+           blocks of whole bags: finite, none skipped, rows 4-5 and 15-20
+           once a block every step (the forward ones twice), K6/K7 never,
+           the peak under 80 GB, one step under sync debug "error", one
+           back to back (the host's ms a step); a batch of bucket 16384
+           against it padded to 32768 (losses 1e-4, gradients 1e-2)
   heads    65 bags of 2048 tokens embedded by encode_he (bf16, K1), then 5
            AdamW steps of an MLP head and of a ProjHead (f32, dropout 0.2:
            row 21 in every forward and backward); the loss falls
-  pretrain `python -m madeleine_torch.cli.pretrain` with the flags of
+  pretrain the pretrain CLI's main (in this process, as every CLI run but
+           data_parallel's torchrun one) with the flags of
            scripts/launch_pretrain_withoutStainEncodings.sh (65 cases x 5
            stains x 2048 tokens, bf16, InfoNCE + GOT) on a synthetic cohort
            of 70 cases (about 0.9 GB of f32 .bag files of 512-2560 tokens,
@@ -404,7 +431,8 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            20000 tokens (bucket 32768), 2 steps and the downstream pass
            with a 20000-token slide (K1 at the inference loader's bucket
            32768): nothing truncated, the ring's pinned bytes and the
-           host's memory
+           host's memory; then the same epoch with --activation sigmoid
+           (the per-op lane at bucket 32768: kernels 15-20 every step)
   pretrain_f32
            the pretrain CLI at --precision float32 with its default full bags
            on pretrain_ragged's cohort (bucket 8192: every K6/K7 call on the
@@ -412,14 +440,17 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            resumed to 2, C 2 straight, B's model.pt equal to C's bit for bit,
            K6/K7 f32 and K8-K14 on every step, K2 downstream; step ms, peak;
            then one epoch with --activation sigmoid (rows 15-18 f32 on every
-           step, no bf16 row 15-18, no K6/K7)
+           step, no bf16 row 15-18, no K6/K7; its peak under cfg.remat
+           beside the 70.88 GB measured without it, PERF.md §5)
   data_parallel
            (a) world size 1 on NCCL: the published steps' weights bit for
            bit the steps' without a group; (b) two Gloo ranks on the card
            against one process on the same rows, in bf16 (gradients within
            one bf16 step of the norms summed) and in f32 (every gradient
-           within 1e-4 relative Frobenius); (c) bag parallelism against K1;
-           (d) the CLI under torchrun, model.pt bit for bit the plain CLI's
+           within 1e-4 relative Frobenius), both in the ranks' one pair of
+           processes; (c) bag parallelism against K1; (d) the CLI under
+           torchrun, model.pt bit for bit the plain CLI's, on the pretrain
+           phase's cohort
   profile  torch.profiler device time by kernel of one K6 and one K7 call at
            [65, 2048] and of kernels 15-18 and 20 alone at that shape, of
            one full-width train step of each objective and of the no-fused
@@ -433,8 +464,9 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            their device idle share; each read from a second
            profiled window after a warm-up window (a first window can lose
            its kernels), the K6/K7 single windows reported beside them
-Then the main path's launches of each kernel, and K6/K7's calls in blocks of
-whole bags and their blocks, split into the published runs, the side lanes,
+Then the main path's launches of each kernel, and K6/K7's and the per-op
+lane's calls in blocks of whole bags and their blocks, split into the
+published runs, the side lanes,
 the ragged runs and the f32 runs (train_f32, pretrain_f32), a
 {"kernels": [...]} summary line (K6's and K7's rows, bf16 and f32, also with
 their save-off and recompute routes), the nvidia-smi line, and last
@@ -483,7 +515,7 @@ MAIN_PATHS = ("serve", "extract", "downstream", "eval_forward", "slide", "train"
               "train_se",
               "train_sigmoid", "train_nofused", "train_views", "train_views_nofused",
               "train_f32", "train_f32_ragged", "train_perop_f32", "train_perop_f32_nofused",
-              "train_ragged",
+              "train_perop_f32_ragged", "train_ragged",
               "train_ragged_nofused", "heads", "pretrain", "pretrain_ragged", "pretrain_f32",
               "data_parallel")
 # the main-path runs of the side lanes (a non-softmax activation, or softmax
@@ -494,7 +526,7 @@ RAGGED_PATHS = ("train_ragged", "train_ragged_nofused", "pretrain_ragged")
 # the f32 runs (--precision float32: K6/K7, or on the per-op lane rows 15-18,
 # with f32 operands), a lane of their own (the CLI's on full bags included)
 F32_PATHS = ("train_f32", "train_f32_ragged", "train_perop_f32", "train_perop_f32_nofused",
-             "pretrain_f32")
+             "train_perop_f32_ragged", "pretrain_f32")
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -1826,6 +1858,69 @@ def _check_blocked(torch, w, t, lengths, rates, gen):
             "bc_abs": errs["bc"], "grad_rel_fro": errs, "vs_per_bag_f64": vs_ref}
 
 
+C1_SHAPE = (65, 8192)        # _check_c1's call: bf16, the recompute route
+C1_LEFT = 15 * 10 ** 9       # the memory the free-memory guard sees left under the patch
+
+
+def _check_c1(torch, w, gen):
+    """ROADMAP C1 on the card: one K6/K7 call through `encoder_train` at
+    C1_SHAPE (ragged, the real rates, the recompute route, a fixed
+    cotangent), once as it runs and once with torch.cuda.mem_get_info
+    patched to report as free C1_LEFT bytes less what the caching allocator
+    holds unallocated, so that the free-memory guard (`_device_hbm_limit`:
+    the free bytes plus those) sees C1_LEFT left, where a rule reading it
+    (`encoder_blocks` with that limit) gives two blocks. The rule reads the card's total
+    memory: both calls must take the same blocks (the blocked-call
+    counters) and leave the same weight gradients bit for bit."""
+    from madeleine_torch.ops import encoder_train as et
+
+    b, t = C1_SHAPE
+    lengths = np.exp(gen.uniform(np.log(1024), np.log(t), b)).astype(np.int64)
+    lengths[0] = t
+    mask = (torch.arange(t)[None, :] < torch.as_tensor(lengths)[:, None]).cuda()
+    tg = torch.Generator(device="cuda").manual_seed(SEED + 43)
+    x = torch.randn(b, t, w["w1"].shape[1], generator=tg, device="cuda").to(torch.bfloat16)
+    nh, f, e = w["wa"].shape
+    widths = (x.shape[2], w["w1"].shape[0], nh, e, f, w["wt"].shape[0])
+    gp = torch.randn(b, nh, e, generator=tg, device="cuda")
+    gt = torch.randn(b, t, w["wt"].shape[0], generator=tg, device="cuda").to(torch.bfloat16)
+    total = torch.cuda.get_device_properties(0).total_memory
+    out, grads = {}, {}
+
+    def reported(*_a, **_k):   # C1_LEFT for the guard, whatever the allocator caches
+        return C1_LEFT - (torch.cuda.memory_reserved() - torch.cuda.memory_allocated()), total
+
+    for name, left in (("as_is", None), ("reported_free", C1_LEFT)):
+        ws = {k: v.detach().clone().requires_grad_() for k, v in w.items()}
+        patch = (mock.patch.object(torch.cuda, "mem_get_info", reported) if left
+                 else contextlib.nullcontext())
+        before = read_counts()
+        with patch:
+            free_rule = et.encoder_blocks(b, t, widths, torch.bfloat16, True,
+                                          et._device_hbm_limit(x.device))
+            pooled, tok = et.encoder_train(x, mask, ws, 1234, save_acts=False)
+            loss = (pooled.float() * gp).sum() + (tok * gt).float().sum()
+            grads[name] = dict(zip(ws, torch.autograd.grad(loss, list(ws.values()))))
+        after = read_counts()
+        n = {k: after[k] - before[k] for k in BLOCK_COUNTERS}
+        out[name] = {"memory_left_reported": left, "free_memory_rule_blocks": len(free_rule),
+                     "blocks_fwd": n["encoder_train_fwd_blocks"] or 1,
+                     "blocks_bwd": n["encoder_train_bwd_blocks"] or 1}
+        del pooled, tok, loss, ws
+    unequal = [k for k in grads["as_is"] if not torch.equal(grads["as_is"][k],
+                                                            grads["reported_free"][k])]
+    rep = {"shape": list(C1_SHAPE), "total_memory": total, **out,
+           "grads_bitwise_equal": not unequal, "unequal": unequal}
+    if (unequal or out["as_is"]["blocks_fwd"] != out["reported_free"]["blocks_fwd"]
+            or out["as_is"]["blocks_bwd"] != out["reported_free"]["blocks_bwd"]
+            or out["reported_free"]["free_memory_rule_blocks"]
+            == out["reported_free"]["blocks_fwd"]):
+        raise AssertionError(f"C1: the blocks or the weight gradients moved with the free "
+                             f"memory reported, or a free-memory rule would not have moved: "
+                             f"{rep}")
+    return rep
+
+
 def _check_grown(torch, w, t, lengths, rates, gen, peak_flops):
     """One call at [65, t] past what one block holds ([65, 32768] bf16,
     [65, 16384] f32) in the blocks `encoder_blocks` gives it on the
@@ -2240,6 +2335,8 @@ def phase_train_kernels(state):
     lengths_g[-1] = 32768 - 5            # the last bag, the longest, at the highest rows
     blocked["bucket_32768"] = _check_grown(torch, w, 32768, lengths_g.tolist(), real, gen,
                                            PEAK_BF16)
+    torch.cuda.empty_cache()
+    blocked["c1_free_memory"] = _check_c1(torch, w, gen)
     emit({"phase": "train_kernels", "blocked": blocked})
     torch.cuda.empty_cache()
     hbm_guard = _check_hbm_guard(torch, w, gen)
@@ -3283,9 +3380,72 @@ def _check_linear_tok_edges(torch, gen):
     return rep
 
 
+# the train kernels' row limit (csrc/train_common.cuh::MAX_TRAIN_ROWS) and
+# rows 4-5's bags a call (csrc/attn_pool.cu::MAX_BAGS)
+MAX_TRAIN_ROWS = 2 ** 31 - 256
+MAX_POOL_BAGS = 65535
+
+
+def _check_refusals(torch):
+    """Rows 4-5 and 15-20 at a call past their 32-bit limits: each C entry
+    point, given null buffers and the dims of such a call, returns
+    cudaErrorInvalidValue before it touches a buffer, and the launch path
+    raises (a wrapper never falls back to its plain version). The calls: b t
+    one row past MAX_TRAIN_ROWS (a stain of [65, 32768] in one call holds
+    2.1 M rows, 4.4e9 elements of y: within it, and past 2**31 elements,
+    which every offset addresses in 64 bits), a global bag past 2**31 - 1
+    (rows 15-18's dropout keys), row 20's M past MAX_TRAIN_ROWS, rows 4-5 at
+    MAX_POOL_BAGS + 1 bags. Returns {entry point: the error raised}."""
+    import ctypes
+
+    from madeleine_torch.ops import _build
+
+    dev = torch.device("cuda")
+    t = MAX_TRAIN_ROWS // 65 + 1
+    rows = [65, t]            # 65 bags of t rows: MAX_TRAIN_ROWS + 1 rows or more
+    far = [1, 1]              # one row, its bag at global index 2**31 - 1 + 1
+    cases = {}
+    for lib, fn, n_ptrs, shape in (
+            ("preattn", "preattn_forward", 18, [512, 512, 2048]),
+            ("preattn", "preattn_backward", 39, [512, 512, 2048]),
+            ("preattn", "preattn_forward_f32", 18, [512, 512, 2048]),
+            ("preattn", "preattn_backward_f32", 39, [512, 512, 2048]),
+            ("gated_logits", "gated_logits_forward", 7, [4, 512, 512]),
+            ("gated_logits", "gated_logits_backward", 13, [4, 512, 512]),
+            ("gated_logits", "gated_logits_forward_f32", 7, [4, 512, 512]),
+            ("gated_logits", "gated_logits_backward_f32", 13, [4, 512, 512])):
+        for what, (b, tt), offset in (("rows", rows, 0), ("global_bag", far, 2 ** 31 - 1)):
+            cases[f"{fn}_{what}"] = (lib, fn, n_ptrs, [b, tt, *shape, 1234, offset, 1 << 30])
+    for fn, n_ptrs in (("linear_tok_forward", 4), ("linear_tok_backward", 8)):
+        cases[f"{fn}_rows"] = ("linear_tok", fn, n_ptrs, [MAX_TRAIN_ROWS + 1, 2048, 128])
+    cases["attn_pool_backward_bags"] = ("attn_pool", "attn_pool_backward", 8,
+                                        [MAX_POOL_BAGS + 1, 64, 4, 512, 1])
+    out = {}
+    for name, (lib, fn, n_ptrs, dims) in cases.items():
+        try:
+            _build.call_ptrs(lib, fn, [None] * n_ptrs, dims, [1.0], dev)
+            out[name] = "accepted"
+        except RuntimeError as err:
+            out[name] = str(err)
+    # row 4's forward takes its dims as C ints (ops/_build.py::launch_split_pool)
+    fwd = _build.entry("attn_pool", "attn_pool_forward",
+                       [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    try:
+        _build._invoke("attn_pool", fwd, [None] * 8 + [MAX_POOL_BAGS + 1, 64, 4, 512, 1], dev)
+        out["attn_pool_forward_bags"] = "accepted"
+    except RuntimeError as err:
+        out["attn_pool_forward_bags"] = str(err)
+    torch.cuda.synchronize()
+    wrong = {k: v for k, v in out.items() if not v.endswith("cudaError 1")}
+    if wrong:
+        raise AssertionError(f"per-op kernels past their 32-bit limits not refused: {wrong}")
+    return out
+
+
 def phase_perop_kernels(state):
     """Kernels 15-20 against their plain versions, the per-op chain against
-    K6/K7, and their times at the train step's call shape."""
+    K6/K7, and their times at the train step's call shape; rows 4-5 and
+    15-20 refusing calls past their 32-bit limits (`_check_refusals`)."""
     import torch
     import torch.nn.functional as F
     from madeleine_torch.models.madeleine import train_weights
@@ -3392,7 +3552,7 @@ def phase_perop_kernels(state):
           "checks_against_first_designs": firsts,
           "pre_chain_rtol_fro": PRE_CHAIN_RTOL, "chain_vs_k6_k7": chain,
           "times_shape": PEROP_STEP_SHAPE, "times": times, "f_linear_vs_kernel_max_abs": lib_err,
-          "linear_tok_fwd_edges": edges})
+          "linear_tok_fwd_edges": edges, "refused_past_32_bit_limits": _check_refusals(torch)})
     failed = ([(where, k) for where, rep in checks.items() for k, r in rep.items()
                if not r["ok"]]
               + [(where, f"{k} against its first design") for where, rep in firsts.items()
@@ -4500,16 +4660,17 @@ def _skips_on_the_card(torch, step, batch, seed):
 
 
 def _run_train_steps(torch, state, phase, kernels, cfg=None, setup=None, steps=TRAIN_STEPS,
-                     b2b_steps=BACK_TO_BACK_STEPS, skips=True, falls=True):
+                     b2b_steps=BACK_TO_BACK_STEPS, skips=True, falls=True, sync_debug=True):
     """`steps` steps of make_train_step at full width on one fixed batch
     (`setup`: the caller's `_train_setup`, else the synthetic batch's), the
     counts set to 0 just before: fails
     unless no step is skipped, every loss is finite, the last is below the
     first (unless not `falls`) and each of `kernels` launches on every
     step; then the parameters' digest. Each step is timed alone (CUDA
-    events, the host waiting for each). Then, on the same model: one step
-    under torch.cuda.set_sync_debug_mode("error") (a step that reads the
-    card from the host raises), `b2b_steps` steps launched back to back
+    events, the host waiting for each; one step is its own median). Then,
+    on the same model: with `sync_debug` one step under
+    torch.cuda.set_sync_debug_mode("error") (a step that reads the card
+    from the host raises), `b2b_steps` (if any) steps launched back to back
     between two events (also the host's ms a step to launch them), and
     with `skips` a skipped step on an H&E-only batch and on a NaN one, each
     leaving the parameters, the moments and the count bit for bit; the
@@ -4552,31 +4713,35 @@ def _run_train_steps(torch, state, phase, kernels, cfg=None, setup=None, steps=T
     digest = _param_digest(model)
     trained = {k: v.clone() for k, v in model.state_dict().items()}
     seeds = itertools.count(steps)
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        step(batch, step_seed(SEED, 0, next(seeds)))
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(b2b_steps):
-        step(batch, step_seed(SEED, 0, next(seeds)))
-    host = (time.perf_counter() - t0) * 1e3 / b2b_steps
-    end.record()
-    end.synchronize()
-    b2b = start.elapsed_time(end) / b2b_steps
+    if sync_debug:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step(batch, step_seed(SEED, 0, next(seeds)))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    host = b2b = None
+    if b2b_steps:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(b2b_steps):
+            step(batch, step_seed(SEED, 0, next(seeds)))
+        host = (time.perf_counter() - t0) * 1e3 / b2b_steps
+        end.record()
+        end.synchronize()
+        b2b = start.elapsed_time(end) / b2b_steps
     skipped_on_card = (_skips_on_the_card(torch, step, batch, step_seed(SEED, 0, next(seeds)))
                        if skips else "not run")
     model.load_state_dict(trained)   # the later checks read the steps' weights
     return cfg, model, batch, {
         "steps": steps, "batch": list(batch["feats"].shape),
         "losses": losses, "skipped": skipped, "step_ms": step_ms,
-        "step_ms_median_after_first": statistics.median(step_ms[1:]),
+        "step_ms_median_after_first": statistics.median(step_ms[1:] or step_ms),
         "step_ms_back_to_back": b2b, "back_to_back_steps": b2b_steps,
         "host_ms_per_step_back_to_back": host,
-        "sync_debug_error_step": "ran", "skipped_steps_on_card": skipped_on_card,
+        "sync_debug_error_step": "ran" if sync_debug else "not run",
+        "skipped_steps_on_card": skipped_on_card,
         "param_sha256_after_steps": digest,
         "peak_memory_gb": peak / 1e9, "peak_reserved_gb": reserved / 1e9, "launches": counts,
         "launches_per_step": per_step}
@@ -4748,10 +4913,46 @@ def _pool_own_peak(torch, cfg, activation):
     return (torch.cuda.max_memory_allocated() - base) / 1e9
 
 
+def _remat_vs_no_remat(torch):
+    """One bf16 sigmoid step (InfoNCE + GOT, [65, 5, 2048]) from the same
+    weights, batch and seed under cfg.remat (the default: each modality's
+    body recomputed in its backward) and under --no_remat (every modality's
+    saves kept until the backward): the loss and every parameter gradient
+    bit for bit; each route's peak, and its peak above what was allocated
+    before the step."""
+    from madeleine_torch.train.trainer import step_seed
+
+    out, grads, batch = {}, {}, None
+    for name, remat in (("remat", True), ("no_remat", False)):
+        _, model, step, batch = _train_setup(torch, got_path_config(activation="sigmoid",
+                                                                    remat=remat), batch=batch)
+        params = [p.detach().clone() for p in model.parameters()]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads[name], _ = _grads_of_step(torch, model, step, batch, step_seed(SEED, 4, 0),
+                                              params)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        out[name] = {"loss": loss, "peak_memory_gb": peak / 1e9,
+                     "peak_above_start_gb": (peak - base) / 1e9}
+        del model, step, params
+        torch.cuda.empty_cache()
+    unequal = [k for k in grads["remat"] if not torch.equal(grads["remat"][k],
+                                                            grads["no_remat"][k])]
+    rep = dict(out, loss_bitwise_equal=out["remat"]["loss"] == out["no_remat"]["loss"],
+               grads_bitwise_equal=not unequal, unequal=unequal)
+    if unequal or not rep["loss_bitwise_equal"]:
+        raise AssertionError(f"train_sigmoid: the remat step differs from --no_remat's: {rep}")
+    return rep
+
+
 def phase_train_sigmoid(state):
     """The published objective with --activation sigmoid, the per-op lane
     (JAX madeleine.py:157-172): kernels 15-20 for the encoder and K8-K14 for
-    GOT on every step, K6/K7 on none; then one profiled step."""
+    GOT on every step, K6/K7 on none; one step under cfg.remat against one
+    under --no_remat, bit for bit (`_remat_vs_no_remat`); then one profiled
+    step."""
     import torch
 
     cfg = got_path_config(activation="sigmoid")
@@ -4763,6 +4964,7 @@ def phase_train_sigmoid(state):
     state["train_sigmoid_step_ms"] = run["step_ms_median_after_first"]
     state["train_sigmoid_peak_gb"] = run["peak_memory_gb"]
     del model
+    remat = _remat_vs_no_remat(torch)
     pool_peak = _pool_own_peak(torch, cfg, "sigmoid")
     # one profiled step after two unprofiled ones, as phase_profile does
     _, _, step, batch = _train_setup(torch, cfg)
@@ -4780,7 +4982,7 @@ def phase_train_sigmoid(state):
     rows = _profiled(torch, one_step)
     busy, wall = sum(r[2] for r in rows), start.elapsed_time(end)
     emit({"phase": "train_sigmoid", **run, "activation": cfg.activation,
-          "plain_pool_own_peak_gb": pool_peak,
+          "plain_pool_own_peak_gb": pool_peak, "remat_vs_no_remat": remat,
           "train_got_step_ms": state.get("train_got_step_ms"),
           "train_got_peak_gb": state.get("train_got_peak_gb"),
           "profiled_step": {"wall_ms": wall, "device_busy_ms": busy,
@@ -4790,6 +4992,17 @@ def phase_train_sigmoid(state):
 
 NO_FUSED_VAR = "MADELEINE_NO_FUSED_ENCODER"
 NOFUSED_KERNELS = ("attn_pool_ms", "attn_pool_bwd") + PEROP_KERNELS
+# the per-op lane's forward kernels: under cfg.remat (the default) each
+# modality's backward recomputes its body, so these run twice a step per
+# call of the forward, the backward kernels once
+PEROP_FORWARD_KERNELS = ("attn_pool_ms", "preattn_fwd", "gated_logits_fwd", "linear_tok_fwd",
+                         "preattn_fwd_f32", "gated_logits_fwd_f32")
+
+
+def _perop_per_step(kernel, calls, remat=True):
+    """A per-op kernel's launches a step where its op runs `calls` times in
+    the forward: twice that for a forward kernel under cfg.remat."""
+    return 2 * calls if remat and kernel in PEROP_FORWARD_KERNELS else calls
 
 
 def _no_fused_encoder(on=True):
@@ -4802,7 +5015,8 @@ def _no_fused_encoder(on=True):
 def phase_train_nofused(state):
     """The published objective with softmax and MADELEINE_NO_FUSED_ENCODER
     set, the softmax per-op lane (JAX madeleine.py:157-174): rows 4-5 and
-    kernels 15-20 once per modality on every step, K6/K7 on none, K8-K14 as
+    kernels 15-20 once per modality on every step (the forward rows 4, 15,
+    17 and 19 twice: cfg.remat's recompute), K6/K7 on none, K8-K14 as
     in train_got; then the chain preattn -> gated_logits -> training pool
     -> linear_tok against K6/K7 on one modality at (0.1, 0.25), beside the
     same at rates 0 (the rounding floor, reported) and a shifted-mask
@@ -4816,7 +5030,7 @@ def phase_train_nofused(state):
                                                 NOFUSED_KERNELS + GOT_KERNELS + GLUE_KERNELS, cfg)
     fused = {k: run["launches"][k] for k in ENCODER_KERNELS}
     wrong = [(i, k, c[k]) for i, c in enumerate(run["launches_per_step"])
-             for k in NOFUSED_KERNELS if c[k] != cfg.n_modalities]
+             for k in NOFUSED_KERNELS if c[k] != _perop_per_step(k, cfg.n_modalities)]
     got_ref = state.get("train_got_launches_per_step")
     got_diff = [] if got_ref is None else [
         (i, k) for i, (c, r) in enumerate(zip(run["launches_per_step"], got_ref))
@@ -4860,7 +5074,8 @@ def phase_train_views(state):
     at full width: on the fused route K6/K7 take their view route once per
     modality on every step; under MADELEINE_NO_FUSED_ENCODER rows 4-5 run
     three times per modality (the whole bag and each half), kernels 15-20
-    once; K8-K14 as in train_got. The loss falls over the steps and no step
+    once (each forward row twice: cfg.remat's recompute); K8-K14 as in
+    train_got. The loss falls over the steps and no step
     is skipped, on both routes (_run_train_steps)."""
     import torch
 
@@ -4874,8 +5089,8 @@ def phase_train_views(state):
                                                 NOFUSED_KERNELS + steps_kernels, cfg)
     del model
     n_mod = cfg.n_modalities
-    want = {**{k: n_mod for k in PEROP_KERNELS}, "attn_pool_ms": 3 * n_mod,
-            "attn_pool_bwd": 3 * n_mod}
+    want = {k: _perop_per_step(k, (3 if k.startswith("attn_pool") else 1) * n_mod)
+            for k in NOFUSED_KERNELS}
     wrong = [("nofused", i, k, c[k]) for i, c in enumerate(nofused["launches_per_step"])
              for k in want if c[k] != want[k]]
     wrong += [("fused", i, k, c[k]) for i, c in enumerate(fused["launches_per_step"])
@@ -5030,15 +5245,67 @@ PEROP_BF16_ROWS = PEROP_KERNELS[:4]   # rows 15-18 with bf16 operands
 
 def _perop_f32_launches(phase, run, n_mod):
     """Raise unless each of rows 15-18 f32 launched once per modality on
-    every step of `run` and neither their bf16 routes nor K6/K7 (bf16 or
-    f32) launched."""
+    every step of `run` (the forward rows twice: cfg.remat's recompute) and
+    neither their bf16 routes nor K6/K7 (bf16 or f32) launched."""
     wrong = [(i, k, c[k]) for i, c in enumerate(run["launches_per_step"])
-             for k in PEROP_F32_KERNELS if c[k] != n_mod]
+             for k in PEROP_F32_KERNELS if c[k] != _perop_per_step(k, n_mod)]
     other = {k: run["launches"][k] for k in PEROP_BF16_ROWS + ENCODER_KERNELS + F32_KERNELS
              if run["launches"][k]}
     if wrong or other:
         raise AssertionError(f"{phase}: rows 15-18 f32 per step off {wrong}, or other "
                              f"encoder kernels launched {other}")
+
+
+PEROP_F32_RAGGED = (1024, 16384)   # the f32 sigmoid full bags: lengths, the longest the bucket
+PEROP_F32_PAD = 8192               # the padding check's longest: bucket 8192, padded to 16384
+
+
+def _train_perop_f32_ragged(torch, state):
+    """The sigmoid per-op lane at --precision float32 on a ragged batch of
+    [65, 5] whose longest bag has PEROP_F32_RAGGED[1] tokens (bucket 16384,
+    lengths log-uniform from PEROP_F32_RAGGED[0], three IHC bags empty),
+    under cfg.remat with every per-op call in blocks of whole bags: one
+    timed step (about 7 s; `_run_train_steps`, no sync-debug or
+    back-to-back step: train_perop_f32's steps at 2048 run those on the
+    same code), the loss finite and applied, rows 15-18 with f32 operands
+    once per block of every call (15 and 17 twice: the recompute), no bf16
+    row 15-18 and no K6/K7; the step ms and the peak. Then the padding
+    check at the f32 bars: a batch of bucket 8192 (one block a call) one
+    step from the trained weights against the same batch padded to 16384
+    (in blocks): the loss within 1e-5 relative, every gradient within 1e-4
+    relative Frobenius, bc within BC_ATOL."""
+    from madeleine_torch.train.trainer import step_seed
+
+    cfg = got_path_config(precision="float32", activation="sigmoid")
+    lo, hi = PEROP_F32_RAGGED
+    n_mod = cfg.n_modalities
+    lengths = ragged_lengths(SEED + 44, cfg.batch_size, n_mod, lo, hi)
+    torch.cuda.empty_cache()
+    setup = _train_setup(torch, cfg, ragged_batch(torch, lengths, SEED + 45,
+                                                  dtype=torch.float32))
+    _, model, step, _ = setup
+    run = _run_train_steps(torch, state, "train_perop_f32_ragged",
+                           PEROP_F32_KERNELS + GOT_KERNELS + GLUE_KERNELS, setup=setup, steps=1,
+                           b2b_steps=0, skips=False, falls=False, sync_debug=False)[3]
+    del setup
+    per_call = _perop_grown_run(run, "train_perop_f32_ragged", PEROP_F32_KERNELS, n_mod,
+                                PEROP_BF16_ROWS + ENCODER_KERNELS + F32_KERNELS)
+    torch.cuda.empty_cache()
+    box = [ragged_batch(torch, ragged_lengths(SEED + 46, cfg.batch_size, n_mod, lo,
+                                              PEROP_F32_PAD), SEED + 47, dtype=torch.float32)]
+    pad, ok = _padding_check(torch, model, step, box, hi, step_seed(SEED, 3, 0), f32=True,
+                             counters=PEROP_BLOCK_COUNTERS)
+    del model, step
+    torch.cuda.empty_cache()
+    out = dict(run, activation=cfg.activation, remat=cfg.remat, lengths_range=[lo, hi],
+               bucket=run["batch"][2], valid_tokens=int(lengths.sum()),
+               blocks_per_call=per_call, padding_check=pad)
+    if (run["peak_memory_gb"] >= 80.0 or per_call < 2 or not ok
+            or pad["perop_blocked_calls_unpadded"] != 0
+            or pad["perop_blocked_calls_padded"] != 2 * n_mod):
+        raise AssertionError(f"train_perop_f32 ragged: peak {run['peak_memory_gb']} GB, "
+                             f"{per_call} blocks a call, padding check {pad}")
+    return out
 
 
 def phase_train_perop_f32(state):
@@ -5055,7 +5322,8 @@ def phase_train_perop_f32(state):
     train_f32 holds it (its gradient is one sum over every token of a
     stain, 133,120, of terms of either sign, whose relative error measures
     their cancellation, not the kernels; its relative error is reported).
-    The step ms, the host's ms a step, the peak; the plain step's ms."""
+    The step ms, the host's ms a step, the peak; the plain step's ms. Last,
+    full bags at bucket 16384 in blocks (`_train_perop_f32_ragged`)."""
     import torch
     from madeleine_torch.ops import gated_logits as gl
     from madeleine_torch.ops import preattn as pa
@@ -5109,10 +5377,11 @@ def phase_train_perop_f32(state):
                                    steps=PEROP_F32_NOFUSED_STEPS, b2b_steps=1, skips=False)[3]
     _perop_f32_launches("train_perop_f32_nofused", nofused, cfg_nf.n_modalities)
     torch.cuda.empty_cache()
+    ragged = _train_perop_f32_ragged(torch, state)
     emit({"phase": "train_perop_f32", "smi": state["smi"], "activation": cfg.activation, **run,
           "vs_plain": vs_plain,
           "nofused": dict(nofused, activation="softmax", variable=f"{NO_FUSED_VAR}=1"),
-          "train_f32": state.get("train_f32")})
+          "ragged": ragged, "train_f32": state.get("train_f32")})
     if not (vs_plain["loss_rel_err"] <= F32_LOSS_RTOL
             and vs_plain["grad_max_rel_fro"] <= F32_GRAD_RTOL
             and vs_plain["bc_max_abs"] <= BC_ATOL):
@@ -5122,7 +5391,10 @@ def phase_train_perop_f32(state):
     state["train_perop_f32"] = {"step_ms": run["step_ms_median_after_first"],
                                 "host_ms": run["host_ms_per_step_back_to_back"],
                                 "peak_gb": run["peak_memory_gb"],
-                                "nofused_step_ms": nofused["step_ms_median_after_first"]}
+                                "nofused_step_ms": nofused["step_ms_median_after_first"],
+                                "ragged_step_ms": ragged["step_ms"][0],
+                                "ragged_peak_gb": ragged["peak_memory_gb"],
+                                "ragged_blocks_per_call": ragged["blocks_per_call"]}
 
 
 RAGGED_CASES = {"a": (1024, 16384, "recompute"), "b": (1024, 8192, "save"),
@@ -5133,8 +5405,11 @@ RAGGED_PAD_TO = {"a": "c", "b": "a"}   # each padding check's batch, padded to t
 RAGGED_EMPTY = 3          # empty (case, stain) bags per batch, label 0
 RAGGED_B2B_STEPS = 3
 RAGGED_PAD_LOSS_RTOL = 1e-4
-RAGGED_NOFUSED_SHAPE = (1024, 4096)   # the side lane's lengths (a smaller depth)
-RAGGED_NOFUSED_STEPS = 3
+# the softmax per-op lane's full bags: lengths, the longest the bucket (32768:
+# every per-op call in blocks), and the padding check's longest (bucket 16384)
+RAGGED_NOFUSED = (1024, 32768)
+RAGGED_NOFUSED_PAD = 16384
+RAGGED_NOFUSED_STEPS = 2     # timed steps (about 2 s each), then one under sync debug, one b2b
 
 
 def ragged_lengths(seed, bs, n_mod, lo, hi, n_empty=RAGGED_EMPTY):
@@ -5209,14 +5484,16 @@ BLOCK_COUNTERS = ("encoder_train_fwd_blocked_calls", "encoder_train_fwd_blocks",
                   "encoder_train_bwd_blocked_calls", "encoder_train_bwd_blocks")
 
 
-def _padding_check(torch, model, step, box, t_pad, seed, recompute_key, f32=False):
+def _padding_check(torch, model, step, box, t_pad, seed, recompute_key=None, f32=False,
+                   counters=BLOCK_COUNTERS):
     """One step from the model's weights on the ragged batch `box.pop()`
     (the caller keeps no other reference: it is freed before the padded
     step) and on the same batch padded to t_pad tokens, from the same
     weights and seed: the losses within RAGGED_PAD_LOSS_RTOL relative
     (F32_LOSS_RTOL with f32), every gradient within GRAD_RTOL relative
     Frobenius (f32: F32_GRAD_RTOL, bc within BC_ATOL). Returns the errors
-    and each step's recompute (`recompute_key`) and blocked K6/K7 calls."""
+    and each step's recompute calls (`recompute_key`, where given) and
+    `counters` (the blocked K6/K7 calls and their blocks by default)."""
     batch = box.pop()
     params = [p.detach().clone() for p in model.parameters()]
     loss_u, g_u, l_u = _grads_of_step(torch, model, step, batch, seed, params)
@@ -5235,10 +5512,10 @@ def _padding_check(torch, model, step, box, t_pad, seed, recompute_key, f32=Fals
     pad = {"bucket_unpadded": int(t), "bucket_padded": t_pad, "loss_unpadded": loss_u,
            "loss_padded": loss_p, "loss_rel_err": abs(loss_p - loss_u) / abs(loss_u),
            "grad_max_rel_fro": max(errs.values()), "grad_rel_fro": errs,
-           "recompute_calls_unpadded": l_u[recompute_key],
-           "recompute_calls_padded": l_p[recompute_key],
-           **{f"{k}_unpadded": l_u[k] for k in BLOCK_COUNTERS},
-           **{f"{k}_padded": l_p[k] for k in BLOCK_COUNTERS}}
+           **({"recompute_calls_unpadded": l_u[recompute_key],
+               "recompute_calls_padded": l_p[recompute_key]} if recompute_key else {}),
+           **{f"{k}_unpadded": l_u[k] for k in counters},
+           **{f"{k}_padded": l_p[k] for k in counters}}
     if f32:
         pad["bc_max_abs"] = max(bc.values())
     ok = (pad["loss_rel_err"] <= (F32_LOSS_RTOL if f32 else RAGGED_PAD_LOSS_RTOL)
@@ -5350,29 +5627,132 @@ def phase_train_ragged(state):
                              for k, v in out.items() if k in RAGGED_CASES}
 
 
+PEROP_BLOCK_COUNTERS = ("perop_blocked_calls", "perop_blocks")
+PEROP_PEAK_SHAPE = (16, 16384)   # `_perop_own_peaks`' call: one block of 262,144 rows
+
+
+def _perop_own_peaks(torch):
+    """The per-op chain's own peak against the reckoning that sizes its
+    blocks: one `abmil_embed_train` call (one block, the token projector
+    inside) at PEROP_PEAK_SHAPE with the flagship weights, the forward and
+    then the backward from fixed cotangents, in bf16 with softmax and with
+    sigmoid and in f32 with sigmoid; each direction's peak above what was
+    allocated before the call, beside `perop_saved_row_bytes` (what the
+    stain keeps into its backward) plus `perop_row_bytes` (the transients
+    of the larger direction) times the rows."""
+    from madeleine_torch.models import abmil
+    from madeleine_torch.models.madeleine import project_tokens, train_weights
+
+    b, t = PEROP_PEAK_SHAPE
+    out = {}
+    for precision, activation in (("bfloat16", "softmax"), ("bfloat16", "sigmoid"),
+                                  ("float32", "sigmoid")):
+        dtype = getattr(torch, precision)
+        with torch.no_grad():
+            w = train_weights(flagship_model(torch, precision), dtype)
+        w = {k: v.detach().contiguous().requires_grad_() for k, v in w.items()}
+        g = torch.Generator(device="cuda").manual_seed(SEED + 50)
+        x = torch.randn(b, t, w["w1"].shape[1], generator=g, device="cuda").to(dtype)
+        nh, f, e = w["wa"].shape
+        gp = torch.randn(b, nh, e, generator=g, device="cuda").to(dtype)
+        gt = torch.randn(b, t, w["wt"].shape[0], generator=g, device="cuda").to(dtype)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        pooled, tok = abmil.abmil_embed_train(
+            w, x, activation=activation, seed=1234,
+            project=lambda y: project_tokens(y, w["wt"], w["bt"]))
+        torch.cuda.synchronize()
+        fwd = torch.cuda.max_memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        torch.autograd.backward([pooled, tok], [gp, gt])
+        torch.cuda.synchronize()
+        bwd = torch.cuda.max_memory_allocated() - base
+        widths = (x.shape[2], w["w1"].shape[0], nh, e, f, w["wt"].shape[0])
+        rows, q = b * t, x.element_size()
+        saved = abmil.perop_saved_row_bytes(widths, q, activation) * rows
+        transient = abmil.perop_row_bytes(widths, q, activation) * rows
+        out[f"{precision}_{activation}"] = {
+            "rows": rows, "fwd_peak_gb": fwd / 1e9, "bwd_peak_gb": bwd / 1e9,
+            "reckoned_saved_gb": saved / 1e9, "reckoned_transient_gb": transient / 1e9,
+            "measured_over_reckoned": max(fwd, bwd) / (saved + transient)}
+        del w, x, gp, gt, pooled, tok
+        torch.cuda.empty_cache()
+    return out
+
+
+def _perop_grown_run(run, phase, kernels, n_mod, off):
+    """Blocks per call of a per-op run whose every call runs in blocks of
+    whole bags (its forward calls and cfg.remat's recomputes alike), after
+    checking that each of `kernels` launched once per block of every call
+    on every timed step (the forward kernels twice: the recompute) and none
+    of `off`."""
+    calls = run["launches"]["perop_blocked_calls"]
+    per_call = run["launches"]["perop_blocks"] / max(calls, 1)
+    want = {k: _perop_per_step(k, round(n_mod * per_call)) for k in kernels}
+    wrong = [(i, k, c[k]) for i, c in enumerate(run["launches_per_step"]) for k in kernels
+             if c[k] != want[k]]
+    wrong += [(k, run["launches"][k]) for k in off if run["launches"][k]]
+    if wrong or calls != 2 * n_mod * run["steps"]:
+        raise AssertionError(f"{phase}: launches per step off, or other encoder kernels "
+                             f"launched: {wrong}; blocked calls {calls}")
+    return per_call
+
+
 def phase_train_ragged_nofused(state):
-    """The softmax per-op lane (MADELEINE_NO_FUSED_ENCODER) on a ragged batch
-    of [65, 5, 4096] (lengths log-uniform in [1024, 4096], three bags
-    empty), 3 steps: the losses finite, none skipped, rows 4-5 and kernels
-    15-20 every step, K6/K7 never."""
+    """The softmax per-op lane (MADELEINE_NO_FUSED_ENCODER, bf16) on a
+    ragged batch of [65, 5] whose longest bag has RAGGED_NOFUSED[1] tokens
+    (bucket 32768; lengths log-uniform from RAGGED_NOFUSED[0], three IHC bags
+    empty), RAGGED_NOFUSED_STEPS steps under cfg.remat (each modality's body
+    recomputed in its backward) with every per-op call in blocks of whole
+    bags (`models/abmil.py::perop_blocks_of`): the losses finite, none
+    skipped, rows 4-5 and 15-20 once per block of every call on every step
+    (the forward rows twice: the recompute), K6/K7 never, the peak under 80
+    GB; a step under sync debug mode "error", one back to back. Then the
+    padding check: a batch of bucket 16384 (lengths up to RAGGED_NOFUSED_PAD,
+    one block a call) one step from the trained weights against the same
+    batch padded to 32768 (in blocks), the losses within 1e-4 relative,
+    every gradient within 1e-2 relative Frobenius. First the chain's own
+    peaks against their reckoning (`_perop_own_peaks`)."""
     import torch
+    from madeleine_torch.train.trainer import step_seed
 
     cfg = got_path_config()
-    lo, hi = RAGGED_NOFUSED_SHAPE
-    lengths = ragged_lengths(SEED + 30, cfg.batch_size, cfg.n_modalities, lo, hi)
+    lo, hi = RAGGED_NOFUSED
+    n_mod = cfg.n_modalities
+    lengths = ragged_lengths(SEED + 30, cfg.batch_size, n_mod, lo, hi)
     torch.cuda.empty_cache()
+    own_peaks = _perop_own_peaks(torch)
     with _no_fused_encoder():
-        _, model, _, run = _run_train_steps(
-            torch, state, "train_ragged_nofused", NOFUSED_KERNELS + GOT_KERNELS + GLUE_KERNELS,
-            setup=_train_setup(torch, cfg, ragged_batch(torch, lengths, SEED + 31)),
-            steps=RAGGED_NOFUSED_STEPS, b2b_steps=2, skips=False, falls=False)
-    del model
+        setup = _train_setup(torch, cfg, ragged_batch(torch, lengths, SEED + 31))
+        _, model, step, _ = setup
+        run = _run_train_steps(torch, state, "train_ragged_nofused",
+                               NOFUSED_KERNELS + GOT_KERNELS + GLUE_KERNELS, setup=setup,
+                               steps=RAGGED_NOFUSED_STEPS, b2b_steps=1, skips=False,
+                               falls=False)[3]
+        del setup
+        per_call = _perop_grown_run(run, "train_ragged_nofused", NOFUSED_KERNELS, n_mod,
+                                    ENCODER_KERNELS)
+        torch.cuda.empty_cache()
+        box = [ragged_batch(torch, ragged_lengths(SEED + 32, cfg.batch_size, n_mod,
+                                                  lo, RAGGED_NOFUSED_PAD), SEED + 33)]
+        pad, ok = _padding_check(torch, model, step, box, hi, step_seed(SEED, 1, 0),
+                                 counters=PEROP_BLOCK_COUNTERS)
+    del model, step
     torch.cuda.empty_cache()
-    fused = {k: run["launches"][k] for k in ENCODER_KERNELS}
-    emit({"phase": "train_ragged_nofused", **run, "variable": f"{NO_FUSED_VAR}=1",
-          "lengths_range": [lo, hi], "valid_tokens": int(lengths.sum())})
-    if any(fused.values()):
-        raise AssertionError(f"train_ragged_nofused: K6/K7 launched {fused}")
+    emit({"phase": "train_ragged_nofused", "smi": state["smi"], **run,
+          "variable": f"{NO_FUSED_VAR}=1", "remat": cfg.remat, "lengths_range": [lo, hi],
+          "bucket": run["batch"][2], "valid_tokens": int(lengths.sum()),
+          "blocks_per_call": per_call, "padding_check": pad, "perop_own_peaks": own_peaks})
+    if (run["peak_memory_gb"] >= 80.0 or per_call < 2 or not ok
+            or pad["perop_blocked_calls_unpadded"] != 0
+            or pad["perop_blocked_calls_padded"] != 2 * n_mod):
+        raise AssertionError(f"train_ragged_nofused: peak {run['peak_memory_gb']} GB, "
+                             f"{per_call} blocks a call, padding check {pad}")
+    state["train_ragged_nofused"] = {"step_ms": run["step_ms_median_after_first"],
+                                     "host_ms": run["host_ms_per_step_back_to_back"],
+                                     "peak_gb": run["peak_memory_gb"],
+                                     "blocks_per_call": per_call}
 
 
 HEAD_CLASSES = 4
@@ -5511,17 +5891,18 @@ def _cli_parts(launched, exited, timeline):
     return {k: marks[i + 1] - marks[i] for i, k in enumerate(CLI_PARTS)}
 
 
-def _run_pretrain_cli(argv, log_path, launcher=(), fresh=True):
+def _run_pretrain_cli(argv, log_path, launcher=()):
     """The pretrain CLI from the repo root on `argv`, this process's cached
     device memory released first; returns (results dir, metrics records,
-    wall seconds). With `fresh`, `python -m madeleine_torch.cli.pretrain` as
-    a subprocess (`launcher`: the module's arguments to `python -m` before
-    the CLI's, e.g. torchrun's); else the CLI's entry point
-    `madeleine_torch.cli.pretrain.main(argv)` in this process, its output
-    to the log, which spares the fixed cost of a process (the interpreter,
-    torch's import, torch._dynamo's import by the first optimizer, and the
-    exit: about 16 s of a 20 s run, PERF §7). The run's seconds by part
-    (`_cli_parts`) go to CLI_RUNS."""
+    wall seconds). With a `launcher` (the module and arguments to `python
+    -m` before the CLI's, e.g. torchrun's) `python -m <launcher> -m
+    madeleine_torch.cli.pretrain` in a fresh process; else the CLI's entry
+    point `madeleine_torch.cli.pretrain.main(argv)` in this process, its
+    output to the log, which spares the fixed cost of a process (the
+    interpreter, torch's import, torch._dynamo's import by the first
+    optimizer, and the exit: about 16 s of a 20 s run, PERF §7). The run's
+    seconds by part (`_cli_parts`) go to CLI_RUNS."""
+    fresh = bool(launcher)
     import torch
 
     gc.collect()
@@ -5529,8 +5910,7 @@ def _run_pretrain_cli(argv, log_path, launcher=(), fresh=True):
     t0, launched = time.perf_counter(), time.time()
     with open(log_path, "w") as log:
         if fresh:
-            proc = subprocess.run([sys.executable, "-m", *launcher,
-                                   *(("-m",) if launcher else ()),
+            proc = subprocess.run([sys.executable, "-m", *launcher, "-m",
                                    "madeleine_torch.cli.pretrain", *argv],
                                   cwd=HERE, stdout=log, stderr=subprocess.STDOUT, timeout=900,
                                   env=dict(os.environ, PYTHONPATH=HERE))
@@ -5538,8 +5918,6 @@ def _run_pretrain_cli(argv, log_path, launcher=(), fresh=True):
         else:
             from madeleine_torch.cli import pretrain
 
-            if launcher:
-                raise ValueError("a launcher needs a fresh process")
             with contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
                 try:
                     pretrain.main(list(argv))
@@ -5759,11 +6137,10 @@ def _pinned_batch_outlives_its_copy(torch, n=64 << 20):
             "mb": n * 4 / 2 ** 20}
 
 
-def _pretrain_trio(root, tag, epochs_a, epochs, *extra, n_subsamples=2048, fresh=True,
-                   **check):
-    """Three CLI runs on the cohort: A epochs_a epochs with --checkpoint_every
-    1 (in a fresh process when `fresh`), B A resumed to `epochs`, C `epochs`
-    straight (both in this process), each checked by `_check_pretrain_run`
+def _pretrain_trio(root, tag, epochs_a, epochs, *extra, n_subsamples=2048, **check):
+    """Three CLI runs on the cohort, in this process: A epochs_a epochs with
+    --checkpoint_every 1, B A resumed to `epochs`, C `epochs` straight, each
+    checked by `_check_pretrain_run`
     (`check`: its keywords). Returns (runs, model.pt state dicts, wall
     seconds, resume report); B must equal C bit for bit."""
     import torch
@@ -5775,8 +6152,7 @@ def _pretrain_trio(root, tag, epochs_a, epochs, *extra, n_subsamples=2048, fresh
         results, records, walls[name] = _run_pretrain_cli(
             _pretrain_argv(root, os.path.join(root, tag + name.lower()), n,
                            "--checkpoint_every", "1", *more, *extra, n_subsamples=n_subsamples),
-            os.path.join(root, f"pretrain_{tag}{name.lower()}.log"),
-            fresh=fresh and name == "A")
+            os.path.join(root, f"pretrain_{tag}{name.lower()}.log"))
         if name == "A":
             resume_from = os.path.join(results, "train_state")
         first = epochs_a if name == "B" else 0
@@ -5829,15 +6205,19 @@ def phase_pretrain(state):
     with softmax and MADELEINE_NO_FUSED_ENCODER=1 (rows 4-5 and kernels
     15-20), native. The first native batch, bf16 and f32, against its
     plain version bit for bit; both loaders' host ms and parts, H2D ms,
-    step ms, epoch time and stream busy share. A runs as `python -m` in a
-    fresh process, every other run through the CLI's entry point in this
-    process (`_run_pretrain_cli`)."""
+    step ms, epoch time and stream busy share. Every run goes through the
+    CLI's entry point in this process (`_run_pretrain_cli`): a fresh
+    process's own seconds are the bare process's (`_process_probe`), and
+    data_parallel's torchrun run starts `python -m
+    madeleine_torch.cli.pretrain` in one. The cohort stays for the
+    data_parallel phase's CLI runs when that phase is in the run."""
     import torch
 
     gen = np.random.default_rng(SEED + 7)
     probe = _process_probe()
     pinned = _pinned_batch_outlives_its_copy(torch)
     root = tempfile.mkdtemp(prefix="pretrain_")
+    keep = False
     try:
         t0 = time.perf_counter()
         n_bags, n_bytes = _write_pretrain_cohort(root, gen)
@@ -5850,18 +6230,18 @@ def phase_pretrain(state):
         del ring_batch
         runs, _, walls, resume = _pretrain_trio(root, "", 2, 3)
         runs_se, sds_se, walls_se, resume_se = _pretrain_trio(
-            root, "se_", 1, 2, "--add_stain_encoding", fresh=False)
+            root, "se_", 1, 2, "--add_stain_encoding")
         results, records, wall_sig = _run_pretrain_cli(
             _pretrain_argv(root, os.path.join(root, "sigmoid"), 1, "--activation", "sigmoid",
                            "--checkpoint_every", "1", "--native_loader", "off"),
-            os.path.join(root, "pretrain_sigmoid.log"), fresh=False)
+            os.path.join(root, "pretrain_sigmoid.log"))
         run_sig, _ = _check_pretrain_run("sigmoid", results, records, range(1),
                                          kernels=PEROP_KERNELS + GOT_KERNELS + GLUE_KERNELS,
                                          downstream_kernel=None, loader="python")
         with _no_fused_encoder():   # forward_train reads the variable at each call
             results, records, wall_nf = _run_pretrain_cli(
                 _pretrain_argv(root, os.path.join(root, "nofused"), 1, "--checkpoint_every", "1"),
-                os.path.join(root, "pretrain_nofused.log"), fresh=False)
+                os.path.join(root, "pretrain_nofused.log"))
         run_nf, _ = _check_pretrain_run("nofused", results, records, range(1),
                                         kernels=NOFUSED_KERNELS + GOT_KERNELS + GLUE_KERNELS)
         if any(run_nf["launches"].get(k, 0) for k in ENCODER_KERNELS):
@@ -5870,11 +6250,15 @@ def phase_pretrain(state):
         results, records, wall_intra = _run_pretrain_cli(
             _pretrain_argv(root, os.path.join(root, "intra"), 1, "--checkpoint_every", "1",
                            "--intra_modality_loss", "info-nce"),
-            os.path.join(root, "pretrain_intra.log"), fresh=False)
+            os.path.join(root, "pretrain_intra.log"))
         run_intra, _ = _check_pretrain_run("intra", results, records, range(1))
         loader_parts = _loader_breakdown(root)
+        keep = "data_parallel" in state["phases"]
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if keep:
+            state["pretrain_cohort"] = root
+        else:
+            shutil.rmtree(root, ignore_errors=True)
         _release_host_cache(torch)
     table = sds_se["C"]["embedding.weight"]
     if tuple(table.shape) != (5, 32) or sds_se["C"]["wsi_embedders.pre_attn.0.weight"].shape[1] \
@@ -5949,7 +6333,8 @@ def _drop_ragged_cohort(state, keep=False):
 
 
 def phase_pretrain_ragged(state):
-    """`python -m madeleine_torch.cli.pretrain` with the launch script's
+    """The pretrain CLI's `main` in this process (data_parallel's torchrun
+    run starts it as `python -m` in a fresh one) with the launch script's
     flags but its default --n_subsamples (-1: full bags) on a synthetic
     cohort of 70 cases of bf16 .bag bags of 300-8000 tokens (bucket 8192),
     20% of IHC stains absent: through the native loader (NativeRaggedLoader)
@@ -5970,7 +6355,7 @@ def phase_pretrain_ragged(state):
         results, records, wall_py = _run_pretrain_cli(
             _pretrain_argv(root, os.path.join(root, "ragged_python"), 1, "--checkpoint_every",
                            "1", "--native_loader", "off", n_subsamples=None),
-            os.path.join(root, "pretrain_ragged_python.log"), fresh=False)
+            os.path.join(root, "pretrain_ragged_python.log"))
         run_py, _ = _check_pretrain_run("ragged_python", results, records, range(1),
                                         loader="python")
         logs = open(os.path.join(root, "pretrain_ragged_a.log")).read()
@@ -5990,7 +6375,8 @@ def phase_pretrain_ragged(state):
     del x
     grown = _pretrain_grown(torch)
     state["launches_pretrain_ragged"] = {k: sum(r["launches"].get(k, 0)
-                                                for r in every + [grown["run"]])
+                                                for r in every + [grown["run"],
+                                                                  grown["sigmoid_run"]])
                                          for k in read_counts()}
     native = _loader_line(list(runs.values()))
     emit({"phase": "pretrain_ragged", "cases": PRETRAIN_CASES, "bags": n_bags,
@@ -6026,7 +6412,10 @@ def _pretrain_grown(torch):
     and applied, K6-K14 every step, K1 downstream, nothing truncated, the
     buckets include 32768; the native ring's pinned bytes (4 slots of 8 x 5
     x 32768 tokens), what the same ring would pin at 65 cases a batch, and
-    the host's memory."""
+    the host's memory. Then the same epoch with --activation sigmoid (the
+    per-op lane under cfg.remat, kernels 15-20 every step, no K6/K7; a
+    non-softmax model's downstream pass is plain), the buckets again
+    including 32768, nothing truncated."""
     from madeleine_torch.data.datasets import RAGGED_BUCKETS, bucket_of
 
     cases, bs, n_long = GROWN_PRETRAIN
@@ -6040,25 +6429,42 @@ def _pretrain_grown(torch):
         results, records, wall = _run_pretrain_cli(
             _pretrain_argv(root, os.path.join(root, "grown"), 1, "--batch_size", str(bs),
                            "--checkpoint_every", "1", n_subsamples=None),
-            os.path.join(root, "pretrain_grown.log"), fresh=False)
+            os.path.join(root, "pretrain_grown.log"))
         run, _ = _check_pretrain_run("grown", results, records, range(1))
+        results, records, wall_sig = _run_pretrain_cli(
+            _pretrain_argv(root, os.path.join(root, "grown_sigmoid"), 1, "--batch_size",
+                           str(bs), "--checkpoint_every", "1", "--activation", "sigmoid",
+                           n_subsamples=None),
+            os.path.join(root, "pretrain_grown_sigmoid.log"))
+        run_sig, _ = _check_pretrain_run("grown_sigmoid", results, records, range(1),
+                                         kernels=PEROP_KERNELS + GOT_KERNELS + GLUE_KERNELS,
+                                         downstream_kernel=None)
     finally:
         shutil.rmtree(root, ignore_errors=True)
         _release_host_cache(torch)
     bucket = bucket_of(n_long, RAGGED_BUCKETS)
-    if bucket not in run["buckets"] or any(run["truncation_count"]):
-        raise AssertionError(f"pretrain_ragged grown bucket: buckets {run['buckets']}, "
-                             f"truncations {run['truncation_count']}")
+    fused = {k: run_sig["launches"].get(k, 0) for k in ENCODER_KERNELS}
+    for name, r in (("softmax", run), ("sigmoid", run_sig)):
+        if bucket not in r["buckets"] or any(r["truncation_count"]) or any(fused.values()):
+            raise AssertionError(f"pretrain_ragged grown bucket ({name}): buckets "
+                                 f"{r['buckets']}, truncations {r['truncation_count']}, "
+                                 f"K6/K7 in the sigmoid run {fused}")
     slot = len(PRETRAIN_STAINS) * bucket * 512 * 2
     return {"cases": cases, "batch_size": bs, "bags": n_bags, "cohort_gb": n_bytes / 1e9,
             "cohort_write_s": write_s, "long_bag_tokens": n_long, "bucket": bucket,
             "run": run, "cli_wall_s": wall, "pinned_bytes": run["pinned_bytes"],
+            "sigmoid_run": run_sig, "sigmoid_cli_wall_s": wall_sig,
             "pinned_bytes_reckoned": 4 * bs * slot,
             "pinned_bytes_reckoned_65_cases": 4 * 65 * slot, "host_memory_gb": _host_memory_gb()}
 
 
+# the f32 sigmoid CLI epoch's peak measured before the per-op lane read
+# cfg.remat, every modality's saves kept until the backward (PERF.md §5)
+NO_REMAT_F32_SIGMOID_CLI_PEAK_GB = 70.878
+
+
 def phase_pretrain_f32(state):
-    """`python -m madeleine_torch.cli.pretrain` at --precision float32 with
+    """The pretrain CLI's `main` in this process at --precision float32 with
     the launch script's other flags and its default full bags
     (--n_subsamples -1) on pretrain_ragged's synthetic cohort (70 cases of
     bf16 .bag bags of 300-8000 tokens, bucket 8192; the native loader
@@ -6068,8 +6474,9 @@ def phase_pretrain_f32(state):
     15.3 GB in f32, pass the 10 GiB budget) and K8-K14 on every step, no
     bf16 K6/K7, K2 in the downstream pass; the CLI step ms and the peak.
     Then one epoch with --activation sigmoid on the same cohort (the per-op
-    lane at f32): every step finite and applied, rows 15-18 with f32
-    operands on every step, no bf16 row 15-18 and no K6/K7."""
+    lane at f32 under cfg.remat): every step finite and applied, rows 15-18
+    with f32 operands on every step, no bf16 row 15-18 and no K6/K7; its
+    peak beside the 70.88 GB measured before the lane read cfg.remat."""
     import torch
 
     root = _ragged_cohort(state)[0]   # pretrain_ragged's cohort
@@ -6084,7 +6491,7 @@ def phase_pretrain_f32(state):
             _pretrain_argv(root, os.path.join(root, "f32_sigmoid"), 1, "--checkpoint_every", "1",
                            "--precision", "float32", "--activation", "sigmoid",
                            n_subsamples=None),
-            os.path.join(root, "pretrain_f32_sigmoid.log"), fresh=False)
+            os.path.join(root, "pretrain_f32_sigmoid.log"))
         run_sig, _ = _check_pretrain_run("f32_sigmoid", results, records, range(1),
                                          kernels=PEROP_F32_KERNELS + GOT_KERNELS + GLUE_KERNELS,
                                          downstream_kernel=None, loader="native-f32")
@@ -6115,9 +6522,10 @@ def phase_pretrain_f32(state):
           "step_ms_median_warm": statistics.median(warm),
           "peak_memory_gb": max(r["peak_memory_gb"] for r in every),
           "sigmoid": {"run": run_sig, "cli_wall_s": wall_sig,
-                      "flags": "and --activation sigmoid (rows 15-18 f32)",
+                      "flags": "and --activation sigmoid (rows 15-18 f32, cfg.remat)",
                       "step_ms": run_sig["step_ms"],
-                      "peak_memory_gb": run_sig["peak_memory_gb"]}})
+                      "peak_memory_gb": run_sig["peak_memory_gb"],
+                      "peak_memory_gb_without_remat": NO_REMAT_F32_SIGMOID_CLI_PEAK_GB}})
 
 
 DP_BS = 64                   # (b)'s global batch: 32 rows a rank
@@ -6231,11 +6639,13 @@ def _dp_results(torch, cfg, model, init, dense, ragged, bags, group):
     return out
 
 
-def dp_worker(rank: int, world: int, port: int, out_path: str,
-              precision: str = "bfloat16") -> None:
+DP_PRECISIONS = ("bfloat16", "float32")   # (b)'s steps, both in each rank's one process
+
+
+def dp_worker(rank: int, world: int, port: int, out_path: str) -> None:
     """One rank of (b): a Gloo group over CUDA tensors on the one card; runs
-    `_dp_results` on its rows, the step at `precision`, and saves them to
-    out_path."""
+    `_dp_results` on its rows with the step at each of DP_PRECISIONS, and
+    saves them to out_path ({precision: results})."""
     import torch
 
     sys.path.insert(0, HERE)
@@ -6243,23 +6653,27 @@ def dp_worker(rank: int, world: int, port: int, out_path: str,
 
     resolve_device("cuda")
     group = _init_group("gloo", rank, world, port)
-    cfg, model, init, dense, ragged, bags = _dp_inputs(torch, rank, world, precision)
-    out = _dp_results(torch, cfg, model, init, dense, ragged, bags, group)
+    out = {}
+    for precision in DP_PRECISIONS:
+        cfg, model, init, dense, ragged, bags = _dp_inputs(torch, rank, world, precision)
+        out[precision] = _dp_results(torch, cfg, model, init, dense, ragged, bags, group)
+        del model, init, dense, ragged, bags
+        torch.cuda.empty_cache()
     torch.save(out, out_path)
     torch.distributed.destroy_process_group()
 
 
-def _dp_world_2(torch, precision):
-    """(b)'s two ranks, each a process on the one card: their saved results
-    and the wall seconds."""
+def _dp_world_2(torch):
+    """(b)'s two ranks, each a process on the one card that runs the step at
+    each of DP_PRECISIONS (one process start for both): their saved results
+    ({precision: [rank 0's, rank 1's]}) and the wall seconds."""
     tmp, procs = tempfile.mkdtemp(prefix="dp_"), []
     try:
         port = _free_port()
         t0 = time.perf_counter()
         for r in range(2):
             code = (f"import sys; sys.path.insert(0, {HERE!r}); import chip_smoke; "
-                    f"chip_smoke.dp_worker({r}, 2, {port}, {os.path.join(tmp, f'rank{r}.pt')!r}, "
-                    f"{precision!r})")
+                    f"chip_smoke.dp_worker({r}, 2, {port}, {os.path.join(tmp, f'rank{r}.pt')!r})")
             log = open(os.path.join(tmp, f"rank{r}.log"), "w")
             procs.append((subprocess.Popen([sys.executable, "-c", code], cwd=HERE, stdout=log,
                                            stderr=subprocess.STDOUT), log))
@@ -6270,9 +6684,9 @@ def _dp_world_2(torch, precision):
         if any(rcs):
             logs = "\n".join(open(os.path.join(tmp, f"rank{r}.log")).read()[-3000:]
                              for r in range(2))
-            raise AssertionError(f"data_parallel (b, {precision}): a rank failed ({rcs}):\n"
-                                 f"{logs}")
-        return [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)], wall
+            raise AssertionError(f"data_parallel (b): a rank failed ({rcs}):\n{logs}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
+        return {p: [r[p] for r in ranks] for p in DP_PRECISIONS}, wall
     finally:
         for p, _ in procs:
             if p.poll() is None:
@@ -6342,7 +6756,8 @@ def phase_data_parallel(state):
     bit; the step ms and the host's launch ms a step of both, back to back
     in the order plain, group, group, plain; each step's collectives
     (calls, bytes). (b) World size 2 on the one card: two processes on a
-    Gloo group over CUDA tensors (NCCL takes one rank a device), a global
+    Gloo group over CUDA tensors (NCCL takes one rank a device), each
+    running the bf16 and then the f32 step (`dp_worker`), a global
     batch of 64 x 5 x 2048 at the real rates, and one ragged step of 16 x 5
     x 4096, against this process's step on the same rows without a group:
     H&E embeddings within 1e-4 relative Frobenius, the loss 1e-5 relative,
@@ -6433,15 +6848,25 @@ def phase_data_parallel(state):
         raise AssertionError(f"data_parallel (c): row 4 launched {c_counts['attn_pool_ms']} "
                              f"times, max |err| {bag_err_w1} against K1's encode")
     torch.cuda.empty_cache()
+    # (b) again with the f32 step (K6/K7 with f32 operands): nothing is rounded
+    # to bf16 before the sum over ranks, so every gradient meets 1e-4
+    # relative Frobenius against one process on the same rows; both steps'
+    # world-1 references first, then both in each rank's one process
+    cfg_f, model, init, dense, ragged, bags = _dp_inputs(torch, precision="float32")
+    ref_f = _dp_results(torch, cfg_f, model, init, dense, ragged, bags, None)
+    del model, init, dense, ragged, bags
+    torch.cuda.empty_cache()
     # (b) world size 2 on the one card, Gloo over CUDA tensors
-    ranks, wall_b = _dp_world_2(torch, "bfloat16")
+    by_precision, wall_b = _dp_world_2(torch)
+    ranks = by_precision["bfloat16"]
     got, same = _dp_gather(torch, ranks)
     errs, failures = _dp_compare(torch, got, ref, ranks)
     bag_err_w2 = [float((r["bag"] - ref["bag"]).abs().max()) for r in ranks]
     if not same or not max(bag_err_w2) <= DP_BAG_ATOL:
         failures.append(f"(b)/(c): ranks agree {same}, bag-parallel max |err| {bag_err_w2}")
     out["b"] = {"backend": "gloo (CUDA tensors)", "world_size": 2, "global_batch": DP_BS,
-                "ragged": list(DP_RAGGED), "seed": DP_SEED, "wall_s": wall_b,
+                "ragged": list(DP_RAGGED), "seed": DP_SEED,
+                "wall_s_both_precisions": wall_b,
                 "step_ms_world_2": [r["dense_step_ms"] for r in ranks],
                 "step_ms_world_1_same_rows": ref["dense_step_ms"],
                 "ranks_agree": same, **errs}
@@ -6449,28 +6874,24 @@ def phase_data_parallel(state):
                 "max_abs_err_world_2_gloo": bag_err_w2, "bar": DP_BAG_ATOL,
                 "row4_launches_world_1": c_counts["attn_pool_ms"]}
     emit({"phase": "data_parallel", "smi": state["smi"], "b": out["b"], "c": out["c"]})
-    # (b) again with the f32 step (K6/K7 with f32 operands): nothing is rounded
-    # to bf16 before the sum over ranks, so every gradient meets 1e-4
-    # relative Frobenius against one process on the same rows
-    cfg_f, model, init, dense, ragged, bags = _dp_inputs(torch, precision="float32")
-    ref_f = _dp_results(torch, cfg_f, model, init, dense, ragged, bags, None)
-    del model, init, dense, ragged, bags
-    torch.cuda.empty_cache()
-    ranks, wall_f = _dp_world_2(torch, "float32")
+    ranks = by_precision["float32"]
     got, same = _dp_gather(torch, ranks)
     errs_f, bad_f = _dp_compare(torch, got, ref_f, ranks, f32=True)
     if not same:
         bad_f.append("(b) f32: the ranks disagree")
     failures += bad_f
-    out["b_f32"] = {"backend": "gloo (CUDA tensors)", "world_size": 2, "wall_s": wall_f,
+    out["b_f32"] = {"backend": "gloo (CUDA tensors)", "world_size": 2,
                     "step_ms_world_2": [r["dense_step_ms"] for r in ranks],
                     "step_ms_world_1_same_rows": ref_f["dense_step_ms"], "ranks_agree": same,
                     "grad_rtol_fro": F32_GRAD_RTOL, **errs_f}
     emit({"phase": "data_parallel", "smi": state["smi"], "b_f32": out["b_f32"]})
-    # (d) the CLI under torchrun --nproc_per_node 1 against the plain CLI
-    root = tempfile.mkdtemp(prefix="dp_cli_")
+    # (d) the CLI under torchrun --nproc_per_node 1 against the plain CLI, on
+    # the pretrain phase's cohort (written here when that phase did not run)
+    root = state.pop("pretrain_cohort", None)
     try:
-        _write_pretrain_cohort(root, np.random.default_rng(SEED + 7))   # the pretrain phase's
+        if root is None:
+            root = tempfile.mkdtemp(prefix="dp_cli_")
+            _write_pretrain_cohort(root, np.random.default_rng(SEED + 7))
         sds, walls, digests = {}, {}, {}
         for name, launcher in (("plain", ()), ("torchrun", ("torch.distributed.run",
                                                              "--standalone",
@@ -6478,7 +6899,7 @@ def phase_data_parallel(state):
             log_path = os.path.join(root, f"{name}.log")
             results, records, walls[name] = _run_pretrain_cli(
                 _pretrain_argv(root, os.path.join(root, name), 1, "--checkpoint_every", "1"),
-                log_path, launcher, fresh=bool(launcher))
+                log_path, launcher)
             run, sds[name] = _check_pretrain_run(f"dp_{name}", results, records, range(1))
             if name == "torchrun":   # the lane's own launches
                 for k, v in run["launches"].items():
@@ -6486,7 +6907,8 @@ def phase_data_parallel(state):
             digests[name] = [ln.rsplit(" ", 1)[1] for ln in open(log_path).read().splitlines()
                              if "parameters sha256" in ln]
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if root is not None:
+            shutil.rmtree(root, ignore_errors=True)
     equal = all(torch.equal(sds["plain"][k], sds["torchrun"][k]) for k in sds["plain"])
     out["d"] = {"model_pt_bitwise_equal": equal, "cli_wall_s": walls,
                 "param_sha256": digests}
@@ -6807,9 +7229,10 @@ def main() -> int:
         emit({"partial": phases})
         return 0
 
-    # the kernels' launches, and beside them K6/K7's calls in blocks of whole
-    # bags and their blocks (a counter a phase lacks counts 0)
-    counted = list(state["kernels"]) + list(BLOCK_COUNTERS)
+    # the kernels' launches, and beside them K6/K7's and the per-op lane's
+    # calls in blocks of whole bags and their blocks (a counter a phase lacks
+    # counts 0)
+    counted = list(state["kernels"]) + list(BLOCK_COUNTERS) + list(PEROP_BLOCK_COUNTERS)
 
     def lane(paths, k):
         return sum(state[f"launches_{p}"].get(k, 0) for p in paths)
@@ -6839,6 +7262,15 @@ def main() -> int:
                             ("encoder_train_bwd", "encoder_train_bwd_blocked_calls")):
         state["kernels"][kernel]["blocked_calls"] = launches[counter] - f32[counter]
         state["kernels"][kernel + "_f32"]["blocked_calls"] = f32[counter]
+    # the per-op lane's forward calls in blocks on the main path (cfg.remat's
+    # recomputes counted too) and their blocks: rows 4-5 and 15-20 run once a
+    # block; the f32 rows' from the f32 lane
+    for kernel in NOFUSED_KERNELS + PEROP_F32_KERNELS:
+        lane_ = f32 if kernel in PEROP_F32_KERNELS else {
+            k: launches[k] - f32[k] for k in PEROP_BLOCK_COUNTERS}
+        if kernel in state["kernels"]:
+            state["kernels"][kernel].update(perop_blocked_calls=lane_["perop_blocked_calls"],
+                                            perop_blocks=lane_["perop_blocks"])
     emit({"kernels": [dict(v, launches=launches[k]) for k, v in state["kernels"].items()]})
     print(state["smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": state["kind"],

@@ -77,7 +77,7 @@ class MadeleineConfig:
 
     # ---- train route and run (the JAX package's extensions) ----
     modality_scan: bool = True   # one encoder call per modality; False: one joint call
-    remat: bool = True           # recorded for the JAX package; K7's route is save_acts'
+    remat: bool = True           # per-op lane: each modality's body recomputed in its backward
     mesh_shape: Optional[int] = None   # data-parallel devices: the world size
     checkpoint_every: int = 0    # extra train-state checkpoints every N epochs (0: gated only)
     profile_dir: Optional[str] = None  # torch.profiler chrome trace of the epochs

@@ -245,8 +245,14 @@ cudaError_t launch_bwd(const void* y, const float* l, const float* m, const floa
   return cudaGetLastError();
 }
 
+// b is a grid extent (z of the forward's partials, y of the combine and of
+// the backward): at most MAX_BAGS bags a call, a larger one runs in blocks
+// of whole bags (models/abmil.py::abmil_embed_train). Every element offset
+// is 64-bit (size_t).
+constexpr int MAX_BAGS = 65535;
+
 bool bad_shape(const void* y, int b, int t, int nh, int e, int is_bf16) {
-  return b < 1 || t < 1 || nh < 1 || nh > MAX_NH || e % (is_bf16 ? 8 : 4) != 0 ||
+  return b < 1 || b > MAX_BAGS || t < 1 || nh < 1 || nh > MAX_NH || e % (is_bf16 ? 8 : 4) != 0 ||
          reinterpret_cast<uintptr_t>(y) % 16 != 0;
 }
 

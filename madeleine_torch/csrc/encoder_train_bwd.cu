@@ -197,7 +197,7 @@ int backward(void** p, const long long* dims, const float* scales, void* stream_
   const cudaStream_t st = static_cast<cudaStream_t>(stream_);
   // rows and global bag indices are 32-bit below (every offset is 64-bit):
   // a larger call runs in blocks of whole bags (ops/encoder_train.py)
-  if (dims[0] < 1 || dims[1] < 1 || dims[0] * dims[1] > INT_MAX || dims[9] + dims[0] > INT_MAX)
+  if (!madeleine::rows_fit(dims[0], dims[1], dims[9]))
     return (int)cudaErrorInvalidValue;
   const Shapes S = shapes_of(dims);
   const Dropout dpre{(uint32_t)dims[8], (uint32_t)dims[10], scales[0]};

@@ -184,7 +184,7 @@ int forward(void** p, const long long* dims, const float* scales, void* stream_)
   const cudaStream_t st = static_cast<cudaStream_t>(stream_);
   // rows and global bag indices are 32-bit below (every offset is 64-bit):
   // a larger call runs in blocks of whole bags (ops/encoder_train.py)
-  if (dims[0] < 1 || dims[1] < 1 || dims[0] * dims[1] > INT_MAX || dims[9] + dims[0] > INT_MAX)
+  if (!madeleine::rows_fit(dims[0], dims[1], dims[9]))
     return (int)cudaErrorInvalidValue;
   const int b = (int)dims[0], t = (int)dims[1], d_in = (int)dims[2], hd = (int)dims[3];
   const int nh = (int)dims[4], e = (int)dims[5], f = (int)dims[6], dout = (int)dims[7];

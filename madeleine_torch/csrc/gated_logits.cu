@@ -63,6 +63,9 @@ struct Dims {
   Dropout d;
 };
 
+// dims: b, t, nh, e, f, seed, row_offset, thr (gated_logits_forward).
+bool fits(const long long* dims) { return madeleine::rows_fit(dims[0], dims[1], dims[6]); }
+
 Dims dims_of(const long long* dims, const float* scales) {
   Dims D;
   D.b = (int)dims[0]; D.t = (int)dims[1]; D.nh = (int)dims[2]; D.e = (int)dims[3];
@@ -83,6 +86,7 @@ Dims dims_of(const long long* dims, const float* scales) {
 // cudaError_t (cudaErrorInvalidValue where the wgmma GEMM refuses an operand).
 extern "C" int gated_logits_forward(void** p, const long long* dims, const float* scales,
                                     void* stream_) {
+  if (!fits(dims)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream_);
   const Dims D = dims_of(dims, scales);
   const int nh = D.nh, e = D.e, f = D.f, M = D.M;
@@ -111,6 +115,7 @@ extern "C" int gated_logits_forward(void** p, const long long* dims, const float
 // Wb]), bab [nh, 2f] f32, wc, bc, logits, then scratch G [M, nh*2f] f32.
 extern "C" int gated_logits_forward_rowblock(void** p, const long long* dims,
                                              const float* scales, void* stream_) {
+  if (!fits(dims)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream_);
   const Dims D = dims_of(dims, scales);
   float* G = (float*)p[6];
@@ -125,6 +130,8 @@ extern "C" int gated_logits_forward_rowblock(void** p, const long long* dims,
 
 // Floats of workspace the backward needs: [split-K partials, column partials].
 extern "C" void gated_logits_bwd_workspace(const long long* dims, long long* out) {
+  out[0] = out[1] = 0;   // a call past the row limits is refused: it needs none
+  if (!fits(dims)) return;
   const float one = 1.f;
   const Dims D = dims_of(dims, &one);
   out[0] = madeleine::wgrad_work<madeleine::Gemm::WGMMA>(2 * D.f, D.e, D.M, D.nh);
@@ -140,6 +147,7 @@ extern "C" void gated_logits_bwd_workspace(const long long* dims, long long* out
 // where the wgmma GEMM refuses an operand).
 extern "C" int gated_logits_backward(void** p, const long long* dims, const float* scales,
                                      void* stream_) {
+  if (!fits(dims)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream_);
   const Dims D = dims_of(dims, scales);
   const int nh = D.nh, e = D.e, f = D.f, M = D.M;
@@ -186,6 +194,8 @@ extern "C" int gated_logits_backward(void** p, const long long* dims, const floa
 
 // The first design of the backward, kept as a check (no path calls it).
 extern "C" void gated_logits_bwd_rowblock_workspace(const long long* dims, long long* out) {
+  out[0] = out[1] = 0;   // a call past the row limits is refused: it needs none
+  if (!fits(dims)) return;
   const float one = 1.f;
   const Dims D = dims_of(dims, &one);
   out[0] = madeleine::wgrad_work<madeleine::Gemm::MMA_SYNC>(2 * D.f, D.e, D.M, D.nh);
@@ -198,6 +208,7 @@ extern "C" void gated_logits_bwd_rowblock_workspace(const long long* dims, long 
 // gated_logits_bwd_rowblock_workspace. Returns a cudaError_t.
 extern "C" int gated_logits_backward_rowblock(void** p, const long long* dims,
                                               const float* scales, void* stream_) {
+  if (!fits(dims)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream_);
   const Dims D = dims_of(dims, scales);
   const int nh = D.nh, e = D.e, f = D.f, M = D.M;
@@ -248,6 +259,7 @@ extern "C" int gated_logits_backward_rowblock(void** p, const long long* dims,
 // then gate_logits_sum adds the partials in chunk order and bc.
 extern "C" int gated_logits_forward_f32(void** p, const long long* dims, const float* scales,
                                         void* stream_) {
+  if (!fits(dims)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream_);
   const Dims D = dims_of(dims, scales);
   float *logits = (float*)p[5], *lpart = (float*)p[6];
@@ -262,6 +274,8 @@ extern "C" int gated_logits_forward_f32(void** p, const long long* dims, const f
 
 // Floats of workspace the f32 backward needs: [split pieces, column partials].
 extern "C" void gated_logits_bwd_workspace_f32(const long long* dims, long long* out) {
+  out[0] = out[1] = 0;   // a call past the row limits is refused: it needs none
+  if (!fits(dims)) return;
   const float one = 1.f;
   const Dims D = dims_of(dims, &one);
   out[0] = madeleine::wgrad_work<madeleine::Gemm::FFMA>(2 * D.f, D.e, D.M, D.nh);
@@ -280,6 +294,7 @@ extern "C" void gated_logits_bwd_workspace_f32(const long long* dims, long long*
 // gated_logits_bwd_workspace_f32. Returns a cudaError_t.
 extern "C" int gated_logits_backward_f32(void** p, const long long* dims, const float* scales,
                                          void* stream_) {
+  if (!fits(dims)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream_);
   const Dims D = dims_of(dims, scales);
   const int nh = D.nh, e = D.e, f = D.f, M = D.M;

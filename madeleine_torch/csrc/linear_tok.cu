@@ -54,10 +54,20 @@
 
 using madeleine::bf16;
 
+namespace {
+
+// dims: M (the b t rows), E, d_out. The GEMM counts rows in 32 bits
+// (train_common.cuh::MAX_TRAIN_ROWS): a larger call runs in blocks of whole
+// bags (models/abmil.py::abmil_embed_train).
+bool fits(const long long* dims) { return madeleine::rows_fit(1, dims[0], 0); }
+
+}  // namespace
+
 // dims: M (= b * t), E, dout. p: y [M, E] bf16, wt [dout, E] bf16, bt [dout]
 // f32, tok [M, dout] bf16. Returns a cudaError_t.
 extern "C" int linear_tok_forward(void** p, const long long* dims, const float*,
                                   void* stream_) {
+  if (!fits(dims)) return (int)cudaErrorInvalidValue;
   return (int)madeleine::gemm_tn_wgmma((const bf16*)p[0], (const bf16*)p[1], (const float*)p[2],
                                        (bf16*)p[3], (int)dims[0], (int)dims[2], (int)dims[1],
                                        static_cast<cudaStream_t>(stream_));
@@ -65,6 +75,8 @@ extern "C" int linear_tok_forward(void** p, const long long* dims, const float*,
 
 // Floats of workspace the backward needs: [split-K partials, column partials].
 extern "C" void linear_tok_bwd_workspace(const long long* dims, long long* out) {
+  out[0] = out[1] = 0;   // a call past the row limit is refused: it needs none
+  if (!fits(dims)) return;
   const int M = (int)dims[0], E = (int)dims[1], dout = (int)dims[2];
   out[0] = madeleine::wgrad_work<madeleine::Gemm::WGMMA>(dout, E, M, 1);
   out[1] = (long long)madeleine::row_tiles(M) * dout;
@@ -74,6 +86,7 @@ namespace {
 
 template <madeleine::Gemm G>
 int backward(void** p, const long long* dims, cudaStream_t st) {
+  if (!fits(dims)) return (int)cudaErrorInvalidValue;
   const int M = (int)dims[0], E = (int)dims[1], dout = (int)dims[2];
   const bf16 *y = (const bf16*)p[0], *g = (const bf16*)p[1], *wt = (const bf16*)p[2];
   const cudaError_t err =
@@ -96,6 +109,8 @@ extern "C" int linear_tok_backward(void** p, const long long* dims, const float*
 
 // The first design of the backward, kept as a check (no path calls it).
 extern "C" void linear_tok_bwd_mmasync_workspace(const long long* dims, long long* out) {
+  out[0] = out[1] = 0;   // a call past the row limit is refused: it needs none
+  if (!fits(dims)) return;
   const int M = (int)dims[0], E = (int)dims[1], dout = (int)dims[2];
   out[0] = madeleine::wgrad_work<madeleine::Gemm::MMA_SYNC>(dout, E, M, 1);
   out[1] = (long long)madeleine::row_tiles(M) * dout;

@@ -54,6 +54,9 @@ struct Dims {
   Dropout d;
 };
 
+// dims: b, t, d_in, hidden, E, seed, row_offset, thr (preattn_forward).
+bool fits(const long long* dims) { return madeleine::rows_fit(dims[0], dims[1], dims[6]); }
+
 Dims dims_of(const long long* dims, const float* scales) {
   Dims D;
   D.b = (int)dims[0]; D.t = (int)dims[1]; D.d_in = (int)dims[2]; D.hd = (int)dims[3];
@@ -178,6 +181,8 @@ cudaError_t recompute(const madeleine::StackFwd& a, cudaStream_t st) {
 // column partials].
 template <madeleine::Gemm G>
 void workspace(const long long* dims, long long* out) {
+  out[0] = out[1] = 0;   // a call past the row limits is refused: it needs none
+  if (!fits(dims)) return;
   const float one = 1.f;
   const Dims D = dims_of(dims, &one);
   out[0] = madeleine::stack_bwd_work<G>(D.M, D.d_in, D.hd, D.E);
@@ -233,6 +238,7 @@ void backward_args(void** p, const Dims& D, madeleine::StackFwdT<T>& f,
 // wgmma GEMM refuses an operand).
 extern "C" int preattn_forward(void** p, const long long* dims, const float* scales,
                                void* stream_) {
+  if (!fits(dims)) return (int)cudaErrorInvalidValue;
   madeleine::StackFwd a;
   forward_args(p, dims_of(dims, scales), a);
   return (int)recompute(a, static_cast<cudaStream_t>(stream_));
@@ -243,6 +249,7 @@ extern "C" int preattn_forward(void** p, const long long* dims, const float* sca
 // preattn_forward's, rstd set.
 extern "C" int preattn_forward_rowblock(void** p, const long long* dims, const float* scales,
                                         void* stream_) {
+  if (!fits(dims)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream_);
   madeleine::StackFwd a;
   forward_args(p, dims_of(dims, scales), a);
@@ -262,6 +269,7 @@ extern "C" void preattn_bwd_workspace(const long long* dims, long long* out) {
 // (cudaErrorInvalidValue where the wgmma GEMM refuses an operand).
 extern "C" int preattn_backward(void** p, const long long* dims, const float* scales,
                                 void* stream_) {
+  if (!fits(dims)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream_);
   const Dims D = dims_of(dims, scales);
   madeleine::StackFwd f;
@@ -281,6 +289,7 @@ extern "C" void preattn_bwd_rowblock_workspace(const long long* dims, long long*
 // As preattn_backward, the workspaces of preattn_bwd_rowblock_workspace.
 extern "C" int preattn_backward_rowblock(void** p, const long long* dims, const float* scales,
                                          void* stream_) {
+  if (!fits(dims)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream_);
   const Dims D = dims_of(dims, scales);
   madeleine::StackFwd f;
@@ -307,6 +316,7 @@ extern "C" int preattn_backward_rowblock(void** p, const long long* dims, const 
 // p as preattn_forward's with x, w1, w2, w3, y, H1 and H2 in f32 (rstd null).
 extern "C" int preattn_forward_f32(void** p, const long long* dims, const float* scales,
                                    void* stream_) {
+  if (!fits(dims)) return (int)cudaErrorInvalidValue;
   madeleine::StackFwdT<float> a;
   forward_args(p, dims_of(dims, scales), a);
   return (int)madeleine::stack_fwd<madeleine::Gemm::FFMA>(a, static_cast<cudaStream_t>(stream_));
@@ -321,6 +331,7 @@ extern "C" void preattn_bwd_workspace_f32(const long long* dims, long long* out)
 // be Z's memory: the recompute is done with Z before the adjoint writes DZ3.
 extern "C" int preattn_backward_f32(void** p, const long long* dims, const float* scales,
                                     void* stream_) {
+  if (!fits(dims)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream_);
   madeleine::StackFwdT<float> f;
   madeleine::StackBwdT<float> a;

@@ -3,6 +3,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "philox.cuh"
@@ -15,6 +16,22 @@ constexpr float INV_SQRT_2PI = 0.39894228040143268f;
 // A masked logit carries a bias of -1e30; anything at or below this is masked.
 constexpr float TRAIN_MASKED = -1e29f;
 constexpr int ROW_TILE = 64;  // rows per block of the column-sum kernels
+
+// The most rows (b t) one call of a train kernel takes: rows are counted in
+// 32 bits, and the launches round them up to a tile of at most 256 rows
+// (the grids' (M + rows - 1) / rows) without leaving int. Every element
+// offset is 64-bit. ops/encoder_train.py::MAX_BLOCK_ROWS mirrors it.
+constexpr long long MAX_TRAIN_ROWS = INT_MAX - 255;
+
+// Whether a call of b bags of t rows at global bag offset row_offset fits
+// the train kernels' 32-bit counts: at most MAX_TRAIN_ROWS rows and the
+// global bags row_offset + b below 2^31. A larger call is refused as
+// cudaErrorInvalidValue and runs in blocks of whole bags
+// (ops/encoder_train.py::whole_bag_blocks).
+inline bool rows_fit(long long b, long long t, long long row_offset) {
+  return b >= 1 && t >= 1 && row_offset >= 0 && b * t <= MAX_TRAIN_ROWS &&
+         row_offset + b <= INT_MAX;
+}
 
 // Gaussian CDF: gelu(v) = v * Phi(v) (exact erf); gelu'(v) = Phi(v) + v * phi(v).
 __device__ __forceinline__ float gauss_cdf(float v) { return 0.5f * (1.f + erff(v * INV_SQRT2)); }

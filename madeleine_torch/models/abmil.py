@@ -26,12 +26,13 @@ autograd; with n_views=3 each half-bag view through the training pool.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from madeleine_torch.ops import encoder_train as et
 from madeleine_torch.ops.attn_pool import (activate_attention, fused_attention_pool,
                                            masked_attention_pool, softmax_pool)
 from madeleine_torch.ops.encode_fused import encode_pool_fused, kernel_weights
@@ -254,10 +255,112 @@ def abmil_embed(
     return out if len(out) > 1 else out[0]
 
 
+# The transient bytes one block of whole bags of the per-op lane may take.
+# The blocks cannot shrink what a stain keeps from its forward into its
+# backward (`perop_saved_row_bytes`: y, and with another activation than
+# softmax the plain pool's f32 copy of it: 9.3 GB with softmax in bf16 at
+# [65, 32768], 18.1 GB with sigmoid in f32 at [65, 16384]) nor the batch
+# beside it (10.9 GB at both), so a block gets less than K6/K7's 48 GiB:
+# 32 GiB keeps every call of the steps at 2048 tokens and of the f32 CLI at
+# bucket 8192 (21.8 GB reckoned by `perop_row_bytes`) one block; those two
+# grown calls (43.6 and 58.9 GB) run in two.
+PEROP_BLOCK_BUDGET_BYTES = 32 * 1024 ** 3
+perop_blocked_calls = 0   # abmil_embed_train calls run in more than one block (any device)
+perop_blocks = 0          # the blocks of those calls
+
+
+def perop_row_bytes(widths: Sequence[int], itemsize: int, activation: str, n_views: int = 1,
+                    need_dx: bool = False) -> int:
+    """Transient bytes per row (token) of one block of `abmil_embed_train`,
+    the larger of its forward and its backward, from the buffers the ops
+    allocate; widths = (d_in, hidden, nh, e, f, d_out), itemsize that of the
+    compute dtype. Forward: kernel 15's y, f32 Z, H1 and H2; 17's logits and
+    their 64-column partials; with softmax the training pool's masked f32
+    logits (each view's too), otherwise the plain pool's f32 copies of y
+    (`.float()` in bf16, and the product's permuted copy); the block's
+    tokens. Backward: the cotangent of y summed over its readers (the sum
+    out of place), then per op what it allocates beside it: 20's (or the
+    f32 projector's) dy, the pool's dy (the plain pool's f32 product
+    gradient and its cast), 18's DZG and dy, 16's recompute and adjoint
+    buffers (Z, U1-U3, rstd, H1, H2, DZ3 in bf16, DH, DZ12, dx with
+    need_dx). What outlives a block (the stain's saves) is
+    `perop_saved_row_bytes`."""
+    d_in, hd, nh, e, f, dout = widths
+    q, E, nhf = itemsize, nh * e, nh * f
+    y, tok, logits = E * q, dout * q, 4 * nh
+    views = 1 if n_views == 1 else 3
+    plain = activation != "softmax"
+    pre_f = y + 4 * max(hd, E) + 2 * hd * q
+    gates_f = y + logits + 4 * nh * (f // 64)
+    pool_f = y + 2 * logits + views * logits + ((4 * E if q < 4 else 0) + 4 * E if plain else 0)
+    fwd = max(pre_f, gates_f, pool_f) + tok
+    dy = 2 * y                                 # the summed cotangent, and a sum out of place
+    proj_b = dy + tok + (y if q < 4 else 4 * E)
+    pool_b = dy + (4 * E + (2 * E if q < 4 else 0) if plain else y) + logits
+    gates_b = dy + 2 * nhf * q + y + logits
+    pre_b = (y + 4 * max(hd, E) + 2 * hd * q + E * q + 3 * 4 + 2 * hd * q
+             + (E * q if q < 4 else 0) + 4 * hd + hd * q + (d_in * q if need_dx else 0))
+    return max(fwd, proj_b, pool_b, gates_b, pre_b)
+
+
+def perop_saved_row_bytes(widths: Sequence[int], itemsize: int, activation: str,
+                          n_views: int = 1) -> int:
+    """Bytes per row (token) that one stain's `abmil_embed_train` keeps from
+    its forward into its backward, whatever its blocks: y (read by 18, the
+    pool and 20), the logits, the pool's masked f32 logits (each view's),
+    with another activation than softmax the plain pool's f32 permuted copy
+    of y and its activated weights, and the tokens. Under cfg.remat one
+    stain's are live at a time (recomputed in its backward); without it,
+    every stain's until the backward."""
+    d_in, hd, nh, e, f, dout = widths
+    q, E = itemsize, nh * e
+    views = 1 if n_views == 1 else 3
+    plain = 4 * E + 2 * 4 * nh if activation != "softmax" else 0
+    return E * q + 4 * nh + views * 4 * nh + plain + dout * q
+
+
+def perop_blocks_of(b: int, t: int, widths: Sequence[int], dtype: torch.dtype, activation: str,
+                    n_views: int = 1, need_dx: bool = False, limit: Optional[int] = None
+                    ) -> List[Tuple[int, int]]:
+    """The blocks of whole bags of one `abmil_embed_train` call
+    (`encoder_train.whole_bag_blocks`, K6/K7's rule): each block's bytes
+    (`perop_row_bytes` times its rows) under PEROP_BLOCK_BUDGET_BYTES and,
+    on the card, under its total memory less BLOCK_MARGIN (`limit`, from
+    `device_total_bytes`: never the free memory, so the blocks, and with
+    them the weight gradients' sum order, depend on shapes alone); its rows
+    under the kernels' 32-bit limits (`MAX_BLOCK_ROWS`), its bags under rows
+    4-5's grid (`MAX_POOL_BAGS`)."""
+    row = perop_row_bytes(widths, torch.empty((), dtype=dtype).element_size(), activation,
+                          n_views, need_dx)
+    return et.whole_bag_blocks(b, t, row, et.MAX_BLOCK_ROWS.get(dtype, 2 ** 31 - 256), limit,
+                               PEROP_BLOCK_BUDGET_BYTES, et.MAX_POOL_BAGS, "abmil_embed_train")
+
+
+def _embed_block(w, bags, activation, seed, mask, row_offset, half_mask, project):
+    """`abmil_embed_train`'s chain on one block of whole bags."""
+    y = pre_attn_mlp(w, bags, seed=seed, row_offset=row_offset)
+    nh, _, e = w["wa"].shape
+    xh = y.reshape(*y.shape[:-1], nh, e)
+    logits = gated_attention_logits(w, xh, seed=seed, row_offset=row_offset)
+    if activation == "softmax":
+        whole = fused_attention_pool(xh, logits, mask)
+    else:
+        whole = masked_attention_pool(xh, logits, mask, activation)
+    if half_mask is not None:
+        b, t = bags.shape[:2]
+        views = [whole]
+        for half in (half_mask, ~half_mask):
+            half = half.reshape(1, t).expand(b, t)
+            views.append(fused_attention_pool(xh, logits, half if mask is None else mask & half))
+        whole = torch.stack(views, dim=1)
+    return whole, (xh if project is None else project(y))
+
+
 def abmil_embed_train(w: Dict[str, torch.Tensor], bags: torch.Tensor, *, activation: str,
                       seed: int, mask: Optional[torch.Tensor] = None, row_offset: int = 0,
-                      half_mask: Optional[torch.Tensor] = None
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+                      half_mask: Optional[torch.Tensor] = None,
+                      project: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                      block_bags: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """ABMIL training forward on the per-op lane (JAX abmil.py:255-357 with
     train=True): `pre_attn_mlp` and `gated_attention_logits` through their
     train ops (dropout keyed by seed and the global rows from row_offset),
@@ -268,21 +371,33 @@ def abmil_embed_train(w: Dict[str, torch.Tensor], bags: torch.Tensor, *, activat
     training pool over ``mask & half`` and ``mask & ~half``, softmax
     whatever the activation (abmil.py:349-357). bags [b, t, d_in] in the
     compute dtype, w: `encoder_train.train_operands`, mask [b, t] bool or
-    None. Returns (pooled [b, nh, e], or [b, 3, nh, e] with half_mask: the
-    whole bag, half 1, half 2; tokens [b, t, nh, e]), both in bags.dtype."""
-    y = pre_attn_mlp(w, bags, seed=seed, row_offset=row_offset)
-    nh, _, e = w["wa"].shape
-    xh = y.reshape(*y.shape[:-1], nh, e)
-    logits = gated_attention_logits(w, xh, seed=seed, row_offset=row_offset)
-    if activation == "softmax":
-        whole = fused_attention_pool(xh, logits, mask)
+    None. project: the token projector, y [b, t, E] -> [b, t, d_out], run
+    on each block's y (None returns the head-major tokens).
+
+    The call runs in blocks of whole bags (`perop_blocks_of`, by shape, dtype
+    and the card's total memory; block_bags forces a block size), each the
+    whole chain at row offset row_offset + b0, so each draws the unblocked
+    call's dropout masks; the blocks' pooled outputs and tokens are
+    concatenated (equal to the unblocked call's bit for bit) and autograd
+    sums the weight gradients over the blocks. One block is exactly the
+    unblocked call. Returns (pooled [b, nh, e], or [b, 3, nh, e] with
+    half_mask: the whole bag, half 1, half 2; tokens [b, t, nh, e], or
+    project's output), both in bags.dtype."""
+    global perop_blocked_calls, perop_blocks
+    b, t, d_in = bags.shape
+    if block_bags is None:
+        nh, f, e = w["wa"].shape
+        widths = (d_in, w["w1"].shape[0], nh, e, f, 0 if project is None else w["wt"].shape[0])
+        blocks = perop_blocks_of(b, t, widths, bags.dtype, activation,
+                                 1 if half_mask is None else 3, bags.requires_grad,
+                                 et.device_total_bytes(bags.device))
     else:
-        whole = masked_attention_pool(xh, logits, mask, activation)
-    if half_mask is None:
-        return whole, xh
-    b, t = bags.shape[:2]
-    views = [whole]
-    for half in (half_mask, ~half_mask):
-        half = half.reshape(1, t).expand(b, t)
-        views.append(fused_attention_pool(xh, logits, half if mask is None else mask & half))
-    return torch.stack(views, dim=1), xh
+        blocks = [(b0, min(b0 + block_bags, b)) for b0 in range(0, b, block_bags)]
+    if len(blocks) == 1:
+        return _embed_block(w, bags, activation, seed, mask, row_offset, half_mask, project)
+    parts = [_embed_block(w, bags[b0:b1], activation, seed,
+                          None if mask is None else mask[b0:b1], row_offset + b0, half_mask,
+                          project) for b0, b1 in blocks]
+    perop_blocked_calls += 1
+    perop_blocks += len(blocks)
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])

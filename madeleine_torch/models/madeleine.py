@@ -25,6 +25,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from madeleine_torch.config import HE_POSITION, MadeleineConfig
@@ -218,8 +219,10 @@ def forward_train(model: MADELEINE, feats: torch.Tensor, *,
     eval forward takes the same split (seed 0 by default, as JAX's eval
     draws from PRNGKey(0), madeleine.py:149) and pools the views in K3.
     cfg.modality_scan runs one encoder call per modality (the canonical
-    route, [bs, t, d] each, global rows m*BS + i); otherwise one joint call
-    over [bs*n_mod, t, d] (rows i*n_mod + m). Under data parallelism feats
+    route, [bs, t, d] each, global rows m*BS + i), and with cfg.remat on
+    the per-op lane each modality's body under a checkpoint (its backward
+    recomputes it: one modality's saves live at a time); otherwise one joint
+    call over [bs*n_mod, t, d] (rows i*n_mod + m). Under data parallelism feats
     holds one rank's rows of a global batch of ``global_bs`` (None: bs) rows,
     its first row being global row ``row_start``: the dropout masks are
     keyed by the single-process step's global rows (JAX madeleine.py:151-155),
@@ -254,9 +257,9 @@ def forward_train(model: MADELEINE, feats: torch.Tensor, *,
         if fused:
             return encoder_train(x, m, w, seed, row_offset=row_offset, need_dx=se,
                                  half_mask=half)
-        pooled, xh = abmil_embed_train(w, x, activation=cfg.activation, seed=seed, mask=m,
-                                       row_offset=row_offset, half_mask=half)
-        return pooled, project_tokens(xh.flatten(-2), w["wt"], w["bt"])
+        return abmil_embed_train(w, x, activation=cfg.activation, seed=seed, mask=m,
+                                 row_offset=row_offset, half_mask=half,
+                                 project=lambda y: project_tokens(y, w["wt"], w["bt"]))
 
     if not cfg.modality_scan:
         x = feats.reshape(bs * n_mod, t, d)
@@ -267,14 +270,34 @@ def forward_train(model: MADELEINE, feats: torch.Tensor, *,
         pooled, tok = encode(x, m, row_start * n_mod)
         slide = _linear_head_major(model, model.projector, pooled, dt)
         return (slide.reshape(bs, n_mod, n_views, -1), tok.reshape(bs, n_mod, t, -1))
+
+    def per_modality(x, m, i):
+        """One modality's body (JAX's `_per_modality`): the stain code, the
+        encoder, the projector -> (slide [bs, n_views, hidden], tokens)."""
+        if se:
+            x = _append_stain_encoding(model, x, i)
+        pooled, tok = encode(x, m, i * global_bs + row_start)
+        return _linear_head_major(model, model.projector, pooled, dt), tok
+
+    # cfg.remat on the per-op lane: each modality's body under a checkpoint,
+    # as JAX's scan body under jax.checkpoint (madeleine.py:283-298), so its
+    # backward recomputes the body and one modality's saves are live at a
+    # time. The lane draws no torch RNG (its dropout is Philox keyed by seed
+    # and global row), so the recompute needs no RNG state and repeats the
+    # forward bit for bit. The fused lane is not wrapped: K7 already rebuilds
+    # K6's rows on its recompute route, and a checkpoint would run K6 twice.
+    remat = cfg.remat and not fused
     slides, toks = [], []
     for i in range(n_mod):
         x = feats[:, i]
-        if se:
-            x = _append_stain_encoding(model, x, i)
         m = None if mask is None else mask[:, i]
-        pooled, tok = encode(x, m, i * global_bs + row_start)
-        slides.append(_linear_head_major(model, model.projector, pooled, dt))
+        if remat:
+            slide, tok = torch.utils.checkpoint.checkpoint(per_modality, x, m, i,
+                                                           use_reentrant=False,
+                                                           preserve_rng_state=False)
+        else:
+            slide, tok = per_modality(x, m, i)
+        slides.append(slide)
         toks.append(tok)
     return torch.stack(slides, 1).reshape(bs, n_mod, n_views, -1), torch.stack(toks, 1)
 

@@ -54,7 +54,9 @@ piece order (`ffma_wgrad_chunk`), the gate logits' 64-column partials each a
 fixed tree of 16 four-column sums.
 
 A call whose transient buffers would not fit runs in blocks of whole bags
-(`encoder_blocks`, chosen on the host before any launch): each block is one
+(`encoder_blocks`, chosen on the host before any launch from the shapes,
+the dtype and the card's total memory, never its free memory, since the
+blocks set the weight gradients' sum order): each block is one
 K6 / K7 call on x[b0:b1] at row offset row_offset + b0, so it draws the
 unblocked call's dropout masks; the forward's outputs and dx are the
 unblocked call's bit for bit, and the backward sums each block's f32 weight
@@ -112,18 +114,24 @@ GUARD_MARGIN = 2 * 1024 ** 3
 # [65, 8192] in f32 (41.7 GB) included; [65, 32768] in bf16 (94.7 GB) and
 # [65, 16384] in f32 (83.3 GB) run in two blocks.
 BLOCK_BUDGET_BYTES = 48 * 1024 ** 3
-# On the card a block's buffers must also fit the memory left less this
-# margin. The save gate keeps 2 GiB (GUARD_MARGIN) for what outlives its
-# call; a block's buffers die with it, so its margin covers the allocator's
-# rounding and the call's small buffers beside the reckoned ones.
+# On the card a block's buffers must also fit the card's total memory
+# (`device_total_bytes`) less this margin. The save gate keeps 2 GiB
+# (GUARD_MARGIN) for what outlives its call; a block's buffers die with it,
+# so its margin covers the allocator's rounding and the call's small buffers
+# beside the reckoned ones. At 80 GB the total less the margin is past the
+# budget, so there the budget alone sets the blocks.
 BLOCK_MARGIN = 1024 ** 3
 # The most rows (b t) one call of the kernels takes: K6 / K7 count rows in a
-# 32-bit int (csrc/encoder_train_fwd.cu, encoder_train_bwd.cu) and the TMA
-# maps of the bf16 products need extents below 2**31; the f32 products' tile
+# 32-bit int and round them up to a tile of at most 256 rows
+# (csrc/train_common.cuh::MAX_TRAIN_ROWS), the TMA maps of the bf16
+# products need extents below 2**31; the f32 products' tile
 # grid (csrc/gemm_ffma.cuh::launch) has at most 65535 row tiles of 128. Every
 # offset into a buffer of the call is 64-bit, so within these any block
-# the rule allows is addressed correctly.
-MAX_BLOCK_ROWS = {torch.bfloat16: 2 ** 31 - 1, torch.float32: 65535 * 128}
+# the rule allows is addressed correctly. The per-op lane's kernels (rows
+# 4-5, 15-20) take the same row limits, and rows 4-5 at most 65535 bags a
+# call (their grid's y and z extents): MAX_POOL_BAGS.
+MAX_POOL_BAGS = 65535
+MAX_BLOCK_ROWS = {torch.bfloat16: 2 ** 31 - 256, torch.float32: 65535 * 128}
 
 # The f32 route's weight gradients (csrc/gemm_ffma.cuh::wgrad_chunk): the
 # token sum of an [Mo, No] gradient x batches split into pieces so that the
@@ -150,6 +158,19 @@ def _device_hbm_limit(device=None) -> Optional[int]:
     return int(free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device))
 
 
+def device_total_bytes(device=None) -> Optional[int]:
+    """The card's whole memory (`torch.cuda.get_device_properties(...)
+    .total_memory`), None on the CPU: the fixed limit the block rule reads,
+    as JAX's guard reads the device's `bytes_limit`. Never the free bytes: a
+    call's blocks set the order in which its weight gradients are summed, so
+    they must not move with whatever else is live on the card (ROADMAP.md
+    C1). A host read of the device's properties: no sync."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type != "cuda":
+        return None
+    return int(torch.cuda.get_device_properties(device).total_memory)
+
+
 def resolve_save_acts(save_acts: Optional[bool], b: int, t: int, h: int, E: int, nhf2: int,
                       itemsize: int, x_bytes: int = 0, device=None) -> bool:
     """The route of one call, by JAX's `_resolve_save_acts`
@@ -157,7 +178,10 @@ def resolve_save_acts(save_acts: Optional[bool], b: int, t: int, h: int, E: int,
     is set, else an explicit save_acts; else True when the saves, b t ((2 h
     + E + nhf2) itemsize + 12) bytes, fit ACT_BUDGET_BYTES and, where the
     device has a limit (`_device_hbm_limit`), the saves plus 4 x_bytes fit
-    under it less 2 GiB."""
+    under it less 2 GiB. Reading the free memory is safe here, unlike in the
+    block rule: the two routes give the same gradients bit for bit (K7's
+    recompute route re-runs K6's own code), so the route a call takes never
+    changes its numbers."""
     if os.environ.get(NO_SAVE_VAR):
         return False
     if save_acts is not None:
@@ -203,28 +227,43 @@ def _block_row_bytes(widths: Sequence[int], itemsize: int, recompute: bool,
     return max(k6, k7)
 
 
-def encoder_blocks(b: int, t: int, widths: Sequence[int], dtype: torch.dtype, recompute: bool,
-                   limit: Optional[int] = None, need_dx: bool = False,
-                   n_views: int = 1) -> List[Tuple[int, int]]:
-    """The blocks of whole bags [(b0, b1), ...] that one call of the op runs
-    in: contiguous, covering [0, b), as few as keep each block's transient
-    bytes (`_block_row_bytes` times its rows) under BLOCK_BUDGET_BYTES and,
-    where the device has a limit (`_device_hbm_limit`), under that limit
-    less BLOCK_MARGIN, and its rows under MAX_BLOCK_ROWS; then of equal
-    size, the last one shorter when they do not divide b. Host arithmetic
-    on shapes and the allocator's counters: no sync. Raises MemoryError
-    when one bag alone does not fit."""
-    per_bag = t * _block_row_bytes(widths, torch.empty((), dtype=dtype).element_size(),
-                                   recompute, need_dx, n_views)
-    cap = BLOCK_BUDGET_BYTES if limit is None else min(BLOCK_BUDGET_BYTES, limit - BLOCK_MARGIN)
-    rows = MAX_BLOCK_ROWS.get(dtype, 2 ** 31 - 1)
-    bags = min(cap // per_bag, rows // t)
+def whole_bag_blocks(b: int, t: int, row_bytes: int, max_rows: int, limit: Optional[int] = None,
+                     budget: int = BLOCK_BUDGET_BYTES, max_bags: Optional[int] = None,
+                     what: str = "encoder_train") -> List[Tuple[int, int]]:
+    """The blocks of whole bags [(b0, b1), ...] that a call over b bags of t
+    rows runs in, `row_bytes` transient bytes a row: contiguous, covering
+    [0, b), as few as keep each block's bytes under `budget` and, where
+    given, under `limit` (the card's total memory, `device_total_bytes`)
+    less BLOCK_MARGIN, its rows under `max_rows` and its bags under
+    `max_bags`; then of equal size, the last one shorter when they do not
+    divide b. Host arithmetic on shapes: no sync, and the same blocks
+    whatever else is live on the card. Raises MemoryError when one bag
+    alone does not fit."""
+    per_bag = t * row_bytes
+    cap = budget if limit is None else min(budget, limit - BLOCK_MARGIN)
+    bags = min(cap // per_bag, max_rows // t)
+    if max_bags is not None:
+        bags = min(bags, max_bags)
     if bags < 1:
-        raise MemoryError(f"encoder_train: one bag of {t} tokens needs {per_bag} transient "
-                          f"bytes, past the {cap} a block may take (or past {rows} rows)")
+        raise MemoryError(f"{what}: one bag of {t} tokens needs {per_bag} transient "
+                          f"bytes, past the {cap} a block may take (or past {max_rows} rows)")
     n = -(-b // bags)
     size = -(-b // n)
     return [(b0, min(b0 + size, b)) for b0 in range(0, b, size)]
+
+
+def encoder_blocks(b: int, t: int, widths: Sequence[int], dtype: torch.dtype, recompute: bool,
+                   limit: Optional[int] = None, need_dx: bool = False,
+                   n_views: int = 1) -> List[Tuple[int, int]]:
+    """The blocks of whole bags of one call of the op (`whole_bag_blocks`):
+    each block's transient bytes (`_block_row_bytes` times its rows) under
+    BLOCK_BUDGET_BYTES and, where the device has a limit (the caller passes
+    `device_total_bytes`), under that limit less BLOCK_MARGIN, and its rows
+    under MAX_BLOCK_ROWS. Raises MemoryError when one bag alone does not
+    fit."""
+    row = _block_row_bytes(widths, torch.empty((), dtype=dtype).element_size(), recompute,
+                           need_dx, n_views)
+    return whole_bag_blocks(b, t, row, MAX_BLOCK_ROWS.get(dtype, 2 ** 31 - 256), limit)
 
 
 def train_operands(w: Dict[str, torch.Tensor], dtype: torch.dtype) -> Dict[str, torch.Tensor]:
@@ -692,7 +731,8 @@ def encoder_train(x: torch.Tensor, mask, w: Dict[str, torch.Tensor], seed: int,
     shared by every row (n_views=3). save_acts: True the save route, False
     the recompute route, None `resolve_save_acts` by shape and memory (JAX's
     static save_acts). block_bags: the bags of each block the call runs
-    in; None takes `encoder_blocks` by shape and memory. Returns (pooled
+    in; None takes `encoder_blocks` by shape, dtype and the card's total
+    memory (never its free memory: ROADMAP.md C1). Returns (pooled
     [b, nh, e], or [b, 3, nh, e] with half_mask: the whole bag, half 1,
     half 2; tok [b, t, d_out]), both in x.dtype."""
     b, t, d_in = x.shape
@@ -705,7 +745,7 @@ def encoder_train(x: torch.Tensor, mask, w: Dict[str, torch.Tensor], seed: int,
                              device=x.device)
     if block_bags is None:
         blocks = encoder_blocks(b, t, (d_in, hd, nh, e, f, w["wt"].shape[0]), x.dtype,
-                                not save, _device_hbm_limit(x.device), need_dx,
+                                not save, device_total_bytes(x.device), need_dx,
                                 1 if half_mask is None else 3)
     else:
         blocks = [(b0, min(b0 + block_bags, b)) for b0 in range(0, b, block_bags)]

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+from madeleine_torch.models import abmil
 from madeleine_torch.ops import (attn_pool, dropout, encode_fused, encoder_train, gated_logits,
                                   gated_pool, got_glue, ipot, linear_tok, preattn)
 
@@ -38,6 +39,11 @@ COUNTERS = {
     "encoder_train_fwd_blocks": (encoder_train, "fwd_blocks"),
     "encoder_train_bwd_blocked_calls": (encoder_train, "bwd_blocked_calls"),
     "encoder_train_bwd_blocks": (encoder_train, "bwd_blocks"),
+    # forward calls of the per-op lane's chain (rows 15-20, 4-5) run in more
+    # than one block of whole bags, and their blocks: counted on any device,
+    # cfg.remat's recompute included
+    "perop_blocked_calls": (abmil, "perop_blocked_calls"),
+    "perop_blocks": (abmil, "perop_blocks"),
     "ipot_fwd": (ipot, "fwd_launches"),                     # K8, cluster route
     "ipot_bwd": (ipot, "bwd_launches"),                     # K9, cluster route
     "gw_gamma": (ipot, "gw_launches"),                      # K10, cluster route

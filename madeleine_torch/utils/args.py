@@ -70,7 +70,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler chrome trace of the epochs here")
     p.add_argument("--no_remat", dest="remat", action="store_false",
-                   help="accepted and recorded; the train kernels always save K6's rows")
+                   help="keep every modality's saves until the backward on the per-op lane "
+                        "(a non-softmax --activation, or MADELEINE_NO_FUSED_ENCODER) instead of "
+                        "recomputing each modality's body in its backward; the fused lane's "
+                        "K6/K7 choose their own route (save_acts)")
     p.add_argument("--no_modality_scan", dest="modality_scan", action="store_false",
                    help="one joint [bs*n_mod] encoder call instead of one per modality")
     p.add_argument("--checkpoint_every", type=int, default=0)

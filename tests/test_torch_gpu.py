@@ -324,8 +324,8 @@ def test_train_step_launches_k6_k7_and_refuses_f32(cuda_device, monkeypatch):
         if activation == "softmax" and not no_fused:
             want = (5, 5, 0, 0) if precision == "bfloat16" else (0, 0, 5, 5)
             assert tuple(counts[k] for k in k67) == want
-        else:
-            assert all(counts[k] == 5 for k in rows_f32), counts
+        else:   # the forward rows twice: cfg.remat recomputes each modality's body
+            assert all(counts[k] == (10 if "_fwd" in k else 5) for k in rows_f32), counts
             assert not any(counts[k] for k in k67 + rows), counts
 
 
@@ -1001,8 +1001,8 @@ def test_sigmoid_train_step_launches_the_per_op_kernels(cuda_device):
     counts = launches.read()
     assert not metrics["skipped"] and torch.isfinite(metrics["loss"])
     for k in ("preattn_fwd", "preattn_bwd", "gated_logits_fwd", "gated_logits_bwd",
-              "linear_tok_fwd", "linear_tok_bwd"):
-        assert counts[k] == 5, (k, counts[k])
+              "linear_tok_fwd", "linear_tok_bwd"):   # the forward ones twice: cfg.remat
+        assert counts[k] == (10 if k.endswith("_fwd") else 5), (k, counts[k])
     assert counts["encoder_train_fwd"] == counts["encoder_train_bwd"] == 0
 
 
@@ -1087,8 +1087,8 @@ def test_nofused_softmax_step_launches_the_training_pool(cuda_device, monkeypatc
     counts = launches.read()
     assert not metrics["skipped"] and torch.isfinite(metrics["loss"])
     for k in ("attn_pool_ms", "attn_pool_bwd", "preattn_fwd", "preattn_bwd", "gated_logits_fwd",
-              "gated_logits_bwd", "linear_tok_fwd", "linear_tok_bwd"):
-        assert counts[k] == 5, (k, counts[k])
+              "gated_logits_bwd", "linear_tok_fwd", "linear_tok_bwd"):   # forward: cfg.remat
+        assert counts[k] == (10 if k.endswith(("_fwd", "_ms")) else 5), (k, counts[k])
     assert counts["encoder_train_fwd"] == counts["encoder_train_bwd"] == 0
 
 

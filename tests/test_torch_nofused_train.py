@@ -122,7 +122,8 @@ def test_got_train_steps_match_jax(monkeypatch, rates_zero, no_fused):
             diff = (p - want_params[i][k]).abs()
             bar = torch.where(at_floor[k], 2.05, 0.05) * lr * (i + 1)
             assert (diff <= bar).all(), (i, k, float(diff.max()))
-    assert step.updates == 3 and len(no_fused) == 3 * 3   # 3 steps of 3 modalities
+    # 3 steps of 3 modalities, each pool run again by cfg.remat's recompute in its backward
+    assert step.updates == 3 and len(no_fused) == 3 * 3 * 2
 
 
 def test_unset_variable_keeps_the_whole_encoder_op(monkeypatch):
