@@ -416,7 +416,11 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            f32 H2D ms are reported beside the native one's), 1 epoch
            (kernels 15-20 and K8-K14 on every step), with
            MADELEINE_NO_FUSED_ENCODER=1, 1 epoch (rows 4-5, 15-20, K8-K14),
-           and with --intra_modality_loss info-nce, 1 epoch (K6-K14). Before
+           and with --intra_modality_loss info-nce, 1 epoch (K6-K14); then
+           1 epoch with --profile_dir, its trace.json summarised by
+           madeleine_torch.tools.profile_summary: one step_fn range a step,
+           the wgmma GEMM and K6's and K7's row kernels among the top 20,
+           the kernels inside the ranges at or below the ranges' ms. Before
            them, a pinned batch freed while its copy waits behind device
            work must reach the card intact (the Python loader's batches
            outlive their copies through PyTorch's caching host allocator)
@@ -427,12 +431,23 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            2 straight (B's model.pt equal to C's bit for bit), and 1 epoch
            on the Python RaggedTrainLoader (--native_loader off); the host
            ms per batch, H2D ms, pinned bytes, CLI step ms, busy share; then
-           the CLI's main with --batch_size 8 on 16 cases where one bag has
-           20000 tokens (bucket 32768), 2 steps and the downstream pass
-           with a 20000-token slide (K1 at the inference loader's bucket
-           32768): nothing truncated, the ring's pinned bytes and the
-           host's memory; then the same epoch with --activation sigmoid
-           (the per-op lane at bucket 32768: kernels 15-20 every step)
+           (a) the CLI's main at the published batch of 65 on links to the
+           same 70 cases where case 0's H&E bag has 20000 tokens (bucket
+           32768), 2 epochs of 2 steps and the downstream pass with a
+           20000-token slide (K1 at the inference loader's bucket 32768):
+           nothing truncated, 2 steps at 32768, the native ring 2 slots
+           deep (21.81 GB pinned), its construction s, MemAvailable before
+           and during, host ms, guard wait and step ms by bucket, the peak;
+           (b) that ring under a Prefetcher of depth 2 for 2 epochs, each
+           copy behind about 0.5 s of device sleep: the third batch waits
+           on its guard, padded rows zero on the card, the last task of a
+           32768 batch (past 2**31 elements) and the long bag bit for bit
+           their .bag files' rows; (c) the CSV tool
+           (madeleine_torch.tools.build_dataset_csvs --scan_features) over
+           .npz stand-ins of the 70 cases' bags: the cohort's CSV byte for
+           byte; then the CLI at --batch_size 8 with --activation sigmoid
+           on 16 cases with a 20000-token bag (the per-op lane at bucket
+           32768: kernels 15-20 every step)
   pretrain_f32
            the pretrain CLI at --precision float32 with its default full bags
            on pretrain_ragged's cohort (bucket 8192: every K6/K7 call on the
@@ -5944,10 +5959,15 @@ def _run_pretrain_cli(argv, log_path, launcher=()):
 
 
 def _release_host_cache(torch):
-    """Hand the caching host allocator's free pinned blocks back to the
-    system: the in-process CLI runs of a phase leave their rings' blocks
-    cached there, for the next run of the same size. Returns the call
-    used, None where this PyTorch has none."""
+    """Hand the host's page-locked memory that nothing holds back to the
+    system: the native rings' spare buffers (`native/dataset.py::
+    release_spare`; the in-process CLI runs of a phase leave their rings'
+    buffers there, for the next ring of the same size) and the caching host
+    allocator's free pinned blocks. Returns the allocator's call used, None
+    where this PyTorch has none."""
+    from madeleine_torch.native.dataset import release_spare
+
+    release_spare()
     for name in ("_host_emptyCache", "_accelerator_emptyHostCache"):
         fn = getattr(torch._C, name, None)
         if fn is not None:
@@ -6031,6 +6051,7 @@ def _check_pretrain_run(name, results, records, epochs, kernels=PRETRAIN_STEP_KE
             "valid_tokens": [s.get("valid_tokens") for s in steps],
             "truncation_count": [x for r in ep for x in r.get("truncation_count", [])],
             "pinned_bytes": max((r.get("pinned_bytes", 0) for r in ep), default=0),
+            "ring_depth": max((r.get("ring_depth", 0) for r in ep), default=0),
             "loader_ms": [x for r in ep for x in r["loader_ms"]],
             **{part: [x for r in ep for x in r[part]] for part in LOADER_PARTS if part in ep[0]},
             "epoch_time_s": [r["epoch_time"] for r in ep],
@@ -6075,7 +6096,9 @@ def _native_first_batch(root, out_dtype, buffer_depth=4):
     launch script's batch of 65, 2048 tokens, seed 42; the host library
     built here with -march=native; a pinned ring) against the plain route's
     (pure-Python draw, numpy gather, half-up bf16 rounding) bit for bit.
-    Returns (report, the batch's pinned feats)."""
+    Returns (report, the batch: its feats pinned, its ``copied`` guard for
+    the caller to record after its copy, as every consumer of a pinned ring
+    does)."""
     import torch
     from madeleine_torch.native.dataset import NativeTrainLoader
 
@@ -6108,7 +6131,8 @@ def _native_first_batch(root, out_dtype, buffer_depth=4):
             "host_ms": ms, **part, "plain_ms": plain_ms, "bags": n_bags,
             "bytes_in": in_bytes, "bytes_out": out_bytes,
             "assembly_gb_per_s": (in_bytes + out_bytes) / part["assemble_ms"] / 1e6,
-            "n_threads": loader.n_threads, "cpu_count": os.cpu_count()}, batch["feats"]
+            "n_threads": loader.n_threads, "cpu_count": os.cpu_count(),
+            "ring_depth": loader.ring_depth}, batch
 
 
 def _pinned_batch_outlives_its_copy(torch, n=64 << 20):
@@ -6222,12 +6246,14 @@ def phase_pretrain(state):
         t0 = time.perf_counter()
         n_bags, n_bytes = _write_pretrain_cohort(root, gen)
         cohort_s = time.perf_counter() - t0
-        native_f32, _ = _native_first_batch(root, "float32", buffer_depth=2)
-        native_bf16, ring_batch = _native_first_batch(root, "bfloat16")
+        native_f32, batch = _native_first_batch(root, "float32", buffer_depth=2)
+        batch["copied"].record()   # not copied: no later batch of its ring is drawn
+        native_bf16, batch = _native_first_batch(root, "bfloat16")
         # host -> device copy of one bf16 batch from its pinned ring slot
-        h2d_bf16_ms = cuda_ms(lambda: ring_batch.to("cuda", non_blocking=True), warmup=2,
+        h2d_bf16_ms = cuda_ms(lambda: batch["feats"].to("cuda", non_blocking=True), warmup=2,
                               iters=10)
-        del ring_batch
+        batch["copied"].record()
+        del batch
         runs, _, walls, resume = _pretrain_trio(root, "", 2, 3)
         runs_se, sds_se, walls_se, resume_se = _pretrain_trio(
             root, "se_", 1, 2, "--add_stain_encoding")
@@ -6252,6 +6278,7 @@ def phase_pretrain(state):
                            "--intra_modality_loss", "info-nce"),
             os.path.join(root, "pretrain_intra.log"))
         run_intra, _ = _check_pretrain_run("intra", results, records, range(1))
+        trace_summary = _trace_summary(root)
         loader_parts = _loader_breakdown(root)
         keep = "data_parallel" in state["phases"]
     finally:
@@ -6304,7 +6331,56 @@ def phase_pretrain(state):
                       "cli_step_ms_median": statistics.median(run_nf["step_ms"])},
           "intra": {"run": run_intra, "cli_wall_s": wall_intra,
                     "flags": "--intra_modality_loss info-nce",
-                    "cli_step_ms_median": statistics.median(run_intra["step_ms"])}})
+                    "cli_step_ms_median": statistics.median(run_intra["step_ms"])},
+          "trace_summary": trace_summary})
+
+
+# names of K6's and K7's row kernels (WINDOW_KERNELS): one of each must be
+# among the top of a profiled step's summary
+TRACE_K6_ROWS = ("ln_gelu_fwd", "gate_logits_sum", "pool_partial", "pool_merge")
+TRACE_K7_ROWS = ("recon_h", "pool_bwd", "gate_bwd", "layer_bwd", "colsum_rows")
+
+
+def _trace_summary(root):
+    """(d): one CLI epoch (2 steps at 2048 tokens, the launch script's
+    flags) with --profile_dir, its trace.json summarised by
+    `python -m madeleine_torch.tools.profile_summary` (its functions, here):
+    one ``step_fn`` range a step, the wgmma GEMM and K6's and K7's row
+    kernels among the top 20, the ms a step of the kernels inside the
+    ranges at or below the range's (beside it every kernel's, the epoch's
+    smooth rank included). This run's step ms is read nowhere else."""
+    from madeleine_torch.tools import profile_summary
+
+    prof = os.path.join(root, "profiled_trace")
+    results, records, wall = _run_pretrain_cli(
+        _pretrain_argv(root, os.path.join(root, "profiled"), 1, "--checkpoint_every", "1",
+                       "--profile_dir", prof),
+        os.path.join(root, "pretrain_profiled.log"))
+    run, _ = _check_pretrain_run("profiled", results, records, range(1))
+    path = profile_summary.newest_trace(prof)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    agg = profile_summary.aggregate(events)
+    top = [profile_summary.short_name(k) for k, _ in agg["ops"].most_common(20)]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events if e.get("ph") == "X"
+             and e.get("cat") == "gpu_user_annotation" and "step_fn" in e.get("name", "")]
+    kernels = [e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    in_steps = [e for e in kernels if any(a <= e["ts"] and e["ts"] + e["dur"] <= b
+                                          for a, b in spans)]
+    kernel_ms = sum(e["dur"] for e in in_steps) / 1e3 / agg["steps"]
+    range_ms = sum(agg["ranges"]) / 1e3 / agg["steps"]
+    report = {"trace_mb": os.path.getsize(path) / 1e6, "cli_wall_s": wall,
+              "steps": len(run["step_ms"]), "step_fn_ranges": len(agg["ranges"]),
+              "step_fn_range_ms": [d / 1e3 for d in agg["ranges"]],
+              "kernel_ms_per_step": kernel_ms, "range_ms_per_step": range_ms,
+              "kernels_in_steps": len(in_steps), "kernels": len(kernels),
+              "all_kernels_ms_per_step": sum(e["dur"] for e in kernels) / 1e3 / agg["steps"],
+              "top20": top, "summary": profile_summary.summarize(events, top=12)}
+    if (not agg["device"] or len(agg["ranges"]) != len(run["step_ms"])
+            or "gemm_kernel" not in top or not set(top) & set(TRACE_K6_ROWS)
+            or not set(top) & set(TRACE_K7_ROWS) or kernel_ms > range_ms):
+        raise AssertionError(f"trace summary: {report}")
+    return report
 
 
 RAGGED_PRETRAIN_TOKENS = (300, 8001)   # bag lengths of the full-bag cohort: bucket 8192
@@ -6359,6 +6435,8 @@ def phase_pretrain_ragged(state):
         run_py, _ = _check_pretrain_run("ragged_python", results, records, range(1),
                                         loader="python")
         logs = open(os.path.join(root, "pretrain_ragged_a.log")).read()
+        _release_host_cache(torch)
+        grown = _pretrain_grown(torch, root)
         done = True
     finally:
         _drop_ragged_cohort(state, keep=done and "pretrain_f32" in state["phases"])
@@ -6373,7 +6451,6 @@ def phase_pretrain_ragged(state):
     x = torch.empty(65, 5, bucket, 512, dtype=torch.bfloat16).pin_memory()
     h2d_ms = cuda_ms(lambda: x.to("cuda", non_blocking=True), warmup=2, iters=10)
     del x
-    grown = _pretrain_grown(torch)
     state["launches_pretrain_ragged"] = {k: sum(r["launches"].get(k, 0)
                                                 for r in every + [grown["run"],
                                                                   grown["sigmoid_run"]])
@@ -6393,69 +6470,273 @@ def phase_pretrain_ragged(state):
 
 
 GROWN_PRETRAIN = (16, 8, 20000)   # cases, --batch_size, the long bag's tokens (bucket 32768)
+GROWN_RING_SLEEP_CYCLES = 1_000_000_000   # (b)'s device sleep before each copy, about 0.5 s
 
 
 def _host_memory_gb():
-    """MemTotal and MemAvailable of the host, GB (/proc/meminfo)."""
-    with open("/proc/meminfo") as f:
-        kb = {ln.split(":")[0]: int(ln.split()[1]) for ln in f if ln.split()}
-    return {k: kb[k] * 1024 / 1e9 for k in ("MemTotal", "MemAvailable") if k in kb}
+    """MemTotal and MemAvailable of the host (/proc/meminfo), and this
+    process's resident, locked and pinned memory (/proc/self/status), GB."""
+    out = {}
+    for path, keys in (("/proc/meminfo", ("MemTotal", "MemAvailable")),
+                       ("/proc/self/status", ("VmRSS", "VmLck", "VmPin"))):
+        with open(path) as f:
+            kb = {ln.split(":")[0]: ln.split()[1:] for ln in f}
+        out.update({k: int(kb[k][0]) * 1024 / 1e9 for k in keys if k in kb})
+    return out
 
 
-def _pretrain_grown(torch):
-    """The pretrain CLI's main in this process (full bags, the launch
-    script's flags but --batch_size 8) on a cohort of 16 cases of bf16 .bag
-    bags of RAGGED_PRETRAIN_TOKENS lengths where case 0's H&E bag has 20000
-    tokens (the loaders grow its batch's bucket to 32768), one epoch of two
-    steps, then the downstream pass over 16 slides, the first of 20000
-    tokens (K1 at the inference loader's bucket 32768): every step finite
-    and applied, K6-K14 every step, K1 downstream, nothing truncated, the
-    buckets include 32768; the native ring's pinned bytes (4 slots of 8 x 5
-    x 32768 tokens), what the same ring would pin at 65 cases a batch, and
-    the host's memory. Then the same epoch with --activation sigmoid (the
-    per-op lane under cfg.remat, kernels 15-20 every step, no K6/K7; a
-    non-softmax model's downstream pass is plain), the buckets again
+@contextlib.contextmanager
+def _least_available_gb(every_s=0.25):
+    """Samples MemAvailable (GB) every `every_s` seconds in a thread while
+    the block runs; yields a dict whose "least" is the smallest sample."""
+    seen = {"least": _host_memory_gb()["MemAvailable"], "samples": 0}
+    stop = threading.Event()
+
+    def poll():
+        while not stop.wait(every_s):
+            seen["least"] = min(seen["least"], _host_memory_gb()["MemAvailable"])
+            seen["samples"] += 1
+
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+    try:
+        yield seen
+    finally:
+        stop.set()
+        poller.join()
+
+
+def _grown_cohort(ragged_root, root, n_long):
+    """<root>/feats: a symlink to each of the ragged cohort's bags but case
+    0's H&E bag, a new bf16 bag of `n_long` tokens; <root>/ACROBAT.csv a
+    symlink to its CSV; <root>/downstream/patch_embeddings: symlinks to its
+    slides but slide 0, `n_long` tokens. The shared cohort is not touched.
+    Returns the long bag's path."""
+    from madeleine_torch.native.bagio import write_bag_file
+
+    gen = np.random.default_rng(SEED + 11)
+    for sub in ("feats", os.path.join("downstream", "patch_embeddings")):
+        os.makedirs(os.path.join(root, sub))
+        for fn in sorted(os.listdir(os.path.join(ragged_root, sub))):
+            os.symlink(os.path.join(ragged_root, sub, fn), os.path.join(root, sub, fn))
+    os.symlink(os.path.join(ragged_root, "ACROBAT.csv"), os.path.join(root, "ACROBAT.csv"))
+    long_bag = os.path.join(root, "feats", "case00_HE.bag")
+    os.remove(long_bag)
+    x = gen.standard_normal((n_long, 512), dtype=np.float32)
+    x += TRAIN_SIGNAL * gen.standard_normal(512, dtype=np.float32)
+    write_bag_file(long_bag, x, dtype="bfloat16")
+    slide = os.path.join(root, "downstream", "patch_embeddings", "slide_00.npz")
+    os.remove(slide)
+    np.savez(slide, features=gen.standard_normal((n_long, 512), dtype=np.float32))
+    return long_bag
+
+
+def _by_bucket(buckets, values):
+    """{bucket: [values]} of per-batch values beside their buckets."""
+    out = {}
+    for b, v in zip(buckets, values):
+        out.setdefault(str(b), []).append(v)
+    return out
+
+
+def _grown_cli(torch, root, bucket):
+    """(a): the CLI's main at the published batch of 65 on full bags, two
+    epochs (4 steps, one a epoch at `bucket`), on the grown cohort at
+    `root`: every step finite and applied, K6-K14 every step, K1
+    downstream (a slide at `bucket`), nothing truncated, `bucket` on at
+    least 2 steps, the native ring 2 slots deep. Returns its report."""
+    slot = 65 * len(PRETRAIN_STAINS) * bucket * 512 * 2
+    before = _host_memory_gb()
+    with _least_available_gb() as during:
+        results, records, wall = _run_pretrain_cli(
+            _pretrain_argv(root, os.path.join(root, "grown"), 2, "--checkpoint_every", "1",
+                           n_subsamples=None),
+            os.path.join(root, "pretrain_grown.log"))
+    parts = CLI_RUNS[-1]["parts_s"]
+    run, _ = _check_pretrain_run("grown", results, records, range(2))
+    at_bucket = sum(b == bucket for b in run["buckets"])
+    if (at_bucket < 2 or any(run["truncation_count"]) or run["ring_depth"] != 2
+            or run["pinned_bytes"] != 2 * slot):
+        raise AssertionError(f"pretrain_ragged grown (b = 65): buckets {run['buckets']}, "
+                             f"truncations {run['truncation_count']}, ring depth "
+                             f"{run['ring_depth']}, pinned {run['pinned_bytes']} (want 2 x "
+                             f"{slot})")
+    return {"batch_size": 65, "epochs": 2, "bucket": bucket, "steps_at_bucket": at_bucket,
+            "run": run, "cli_wall_s": wall, "ring_depth": run["ring_depth"],
+            "pinned_bytes": run["pinned_bytes"], "pinned_bytes_four_slots": 4 * slot,
+            "ring_construction_s": parts["loader"],
+            "mem_available_gb_before": before["MemAvailable"],
+            "mem_available_gb_least_during": during["least"], "mem_samples": during["samples"],
+            "mem_total_gb": before["MemTotal"],
+            "loader_ms_by_bucket": _by_bucket(run["buckets"], run["loader_ms"]),
+            "guard_wait_ms_by_bucket": _by_bucket(run["buckets"], run["guard_wait_ms"]),
+            "assemble_ms_by_bucket": _by_bucket(run["buckets"], run["assemble_ms"]),
+            "step_ms_by_bucket": _by_bucket(run["buckets"], run["step_ms"]),
+            "peak_memory_gb": run["peak_memory_gb"]}
+
+
+def _grown_ring(torch, root, long_bag, bucket):
+    """(b): a NativeRaggedLoader of 65 cases a batch on the grown cohort (2
+    pinned slots at `bucket`) through a Prefetcher of depth 2 for two
+    epochs, the consumer queuing each batch's copy to the card behind about
+    0.5 s of device sleep and then recording it: the third batch waits on
+    its slot's guard; on the card every row past a bag's length is zero;
+    in each batch at `bucket` the last task (324, past 2**31 elements into
+    the slot), the last present task and the long bag equal the plain
+    route's rows of their .bag files bit for bit. Returns its report."""
+    from madeleine_torch.data.datasets import Prefetcher
+    from madeleine_torch.native import bagio
+    from madeleine_torch.native.dataset import NativeRaggedLoader
+
+    feats = os.path.join(root, "feats")
+    mem_before, t0 = _host_memory_gb(), time.perf_counter()
+    loader = NativeRaggedLoader(os.path.join(root, "ACROBAT.csv"), feats, PRETRAIN_STAINS,
+                                embedding_size=512, batch_size=65, seed=PRETRAIN_SEED,
+                                out_dtype="bfloat16", device="cuda")
+    build_s = time.perf_counter() - t0
+    mem_built = _host_memory_gb()
+    depth, pinned = loader.ring_depth, loader.pinned_bytes
+    got, waits = [], []
+    for epoch in (0, 1):
+        loader.set_epoch(epoch)
+        for b in Prefetcher(loader, depth=2):
+            torch.cuda._sleep(GROWN_RING_SLEEP_CYCLES)
+            dev = b["feats"].to("cuda", non_blocking=True)
+            b["copied"].record()
+            got.append((dev, b["token_mask"], b["sample_mask"], b["slide_ids"]))
+        waits += [t["guard_wait_ms"] for t in loader.timings]
+    torch.cuda.synchronize()
+    loader.close()
+    if depth != 2 or len(got) != 4 or waits[2] < 50:
+        raise AssertionError(f"pretrain_ragged grown ring: depth {depth}, {len(got)} batches, "
+                             f"guard waits {waits} ms (the third must wait)")
+    checked, nonzero_pad = [], 0
+    for dev, token_mask, sample_mask, slide_ids in got:
+        mask = torch.from_numpy(np.ascontiguousarray(token_mask)).to("cuda")
+        pad = sum(((dev[i] != 0).any(-1) & ~mask[i]).sum() for i in range(dev.shape[0]))
+        nonzero_pad += int(pad)
+        t = dev.shape[2]
+        if t != bucket:
+            continue
+        cases = [slide_ids[r] if sample_mask[r] else slide_ids[0] for r in range(65)]
+        paths = [os.path.join(feats, f"{c}_{s}.bag") for c in cases for s in PRETRAIN_STAINS]
+        present = [k for k, path in enumerate(paths) if os.path.exists(path)]
+        tasks = {324, present[-1], paths.index(long_bag)}
+        for k in sorted(tasks):
+            r, s = divmod(k, len(PRETRAIN_STAINS))
+            reader = bagio.PlainBag(paths[k]) if k in present else None
+            want = bagio.assemble_batch_plain([reader], np.arange(t)[None], 512, torch.bfloat16)
+            equal = torch.equal(dev[r, s].cpu().view(torch.int16), want[0].view(torch.int16))
+            checked.append({"task": k, "offset_elements": k * t * 512,
+                            "bag": os.path.basename(paths[k]) if reader else None,
+                            "rows": reader.n_rows if reader else 0, "bitwise_equal": equal})
+    del got
+    if nonzero_pad or not checked or not all(c["bitwise_equal"] for c in checked) or not any(
+            c["offset_elements"] >= 2 ** 31 for c in checked):
+        raise AssertionError(f"pretrain_ragged grown ring: {nonzero_pad} padded rows not "
+                             f"zero; tasks {checked}")
+    return {"ring_depth": depth, "pinned_bytes": pinned, "construction_s": build_s,
+            "host_memory_gb_before": mem_before, "host_memory_gb_built": mem_built,
+            "guard_wait_ms": waits, "nonzero_padded_rows": nonzero_pad, "tasks": checked,
+            "sleep_cycles_before_each_copy": GROWN_RING_SLEEP_CYCLES}
+
+
+def _csv_tool(ragged_root):
+    """(c): `python -m madeleine_torch.tools.build_dataset_csvs
+    --scan_features` (its main, here) over empty stand-ins named like the
+    ragged cohort's bags as .npz: the manifest must equal the cohort's CSV
+    byte for byte (its cases, stain flags and splits). pandas is absent
+    from this machine."""
+    from madeleine_torch.tools import build_dataset_csvs
+
+    root = tempfile.mkdtemp(prefix="csv_tool_")
+    try:
+        stand_ins = os.path.join(root, "feats")
+        os.makedirs(stand_ins)
+        for fn in os.listdir(os.path.join(ragged_root, "feats")):
+            open(os.path.join(stand_ins, fn[:-len(".bag")] + ".npz"), "w").close()
+        out = os.path.join(root, "ACROBAT.csv")
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            build_dataset_csvs.main(["--scan_features", stand_ins, "--out", out])
+        got = open(out, "rb").read()
+        want = open(os.path.join(ragged_root, "ACROBAT.csv"), "rb").read()
+        n_files = len(os.listdir(stand_ins))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if got != want:
+        raise AssertionError(f"csv tool: the manifest differs from the cohort's CSV:\n"
+                             f"{got[:400]!r}\n{want[:400]!r}")
+    return {"stand_ins": n_files, "rows": got.count(b"\n") - 1, "equal_to_cohort_csv": True,
+            "pandas_importable": importlib.util.find_spec("pandas") is not None,
+            "printed": printed.getvalue().splitlines()}
+
+
+def _pretrain_grown(torch, ragged_root):
+    """(a) The pretrain CLI's main in this process at the published batch
+    of 65 (full bags, the launch script's other flags, two epochs of two
+    steps, checkpoints every epoch, the downstream pass) on a cohort of
+    links to the ragged cohort's 70 cases where case 0's H&E bag has 20000
+    tokens (the loaders grow its batch's bucket to 32768) and so has the
+    first downstream slide (K1 at the inference loader's bucket 32768):
+    every step finite and applied, K6-K14 every step, K1 downstream,
+    nothing truncated, at least 2 steps at 32768, the native ring 2 slots
+    deep (21.81 GB pinned, against 4 slots' 43.62 GB); its construction
+    seconds, the host's MemAvailable before and during the run, host ms
+    and guard wait a batch and step ms by bucket, the peak. (b) The ring at
+    depth 2 at that size under a Prefetcher (`_grown_ring`). (c) The CSV
+    tool on the ragged cohort's names (`_csv_tool`). Then the --batch_size 8
+    epoch with --activation sigmoid on 16 cases of the same lengths (the
+    per-op lane under cfg.remat at bucket 32768, kernels 15-20 every step,
+    no K6/K7; a non-softmax model's downstream pass is plain), the buckets
     including 32768, nothing truncated."""
     from madeleine_torch.data.datasets import RAGGED_BUCKETS, bucket_of
 
     cases, bs, n_long = GROWN_PRETRAIN
+    bucket = bucket_of(n_long, RAGGED_BUCKETS)
     root = tempfile.mkdtemp(prefix="pretrain_grown_")
     try:
         t0 = time.perf_counter()
-        n_bags, n_bytes = _write_pretrain_cohort(root, np.random.default_rng(SEED + 10),
+        long_bag = _grown_cohort(ragged_root, os.path.join(root, "linked"), n_long)
+        link_s = time.perf_counter() - t0
+        try:
+            grown = _grown_cli(torch, os.path.join(root, "linked"), bucket)
+        finally:
+            _release_host_cache(torch)
+        try:
+            ring = _grown_ring(torch, os.path.join(root, "linked"), long_bag, bucket)
+        finally:
+            _release_host_cache(torch)
+        csv_tool = _csv_tool(ragged_root)
+        t0 = time.perf_counter()
+        sig_root = os.path.join(root, "sigmoid")
+        n_bags, n_bytes = _write_pretrain_cohort(sig_root, np.random.default_rng(SEED + 10),
                                                  tokens=RAGGED_PRETRAIN_TOKENS,
                                                  dtype="bfloat16", cases=cases, long_bag=n_long)
         write_s = time.perf_counter() - t0
-        results, records, wall = _run_pretrain_cli(
-            _pretrain_argv(root, os.path.join(root, "grown"), 1, "--batch_size", str(bs),
-                           "--checkpoint_every", "1", n_subsamples=None),
-            os.path.join(root, "pretrain_grown.log"))
-        run, _ = _check_pretrain_run("grown", results, records, range(1))
         results, records, wall_sig = _run_pretrain_cli(
-            _pretrain_argv(root, os.path.join(root, "grown_sigmoid"), 1, "--batch_size",
+            _pretrain_argv(sig_root, os.path.join(sig_root, "grown_sigmoid"), 1, "--batch_size",
                            str(bs), "--checkpoint_every", "1", "--activation", "sigmoid",
                            n_subsamples=None),
-            os.path.join(root, "pretrain_grown_sigmoid.log"))
+            os.path.join(sig_root, "pretrain_grown_sigmoid.log"))
         run_sig, _ = _check_pretrain_run("grown_sigmoid", results, records, range(1),
                                          kernels=PEROP_KERNELS + GOT_KERNELS + GLUE_KERNELS,
                                          downstream_kernel=None)
     finally:
         shutil.rmtree(root, ignore_errors=True)
         _release_host_cache(torch)
-    bucket = bucket_of(n_long, RAGGED_BUCKETS)
     fused = {k: run_sig["launches"].get(k, 0) for k in ENCODER_KERNELS}
-    for name, r in (("softmax", run), ("sigmoid", run_sig)):
-        if bucket not in r["buckets"] or any(r["truncation_count"]) or any(fused.values()):
-            raise AssertionError(f"pretrain_ragged grown bucket ({name}): buckets "
-                                 f"{r['buckets']}, truncations {r['truncation_count']}, "
-                                 f"K6/K7 in the sigmoid run {fused}")
-    slot = len(PRETRAIN_STAINS) * bucket * 512 * 2
-    return {"cases": cases, "batch_size": bs, "bags": n_bags, "cohort_gb": n_bytes / 1e9,
-            "cohort_write_s": write_s, "long_bag_tokens": n_long, "bucket": bucket,
-            "run": run, "cli_wall_s": wall, "pinned_bytes": run["pinned_bytes"],
-            "sigmoid_run": run_sig, "sigmoid_cli_wall_s": wall_sig,
-            "pinned_bytes_reckoned": 4 * bs * slot,
-            "pinned_bytes_reckoned_65_cases": 4 * 65 * slot, "host_memory_gb": _host_memory_gb()}
+    if bucket not in run_sig["buckets"] or any(run_sig["truncation_count"]) or any(
+            fused.values()):
+        raise AssertionError(f"pretrain_ragged grown bucket (sigmoid): buckets "
+                             f"{run_sig['buckets']}, truncations "
+                             f"{run_sig['truncation_count']}, K6/K7 launched {fused}")
+    return {"long_bag_tokens": n_long, "bucket": bucket, "link_s": link_s,
+            "published_batch": grown, "ring_at_depth_2": ring, "csv_tool": csv_tool,
+            "run": grown["run"], "sigmoid": {
+                "cases": cases, "batch_size": bs, "bags": n_bags, "cohort_gb": n_bytes / 1e9,
+                "cohort_write_s": write_s, "pinned_bytes": run_sig["pinned_bytes"],
+                "ring_depth": run_sig["ring_depth"], "cli_wall_s": wall_sig},
+            "sigmoid_run": run_sig, "host_memory_gb": _host_memory_gb()}
 
 
 # the f32 sigmoid CLI epoch's peak measured before the per-op lane read

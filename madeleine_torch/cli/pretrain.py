@@ -55,8 +55,13 @@ the card: the skip is decided on the device and each step's records are
 read that many steps later (`train/trainer.py::train_loop`). A batch of the
 Python loader is pinned by `host_batches` (PyTorch's caching host
 allocator, which keeps a block from reuse until the copy that reads it has
-completed on the stream); a slot of the native loader's ring waits on the
-CUDA event the step records after its copy.
+completed on the stream); a slot of the native loader's ring is refilled
+once the step has recorded its batch's copy and that copy has completed
+(`native/dataset.py::SlotGuard`), so the ring may be 2 slots deep under the
+Prefetcher (its depth from the slot's bytes and the host's MemTotal; each
+epoch's record logs ``pinned_bytes`` and ``ring_depth``). Each step runs
+under the profiler range ``step_fn`` (`--profile_dir`;
+`python -m madeleine_torch.tools.profile_summary <dir>` summarises it).
 """
 
 from __future__ import annotations
@@ -249,6 +254,7 @@ def main(argv=None) -> str:
                 for part in ("draw_ms", "assemble_ms", "guard_wait_ms"):
                     record[part] = [t[part] for t in loader.timings]
                 record["pinned_bytes"] = loader.pinned_bytes
+                record["ring_depth"] = loader.ring_depth
             if truncations:   # a ragged loader's count after each batch
                 record["truncation_count"] = truncations
             if dev.type == "cuda":

@@ -64,7 +64,9 @@ decay, as optax.adamw treats it in the JAX package. GOT through ops/ipot.py
 and ops/got_glue.py (K8-K14). A batch's feats arrive as f32 or bf16 (pinned
 by the caller's loader on the card) and are copied to the device
 asynchronously, then cast there; its small arrays, the token mask of a
-ragged batch among them, are pinned here before their copy.
+ragged batch among them, are pinned here before their copy. A batch's
+``copied`` guard (the native loader's ring slot) is recorded right after
+its feats' copy. Each step runs under the profiler range ``step_fn``.
 """
 
 from __future__ import annotations
@@ -88,6 +90,7 @@ from madeleine_torch.parallel import collectives
 from madeleine_torch.parallel.multihost import allgather_rows
 from madeleine_torch.setup import setup_losses
 from madeleine_torch.train.optim import GatedAdamW
+from madeleine_torch.utils.profiling import annotate
 
 WHOLE_VIEW_POSITION = 0  # ref: trainer.py:16
 GOT_STREAM = 0x474F54    # keys the GOT subsample draw apart from the dropout masks
@@ -275,6 +278,10 @@ class TrainStep:
         self.optimizer.count.fill_(int(n))
 
     def __call__(self, batch: Dict[str, object], seed: int):
+        with annotate("step_fn"):   # the name JAX's step is jitted under, for profile_summary
+            return self._step(batch, seed)
+
+    def _step(self, batch: Dict[str, object], seed: int):
         cfg, model = self.cfg, self.model
         dev = next(model.parameters()).device
         # copy first (asynchronous from pinned memory), then cast on the device

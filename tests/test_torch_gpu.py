@@ -1402,19 +1402,22 @@ def _native_cohort(root, n_cases, d=64):
 
 @pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
 def test_native_loader_pinned_ring_matches_plain(cuda_device, tmp_path, out_dtype):
-    """For the card the ring is pinned; its batches (host library, built
-    here with -march=native) equal the plain route's bit for bit, and
-    survive the copy to the card unchanged."""
-    from madeleine_torch.native.dataset import NativeTrainLoader
+    """For the card the ring is pinned, 4 slots deep (small slots, the
+    default buffer_depth); its batches (host library, built here with
+    -march=native) equal the plain route's bit for bit, and survive the
+    copy to the card unchanged; each batch's copy is recorded."""
+    from madeleine_torch.native.dataset import NativeTrainLoader, SlotGuard
 
     csv_path, bags, stains = _native_cohort(str(tmp_path), 13)
     kw = dict(embedding_size=64, sample=128, batch_size=4, seed=2, out_dtype=out_dtype)
     ours = NativeTrainLoader(csv_path, bags, stains, device=cuda_device, **kw)
     plain = NativeTrainLoader(csv_path, bags, stains, device="cpu", plain=True, **kw)
+    assert ours.ring_depth == 4 and plain.ring_depth == 4
     as_bits = torch.int16 if out_dtype == "bfloat16" else torch.float32
     for got, want in zip(ours, plain):
         assert got["feats"].is_pinned() and not want["feats"].is_pinned()
         dev = got["feats"].to(cuda_device, non_blocking=True)
+        assert isinstance(got["copied"], SlotGuard)
         got["copied"].record()
         assert torch.equal(got["feats"].view(as_bits), want["feats"].view(as_bits))
         assert torch.equal(dev.cpu().view(as_bits), want["feats"].view(as_bits))
@@ -1427,7 +1430,8 @@ def test_native_ragged_ring_refills_a_slot_after_its_copy(cuda_device, tmp_path)
     the copy that landed is batch 0's, and every batch equals the plain
     route's bit for bit; both slots are sized at construction for bucket
     256, the cohort's largest, and never replaced, so the ring's pinned
-    bytes are two such slots."""
+    bytes are two such slots (ring_depth 2, buffer_depth's); every batch
+    taken is recorded."""
     import csv
     import os
 
@@ -1454,7 +1458,7 @@ def test_native_ragged_ring_refills_a_slot_after_its_copy(cuda_device, tmp_path)
               buckets=(64, 256), shuffle=False)
     loader = NativeRaggedLoader(csv_path, bags, stains, device=cuda_device, **kw)
     slots = [x.data_ptr() for x in loader._ring]
-    assert loader.pinned_bytes == 2 * 4 * 5 * 256 * 64 * 2
+    assert loader.ring_depth == 2 and loader.pinned_bytes == 2 * 4 * 5 * 256 * 64 * 2
     plain = [b["feats"].clone() for b in NativeRaggedLoader(csv_path, bags, stains,
                                                              device="cpu", plain=True, **kw)]
     batches = iter(loader)
@@ -1465,8 +1469,10 @@ def test_native_ragged_ring_refills_a_slot_after_its_copy(cuda_device, tmp_path)
     dev = b0["feats"].to(cuda_device, non_blocking=True)
     b0["copied"].record()
     b1 = next(batches)
+    b1["copied"].record()
     assert not b0["copied"].query()       # the copy is still queued
     b2 = next(batches)                    # slot 0 again, at bucket 256
+    b2["copied"].record()
     assert b0["copied"].query()
     assert [b["feats"].shape[2] for b in (b0, b1, b2)] == [64, 64, 256]
     assert loader.timings[2]["guard_wait_ms"] > 50, loader.timings
@@ -1480,16 +1486,18 @@ def test_native_ragged_ring_refills_a_slot_after_its_copy(cuda_device, tmp_path)
 
 
 def test_native_loader_waits_for_the_slot_copy(cuda_device, tmp_path):
-    """A ring of 2 slots: batch 0's copy is queued behind 6e8 cycles (about
-    0.3 s) of device sleep and its event recorded after it; batch 2 reuses slot 0, so the
-    loader waits on that event before it assembles (the guard's wait shows
-    it), and the copy that landed on the card is batch 0's."""
+    """A ring of 2 slots (ring_depth 2, buffer_depth's): batch 0's copy is
+    queued behind 6e8 cycles (about 0.3 s) of device sleep and its event
+    recorded after it; batch 2 reuses slot 0, so the loader waits on that
+    event before it assembles (the guard's wait shows it), and the copy that
+    landed on the card is batch 0's; every batch taken is recorded."""
     from madeleine_torch.native.dataset import NativeTrainLoader
 
     csv_path, bags, stains = _native_cohort(str(tmp_path), 12)
     loader = NativeTrainLoader(csv_path, bags, stains, embedding_size=64, sample=128,
                                batch_size=4, seed=3, buffer_depth=2, out_dtype="bfloat16",
                                device=cuda_device)
+    assert loader.ring_depth == 2
     batches = iter(loader)
     b0 = next(batches)
     want = b0["feats"].clone()
@@ -1497,9 +1505,9 @@ def test_native_loader_waits_for_the_slot_copy(cuda_device, tmp_path):
     torch.cuda._sleep(600_000_000)
     dev = b0["feats"].to(cuda_device, non_blocking=True)
     b0["copied"].record()
-    next(batches)
+    next(batches)["copied"].record()
     assert not b0["copied"].query()       # the copy is still queued
-    next(batches)                         # slot 0 again
+    next(batches)["copied"].record()      # slot 0 again
     assert b0["copied"].query()
     assert loader.timings[2]["guard_wait_ms"] > 50, loader.timings
     assert loader.timings[1]["guard_wait_ms"] < 50, loader.timings

@@ -240,7 +240,8 @@ def test_native_ragged_loader_equals_jax(tmp_path, case, max_tokens, capsys):
     NativeRaggedLoader bit for bit in epochs 0 and 1, and the plain
     route's, as does the truncation count; every ring slot is sized once
     for the cohort's largest bucket and never replaced (pinned_bytes is 0 on
-    the CPU)."""
+    the CPU); the CPU ring keeps max(2, buffer_depth) = 4 slots and its
+    batches carry no guard."""
     out_dtype, disk = LOADER_CASES[case]
     csv_path, bags = _write_bag_cohort(str(tmp_path), 11, 16, disk=disk, empty_bag=True)
     kw = dict(embedding_size=16, batch_size=4, seed=5, out_dtype=out_dtype,
@@ -267,19 +268,22 @@ def test_native_ragged_loader_equals_jax(tmp_path, case, max_tokens, capsys):
     assert buckets == {64} and ours.pinned_bytes == 0
     assert ours.truncation_count == theirs.truncation_count
     assert (ours.truncation_count > 0) == (max_tokens is not None)
-    assert [x.numel() for x in ours._ring] == [4 * 5 * 64 * 16] * len(slots)
+    assert ours.ring_depth == len(slots) == 4
+    assert [x.numel() for x in ours._ring] == [4 * 5 * 64 * 16] * 4
     assert [x.data_ptr() for x in ours._ring] == slots
+    assert all(b["copied"] is None for b in ours)
     for loader in (ours, theirs):
         loader.close()
 
 
 def test_native_loader_ring_survives_a_prefetcher(tmp_path):
-    """Nine batches through a Prefetcher of depth 2 over a ring of 4 slots,
-    each held until the next arrives: every batch equals the copy taken when
-    it was made."""
+    """Nine batches through a Prefetcher of depth 2 over a CPU ring of 4
+    slots (unguarded: max(2, buffer_depth) slots), each held until the next
+    arrives: every batch equals the copy taken when it was made."""
     csv_path, bags = _write_bag_cohort(str(tmp_path), 34, 8, absent=False)
     loader = NativeTrainLoader(csv_path, bags, STAINS, embedding_size=8, sample=16,
                                batch_size=4, seed=1, buffer_depth=4, device="cpu")
+    assert loader.ring_depth == 4
     made = []
 
     def recorded():
@@ -289,6 +293,7 @@ def test_native_loader_ring_survives_a_prefetcher(tmp_path):
 
     held = []
     for b in Prefetcher(recorded(), depth=2):
+        assert b["copied"] is None
         held.append(b)
         if len(held) > 1:
             prev = held[-2]

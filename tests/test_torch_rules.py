@@ -152,3 +152,36 @@ def test_cli_device_flag_defaults_to_cuda(cli):
     assert "--device" in proc.stdout
     src = open(os.path.join(REPO, "madeleine_torch", "cli", f"{cli}.py")).read()
     assert 'add_argument("--device", type=str, default="cuda")' in src
+
+
+def test_data_and_trace_tools_run_without_pandas(tmp_path):
+    """`python -m madeleine_torch.tools.build_dataset_csvs` and
+    `python -m madeleine_torch.tools.profile_summary`, the counterparts of
+    the JAX package's pandas and JAX scripts, run in a process where pandas
+    cannot be imported (as on the card's machine)."""
+    import json
+
+    feats = tmp_path / "feats"
+    feats.mkdir()
+    for name in ("c1_HE.npz", "c1_ER.npz", "c2_HE_val.h5"):
+        (feats / name).write_bytes(b"")
+    prof = tmp_path / "prof"
+    prof.mkdir()
+    (prof / "trace.json").write_text(json.dumps({"traceEvents": [
+        {"ph": "X", "cat": "gpu_user_annotation", "name": "step_fn", "ts": 0, "dur": 2000},
+        {"ph": "X", "cat": "kernel", "name": "gemm_kernel", "ts": 10, "dur": 1500}]}))
+    out = tmp_path / "ACROBAT.csv"
+    code = ("import runpy, sys\n"
+            "sys.modules['pandas'] = None\n"
+            f"sys.argv = ['x', '--scan_features', {str(feats)!r}, '--out', {str(out)!r}]\n"
+            "runpy.run_module('madeleine_torch.tools.build_dataset_csvs', run_name='__main__')\n"
+            f"sys.argv = ['x', {str(prof)!r}]\n"
+            "runpy.run_module('madeleine_torch.tools.profile_summary', run_name='__main__')\n"
+            "assert 'pandas' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300, env=dict(os.environ, PYTHONPATH=REPO))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert out.read_text() == ("slide_id,HE,HER2,PGR,KI67,ER,split\n"
+                               "c1,1,0,0,0,1,train\nc2,1,0,0,0,0,val\n")
+    assert "step_fn device time: 2.0 ms/step  (1 steps captured)" in proc.stdout
+    assert "1.50 ms/step 100.0%  gemm_kernel" in proc.stdout
