@@ -439,7 +439,8 @@ Phases, one JSON line each; any failure raises and the exit code is non-zero:
            deep (21.81 GB pinned), its construction s, MemAvailable before
            and during, host ms, guard wait and step ms by bucket, the peak;
            (b) that ring under a Prefetcher of depth 2 for 2 epochs, each
-           copy behind about 0.5 s of device sleep: the third batch waits
+           copy (into a buffer made beforehand) behind about 1 s of device
+           sleep: the third batch waits
            on its guard, padded rows zero on the card, the last task of a
            32768 batch (past 2**31 elements) and the long bag bit for bit
            their .bag files' rows; (c) the CSV tool
@@ -734,6 +735,8 @@ def phase_build(state):
           "host_library": {"bagio": _build.lib_path("bagio"), "seconds": host["seconds"],
                            "flags": " ".join([_build.HOST_CXX, *_build.HOST_FLAGS])},
           "wgmma_kernel_spills": _spills(reports, ("gemm_kernel", "gate_logits_sum")),
+          "tf32_kernel_spills": _spills(reports, ("tf32_gemm_kernel",
+                                                  "split_weights_kernel")),
           "k8_k14_kernel_spills": _spills(reports, ("ipot_fwd_cluster_kernel",
                                                     "gwt_bwd_tiles_kernel")),
           "k1_k13_kernel_spills": _spills(reports, ("gwt_fwd_tiles_kernel", "tile_flags",
@@ -2002,11 +2005,14 @@ def _check_grown(torch, w, t, lengths, rates, gen, peak_flops):
     k7 = cuda_ms(lambda: et.encoder_train_bwd_blocks(*ba), warmup=1, iters=3)
     ff, fb, bf, bb_ = _encoder_train_work(b, t, w, recompute=True)
     (k6b, k6by), (k7b, k7by) = _bound(ff, fb, peak_flops), _bound(bf, bb_, peak_flops)
+    # f32 operands: also the split-TF32 route's bound, three TF32 terms a product
+    tf32 = {} if not f32 else dict(k6_bound_ms_tf32=_bound(3 * ff, fb, PEAK_TF32)[0],
+                                   k7_bound_ms_tf32=_bound(3 * bf, bb_, PEAK_TF32)[0])
     return dict(rep, b=b, t=t, dtype="float32" if f32 else "bfloat16", rows=b * t,
                 valid_tokens=int(sum(lengths)), blocks=blocks, n_blocks=len(blocks),
                 grad_max_rel_fro_last_bag=max(v for k, v in errs.items() if k != "bc"),
                 bc_abs_last_bag=errs["bc"], k6_ms=k6, k7_ms=k7, k7_own_peak_gb=peak,
-                k6_bound_ms=k6b, k6_bound_by=k6by, k7_bound_ms=k7b, k7_bound_by=k7by)
+                k6_bound_ms=k6b, k6_bound_by=k6by, k7_bound_ms=k7b, k7_bound_by=k7by, **tf32)
 
 
 GUARD_SHAPE = (8, 2048)        # the HBM guard's call: saves of 235 MB
@@ -2418,26 +2424,58 @@ def phase_train_kernels(state):
 F32_STEP_SHAPE = (65, 2048)   # the f32 step's call shape: one modality of 65 cases
 
 
-def _ffma_chunks(et, M, dims):
-    """The f32 route's weight-gradient piece lengths for each product at M
-    tokens: the library's (csrc/gemm_ffma.cuh::wgrad_chunk) against
-    ops/encoder_train.py::ffma_wgrad_chunk, which the CPU tests' mirror uses."""
+def _wgrad_chunks(et, M, dims):
+    """The f32 weight-gradient piece lengths for each product at M tokens, the
+    library's against the Python mirror's, which the CPU tests' mirrors use:
+    K6 / K7's (csrc/gemm_tf32.cuh::wgrad_chunk, ops/encoder_train.py::
+    tf32_wgrad_chunk) and the per-op kernels 15-18's (csrc/gemm_ffma.cuh::
+    wgrad_chunk, ffma_wgrad_chunk)."""
     import ctypes
 
     from madeleine_torch.ops import _build
 
-    fn = _build.load("encoder_train_fwd").encoder_train_ffma_wgrad_chunk
-    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+    lib = _build.load("encoder_train_fwd")
     d_in, hd, E, nh, f, e, dout = dims
     out = {}
-    for name, (mo, no, nb) in {"w1": (hd, d_in, 1), "w2": (hd, hd, 1), "w3": (E, hd, 1),
-                               "wab": (2 * f, e, nh), "wt": (dout, E, 1)}.items():
-        lib_c, py_c = fn(mo, no, M, nb), et.ffma_wgrad_chunk(mo, no, M, nb)
-        if lib_c != py_c:
-            raise AssertionError(f"train_kernels_f32: piece length of d{name} at M={M}: "
-                                 f"library {lib_c}, Python {py_c}")
-        out[name] = {"chunk": lib_c, "pieces": -(-M // lib_c)}
+    for route, fn, mirror in (("tf32", lib.encoder_train_tf32_wgrad_chunk, et.tf32_wgrad_chunk),
+                              ("ffma", lib.encoder_train_ffma_wgrad_chunk, et.ffma_wgrad_chunk)):
+        fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+        for name, (mo, no, nb) in {"w1": (hd, d_in, 1), "w2": (hd, hd, 1), "w3": (E, hd, 1),
+                                   "wab": (2 * f, e, nh), "wt": (dout, E, 1)}.items():
+            lib_c, py_c = fn(mo, no, M, nb), mirror(mo, no, M, nb)
+            if lib_c != py_c:
+                raise AssertionError(f"train_kernels_f32: {route} piece length of d{name} at "
+                                     f"M={M}: library {lib_c}, Python {py_c}")
+            out.setdefault(route, {})[name] = {"chunk": lib_c, "pieces": -(-M // lib_c)}
     return out
+
+
+# What one K6 and one K7 call with f32 operands must launch, and must not:
+# the split-TF32 GEMM (csrc/gemm_tf32.cuh), no FFMA tile (csrc/gemm_ffma.cuh)
+TF32_ENGINE, FFMA_ENGINE = "tf32_gemm_kernel", "ff::tile_kernel"
+
+
+def _f32_engine(torch, fa, ba):
+    """Device ms by kernel of one K6 and one K7 call with f32 operands (the
+    save route; a profiled window of `_profiled`, another while one shows
+    no split-TF32 product, up to three): fails if any FFMA tile of
+    gemm_ffma.cuh runs, or no split-TF32 product shows."""
+    from madeleine_torch.ops import encoder_train as et
+
+    for window in range(3):
+        rows = _profiled(torch, lambda: (et.encoder_train_fwd_cuda(*fa),
+                                         et.encoder_train_bwd_cuda(*ba)))
+        if any(FFMA_ENGINE in k for k, _, _ in rows):
+            raise AssertionError(f"train_kernels_f32: K6/K7 f32 ran an FFMA tile: {rows[:12]}")
+        tf32 = [r for r in rows if TF32_ENGINE in r[0]]
+        if tf32:
+            total = sum(ms for _, _, ms in rows)
+            return {"windows": window + 1, "device_ms": total,
+                    "tf32_gemm_ms": sum(ms for _, _, ms in tf32),
+                    "tf32_gemm_launches": sum(c for _, c, _ in tf32),
+                    "split_weights_ms": sum(ms for k, _, ms in rows if "split_weights" in k),
+                    "top": [[k, c, ms] for k, c, ms in rows[:12]]}
+    raise AssertionError(f"train_kernels_f32: no split-TF32 product in 3 windows: {rows[:12]}")
 
 
 def phase_train_kernels_f32(state):
@@ -2452,9 +2490,13 @@ def phase_train_kernels_f32(state):
     recompute route (K6 without saves and K7 rebuilding the residuals, bit
     for bit the save route, and against the plain recompute at the same
     bars). Timed at [65, 2048] (K6, K7 on both routes, each plain version),
-    beside the bound at the FP32 FMA peak (67 TFLOP/s) or the bytes; the
-    weight gradients' piece lengths, the library's against the Python
-    mirror's, at 133,120 and 532,480 rows (buckets 2048 and 8192)."""
+    beside two bounds: the split-TF32 route's (three TF32 terms a product
+    at 495 TFLOP/s, the route K6/K7 run: `bound_ms`) and the FP32 FMA
+    peak's (67 TFLOP/s, the first design's: `bound_ms_ffma`), or the
+    bytes; the engine from a profiled call pair (`_f32_engine`: split-TF32
+    products, no FFMA tile); the weight gradients' piece lengths, the
+    library's against the Python mirror's, at 133,120 and 532,480 rows
+    (buckets 2048 and 8192)."""
     import torch
     from madeleine_torch.models.madeleine import half_split, train_weights
     from madeleine_torch.ops import encoder_train as et
@@ -2479,6 +2521,7 @@ def phase_train_kernels_f32(state):
     checks["step_call"] = _check_recompute(torch, w, x, bias, real, gen)
     # K6's save route and both plain versions, timed on the dense call
     rep, _, fa, ba = _check_train_kernels(torch, w, x, bias, real, gen)
+    engine = _f32_engine(torch, fa, ba)
     k6 = cuda_ms(lambda: et.encoder_train_fwd_cuda(*fa))
     with torch.no_grad():
         k6p = cuda_ms(lambda: et.encoder_train_fwd_plain(*fa), warmup=1, iters=3)
@@ -2518,50 +2561,62 @@ def phase_train_kernels_f32(state):
     ff, fb, bf, bb_ = _encoder_train_work(b, t, w)
     (k6b, k6by), (k7b, k7by) = _bound(ff, fb, PEAK_FP32), _bound(bf, bb_, PEAK_FP32)
     ff_r, fb_r, bf_r, bb_r = _encoder_train_work(b, t, w, recompute=True)
-    (k6nb, _), (k7rb, k7rby) = _bound(ff_r, fb_r, PEAK_FP32), _bound(bf_r, bb_r, PEAK_FP32)
+    (k6nb, _), (k7rb, _) = _bound(ff_r, fb_r, PEAK_FP32), _bound(bf_r, bb_r, PEAK_FP32)
+    # the split-TF32 route's bounds: three TF32 terms a product at 495 TFLOP/s
+    (k6t, k6ty), (k7t, k7ty) = _bound(3 * ff, fb, PEAK_TF32), _bound(3 * bf, bb_, PEAK_TF32)
+    k6nt, k7rt = _bound(3 * ff_r, fb_r, PEAK_TF32)[0], _bound(3 * bf_r, bb_r, PEAK_TF32)[0]
     nh, f, e = w["wa"].shape
     dims = (512, 512, nh * e, nh, f, e, w["wt"].shape[0])
-    chunks = {M: _ffma_chunks(et, M, dims) for M in (b * t, b * 8192)}
-    times = {"fwd_ms": k6, "fwd_plain_ms": k6p, "fwd_bound_ms": k6b, "fwd_bound_by": k6by,
-             "fwd_share_of_bound": k6b / k6, "fwd_nosave_ms": st["k6_nosave_ms"],
-             "fwd_nosave_bound_ms": k6nb, "bwd_ms": st["k7_save_ms"], "bwd_plain_ms": k7p,
-             "bwd_bound_ms": k7b, "bwd_bound_by": k7by,
-             "bwd_share_of_bound": k7b / st["k7_save_ms"],
-             "bwd_recompute_ms": st["k7_recompute_ms"], "bwd_recompute_bound_ms": k7rb,
-             "bwd_recompute_share_of_bound": k7rb / st["k7_recompute_ms"],
-             "fwd_tflops": ff / k6 / 1e9, "bwd_tflops": bf / st["k7_save_ms"] / 1e9,
+    chunks = {M: _wgrad_chunks(et, M, dims) for M in (b * t, b * 8192)}
+    k7, k7r, k6n = st["k7_save_ms"], st["k7_recompute_ms"], st["k6_nosave_ms"]
+    times = {"fwd_ms": k6, "fwd_plain_ms": k6p, "fwd_bound_ms": k6t, "fwd_bound_by": k6ty,
+             "fwd_share_of_bound": k6t / k6, "fwd_bound_ms_ffma": k6b,
+             "fwd_share_of_ffma_bound": k6b / k6, "fwd_nosave_ms": k6n,
+             "fwd_nosave_bound_ms": k6nt, "fwd_nosave_bound_ms_ffma": k6nb,
+             "bwd_ms": k7, "bwd_plain_ms": k7p, "bwd_bound_ms": k7t, "bwd_bound_by": k7ty,
+             "bwd_share_of_bound": k7t / k7, "bwd_bound_ms_ffma": k7b,
+             "bwd_share_of_ffma_bound": k7b / k7,
+             "bwd_recompute_ms": k7r, "bwd_recompute_bound_ms": k7rt,
+             "bwd_recompute_share_of_bound": k7rt / k7r,
+             "bwd_recompute_bound_ms_ffma": k7rb,
+             "bwd_recompute_share_of_ffma_bound": k7rb / k7r,
+             "fwd_tflops": ff / k6 / 1e9, "bwd_tflops": bf / k7 / 1e9,
+             "bwd_recompute_tflops": bf_r / k7r / 1e9,
+             "fwd_tf32_term_tflops": 3 * ff / k6 / 1e9, "bwd_tf32_term_tflops": 3 * bf / k7 / 1e9,
              "fwd_gflop": ff / 1e9, "bwd_gflop": bf / 1e9}
     reps = list(checks.values())
     err_f = max(max(r["pooled_err"], r["tok_err"], r["logits_err"]) for r in reps)
     err_b = max(r["grad_max_abs_err"] for r in reps)
     common = {"route": "cuda", "library_ms": None, "operand_dtype": "float32",
-              "shape": list(F32_STEP_SHAPE)}
+              "shape": list(F32_STEP_SHAPE), "engine": "csrc/gemm_tf32.cuh (split-TF32 wgmma)"}
     state.setdefault("kernels", {}).update({
         "encoder_train_fwd_f32": dict(
             common, name="encoder_train_fwd_f32",
             source="madeleine_torch/csrc/encoder_train_fwd.cu",
             replaces="madeleine_tpu/ops/encoder_train.py:168", max_abs_err=err_f, ms=k6,
-            plain_ms=k6p, bound_ms=k6b, bound_by=k6by, nosave_ms=st["k6_nosave_ms"],
-            nosave_bound_ms=k6nb),
+            plain_ms=k6p, bound_ms=k6t, bound_by=k6ty, bound_of="3 x TF32", bound_ms_ffma=k6b,
+            nosave_ms=k6n, nosave_bound_ms=k6nt),
         "encoder_train_bwd_f32": dict(
             common, name="encoder_train_bwd_f32",
             source="madeleine_torch/csrc/encoder_train_bwd.cu",
             replaces="madeleine_tpu/ops/encoder_train.py:262", max_abs_err=err_b,
-            ms=st["k7_save_ms"], plain_ms=k7p, bound_ms=k7b, bound_by=k7by,
-            recompute_ms=st["k7_recompute_ms"], recompute_bound_ms=k7rb,
-            recompute_bound_by=k7rby)})
+            ms=k7, plain_ms=k7p, bound_ms=k7t, bound_by=k7ty, bound_of="3 x TF32",
+            bound_ms_ffma=k7b, recompute_ms=k7r, recompute_bound_ms=k7rt,
+            recompute_bound_ms_ffma=k7rb)})
     for kernel, k in (("encoder_train_fwd_f32", "k6"), ("encoder_train_bwd_f32", "k7")):
         # the recompute route in the rule's blocks at [65, 16384]
         state["kernels"][kernel].update({"blocked_ms_16384": grown[f"{k}_ms"],
-                                         "blocked_bound_ms_16384": grown[f"{k}_bound_ms"],
+                                         "blocked_bound_ms_16384": grown[f"{k}_bound_ms_tf32"],
+                                         "blocked_bound_ms_ffma_16384": grown[f"{k}_bound_ms"],
                                          "blocks_16384": grown["n_blocks"]})
     state["kernels"]["encoder_train_bwd_f32"]["blocked_own_peak_gb_16384"] = \
         grown["k7_own_peak_gb"]
     emit({"phase": "train_kernels_f32", "smi": state["smi"], "shape": list(F32_STEP_SHAPE),
           "rtol": F32_RTOL, "atol": F32_ATOL, "grad_rtol_fro": F32_GRAD_RTOL, "bc_atol": BC_ATOL,
           "ragged_lengths": lengths_r.tolist(), "checks": checks, "blocked": blocked,
-          "times": times,
-          "wgrad_pieces": chunks, "peak_tflops_fp32": PEAK_FP32 / 1e12})
+          "times": times, "engine": engine,
+          "wgrad_pieces": chunks, "peak_tflops_fp32": PEAK_FP32 / 1e12,
+          "peak_tflops_tf32": PEAK_TF32 / 1e12})
 
 
 # GOT kernels: relative Frobenius bars against the plain versions on the card
@@ -6470,7 +6525,7 @@ def phase_pretrain_ragged(state):
 
 
 GROWN_PRETRAIN = (16, 8, 20000)   # cases, --batch_size, the long bag's tokens (bucket 32768)
-GROWN_RING_SLEEP_CYCLES = 1_000_000_000   # (b)'s device sleep before each copy, about 0.5 s
+GROWN_RING_SLEEP_CYCLES = 2_000_000_000   # (b)'s device sleep before each copy, about 1 s
 
 
 def _host_memory_gb():
@@ -6578,8 +6633,9 @@ def _grown_cli(torch, root, bucket):
 def _grown_ring(torch, root, long_bag, bucket):
     """(b): a NativeRaggedLoader of 65 cases a batch on the grown cohort (2
     pinned slots at `bucket`) through a Prefetcher of depth 2 for two
-    epochs, the consumer queuing each batch's copy to the card behind about
-    0.5 s of device sleep and then recording it: the third batch waits on
+    epochs, the consumer queuing each batch's copy to the card (into a
+    buffer made beforehand) behind about 1 s of device sleep and then
+    recording it, its host ms per batch reported: the third batch waits on
     its slot's guard; on the card every row past a bag's length is zero;
     in each batch at `bucket` the last task (324, past 2**31 elements into
     the slot), the last present task and the long bag equal the plain
@@ -6596,13 +6652,23 @@ def _grown_ring(torch, root, long_bag, bucket):
     build_s = time.perf_counter() - t0
     mem_built = _host_memory_gb()
     depth, pinned = loader.ring_depth, loader.pinned_bytes
-    got, waits = [], []
+    # the copies land in buffers of a slot's size made before the first batch,
+    # so no allocation (a cudaMalloc of up to a slot, or a release of cached
+    # blocks that waits for the card) holds the consumer between batches
+    dests = [torch.empty(pinned // depth // 2, dtype=torch.bfloat16, device="cuda")
+             for _ in range(4)]
+    torch.cuda.synchronize()
+    got, waits, consumer_ms = [], [], []
     for epoch in (0, 1):
         loader.set_epoch(epoch)
         for b in Prefetcher(loader, depth=2):
+            t0 = time.perf_counter()
             torch.cuda._sleep(GROWN_RING_SLEEP_CYCLES)
-            dev = b["feats"].to("cuda", non_blocking=True)
+            src = b["feats"]
+            dev = dests[len(got) % len(dests)][:src.numel()].view(src.shape)
+            dev.copy_(src, non_blocking=True)
             b["copied"].record()
+            consumer_ms.append((time.perf_counter() - t0) * 1e3)
             got.append((dev, b["token_mask"], b["sample_mask"], b["slide_ids"]))
         waits += [t["guard_wait_ms"] for t in loader.timings]
     torch.cuda.synchronize()
@@ -6630,14 +6696,14 @@ def _grown_ring(torch, root, long_bag, bucket):
             checked.append({"task": k, "offset_elements": k * t * 512,
                             "bag": os.path.basename(paths[k]) if reader else None,
                             "rows": reader.n_rows if reader else 0, "bitwise_equal": equal})
-    del got
+    del got, dests
     if nonzero_pad or not checked or not all(c["bitwise_equal"] for c in checked) or not any(
             c["offset_elements"] >= 2 ** 31 for c in checked):
         raise AssertionError(f"pretrain_ragged grown ring: {nonzero_pad} padded rows not "
                              f"zero; tasks {checked}")
     return {"ring_depth": depth, "pinned_bytes": pinned, "construction_s": build_s,
             "host_memory_gb_before": mem_before, "host_memory_gb_built": mem_built,
-            "guard_wait_ms": waits, "nonzero_padded_rows": nonzero_pad, "tasks": checked,
+            "guard_wait_ms": waits, "consumer_ms": consumer_ms, "nonzero_padded_rows": nonzero_pad, "tasks": checked,
             "sleep_cycles_before_each_copy": GROWN_RING_SLEEP_CYCLES}
 
 

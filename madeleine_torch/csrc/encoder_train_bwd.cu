@@ -23,9 +23,15 @@
 // With f32 operands (encoder_train_backward_f32, the JAX package's parity
 // route, encoder_train.py:308,323): the same launches with the residuals,
 // the rebuilt activations, the cotangents DZG, DZ3, DZ12, dtok and dx in
-// f32 (nothing rounded to bf16) and every product on gemm_ffma.cuh's FFMA
-// tiles; the weight gradients' token sums split into pieces summed in piece
-// order (ff::wgrad).
+// f32 (nothing rounded to bf16) and every product on gemm_tf32.cuh's
+// split-TF32 wgmma GEMM: the input gradients with the weights split into
+// TF32 hi and lo and transposed once a call (t32::split_weights; TF32 wgmma
+// reads both operands K-major), the weight gradients transposing and
+// splitting both token-major operands in shared memory, their token sums
+// split into pieces of whole 32-token k tiles summed in piece order
+// (t32::wgrad), the recompute route re-running K6's f32 rows on the same
+// engine and the same splits. The first f32 design ran the products on
+// gemm_ffma.cuh's FFMA tiles (no tensor cores), 44% of FP32's 67 TFLOP/s.
 //
 // What bounds it on an H100: 7.6 M multiply-adds per token at the published
 // widths (a weight gradient for every product, an input gradient for every
@@ -170,7 +176,9 @@ long long colpart_stride(const Shapes& S) {
 }
 
 // Floats of workspace the backward needs on engine G: [split-K partials,
-// column partials].
+// column partials, and on TF32 the weight splits: the five matrices
+// transposed, then w1, w2, w3 and the permuted [Wa; Wb] as stored for the
+// recompute route].
 template <Gemm G>
 void workspace(const long long* dims, long long* out) {
   const Shapes S = shapes_of(dims);
@@ -180,6 +188,10 @@ void workspace(const long long* dims, long long* out) {
   for (long long c : cand) w = c > w ? c : w;
   out[0] = w;
   out[1] = S.ntr * colpart_stride(S);
+  if constexpr (G == Gemm::TF32) {
+    const long long fwd = madeleine::split_fwd_floats(S.d_in, S.hd, S.E, S.nh, S.e, S.f, S.dout);
+    out[2] = 2 * fwd - madeleine::t32::split_floats(1, S.dout, S.E);
+  }
 }
 
 // dims as encoder_train_forward (dims[12] = nv), and dims[13] = 1 on the
@@ -188,12 +200,13 @@ void workspace(const long long* dims, long long* out) {
 // (dx null without need_dx; the view bias [t, 2] null when nv = 1; then, set
 // on the recompute route only, b1, b2, b3 and K6's permuted [Wa; Wb] and
 // [ba; bb], while u1, u2, u3, a_pre, b_pre and rstd are the buffers the
-// recompute fills). g is [b, nv, E]; inner, m and s are [b, nv, nh]. T: the
-// operands' type, bf16 on the wgmma GEMM, float on the FFMA tiles. Returns a
-// cudaError_t.
+// recompute fills; then, f32 only, the weight splits, out[2] of
+// encoder_train_bwd_workspace_f32). g is [b, nv, E]; inner, m and s are [b,
+// nv, nh]. T: the operands' type, bf16 on the wgmma GEMM, float on the
+// split-TF32 GEMM. Returns a cudaError_t.
 template <typename T>
 int backward(void** p, const long long* dims, const float* scales, void* stream_) {
-  constexpr Gemm G = sizeof(T) == 4 ? Gemm::FFMA : Gemm::WGMMA;
+  constexpr Gemm G = sizeof(T) == 4 ? Gemm::TF32 : Gemm::WGMMA;
   const cudaStream_t st = static_cast<cudaStream_t>(stream_);
   // rows and global bag indices are 32-bit below (every offset is 64-bit):
   // a larger call runs in blocks of whole bags (ops/encoder_train.py)
@@ -237,13 +250,38 @@ int backward(void** p, const long long* dims, const float* scales, void* stream_
   if (nv != 1 && (nv != 3 || vb == nullptr)) return (int)cudaErrorInvalidValue;
   const long long ldp = colpart_stride(S);
   const int ntr = S.ntr;
+  // the input gradients' B: the weights as stored (bf16), or (f32) split
+  // into TF32 hi and lo and transposed per batch; the recompute's weights:
+  // as stored, or split as stored
+  const T *w1b = w1, *w2b = w2, *w3b = w3, *wabb = wab, *wtb = wt;
+  const T *w1r = w1, *w2r = w2, *w3r = w3, *wabr = (const T*)p[59];
+  if constexpr (sizeof(T) == 4) {
+    float* ws = (float*)p[61];
+    if (!ws) return (int)cudaErrorInvalidValue;
+    const float* src[5] = {w1, w2, w3, wab, wt};
+    const int nb[5] = {1, 1, 1, nh, 1}, R[5] = {hd, hd, E, 2 * f, S.dout};
+    const int C[5] = {S.d_in, hd, hd, e, E};
+    const T** dst[5] = {&w1b, &w2b, &w3b, &wabb, &wtb};
+    for (int i = 0; i < 5; ++i) {
+      if (i == 0 && !dx) continue;   // W1 only feeds dx
+      CHECK(madeleine::t32::split_weights(src[i], ws, nb[i], R[i], C[i], true, st));
+      *dst[i] = ws;
+      ws += madeleine::t32::split_floats(nb[i], R[i], C[i]);
+    }
+    if (dims[13] && wabr) {
+      madeleine::SplitFwd sp;
+      CHECK(madeleine::split_fwd(w1, w2, w3, wabr, nullptr, ws, S.d_in, hd, E, nh, e, f, S.dout,
+                                 sp, st));
+      w1r = sp.w1; w2r = sp.w2; w3r = sp.w3; wabr = sp.wab;
+    }
+  }
 
   if (dims[13]) {
     // the recompute route: K6's rows from (x, seed) into the residual buffers
     madeleine::RowsFwdT<T> rf{};
     madeleine::StackFwdT<T>& sf = rf.sf;
     sf.x = x;
-    sf.w[0] = w1; sf.w[1] = w2; sf.w[2] = w3;
+    sf.w[0] = w1r; sf.w[1] = w2r; sf.w[2] = w3r;
     sf.b[0] = (const float*)p[56]; sf.b[1] = (const float*)p[57];
     sf.b[2] = (const float*)p[58];
     sf.s[0] = s1; sf.s[1] = s2; sf.s[2] = s3;
@@ -255,7 +293,7 @@ int backward(void** p, const long long* dims, const float* scales, void* stream_
     sf.M = M; sf.t = t; sf.d_in = S.d_in; sf.hd = hd; sf.E = E; sf.row_offset = ro;
     sf.y32 = 0;
     sf.d = dpre;
-    rf.wab = (const T*)p[59]; rf.bab = (const float*)p[60]; rf.wc = wc;
+    rf.wab = wabr; rf.bab = (const float*)p[60]; rf.wc = wc;
     rf.ap = (T*)p[10]; rf.bp = (T*)p[11];
     rf.lpart = reinterpret_cast<float*>(DZG);   // [M, nh, f / 64] f32 in DZG's bytes
     rf.nh = nh; rf.e = e; rf.f = f;
@@ -279,7 +317,7 @@ int backward(void** p, const long long* dims, const float* scales, void* stream_
   CHECK(cudaGetLastError());
   CHECK(madeleine::colsum_reduce(part, ldp, 0, nh, ntr, dbc, st));
   // 2. token projector term: DY += dtok . Wt; dWt = dtok^T y; dbt
-  CHECK(madeleine::dgrad<G>(dtok, S.dout, 0, wt, E, 0, DY, E, 0, M, E, S.dout, 1, 1, st));
+  CHECK(madeleine::dgrad<G>(dtok, S.dout, 0, wtb, E, 0, DY, E, 0, M, E, S.dout, 1, 1, st));
   CHECK(madeleine::tok_wgrad<G>(dtok, Y, dwt, dbt, work, part, ldp, M, E, S.dout, st));
   // 3. gate terms: DZG; DY_h += [dza | dzb]_h . [Wa; Wb]_h; dW[a|b]_h = DZG_h^T y_h
   madeleine::gate_bwd<T, T><<<ntr, nh * f / 4, 0, st>>>(ap, bp, (long long)nh * f, f, DL, wc,
@@ -287,7 +325,7 @@ int backward(void** p, const long long* dims, const float* scales, void* stream_
   CHECK(cudaGetLastError());
   CHECK(madeleine::colsum_reduce(part, ldp, 0, nh * f, ntr, dwc, st));
   CHECK(madeleine::colsum_reduce(part, ldp, nh * f, 2 * nh * f, ntr, dbab, st));
-  CHECK(madeleine::dgrad<G>(DZG, 2LL * nh * f, 2LL * f, wab, e, 2LL * f * e, DY, E, e, M, e,
+  CHECK(madeleine::dgrad<G>(DZG, 2LL * nh * f, 2LL * f, wabb, e, 2LL * f * e, DY, E, e, M, e,
                             2 * f, nh, 1, st));
   CHECK(madeleine::wgrad<G>(DZG, 2LL * nh * f, 2LL * f, Y, E, e, 2 * f, e, M, nh, dwab, work,
                             st));
@@ -296,7 +334,7 @@ int backward(void** p, const long long* dims, const float* scales, void* stream_
   sb.x = x; sb.h1 = H1; sb.h2 = H2;
   sb.u[0] = u1; sb.u[1] = u2; sb.u[2] = u3;
   sb.rstd = rstd;
-  sb.w1 = w1; sb.w2 = w2; sb.w3 = w3;
+  sb.w1 = w1b; sb.w2 = w2b; sb.w3 = w3b;
   sb.s[0] = s1; sb.s[1] = s2; sb.s[2] = s3;
   sb.sh[0] = t1; sb.sh[1] = t2; sb.sh[2] = t3;
   sb.dw[0] = dw1; sb.dw[1] = dw2; sb.dw[2] = dw3;
@@ -318,8 +356,9 @@ extern "C" void encoder_train_bwd_workspace(const long long* dims, long long* ou
   workspace<Gemm::WGMMA>(dims, out);
 }
 
+// out[0..2]: the three workspaces above.
 extern "C" void encoder_train_bwd_workspace_f32(const long long* dims, long long* out) {
-  workspace<Gemm::FFMA>(dims, out);
+  workspace<Gemm::TF32>(dims, out);
 }
 
 extern "C" int encoder_train_backward(void** p, const long long* dims, const float* scales,

@@ -22,14 +22,19 @@
 // With f32 operands (encoder_train_forward_f32, the JAX package's parity
 // route, encoder_train.py:133,323): the same sequence of launches with every
 // operand, residual and token output in f32, nothing rounded between layers,
-// exact tanh and sigmoid in the gates, and every product on gemm_ffma.cuh's
-// FFMA tiles (in-order f32 sums per output; the gate epilogue's logit
-// partials summed over 16 threads in a fixed xor order). y is y32 there: the
-// gates and the token projector read it from the f32 scratch Z.
+// exact tanh and sigmoid in the gates, and every product on gemm_tf32.cuh's
+// split-TF32 wgmma GEMM (three TF32 terms a product, each 32-deep k tile a
+// fresh partial added in k order to nearest; the gate epilogue's logit
+// partials each thread's 16 columns in order, then the quad in xor order),
+// the weights split into TF32 hi and lo once a call (t32::split_weights).
+// y is y32 there: the gates and the token projector read it from the f32
+// scratch Z. The first f32 design ran the products on gemm_ffma.cuh's FFMA
+// tiles (no tensor cores), 47% of FP32's 67 TFLOP/s.
 //
 // What bounds it on an H100: 3.93 M multiply-adds per token at the published
 // widths (7.86 MFLOP) against ~16 KB of traffic per token (x in; residuals,
-// tokens and logits out): the 989 TFLOP/s of dense bf16 bounds it.
+// tokens and logits out): the 989 TFLOP/s of dense bf16 bounds it; with f32
+// operands three TF32 terms of the same work at 495 TFLOP/s.
 //
 // Design. PR 3's first version ran every product on the mma.sync GEMM of
 // gemm_bf16.cuh (128 x 128 tiles, a 3-stage cp.async ring) at about 165
@@ -177,7 +182,8 @@ namespace {
 // pointers of ops/encoder_train.py::encoder_train_fwd_cuda's `tensors`, in that
 // order (the residuals u1, u2, u3, a_pre, b_pre and rstd all null on the
 // recompute route; the last, the view bias [t, 2], null when nv = 1; Y null
-// in f32). T: the operands' type. Returns a cudaError_t.
+// in f32; then, f32 only, the split workspace of encoder_train_fwd_workspace_f32).
+// T: the operands' type. Returns a cudaError_t.
 template <typename T>
 int forward(void** p, const long long* dims, const float* scales, void* stream_) {
   constexpr bool F32 = sizeof(T) == 4;
@@ -219,13 +225,23 @@ int forward(void** p, const long long* dims, const float* scales, void* stream_)
   if ((u2 != nullptr) != save || (u3 != nullptr) != save || (ap != nullptr) != save ||
       (bp != nullptr) != save || (rstd != nullptr) != save)
     return (int)cudaErrorInvalidValue;
+  // the products' weight operands: as stored (bf16), or split into TF32 hi
+  // and lo as stored (f32)
+  const T *w1p = w1, *w2p = w2, *w3p = w3, *wabp = wab, *wtp = wt;
+  if constexpr (F32) {
+    madeleine::SplitFwd sp;
+    const cudaError_t e2 = madeleine::split_fwd(w1, w2, w3, wab, wt, (float*)p[40], d_in, hd, E,
+                                                nh, e, f, dout, sp, st);
+    if (e2 != cudaSuccess) return (int)e2;
+    w1p = sp.w1; w2p = sp.w2; w3p = sp.w3; wabp = sp.wab; wtp = sp.wt;
+  }
   // pre-attention layers: Z = A W^T + bias, then LN / GELU / dropout rows;
   // layer 3 leaves y32 in Z for the pool; then the gate products of every
   // head, the gates and their partial logits in the epilogue
   madeleine::RowsFwdT<T> rf{};
   madeleine::StackFwdT<T>& sf = rf.sf;
   sf.x = x;
-  sf.w[0] = w1; sf.w[1] = w2; sf.w[2] = w3;
+  sf.w[0] = w1p; sf.w[1] = w2p; sf.w[2] = w3p;
   sf.b[0] = b1; sf.b[1] = b2; sf.b[2] = b3;
   sf.s[0] = s1; sf.s[1] = s2; sf.s[2] = s3;
   sf.sh[0] = t1; sf.sh[1] = t2; sf.sh[2] = t3;
@@ -236,7 +252,7 @@ int forward(void** p, const long long* dims, const float* scales, void* stream_)
   sf.M = M; sf.t = t; sf.d_in = d_in; sf.hd = hd; sf.E = E; sf.row_offset = row_offset;
   sf.y32 = 1;
   sf.d = dpre;
-  rf.wab = wab; rf.bab = bab; rf.wc = wc;
+  rf.wab = wabp; rf.bab = bab; rf.wc = wc;
   rf.ap = ap; rf.bp = bp; rf.lpart = lpart;
   rf.nh = nh; rf.e = e; rf.f = f;
   rf.dgate = dgate;
@@ -246,9 +262,9 @@ int forward(void** p, const long long* dims, const float* scales, void* stream_)
       lpart, bc, bias, l, M, nh, f / 64);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  // token projector: kernel 19's product (f32: on the FFMA tiles, from y32)
+  // token projector: kernel 19's product (f32: on the split-TF32 GEMM, from y32)
   if constexpr (F32)
-    err = madeleine::ff::linear(Z, wt, bt, tok, M, dout, E, st);
+    err = madeleine::t32::linear(Z, wtp, bt, tok, M, dout, E, st);
   else
     err = madeleine::gemm_tn_wgmma(Y, wt, bt, tok, M, dout, E, st);
   if (err != cudaSuccess) return (int)err;
@@ -279,8 +295,23 @@ extern "C" int encoder_train_forward_f32(void** p, const long long* dims, const 
   return forward<float>(p, dims, scales, stream);
 }
 
-// The piece length and count of a weight gradient [Mo, No] over `tokens` x
-// `batches` on the f32 route (ops/encoder_train.py mirrors them).
+// Floats of K6's f32 workspace: out[0] the weights split into TF32 hi and
+// lo (encoder_rows.cuh::split_fwd), out[1] 0.
+extern "C" void encoder_train_fwd_workspace_f32(const long long* dims, long long* out) {
+  const int d_in = (int)dims[2], hd = (int)dims[3], nh = (int)dims[4], e = (int)dims[5];
+  const int f = (int)dims[6], dout = (int)dims[7];
+  out[0] = madeleine::split_fwd_floats(d_in, hd, nh * e, nh, e, f, dout);
+  out[1] = 0;
+}
+
+// The piece length (tokens) of a weight gradient [Mo, No] over `tokens` x
+// `batches`: K6 / K7 with f32 operands (gemm_tf32.cuh::wgrad_chunk), and the
+// per-op kernels 15-18 with f32 operands (gemm_ffma.cuh::wgrad_chunk);
+// ops/encoder_train.py's tf32_wgrad_chunk and ffma_wgrad_chunk mirror them.
+extern "C" int encoder_train_tf32_wgrad_chunk(int Mo, int No, int tokens, int batches) {
+  return madeleine::t32::wgrad_chunk(Mo, No, tokens, batches);
+}
+
 extern "C" int encoder_train_ffma_wgrad_chunk(int Mo, int No, int tokens, int batches) {
   return madeleine::ff::wgrad_chunk(Mo, No, tokens, batches);
 }

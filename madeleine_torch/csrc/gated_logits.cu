@@ -248,13 +248,14 @@ extern "C" int gated_logits_backward_rowblock(void** p, const long long* dims,
 // f32 operands (--precision float32 on the per-op lane): the JAX package runs
 // both TPU kernels at f32 with Precision.HIGHEST. Every product on
 // gemm_ffma.cuh's FFMA tiles (each output's k in order with fmaf), the gates
-// exact (tanhf, 1 / (1 + expf(-v))), nothing rounded: K6 f32's gate product
-// and K7 f32's gate adjoint, one each. What bounds them on an H100: the same
+// exact (tanhf, 1 / (1 + expf(-v))), nothing rounded: the FFMA gate product
+// (ff::gates, K6 f32's first design) and K7 f32's gate adjoint (gate_bwd), one
+// each. What bounds them on an H100: the same
 // multiply-adds as the bf16 route against the 67 TFLOP/s of f32 FMA.
 // ---------------------------------------------------------------------------
 
 // Kernel 17, f32. dims as gated_logits_forward. p as gated_logits_forward's
-// with y and wabp in f32: K6 f32's gate product (ff::gates, the partial
+// with y and wabp in f32: the FFMA gate product (ff::gates, the partial
 // logit of every 64 gate columns a fixed xor tree of 16 four-column sums),
 // then gate_logits_sum adds the partials in chunk order and bc.
 extern "C" int gated_logits_forward_f32(void** p, const long long* dims, const float* scales,
@@ -308,7 +309,7 @@ extern "C" int gated_logits_backward_f32(void** p, const long long* dims, const 
   const long long ldp = 3LL * nh * f;
   const int ntr = madeleine::row_tiles(M);
   using madeleine::Gemm;
-  // the gates recomputed (K6 f32's product and epilogue, no logit partials),
+  // the gates recomputed (ff::gates' product and epilogue, no logit partials),
   // then their adjoint (K7 f32's gate_bwd) in place: DZG and the column
   // partials
   const long long ldg = 2LL * nh * f;

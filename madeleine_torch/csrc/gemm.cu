@@ -1,13 +1,15 @@
 // The TMA + wgmma GEMM of gemm_wgmma.cuh behind one entry point, for its
 // own tests and timings (ops/gemm.py): every layout and epilogue the
-// whole-encoder kernels K6 and K7 instantiate, and kernel 19's. K6 and K7
-// call the GEMM from their own libraries; nothing on the model's path calls
-// this one.
+// whole-encoder kernels K6 and K7 instantiate, and kernel 19's; and the
+// split-TF32 GEMM of gemm_tf32.cuh (K6 / K7 with f32 operands) behind a
+// second, with its weight split. K6 and K7 call the GEMMs from their own
+// libraries; nothing on the model's path calls these.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gemm_tf32.cuh"
 #include "gemm_wgmma.cuh"
 
 namespace {
@@ -79,4 +81,46 @@ extern "C" int gemm_wgmma_run(void** p, const long long* dims, const float* scal
 extern "C" long long gemm_wgmma_wgrad_work(long long M, long long N, long long K,
                                            long long batches) {
   return madeleine::wg_wgrad_work_floats((int)M, (int)N, (int)K, (int)batches);
+}
+
+// The split-TF32 GEMM. dims: form (0: A K-major and B pre-split, gemm_tf32.cuh's
+// form K with an f32 epilogue; 1: the weight gradient t32::wgrad, both
+// operands token-major, split over the tokens by t32::wgrad_chunk), M, N, K,
+// batches, beta, then A's ld, rows, cols, off_mn, off_k, B's five (form 0:
+// B's hi rows, its lo rows after them), ldc, strideC, strideBias. p: A, B,
+// C, bias, work (null where unused). Returns a cudaError_t.
+extern "C" int gemm_tf32_run(void** p, const long long* dims, const float*, void* stream_) {
+  namespace t32 = madeleine::t32;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream_);
+  const int form = (int)dims[0], M = (int)dims[1], N = (int)dims[2], K = (int)dims[3];
+  const int batches = (int)dims[4];
+  const t32::Operand a{(const float*)p[0], dims[6], dims[7], dims[8], (int)dims[9],
+                       (int)dims[10]};
+  const t32::Operand b{(const float*)p[1], dims[11], dims[12], dims[13], (int)dims[14],
+                       (int)dims[15]};
+  if (form == 1)
+    return (int)t32::wgrad(a.p, a.ld, a.off_mn, b.p, b.ld, b.off_mn, M, N, K, batches,
+                           (float*)p[2], (float*)p[4], st);
+  if (form != 0) return (int)cudaErrorInvalidValue;
+  t32::Params q = t32::params(p[2], dims[16], (const float*)p[3], M, N, K);
+  q.g.strideC = dims[17];
+  q.g.strideBias = dims[18];
+  q.g.batches = batches;
+  q.g.beta = (int)dims[5];
+  return (int)t32::gemm<false, t32::EPI_F32>(a, b, q, st);
+}
+
+// Floats of workspace a form-1 run of gemm_tf32_run needs.
+extern "C" long long gemm_tf32_wgrad_work(long long M, long long N, long long K,
+                                          long long batches) {
+  return madeleine::t32::wgrad_work_floats((int)M, (int)N, (int)K, (int)batches);
+}
+
+// t32::split_weights: p = {w [batches, R, C] f32, dst}, dims = {batches,
+// R, C, transpose}: dst gets hi then lo, each [batches, R, C], or [batches,
+// C, R] with transpose. Returns a cudaError_t.
+extern "C" int gemm_tf32_split(void** p, const long long* dims, const float*, void* stream) {
+  return (int)madeleine::t32::split_weights((const float*)p[0], (float*)p[1], (int)dims[0],
+                                            (int)dims[1], (int)dims[2], dims[3] != 0,
+                                            static_cast<cudaStream_t>(stream));
 }

@@ -1,7 +1,9 @@
-// The products of the f32 train kernels (K6 and K7 with f32 operands, the
-// JAX package's parity route, --precision float32) on the SIMT tile product
-// of gemm_f32.cuh: full f32, FFMA, no tensor cores, every sum over k of a
-// piece in order from 0 with fmaf.
+// The products of the per-op kernels 15-18 with f32 operands (the JAX
+// package's parity route, --precision float32, on the per-op lane) on the
+// SIMT tile product of gemm_f32.cuh: full f32, FFMA, no tensor cores, every
+// sum over k of a piece in order from 0 with fmaf. It was first written for
+// K6 and K7 with f32 operands, which now run on gemm_tf32.cuh's split-TF32
+// wgmma GEMM.
 //
 // One kernel template, one 256-thread block per 128 x 128 output tile, two
 // blocks per SM; grid (column tiles, row tiles, batches x splits), column
@@ -199,14 +201,13 @@ inline long long wgrad_work_floats(int Mo, int No, int tokens, int batches) {
   return s > 1 ? (long long)s * batches * Mo * No : 0;
 }
 
-// K6's gate product with the gate in its epilogue, every head in one
+// The f32 gate product with the gate in its epilogue, every head in one
 // launch: batch h reads y [M, nh e] at column h e and the permuted [Wa;
 // Wb]_h (wab [nh, 2f, e], bab [nh, 2f]) at row h 2f; writes, where set,
 // a_pre and b_pre (pre-dropout; head h's f columns of row i at i ldg + h
-// hs) and the logit partials lpart [M, nh, f / 64]. K6 and the per-op
-// kernel 17 with f32 operands write the partials (K6 also a_pre, b_pre [M,
-// nh f]), kernel 18's recompute the activations alone, per head [a_pre |
-// b_pre] in one [M, nh 2f] buffer.
+// hs) and the logit partials lpart [M, nh, f / 64]. The per-op kernel 17
+// with f32 operands writes the partials, kernel 18's recompute the
+// activations alone, per head [a_pre | b_pre] in one [M, nh 2f] buffer.
 inline cudaError_t gates(const float* y, const float* wab, const float* bab, const float* wc,
                          float* ap, float* bp, long long ldg, long long hs, float* lpart, int M,
                          int nh, int e, int f, int t, int row_offset, Dropout d,

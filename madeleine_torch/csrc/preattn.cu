@@ -309,7 +309,8 @@ extern "C" int preattn_backward_rowblock(void** p, const long long* dims, const 
 // token sums in pieces of at least 1024 tokens added in piece order) and
 // the rows on K6 f32's row kernel (train_rows.cuh::ln_gelu_fwd<float>, one
 // row per block, the statistics by group_sum), so the per-op chain repeats
-// K6/K7 f32's arithmetic. What bounds it on an H100: the same multiply-adds
+// K6/K7 f32's row arithmetic (their products now run on split-TF32 wgmma,
+// gemm_tf32.cuh). What bounds it on an H100: the same multiply-adds
 // as the bf16 route against the 67 TFLOP/s of f32 FMA.
 // ---------------------------------------------------------------------------
 

@@ -10,8 +10,9 @@
 // on the same inputs give bitwise-equal results. The activations, residuals
 // and cotangents of K6 / K7 are of the call's type T: bf16 on the bf16 route
 // (every product on the wgmma GEMM), f32 on the f32 route (every product on
-// gemm_ffma.cuh's FFMA tiles, Gemm::FFMA), where nothing is rounded between
-// layers.
+// gemm_tf32.cuh's split-TF32 wgmma GEMM, Gemm::TF32; the per-op kernels
+// 15-18 with f32 operands on gemm_ffma.cuh's FFMA tiles, Gemm::FFMA), where
+// nothing is rounded between layers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -20,6 +21,7 @@
 
 #include "gemm_bf16.cuh"
 #include "gemm_ffma.cuh"
+#include "gemm_tf32.cuh"
 #include "gemm_wgmma.cuh"
 #include "train_common.cuh"
 
@@ -227,9 +229,14 @@ inline int row_tiles(int M) { return (M + ROW_TILE - 1) / ROW_TILE; }
 // every bf16 kernel on a path (K6, K7 and the per-op kernels 15-20) runs its
 // products on the TMA + wgmma GEMM of gemm_wgmma.cuh; the first designs of
 // 15-18 and 20, kept as checks, on the mma.sync GEMM of gemm_bf16.cuh; K6
-// and K7 with f32 operands on the FFMA tiles of gemm_ffma.cuh (operands of
-// type T: bf16 for the first two, float for FFMA).
-enum class Gemm { MMA_SYNC, WGMMA, FFMA };
+// and K7 with f32 operands on the split-TF32 wgmma GEMM of gemm_tf32.cuh;
+// kernels 15-18 with f32 operands on the FFMA tiles of gemm_ffma.cuh
+// (operands of type T: bf16 for the first two, float for TF32 and FFMA).
+// TF32 takes its weight operands pre-split (t32::split_weights): linear_f32's
+// W as stored, dgrad's B transposed; the other arguments stay as the other
+// engines read them, dgrad's ldb and strideB describing the weights as
+// stored (TF32 ignores them).
+enum class Gemm { MMA_SYNC, WGMMA, FFMA, TF32 };
 
 // Weight gradient [Mo, No] = sum over tokens of A(tok, m) B(tok, n), both
 // row-major token-by-column operands (lda, ldb), batched over `batches`
@@ -240,6 +247,8 @@ inline cudaError_t wgrad(const T* A, long long lda, long long strideA, const T* 
                          int batches, float* out, float* work, cudaStream_t st) {
   if constexpr (G == Gemm::FFMA) {
     return ff::wgrad(A, lda, strideA, B, ldb, strideB, Mo, No, tokens, batches, out, work, st);
+  } else if constexpr (G == Gemm::TF32) {
+    return t32::wgrad(A, lda, strideA, B, ldb, strideB, Mo, No, tokens, batches, out, work, st);
   } else if constexpr (G == Gemm::WGMMA) {
     const WgOperand a{A, lda, tokens, strideA * (batches - 1) + Mo, (int)strideA, 0};
     const WgOperand b{B, ldb, tokens, strideB * (batches - 1) + No, (int)strideB, 0};
@@ -258,6 +267,8 @@ template <Gemm G>
 inline long long wgrad_work(int Mo, int No, int tokens, int batches) {
   if constexpr (G == Gemm::FFMA)
     return ff::wgrad_work_floats(Mo, No, tokens, batches);
+  else if constexpr (G == Gemm::TF32)
+    return t32::wgrad_work_floats(Mo, No, tokens, batches);
   else if constexpr (G == Gemm::WGMMA)
     return wg_wgrad_work_floats(Mo, No, tokens, batches);
   else
@@ -267,7 +278,8 @@ inline long long wgrad_work(int Mo, int No, int tokens, int batches) {
 // Input gradient C [tokens, N] (+)= A [tokens, K] . B [K, N], batched (batch
 // z's A columns start at z strideA, its B at B + z strideB, a whole number of
 // B's rows, its C columns at z strideC); f32 C (beta 1 accumulates), or bf16
-// C (no accumulation; FFMA: f32 C only).
+// C (no accumulation; FFMA and TF32: f32 C only; TF32: B pre-split
+// transposed, [batches N, K] hi then lo).
 template <Gemm G, typename OutT = float, typename T>
 inline cudaError_t dgrad(const T* A, long long lda, long long strideA, const T* B,
                          long long ldb, long long strideB, OutT* C, long long ldc,
@@ -276,6 +288,8 @@ inline cudaError_t dgrad(const T* A, long long lda, long long strideA, const T* 
   if constexpr (G == Gemm::FFMA) {
     return ff::dgrad(A, lda, strideA, B, ldb, strideB, C, ldc, strideC, tokens, N, K, batches,
                      beta, st);
+  } else if constexpr (G == Gemm::TF32) {
+    return t32::dgrad(A, lda, strideA, B, C, ldc, strideC, tokens, N, K, batches, beta, st);
   } else if constexpr (G == Gemm::WGMMA) {
     if (strideB % ldb) return cudaErrorInvalidValue;
     const int brows = (int)(strideB / ldb);
@@ -299,12 +313,14 @@ inline cudaError_t dgrad(const T* A, long long lda, long long strideA, const T* 
   }
 }
 
-// Z [M, N] f32 = X [M, K] W [N, K]^T + bias [N].
+// Z [M, N] f32 = X [M, K] W [N, K]^T + bias [N] (TF32: W pre-split as stored).
 template <Gemm G, typename T>
 inline cudaError_t linear_f32(const T* X, const T* W, const float* bias, float* Z, int M,
                               int N, int K, cudaStream_t st) {
   if constexpr (G == Gemm::FFMA) {
     return ff::linear(X, W, bias, Z, M, N, K, st);
+  } else if constexpr (G == Gemm::TF32) {
+    return t32::linear(X, W, bias, Z, M, N, K, st);
   } else if constexpr (G == Gemm::WGMMA) {
     const WgOperand a{X, K, M, K, 0, 0}, b{W, K, N, K, 0, 0};
     return wg_gemm<false, false, wg::EPI_F32>(a, b, wg_params(Z, N, bias, M, N, K), st);

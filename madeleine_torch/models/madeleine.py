@@ -136,6 +136,21 @@ def _linear_head_major(model: MADELEINE, layer: nn.Linear, x: torch.Tensor,
     return F.linear(x.flatten(-2), layer.weight[:, perm].to(dtype), layer.bias.to(dtype))
 
 
+def _slide_projection(model: MADELEINE, pooled: torch.Tensor,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """The slide projector on head-major pooled [..., nh, e] in the compute
+    dtype (`_linear_head_major`). In f32 its product runs in float64 and is
+    rounded once to f32: the correctly rounded value of the JAX package's
+    HIGHEST-precision product, the same for a row at any batch size. An f32
+    GEMM's rounding depends on the rows it is given (4.5e-7 relative between
+    64 rows and two halves of 32 on an H100): a data-parallel rank holds
+    part of the batch, and InfoNCE's nearly cancelling projector-bias
+    gradient amplified that to 1.08e-4 against one process (ROADMAP C2)."""
+    if dtype != torch.float32:
+        return _linear_head_major(model, model.projector, pooled, dtype)
+    return _linear_head_major(model, model.projector, pooled.double(), torch.float64).float()
+
+
 @torch.no_grad()
 def _forward_eval(model: MADELEINE, feats: torch.Tensor, mask: Optional[torch.Tensor],
                   half: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -155,7 +170,7 @@ def _forward_eval(model: MADELEINE, feats: torch.Tensor, mask: Optional[torch.Te
         pooled, tokens = abmil_embed(model.wsi_embedders, x, activation=cfg.activation,
                                      mask=None if mask is None else mask[:, i],
                                      return_tokens=True, half_mask=half)
-        slides.append(_linear_head_major(model, model.projector, pooled, dt))
+        slides.append(_slide_projection(model, pooled, dt))
         toks.append(_linear_head_major(model, model.token_projector, tokens, dt))
     slides = torch.stack(slides, 1)
     return (slides if half is not None else slides[:, :, None]), torch.stack(toks, 1)
@@ -268,7 +283,7 @@ def forward_train(model: MADELEINE, feats: torch.Tensor, *,
             x = _append_stain_encoding(model, x, ids)
         m = None if mask is None else mask.reshape(bs * n_mod, t)
         pooled, tok = encode(x, m, row_start * n_mod)
-        slide = _linear_head_major(model, model.projector, pooled, dt)
+        slide = _slide_projection(model, pooled, dt)
         return (slide.reshape(bs, n_mod, n_views, -1), tok.reshape(bs, n_mod, t, -1))
 
     def per_modality(x, m, i):
@@ -277,7 +292,7 @@ def forward_train(model: MADELEINE, feats: torch.Tensor, *,
         if se:
             x = _append_stain_encoding(model, x, i)
         pooled, tok = encode(x, m, i * global_bs + row_start)
-        return _linear_head_major(model, model.projector, pooled, dt), tok
+        return _slide_projection(model, pooled, dt), tok
 
     # cfg.remat on the per-op lane: each modality's body under a checkpoint,
     # as JAX's scan body under jax.checkpoint (madeleine.py:283-298), so its

@@ -274,13 +274,15 @@ def call_ptrs(lib_name: str, fn_name: str, tensors: Sequence[Optional[torch.Tens
     _invoke(lib_name, fn, (ptrs, _packed("q", dims), _packed("f", scales or (0.0,))), device)
 
 
-def workspace(lib_name: str, fn_name: str, dims: Sequence[int]) -> Tuple[int, int]:
+def workspace(lib_name: str, fn_name: str, dims: Sequence[int], n: int = 2) -> Tuple[int, ...]:
     """``fn_name(const long long* dims, long long* out)`` of csrc/<lib_name>.cu:
-    the floats of (split-K partials, column partials) a backward needs."""
+    the floats of the n workspaces a call needs (a backward's: split-K
+    partials, column partials; K6 / K7 with f32 operands also their weights
+    split into TF32 hi and lo)."""
     fn = entry(lib_name, fn_name, [ctypes.c_void_p, ctypes.c_void_p], None)
-    out = (ctypes.c_longlong * 2)()
+    out = (ctypes.c_longlong * n)()
     fn(_packed("q", dims), out)
-    return out[0], out[1]
+    return tuple(out)
 
 
 def launch_split_pool(name: str, inputs: Sequence[torch.Tensor], dims: Sequence[int],

@@ -48,10 +48,16 @@ gate product's epilogue, for which the wrapper hands it [Wa; Wb] and [ba;
 bb] with their rows permuted (`permute_gates`). With f32 operands (the JAX
 package's parity route, `--precision float32`) the same launch sequences
 take every operand, residual, token and cotangent in f32, nothing rounded
-between layers, exact tanh and sigmoid, every product on the FFMA tiles of
-csrc/gemm_ffma.cuh: the weight gradients' token sums in pieces summed in
-piece order (`ffma_wgrad_chunk`), the gate logits' 64-column partials each a
-fixed tree of 16 four-column sums.
+between layers, exact tanh and sigmoid, every product on the split-TF32
+TMA + wgmma GEMM of csrc/gemm_tf32.cuh: each operand cut into TF32 hi and
+lo (`gated_pool.split_tf32`; the weights once a call, into the workspace
+the wrappers allocate), each 32-deep k tile a fresh partial of lo.hi +
+hi.lo + hi.hi added to the running sum in k order; the weight gradients'
+token sums in pieces of whole k tiles summed in piece order
+(`tf32_wgrad_chunk`), the gate logits' 64-column partials each four
+threads' 16-column sums added in xor order. The per-op kernels 15-18 with
+f32 operands keep the first design's FFMA tiles (csrc/gemm_ffma.cuh,
+`ffma_wgrad_chunk`).
 
 A call whose transient buffers would not fit runs in blocks of whole bags
 (`encoder_blocks`, chosen on the host before any launch from the shapes,
@@ -124,8 +130,10 @@ BLOCK_MARGIN = 1024 ** 3
 # The most rows (b t) one call of the kernels takes: K6 / K7 count rows in a
 # 32-bit int and round them up to a tile of at most 256 rows
 # (csrc/train_common.cuh::MAX_TRAIN_ROWS), the TMA maps of the bf16
-# products need extents below 2**31; the f32 products' tile
-# grid (csrc/gemm_ffma.cuh::launch) has at most 65535 row tiles of 128. Every
+# products need extents below 2**31; the per-op kernels 15-18's f32 tile
+# grid (csrc/gemm_ffma.cuh::launch) has at most 65535 row tiles of 128, a
+# limit K6 / K7 with f32 operands (persistent, csrc/gemm_tf32.cuh) keep so
+# that the two lanes share one rule. Every
 # offset into a buffer of the call is 64-bit, so within these any block
 # the rule allows is addressed correctly. The per-op lane's kernels (rows
 # 4-5, 15-20) take the same row limits, and rows 4-5 at most 65535 bags a
@@ -133,14 +141,17 @@ BLOCK_MARGIN = 1024 ** 3
 MAX_POOL_BAGS = 65535
 MAX_BLOCK_ROWS = {torch.bfloat16: 2 ** 31 - 256, torch.float32: 65535 * 128}
 
-# The f32 route's weight gradients (csrc/gemm_ffma.cuh::wgrad_chunk): the
-# token sum of an [Mo, No] gradient x batches split into pieces so that the
-# launch offers about FFMA_SPLIT_BLOCKS 128 x 128 tiles, each piece at least
-# FFMA_SPLIT_MIN tokens, a whole number of FFMA_STAGE-token stages.
+# The f32 weight gradients' token pieces: the token sum of an [Mo, No]
+# gradient x batches split into pieces so that the launch offers about
+# FFMA_SPLIT_BLOCKS 128 x 128 tiles, each piece at least FFMA_SPLIT_MIN
+# tokens, a whole number of stages: TF32_KTILE-token k tiles for K6 / K7
+# (csrc/gemm_tf32.cuh::wgrad_chunk), FFMA_STAGE-token stages for the per-op
+# kernels 15-18 (csrc/gemm_ffma.cuh::wgrad_chunk).
 FFMA_SPLIT_BLOCKS = 264
 FFMA_SPLIT_MIN = 1024
 FFMA_STAGE = 16
 FFMA_TILE = 128
+TF32_KTILE = 32
 
 
 def _device_hbm_limit(device=None) -> Optional[int]:
@@ -195,15 +206,27 @@ def resolve_save_acts(save_acts: Optional[bool], b: int, t: int, h: int, E: int,
     return True
 
 
-def ffma_wgrad_chunk(Mo: int, No: int, tokens: int, batches: int) -> int:
-    """The piece length (tokens) of an f32 weight gradient's split token sum;
-    the pieces' partials are summed in piece order."""
+def _wgrad_chunk(Mo: int, No: int, tokens: int, batches: int, stage: int) -> int:
     def cdiv(a, b):
         return -(-a // b)
 
     tiles = cdiv(Mo, FFMA_TILE) * cdiv(No, FFMA_TILE) * batches
     s = max(1, min(cdiv(FFMA_SPLIT_BLOCKS, tiles), cdiv(tokens, FFMA_SPLIT_MIN)))
-    return cdiv(cdiv(tokens, s), FFMA_STAGE) * FFMA_STAGE
+    return cdiv(cdiv(tokens, s), stage) * stage
+
+
+def ffma_wgrad_chunk(Mo: int, No: int, tokens: int, batches: int) -> int:
+    """The piece length (tokens) of a weight gradient's split token sum on the
+    per-op kernels 15-18 with f32 operands; the pieces' partials are summed
+    in piece order."""
+    return _wgrad_chunk(Mo, No, tokens, batches, FFMA_STAGE)
+
+
+def tf32_wgrad_chunk(Mo: int, No: int, tokens: int, batches: int) -> int:
+    """The piece length (tokens) of a weight gradient's split token sum on K6
+    / K7 with f32 operands: whole 32-token k tiles; the pieces' partials are
+    summed in piece order."""
+    return _wgrad_chunk(Mo, No, tokens, batches, TF32_KTILE)
 
 
 def _block_row_bytes(widths: Sequence[int], itemsize: int, recompute: bool,
@@ -215,7 +238,10 @@ def _block_row_bytes(widths: Sequence[int], itemsize: int, recompute: bool,
     block's outputs (tokens, logits; the saves on the save route) until
     they are copied into the call's. K7: H1, H2, Y, DY, DL, DZG, DZ3, DH,
     DZ12, the column partials, dx with need_dx, and the rebuilt saves on
-    the recompute route. The split-K partials do not grow with the rows."""
+    the recompute route. The split-K partials and, with f32 operands, the
+    weights split into TF32 hi and lo (about 31 MB for K6, 60 MB for K7 at
+    the published widths) do not grow with the rows: BLOCK_MARGIN covers
+    them."""
     d_in, hd, nh, e, f, dout = widths
     q, E, nhf = itemsize, nh * e, nh * f
     saves = (2 * hd + E + 2 * nhf) * q + 3 * 4
@@ -475,12 +501,15 @@ def encoder_train_fwd_cuda(x, bias, w, seed: int, row_offset: int = 0,
                torch.empty(b, ntiles, nv, nh, dtype=f32, device=dev),   # part_m
                torch.empty(b, ntiles, nv, nh, dtype=f32, device=dev),   # part_s
                torch.empty(b, ntiles, nv, E, dtype=f32, device=dev)]    # part_w
+    dims, scales = prng.kernel_args((b, t, d_in, hd, nh, e, f, dout), seed, row_offset,
+                                    pre_rate, gate_rate)
+    # f32: the weights split into TF32 hi and lo (csrc/encoder_rows.cuh::split_fwd)
+    splits = (torch.empty(_build.workspace("encoder_train_fwd", "encoder_train_fwd_workspace_f32",
+                                           dims)[0], dtype=f32, device=dev) if wide else None)
     tensors = [x, bias, w["w1"], w["b1"], w["s1"], w["t1"], w["w2"], w["b2"], w["s2"],
                w["t2"], w["w3"], w["b3"], w["s3"], w["t3"], wab, bab, w["wc"], w["bc"],
                w["wt"], w["bt"], pooled, m, s, tok, l,
-               *(saved[k] if save else None for k in SAVED), *scratch, vb]
-    dims, scales = prng.kernel_args((b, t, d_in, hd, nh, e, f, dout), seed, row_offset,
-                                    pre_rate, gate_rate)
+               *(saved[k] if save else None for k in SAVED), *scratch, vb, splits]
     _build.call_ptrs("encoder_train_fwd",
                      "encoder_train_forward_f32" if wide else "encoder_train_forward", tensors,
                      dims + [nv], scales, dev)
@@ -543,8 +572,9 @@ def encoder_train_bwd_cuda(x, l, m, s, g, inner, dtok, saved, w, seed: int,
         _build.check_aligned(kname, name, ten)
     dims, scales = prng.kernel_args((b, t, d_in, hd, nh, e, f, dout), seed, row_offset,
                                     pre_rate, gate_rate)
-    ws = _build.workspace(kname, "encoder_train_bwd_workspace_f32" if wide
-                          else "encoder_train_bwd_workspace", dims)
+    # f32: a third workspace, the weights split into TF32 hi and lo
+    ws = (_build.workspace(kname, "encoder_train_bwd_workspace_f32", dims, 3) if wide
+          else _build.workspace(kname, "encoder_train_bwd_workspace", dims) + (0,))
     wab = torch.cat([w["wa"], w["wb"]], dim=1).contiguous()
     out = {"w1": (hd, d_in), "b1": (hd,), "s1": (hd,), "t1": (hd,),
            "w2": (hd, hd), "b2": (hd,), "s2": (hd,), "t2": (hd,),
@@ -567,9 +597,11 @@ def encoder_train_bwd_cuda(x, l, m, s, g, inner, dtok, saved, w, seed: int,
     # the recompute route also reads the layer biases and K6's permuted gates
     fwd_only = ([w["b1"], w["b2"], w["b3"], *permute_gates(w)] if recompute
                 else [None] * 5)
+    splits = torch.empty(ws[2], dtype=f32, device=dev) if wide else None
     tensors = [x, l, m, s, g, inner, dtok, *(saved[k] for k in SAVED),
                w["w1"], w["s1"], w["t1"], w["w2"], w["s2"], w["t2"], w["w3"], w["s3"],
-               w["t3"], wab, w["wc"], w["wt"], *out.values(), *scratch, dx, vb, *fwd_only]
+               w["t3"], wab, w["wc"], w["wt"], *out.values(), *scratch, dx, vb, *fwd_only,
+               splits]
     _build.call_ptrs(kname, "encoder_train_backward_f32" if wide else "encoder_train_backward",
                      tensors, dims + [nv, int(recompute)], scales, dev)
     if wide:

@@ -22,11 +22,11 @@ also serve K6/K7's plain versions. A CPU tensor takes the plain versions
 (any float dtype); a CUDA tensor launches csrc/gated_logits.cu or raises; a
 mixed bf16 / f32 operand set raises a ValueError naming the operand. With
 f32 operands (`gated_logits_forward_f32`, `gated_logits_backward_f32`) the
-forward is K6 f32's gate product on the FFMA tiles of csrc/gemm_ffma.cuh
-and the backward recomputes the gates there into f32 scratch, runs K7
-f32's gate adjoint over it in place, then both products on the same
-tiles. In bf16 both kernels run on K6's permuted [Wa; Wb]
-(`permute_gates`):
+forward is the f32 gate product on the FFMA tiles of csrc/gemm_ffma.cuh
+(K6 f32's first design, which K6 left for split-TF32 wgmma) and the
+backward recomputes the gates there into f32 scratch, runs K7 f32's gate
+adjoint over it in place, then both products on the same tiles. In bf16
+both kernels run on K6's permuted [Wa; Wb] (`permute_gates`):
 the forward forms the gates and their partial logits in one TMA + wgmma
 GEMM launch, K6's gate product, and adds the partials in a second; the
 backward recomputes the gates and forms their adjoint in one launch of the
@@ -69,14 +69,26 @@ def gate_masks(seed: int, rows, toks, nh: int, f: int, branch: int, rate: float)
                         for h in range(nh)], dim=2)
 
 
+def head_mm(yh, w):
+    """Per head: yh [b, t, nh, e] . w [nh, f, e]^T -> [b, t, nh, f] (the gate
+    products; f32 operands)."""
+    return torch.einsum("bthe,hfe->bthf", yh, w)
+
+
+def gate_dy(dza, dzb, wa, wb):
+    """The gates' term of dy per head, dza . wa + dzb . wb: [b, t, nh, f]
+    cotangents, [nh, f, e] weights -> [b, t, nh, e] (f32 operands)."""
+    return torch.einsum("bthf,hfe->bthe", dza, wa) + torch.einsum("bthf,hfe->bthe", dzb, wb)
+
+
 def gates_plain(y, w):
     """Pre-dropout gate activations (a_pre, b_pre) [b, t, nh, f] f32 of y
     [b, t, E] (operands exact in their dtype)."""
     b, t, _ = y.shape
     nh, f, e = w["wa"].shape
     yh = wide(y).reshape(b, t, nh, e)
-    a_pre = torch.tanh(torch.einsum("bthe,hfe->bthf", yh, wide(w["wa"])) + w["ba"])
-    b_pre = torch.sigmoid(torch.einsum("bthe,hfe->bthf", yh, wide(w["wb"])) + w["bb"])
+    a_pre = torch.tanh(head_mm(yh, wide(w["wa"])) + w["ba"])
+    b_pre = torch.sigmoid(head_mm(yh, wide(w["wb"])) + w["bb"])
     return a_pre, b_pre
 
 
@@ -99,8 +111,7 @@ def gates_bwd_plain(ap, bp, ma, mb, dl, y, w):
     dza = dg * bv * ma * (1.0 - ap * ap)
     dzb = dg * a * mb * bp * (1.0 - bp)
     dza_c, dzb_c = wide(dza.to(dt)), wide(dzb.to(dt))
-    dy = (torch.einsum("bthf,hfe->bthe", dza_c, wide(w["wa"]))
-          + torch.einsum("bthf,hfe->bthe", dzb_c, wide(w["wb"]))).reshape(b, t, nh * e)
+    dy = gate_dy(dza_c, dzb_c, wide(w["wa"]), wide(w["wb"])).reshape(b, t, nh * e)
     yh = wide(y).reshape(b, t, nh, e)
     grads["wa"] = torch.stack([pa.token_sum(dza_c[:, :, h], yh[:, :, h]) for h in range(nh)])
     grads["wb"] = torch.stack([pa.token_sum(dzb_c[:, :, h], yh[:, :, h]) for h in range(nh)])

@@ -27,7 +27,7 @@ import torch
 
 from madeleine_torch.ops import _build
 from madeleine_torch.ops import preattn as pa
-from madeleine_torch.ops.preattn import mm, wide
+from madeleine_torch.ops.preattn import wide
 
 fwd_launches = 0   # kernel 19 launches (one per wrapper call on a CUDA tensor)
 bwd_launches = 0   # kernel 20 launches
@@ -36,13 +36,12 @@ bwd_mmasync_launches = 0   # kernel 20's first design, the check-only entry poin
 
 def linear_tok_fwd_plain(y, wt, bt) -> torch.Tensor:
     """y [b, t, E] -> tok [b, t, d_out] in y.dtype."""
-    return (mm(y, wt) + bt).to(y.dtype)
+    return (pa.mm(y, wt) + bt).to(y.dtype)
 
 
 def tok_bwd_plain(y, g, wt) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dy f32, dWt f32, dbt f32) for the cotangent g [b, t, d_out]."""
-    dy = torch.matmul(wide(g), wide(wt))
-    return dy, pa.token_sum(g, y), wide(g).sum((0, 1))
+    return pa.mm_nn(g, wt), pa.token_sum(g, y), wide(g).sum((0, 1))
 
 
 @torch.no_grad()

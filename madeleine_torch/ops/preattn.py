@@ -23,11 +23,12 @@ shifts t* (f32). The plain versions here also serve K6/K7's
 tensor launches csrc/preattn.cu or raises. In bf16 both kernels run their
 products on the TMA + wgmma GEMM, each followed by a warp-per-row LayerNorm
 kernel; in f32 (`preattn_forward_f32`, `preattn_backward_f32`) on the FFMA
-tiles of csrc/gemm_ffma.cuh with K6 f32's row kernel, the launch sequences
-of K6/K7 with f32 operands. A mixed bf16 / f32 operand set raises a
-ValueError naming the operand. The first designs, on the mma.sync GEMM,
-bf16 only, stay reachable as `preattn_fwd_rowblock_cuda` and
-`preattn_bwd_rowblock_cuda`, checks that no path calls.
+tiles of csrc/gemm_ffma.cuh with K6 f32's row kernel, K6/K7's f32 launch
+sequences on `Gemm::FFMA` (K6/K7 themselves run `Gemm::TF32`). A mixed
+bf16 / f32 operand set raises a ValueError naming the operand. The first
+designs, on the mma.sync GEMM, bf16 only, stay reachable as
+`preattn_fwd_rowblock_cuda` and `preattn_bwd_rowblock_cuda`, checks that
+no path calls.
 """
 
 from __future__ import annotations
@@ -68,6 +69,12 @@ def wide(x: torch.Tensor) -> torch.Tensor:
 def mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """a [..., K] . w[N, K]^T in f32 (operands exact in their dtype)."""
     return torch.matmul(wide(a), wide(w).T)
+
+
+def mm_nn(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a [..., K] . w [K, N] in f32 (the input gradients' products against
+    the weights as stored)."""
+    return torch.matmul(wide(a), wide(w))
 
 
 def token_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -134,7 +141,7 @@ def stack_bwd_plain(dy, x, res, w, need_dx: bool) -> Dict[str, torch.Tensor]:
         dzc = wide(dz.to(dt))
         grads[f"w{i}"] = token_sum(dzc, hin)
         grads[f"b{i}"] = dz.sum((0, 1))
-        return torch.matmul(dzc, wide(w[f"w{i}"])) if want_dx else None
+        return mm_nn(dzc, w[f"w{i}"]) if want_dx else None
 
     dh2 = layer_bwd(dy, h2, 3)
     dh1 = layer_bwd(dh2, h1, 2)

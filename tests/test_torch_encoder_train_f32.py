@@ -1,13 +1,25 @@
 """K6 / K7 with f32 operands (the JAX package's parity route, `--precision
 float32`), checked on the CPU: the residual buffers' bytes against the
 save/recompute gate's reckoning, the operand checks' refusal of mixed bf16 /
-f32 sets, the train step's route for an f32 step on the card, and a
-plain mirror of the f32 kernels' sum orders (the gate logits' 64-column
-partials each a fixed tree of 16 four-column sums, csrc/gemm_ffma.cuh::
-epilogue_gates; the weight gradients' token sums in pieces added in piece
-order, gemm_ffma.cuh::wgrad) against the JAX package's interpret-mode
-`encoder_train` in f32. The kernels themselves are held against their plain
-versions on the card (tests/test_torch_gpu.py, chip_smoke.py)."""
+f32 sets, the train step's route for an f32 step on the card, and plain
+mirrors of the f32 kernels' arithmetic against the JAX package's
+interpret-mode `encoder_train` in f32:
+
+- the split-TF32 route K6 / K7 run (csrc/gemm_tf32.cuh): every product's
+  operands cut into TF32 hi and lo (`gated_pool.split_tf32`), each 32-deep k
+  tile a fresh partial lo.hi + hi.lo + hi.hi (here exact in float64, then
+  rounded to f32), the partials added in k order in f32; the weight
+  gradients' tokens in pieces of whole k tiles added in piece order
+  (`tf32_wgrad_chunk`); the gate logits' 64-column partials each four
+  threads' 16-column sums added in xor order (gemm_tf32.cuh::
+  epilogue_gates); and a hi-only control that must miss the bar;
+- the FFMA order that the per-op kernels 15-18 with f32 operands still run
+  (the gate logits' 64-column partials each a fixed tree of 16 four-column
+  sums, csrc/gemm_ffma.cuh::epilogue_gates; the weight gradients' token
+  sums in pieces added in piece order, gemm_ffma.cuh::wgrad).
+
+The kernels themselves are held against their plain versions on the card
+(tests/test_torch_gpu.py, chip_smoke.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +32,7 @@ from madeleine_torch.models.madeleine import fused_route, train_weights
 from madeleine_torch.ops import encoder_train as et
 from madeleine_torch.ops import gated_logits as gl
 from madeleine_torch.ops import preattn as pa
+from madeleine_torch.ops.gated_pool import round_tf32, split_tf32
 from tests.torch_port_helpers import grads_as_state_dict, param_pair, to_torch
 
 B, T, D, NH, E = 2, 96, 128, 2, 128   # f = E = 128: two 64-column logit chunks per head
@@ -234,3 +247,202 @@ def test_logit_tree_is_a_reordering_and_the_pieces_cover_every_token():
         assert (pieces - 1) * c < tokens <= pieces * c
         tiles = -(-Mo // 128) * -(-No // 128) * batches
         assert pieces * tiles <= et.FFMA_SPLIT_BLOCKS + tiles
+
+
+# ---------------------------------------------------------------------------
+# the split-TF32 route's arithmetic (K6 / K7, csrc/gemm_tf32.cuh), mirrored
+# ---------------------------------------------------------------------------
+
+def _tf32_dot(a, b, hi_only=False):
+    """a [R, K] . b [K, C] as the split-TF32 GEMM sums it: per 32-deep k tile
+    a fresh partial of lo.hi + hi.lo + hi.hi (hi.hi alone with hi_only),
+    exact in float64 and rounded to f32, the partials added in k order in
+    f32 (K padded with zeros to whole tiles, as TMA fills them)."""
+    kt = et.TF32_KTILE
+    K = a.shape[1]
+    pad = -K % kt
+    a = torch.nn.functional.pad(a.float(), (0, pad))
+    b = torch.nn.functional.pad(b.float(), (0, 0, 0, pad))
+    n = (K + pad) // kt
+    a3 = a.reshape(a.shape[0], n, kt).transpose(0, 1)        # [n, R, 32]
+    b3 = b.reshape(n, kt, b.shape[1])                          # [n, 32, C]
+    (ah, al), (bh, bl) = split_tf32(a3), split_tf32(b3)
+    parts = ah.double() @ bh.double()
+    if not hi_only:
+        parts = parts + (al.double() @ bh.double() + ah.double() @ bl.double())
+    parts = parts.float()
+    acc = parts[0]
+    for i in range(1, n):
+        acc = acc + parts[i]
+    return acc
+
+
+def _tf32_patches(chunk, hi_only=False):
+    """{(module, name): mirror} of the plain versions' product hooks and the
+    logits in the split-TF32 kernels' orders; chunk: the weight gradients'
+    piece length (None: `tf32_wgrad_chunk` of the product alone, which the
+    kernel's batched gate gradient equals below 1024 tokens: one piece)."""
+    def mm(a, w):                       # a [..., K] . w [N, K]^T
+        out = _tf32_dot(a.reshape(-1, a.shape[-1]), w.float().T, hi_only)
+        return out.reshape(*a.shape[:-1], w.shape[0])
+
+    def mm_nn(a, w):                    # a [..., K] . w [K, N]
+        out = _tf32_dot(a.reshape(-1, a.shape[-1]), w.float(), hi_only)
+        return out.reshape(*a.shape[:-1], w.shape[1])
+
+    def token_sum(a, b):
+        a2, b2 = a.reshape(-1, a.shape[-1]).float(), b.reshape(-1, b.shape[-1]).float()
+        n = a2.shape[0]
+        c = et.tf32_wgrad_chunk(a2.shape[1], b2.shape[1], n, 1) if chunk is None else chunk
+        assert c % et.TF32_KTILE == 0
+        out = _tf32_dot(a2[:c].T, b2[:c], hi_only)
+        for s0 in range(c, n, c):
+            out = out + _tf32_dot(a2[s0:s0 + c].T, b2[s0:s0 + c], hi_only)
+        return out
+
+    def head_mm(yh, w):                 # per head, K = e
+        return torch.stack([mm(yh[:, :, h], w[h]) for h in range(w.shape[0])], dim=2)
+
+    def gate_dy(dza, dzb, wa, wb):      # per head one product over K = 2f: [dza | dzb]
+        return torch.stack([mm_nn(torch.cat([dza[:, :, h], dzb[:, :, h]], -1),
+                                  torch.cat([wa[h], wb[h]], 0)) for h in range(wa.shape[0])],
+                           dim=2)
+
+    return {(pa, "mm"): mm, (pa, "mm_nn"): mm_nn, (pa, "token_sum"): token_sum,
+            (gl, "head_mm"): head_mm, (gl, "gate_dy"): gate_dy,
+            (gl, "logits_plain"): _wgmma_logits}
+
+
+def _quad_chunk(terms):
+    """The split-TF32 gate epilogue's sum over a 64-column chunk [..., 64]:
+    thread q (of four) holds columns 8 k + 2 q and 8 k + 2 q + 1 for k = 0..7
+    and adds them in that order; then (s0 + s1) + (s2 + s3), the xor steps 1
+    and 2 (csrc/gemm_tf32.cuh::epilogue_gates)."""
+    q = terms.reshape(*terms.shape[:-1], 8, 4, 2)
+    s = q[..., 0, :, 0]
+    for k in range(8):
+        s = s if k == 0 else s + q[..., k, :, 0]
+        s = s + q[..., k, :, 1]
+    return (s[..., 0] + s[..., 1]) + (s[..., 2] + s[..., 3])
+
+
+def _wgmma_logits(a_pre, b_pre, ma, mb, w):
+    """`gl.logits_plain` in the split-TF32 gate epilogue's order: per
+    64-column chunk `_quad_chunk`, the chunks added in chunk order
+    (gate_logits_sum), then bc."""
+    terms = (a_pre * ma) * (b_pre * mb) * w["wc"]
+    parts = _quad_chunk(terms.reshape(*terms.shape[:-1], -1, et.GATE_CHUNK))
+    l = parts[..., 0]
+    for c in range(1, parts.shape[-1]):
+        l = l + parts[..., c]
+    return l + w["bc"]
+
+
+def _run_mirror(setup, jax_ref, patches, monkeypatch):
+    """The plain op under `patches` at rate 0 on the ragged batch, against
+    JAX's interpret-mode f32 op: {name: excess over rtol 1e-4 / atol 1e-5 (x
+    the gradient's largest entry)}, <= 0 within the bar."""
+    params, model, x, mask = setup
+    want_p, want_t, want_g = jax_ref
+    for (mod, name), fn in patches.items():
+        monkeypatch.setattr(mod, name, fn)
+    model.zero_grad()
+    w = train_weights(model, torch.float32)
+    pooled, tok = et.encoder_train(to_torch(x), torch.from_numpy(mask), w, SEED, 0.0, 0.0,
+                                   save_acts=True)
+    _loss_torch(pooled, tok).backward()
+
+    def excess(got, ref, atol):
+        return float((np.abs(got - ref) - (atol + 1e-4 * np.abs(ref))).max())
+
+    out = {"pooled": excess(pooled.detach().numpy(), want_p, 1e-5),
+           "tok": excess(tok.detach().numpy(), want_t, 1e-5)}
+    got = {k: p.grad for k, p in model.named_parameters() if p.grad is not None}
+    assert set(got) == {k for k in want_g if not k.startswith("projector")}
+    for k, g in got.items():
+        ref = want_g[k].numpy()
+        out[k] = excess(g.numpy(), ref, 1e-5 * max(1.0, float(np.abs(ref).max())))
+    return out
+
+
+@pytest.mark.parametrize("chunk", [None, 32, 64], ids=["kernel", "6_pieces", "3_pieces"])
+def test_tf32_kernel_order_mirror_matches_jax(setup, jax_ref, chunk, monkeypatch):
+    """The plain op with the split-TF32 kernels' arithmetic and sum orders
+    (every product's per-k-tile partials, the weight gradients' token
+    pieces, the gate logits' quad order) against JAX's interpret-mode f32 op
+    at rate 0 on a ragged batch: pooled, tokens and all 20 gradients at
+    rtol 1e-4, atol 1e-5 (x the gradient's largest entry). The kernel's own
+    piece length at this size is one piece; 32 and 64 cut the 192 tokens
+    into 6 and 3."""
+    bad = {k: v for k, v in _run_mirror(setup, jax_ref, _tf32_patches(chunk),
+                                        monkeypatch).items() if not v <= 0}
+    assert not bad, bad
+
+
+def test_tf32_hi_only_control_misses_the_bar(setup, jax_ref, monkeypatch):
+    """The control: the same mirror with the lo terms dropped (hi.hi alone, a
+    single TF32 product, 11 significant bits an operand) lies past the bar,
+    so the bar can see a route that loses the split."""
+    out = _run_mirror(setup, jax_ref, _tf32_patches(None, hi_only=True), monkeypatch)
+    assert max(out.values()) > 0, out
+
+
+def test_tf32_helpers_split_order_and_pieces():
+    """The mirror's helpers: hi + lo = x within 2^-22 |x| with both on the
+    TF32 grid; `_tf32_dot` within 1e-6 of the float64 product; the quad
+    order sums the same 64 terms (equal to the plain sum in float64); the
+    TF32 piece length is a whole number of 32-token k tiles, at least 1024
+    tokens unless the call is shorter, its pieces covering every token once,
+    at the step's shapes."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(4096, generator=g) * 10.0 ** torch.randint(-3, 4, (4096,), generator=g)
+    hi, lo = split_tf32(x)
+    assert torch.equal(round_tf32(hi), hi) and torch.equal(round_tf32(lo), lo)
+    assert bool(((hi.double() + lo.double() - x.double()).abs()
+                 <= 2.0 ** -22 * x.double().abs()).all())
+    a, b = torch.randn(40, 200, generator=g), torch.randn(200, 24, generator=g)
+    ref = a.double() @ b.double()
+    rel = lambda v: ((v.double() - ref).norm() / ref.norm()).item()   # noqa: E731
+    assert rel(_tf32_dot(a, b)) <= 1e-6 < rel(_tf32_dot(a, b, hi_only=True))
+    v = torch.randn(5, 64, dtype=torch.float64, generator=g)
+    torch.testing.assert_close(_quad_chunk(v), v.sum(-1), rtol=1e-12, atol=1e-12)
+    for Mo, No, tokens, batches in ((512, 512, 133120, 1), (1024, 512, 133120, 4),
+                                    (128, 2048, 532480, 1), (512, 544, 133120, 1),
+                                    (128, 512, 80, 1)):
+        c = et.tf32_wgrad_chunk(Mo, No, tokens, batches)
+        assert c % et.TF32_KTILE == 0 and (c >= et.FFMA_SPLIT_MIN or c >= tokens)
+        pieces = -(-tokens // c)
+        assert (pieces - 1) * c < tokens <= pieces * c
+        tiles = -(-Mo // 128) * -(-No // 128) * batches
+        assert pieces * tiles <= et.FFMA_SPLIT_BLOCKS + tiles
+
+
+@pytest.mark.parametrize("rows", [65, 16], ids=["b65", "b16"])
+def test_f32_slide_projection_is_the_same_at_any_batch_size(setup, rows):
+    """ROADMAP C2: the f32 slide projector gives every row the same value
+    whether it gets the whole batch, two halves (two data-parallel ranks) or
+    one row at a time, within 1e-6 of the f32 product (its correctly
+    rounded value); an f32 GEMM does not (the control: `_linear_head_major`
+    in f32 differs somewhere); bf16 keeps the bf16 product."""
+    from madeleine_torch.models import madeleine as port
+
+    _, model, _, _ = setup
+    emb = model.wsi_embedders
+    pooled = torch.randn(rows, emb.n_heads, emb.hidden_dim,
+                         generator=torch.Generator().manual_seed(rows))
+    whole = port._slide_projection(model, pooled, torch.float32)
+    h = rows // 2
+    halves = torch.cat([port._slide_projection(model, p, torch.float32)
+                        for p in (pooled[:h], pooled[h:])])
+    single = torch.cat([port._slide_projection(model, pooled[i:i + 1], torch.float32)
+                        for i in range(rows)])
+    assert whole.dtype == torch.float32
+    assert torch.equal(whole, halves) and torch.equal(whole, single)
+    f32 = port._linear_head_major(model, model.projector, pooled, torch.float32)
+    assert float((whole - f32).norm() / f32.norm()) <= 1e-6
+    f32_rows = torch.cat([port._linear_head_major(model, model.projector, pooled[i:i + 1],
+                                                  torch.float32) for i in range(rows)])
+    assert not torch.equal(f32, f32_rows)
+    bf = pooled.to(torch.bfloat16)
+    assert torch.equal(port._slide_projection(model, bf, torch.bfloat16),
+                       port._linear_head_major(model, model.projector, bf, torch.bfloat16))

@@ -1308,6 +1308,143 @@ def test_wgmma_gemm_refuses_what_it_cannot_take(cuda_device):
                      b_off=(0, 0), ldc=256, stride_c=128)
 
 
+# ---------------------------------------------------------------------------
+# The split-TF32 GEMM (csrc/gemm_tf32.cuh) at the forms K6/K7 use with f32 operands
+# ---------------------------------------------------------------------------
+
+# (M, N, K, batches, a_shape, a_off, w_shape, transpose, beta, bias): the weights
+# w as stored, [batches, N, K] (linear, the gates) or [batches, K, N] (dgrad:
+# transposed by the split); batch z's A columns at z a_off[1]
+TF32_CASES = {
+    "linear_ragged_m_bias": (3000, 544, 544, 1, (3000, 544), (0, 0), (1, 544, 544), False,
+                             False, True),
+    "linear_k136": (1000, 136, 136, 1, (1000, 136), (0, 0), (1, 136, 136), False, False, True),
+    "dgrad_n544_beta": (3000, 544, 512, 1, (3000, 512), (0, 0), (1, 512, 544), True, True,
+                        False),
+    "gates_batched": (3000, 256, 128, 4, (3000, 512), (0, 128), (4, 256, 128), False, False,
+                      True),
+    "gate_dgrad_batched": (3000, 128, 256, 4, (3000, 1024), (0, 256), (4, 256, 128), True,
+                           True, False),
+}
+TF32_RTOL = 2e-6   # relative Frobenius against float64: three TF32 terms keep ~21 bits
+
+
+@pytest.mark.parametrize("case", list(TF32_CASES))
+def test_tf32_gemm_matches_a_float64_product(cuda_device, case):
+    """Each form-K product of the split-TF32 GEMM (A K-major, the weights
+    split once into TF32 hi and lo, as stored or transposed) against the
+    float64 product of the same f32 operands within TF32_RTOL relative
+    Frobenius: a ragged M, N = 136 and 544, K = 136 (no multiple of 32: the
+    map ends at K), beta, bias, per-head batches by coordinates. Two
+    launches bitwise equal; the split pair adds up to the weights within
+    2^-22 of each."""
+    from madeleine_torch.ops import gemm as G
+
+    M, N, K, nb, a_shape, a_off, w_shape, tr, beta, has_bias = TF32_CASES[case]
+    g = torch.Generator().manual_seed(11)
+    a = torch.randn(*a_shape, generator=g).to(cuda_device)
+    w = (torch.randn(*w_shape, generator=g) * K ** -0.5).to(cuda_device)
+    bias = torch.randn(nb * N, generator=g).to(cuda_device) if has_bias else None
+    width = nb * N
+    c0 = (torch.randn(M, width, generator=g).to(cuda_device) if beta
+          else torch.zeros(M, width, device=cuda_device))
+    sp = G.tf32_split(w, transpose=tr)
+    hi, lo = sp.chunk(2)
+    wk = (w.transpose(1, 2) if tr else w).reshape(nb * N, K)
+    gap = ((hi + lo).double() - wk.double()).abs()
+    assert bool((gap <= 2.0 ** -22 * wk.double().abs()).all())
+    want = c0.double().clone()
+    for z in range(nb):
+        v = a[:, a_off[1] * z:a_off[1] * z + K].double() @ wk[z * N:(z + 1) * N].double().T
+        if bias is not None:
+            v = v + bias[z * N:(z + 1) * N].double()
+        want[:, z * N:(z + 1) * N] += v
+    outs = []
+    for _ in range(2):
+        c = c0.clone()
+        G.tf32_gemm(a, sp, c, M=M, N=N, K=K, batches=nb, a_off=a_off, b_off=(N, 0), ldc=width,
+                    stride_c=N, bias=bias, stride_bias=N, beta=beta)
+        outs.append(c)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert _rel(outs[0].double(), want) <= TF32_RTOL, _rel(outs[0].double(), want)
+
+
+@pytest.mark.parametrize("nb,M,N,K", [(1, 512, 544, 20000), (4, 256, 128, 5000)],
+                         ids=["dw1_d_in544", "dwab_batched"])
+def test_tf32_weight_gradient_pieces(cuda_device, nb, M, N, K):
+    """The split-TF32 weight gradient (both operands token-major, transposed
+    and split in shared memory; the tokens cut into pieces of whole 32-token
+    k tiles summed in piece order) against the float64 product within
+    TF32_RTOL; two launches bitwise equal."""
+    from madeleine_torch.ops import gemm as G
+
+    g = torch.Generator().manual_seed(12)
+    a = torch.randn(K, nb * M, generator=g).to(cuda_device)
+    b = torch.randn(K, nb * N, generator=g).to(cuda_device)
+    want = torch.stack([a[:, z * M:(z + 1) * M].double().T @ b[:, z * N:(z + 1) * N].double()
+                        for z in range(nb)])
+    outs = [G.tf32_wgrad(a, b, torch.empty(nb, M, N, device=cuda_device), M=M, N=N, K=K,
+                         batches=nb) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert _rel(outs[0].double(), want) <= TF32_RTOL, _rel(outs[0].double(), want)
+
+
+def test_tf32_gemm_refuses_what_it_cannot_take(cuda_device):
+    """A misaligned operand raises in the wrapper before any launch; a
+    batched A whose k tiles would run into the next batch (K = 80, no
+    multiple of 32, with a k offset) is refused by the launcher itself (cudaErrorInvalidValue), and
+    K6 with f32 operands refuses an x 4 bytes past a 16-byte boundary
+    before it launches."""
+    from madeleine_torch.ops import encoder_train as et
+    from madeleine_torch.ops import gemm as G
+
+    sp = G.tf32_split(torch.zeros(128, 96, device=cuda_device))
+    buf = torch.zeros(64 * 96 + 4, device=cuda_device)
+    before = G.tf32_launches
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        G.tf32_gemm(buf[1:1 + 64 * 96].view(64, 96), sp, torch.zeros(64, 128, device=cuda_device),
+                    M=64, N=128, K=96)
+    assert G.tf32_launches == before
+    sp2 = G.tf32_split(torch.zeros(2, 128, 80, device=cuda_device))
+    with pytest.raises(RuntimeError, match="cudaError"):
+        G.tf32_gemm(torch.zeros(64, 160, device=cuda_device), sp2,
+                    torch.zeros(64, 256, device=cuda_device), M=64, N=128, K=80, batches=2,
+                    a_off=(0, 80), b_off=(128, 0), ldc=256, stride_c=128)
+    from madeleine_torch.models.madeleine import train_weights
+
+    with torch.no_grad():
+        w = {k: v.detach().contiguous()
+             for k, v in train_weights(_model(cuda_device, "float32"), torch.float32).items()}
+    xb = torch.zeros(2 * 64 * 512 + 1, device=cuda_device)
+    bias = et.token_mask_bias(None, 2, 64, cuda_device)
+    before = et.fwd_f32_launches
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        et.encoder_train_fwd_cuda(xb[1:].view(2, 64, 512), bias, w, 5, 0)
+    assert et.fwd_f32_launches == before
+
+
+def test_f32_slide_projection_is_the_same_at_any_batch_size(cuda_device):
+    """ROADMAP C2 on the card: the f32 slide projector gives 64 pooled rows
+    bit for bit the values of their two halves (two data-parallel ranks),
+    within 1e-6 of the f32 product, where cuBLAS's f32 product of the halves
+    differs from the whole batch's."""
+    from madeleine_torch.models import madeleine as port
+
+    model = _model(cuda_device, "float32")
+    emb = model.wsi_embedders
+    pooled = torch.randn(64, emb.n_heads, emb.hidden_dim,
+                         generator=torch.Generator().manual_seed(3)).to(cuda_device)
+    with torch.no_grad():
+        whole = port._slide_projection(model, pooled, torch.float32)
+        halves = torch.cat([port._slide_projection(model, p, torch.float32)
+                            for p in (pooled[:32], pooled[32:])])
+        f32 = port._linear_head_major(model, model.projector, pooled, torch.float32)
+    assert torch.equal(whole, halves)
+    assert _rel(whole, f32) <= 1e-6
+
+
 @pytest.mark.parametrize("d_in,need_dx", [(512, False), (544, True)], ids=["t4057", "d_in544_dx"])
 def test_encoder_train_kernels_match_plain_at_a_partial_tile(cuda_device, d_in, need_dx):
     """K6 and K7 on the wgmma GEMM at t = 4057 (63 full 64-row tiles and 25

@@ -247,7 +247,7 @@ def test_table_gradient_is_the_sum_of_dx_over_its_rows(rates_zero):
         x = port._append_stain_encoding(model, to_torch(feats[:, i]), i).detach()
         x.requires_grad_(True)
         pooled, tk = et.encoder_train(x, None, w, 3, row_offset=i * 3, need_dx=True)
-        slide_i = port._linear_head_major(model, model.projector, pooled, torch.float32)
+        slide_i = port._slide_projection(model, pooled, torch.float32)
         (slide_i.square().sum() + tk.sum()).backward()
         want = x.grad[..., d:].sum((0, 1))
         np.testing.assert_allclose(got[i].numpy(), want.numpy(), rtol=1e-5, atol=1e-6,
